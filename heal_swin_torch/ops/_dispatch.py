@@ -1,0 +1,36 @@
+"""Routing between a kernel and its plain version, and the kernels' launch plumbing
+shared by the ops modules."""
+
+from __future__ import annotations
+
+import torch
+
+from heal_swin_torch import _build
+
+
+def use_kernel(t: torch.Tensor, impl: str) -> bool:
+    """Kernel or plain version for tensor ``t``: "auto" runs the kernel for a CUDA
+    tensor and the plain version for a CPU tensor; "xla" runs the plain version on
+    any device (the JAX package's name for its non-kernel path); "pallas" demands
+    the kernel and raises on a CPU tensor."""
+    if impl == "xla":
+        return False
+    if impl not in ("auto", "pallas"):
+        raise ValueError(f"unknown impl {impl!r}: expected 'auto', 'xla' or 'pallas'")
+    if t.is_cuda:
+        return True
+    if impl == "pallas":
+        raise ValueError(f"impl='pallas' needs CUDA tensors; this one is on {t.device}")
+    return False
+
+
+def stream(t: torch.Tensor) -> int:
+    """The current CUDA stream of ``t``'s device, as the C entries take it."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a C entry returned a CUDA error (launch refused or failed)."""
+    if code != 0:
+        msg = _build.lib().hs_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
