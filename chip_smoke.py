@@ -1,7 +1,8 @@
 """On-GPU smoke check of heal_swin_torch: builds the CUDA kernels from the checkout,
-holds each against its plain PyTorch version at the shapes of the serving path, then
-drives HEAL-SWIN-UNet segmentation ``predict`` at the paper configuration (nside 256,
-batch 2, bf16, random seeded weights) through the kernels and through the plain path.
+holds each against its plain PyTorch version at the shapes of the main path, then
+drives HEAL-SWIN-UNet segmentation at the paper configuration (nside 256, batch 2,
+bf16, random seeded weights) through the kernels and through the plain path:
+``predict`` (serving) and the train step (forward, weighted CE, backward, Adam).
 
     python3 chip_smoke.py            # needs one CUDA GPU; exits non-zero otherwise
 
@@ -9,10 +10,12 @@ Prints its findings line by line, a JSON line of per-kernel results, and ends wi
 {"ok": true, "device": {...}}.  Any failed check raises, so the exit code is non-zero.
 
 The kernels' launch counters (``launches``, and ``launches_by_shape`` per operand
-shape) are read from one predict call; each kernel's ``ms`` / ``plain_ms`` is the sum,
-over the shapes that predict launched it at, of the median time of one call at that
-shape times the number of such launches.  A torch.profiler trace of predict gives the
-device time by kernel and the device's idle share.
+shape) are set to 0 just before one predict call and one train step and read just
+after; each kernel's ``launches`` in the results line comes from the run that uses
+it (the train step for K1, K2, K4-K7; predict for K3), and its ``ms`` / ``plain_ms``
+is the sum, over the shapes that run launched it at, of the median time of one call
+at that shape times the number of such launches.  torch.profiler traces of predict
+and of the train step give the device time by kernel and the device's idle share.
 """
 
 from __future__ import annotations
@@ -34,9 +37,13 @@ NSIDE = 256
 N_CLASSES = 10
 WS = 64
 REL_L2_TOL = 1e-2  # kernel vs plain, one kernel call or one block, bf16 (check_close)
+LOSS_REL_TOL = 1e-3  # K6's loss vs its plain version's
 SLICE_REL_L2_TOL = 5e-2  # tail=False features after 22 blocks (see check_slice)
 TIMING_RUNS = 20
 PROFILE_PREDICTS = 5
+TRAIN_STEPS = 5
+PROFILE_STEPS = 2
+LEARNING_RATE = 9.55e-4  # the JAX package's bench.py train rate
 
 
 def log(*a):
@@ -59,9 +66,15 @@ def check_close(name, got, want, tol=REL_L2_TOL):
     """bf16 kernel vs plain version on the same inputs: both round at the same points,
     so they differ by summation order and the bf16 roundings it flips (~2^-8 on a
     flipped element); relative L2 well under 1e-2."""
-    err = rel_l2(got, want)
     mae = float((got.float() - want.float()).abs().max())
-    if not (torch.isfinite(got.float()).all() and err <= tol):
+    if not torch.isfinite(got.float()).all():
+        raise AssertionError(f"{name}: non-finite values")
+    if float(torch.linalg.vector_norm(want.float())) == 0.0:  # e.g. a dropped branch
+        if mae != 0.0:
+            raise AssertionError(f"{name}: reference is zero, got max abs {mae:.3e}")
+        return 0.0, 0.0
+    err = rel_l2(got, want)
+    if err > tol:
         raise AssertionError(f"{name}: relative L2 {err:.3e} > {tol} (max abs {mae:.3e})")
     return err, mae
 
@@ -159,6 +172,19 @@ def check_kernels(gen, dev):
             timed[("window_attention_qkv_epi", T, C, masked)] = dict(
                 rel_l2=err, max_abs_err=mae, ms=ms, plain_ms=pms)
 
+            # K4, its backward, for an output gradient dz
+            dz = rnd(T, C).to(bf16)
+            got = wa.window_attention_qkv_epi_bwd(*args, dz, **kw, impl="pallas")
+            want = wa.window_attention_qkv_epi_bwd_plain(*args, dz, **kw)
+            err, mae = check_grads(f"K4 C={C} mask={masked}", K4_GRADS, got, want)
+            ms = median_ms(lambda: wa.window_attention_qkv_epi_bwd(*args, dz, **kw,
+                                                                   impl="pallas"))
+            pms = median_ms(lambda: wa.window_attention_qkv_epi_bwd_plain(*args, dz, **kw))
+            log(f"K4 window_attention_qkv_epi_bwd C={C} T={T} mask={masked}: rel_l2 <= "
+                f"{err:.3e} max_abs {mae:.3e} kernel {ms:.4f} ms plain {pms:.4f} ms")
+            timed[("window_attention_qkv_epi_bwd", T, C, masked)] = dict(
+                rel_l2=err, max_abs_err=mae, ms=ms, plain_ms=pms)
+
     # K2: the C = 768 bottleneck blocks (one unshifted, one shifted)
     C, h = 768, 24
     T = BATCH * 8 * NSIDE * NSIDE // 4 // 4 ** 3
@@ -178,12 +204,29 @@ def check_kernels(gen, dev):
             f"max_abs {mae:.3e} kernel {ms:.4f} ms plain {pms:.4f} ms")
         timed[("window_attention", T, C, masked)] = dict(
             rel_l2=err, max_abs_err=mae, ms=ms, plain_ms=pms)
+
+        # K5, its backward, for an output gradient dout
+        dout = rnd(T, C).to(bf16)
+        got = wa.window_attention_bwd(*args, dout, **kw, impl="pallas")
+        want = wa.window_attention_bwd_plain(*args, dout, **kw)
+        err, mae = check_grads(f"K5 C={C} mask={masked}", K5_GRADS, got, want)
+        ms = median_ms(lambda: wa.window_attention_bwd(*args, dout, **kw, impl="pallas"))
+        pms = median_ms(lambda: wa.window_attention_bwd_plain(*args, dout, **kw))
+        log(f"K5 window_attention_bwd C={C} T={T} mask={masked}: rel_l2 <= {err:.3e} "
+            f"max_abs {mae:.3e} kernel {ms:.4f} ms plain {pms:.4f} ms")
+        timed[("window_attention_bwd", T, C, masked)] = dict(
+            rel_l2=err, max_abs_err=mae, ms=ms, plain_ms=pms)
     # the scaled-dot flavour (not on the paper path; same kernel)
     kw = dict(ws=WS, num_heads=h, use_cos=False, sm_scale=32 ** -0.5, has_mask=True)
     err, _ = check_close("K2 scaled-dot", wa.window_attention(qkv, groups, bias, None, **kw,
                                                               impl="pallas"),
                          wa.window_attention_plain(qkv, groups, bias, None, **kw))
     log(f"K2 window_attention scaled-dot C={C}: rel_l2 {err:.3e}")
+    err, _ = check_grads("K5 scaled-dot", K5_GRADS,
+                         wa.window_attention_bwd(qkv, groups, bias, None, dout, **kw,
+                                                 impl="pallas"),
+                         wa.window_attention_bwd_plain(qkv, groups, bias, None, dout, **kw))
+    log(f"K5 window_attention_bwd scaled-dot C={C}: rel_l2 <= {err:.3e}")
 
     # K3: the decoder tail, T = 262144 tokens, p = 4, F = 10
     C, p, F = 96, 4, N_CLASSES
@@ -205,7 +248,99 @@ def check_kernels(gen, dev):
     timed[("final_head_predict", T, C)] = dict(
         max_abs_err=worst, index_mismatches=mism, index_mismatch_share=mism / (T * p),
         near_tie_rows=near, ms=ms, plain_ms=pms)
+
+    # K6 / K7: the fused CE tail and its backward, on the same tail operands
+    y = torch.randint(0, F, (T, p), generator=gen, dtype=torch.int32).to(dev)
+    welem = (0.5 + torch.rand(F, generator=gen)).to(dev)[y.long()]
+    largs = args + (y, welem)
+    timed.update(check_loss_kernels("K6/K7", largs, p, fh))
     return timed
+
+
+K4_GRADS = ("dx", "dwqkv", "dbqkv", "dwp", "dbp", "dgamma", "dbeta", "dbias", "dlogit_scale")
+K5_GRADS = ("dqkv", "dbias", "dlogit_scale")
+K7_GRADS = ("dx", "dwe", "dgamma", "dbeta", "dwh")
+
+
+def check_grads(name, names, got, want, tol=REL_L2_TOL):
+    """Every gradient a backward kernel returns against its plain version's (both None
+    where the operand has none).  Returns the worst relative L2 and max abs error."""
+    worst = (0.0, 0.0)
+    for n, g, w in zip(names, got, want):
+        if w is None or g is None:
+            if (w is None) != (g is None):
+                raise AssertionError(f"{name} {n}: one side has no gradient")
+            continue
+        err, mae = check_close(f"{name} {n}", g, w, tol)
+        worst = (max(worst[0], err), max(worst[1], mae))
+    return worst
+
+
+def confmat_agrees(name, cm, lf, y, slack):
+    """A kernel's confusion matrix ``cm`` (F, F) against the plain version's rounded
+    logits ``lf`` (T, p, F): every element whose top-2 gap is at least ``slack`` (per
+    element) is counted at (target, plain argmax); what remains of ``cm`` is exactly
+    the near-tie elements, each in its target's row.  Returns (near-tie elements,
+    elements counted elsewhere than the plain argmax at most)."""
+    from heal_swin_torch.ops import final_head as fh
+
+    F = lf.shape[-1]
+    top2 = lf.topk(2, dim=-1).values
+    near = (top2[..., 0] - top2[..., 1]) < slack
+    yl = y.long()
+    cell = yl * F + fh.argmax_lowest(lf).long()
+    cm_far = torch.bincount(cell[~near], minlength=F * F).reshape(F, F).float()
+    rest = cm.float() - cm_far
+    near_rows = torch.bincount(yl[near], minlength=F).float()
+    if not (bool((rest >= 0).all()) and torch.equal(rest.sum(1), near_rows)):
+        raise AssertionError(f"{name}: confusion matrix differs outside near-ties")
+    cm_plain = cm_far + torch.bincount(cell[near], minlength=F * F).reshape(F, F).float()
+    return int(near.sum()), int((cm.float() - cm_plain).abs().sum()) // 2
+
+
+def check_loss_kernels(name, largs, p, fh, timing=True):
+    """K6 (loss, confusion matrix) and K7 (every gradient, for a loss gradient of 1)
+    against their plain versions on the operands ``largs`` = (x, we, gamma, beta, wh,
+    y, welem).  K6's loss within LOSS_REL_TOL relative; its confusion matrix checked
+    with ``confmat_agrees`` at K3's slack (every z element one bf16 step off) plus two
+    bf16 steps of the larger logit (the logits' own rounding).  Returns the timings,
+    keyed like the launch counters, when ``timing``."""
+    x, tail = largs[0], largs[1:5]
+    T, C = x.shape
+    with torch.no_grad():
+        num, den, cm = fh.final_head_loss_sums(*largs, patch_size=p, impl="pallas")
+        wnum, wden, wcm = fh.final_head_loss_plain(*largs, patch_size=p)
+        loss, wloss = float(num / den), float(wnum / wden)
+        if not abs(loss - wloss) <= LOSS_REL_TOL * abs(wloss):
+            raise AssertionError(f"{name}: loss {loss} vs plain {wloss}")
+        lf = fh.final_head_logits_plain(x, *tail, patch_size=p).to(torch.bfloat16).float()
+        slack = logit_slack(fh, x, tail) + 2 * 2.0 ** -7 * lf.abs().amax(-1)
+        near, moved = confmat_agrees(name, cm, lf, largs[5].reshape(T, p), slack)
+        scale = torch.ones((), device=x.device) / wden
+        got = fh.final_head_loss_bwd(*largs, scale, patch_size=p, impl="pallas")
+        want = fh.final_head_loss_bwd_plain(*largs, scale, patch_size=p)
+        err, mae = check_grads(name, K7_GRADS, got, want)
+    log(f"{name} final_head_loss T={T} C={C}: loss {loss:.6f} plain {wloss:.6f} (rel "
+        f"{abs(loss - wloss) / abs(wloss):.2e}); confusion matrix: {moved} of {T * p} "
+        f"elements in another column, all near-ties ({near} near-tie elements); "
+        f"backward rel_l2 <= {err:.3e} max_abs {mae:.3e}")
+    if not timing:
+        return {}
+    with torch.no_grad():
+        ms6 = median_ms(lambda: fh.final_head_loss_sums(*largs, patch_size=p, impl="pallas"))
+        pms6 = median_ms(lambda: fh.final_head_loss_plain(*largs, patch_size=p))
+        ms7 = median_ms(lambda: fh.final_head_loss_bwd(*largs, scale, patch_size=p,
+                                                       impl="pallas"))
+        pms7 = median_ms(lambda: fh.final_head_loss_bwd_plain(*largs, scale, patch_size=p))
+    log(f"K6 final_head_loss T={T} C={C} p={p}: kernel {ms6:.4f} ms plain {pms6:.4f} ms")
+    log(f"K7 final_head_loss_bwd T={T} C={C} p={p}: kernel {ms7:.4f} ms plain {pms7:.4f} ms")
+    # K6's max_abs_err: |loss - plain loss|; the confusion matrix's moved elements are
+    # counted on their own
+    return {("final_head_loss", T, C): dict(max_abs_err=abs(loss - wloss),
+                                            confmat_moved=moved, near_tie_elements=near,
+                                            ms=ms6, plain_ms=pms6),
+            ("final_head_loss_bwd", T, C): dict(rel_l2=err, max_abs_err=mae, ms=ms7,
+                                                plain_ms=pms7)}
 
 
 def build_task(impl, dev, state=None):
@@ -240,6 +375,20 @@ def build_task(impl, dev, state=None):
     return task
 
 
+NO_LAUNCHES = {k: 0 for k in (
+    "window_attention_qkv_epi", "window_attention", "final_head_predict",
+    "window_attention_qkv_epi_bwd", "window_attention_bwd", "final_head_loss",
+    "final_head_loss_bwd")}
+
+
+def read_counters():
+    """The kernels' launch counters: (per kernel, per (kernel, T, C[, has_mask]))."""
+    from heal_swin_torch.ops import final_head as fh
+    from heal_swin_torch.ops import window_attention as wa
+
+    return {**wa.launches, **fh.launches}, wa.launches_by_shape + fh.launches_by_shape
+
+
 def reset_counters():
     from heal_swin_torch.ops import final_head as fh
     from heal_swin_torch.ops import window_attention as wa
@@ -264,20 +413,20 @@ def record_blocks(model, io):
             if isinstance(m, SwinHPBlock)]
 
 
-def profile_predict(task, imgs, n=PROFILE_PREDICTS) -> float:
-    """Device time by kernel name over ``n`` predict calls under torch.profiler (device
+def profile(label, fn, n) -> float:
+    """Device time by kernel name over ``n`` calls of ``fn`` under torch.profiler (device
     activity only, to keep the host's overhead low), and the device's idle share under
     the profiler: 1 - (summed device activity) / (wall time).  The work runs on one
-    stream, so device activities do not overlap.  Returns the device ms per predict."""
+    stream, so device activities do not overlap.  Returns the device ms per call."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile as torch_profile
 
-    task.predict(None, imgs)
+    fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            task.predict(None, imgs)
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     per = collections.defaultdict(lambda: [0.0, 0])
@@ -288,10 +437,10 @@ def profile_predict(task, imgs, n=PROFILE_PREDICTS) -> float:
     busy = sum(ms for ms, _ in per.values())
     if busy <= 0:
         raise AssertionError("the profiler recorded no device activity")
-    log(f"profile: {n} predicts, wall {wall_ms / n:.3f} ms/predict under the profiler, "
-        f"device busy {busy / n:.3f} ms/predict, idle share {1 - busy / wall_ms:.4f}")
-    for name, (ms, cnt) in sorted(per.items(), key=lambda kv: -kv[1][0])[:16]:
-        log(f"profile: {ms / n:9.4f} ms/predict {cnt / n:6.1f}/predict  {name[:110]}")
+    log(f"{label}: {n} calls, wall {wall_ms / n:.3f} ms/call under the profiler, "
+        f"device busy {busy / n:.3f} ms/call, idle share {1 - busy / wall_ms:.4f}")
+    for name, (ms, cnt) in sorted(per.items(), key=lambda kv: -kv[1][0])[:24]:
+        log(f"{label}: {ms / n:9.4f} ms/call {cnt / n:6.1f}/call  {name[:110]}")
     return busy / n
 
 
@@ -299,10 +448,11 @@ def check_slice(task_k, task_p, imgs, timed):
     """One predict through the kernels (``task_k``) and one through the plain path
     (``task_p``, the same weights), checked against each other.  Returns the kernels'
     launches in the kernel path's predict: per kernel, and per operand shape."""
+    from heal_swin_torch.models.tasks import decoder_tail
     from heal_swin_torch.ops import final_head as fh
-    from heal_swin_torch.ops import window_attention as wa
 
-    expected = {"window_attention_qkv_epi": 20, "window_attention": 2, "final_head_predict": 1}
+    expected = dict(NO_LAUNCHES, window_attention_qkv_epi=20, window_attention=2,
+                    final_head_predict=1)
     npix = imgs.shape[1]
 
     # the kernel path: count the launches of one predict, keep the features K3 got
@@ -311,8 +461,7 @@ def check_slice(task_k, task_p, imgs, timed):
     reset_counters()
     preds_k = task_k.predict(None, imgs)
     torch.cuda.synchronize()
-    launches = {**wa.launches, **fh.launches}
-    by_shape = wa.launches_by_shape + fh.launches_by_shape
+    launches, by_shape = read_counters()
     keep.remove()
     log(f"slice: kernel launches in one predict: {launches}")
     log(f"slice: by shape (kernel, T, C[, has_mask]): {dict(sorted(by_shape.items()))}")
@@ -330,9 +479,7 @@ def check_slice(task_k, task_p, imgs, timed):
     # features it was given, with only K3's own rounding as near-tie slack
     feats_k = feats["k"]
     B, N, C = feats_k.shape
-    dec = task_k.model.decoder
-    tail = (dec.up.expand.weight.t(), dec.up.norm.weight, dec.up.norm.bias,
-            dec.output.weight[:, :, 0].t())
+    tail = decoder_tail(task_k.model)
     fk = feats_k.reshape(B * N, C)
     with torch.no_grad():
         want = fh.final_head_predict_plain(fk, *tail, patch_size=4)
@@ -423,25 +570,216 @@ def drive_slice(dev, timed):
     log(f"slice: predict kernels {ips_k:.3f} / {ips_k2:.3f} img/s (peak {mem_k:.3f} GiB above "
         f"the resident), plain {ips_p:.3f} img/s (peak {mem_p:.3f} GiB above the resident); "
         f"resident {resident:.3f} GiB (both models' f32 weights and the input)")
-    busy = profile_predict(task_k, imgs)
+    busy = profile("profile", lambda: task_k.predict(None, imgs), PROFILE_PREDICTS)
     wall = BATCH / max(ips_k, ips_k2) * 1e3
     log(f"profile: against the untraced {wall:.3f} ms/predict the device idles "
         f"{1 - busy / wall:.4f} of the time")
     return launches, by_shape
 
 
-def kernel_results(timed, launches, by_shape):
-    """The per-kernel results line: each kernel's launches in the predict run, and
-    its times summed over the shapes predict launched it at, each shape weighted by
-    its launches there."""
-    source = {"window_attention_qkv_epi": "heal_swin_torch/csrc/window_attention.cu",
-              "window_attention": "heal_swin_torch/csrc/window_attention.cu",
-              "final_head_predict": "heal_swin_torch/csrc/final_head.cu"}
-    replaces = {"window_attention_qkv_epi": "heal_swin_tpu/ops/window_attention.py:993",
-                "window_attention": "heal_swin_tpu/ops/window_attention.py:677",
-                "final_head_predict": "heal_swin_tpu/ops/final_head.py:191"}
+def train_batch(dev):
+    """The fixed training batch: seeded random images, and targets that are a class per
+    bin of the first input channel, so that a few steps on the batch can lower the
+    loss (uniformly random targets leave nothing to learn)."""
+    imgs = torch.randn(BATCH, 8 * NSIDE * NSIDE, 3,
+                       generator=torch.Generator().manual_seed(SEED + 1)).to(dev)
+    targets = torch.clamp(((imgs[..., 0] + 2.5) * 2).long(), 0, N_CLASSES - 1)
+    return imgs, targets.to(torch.int32)
+
+
+def check_train_blocks(task_k, task_p, imgs, targets, dev):
+    """The backward where the model calls the kernels: every block of both paths on
+    the plain path's input and upstream gradient to that block, and the fused tail
+    on the features the kernel path hands it.  Runs before any optimizer step, so the
+    two models hold the same weights."""
+    from heal_swin_torch.models.swin_hp import SwinHPBlock
+    from heal_swin_torch.models.tasks import decoder_tail
+    from heal_swin_torch.ops import final_head as fh
+
+    # the plain path's forward and backward, keeping each block's input and the
+    # gradient arriving at its output
+    io = {}
+
+    def hook(name):
+        def keep(_mod, args, out):
+            rec = io[name] = [args[0].detach(), None]
+            out.register_hook(lambda g: rec.__setitem__(1, g.detach()))
+        return keep
+
+    hooks = [m.register_forward_hook(hook(n)) for n, m in task_p.model.named_modules()
+             if isinstance(m, SwinHPBlock)]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    loss_p, _ = task_p.loss_fn(imgs, targets, generator=gen, deterministic=False)
+    loss_p.backward()
+    for hk in hooks:
+        hk.remove()
+    task_p.model.zero_grad(set_to_none=True)
+    if len(io) != 22 or any(dy is None for _, dy in io.values()):
+        raise AssertionError(f"recorded {len(io)} blocks")
+
+    # each pair of blocks draws the same DropPath masks: one seed per pair
+    task_k.model.train()
+    blocks_k = dict(task_k.model.named_modules())
+    blocks_p = dict(task_p.model.named_modules())
+    worst = 0.0
+    for i, (name, (x, dy)) in enumerate(io.items()):
+        grads = []
+        for blk in (blocks_p[name], blocks_k[name]):
+            blk.zero_grad(set_to_none=True)
+            xi = x.clone().requires_grad_()
+            blk(xi, torch.Generator(device=dev).manual_seed(SEED + 100 + i)).backward(dy)
+            grads.append([("dx", xi.grad)] + [(n, q.grad) for n, q in blk.named_parameters()])
+            blk.zero_grad(set_to_none=True)
+        for (n, want), (_, got) in zip(*grads):
+            if want is None or got is None:
+                raise AssertionError(f"block {name} {n}: no gradient")
+            worst = max(worst, check_close(f"block {name} {n}", got, want)[0])
+    log(f"train: each of the {len(io)} blocks on the plain path's input and upstream "
+        f"gradient: input and parameter gradients rel_l2 <= {worst:.3e} (tol {REL_L2_TOL})")
+    del io
+
+    # the fused tail (K6, K7) on the features the kernel path gives it
+    feats = {}
+    keep = task_k.model.register_forward_hook(lambda _m, _a, out: feats.update(k=out))
+    with torch.no_grad():
+        task_k.loss_fn(imgs, targets, generator=torch.Generator(device=dev).manual_seed(SEED),
+                       deterministic=False)
+    keep.remove()
+    B, N, C = feats["k"].shape
+    y = targets.reshape(B * N, 4)
+    largs = ((feats["k"].reshape(B * N, C),) + decoder_tail(task_k.model)
+             + (y, task_k.class_weights[y.long()]))
+    check_loss_kernels("train tail", largs, 4, fh, timing=False)
+    return float(loss_p.detach())
+
+
+def train_rate(task, opt, mstate, imgs, targets, start, n):
+    """``n`` back-to-back train steps: images/s, the peak device memory above what was
+    resident before them (GiB), the losses, and the metric state."""
+    from heal_swin_torch.training.trainer import step_generator, train_step
+
+    dev = imgs.device
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    losses = []
+    t = time.perf_counter()
+    for step in range(start, start + n):
+        loss, mstate = train_step(task, opt, mstate, imgs, targets,
+                                  step_generator(SEED, step, dev))
+        losses.append(loss)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    mem = (torch.cuda.max_memory_allocated() - resident) / 2 ** 30
+    return imgs.shape[0] * n / dt, mem, [float(v) for v in losses], mstate
+
+
+def drive_train(dev, timed):
+    """The train step at paper scale through the kernels and through the plain path:
+    per-block backward and tail checks, one counted step, the loss over 5 more steps
+    on one batch, the rate and memory of each path (kernel, plain, kernel), and a
+    trace of the kernel path's step.  Returns the kernels' launches in one train step:
+    per kernel, and per operand shape."""
+    from heal_swin_torch.training.optimizer import OptimizerConfig, make_optimizer
+    from heal_swin_torch.training.trainer import step_generator, train_step
+
+    imgs, targets = train_batch(dev)
+    task_k = build_task("auto", dev)
+    task_p = build_task("xla", dev, state=task_k.model.state_dict())
+    loss0_p = check_train_blocks(task_k, task_p, imgs, targets, dev)
+
+    opt_cfg = OptimizerConfig(learning_rate=LEARNING_RATE)
+    opts = [make_optimizer(t.model.parameters(), opt_cfg) for t in (task_k, task_p)]
+    mstates = [t.metric_init() for t in (task_k, task_p)]
+
+    # step 0 of the kernel path, counted, then 5 timed steps on the same batch; the
+    # same on the plain path; then 5 more timed steps on the kernel path
+    expected = dict(NO_LAUNCHES, window_attention_qkv_epi=20, window_attention=2,
+                    window_attention_qkv_epi_bwd=20, window_attention_bwd=2,
+                    final_head_loss=1, final_head_loss_bwd=1)
+    reset_counters()
+    loss_k0, mstates[0] = train_step(task_k, opts[0], mstates[0], imgs, targets,
+                                     step_generator(SEED, 0, dev))
+    torch.cuda.synchronize()
+    launches, by_shape = read_counters()
+    log(f"train: kernel launches in one train step: {launches}")
+    log(f"train: by shape (kernel, T, C[, has_mask]): {dict(sorted(by_shape.items()))}")
+    if launches != expected:
+        raise AssertionError(f"launch counts {launches} != {expected}")
+    unchecked = sorted(set(by_shape) - set(timed))
+    if unchecked:
+        raise AssertionError(f"the train step launched kernels at shapes not checked: "
+                             f"{unchecked}")
+    ips_k, mem_k, traj_k, mstates[0] = train_rate(task_k, opts[0], mstates[0], imgs,
+                                                  targets, 1, TRAIN_STEPS)
+    loss_p0, mstates[1] = train_step(task_p, opts[1], mstates[1], imgs, targets,
+                                     step_generator(SEED, 0, dev))
+    ips_p, mem_p, traj_p, mstates[1] = train_rate(task_p, opts[1], mstates[1], imgs,
+                                                  targets, 1, TRAIN_STEPS)
+    ips_k2, _, _, mstates[0] = train_rate(task_k, opts[0], mstates[0], imgs, targets,
+                                          1 + TRAIN_STEPS, TRAIN_STEPS)
+    resident = torch.cuda.memory_allocated() / 2 ** 30
+    loss_k0, loss_p0 = float(loss_k0), float(loss_p0)
+    log(f"train: first step's loss kernels {loss_k0:.6f} plain {loss_p0:.6f} (rel "
+        f"{abs(loss_k0 - loss_p0) / abs(loss_p0):.2e}); plain path before any step "
+        f"{loss0_p:.6f}")
+    for label, traj in (("kernels", [loss_k0] + traj_k), ("plain", [loss_p0] + traj_p)):
+        log(f"train: loss over {len(traj)} steps on one batch ({label}): "
+            + " ".join(f"{v:.6f}" for v in traj))
+        if not (all(math.isfinite(v) for v in traj) and traj[-1] < traj[0]):
+            raise AssertionError(f"train ({label}): the loss did not fall: {traj}")
+    for label, task, ms, n in (("kernels", task_k, mstates[0], 1 + 2 * TRAIN_STEPS),
+                               ("plain", task_p, mstates[1], 1 + TRAIN_STEPS)):
+        m = task.metric_compute(ms, "train_")
+        if not float(ms["total"]) == n * imgs.shape[0] * imgs.shape[1]:
+            raise AssertionError(f"train ({label}): metric state counted {float(ms['total'])}")
+        log(f"train: metrics over {n} steps ({label}): "
+            + " ".join(f"{k} {v:.4f}" for k, v in m.items()))
+    log(f"train: train step kernels {ips_k:.3f} / {ips_k2:.3f} img/s (peak {mem_k:.3f} GiB "
+        f"above the resident), plain {ips_p:.3f} img/s (peak {mem_p:.3f} GiB above the "
+        f"resident); resident {resident:.3f} GiB (both models' f32 weights, their Adam "
+        f"state and the batch)")
+
+    state = dict(step=1 + 2 * TRAIN_STEPS)
+
+    def one_step():
+        train_step(task_k, opts[0], mstates[0], imgs, targets,
+                   step_generator(SEED, state["step"], dev))
+        state["step"] += 1
+
+    busy = profile("train profile", one_step, PROFILE_STEPS)
+    wall = BATCH / max(ips_k, ips_k2) * 1e3
+    log(f"train profile: against the untraced {wall:.3f} ms/step the device idles "
+        f"{1 - busy / wall:.4f} of the time")
+    return launches, by_shape
+
+
+SOURCES = {
+    "window_attention_qkv_epi": ("heal_swin_torch/csrc/window_attention.cu",
+                                 "heal_swin_tpu/ops/window_attention.py:993"),
+    "window_attention": ("heal_swin_torch/csrc/window_attention.cu",
+                         "heal_swin_tpu/ops/window_attention.py:677"),
+    "final_head_predict": ("heal_swin_torch/csrc/final_head.cu",
+                           "heal_swin_tpu/ops/final_head.py:191"),
+    "window_attention_qkv_epi_bwd": ("heal_swin_torch/csrc/window_attention_bwd.cu",
+                                     "heal_swin_tpu/ops/window_attention.py:1027"),
+    "window_attention_bwd": ("heal_swin_torch/csrc/window_attention_bwd.cu",
+                             "heal_swin_tpu/ops/window_attention.py:719"),
+    "final_head_loss": ("heal_swin_torch/csrc/final_head.cu",
+                        "heal_swin_tpu/ops/final_head.py:755"),
+    "final_head_loss_bwd": ("heal_swin_torch/csrc/final_head.cu",
+                            "heal_swin_tpu/ops/final_head.py:781"),
+}
+
+
+def kernel_results(timed, runs):
+    """The per-kernel results line.  ``runs``: kernel -> (launches per kernel, per
+    shape) of the run that uses it (the train step, or predict for K3).  Each kernel's
+    launches in that run, and its times summed over the shapes that run launched it at,
+    each shape weighted by its launches there."""
     kernels = []
-    for name in source:
+    for name, (source, replaces) in SOURCES.items():
+        launches, by_shape = runs[name]
         shapes = []
         for key, n in sorted(by_shape.items()):
             if key[0] == name:
@@ -450,7 +788,7 @@ def kernel_results(timed, launches, by_shape):
                     shape["mask"] = key[3]
                 shapes.append(dict(shape, launches=n, **timed[key]))
         kernels.append(dict(
-            name=name, route="cuda", source=source[name], replaces=replaces[name],
+            name=name, route="cuda", source=source, replaces=replaces,
             launches=launches[name],
             max_abs_err=max(r["max_abs_err"] for r in shapes),
             ms=sum(r["ms"] * r["launches"] for r in shapes),
@@ -480,11 +818,15 @@ def main() -> int:
             log("ptxas:", line.strip())
 
     timed = check_kernels(torch.Generator().manual_seed(SEED), dev)
-    launches, by_shape = drive_slice(dev, timed)
+    predict_run = drive_slice(dev, timed)
+    torch.cuda.empty_cache()
+    train_run = drive_train(dev, timed)
 
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
-    kernels = kernel_results(timed, launches, by_shape)
+    runs = {name: train_run for name in SOURCES}
+    runs["final_head_predict"] = predict_run
+    kernels = kernel_results(timed, runs)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-All ``csrc/*.cu`` sources compile with ``nvcc`` into one shared library with a plain
-C interface, loaded through ``ctypes`` (no PyTorch headers, so a build takes seconds).
+Each ``csrc/*.cu`` source compiles with its own ``nvcc`` process, all started together,
+and the objects link into one shared library with a plain C interface, loaded through
+``ctypes`` (no PyTorch headers, so a build takes seconds).
 The library lands in ``heal_swin_torch/_build/`` under a name keyed by a hash of the
 sources and flags, so an edited source rebuilds and an unchanged one loads at once.
 Nothing here runs at import time: :func:`lib` builds on first use.
@@ -22,9 +23,10 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-    "-Xcompiler", "-fPIC", "-Xptxas", "-v",  # -v: registers/smem/spills per kernel
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH_FLAGS + [
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # -v: registers/smem/spills per kernel
 ]
 
 _P = ctypes.c_void_p
@@ -34,8 +36,18 @@ _SIGNATURES = {
     # name: (argtypes, restype)
     "hs_window_attention_qkv_epi": ([_P] * 11 + [_I] * 4 + [_F, _P], _I),
     "hs_window_attention": ([_P] * 5 + [_I] * 4 + [_F, _P], _I),
+    "hs_window_attention_qkv_epi_bwd": ([_P] * 16 + [_I] * 4 + [_F, _P], _I),
+    "hs_window_attention_qkv_epi_bwd_workspace": ([_I] * 2, ctypes.c_size_t),
+    "hs_window_attention_bwd": ([_P] * 8 + [_I] * 4 + [_F, _P], _I),
+    "hs_window_attention_bwd_workspace": ([_I] * 2, ctypes.c_size_t),
     "hs_final_head_predict": ([_P] * 6 + [_I] * 4 + [_F, _P], _I),
     "hs_final_head_predict_smem": ([_I] * 3, ctypes.c_size_t),
+    "hs_final_head_loss": ([_P] * 9 + [_I] * 4 + [_F, _P], _I),
+    "hs_final_head_loss_smem": ([_I] * 3, ctypes.c_size_t),
+    "hs_final_head_loss_workspace": ([_I] * 2, ctypes.c_size_t),
+    "hs_final_head_loss_bwd": ([_P] * 12 + [_I] * 4 + [_F, _P], _I),
+    "hs_final_head_loss_bwd_smem": ([_I] * 3, ctypes.c_size_t),
+    "hs_final_head_loss_bwd_workspace": ([_I] * 4, ctypes.c_size_t),
     "hs_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -69,21 +81,31 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run(cmds: list[list[str]]) -> str:
+    """Run the commands side by side; their output, or raise on the first failure."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for c, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(c)}\n{out}")
+    return "".join(outs)
+
+
 def _compile(target: Path) -> None:
     global build_seconds, build_log
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sorted(SRC_DIR.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(SRC_DIR), "-o", tmp, *cu]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, target)  # atomic: a concurrent process never loads a partial file
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [str(Path(tmpdir) / (p.stem + ".o")) for p in sorted(SRC_DIR.glob("*.cu"))]
+        log = _run([[nvcc, *NVCC_FLAGS, "-I", str(SRC_DIR), "-c", str(p), "-o", o]
+                    for p, o in zip(sorted(SRC_DIR.glob("*.cu")), objs)])
+        so = str(Path(tmpdir) / "lib.so")
+        log += _run([[nvcc, *ARCH_FLAGS, "-shared", "-o", so, *objs]])
+        os.replace(so, target)  # atomic: a concurrent process never loads a partial file
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
+    build_log = log
 
 
 def lib() -> ctypes.CDLL:

@@ -1,22 +1,39 @@
-// Inference decoder tail of HEAL-SWIN for Hopper (sm_90a):
-// FinalPatchExpand_X4 -> LayerNorm -> head -> argmax, one kernel.
+// Decoder tail of HEAL-SWIN for Hopper (sm_90a): FinalPatchExpand_X4 -> LayerNorm ->
+// head, fused with the argmax (serving) or with the weighted cross entropy (training).
 //
-// Replaces the Pallas TPU kernel heal_swin_tpu/ops/final_head.py:_pred_kernel
-// (fused_final_head_predict).  For every token row x (C) and each of its p sub-pixels:
+// Replaces three Pallas TPU kernels of heal_swin_tpu/ops/final_head.py:
+//   K3 hs_final_head_predict   <- _pred_kernel (fused_final_head_predict)
+//   K6 hs_final_head_loss      <- _fwd_kernel (fused_final_head)
+//   K7 hs_final_head_loss_bwd  <- _bwd_kernel (its custom-VJP backward)
+// For every token row x (C) and each of its p sub-pixels:
 //   h_i = x @ We_i (f32 accumulation, rounded to bf16) -> LN in f32 -> z_i (bf16)
-//   -> logits_i = z_i @ Wh (f32, not rounded) -> argmax, lowest index on ties,
-//   F - 1 for a row holding a NaN.  Output: (T, p) int32 class indices.
+//   -> logits_i = z_i @ Wh (f32).
+// K3: argmax of the f32 logits, lowest index on ties, F - 1 for a row holding a NaN;
+//   (T, p) int32 class indices.
+// K6: logits rounded to bf16 -> log-softmax -> sum w*nll, sum w and the (F, F)
+//   confusion matrix (target rows, argmax columns; a row holding a NaN counts in no
+//   cell).
+// K7: recomputes K6's forward per tile; dlogits = bf16((gloss/den) w (softmax -
+//   onehot)) -> dWh += z^T dlogits, dz = dlogits Wh^T -> dgamma, dbeta and the LN
+//   backward dh (bf16) -> dx = sum_i dh_i We_i^T; dWe_i = x^T dh_i.
 //
 // What bounds it on this card: at the paper tail (T = 262144, C = 96, p = 4, F = 10)
-// it reads 50 MB of tokens and writes 4 MB of indices, against 2*T*p*C*(C+F) = 21
-// GFLOP: ~400 FLOP/byte, so the expand products decide, and the (T*p, F) logits that
-// the unfused tail writes and reads back never leave the SM.
+// each kernel reads 50 MB of tokens against 2*T*p*C*(C+F) = 21 GFLOP (K7 twice that
+// plus dx): ~400 FLOP/byte, so the expand products decide, and the (T*p, F) logits
+// and dlogits that the unfused tail writes and reads back never leave the SM.
 //
 // What the design does about it: one block per 64-row tile holds all p expand slices
 // We (p, C, C) bf16 and Wh in shared memory (79 KB + 4 KB at the paper widths, above
 // the 48 KB default, so the launch opts in with cudaFuncSetAttribute); the expand
 // products run on the tensor cores as 16x16x16 bf16 WMMA tiles with f32 accumulation,
-// LN and the narrow head product run one warp per row in f32.
+// LN, the narrow head product and the cross entropy run one warp per row in f32.
+// The sums the TPU kernels accumulate across their sequential grid (loss numerator
+// and denominator, confusion matrix, dWh, dgamma, dbeta) become one partial row per
+// block, summed in a fixed order by reduce.cu; dWe = x^T dh is a split-K product over
+// the tokens (reduce.cu gemm_tn) of the bf16 dh K7 leaves in a workspace.  No
+// atomics on floats: the results do not change from run to run.
+
+#include <math_constants.h>
 
 #include "common.cuh"
 
@@ -137,6 +154,343 @@ final_head_predict_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w
   }
 }
 
+
+// ---------------------------------------------------------------------------------
+// K6: the weighted cross entropy and the confusion matrix; one block per 64-row tile,
+// writing the partial row [sum w*nll, sum w, confusion matrix (F x F)].
+// ---------------------------------------------------------------------------------
+__host__ __device__ inline size_t loss_smem(int C, int F, int P) {
+  return head_layout(C, F, P).total + align128(size_t(F) * F * 4) + align128(2 * kWarps * 4);
+}
+
+__global__ void __launch_bounds__(kThreads)
+final_head_loss_kernel(const bf16* __restrict__ x, const bf16* __restrict__ we,
+                       const float* __restrict__ gamma, const float* __restrict__ beta,
+                       const bf16* __restrict__ wh, const int* __restrict__ y,
+                       const float* __restrict__ welem, float* __restrict__ part, int C,
+                       int F, int P, float eps) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const HeadLayout L = head_layout(C, F, P);
+  const int LDW = C + 8;
+  const int LDH = C + 4;
+  bf16* wes = reinterpret_cast<bf16*>(smem + L.we);
+  float* whs = reinterpret_cast<float*>(smem + L.wh);
+  bf16* xs = reinterpret_cast<bf16*>(smem + L.x);
+  float* hf = reinterpret_cast<float*>(smem + L.h);
+  int* cm = reinterpret_cast<int*>(smem + L.total);
+  float* wsum = reinterpret_cast<float*>(smem + L.total + align128(size_t(F) * F * 4));
+
+  const int tile = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int chunks = C / 8;
+
+  for (int idx = tid; idx < P * C * chunks; idx += kThreads) {
+    const int r = idx / chunks, q = idx % chunks;
+    reinterpret_cast<uint4*>(wes + size_t(r) * LDW)[q] =
+        reinterpret_cast<const uint4*>(we + size_t(r) * C)[q];
+  }
+  for (int idx = tid; idx < C * F; idx += kThreads) whs[idx] = bf(wh[idx]);
+  for (int idx = tid; idx < ROWS * chunks; idx += kThreads) {
+    const int r = idx / chunks, q = idx % chunks;
+    reinterpret_cast<uint4*>(xs + r * LDW)[q] =
+        reinterpret_cast<const uint4*>(x + (size_t(tile) * ROWS + r) * C)[q];
+  }
+  for (int idx = tid; idx < F * F; idx += kThreads) cm[idx] = 0;
+  __syncthreads();
+
+  float num = 0.f, den = 0.f;  // this warp's sums (every lane holds them)
+  const int ntiles = (ROWS / 16) * (C / 16);
+  for (int i = 0; i < P; ++i) {
+    const bf16* wei = wes + size_t(i) * C * LDW;
+    for (int t = warp; t < ntiles; t += kWarps) {
+      const int rt = t & 3, ct = t >> 2;
+      FragC acc;
+      wmma::fill_fragment(acc, 0.f);
+      for (int kk = 0; kk < C; kk += 16) {
+        FragA a;
+        FragB b;
+        wmma::load_matrix_sync(a, xs + rt * 16 * LDW + kk, LDW);
+        wmma::load_matrix_sync(b, wei + size_t(kk) * LDW + ct * 16, LDW);
+        wmma::mma_sync(acc, a, b, acc);
+      }
+      wmma::store_matrix_sync(hf + rt * 16 * LDH + ct * 16, acc, LDH, wmma::mem_row_major);
+    }
+    __syncthreads();
+
+    for (int r = warp; r < ROWS; r += kWarps) {
+      float* hrow = hf + r * LDH;
+      float sum = 0.f;
+      for (int c = lane; c < C; c += 32) {
+        const float v = bfr(hrow[c]);
+        hrow[c] = v;
+        sum += v;
+      }
+      const float mean = warp_sum(sum) / C;
+      float sq = 0.f;
+      for (int c = lane; c < C; c += 32) {
+        const float d = hrow[c] - mean;
+        sq += d * d;
+      }
+      const float rstd = rsqrtf(warp_sum(sq) / C + eps);
+      for (int c = lane; c < C; c += 32)
+        hrow[c] = bfr((hrow[c] - mean) * rstd * gamma[c] + beta[c]);
+      __syncwarp();
+
+      float lf = -CUDART_INF_F;  // this lane's class logit, rounded to bf16
+      if (lane < F) {
+        float logit = 0.f;
+        for (int c = 0; c < C; ++c) logit = fmaf(hrow[c], whs[c * F + lane], logit);
+        lf = bfr(logit);
+      }
+      const bool has_nan = __any_sync(0xffffffffu, lane < F && isnan(lf));
+      const float mx = has_nan ? CUDART_NAN_F : warp_max(lf);
+      const float se = warp_sum(lane < F ? expf(lf - mx) : 0.f);
+      const size_t e = (size_t(tile) * ROWS + r) * P + i;
+      const int yi = y[e];
+      const float wi = welem[e];
+      const float ly = warp_sum(lane < F && lane == yi ? lf : 0.f);
+      num += wi * (mx + logf(se) - ly);
+      den += wi;
+      // lowest index reaching the max; none for a row holding a NaN
+      const unsigned at_max = __ballot_sync(0xffffffffu, lane < F && lf >= mx);
+      if (lane == 0 && at_max && yi >= 0 && yi < F)
+        atomicAdd(cm + yi * F + (__ffs(at_max) - 1), 1);  // integer: order-free
+      __syncwarp();
+    }
+    __syncthreads();
+  }
+  if (lane == 0) {
+    wsum[warp] = num;
+    wsum[kWarps + warp] = den;
+  }
+  __syncthreads();
+  float* prow = part + size_t(tile) * (2 + F * F);
+  if (tid == 0) {
+    float n = 0.f, d = 0.f;
+    for (int w = 0; w < kWarps; ++w) {
+      n += wsum[w];
+      d += wsum[kWarps + w];
+    }
+    prow[0] = n;
+    prow[1] = d;
+  }
+  for (int idx = tid; idx < F * F; idx += kThreads) prow[2 + idx] = float(cm[idx]);
+}
+
+// ---------------------------------------------------------------------------------
+// K7: the backward of K6; one block per 64-row tile.  Writes dx, dh (bf16, for the
+// dWe product) and the partial row [dWh (C x F) | dgamma (C) | dbeta (C)].
+// ---------------------------------------------------------------------------------
+constexpr int LDL = 32;          // dlogits row stride (one lane per class)
+constexpr int LMAXJ = 4;  // per-lane registers of a row pass: C / 32 <= 4 (C <= 128)
+
+struct LossBwdLayout {
+  size_t we, wh, x, hf, dh, dx, dl, dwh, wacc, total;
+};
+
+__host__ __device__ inline LossBwdLayout loss_bwd_layout(int C, int F, int P) {
+  LossBwdLayout L;
+  const size_t ldw = size_t(C) + 8;
+  size_t off = 0;
+  L.we = off; off += align128(size_t(P) * C * ldw * 2);
+  L.wh = off; off += align128(size_t(C) * F * 4);
+  L.x = off; off += align128(ROWS * ldw * 2);
+  L.hf = off; off += align128(size_t(ROWS) * (C + 4) * 4);
+  L.dh = off; off += align128(ROWS * ldw * 2);
+  L.dx = off; off += align128(size_t(ROWS) * (C + 4) * 4);
+  L.dl = off; off += align128(size_t(ROWS) * LDL * 4);
+  L.dwh = off; off += align128(size_t(C) * F * 4);
+  L.wacc = off; off += align128(size_t(kWarps) * 2 * C * 4);
+  L.total = off;
+  return L;
+}
+
+__global__ void __launch_bounds__(kThreads)
+final_head_loss_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ we,
+                           const float* __restrict__ gamma, const float* __restrict__ beta,
+                           const bf16* __restrict__ wh, const int* __restrict__ y,
+                           const float* __restrict__ welem, const float* __restrict__ scale_p,
+                           bf16* __restrict__ dx, bf16* __restrict__ dh_s,
+                           float* __restrict__ part, int C, int F, int P, float eps) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const LossBwdLayout L = loss_bwd_layout(C, F, P);
+  const int LDW = C + 8;
+  const int LDH = C + 4;
+  bf16* wes = reinterpret_cast<bf16*>(smem + L.we);
+  float* whs = reinterpret_cast<float*>(smem + L.wh);
+  bf16* xs = reinterpret_cast<bf16*>(smem + L.x);
+  float* hf = reinterpret_cast<float*>(smem + L.hf);  // h, then z (f32 of bf16)
+  bf16* dhs = reinterpret_cast<bf16*>(smem + L.dh);
+  float* dxa = reinterpret_cast<float*>(smem + L.dx);
+  float* dl = reinterpret_cast<float*>(smem + L.dl);
+  float* dwh = reinterpret_cast<float*>(smem + L.dwh);
+  float* wacc = reinterpret_cast<float*>(smem + L.wacc);
+
+  const int tile = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int chunks = C / 8;
+  const int nj = (C + 31) / 32;
+  const float scale = *scale_p;
+
+  for (int idx = tid; idx < P * C * chunks; idx += kThreads) {
+    const int r = idx / chunks, q = idx % chunks;
+    reinterpret_cast<uint4*>(wes + size_t(r) * LDW)[q] =
+        reinterpret_cast<const uint4*>(we + size_t(r) * C)[q];
+  }
+  for (int idx = tid; idx < C * F; idx += kThreads) {
+    whs[idx] = bf(wh[idx]);
+    dwh[idx] = 0.f;
+  }
+  for (int idx = tid; idx < ROWS * chunks; idx += kThreads) {
+    const int r = idx / chunks, q = idx % chunks;
+    reinterpret_cast<uint4*>(xs + r * LDW)[q] =
+        reinterpret_cast<const uint4*>(x + (size_t(tile) * ROWS + r) * C)[q];
+  }
+  for (int idx = tid; idx < ROWS * LDH; idx += kThreads) dxa[idx] = 0.f;
+  for (int idx = tid; idx < kWarps * 2 * C; idx += kThreads) wacc[idx] = 0.f;
+  __syncthreads();
+
+  const int ntiles = (ROWS / 16) * (C / 16);
+  float* wg = wacc + warp * 2 * C;  // this warp's dgamma | dbeta sums
+  for (int i = 0; i < P; ++i) {
+    const bf16* wei = wes + size_t(i) * C * LDW;
+    for (int t = warp; t < ntiles; t += kWarps) {
+      const int rt = t & 3, ct = t >> 2;
+      FragC acc;
+      wmma::fill_fragment(acc, 0.f);
+      for (int kk = 0; kk < C; kk += 16) {
+        FragA a;
+        FragB b;
+        wmma::load_matrix_sync(a, xs + rt * 16 * LDW + kk, LDW);
+        wmma::load_matrix_sync(b, wei + size_t(kk) * LDW + ct * 16, LDW);
+        wmma::mma_sync(acc, a, b, acc);
+      }
+      wmma::store_matrix_sync(hf + rt * 16 * LDH + ct * 16, acc, LDH, wmma::mem_row_major);
+    }
+    __syncthreads();
+
+    for (int r = warp; r < ROWS; r += kWarps) {
+      float* hrow = hf + r * LDH;
+      float xh[LMAXJ];
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < LMAXJ; ++j) {
+        const int c = lane + 32 * j;
+        if (j < nj && c < C) {
+          xh[j] = bfr(hrow[c]);
+          sum += xh[j];
+        }
+      }
+      const float mean = warp_sum(sum) / C;
+      float sq = 0.f;
+#pragma unroll
+      for (int j = 0; j < LMAXJ; ++j) {
+        const int c = lane + 32 * j;
+        if (j < nj && c < C) {
+          const float d = xh[j] - mean;
+          sq += d * d;
+        }
+      }
+      const float rstd = rsqrtf(warp_sum(sq) / C + eps);
+#pragma unroll
+      for (int j = 0; j < LMAXJ; ++j) {
+        const int c = lane + 32 * j;
+        if (j < nj && c < C) {
+          xh[j] = (xh[j] - mean) * rstd;
+          hrow[c] = bfr(xh[j] * gamma[c] + beta[c]);  // z
+        }
+      }
+      __syncwarp();
+
+      float lf = -CUDART_INF_F;
+      if (lane < F) {
+        float logit = 0.f;
+        for (int c = 0; c < C; ++c) logit = fmaf(hrow[c], whs[c * F + lane], logit);
+        lf = bfr(logit);
+      }
+      const bool has_nan = __any_sync(0xffffffffu, lane < F && isnan(lf));
+      const float mx = has_nan ? CUDART_NAN_F : warp_max(lf);
+      const float ex = lane < F ? expf(lf - mx) : 0.f;
+      const float se = warp_sum(ex);
+      const size_t e = (size_t(tile) * ROWS + r) * P + i;
+      const int yi = y[e];
+      const float wi = welem[e];
+      if (lane < F) dl[r * LDL + lane] = bfr((scale * wi) * (ex / se - (lane == yi ? 1.f : 0.f)));
+      __syncwarp();
+
+      // dz = dlogits Wh^T; dgamma, dbeta; the LN backward dh (bf16)
+      float dzh[LMAXJ];
+      float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+      for (int j = 0; j < LMAXJ; ++j) {
+        const int c = lane + 32 * j;
+        if (j < nj && c < C) {
+          float dz = 0.f;
+          for (int f = 0; f < F; ++f) dz = fmaf(dl[r * LDL + f], whs[c * F + f], dz);
+          wg[c] += dz * xh[j];
+          wg[C + c] += dz;
+          dzh[j] = dz * gamma[c];
+          s1 += dzh[j];
+          s2 += dzh[j] * xh[j];
+        }
+      }
+      const float m1 = warp_sum(s1) / C;
+      const float m2 = warp_sum(s2) / C;
+      bf16* grow = dh_s + ((size_t(tile) * ROWS + r) * P + i) * C;
+#pragma unroll
+      for (int j = 0; j < LMAXJ; ++j) {
+        const int c = lane + 32 * j;
+        if (j < nj && c < C) {
+          const bf16 v = to_bf(rstd * (dzh[j] - m1 - xh[j] * m2));
+          dhs[r * LDW + c] = v;
+          grow[c] = v;
+        }
+      }
+    }
+    __syncthreads();
+
+    // dWh += z^T dlogits (each thread owns fixed elements); dx += dh We_i^T
+    for (int idx = tid; idx < C * F; idx += kThreads) {
+      const int c = idx / F, f = idx % F;
+      float acc = 0.f;
+      for (int r = 0; r < ROWS; ++r) acc = fmaf(hf[r * LDH + c], dl[r * LDL + f], acc);
+      dwh[idx] += acc;
+    }
+    for (int t = warp; t < ntiles; t += kWarps) {
+      const int rt = t & 3, ct = t >> 2;
+      FragC acc;
+      wmma::load_matrix_sync(acc, dxa + rt * 16 * LDH + ct * 16, LDH, wmma::mem_row_major);
+      for (int kk = 0; kk < C; kk += 16) {
+        FragA a;
+        FragBt b;  // element (k, n) of We_i^T at wei[n * LDW + k]
+        wmma::load_matrix_sync(a, dhs + rt * 16 * LDW + kk, LDW);
+        wmma::load_matrix_sync(b, wei + size_t(ct) * 16 * LDW + kk, LDW);
+        wmma::mma_sync(acc, a, b, acc);
+      }
+      wmma::store_matrix_sync(dxa + rt * 16 * LDH + ct * 16, acc, LDH, wmma::mem_row_major);
+    }
+    __syncthreads();
+  }
+
+  for (int idx = tid; idx < ROWS * C; idx += kThreads) {
+    const int r = idx / C, c = idx % C;
+    dx[(size_t(tile) * ROWS + r) * C + c] = to_bf(dxa[r * LDH + c]);
+  }
+  float* prow = part + size_t(tile) * (C * F + 2 * C);
+  for (int idx = tid; idx < C * F; idx += kThreads) prow[idx] = dwh[idx];
+  for (int c = tid; c < 2 * C; c += kThreads) {
+    float s = 0.f;
+    for (int w = 0; w < kWarps; ++w) s += wacc[w * 2 * C + c];
+    prow[C * F + c] = s;
+  }
+}
+
+inline size_t loss_part_bytes(int T, int W) { return align128(size_t(T / ROWS) * W * 4); }
+
 }  // namespace
 }  // namespace hs
 
@@ -158,6 +512,81 @@ int hs_final_head_predict(const void* x, const void* we, const void* gamma, cons
       static_cast<const float*>(gamma), static_cast<const float*>(beta),
       static_cast<const bf16*>(wh), static_cast<int*>(preds), C, F, P, eps);
   return int(cudaGetLastError());
+}
+
+
+size_t hs_final_head_loss_smem(int C, int F, int P) { return hs::loss_smem(C, F, P); }
+
+size_t hs_final_head_loss_workspace(int T, int F) {
+  const int W = 2 + F * F;
+  return hs::loss_part_bytes(T, W) + hs::align128(hs::reduce_rows_tmp_floats(T / hs::ROWS, W) * 4);
+}
+
+int hs_final_head_loss(const void* x, const void* we, const void* gamma, const void* beta,
+                       const void* wh, const void* y, const void* welem, void* red,
+                       void* work, int T, int C, int F, int P, float eps, void* stream) {
+  using hs::bf16;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = hs::loss_smem(C, F, P);
+  cudaError_t e = cudaFuncSetAttribute(hs::final_head_loss_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (e != cudaSuccess) return int(e);
+  const int W = 2 + F * F;
+  float* part = static_cast<float*>(work);
+  float* tmp = reinterpret_cast<float*>(static_cast<unsigned char*>(work) +
+                                        hs::loss_part_bytes(T, W));
+  hs::final_head_loss_kernel<<<T / hs::ROWS, hs::kThreads, smem, s>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(we),
+      static_cast<const float*>(gamma), static_cast<const float*>(beta),
+      static_cast<const bf16*>(wh), static_cast<const int*>(y),
+      static_cast<const float*>(welem), part, C, F, P, eps);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return int(e);
+  return int(hs::reduce_rows(part, static_cast<float*>(red), T / hs::ROWS, W, tmp, s));
+}
+
+size_t hs_final_head_loss_bwd_smem(int C, int F, int P) {
+  return hs::loss_bwd_layout(C, F, P).total;
+}
+
+size_t hs_final_head_loss_bwd_workspace(int T, int C, int F, int P) {
+  const int W = C * F + 2 * C;
+  size_t tmp = hs::reduce_rows_tmp_floats(T / hs::ROWS, W);
+  const size_t g = hs::gemm_tn_tmp_floats(T, C, P * C);
+  tmp = tmp > g ? tmp : g;
+  return hs::align128(size_t(T) * P * C * 2) + hs::loss_part_bytes(T, W) +
+         hs::align128(tmp * 4);
+}
+
+int hs_final_head_loss_bwd(const void* x, const void* we, const void* gamma,
+                           const void* beta, const void* wh, const void* y,
+                           const void* welem, const void* scale, void* dx, void* dwe,
+                           void* red, void* work, int T, int C, int F, int P, float eps,
+                           void* stream) {
+  using hs::bf16;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = hs::loss_bwd_layout(C, F, P).total;
+  cudaError_t e = cudaFuncSetAttribute(hs::final_head_loss_bwd_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (e != cudaSuccess) return int(e);
+  const int W = C * F + 2 * C;
+  unsigned char* base = static_cast<unsigned char*>(work);
+  bf16* dh_s = reinterpret_cast<bf16*>(base);
+  float* part = reinterpret_cast<float*>(base + hs::align128(size_t(T) * P * C * 2));
+  float* tmp = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(part) +
+                                        hs::loss_part_bytes(T, W));
+  hs::final_head_loss_bwd_kernel<<<T / hs::ROWS, hs::kThreads, smem, s>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(we),
+      static_cast<const float*>(gamma), static_cast<const float*>(beta),
+      static_cast<const bf16*>(wh), static_cast<const int*>(y),
+      static_cast<const float*>(welem), static_cast<const float*>(scale),
+      static_cast<bf16*>(dx), dh_s, part, C, F, P, eps);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return int(e);
+  e = hs::reduce_rows(part, static_cast<float*>(red), T / hs::ROWS, W, tmp, s);
+  if (e != cudaSuccess) return int(e);
+  return int(hs::gemm_tn(static_cast<const bf16*>(x), dh_s, static_cast<float*>(dwe), T, C,
+                         P * C, tmp, s));
 }
 
 }  // extern "C"

@@ -1,4 +1,5 @@
-// Window attention of HEAL-SWIN for Hopper (sm_90a), forward only.
+// Window attention of HEAL-SWIN for Hopper (sm_90a), forward (the backward kernels are
+// in window_attention_bwd.cu; the per-head building blocks in attention.cuh).
 //
 // Replaces two Pallas TPU kernels of heal_swin_tpu/ops/window_attention.py:
 //   K1 hs_window_attention_qkv_epi  <- _fwd_kernel_xw_epi (fused_window_attention_qkv_epi):
@@ -26,27 +27,16 @@
 // (164 KB at C=384), so the launch opts in with cudaFuncSetAttribute.  wgmma/TMA
 // pipelines are later work.
 
-#include "common.cuh"
+#include "attention.cuh"
 
 namespace hs {
 namespace {
-
-constexpr int WS = 64;  // tokens per window
-constexpr int HD = 32;  // head dim (one lane per head channel)
-constexpr float MASK_VALUE = -100.f;
-
-// padded leading dimensions (elements); WMMA wants ldm % 8 == 0 (bf16) / % 4 == 0 (f32)
-constexpr int LD_HEAD = HD + 8;   // q_hat / k_hat / v tiles, bf16
-constexpr int LD_S = WS + 4;      // scores, f32
-constexpr int LD_O = HD + 4;      // per-head output (aliases the scores), f32
-constexpr int LD_P = WS + 8;      // probabilities, bf16
-constexpr int LD_QKV = 3 * HD + 4;  // one head's q|k|v projection, f32
 
 struct HeadSmem {
   bf16* q;
   bf16* k;
   bf16* v;
-  float* s;  // scores, then the head output o (f32)
+  float* s;  // scores, then the head output o (f32, ld LD_T)
   bf16* p;
   int* g;    // the window's group ids (read only when masked)
 };
@@ -66,72 +56,6 @@ __device__ inline HeadSmem carve_head(unsigned char* base) {
   h.p = reinterpret_cast<bf16*>(base + off); off += align128(size_t(WS) * LD_P * 2);
   h.g = reinterpret_cast<int*>(base + off);
   return h;
-}
-
-// One head of window attention on shared-memory tiles: q (already scaled for the
-// cosine flavour), k, v -> o (f32, in sh.s with leading dimension LD_O).
-// s = q k^T * mul + bias (+ -100 where group ids differ); p = softmax_row(s) -> bf16;
-// o = p v.  Called by all threads of the block; ends with a barrier.
-__device__ void attend_head(const HeadSmem& sh, bool masked, const float* __restrict__ bias_h,
-                            float mul) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-
-  // scores: 4x4 tiles of 16x16, two per warp, depth HD
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int t = warp * 2 + j;
-    const int rt = t >> 2, ct = t & 3;
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < HD; kk += 16) {
-      FragA a;
-      FragBt b;
-      wmma::load_matrix_sync(a, sh.q + rt * 16 * LD_HEAD + kk, LD_HEAD);
-      wmma::load_matrix_sync(b, sh.k + ct * 16 * LD_HEAD + kk, LD_HEAD);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync(sh.s + rt * 16 * LD_S + ct * 16, acc, LD_S, wmma::mem_row_major);
-  }
-  __syncthreads();
-
-  // softmax, one warp per row, two columns per lane; f32 throughout
-  for (int r = warp; r < WS; r += kWarps) {
-    const float* srow = sh.s + r * LD_S;
-    const float* brow = bias_h + r * WS;
-    float v0 = srow[lane] * mul + __ldg(brow + lane);
-    float v1 = srow[lane + 32] * mul + __ldg(brow + lane + 32);
-    if (masked) {
-      const int gi = sh.g[r];
-      if (sh.g[lane] != gi) v0 += MASK_VALUE;
-      if (sh.g[lane + 32] != gi) v1 += MASK_VALUE;
-    }
-    const float m = warp_max(fmaxf(v0, v1));
-    const float e0 = expf(v0 - m);
-    const float e1 = expf(v1 - m);
-    const float d = fmaxf(warp_sum(e0 + e1), 1e-30f);
-    sh.p[r * LD_P + lane] = to_bf(e0 / d);
-    sh.p[r * LD_P + lane + 32] = to_bf(e1 / d);
-  }
-  __syncthreads();
-
-  // o = p v: 4x2 tiles, one per warp, depth WS; o overwrites the scores
-  {
-    const int rt = warp >> 1, ct = warp & 1;
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < WS; kk += 16) {
-      FragA a;
-      FragB b;
-      wmma::load_matrix_sync(a, sh.p + rt * 16 * LD_P + kk, LD_P);
-      wmma::load_matrix_sync(b, sh.v + kk * LD_HEAD + ct * 16, LD_HEAD);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync(sh.s + rt * 16 * LD_O + ct * 16, acc, LD_O, wmma::mem_row_major);
-  }
-  __syncthreads();
 }
 
 // Cosine flavour: q_hat = q * scale / |q| and k_hat = k / |k| per row (rsqrt of the
@@ -181,11 +105,12 @@ attn_kernel(const bf16* __restrict__ qkv, const int* __restrict__ groups,
     cos_normalize(sh, lscale[head]);
     mul = 1.f;
   }
-  attend_head(sh, has_mask != 0, bias + size_t(head) * WS * WS, mul);
+  attend_head(sh.q, sh.k, sh.v, sh.s, sh.p, sh.g, has_mask != 0,
+              bias + size_t(head) * WS * WS, mul);
 
   for (int idx = tid; idx < WS * HD; idx += kThreads) {
     const int r = idx / HD, d = idx % HD;
-    out[(size_t(win) * WS + r) * C + head * HD + d] = to_bf(sh.s[r * LD_O + d]);
+    out[(size_t(win) * WS + r) * C + head * HD + d] = to_bf(sh.s[r * LD_T + d]);
   }
 }
 
@@ -234,7 +159,6 @@ qkv_epi_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int H = C / HD;
-  const int C3 = 3 * C;
 
   // x tile, 16-byte chunks
   const int chunks = C / 8;
@@ -247,31 +171,7 @@ qkv_epi_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
   __syncthreads();
 
   for (int head = 0; head < H; ++head) {
-    // this head's q|k|v columns: 4 row tiles x 6 column tiles, 3 per warp
-    {
-      const int rt = warp & 3;
-      const int cbase = (warp >> 2) * 3;
-      FragC acc[3];
-#pragma unroll
-      for (int j = 0; j < 3; ++j) wmma::fill_fragment(acc[j], 0.f);
-      for (int kk = 0; kk < C; kk += 16) {
-        FragA a;
-        wmma::load_matrix_sync(a, xs + rt * 16 * LDX + kk, LDX);
-#pragma unroll
-        for (int j = 0; j < 3; ++j) {
-          const int ct = cbase + j;
-          const int gcol = (ct >> 1) * C + head * HD + (ct & 1) * 16;
-          FragB b;
-          wmma::load_matrix_sync(b, wqkv + size_t(kk) * C3 + gcol, C3);
-          wmma::mma_sync(acc[j], a, b, acc[j]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 3; ++j)
-        wmma::store_matrix_sync(qkvf + rt * 16 * LD_QKV + (cbase + j) * 16, acc[j], LD_QKV,
-                                wmma::mem_row_major);
-    }
-    __syncthreads();
+    project_head_qkv(xs, LDX, wqkv, C, head, qkvf);
 
     // + b, round qkv to bf16, cosine-normalize q and k (one warp per row)
     {
@@ -293,11 +193,12 @@ qkv_epi_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
     }
     __syncthreads();
 
-    attend_head(sh, has_mask != 0, bias + size_t(head) * WS * WS, 1.f);
+    attend_head(sh.q, sh.k, sh.v, sh.s, sh.p, sh.g, has_mask != 0,
+                bias + size_t(head) * WS * WS, 1.f);
 
     for (int idx = tid; idx < WS * HD; idx += kThreads) {
       const int r = idx / HD, d = idx % HD;
-      os[r * LDX + head * HD + d] = to_bf(sh.s[r * LD_O + d]);
+      os[r * LDX + head * HD + d] = to_bf(sh.s[r * LD_T + d]);
     }
     __syncthreads();
   }

@@ -3,7 +3,10 @@
 
 Activations are channels-last; parameters are float32 and every product runs in the
 activations' dtype (the compute dtype): ``linear`` casts the weights at use.
-LayerNorm takes float32 statistics (eps 1e-5) and returns the input's dtype.
+LayerNorm takes float32 statistics (eps 1e-5) and returns the input's dtype; its
+backward saves only the input, the row means and the row rstd (the JAX
+package's ``_ln_fn``).  DropPath draws its per-sample masks from an explicit
+``torch.Generator`` handed down the training forward, never from the global RNG.
 Parameter names follow the original torch HEAL-SWIN, so its state_dict keys apply.
 """
 
@@ -32,28 +35,57 @@ def linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
     return F.linear(x, layer.weight.to(x.dtype), b)
 
 
+class _LayerNormFn(torch.autograd.Function):
+    """y = (x - mean) * rstd * weight + bias with f32 statistics, in x's dtype.
+
+    Saves x in its own dtype with the per-row mean and rstd (not the f32 upcast that
+    autograd through ``x.float()`` would keep), and recomputes x_hat in the backward:
+    dx = rstd * (g - mean(g) - x_hat * mean(g * x_hat)) for g = dy * weight, as
+    ``heal_swin_tpu.models.layers._ln_bwd`` (ATen's layer-norm backward evaluates the
+    same formula)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        shape = (x.shape[-1],)
+        y, mean, rstd = torch.native_layer_norm(x.float(), shape, weight.float(),
+                                                bias.float(), eps)
+        ctx.save_for_backward(x, mean, rstd, weight, bias)
+        return y.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, mean, rstd, weight, bias = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        dx, dw, db = torch.ops.aten.native_layer_norm_backward(
+            dy.float(), x.float(), (x.shape[-1],), mean, rstd, weight.float(), bias.float(),
+            [need[0], need[1], need[2]])
+        return (None if dx is None else dx.to(x.dtype), dw, db, None)
+
+
 class LayerNorm(nn.LayerNorm):
     """LayerNorm (eps 1e-5) with float32 statistics whose output keeps the input's
     dtype."""
 
     def forward(self, x):
-        return F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias,
-                            self.eps).to(x.dtype)
+        return _LayerNormFn.apply(x, self.weight, self.bias, self.eps)
 
 
 class DropPath(nn.Module):
-    """Per-sample stochastic depth, scaled by 1/keep in training; identity at eval."""
+    """Per-sample stochastic depth, scaled by 1/keep in training; identity at eval.
+    In training the masks come from ``generator`` (on the activations' device)."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = float(rate)
 
-    def forward(self, x):
+    def forward(self, x, generator: Optional[torch.Generator] = None):
         if self.rate == 0.0 or not self.training:
             return x
+        if generator is None:
+            raise ValueError("DropPath in training needs an explicit torch.Generator")
         keep = 1.0 - self.rate
         shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-        mask = torch.rand(shape, device=x.device) < keep
+        mask = torch.rand(shape, generator=generator, device=x.device) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -84,8 +116,10 @@ class WindowAttention(nn.Module):
 
     Routes (``attention_impl`` picks kernel or plain version; see
     ``heal_swin_torch.ops.window_attention``): cosine attention at C <= 384 runs the
-    whole block -- qkv, attention, proj, LN -- as K1; otherwise qkv is one matmul, the
-    attention runs as K2, and proj and LN stay plain torch.
+    whole block -- qkv, attention, proj, LN -- as K1 (backward K4), with the weights
+    cast to the compute dtype first, so their gradients round there as in the JAX
+    package; otherwise qkv is one matmul, the attention runs as K2 (backward K5), and
+    proj and LN stay plain torch.
     """
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
@@ -130,9 +164,11 @@ class WindowAttention(nn.Module):
         x_flat = x.reshape(B * nW * ws, C)
         proj_dropout = self.training and self.proj_drop.p > 0.0
         if self.use_cos_attn and C <= wa.KERNEL_MAX_C and not proj_dropout:
+            dt = x.dtype
+            bq = None if self.qkv.bias is None else self.qkv.bias.to(dt)
             out = wa.window_attention_qkv_epi(
-                x_flat, self.qkv.weight.t(), self.qkv.bias, self.proj.weight.t(),
-                self.proj.bias, None if ln is None else ln.weight,
+                x_flat, self.qkv.weight.to(dt).t(), bq, self.proj.weight.to(dt).t(),
+                self.proj.bias.to(dt), None if ln is None else ln.weight,
                 None if ln is None else ln.bias, groups_t, rel_bias, ls, ws=ws,
                 num_heads=h, sm_scale=sm_scale, has_mask=has_mask,
                 impl=self.attention_impl)

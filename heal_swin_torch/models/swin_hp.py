@@ -7,7 +7,9 @@ nested hierarchy, and shifted windows are host-precomputed roll amounts or
 permutations with mask group ids (``heal_swin_tpu.ops.shifting``, numpy only).
 
 Inputs (B, npix, f_in) channels-last; outputs (B, npix, f_out) float32, or with
-``tail=False`` the (B, npix/p, C) tokens after ``norm_up`` in the compute dtype.
+``tail=False`` the (B, npix/p, C) tokens after ``norm_up`` in the compute dtype.  A
+training forward takes an explicit ``torch.Generator`` for the DropPath masks, handed
+down to every block.
 """
 
 from __future__ import annotations
@@ -144,10 +146,12 @@ class SwinHPBlock(nn.Module):
         if self.shift_kind == "roll":
             return torch.roll(x, -self.roll_amount if forward else self.roll_amount, dims=1)
         if self.shift_kind == "perm":
-            return permute_tokens(x, self.perm if forward else self.inv_perm)
+            if forward:
+                return permute_tokens(x, self.perm, self.inv_perm)
+            return permute_tokens(x, self.inv_perm, self.perm)
         return x
 
-    def forward(self, x):
+    def forward(self, x, generator: Optional[torch.Generator] = None):
         B, N, C = x.shape
         if N != self.input_resolution:
             raise ValueError(f"block built for {self.input_resolution} tokens, got {N}")
@@ -158,10 +162,10 @@ class SwinHPBlock(nn.Module):
         x = self._shift(x, True).reshape(B, N // ws, ws, C)
         x = self.attn(x, self.win_groups, ln=self.norm1 if self.v2 else None)
         x = self._shift(x.reshape(B, N, C), False)
-        x = shortcut + self.drop_path(x)
+        x = shortcut + self.drop_path(x, generator)
         if self.v2:
-            return x + self.drop_path(self.norm2(self.mlp(x)))
-        return x + self.drop_path(self.mlp(self.norm2(x)))
+            return x + self.drop_path(self.norm2(self.mlp(x)), generator)
+        return x + self.drop_path(self.mlp(self.norm2(x)), generator)
 
 
 class PatchMerging(nn.Module):
@@ -241,9 +245,9 @@ class BasicLayer(nn.Module):
         ])
         self.downsample = PatchMerging(dim) if downsample else None
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         for blk in self.blocks:
-            x = blk(x)
+            x = blk(x, generator)
         return x if self.downsample is None else self.downsample(x)
 
 
@@ -260,9 +264,9 @@ class BasicLayerUp(nn.Module):
         ])
         self.upsample = PatchExpand(dim) if upsample else None
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         for blk in self.blocks:
-            x = blk(x)
+            x = blk(x, generator)
         return x if self.upsample is None else self.upsample(x)
 
 
@@ -294,13 +298,15 @@ class UnetDecoder(nn.Module):
         self.up = FinalPatchExpand_X4(cfg.patch_size, cfg.embed_dim)
         self.output = nn.Conv1d(cfg.embed_dim, spec.f_out, kernel_size=1, bias=False)
 
-    def forward(self, x, x_downsample, tail: bool = True):
+    def forward(self, x, x_downsample, tail: bool = True, generator=None):
         L = len(self.layers_up)
         for inx, layer in enumerate(self.layers_up):
             if inx > 0:
                 x = torch.cat([x, x_downsample[L - 1 - inx]], dim=-1)
                 x = linear(x, self.concat_back_dim[inx])
-            x = layer(x)
+                x = layer(x, generator)
+            else:
+                x = layer(x)
         x = self.norm_up(x)
         if not tail:
             return x
@@ -309,10 +315,13 @@ class UnetDecoder(nn.Module):
 
 
 class SwinHPTransformerSys(nn.Module):
-    """HEAL-SWIN-UNet.  forward(x (B, npix, f_in), tail=True) -> (B, npix, f_out) f32.
+    """HEAL-SWIN-UNet.  forward(x (B, npix, f_in), tail=True, generator=None) ->
+    (B, npix, f_out) f32.  In training mode DropPath (drop_path_rate > 0) draws from
+    ``generator``; element dropout in training (drop_rate > 0) is not ported yet.
 
     Parameters are made on the CPU from ``generator`` (seeded 0 when not given) and
-    then moved to ``device``, so a seed gives the same weights on every device."""
+    then moved to ``device``, so a seed gives the same weights on every device; the
+    global RNG is left as it was."""
 
     def __init__(self, config: SwinHPTransformerConfig, data_spec: DataSpec,
                  device=None, generator: Optional[torch.Generator] = None):
@@ -323,23 +332,26 @@ class SwinHPTransformerSys(nn.Module):
         cfg = config
         self.config = cfg
         self.data_spec = data_spec
-        L = len(cfg.depths)
-        num_patches = data_spec.dim_in // cfg.patch_size
-        self.patch_embed = PatchEmbed(cfg.patch_size, data_spec.f_in, cfg.embed_dim,
-                                      cfg.patch_embed_norm_layer is not None)
-        if cfg.ape:
-            self.absolute_pos_embed = nn.Parameter(torch.zeros(1, num_patches, cfg.embed_dim))
-        self.pos_drop = nn.Dropout(cfg.drop_rate)
-        dpr = list(np.linspace(0, cfg.drop_path_rate, sum(cfg.depths)))
-        self.layers = nn.ModuleList([
-            BasicLayer(cfg, data_spec.base_pix, int(cfg.embed_dim * 2 ** i),
-                       num_patches // (4 ** i), cfg.depths[i], cfg.num_heads[i],
-                       dpr[sum(cfg.depths[:i]):sum(cfg.depths[:i + 1])],
-                       downsample=i < L - 1)
-            for i in range(L)
-        ])
-        self.norm = LayerNorm(int(cfg.embed_dim * 2 ** (L - 1)))
-        self.decoder = UnetDecoder(cfg, data_spec, dpr)
+        # the modules' default inits draw from the global RNG; they run on a fork of
+        # it and are all overwritten by reset_parameters from ``generator``
+        with torch.random.fork_rng(devices=[]):
+            L = len(cfg.depths)
+            num_patches = data_spec.dim_in // cfg.patch_size
+            self.patch_embed = PatchEmbed(cfg.patch_size, data_spec.f_in, cfg.embed_dim,
+                                          cfg.patch_embed_norm_layer is not None)
+            if cfg.ape:
+                self.absolute_pos_embed = nn.Parameter(torch.zeros(1, num_patches, cfg.embed_dim))
+            self.pos_drop = nn.Dropout(cfg.drop_rate)
+            dpr = list(np.linspace(0, cfg.drop_path_rate, sum(cfg.depths)))
+            self.layers = nn.ModuleList([
+                BasicLayer(cfg, data_spec.base_pix, int(cfg.embed_dim * 2 ** i),
+                           num_patches // (4 ** i), cfg.depths[i], cfg.num_heads[i],
+                           dpr[sum(cfg.depths[:i]):sum(cfg.depths[:i + 1])],
+                           downsample=i < L - 1)
+                for i in range(L)
+            ])
+            self.norm = LayerNorm(int(cfg.embed_dim * 2 ** (L - 1)))
+            self.decoder = UnetDecoder(cfg, data_spec, dpr)
         self.reset_parameters(generator if generator is not None
                               else torch.Generator().manual_seed(0))
         if device is not None:
@@ -365,8 +377,10 @@ class SwinHPTransformerSys(nn.Module):
         if self.config.ape:
             trunc_normal_(self.absolute_pos_embed, generator)
 
-    def forward(self, x, tail: bool = True):
+    def forward(self, x, tail: bool = True, generator: Optional[torch.Generator] = None):
         cfg = self.config
+        if self.training and cfg.drop_rate > 0.0:
+            raise NotImplementedError("element dropout in training is not ported yet")
         x = self.patch_embed(x.to(cfg.compute_dtype))
         if cfg.ape:
             x = x + self.absolute_pos_embed.to(x.dtype)
@@ -374,6 +388,6 @@ class SwinHPTransformerSys(nn.Module):
         x_downsample = []
         for layer in self.layers:
             x_downsample.append(x)
-            x = layer(x)
-        x = self.decoder(self.norm(x), x_downsample, tail)
+            x = layer(x, generator)
+        x = self.decoder(self.norm(x), x_downsample, tail, generator)
         return x if not tail else x.float()

@@ -6,8 +6,10 @@ These tests skip without a CUDA device.  On a GPU host without JAX run them with
 
 (the suite's conftest imports JAX).  Small shapes at the kernels' fixed geometry
 (ws 64, head dim 32), bf16; tolerances as in chip_smoke.py: relative L2 1e-2 for
-the attention kernels (the same roundings, another summation order), equal indices
-outside near-ties for the decoder-tail kernel.
+the attention kernels and every gradient (the same roundings, another summation
+order), equal indices outside near-ties for the decoder-tail predict kernel, and for
+the loss kernel the loss within 1e-3 relative and the confusion matrix off only by
+near-tie rows.
 """
 
 import pytest
@@ -95,6 +97,160 @@ def test_final_head_kernel(dev, C, F):
     assert torch.equal(got[far], want[far]) and far.float().mean() > 0.5
 
 
+def _epi_args(gen, dev, C, T, masked, has_ln):
+    h = C // 32
+    return (_randn(gen, dev, T, C).to(torch.bfloat16),
+            _randn(gen, dev, C, 3 * C, std=C ** -0.5).to(torch.bfloat16),
+            _randn(gen, dev, 3 * C, std=0.02).to(torch.bfloat16),
+            _randn(gen, dev, C, C, std=C ** -0.5).to(torch.bfloat16),
+            _randn(gen, dev, C, std=0.02).to(torch.bfloat16),
+            1 + _randn(gen, dev, C, std=0.1) if has_ln else None,
+            _randn(gen, dev, C, std=0.1) if has_ln else None,
+            torch.randint(0, 3, (T // 64, 64), generator=gen, dtype=torch.int32).to(dev)
+            if masked else None,
+            _randn(gen, dev, h, 64, 64, std=0.5),
+            torch.exp(_randn(gen, dev, h, std=0.5) + 2.3))
+
+
+def _assert_grads_close(got, want, tol=1e-2):
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        if w is None:
+            assert g is None, i
+            continue
+        assert torch.isfinite(g.float()).all(), i
+        assert _rel_l2(g, w) < tol, (i, _rel_l2(g, w))
+
+
+@pytest.mark.parametrize("C", [32, 96, 192, 384])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("has_ln", [False, True])
+def test_qkv_epi_bwd_kernel(dev, C, masked, has_ln):
+    """K4 against its plain version: dx and every parameter gradient."""
+    gen = torch.Generator().manual_seed(10 + C)
+    T = 64 * 16
+    args = _epi_args(gen, dev, C, T, masked, has_ln)
+    dz = _randn(gen, dev, T, C).to(torch.bfloat16)
+    kw = dict(ws=64, num_heads=C // 32, sm_scale=32 ** -0.5, has_mask=masked)
+    key = ("window_attention_qkv_epi_bwd", T, C, masked)
+    n, n_shape = wa.launches["window_attention_qkv_epi_bwd"], wa.launches_by_shape[key]
+    got = wa.window_attention_qkv_epi_bwd(*args, dz, **kw)
+    torch.cuda.synchronize()
+    assert wa.launches["window_attention_qkv_epi_bwd"] == n + 1
+    assert wa.launches_by_shape[key] == n_shape + 1
+    _assert_grads_close(got, wa.window_attention_qkv_epi_bwd_plain(*args, dz, **kw))
+    # no float atomics: a second launch gives the same bits
+    again = wa.window_attention_qkv_epi_bwd(*args, dz, **kw)
+    assert all(g is None or torch.equal(g, a) for g, a in zip(got, again))
+
+
+@pytest.mark.parametrize("use_cos", [True, False])
+@pytest.mark.parametrize("masked", [True, False])
+@pytest.mark.parametrize("has_bias", [True, False])
+def test_attention_bwd_kernel(dev, use_cos, masked, has_bias):
+    """K5 against its plain version: dqkv, dbias, dlogit_scale."""
+    gen = torch.Generator().manual_seed(3)
+    C, h, T = 768, 24, 64 * 8
+    qkv = _randn(gen, dev, T, 3 * C).to(torch.bfloat16)
+    dout = _randn(gen, dev, T, C).to(torch.bfloat16)
+    groups = torch.randint(0, 3, (T // 64, 64), generator=gen, dtype=torch.int32).to(dev)
+    bias = _randn(gen, dev, h, 64, 64, std=0.5) if has_bias else None
+    ls = torch.exp(_randn(gen, dev, h, std=0.5) + 2.3) if use_cos else None
+    kw = dict(ws=64, num_heads=h, use_cos=use_cos, sm_scale=32 ** -0.5, has_mask=masked)
+    n = wa.launches["window_attention_bwd"]
+    got = wa.window_attention_bwd(qkv, groups if masked else None, bias, ls, dout, **kw)
+    torch.cuda.synchronize()
+    assert wa.launches["window_attention_bwd"] == n + 1
+    want = wa.window_attention_bwd_plain(qkv, groups if masked else None, bias, ls, dout, **kw)
+    _assert_grads_close(got, want)
+    again = wa.window_attention_bwd(qkv, groups if masked else None, bias, ls, dout, **kw)
+    assert all(g is None or torch.equal(g, a) for g, a in zip(got, again))
+
+
+def test_attention_functions_backward_through_kernels(dev):
+    """The autograd functions: forward K1/K2, backward K4/K5, each launched once."""
+    gen = torch.Generator().manual_seed(4)
+    C, T = 96, 64 * 8
+    x, wq, bq, wp, bp, g, b, groups, bias, ls = _epi_args(gen, dev, C, T, True, True)
+    leaves = [t.clone().requires_grad_() for t in (x, wq, wp, g, bias, ls)]
+    kw = dict(ws=64, num_heads=C // 32, sm_scale=32 ** -0.5, has_mask=True)
+    before = dict(wa.launches)
+    out = wa.window_attention_qkv_epi(leaves[0], leaves[1], bq, leaves[2], bp, leaves[3], b,
+                                      groups, leaves[4], leaves[5], **kw)
+    qkv = out.repeat(1, 3)
+    out2 = wa.window_attention(qkv, groups, None, ls[:3].contiguous(), ws=64, num_heads=3,
+                               use_cos=True, sm_scale=1.0)
+    out2.float().square().sum().backward()
+    torch.cuda.synchronize()
+    for k in ("window_attention_qkv_epi", "window_attention", "window_attention_bwd",
+              "window_attention_qkv_epi_bwd"):
+        assert wa.launches[k] == before[k] + 1, k
+    for t in leaves:
+        assert t.grad is not None and t.grad.dtype == t.dtype
+        assert torch.isfinite(t.grad.float()).all()
+
+
+def _loss_args(gen, dev, T, C, F, p=4):
+    x = _randn(gen, dev, T, C).to(torch.bfloat16)
+    return (x, _randn(gen, dev, C, p * C, std=0.1), 1 + _randn(gen, dev, C, std=0.1),
+            _randn(gen, dev, C, std=0.1), _randn(gen, dev, C, F, std=0.3),
+            torch.randint(0, F, (T, p), generator=gen, dtype=torch.int32).to(dev),
+            torch.rand(T, p, generator=gen).to(dev) + 0.5)
+
+
+def _near_tie_rows(args, p=4):
+    """Sub-rows whose top-2 bf16 logits lie within two bf16 steps of the larger one."""
+    lf = fh.final_head_logits_plain(*args[:5], patch_size=p).to(torch.bfloat16).float()
+    top2 = lf.topk(2, dim=-1).values
+    return (top2[..., 0] - top2[..., 1]) <= 2 * 2.0 ** -7 * top2[..., 0].abs()
+
+
+@pytest.mark.parametrize("C,F", [(96, 10), (32, 5)])
+def test_final_head_loss_kernels(dev, C, F):
+    """K6 (loss, confusion matrix) and K7 (every gradient) against their plain
+    versions; a NaN token counts in no cell."""
+    gen = torch.Generator().manual_seed(5)
+    T, p = 64 * 64, 4
+    args = _loss_args(gen, dev, T, C, F)
+    n6, n7 = fh.launches["final_head_loss"], fh.launches["final_head_loss_bwd"]
+    num, den, cm = fh.final_head_loss_sums(*args, patch_size=p)
+    torch.cuda.synchronize()
+    wnum, wden, wcm = fh.final_head_loss_plain(*args, patch_size=p)
+    assert abs(float(num / den) - float(wnum / wden)) <= 1e-3 * abs(float(wnum / wden))
+    assert float(cm.sum()) == T * p
+    assert float((cm - wcm).abs().sum()) <= 2 * int(_near_tie_rows(args).sum())
+    scale = torch.tensor(1.3, device=dev) / wden
+    got = fh.final_head_loss_bwd(*args, scale, patch_size=p)
+    torch.cuda.synchronize()
+    assert fh.launches["final_head_loss"] == n6 + 1
+    assert fh.launches["final_head_loss_bwd"] == n7 + 1
+    _assert_grads_close(got, fh.final_head_loss_bwd_plain(*args, scale, patch_size=p))
+    again = fh.final_head_loss_bwd(*args, scale, patch_size=p)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    assert torch.equal(num, fh.final_head_loss_sums(*args, patch_size=p)[0])
+
+    nan_args = (args[0].clone(),) + args[1:]
+    nan_args[0][5] = float("nan")
+    _, _, cm_nan = fh.final_head_loss_sums(*nan_args, patch_size=p)
+    assert float(cm_nan.sum()) == T * p - p  # token 5's p sub-pixels count nowhere
+
+
+def test_final_head_loss_function_backward_through_kernels(dev):
+    gen = torch.Generator().manual_seed(6)
+    args = list(_loss_args(gen, dev, 64 * 16, 96, 10))
+    for i in range(5):
+        args[i] = args[i].clone().requires_grad_()
+    before = dict(fh.launches)
+    loss, cm = fh.final_head_loss(*args, patch_size=4)
+    loss.backward()
+    torch.cuda.synchronize()
+    assert fh.launches["final_head_loss"] == before["final_head_loss"] + 1
+    assert fh.launches["final_head_loss_bwd"] == before["final_head_loss_bwd"] + 1
+    assert not cm.requires_grad and float(cm.sum()) == 64 * 16 * 4
+    for t in args[:5]:
+        assert t.grad is not None and t.grad.dtype == t.dtype
+
+
 def test_kernels_refuse_what_they_do_not_take(dev):
     x = torch.zeros(64 * 2, 64, dtype=torch.bfloat16, device=dev)  # head dim 32, ws 64 ok
     w = torch.zeros(64, 192, device=dev)
@@ -106,3 +262,22 @@ def test_kernels_refuse_what_they_do_not_take(dev):
         wa.window_attention(torch.zeros(128, 192, device=dev), None, None,
                             torch.ones(2, device=dev), ws=64, num_heads=2, use_cos=True,
                             sm_scale=1.0, has_mask=False)
+    with pytest.raises(ValueError, match="C <= 384"):
+        C = 448
+        xb = torch.zeros(128, C, dtype=torch.bfloat16, device=dev)
+        wa.window_attention_qkv_epi_bwd(xb, torch.zeros(C, 3 * C, device=dev), None,
+                                        torch.zeros(C, C, device=dev), None, None, None, None,
+                                        None, torch.ones(C // 32, device=dev), xb, ws=64,
+                                        num_heads=C // 32, sm_scale=1.0, has_mask=False)
+    with pytest.raises(ValueError, match="dout"):
+        wa.window_attention_bwd(torch.zeros(128, 192, dtype=torch.bfloat16, device=dev), None,
+                                None, torch.ones(2, device=dev),
+                                torch.zeros(128, 64, device=dev), ws=64, num_heads=2,
+                                use_cos=True, sm_scale=1.0, has_mask=False)
+    gen = torch.Generator().manual_seed(7)
+    wide = _loss_args(gen, dev, 128, 160, 10)
+    with pytest.raises(ValueError, match="C <= 128"):
+        fh.final_head_loss_bwd(*wide, torch.ones((), device=dev), patch_size=4)
+    many = _loss_args(gen, dev, 128, 32, 40)
+    with pytest.raises(ValueError, match="F <= 32"):
+        fh.final_head_loss_sums(*many, patch_size=4)

@@ -142,8 +142,7 @@ def test_drop_path_drops_whole_samples():
     from heal_swin_torch.models.layers import DropPath
 
     dp = DropPath(0.5).train()
-    torch.manual_seed(0)
-    y = dp(torch.ones(64, 3, 4)).reshape(64, -1)
+    y = dp(torch.ones(64, 3, 4), torch.Generator().manual_seed(0)).reshape(64, -1)
     assert set(y.unique().tolist()) == {0.0, 2.0}  # kept samples scaled by 1/keep
     assert torch.equal(y.amin(1), y.amax(1))  # one draw per sample
     assert torch.equal(dp.eval()(torch.ones(2, 3)), torch.ones(2, 3))

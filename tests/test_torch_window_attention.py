@@ -161,9 +161,11 @@ def test_permute_and_windowing_match_jax():
     spec = get_shift_spec("ring_shift", 8 * 16 * 16, 8, 16, 8)
     x = np.random.default_rng(2).normal(size=(3, spec.npix, 5)).astype(np.float32)
     want = jax_permute(jnp.asarray(x), jnp.asarray(spec.perm), jnp.asarray(spec.inv_perm))
-    got = permute_tokens(_t(x), torch.as_tensor(spec.perm, dtype=torch.long))
+    perm = torch.as_tensor(spec.perm, dtype=torch.long)
+    inv = torch.as_tensor(spec.inv_perm, dtype=torch.long)
+    got = permute_tokens(_t(x), perm, inv)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    back = permute_tokens(got, torch.as_tensor(spec.inv_perm, dtype=torch.long))
+    back = permute_tokens(got, inv, perm)
     np.testing.assert_array_equal(back.numpy(), x)
     win = window_partition(_t(x), 16)
     np.testing.assert_array_equal(win.numpy(), np.asarray(jax_partition(jnp.asarray(x), 16)))
