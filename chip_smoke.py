@@ -1,8 +1,10 @@
 """On-GPU smoke check of heal_swin_torch: builds the CUDA kernels from the checkout,
 holds each against its plain PyTorch version at the shapes of the main path, then
-drives HEAL-SWIN-UNet segmentation at the paper configuration (nside 256, batch 2,
-bf16, random seeded weights) through the kernels and through the plain path:
-``predict`` (serving) and the train step (forward, weighted CE, backward, Adam).
+drives HEAL-SWIN-UNet at the paper configuration (nside 256, batch 2, bf16, random
+seeded weights) through the kernels and through the plain path: segmentation
+``predict`` (serving) and its train step (forward, weighted CE, backward, Adam), and
+the depth task's ``predict`` and train step (masked l2 loss on standardized depths
+with background marked inf).
 
     python3 chip_smoke.py            # needs one CUDA GPU; exits non-zero otherwise
 
@@ -10,12 +12,14 @@ Prints its findings line by line, a JSON line of per-kernel results, and ends wi
 {"ok": true, "device": {...}}.  Any failed check raises, so the exit code is non-zero.
 
 The kernels' launch counters (``launches``, and ``launches_by_shape`` per operand
-shape) are set to 0 just before one predict call and one train step and read just
-after; each kernel's ``launches`` in the results line comes from the run that uses
-it (the train step for K1, K2, K4-K7; predict for K3), and its ``ms`` / ``plain_ms``
-is the sum, over the shapes that run launched it at, of the median time of one call
-at that shape times the number of such launches.  torch.profiler traces of predict
-and of the train step give the device time by kernel and the device's idle share.
+shape) are set to 0 just before each driven call (a segmentation predict, a
+segmentation train step, a depth predict, a depth train step) and read just after;
+each kernel's ``launches`` in the results line comes from the run that uses it (the
+segmentation train step for K1, K2, K4-K7; segmentation predict for K3; the depth
+train step for K8, K9), and its ``ms`` / ``plain_ms`` is the sum, over the shapes that
+run launched it at, of the median time of one call at that shape times the number of
+such launches.  torch.profiler traces of predict and of both train steps give the
+device time by kernel and the device's idle share.
 """
 
 from __future__ import annotations
@@ -44,6 +48,11 @@ PROFILE_PREDICTS = 5
 TRAIN_STEPS = 5
 PROFILE_STEPS = 2
 LEARNING_RATE = 9.55e-4  # the JAX package's bench.py train rate
+BACKGROUND = 0.35  # share of depth targets marked inf (bench.py's depth cell)
+# K8/K9's loss kinds and output channels checked at the paper tail; the depth train
+# step launches the first (the paper config: l2, one channel)
+DEPTH_CASES = (("l2", 1), ("l1", 1), ("huber", 1), ("nll", 2), ("l2", 2))
+HUBER_DELTA = 1.0
 
 
 def log(*a):
@@ -131,9 +140,10 @@ def preds_agree(name, preds, want, ref_logits, slack):
 
 
 def check_kernels(gen, dev):
-    """Each kernel against its plain version at the serving path's shapes.  Returns the
+    """Each kernel against its plain version at the main paths' shapes.  Returns the
     measures of each shape, keyed as the wrappers' ``launches_by_shape`` counters are:
-    (kernel, T, C, has_mask) for the attention kernels, (kernel, T, C) for K3."""
+    (kernel, T, C, has_mask) for the attention kernels, (kernel, T, C) for K3, K6, K7,
+    (kernel, T, C, F, loss kind) for K8, K9."""
     from heal_swin_torch.ops import final_head as fh
     from heal_swin_torch.ops import window_attention as wa
 
@@ -254,7 +264,116 @@ def check_kernels(gen, dev):
     welem = (0.5 + torch.rand(F, generator=gen)).to(dev)[y.long()]
     largs = args + (y, welem)
     timed.update(check_loss_kernels("K6/K7", largs, p, fh))
+
+    # K8 / K9: the fused masked depth loss and its backward, on the same x, expand and
+    # LN operands, a head of F channels and targets with 35% background; every kind
+    # checked, the depth train step's (l2, F = 1) timed
+    t = depth_targets(gen, T, p, dev)
+    for kind, F in DEPTH_CASES:
+        dargs = args[:4] + (rnd(C, F, std=0.1), t)
+        timed.update(check_depth_kernels("K8/K9", dargs, p, kind, fh,
+                                         timing=(kind, F) == DEPTH_CASES[0]))
+    check_depth_edges(args[:4] + (rnd(C, 1, std=0.1), t), p, fh)
     return timed
+
+
+def depth_targets(gen, T, p, dev):
+    """(T, p) f32 network-space targets, BACKGROUND of them inf."""
+    t = torch.randn(T, p, generator=gen)
+    bg = torch.rand(T, p, generator=gen) < BACKGROUND
+    return torch.where(bg, float("inf"), t).to(dev)
+
+
+def check_depth_kernels(name, dargs, p, kind, fh, timing=True):
+    """K8 (loss sums, predictions) and K9 (every gradient, for a loss gradient of 1)
+    against their plain versions on ``dargs`` = (x, we, gamma, beta, wh, t).  The count
+    of valid targets exact, the loss sum within LOSS_REL_TOL relative, the bf16
+    predictions and the gradients within REL_L2_TOL.  Returns the timings, keyed like
+    the launch counters, when ``timing``."""
+    x, wh = dargs[0], dargs[4]
+    T, C = x.shape
+    F = wh.shape[-1]
+    kw = dict(patch_size=p, loss_kind=kind, huber_delta=HUBER_DELTA)
+    label = f"{name} {kind} F={F}"
+    with torch.no_grad():
+        num, den, preds = fh.final_head_depth_loss_sums(*dargs, **kw, impl="pallas")
+        wnum, wden, wpreds = fh.final_head_depth_loss_plain(*dargs, **kw)
+        if float(den) != float(wden) or float(den) != float(torch.isfinite(dargs[5]).sum()):
+            raise AssertionError(f"{label}: count {float(den)} vs plain {float(wden)}")
+        loss_rel = abs(float(num) - float(wnum)) / abs(float(wnum))
+        if not loss_rel <= LOSS_REL_TOL:
+            raise AssertionError(f"{label}: loss sum {float(num)} vs plain {float(wnum)}")
+        if preds.dtype != x.dtype or tuple(preds.shape) != (T, p * F):
+            raise AssertionError(f"{label}: predictions {tuple(preds.shape)} {preds.dtype}")
+        perr, pmae = check_close(f"{label} predictions", preds, wpreds)
+        scale = torch.ones((), device=x.device) / torch.clamp_min(wden, 1.0)
+        got = fh.final_head_depth_loss_bwd(*dargs, scale, **kw, impl="pallas")
+        want = fh.final_head_depth_loss_bwd_plain(*dargs, scale, **kw)
+        gerr, gmae = check_grads(label, K7_GRADS, got, want)
+        if F == 2 and kind != "nll" and float(got[4][:, 1].abs().max()) != 0.0:
+            raise AssertionError(f"{label}: the logvar channel got a gradient")
+    log(f"{label} final_head_depth_loss T={T} C={C}: loss sum {float(num):.6f} plain "
+        f"{float(wnum):.6f} (rel {loss_rel:.2e}), count {int(den)}; predictions rel_l2 "
+        f"{perr:.3e} max_abs {pmae:.3e}; backward rel_l2 <= {gerr:.3e} max_abs {gmae:.3e}")
+    if not timing:
+        return {}
+    with torch.no_grad():
+        ms8 = median_ms(lambda: fh.final_head_depth_loss_sums(*dargs, **kw, impl="pallas"))
+        pms8 = median_ms(lambda: fh.final_head_depth_loss_plain(*dargs, **kw))
+        ms9 = median_ms(lambda: fh.final_head_depth_loss_bwd(*dargs, scale, **kw,
+                                                             impl="pallas"))
+        pms9 = median_ms(lambda: fh.final_head_depth_loss_bwd_plain(*dargs, scale, **kw))
+    log(f"K8 final_head_depth_loss T={T} C={C} p={p} F={F} {kind}: kernel {ms8:.4f} ms "
+        f"plain {pms8:.4f} ms")
+    log(f"K9 final_head_depth_loss_bwd T={T} C={C} p={p} F={F} {kind}: kernel {ms9:.4f} ms "
+        f"plain {pms9:.4f} ms")
+    # K8's max_abs_err: over its bf16 predictions (its loss sum's relative error apart)
+    return {("final_head_depth_loss", T, C, F, kind): dict(
+                rel_l2=perr, max_abs_err=pmae, loss_sum_rel_err=loss_rel, ms=ms8,
+                plain_ms=pms8),
+            ("final_head_depth_loss_bwd", T, C, F, kind): dict(
+                rel_l2=gerr, max_abs_err=gmae, ms=ms9, plain_ms=pms9)}
+
+
+def check_depth_edges(dargs, p, fh):
+    """K8/K9 where the targets hold no depth: a tile of 64 rows all background gives
+    exactly 0 gradients to its rows; NaN targets count as background (the results
+    equal, bit for bit, those with inf in their place); a batch all background has a
+    count of 0, a loss sum of 0 and every gradient exactly 0."""
+    x = dargs[0]
+    plain_kw = dict(patch_size=p, loss_kind="l2", huber_delta=HUBER_DELTA)
+    kw = dict(plain_kw, impl="pallas")
+    t = dargs[5].clone()
+    t[:64] = float("inf")
+    t[64::7, 1] = float("nan")
+    t_inf = torch.where(torch.isnan(t), float("inf"), t)
+    one = torch.ones((), device=x.device)
+    with torch.no_grad():
+        res = [fh.final_head_depth_loss_sums(*dargs[:5], tt, **kw) for tt in (t, t_inf)]
+        grads = [fh.final_head_depth_loss_bwd(*dargs[:5], tt, one / res[0][1], **kw)
+                 for tt in (t, t_inf)]
+        if float(res[0][1]) != float(torch.isfinite(t).sum()):
+            raise AssertionError("K8: a NaN target was counted")
+        if not (all(torch.equal(a, b) for a, b in zip(*res))
+                and all(torch.equal(a, b) for a, b in zip(*grads))):
+            raise AssertionError("K8/K9: NaN targets differ from inf ones")
+        if not (torch.isfinite(grads[0][0].float()).all()
+                and float(grads[0][0][:64].float().abs().max()) == 0.0):
+            raise AssertionError("K9: an all-background tile got a gradient")
+        want = fh.final_head_depth_loss_plain(*dargs[:5], t, **plain_kw)
+        if abs(float(res[0][0]) - float(want[0])) > LOSS_REL_TOL * abs(float(want[0])):
+            raise AssertionError("K8 with NaN targets: loss sum differs from the plain one")
+        bg = torch.full_like(t, float("inf"))
+        num, den, preds = fh.final_head_depth_loss_sums(*dargs[:5], bg, **kw)
+        zero = fh.final_head_depth_loss_bwd(*dargs[:5], bg, one, **kw)
+        if float(num) != 0.0 or float(den) != 0.0 or not torch.isfinite(preds.float()).all():
+            raise AssertionError(f"K8 all background: loss sum {float(num)} count {float(den)}")
+        if any(float(g.float().abs().max()) != 0.0 or not torch.isfinite(g.float()).all()
+               for g in zero):
+            raise AssertionError("K9 all background: a gradient is not exactly 0")
+    log(f"K8/K9 edges T={x.shape[0]}: an all-background tile gets exactly 0 gradients, "
+        f"{int(torch.isnan(t).sum())} NaN targets count as background (bit-equal to inf), "
+        f"an all-background batch gives count 0, loss sum 0 and exactly 0 gradients")
 
 
 K4_GRADS = ("dx", "dwqkv", "dbqkv", "dwp", "dbp", "dgamma", "dbeta", "dbias", "dlogit_scale")
@@ -343,12 +462,12 @@ def check_loss_kernels(name, largs, p, fh, timing=True):
                                                 plain_ms=pms7)}
 
 
-def build_task(impl, dev, state=None):
+def build_task(impl, dev, state=None, depth=False):
+    """The paper model's segmentation task, or with ``depth`` its depth task (one
+    output channel, the masked l2 loss, the paper depth run's data config: no
+    transform, standardized, background masked)."""
+    from heal_swin_torch.models import tasks as T
     from heal_swin_torch.models.swin_hp import DataSpec, SwinHPTransformerConfig
-    from heal_swin_torch.models.tasks import (
-        WoodscapeSegmenterSwinHP,
-        WoodscapeSegmenterSwinHPConfig,
-    )
 
     # the paper model (heal_swin_tpu bench.py / __graft_entry__.py)
     cfg = SwinHPTransformerConfig(
@@ -356,10 +475,21 @@ def build_task(impl, dev, state=None):
         rel_pos_bias="flat", embed_dim=96, depths=[2, 2, 6, 2], num_heads=[3, 6, 12, 24],
         use_cos_attn=True, use_v2_norm_placement=True, dtype="bfloat16", gelu_approx=True,
         fused_final_head=True, attention_impl=impl)
-    spec = DataSpec(dim_in=8 * NSIDE * NSIDE, f_in=3, f_out=N_CLASSES, base_pix=8)
     gen = torch.Generator().manual_seed(SEED)
-    task = WoodscapeSegmenterSwinHP(WoodscapeSegmenterSwinHPConfig(cfg), spec, device=dev,
-                                    generator=gen)
+    npix = 8 * NSIDE * NSIDE
+    if depth:
+        data = T.WoodscapeHPDepthConfig(common_depth=T.WoodscapeDepthCommonConfig(
+            mask_background=True, data_transform=None, normalize_data="standardize"))
+        task = T.WoodscapeDepthSwinHP(
+            T.WoodscapeDepthSwinHPConfig(cfg, common_depth_config=T.CommonDepthConfig(
+                loss="l2")),
+            T.DepthDataSpec(dim_in=npix, f_in=3, f_out=1, base_pix=8), data, device=dev,
+            generator=gen)
+    else:
+        task = T.WoodscapeSegmenterSwinHP(
+            T.WoodscapeSegmenterSwinHPConfig(cfg),
+            DataSpec(dim_in=npix, f_in=3, f_out=N_CLASSES, base_pix=8), device=dev,
+            generator=gen)
     if state is None:
         # zero-init rel-pos tables and equal logit scales would hide indexing faults:
         # give them seeded values
@@ -378,7 +508,7 @@ def build_task(impl, dev, state=None):
 NO_LAUNCHES = {k: 0 for k in (
     "window_attention_qkv_epi", "window_attention", "final_head_predict",
     "window_attention_qkv_epi_bwd", "window_attention_bwd", "final_head_loss",
-    "final_head_loss_bwd")}
+    "final_head_loss_bwd", "final_head_depth_loss", "final_head_depth_loss_bwd")}
 
 
 def read_counters():
@@ -444,6 +574,25 @@ def profile(label, fn, n) -> float:
     return busy / n
 
 
+def check_blocks(label, task_k, io):
+    """Every block of the kernel path on the plain path's input to that block (``io``,
+    from ``record_blocks``): its residual branch (output - input) against the plain
+    block's, held to the one-kernel tolerance.  This checks each kernel where the model
+    calls it (the operands the model builds: rel-pos bias gather, mask groups, shifts,
+    LN) without the drift 22 blocks of random weights add on end to end."""
+    if len(io) != 22:
+        raise AssertionError(f"{label}: recorded {len(io)} blocks")
+    blocks_k = dict(task_k.model.named_modules())
+    worst = 0.0
+    with torch.no_grad():
+        for name, (x, y_p) in io.items():
+            y_k = blocks_k[name](x)
+            worst = max(worst, check_close(f"{label} block {name}", y_k.float() - x.float(),
+                                           y_p.float() - x.float())[0])
+    log(f"{label}: each of the {len(io)} blocks on the plain path's input: residual branch "
+        f"rel_l2 <= {worst:.3e} (tol {REL_L2_TOL})")
+
+
 def check_slice(task_k, task_p, imgs, timed):
     """One predict through the kernels (``task_k``) and one through the plain path
     (``task_p``, the same weights), checked against each other.  Returns the kernels'
@@ -463,13 +612,7 @@ def check_slice(task_k, task_p, imgs, timed):
     torch.cuda.synchronize()
     launches, by_shape = read_counters()
     keep.remove()
-    log(f"slice: kernel launches in one predict: {launches}")
-    log(f"slice: by shape (kernel, T, C[, has_mask]): {dict(sorted(by_shape.items()))}")
-    if launches != expected:
-        raise AssertionError(f"launch counts {launches} != {expected}")
-    unchecked = sorted(set(by_shape) - set(timed))
-    if unchecked:
-        raise AssertionError(f"predict launched kernels at shapes not checked: {unchecked}")
+    check_launches("slice predict", launches, by_shape, expected, timed)
     if preds_k.shape != (BATCH, npix) or preds_k.dtype != torch.int32:
         raise AssertionError(f"predict gave {tuple(preds_k.shape)} {preds_k.dtype}")
     if int(preds_k.min()) < 0 or int(preds_k.max()) >= N_CLASSES:
@@ -496,23 +639,7 @@ def check_slice(task_k, task_p, imgs, timed):
     preds_p = task_p.predict(None, imgs)
     for hk in hooks:
         hk.remove()
-    if len(io) != expected["window_attention_qkv_epi"] + expected["window_attention"]:
-        raise AssertionError(f"recorded {len(io)} blocks")
-
-    # every block of the kernel path on the plain path's input to that block: its
-    # residual branch (output - input) against the plain block's, held to the
-    # one-kernel tolerance.  This checks each kernel where the model calls it (the
-    # operands the model builds: rel-pos bias gather, mask groups, shifts, LN) without
-    # the drift 22 blocks of random weights add on end to end.
-    blocks_k = dict(task_k.model.named_modules())
-    worst = 0.0
-    with torch.no_grad():
-        for name, (x, y_p) in io.items():
-            y_k = blocks_k[name](x)
-            worst = max(worst, check_close(f"block {name}", y_k.float() - x.float(),
-                                           y_p.float() - x.float())[0])
-    log(f"slice: each of the {len(io)} blocks on the plain path's input: residual branch "
-        f"rel_l2 <= {worst:.3e} (tol {REL_L2_TOL})")
+    check_blocks("slice", task_k, io)
     del io
 
     # end to end: per op the two paths differ only by bf16 rounding flips (~2^-8
@@ -587,14 +714,13 @@ def train_batch(dev):
     return imgs, targets.to(torch.int32)
 
 
-def check_train_blocks(task_k, task_p, imgs, targets, dev):
-    """The backward where the model calls the kernels: every block of both paths on
-    the plain path's input and upstream gradient to that block, and the fused tail
-    on the features the kernel path hands it.  Runs before any optimizer step, so the
-    two models hold the same weights."""
+def check_train_blocks(label, task_k, task_p, imgs, targets, dev):
+    """The backward where the model calls the kernels: every block of both paths of a
+    task on the plain path's input and upstream gradient to that block (the gradient
+    the task's loss gives).  Runs before any optimizer step, so the two models hold the
+    same weights.  Returns the plain path's loss and the (T, C) features the kernel
+    path's ``loss_fn`` hands its fused tail, for the caller to check the tail on."""
     from heal_swin_torch.models.swin_hp import SwinHPBlock
-    from heal_swin_torch.models.tasks import decoder_tail
-    from heal_swin_torch.ops import final_head as fh
 
     # the plain path's forward and backward, keeping each block's input and the
     # gradient arriving at its output
@@ -634,11 +760,11 @@ def check_train_blocks(task_k, task_p, imgs, targets, dev):
             if want is None or got is None:
                 raise AssertionError(f"block {name} {n}: no gradient")
             worst = max(worst, check_close(f"block {name} {n}", got, want)[0])
-    log(f"train: each of the {len(io)} blocks on the plain path's input and upstream "
+    log(f"{label}: each of the {len(io)} blocks on the plain path's input and upstream "
         f"gradient: input and parameter gradients rel_l2 <= {worst:.3e} (tol {REL_L2_TOL})")
     del io
 
-    # the fused tail (K6, K7) on the features the kernel path gives it
+    # the features the kernel path hands its fused tail
     feats = {}
     keep = task_k.model.register_forward_hook(lambda _m, _a, out: feats.update(k=out))
     with torch.no_grad():
@@ -646,11 +772,7 @@ def check_train_blocks(task_k, task_p, imgs, targets, dev):
                        deterministic=False)
     keep.remove()
     B, N, C = feats["k"].shape
-    y = targets.reshape(B * N, 4)
-    largs = ((feats["k"].reshape(B * N, C),) + decoder_tail(task_k.model)
-             + (y, task_k.class_weights[y.long()]))
-    check_loss_kernels("train tail", largs, 4, fh, timing=False)
-    return float(loss_p.detach())
+    return float(loss_p.detach()), feats["k"].reshape(B * N, C)
 
 
 def train_rate(task, opt, mstate, imgs, targets, start, n):
@@ -674,19 +796,99 @@ def train_rate(task, opt, mstate, imgs, targets, start, n):
     return imgs.shape[0] * n / dt, mem, [float(v) for v in losses], mstate
 
 
-def drive_train(dev, timed):
-    """The train step at paper scale through the kernels and through the plain path:
-    per-block backward and tail checks, one counted step, the loss over 5 more steps
-    on one batch, the rate and memory of each path (kernel, plain, kernel), and a
-    trace of the kernel path's step.  Returns the kernels' launches in one train step:
-    per kernel, and per operand shape."""
+def depth_batch(dev):
+    """The fixed depth batch: the training images, and metric depths in [0.1, 60] m
+    that are a function of the first input channel, so that a few steps on the batch
+    can lower the loss, with BACKGROUND of the pixels marked inf."""
+    imgs, _ = train_batch(dev)
+    depth = 0.1 + 59.9 * torch.sigmoid(imgs[..., 0])
+    bg = torch.rand(depth.shape, generator=torch.Generator().manual_seed(SEED + 3)) < BACKGROUND
+    return imgs, torch.where(bg.to(dev), float("inf"), depth)
+
+
+def check_launches(label, launches, by_shape, expected, timed):
+    log(f"{label}: kernel launches: {launches}")
+    log(f"{label}: by shape (kernel, T, C[, has_mask | F, kind]): "
+        f"{dict(sorted(by_shape.items(), key=str))}")
+    if launches != expected:
+        raise AssertionError(f"{label}: launch counts {launches} != {expected}")
+    unchecked = sorted(set(by_shape) - set(timed), key=str)
+    if unchecked:
+        raise AssertionError(f"{label}: launched kernels at shapes not checked: {unchecked}")
+
+
+def drive_depth_predict(task_k, task_p, imgs, timed):
+    """Depth predict through the kernels (``task_k``) and through the plain path
+    (``task_p``, the same weights): one counted call, every block of the kernel path on
+    the plain path's input, the metric depths of the two paths, and their img/s.
+    Returns the kernels' launches in one predict: per kernel, and per operand shape."""
+    expected = dict(NO_LAUNCHES, window_attention_qkv_epi=20, window_attention=2)
+    reset_counters()
+    out_k = task_k.predict(None, imgs)
+    torch.cuda.synchronize()
+    launches, by_shape = read_counters()
+    check_launches("depth predict", launches, by_shape, expected, timed)
+    if (tuple(out_k.shape) != (BATCH, imgs.shape[1], 1) or out_k.dtype != torch.float32
+            or not torch.isfinite(out_k).all()):
+        raise AssertionError(f"depth predict gave {tuple(out_k.shape)} {out_k.dtype}, "
+                             f"finite: {bool(torch.isfinite(out_k).all())}")
+    io = {}
+    hooks = record_blocks(task_p.model, io)
+    out_p = task_p.predict(None, imgs)
+    for hk in hooks:
+        hk.remove()
+    check_blocks("depth predict", task_k, io)
+    del io
+    err = check_close("depth predict metric depths", out_k, out_p, SLICE_REL_L2_TOL)[0]
+    log(f"depth predict: metric depths (B, npix, 1) f32 in [{float(out_k.min()):.3f}, "
+        f"{float(out_k.max()):.3f}] m; kernels vs plain path rel_l2 {err:.3e} "
+        f"(tol {SLICE_REL_L2_TOL})")
+    ips_k, mem_k = rate(task_k, imgs)
+    ips_p, mem_p = rate(task_p, imgs)
+    ips_k2, _ = rate(task_k, imgs)
+    log(f"depth predict: kernels {ips_k:.3f} / {ips_k2:.3f} img/s (peak {mem_k:.3f} GiB "
+        f"above the resident), plain {ips_p:.3f} img/s (peak {mem_p:.3f} GiB above the "
+        f"resident)")
+    return launches, by_shape
+
+
+def drive_train(dev, timed, depth=False):
+    """The train step at paper scale through the kernels and through the plain path,
+    for segmentation or, with ``depth``, the depth task (after its ``predict``,
+    ``drive_depth_predict``): per-block backward and tail checks, one counted step,
+    the loss over 5 more steps on one batch, the metrics, the rate and memory of each
+    path (kernel, plain, kernel), and a trace of the kernel path's step.  Returns the
+    kernels' launches in one train step: per kernel, and per operand shape."""
+    from heal_swin_torch.models.tasks import decoder_tail
+    from heal_swin_torch.ops import final_head as fh
     from heal_swin_torch.training.optimizer import OptimizerConfig, make_optimizer
     from heal_swin_torch.training.trainer import step_generator, train_step
 
-    imgs, targets = train_batch(dev)
-    task_k = build_task("auto", dev)
-    task_p = build_task("xla", dev, state=task_k.model.state_dict())
-    loss0_p = check_train_blocks(task_k, task_p, imgs, targets, dev)
+    label = "depth train" if depth else "train"
+    task_k = build_task("auto", dev, depth=depth)
+    task_p = build_task("xla", dev, state=task_k.model.state_dict(), depth=depth)
+    if depth:
+        imgs, metric_depth = depth_batch(dev)
+        targets = task_k._to_network(metric_depth)  # standardized with the masked stats
+        drive_depth_predict(task_k, task_p, imgs, timed)
+        expected = dict(NO_LAUNCHES, final_head_depth_loss=1, final_head_depth_loss_bwd=1)
+    else:
+        imgs, targets = train_batch(dev)
+        expected = dict(NO_LAUNCHES, final_head_loss=1, final_head_loss_bwd=1)
+    expected.update(window_attention_qkv_epi=20, window_attention=2,
+                    window_attention_qkv_epi_bwd=20, window_attention_bwd=2)
+    loss0_p, feats = check_train_blocks(label, task_k, task_p, imgs, targets, dev)
+
+    # the fused tail on the features the kernel path hands it
+    tail = (feats,) + decoder_tail(task_k.model)
+    if depth:
+        check_depth_kernels(f"{label} tail", tail + (targets.reshape(-1, 4),), 4, "l2", fh,
+                            timing=False)
+    else:
+        y = targets.reshape(-1, 4)
+        check_loss_kernels(f"{label} tail", tail + (y, task_k.class_weights[y.long()]), 4,
+                           fh, timing=False)
+    del feats, tail
 
     opt_cfg = OptimizerConfig(learning_rate=LEARNING_RATE)
     opts = [make_optimizer(t.model.parameters(), opt_cfg) for t in (task_k, task_p)]
@@ -694,22 +896,12 @@ def drive_train(dev, timed):
 
     # step 0 of the kernel path, counted, then 5 timed steps on the same batch; the
     # same on the plain path; then 5 more timed steps on the kernel path
-    expected = dict(NO_LAUNCHES, window_attention_qkv_epi=20, window_attention=2,
-                    window_attention_qkv_epi_bwd=20, window_attention_bwd=2,
-                    final_head_loss=1, final_head_loss_bwd=1)
     reset_counters()
     loss_k0, mstates[0] = train_step(task_k, opts[0], mstates[0], imgs, targets,
                                      step_generator(SEED, 0, dev))
     torch.cuda.synchronize()
     launches, by_shape = read_counters()
-    log(f"train: kernel launches in one train step: {launches}")
-    log(f"train: by shape (kernel, T, C[, has_mask]): {dict(sorted(by_shape.items()))}")
-    if launches != expected:
-        raise AssertionError(f"launch counts {launches} != {expected}")
-    unchecked = sorted(set(by_shape) - set(timed))
-    if unchecked:
-        raise AssertionError(f"the train step launched kernels at shapes not checked: "
-                             f"{unchecked}")
+    check_launches(f"{label} step", launches, by_shape, expected, timed)
     ips_k, mem_k, traj_k, mstates[0] = train_rate(task_k, opts[0], mstates[0], imgs,
                                                   targets, 1, TRAIN_STEPS)
     loss_p0, mstates[1] = train_step(task_p, opts[1], mstates[1], imgs, targets,
@@ -720,22 +912,27 @@ def drive_train(dev, timed):
                                           1 + TRAIN_STEPS, TRAIN_STEPS)
     resident = torch.cuda.memory_allocated() / 2 ** 30
     loss_k0, loss_p0 = float(loss_k0), float(loss_p0)
-    log(f"train: first step's loss kernels {loss_k0:.6f} plain {loss_p0:.6f} (rel "
+    log(f"{label}: first step's loss kernels {loss_k0:.6f} plain {loss_p0:.6f} (rel "
         f"{abs(loss_k0 - loss_p0) / abs(loss_p0):.2e}); plain path before any step "
         f"{loss0_p:.6f}")
-    for label, traj in (("kernels", [loss_k0] + traj_k), ("plain", [loss_p0] + traj_p)):
-        log(f"train: loss over {len(traj)} steps on one batch ({label}): "
+    for path, traj in (("kernels", [loss_k0] + traj_k), ("plain", [loss_p0] + traj_p)):
+        log(f"{label}: loss over {len(traj)} steps on one batch ({path}): "
             + " ".join(f"{v:.6f}" for v in traj))
         if not (all(math.isfinite(v) for v in traj) and traj[-1] < traj[0]):
-            raise AssertionError(f"train ({label}): the loss did not fall: {traj}")
-    for label, task, ms, n in (("kernels", task_k, mstates[0], 1 + 2 * TRAIN_STEPS),
-                               ("plain", task_p, mstates[1], 1 + TRAIN_STEPS)):
+            raise AssertionError(f"{label} ({path}): the loss did not fall: {traj}")
+    # the metric state counts every pixel (segmentation) or every pixel with a depth
+    per_step = float(torch.isfinite(targets).sum()) if depth else targets.numel()
+    key = "count" if depth else "total"
+    for path, task, ms, n in (("kernels", task_k, mstates[0], 1 + 2 * TRAIN_STEPS),
+                              ("plain", task_p, mstates[1], 1 + TRAIN_STEPS)):
         m = task.metric_compute(ms, "train_")
-        if not float(ms["total"]) == n * imgs.shape[0] * imgs.shape[1]:
-            raise AssertionError(f"train ({label}): metric state counted {float(ms['total'])}")
-        log(f"train: metrics over {n} steps ({label}): "
+        if not float(ms[key]) == n * per_step:
+            raise AssertionError(f"{label} ({path}): metric state counted {float(ms[key])}")
+        if not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"{label} ({path}): metrics not finite: {m}")
+        log(f"{label}: metrics over {n} steps ({path}): "
             + " ".join(f"{k} {v:.4f}" for k, v in m.items()))
-    log(f"train: train step kernels {ips_k:.3f} / {ips_k2:.3f} img/s (peak {mem_k:.3f} GiB "
+    log(f"{label}: train step kernels {ips_k:.3f} / {ips_k2:.3f} img/s (peak {mem_k:.3f} GiB "
         f"above the resident), plain {ips_p:.3f} img/s (peak {mem_p:.3f} GiB above the "
         f"resident); resident {resident:.3f} GiB (both models' f32 weights, their Adam "
         f"state and the batch)")
@@ -747,9 +944,9 @@ def drive_train(dev, timed):
                    step_generator(SEED, state["step"], dev))
         state["step"] += 1
 
-    busy = profile("train profile", one_step, PROFILE_STEPS)
+    busy = profile(f"{label} profile", one_step, PROFILE_STEPS)
     wall = BATCH / max(ips_k, ips_k2) * 1e3
-    log(f"train profile: against the untraced {wall:.3f} ms/step the device idles "
+    log(f"{label} profile: against the untraced {wall:.3f} ms/step the device idles "
         f"{1 - busy / wall:.4f} of the time")
     return launches, by_shape
 
@@ -769,14 +966,18 @@ SOURCES = {
                         "heal_swin_tpu/ops/final_head.py:755"),
     "final_head_loss_bwd": ("heal_swin_torch/csrc/final_head.cu",
                             "heal_swin_tpu/ops/final_head.py:781"),
+    "final_head_depth_loss": ("heal_swin_torch/csrc/final_head.cu",
+                              "heal_swin_tpu/ops/final_head.py:568"),
+    "final_head_depth_loss_bwd": ("heal_swin_torch/csrc/final_head.cu",
+                                  "heal_swin_tpu/ops/final_head.py:593"),
 }
 
 
 def kernel_results(timed, runs):
     """The per-kernel results line.  ``runs``: kernel -> (launches per kernel, per
-    shape) of the run that uses it (the train step, or predict for K3).  Each kernel's
-    launches in that run, and its times summed over the shapes that run launched it at,
-    each shape weighted by its launches there."""
+    shape) of the run that uses it.  Each kernel's launches in that run, and its times
+    summed over the shapes that run launched it at, each shape weighted by its launches
+    there."""
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         launches, by_shape = runs[name]
@@ -784,8 +985,10 @@ def kernel_results(timed, runs):
         for key, n in sorted(by_shape.items()):
             if key[0] == name:
                 shape = dict(T=key[1], C=key[2])
-                if len(key) > 3:
+                if len(key) == 4:
                     shape["mask"] = key[3]
+                elif len(key) == 5:
+                    shape.update(F=key[3], kind=key[4])
                 shapes.append(dict(shape, launches=n, **timed[key]))
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
@@ -821,11 +1024,14 @@ def main() -> int:
     predict_run = drive_slice(dev, timed)
     torch.cuda.empty_cache()
     train_run = drive_train(dev, timed)
+    torch.cuda.empty_cache()
+    depth_run = drive_train(dev, timed, depth=True)
 
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     runs = {name: train_run for name in SOURCES}
     runs["final_head_predict"] = predict_run
+    runs["final_head_depth_loss"] = runs["final_head_depth_loss_bwd"] = depth_run
     kernels = kernel_results(timed, runs)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

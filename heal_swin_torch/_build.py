@@ -48,6 +48,12 @@ _SIGNATURES = {
     "hs_final_head_loss_bwd": ([_P] * 12 + [_I] * 4 + [_F, _P], _I),
     "hs_final_head_loss_bwd_smem": ([_I] * 3, ctypes.c_size_t),
     "hs_final_head_loss_bwd_workspace": ([_I] * 4, ctypes.c_size_t),
+    "hs_final_head_depth_loss": ([_P] * 9 + [_I] * 5 + [_F] * 2 + [_P], _I),
+    "hs_final_head_depth_loss_smem": ([_I] * 3, ctypes.c_size_t),
+    "hs_final_head_depth_loss_workspace": ([_I], ctypes.c_size_t),
+    "hs_final_head_depth_loss_bwd": ([_P] * 11 + [_I] * 5 + [_F] * 2 + [_P], _I),
+    "hs_final_head_depth_loss_bwd_smem": ([_I] * 3, ctypes.c_size_t),
+    "hs_final_head_depth_loss_bwd_workspace": ([_I] * 4, ctypes.c_size_t),
     "hs_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -281,3 +281,124 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     many = _loss_args(gen, dev, 128, 32, 40)
     with pytest.raises(ValueError, match="F <= 32"):
         fh.final_head_loss_sums(*many, patch_size=4)
+
+
+DEPTH_CASES = [("l2", 1, 1.0), ("l1", 1, 1.0), ("huber", 1, 0.5), ("nll", 2, 1.0),
+               ("l2", 2, 1.0)]
+
+
+def _depth_args(gen, dev, T, C, F, p=4):
+    """Tail operands and (T, p) f32 targets, 35% of them inf (background)."""
+    t = torch.randn(T, p, generator=gen)
+    t = torch.where(torch.rand(T, p, generator=gen) < 0.35, float("inf"), t)
+    return (_randn(gen, dev, T, C).to(torch.bfloat16), _randn(gen, dev, C, p * C, std=0.1),
+            1 + _randn(gen, dev, C, std=0.1), _randn(gen, dev, C, std=0.1),
+            _randn(gen, dev, C, F, std=0.3), t.to(dev))
+
+
+@pytest.mark.parametrize("C", [96, 32])
+@pytest.mark.parametrize("kind,F,delta", DEPTH_CASES)
+def test_final_head_depth_loss_kernels(dev, kind, F, delta, C):
+    """K8 (loss sum, count, bf16 predictions) and K9 (every gradient) against their
+    plain versions; each launch counted, a second launch gives the same bits."""
+    gen = torch.Generator().manual_seed(8)
+    T, p = 64 * 64, 4
+    args = _depth_args(gen, dev, T, C, F)
+    kw = dict(patch_size=p, loss_kind=kind, huber_delta=delta)
+    keys = [(k, T, C, F, kind) for k in ("final_head_depth_loss", "final_head_depth_loss_bwd")]
+    before = [fh.launches[k[0]] for k in keys] + [fh.launches_by_shape[k] for k in keys]
+    num, den, preds = fh.final_head_depth_loss_sums(*args, **kw)
+    torch.cuda.synchronize()
+    wnum, wden, wpreds = fh.final_head_depth_loss_plain(*args, **kw)
+    assert float(den) == float(wden) == float(torch.isfinite(args[5]).sum())
+    assert abs(float(num) - float(wnum)) <= 1e-3 * abs(float(wnum))
+    assert preds.dtype == torch.bfloat16 and tuple(preds.shape) == (T, p * F)
+    assert _rel_l2(preds, wpreds) < 1e-2
+    scale = torch.tensor(1.3, device=dev) / wden
+    got = fh.final_head_depth_loss_bwd(*args, scale, **kw)
+    torch.cuda.synchronize()
+    after = [fh.launches[k[0]] for k in keys] + [fh.launches_by_shape[k] for k in keys]
+    assert after == [n + 1 for n in before]
+    _assert_grads_close(got, fh.final_head_depth_loss_bwd_plain(*args, scale, **kw))
+    if F == 2 and kind != "nll":  # the logvar channel gets no gradient
+        assert float(got[4][:, 1].abs().max()) == 0.0
+    again = fh.final_head_depth_loss_bwd(*args, scale, **kw)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    assert all(torch.equal(a, b)
+               for a, b in zip((num, den, preds), fh.final_head_depth_loss_sums(*args, **kw)))
+
+
+def test_final_head_depth_loss_kernels_without_depth(dev):
+    """An all-background tile gets exactly 0 gradients; NaN targets are background
+    (bit-equal to inf); an all-background batch: count 0, loss sum 0, 0 gradients."""
+    gen = torch.Generator().manual_seed(9)
+    T, C, p = 64 * 16, 96, 4
+    args = list(_depth_args(gen, dev, T, C, 2))
+    kw = dict(patch_size=p, loss_kind="nll")
+    t = args[5].clone()
+    t[:64] = float("inf")
+    t[64::5, 2] = float("nan")
+    t_inf = torch.where(torch.isnan(t), float("inf"), t)
+    one = torch.ones((), device=dev)
+    res = [fh.final_head_depth_loss_sums(*args[:5], tt, **kw) for tt in (t, t_inf)]
+    grads = [fh.final_head_depth_loss_bwd(*args[:5], tt, one / res[0][1], **kw)
+             for tt in (t, t_inf)]
+    torch.cuda.synchronize()
+    assert float(res[0][1]) == float(torch.isfinite(t).sum())
+    assert all(torch.equal(a, b) for a, b in zip(*res))
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+    assert torch.isfinite(grads[0][0].float()).all()
+    assert float(grads[0][0][:64].float().abs().max()) == 0.0
+    _assert_grads_close(grads[0], fh.final_head_depth_loss_bwd_plain(*args[:5], t,
+                                                                     one / res[0][1], **kw))
+    bg = torch.full_like(t, float("inf"))
+    num, den, _ = fh.final_head_depth_loss_sums(*args[:5], bg, **kw)
+    assert float(num) == 0.0 and float(den) == 0.0
+    for g in fh.final_head_depth_loss_bwd(*args[:5], bg, one, **kw):
+        assert float(g.float().abs().max()) == 0.0
+
+
+def test_final_head_depth_loss_function_backward_through_kernels(dev):
+    """The autograd function: K8 forward, K9 backward, each launched once; the
+    predictions carry no gradient; each gradient in its operand's dtype."""
+    gen = torch.Generator().manual_seed(10)
+    args = list(_depth_args(gen, dev, 64 * 16, 96, 1))
+    for i in range(5):
+        args[i] = args[i].clone().requires_grad_()
+    before = dict(fh.launches)
+    loss, preds = fh.final_head_depth_loss(*args, patch_size=4, loss_kind="l2")
+    loss.backward()
+    torch.cuda.synchronize()
+    assert fh.launches["final_head_depth_loss"] == before["final_head_depth_loss"] + 1
+    assert fh.launches["final_head_depth_loss_bwd"] == before["final_head_depth_loss_bwd"] + 1
+    assert not preds.requires_grad and tuple(preds.shape) == (64 * 16, 4)
+    for t in args[:5]:
+        assert t.grad is not None and t.grad.dtype == t.dtype
+        assert torch.isfinite(t.grad.float()).all()
+
+
+def test_depth_kernels_refuse_what_they_do_not_take(dev):
+    gen = torch.Generator().manual_seed(11)
+    args = _depth_args(gen, dev, 128, 32, 1)
+    one = torch.ones((), device=dev)
+    for kw, match in ((dict(loss_kind="ce"), "unknown loss kind"),
+                      (dict(loss_kind="nll"), "needs F=2")):
+        with pytest.raises(ValueError, match=match):
+            fh.final_head_depth_loss_sums(*args, patch_size=4, **kw)
+        with pytest.raises(ValueError, match=match):
+            fh.final_head_depth_loss_bwd(*args, one, patch_size=4, **kw)
+    three = _depth_args(gen, dev, 128, 32, 3)
+    with pytest.raises(ValueError, match="F in"):
+        fh.final_head_depth_loss_sums(*three, patch_size=4, loss_kind="l2")
+    ragged = _depth_args(gen, dev, 96, 32, 1)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        fh.final_head_depth_loss_sums(*ragged, patch_size=4, loss_kind="l2")
+    narrow = _depth_args(gen, dev, 128, 40, 1)
+    with pytest.raises(ValueError, match="C % 16"):
+        fh.final_head_depth_loss_sums(*narrow, patch_size=4, loss_kind="l2")
+    wide = _depth_args(gen, dev, 128, 144, 1)
+    with pytest.raises(ValueError, match="C <= 128"):
+        fh.final_head_depth_loss_bwd(*wide, one, patch_size=4, loss_kind="l2")
+    with pytest.raises(ValueError, match="bfloat16"):
+        fh.final_head_depth_loss_sums(args[0].float(), *args[1:], patch_size=4,
+                                      loss_kind="l2")
