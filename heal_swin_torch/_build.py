@@ -54,6 +54,8 @@ _SIGNATURES = {
     "hs_final_head_depth_loss_bwd": ([_P] * 11 + [_I] * 5 + [_F] * 2 + [_P], _I),
     "hs_final_head_depth_loss_bwd_smem": ([_I] * 3, ctypes.c_size_t),
     "hs_final_head_depth_loss_bwd_workspace": ([_I] * 4, ctypes.c_size_t),
+    "hs_chamfer_min_both": ([_P] * 4 + [_I] * 2 + [_P], _I),
+    "hs_chamfer_fold_pairs": ([_P, _I] + [_P] * 4 + [_I] * 2 + [_P], _I),
     "hs_error_string": ([_I], ctypes.c_char_p),
 }
 

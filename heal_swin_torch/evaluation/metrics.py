@@ -9,6 +9,9 @@ device of the predictions; every update returns a new state.
   mae, RelSE / RelAE against the dataset-mean predictor, SILogE, the mean predicted
   std of a logvar channel, and iRMSE, which inverts the raw values first (an inf
   target counts as 0, a zero depth drops out).
+
+The state inits put the state on ``device``: the first CUDA device when None (they
+raise without one), the CPU only when asked for.
 """
 
 from __future__ import annotations
@@ -18,8 +21,11 @@ from typing import Dict, Optional
 
 import torch
 
+from heal_swin_torch.ops._dispatch import default_device
+
 
 def seg_state_init(num_classes: int, device=None) -> Dict[str, torch.Tensor]:
+    device = default_device(device)
     z = torch.zeros((), dtype=torch.float32, device=device)
     return {"confmat": torch.zeros((num_classes, num_classes), dtype=torch.float32,
                                    device=device),
@@ -96,6 +102,7 @@ _DEPTH_KEYS = ("sq_err", "abs_err", "count", "sq_rel_ref", "abs_rel_ref", "inv_s
 
 
 def depth_state_init(device=None) -> Dict[str, torch.Tensor]:
+    device = default_device(device)
     return {k: torch.zeros((), dtype=torch.float32, device=device) for k in _DEPTH_KEYS}
 
 

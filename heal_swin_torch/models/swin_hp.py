@@ -4,7 +4,7 @@
 Tokens are nested-order HEALPix pixels treated as a flat sequence: windows are
 contiguous runs (reshape), patch merging and expanding ride the 4-children-per-parent
 nested hierarchy, and shifted windows are host-precomputed roll amounts or
-permutations with mask group ids (``heal_swin_tpu.ops.shifting``, numpy only).
+permutations with mask group ids (``heal_swin_torch.ops.shifting``, numpy only).
 
 Inputs (B, npix, f_in) channels-last; outputs (B, npix, f_out) float32, or with
 ``tail=False`` the (B, npix/p, C) tokens after ``norm_up`` in the compute dtype.  A
@@ -21,8 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from heal_swin_tpu.data.data_spec import DataSpec
-from heal_swin_tpu.ops.shifting import get_shift_spec
+from heal_swin_torch.data.data_spec import DataSpec
 from heal_swin_torch.models.layers import (
     DropPath,
     LayerNorm,
@@ -31,7 +30,9 @@ from heal_swin_torch.models.layers import (
     linear,
     trunc_normal_,
 )
+from heal_swin_torch.ops._dispatch import default_device
 from heal_swin_torch.ops.permute import permute_tokens
+from heal_swin_torch.ops.shifting import get_shift_spec
 from heal_swin_torch.ops.windowing import get_nest_win_idcs
 
 
@@ -320,8 +321,9 @@ class SwinHPTransformerSys(nn.Module):
     ``generator``; element dropout in training (drop_rate > 0) is not ported yet.
 
     Parameters are made on the CPU from ``generator`` (seeded 0 when not given) and
-    then moved to ``device``, so a seed gives the same weights on every device; the
-    global RNG is left as it was."""
+    then moved to ``device`` (the first CUDA device when None; raises without one), so
+    a seed gives the same weights on every device; the global RNG is left as it
+    was."""
 
     def __init__(self, config: SwinHPTransformerConfig, data_spec: DataSpec,
                  device=None, generator: Optional[torch.Generator] = None):
@@ -329,6 +331,7 @@ class SwinHPTransformerSys(nn.Module):
         if config.use_checkpoint:
             raise NotImplementedError("use_checkpoint (activation recomputation) is not "
                                       "ported yet")
+        device = default_device(device)
         cfg = config
         self.config = cfg
         self.data_spec = data_spec
@@ -354,8 +357,7 @@ class SwinHPTransformerSys(nn.Module):
             self.decoder = UnetDecoder(cfg, data_spec, dpr)
         self.reset_parameters(generator if generator is not None
                               else torch.Generator().manual_seed(0))
-        if device is not None:
-            self.to(device)
+        self.to(device)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:

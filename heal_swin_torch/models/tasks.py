@@ -20,12 +20,12 @@ from typing import List, Optional
 import torch
 from torch import nn
 
-from heal_swin_tpu.data.data_config import (  # noqa: F401 (jax-free; the port's too)
+from heal_swin_torch.data import normalize_depth_data as ndd
+from heal_swin_torch.data.data_config import (  # noqa: F401 (re-exported for callers)
     WoodscapeDepthCommonConfig,
     WoodscapeHPDepthConfig,
 )
-from heal_swin_tpu.data.data_spec import DataSpec, DepthDataSpec  # noqa: F401
-from heal_swin_torch.data import normalize_depth_data as ndd
+from heal_swin_torch.data.data_spec import DataSpec, DepthDataSpec  # noqa: F401
 from heal_swin_torch.evaluation import metrics as M
 from heal_swin_torch.models.swin_hp import SwinHPTransformerConfig, SwinHPTransformerSys
 from heal_swin_torch.ops.final_head import (
@@ -69,7 +69,8 @@ class WoodscapeSegmenterSwinHPConfig:
 
 class WoodscapeSegmenterSwinHP:
     """HEAL-SWIN-UNet semantic segmentation.  ``self.model`` is the network, built on
-    ``device`` from ``generator``."""
+    ``device`` (the first CUDA device when None; raises without one) from
+    ``generator``."""
 
     def __init__(self, config: WoodscapeSegmenterSwinHPConfig, data_spec: DataSpec,
                  device=None, generator: Optional[torch.Generator] = None):
@@ -177,11 +178,12 @@ class WoodscapeDepthSwinHP:
     """HEAL-SWIN-UNet depth estimation.  The network works in transformed and
     normalized depth space: ``loss_fn`` takes targets there (a non-finite value marks
     background), ``predict`` returns metric depths on channel 0, and the metrics run in
-    metric space.  With ``use_logvar`` the head has a second, logvar channel.
+    metric space.  With ``use_logvar`` the head has a second, logvar channel.  The
+    network is built on ``device`` as the segmentation task's.
 
     ``data_config``: a data config with a ``common_depth`` section (transform,
-    normalization, background masking), as ``heal_swin_tpu.data.data_config``'s HP
-    depth config; without one the network's space is metric depth."""
+    normalization, background masking), as ``WoodscapeHPDepthConfig``; without one the
+    network's space is metric depth."""
 
     NAME = "depth_swin_hp"
     input_key = "hp_imgs"

@@ -8,6 +8,17 @@ import torch
 from heal_swin_torch import _build
 
 
+def default_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``device`` when given, else the first
+    CUDA device.  The CPU only when asked for (``device="cpu"``)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on the GPU by default; pass "
+                           "device='cpu' to run its plain versions on the CPU")
+    return torch.device("cuda", 0)
+
+
 def use_kernel(t: torch.Tensor, impl: str) -> bool:
     """Kernel or plain version for tensor ``t``: "auto" runs the kernel for a CUDA
     tensor and the plain version for a CPU tensor; "xla" runs the plain version on

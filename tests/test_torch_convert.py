@@ -42,7 +42,7 @@ def test_every_flax_leaf_maps_to_one_port_key(v2, ape, embed_norm):
         assert key in sd, (path, key)
         np.testing.assert_array_equal(to_flax(sd[key].numpy()), value, err_msg=path)
 
-    port = tsh.SwinHPTransformerSys(tsh.SwinHPTransformerConfig(**kw), spec)
+    port = tsh.SwinHPTransformerSys(tsh.SwinHPTransformerConfig(**kw), spec, device="cpu")
     assert set(port.state_dict()) == set(sd)
     port.load_state_dict(sd, strict=True)
     for k, v in port.state_dict().items():

@@ -402,3 +402,90 @@ def test_depth_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="bfloat16"):
         fh.final_head_depth_loss_sums(args[0].float(), *args[1:], patch_size=4,
                                       loss_kind="l2")
+
+
+def _cloud(gen, dev, n, scale=5.0):
+    return (torch.randn(n, 3, generator=gen) * scale).to(dev)
+
+
+@pytest.mark.parametrize("n,m,nv,mv", [(5000, 7000, 5000, 7000), (3000, 2500, 2999, 1),
+                                       (700, 300, 700, 300), (4096, 2048, 1000, 2048)])
+def test_chamfer_min_both_kernel(dev, n, m, nv, mv):
+    """K10 against its plain version, bit-equal: whole clouds, a side under one tile,
+    a single valid point, and padding rows masked by count (placed where they would
+    win if they counted)."""
+    from heal_swin_torch.ops import chamfer as ch
+
+    gen = torch.Generator().manual_seed(12)
+    p, q = _cloud(gen, dev, n), _cloud(gen, dev, m)
+    p[nv:] = q[0]
+    q[mv:] = p[0]
+    key = ("chamfer_min_both", n, m)
+    before = ch.launches_by_shape[key]
+    got = ch.chamfer_min_both(p, q, nv, mv)
+    torch.cuda.synchronize()
+    assert ch.launches_by_shape[key] == before + 1
+    want = ch.chamfer_min_both_plain(p, q, nv, mv)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w), int((g != w).sum())
+    assert torch.isinf(got[0][nv:]).all() and torch.isinf(got[1][mv:]).all()
+    again = ch.chamfer_min_both(p, q, nv, mv)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("n,m", [(5000, 7000), (700, 3000), (3000, 300)])
+def test_chamfer_fold_pairs_kernel(dev, n, m):
+    """K11 against its plain version, bit-equal, on every tile pair (an all-padding
+    tile among them) merged into minima that already hold values; and the pruned
+    route end to end against the brute one."""
+    from heal_swin_torch.ops import chamfer as ch
+    from heal_swin_torch.ops import chamfer_pruned as chp
+
+    T = chp._TP
+    gen = torch.Generator().manual_seed(13)
+    npt, nqt = -(-n // T) + 1, -(-m // T)  # one p tile beyond the valid points
+    ptab = torch.randn(npt, 3, T, generator=gen).to(dev) * 5
+    qtab = torch.randn(nqt, 3, T, generator=gen).to(dev) * 5
+    pairs = torch.tensor([[i, j] for i in range(npt) for j in range(nqt)],
+                         dtype=torch.int32, device=dev)
+    seed_p = torch.rand(npt * T, generator=gen).to(dev) * 0.01
+    seed_q = torch.full((nqt * T,), float("inf"), device=dev)
+    key = ("chamfer_fold_pairs", pairs.shape[0])
+    before = chp.launches_by_shape[key]
+    got = chp.chamfer_fold_pairs(pairs, ptab, qtab, n, m, seed_p.clone(), seed_q.clone())
+    torch.cuda.synchronize()
+    assert chp.launches_by_shape[key] == before + 1
+    want = chp.chamfer_fold_pairs_plain(pairs, ptab, qtab, n, m, seed_p.clone(), seed_q.clone())
+    for g, w in zip(got, want):
+        assert torch.equal(g, w), int((g != w).sum())
+    assert torch.equal(got[0][n:], seed_p[n:]) and torch.isinf(got[1][m:]).all()
+
+    rng = torch.Generator().manual_seed(14)
+    p = (torch.randn(n, 3, generator=rng) * 5).numpy()
+    q = (torch.randn(m, 3, generator=rng) * 5).numpy()
+    pruned, brute = {}, {}
+    vp = ch.chamfer_distance(p, q, route="pruned", device=dev, stats=pruned)
+    vb = ch.chamfer_distance(p, q, route="brute", device=dev, stats=brute)
+    assert vp == vb
+    for k in ("d_pq", "d_qp"):
+        assert pruned[k].tobytes() == brute[k].tobytes()
+    chp.clear()
+
+
+def test_chamfer_kernels_refuse_what_they_do_not_take(dev):
+    from heal_swin_torch.ops import chamfer as ch
+    from heal_swin_torch.ops import chamfer_pruned as chp
+
+    p = torch.zeros(10, 3, device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        ch.chamfer_min_both(p.double(), p)
+    with pytest.raises(ValueError, match="out of range"):
+        ch.chamfer_min_both(p, p, 11, 10)
+    tab = torch.zeros(1, 3, 1024, device=dev)
+    mins = torch.zeros(1024, device=dev)
+    with pytest.raises(ValueError, match="int32"):
+        chp.chamfer_fold_pairs(torch.zeros(1, 2, dtype=torch.int64, device=dev), tab, tab,
+                               10, 10, mins, mins.clone())
+    with pytest.raises(ValueError, match="table"):
+        chp.chamfer_fold_pairs(torch.zeros(1, 2, dtype=torch.int32, device=dev), tab[:, :2],
+                               tab, 10, 10, mins, mins.clone())

@@ -249,7 +249,7 @@ def test_depth_state_matches_jax(with_logvar):
     pred[0, 2, 7] = -2.0
     pred[1, 0, 9] = np.nan
     lv = rng.normal(size=pred.shape).astype(np.float32)
-    sj, st = jm.depth_state_init(), tm.depth_state_init()
+    sj, st = jm.depth_state_init(), tm.depth_state_init("cpu")
     for k in range(2):
         kw_j = dict(log_var=jnp.asarray(lv[k])) if with_logvar else {}
         kw_t = dict(log_var=_t(lv[k])) if with_logvar else {}

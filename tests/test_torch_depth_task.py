@@ -81,7 +81,8 @@ def _tasks(fused, loss="l2", use_logvar=False, opt_cfg=None):
     ttask = ttasks.WoodscapeDepthSwinHP(
         ttasks.WoodscapeDepthSwinHPConfig(
             tsh.SwinHPTransformerConfig(**kw),
-            common_depth_config=ttasks.CommonDepthConfig(**cd), **topt_kw), SPEC, DATA)
+            common_depth_config=ttasks.CommonDepthConfig(**cd), **topt_kw), SPEC, DATA,
+        device="cpu")
     ttask.model.load_state_dict(state_dict_from_flax(params), strict=True)
     return jtask, params, ttask
 
@@ -249,7 +250,7 @@ def test_depth_model_converts(f_out):
     jmodel = jsh.SwinHPTransformerSys(jsh.SwinHPTransformerConfig(**kw), spec)
     params = jmodel.init(jax.random.PRNGKey(0), jnp.ones((1, NPIX, 3)), True)
     sd = state_dict_from_flax(params)
-    port = tsh.SwinHPTransformerSys(tsh.SwinHPTransformerConfig(**kw), spec)
+    port = tsh.SwinHPTransformerSys(tsh.SwinHPTransformerConfig(**kw), spec, device="cpu")
     assert set(port.state_dict()) == set(sd)
     assert tuple(sd["decoder.output.weight"].shape) == (f_out, 16, 1)
     port.load_state_dict(sd, strict=True)

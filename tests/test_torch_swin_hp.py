@@ -63,7 +63,7 @@ def test_model_matches_jax(strategy, v2, cos):
     feats_j = np.asarray(jmodel.apply(params, jnp.asarray(x), True, False))
     logits_j = np.asarray(jmodel.apply(params, jnp.asarray(x), True))
 
-    tmodel = tsh.SwinHPTransformerSys(tsh.SwinHPTransformerConfig(**kw), SPEC)
+    tmodel = tsh.SwinHPTransformerSys(tsh.SwinHPTransformerConfig(**kw), SPEC, device="cpu")
     tmodel.load_state_dict(state_dict_from_flax(params), strict=True)
     tmodel.eval()
     with torch.no_grad():
@@ -92,7 +92,8 @@ def test_predict_matches_jax(strategy, v2, cos, monkeypatch):
     logits_j = np.asarray(jtask.model.apply(params, jnp.asarray(x), True))
 
     ttask = ttasks.WoodscapeSegmenterSwinHP(
-        ttasks.WoodscapeSegmenterSwinHPConfig(tsh.SwinHPTransformerConfig(**kw)), SPEC)
+        ttasks.WoodscapeSegmenterSwinHPConfig(tsh.SwinHPTransformerConfig(**kw)), SPEC,
+        device="cpu")
     preds_t = ttask.predict(state_dict_from_flax(params), torch.from_numpy(x))
     assert preds_t.shape == (2, NPIX) and preds_t.dtype == torch.int32
     top2 = np.sort(logits_j, axis=-1)[..., -2:]
@@ -119,15 +120,18 @@ def test_block_geometry_and_unported_options():
     with pytest.raises(ValueError, match="built for 128 tokens"):
         blk(torch.zeros(1, 64, 8))
     with pytest.raises(NotImplementedError, match="use_checkpoint"):
-        tsh.SwinHPTransformerSys(dataclasses.replace(cfg, use_checkpoint=True), SPEC)
+        tsh.SwinHPTransformerSys(dataclasses.replace(cfg, use_checkpoint=True), SPEC,
+                                 device="cpu")
 
 
 def test_init_is_seeded_and_device_explicit():
     cfg = tsh.SwinHPTransformerConfig(**_cfg_kwargs("nest_roll", False, True))
     a = tsh.SwinHPTransformerSys(cfg, SPEC, device="cpu",
                                  generator=torch.Generator().manual_seed(7))
-    b = tsh.SwinHPTransformerSys(cfg, SPEC, generator=torch.Generator().manual_seed(7))
-    c = tsh.SwinHPTransformerSys(cfg, SPEC, generator=torch.Generator().manual_seed(8))
+    b = tsh.SwinHPTransformerSys(cfg, SPEC, device="cpu",
+                                 generator=torch.Generator().manual_seed(7))
+    c = tsh.SwinHPTransformerSys(cfg, SPEC, device="cpu",
+                                 generator=torch.Generator().manual_seed(8))
     sa, sb, sc = a.state_dict(), b.state_dict(), c.state_dict()
     assert all(torch.equal(sa[k], sb[k]) for k in sa)
     assert not torch.equal(sa["layers.0.blocks.0.attn.qkv.weight"],

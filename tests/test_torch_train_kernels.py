@@ -282,7 +282,7 @@ def test_seg_state_matches_jax():
     sj = jm.seg_state_update(jm.seg_state_init(F), jnp.asarray(preds), jnp.asarray(target), F,
                              jnp.asarray(mask))
     sj = jm.seg_state_merge_confmat(sj, jnp.asarray(cm))
-    st = tm.seg_state_update(tm.seg_state_init(F), _t(preds), _t(target), F, _t(mask))
+    st = tm.seg_state_update(tm.seg_state_init(F, "cpu"), _t(preds), _t(target), F, _t(mask))
     st = tm.seg_state_merge_confmat(st, _t(cm))
     for k in sj:
         np.testing.assert_allclose(st[k].numpy(), np.asarray(sj[k]), err_msg=k)
@@ -295,7 +295,7 @@ def test_seg_state_matches_jax():
     zeros = np.zeros((1, 8), np.int32)
     empty_j = jm.seg_state_compute(jm.seg_state_update(jm.seg_state_init(F), zeros, zeros, F),
                                    "")
-    empty_t = tm.seg_state_compute(tm.seg_state_update(tm.seg_state_init(F), _t(zeros),
+    empty_t = tm.seg_state_compute(tm.seg_state_update(tm.seg_state_init(F, "cpu"), _t(zeros),
                                                        _t(zeros), F), "")
     assert np.isnan(empty_t["acc_ignored"]) and np.isnan(empty_j["acc_ignored"])
     assert empty_t["acc"] == empty_j["acc"] == 1.0

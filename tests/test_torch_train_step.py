@@ -72,7 +72,8 @@ def _tasks(kw, opt_cfg=None):
         lambda a: np.asarray(a) + 0.1 * rng.normal(size=a.shape).astype(np.float32), params)
     ttask = ttasks.WoodscapeSegmenterSwinHP(
         ttasks.WoodscapeSegmenterSwinHPConfig(
-            tsh.SwinHPTransformerConfig(**kw), class_weights=CLASS_WEIGHTS, **opt_kw), SPEC)
+            tsh.SwinHPTransformerConfig(**kw), class_weights=CLASS_WEIGHTS, **opt_kw), SPEC,
+        device="cpu")
     ttask.model.load_state_dict(state_dict_from_flax(params), strict=True)
     return jtask, params, ttask
 
@@ -173,7 +174,7 @@ def test_train_step_is_reproducible_from_the_seed():
     def run(seed):
         task = ttasks.WoodscapeSegmenterSwinHP(
             ttasks.WoodscapeSegmenterSwinHPConfig(tsh.SwinHPTransformerConfig(**kw)), SPEC,
-            generator=torch.Generator().manual_seed(3))
+            device="cpu", generator=torch.Generator().manual_seed(3))
         opt = topt.make_optimizer(task.model.parameters(), task.optimizer_config)
         mstate = task.metric_init()
         losses = []
