@@ -6,7 +6,9 @@ seeded weights) through the kernels and through the plain path: segmentation
 the depth task's ``predict`` and train step (masked l2 loss on standardized depths
 with background marked inf); then the paper's depth Chamfer evaluation: the depth
 model predicts 4 images, and the Chamfer writer scores them on its four variants
-through the brute (K10) and neighbour-pruned (K11) Chamfer folds.
+through the brute (K10) and neighbour-pruned (K11) Chamfer folds; then the MLP family
+(K12-K15: fc1 -> GELU -> fc2 and the v2 MLP branch x + dscale * LN(mlp(x)), forward
+and backward) at every stage shape and on the paper model's own blocks.
 
     python3 chip_smoke.py            # needs one CUDA GPU; exits non-zero otherwise
 
@@ -16,12 +18,14 @@ Prints its findings line by line, a JSON line of per-kernel results, and ends wi
 The kernels' launch counters (``launches``, and ``launches_by_shape`` per operand
 shape) are set to 0 just before each driven call (a segmentation predict, a
 segmentation train step, a depth predict, a depth train step, the Chamfer writer's
-batch) and read just after; each kernel's ``launches`` in the results line comes from
-the run that uses it (the segmentation train step for K1, K2, K4-K7; segmentation
-predict for K3; the depth train step for K8, K9; the writer for K10, K11).  For K1-K9
-``ms`` / ``plain_ms`` / ``bound_ms`` are sums, over the shapes that run launched the
-kernel at, of one call's median time (its plain version's; the least time the card
-could take, from the shapes) times the number of such launches.  For K10 / K11
+batch, the MLP phase's blocks) and read just after; each kernel's ``launches`` in the
+results line comes from the run that uses it (the segmentation train step for K1, K2,
+K4-K7; segmentation predict for K3; the depth train step for K8, K9; the writer for
+K10, K11; the MLP phase for K12-K15, which no configuration's train step or predict
+launches).  For K1-K9 and K12-K15 ``ms`` / ``plain_ms`` / ``bound_ms`` are sums, over
+the shapes that run launched the kernel at, of one call's median time (its plain
+version's; the least time the card could take, from the shapes) times the number of
+such launches; K12-K15 add ``route_ms``, the port's composed cuBLAS / ATen route.  For K10 / K11
 ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` cover the same work: sample 0's
 HP pair (chamfer_distance) for K10 (the library call there is ``torch.cdist`` in its inexact
 matrix-multiply form, then the minima), and the folds of its pruned
@@ -53,6 +57,17 @@ WS = 64
 REL_L2_TOL = 1e-2  # kernel vs plain, one kernel call or one block, bf16 (check_close)
 LOSS_REL_TOL = 1e-3  # K6's loss vs its plain version's
 SLICE_REL_L2_TOL = 5e-2  # tail=False features after 22 blocks (see check_slice)
+# K12-K15 against their plain versions at the paper stage shapes, every output and
+# gradient: about three times the largest relative L2 an H100 showed (3.1e-4, 3.2e-4,
+# 3.5e-4, 1.3e-3; PERF.md).  K14 / K15 are held on the branch (z - x, dx - dz), which
+# the residual would otherwise hide.
+MLP_REL_L2_TOL = {"mlp_fwd": 1e-3, "mlp_bwd": 1e-3, "mlp_block_fwd": 1e-3,
+                  "mlp_block_bwd": 4e-3}
+# K13 / K15's f32 db1 (the sum of the unrounded dh), which the bf16 outputs cannot
+# give: within this of the plain version of its own GELU and further than this from
+# the other GELU's.  An H100 showed 3.4e-7 / 4.2e-4 for K13 and, where the bf16
+# rounding of du flips, 5.7e-5 / 9.6e-4 for K15 at stage 0.
+GELU_DB1_TOL = {"mlp_bwd": 2e-6, "mlp_block_bwd": 2e-4}
 TIMING_RUNS = 20
 PROFILE_PREDICTS = 5
 TRAIN_STEPS = 5
@@ -534,15 +549,17 @@ NO_LAUNCHES = {k: 0 for k in (
     "window_attention_qkv_epi", "window_attention", "final_head_predict",
     "window_attention_qkv_epi_bwd", "window_attention_bwd", "final_head_loss",
     "final_head_loss_bwd", "final_head_depth_loss", "final_head_depth_loss_bwd",
-    "chamfer_min_both", "chamfer_fold_pairs")}
+    "chamfer_min_both", "chamfer_fold_pairs", "mlp_fwd", "mlp_bwd", "mlp_block_fwd",
+    "mlp_block_bwd")}
 
 
 def counted_modules():
     from heal_swin_torch.ops import chamfer, chamfer_pruned
     from heal_swin_torch.ops import final_head as fh
+    from heal_swin_torch.ops import mlp
     from heal_swin_torch.ops import window_attention as wa
 
-    return wa, fh, chamfer, chamfer_pruned
+    return wa, fh, chamfer, chamfer_pruned, mlp
 
 
 def read_counters():
@@ -847,7 +864,7 @@ def depth_batch(dev):
 
 def check_launches(label, launches, by_shape, expected, timed):
     log(f"{label}: kernel launches: {launches}")
-    log(f"{label}: by shape (kernel, T, C[, has_mask | F, kind]): "
+    log(f"{label}: by shape (kernel, T, C[, has_mask | F, kind | H, tanh[, dscale]]): "
         f"{dict(sorted(by_shape.items(), key=str))}")
     if launches != expected:
         raise AssertionError(f"{label}: launch counts {launches} != {expected}")
@@ -1386,6 +1403,298 @@ def drive_chamfer_eval(dev, timed):
     return launches, by_shape, entries
 
 
+# ------------------------------------------------------------ the MLP family
+MLP_GRADS = ("dx", "dw1", "db1", "dw2", "db2")
+MLP_BLOCK_GRADS = MLP_GRADS + ("dgamma", "dbeta")
+DROP_KEEP = 0.9  # the DropPath keep rate of the route timings (the paper's last block)
+
+
+def mlp_stages():
+    """(T, C) of the paper model's four stages: B 2, nside 256, patch 4."""
+    return [(BATCH * 8 * NSIDE * NSIDE // 4 // 4 ** s, 96 * 2 ** s) for s in range(4)]
+
+
+def mlp_route(args, ds, approximate, block, B=BATCH):
+    """The port's current route for the same function, on (B, T / B, C) tokens: its
+    ``Mlp`` plain path (bf16 cuBLAS ``linear`` + ATen GELU) and, for the branch, its
+    LayerNorm, the DropPath scale (``torch.where`` of y / keep, as ``DropPath``) and the
+    residual.  Returns (forward, backward): forward() gives the output, backward()
+    the autograd gradients of a kept forward for a fixed output gradient."""
+    from heal_swin_torch.models.layers import LayerNorm, Mlp
+
+    x, w1, b1, w2, b2, gamma, beta = args
+    T, C = x.shape
+    H = w1.shape[1]
+    mlp = Mlp(C, H, C, gelu_approx=approximate).to(x.device)
+    norm = LayerNorm(C).to(x.device)
+    with torch.no_grad():
+        for dst, src in ((mlp.fc1.weight, w1.t()), (mlp.fc1.bias, b1), (mlp.fc2.weight, w2.t()),
+                         (mlp.fc2.bias, b2), (norm.weight, gamma), (norm.bias, beta)):
+            dst.copy_(src)
+    xr = x.reshape(B, T // B, C).detach().requires_grad_()
+    keep = None if ds is None else (ds.reshape(B, T // B, 1)[:, :1] > 0)
+
+    def fwd():
+        if not block:
+            return mlp(xr)
+        y = norm(mlp(xr))
+        if keep is not None:
+            y = torch.where(keep, y / DROP_KEEP, torch.zeros_like(y))
+        return xr + y
+
+    params = [xr] + list(mlp.parameters()) + (list(norm.parameters()) if block else [])
+    out = fwd()
+    dz = torch.ones_like(out)
+
+    def forward():
+        with torch.no_grad():
+            return fwd()
+
+    return forward, lambda: torch.autograd.grad(out, params, dz, retain_graph=True)
+
+
+def gelu_told_apart(kernel, name, db1, plain, other):
+    """``db1`` of a backward kernel against its plain version's (``plain``) and the
+    plain version's with the other GELU (``other``): whether the first is within the
+    kernel's GELU_DB1_TOL and the second beyond it."""
+    tol = GELU_DB1_TOL[kernel]
+    err, dist = rel_l2(db1, plain), rel_l2(db1, other)
+    log(f"{name}: f32 db1 rel_l2 {err:.3e} vs its own GELU's plain version, {dist:.3e} vs "
+        f"the other GELU's (tol {tol})")
+    return err <= tol < dist
+
+
+def check_mlp_kernels(gen, dev):
+    """K12-K15 against their plain versions at the paper model's stage shapes (T, C,
+    H = 4C): tanh GELU at every stage, erf at stage 0; K14/K15 with and without the
+    DropPath scale.  Every output and gradient within MLP_REL_L2_TOL, K14 / K15 on the
+    branch (z - x, dx - dz); at stage 0, K13 / K15's f32 db1 tells the two GELUs apart
+    (``gelu_told_apart``; its failures are raised once every shape has been checked).
+    Each is timed (median of TIMING_RUNS CUDA-event timings) beside its plain version
+    and the port's current route (``mlp_route``).  Returns the timings keyed like the
+    wrappers' ``launches_by_shape``: (kernel, T, C, H, approximate[, has_dscale])."""
+    from heal_swin_torch.ops import mlp as tm
+
+    bf16 = torch.bfloat16
+    tol = MLP_REL_L2_TOL
+    timed, gelu_failed = {}, []
+
+    def rnd(*shape, std=1.0):
+        return (torch.randn(*shape, generator=gen) * std).to(dev)
+
+    for T, C in mlp_stages():
+        H = 4 * C
+        args = (rnd(T, C).to(bf16), rnd(C, H, std=C ** -0.5).to(bf16), rnd(H, std=0.1),
+                rnd(H, C, std=H ** -0.5).to(bf16), rnd(C, std=0.1), 1 + rnd(C, std=0.1),
+                rnd(C, std=0.1))
+        dz = rnd(T, C).to(bf16)
+        # the DropPath scale of the batch's two samples, one kept, one dropped
+        ds = torch.cat([torch.full((T // 2, 1), 1 / DROP_KEEP), torch.zeros(T // 2, 1)]).to(dev)
+        x, dzf = args[0].float(), dz.float()
+        log(f"K13 / K15 T={T} C={C} H={H}: workspace {workspace_bytes(('mlp_bwd', T, C, H))} "
+            f"/ {workspace_bytes(('mlp_block_bwd', T, C, H))} bytes written and read back "
+            f"(from the shapes)")
+        for approximate in ((True, False) if C == 96 else (True,)):
+            kw = dict(approximate=approximate)
+            a5 = args[:5]
+            with torch.no_grad():
+                e12 = check_close(f"K12 T={T} C={C} tanh={approximate}",
+                                  tm.mlp_fwd(*a5, **kw, impl="pallas"), tm.mlp_plain(*a5, **kw),
+                                  tol["mlp_fwd"])
+                g13 = tm.mlp_bwd(*a5, dz, **kw, impl="pallas")
+                p13 = tm.mlp_bwd_plain(*a5, dz, **kw)
+                e13 = check_grads(f"K13 T={T} C={C} tanh={approximate}", MLP_GRADS, g13, p13,
+                                  tol["mlp_bwd"])
+                if C == 96 and not gelu_told_apart(
+                        "mlp_bwd", f"K13 T={T} C={C} tanh={approximate}", g13[2], p13[2],
+                        tm.mlp_bwd_plain(*a5, dz, approximate=not approximate)[2]):
+                    gelu_failed.append(f"K13 tanh={approximate}")
+                del g13, p13
+                ms12 = median_ms(lambda: tm.mlp_fwd(*a5, **kw, impl="pallas"))
+                pms12 = median_ms(lambda: tm.mlp_plain(*a5, **kw))
+                ms13 = median_ms(lambda: tm.mlp_bwd(*a5, dz, **kw, impl="pallas"))
+                pms13 = median_ms(lambda: tm.mlp_bwd_plain(*a5, dz, **kw))
+            route_f, route_b = mlp_route(args, None, approximate, block=False)
+            rms12, rms13 = median_ms(route_f), median_ms(route_b)
+            log(f"K12 mlp_fwd T={T} C={C} H={H} tanh={approximate}: rel_l2 {e12[0]:.3e} "
+                f"max_abs {e12[1]:.3e} kernel {ms12:.4f} ms plain {pms12:.4f} ms route "
+                f"{rms12:.4f} ms")
+            log(f"K13 mlp_bwd T={T} C={C} H={H} tanh={approximate}: rel_l2 <= {e13[0]:.3e} "
+                f"max_abs {e13[1]:.3e} kernel {ms13:.4f} ms plain {pms13:.4f} ms route "
+                f"{rms13:.4f} ms")
+            key = (T, C, H, approximate)
+            timed[("mlp_fwd",) + key] = dict(rel_l2=e12[0], max_abs_err=e12[1], ms=ms12,
+                                             plain_ms=pms12, route_ms=rms12)
+            timed[("mlp_bwd",) + key] = dict(rel_l2=e13[0], max_abs_err=e13[1], ms=ms13,
+                                             plain_ms=pms13, route_ms=rms13)
+            for d in (None, ds):
+                bkw = dict(kw, impl="pallas")
+                with torch.no_grad():
+                    e14 = check_close(f"K14 T={T} C={C} dscale={d is not None} branch z - x",
+                                      tm.mlp_block_fwd(*args, d, **bkw).float() - x,
+                                      tm.mlp_block_plain(*args, d, **kw).float() - x,
+                                      tol["mlp_block_fwd"])
+                    g15 = tm.mlp_block_bwd(*args, d, dz, **bkw)
+                    p15 = tm.mlp_block_bwd_plain(*args, d, dz, **kw)
+                    e15 = check_grads(f"K15 T={T} C={C} dscale={d is not None}",
+                                      ("dx - dz",) + MLP_BLOCK_GRADS[1:],
+                                      (g15[0].float() - dzf,) + g15[1:],
+                                      (p15[0].float() - dzf,) + p15[1:], tol["mlp_block_bwd"])
+                    if C == 96 and not gelu_told_apart(
+                            "mlp_block_bwd", f"K15 T={T} C={C} tanh={approximate} dscale={d is not None}",
+                            g15[2], p15[2], tm.mlp_block_bwd_plain(
+                                *args, d, dz, approximate=not approximate)[2]):
+                        gelu_failed.append(f"K15 tanh={approximate} dscale={d is not None}")
+                    del g15, p15
+                    ms14 = median_ms(lambda: tm.mlp_block_fwd(*args, d, **bkw))
+                    pms14 = median_ms(lambda: tm.mlp_block_plain(*args, d, **kw))
+                    ms15 = median_ms(lambda: tm.mlp_block_bwd(*args, d, dz, **bkw))
+                    pms15 = median_ms(lambda: tm.mlp_block_bwd_plain(*args, d, dz, **kw))
+                route_f, route_b = mlp_route(args, d, approximate, block=True)
+                rms14, rms15 = median_ms(route_f), median_ms(route_b)
+                log(f"K14 mlp_block_fwd T={T} C={C} H={H} tanh={approximate} dscale="
+                    f"{d is not None}: branch rel_l2 {e14[0]:.3e} max_abs {e14[1]:.3e} kernel "
+                    f"{ms14:.4f} ms plain {pms14:.4f} ms route {rms14:.4f} ms")
+                log(f"K15 mlp_block_bwd T={T} C={C} H={H} tanh={approximate} dscale="
+                    f"{d is not None}: rel_l2 (dx - dz) <= {e15[0]:.3e} max_abs "
+                    f"{e15[1]:.3e} kernel {ms15:.4f} ms plain {pms15:.4f} ms route {rms15:.4f} ms")
+                bkey = key + (d is not None,)
+                timed[("mlp_block_fwd",) + bkey] = dict(rel_l2=e14[0], max_abs_err=e14[1],
+                                                        ms=ms14, plain_ms=pms14, route_ms=rms14)
+                timed[("mlp_block_bwd",) + bkey] = dict(rel_l2=e15[0], max_abs_err=e15[1],
+                                                        ms=ms15, plain_ms=pms15, route_ms=rms15)
+        del args, dz, ds, x, dzf
+        torch.cuda.empty_cache()
+    if gelu_failed:
+        raise AssertionError(f"f32 db1 does not tell the GELUs apart ({GELU_DB1_TOL}): "
+                             f"{gelu_failed}")
+    return timed
+
+
+def record_mlp_inputs(model, dev):
+    """One training forward of ``model`` (no autograd) with DropPath drawing from a
+    seeded generator: per ``SwinHPBlock``, the input of its MLP branch and the state
+    of the generator as the block's second DropPath call (the MLP branch's) found it,
+    or None where the block's rate is 0 (no draw)."""
+    from heal_swin_torch.models.swin_hp import SwinHPBlock
+
+    rec, hooks = {}, []
+    for name, blk in model.named_modules():
+        if not isinstance(blk, SwinHPBlock):
+            continue
+        r = rec[name] = dict(block=blk, states=[])
+        hooks.append(blk.mlp.register_forward_pre_hook(
+            lambda _m, args, r=r: r.__setitem__("x", args[0])))
+        hooks.append(blk.drop_path.register_forward_pre_hook(
+            lambda m, args, r=r: r["states"].append(
+                args[1].get_state() if m.rate > 0 else None)))
+    imgs = torch.randn(BATCH, 8 * NSIDE * NSIDE, 3,
+                       generator=torch.Generator().manual_seed(SEED + 5)).to(dev)
+    model.train()
+    with torch.no_grad():
+        model(imgs, tail=False, generator=torch.Generator(device=dev).manual_seed(SEED + 6))
+    for hk in hooks:
+        hk.remove()
+    if len(rec) != 22 or any(len(r["states"]) != 2 for r in rec.values()):
+        raise AssertionError(f"recorded {len(rec)} blocks")
+    return rec
+
+
+def block_dscale(blk, state, B, N, dev):
+    """(B * N, 1) f32: the block's DropPath scale for the draw at generator ``state``
+    (1 / keep for a kept sample, 0 for a dropped one), or None for no draw."""
+    if state is None:
+        return None
+    g = torch.Generator(device=dev)
+    g.set_state(state)
+    scale = blk.drop_path(torch.ones(B, 1, 1, device=dev), g)
+    return scale.expand(B, N, 1).reshape(B * N, 1).contiguous()
+
+
+def drive_mlp(dev, timed):
+    """The MLP family at the paper model's widths, on its own blocks.  K12-K15 are held
+    to their plain versions at every stage shape first (``check_mlp_kernels``).  Then
+    the segmentation model at paper scale runs one training forward, keeping each
+    block's MLP-branch input and DropPath draw (``record_mlp_inputs``), and, counted:
+    - for each of the 20 blocks at C <= 384, ``fused_mlp_block`` on the block's fc1,
+      fc2, norm2 and draw (K14 forward, K15 backward) against its own plain branch
+      x + drop_path(norm2(mlp(x))): the output and every gradient, for a seeded
+      upstream gradient;
+    - for the 4 blocks at C = 96, the block's ``Mlp`` with ``mlp_impl="fused"`` (K13
+      backward) against ``"xla"`` on the same weights and input (output and every
+      gradient), and ``fused_mlp`` with ``fwd_impl="pallas"`` (K12) against it.
+    Expected launches K12 4 / K13 4 / K14 20 / K15 20.  Returns (launches, per shape)."""
+    from heal_swin_torch.ops import mlp as tm
+
+    timed.update(check_mlp_kernels(torch.Generator().manual_seed(SEED + 7), dev))
+    t0 = time.perf_counter()
+    task = build_task("auto", dev)
+    rec = record_mlp_inputs(task.model, dev)
+    log(f"mlp: built the paper model and recorded its 22 blocks' MLP inputs in "
+        f"{time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator().manual_seed(SEED + 8)
+    reset_counters()
+    worst_blk, worst_mlp, n_blk, n_mlp, n_dp = 0.0, 0.0, 0, 0, 0
+    for name, r in rec.items():
+        blk, x = r["block"], r["x"]
+        B, N, C = x.shape
+        if C > 384:
+            continue
+        n_blk += 1
+        ds = block_dscale(blk, r["states"][1], B, N, dev)
+        n_dp += ds is not None
+        dz = torch.randn(x.shape, generator=gen).to(dev, x.dtype)
+        params = [blk.mlp.fc1.weight, blk.mlp.fc1.bias, blk.mlp.fc2.weight, blk.mlp.fc2.bias,
+                  blk.norm2.weight, blk.norm2.bias]
+        xk = x.detach().requires_grad_()
+        zk = tm.fused_mlp_block(xk.reshape(B * N, C), params[0].t(), params[1], params[2].t(),
+                                params[3], params[4], params[5], ds,
+                                approximate=blk.mlp.gelu_approx)
+        gk = torch.autograd.grad(zk, [xk] + params, dz.reshape(B * N, C))
+        xp = x.detach().requires_grad_()
+        g = None
+        if ds is not None:
+            g = torch.Generator(device=dev)
+            g.set_state(r["states"][1])
+        zp = xp + blk.drop_path(blk.norm2(blk.mlp(xp)), g)
+        gp = torch.autograd.grad(zp, [xp] + params, dz)
+        worst_blk = max(worst_blk, check_close(f"mlp block {name} output", zk.detach(),
+                                               zp.detach().reshape(B * N, C))[0])
+        for n, a, b in zip(("dx",) + MLP_BLOCK_GRADS[1:], gk, gp):
+            worst_blk = max(worst_blk, check_close(f"mlp block {name} {n}", a, b)[0])
+        if C != 96:
+            continue
+        # the block's Mlp through the module's fused gate, and K12 on the same input
+        n_mlp += 1
+        outs, grads = [], []
+        for impl in ("fused", "xla"):
+            blk.mlp.mlp_impl = impl
+            xi = x.detach().requires_grad_()
+            out = blk.mlp(xi)
+            outs.append(out.detach())
+            grads.append(torch.autograd.grad(out, [xi] + params[:4], dz))
+        with torch.no_grad():
+            outs.append(tm.fused_mlp(x.reshape(B * N, C), params[0].t(), params[1],
+                                     params[2].t(), params[3], approximate=blk.mlp.gelu_approx,
+                                     fwd_impl="pallas").reshape(B, N, C))
+        if not torch.equal(outs[0], outs[1]):
+            raise AssertionError(f"mlp {name}: the fused gate's forward is not the plain one")
+        worst_mlp = max(worst_mlp, check_close(f"mlp {name} K12 output", outs[2], outs[1])[0])
+        for n, a, b in zip(MLP_GRADS, *grads):
+            worst_mlp = max(worst_mlp, check_close(f"mlp {name} fused {n}", a, b)[0])
+    torch.cuda.synchronize()
+    launches, by_shape = read_counters()
+    expected = dict(NO_LAUNCHES, mlp_fwd=4, mlp_bwd=4, mlp_block_fwd=20, mlp_block_bwd=20)
+    check_launches("mlp", launches, by_shape, expected, timed)
+    log(f"mlp: {n_blk} blocks at C <= 384 ({n_dp} with a DropPath draw): fused_mlp_block "
+        f"vs the block's own branch x + drop_path(norm2(mlp(x))), output and every gradient "
+        f"rel_l2 <= {worst_blk:.3e}; {n_mlp} blocks at C = 96: Mlp(mlp_impl='fused') = "
+        f"'xla' forward bit for bit, gradients and fused_mlp(fwd_impl='pallas') rel_l2 <= "
+        f"{worst_mlp:.3e} (tol {REL_L2_TOL})")
+    del rec, task
+    return launches, by_shape
+
+
 SOURCES = {
     "window_attention_qkv_epi": ("heal_swin_torch/csrc/window_attention.cu",
                                  "heal_swin_tpu/ops/window_attention.py:993"),
@@ -1408,6 +1717,10 @@ SOURCES = {
     "chamfer_min_both": ("heal_swin_torch/csrc/chamfer.cu", "heal_swin_tpu/ops/chamfer.py:159"),
     "chamfer_fold_pairs": ("heal_swin_torch/csrc/chamfer.cu",
                            "heal_swin_tpu/ops/chamfer_pruned.py:212"),
+    "mlp_fwd": ("heal_swin_torch/csrc/mlp.cu", "heal_swin_tpu/ops/mlp.py:169"),
+    "mlp_bwd": ("heal_swin_torch/csrc/mlp.cu", "heal_swin_tpu/ops/mlp.py:129"),
+    "mlp_block_fwd": ("heal_swin_torch/csrc/mlp.cu", "heal_swin_tpu/ops/mlp.py:440"),
+    "mlp_block_bwd": ("heal_swin_torch/csrc/mlp.cu", "heal_swin_tpu/ops/mlp.py:467"),
 }
 
 
@@ -1417,8 +1730,20 @@ def shape_work(key):
     Window attention (ws 64, head dim 32, T / 64 windows of C / 32 heads): forward
     512 C^2 (qkv and proj) + 16384 C (scores and values) FLOP per window; its backward
     1536 C^2 + 57344 C.  The tail (p = 4): the expand product 2 T p C^2 and the head
-    2 T p C F forward; three times the expand and twice the head backward."""
+    2 T p C F forward; three times the expand and twice the head backward.  The MLP
+    (T, C, H = 4C): two products of 2 T C H forward, five backward (the hidden
+    recomputed, dg, dx, dW1, dW2), six for the branch (u recomputed too); bf16 tokens
+    and weights, f32 biases, LayerNorm parameters, DropPath scale and parameter
+    gradients."""
     name, T, C = key[:3]
+    if name.startswith("mlp"):
+        H = key[3]
+        block = name.startswith("mlp_block")
+        vecs = 4 * (H + C) + (8 * C if block else 0)  # biases [, gamma, beta]
+        ds = 4 * T if block and key[5] else 0
+        if name.endswith("fwd"):
+            return 4 * T * C * H, 4 * T * C + 4 * C * H + vecs + ds
+        return (12 if block else 10) * T * C * H, 6 * T * C + 12 * C * H + 2 * vecs + ds
     W, h, p = T // WS, C // 32, 4
     bias, groups = h * WS * WS * 4, T * 4
     if name == "window_attention_qkv_epi":  # x -> out; weights, LN, bias, groups
@@ -1445,12 +1770,43 @@ def shape_work(key):
     raise KeyError(key)
 
 
+def workspace_bytes(key):
+    """The bytes K13/K15's design adds to what the function must move: g and the
+    rounded dh (bf16, T x H), and for K15 the rounded du (T x C), each written once and
+    read once by the split-K weight products.  Logged beside the checks; ``bound_ms``
+    leaves them out, since the function itself need not move them."""
+    name, T, C, H = key[:4]
+    if name == "mlp_bwd":
+        return 8 * T * H
+    if name == "mlp_block_bwd":
+        return 8 * T * H + 4 * T * C
+    return 0
+
+
+def shape_fields(key):
+    """The named fields of a launch shape key."""
+    name = key[0]
+    if name.startswith("mlp"):
+        shape = dict(T=key[1], C=key[2], H=key[3], approximate=key[4])
+        if len(key) == 6:
+            shape["dscale"] = key[5]
+        return shape
+    shape = dict(T=key[1], C=key[2])
+    if len(key) == 4:
+        shape["mask"] = key[3]
+    elif len(key) == 5:
+        shape.update(F=key[3], kind=key[4])
+    return shape
+
+
 def kernel_results(timed, runs, chamfer):
     """The per-kernel results line.  ``runs``: kernel -> (launches per kernel, per
-    shape) of the run that uses it.  K1-K9: each kernel's launches in that run, and its
-    times and bound summed over the shapes that run launched it at, each shape weighted
-    by its launches there; no single PyTorch call computes their fused functions
-    (``library_ms`` null).  K10 / K11: ``chamfer``, from ``drive_chamfer_eval``."""
+    shape) of the run that uses it.  K1-K9 and K12-K15: each kernel's launches in that
+    run, and its times and bound summed over the shapes that run launched it at, each
+    shape weighted by its launches there; no single PyTorch call computes their fused
+    functions (``library_ms`` null).  K12-K15 add ``route_ms``, the port's composed
+    cuBLAS / ATen route for the same function (no library call).  K10 / K11:
+    ``chamfer``, from ``drive_chamfer_eval``."""
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         launches, by_shape = runs[name]
@@ -1464,23 +1820,21 @@ def kernel_results(timed, runs, chamfer):
         shapes, op_ms, byte_ms = [], 0.0, 0.0
         for key, n in sorted(by_shape.items()):
             if key[0] == name:
-                shape = dict(T=key[1], C=key[2])
-                if len(key) == 4:
-                    shape["mask"] = key[3]
-                elif len(key) == 5:
-                    shape.update(F=key[3], kind=key[4])
                 flop, nbytes = shape_work(key)
                 b, by = bound(flop, nbytes, BF16_PEAK)
                 op_ms += n * flop / BF16_PEAK * 1e3
                 byte_ms += n * nbytes / HBM_RATE * 1e3
-                shapes.append(dict(shape, launches=n, bound_ms=b, bound_by=by, **timed[key]))
-        kernels.append(dict(
+                shapes.append(dict(shape_fields(key), launches=n, bound_ms=b, bound_by=by,
+                                   **timed[key]))
+        result = dict(
             entry, max_abs_err=max(r["max_abs_err"] for r in shapes),
             ms=sum(r["ms"] * r["launches"] for r in shapes),
             plain_ms=sum(r["plain_ms"] * r["launches"] for r in shapes),
             bound_ms=sum(r["bound_ms"] * r["launches"] for r in shapes),
-            bound_by="operations" if op_ms >= byte_ms else "bytes", library_ms=None,
-            shapes=shapes))
+            bound_by="operations" if op_ms >= byte_ms else "bytes", library_ms=None)
+        if name.startswith("mlp"):
+            result["route_ms"] = sum(r["route_ms"] * r["launches"] for r in shapes)
+        kernels.append(dict(result, shapes=shapes))
     return kernels
 
 
@@ -1513,8 +1867,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     t_chamfer = time.perf_counter()
     *chamfer_run, chamfer = drive_chamfer_eval(dev, timed)
-    log(f"elapsed: {time.perf_counter() - t0:.1f} s since the build started, the Chamfer "
-        f"phase {time.perf_counter() - t_chamfer:.1f} s of it")
+    torch.cuda.empty_cache()
+    t_mlp = time.perf_counter()
+    mlp_run = drive_mlp(dev, timed)
+    t_end = time.perf_counter()
+    log(f"elapsed: {t_end - t0:.1f} s since the build started, the Chamfer phase "
+        f"{t_mlp - t_chamfer:.1f} s of it, the MLP phase {t_end - t_mlp:.1f} s")
 
     blocked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "heal_swin_tpu"))
     if blocked:
@@ -1523,6 +1881,8 @@ def main() -> int:
     runs["final_head_predict"] = predict_run
     runs["final_head_depth_loss"] = runs["final_head_depth_loss_bwd"] = depth_run
     runs["chamfer_min_both"] = runs["chamfer_fold_pairs"] = chamfer_run
+    for name in ("mlp_fwd", "mlp_bwd", "mlp_block_fwd", "mlp_block_bwd"):
+        runs[name] = mlp_run
     kernels = kernel_results(timed, runs, chamfer)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

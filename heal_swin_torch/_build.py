@@ -56,6 +56,12 @@ _SIGNATURES = {
     "hs_final_head_depth_loss_bwd_workspace": ([_I] * 4, ctypes.c_size_t),
     "hs_chamfer_min_both": ([_P] * 4 + [_I] * 2 + [_P], _I),
     "hs_chamfer_fold_pairs": ([_P, _I] + [_P] * 4 + [_I] * 2 + [_P], _I),
+    "hs_mlp_fwd": ([_P] * 6 + [_I] * 4 + [_P], _I),
+    "hs_mlp_block_fwd": ([_P] * 9 + [_I] * 5 + [_F, _P], _I),
+    "hs_mlp_bwd": ([_P] * 11 + [_I] * 4 + [_P], _I),
+    "hs_mlp_bwd_workspace": ([_I] * 3, ctypes.c_size_t),
+    "hs_mlp_block_bwd": ([_P] * 14 + [_I] * 5 + [_F, _P], _I),
+    "hs_mlp_block_bwd_workspace": ([_I] * 3, ctypes.c_size_t),
     "hs_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -6,8 +6,10 @@ activations' dtype (the compute dtype): ``linear`` casts the weights at use.
 LayerNorm takes float32 statistics (eps 1e-5) and returns the input's dtype; its
 backward saves only the input, the row means and the row rstd (the JAX
 package's ``_ln_fn``).  DropPath draws its per-sample masks from an explicit
-``torch.Generator`` handed down the training forward, never from the global RNG.
-Parameter names follow the original torch HEAL-SWIN, so its state_dict keys apply.
+``torch.Generator`` handed down the training forward, never from the global RNG;
+element dropout (``Mlp``'s and ``WindowAttention``'s proj dropout) has no such
+generator yet and raises in training.  Parameter names follow the original torch
+HEAL-SWIN, so its state_dict keys apply.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from heal_swin_torch.ops import mlp as mlp_ops
 from heal_swin_torch.ops import window_attention as wa
 
 TRUNC_STD = 0.02
@@ -90,20 +93,38 @@ class DropPath(nn.Module):
 
 
 class Mlp(nn.Module):
-    """fc1 -> GELU (exact, or tanh with ``gelu_approx``) -> fc2, with dropout."""
+    """fc1 -> GELU (exact, or tanh with ``gelu_approx``) -> fc2.
+
+    ``mlp_impl`` (the JAX module's field): "xla", the plain dense route; "fused",
+    ``ops.mlp.fused_mlp_nd`` (the same forward, backward K13) where ``out_features``
+    equals the input width and ``ops.mlp.supported`` takes the shape, else the plain
+    route.  K13 takes bfloat16 only, so a CUDA input of another dtype that passes the
+    gate raises at the call.  Element dropout in training (``drop`` > 0), which sends the JAX module to
+    its plain route, is not ported yet and raises: its masks would need an explicit
+    generator, as DropPath has."""
 
     def __init__(self, in_features: int, hidden_features: int, out_features: int,
-                 drop: float = 0.0, gelu_approx: bool = False):
+                 drop: float = 0.0, gelu_approx: bool = False, mlp_impl: str = "xla"):
         super().__init__()
+        if mlp_impl not in ("xla", "fused"):
+            raise ValueError(f"unknown mlp_impl {mlp_impl!r}: expected 'xla' or 'fused'")
         self.fc1 = nn.Linear(in_features, hidden_features)
         self.fc2 = nn.Linear(hidden_features, out_features)
-        self.approximate = "tanh" if gelu_approx else "none"
-        self.drop = nn.Dropout(drop)
+        self.gelu_approx = gelu_approx
+        self.drop = float(drop)
+        self.mlp_impl = mlp_impl
 
     def forward(self, x):
-        x = F.gelu(linear(x, self.fc1), approximate=self.approximate)
-        x = self.drop(x)
-        return self.drop(linear(x, self.fc2))
+        if self.drop > 0.0 and self.training:
+            raise NotImplementedError("element dropout in training is not ported yet")
+        C = x.shape[-1]
+        if (self.mlp_impl == "fused" and self.fc2.out_features == C
+                and mlp_ops.supported(x.numel() // C, C, self.fc1.out_features)):
+            return mlp_ops.fused_mlp_nd(x, self.fc1.weight.t(), self.fc1.bias,
+                                        self.fc2.weight.t(), self.fc2.bias,
+                                        approximate=self.gelu_approx)
+        x = F.gelu(linear(x, self.fc1), approximate="tanh" if self.gelu_approx else "none")
+        return linear(x, self.fc2)
 
 
 class WindowAttention(nn.Module):
@@ -137,7 +158,7 @@ class WindowAttention(nn.Module):
         self.attention_impl = attention_impl
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
-        self.proj_drop = nn.Dropout(proj_drop)
+        self.proj_drop = float(proj_drop)
         if use_cos_attn:
             self.logit_scale = nn.Parameter(torch.full((num_heads, 1, 1), float(np.log(10.0))))
         if rel_pos_index is not None:
@@ -153,6 +174,8 @@ class WindowAttention(nn.Module):
         h = self.num_heads
         if self.attn_drop > 0.0 and self.training:
             raise NotImplementedError("attention dropout in training is not ported yet")
+        if self.proj_drop > 0.0 and self.training:
+            raise NotImplementedError("element dropout in training is not ported yet")
         rel_bias = None
         if self.relative_position_bias_table is not None:
             rel_bias = self.relative_position_bias_table[self.rel_pos_index]
@@ -162,8 +185,7 @@ class WindowAttention(nn.Module):
         groups_t = groups.repeat(B, 1) if has_mask else None
         sm_scale = self.qk_scale if self.qk_scale is not None else (C // h) ** -0.5
         x_flat = x.reshape(B * nW * ws, C)
-        proj_dropout = self.training and self.proj_drop.p > 0.0
-        if self.use_cos_attn and C <= wa.KERNEL_MAX_C and not proj_dropout:
+        if self.use_cos_attn and C <= wa.KERNEL_MAX_C:
             dt = x.dtype
             bq = None if self.qkv.bias is None else self.qkv.bias.to(dt)
             out = wa.window_attention_qkv_epi(
@@ -177,7 +199,7 @@ class WindowAttention(nn.Module):
             out = wa.window_attention(qkv, groups_t, rel_bias, ls, ws=ws, num_heads=h,
                                       use_cos=self.use_cos_attn, sm_scale=sm_scale,
                                       has_mask=has_mask, impl=self.attention_impl)
-            out = self.proj_drop(linear(out, self.proj))
+            out = linear(out, self.proj)
             if ln is not None:
                 out = ln(out)
         return out.reshape(B, nW, ws, C)

@@ -45,3 +45,10 @@ def check(code: int, what: str) -> None:
     if code != 0:
         msg = _build.lib().hs_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def input_grads(ctx, pairs):
+    """An autograd function's backward result: (gradient, operand) pairs in input
+    order -> the gradients autograd asked for, each in its operand's dtype."""
+    return tuple(None if g is None or t is None or not need else g.to(t.dtype)
+                 for (g, t), need in zip(pairs, ctx.needs_input_grad))

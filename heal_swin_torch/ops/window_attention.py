@@ -43,7 +43,7 @@ from typing import Optional
 import torch
 
 from heal_swin_torch import _build
-from heal_swin_torch.ops._dispatch import check, stream, use_kernel
+from heal_swin_torch.ops._dispatch import check, input_grads, stream, use_kernel
 
 MASK_VALUE = -100.0
 KERNEL_WS = 64  # the kernels' window size
@@ -469,13 +469,6 @@ def window_attention_qkv_epi_bwd(x, wqkv, bqkv, wp, bp, ln_scale, ln_bias, group
 # --------------------------------------------------------------------------- autograd
 
 
-def _grads(ctx, pairs):
-    """(gradient, operand) pairs in input order -> the gradients autograd asked for,
-    each in its operand's dtype."""
-    return tuple(None if g is None or t is None or not need else g.to(t.dtype)
-                 for (g, t), need in zip(pairs, ctx.needs_input_grad))
-
-
 class _WindowAttention(torch.autograd.Function):
     """K2 forward, K5 backward (or their plain versions, by ``impl`` and device)."""
 
@@ -490,8 +483,8 @@ class _WindowAttention(torch.autograd.Function):
         qkv, groups, bias, logit_scale = ctx.saved_tensors
         dqkv, dbias, dls = window_attention_bwd(qkv, groups, bias, logit_scale,
                                                 dout.to(qkv.dtype), **ctx.kw)
-        return _grads(ctx, [(dqkv, qkv), (None, groups), (dbias, bias), (dls, logit_scale),
-                            (None, None)])
+        return input_grads(ctx, [(dqkv, qkv), (None, groups), (dbias, bias),
+                                 (dls, logit_scale), (None, None)])
 
 
 class _WindowAttentionQkvEpi(torch.autograd.Function):
@@ -512,8 +505,8 @@ class _WindowAttentionQkvEpi(torch.autograd.Function):
         x = saved[0]
         grads = window_attention_qkv_epi_bwd(*saved, dz.to(x.dtype), **ctx.kw)
         dx, dwq, dbq, dwp, dbp, dg, dbe, dbias, dls = grads
-        return _grads(ctx, list(zip((dx, dwq, dbq, dwp, dbp, dg, dbe, None, dbias, dls, None),
-                                    saved + (None,))))
+        return input_grads(ctx, list(zip(
+            (dx, dwq, dbq, dwp, dbp, dg, dbe, None, dbias, dls, None), saved + (None,))))
 
 
 def window_attention(qkv, groups, bias, logit_scale, *, ws, num_heads, use_cos, sm_scale,

@@ -489,3 +489,134 @@ def test_chamfer_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="table"):
         chp.chamfer_fold_pairs(torch.zeros(1, 2, dtype=torch.int32, device=dev), tab[:, :2],
                                tab, 10, 10, mins, mins.clone())
+
+
+def _mlp_args(gen, dev, T, C, H):
+    """K12-K15 operands: x (T, C) bf16, w1 (C, H), b1, w2 (H, C), b2, gamma, beta."""
+    return (_randn(gen, dev, T, C).to(torch.bfloat16), _randn(gen, dev, C, H, std=C ** -0.5),
+            _randn(gen, dev, H, std=0.1), _randn(gen, dev, H, C, std=H ** -0.5),
+            _randn(gen, dev, C, std=0.1), 1 + _randn(gen, dev, C, std=0.1),
+            _randn(gen, dev, C, std=0.1))
+
+
+@pytest.mark.parametrize("T,C", [(64 * 4, 32), (64 * 8, 96), (64 * 4, 384), (64 * 2, 768),
+                                 (262144, 96)])
+@pytest.mark.parametrize("approximate", [True, False])
+def test_mlp_kernels(dev, T, C, approximate):
+    """K12 and K13 against their plain versions (relative L2 1e-2 for the output and
+    every gradient), each launch counted; a second K13 launch gives the same bits."""
+    from heal_swin_torch.ops import mlp as tm
+
+    gen = torch.Generator().manual_seed(C + approximate)
+    H = 4 * C
+    args = _mlp_args(gen, dev, T, C, H)[:5]
+    dout = _randn(gen, dev, T, C).to(torch.bfloat16)
+    key = (T, C, H, approximate)
+    before = [tm.launches_by_shape[(k,) + key] for k in ("mlp_fwd", "mlp_bwd")]
+    out = tm.mlp_fwd(*args, approximate=approximate)
+    grads = tm.mlp_bwd(*args, dout, approximate=approximate)
+    again = tm.mlp_bwd(*args, dout, approximate=approximate)
+    torch.cuda.synchronize()
+    assert [tm.launches_by_shape[(k,) + key] for k in ("mlp_fwd", "mlp_bwd")] == [
+        before[0] + 1, before[1] + 2]
+    assert out.dtype == torch.bfloat16
+    assert _rel_l2(out, tm.mlp_plain(*args, approximate=approximate)) < 1e-2
+    _assert_grads_close(grads, tm.mlp_bwd_plain(*args, dout, approximate=approximate))
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.parametrize("T,C", [(64 * 4, 32), (64 * 8, 96), (64 * 4, 192), (64 * 4, 384),
+                                 (64 * 2, 768), (262144, 96)])
+@pytest.mark.parametrize("has_dp", [False, True])
+def test_mlp_block_kernels(dev, T, C, has_dp):
+    """K14 and K15 against their plain versions, with and without the DropPath scale
+    (whole dropped rows get exactly the residual back)."""
+    from heal_swin_torch.ops import mlp as tm
+
+    gen = torch.Generator().manual_seed(C + 1000 * has_dp)
+    H = 4 * C
+    args = _mlp_args(gen, dev, T, C, H)
+    ds = None
+    if has_dp:
+        ds = torch.where(torch.rand(T, 1, generator=gen) < 0.3, 0.0, 1.25).to(dev)
+    dz = _randn(gen, dev, T, C).to(torch.bfloat16)
+    for approximate in (True, False):
+        key = (T, C, H, approximate, has_dp)
+        before = [tm.launches_by_shape[(k,) + key] for k in ("mlp_block_fwd", "mlp_block_bwd")]
+        out = tm.mlp_block_fwd(*args, ds, approximate=approximate)
+        grads = tm.mlp_block_bwd(*args, ds, dz, approximate=approximate)
+        torch.cuda.synchronize()
+        assert [tm.launches_by_shape[(k,) + key] for k in ("mlp_block_fwd", "mlp_block_bwd")] \
+            == [b + 1 for b in before]
+        assert _rel_l2(out, tm.mlp_block_plain(*args, ds, approximate=approximate)) < 1e-2
+        _assert_grads_close(grads, tm.mlp_block_bwd_plain(*args, ds, dz,
+                                                          approximate=approximate))
+        if has_dp:
+            dropped = (ds == 0).reshape(-1)
+            assert torch.equal(out[dropped], args[0][dropped])
+            assert torch.equal(grads[0][dropped], dz[dropped])
+
+
+@pytest.mark.parametrize("T", [64 * 8, 262144])
+@pytest.mark.parametrize("approximate", [True, False])
+def test_mlp_backward_kernels_tell_the_gelus_apart(dev, T, approximate):
+    """K13 / K15's f32 db1 (the sum of the unrounded dh) matches the plain version of
+    its own GELU within a limit and lies further than that from the other GELU's,
+    which the bf16 outputs cannot tell apart.  K15's limit is wider: its dh comes
+    from the bf16-rounded du, whose roundings the summation order can flip."""
+    from heal_swin_torch.ops import mlp as tm
+
+    gen = torch.Generator().manual_seed(31 + approximate)
+    C, H = 96, 384
+    args = _mlp_args(gen, dev, T, C, H)
+    dz = _randn(gen, dev, T, C).to(torch.bfloat16)
+    ds = torch.where(torch.rand(T, 1, generator=gen) < 0.3, 0.0, 1.25).to(dev)
+    for kernel, plain, a, tol in (
+            (tm.mlp_bwd, tm.mlp_bwd_plain, args[:5] + (dz,), 2e-6),
+            (tm.mlp_block_bwd, tm.mlp_block_bwd_plain, args + (ds, dz), 2e-4)):
+        db1 = kernel(*a, approximate=approximate)[2]
+        err = _rel_l2(db1, plain(*a, approximate=approximate)[2])
+        dist = _rel_l2(db1, plain(*a, approximate=not approximate)[2])
+        assert err <= tol < dist, (kernel.__name__, err, dist)
+
+
+def test_mlp_functions_backward_through_kernels(dev):
+    """``fused_mlp`` (both forwards), ``fused_mlp_nd`` and ``fused_mlp_block`` launch
+    their kernels forward and backward and return gradients in their operands'
+    dtypes."""
+    from heal_swin_torch.ops import mlp as tm
+
+    gen = torch.Generator().manual_seed(21)
+    x, w1, b1, w2, b2, g, b = (a.clone().requires_grad_()
+                               for a in _mlp_args(gen, dev, 64 * 4, 96, 384))
+    before = dict(tm.launches)
+    tm.fused_mlp(x, w1, b1, w2, b2, approximate=True, fwd_impl="pallas").float().sum().backward()
+    tm.fused_mlp(x, w1, b1, w2, b2, approximate=True).float().sum().backward()
+    tm.fused_mlp_nd(x.reshape(4, 64, 96), w1, b1, w2, b2,
+                    approximate=False).float().sum().backward()
+    tm.fused_mlp_block(x, w1, b1, w2, b2, g, b, approximate=True).float().sum().backward()
+    torch.cuda.synchronize()
+    assert {k: tm.launches[k] - before[k] for k in before} == dict(
+        mlp_fwd=1, mlp_bwd=3, mlp_block_fwd=1, mlp_block_bwd=1)
+    for t in (x, w1, b1, w2, b2, g, b):
+        assert t.grad is not None and t.grad.dtype == t.dtype and torch.isfinite(t.grad).all()
+
+
+def test_mlp_kernels_refuse_what_they_do_not_take(dev):
+    from heal_swin_torch.ops import mlp as tm
+
+    gen = torch.Generator().manual_seed(22)
+    args = _mlp_args(gen, dev, 128, 96, 384)
+    cpu = [a.cpu() for a in args]
+    with pytest.raises(ValueError, match="pallas"):
+        tm.mlp_fwd(*cpu[:5], approximate=True, impl="pallas")
+    with pytest.raises(ValueError, match="does not take"):
+        tm.mlp_fwd(args[0][:100], *args[1:5], approximate=True)  # T not a multiple of 64
+    odd = _mlp_args(gen, dev, 128, 48, 192)
+    with pytest.raises(ValueError, match="does not take"):
+        tm.mlp_block_fwd(*odd, None, approximate=True)  # C not a multiple of 32
+    with pytest.raises(ValueError, match="bfloat16"):
+        tm.mlp_bwd(args[0].float(), *args[1:5], args[0], approximate=True)
+    with pytest.raises(ValueError, match="dscale"):
+        tm.mlp_block_fwd(*args, torch.ones(128, 1, dtype=torch.bfloat16, device=dev),
+                         approximate=True)
