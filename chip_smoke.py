@@ -8,7 +8,12 @@ with background marked inf); then the paper's depth Chamfer evaluation: the dept
 model predicts 4 images, and the Chamfer writer scores them on its four variants
 through the brute (K10) and neighbour-pruned (K11) Chamfer folds; then the MLP family
 (K12-K15: fc1 -> GELU -> fc2 and the v2 MLP branch x + dscale * LN(mlp(x)), forward
-and backward) at every stage shape and on the paper model's own blocks.
+and backward) at every stage shape and on the paper model's own blocks; then the same
+segmentation model with scaled-dot attention (``use_cos_attn=False``, the config's
+default flavour), whose blocks at C <= 384 run the fused-qkv window attention (K16
+forward, K17 backward): its predict and train step through both paths; and last the
+kernels' refusal: small models the kernels do not take (float32, window 16) raise under
+"auto" with no launch, and run the plain versions under "xla".
 
     python3 chip_smoke.py            # needs one CUDA GPU; exits non-zero otherwise
 
@@ -18,14 +23,19 @@ Prints its findings line by line, a JSON line of per-kernel results, and ends wi
 The kernels' launch counters (``launches``, and ``launches_by_shape`` per operand
 shape) are set to 0 just before each driven call (a segmentation predict, a
 segmentation train step, a depth predict, a depth train step, the Chamfer writer's
-batch, the MLP phase's blocks) and read just after; each kernel's ``launches`` in the
-results line comes from the run that uses it (the segmentation train step for K1, K2,
-K4-K7; segmentation predict for K3; the depth train step for K8, K9; the writer for
-K10, K11; the MLP phase for K12-K15, which no configuration's train step or predict
-launches).  For K1-K9 and K12-K15 ``ms`` / ``plain_ms`` / ``bound_ms`` are sums, over
+batch, the MLP phase's blocks, the scaled-dot predict and train step) and read just
+after; each kernel's ``launches`` in the results line comes from the run that uses it
+(the segmentation train step for K1, K4, K6, K7; segmentation predict for K3; the
+depth train step for K8, K9; the writer for K10, K11; the MLP phase for K12-K15, which
+no configuration's train step or predict launches; the scaled-dot train step for K2,
+K5, K16, K17).  For K1-K9 and K12-K15 ``ms`` / ``plain_ms`` / ``bound_ms`` are sums, over
 the shapes that run launched the kernel at, of one call's median time (its plain
 version's; the least time the card could take, from the shapes) times the number of
-such launches; K12-K15 add ``route_ms``, the port's composed cuBLAS / ATen route.  For K10 / K11
+such launches; K12-K15 add ``route_ms``, the port's composed cuBLAS / ATen route, and
+K16/K17 ``route_ms``, the composed PyTorch route of their scaled-dot function (bf16
+``F.linear`` + ``scaled_dot_product_attention``, autograd backward); K2/K5 (timed in
+the scaled-dot flavour of that step, the cosine flavour beside it) add ``library_ms``,
+one ``scaled_dot_product_attention`` call (forward; backward).  For K10 / K11
 ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` cover the same work: sample 0's
 HP pair (chamfer_distance) for K10 (the library call there is ``torch.cdist`` in its inexact
 matrix-multiply form, then the minima), and the folds of its pruned
@@ -93,6 +103,7 @@ NOISE_M = 0.1  # the noise pair: target points and the same points moved by N(0,
 BF16_PEAK = 989e12
 F32_PEAK = 67e12
 HBM_RATE = 3.35e12
+DOT_SCALE = 32 ** -0.5  # the scaled-dot flavour's sm_scale: head dim 32
 
 
 def log(*a):
@@ -235,48 +246,54 @@ def check_kernels(gen, dev):
             timed[("window_attention_qkv_epi_bwd", T, C, masked)] = dict(
                 rel_l2=err, max_abs_err=mae, ms=ms, plain_ms=pms)
 
-    # K2: the C = 768 bottleneck blocks (one unshifted, one shifted)
+    # K2: the C = 768 bottleneck blocks (one unshifted, one shifted), in both flavours;
+    # timed in the scaled-dot one (the flavour one PyTorch call also computes) with the
+    # cosine one beside it
     C, h = 768, 24
     T = BATCH * 8 * NSIDE * NSIDE // 4 // 4 ** 3
     qkv = rnd(T, 3 * C).to(bf16)
     bias = rnd(h, WS, WS, std=0.5)
     ls = logit_scales(h)
     groups = ring_groups(T // BATCH).to(dev)
+    dout = rnd(T, C).to(bf16)
     for masked in (False, True):
-        args = (qkv, groups if masked else None, bias, ls)
-        kw = dict(ws=WS, num_heads=h, use_cos=True, sm_scale=32 ** -0.5, has_mask=masked)
-        got = wa.window_attention(*args, **kw, impl="pallas")
-        want = wa.window_attention_plain(*args, **kw)
-        err, mae = check_close(f"K2 C={C} mask={masked}", got, want)
-        ms = median_ms(lambda: wa.window_attention(*args, **kw, impl="pallas"))
-        pms = median_ms(lambda: wa.window_attention_plain(*args, **kw))
-        log(f"K2 window_attention C={C} T={T} mask={masked}: rel_l2 {err:.3e} "
-            f"max_abs {mae:.3e} kernel {ms:.4f} ms plain {pms:.4f} ms")
-        timed[("window_attention", T, C, masked)] = dict(
-            rel_l2=err, max_abs_err=mae, ms=ms, plain_ms=pms)
-
-        # K5, its backward, for an output gradient dout
-        dout = rnd(T, C).to(bf16)
-        got = wa.window_attention_bwd(*args, dout, **kw, impl="pallas")
-        want = wa.window_attention_bwd_plain(*args, dout, **kw)
-        err, mae = check_grads(f"K5 C={C} mask={masked}", K5_GRADS, got, want)
-        ms = median_ms(lambda: wa.window_attention_bwd(*args, dout, **kw, impl="pallas"))
-        pms = median_ms(lambda: wa.window_attention_bwd_plain(*args, dout, **kw))
-        log(f"K5 window_attention_bwd C={C} T={T} mask={masked}: rel_l2 <= {err:.3e} "
-            f"max_abs {mae:.3e} kernel {ms:.4f} ms plain {pms:.4f} ms")
-        timed[("window_attention_bwd", T, C, masked)] = dict(
-            rel_l2=err, max_abs_err=mae, ms=ms, plain_ms=pms)
-    # the scaled-dot flavour (not on the paper path; same kernel)
-    kw = dict(ws=WS, num_heads=h, use_cos=False, sm_scale=32 ** -0.5, has_mask=True)
-    err, _ = check_close("K2 scaled-dot", wa.window_attention(qkv, groups, bias, None, **kw,
-                                                              impl="pallas"),
-                         wa.window_attention_plain(qkv, groups, bias, None, **kw))
-    log(f"K2 window_attention scaled-dot C={C}: rel_l2 {err:.3e}")
-    err, _ = check_grads("K5 scaled-dot", K5_GRADS,
-                         wa.window_attention_bwd(qkv, groups, bias, None, dout, **kw,
-                                                 impl="pallas"),
-                         wa.window_attention_bwd_plain(qkv, groups, bias, None, dout, **kw))
-    log(f"K5 window_attention_bwd scaled-dot C={C}: rel_l2 <= {err:.3e}")
+        res = {}
+        for use_cos in (True, False):
+            flavour = "cosine" if use_cos else "scaled-dot"
+            args = (qkv, groups if masked else None, bias, ls if use_cos else None)
+            kw = dict(ws=WS, num_heads=h, use_cos=use_cos, sm_scale=DOT_SCALE, has_mask=masked)
+            e2 = check_close(f"K2 C={C} mask={masked} {flavour}",
+                             wa.window_attention(*args, **kw, impl="pallas"),
+                             wa.window_attention_plain(*args, **kw))
+            # K5, its backward, for an output gradient dout
+            e5 = check_grads(f"K5 C={C} mask={masked} {flavour}", K5_GRADS,
+                             wa.window_attention_bwd(*args, dout, **kw, impl="pallas"),
+                             wa.window_attention_bwd_plain(*args, dout, **kw))
+            res[use_cos] = dict(
+                e2=e2, e5=e5,
+                ms2=median_ms(lambda: wa.window_attention(*args, **kw, impl="pallas")),
+                pms2=median_ms(lambda: wa.window_attention_plain(*args, **kw)),
+                ms5=median_ms(lambda: wa.window_attention_bwd(*args, dout, **kw,
+                                                              impl="pallas")),
+                pms5=median_ms(lambda: wa.window_attention_bwd_plain(*args, dout, **kw)))
+        lib_f, lib_b = sdpa_library(qkv, groups if masked else None, bias, h, dout)
+        lms2, lms5 = median_ms(lib_f), median_ms(lib_b)
+        if masked:
+            log(f"K2/K5 library call: scaled_dot_product_attention ran {sdpa_kernels(lib_f)} "
+                f"forward, {sdpa_kernels(lib_b)} backward")
+        dot, cos = res[False], res[True]
+        for k, name in (("2", "window_attention"), ("5", "window_attention_bwd")):
+            log(f"K{k} {name} C={C} T={T} mask={masked}: scaled-dot rel_l2 "
+                f"{dot['e' + k][0]:.3e} max_abs {dot['e' + k][1]:.3e} kernel "
+                f"{dot['ms' + k]:.4f} ms plain {dot['pms' + k]:.4f} ms library "
+                f"{(lms2, lms5)[k == '5']:.4f} ms; cosine rel_l2 {cos['e' + k][0]:.3e} kernel "
+                f"{cos['ms' + k]:.4f} ms plain {cos['pms' + k]:.4f} ms")
+            timed[(name, T, C, masked)] = dict(
+                rel_l2=dot["e" + k][0], max_abs_err=dot["e" + k][1], ms=dot["ms" + k],
+                plain_ms=dot["pms" + k], library_ms=(lms2, lms5)[k == "5"],
+                cos_rel_l2=cos["e" + k][0], cos_ms=cos["ms" + k], cos_plain_ms=cos["pms" + k])
+    del qkv, dout, lib_f, lib_b
+    timed.update(check_qkv_kernels(gen, dev, rnd, logit_scales))
 
     # K3: the decoder tail, T = 262144 tokens, p = 4, F = 10
     C, p, F = 96, 4, N_CLASSES
@@ -419,6 +436,151 @@ def check_depth_edges(dargs, p, fh):
 K4_GRADS = ("dx", "dwqkv", "dbqkv", "dwp", "dbp", "dgamma", "dbeta", "dbias", "dlogit_scale")
 K5_GRADS = ("dqkv", "dbias", "dlogit_scale")
 K7_GRADS = ("dx", "dwe", "dgamma", "dbeta", "dwh")
+K17_GRADS = ("dx", "dwqkv", "dbqkv", "dbias", "dlogit_scale")
+
+
+def _sdpa_mask(groups, bias, dt):
+    """The additive float mask of the scaled-dot function, (nW, h, ws, ws) in the
+    query's dtype as scaled_dot_product_attention takes it: the rel-pos bias, -100
+    between tokens of different mask groups."""
+    from heal_swin_torch.ops import window_attention as wa
+
+    mask = bias[None] if groups is None else bias[None] + wa._mask(groups)
+    return mask.to(dt)
+
+
+def sdpa_library(qkv, groups, bias, h, dout):
+    """K2/K5's library call, a yardstick the port never calls: one
+    ``scaled_dot_product_attention`` on the qkv rows' q, k, v (nW, h, ws, 32) with the
+    additive float mask as a leaf in bf16 (the rel-pos bias rounded there).  Returns
+    (forward, backward): forward() runs the call, backward() the autograd gradients
+    of q, k, v and the mask of a kept forward for ``dout``."""
+    import torch.nn.functional as F
+
+    T = qkv.shape[0]
+    q, k, v = (t.detach().requires_grad_() for t in
+               qkv.reshape(T // WS, WS, 3, h, 32).permute(2, 0, 3, 1, 4))
+    mask = _sdpa_mask(groups, bias, qkv.dtype).expand(T // WS, h, WS, WS).contiguous()
+    mask.requires_grad_()
+
+    def fwd():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=DOT_SCALE)
+
+    out = fwd()
+    do = dout.reshape(T // WS, WS, h, 32).transpose(1, 2)
+
+    def forward():
+        with torch.no_grad():
+            return fwd()
+
+    return forward, lambda: torch.autograd.grad(out, (q, k, v, mask), do, retain_graph=True)
+
+
+def sdpa_kernels(fn) -> str:
+    """The device kernels one call of ``fn`` ran, by device time (which backend
+    scaled_dot_product_attention chose)."""
+    per, _ = trace(fn)
+    return ", ".join(f"{name[:70]} {ms:.3f} ms" for name, (ms, _) in
+                     sorted(per.items(), key=lambda kv: -kv[1][0])[:3])
+
+
+def sdpa_route(x, wq, bq, groups, bias, h):
+    """The composed PyTorch route of K16/K17's scaled-dot function, a yardstick the port
+    never calls: bf16 ``F.linear`` for qkv, ``scaled_dot_product_attention`` with the
+    additive float mask built from the bias and the groups, back to (T, C); its backward
+    from autograd (x, Wqkv, bqkv and the bias).  Returns (forward, backward) as
+    ``mlp_route``."""
+    import torch.nn.functional as F
+
+    T, C = x.shape
+    nw = T // WS
+    xr, w, b, br = (t.detach().requires_grad_() for t in (x, wq.t().contiguous(), bq, bias))
+
+    def fwd():
+        qkv = F.linear(xr, w, b).reshape(nw, WS, 3, h, 32).permute(2, 0, 3, 1, 4)
+        o = F.scaled_dot_product_attention(qkv[0], qkv[1], qkv[2],
+                                           attn_mask=_sdpa_mask(groups, br, x.dtype),
+                                           scale=DOT_SCALE)
+        return o.transpose(1, 2).reshape(T, C)
+
+    out = fwd()
+    dz = torch.ones_like(out)
+
+    def forward():
+        with torch.no_grad():
+            return fwd()
+
+    return forward, lambda: torch.autograd.grad(out, (xr, w, b, br), dz, retain_graph=True)
+
+
+def check_qkv_kernels(gen, dev, rnd, logit_scales):
+    """K16 and K17 against their plain versions at the three stage shapes of the blocks
+    at C <= 384 (T 262,144 / 65,536 / 16,384, C 96 / 192 / 384), masked and unmasked, in
+    both flavours (scaled-dot at sm_scale 32^-0.5, cosine), with a qkv bias and a
+    perturbed rel-pos bias: the output and every gradient within REL_L2_TOL, and two
+    K17 launches bit-equal.  The scaled-dot flavour, the one the path runs, is timed
+    (median of TIMING_RUNS CUDA-event timings) beside the plain versions and the
+    composed PyTorch route (``sdpa_route``).  Returns its timings keyed like the
+    wrappers' ``launches_by_shape``: (kernel, T, C, has_mask)."""
+    from heal_swin_torch.ops import window_attention as wa
+
+    bf16 = torch.bfloat16
+    timed = {}
+    for stage in range(3):
+        C = 96 * 2 ** stage
+        h = C // 32
+        T = BATCH * 8 * NSIDE * NSIDE // 4 // 4 ** stage
+        x = rnd(T, C).to(bf16)
+        wq, bq = rnd(C, 3 * C, std=C ** -0.5).to(bf16), rnd(3 * C, std=0.02).to(bf16)
+        bias = rnd(h, WS, WS, std=0.5)
+        ls = logit_scales(h)
+        groups = ring_groups(T // BATCH).to(dev)
+        dout = rnd(T, C).to(bf16)
+        for masked in (False, True):
+            for use_cos in (True, False):
+                flavour = "cosine" if use_cos else "scaled-dot"
+                args = (x, wq, bq, groups if masked else None, bias, ls if use_cos else None)
+                kw = dict(ws=WS, num_heads=h, use_cos=use_cos, sm_scale=DOT_SCALE,
+                          has_mask=masked)
+                label = f"C={C} T={T} mask={masked} {flavour}"
+                e16 = check_close(f"K16 {label}",
+                                  wa.window_attention_qkv_fwd(*args, **kw, impl="pallas"),
+                                  wa.window_attention_qkv_plain(*args, **kw))
+                got = wa.window_attention_qkv_bwd(*args, dout, **kw, impl="pallas")
+                e17 = check_grads(f"K17 {label}", K17_GRADS, got,
+                                  wa.window_attention_qkv_bwd_plain(*args, dout, **kw))
+                again = wa.window_attention_qkv_bwd(*args, dout, **kw, impl="pallas")
+                if not all(g is None or torch.equal(g, a) for g, a in zip(got, again)):
+                    raise AssertionError(f"K17 {label}: two launches differ")
+                del got, again
+                line = (f"K16 window_attention_qkv {label}: rel_l2 {e16[0]:.3e} max_abs "
+                        f"{e16[1]:.3e}; K17 rel_l2 <= {e17[0]:.3e} max_abs {e17[1]:.3e}, two "
+                        f"launches bit-equal")
+                if use_cos:
+                    log(line)
+                    continue
+                ms16 = median_ms(lambda: wa.window_attention_qkv_fwd(*args, **kw, impl="pallas"))
+                pms16 = median_ms(lambda: wa.window_attention_qkv_plain(*args, **kw))
+                ms17 = median_ms(lambda: wa.window_attention_qkv_bwd(*args, dout, **kw,
+                                                                     impl="pallas"))
+                pms17 = median_ms(lambda: wa.window_attention_qkv_bwd_plain(*args, dout, **kw))
+                route_f, route_b = sdpa_route(x, wq, bq, groups if masked else None, bias, h)
+                rms16, rms17 = median_ms(route_f), median_ms(route_b)
+                if stage == 0 and masked:
+                    log(f"K16/K17 route: scaled_dot_product_attention ran "
+                        f"{sdpa_kernels(route_f)} forward, {sdpa_kernels(route_b)} backward")
+                del route_f, route_b
+                log(f"{line}; K16 kernel {ms16:.4f} ms plain {pms16:.4f} ms route "
+                    f"{rms16:.4f} ms; K17 kernel {ms17:.4f} ms plain {pms17:.4f} ms route "
+                    f"{rms17:.4f} ms")
+                key = (T, C, masked)
+                timed[("window_attention_qkv",) + key] = dict(
+                    rel_l2=e16[0], max_abs_err=e16[1], ms=ms16, plain_ms=pms16, route_ms=rms16)
+                timed[("window_attention_qkv_bwd",) + key] = dict(
+                    rel_l2=e17[0], max_abs_err=e17[1], ms=ms17, plain_ms=pms17, route_ms=rms17)
+        del x, dout
+        torch.cuda.empty_cache()
+    return timed
 
 
 def check_grads(name, names, got, want, tol=REL_L2_TOL):
@@ -502,10 +664,12 @@ def check_loss_kernels(name, largs, p, fh, timing=True):
                                                 plain_ms=pms7)}
 
 
-def build_task(impl, dev, state=None, depth=False):
+def build_task(impl, dev, state=None, depth=False, cos=True):
     """The paper model's segmentation task, or with ``depth`` its depth task (one
     output channel, the masked l2 loss, the paper depth run's data config: no
-    transform, standardized, background masked)."""
+    transform, standardized, background masked); with ``cos`` False its blocks run
+    scaled-dot attention instead of cosine (the JAX package's ablation ``no_cos``,
+    ``benchmarks/ablate.py``)."""
     from heal_swin_torch.models import tasks as T
     from heal_swin_torch.models.swin_hp import DataSpec, SwinHPTransformerConfig
 
@@ -513,7 +677,7 @@ def build_task(impl, dev, state=None, depth=False):
     cfg = SwinHPTransformerConfig(
         patch_size=4, window_size=WS, shift_size=4, shift_strategy="ring_shift",
         rel_pos_bias="flat", embed_dim=96, depths=[2, 2, 6, 2], num_heads=[3, 6, 12, 24],
-        use_cos_attn=True, use_v2_norm_placement=True, dtype="bfloat16", gelu_approx=True,
+        use_cos_attn=cos, use_v2_norm_placement=True, dtype="bfloat16", gelu_approx=True,
         fused_final_head=True, attention_impl=impl)
     gen = torch.Generator().manual_seed(SEED)
     npix = 8 * NSIDE * NSIDE
@@ -550,7 +714,13 @@ NO_LAUNCHES = {k: 0 for k in (
     "window_attention_qkv_epi_bwd", "window_attention_bwd", "final_head_loss",
     "final_head_loss_bwd", "final_head_depth_loss", "final_head_depth_loss_bwd",
     "chamfer_min_both", "chamfer_fold_pairs", "mlp_fwd", "mlp_bwd", "mlp_block_fwd",
-    "mlp_block_bwd")}
+    "mlp_block_bwd", "window_attention_qkv", "window_attention_qkv_bwd")}
+# the window-attention launches of one pass of the paper model: cosine blocks at
+# C <= 384 run K1 (K4 backward), scaled-dot ones K16 (K17); the C = 768 ones K2 (K5)
+ATTN_LAUNCHES = {True: dict(window_attention_qkv_epi=20, window_attention=2),
+                 False: dict(window_attention_qkv=20, window_attention=2)}
+ATTN_BWD_LAUNCHES = {True: dict(window_attention_qkv_epi_bwd=20, window_attention_bwd=2),
+                     False: dict(window_attention_qkv_bwd=20, window_attention_bwd=2)}
 
 
 def counted_modules():
@@ -649,15 +819,15 @@ def check_blocks(label, task_k, io):
         f"rel_l2 <= {worst:.3e} (tol {REL_L2_TOL})")
 
 
-def check_slice(task_k, task_p, imgs, timed):
+def check_slice(task_k, task_p, imgs, timed, label="slice"):
     """One predict through the kernels (``task_k``) and one through the plain path
     (``task_p``, the same weights), checked against each other.  Returns the kernels'
     launches in the kernel path's predict: per kernel, and per operand shape."""
     from heal_swin_torch.models.tasks import decoder_tail
     from heal_swin_torch.ops import final_head as fh
 
-    expected = dict(NO_LAUNCHES, window_attention_qkv_epi=20, window_attention=2,
-                    final_head_predict=1)
+    cos = task_k.model.config.use_cos_attn
+    expected = dict(NO_LAUNCHES, final_head_predict=1, **ATTN_LAUNCHES[cos])
     npix = imgs.shape[1]
 
     # the kernel path: count the launches of one predict, keep the features K3 got
@@ -668,7 +838,7 @@ def check_slice(task_k, task_p, imgs, timed):
     torch.cuda.synchronize()
     launches, by_shape = read_counters()
     keep.remove()
-    check_launches("slice predict", launches, by_shape, expected, timed)
+    check_launches(f"{label} predict", launches, by_shape, expected, timed)
     if preds_k.shape != (BATCH, npix) or preds_k.dtype != torch.int32:
         raise AssertionError(f"predict gave {tuple(preds_k.shape)} {preds_k.dtype}")
     if int(preds_k.min()) < 0 or int(preds_k.max()) >= N_CLASSES:
@@ -683,9 +853,9 @@ def check_slice(task_k, task_p, imgs, timed):
     with torch.no_grad():
         want = fh.final_head_predict_plain(fk, *tail, patch_size=4)
         lk = fh.final_head_logits_plain(fk, *tail, patch_size=4)
-    mism, near, _ = preds_agree("slice K3", preds_k.reshape(B * N, 4), want, lk,
+    mism, near, _ = preds_agree(f"{label} K3", preds_k.reshape(B * N, 4), want, lk,
                                 logit_slack(fh, fk, tail))
-    log(f"slice: K3 in predict vs the plain tail on its features: {mism} of "
+    log(f"{label}: K3 in predict vs the plain tail on its features: {mism} of "
         f"{preds_k.numel()} indices differ, all at near-ties ({near} near-tie rows)")
 
     # the plain path, keeping every block's input and output and the features
@@ -695,23 +865,23 @@ def check_slice(task_k, task_p, imgs, timed):
     preds_p = task_p.predict(None, imgs)
     for hk in hooks:
         hk.remove()
-    check_blocks("slice", task_k, io)
+    check_blocks(label, task_k, io)
     del io
 
     # end to end: per op the two paths differ only by bf16 rounding flips (~2^-8
     # relative on a flipped element); 22 residual blocks and the skips carry those
     # on, so the features are held to a looser bound than one block
     feats_p = feats["p"]
-    err = check_close("slice tail=False features", feats_k, feats_p, SLICE_REL_L2_TOL)[0]
+    err = check_close(f"{label} tail=False features", feats_k, feats_p, SLICE_REL_L2_TOL)[0]
     # the same measure for the plain path against itself, its input moved by bf16
     # rounding (2^-9 relative): how much the random-weight network amplifies
     # perturbations of that size
     noise = torch.randn(imgs.shape, generator=torch.Generator().manual_seed(SEED + 2))
     with torch.no_grad():
         feats_n = task_p.model(imgs * (1 + 2.0 ** -9 * noise.to(imgs.device)), tail=False)
-    log(f"slice: plain path, input moved by 2^-9 relative: features rel_l2 "
+    log(f"{label}: plain path, input moved by 2^-9 relative: features rel_l2 "
         f"{rel_l2(feats_n, feats_p):.3e}")
-    log(f"slice: features rel_l2 {err:.3e} (tol {SLICE_REL_L2_TOL}); "
+    log(f"{label}: features rel_l2 {err:.3e} (tol {SLICE_REL_L2_TOL}); "
         f"{int((preds_k != preds_p).sum())} of {preds_k.numel()} predicted classes differ "
         f"between the two paths")
     return launches, by_shape
@@ -732,30 +902,31 @@ def rate(task, imgs, n=5):
     return imgs.shape[0] * n / dt, (torch.cuda.max_memory_allocated() - resident) / 2 ** 30
 
 
-def drive_slice(dev, timed):
+def drive_slice(dev, timed, cos=True):
     """predict at paper scale through the kernels and through the plain path: checked,
-    timed, and traced.  Returns the kernels' launches in one predict: per
-    kernel, and per operand shape."""
+    timed, and traced; with ``cos`` False the scaled-dot model.  Returns the kernels'
+    launches in one predict: per kernel, and per operand shape."""
+    label = "slice" if cos else "dot slice"
     imgs = torch.randn(BATCH, 8 * NSIDE * NSIDE, 3,
                        generator=torch.Generator().manual_seed(SEED + 1)).to(dev)
     t0 = time.perf_counter()
-    task_k = build_task("auto", dev)
-    task_p = build_task("xla", dev, state=task_k.model.state_dict())
-    log(f"slice: built the paper model twice in {time.perf_counter() - t0:.1f} s, "
+    task_k = build_task("auto", dev, cos=cos)
+    task_p = build_task("xla", dev, state=task_k.model.state_dict(), cos=cos)
+    log(f"{label}: built the paper model twice in {time.perf_counter() - t0:.1f} s, "
         f"{sum(p.numel() for p in task_k.model.parameters()):,} parameters")
-    launches, by_shape = check_slice(task_k, task_p, imgs, timed)
+    launches, by_shape = check_slice(task_k, task_p, imgs, timed, label)
 
     torch.cuda.synchronize()
     resident = torch.cuda.memory_allocated() / 2 ** 30
     ips_k, mem_k = rate(task_k, imgs)
     ips_p, mem_p = rate(task_p, imgs)
     ips_k2, _ = rate(task_k, imgs)
-    log(f"slice: predict kernels {ips_k:.3f} / {ips_k2:.3f} img/s (peak {mem_k:.3f} GiB above "
+    log(f"{label}: predict kernels {ips_k:.3f} / {ips_k2:.3f} img/s (peak {mem_k:.3f} GiB above "
         f"the resident), plain {ips_p:.3f} img/s (peak {mem_p:.3f} GiB above the resident); "
         f"resident {resident:.3f} GiB (both models' f32 weights and the input)")
-    busy = profile("profile", lambda: task_k.predict(None, imgs), PROFILE_PREDICTS)
+    busy = profile(f"{label} profile", lambda: task_k.predict(None, imgs), PROFILE_PREDICTS)
     wall = BATCH / max(ips_k, ips_k2) * 1e3
-    log(f"profile: against the untraced {wall:.3f} ms/predict the device idles "
+    log(f"{label} profile: against the untraced {wall:.3f} ms/predict the device idles "
         f"{1 - busy / wall:.4f} of the time")
     return launches, by_shape
 
@@ -878,7 +1049,7 @@ def drive_depth_predict(task_k, task_p, imgs, timed):
     (``task_p``, the same weights): one counted call, every block of the kernel path on
     the plain path's input, the metric depths of the two paths, and their img/s.
     Returns the kernels' launches in one predict: per kernel, and per operand shape."""
-    expected = dict(NO_LAUNCHES, window_attention_qkv_epi=20, window_attention=2)
+    expected = dict(NO_LAUNCHES, **ATTN_LAUNCHES[True])
     reset_counters()
     out_k = task_k.predict(None, imgs)
     torch.cuda.synchronize()
@@ -908,10 +1079,11 @@ def drive_depth_predict(task_k, task_p, imgs, timed):
     return launches, by_shape
 
 
-def drive_train(dev, timed, depth=False):
+def drive_train(dev, timed, depth=False, cos=True):
     """The train step at paper scale through the kernels and through the plain path,
     for segmentation or, with ``depth``, the depth task (after its ``predict``,
-    ``drive_depth_predict``): per-block backward and tail checks, one counted step,
+    ``drive_depth_predict``); with ``cos`` False the scaled-dot segmentation model:
+    per-block backward and tail checks, one counted step,
     the loss over 5 more steps on one batch, the metrics, the rate and memory of each
     path (kernel, plain, kernel), and a trace of the kernel path's step.  Returns the
     kernels' launches in one train step: per kernel, and per operand shape."""
@@ -920,9 +1092,9 @@ def drive_train(dev, timed, depth=False):
     from heal_swin_torch.training.optimizer import OptimizerConfig, make_optimizer
     from heal_swin_torch.training.trainer import step_generator, train_step
 
-    label = "depth train" if depth else "train"
-    task_k = build_task("auto", dev, depth=depth)
-    task_p = build_task("xla", dev, state=task_k.model.state_dict(), depth=depth)
+    label = "depth train" if depth else "train" if cos else "dot train"
+    task_k = build_task("auto", dev, depth=depth, cos=cos)
+    task_p = build_task("xla", dev, state=task_k.model.state_dict(), depth=depth, cos=cos)
     if depth:
         imgs, metric_depth = depth_batch(dev)
         targets = task_k._to_network(metric_depth)  # standardized with the masked stats
@@ -931,8 +1103,7 @@ def drive_train(dev, timed, depth=False):
     else:
         imgs, targets = train_batch(dev)
         expected = dict(NO_LAUNCHES, final_head_loss=1, final_head_loss_bwd=1)
-    expected.update(window_attention_qkv_epi=20, window_attention=2,
-                    window_attention_qkv_epi_bwd=20, window_attention_bwd=2)
+    expected.update(ATTN_LAUNCHES[cos], **ATTN_BWD_LAUNCHES[cos])
     loss0_p, feats = check_train_blocks(label, task_k, task_p, imgs, targets, dev)
 
     # the fused tail on the features the kernel path hands it
@@ -1695,6 +1866,68 @@ def drive_mlp(dev, timed):
     return launches, by_shape
 
 
+# ------------------------------------------------------------ the kernels' refusal
+GATE_NSIDE = 32  # 512 tokens an image at the second stage: one 64-token window per base pixel
+
+
+def drive_refusal(dev):
+    """The kernels' refusal on the card: two small segmentation models the kernels were
+    not written for -- float32 compute (the config default) at the kernels' window 64,
+    and bf16 at window 16 with 40 classes (more than K3/K6/K7's 32 lanes).  Under
+    "auto" and "pallas" a loss and a predict raise before any launch, naming
+    attention_impl="xla"; under "xla" the same weights run a loss with its backward and
+    a predict with no launch, finite and of the expected shapes."""
+    from heal_swin_torch.models import tasks as T
+    from heal_swin_torch.models.swin_hp import DataSpec, SwinHPTransformerConfig
+
+    npix = 8 * GATE_NSIDE * GATE_NSIDE
+    imgs = torch.randn(BATCH, npix, 3, generator=torch.Generator().manual_seed(SEED + 9)).to(dev)
+    for dtype, ws, classes in ((None, WS, N_CLASSES), ("bfloat16", 16, 40)):
+        label = f"refusal dtype={dtype or 'float32'} ws={ws} classes={classes}"
+
+        def build(impl):
+            cfg = SwinHPTransformerConfig(
+                patch_size=4, window_size=ws, shift_size=4 if ws == WS else 8,
+                shift_strategy="ring_shift", rel_pos_bias="flat", embed_dim=64, depths=[2, 2],
+                num_heads=[2, 4], use_v2_norm_placement=True, dtype=dtype, gelu_approx=True,
+                fused_final_head=True, attention_impl=impl)
+            return T.WoodscapeSegmenterSwinHP(
+                T.WoodscapeSegmenterSwinHPConfig(cfg),
+                DataSpec(dim_in=npix, f_in=3, f_out=classes, base_pix=8), device=dev,
+                generator=torch.Generator().manual_seed(SEED))
+
+        targets = torch.clamp(((imgs[..., 0] + 2.5) * classes / 5).long(), 0, classes - 1)
+        refusals = []
+        reset_counters()
+        for impl in ("auto", "pallas"):
+            task = build(impl)
+            for call in (lambda: task.loss_fn(imgs, targets), lambda: task.predict(None, imgs)):
+                try:
+                    call()
+                except ValueError as e:
+                    if "impl='xla'" not in str(e):
+                        raise
+                    refusals.append(str(e))
+                else:
+                    raise AssertionError(f"{label} {impl}: no refusal")
+        task = build("xla")
+        loss, cm = task.loss_fn(imgs, targets)
+        loss.backward()
+        preds = task.predict(None, imgs)
+        torch.cuda.synchronize()
+        launches, _ = read_counters()
+        if any(launches.values()):
+            raise AssertionError(f"{label}: kernels launched: {launches}")
+        grads = [q.grad for q in task.model.parameters()]
+        if not (torch.isfinite(loss) and tuple(cm.shape) == (classes, classes)
+                and tuple(preds.shape) == (BATCH, npix)
+                and all(g is not None and torch.isfinite(g).all() for g in grads)):
+            raise AssertionError(f"{label} xla: a non-finite or misshapen result")
+        log(f"{label}: \"auto\" and \"pallas\" raised in a loss and a predict with no "
+            f"launch ({refusals[0]}); \"xla\" ran a loss ({loss.item():.6f}), its "
+            f"backward and {preds.numel()} predictions with no launch")
+
+
 SOURCES = {
     "window_attention_qkv_epi": ("heal_swin_torch/csrc/window_attention.cu",
                                  "heal_swin_tpu/ops/window_attention.py:993"),
@@ -1706,6 +1939,10 @@ SOURCES = {
                                      "heal_swin_tpu/ops/window_attention.py:1027"),
     "window_attention_bwd": ("heal_swin_torch/csrc/window_attention_bwd.cu",
                              "heal_swin_tpu/ops/window_attention.py:719"),
+    "window_attention_qkv": ("heal_swin_torch/csrc/window_attention.cu",
+                             "heal_swin_tpu/ops/window_attention.py:548"),
+    "window_attention_qkv_bwd": ("heal_swin_torch/csrc/window_attention_bwd.cu",
+                                 "heal_swin_tpu/ops/window_attention.py:585"),
     "final_head_loss": ("heal_swin_torch/csrc/final_head.cu",
                         "heal_swin_tpu/ops/final_head.py:755"),
     "final_head_loss_bwd": ("heal_swin_torch/csrc/final_head.cu",
@@ -1727,9 +1964,12 @@ SOURCES = {
 def shape_work(key):
     """(FLOP of the tensor-core products, bytes) of one call of K1-K9 at a launch
     shape key, from the shapes: each input read once, each output written once.
-    Window attention (ws 64, head dim 32, T / 64 windows of C / 32 heads): forward
-    512 C^2 (qkv and proj) + 16384 C (scores and values) FLOP per window; its backward
-    1536 C^2 + 57344 C.  The tail (p = 4): the expand product 2 T p C^2 and the head
+    Window attention (ws 64, head dim 32, T / 64 windows of C / 32 heads; a 64 x 64 x
+    32 product is 8192 C FLOP per window over the heads): forward 512 C^2 (qkv and
+    proj) + 16384 C (scores and values) FLOP per window, 384 C^2 + 16384 C without
+    proj (K16); the attention backward five products, 40960 C (the scores recomputed,
+    dv, dp, dq, dk: K5), with proj 1536 C^2 + 49152 C (the values recomputed too, for
+    dWp: K4), without proj 1152 C^2 + 40960 C (K17).  The tail (p = 4): the expand product 2 T p C^2 and the head
     2 T p C F forward; three times the expand and twice the head backward.  The MLP
     (T, C, H = 4C): two products of 2 T C H forward, five backward (the hidden
     recomputed, dg, dx, dW1, dW2), six for the branch (u recomputed too); bf16 tokens
@@ -1751,10 +1991,15 @@ def shape_work(key):
     if name == "window_attention":  # qkv -> out
         return W * 16384 * C, 8 * T * C + bias + groups * key[3]
     if name == "window_attention_qkv_epi_bwd":  # x, dz -> dx; weights -> their gradients
-        return (W * (1536 * C * C + 57344 * C),
+        return (W * (1536 * C * C + 49152 * C),
                 6 * T * C + 24 * C * C + 2 * bias + groups * key[3])
     if name == "window_attention_bwd":  # qkv, dout -> dqkv
-        return W * 57344 * C, 14 * T * C + 2 * bias + groups * key[3]
+        return W * 40960 * C, 14 * T * C + 2 * bias + groups * key[3]
+    if name == "window_attention_qkv":  # x -> out; Wqkv, bias, groups
+        return W * (384 * C * C + 16384 * C), 4 * T * C + 6 * C * C + bias + groups * key[3]
+    if name == "window_attention_qkv_bwd":  # x, dout -> dx; Wqkv -> its f32 gradient
+        return (W * (1152 * C * C + 40960 * C),
+                6 * T * C + 18 * C * C + 2 * bias + groups * key[3])
     F = key[3] if len(key) == 5 else N_CLASSES
     tail = 2 * T * p * C * C + 2 * T * p * C * F
     weights = (p * C * C + C * F + 2 * C) * 4
@@ -1803,10 +2048,11 @@ def kernel_results(timed, runs, chamfer):
     """The per-kernel results line.  ``runs``: kernel -> (launches per kernel, per
     shape) of the run that uses it.  K1-K9 and K12-K15: each kernel's launches in that
     run, and its times and bound summed over the shapes that run launched it at, each
-    shape weighted by its launches there; no single PyTorch call computes their fused
-    functions (``library_ms`` null).  K12-K15 add ``route_ms``, the port's composed
-    cuBLAS / ATen route for the same function (no library call).  K10 / K11:
-    ``chamfer``, from ``drive_chamfer_eval``."""
+    shape weighted by its launches there; ``library_ms`` where one PyTorch call computes
+    the function (K2/K5: scaled_dot_product_attention), else null.  K12-K17 add
+    ``route_ms``, the port's composed cuBLAS / ATen route (K12-K15) or the composed
+    PyTorch route (K16/K17) for the same function.  K10 / K11: ``chamfer``, from
+    ``drive_chamfer_eval``."""
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         launches, by_shape = runs[name]
@@ -1826,14 +2072,16 @@ def kernel_results(timed, runs, chamfer):
                 byte_ms += n * nbytes / HBM_RATE * 1e3
                 shapes.append(dict(shape_fields(key), launches=n, bound_ms=b, bound_by=by,
                                    **timed[key]))
+        def total(field):
+            return sum(r[field] * r["launches"] for r in shapes)
+
         result = dict(
-            entry, max_abs_err=max(r["max_abs_err"] for r in shapes),
-            ms=sum(r["ms"] * r["launches"] for r in shapes),
-            plain_ms=sum(r["plain_ms"] * r["launches"] for r in shapes),
-            bound_ms=sum(r["bound_ms"] * r["launches"] for r in shapes),
-            bound_by="operations" if op_ms >= byte_ms else "bytes", library_ms=None)
-        if name.startswith("mlp"):
-            result["route_ms"] = sum(r["route_ms"] * r["launches"] for r in shapes)
+            entry, max_abs_err=max(r["max_abs_err"] for r in shapes), ms=total("ms"),
+            plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
+            bound_by="operations" if op_ms >= byte_ms else "bytes",
+            library_ms=total("library_ms") if "library_ms" in shapes[0] else None)
+        if "route_ms" in shapes[0]:
+            result["route_ms"] = total("route_ms")
         kernels.append(dict(result, shapes=shapes))
     return kernels
 
@@ -1870,9 +2118,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     t_mlp = time.perf_counter()
     mlp_run = drive_mlp(dev, timed)
+    torch.cuda.empty_cache()
+    t_dot = time.perf_counter()
+    drive_slice(dev, timed, cos=False)
+    torch.cuda.empty_cache()
+    dot_run = drive_train(dev, timed, cos=False)
+    torch.cuda.empty_cache()
+    t_gate = time.perf_counter()
+    drive_refusal(dev)
     t_end = time.perf_counter()
     log(f"elapsed: {t_end - t0:.1f} s since the build started, the Chamfer phase "
-        f"{t_mlp - t_chamfer:.1f} s of it, the MLP phase {t_end - t_mlp:.1f} s")
+        f"{t_mlp - t_chamfer:.1f} s of it, the MLP phase {t_dot - t_mlp:.1f} s, the "
+        f"scaled-dot phase {t_gate - t_dot:.1f} s, the refusal phase {t_end - t_gate:.1f} s")
 
     blocked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "heal_swin_tpu"))
     if blocked:
@@ -1883,6 +2140,9 @@ def main() -> int:
     runs["chamfer_min_both"] = runs["chamfer_fold_pairs"] = chamfer_run
     for name in ("mlp_fwd", "mlp_bwd", "mlp_block_fwd", "mlp_block_bwd"):
         runs[name] = mlp_run
+    for name in ("window_attention", "window_attention_bwd", "window_attention_qkv",
+                 "window_attention_qkv_bwd"):
+        runs[name] = dot_run
     kernels = kernel_results(timed, runs, chamfer)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,13 +1,18 @@
 // Window attention of HEAL-SWIN for Hopper (sm_90a), forward (the backward kernels are
 // in window_attention_bwd.cu; the per-head building blocks in attention.cuh).
 //
-// Replaces two Pallas TPU kernels of heal_swin_tpu/ops/window_attention.py:
+// Replaces three Pallas TPU kernels of heal_swin_tpu/ops/window_attention.py:
 //   K1 hs_window_attention_qkv_epi  <- _fwd_kernel_xw_epi (fused_window_attention_qkv_epi):
 //      x @ Wqkv + b -> cosine attention (rel-pos bias, -100 group mask, f32 softmax)
 //      -> @ Wp + bp -> optional LayerNorm, one block per 64-token window.
 //   K2 hs_window_attention          <- _fwd_kernel / _attn_fwd_body (fused_window_attention):
 //      attention from precomputed qkv rows, cosine or scaled-dot, one block per
 //      (window, head).
+//   K16 hs_window_attention_qkv     <- _fwd_kernel_xw (fused_window_attention_qkv):
+//      x @ Wqkv + b -> attention, cosine or scaled-dot, the (T, C) result before the
+//      output projection; K1 without the projection and LayerNorm epilogue, one block
+//      per window.  Per window 384*C^2 + 16384*C FLOPs on 4*C*64 bytes of activations:
+//      bounded by the tensor cores' issue rate like K1.
 //
 // What bounds it on this card: per window K1 does 512*C^2 + 16384*C FLOPs (qkv and
 // proj products, QK^T and PV) on 256*C bytes of activations in and out, i.e. about
@@ -246,6 +251,88 @@ qkv_epi_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
   }
 }
 
+// ---------------------------------------------------------------------------------
+// K16: qkv projection + attention, cosine or scaled-dot; one block per window, each
+// head's 64 x 32 output straight to global memory.  Shared memory: x tile | one head's
+// f32 qkv | head scratch (117 KB at C = 384).
+// ---------------------------------------------------------------------------------
+struct QkvLayout {
+  size_t x, qkvf, head, total;
+};
+
+__host__ __device__ inline QkvLayout qkv_layout(int C) {
+  QkvLayout L;
+  size_t off = 0;
+  L.x = off; off += align128(size_t(WS) * (C + 8) * 2);
+  L.qkvf = off; off += align128(size_t(WS) * LD_QKV * 4);
+  L.head = off; off += head_smem_bytes();
+  L.total = off;
+  return L;
+}
+
+__global__ void __launch_bounds__(kThreads)
+qkv_attn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
+                const bf16* __restrict__ bqkv, const int* __restrict__ groups,
+                const float* __restrict__ bias, const float* __restrict__ lscale,
+                bf16* __restrict__ out, int C, int use_cos, int has_mask, float sm_scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const QkvLayout L = qkv_layout(C);
+  const int LDX = C + 8;
+  bf16* xs = reinterpret_cast<bf16*>(smem + L.x);
+  float* qkvf = reinterpret_cast<float*>(smem + L.qkvf);
+  const HeadSmem sh = carve_head(smem + L.head);
+
+  const int win = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int H = C / HD;
+  const size_t row0 = size_t(win) * WS;
+
+  const int chunks = C / 8;
+  for (int idx = tid; idx < WS * chunks; idx += kThreads) {
+    const int r = idx / chunks, q = idx % chunks;
+    reinterpret_cast<uint4*>(xs + r * LDX)[q] =
+        reinterpret_cast<const uint4*>(x + (row0 + r) * C)[q];
+  }
+  if (has_mask && tid < WS) sh.g[tid] = groups[row0 + tid];
+  __syncthreads();
+
+  for (int head = 0; head < H; ++head) {
+    project_head_qkv(xs, LDX, wqkv, C, head, qkvf);
+
+    // + b in f32, round qkv to bf16; cosine: q*scale/|q| and k/|k|, rounded again
+    {
+      const float scale = use_cos ? lscale[head] : 1.f;
+      const float bq = bf(bqkv[head * HD + lane]);
+      const float bk = bf(bqkv[C + head * HD + lane]);
+      const float bv = bf(bqkv[2 * C + head * HD + lane]);
+      for (int r = warp; r < WS; r += kWarps) {
+        const float* row = qkvf + r * LD_QKV;
+        float qv = bfr(row[lane] + bq);
+        float kv = bfr(row[HD + lane] + bk);
+        if (use_cos) {
+          qv *= rsqrtf(fmaxf(warp_sum(qv * qv), 1e-24f)) * scale;
+          kv *= rsqrtf(fmaxf(warp_sum(kv * kv), 1e-24f));
+        }
+        sh.q[r * LD_HEAD + lane] = to_bf(qv);
+        sh.k[r * LD_HEAD + lane] = to_bf(kv);
+        sh.v[r * LD_HEAD + lane] = to_bf(row[2 * HD + lane] + bv);
+      }
+    }
+    __syncthreads();
+
+    attend_head(sh.q, sh.k, sh.v, sh.s, sh.p, sh.g, has_mask != 0,
+                bias + size_t(head) * WS * WS, use_cos ? 1.f : sm_scale);
+
+    for (int idx = tid; idx < WS * HD; idx += kThreads) {
+      const int r = idx / HD, d = idx % HD;
+      out[(row0 + r) * C + head * HD + d] = to_bf(sh.s[r * LD_T + d]);
+    }
+    __syncthreads();
+  }
+}
+
 }  // namespace
 }  // namespace hs
 
@@ -282,6 +369,23 @@ int hs_window_attention(const void* qkv, const void* groups, const void* bias,
   const dim3 grid(T / hs::WS, C / hs::HD);
   hs::attn_kernel<<<grid, hs::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(qkv), static_cast<const int*>(groups),
+      static_cast<const float*>(bias), static_cast<const float*>(lscale),
+      static_cast<bf16*>(out), C, use_cos, has_mask, sm_scale);
+  return int(cudaGetLastError());
+}
+
+int hs_window_attention_qkv(const void* x, const void* wqkv, const void* bqkv,
+                            const void* groups, const void* bias, const void* lscale, void* out,
+                            int T, int C, int use_cos, int has_mask, float sm_scale,
+                            void* stream) {
+  using hs::bf16;
+  const size_t smem = hs::qkv_layout(C).total;
+  cudaError_t e = cudaFuncSetAttribute(hs::qkv_attn_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (e != cudaSuccess) return int(e);
+  hs::qkv_attn_kernel<<<T / hs::WS, hs::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv),
+      static_cast<const bf16*>(bqkv), static_cast<const int*>(groups),
       static_cast<const float*>(bias), static_cast<const float*>(lscale),
       static_cast<bf16*>(out), C, use_cos, has_mask, sm_scale);
   return int(cudaGetLastError());

@@ -11,6 +11,15 @@
 //   K5 hs_window_attention_bwd <- _bwd_kernel (_attn_bwd_body_cos_wide for cosine,
 //      _attn_bwd_body for scaled-dot), the backward of K2: one block per
 //      (window, head), dv, dp, ds and dq, dk from qkv rows and dout.
+//   K17 hs_window_attention_qkv_bwd <- _bwd_kernel_xw, the backward of K16 (x @ Wqkv
+//      + b -> attention, cosine or scaled-dot): one block per window; each head
+//      recomputes its qkv from the x tile (nothing parked in a workspace), runs K5's
+//      per-head backward on the upstream gradient of the (T, C) output, and leaves
+//      its bf16 dqkv rows in the workspace; then the block's dbqkv partial row and
+//      dx = dqkv Wqkv^T; dWqkv = x^T dqkv is the split-K gemm_tn over the tokens.
+//      K4 without the output projection and LayerNorm: per window 1152*C^2 +
+//      40960*C FLOPs (the qkv products, then five 64x64x32 products per head:
+//      QK^T recomputed, dv, dp, dq, dk), near or above the bf16 ridge like K4.
 //
 // What bounds it on this card: K4 does about 3x K1's products per window (qkv and
 // output projections, QK^T and PV recomputed, PV^T, dP, two ds products, do and dx),
@@ -513,6 +522,137 @@ qkv_epi_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
   }
 }
 
+// ---------------------------------------------------------------------------------
+// K17: one block per window.  Shared memory: x tile | one head's f32 qkv | Head (with
+// the group ids); after the head loop the f32 dx staging (64 x (C + 4)) over all of
+// it (166 KB at C = 384).
+// ---------------------------------------------------------------------------------
+struct QkvBwdLayout {
+  size_t qkvf, head, total;
+};
+
+__host__ __device__ inline QkvBwdLayout qkv_bwd_layout(int C) {
+  QkvBwdLayout L;
+  size_t off = align128(size_t(WS) * (C + 8) * 2);  // the x tile at 0
+  L.qkvf = off; off += align128(size_t(WS) * LD_QKV * 4);
+  L.head = off; off += head_bytes();
+  const size_t stage = align128(size_t(WS) * (C + 4) * 4);
+  L.total = off > stage ? off : stage;
+  return L;
+}
+
+// the partial row of one window: [dbias (H x 64 x 64) | dls (H) | dbqkv (3C)]
+__host__ __device__ inline size_t qkv_part_width(int C) {
+  return attn_part_width(C / HD) + 3 * size_t(C);
+}
+
+__global__ void __launch_bounds__(kThreads)
+qkv_attn_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
+                    const bf16* __restrict__ bqkv, const int* __restrict__ groups,
+                    const float* __restrict__ bias, const float* __restrict__ lscale,
+                    const bf16* __restrict__ dout, bf16* __restrict__ dx, bf16* dqkv_s,
+                    float* __restrict__ part, int C, int use_cos, int has_mask,
+                    float sm_scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const QkvBwdLayout L = qkv_bwd_layout(C);
+  const int LDX = C + 8;
+  const int LDU = C + 4;
+  bf16* xs = reinterpret_cast<bf16*>(smem);
+  float* stage = reinterpret_cast<float*>(smem);  // dx, after the head loop
+  float* qkvf = reinterpret_cast<float*>(smem + L.qkvf);
+  const Head hd = carve_head(smem + L.head);
+
+  const int win = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int H = C / HD;
+  const int C3 = 3 * C;
+  const size_t row0 = size_t(win) * WS;
+  float* prow = part + size_t(win) * qkv_part_width(C);
+
+  const int chunks = C / 8;
+  for (int idx = tid; idx < WS * chunks; idx += kThreads) {
+    const int r = idx / chunks, q = idx % chunks;
+    reinterpret_cast<uint4*>(xs + r * LDX)[q] =
+        reinterpret_cast<const uint4*>(x + (row0 + r) * C)[q];
+  }
+  if (has_mask && tid < WS) hd.g[tid] = groups[row0 + tid];
+  __syncthreads();
+
+  for (int head = 0; head < H; ++head) {
+    project_head_qkv(xs, LDX, wqkv, C, head, qkvf);
+    // q, k, v = bf16(x Wqkv + b), and this head's columns of dout
+    {
+      const float bq = bf(bqkv[head * HD + lane]);
+      const float bk = bf(bqkv[C + head * HD + lane]);
+      const float bv = bf(bqkv[2 * C + head * HD + lane]);
+      for (int r = warp; r < WS; r += kWarps) {
+        const float* row = qkvf + r * LD_QKV;
+        const int i = r * LD_HEAD + lane;
+        hd.qr[i] = to_bf(row[lane] + bq);
+        hd.kr[i] = to_bf(row[HD + lane] + bk);
+        hd.v[i] = to_bf(row[2 * HD + lane] + bv);
+        hd.dob[i] = dout[(row0 + r) * C + head * HD + lane];
+      }
+    }
+    __syncthreads();
+    const float scale = use_cos ? lscale[head] : 1.f;
+    prepare_head(hd, use_cos != 0, scale);
+    head_backward(hd, hd.dob, LD_HEAD, use_cos != 0, has_mask != 0,
+                  bias + size_t(head) * WS * WS, scale, sm_scale, dqkv_s + row0 * C3, C, head,
+                  prow + size_t(head) * WS * WS, prow + size_t(H) * WS * WS + head);
+  }
+
+  // dbqkv (column sums of the bf16 dqkv) and dx = dqkv Wqkv^T, staged in f32
+  float* prow_b = prow + attn_part_width(H);
+  for (int c = tid; c < C3; c += kThreads) {
+    float s = 0.f;
+    for (int r = 0; r < WS; ++r) s += bf(dqkv_s[(row0 + r) * C3 + c]);
+    prow_b[c] = s;
+  }
+  const int ntiles = 4 * (C / 16);
+  for (int t = warp; t < ntiles; t += kWarps) {
+    const int rt = t & 3, ct = t >> 2;
+    FragC acc;
+    wmma::fill_fragment(acc, 0.f);
+    for (int kk = 0; kk < C3; kk += 16) {
+      FragA a;
+      FragBt b;  // element (k, n) of Wqkv^T at wqkv[n * 3C + k]
+      wmma::load_matrix_sync(a, dqkv_s + (row0 + rt * 16) * C3 + kk, C3);
+      wmma::load_matrix_sync(b, wqkv + size_t(ct) * 16 * C3 + kk, C3);
+      wmma::mma_sync(acc, a, b, acc);
+    }
+    wmma::store_matrix_sync(stage + rt * 16 * LDU + ct * 16, acc, LDU, wmma::mem_row_major);
+  }
+  __syncthreads();
+  for (int idx = tid; idx < WS * C; idx += kThreads) {
+    const int r = idx / C, c = idx % C;
+    dx[(row0 + r) * C + c] = to_bf(stage[r * LDU + c]);
+  }
+}
+
+// the workspace of K17: dqkv (bf16 rows), the per-window partial rows, and the
+// reductions' scratch
+struct QkvBwdWork {
+  size_t dqkv, part, tmp, total;
+};
+
+inline QkvBwdWork qkv_bwd_work(int T, int C) {
+  QkvBwdWork w;
+  const int nw = T / WS;
+  const int W = int(qkv_part_width(C));
+  size_t off = 0;
+  w.dqkv = off; off += align128(size_t(T) * 3 * C * 2);
+  w.part = off; off += align128(size_t(nw) * W * 4);
+  size_t tmp = reduce_rows_tmp_floats(nw, W);
+  const size_t g = gemm_tn_tmp_floats(T, C, 3 * C);
+  tmp = tmp > g ? tmp : g;
+  w.tmp = off; off += align128(tmp * 4);
+  w.total = off;
+  return w;
+}
+
 // the workspace of K4: qkv, o, dqkv, du (bf16 rows), the per-window partial rows, and
 // the reductions' scratch
 struct EpiBwdWork {
@@ -573,6 +713,41 @@ int hs_window_attention_bwd(const void* qkv, const void* groups, const void* bia
   e = cudaGetLastError();
   if (e != cudaSuccess) return int(e);
   return int(hs::reduce_rows(part, static_cast<float*>(red), nw, W, tmp, s));
+}
+
+size_t hs_window_attention_qkv_bwd_workspace(int T, int C) {
+  return hs::qkv_bwd_work(T, C).total;
+}
+
+int hs_window_attention_qkv_bwd(const void* x, const void* wqkv, const void* bqkv,
+                                const void* groups, const void* bias, const void* lscale,
+                                const void* dout, void* dx, void* dwqkv, void* red, void* work,
+                                int T, int C, int use_cos, int has_mask, float sm_scale,
+                                void* stream) {
+  using hs::bf16;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = hs::qkv_bwd_layout(C).total;
+  cudaError_t e = cudaFuncSetAttribute(hs::qkv_attn_bwd_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (e != cudaSuccess) return int(e);
+  const hs::QkvBwdWork w = hs::qkv_bwd_work(T, C);
+  unsigned char* base = static_cast<unsigned char*>(work);
+  bf16* dqkv_s = reinterpret_cast<bf16*>(base + w.dqkv);
+  float* part = reinterpret_cast<float*>(base + w.part);
+  float* tmp = reinterpret_cast<float*>(base + w.tmp);
+  const int nw = T / hs::WS;
+  hs::qkv_attn_bwd_kernel<<<nw, hs::kThreads, smem, s>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv),
+      static_cast<const bf16*>(bqkv), static_cast<const int*>(groups),
+      static_cast<const float*>(bias), static_cast<const float*>(lscale),
+      static_cast<const bf16*>(dout), static_cast<bf16*>(dx), dqkv_s, part, C, use_cos,
+      has_mask, sm_scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return int(e);
+  e = hs::reduce_rows(part, static_cast<float*>(red), nw, int(hs::qkv_part_width(C)), tmp, s);
+  if (e != cudaSuccess) return int(e);
+  return int(hs::gemm_tn(static_cast<const bf16*>(x), dqkv_s, static_cast<float*>(dwqkv), T, C,
+                         3 * C, tmp, s));
 }
 
 size_t hs_window_attention_qkv_epi_bwd_workspace(int T, int C) {

@@ -135,12 +135,15 @@ class WindowAttention(nn.Module):
     res-post-norm, applied after the output projection.  Scaled-dot attention, or
     cosine attention with the logit scale exp(min(logit_scale, ln 100)).
 
-    Routes (``attention_impl`` picks kernel or plain version; see
-    ``heal_swin_torch.ops.window_attention``): cosine attention at C <= 384 runs the
-    whole block -- qkv, attention, proj, LN -- as K1 (backward K4), with the weights
-    cast to the compute dtype first, so their gradients round there as in the JAX
-    package; otherwise qkv is one matmul, the attention runs as K2 (backward K5), and
-    proj and LN stay plain torch.
+    Routes, as the JAX module's Pallas plan (``attention_impl`` picks kernel or plain
+    version; on the card "auto" runs the route's kernel and raises where
+    ``ops.window_attention.kernels_take`` says the kernel does not take the operands,
+    and "xla" runs the plain versions): at C <= 384 the weights
+    are cast to the compute dtype first, so their gradients round there as in the JAX
+    package, and cosine attention runs the whole block -- qkv, attention, proj, LN --
+    as K1 (backward K4), scaled-dot attention the qkv projection and the attention as
+    K16 (backward K17) with proj and LN plain torch after it; above C = 384 qkv is one
+    matmul, the attention runs as K2 (backward K5), and proj and LN stay plain torch.
     """
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
@@ -185,21 +188,24 @@ class WindowAttention(nn.Module):
         groups_t = groups.repeat(B, 1) if has_mask else None
         sm_scale = self.qk_scale if self.qk_scale is not None else (C // h) ** -0.5
         x_flat = x.reshape(B * nW * ws, C)
-        if self.use_cos_attn and C <= wa.KERNEL_MAX_C:
+        kw = dict(ws=ws, num_heads=h, sm_scale=sm_scale, has_mask=has_mask,
+                  impl=self.attention_impl)
+        if C <= wa.KERNEL_MAX_C:
             dt = x.dtype
+            wq = self.qkv.weight.to(dt).t()
             bq = None if self.qkv.bias is None else self.qkv.bias.to(dt)
-            out = wa.window_attention_qkv_epi(
-                x_flat, self.qkv.weight.to(dt).t(), bq, self.proj.weight.to(dt).t(),
-                self.proj.bias.to(dt), None if ln is None else ln.weight,
-                None if ln is None else ln.bias, groups_t, rel_bias, ls, ws=ws,
-                num_heads=h, sm_scale=sm_scale, has_mask=has_mask,
-                impl=self.attention_impl)
+            if self.use_cos_attn:
+                out = wa.window_attention_qkv_epi(
+                    x_flat, wq, bq, self.proj.weight.to(dt).t(), self.proj.bias.to(dt),
+                    None if ln is None else ln.weight, None if ln is None else ln.bias,
+                    groups_t, rel_bias, ls, **kw)
+                return out.reshape(B, nW, ws, C)
+            out = wa.window_attention_qkv(x_flat, wq, bq, groups_t, rel_bias, None,
+                                          use_cos=False, **kw)
         else:
-            qkv = linear(x_flat, self.qkv)
-            out = wa.window_attention(qkv, groups_t, rel_bias, ls, ws=ws, num_heads=h,
-                                      use_cos=self.use_cos_attn, sm_scale=sm_scale,
-                                      has_mask=has_mask, impl=self.attention_impl)
-            out = linear(out, self.proj)
-            if ln is not None:
-                out = ln(out)
+            out = wa.window_attention(linear(x_flat, self.qkv), groups_t, rel_bias, ls,
+                                      use_cos=self.use_cos_attn, **kw)
+        out = linear(out, self.proj)
+        if ln is not None:
+            out = ln(out)
         return out.reshape(B, nW, ws, C)

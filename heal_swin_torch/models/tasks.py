@@ -7,7 +7,11 @@ With ``fused_final_head`` the decoder tail runs fused: training hands the tokens
 writing logits to be read back: weighted CE and the step's confusion matrix for
 segmentation (K6 forward, K7 backward), the masked depth loss and the bf16
 predictions for depth (K8 forward, K9 backward).  Segmentation predict hands the
-tokens to the argmax kernel (K3); depth predict runs the unfused tail.
+tokens to the argmax kernel (K3); depth predict runs the unfused tail.  The depth task
+takes its fused route where ``ops.final_head.depth_kernels_take`` says the kernels take
+the tail's shapes, as the JAX task does; on the card a fused tail the kernels do not
+take (a dtype other than bf16, a segmentation tail's shapes) raises, and
+``attention_impl="xla"`` runs the plain versions.
 """
 
 from __future__ import annotations

@@ -23,7 +23,8 @@ def use_kernel(t: torch.Tensor, impl: str) -> bool:
     """Kernel or plain version for tensor ``t``: "auto" runs the kernel for a CUDA
     tensor and the plain version for a CPU tensor; "xla" runs the plain version on
     any device (the JAX package's name for its non-kernel path); "pallas" demands
-    the kernel and raises on a CPU tensor."""
+    the kernel and raises on a CPU tensor.  A wrapper whose kernel runs refuses
+    operands the kernel was not written for (``refuse``)."""
     if impl == "xla":
         return False
     if impl not in ("auto", "pallas"):
@@ -33,6 +34,14 @@ def use_kernel(t: torch.Tensor, impl: str) -> bool:
     if impl == "pallas":
         raise ValueError(f"impl='pallas' needs CUDA tensors; this one is on {t.device}")
     return False
+
+
+def refuse(msg: str) -> None:
+    """Raise a wrapper's refusal of operands (a shape or dtype) its kernel was not
+    written for, naming the explicit plain route: on a CUDA tensor a wrapper runs its
+    kernel or raises, under "auto" as under "pallas"."""
+    raise ValueError(f"{msg}; impl='xla' (attention_impl='xla' on the model) runs the "
+                     "plain version")
 
 
 def stream(t: torch.Tensor) -> int:

@@ -27,7 +27,10 @@ dtype -> logits z @ Wh in f32.
   stay f32; dh is rounded before the expand products.
 
 Every wrapper dispatches on ``impl`` like the attention wrappers
-(``heal_swin_torch.ops._dispatch.use_kernel``); a loss's backward takes the same
+(``heal_swin_torch.ops._dispatch.use_kernel``): on a CUDA tensor it runs its kernel or
+raises, and a tail the kernel was not written for (bf16, the shapes of
+``kernels_take`` / ``depth_kernels_take``, the shared-memory limit) raises under "auto"
+as under "pallas", naming "xla" as the plain route; a loss's backward takes the same
 route as its forward.
 """
 
@@ -38,7 +41,7 @@ from collections import Counter
 import torch
 
 from heal_swin_torch import _build
-from heal_swin_torch.ops._dispatch import check, stream, use_kernel
+from heal_swin_torch.ops._dispatch import check, refuse, stream, use_kernel
 
 LN_EPS = 1e-5
 KERNEL_ROWS = 64  # token rows per block
@@ -274,22 +277,48 @@ def final_head_depth_loss_bwd_plain(x, we, gamma, beta, wh, t, scale, *, patch_s
     return _tail_bwd_plain(x, we, gamma, beta, wh, dlogits_of, patch_size=patch_size)
 
 
-def _tail_operands(what, x, we, gamma, beta, wh, patch_size):
-    """The kernels' checked operands: (T, C, F, we_s (p, C, C), gamma, beta, wh)."""
+def _tail_refusal(what, T, C, F, bwd):
+    """Why the tail kernels do not take T tokens of width C with F outputs (``bwd``: a
+    backward, K7/K9, too), or None where they do: C % 16, 1 <= F <= 32, T % 64, and
+    C <= 128 for a backward.  The dtype and the shared memory are checked at the call
+    (``_tail_operands``)."""
+    if C % 16 or not 1 <= F <= KERNEL_MAX_F:
+        return f"{what}: the kernel takes C % 16 == 0 and F <= {KERNEL_MAX_F}, got C={C}, F={F}"
+    if T % KERNEL_ROWS:
+        return f"{what}: T={T} is not a multiple of {KERNEL_ROWS}"
+    if bwd and C > KERNEL_MAX_C_LOSS_BWD:
+        return f"{what}: the kernel takes C <= {KERNEL_MAX_C_LOSS_BWD}, got C={C}"
+    return None
+
+
+def kernels_take(T, C, F, dtype, train=True) -> bool:
+    """Whether the segmentation tail's kernels take T tokens of width C, F classes and
+    ``dtype``: K6 and K7 both (``train``) or K3 (predict).  The wrappers' checks apart
+    from the shared memory, which they read from the kernels' library at the call;
+    where False, a CUDA tensor raises under "auto" and "pallas" and needs impl="xla",
+    the plain version."""
+    return dtype == torch.bfloat16 and _tail_refusal("", T, C, F, train) is None
+
+
+def _tail_operands(what, x, we, gamma, beta, wh, patch_size, kernel):
+    """The checked operands of the tail kernel ``kernel`` ("predict", "loss",
+    "loss_bwd", "depth_loss" or "depth_loss_bwd", as the library names its
+    shared-memory figures): (T, C, F, we_s (p, C, C), gamma, beta, wh)."""
     T, C = x.shape
     p = patch_size
     F = wh.shape[-1]
     dt = torch.bfloat16
     if x.dtype != dt:
-        raise ValueError(f"{what}: the kernel takes bfloat16 x")
+        refuse(f"{what}: the kernel takes bfloat16 x, got {x.dtype}")
+    msg = _tail_refusal(what, T, C, F, kernel.endswith("bwd"))
+    if msg is not None:
+        refuse(msg)
+    smem = getattr(_build.lib(), f"hs_final_head_{kernel}_smem")(C, F, p)
+    if smem > KERNEL_SMEM_LIMIT:
+        refuse(f"{what}: C={C}, p={p} needs {smem} bytes of shared memory")
     if (tuple(we.shape) != (C, p * C) or tuple(wh.shape) != (C, F)
             or tuple(gamma.shape) != (C,) or tuple(beta.shape) != (C,)):
         raise ValueError(f"{what}: operands must be we (C, p*C), wh (C, F), gamma/beta (C,)")
-    if C % 16 or not 1 <= F <= KERNEL_MAX_F:
-        raise ValueError(f"{what}: the kernel takes C % 16 == 0 and F <= {KERNEL_MAX_F}, "
-                         f"got C={C}, F={F}")
-    if T % KERNEL_ROWS:
-        raise ValueError(f"{what}: T={T} is not a multiple of {KERNEL_ROWS}")
     ops = (x, _split_we(we, dt, p).contiguous(), gamma.float().contiguous(),
            beta.float().contiguous(), wh.to(dt).contiguous())
     if not all(t.is_cuda and t.device == x.device for t in ops):
@@ -297,11 +326,6 @@ def _tail_operands(what, x, we, gamma, beta, wh, patch_size):
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError(f"{what}: x must be contiguous and 16-byte aligned")
     return (T, C, F) + ops[1:]
-
-
-def _check_smem(what, smem, C, p):
-    if smem > KERNEL_SMEM_LIMIT:
-        raise ValueError(f"{what}: C={C}, p={p} needs {smem} bytes of shared memory")
 
 
 def _targets(what, y, welem, T, p, device):
@@ -317,13 +341,13 @@ def final_head_predict(x, we, gamma, beta, wh, *, patch_size, impl="auto"):
     if not use_kernel(x, impl):
         return final_head_predict_plain(x, we, gamma, beta, wh, patch_size=patch_size)
     what = "final_head_predict"
-    T, C, F, we_s, g, b, whb = _tail_operands(what, x, we, gamma, beta, wh, patch_size)
+    T, C, F, we_s, g, b, whb = _tail_operands(what, x, we, gamma, beta, wh, patch_size,
+                                              "predict")
     p = patch_size
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, we, gamma, beta, wh)):
         raise ValueError(f"{what}: the kernel has no backward; call it under "
                          "torch.no_grad()")
     lib = _build.lib()
-    _check_smem(what, lib.hs_final_head_predict_smem(C, F, p), C, p)
     preds = torch.empty((T, p), dtype=torch.int32, device=x.device)
     code = lib.hs_final_head_predict(x.data_ptr(), we_s.data_ptr(), g.data_ptr(),
                                      b.data_ptr(), whb.data_ptr(), preds.data_ptr(), T, C, F,
@@ -339,11 +363,11 @@ def final_head_loss_sums(x, we, gamma, beta, wh, y, welem, *, patch_size, impl="
     if not use_kernel(x, impl):
         return final_head_loss_plain(x, we, gamma, beta, wh, y, welem, patch_size=patch_size)
     what = "final_head_loss"
-    T, C, F, we_s, g, b, whb = _tail_operands(what, x, we, gamma, beta, wh, patch_size)
+    T, C, F, we_s, g, b, whb = _tail_operands(what, x, we, gamma, beta, wh, patch_size,
+                                              "loss")
     p = patch_size
     y, welem = _targets(what, y, welem, T, p, x.device)
     lib = _build.lib()
-    _check_smem(what, lib.hs_final_head_loss_smem(C, F, p), C, p)
     red = torch.empty(2 + F * F, dtype=torch.float32, device=x.device)
     work = torch.empty(lib.hs_final_head_loss_workspace(T, F), dtype=torch.uint8,
                        device=x.device)
@@ -363,14 +387,12 @@ def final_head_loss_bwd(x, we, gamma, beta, wh, y, welem, scale, *, patch_size, 
         return final_head_loss_bwd_plain(x, we, gamma, beta, wh, y, welem, scale,
                                          patch_size=patch_size)
     what = "final_head_loss_bwd"
-    T, C, F, we_s, g, b, whb = _tail_operands(what, x, we, gamma, beta, wh, patch_size)
+    T, C, F, we_s, g, b, whb = _tail_operands(what, x, we, gamma, beta, wh, patch_size,
+                                              "loss_bwd")
     p = patch_size
     y, welem = _targets(what, y, welem, T, p, x.device)
     scale = scale.to(device=x.device, dtype=torch.float32).reshape(1).contiguous()
-    if C > KERNEL_MAX_C_LOSS_BWD:
-        raise ValueError(f"{what}: the kernel takes C <= {KERNEL_MAX_C_LOSS_BWD}, got C={C}")
     lib = _build.lib()
-    _check_smem(what, lib.hs_final_head_loss_bwd_smem(C, F, p), C, p)
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     dwe = torch.empty((C, p * C), **f32)
@@ -387,35 +409,31 @@ def final_head_loss_bwd(x, we, gamma, beta, wh, y, welem, scale, *, patch_size, 
     return dx, dwe, dg, db, dwh.reshape(C, F)
 
 
-def _depth_refusal(what, T, C, F, kind, bwd):
-    """Why K8 (``bwd`` False) or K9 (``bwd`` True) does not take these operands, or
-    None where it does (apart from the shared-memory bound, checked at launch)."""
+def _depth_refusal(what, F, kind):
+    """Why K8/K9 do not take loss ``kind`` with F output channels, or None where they
+    do (the shapes: ``_tail_refusal``)."""
     if kind not in DEPTH_KINDS:
         return f"{what}: unknown loss kind {kind!r}; the kernel takes {DEPTH_KINDS}"
     if F not in (1, 2):
         return f"{what}: the kernel takes F in (1, 2) output channels, got F={F}"
     if kind == "nll" and F != 2:
         return f"{what}: the nll loss needs F=2 (mean, logvar), got F={F}"
-    if T % KERNEL_ROWS:
-        return f"{what}: T={T} is not a multiple of {KERNEL_ROWS}"
-    if C % 16:
-        return f"{what}: the kernel takes C % 16 == 0, got C={C}"
-    if bwd and C > KERNEL_MAX_C_LOSS_BWD:
-        return f"{what}: the kernel takes C <= {KERNEL_MAX_C_LOSS_BWD}, got C={C}"
     return None
 
 
 def depth_kernels_take(T, C, F, kind) -> bool:
     """Whether K8 and K9 take a depth tail of T tokens of width C, F output channels
-    and loss ``kind`` (apart from the shared-memory bound, checked at launch)."""
-    return _depth_refusal("", T, C, F, kind, bwd=True) is None
+    and loss ``kind``: the depth task's gate of its fused route, on the shapes as the
+    JAX task's.  The dtype and the shared memory are checked at the call, where a tail
+    the kernels do not take raises."""
+    return _depth_refusal("", F, kind) is None and _tail_refusal("", T, C, F, True) is None
 
 
-def _depth_operands(what, x, we, gamma, beta, wh, t, patch_size, kind, bwd):
-    msg = _depth_refusal(what, x.shape[0], x.shape[-1], wh.shape[-1], kind, bwd)
+def _depth_operands(what, x, we, gamma, beta, wh, t, patch_size, kind, kernel):
+    msg = _depth_refusal(what, wh.shape[-1], kind)
     if msg is not None:
-        raise ValueError(msg)
-    ops = _tail_operands(what, x, we, gamma, beta, wh, patch_size)
+        refuse(msg)
+    ops = _tail_operands(what, x, we, gamma, beta, wh, patch_size, kernel)
     if tuple(t.shape) != (ops[0], patch_size):
         raise ValueError(f"{what}: t must be (T, p) = {(ops[0], patch_size)}")
     return ops + (t.to(device=x.device, dtype=torch.float32).contiguous(),)
@@ -430,10 +448,9 @@ def final_head_depth_loss_sums(x, we, gamma, beta, wh, t, *, patch_size, loss_ki
         return final_head_depth_loss_plain(x, we, gamma, beta, wh, t, **kw)
     what = "final_head_depth_loss"
     T, C, F, we_s, g, b, whb, t = _depth_operands(what, x, we, gamma, beta, wh, t,
-                                                  patch_size, loss_kind, bwd=False)
+                                                  patch_size, loss_kind, "depth_loss")
     p = patch_size
     lib = _build.lib()
-    _check_smem(what, lib.hs_final_head_depth_loss_smem(C, F, p), C, p)
     red = torch.empty(2, dtype=torch.float32, device=x.device)
     preds = torch.empty((T, p * F), dtype=x.dtype, device=x.device)
     work = torch.empty(lib.hs_final_head_depth_loss_workspace(T), dtype=torch.uint8,
@@ -456,11 +473,10 @@ def final_head_depth_loss_bwd(x, we, gamma, beta, wh, t, scale, *, patch_size, l
         return final_head_depth_loss_bwd_plain(x, we, gamma, beta, wh, t, scale, **kw)
     what = "final_head_depth_loss_bwd"
     T, C, F, we_s, g, b, whb, t = _depth_operands(what, x, we, gamma, beta, wh, t,
-                                                  patch_size, loss_kind, bwd=True)
+                                                  patch_size, loss_kind, "depth_loss_bwd")
     p = patch_size
     scale = scale.to(device=x.device, dtype=torch.float32).reshape(1).contiguous()
     lib = _build.lib()
-    _check_smem(what, lib.hs_final_head_depth_loss_bwd_smem(C, F, p), C, p)
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     dwe = torch.empty((C, p * C), **f32)

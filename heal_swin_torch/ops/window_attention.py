@@ -1,6 +1,6 @@
 """Window multi-head self-attention: plain PyTorch versions and the CUDA kernels.
 
-Counterpart of ``heal_swin_tpu/ops/window_attention.py``.  Two entry points, each an
+Counterpart of ``heal_swin_tpu/ops/window_attention.py``.  Three entry points, each an
 autograd-capable function on the JAX kernels' operand layout, whose forward and
 backward are each a kernel wrapper beside its plain version:
 
@@ -9,6 +9,9 @@ backward are each a kernel wrapper beside its plain version:
 - ``window_attention_qkv_epi`` (K1 forward, K4 backward): x @ Wqkv + b -> cosine
   attention -> @ Wp + bp -> optional LayerNorm, (T, C) -> (T, C) (Pallas
   ``fused_window_attention_qkv_epi``).
+- ``window_attention_qkv`` (K16 forward, K17 backward): x @ Wqkv + b -> attention,
+  cosine or scaled-dot, (T, C) -> the (T, C) result before the output projection
+  (Pallas ``fused_window_attention_qkv``).
 
 Operands: ``groups`` (T/ws, ws) int32 mask group ids (attention between tokens of
 different groups gets an additive -100); ``bias`` (h, ws, ws) f32 relative-position
@@ -19,19 +22,24 @@ Rounding follows the Pallas kernels, so that kernel and plain version agree clos
 in bf16.  Forward: qkv -> dtype; q_hat = q * scale / |q| and k_hat = k / |k| ->
 dtype; softmax in f32, p -> dtype; o -> dtype; the projection and LayerNorm in f32,
 output -> dtype.  Backward (``_cos_wide_preamble`` / ``_cos_wide_head_bwd`` /
-``_bwd_kernel_xw_epi``): qkv recomputed and rounded; (q/|q|)*scale and k/|k| rounded;
-p rounded before dv; ds rounded before the q/k products; the LayerNorm backward's du
-rounded before dWp and do; do rounded; dqkv rounded before dx and dW.  The softmax
-shift is the row max (the Pallas kernels use a static bound; softmax is
+``_bwd_kernel_xw_epi``, ``_bwd_kernel_xw``): qkv recomputed and rounded; (q/|q|)*scale
+and k/|k| rounded; p rounded before dv; ds rounded before the q/k products (scaled-dot
+multiplies sm_scale in after them); the LayerNorm backward's du rounded before dWp and
+do; do rounded; dqkv rounded before dx, dW and db.  The softmax shift is the row max
+(the Pallas kernels use a static bound for cosine attention; softmax is
 shift-invariant, and forward and backward here use the same one).
 
 Dispatch (``impl``): "auto" runs the kernel for a CUDA tensor and the plain version
 for a CPU tensor; "xla" runs the plain version on any device (the JAX package's name
-for its non-kernel path); "pallas" demands the kernel and raises on a CPU tensor.  A
-CUDA tensor the kernel does not take raises; nothing falls back.  The backward takes
-the same route as the forward.  The autograd functions take the weights already cast
-to the compute dtype and return their gradients in that dtype, as the JAX custom VJPs
-do; the LayerNorm parameters, bias and logit scale get f32 gradients.
+for its non-kernel path); "pallas" demands the kernel and raises on a CPU tensor.  On a
+CUDA tensor a wrapper runs its kernel or raises: operands the kernel was not written
+for (``kernels_take``: bf16, ws 64, head dim 32, T % 64, C <= 384 for the fused-qkv
+kernels) raise under "auto" as under "pallas", naming "xla" as the plain route, and a
+kernel that fails to build or launch raises; nothing falls back.  The backward takes
+the same route as the forward (a family's kernels take the same operands).  The
+autograd functions take the weights already cast to the compute
+dtype and return their gradients in that dtype, as the JAX custom VJPs do; the
+LayerNorm parameters, bias and logit scale get f32 gradients.
 """
 
 from __future__ import annotations
@@ -43,17 +51,21 @@ from typing import Optional
 import torch
 
 from heal_swin_torch import _build
-from heal_swin_torch.ops._dispatch import check, input_grads, stream, use_kernel
+from heal_swin_torch.ops._dispatch import check, input_grads, refuse, stream, use_kernel
 
 MASK_VALUE = -100.0
 KERNEL_WS = 64  # the kernels' window size
 KERNEL_HD = 32  # the kernels' head dim
-KERNEL_MAX_C = 384  # K1's and K4's shared-memory bound (x, o tiles of 64 x C bf16)
+KERNEL_MAX_C = 384  # K1/K4/K16/K17's shared-memory bound (x tile of 64 x C bf16)
+# the widest C each family's kernels take (None: any multiple of the head dim)
+FAMILY_MAX_C = {"window_attention": None, "window_attention_qkv_epi": KERNEL_MAX_C,
+                "window_attention_qkv": KERNEL_MAX_C}
 
 # launch counters, bumped only where a kernel launches: per kernel, and per
 # (kernel, T, C, has_mask)
-launches = {"window_attention": 0, "window_attention_qkv_epi": 0,
-            "window_attention_bwd": 0, "window_attention_qkv_epi_bwd": 0}
+launches = {"window_attention": 0, "window_attention_qkv_epi": 0, "window_attention_qkv": 0,
+            "window_attention_bwd": 0, "window_attention_qkv_epi_bwd": 0,
+            "window_attention_qkv_bwd": 0}
 launches_by_shape: Counter = Counter()
 
 
@@ -142,6 +154,16 @@ def window_attention_qkv_epi_plain(x, wqkv, bqkv, wp, bp, ln_scale, ln_bias, gro
     return u.to(dt)
 
 
+def window_attention_qkv_plain(x, wqkv, bqkv, groups, bias, logit_scale, *, ws, num_heads,
+                               use_cos, sm_scale, has_mask=True):
+    """Plain version of K16: qkv = x @ wqkv + bqkv (the bias added to the f32 product,
+    then rounded, as ``_fwd_kernel_xw``), then K2's attention.  x: (T, C); wqkv:
+    (C, 3C) -> (T, C) in x's dtype, before the output projection."""
+    return window_attention_plain(_qkv_rows(x, wqkv, bqkv).to(x.dtype), groups, bias,
+                                  logit_scale, ws=ws, num_heads=num_heads, use_cos=use_cos,
+                                  sm_scale=sm_scale, has_mask=has_mask)
+
+
 # --------------------------------------------------------------------------- backward
 
 
@@ -205,6 +227,22 @@ def window_attention_bwd_plain(qkv, groups, bias, logit_scale, dout, *, ws, num_
     return dqkv, dbias, dls
 
 
+def window_attention_qkv_bwd_plain(x, wqkv, bqkv, groups, bias, logit_scale, dout, *, ws,
+                                   num_heads, use_cos, sm_scale, has_mask=True):
+    """Plain version of K17, the backward of K16 (``_bwd_kernel_xw``): qkv recomputed
+    and rounded, K5's attention backward, then over the rounded dqkv dx = dqkv Wqkv^T,
+    dW = x^T dqkv and db = sum dqkv.  Returns (dx (T, C) in x's dtype, dwqkv (C, 3C),
+    dbqkv (3C,), dbias (h, ws, ws), dlogit_scale (h,) or None for scaled-dot), the
+    last four f32 as the kernel accumulates them."""
+    dt = x.dtype
+    dqkv, dbias, dls = window_attention_bwd_plain(
+        _qkv_rows(x, wqkv, bqkv).to(dt), groups, bias, logit_scale, dout, ws=ws,
+        num_heads=num_heads, use_cos=use_cos, sm_scale=sm_scale, has_mask=has_mask)
+    dqkv = dqkv.float()
+    dx = (dqkv @ wqkv.to(dt).float().t()).to(dt)
+    return dx, x.float().t() @ dqkv, dqkv.sum(0), dbias, dls
+
+
 def window_attention_qkv_epi_bwd_plain(x, wqkv, bqkv, wp, bp, ln_scale, ln_bias, groups,
                                        bias, logit_scale, dz, *, ws, num_heads, sm_scale,
                                        has_mask=True, ln_eps=1e-5):
@@ -261,7 +299,40 @@ def window_attention_qkv_epi_bwd_plain(x, wqkv, bqkv, wp, bp, ln_scale, ln_bias,
 # --------------------------------------------------------------------------- kernels
 
 
-def _check_cuda_operands(what, tensors, T, ws):
+def _refusal(family, what, T, C, num_heads, ws, dtype):
+    """Why the kernels of ``family`` (a key of FAMILY_MAX_C) do not take tokens of
+    this shape and dtype, or None where they do: the wrappers' refusal and
+    ``kernels_take``."""
+    max_c = FAMILY_MAX_C[family]
+    if dtype != torch.bfloat16:
+        return f"{what}: the kernel takes bfloat16 operands, got {dtype}"
+    if ws != KERNEL_WS:
+        return f"{what}: the kernel takes ws={KERNEL_WS}, got {ws}"
+    if T % ws:
+        return f"{what}: T={T} is not a multiple of ws={ws}"
+    if C != num_heads * KERNEL_HD or (max_c is not None and C > max_c):
+        bound = "" if max_c is None else f" and C <= {max_c}"
+        return (f"{what}: the kernel takes head dim {KERNEL_HD}{bound}, got C={C}, "
+                f"heads={num_heads}")
+    return None
+
+
+def kernels_take(family, T, C, num_heads, ws, dtype) -> bool:
+    """Whether the forward and backward kernels of ``family`` -- "window_attention"
+    (K2/K5), "window_attention_qkv_epi" (K1/K4) or "window_attention_qkv" (K16/K17) --
+    take T tokens of width C in ``num_heads`` heads, windows of ``ws`` and ``dtype``.
+    Exactly the wrappers' shape and dtype checks: where False, a CUDA tensor raises
+    under "auto" and "pallas" and needs impl="xla", the plain version."""
+    return _refusal(family, "", T, C, num_heads, ws, dtype) is None
+
+
+def _refuse(family, what, T, C, num_heads, ws, dtype):
+    msg = _refusal(family, what, T, C, num_heads, ws, dtype)
+    if msg is not None:
+        refuse(msg)
+
+
+def _check_cuda_operands(what, tensors):
     if not all(t.is_cuda for t in tensors):
         raise ValueError(f"{what}: every operand must be a CUDA tensor")
     dev = tensors[0].device
@@ -269,10 +340,6 @@ def _check_cuda_operands(what, tensors, T, ws):
         raise ValueError(f"{what}: operands on different devices")
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in tensors):
         raise ValueError(f"{what}: operands must be contiguous and 16-byte aligned")
-    if ws != KERNEL_WS:
-        raise ValueError(f"{what}: the kernel takes ws={KERNEL_WS}, got {ws}")
-    if T % ws:
-        raise ValueError(f"{what}: T={T} is not a multiple of ws={ws}")
 
 
 def _bias_operand(bias, h, ws, ref):
@@ -302,16 +369,17 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _attn_shape(qkv):
+    """(T, C) of qkv rows (T, 3C); C is -1 where the width is not a multiple of 3."""
+    T, C3 = qkv.shape
+    return T, C3 // 3 if C3 % 3 == 0 else -1
+
+
 def _attn_operands(what, qkv, groups, bias, logit_scale, num_heads, use_cos, has_mask, ws):
     """K2/K5's checked operands: (T, C, bias, groups, logit_scale or None)."""
-    T, C3 = qkv.shape
-    C = C3 // 3
+    T, C = _attn_shape(qkv)
     h = num_heads
-    if qkv.dtype != torch.bfloat16:
-        raise ValueError(f"{what}: the kernel takes bfloat16 qkv")
-    if C3 != 3 * C or C != h * KERNEL_HD:
-        raise ValueError(f"{what}: the kernel takes head dim {KERNEL_HD}, got C={C}, "
-                         f"heads={h}")
+    _refuse("window_attention", what, T, C, h, ws, qkv.dtype)
     bias_t = _bias_operand(bias, h, ws, qkv)
     groups_t = _groups_operand(groups, has_mask, T, ws)
     ls = None
@@ -331,8 +399,7 @@ def window_attention_fwd(qkv, groups, bias, logit_scale, *, ws, num_heads, use_c
     what = "window_attention"
     T, C, bias_t, groups_t, ls = _attn_operands(what, qkv, groups, bias, logit_scale,
                                                 num_heads, use_cos, has_mask, ws)
-    _check_cuda_operands(what, [t for t in (qkv, groups_t, bias_t, ls) if t is not None],
-                         T, ws)
+    _check_cuda_operands(what, [t for t in (qkv, groups_t, bias_t, ls) if t is not None])
     out = torch.empty((T, C), dtype=qkv.dtype, device=qkv.device)
     code = _build.lib().hs_window_attention(
         qkv.data_ptr(), _ptr(groups_t), bias_t.data_ptr(), _ptr(ls), out.data_ptr(), T, C,
@@ -357,8 +424,7 @@ def window_attention_bwd(qkv, groups, bias, logit_scale, dout, *, ws, num_heads,
     if dout.dtype != torch.bfloat16 or tuple(dout.shape) != (T, C):
         raise ValueError(f"{what}: dout must be (T, C) = {(T, C)} bfloat16")
     dout = dout.contiguous()
-    _check_cuda_operands(what, [t for t in (qkv, groups_t, bias_t, ls, dout) if t is not None],
-                         T, ws)
+    _check_cuda_operands(what, [t for t in (qkv, groups_t, bias_t, ls, dout) if t is not None])
     lib = _build.lib()
     dqkv = torch.empty_like(qkv)
     red = torch.empty(h * (KERNEL_WS * KERNEL_WS + 1), dtype=torch.float32, device=qkv.device)
@@ -379,26 +445,40 @@ def _epi_operands(what, x, wqkv, bqkv, wp, bp, ln_scale, ln_bias, groups, bias,
                   logit_scale, num_heads, has_mask, ws):
     """K1/K4's checked operands in the kernels' dtypes."""
     T, C = x.shape
-    h = num_heads
+    if tuple(wp.shape) != (C, C):
+        raise ValueError(f"{what}: wp must be (C, C) = {(C, C)}")
     dt = torch.bfloat16
-    if x.dtype != dt:
-        raise ValueError(f"{what}: the kernel takes bfloat16 x")
-    if C != h * KERNEL_HD or C > KERNEL_MAX_C:
-        raise ValueError(f"{what}: the kernel takes head dim {KERNEL_HD} and "
-                         f"C <= {KERNEL_MAX_C}, got C={C}, heads={h}")
-    if tuple(wqkv.shape) != (C, 3 * C) or tuple(wp.shape) != (C, C):
-        raise ValueError(f"{what}: weights must be wqkv (C, 3C) and wp (C, C)")
-    _check_logit_scale(what, logit_scale, h)
-    ops = dict(
-        wq=wqkv.to(dt).contiguous(), wp=wp.to(dt).contiguous(),
-        bq=(torch.zeros(3 * C, dtype=dt, device=x.device) if bqkv is None
-            else bqkv.to(dt).contiguous()),
+    ops = _qkv_operands("window_attention_qkv_epi", what, x, wqkv, bqkv, groups, bias,
+                        logit_scale, num_heads, True, has_mask, ws)
+    ops.update(
+        wp=wp.to(dt).contiguous(),
         bp=torch.zeros(C, dtype=dt, device=x.device) if bp is None else bp.to(dt).contiguous(),
         g=None if ln_scale is None else ln_scale.float().contiguous(),
-        b=None if ln_scale is None else ln_bias.float().contiguous(),
-        groups=_groups_operand(groups, has_mask, T, ws),
-        bias=_bias_operand(bias, h, ws, x), ls=logit_scale.contiguous())
+        b=None if ln_scale is None else ln_bias.float().contiguous())
     return T, C, ops
+
+
+def _qkv_operands(family, what, x, wqkv, bqkv, groups, bias, logit_scale, num_heads, use_cos,
+                  has_mask, ws):
+    """The checked operands the kernels with the qkv projection inside (K1/K4,
+    K16/K17) share, in the kernels' dtypes: x, wq, bq, groups, bias, ls (None for
+    scaled-dot)."""
+    T, C = x.shape
+    h = num_heads
+    _refuse(family, what, T, C, h, ws, x.dtype)
+    if tuple(wqkv.shape) != (C, 3 * C):
+        raise ValueError(f"{what}: wqkv must be (C, 3C) = {(C, 3 * C)}")
+    ls = None
+    if use_cos:
+        _check_logit_scale(what, logit_scale, h)
+        ls = logit_scale.contiguous()
+    dt = torch.bfloat16
+    return dict(
+        x=x.contiguous(), wq=wqkv.to(dt).contiguous(),
+        bq=(torch.zeros(3 * C, dtype=dt, device=x.device) if bqkv is None
+            else bqkv.to(dt).contiguous()),
+        groups=_groups_operand(groups, has_mask, T, ws),
+        bias=_bias_operand(bias, h, ws, x), ls=ls)
 
 
 def window_attention_qkv_epi_fwd(x, wqkv, bqkv, wp, bp, ln_scale, ln_bias, groups, bias,
@@ -412,7 +492,8 @@ def window_attention_qkv_epi_fwd(x, wqkv, bqkv, wp, bp, ln_scale, ln_bias, group
     what = "window_attention_qkv_epi"
     T, C, o = _epi_operands(what, x, wqkv, bqkv, wp, bp, ln_scale, ln_bias, groups, bias,
                             logit_scale, num_heads, has_mask, ws)
-    _check_cuda_operands(what, [x] + [t for t in o.values() if t is not None], T, ws)
+    x = o.pop("x")
+    _check_cuda_operands(what, [x] + [t for t in o.values() if t is not None])
     out = torch.empty((T, C), dtype=x.dtype, device=x.device)
     code = _build.lib().hs_window_attention_qkv_epi(
         x.data_ptr(), o["wq"].data_ptr(), o["bq"].data_ptr(), o["wp"].data_ptr(),
@@ -436,10 +517,11 @@ def window_attention_qkv_epi_bwd(x, wqkv, bqkv, wp, bp, ln_scale, ln_bias, group
     what = "window_attention_qkv_epi_bwd"
     T, C, o = _epi_operands(what, x, wqkv, bqkv, wp, bp, ln_scale, ln_bias, groups, bias,
                             logit_scale, num_heads, has_mask, ws)
+    x = o.pop("x")
     if dz.dtype != x.dtype or tuple(dz.shape) != (T, C):
         raise ValueError(f"{what}: dz must be (T, C) = {(T, C)} bfloat16")
     dz = dz.contiguous()
-    _check_cuda_operands(what, [x, dz] + [t for t in o.values() if t is not None], T, ws)
+    _check_cuda_operands(what, [x, dz] + [t for t in o.values() if t is not None])
     h = num_heads
     lib = _build.lib()
     f32 = dict(dtype=torch.float32, device=x.device)
@@ -464,6 +546,66 @@ def window_attention_qkv_epi_bwd(x, wqkv, bqkv, wp, bp, ln_scale, ln_bias, group
     dbq, dbp, dg, dbe = red[nb + h:].split([3 * C, C, C, C])
     return (dx, dwq, dbq, dwp, dbp, dg if has_ln else None, dbe if has_ln else None,
             dbias, dls)
+
+
+def window_attention_qkv_fwd(x, wqkv, bqkv, groups, bias, logit_scale, *, ws, num_heads,
+                             use_cos, sm_scale, has_mask=True, impl="auto"):
+    """K16 wrapper (no autograd): attn(x @ wqkv + bqkv), (T, C) -> (T, C), before the
+    output projection."""
+    kw = dict(ws=ws, num_heads=num_heads, use_cos=use_cos, sm_scale=sm_scale,
+              has_mask=has_mask)
+    if not use_kernel(x, impl):
+        return window_attention_qkv_plain(x, wqkv, bqkv, groups, bias, logit_scale, **kw)
+    what = "window_attention_qkv"
+    T, C = x.shape
+    o = _qkv_operands(what, what, x, wqkv, bqkv, groups, bias, logit_scale, num_heads,
+                      use_cos, has_mask, ws)
+    _check_cuda_operands(what, [t for t in o.values() if t is not None])
+    out = torch.empty((T, C), dtype=x.dtype, device=x.device)
+    code = _build.lib().hs_window_attention_qkv(
+        o["x"].data_ptr(), o["wq"].data_ptr(), o["bq"].data_ptr(), _ptr(o["groups"]),
+        o["bias"].data_ptr(), _ptr(o["ls"]), out.data_ptr(), T, C, int(use_cos),
+        int(has_mask), float(sm_scale), stream(x))
+    check(code, what)
+    _count(what, T, C, has_mask)
+    return out
+
+
+def window_attention_qkv_bwd(x, wqkv, bqkv, groups, bias, logit_scale, dout, *, ws,
+                             num_heads, use_cos, sm_scale, has_mask=True, impl="auto"):
+    """K17 wrapper: the backward of K16; operands and results as
+    ``window_attention_qkv_bwd_plain``."""
+    kw = dict(ws=ws, num_heads=num_heads, use_cos=use_cos, sm_scale=sm_scale,
+              has_mask=has_mask)
+    if not use_kernel(x, impl):
+        return window_attention_qkv_bwd_plain(x, wqkv, bqkv, groups, bias, logit_scale, dout,
+                                              **kw)
+    what = "window_attention_qkv_bwd"
+    T, C = x.shape
+    o = _qkv_operands("window_attention_qkv", what, x, wqkv, bqkv, groups, bias, logit_scale,
+                      num_heads, use_cos, has_mask, ws)
+    if dout.dtype != x.dtype or tuple(dout.shape) != (T, C):
+        raise ValueError(f"{what}: dout must be (T, C) = {(T, C)} bfloat16")
+    dout = dout.contiguous()
+    _check_cuda_operands(what, [dout] + [t for t in o.values() if t is not None])
+    h = num_heads
+    lib = _build.lib()
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    dwq = torch.empty((C, 3 * C), **f32)
+    nb = h * KERNEL_WS * KERNEL_WS
+    red = torch.empty(nb + h + 3 * C, **f32)
+    work = torch.empty(lib.hs_window_attention_qkv_bwd_workspace(T, C), dtype=torch.uint8,
+                       device=x.device)
+    code = lib.hs_window_attention_qkv_bwd(
+        o["x"].data_ptr(), o["wq"].data_ptr(), o["bq"].data_ptr(), _ptr(o["groups"]),
+        o["bias"].data_ptr(), _ptr(o["ls"]), dout.data_ptr(), dx.data_ptr(), dwq.data_ptr(),
+        red.data_ptr(), work.data_ptr(), T, C, int(use_cos), int(has_mask), float(sm_scale),
+        stream(x))
+    check(code, what)
+    _count(what, T, C, has_mask)
+    return (dx, dwq, red[nb + h:], red[:nb].reshape(h, KERNEL_WS, KERNEL_WS),
+            red[nb:nb + h] if use_cos else None)
 
 
 # --------------------------------------------------------------------------- autograd
@@ -509,6 +651,24 @@ class _WindowAttentionQkvEpi(torch.autograd.Function):
             (dx, dwq, dbq, dwp, dbp, dg, dbe, None, dbias, dls, None), saved + (None,))))
 
 
+class _WindowAttentionQkv(torch.autograd.Function):
+    """K16 forward, K17 backward (or their plain versions, by ``impl`` and device)."""
+
+    @staticmethod
+    def forward(ctx, x, wqkv, bqkv, groups, bias, logit_scale, kw):
+        ctx.kw = kw
+        ctx.save_for_backward(x, wqkv, bqkv, groups, bias, logit_scale)
+        return window_attention_qkv_fwd(x, wqkv, bqkv, groups, bias, logit_scale, **kw)
+
+    @staticmethod
+    def backward(ctx, dout):
+        saved = ctx.saved_tensors
+        dx, dwq, dbq, dbias, dls = window_attention_qkv_bwd(*saved, dout.to(saved[0].dtype),
+                                                            **ctx.kw)
+        return input_grads(ctx, list(zip((dx, dwq, dbq, None, dbias, dls, None),
+                                          saved + (None,))))
+
+
 def window_attention(qkv, groups, bias, logit_scale, *, ws, num_heads, use_cos, sm_scale,
                      has_mask=True, impl="auto"):
     """Attention from qkv rows (T, 3C) -> (T, C): K2 forward, K5 backward."""
@@ -527,6 +687,17 @@ def window_attention_qkv_epi(x, wqkv, bqkv, wp, bp, ln_scale, ln_bias, groups, b
               ln_eps=ln_eps, impl=impl)
     return _WindowAttentionQkvEpi.apply(x, wqkv, bqkv, wp, bp, ln_scale, ln_bias, groups,
                                         bias, logit_scale, kw)
+
+
+def window_attention_qkv(x, wqkv, bqkv, groups, bias, logit_scale, *, ws, num_heads, use_cos,
+                         sm_scale, has_mask=True, impl="auto"):
+    """attn(x @ wqkv + bqkv), (T, C) -> (T, C) before the output projection, cosine or
+    scaled-dot: K16 forward, K17 backward (counterpart of ``fused_window_attention_qkv``).
+    Pass the weights already cast to x's dtype to get their gradients in that dtype, as
+    the model does; bias and logit scale get f32 gradients."""
+    kw = dict(ws=ws, num_heads=num_heads, use_cos=use_cos, sm_scale=sm_scale,
+              has_mask=has_mask, impl=impl)
+    return _WindowAttentionQkv.apply(x, wqkv, bqkv, groups, bias, logit_scale, kw)
 
 
 def clamped_logit_scale(logit_scale: torch.Tensor) -> torch.Tensor:

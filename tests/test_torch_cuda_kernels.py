@@ -252,35 +252,180 @@ def test_final_head_loss_function_backward_through_kernels(dev):
 
 
 def test_kernels_refuse_what_they_do_not_take(dev):
+    """On CUDA tensors the wrappers raise on operands their kernels do not take, under
+    "auto" as under "pallas", naming impl="xla" as the plain route."""
     x = torch.zeros(64 * 2, 64, dtype=torch.bfloat16, device=dev)  # head dim 32, ws 64 ok
     w = torch.zeros(64, 192, device=dev)
-    with pytest.raises(ValueError, match="ws=64"):
-        wa.window_attention_qkv_epi(x, w, None, torch.zeros(64, 64, device=dev), None, None,
-                                    None, None, None, torch.ones(2, device=dev), ws=16,
-                                    num_heads=2, sm_scale=1.0, has_mask=False)
-    with pytest.raises(ValueError, match="bfloat16"):
-        wa.window_attention(torch.zeros(128, 192, device=dev), None, None,
-                            torch.ones(2, device=dev), ws=64, num_heads=2, use_cos=True,
-                            sm_scale=1.0, has_mask=False)
-    with pytest.raises(ValueError, match="C <= 384"):
-        C = 448
-        xb = torch.zeros(128, C, dtype=torch.bfloat16, device=dev)
-        wa.window_attention_qkv_epi_bwd(xb, torch.zeros(C, 3 * C, device=dev), None,
-                                        torch.zeros(C, C, device=dev), None, None, None, None,
-                                        None, torch.ones(C // 32, device=dev), xb, ws=64,
-                                        num_heads=C // 32, sm_scale=1.0, has_mask=False)
-    with pytest.raises(ValueError, match="dout"):
-        wa.window_attention_bwd(torch.zeros(128, 192, dtype=torch.bfloat16, device=dev), None,
-                                None, torch.ones(2, device=dev),
-                                torch.zeros(128, 64, device=dev), ws=64, num_heads=2,
-                                use_cos=True, sm_scale=1.0, has_mask=False)
+    C = 448
+    xb = torch.zeros(128, C, dtype=torch.bfloat16, device=dev)
     gen = torch.Generator().manual_seed(7)
     wide = _loss_args(gen, dev, 128, 160, 10)
-    with pytest.raises(ValueError, match="C <= 128"):
-        fh.final_head_loss_bwd(*wide, torch.ones((), device=dev), patch_size=4)
     many = _loss_args(gen, dev, 128, 32, 40)
-    with pytest.raises(ValueError, match="F <= 32"):
-        fh.final_head_loss_sums(*many, patch_size=4)
+    few = _loss_args(gen, dev, 128, 32, 5)
+    for impl in ("auto", "pallas"):
+        P = dict(impl=impl)
+        with pytest.raises(ValueError, match="ws=64.*impl='xla'"):
+            wa.window_attention_qkv_epi(x, w, None, torch.zeros(64, 64, device=dev), None,
+                                        None, None, None, None, torch.ones(2, device=dev),
+                                        ws=16, num_heads=2, sm_scale=1.0, has_mask=False, **P)
+        with pytest.raises(ValueError, match="bfloat16"):
+            wa.window_attention(torch.zeros(128, 192, device=dev), None, None,
+                                torch.ones(2, device=dev), ws=64, num_heads=2, use_cos=True,
+                                sm_scale=1.0, has_mask=False, **P)
+        with pytest.raises(ValueError, match="C <= 384"):
+            wa.window_attention_qkv_epi_bwd(xb, torch.zeros(C, 3 * C, device=dev), None,
+                                            torch.zeros(C, C, device=dev), None, None, None,
+                                            None, None, torch.ones(C // 32, device=dev), xb,
+                                            ws=64, num_heads=C // 32, sm_scale=1.0,
+                                            has_mask=False, **P)
+        with pytest.raises(ValueError, match="C <= 384"):
+            wa.window_attention_qkv_fwd(xb, torch.zeros(C, 3 * C, device=dev), None, None,
+                                        None, None, ws=64, num_heads=C // 32, use_cos=False,
+                                        sm_scale=1.0, has_mask=False, **P)
+        with pytest.raises(ValueError, match="head dim 32"):
+            wa.window_attention_qkv_bwd(x, w, None, None, None, None, x, ws=64, num_heads=4,
+                                        use_cos=False, sm_scale=1.0, has_mask=False, **P)
+        with pytest.raises(ValueError, match="dout"):
+            wa.window_attention_bwd(torch.zeros(128, 192, dtype=torch.bfloat16, device=dev),
+                                    None, None, torch.ones(2, device=dev),
+                                    torch.zeros(128, 64, device=dev), ws=64, num_heads=2,
+                                    use_cos=True, sm_scale=1.0, has_mask=False, **P)
+        with pytest.raises(ValueError, match="C <= 128"):
+            fh.final_head_loss_bwd(*wide, torch.ones((), device=dev), patch_size=4, **P)
+        with pytest.raises(ValueError, match="F <= 32"):
+            fh.final_head_loss_sums(*many, patch_size=4, **P)
+        with pytest.raises(ValueError, match="bfloat16.*impl='xla'"):
+            fh.final_head_predict(many[0].float(), *few[1:5], patch_size=4, **P)
+
+
+def test_auto_refuses_what_the_kernels_do_not_take(dev):
+    """Under "auto" a CUDA tensor that the kernels were not written for (float32, the
+    window 16) raises with no launch, naming impl="xla", which runs the plain version:
+    no launch, and bit for bit the plain version's result."""
+    gen = torch.Generator().manual_seed(12)
+    C, T, h = 64, 64 * 4, 2
+    x = _randn(gen, dev, T, C)
+    wq, bq = _randn(gen, dev, C, 3 * C, std=0.1), _randn(gen, dev, 3 * C, std=0.1)
+    groups = torch.randint(0, 3, (T // 16, 16), generator=gen, dtype=torch.int32).to(dev)
+    bias16 = _randn(gen, dev, h, 16, 16)
+    ls = torch.exp(_randn(gen, dev, h, std=0.5) + 2.3)
+    tail = _loss_args(gen, dev, T, C, 10)
+    cases = [
+        (wa.window_attention_qkv_fwd, wa.window_attention_qkv_plain,
+         (x, wq, bq, None, None, None),
+         dict(ws=64, num_heads=h, use_cos=False, sm_scale=0.2, has_mask=False)),
+        (wa.window_attention_qkv_fwd, wa.window_attention_qkv_plain,
+         (x.bfloat16(), wq, bq, groups, bias16, ls),
+         dict(ws=16, num_heads=h, use_cos=True, sm_scale=0.2)),
+        (wa.window_attention_qkv_bwd, wa.window_attention_qkv_bwd_plain,
+         (x, wq, bq, None, None, None, x),
+         dict(ws=64, num_heads=h, use_cos=False, sm_scale=0.2, has_mask=False)),
+        (wa.window_attention_fwd, wa.window_attention_plain, (x @ wq, None, None, ls),
+         dict(ws=64, num_heads=h, use_cos=True, sm_scale=0.2, has_mask=False)),
+        (wa.window_attention_qkv_epi_fwd, wa.window_attention_qkv_epi_plain,
+         (x.bfloat16(), wq, bq, wq[:, :C], bq[:C], None, None, groups, bias16, ls),
+         dict(ws=16, num_heads=h, sm_scale=0.2)),
+        (fh.final_head_predict, fh.final_head_predict_plain, (tail[0].float(),) + tail[1:5],
+         dict(patch_size=4)),
+        (fh.final_head_loss_sums, fh.final_head_loss_plain, (tail[0].float(),) + tail[1:],
+         dict(patch_size=4)),
+    ]
+    for fn, plain, args, kw in cases:
+        before = (dict(wa.launches), dict(fh.launches))
+        with pytest.raises(ValueError, match="impl='xla'"):
+            fn(*args, **kw)
+        got = fn(*args, **kw, impl="xla")
+        torch.cuda.synchronize()
+        assert (dict(wa.launches), dict(fh.launches)) == before, fn.__name__
+        want = plain(*args, **kw)
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        assert all((g is None and w_ is None) or torch.equal(g, w_) for g, w_ in zip(got, want))
+
+
+def test_tail_kernels_refuse_what_their_shared_memory_does_not_hold(dev):
+    """The tail wrappers read the shared memory a block asks for from the library:
+    K7 and K9 at C 128 with four sub-pixels, and K3 at C 160, need more than a block
+    may have and raise; K3 at C 128 launches."""
+    gen = torch.Generator().manual_seed(13)
+    one = torch.ones((), device=dev)
+    loss128 = _loss_args(gen, dev, 128, 128, 10)
+    with pytest.raises(ValueError, match="shared memory.*impl='xla'"):
+        fh.final_head_loss_bwd(*loss128, one, patch_size=4)
+    with pytest.raises(ValueError, match="shared memory"):
+        fh.final_head_depth_loss_bwd(*_depth_args(gen, dev, 128, 128, 1), one, patch_size=4,
+                                     loss_kind="l2")
+    with pytest.raises(ValueError, match="shared memory"):
+        fh.final_head_predict(*_loss_args(gen, dev, 128, 160, 10)[:5], patch_size=4)
+    before = fh.launches["final_head_predict"]
+    fh.final_head_predict(*loss128[:5], patch_size=4)
+    torch.cuda.synchronize()
+    assert fh.launches["final_head_predict"] == before + 1
+
+
+def _qkv_args(gen, dev, C, T, masked, use_cos, qkv_bias):
+    h = C // 32
+    return (_randn(gen, dev, T, C).to(torch.bfloat16),
+            _randn(gen, dev, C, 3 * C, std=C ** -0.5).to(torch.bfloat16),
+            _randn(gen, dev, 3 * C, std=0.1).to(torch.bfloat16) if qkv_bias else None,
+            torch.randint(0, 3, (T // 64, 64), generator=gen, dtype=torch.int32).to(dev)
+            if masked else None,
+            _randn(gen, dev, h, 64, 64, std=0.5),
+            torch.exp(_randn(gen, dev, h, std=0.5) + 2.3) if use_cos else None)
+
+
+@pytest.mark.parametrize("C", [32, 96, 192, 384])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("use_cos", [False, True])
+@pytest.mark.parametrize("qkv_bias", [True, False])
+def test_qkv_kernels(dev, C, masked, use_cos, qkv_bias):
+    """K16 and K17 against their plain versions: the output, dx and every parameter
+    gradient; a second K17 launch gives the same bits (no float atomics)."""
+    gen = torch.Generator().manual_seed(20 + C)
+    T = 64 * 16
+    args = _qkv_args(gen, dev, C, T, masked, use_cos, qkv_bias)
+    dout = _randn(gen, dev, T, C).to(torch.bfloat16)
+    kw = dict(ws=64, num_heads=C // 32, use_cos=use_cos, sm_scale=32 ** -0.5,
+              has_mask=masked)
+    before = dict(wa.launches)
+    key = ("window_attention_qkv", T, C, masked)
+    n_shape = wa.launches_by_shape[key]
+    got = wa.window_attention_qkv_fwd(*args, **kw)
+    grads = wa.window_attention_qkv_bwd(*args, dout, **kw)
+    torch.cuda.synchronize()
+    assert wa.launches["window_attention_qkv"] == before["window_attention_qkv"] + 1
+    assert wa.launches["window_attention_qkv_bwd"] == before["window_attention_qkv_bwd"] + 1
+    assert wa.launches_by_shape[key] == n_shape + 1
+    assert _rel_l2(got, wa.window_attention_qkv_plain(*args, **kw)) < 1e-2
+    want = wa.window_attention_qkv_bwd_plain(*args, dout, **kw)
+    _assert_grads_close(grads[:2] + grads[3:], want[:2] + want[3:])
+    if qkv_bias:
+        _assert_grads_close(grads[2:3], want[2:3])
+    again = wa.window_attention_qkv_bwd(*args, dout, **kw)
+    assert all(g is None or torch.equal(g, a) for g, a in zip(grads, again))
+
+
+def test_qkv_function_backward_through_kernels(dev):
+    """``window_attention_qkv``: forward K16, backward K17, each launched once; the
+    gradients in each operand's dtype, within 1e-2 of the plain path's."""
+    gen = torch.Generator().manual_seed(21)
+    C, T = 96, 64 * 8
+    x, wq, bq, groups, bias, _ = _qkv_args(gen, dev, C, T, True, False, True)
+    kw = dict(ws=64, num_heads=C // 32, use_cos=False, sm_scale=32 ** -0.5, has_mask=True)
+    grads = {}
+    for impl in ("auto", "xla"):
+        leaves = [t.clone().requires_grad_() for t in (x, wq, bq, bias)]
+        before = dict(wa.launches)
+        out = wa.window_attention_qkv(leaves[0], leaves[1], leaves[2], groups, leaves[3], None,
+                                      **kw, impl=impl)
+        out.float().square().sum().backward()
+        torch.cuda.synchronize()
+        n = int(impl == "auto")
+        for k in ("window_attention_qkv", "window_attention_qkv_bwd"):
+            assert wa.launches[k] == before[k] + n, (impl, k)
+        for t in leaves:
+            assert t.grad is not None and t.grad.dtype == t.dtype
+        grads[impl] = [t.grad for t in leaves]
+    _assert_grads_close(grads["auto"], grads["xla"])
 
 
 DEPTH_CASES = [("l2", 1, 1.0), ("l1", 1, 1.0), ("huber", 1, 0.5), ("nll", 2, 1.0),
@@ -378,30 +523,31 @@ def test_final_head_depth_loss_function_backward_through_kernels(dev):
 
 
 def test_depth_kernels_refuse_what_they_do_not_take(dev):
+    """Under "pallas" the depth wrappers raise on what K8/K9 do not take."""
     gen = torch.Generator().manual_seed(11)
     args = _depth_args(gen, dev, 128, 32, 1)
     one = torch.ones((), device=dev)
-    for kw, match in ((dict(loss_kind="ce"), "unknown loss kind"),
-                      (dict(loss_kind="nll"), "needs F=2")):
+    for kw, match in ((dict(loss_kind="ce", impl="pallas"), "unknown loss kind"),
+                      (dict(loss_kind="nll", impl="pallas"), "needs F=2")):
         with pytest.raises(ValueError, match=match):
             fh.final_head_depth_loss_sums(*args, patch_size=4, **kw)
         with pytest.raises(ValueError, match=match):
             fh.final_head_depth_loss_bwd(*args, one, patch_size=4, **kw)
     three = _depth_args(gen, dev, 128, 32, 3)
     with pytest.raises(ValueError, match="F in"):
-        fh.final_head_depth_loss_sums(*three, patch_size=4, loss_kind="l2")
+        fh.final_head_depth_loss_sums(*three, patch_size=4, loss_kind="l2", impl="pallas")
     ragged = _depth_args(gen, dev, 96, 32, 1)
     with pytest.raises(ValueError, match="multiple of 64"):
-        fh.final_head_depth_loss_sums(*ragged, patch_size=4, loss_kind="l2")
+        fh.final_head_depth_loss_sums(*ragged, patch_size=4, loss_kind="l2", impl="pallas")
     narrow = _depth_args(gen, dev, 128, 40, 1)
     with pytest.raises(ValueError, match="C % 16"):
-        fh.final_head_depth_loss_sums(*narrow, patch_size=4, loss_kind="l2")
+        fh.final_head_depth_loss_sums(*narrow, patch_size=4, loss_kind="l2", impl="pallas")
     wide = _depth_args(gen, dev, 128, 144, 1)
     with pytest.raises(ValueError, match="C <= 128"):
-        fh.final_head_depth_loss_bwd(*wide, one, patch_size=4, loss_kind="l2")
+        fh.final_head_depth_loss_bwd(*wide, one, patch_size=4, loss_kind="l2", impl="pallas")
     with pytest.raises(ValueError, match="bfloat16"):
         fh.final_head_depth_loss_sums(args[0].float(), *args[1:], patch_size=4,
-                                      loss_kind="l2")
+                                      loss_kind="l2", impl="pallas")
 
 
 def _cloud(gen, dev, n, scale=5.0):

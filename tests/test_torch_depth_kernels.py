@@ -187,6 +187,7 @@ def test_depth_kernels_take():
     """The shapes and kinds K8/K9 take, as the depth task's fused gate reads them."""
     assert fh.depth_kernels_take(262144, 96, 1, "l2")
     assert fh.depth_kernels_take(128, 16, 2, "nll")
+    assert fh.depth_kernels_take(128, 128, 1, "l2")
     assert not fh.depth_kernels_take(128, 16, 1, "nll")  # nll needs a logvar channel
     assert not fh.depth_kernels_take(128, 16, 3, "l2")
     assert not fh.depth_kernels_take(128, 16, 1, "ce")
