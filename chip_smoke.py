@@ -190,6 +190,56 @@ def preds_agree(name, preds, want, ref_logits, slack):
     return int((diff != 0).sum()), int(near.sum()), int(diff.masked_fill(near, 0).max())
 
 
+def repeat_equal(label, got, again):
+    """Two launches of a kernel on the same inputs give the same bits."""
+    if not torch.equal(got, again):
+        raise AssertionError(f"{label}: two launches differ")
+
+
+def seeded_draws(gen, dev):
+    """Draws from ``gen``, put on ``dev``: ``rnd(*shape, std)``, normal, and
+    ``logit_scales(h)``, cosine attention's per-head scales perturbed around their
+    init (10) and clamped at 100."""
+    def rnd(*shape, std=1.0):
+        return (torch.randn(*shape, generator=gen) * std).to(dev)
+
+    def logit_scales(h):
+        return torch.exp(torch.clamp_max(math.log(10.0) + 0.5 * torch.randn(h, generator=gen),
+                                         math.log(100.0))).to(dev)
+
+    return rnd, logit_scales
+
+
+def stage_inputs(rnd, logit_scales, stage, dev):
+    """K1's and K4's operands at one stage of the blocks at C <= 384 (encoder stages
+    0-2, decoder stages 1-3): T, C, heads and (x, Wqkv, bqkv, Wp, bp, LN scale, LN bias,
+    rel-pos bias, logit scales, mask groups)."""
+    bf16 = torch.bfloat16
+    C = 96 * 2 ** stage
+    h = C // 32
+    T = BATCH * 8 * NSIDE * NSIDE // 4 // 4 ** stage
+    x = rnd(T, C).to(bf16)
+    wq, bq = rnd(C, 3 * C, std=C ** -0.5).to(bf16), rnd(3 * C, std=0.02).to(bf16)
+    wp, bp = rnd(C, C, std=C ** -0.5).to(bf16), rnd(C, std=0.02).to(bf16)
+    g, b = 1.0 + rnd(C, std=0.1), rnd(C, std=0.1)
+    bias = rnd(h, WS, WS, std=0.5)
+    ls = logit_scales(h)
+    return T, C, h, (x, wq, bq, wp, bp, g, b, bias, ls, ring_groups(T // BATCH).to(dev))
+
+
+def bottleneck_inputs(rnd, logit_scales, dev):
+    """K2's and K5's operands at the C = 768 bottleneck blocks: T, C, heads and (qkv,
+    rel-pos bias, logit scales, mask groups, output gradient)."""
+    bf16 = torch.bfloat16
+    C, h = 768, 24
+    T = BATCH * 8 * NSIDE * NSIDE // 4 // 4 ** 3
+    qkv = rnd(T, 3 * C).to(bf16)
+    bias = rnd(h, WS, WS, std=0.5)
+    ls = logit_scales(h)
+    groups = ring_groups(T // BATCH).to(dev)
+    return T, C, h, (qkv, bias, ls, groups, rnd(T, C).to(bf16))
+
+
 def check_kernels(gen, dev):
     """Each kernel against its plain version at the main paths' shapes.  Returns the
     measures of each shape, keyed as the wrappers' ``launches_by_shape`` counters are:
@@ -200,36 +250,25 @@ def check_kernels(gen, dev):
 
     bf16 = torch.bfloat16
     timed = {}
-
-    def rnd(*shape, std=1.0):
-        return (torch.randn(*shape, generator=gen) * std).to(dev)
-
-    def logit_scales(h):
-        return torch.exp(torch.clamp_max(math.log(10.0) + 0.5 * torch.randn(h, generator=gen),
-                                         math.log(100.0))).to(dev)
+    rnd, logit_scales = seeded_draws(gen, dev)
 
     # K1: every block at C <= 384 (encoder stages 0-2, decoder stages 1-3)
     for stage in range(3):
-        C = 96 * 2 ** stage
-        h = C // 32
-        T = BATCH * 8 * NSIDE * NSIDE // 4 // 4 ** stage
-        x = rnd(T, C).to(bf16)
-        wq, bq = rnd(C, 3 * C, std=C ** -0.5).to(bf16), rnd(3 * C, std=0.02).to(bf16)
-        wp, bp = rnd(C, C, std=C ** -0.5).to(bf16), rnd(C, std=0.02).to(bf16)
-        g, b = 1.0 + rnd(C, std=0.1), rnd(C, std=0.1)
-        bias = rnd(h, WS, WS, std=0.5)
-        ls = logit_scales(h)
-        groups = ring_groups(T // BATCH).to(dev)
+        T, C, h, (x, wq, bq, wp, bp, g, b, bias, ls, groups) = stage_inputs(
+            rnd, logit_scales, stage, dev)
         for masked in (False, True):
             args = (x, wq, bq, wp, bp, g, b, groups if masked else None, bias, ls)
             kw = dict(ws=WS, num_heads=h, sm_scale=(C // h) ** -0.5, has_mask=masked)
             got = wa.window_attention_qkv_epi(*args, **kw, impl="pallas")
             want = wa.window_attention_qkv_epi_plain(*args, **kw)
             err, mae = check_close(f"K1 C={C} mask={masked}", got, want)
+            repeat_equal(f"K1 C={C} mask={masked}", got,
+                         wa.window_attention_qkv_epi(*args, **kw, impl="pallas"))
             ms = median_ms(lambda: wa.window_attention_qkv_epi(*args, **kw, impl="pallas"))
             pms = median_ms(lambda: wa.window_attention_qkv_epi_plain(*args, **kw))
             log(f"K1 window_attention_qkv_epi C={C} T={T} mask={masked}: rel_l2 {err:.3e} "
-                f"max_abs {mae:.3e} kernel {ms:.4f} ms plain {pms:.4f} ms")
+                f"max_abs {mae:.3e}, two launches bit-equal; kernel {ms:.4f} ms plain "
+                f"{pms:.4f} ms")
             timed[("window_attention_qkv_epi", T, C, masked)] = dict(
                 rel_l2=err, max_abs_err=mae, ms=ms, plain_ms=pms)
 
@@ -249,22 +288,18 @@ def check_kernels(gen, dev):
     # K2: the C = 768 bottleneck blocks (one unshifted, one shifted), in both flavours;
     # timed in the scaled-dot one (the flavour one PyTorch call also computes) with the
     # cosine one beside it
-    C, h = 768, 24
-    T = BATCH * 8 * NSIDE * NSIDE // 4 // 4 ** 3
-    qkv = rnd(T, 3 * C).to(bf16)
-    bias = rnd(h, WS, WS, std=0.5)
-    ls = logit_scales(h)
-    groups = ring_groups(T // BATCH).to(dev)
-    dout = rnd(T, C).to(bf16)
+    T, C, h, (qkv, bias, ls, groups, dout) = bottleneck_inputs(rnd, logit_scales, dev)
     for masked in (False, True):
         res = {}
         for use_cos in (True, False):
             flavour = "cosine" if use_cos else "scaled-dot"
             args = (qkv, groups if masked else None, bias, ls if use_cos else None)
             kw = dict(ws=WS, num_heads=h, use_cos=use_cos, sm_scale=DOT_SCALE, has_mask=masked)
-            e2 = check_close(f"K2 C={C} mask={masked} {flavour}",
-                             wa.window_attention(*args, **kw, impl="pallas"),
+            got = wa.window_attention(*args, **kw, impl="pallas")
+            e2 = check_close(f"K2 C={C} mask={masked} {flavour}", got,
                              wa.window_attention_plain(*args, **kw))
+            repeat_equal(f"K2 C={C} mask={masked} {flavour}", got,
+                         wa.window_attention(*args, **kw, impl="pallas"))
             # K5, its backward, for an output gradient dout
             e5 = check_grads(f"K5 C={C} mask={masked} {flavour}", K5_GRADS,
                              wa.window_attention_bwd(*args, dout, **kw, impl="pallas"),
@@ -283,7 +318,8 @@ def check_kernels(gen, dev):
                 f"forward, {sdpa_kernels(lib_b)} backward")
         dot, cos = res[False], res[True]
         for k, name in (("2", "window_attention"), ("5", "window_attention_bwd")):
-            log(f"K{k} {name} C={C} T={T} mask={masked}: scaled-dot rel_l2 "
+            log(f"K{k} {name} C={C} T={T} mask={masked}: " + ("two launches bit-equal in "
+                "both flavours; " if k == "2" else "") + "scaled-dot rel_l2 "
                 f"{dot['e' + k][0]:.3e} max_abs {dot['e' + k][1]:.3e} kernel "
                 f"{dot['ms' + k]:.4f} ms plain {dot['pms' + k]:.4f} ms library "
                 f"{(lms2, lms5)[k == '5']:.4f} ms; cosine rel_l2 {cos['e' + k][0]:.3e} kernel "
@@ -2086,6 +2122,30 @@ def kernel_results(timed, runs, chamfer):
     return kernels
 
 
+# the forward window-attention kernels' mangled names in the ptxas report
+PTXAS_NAMES = {"11attn_kernel": "K2 attn_kernel",
+               "14qkv_epi_kernelILi1E": "K1 qkv_epi_kernel<1> (C <= 192)",
+               "14qkv_epi_kernelILi2E": "K1 qkv_epi_kernel<2> (C > 192)",
+               "15qkv_attn_kernel": "K16 qkv_attn_kernel"}
+
+
+def log_ptxas(build_log: str):
+    """nvcc's -Xptxas -v report of the build, one line per kernel: its spills, stack,
+    registers and shared memory, under its name (K1, K2, K16 by name, the others
+    mangled)."""
+    name, props = None, []
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            name = next((v for k, v in PTXAS_NAMES.items() if k in name), name)
+            props = []
+        elif name and ("spill" in line or "registers" in line):
+            props.append(line.split(":", 1)[-1].strip())
+            if "registers" in line:
+                log(f"ptxas {name}: " + "; ".join(props))
+                name = None
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a GPU", file=sys.stderr)
@@ -2102,9 +2162,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.lib()
     log(f"build: {time.perf_counter() - t0:.1f} s (nvcc {_build.build_seconds} s)")
-    for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log("ptxas:", line.strip())
+    log_ptxas(_build.build_log)
 
     timed = check_kernels(torch.Generator().manual_seed(SEED), dev)
     predict_run = drive_slice(dev, timed)

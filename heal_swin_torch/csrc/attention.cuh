@@ -1,7 +1,8 @@
 // Window-attention building blocks shared by the forward kernels (window_attention.cu)
-// and the backward kernels (window_attention_bwd.cu): one 64-token window and one
-// 32-channel head at a time, tiles in shared memory, 16x16x16 bf16 WMMA products with
-// f32 accumulation, 8 warps per block.
+// and the backward kernels (window_attention_bwd.cu), one 64-token window and one
+// 32-channel head at a time: first the shared-memory blocks of K4, K5, K16 and K17
+// (tiles in shared memory, 16x16x16 bf16 WMMA products with f32 accumulation, 8 warps
+// per block), then the register-resident core of K1 and K2 (attend_head_mma).
 #pragma once
 
 #include "common.cuh"
@@ -134,6 +135,246 @@ __device__ inline void project_head_qkv(const bf16* xs, int ldx, const bf16* __r
     wmma::store_matrix_sync(qkvf + rt * 16 * LD_QKV + (cbase + j) * 16, acc[j], LD_QKV,
                             wmma::mem_row_major);
   __syncthreads();
+}
+
+// ---------------------------------------------------------------------------------
+// The register-resident per-head core of the forward kernels K1 and K2 (the backward
+// kernels and K16 keep the shared-memory blocks above).  One 64-token window and one
+// 32-channel head on 4 warps, each owning 16 query rows.  Products are
+// mma.sync.m16n8k16 bf16 -> f32 with operands read by ldmatrix from shared-memory tiles
+// whose padded rows (LD_HEAD, LD_W) make every ldmatrix phase conflict-free; scores,
+// probabilities and the head output never leave registers, and nothing inside the core
+// waits on a block barrier.  Fragment layouts (PTX ISA, m16n8k16): with g = lane / 4 and
+// c = lane % 4, an accumulator holds rows g and g + 8, columns 2c and 2c + 1 of its
+// 16 x 8 tile; an A fragment holds rows g, g + 8 and columns 2c, 2c + 1, 2c + 8, 2c + 9
+// of its 16 x 16 tile, so the accumulators of two neighbouring n-tiles, rounded to bf16,
+// are the A fragment of the next product.  mma.sync, ldmatrix and cp.async are enough
+// while these kernels are latency-bound; wgmma and TMA are the step after that.
+// ---------------------------------------------------------------------------------
+
+constexpr int kCoreWarps = 4;                 // warps of one core (a "group")
+constexpr int kCoreThreads = kCoreWarps * 32;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// four 8 x 8 bf16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// the same, each matrix transposed: the B fragments of a row-major (k x n) tile
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// d (16 x 8 f32) += a (16 x 16 bf16) b (16 x 8 bf16)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// barrier of the 128 threads of core group ``id`` (ids 1, 2; 0 is __syncthreads)
+__device__ __forceinline__ void group_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "n"(kCoreThreads) : "memory");
+}
+
+// (lo, hi) rounded to bf16 in one 32-bit word, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float2 unpack_bf2(uint32_t u) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
+
+// sum over the 4 lanes of a quad (the lanes holding one accumulator row); every lane
+// gets the same bits
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+// A fragments of rows row0..row0+15 of a 64 x HD bf16 tile (ld LD_HEAD): qa[ks] covers
+// channels 16 ks .. 16 ks + 15
+__device__ __forceinline__ void load_q_frags(uint32_t (&qa)[2][4], const bf16* q, int row0) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks)
+    ldsm_x4(qa[ks], q + (row0 + (lane & 15)) * LD_HEAD + ks * 16 + (lane >> 4) * 8);
+}
+
+// cosine flavour on query fragments: q_hat = bf16(q * (scale / |q|)), the clamped sum of
+// squares of each row over its quad
+__device__ __forceinline__ void cos_q_frags(uint32_t (&qa)[2][4], float scale) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {  // row g (registers 0, 2), row g + 8 (1, 3)
+    float2 v[4];
+    float ss = 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      v[i] = unpack_bf2(qa[i >> 1][(i & 1) * 2 + half]);
+      ss += v[i].x * v[i].x + v[i].y * v[i].y;
+    }
+    const float m = rsqrtf(fmaxf(quad_sum(ss), 1e-24f)) * scale;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) qa[i >> 1][(i & 1) * 2 + half] = pack_bf2(v[i].x * m, v[i].y * m);
+  }
+}
+
+// p = e / d in f32, the IEEE division, ahead of p's bf16 rounding.  The division's slow
+// path, taken where the dividend is subnormal or the quotient near underflow (the
+// masked keys: e ~ e^-100 +- the score spread), doubled the masked kernels' time, so
+// the dividend is scaled by 2^64 and the quotient back by 2^-64: both exact, so p is
+// the IEEE quotient wherever that is a normal f32.  Below 2^-126 (bf16 keeps at most 7
+// bits there) the scaled quotient is rounded twice and may sit one f32 subnormal step
+// from it.  d >= 1 (the row max's own term is exp(0) = 1), so where e <= 2^-134 the
+// quotient rounds to bf16 zero either way (2^-134 itself is a tie, which goes to the
+// even zero) and the division is skipped: this also keeps zero from its dividend.
+__device__ __forceinline__ float norm_p(float e, float d) {
+  const bool keep = e > 0x1p-134f;
+  const float q = ((keep ? e : 1.f) * 0x1p64f) / d;
+  return keep ? q * 0x1p-64f : 0.f;
+}
+
+// One head of window attention for this warp's 16 query rows: s = q k^T * mul + bias
+// (+ MASK_VALUE where group ids differ); p = softmax_row(s) in f32 (row-max shift, sum
+// floored at 1e-30), normalized and then rounded to bf16; o = p v, f32 in registers:
+// o[n][0..1] row g, o[n][2..3] row g + 8, channels 8n + 2c, 8n + 2c + 1.  qa: A
+// fragments of the (scaled) query rows row0..row0+15; k, v: 64 x HD bf16 tiles (ld
+// LD_HEAD) in shared memory; bias_h: the head's 64 x 64 f32 bias, row stride ldb
+// (shared or global memory); g: the window's group ids in shared memory, or nullptr
+// unmasked.  COS_K: k is raw and is normalized here, k_hat = bf16(k / |k|), each warp
+// for all 64 keys.
+template <bool COS_K>
+__device__ __forceinline__ void attend_head_mma(const uint32_t (&qa)[2][4], const bf16* k,
+                                                const bf16* v, const float* bias_h, int ldb,
+                                                const int* g, int row0, float mul,
+                                                float (&o)[4][4]) {
+  const int lane = threadIdx.x & 31;
+  const int gr = lane >> 2, c2 = (lane & 3) * 2;
+  const int r0 = row0 + gr, r1 = r0 + 8;
+
+  // the bias first, so its loads overlap the score products
+  float2 b0[8], b1[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    b0[j] = *reinterpret_cast<const float2*>(bias_h + r0 * ldb + 8 * j + c2);
+    b1[j] = *reinterpret_cast<const float2*>(bias_h + r1 * ldb + 8 * j + c2);
+  }
+
+  float s[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {  // keys 8j .. 8j + 7
+    uint32_t kb[4];  // channels 0-7, 8-15 (k-step 0), 16-23, 24-31 (k-step 1)
+    ldsm_x4(kb, k + (8 * j + (lane & 7)) * LD_HEAD + (lane >> 3) * 8);
+    if constexpr (COS_K) {
+      float2 kv[4];
+      float ss = 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        kv[i] = unpack_bf2(kb[i]);
+        ss += kv[i].x * kv[i].x + kv[i].y * kv[i].y;
+      }
+      const float ik = rsqrtf(fmaxf(quad_sum(ss), 1e-24f));
+#pragma unroll
+      for (int i = 0; i < 4; ++i) kb[i] = pack_bf2(kv[i].x * ik, kv[i].y * ik);
+    }
+    s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    mma_bf16(s[j], qa[0], kb[0], kb[1]);
+    mma_bf16(s[j], qa[1], kb[2], kb[3]);
+  }
+
+  // scores -> probabilities, in place; each row lives in one quad
+  int g0 = 0, g1 = 0;
+  if (g != nullptr) {
+    g0 = g[r0];
+    g1 = g[r1];
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    s[j][0] = s[j][0] * mul + b0[j].x;
+    s[j][1] = s[j][1] * mul + b0[j].y;
+    s[j][2] = s[j][2] * mul + b1[j].x;
+    s[j][3] = s[j][3] * mul + b1[j].y;
+    if (g != nullptr) {
+      const int2 gc = *reinterpret_cast<const int2*>(g + 8 * j + c2);
+      if (gc.x != g0) s[j][0] += MASK_VALUE;
+      if (gc.y != g0) s[j][1] += MASK_VALUE;
+      if (gc.x != g1) s[j][2] += MASK_VALUE;
+      if (gc.y != g1) s[j][3] += MASK_VALUE;
+    }
+  }
+  float m0 = fmaxf(s[0][0], s[0][1]), m1 = fmaxf(s[0][2], s[0][3]);
+#pragma unroll
+  for (int j = 1; j < 8; ++j) {
+    m0 = fmaxf(m0, fmaxf(s[j][0], s[j][1]));
+    m1 = fmaxf(m1, fmaxf(s[j][2], s[j][3]));
+  }
+  m0 = quad_max(m0);
+  m1 = quad_max(m1);
+  float d0 = 0.f, d1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    s[j][0] = expf(s[j][0] - m0);
+    s[j][1] = expf(s[j][1] - m0);
+    s[j][2] = expf(s[j][2] - m1);
+    s[j][3] = expf(s[j][3] - m1);
+    d0 += s[j][0] + s[j][1];
+    d1 += s[j][2] + s[j][3];
+  }
+  d0 = fmaxf(quad_sum(d0), 1e-30f);
+  d1 = fmaxf(quad_sum(d1), 1e-30f);
+
+  // o = bf16(p) v: keys 16kc .. 16kc + 15 are score n-tiles 2kc, 2kc + 1
+#pragma unroll
+  for (int n = 0; n < 4; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc) {
+    uint32_t pa[4];
+    pa[0] = pack_bf2(norm_p(s[2 * kc][0], d0), norm_p(s[2 * kc][1], d0));
+    pa[1] = pack_bf2(norm_p(s[2 * kc][2], d1), norm_p(s[2 * kc][3], d1));
+    pa[2] = pack_bf2(norm_p(s[2 * kc + 1][0], d0), norm_p(s[2 * kc + 1][1], d0));
+    pa[3] = pack_bf2(norm_p(s[2 * kc + 1][2], d1), norm_p(s[2 * kc + 1][3], d1));
+#pragma unroll
+    for (int np = 0; np < 2; ++np) {  // channel n-tiles 2np, 2np + 1
+      uint32_t vb[4];
+      ldsm_x4_t(vb, v + (16 * kc + (lane & 15)) * LD_HEAD + (2 * np + (lane >> 4)) * 8);
+      mma_bf16(o[2 * np], pa, vb[0], vb[1]);
+      mma_bf16(o[2 * np + 1], pa, vb[2], vb[3]);
+    }
+  }
 }
 
 }  // namespace hs

@@ -6,31 +6,33 @@
 //      x @ Wqkv + b -> cosine attention (rel-pos bias, -100 group mask, f32 softmax)
 //      -> @ Wp + bp -> optional LayerNorm, one block per 64-token window.
 //   K2 hs_window_attention          <- _fwd_kernel / _attn_fwd_body (fused_window_attention):
-//      attention from precomputed qkv rows, cosine or scaled-dot, one block per
-//      (window, head).
+//      attention from precomputed qkv rows, cosine or scaled-dot, one 4-warp block per
+//      head and run of kAttnPairs windows.
 //   K16 hs_window_attention_qkv     <- _fwd_kernel_xw (fused_window_attention_qkv):
 //      x @ Wqkv + b -> attention, cosine or scaled-dot, the (T, C) result before the
 //      output projection; K1 without the projection and LayerNorm epilogue, one block
 //      per window.  Per window 384*C^2 + 16384*C FLOPs on 4*C*64 bytes of activations:
 //      bounded by the tensor cores' issue rate like K1.
 //
-// What bounds it on this card: per window K1 does 512*C^2 + 16384*C FLOPs (qkv and
+// What bounds them on this card: per window K1 does 512*C^2 + 16384*C FLOPs (qkv and
 // proj products, QK^T and PV) on 256*C bytes of activations in and out, i.e. about
 // 2*C + 64 FLOP/byte (256..832 at C = 96..384) -- near or above the bf16 ridge
-// (~295), so a kernel is bounded by how well it feeds the tensor cores, not by HBM.
-// The weights (C x 3C and C x C bf16, up to 885 KB + 295 KB) do not fit in shared
-// memory.
+// (~295), so it is bounded by how well it feeds the tensor cores, not by HBM.  K2 does
+// 32 FLOP/byte and is bounded by memory and latency.  The weights (C x 3C and C x C
+// bf16, up to 885 KB + 295 KB) do not fit in shared memory.
 //
-// What the design does about it: the window's x tile and the attention output o stay
-// in shared memory for the whole block (64 x C bf16 each, 48 KB at C=384); the
-// weights are streamed as WMMA fragments straight from global memory, where every
-// block of a launch reads the same bytes, so they are served from L2.  All products
-// run on the tensor cores as 16x16x16 bf16 WMMA tiles with f32 accumulation; scores,
-// softmax and LayerNorm statistics stay in f32.  bf16 rounding happens at the same
-// points as in the Pallas kernel: qkv, q_hat = q*scale/|q| and k_hat = k/|k|, p before
-// PV, o before the projection, and the output.  Dynamic shared memory is above 48 KB
-// (164 KB at C=384), so the launch opts in with cudaFuncSetAttribute.  wgmma/TMA
-// pipelines are later work.
+// What the designs do about it.  K1 and K2 run on attend_head_mma (attention.cuh):
+// mma.sync products from ldmatrix fragments, scores, probabilities and the head output
+// in registers, no block barrier inside a head.  K1 streams its weights through a
+// cp.async ring per core into shared memory and keeps the x tile, the o tile and the
+// projection output u (registers) on chip; K2 overlaps the next pair's copy with the
+// current pair.  K16 keeps the earlier design: tiles in shared memory, 16x16x16 WMMA
+// products with the weights read as fragments from L2, 8 warps per window.  bf16
+// rounding happens at the same points as in the Pallas kernels: qkv, q_hat =
+// q*scale/|q| and k_hat = k/|k|, p before PV (normalized in f32 first), o before the
+// projection, and the output.  Dynamic shared memory is above 48 KB, so each launch
+// opts in with cudaFuncSetAttribute.  wgmma and TMA pipelines are later work, once a
+// kernel runs near a third of the peak.
 
 #include "attention.cuh"
 
@@ -63,69 +65,142 @@ __device__ inline HeadSmem carve_head(unsigned char* base) {
   return h;
 }
 
-// Cosine flavour: q_hat = q * scale / |q| and k_hat = k / |k| per row (rsqrt of the
-// clamped sum of squares), rounded to bf16 in place.  One warp per row, lane = channel.
-__device__ void cos_normalize(const HeadSmem& sh, float scale) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  for (int r = warp; r < WS; r += kWarps) {
-    const float qv = bf(sh.q[r * LD_HEAD + lane]);
-    const float kv = bf(sh.k[r * LD_HEAD + lane]);
-    const float iq = rsqrtf(fmaxf(warp_sum(qv * qv), 1e-24f));
-    const float ik = rsqrtf(fmaxf(warp_sum(kv * kv), 1e-24f));
-    sh.q[r * LD_HEAD + lane] = to_bf(qv * (iq * scale));
-    sh.k[r * LD_HEAD + lane] = to_bf(kv * ik);
+// ---------------------------------------------------------------------------------
+// K2: attention from qkv rows (T, 3C), cosine or scaled-dot.  Per (window, head) pair
+// 4 * 64 * 64 * 32 FLOPs on 16 KB in and out (32 FLOP/byte): bound by memory and
+// latency, not by the tensor cores; at the bottleneck (T = 4096, 24 heads) 1536 pairs.
+// A block is one core (4 warps) that walks kAttnPairs windows of one head: the head's
+// bias (16 KiB) is staged once per block, and the next pair's q, k, v slices and group
+// ids (12.25 KiB) are copied by cp.async while the current pair runs, so each pair costs
+// one block barrier.  The cosine flavour normalizes q in its A fragments and k in its B
+// fragments (attend_head_mma<true>): rsqrt of the clamped sum of squares, rounded.  The
+// head output goes out as bf16 through the warp's own q rows, 16 bytes a store.
+// ---------------------------------------------------------------------------------
+constexpr int kAttnPairs = 4;
+constexpr int LD_BIAS = WS + 8;  // f32 bias rows: a quad's float2 reads conflict-free
+
+struct PairTile {
+  bf16 q[WS * LD_HEAD];
+  bf16 k[WS * LD_HEAD];
+  bf16 v[WS * LD_HEAD];
+  int g[WS];
+};
+
+constexpr size_t kAttnSmem = 2 * sizeof(PairTile) + size_t(WS) * LD_BIAS * 4;
+
+// cp.async copies of one pair's q, k, v slices (64 rows x 3 parts x 4 16-byte chunks)
+// and, masked, its window's group ids; the caller commits
+__device__ __forceinline__ void stage_pair(PairTile& t, const bf16* __restrict__ qkv,
+                                           const int* __restrict__ groups, int win, int head,
+                                           int C, bool masked) {
+  const int tid = threadIdx.x;
+  const size_t tok0 = size_t(win) * WS;
+  for (int idx = tid; idx < WS * 12; idx += kCoreThreads) {
+    const int r = idx / 12, part = (idx % 12) >> 2, c = idx & 3;
+    bf16* dst = (part == 0 ? t.q : part == 1 ? t.k : t.v) + r * LD_HEAD + c * 8;
+    cp_async16(dst, qkv + (tok0 + r) * 3 * C + part * C + head * HD + c * 8);
   }
-  __syncthreads();
+  if (masked && tid < WS / 4) cp_async16(t.g + tid * 4, groups + tok0 + tid * 4);
 }
 
-// ---------------------------------------------------------------------------------
-// K2: attention from qkv rows (T, 3C); grid (T/64 windows, C/32 heads).  Per block
-// 4*64*64*32 FLOPs on 16 KB in and out (32 FLOP/byte): bound by memory and launch
-// latency; at the bottleneck (T = 4096, 24 heads) it is 1536 small blocks.
-// ---------------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
+// this warp's 16 x HD head output (f32 fragments, rows row0..row0+15) as bf16 to the
+// same rows of dst (row stride ldd), 16 bytes a store, through the same rows of the
+// warp's 64 x HD staging tile st (ld LD_HEAD)
+__device__ __forceinline__ void store_head_rows(const float (&o)[4][4], bf16* st,
+                                                bf16* __restrict__ dst, int ldd, int row0) {
+  const int lane = threadIdx.x & 31;
+  const int r0 = row0 + (lane >> 2), c2 = (lane & 3) * 2;
+  __syncwarp();
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    *reinterpret_cast<uint32_t*>(st + r0 * LD_HEAD + 8 * n + c2) = pack_bf2(o[n][0], o[n][1]);
+    *reinterpret_cast<uint32_t*>(st + (r0 + 8) * LD_HEAD + 8 * n + c2) =
+        pack_bf2(o[n][2], o[n][3]);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = lane; i < 16 * 4; i += 32) {
+    const int r = row0 + (i >> 2), c = (i & 3) * 8;
+    *reinterpret_cast<uint4*>(dst + size_t(r) * ldd + c) =
+        *reinterpret_cast<const uint4*>(st + r * LD_HEAD + c);
+  }
+}
+
+__global__ void __launch_bounds__(kCoreThreads)
 attn_kernel(const bf16* __restrict__ qkv, const int* __restrict__ groups,
             const float* __restrict__ bias, const float* __restrict__ lscale,
-            bf16* __restrict__ out, int C, int use_cos, int has_mask, float sm_scale) {
+            bf16* __restrict__ out, int T, int C, int use_cos, int has_mask, float sm_scale) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const HeadSmem sh = carve_head(smem);
-  const int win = blockIdx.x;
+  PairTile* tiles = reinterpret_cast<PairTile*>(smem);
+  float* bias_s = reinterpret_cast<float*>(smem + 2 * sizeof(PairTile));
   const int head = blockIdx.y;
+  const int w0 = blockIdx.x * kAttnPairs;
+  const int n = min(kAttnPairs, T / WS - w0);
   const int tid = threadIdx.x;
+  const int row0 = (tid >> 5) * 16;
+  const bool masked = has_mask != 0;
 
-  // q, k, v slices of this head: 64 rows x 3 parts x 4 16-byte chunks
-  for (int idx = tid; idx < WS * 12; idx += kThreads) {
-    const int r = idx / 12, part = (idx % 12) >> 2, q4 = idx & 3;
-    const uint4* src = reinterpret_cast<const uint4*>(
-        qkv + (size_t(win) * WS + r) * 3 * C + part * C + head * HD) + q4;
-    bf16* dst = (part == 0 ? sh.q : part == 1 ? sh.k : sh.v) + r * LD_HEAD;
-    reinterpret_cast<uint4*>(dst)[q4] = *src;
+  const float* bias_h = bias + size_t(head) * WS * WS;
+  for (int idx = tid; idx < WS * WS / 4; idx += kCoreThreads) {
+    const int r = idx >> 4, c = (idx & 15) * 4;
+    cp_async16(bias_s + r * LD_BIAS + c, bias_h + r * WS + c);
   }
-  if (has_mask && tid < WS) sh.g[tid] = groups[size_t(win) * WS + tid];
-  __syncthreads();
+  stage_pair(tiles[0], qkv, groups, w0, head, C, masked);
+  cp_async_commit();
+  const float scale = use_cos ? lscale[head] : 1.f;
+  const float mul = use_cos ? 1.f : sm_scale;
 
-  float mul = sm_scale;
-  if (use_cos) {
-    cos_normalize(sh, lscale[head]);
-    mul = 1.f;
-  }
-  attend_head(sh.q, sh.k, sh.v, sh.s, sh.p, sh.g, has_mask != 0,
-              bias + size_t(head) * WS * WS, mul);
-
-  for (int idx = tid; idx < WS * HD; idx += kThreads) {
-    const int r = idx / HD, d = idx % HD;
-    out[(size_t(win) * WS + r) * C + head * HD + d] = to_bf(sh.s[r * LD_T + d]);
+  for (int i = 0; i < n; ++i) {
+    cp_async_wait<0>();
+    __syncthreads();  // pair i has landed for every thread; pair i - 1's tile is free
+    if (i + 1 < n) {
+      stage_pair(tiles[(i + 1) & 1], qkv, groups, w0 + i + 1, head, C, masked);
+      cp_async_commit();
+    }
+    PairTile& t = tiles[i & 1];
+    const int* g = masked ? t.g : nullptr;
+    uint32_t qa[2][4];
+    load_q_frags(qa, t.q, row0);
+    float o[4][4];
+    if (use_cos) {
+      cos_q_frags(qa, scale);
+      attend_head_mma<true>(qa, t.k, t.v, bias_s, LD_BIAS, g, row0, mul, o);
+    } else {
+      attend_head_mma<false>(qa, t.k, t.v, bias_s, LD_BIAS, g, row0, mul, o);
+    }
+    store_head_rows(o, t.q, out + size_t(w0 + i) * WS * C + head * HD, C, row0);
   }
 }
 
 // ---------------------------------------------------------------------------------
-// K1: qkv projection + cosine attention + output projection (+ LayerNorm); one block
-// per window.  Shared memory: o tile | x tile + per-head scratch (aliased by the f32
-// projection output u after the head loop) | group ids.
+// K1: qkv projection + cosine attention + output projection (+ LayerNorm); one block of
+// two cores (8 warps) per 64-token window.  Per window 512 C^2 + 16384 C FLOPs on 256 C
+// bytes in and out (2 C + 64 FLOP/byte): at C >= 192 above the bf16 ridge, so what
+// bounds it is how well the tensor cores are fed.
+//
+// The window's x tile (64 x C bf16) stays in shared memory.  The cores take the heads in
+// turns (core 0 heads 0, 2, ..., core 1 heads 1, 3, ...; an odd head count leaves core
+// 0 one head alone).  For a head, each warp projects its 16 rows onto the head's q|k|v
+// columns (16 x C x 96, mma.sync from ldmatrix fragments), adds the bias, rounds,
+// cosine-normalizes with quad shuffles, keeps q_hat as A fragments and writes k_hat and
+// v once as bf16 tiles; attend_head_mma then leaves the head output in registers, which
+// go rounded into the o tile (64 x C bf16).  Weights are never read as fragments from
+// L2: each core streams its weight chunks (KC rows of a head's q|k|v strips of Wqkv, then
+// of its column blocks of Wp) through its own kStages-deep cp.async ring, so the next
+// head's first chunks land while the current head attends, and a chunk costs one core
+// barrier.  After a block barrier each warp computes u = o Wp for its 16 rows over the
+// core's column blocks (WPB of C / (16 WPB) n-tiles each), in registers, + bp, and the
+// LayerNorm's f32 row statistics (two passes) meet through a 64 x 2 buffer.  The bf16
+// output is staged in the x tile and written 16 bytes a store.  Shared memory: 158 KiB
+// at C = 384 (one block per SM), 110 KiB at C = 192 (two).
 // ---------------------------------------------------------------------------------
+constexpr int KC = 32;                // weight rows per ring stage
+constexpr int kStages = 3;            // ring depth of each core
+constexpr int kMaxNT = 12;            // n-tiles (8 columns) of one product: q|k|v of a head
+constexpr int LD_W = kMaxNT * 8 + 8;  // ring rows: ldmatrix.trans over 8 rows conflict-free
+
 struct EpiLayout {
-  size_t o, x, qkvf, head, u, total;
+  size_t o, x, ring, kv, g, stats, total;
 };
 
 __host__ __device__ inline EpiLayout epi_layout(int C) {
@@ -133,16 +208,83 @@ __host__ __device__ inline EpiLayout epi_layout(int C) {
   const size_t ldx = size_t(C) + 8;
   size_t off = 0;
   L.o = off; off += align128(WS * ldx * 2);
-  L.x = off; L.u = off;
-  off += align128(WS * ldx * 2);
-  L.qkvf = off; off += align128(size_t(WS) * LD_QKV * 4);
-  L.head = off; off += head_smem_bytes();
-  const size_t u_end = L.u + align128(size_t(WS) * (C + 4) * 4);
-  L.total = off > u_end ? off : u_end;
+  L.x = off; off += align128(WS * ldx * 2);  // then the output staging
+  L.ring = off; off += align128(size_t(2) * kStages * KC * LD_W * 2);
+  L.kv = off; off += align128(size_t(2) * 2 * WS * LD_HEAD * 2);  // each core's k_hat, v
+  L.g = off; off += align128(WS * 4);
+  L.stats = off; off += align128(2 * WS * 2 * 4);  // [pass][row][core]
+  L.total = off;
   return L;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// The weight chunks one core consumes, in order: for each of its heads h (core, core +
+// 2, ...) the head's q, k and v column strips of Wqkv (C x 96), then for each of its
+// column blocks b of Wp (core, core + 2, ...; nt_p n-tiles each), each cut into nk =
+// C / KC chunks of KC rows.  Chunk s lands in ring stage s % kStages.
+struct WeightStream {
+  const bf16* wqkv;
+  const bf16* wp;
+  bf16* ring;
+  int C, core, n_head_jobs, nt_p, nk, total;
+
+  __device__ __forceinline__ bf16* stage(int s) const {
+    return ring + (s % kStages) * (KC * LD_W);
+  }
+
+  // chunk s's cp.async copies by the core's 128 threads (none past the end); the
+  // caller commits
+  __device__ __forceinline__ void fetch(int s, int gtid) const {
+    if (s >= total) return;
+    const int job = s / nk, k0 = (s - job * nk) * KC;
+    bf16* dst = stage(s);
+    if (job < n_head_jobs) {
+      const int h = core + 2 * job;
+      for (int idx = gtid; idx < KC * kMaxNT; idx += kCoreThreads) {
+        const int r = idx / kMaxNT, t = idx - r * kMaxNT;
+        cp_async16(dst + r * LD_W + t * 8,
+                   wqkv + size_t(k0 + r) * 3 * C + (t >> 2) * C + h * HD + (t & 3) * 8);
+      }
+    } else {
+      const int col0 = (core + 2 * (job - n_head_jobs)) * nt_p * 8;
+      for (int idx = gtid; idx < KC * nt_p; idx += kCoreThreads) {
+        const int r = idx / nt_p, t = idx - r * nt_p;
+        cp_async16(dst + r * LD_W + t * 8, wp + size_t(k0 + r) * C + col0 + t * 8);
+      }
+    }
+  }
+};
+
+// acc (this warp's rows row0..row0+15 x nt n-tiles, f32) += a (rows of a 64 x C bf16
+// tile in shared memory, ld lda) x the core's next nk weight chunks; s counts the
+// chunks consumed.  One core barrier per chunk, kStages - 1 chunks in flight.
+__device__ __forceinline__ void gemm_rows(float (&acc)[kMaxNT][4], const bf16* a, int lda,
+                                          int nt, const WeightStream& st, int& s, int gtid,
+                                          int row0) {
+  const int lane = threadIdx.x & 31;
+  const bf16* arow = a + (row0 + (lane & 15)) * lda + (lane >> 4) * 8;
+  for (int kc = 0; kc < st.nk; ++kc, ++s) {
+    cp_async_wait<kStages - 2>();
+    group_sync(1 + st.core);  // chunk s has landed; chunk s - 1's stage is free
+    st.fetch(s + kStages - 1, gtid);
+    cp_async_commit();
+    const bf16* w = st.stage(s) + lane * LD_W;
+    uint32_t a0[4], a1[4];
+    ldsm_x4(a0, arow + kc * KC);
+    ldsm_x4(a1, arow + kc * KC + 16);
+#pragma unroll
+    for (int t = 0; t < kMaxNT; ++t) {
+      if (t < nt) {
+        uint32_t b[4];
+        ldsm_x4_t(b, w + t * 8);
+        mma_bf16(acc[t], a0, b[0], b[1]);
+        mma_bf16(acc[t], a1, b[2], b[3]);
+      }
+    }
+  }
+}
+
+template <int WPB>
+__global__ void __launch_bounds__(kThreads, WPB == 1 ? 2 : 1)
 qkv_epi_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
                const bf16* __restrict__ bqkv, const bf16* __restrict__ wp,
                const bf16* __restrict__ bp, const float* __restrict__ ln_g,
@@ -152,102 +294,211 @@ qkv_epi_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
   extern __shared__ __align__(128) unsigned char smem[];
   const EpiLayout L = epi_layout(C);
   const int LDX = C + 8;
-  const int LDU = C + 4;
   bf16* os = reinterpret_cast<bf16*>(smem + L.o);
   bf16* xs = reinterpret_cast<bf16*>(smem + L.x);
-  float* qkvf = reinterpret_cast<float*>(smem + L.qkvf);
-  float* u = reinterpret_cast<float*>(smem + L.u);
-  const HeadSmem sh = carve_head(smem + L.head);
+  int* gs = reinterpret_cast<int*>(smem + L.g);
+  float* stats = reinterpret_cast<float*>(smem + L.stats);
 
-  const int win = blockIdx.x;
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
   const int lane = tid & 31;
+  const int core = tid / kCoreThreads;
+  const int gtid = tid % kCoreThreads;
+  const int row0 = ((tid >> 5) & 3) * 16;
+  const int r0 = row0 + (lane >> 2), r1 = r0 + 8, c2 = (lane & 3) * 2;
   const int H = C / HD;
+  const bool masked = has_mask != 0;
+  const size_t tok0 = size_t(blockIdx.x) * WS;
+  bf16* kt = reinterpret_cast<bf16*>(smem + L.kv) + core * 2 * WS * LD_HEAD;
+  bf16* vt = kt + WS * LD_HEAD;
 
-  // x tile, 16-byte chunks
+  WeightStream st;
+  st.wqkv = wqkv;
+  st.wp = wp;
+  st.ring = reinterpret_cast<bf16*>(smem + L.ring) + core * kStages * KC * LD_W;
+  st.C = C;
+  st.core = core;
+  st.nk = C / KC;
+  st.n_head_jobs = (H - core + 1) / 2;
+  st.nt_p = C / (16 * WPB);
+  st.total = (st.n_head_jobs + WPB) * st.nk;
+
+  // the x tile and group ids (one cp.async group), then each ring's first chunks
   const int chunks = C / 8;
   for (int idx = tid; idx < WS * chunks; idx += kThreads) {
-    const int r = idx / chunks, q = idx % chunks;
-    reinterpret_cast<uint4*>(xs + r * LDX)[q] =
-        reinterpret_cast<const uint4*>(x + (size_t(win) * WS + r) * C)[q];
+    const int r = idx / chunks, c = (idx - r * chunks) * 8;
+    cp_async16(xs + r * LDX + c, x + (tok0 + r) * C + c);
   }
-  if (has_mask && tid < WS) sh.g[tid] = groups[size_t(win) * WS + tid];
+  if (masked && tid < WS / 4) cp_async16(gs + tid * 4, groups + tok0 + tid * 4);
+  cp_async_commit();
+  for (int s = 0; s < kStages - 1; ++s) {
+    st.fetch(s, gtid);
+    cp_async_commit();
+  }
+  cp_async_wait<kStages - 1>();
   __syncthreads();
 
-  for (int head = 0; head < H; ++head) {
-    project_head_qkv(xs, LDX, wqkv, C, head, qkvf);
+  int s = 0;
+  for (int h = core; h < H; h += 2) {
+    float acc[kMaxNT][4];
+#pragma unroll
+    for (int t = 0; t < kMaxNT; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+    gemm_rows(acc, xs, LDX, kMaxNT, st, s, gtid, row0);
 
-    // + b, round qkv to bf16, cosine-normalize q and k (one warp per row)
-    {
-      const float scale = lscale[head];
-      const float bq = bf(bqkv[head * HD + lane]);
-      const float bk = bf(bqkv[C + head * HD + lane]);
-      const float bv = bf(bqkv[2 * C + head * HD + lane]);
-      for (int r = warp; r < WS; r += kWarps) {
-        const float* row = qkvf + r * LD_QKV;
-        const float qv = bfr(row[lane] + bq);
-        const float kv = bfr(row[HD + lane] + bk);
-        const float vv = row[2 * HD + lane] + bv;
-        const float iq = rsqrtf(fmaxf(warp_sum(qv * qv), 1e-24f));
-        const float ik = rsqrtf(fmaxf(warp_sum(kv * kv), 1e-24f));
-        sh.q[r * LD_HEAD + lane] = to_bf(qv * (iq * scale));
-        sh.k[r * LD_HEAD + lane] = to_bf(kv * ik);
-        sh.v[r * LD_HEAD + lane] = to_bf(vv);
+    // + b, rounded (qkv); q_hat = bf16(q * scale / |q|) as A fragments, k_hat = bf16(k /
+    // |k|) and v as the core's tiles; n-tiles 0-3 are q, 4-7 k, 8-11 v
+    float sq0 = 0.f, sq1 = 0.f, sk0 = 0.f, sk1 = 0.f;
+#pragma unroll
+    for (int t = 0; t < kMaxNT; ++t) {
+      const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+          bqkv + (t >> 2) * C + h * HD + (t & 3) * 8 + c2));
+      acc[t][0] = bfr(acc[t][0] + b.x);
+      acc[t][1] = bfr(acc[t][1] + b.y);
+      acc[t][2] = bfr(acc[t][2] + b.x);
+      acc[t][3] = bfr(acc[t][3] + b.y);
+      const float e0 = acc[t][0] * acc[t][0] + acc[t][1] * acc[t][1];
+      const float e1 = acc[t][2] * acc[t][2] + acc[t][3] * acc[t][3];
+      if (t < 4) {
+        sq0 += e0;
+        sq1 += e1;
+      } else if (t < 8) {
+        sk0 += e0;
+        sk1 += e1;
       }
     }
-    __syncthreads();
-
-    attend_head(sh.q, sh.k, sh.v, sh.s, sh.p, sh.g, has_mask != 0,
-                bias + size_t(head) * WS * WS, 1.f);
-
-    for (int idx = tid; idx < WS * HD; idx += kThreads) {
-      const int r = idx / HD, d = idx % HD;
-      os[r * LDX + head * HD + d] = to_bf(sh.s[r * LD_T + d]);
+    const float scale = lscale[h];
+    const float mq0 = rsqrtf(fmaxf(quad_sum(sq0), 1e-24f)) * scale;
+    const float mq1 = rsqrtf(fmaxf(quad_sum(sq1), 1e-24f)) * scale;
+    const float ik0 = rsqrtf(fmaxf(quad_sum(sk0), 1e-24f));
+    const float ik1 = rsqrtf(fmaxf(quad_sum(sk1), 1e-24f));
+    uint32_t qa[2][4];
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      qa[ks][0] = pack_bf2(acc[2 * ks][0] * mq0, acc[2 * ks][1] * mq0);
+      qa[ks][1] = pack_bf2(acc[2 * ks][2] * mq1, acc[2 * ks][3] * mq1);
+      qa[ks][2] = pack_bf2(acc[2 * ks + 1][0] * mq0, acc[2 * ks + 1][1] * mq0);
+      qa[ks][3] = pack_bf2(acc[2 * ks + 1][2] * mq1, acc[2 * ks + 1][3] * mq1);
     }
-    __syncthreads();
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const int c = 8 * n + c2;
+      *reinterpret_cast<uint32_t*>(kt + r0 * LD_HEAD + c) =
+          pack_bf2(acc[4 + n][0] * ik0, acc[4 + n][1] * ik0);
+      *reinterpret_cast<uint32_t*>(kt + r1 * LD_HEAD + c) =
+          pack_bf2(acc[4 + n][2] * ik1, acc[4 + n][3] * ik1);
+      *reinterpret_cast<uint32_t*>(vt + r0 * LD_HEAD + c) = pack_bf2(acc[8 + n][0], acc[8 + n][1]);
+      *reinterpret_cast<uint32_t*>(vt + r1 * LD_HEAD + c) = pack_bf2(acc[8 + n][2], acc[8 + n][3]);
+    }
+    group_sync(1 + core);  // the core's k_hat and v tiles are whole
+
+    float o[4][4];
+    attend_head_mma<false>(qa, kt, vt, bias + size_t(h) * WS * WS, WS, masked ? gs : nullptr,
+                           row0, 1.f, o);
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const int c = h * HD + 8 * n + c2;
+      *reinterpret_cast<uint32_t*>(os + r0 * LDX + c) = pack_bf2(o[n][0], o[n][1]);
+      *reinterpret_cast<uint32_t*>(os + r1 * LDX + c) = pack_bf2(o[n][2], o[n][3]);
+    }
+  }
+  __syncthreads();  // the o tile is whole; the x tile is free
+
+  // u = o Wp + bp over the core's column blocks, in registers
+  float u[WPB][kMaxNT][4];
+#pragma unroll
+  for (int j = 0; j < WPB; ++j) {
+#pragma unroll
+    for (int t = 0; t < kMaxNT; ++t) u[j][t][0] = u[j][t][1] = u[j][t][2] = u[j][t][3] = 0.f;
+    gemm_rows(u[j], os, LDX, st.nt_p, st, s, gtid, row0);
+  }
+  float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < WPB; ++j) {
+    const int col0 = (core + 2 * j) * st.nt_p * 8 + c2;
+#pragma unroll
+    for (int t = 0; t < kMaxNT; ++t) {
+      if (t < st.nt_p) {
+        const float2 b = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(bp + col0 + 8 * t));
+        u[j][t][0] += b.x;
+        u[j][t][1] += b.y;
+        u[j][t][2] += b.x;
+        u[j][t][3] += b.y;
+        sum0 += u[j][t][0] + u[j][t][1];
+        sum1 += u[j][t][2] + u[j][t][3];
+      }
+    }
   }
 
-  // u = o @ Wp (f32) into the region the x tile and head scratch used
-  const int ntiles = 4 * (C / 16);
-  for (int t = warp; t < ntiles; t += kWarps) {
-    const int rt = t & 3, ct = t >> 2;
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
-    for (int kk = 0; kk < C; kk += 16) {
-      FragA a;
-      FragB b;
-      wmma::load_matrix_sync(a, os + rt * 16 * LDX + kk, LDX);
-      wmma::load_matrix_sync(b, wp + size_t(kk) * C + ct * 16, C);
-      wmma::mma_sync(acc, a, b, acc);
+  if (has_ln) {  // f32 row statistics in two passes, the cores' halves through smem
+    const bool writer = (lane & 3) == 0;
+    sum0 = quad_sum(sum0);
+    sum1 = quad_sum(sum1);
+    if (writer) {
+      stats[r0 * 2 + core] = sum0;
+      stats[r1 * 2 + core] = sum1;
     }
-    wmma::store_matrix_sync(u + rt * 16 * LDU + ct * 16, acc, LDU, wmma::mem_row_major);
+    __syncthreads();
+    const float mean0 = (stats[r0 * 2] + stats[r0 * 2 + 1]) / C;
+    const float mean1 = (stats[r1 * 2] + stats[r1 * 2 + 1]) / C;
+    float sq0 = 0.f, sq1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < WPB; ++j) {
+#pragma unroll
+      for (int t = 0; t < kMaxNT; ++t) {
+        if (t < st.nt_p) {
+          const float d0 = u[j][t][0] - mean0, d1 = u[j][t][1] - mean0;
+          const float d2 = u[j][t][2] - mean1, d3 = u[j][t][3] - mean1;
+          sq0 += d0 * d0 + d1 * d1;
+          sq1 += d2 * d2 + d3 * d3;
+        }
+      }
+    }
+    sq0 = quad_sum(sq0);
+    sq1 = quad_sum(sq1);
+    float* stats2 = stats + 2 * WS;
+    if (writer) {
+      stats2[r0 * 2 + core] = sq0;
+      stats2[r1 * 2 + core] = sq1;
+    }
+    __syncthreads();
+    const float rstd0 = rsqrtf((stats2[r0 * 2] + stats2[r0 * 2 + 1]) / C + ln_eps);
+    const float rstd1 = rsqrtf((stats2[r1 * 2] + stats2[r1 * 2 + 1]) / C + ln_eps);
+#pragma unroll
+    for (int j = 0; j < WPB; ++j) {
+      const int col0 = (core + 2 * j) * st.nt_p * 8 + c2;
+#pragma unroll
+      for (int t = 0; t < kMaxNT; ++t) {
+        if (t < st.nt_p) {
+          const float2 gm = *reinterpret_cast<const float2*>(ln_g + col0 + 8 * t);
+          const float2 bt = *reinterpret_cast<const float2*>(ln_b + col0 + 8 * t);
+          u[j][t][0] = (u[j][t][0] - mean0) * rstd0 * gm.x + bt.x;
+          u[j][t][1] = (u[j][t][1] - mean0) * rstd0 * gm.y + bt.y;
+          u[j][t][2] = (u[j][t][2] - mean1) * rstd1 * gm.x + bt.x;
+          u[j][t][3] = (u[j][t][3] - mean1) * rstd1 * gm.y + bt.y;
+        }
+      }
+    }
+  }
+
+  // bf16 out, staged in the x tile, 16 bytes a store
+#pragma unroll
+  for (int j = 0; j < WPB; ++j) {
+    const int col0 = (core + 2 * j) * st.nt_p * 8 + c2;
+#pragma unroll
+    for (int t = 0; t < kMaxNT; ++t) {
+      if (t < st.nt_p) {
+        *reinterpret_cast<uint32_t*>(xs + r0 * LDX + col0 + 8 * t) =
+            pack_bf2(u[j][t][0], u[j][t][1]);
+        *reinterpret_cast<uint32_t*>(xs + r1 * LDX + col0 + 8 * t) =
+            pack_bf2(u[j][t][2], u[j][t][3]);
+      }
+    }
   }
   __syncthreads();
-
-  // + bp, LayerNorm with f32 statistics, bf16 out; one warp per row
-  for (int r = warp; r < WS; r += kWarps) {
-    float* urow = u + r * LDU;
-    bf16* orow = out + (size_t(win) * WS + r) * C;
-    float sum = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float v = urow[c] + bf(bp[c]);
-      urow[c] = v;
-      sum += v;
-    }
-    if (!has_ln) {
-      for (int c = lane; c < C; c += 32) orow[c] = to_bf(urow[c]);
-      continue;
-    }
-    const float mean = warp_sum(sum) / C;
-    float sq = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float d = urow[c] - mean;
-      sq += d * d;
-    }
-    const float rstd = rsqrtf(warp_sum(sq) / C + ln_eps);
-    for (int c = lane; c < C; c += 32)
-      orow[c] = to_bf((urow[c] - mean) * rstd * ln_g[c] + ln_b[c]);
+  for (int idx = tid; idx < WS * chunks; idx += kThreads) {
+    const int r = idx / chunks, c = (idx - r * chunks) * 8;
+    *reinterpret_cast<uint4*>(out + (tok0 + r) * C + c) =
+        *reinterpret_cast<const uint4*>(xs + r * LDX + c);
   }
 }
 
@@ -344,11 +595,13 @@ int hs_window_attention_qkv_epi(const void* x, const void* wqkv, const void* bqk
                                 const void* lscale, void* out, int T, int C, int has_ln,
                                 int has_mask, float ln_eps, void* stream) {
   using hs::bf16;
+  // two column blocks of Wp per core past C = 192 (each at most kMaxNT n-tiles)
+  auto kernel = C > 192 ? hs::qkv_epi_kernel<2> : hs::qkv_epi_kernel<1>;
   const size_t smem = hs::epi_layout(C).total;
-  cudaError_t e = cudaFuncSetAttribute(hs::qkv_epi_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       int(smem));
   if (e != cudaSuccess) return int(e);
-  hs::qkv_epi_kernel<<<T / hs::WS, hs::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<T / hs::WS, hs::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv),
       static_cast<const bf16*>(bqkv), static_cast<const bf16*>(wp),
       static_cast<const bf16*>(bp), static_cast<const float*>(ln_g),
@@ -362,15 +615,16 @@ int hs_window_attention(const void* qkv, const void* groups, const void* bias,
                         const void* lscale, void* out, int T, int C, int use_cos,
                         int has_mask, float sm_scale, void* stream) {
   using hs::bf16;
-  const size_t smem = hs::head_smem_bytes();
+  const size_t smem = hs::kAttnSmem;
   cudaError_t e = cudaFuncSetAttribute(hs::attn_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (e != cudaSuccess) return int(e);
-  const dim3 grid(T / hs::WS, C / hs::HD);
-  hs::attn_kernel<<<grid, hs::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  const int windows = T / hs::WS;
+  const dim3 grid((windows + hs::kAttnPairs - 1) / hs::kAttnPairs, C / hs::HD);
+  hs::attn_kernel<<<grid, hs::kCoreThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(qkv), static_cast<const int*>(groups),
       static_cast<const float*>(bias), static_cast<const float*>(lscale),
-      static_cast<bf16*>(out), C, use_cos, has_mask, sm_scale);
+      static_cast<bf16*>(out), T, C, use_cos, has_mask, sm_scale);
   return int(cudaGetLastError());
 }
 

@@ -97,6 +97,104 @@ def test_final_head_kernel(dev, C, F):
     assert torch.equal(got[far], want[far]) and far.float().mean() > 0.5
 
 
+def _attn_args(gen, dev, C, T, use_cos):
+    h = C // 32
+    return (_randn(gen, dev, T, 3 * C).to(torch.bfloat16),
+            torch.randint(0, 3, (T // 64, 64), generator=gen, dtype=torch.int32).to(dev),
+            _randn(gen, dev, h, 64, 64, std=0.5),
+            torch.exp(_randn(gen, dev, h, std=0.5) + 2.3) if use_cos else None)
+
+
+@pytest.mark.parametrize("C,windows", [(768, 5), (96, 7), (160, 6), (768, 8)])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("use_cos", [True, False])
+def test_attention_kernel_tails_and_widths(dev, C, windows, masked, use_cos):
+    """K2 where the window count is not a multiple of the windows one block walks (5, 7,
+    6), at odd head counts (3, 5) and at the bottleneck width, masked and unmasked, in
+    both flavours: within 1e-2 of the plain version, and a second launch bit-equal."""
+    gen = torch.Generator().manual_seed(C + windows)
+    T = 64 * windows
+    qkv, groups, bias, ls = _attn_args(gen, dev, C, T, use_cos)
+    args = (qkv, groups if masked else None, bias, ls)
+    kw = dict(ws=64, num_heads=C // 32, use_cos=use_cos, sm_scale=32 ** -0.5, has_mask=masked)
+    got = wa.window_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert _rel_l2(got, wa.window_attention_plain(*args, **kw)) < 1e-2
+    assert torch.equal(got, wa.window_attention(*args, **kw))
+
+
+def _edge_rows(dev, groups, bias):
+    """Window 0: every token its own mask group, so each row keeps only its own key;
+    window 1: two groups.  Row 5 of every head's bias is -1e30 everywhere, so its
+    scores (mask included) round to one value and its probabilities are uniform."""
+    groups[0] = torch.arange(64, dtype=torch.int32, device=dev)
+    groups[1] = (torch.arange(64, device=dev) >= 32).to(torch.int32)
+    bias[:, 5, :] = -1e30
+    return groups, bias
+
+
+@pytest.mark.parametrize("use_cos", [True, False])
+def test_attention_kernel_edge_rows(dev, use_cos):
+    """K2 on rows that keep a single key and on a row whose bias is very negative
+    everywhere: finite and within 1e-2 of the plain version."""
+    gen = torch.Generator().manual_seed(11)
+    C, T = 96, 64 * 4
+    qkv, groups, bias, ls = _attn_args(gen, dev, C, T, use_cos)
+    groups, bias = _edge_rows(dev, groups, bias)
+    kw = dict(ws=64, num_heads=C // 32, use_cos=use_cos, sm_scale=32 ** -0.5)
+    got = wa.window_attention(qkv, groups, bias, ls, **kw)
+    torch.cuda.synchronize()
+    want = wa.window_attention_plain(qkv, groups, bias, ls, **kw)
+    assert torch.isfinite(got.float()).all()
+    assert _rel_l2(got, want) < 1e-2
+    # a row alone in its group attends to itself (up to the other keys' e^-100 share),
+    # but row 5, whose equal scores spread it over every key
+    alone = torch.arange(64, device=dev) != 5
+    assert _rel_l2(got[:64][alone], qkv[:64, 2 * C:][alone]) < 1e-2
+
+
+def test_attention_kernel_probabilities_near_underflow(dev):
+    """K2's bf16 probabilities, read through a v whose key c < 32 is the unit vector of
+    channel c (so that o[:, c] is p[:, c] exactly), on rows whose biases fall from 0 to
+    -100 across the keys: each within one bf16 ulp of bf16(e / d) computed in f32, down
+    to bf16's subnormals (e near 2^-126, where the division's slow path runs) and at
+    the e <= 2^-134 whose division the kernel skips."""
+    gen = torch.Generator().manual_seed(13)
+    T, nw = 64 * 4, 4
+    qkv = _randn(gen, dev, T, 3 * 32).to(torch.bfloat16)
+    v = torch.zeros(nw, 64, 32, device=dev)
+    v[:, :32] = torch.eye(32, device=dev)
+    qkv[:, 64:] = v.reshape(T, 32)
+    ramp = torch.arange(64, device=dev)
+    bias = (-100.0 / 63 * ((ramp[None, :] + ramp[:, None]) % 64)).reshape(1, 64, 64)
+    kw = dict(ws=64, num_heads=1, use_cos=False, sm_scale=32 ** -0.5, has_mask=False)
+    got = wa.window_attention(qkv, None, bias, None, **kw).reshape(nw, 64, 32).double()
+    parts = qkv.reshape(nw, 64, 3, 1, 32).float()
+    p = wa._softmax(wa._scores(parts[:, :, 0], parts[:, :, 1], None, bias, False, 32 ** -0.5))
+    want = p.to(torch.bfloat16)[:, 0, :, :32].double()
+    assert ((want > 0) & (want < 2.0 ** -126)).any() and (p[:, 0, :, :32] <= 2.0 ** -134).any()
+    assert ((got - want).abs() <= 2.0 ** -7 * want.abs() + 2.0 ** -133).all()
+
+
+@pytest.mark.parametrize("C", [32, 96, 160, 192, 384])
+def test_qkv_epi_kernel_edge_rows_and_repeat(dev, C):
+    """K1 (C 32: one head, the second core idle; 96, 160: odd head counts; 192, 384:
+    one and two Wp column blocks per core) with the edge rows of K2's test, masked,
+    with LayerNorm: within 1e-2 of the plain version, and a second launch bit-equal."""
+    gen = torch.Generator().manual_seed(12 + C)
+    T = 64 * 8
+    x, wq, bq, wp, bp, g, b, groups, bias, ls = _epi_args(gen, dev, C, T, True, True)
+    groups, bias = _edge_rows(dev, groups, bias)
+    args = (x, wq, bq, wp, bp, g, b, groups, bias, ls)
+    kw = dict(ws=64, num_heads=C // 32, sm_scale=32 ** -0.5, has_mask=True)
+    got = wa.window_attention_qkv_epi(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert _rel_l2(got, wa.window_attention_qkv_epi_plain(*args, **kw)) < 1e-2
+    assert torch.equal(got, wa.window_attention_qkv_epi(*args, **kw))
+
+
 def _epi_args(gen, dev, C, T, masked, has_ln):
     h = C // 32
     return (_randn(gen, dev, T, C).to(torch.bfloat16),

@@ -1,0 +1,197 @@
+"""Time the window-attention kernels of two checkouts of heal_swin_torch on one GPU,
+in turns: other, this, this, other.
+
+    python3 tools/attention_pair_timing.py --other _checkout/parent
+
+``--other`` is an unpacked copy of another commit (``git archive`` into the
+git-ignored ``_checkout/``).  Each of the four turns is its own process: it imports
+heal_swin_torch from its checkout and builds that checkout's kernels.  What it times
+comes from this checkout's chip_smoke.py, so that every turn runs the same operands
+as its ``check_kernels``: the seeded inputs (``seeded_draws``, ``stage_inputs``,
+``bottleneck_inputs``), the library call (``sdpa_library``) and the single-call time
+(``median_ms``).  Timed, masked and unmasked: K1 and its backward K4 (cosine, with
+LayerNorm) and K16 / K17 (scaled-dot) at the three stage shapes (T 262,144 / 65,536 /
+16,384, C 96 / 192 / 384); K2 in both flavours and its backward K5 (scaled-dot) at the
+bottleneck (T 4,096, C 768, 24 heads); and one ``scaled_dot_product_attention`` on K2's
+operands, the same code in every turn: a control for the spread between turns.
+
+Each shape gets two times: the device time (``device_ms``: each call enqueued behind a
+spin kernel, so that the events bracket the device work alone) and a single call's
+time (chip_smoke.py's ``median_ms``, the ``ms`` of its kernels line, which takes in
+the host's launch path wherever the device finishes first).  Prints each turn's JSON
+line, then per kind of time one line per shape with the four times, and each kernel
+summed over a train step's launches (at C <= 384 2 unmasked and 2 masked at C 96 and
+C 192, 6 and 6 at C 384; K2 / K5 one of each).  Needs one CUDA GPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parents[1]
+# launches per (C, masked) in one train step: the blocks at C <= 384 (encoder 2/2/6,
+# decoder 6/2/2; K1 and K4 cosine, K16 and K17 scaled-dot), the two at C 768 (K2, K5)
+STEP_LAUNCHES = {(96, False): 2, (96, True): 2, (192, False): 2, (192, True): 2,
+                 (384, False): 6, (384, True): 6, (768, False): 1, (768, True): 1}
+
+
+def load_smoke():
+    """This checkout's chip_smoke.py as a module, whichever heal_swin_torch is first on
+    the path (its functions import the package only when called)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", HERE / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def device_ms(fn, runs, warmup=3) -> float:
+    """Median of ``runs`` CUDA-event timings of one call of ``fn`` after ``warmup``
+    calls, each call enqueued while a spin kernel (``torch.cuda._sleep``, four times
+    the call's host-clock time at ~2 GHz) holds the stream, so that the events time
+    the device work and not the host's launch path."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    cycles = int(4 * max(time.perf_counter() - t0, 1e-4) * 2e9)
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def turn(root: Path) -> dict:
+    """This process's turn: the times of the checkout at ``root``, keyed by shape."""
+    sys.path.insert(0, str(root))
+    import torch
+
+    smoke = load_smoke()
+    from heal_swin_torch import _build
+    from heal_swin_torch.ops import window_attention as wa
+
+    if Path(wa.__file__).resolve().parents[2] != root.resolve():
+        raise RuntimeError(f"imported {wa.__file__}, not the checkout at {root}")
+    _build.lib()
+    dev = torch.device("cuda", 0)
+    rnd, logit_scales = smoke.seeded_draws(torch.Generator().manual_seed(smoke.SEED), dev)
+
+    def both(fn):
+        return [device_ms(fn, smoke.TIMING_RUNS), smoke.median_ms(fn)]
+
+    times = {}
+    for stage in range(3):
+        T, C, h, (x, wq, bq, wp, bp, g, b, bias, ls, grp) = smoke.stage_inputs(
+            rnd, logit_scales, stage, dev)
+        for masked in (False, True):
+            groups = grp if masked else None
+            args = (x, wq, bq, wp, bp, g, b, groups, bias, ls)
+            kw = dict(ws=smoke.WS, num_heads=h, sm_scale=(C // h) ** -0.5, has_mask=masked,
+                      impl="pallas")
+            label = f"C={C} T={T} mask={masked}"
+            times[f"K1 {label}"] = both(lambda: wa.window_attention_qkv_epi(*args, **kw))
+            dz = rnd(T, C).to(torch.bfloat16)
+            times[f"K4 {label}"] = both(lambda: wa.window_attention_qkv_epi_bwd(*args, dz, **kw))
+            qargs = (x, wq, bq, groups, bias, None)
+            qkw = dict(ws=smoke.WS, num_heads=h, use_cos=False, sm_scale=smoke.DOT_SCALE,
+                       has_mask=masked, impl="pallas")
+            times[f"K16 {label}"] = both(lambda: wa.window_attention_qkv_fwd(*qargs, **qkw))
+            times[f"K17 {label}"] = both(
+                lambda: wa.window_attention_qkv_bwd(*qargs, dz, **qkw))
+        del x, dz
+    T, C, h, (qkv, bias, ls, grp, dout) = smoke.bottleneck_inputs(rnd, logit_scales, dev)
+    for masked in (False, True):
+        for use_cos in (True, False):
+            args = (qkv, grp if masked else None, bias, ls if use_cos else None)
+            kw = dict(ws=smoke.WS, num_heads=h, use_cos=use_cos, sm_scale=smoke.DOT_SCALE,
+                      has_mask=masked, impl="pallas")
+            flavour = "cosine" if use_cos else "scaled-dot"
+            times[f"K2 C={C} T={T} mask={masked} {flavour}"] = both(
+                lambda: wa.window_attention(*args, **kw))
+            if not use_cos:
+                times[f"K5 C={C} T={T} mask={masked}"] = both(
+                    lambda: wa.window_attention_bwd(*args, dout, **kw))
+        lib_f, _ = smoke.sdpa_library(qkv, grp if masked else None, bias, h, dout)
+        times[f"SDPA C={C} T={T} mask={masked} scaled-dot"] = both(lib_f)
+    torch.cuda.synchronize()
+    return times
+
+
+def step_ms(times: dict, kernel: str, which: int) -> float:
+    """A kernel's ms over a train step's launches (which: 0 device, 1 single call); K2
+    in the scaled-dot flavour, the scaled-dot step's."""
+    total = 0.0
+    for label, ms in times.items():
+        name, shape, _, mask, *flavour = label.split()
+        if name == kernel and flavour in ([], ["scaled-dot"]):
+            total += STEP_LAUNCHES[(int(shape[2:]), mask == "mask=True")] * ms[which]
+    return total
+
+
+def compare(label, runs, get):
+    o = [get(t) for w, t in runs if w == "other"]
+    c = [get(t) for w, t in runs if w == "this"]
+    return (f"{label}: other {o[0]:.4f} / {o[1]:.4f} ms, this {c[0]:.4f} / {c[1]:.4f} ms, "
+            f"this / other {statistics.mean(c) / statistics.mean(o):.3f}")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--other", type=Path, help="the other checkout (e.g. the parent)")
+    ap.add_argument("--turn", type=Path, help=argparse.SUPPRESS)
+    a = ap.parse_args()
+    if a.turn is not None:
+        print(json.dumps({"root": str(a.turn), "times": turn(a.turn)}), flush=True)
+        return 0
+    import torch
+
+    if not torch.cuda.is_available():
+        print("attention_pair_timing: no CUDA device", file=sys.stderr)
+        return 1
+    other = a.other.resolve()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    order = [("other", other), ("this", HERE), ("this", HERE), ("other", other)]
+    runs = []
+    for who, root in order:
+        out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--turn", str(root)],
+                             capture_output=True, text=True, env=dict(os.environ))
+        if out.returncode != 0:
+            print(out.stdout, out.stderr, sep="\n", file=sys.stderr)
+            return out.returncode
+        line = out.stdout.strip().splitlines()[-1]
+        print(f"{who}: {line}", flush=True)
+        runs.append((who, json.loads(line)["times"]))
+    for which, kind in enumerate(("on the device", "a single call")):
+        print(f"-- {kind}")
+        for label in runs[0][1]:
+            print(compare(label, runs, lambda t: t[label][which]))
+        for kernel, n in (("K1", 20), ("K4", 20), ("K16", 20), ("K17", 20), ("K2", 2),
+                          ("K5", 2)):
+            print(compare(f"{kernel} over a train step's {n} launches", runs,
+                          lambda t: step_ms(t, kernel, which)))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
