@@ -572,6 +572,10 @@ def check_qkv_kernels(gen, dev, rnd, logit_scales):
         ls = logit_scales(h)
         groups = ring_groups(T // BATCH).to(dev)
         dout = rnd(T, C).to(bf16)
+        dqkv_b, part_b = qkv_bwd_workspace(T, C)
+        log(f"K17 T={T} C={C}: workspace {workspace_bytes(('window_attention_qkv_bwd', T, C))} "
+            f"bytes a launch written and read back: dqkv {dqkv_b}, partial rows {part_b} "
+            f"(one row per window: {qkv_bwd_workspace(T, C, run=1)[1]})")
         for masked in (False, True):
             for use_cos in (True, False):
                 flavour = "cosine" if use_cos else "scaled-dot"
@@ -2051,16 +2055,31 @@ def shape_work(key):
     raise KeyError(key)
 
 
+QKV_BWD_RUN = 8  # windows one K17 block walks (kRun, csrc/window_attention_bwd.cu)
+
+
+def qkv_bwd_workspace(T, C, run=QKV_BWD_RUN):
+    """K17's workspace traffic per launch in bytes, (dqkv, partial rows): the rounded
+    dqkv (T x 3C bf16) written once and read twice (gemm_tn's dWqkv, gemm_nt's dx);
+    one partial row per run of ``run`` windows, H (64 x 64 + 1) + 3C f32 (dbias, dls,
+    dbqkv), written once and read once by reduce_rows.  ``run=1``: one row per window."""
+    rows = -(-(T // WS) // run)
+    return 3 * T * 3 * C * 2, 2 * rows * ((C // 32) * (WS * WS + 1) + 3 * C) * 4
+
+
 def workspace_bytes(key):
-    """The bytes K13/K15's design adds to what the function must move: g and the
-    rounded dh (bf16, T x H), and for K15 the rounded du (T x C), each written once and
-    read once by the split-K weight products.  Logged beside the checks; ``bound_ms``
-    leaves them out, since the function itself need not move them."""
-    name, T, C, H = key[:4]
+    """The bytes a backward kernel's design adds to what the function must move: for
+    K13/K15 g and the rounded dh (bf16, T x H), and for K15 the rounded du (T x C), each
+    written once and read once by the split-K weight products; for K17 its dqkv and
+    partial rows (``qkv_bwd_workspace``).  Logged beside the checks; ``bound_ms`` leaves
+    them out, since the function itself need not move them."""
+    name, T, C = key[:3]
     if name == "mlp_bwd":
-        return 8 * T * H
+        return 8 * T * key[3]
     if name == "mlp_block_bwd":
-        return 8 * T * H + 4 * T * C
+        return 8 * T * key[3] + 4 * T * C
+    if name == "window_attention_qkv_bwd":
+        return sum(qkv_bwd_workspace(T, C))
     return 0
 
 
@@ -2122,16 +2141,20 @@ def kernel_results(timed, runs, chamfer):
     return kernels
 
 
-# the forward window-attention kernels' mangled names in the ptxas report
+# the register-resident window-attention kernels' mangled names in the ptxas report
 PTXAS_NAMES = {"11attn_kernel": "K2 attn_kernel",
-               "14qkv_epi_kernelILi1E": "K1 qkv_epi_kernel<1> (C <= 192)",
-               "14qkv_epi_kernelILi2E": "K1 qkv_epi_kernel<2> (C > 192)",
-               "15qkv_attn_kernel": "K16 qkv_attn_kernel"}
+               "14qkv_epi_kernelILi1ELb1ELb1E": "K1 qkv_epi_kernel<1> (C <= 192)",
+               "14qkv_epi_kernelILi2ELb1ELb1E": "K1 qkv_epi_kernel<2> (C > 192)",
+               "14qkv_epi_kernelILi1ELb0ELb1E": "K16 qkv_epi_kernel<1, no epilogue, cosine>",
+               "14qkv_epi_kernelILi1ELb0ELb0E": "K16 qkv_epi_kernel<1, no epilogue, scaled-dot>",
+               "14qkv_bwd_kernelILb1E": "K17 qkv_bwd_kernel<cosine>",
+               "14qkv_bwd_kernelILb0E": "K17 qkv_bwd_kernel<scaled-dot>",
+               "14gemm_nt_kernel": "K17 gemm_nt_kernel (dx)"}
 
 
 def log_ptxas(build_log: str):
     """nvcc's -Xptxas -v report of the build, one line per kernel: its spills, stack,
-    registers and shared memory, under its name (K1, K2, K16 by name, the others
+    registers and shared memory, under its name (K1, K2, K16, K17 by name, the others
     mangled)."""
     name, props = None, []
     for line in build_log.splitlines():

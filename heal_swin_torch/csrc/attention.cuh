@@ -1,8 +1,10 @@
 // Window-attention building blocks shared by the forward kernels (window_attention.cu)
 // and the backward kernels (window_attention_bwd.cu), one 64-token window and one
-// 32-channel head at a time: first the shared-memory blocks of K4, K5, K16 and K17
-// (tiles in shared memory, 16x16x16 bf16 WMMA products with f32 accumulation, 8 warps
-// per block), then the register-resident core of K1 and K2 (attend_head_mma).
+// 32-channel head at a time: first the shared-memory blocks of K4 and K5 (tiles in
+// shared memory, 16x16x16 bf16 WMMA products with f32 accumulation, 8 warps per
+// block), then the register-resident core of K1, K2, K16 and K17: the qkv projection
+// epilogue (qkv_head_epilogue), the probabilities (head_probs_mma) and the products
+// of the forward and backward on register fragments.
 #pragma once
 
 #include "common.cuh"
@@ -138,9 +140,9 @@ __device__ inline void project_head_qkv(const bf16* xs, int ldx, const bf16* __r
 }
 
 // ---------------------------------------------------------------------------------
-// The register-resident per-head core of the forward kernels K1 and K2 (the backward
-// kernels and K16 keep the shared-memory blocks above).  One 64-token window and one
-// 32-channel head on 4 warps, each owning 16 query rows.  Products are
+// The register-resident per-head core of K1, K2, K16 and K17 (K4 and K5 keep the
+// shared-memory blocks above).  One 64-token window and one 32-channel head on 4
+// warps, each owning 16 query rows.  Products are
 // mma.sync.m16n8k16 bf16 -> f32 with operands read by ldmatrix from shared-memory tiles
 // whose padded rows (LD_HEAD, LD_W) make every ldmatrix phase conflict-free; scores,
 // probabilities and the head output never leave registers, and nothing inside the core
@@ -152,67 +154,8 @@ __device__ inline void project_head_qkv(const bf16* xs, int ldx, const bf16* __r
 // while these kernels are latency-bound; wgmma and TMA are the step after that.
 // ---------------------------------------------------------------------------------
 
-constexpr int kCoreWarps = 4;                 // warps of one core (a "group")
-constexpr int kCoreThreads = kCoreWarps * 32;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// four 8 x 8 bf16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p))
-               : "memory");
-}
-
-// the same, each matrix transposed: the B fragments of a row-major (k x n) tile
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p))
-               : "memory");
-}
-
-// d (16 x 8 f32) += a (16 x 16 bf16) b (16 x 8 bf16)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(smem_u32(dst)), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N of this thread's committed groups are still in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// barrier of the 128 threads of core group ``id`` (ids 1, 2; 0 is __syncthreads)
-__device__ __forceinline__ void group_sync(int id) {
-  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "n"(kCoreThreads) : "memory");
-}
-
-// (lo, hi) rounded to bf16 in one 32-bit word, lo in the low half
-__device__ __forceinline__ uint32_t pack_bf2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float2 unpack_bf2(uint32_t u) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
-}
+constexpr int kHeadNT = 3 * HD / 8;           // n-tiles (8 columns) of a head's q|k|v
+constexpr int LD_BIAS = WS + 8;  // f32 bias rows: a quad's float2 reads conflict-free
 
 // sum over the 4 lanes of a quad (the lanes holding one accumulator row); every lane
 // gets the same bits
@@ -268,20 +211,99 @@ __device__ __forceinline__ float norm_p(float e, float d) {
   return keep ? q * 0x1p-64f : 0.f;
 }
 
-// One head of window attention for this warp's 16 query rows: s = q k^T * mul + bias
+// The projection epilogue of one head for this warp's 16 rows row0..row0+15: acc
+// holds x Wqkv over the head's q|k|v columns (n-tiles 0-3 q, 4-7 k, 8-11 v; rows g, g + 8
+// as every accumulator here).  Adds the qkv bias (bq: the head's q columns of bqkv, its k
+// and v columns at + C and + 2 C) and rounds to bf16 in place, so that acc holds the qkv
+// rows.  COS (cosine): iq, ik are the inverse norms of rows g and g + 8 of q and k (rsqrt
+// of the quad-summed squares, clamped); q_hat = bf16(q (iq scale)) becomes the A
+// fragments qa and k_hat = bf16(k ik) goes to the tile kt.  Scaled-dot: qa = q, kt = k
+// (the core's mul then carries sm_scale), iq and ik untouched.  v goes to the tile vt.
+// kt, vt: 64 x HD bf16 (ld LD_HEAD).  K1 and K16 (forward) and K17 (the backward's
+// recomputation) share it, so the backward's q, k, v and P are the forward's bits.
+template <bool COS>
+__device__ __forceinline__ void qkv_head_epilogue(float (&acc)[kHeadNT][4],
+                                                  const bf16* __restrict__ bq, int C,
+                                                  float scale, uint32_t (&qa)[2][4], bf16* kt,
+                                                  bf16* vt, int row0, float (&iq)[2],
+                                                  float (&ik)[2]) {
+  const int lane = threadIdx.x & 31;
+  const int r0 = row0 + (lane >> 2), r1 = r0 + 8, c2 = (lane & 3) * 2;
+  float sq0 = 0.f, sq1 = 0.f, sk0 = 0.f, sk1 = 0.f;
+#pragma unroll
+  for (int t = 0; t < kHeadNT; ++t) {
+    const float2 b = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(bq + (t >> 2) * C + (t & 3) * 8 + c2));
+    acc[t][0] = bfr(acc[t][0] + b.x);
+    acc[t][1] = bfr(acc[t][1] + b.y);
+    acc[t][2] = bfr(acc[t][2] + b.x);
+    acc[t][3] = bfr(acc[t][3] + b.y);
+    if constexpr (COS) {
+      const float e0 = acc[t][0] * acc[t][0] + acc[t][1] * acc[t][1];
+      const float e1 = acc[t][2] * acc[t][2] + acc[t][3] * acc[t][3];
+      if (t < 4) {
+        sq0 += e0;
+        sq1 += e1;
+      } else if (t < 8) {
+        sk0 += e0;
+        sk1 += e1;
+      }
+    }
+  }
+  float mq0 = 1.f, mq1 = 1.f, mk0 = 1.f, mk1 = 1.f;
+  if constexpr (COS) {
+    iq[0] = rsqrtf(fmaxf(quad_sum(sq0), 1e-24f));
+    iq[1] = rsqrtf(fmaxf(quad_sum(sq1), 1e-24f));
+    ik[0] = rsqrtf(fmaxf(quad_sum(sk0), 1e-24f));
+    ik[1] = rsqrtf(fmaxf(quad_sum(sk1), 1e-24f));
+    mq0 = iq[0] * scale;
+    mq1 = iq[1] * scale;
+    mk0 = ik[0];
+    mk1 = ik[1];
+  }
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks) {
+    if constexpr (COS) {
+      qa[ks][0] = pack_bf2(acc[2 * ks][0] * mq0, acc[2 * ks][1] * mq0);
+      qa[ks][1] = pack_bf2(acc[2 * ks][2] * mq1, acc[2 * ks][3] * mq1);
+      qa[ks][2] = pack_bf2(acc[2 * ks + 1][0] * mq0, acc[2 * ks + 1][1] * mq0);
+      qa[ks][3] = pack_bf2(acc[2 * ks + 1][2] * mq1, acc[2 * ks + 1][3] * mq1);
+    } else {
+      qa[ks][0] = pack_bf2(acc[2 * ks][0], acc[2 * ks][1]);
+      qa[ks][1] = pack_bf2(acc[2 * ks][2], acc[2 * ks][3]);
+      qa[ks][2] = pack_bf2(acc[2 * ks + 1][0], acc[2 * ks + 1][1]);
+      qa[ks][3] = pack_bf2(acc[2 * ks + 1][2], acc[2 * ks + 1][3]);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    const int c = 8 * n + c2;
+    if constexpr (COS) {
+      *reinterpret_cast<uint32_t*>(kt + r0 * LD_HEAD + c) =
+          pack_bf2(acc[4 + n][0] * mk0, acc[4 + n][1] * mk0);
+      *reinterpret_cast<uint32_t*>(kt + r1 * LD_HEAD + c) =
+          pack_bf2(acc[4 + n][2] * mk1, acc[4 + n][3] * mk1);
+    } else {
+      *reinterpret_cast<uint32_t*>(kt + r0 * LD_HEAD + c) = pack_bf2(acc[4 + n][0], acc[4 + n][1]);
+      *reinterpret_cast<uint32_t*>(kt + r1 * LD_HEAD + c) = pack_bf2(acc[4 + n][2], acc[4 + n][3]);
+    }
+    *reinterpret_cast<uint32_t*>(vt + r0 * LD_HEAD + c) = pack_bf2(acc[8 + n][0], acc[8 + n][1]);
+    *reinterpret_cast<uint32_t*>(vt + r1 * LD_HEAD + c) = pack_bf2(acc[8 + n][2], acc[8 + n][3]);
+  }
+}
+
+// The probabilities of one head for this warp's 16 query rows: s = q k^T * mul + bias
 // (+ MASK_VALUE where group ids differ); p = softmax_row(s) in f32 (row-max shift, sum
-// floored at 1e-30), normalized and then rounded to bf16; o = p v, f32 in registers:
-// o[n][0..1] row g, o[n][2..3] row g + 8, channels 8n + 2c, 8n + 2c + 1.  qa: A
-// fragments of the (scaled) query rows row0..row0+15; k, v: 64 x HD bf16 tiles (ld
-// LD_HEAD) in shared memory; bias_h: the head's 64 x 64 f32 bias, row stride ldb
-// (shared or global memory); g: the window's group ids in shared memory, or nullptr
-// unmasked.  COS_K: k is raw and is normalized here, k_hat = bf16(k / |k|), each warp
-// for all 64 keys.
+// floored at 1e-30, p = norm_p(e, d)), left in p as the score accumulators: p[j][0..1]
+// row g, p[j][2..3] row g + 8, keys 8j + 2c, 8j + 2c + 1.  qa: A fragments of the
+// (scaled) query rows row0..row0+15; k: a 64 x HD bf16 tile (ld LD_HEAD) in shared
+// memory; bias_h: the head's 64 x 64 f32 bias, row stride ldb (shared or global memory);
+// g: the window's group ids in shared memory, or nullptr unmasked.  COS_K: k is raw and
+// is normalized here, k_hat = bf16(k / |k|), each warp for all 64 keys.
 template <bool COS_K>
-__device__ __forceinline__ void attend_head_mma(const uint32_t (&qa)[2][4], const bf16* k,
-                                                const bf16* v, const float* bias_h, int ldb,
-                                                const int* g, int row0, float mul,
-                                                float (&o)[4][4]) {
+__device__ __forceinline__ void head_probs_mma(const uint32_t (&qa)[2][4], const bf16* k,
+                                               const float* bias_h, int ldb, const int* g,
+                                               int row0, float mul, float (&s)[8][4]) {
   const int lane = threadIdx.x & 31;
   const int gr = lane >> 2, c2 = (lane & 3) * 2;
   const int r0 = row0 + gr, r1 = r0 + 8;
@@ -294,7 +316,6 @@ __device__ __forceinline__ void attend_head_mma(const uint32_t (&qa)[2][4], cons
     b1[j] = *reinterpret_cast<const float2*>(bias_h + r1 * ldb + 8 * j + c2);
   }
 
-  float s[8][4];
 #pragma unroll
   for (int j = 0; j < 8; ++j) {  // keys 8j .. 8j + 7
     uint32_t kb[4];  // channels 0-7, 8-15 (k-step 0), 16-23, 24-31 (k-step 1)
@@ -356,23 +377,95 @@ __device__ __forceinline__ void attend_head_mma(const uint32_t (&qa)[2][4], cons
   }
   d0 = fmaxf(quad_sum(d0), 1e-30f);
   d1 = fmaxf(quad_sum(d1), 1e-30f);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    s[j][0] = norm_p(s[j][0], d0);
+    s[j][1] = norm_p(s[j][1], d0);
+    s[j][2] = norm_p(s[j][2], d1);
+    s[j][3] = norm_p(s[j][3], d1);
+  }
+}
 
-  // o = bf16(p) v: keys 16kc .. 16kc + 15 are score n-tiles 2kc, 2kc + 1
+// the A fragment of keys 16 kc .. 16 kc + 15 of 16 x 64 accumulators (score n-tiles 2kc,
+// 2kc + 1), rounded to bf16
+__device__ __forceinline__ void acc_a_frag(uint32_t (&a)[4], const float (&s)[8][4], int kc) {
+  a[0] = pack_bf2(s[2 * kc][0], s[2 * kc][1]);
+  a[1] = pack_bf2(s[2 * kc][2], s[2 * kc][3]);
+  a[2] = pack_bf2(s[2 * kc + 1][0], s[2 * kc + 1][1]);
+  a[3] = pack_bf2(s[2 * kc + 1][2], s[2 * kc + 1][3]);
+}
+
+// o (16 x HD f32) = bf16(a) b over WS: a this warp's 16 x 64 f32 accumulators (as the
+// scores), rounded to bf16 as A fragments; b a 64 x HD bf16 tile (ld LD_HEAD) in shared
+// memory.  o[n][0..1] row g, o[n][2..3] row g + 8, channels 8n + 2c, 8n + 2c + 1.  The
+// forward's o = P v, the backward's dS k.
+__device__ __forceinline__ void acc_times_tile(const float (&a)[8][4], const bf16* b,
+                                               float (&o)[4][4]) {
+  const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int n = 0; n < 4; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
 #pragma unroll
   for (int kc = 0; kc < 4; ++kc) {
     uint32_t pa[4];
-    pa[0] = pack_bf2(norm_p(s[2 * kc][0], d0), norm_p(s[2 * kc][1], d0));
-    pa[1] = pack_bf2(norm_p(s[2 * kc][2], d1), norm_p(s[2 * kc][3], d1));
-    pa[2] = pack_bf2(norm_p(s[2 * kc + 1][0], d0), norm_p(s[2 * kc + 1][1], d0));
-    pa[3] = pack_bf2(norm_p(s[2 * kc + 1][2], d1), norm_p(s[2 * kc + 1][3], d1));
+    acc_a_frag(pa, a, kc);
 #pragma unroll
     for (int np = 0; np < 2; ++np) {  // channel n-tiles 2np, 2np + 1
       uint32_t vb[4];
-      ldsm_x4_t(vb, v + (16 * kc + (lane & 15)) * LD_HEAD + (2 * np + (lane >> 4)) * 8);
+      ldsm_x4_t(vb, b + (16 * kc + (lane & 15)) * LD_HEAD + (2 * np + (lane >> 4)) * 8);
       mma_bf16(o[2 * np], pa, vb[0], vb[1]);
       mma_bf16(o[2 * np + 1], pa, vb[2], vb[3]);
+    }
+  }
+}
+
+// One head of window attention for this warp's 16 query rows: head_probs_mma, then
+// o = bf16(p) v, f32 in registers (as acc_times_tile).  v: a 64 x HD bf16 tile (ld
+// LD_HEAD); the rest as head_probs_mma.
+template <bool COS_K>
+__device__ __forceinline__ void attend_head_mma(const uint32_t (&qa)[2][4], const bf16* k,
+                                                const bf16* v, const float* bias_h, int ldb,
+                                                const int* g, int row0, float mul,
+                                                float (&o)[4][4]) {
+  float p[8][4];
+  head_probs_mma<COS_K>(qa, k, bias_h, ldb, g, row0, mul, p);
+  acc_times_tile(p, v, o);
+}
+
+// s (16 x 64 f32) = a b^T over HD: a the A fragments of this warp's 16 rows (as
+// load_q_frags gives them), b a 64 x HD bf16 tile (ld LD_HEAD): the backward's dP = dO v^T
+__device__ __forceinline__ void frags_times_tile_t(const uint32_t (&a)[2][4], const bf16* b,
+                                                   float (&s)[8][4]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    uint32_t bb[4];
+    ldsm_x4(bb, b + (8 * j + (lane & 7)) * LD_HEAD + (lane >> 3) * 8);
+    s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    mma_bf16(s[j], a[0], bb[0], bb[1]);
+    mma_bf16(s[j], a[1], bb[2], bb[3]);
+  }
+}
+
+// o (16 x HD f32) = a^T b over WS for rows m0..m0+15 of a^T: a a 64 x 64 bf16 tile (ld
+// LD_P), read transposed by ldmatrix.trans; b a 64 x HD bf16 tile (ld LD_HEAD).  The
+// backward's dV = P^T dO and dK = dS^T q.
+__device__ __forceinline__ void tile_t_times_tile(const bf16* a, int m0, const bf16* b,
+                                                  float (&o)[4][4]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int n = 0; n < 4; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc) {
+    // matrix i = lane / 8 is rows 16 kc + 8 (i / 2) .., columns m0 + 8 (i % 2) .. of a
+    uint32_t at[4];
+    ldsm_x4_t(at, a + (16 * kc + (lane & 7) + ((lane >> 4) << 3)) * LD_P + m0 +
+                      ((lane >> 3) & 1) * 8);
+#pragma unroll
+    for (int np = 0; np < 2; ++np) {
+      uint32_t bb[4];
+      ldsm_x4_t(bb, b + (16 * kc + (lane & 15)) * LD_HEAD + (2 * np + (lane >> 4)) * 8);
+      mma_bf16(o[2 * np], at, bb[0], bb[1]);
+      mma_bf16(o[2 * np + 1], at, bb[2], bb[3]);
     }
   }
 }

@@ -1,6 +1,6 @@
 // Shared helpers of the HEAL-SWIN Hopper kernels: bf16 rounding, warp reductions,
 // shared-memory carving, the WMMA fragment types (bf16 inputs, f32 accumulation), and
-// the two cross-block passes the backward kernels share (reduce.cu).
+// the cross-block passes and products the backward kernels share (reduce.cu).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -47,6 +47,71 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// --- mma.sync m16n8k16 from ldmatrix fragments, cp.async: the register-resident kernels
+// (attention.cuh, reduce.cu gemm_nt)
+
+constexpr int kCoreWarps = 4;                 // warps of one core (a "group")
+constexpr int kCoreThreads = kCoreWarps * 32;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// four 8 x 8 bf16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// the same, each matrix transposed: the B fragments of a row-major (k x n) tile
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// d (16 x 8 f32) += a (16 x 16 bf16) b (16 x 8 bf16)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// barrier of the 128 threads of core group ``id`` (ids 1, 2; 0 is __syncthreads)
+__device__ __forceinline__ void group_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "n"(kCoreThreads) : "memory");
+}
+
+// (lo, hi) rounded to bf16 in one 32-bit word, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float2 unpack_bf2(uint32_t u) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
+
 // --- cross-block passes (reduce.cu); deterministic: every sum in a fixed order ---
 
 // out[n] = sum over r < R of in[r * N + n] (f32).  ``tmp`` holds
@@ -61,5 +126,10 @@ cudaError_t reduce_rows(const float* in, float* out, int R, int N, float* tmp,
 size_t gemm_tn_tmp_floats(int K, int M, int N);
 cudaError_t gemm_tn(const bf16* A, const bf16* B, float* out, int K, int M, int N,
                     float* tmp, cudaStream_t stream);
+
+// out (M x N, row-major bf16) = A B^T over K: A (M x K) and B (N x K) row-major bf16,
+// f32 sums; M % 64 == 0, N % 8 == 0, K % 32 == 0, rows 16-byte aligned.
+cudaError_t gemm_nt(const bf16* A, const bf16* B, bf16* out, int M, int N, int K,
+                    cudaStream_t stream);
 
 }  // namespace hs

@@ -19,6 +19,15 @@
 //     through reduce_rows.  At the paper shapes it is 2*T*M*N = 2.9..14.5 GFLOP on
 //     T*(M+N)*2 bytes: above the bf16 ridge, so it is bounded by the WMMA issue rate;
 //     wgmma/TMA are later work.
+//   gemm_nt: out = A B^T over the channel axis (K17's dx = dqkv Wqkv^T), bf16 out.
+//     M is the token count, N = C and K = 3C, so the output tiles are many (M / 128 x
+//     N / 96) and K is short: no split.  A block is one 4-warp core over a 128 x 96
+//     tile; 32-column slices of A and B arrive by cp.async through a 3-stage ring (one
+//     block barrier a slice), each warp runs mma.sync m16n8k16 from ldmatrix fragments
+//     on its 32 rows x 12 n-tiles (each B fragment serves two m-tiles, which halves the
+//     shared-memory reads per product) with f32 sums in registers, and rounds them to
+//     bf16 on the way out.  2 M N K FLOPs on 2 (M K + N K + M N) bytes: at the paper shapes above
+//     the bf16 ridge, bounded by the mma.sync issue rate.
 
 #include "common.cuh"
 
@@ -114,6 +123,101 @@ gemm_tn_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
   }
 }
 
+constexpr int NT_WM = 2;                  // m-tiles (16 rows) of a warp
+constexpr int NT_BM = kCoreWarps * NT_WM * 16;  // output rows of a block (128)
+constexpr int NT_BN = 96;                 // output columns of a block (12 n-tiles)
+constexpr int NT_BK = 32;                 // K columns of a ring stage
+constexpr int NT_LD = NT_BK + 8;          // staged rows: ldmatrix phases conflict-free
+constexpr int NT_STAGES = 3;
+constexpr size_t kGemmNtSmem = size_t(NT_STAGES) * (NT_BM + NT_BN) * NT_LD * 2;
+
+// grid (ceil(M / 128), ceil(N / 96)): out[m0:m0+128, n0:n0+96] = A[m0:m0+128] B[n0:n0+96]^T;
+// M % 64 == 0, so a block has 128 rows or, at the end, 64 (warps 2-3 then only copy)
+__global__ void __launch_bounds__(kCoreThreads)
+gemm_nt_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, bf16* __restrict__ out,
+               int M, int N, int K) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* As = reinterpret_cast<bf16*>(smem);
+  bf16* Bs = As + NT_STAGES * NT_BM * NT_LD;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int row0 = (tid >> 5) * NT_WM * 16;
+  const int m0 = blockIdx.x * NT_BM;
+  const int n0 = blockIdx.y * NT_BN;
+  const int rows_a = min(NT_BM, M - m0);
+  const int rows_b = min(NT_BN, N - n0);  // B rows (output columns) of this block
+  const int nt = rows_b / 8;
+  const int nk = K / NT_BK;
+  const bool active = row0 < rows_a;
+
+  auto stage = [&](int k) {  // slice k into its ring stage; the caller commits
+    if (k >= nk) return;
+    bf16* as = As + (k % NT_STAGES) * NT_BM * NT_LD;
+    bf16* bs = Bs + (k % NT_STAGES) * NT_BN * NT_LD;
+    const int k0 = k * NT_BK;
+    for (int idx = tid; idx < rows_a * 4; idx += kCoreThreads) {
+      const int r = idx >> 2, c = (idx & 3) * 8;
+      cp_async16(as + r * NT_LD + c, A + size_t(m0 + r) * K + k0 + c);
+    }
+    for (int idx = tid; idx < rows_b * 4; idx += kCoreThreads) {
+      const int r = idx >> 2, c = (idx & 3) * 8;
+      cp_async16(bs + r * NT_LD + c, B + size_t(n0 + r) * K + k0 + c);
+    }
+  };
+
+  float acc[NT_WM][NT_BN / 8][4];
+#pragma unroll
+  for (int i = 0; i < NT_WM; ++i)
+#pragma unroll
+    for (int t = 0; t < NT_BN / 8; ++t) acc[i][t][0] = acc[i][t][1] = acc[i][t][2] = acc[i][t][3] = 0.f;
+  for (int k = 0; k < NT_STAGES - 1; ++k) {
+    stage(k);
+    cp_async_commit();
+  }
+  for (int k = 0; k < nk; ++k) {
+    cp_async_wait<NT_STAGES - 2>();
+    __syncthreads();  // slice k has landed; slice k - 1's stage is free
+    stage(k + NT_STAGES - 1);
+    cp_async_commit();
+    if (!active) continue;
+    const bf16* as = As + (k % NT_STAGES) * NT_BM * NT_LD + (row0 + (lane & 15)) * NT_LD +
+                     (lane >> 4) * 8;
+    const bf16* bs = Bs + (k % NT_STAGES) * NT_BN * NT_LD + (lane & 7) * NT_LD + (lane >> 3) * 8;
+    uint32_t a[NT_WM][2][4];  // m-tile i, k-step j
+#pragma unroll
+    for (int i = 0; i < NT_WM; ++i) {
+      ldsm_x4(a[i][0], as + i * 16 * NT_LD);
+      ldsm_x4(a[i][1], as + i * 16 * NT_LD + 16);
+    }
+#pragma unroll
+    for (int t = 0; t < NT_BN / 8; ++t) {
+      if (t < nt) {
+        uint32_t b[4];  // n-tile t: K columns 0-7, 8-15 (k-step 0), 16-23, 24-31
+        ldsm_x4(b, bs + t * 8 * NT_LD);
+#pragma unroll
+        for (int i = 0; i < NT_WM; ++i) {
+          mma_bf16(acc[i][t], a[i][0], b[0], b[1]);
+          mma_bf16(acc[i][t], a[i][1], b[2], b[3]);
+        }
+      }
+    }
+  }
+  if (!active) return;
+  const int c2 = (lane & 3) * 2;
+#pragma unroll
+  for (int i = 0; i < NT_WM; ++i) {
+    const size_t r0 = size_t(m0 + row0 + i * 16 + (lane >> 2));
+#pragma unroll
+    for (int t = 0; t < NT_BN / 8; ++t) {
+      if (t < nt) {
+        const int c = n0 + 8 * t + c2;
+        *reinterpret_cast<uint32_t*>(out + r0 * N + c) = pack_bf2(acc[i][t][0], acc[i][t][1]);
+        *reinterpret_cast<uint32_t*>(out + (r0 + 8) * N + c) = pack_bf2(acc[i][t][2], acc[i][t][3]);
+      }
+    }
+  }
+}
+
 }  // namespace
 
 size_t reduce_rows_tmp_floats(int R, int N) {
@@ -155,4 +259,25 @@ cudaError_t gemm_tn(const bf16* A, const bf16* B, float* out, int K, int M, int 
   return reduce_rows(tmp, out, S, M * N, tmp + size_t(S) * M * N, stream);
 }
 
+cudaError_t gemm_nt(const bf16* A, const bf16* B, bf16* out, int M, int N, int K,
+                    cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(gemm_nt_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       int(kGemmNtSmem));
+  if (e != cudaSuccess) return e;
+  const dim3 grid((M + NT_BM - 1) / NT_BM, (N + NT_BN - 1) / NT_BN);
+  gemm_nt_kernel<<<grid, kCoreThreads, kGemmNtSmem, stream>>>(A, B, out, M, N, K);
+  return cudaGetLastError();
+}
+
 }  // namespace hs
+
+extern "C" {
+
+// out (M x N bf16) = A (M x K) B (N x K)^T; the wrapper checks the shapes
+int hs_gemm_nt(const void* A, const void* B, void* out, int M, int N, int K, void* stream) {
+  return int(hs::gemm_nt(static_cast<const hs::bf16*>(A), static_cast<const hs::bf16*>(B),
+                         static_cast<hs::bf16*>(out), M, N, K, static_cast<cudaStream_t>(stream)));
+}
+
+}  // extern "C"

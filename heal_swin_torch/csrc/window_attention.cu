@@ -10,9 +10,10 @@
 //      head and run of kAttnPairs windows.
 //   K16 hs_window_attention_qkv     <- _fwd_kernel_xw (fused_window_attention_qkv):
 //      x @ Wqkv + b -> attention, cosine or scaled-dot, the (T, C) result before the
-//      output projection; K1 without the projection and LayerNorm epilogue, one block
-//      per window.  Per window 384*C^2 + 16384*C FLOPs on 4*C*64 bytes of activations:
-//      bounded by the tensor cores' issue rate like K1.
+//      output projection: K1's kernel with the projection and LayerNorm epilogue off
+//      (qkv_epi_kernel<1, false, COS>), one block per window.  Per window 384*C^2 +
+//      16384*C FLOPs on 4*C*64 bytes of activations: bounded by the tensor cores' issue
+//      rate like K1.
 //
 // What bounds them on this card: per window K1 does 512*C^2 + 16384*C FLOPs (qkv and
 // proj products, QK^T and PV) on 256*C bytes of activations in and out, i.e. about
@@ -21,14 +22,13 @@
 // 32 FLOP/byte and is bounded by memory and latency.  The weights (C x 3C and C x C
 // bf16, up to 885 KB + 295 KB) do not fit in shared memory.
 //
-// What the designs do about it.  K1 and K2 run on attend_head_mma (attention.cuh):
+// What the designs do about it.  K1, K2 and K16 run on attend_head_mma (attention.cuh):
 // mma.sync products from ldmatrix fragments, scores, probabilities and the head output
-// in registers, no block barrier inside a head.  K1 streams its weights through a
-// cp.async ring per core into shared memory and keeps the x tile, the o tile and the
-// projection output u (registers) on chip; K2 overlaps the next pair's copy with the
-// current pair.  K16 keeps the earlier design: tiles in shared memory, 16x16x16 WMMA
-// products with the weights read as fragments from L2, 8 warps per window.  bf16
-// rounding happens at the same points as in the Pallas kernels: qkv, q_hat =
+// in registers, no block barrier inside a head.  K1 and K16 stream their weights
+// through a cp.async ring per core into shared memory and keep the x tile, the o tile
+// and (K1) the projection output u (registers) on chip; K2 overlaps the next pair's
+// copy with the current pair.  bf16 rounding happens at the same points as in the
+// Pallas kernels: qkv, q_hat =
 // q*scale/|q| and k_hat = k/|k|, p before PV (normalized in f32 first), o before the
 // projection, and the output.  Dynamic shared memory is above 48 KB, so each launch
 // opts in with cudaFuncSetAttribute.  wgmma and TMA pipelines are later work, once a
@@ -38,32 +38,6 @@
 
 namespace hs {
 namespace {
-
-struct HeadSmem {
-  bf16* q;
-  bf16* k;
-  bf16* v;
-  float* s;  // scores, then the head output o (f32, ld LD_T)
-  bf16* p;
-  int* g;    // the window's group ids (read only when masked)
-};
-
-__host__ __device__ inline size_t head_smem_bytes() {
-  return 3 * align128(size_t(WS) * LD_HEAD * 2) + align128(size_t(WS) * LD_S * 4) +
-         align128(size_t(WS) * LD_P * 2) + align128(size_t(WS) * 4);
-}
-
-__device__ inline HeadSmem carve_head(unsigned char* base) {
-  HeadSmem h;
-  size_t off = 0;
-  h.q = reinterpret_cast<bf16*>(base + off); off += align128(size_t(WS) * LD_HEAD * 2);
-  h.k = reinterpret_cast<bf16*>(base + off); off += align128(size_t(WS) * LD_HEAD * 2);
-  h.v = reinterpret_cast<bf16*>(base + off); off += align128(size_t(WS) * LD_HEAD * 2);
-  h.s = reinterpret_cast<float*>(base + off); off += align128(size_t(WS) * LD_S * 4);
-  h.p = reinterpret_cast<bf16*>(base + off); off += align128(size_t(WS) * LD_P * 2);
-  h.g = reinterpret_cast<int*>(base + off);
-  return h;
-}
 
 // ---------------------------------------------------------------------------------
 // K2: attention from qkv rows (T, 3C), cosine or scaled-dot.  Per (window, head) pair
@@ -77,7 +51,6 @@ __device__ inline HeadSmem carve_head(unsigned char* base) {
 // head output goes out as bf16 through the warp's own q rows, 16 bytes a store.
 // ---------------------------------------------------------------------------------
 constexpr int kAttnPairs = 4;
-constexpr int LD_BIAS = WS + 8;  // f32 bias rows: a quad's float2 reads conflict-free
 
 struct PairTile {
   bf16 q[WS * LD_HEAD];
@@ -173,18 +146,22 @@ attn_kernel(const bf16* __restrict__ qkv, const int* __restrict__ groups,
 }
 
 // ---------------------------------------------------------------------------------
-// K1: qkv projection + cosine attention + output projection (+ LayerNorm); one block of
-// two cores (8 warps) per 64-token window.  Per window 512 C^2 + 16384 C FLOPs on 256 C
+// K1: qkv projection + cosine attention + output projection (+ LayerNorm), and K16: qkv
+// projection + cosine or scaled-dot attention; one block of two cores (8 warps) per
+// 64-token window.  Per window 512 C^2 + 16384 C FLOPs on 256 C
 // bytes in and out (2 C + 64 FLOP/byte): at C >= 192 above the bf16 ridge, so what
 // bounds it is how well the tensor cores are fed.
 //
 // The window's x tile (64 x C bf16) stays in shared memory.  The cores take the heads in
 // turns (core 0 heads 0, 2, ..., core 1 heads 1, 3, ...; an odd head count leaves core
-// 0 one head alone).  For a head, each warp projects its 16 rows onto the head's q|k|v
-// columns (16 x C x 96, mma.sync from ldmatrix fragments), adds the bias, rounds,
-// cosine-normalizes with quad shuffles, keeps q_hat as A fragments and writes k_hat and
-// v once as bf16 tiles; attend_head_mma then leaves the head output in registers, which
-// go rounded into the o tile (64 x C bf16).  Weights are never read as fragments from
+// 0 one head alone, and at C = 32 core 1 has no head: without the epilogue it streams
+// nothing and waits only at the block barrier).  For a head, each warp projects its 16
+// rows onto the head's q|k|v columns (16 x C x 96, mma.sync from ldmatrix fragments in
+// ascending 16-wide k-steps), and qkv_head_epilogue adds the bias, rounds,
+// cosine-normalizes with quad shuffles (or not: scaled-dot), keeps q_hat as A fragments
+// and writes k_hat and v once as bf16 tiles; attend_head_mma then leaves the head output
+// in registers, which go rounded into the o tile (64 x C bf16).  K16 (EPI false) writes
+// the o tile out, 16 bytes a store.  Weights are never read as fragments from
 // L2: each core streams its weight chunks (KC rows of a head's q|k|v strips of Wqkv, then
 // of its column blocks of Wp) through its own kStages-deep cp.async ring, so the next
 // head's first chunks land while the current head attends, and a chunk costs one core
@@ -196,7 +173,7 @@ attn_kernel(const bf16* __restrict__ qkv, const int* __restrict__ groups,
 // ---------------------------------------------------------------------------------
 constexpr int KC = 32;                // weight rows per ring stage
 constexpr int kStages = 3;            // ring depth of each core
-constexpr int kMaxNT = 12;            // n-tiles (8 columns) of one product: q|k|v of a head
+constexpr int kMaxNT = kHeadNT;       // n-tiles (8 columns) of one product: q|k|v of a head
 constexpr int LD_W = kMaxNT * 8 + 8;  // ring rows: ldmatrix.trans over 8 rows conflict-free
 
 struct EpiLayout {
@@ -283,14 +260,15 @@ __device__ __forceinline__ void gemm_rows(float (&acc)[kMaxNT][4], const bf16* a
   }
 }
 
-template <int WPB>
+template <int WPB, bool EPI, bool COS>
 __global__ void __launch_bounds__(kThreads, WPB == 1 ? 2 : 1)
 qkv_epi_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
                const bf16* __restrict__ bqkv, const bf16* __restrict__ wp,
                const bf16* __restrict__ bp, const float* __restrict__ ln_g,
                const float* __restrict__ ln_b, const int* __restrict__ groups,
                const float* __restrict__ bias, const float* __restrict__ lscale,
-               bf16* __restrict__ out, int C, int has_ln, int has_mask, float ln_eps) {
+               bf16* __restrict__ out, int C, int has_ln, int has_mask, float ln_eps,
+               float sm_scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   const EpiLayout L = epi_layout(C);
   const int LDX = C + 8;
@@ -320,7 +298,7 @@ qkv_epi_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
   st.nk = C / KC;
   st.n_head_jobs = (H - core + 1) / 2;
   st.nt_p = C / (16 * WPB);
-  st.total = (st.n_head_jobs + WPB) * st.nk;
+  st.total = (st.n_head_jobs + (EPI ? WPB : 0)) * st.nk;
 
   // the x tile and group ids (one cp.async group), then each ring's first chunks
   const int chunks = C / 8;
@@ -344,61 +322,31 @@ qkv_epi_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
     for (int t = 0; t < kMaxNT; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
     gemm_rows(acc, xs, LDX, kMaxNT, st, s, gtid, row0);
 
-    // + b, rounded (qkv); q_hat = bf16(q * scale / |q|) as A fragments, k_hat = bf16(k /
-    // |k|) and v as the core's tiles; n-tiles 0-3 are q, 4-7 k, 8-11 v
-    float sq0 = 0.f, sq1 = 0.f, sk0 = 0.f, sk1 = 0.f;
-#pragma unroll
-    for (int t = 0; t < kMaxNT; ++t) {
-      const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-          bqkv + (t >> 2) * C + h * HD + (t & 3) * 8 + c2));
-      acc[t][0] = bfr(acc[t][0] + b.x);
-      acc[t][1] = bfr(acc[t][1] + b.y);
-      acc[t][2] = bfr(acc[t][2] + b.x);
-      acc[t][3] = bfr(acc[t][3] + b.y);
-      const float e0 = acc[t][0] * acc[t][0] + acc[t][1] * acc[t][1];
-      const float e1 = acc[t][2] * acc[t][2] + acc[t][3] * acc[t][3];
-      if (t < 4) {
-        sq0 += e0;
-        sq1 += e1;
-      } else if (t < 8) {
-        sk0 += e0;
-        sk1 += e1;
-      }
-    }
-    const float scale = lscale[h];
-    const float mq0 = rsqrtf(fmaxf(quad_sum(sq0), 1e-24f)) * scale;
-    const float mq1 = rsqrtf(fmaxf(quad_sum(sq1), 1e-24f)) * scale;
-    const float ik0 = rsqrtf(fmaxf(quad_sum(sk0), 1e-24f));
-    const float ik1 = rsqrtf(fmaxf(quad_sum(sk1), 1e-24f));
+    // qkv rounded; q_hat (or q) as A fragments, k_hat (or k) and v as the core's tiles
     uint32_t qa[2][4];
-#pragma unroll
-    for (int ks = 0; ks < 2; ++ks) {
-      qa[ks][0] = pack_bf2(acc[2 * ks][0] * mq0, acc[2 * ks][1] * mq0);
-      qa[ks][1] = pack_bf2(acc[2 * ks][2] * mq1, acc[2 * ks][3] * mq1);
-      qa[ks][2] = pack_bf2(acc[2 * ks + 1][0] * mq0, acc[2 * ks + 1][1] * mq0);
-      qa[ks][3] = pack_bf2(acc[2 * ks + 1][2] * mq1, acc[2 * ks + 1][3] * mq1);
-    }
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      const int c = 8 * n + c2;
-      *reinterpret_cast<uint32_t*>(kt + r0 * LD_HEAD + c) =
-          pack_bf2(acc[4 + n][0] * ik0, acc[4 + n][1] * ik0);
-      *reinterpret_cast<uint32_t*>(kt + r1 * LD_HEAD + c) =
-          pack_bf2(acc[4 + n][2] * ik1, acc[4 + n][3] * ik1);
-      *reinterpret_cast<uint32_t*>(vt + r0 * LD_HEAD + c) = pack_bf2(acc[8 + n][0], acc[8 + n][1]);
-      *reinterpret_cast<uint32_t*>(vt + r1 * LD_HEAD + c) = pack_bf2(acc[8 + n][2], acc[8 + n][3]);
-    }
+    float iq[2], ik[2];
+    qkv_head_epilogue<COS>(acc, bqkv + h * HD, C, COS ? lscale[h] : 1.f, qa, kt, vt, row0,
+                           iq, ik);
     group_sync(1 + core);  // the core's k_hat and v tiles are whole
 
     float o[4][4];
     attend_head_mma<false>(qa, kt, vt, bias + size_t(h) * WS * WS, WS, masked ? gs : nullptr,
-                           row0, 1.f, o);
+                           row0, COS ? 1.f : sm_scale, o);
 #pragma unroll
     for (int n = 0; n < 4; ++n) {
       const int c = h * HD + 8 * n + c2;
       *reinterpret_cast<uint32_t*>(os + r0 * LDX + c) = pack_bf2(o[n][0], o[n][1]);
       *reinterpret_cast<uint32_t*>(os + r1 * LDX + c) = pack_bf2(o[n][2], o[n][3]);
     }
+  }
+  if constexpr (!EPI) {  // K16: the o tile out, 16 bytes a store
+    __syncthreads();
+    for (int idx = tid; idx < WS * chunks; idx += kThreads) {
+      const int r = idx / chunks, c = (idx - r * chunks) * 8;
+      *reinterpret_cast<uint4*>(out + (tok0 + r) * C + c) =
+          *reinterpret_cast<const uint4*>(os + r * LDX + c);
+    }
+    return;
   }
   __syncthreads();  // the o tile is whole; the x tile is free
 
@@ -502,88 +450,6 @@ qkv_epi_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
   }
 }
 
-// ---------------------------------------------------------------------------------
-// K16: qkv projection + attention, cosine or scaled-dot; one block per window, each
-// head's 64 x 32 output straight to global memory.  Shared memory: x tile | one head's
-// f32 qkv | head scratch (117 KB at C = 384).
-// ---------------------------------------------------------------------------------
-struct QkvLayout {
-  size_t x, qkvf, head, total;
-};
-
-__host__ __device__ inline QkvLayout qkv_layout(int C) {
-  QkvLayout L;
-  size_t off = 0;
-  L.x = off; off += align128(size_t(WS) * (C + 8) * 2);
-  L.qkvf = off; off += align128(size_t(WS) * LD_QKV * 4);
-  L.head = off; off += head_smem_bytes();
-  L.total = off;
-  return L;
-}
-
-__global__ void __launch_bounds__(kThreads)
-qkv_attn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
-                const bf16* __restrict__ bqkv, const int* __restrict__ groups,
-                const float* __restrict__ bias, const float* __restrict__ lscale,
-                bf16* __restrict__ out, int C, int use_cos, int has_mask, float sm_scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const QkvLayout L = qkv_layout(C);
-  const int LDX = C + 8;
-  bf16* xs = reinterpret_cast<bf16*>(smem + L.x);
-  float* qkvf = reinterpret_cast<float*>(smem + L.qkvf);
-  const HeadSmem sh = carve_head(smem + L.head);
-
-  const int win = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int H = C / HD;
-  const size_t row0 = size_t(win) * WS;
-
-  const int chunks = C / 8;
-  for (int idx = tid; idx < WS * chunks; idx += kThreads) {
-    const int r = idx / chunks, q = idx % chunks;
-    reinterpret_cast<uint4*>(xs + r * LDX)[q] =
-        reinterpret_cast<const uint4*>(x + (row0 + r) * C)[q];
-  }
-  if (has_mask && tid < WS) sh.g[tid] = groups[row0 + tid];
-  __syncthreads();
-
-  for (int head = 0; head < H; ++head) {
-    project_head_qkv(xs, LDX, wqkv, C, head, qkvf);
-
-    // + b in f32, round qkv to bf16; cosine: q*scale/|q| and k/|k|, rounded again
-    {
-      const float scale = use_cos ? lscale[head] : 1.f;
-      const float bq = bf(bqkv[head * HD + lane]);
-      const float bk = bf(bqkv[C + head * HD + lane]);
-      const float bv = bf(bqkv[2 * C + head * HD + lane]);
-      for (int r = warp; r < WS; r += kWarps) {
-        const float* row = qkvf + r * LD_QKV;
-        float qv = bfr(row[lane] + bq);
-        float kv = bfr(row[HD + lane] + bk);
-        if (use_cos) {
-          qv *= rsqrtf(fmaxf(warp_sum(qv * qv), 1e-24f)) * scale;
-          kv *= rsqrtf(fmaxf(warp_sum(kv * kv), 1e-24f));
-        }
-        sh.q[r * LD_HEAD + lane] = to_bf(qv);
-        sh.k[r * LD_HEAD + lane] = to_bf(kv);
-        sh.v[r * LD_HEAD + lane] = to_bf(row[2 * HD + lane] + bv);
-      }
-    }
-    __syncthreads();
-
-    attend_head(sh.q, sh.k, sh.v, sh.s, sh.p, sh.g, has_mask != 0,
-                bias + size_t(head) * WS * WS, use_cos ? 1.f : sm_scale);
-
-    for (int idx = tid; idx < WS * HD; idx += kThreads) {
-      const int r = idx / HD, d = idx % HD;
-      out[(row0 + r) * C + head * HD + d] = to_bf(sh.s[r * LD_T + d]);
-    }
-    __syncthreads();
-  }
-}
-
 }  // namespace
 }  // namespace hs
 
@@ -596,7 +462,7 @@ int hs_window_attention_qkv_epi(const void* x, const void* wqkv, const void* bqk
                                 int has_mask, float ln_eps, void* stream) {
   using hs::bf16;
   // two column blocks of Wp per core past C = 192 (each at most kMaxNT n-tiles)
-  auto kernel = C > 192 ? hs::qkv_epi_kernel<2> : hs::qkv_epi_kernel<1>;
+  auto kernel = C > 192 ? hs::qkv_epi_kernel<2, true, true> : hs::qkv_epi_kernel<1, true, true>;
   const size_t smem = hs::epi_layout(C).total;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        int(smem));
@@ -607,7 +473,7 @@ int hs_window_attention_qkv_epi(const void* x, const void* wqkv, const void* bqk
       static_cast<const bf16*>(bp), static_cast<const float*>(ln_g),
       static_cast<const float*>(ln_b), static_cast<const int*>(groups),
       static_cast<const float*>(bias), static_cast<const float*>(lscale),
-      static_cast<bf16*>(out), C, has_ln, has_mask, ln_eps);
+      static_cast<bf16*>(out), C, has_ln, has_mask, ln_eps, 1.f);
   return int(cudaGetLastError());
 }
 
@@ -633,15 +499,17 @@ int hs_window_attention_qkv(const void* x, const void* wqkv, const void* bqkv,
                             int T, int C, int use_cos, int has_mask, float sm_scale,
                             void* stream) {
   using hs::bf16;
-  const size_t smem = hs::qkv_layout(C).total;
-  cudaError_t e = cudaFuncSetAttribute(hs::qkv_attn_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  auto kernel = use_cos ? hs::qkv_epi_kernel<1, false, true> : hs::qkv_epi_kernel<1, false, false>;
+  const size_t smem = hs::epi_layout(C).total;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       int(smem));
   if (e != cudaSuccess) return int(e);
-  hs::qkv_attn_kernel<<<T / hs::WS, hs::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<T / hs::WS, hs::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv),
-      static_cast<const bf16*>(bqkv), static_cast<const int*>(groups),
-      static_cast<const float*>(bias), static_cast<const float*>(lscale),
-      static_cast<bf16*>(out), C, use_cos, has_mask, sm_scale);
+      static_cast<const bf16*>(bqkv), nullptr, nullptr, nullptr, nullptr,
+      static_cast<const int*>(groups), static_cast<const float*>(bias),
+      static_cast<const float*>(lscale), static_cast<bf16*>(out), C, 0, has_mask, 0.f,
+      sm_scale);
   return int(cudaGetLastError());
 }
 

@@ -12,14 +12,13 @@
 //      _attn_bwd_body for scaled-dot), the backward of K2: one block per
 //      (window, head), dv, dp, ds and dq, dk from qkv rows and dout.
 //   K17 hs_window_attention_qkv_bwd <- _bwd_kernel_xw, the backward of K16 (x @ Wqkv
-//      + b -> attention, cosine or scaled-dot): one block per window; each head
-//      recomputes its qkv from the x tile (nothing parked in a workspace), runs K5's
-//      per-head backward on the upstream gradient of the (T, C) output, and leaves
-//      its bf16 dqkv rows in the workspace; then the block's dbqkv partial row and
-//      dx = dqkv Wqkv^T; dWqkv = x^T dqkv is the split-K gemm_tn over the tokens.
-//      K4 without the output projection and LayerNorm: per window 1152*C^2 +
-//      40960*C FLOPs (the qkv products, then five 64x64x32 products per head:
-//      QK^T recomputed, dv, dp, dq, dk), near or above the bf16 ridge like K4.
+//      + b -> attention, cosine or scaled-dot): one 4-warp block per head and run of
+//      kRun windows on the register-resident core of attention.cuh (described at the
+//      kernel below); then reduce_rows over the runs' partial rows, dWqkv = x^T dqkv
+//      (split-K gemm_tn over the tokens) and dx = dqkv Wqkv^T (gemm_nt), both in
+//      reduce.cu.  K4 without the output projection and LayerNorm: per window
+//      1152*C^2 + 40960*C FLOPs (the qkv products, then five 64x64x32 products per
+//      head: QK^T recomputed, dv, dp, dq, dk), near or above the bf16 ridge like K4.
 //
 // What bounds it on this card: K4 does about 3x K1's products per window (qkv and
 // output projections, QK^T and PV recomputed, PV^T, dP, two ds products, do and dx),
@@ -27,7 +26,7 @@
 // kernel accumulates across its sequential grid: dWqkv = x^T dqkv, dWp = o^T du,
 // dbias (h x 64 x 64), dlogit_scale, dbqkv, dbp, dgamma, dbeta.
 //
-// What the design does about it:
+// What the design of K4 and K5 does about it (K17's is at its kernel):
 // - Parameter gradients without atomics, in a fixed order: each block writes a
 //   partial row per window (its ds for dbias, and column sums for the vectors), and
 //   reduce.cu sums the rows; dWqkv and dWp are split-K products over the token axis
@@ -44,7 +43,7 @@
 // - bf16 rounding at the Pallas backward's points: qkv; (q/|q|)*scale and k/|k|; p
 //   before dv; ds before the q/k products; du before dWp and do; do; dqkv before dx
 //   and dW.  Products are 16x16x16 bf16 WMMA tiles with f32 accumulation, weights
-//   streamed from L2 as fragments as in K1; wgmma/TMA pipelines are later work.
+//   streamed from L2 as fragments; wgmma/TMA pipelines are later work.
 
 #include "attention.cuh"
 
@@ -523,116 +522,331 @@ qkv_epi_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
 }
 
 // ---------------------------------------------------------------------------------
-// K17: one block per window.  Shared memory: x tile | one head's f32 qkv | Head (with
-// the group ids); after the head loop the f32 dx staging (64 x (C + 4)) over all of
-// it (166 KB at C = 384).
+// K17: grid (runs of kRun consecutive windows, heads); one core (4 warps, each owning
+// 16 rows) per block.  What bounds the old one-block-per-window design was not the
+// products but how they were fed: the weights read as WMMA fragments from L2 inside
+// the k-loop, every per-head product through f32 tiles in shared memory with about ten
+// block barriers per head, and a partial row of H (64 x 64 + 1) + 3 C floats per
+// window, written and read back (3.7 GB over a train step).  Here:
+// - The head's q|k|v column strips of Wqkv (C x 96 bf16) and its 64 x 64 bias are
+//   loaded once per block and stay in shared memory for the run.
+// - Per window, the x tile and this head's 64 x 32 slice of dout arrive by cp.async;
+//   x is free once projected, so the next window's x (and group ids) are copied while
+//   this one runs its backward, and the next dout slice once dV has read this one.
+// - Each warp projects its 16 rows (mma.sync from ldmatrix fragments, ascending
+//   16-wide k-steps, as K1 and K16 do) and runs qkv_head_epilogue and head_probs_mma:
+//   the forward's q, k, v and P, bit for bit.  dP = dO v^T, ds = p (dP - rowsum(dP p))
+//   in f32 (the row sum over a quad) and dQ = dS k (dS repacked from the
+//   accumulators, as P in the forward) stay in registers; bf16 P and dS go once to
+//   64 x 64 tiles, and after one barrier each warp takes 16 key rows for dV = P^T dO
+//   and dK = dS^T q (ldmatrix.trans).  Cosine: the tangent projection of the
+//   normalization and the logit-scale term, per-row dots as quad sums; scaled-dot:
+//   sm_scale.  bf16 rounding at the plain version's points (p before dv, ds before
+//   the q/k products, dq, dk, dv); the score operand is the forward's bf16(q (uq
+//   scale)), where the plain backward rounds (q uq) scale, an f32 ulp apart at most.
+// - The f32 ds of every window accumulates in 32 registers a thread (the head's 64 x 64
+//   dbias), dls in one, and the dbqkv column sums of the rounded dq|dk|dv (read back
+//   from the staging tile that also gives the 16-byte stores of the dqkv workspace) in
+//   two: the block writes its slice of the run's partial row once, at its end, so
+//   reduce_rows reads kRun times fewer rows.
+// Five core barriers per window; nothing is atomic, so results do not change from run
+// to run.  Shared memory: 201,216 B at C = 384 and 136,704 B at C = 192 (one block an
+// SM), 104,448 B at C = 96 (two).
 // ---------------------------------------------------------------------------------
+constexpr int kRun = 8;             // windows one block walks
+constexpr int LD_WH = 3 * HD + 8;   // the head's q|k|v rows of Wqkv; the dq|dk|dv staging
+
 struct QkvBwdLayout {
-  size_t qkvf, head, total;
+  size_t w, x, q, k, v, dout, p, ds, st, bias, g, total;
 };
 
 __host__ __device__ inline QkvBwdLayout qkv_bwd_layout(int C) {
   QkvBwdLayout L;
-  size_t off = align128(size_t(WS) * (C + 8) * 2);  // the x tile at 0
-  L.qkvf = off; off += align128(size_t(WS) * LD_QKV * 4);
-  L.head = off; off += head_bytes();
-  const size_t stage = align128(size_t(WS) * (C + 4) * 4);
-  L.total = off > stage ? off : stage;
+  const size_t tile = align128(size_t(WS) * LD_HEAD * 2);
+  size_t off = 0;
+  L.w = off; off += align128(size_t(C) * LD_WH * 2);
+  L.x = off; off += align128(size_t(WS) * (C + 8) * 2);
+  L.q = off; off += tile;  // the score operand q_hat (cosine) or q, for dK
+  L.k = off; off += tile;  // k_hat or k, for the scores and dQ
+  L.v = off; off += tile;
+  L.dout = off; off += tile;
+  L.p = off; off += align128(size_t(WS) * LD_P * 2);
+  L.ds = off; off += align128(size_t(WS) * LD_P * 2);
+  L.st = off; off += align128(size_t(WS) * LD_WH * 2);
+  L.bias = off; off += align128(size_t(WS) * LD_BIAS * 4);
+  L.g = off; off += align128(2 * WS * 4);  // two windows' group ids
+  L.total = off;
   return L;
 }
 
-// the partial row of one window: [dbias (H x 64 x 64) | dls (H) | dbqkv (3C)]
+// the partial row of one run: [dbias (H x 64 x 64) | dls (H) | dbqkv (3C)]
 __host__ __device__ inline size_t qkv_part_width(int C) {
   return attn_part_width(C / HD) + 3 * size_t(C);
 }
 
-__global__ void __launch_bounds__(kThreads)
-qkv_attn_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
-                    const bf16* __restrict__ bqkv, const int* __restrict__ groups,
-                    const float* __restrict__ bias, const float* __restrict__ lscale,
-                    const bf16* __restrict__ dout, bf16* __restrict__ dx, bf16* dqkv_s,
-                    float* __restrict__ part, int C, int use_cos, int has_mask,
-                    float sm_scale) {
+__host__ __device__ inline int qkv_runs(int T) { return (T / WS + kRun - 1) / kRun; }
+
+template <bool COS>
+__global__ void __launch_bounds__(kCoreThreads)
+qkv_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
+               const bf16* __restrict__ bqkv, const int* __restrict__ groups,
+               const float* __restrict__ bias, const float* __restrict__ lscale,
+               const bf16* __restrict__ dout, bf16* __restrict__ dqkv,
+               float* __restrict__ part, int T, int C, int has_mask, float sm_scale) {
   extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ float red[kCoreWarps];
   const QkvBwdLayout L = qkv_bwd_layout(C);
   const int LDX = C + 8;
-  const int LDU = C + 4;
-  bf16* xs = reinterpret_cast<bf16*>(smem);
-  float* stage = reinterpret_cast<float*>(smem);  // dx, after the head loop
-  float* qkvf = reinterpret_cast<float*>(smem + L.qkvf);
-  const Head hd = carve_head(smem + L.head);
+  bf16* ws = reinterpret_cast<bf16*>(smem + L.w);
+  bf16* xs = reinterpret_cast<bf16*>(smem + L.x);
+  bf16* qt = reinterpret_cast<bf16*>(smem + L.q);
+  bf16* kt = reinterpret_cast<bf16*>(smem + L.k);
+  bf16* vt = reinterpret_cast<bf16*>(smem + L.v);
+  bf16* dt = reinterpret_cast<bf16*>(smem + L.dout);
+  bf16* pt = reinterpret_cast<bf16*>(smem + L.p);
+  bf16* dst = reinterpret_cast<bf16*>(smem + L.ds);
+  bf16* st = reinterpret_cast<bf16*>(smem + L.st);
+  float* bias_s = reinterpret_cast<float*>(smem + L.bias);
+  int* gs = reinterpret_cast<int*>(smem + L.g);
 
-  const int win = blockIdx.x;
+  const int head = blockIdx.y;
+  const int run = blockIdx.x;
+  const int w0 = run * kRun;
+  const int n = min(kRun, T / WS - w0);
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
   const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int row0 = warp * 16;
+  const int r0 = row0 + (lane >> 2), r1 = r0 + 8, c2 = (lane & 3) * 2;
   const int H = C / HD;
   const int C3 = 3 * C;
-  const size_t row0 = size_t(win) * WS;
-  float* prow = part + size_t(win) * qkv_part_width(C);
-
+  const bool masked = has_mask != 0;
+  const float scale = COS ? lscale[head] : 1.f;
   const int chunks = C / 8;
-  for (int idx = tid; idx < WS * chunks; idx += kThreads) {
-    const int r = idx / chunks, q = idx % chunks;
-    reinterpret_cast<uint4*>(xs + r * LDX)[q] =
-        reinterpret_cast<const uint4*>(x + (row0 + r) * C)[q];
-  }
-  if (has_mask && tid < WS) hd.g[tid] = groups[row0 + tid];
-  __syncthreads();
 
-  for (int head = 0; head < H; ++head) {
-    project_head_qkv(xs, LDX, wqkv, C, head, qkvf);
-    // q, k, v = bf16(x Wqkv + b), and this head's columns of dout
-    {
-      const float bq = bf(bqkv[head * HD + lane]);
-      const float bk = bf(bqkv[C + head * HD + lane]);
-      const float bv = bf(bqkv[2 * C + head * HD + lane]);
-      for (int r = warp; r < WS; r += kWarps) {
-        const float* row = qkvf + r * LD_QKV;
-        const int i = r * LD_HEAD + lane;
-        hd.qr[i] = to_bf(row[lane] + bq);
-        hd.kr[i] = to_bf(row[HD + lane] + bk);
-        hd.v[i] = to_bf(row[2 * HD + lane] + bv);
-        hd.dob[i] = dout[(row0 + r) * C + head * HD + lane];
+  // cp.async copies of window w's x tile and group ids (into buffer b), and of its dout
+  // slice; the caller commits
+  auto stage_x = [&](int w, int b) {
+    const size_t tok0 = size_t(w) * WS;
+    for (int idx = tid; idx < WS * chunks; idx += kCoreThreads) {
+      const int r = idx / chunks, c = (idx - r * chunks) * 8;
+      cp_async16(xs + r * LDX + c, x + (tok0 + r) * C + c);
+    }
+    if (masked && tid < WS / 4) cp_async16(gs + b * WS + tid * 4, groups + tok0 + tid * 4);
+  };
+  auto stage_dout = [&](int w) {
+    const size_t tok0 = size_t(w) * WS;
+    for (int idx = tid; idx < WS * 4; idx += kCoreThreads) {
+      const int r = idx >> 2, c = (idx & 3) * 8;
+      cp_async16(dt + r * LD_HEAD + c, dout + (tok0 + r) * C + head * HD + c);
+    }
+  };
+
+  // the run's resident operands: the head's q|k|v strips of Wqkv and its bias
+  for (int idx = tid; idx < C * kHeadNT; idx += kCoreThreads) {
+    const int r = idx / kHeadNT, t = idx - r * kHeadNT;
+    cp_async16(ws + r * LD_WH + t * 8, wqkv + size_t(r) * C3 + (t >> 2) * C + head * HD + (t & 3) * 8);
+  }
+  const float* bias_h = bias + size_t(head) * WS * WS;
+  for (int idx = tid; idx < WS * WS / 4; idx += kCoreThreads) {
+    const int r = idx >> 4, c = (idx & 15) * 4;
+    cp_async16(bias_s + r * LD_BIAS + c, bias_h + r * WS + c);
+  }
+  stage_x(w0, 0);
+  stage_dout(w0);
+  cp_async_commit();
+
+  float dbias[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) dbias[j][0] = dbias[j][1] = dbias[j][2] = dbias[j][3] = 0.f;
+  float dls = 0.f;
+  float cs0 = 0.f, cs1 = 0.f;  // dbqkv: column pair (tid % 48) over rows of half tid / 48
+  const bf16* arow = xs + (row0 + (lane & 15)) * LDX + (lane >> 4) * 8;
+  const bf16* wrow = ws + (lane & 15) * LD_WH + (lane >> 4) * 8;
+
+  for (int i = 0; i < n; ++i) {
+    const size_t tok0 = size_t(w0 + i) * WS;
+    cp_async_wait<0>();
+    __syncthreads();  // window i's x, group ids and dout have landed
+
+    // qkv = x Wqkv over the head's columns: 16 rows x 12 n-tiles a warp
+    float acc[kHeadNT][4];
+#pragma unroll
+    for (int t = 0; t < kHeadNT; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+    for (int kk = 0; kk < C; kk += 16) {
+      uint32_t a[4];
+      ldsm_x4(a, arow + kk);
+#pragma unroll
+      for (int np = 0; np < kHeadNT / 2; ++np) {
+        uint32_t b[4];
+        ldsm_x4_t(b, wrow + kk * LD_WH + np * 16);
+        mma_bf16(acc[2 * np], a, b[0], b[1]);
+        mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
       }
     }
-    __syncthreads();
-    const float scale = use_cos ? lscale[head] : 1.f;
-    prepare_head(hd, use_cos != 0, scale);
-    head_backward(hd, hd.dob, LD_HEAD, use_cos != 0, has_mask != 0,
-                  bias + size_t(head) * WS * WS, scale, sm_scale, dqkv_s + row0 * C3, C, head,
-                  prow + size_t(head) * WS * WS, prow + size_t(H) * WS * WS + head);
+    __syncthreads();  // every warp has read x: the buffer takes the next window's
+    if (i + 1 < n) stage_x(w0 + i + 1, (i + 1) & 1);
+    cp_async_commit();
+
+    uint32_t qa[2][4];
+    float iq[2] = {1.f, 1.f}, ik[2] = {1.f, 1.f};
+    qkv_head_epilogue<COS>(acc, bqkv + head * HD, C, scale, qa, kt, vt, row0, iq, ik);
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {  // the score operand for dK, from its A fragments
+      const int c = 16 * ks + c2;
+      *reinterpret_cast<uint32_t*>(qt + r0 * LD_HEAD + c) = qa[ks][0];
+      *reinterpret_cast<uint32_t*>(qt + r1 * LD_HEAD + c) = qa[ks][1];
+      *reinterpret_cast<uint32_t*>(qt + r0 * LD_HEAD + c + 8) = qa[ks][2];
+      *reinterpret_cast<uint32_t*>(qt + r1 * LD_HEAD + c + 8) = qa[ks][3];
+    }
+    // cosine: the rounded q and k rows of this warp, for the tangent projection
+    uint32_t qraw[4][2], kraw[4][2];
+    if constexpr (COS) {
+#pragma unroll
+      for (int nn = 0; nn < 4; ++nn) {
+        qraw[nn][0] = pack_bf2(acc[nn][0], acc[nn][1]);
+        qraw[nn][1] = pack_bf2(acc[nn][2], acc[nn][3]);
+        kraw[nn][0] = pack_bf2(acc[4 + nn][0], acc[4 + nn][1]);
+        kraw[nn][1] = pack_bf2(acc[4 + nn][2], acc[4 + nn][3]);
+      }
+    }
+    __syncthreads();  // the q, k, v tiles are whole
+
+    float p[8][4];
+    head_probs_mma<false>(qa, kt, bias_s, LD_BIAS, masked ? gs + (i & 1) * WS : nullptr, row0,
+                          COS ? 1.f : sm_scale, p);
+    uint32_t da[2][4];
+    load_q_frags(da, dt, row0);
+    float ds[8][4];
+    frags_times_tile_t(da, vt, ds);  // dP = dO v^T
+    float t0 = 0.f, t1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      t0 += ds[j][0] * p[j][0] + ds[j][1] * p[j][1];
+      t1 += ds[j][2] * p[j][2] + ds[j][3] * p[j][3];
+    }
+    t0 = quad_sum(t0);
+    t1 = quad_sum(t1);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      ds[j][0] = p[j][0] * (ds[j][0] - t0);
+      ds[j][1] = p[j][1] * (ds[j][1] - t0);
+      ds[j][2] = p[j][2] * (ds[j][2] - t1);
+      ds[j][3] = p[j][3] * (ds[j][3] - t1);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dbias[j][e] += ds[j][e];
+      const int c = 8 * j + c2;
+      *reinterpret_cast<uint32_t*>(pt + r0 * LD_P + c) = pack_bf2(p[j][0], p[j][1]);
+      *reinterpret_cast<uint32_t*>(pt + r1 * LD_P + c) = pack_bf2(p[j][2], p[j][3]);
+      *reinterpret_cast<uint32_t*>(dst + r0 * LD_P + c) = pack_bf2(ds[j][0], ds[j][1]);
+      *reinterpret_cast<uint32_t*>(dst + r1 * LD_P + c) = pack_bf2(ds[j][2], ds[j][3]);
+    }
+    float dq[4][4];
+    acc_times_tile(ds, kt, dq);  // dQ = dS k (k_hat for cosine)
+    __syncthreads();  // the P and dS tiles are whole
+
+    float dv[4][4], dk[4][4];
+    tile_t_times_tile(pt, row0, dt, dv);  // dV = P^T dO, this warp's 16 keys
+    tile_t_times_tile(dst, row0, qt, dk);  // dK = dS^T q (q_hat scale for cosine)
+    if constexpr (COS) {
+      // dq = uq scale (a - q_hat <a, q_hat>), dk = uk (b - k_hat <b, k_hat>), with
+      // q_hat = q uq and k_hat = k uk in f32; dls += <a, q_hat> per row
+      float2 qh[4][2], kh[4][2];
+      float rq0 = 0.f, rq1 = 0.f, rk0 = 0.f, rk1 = 0.f;
+#pragma unroll
+      for (int nn = 0; nn < 4; ++nn) {
+        const float2 q0 = unpack_bf2(qraw[nn][0]), q1 = unpack_bf2(qraw[nn][1]);
+        const float2 k0 = unpack_bf2(kraw[nn][0]), k1 = unpack_bf2(kraw[nn][1]);
+        qh[nn][0] = make_float2(q0.x * iq[0], q0.y * iq[0]);
+        qh[nn][1] = make_float2(q1.x * iq[1], q1.y * iq[1]);
+        kh[nn][0] = make_float2(k0.x * ik[0], k0.y * ik[0]);
+        kh[nn][1] = make_float2(k1.x * ik[1], k1.y * ik[1]);
+        rq0 += dq[nn][0] * qh[nn][0].x + dq[nn][1] * qh[nn][0].y;
+        rq1 += dq[nn][2] * qh[nn][1].x + dq[nn][3] * qh[nn][1].y;
+        rk0 += dk[nn][0] * kh[nn][0].x + dk[nn][1] * kh[nn][0].y;
+        rk1 += dk[nn][2] * kh[nn][1].x + dk[nn][3] * kh[nn][1].y;
+      }
+      rq0 = quad_sum(rq0);
+      rq1 = quad_sum(rq1);
+      rk0 = quad_sum(rk0);
+      rk1 = quad_sum(rk1);
+      dls += rq0 + rq1;
+      const float mq0 = iq[0] * scale, mq1 = iq[1] * scale;
+#pragma unroll
+      for (int nn = 0; nn < 4; ++nn) {
+        dq[nn][0] = (dq[nn][0] - qh[nn][0].x * rq0) * mq0;
+        dq[nn][1] = (dq[nn][1] - qh[nn][0].y * rq0) * mq0;
+        dq[nn][2] = (dq[nn][2] - qh[nn][1].x * rq1) * mq1;
+        dq[nn][3] = (dq[nn][3] - qh[nn][1].y * rq1) * mq1;
+        dk[nn][0] = (dk[nn][0] - kh[nn][0].x * rk0) * ik[0];
+        dk[nn][1] = (dk[nn][1] - kh[nn][0].y * rk0) * ik[0];
+        dk[nn][2] = (dk[nn][2] - kh[nn][1].x * rk1) * ik[1];
+        dk[nn][3] = (dk[nn][3] - kh[nn][1].y * rk1) * ik[1];
+      }
+    } else {
+#pragma unroll
+      for (int nn = 0; nn < 4; ++nn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          dq[nn][e] *= sm_scale;
+          dk[nn][e] *= sm_scale;
+        }
+    }
+    // dq | dk | dv rounded, staged for the 16-byte stores and the column sums
+#pragma unroll
+    for (int nn = 0; nn < 4; ++nn) {
+      const int c = 8 * nn + c2;
+      *reinterpret_cast<uint32_t*>(st + r0 * LD_WH + c) = pack_bf2(dq[nn][0], dq[nn][1]);
+      *reinterpret_cast<uint32_t*>(st + r1 * LD_WH + c) = pack_bf2(dq[nn][2], dq[nn][3]);
+      *reinterpret_cast<uint32_t*>(st + r0 * LD_WH + HD + c) = pack_bf2(dk[nn][0], dk[nn][1]);
+      *reinterpret_cast<uint32_t*>(st + r1 * LD_WH + HD + c) = pack_bf2(dk[nn][2], dk[nn][3]);
+      *reinterpret_cast<uint32_t*>(st + r0 * LD_WH + 2 * HD + c) = pack_bf2(dv[nn][0], dv[nn][1]);
+      *reinterpret_cast<uint32_t*>(st + r1 * LD_WH + 2 * HD + c) = pack_bf2(dv[nn][2], dv[nn][3]);
+    }
+    __syncthreads();  // the staging is whole; every warp has read this dout slice
+    if (i + 1 < n) stage_dout(w0 + i + 1);
+    cp_async_commit();
+    for (int idx = tid; idx < WS * kHeadNT; idx += kCoreThreads) {
+      const int r = idx / kHeadNT, t = idx - r * kHeadNT;
+      *reinterpret_cast<uint4*>(dqkv + (tok0 + r) * C3 + (t >> 2) * C + head * HD + (t & 3) * 8) =
+          *reinterpret_cast<const uint4*>(st + r * LD_WH + t * 8);
+    }
+    if (tid < 3 * HD) {
+      const int half = tid / (3 * HD / 2), pair = tid - half * (3 * HD / 2);
+#pragma unroll 8
+      for (int r = half * (WS / 2); r < (half + 1) * (WS / 2); ++r) {
+        const float2 v = unpack_bf2(*reinterpret_cast<const uint32_t*>(st + r * LD_WH + 2 * pair));
+        cs0 += v.x;
+        cs1 += v.y;
+      }
+    }
   }
 
-  // dbqkv (column sums of the bf16 dqkv) and dx = dqkv Wqkv^T, staged in f32
-  float* prow_b = prow + attn_part_width(H);
-  for (int c = tid; c < C3; c += kThreads) {
-    float s = 0.f;
-    for (int r = 0; r < WS; ++r) s += bf(dqkv_s[(row0 + r) * C3 + c]);
-    prow_b[c] = s;
+  // this block's slice of the run's partial row (odd widths at odd H: 4-byte stores)
+  float* prow = part + size_t(run) * qkv_part_width(C);
+  float* pb = prow + size_t(head) * WS * WS;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int c = 8 * j + c2;
+    pb[r0 * WS + c] = dbias[j][0];
+    pb[r0 * WS + c + 1] = dbias[j][1];
+    pb[r1 * WS + c] = dbias[j][2];
+    pb[r1 * WS + c + 1] = dbias[j][3];
   }
-  const int ntiles = 4 * (C / 16);
-  for (int t = warp; t < ntiles; t += kWarps) {
-    const int rt = t & 3, ct = t >> 2;
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
-    for (int kk = 0; kk < C3; kk += 16) {
-      FragA a;
-      FragBt b;  // element (k, n) of Wqkv^T at wqkv[n * 3C + k]
-      wmma::load_matrix_sync(a, dqkv_s + (row0 + rt * 16) * C3 + kk, C3);
-      wmma::load_matrix_sync(b, wqkv + size_t(ct) * 16 * C3 + kk, C3);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync(stage + rt * 16 * LDU + ct * 16, acc, LDU, wmma::mem_row_major);
-  }
+  const float dl = warp_sum((lane & 3) == 0 ? dls : 0.f);  // each row's term once
+  if (lane == 0) red[warp] = dl;
+  __syncthreads();  // every thread is done with the staging tile
+  float* colsum = reinterpret_cast<float*>(st);
+  if (tid < 3 * HD) *reinterpret_cast<float2*>(colsum + 2 * tid) = make_float2(cs0, cs1);
   __syncthreads();
-  for (int idx = tid; idx < WS * C; idx += kThreads) {
-    const int r = idx / C, c = idx % C;
-    dx[(row0 + r) * C + c] = to_bf(stage[r * LDU + c]);
+  if (tid == 0) prow[size_t(H) * WS * WS + head] = red[0] + red[1] + red[2] + red[3];
+  if (tid < 3 * HD) {  // column tid of the head's q|k|v: half 0 (rows 0-31) + half 1
+    prow[attn_part_width(H) + (tid / HD) * C + head * HD + tid % HD] =
+        colsum[tid] + colsum[3 * HD + tid];
   }
 }
 
-// the workspace of K17: dqkv (bf16 rows), the per-window partial rows, and the
+// the workspace of K17: dqkv (bf16 rows), the per-run partial rows, and the
 // reductions' scratch
 struct QkvBwdWork {
   size_t dqkv, part, tmp, total;
@@ -640,12 +854,12 @@ struct QkvBwdWork {
 
 inline QkvBwdWork qkv_bwd_work(int T, int C) {
   QkvBwdWork w;
-  const int nw = T / WS;
+  const int runs = qkv_runs(T);
   const int W = int(qkv_part_width(C));
   size_t off = 0;
   w.dqkv = off; off += align128(size_t(T) * 3 * C * 2);
-  w.part = off; off += align128(size_t(nw) * W * 4);
-  size_t tmp = reduce_rows_tmp_floats(nw, W);
+  w.part = off; off += align128(size_t(runs) * W * 4);
+  size_t tmp = reduce_rows_tmp_floats(runs, W);
   const size_t g = gemm_tn_tmp_floats(T, C, 3 * C);
   tmp = tmp > g ? tmp : g;
   w.tmp = off; off += align128(tmp * 4);
@@ -726,28 +940,31 @@ int hs_window_attention_qkv_bwd(const void* x, const void* wqkv, const void* bqk
                                 void* stream) {
   using hs::bf16;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto kernel = use_cos ? hs::qkv_bwd_kernel<true> : hs::qkv_bwd_kernel<false>;
   const size_t smem = hs::qkv_bwd_layout(C).total;
-  cudaError_t e = cudaFuncSetAttribute(hs::qkv_attn_bwd_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       int(smem));
   if (e != cudaSuccess) return int(e);
   const hs::QkvBwdWork w = hs::qkv_bwd_work(T, C);
   unsigned char* base = static_cast<unsigned char*>(work);
   bf16* dqkv_s = reinterpret_cast<bf16*>(base + w.dqkv);
   float* part = reinterpret_cast<float*>(base + w.part);
   float* tmp = reinterpret_cast<float*>(base + w.tmp);
-  const int nw = T / hs::WS;
-  hs::qkv_attn_bwd_kernel<<<nw, hs::kThreads, smem, s>>>(
+  const int runs = hs::qkv_runs(T);
+  kernel<<<dim3(runs, C / hs::HD), hs::kCoreThreads, smem, s>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv),
       static_cast<const bf16*>(bqkv), static_cast<const int*>(groups),
       static_cast<const float*>(bias), static_cast<const float*>(lscale),
-      static_cast<const bf16*>(dout), static_cast<bf16*>(dx), dqkv_s, part, C, use_cos,
-      has_mask, sm_scale);
+      static_cast<const bf16*>(dout), dqkv_s, part, T, C, has_mask, sm_scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return int(e);
-  e = hs::reduce_rows(part, static_cast<float*>(red), nw, int(hs::qkv_part_width(C)), tmp, s);
+  e = hs::reduce_rows(part, static_cast<float*>(red), runs, int(hs::qkv_part_width(C)), tmp, s);
   if (e != cudaSuccess) return int(e);
-  return int(hs::gemm_tn(static_cast<const bf16*>(x), dqkv_s, static_cast<float*>(dwqkv), T, C,
-                         3 * C, tmp, s));
+  e = hs::gemm_tn(static_cast<const bf16*>(x), dqkv_s, static_cast<float*>(dwqkv), T, C,
+                  3 * C, tmp, s);
+  if (e != cudaSuccess) return int(e);
+  return int(hs::gemm_nt(dqkv_s, static_cast<const bf16*>(wqkv), static_cast<bf16*>(dx), T, C,
+                         3 * C, s));
 }
 
 size_t hs_window_attention_qkv_epi_bwd_workspace(int T, int C) {

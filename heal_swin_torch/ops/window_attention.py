@@ -13,6 +13,9 @@ backward are each a kernel wrapper beside its plain version:
   cosine or scaled-dot, (T, C) -> the (T, C) result before the output projection
   (Pallas ``fused_window_attention_qkv``).
 
+``gemm_nt`` is K17's dx product (dqkv Wqkv^T, ``csrc/reduce.cu``) on its own, beside its
+plain twin ``gemm_nt_plain``, so that the product can be held to it alone.
+
 Operands: ``groups`` (T/ws, ws) int32 mask group ids (attention between tokens of
 different groups gets an additive -100); ``bias`` (h, ws, ws) f32 relative-position
 bias or None; ``logit_scale`` (h,) f32, already exp(min(., ln 100)).  Weights are in
@@ -239,8 +242,14 @@ def window_attention_qkv_bwd_plain(x, wqkv, bqkv, groups, bias, logit_scale, dou
         _qkv_rows(x, wqkv, bqkv).to(dt), groups, bias, logit_scale, dout, ws=ws,
         num_heads=num_heads, use_cos=use_cos, sm_scale=sm_scale, has_mask=has_mask)
     dqkv = dqkv.float()
-    dx = (dqkv @ wqkv.to(dt).float().t()).to(dt)
+    dx = gemm_nt_plain(dqkv, wqkv.to(dt))
     return dx, x.float().t() @ dqkv, dqkv.sum(0), dbias, dls
+
+
+def gemm_nt_plain(a, b):
+    """Plain twin of ``gemm_nt``: a (M, K) @ b (N, K)^T in f32 from the operands as
+    they are, rounded to b's dtype."""
+    return (a.float() @ b.float().t()).to(b.dtype)
 
 
 def window_attention_qkv_epi_bwd_plain(x, wqkv, bqkv, wp, bp, ln_scale, ln_bias, groups,
@@ -606,6 +615,28 @@ def window_attention_qkv_bwd(x, wqkv, bqkv, groups, bias, logit_scale, dout, *, 
     _count(what, T, C, has_mask)
     return (dx, dwq, red[nb + h:], red[:nb].reshape(h, KERNEL_WS, KERNEL_WS),
             red[nb:nb + h] if use_cos else None)
+
+
+def gemm_nt(a, b, *, impl="auto"):
+    """a (M, K) @ b (N, K)^T -> (M, N) bf16 through ``gemm_nt`` of ``csrc/reduce.cu``, the
+    product K17 runs for dx = dqkv Wqkv^T (inside K17's entry, counted as K17's
+    launch); bf16 operands, M % 64 == 0, K % 32 == 0, N % 8 == 0.  Plain twin:
+    ``gemm_nt_plain``."""
+    if not use_kernel(a, impl):
+        return gemm_nt_plain(a, b)
+    what = "gemm_nt"
+    (M, K), (N, Kb) = a.shape, b.shape
+    if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
+        refuse(f"{what}: the kernel takes bfloat16 operands, got {a.dtype}, {b.dtype}")
+    if K != Kb or M % 64 or K % 32 or N % 8:
+        refuse(f"{what}: the kernel takes M % 64 == 0, K % 32 == 0 and N % 8 == 0, got "
+               f"a {tuple(a.shape)}, b {tuple(b.shape)}")
+    a, b = a.contiguous(), b.contiguous()
+    _check_cuda_operands(what, [a, b])
+    out = torch.empty((M, N), dtype=a.dtype, device=a.device)
+    check(_build.lib().hs_gemm_nt(a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K,
+                                  stream(a)), what)
+    return out
 
 
 # --------------------------------------------------------------------------- autograd

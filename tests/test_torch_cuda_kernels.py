@@ -475,11 +475,13 @@ def _qkv_args(gen, dev, C, T, masked, use_cos, qkv_bias):
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("use_cos", [False, True])
 @pytest.mark.parametrize("qkv_bias", [True, False])
-def test_qkv_kernels(dev, C, masked, use_cos, qkv_bias):
+@pytest.mark.parametrize("windows", [16, 21])
+def test_qkv_kernels(dev, C, masked, use_cos, qkv_bias, windows):
     """K16 and K17 against their plain versions: the output, dx and every parameter
-    gradient; a second K17 launch gives the same bits (no float atomics)."""
-    gen = torch.Generator().manual_seed(20 + C)
-    T = 64 * 16
+    gradient; a second K17 launch gives the same bits (no float atomics).  21 windows
+    leave K17's last run of 8 windows 5 long."""
+    gen = torch.Generator().manual_seed(20 + C + windows)
+    T = 64 * windows
     args = _qkv_args(gen, dev, C, T, masked, use_cos, qkv_bias)
     dout = _randn(gen, dev, T, C).to(torch.bfloat16)
     kw = dict(ws=64, num_heads=C // 32, use_cos=use_cos, sm_scale=32 ** -0.5,
@@ -500,6 +502,126 @@ def test_qkv_kernels(dev, C, masked, use_cos, qkv_bias):
         _assert_grads_close(grads[2:3], want[2:3])
     again = wa.window_attention_qkv_bwd(*args, dout, **kw)
     assert all(g is None or torch.equal(g, a) for g, a in zip(grads, again))
+
+
+@pytest.mark.parametrize("C", [32, 96, 160])
+@pytest.mark.parametrize("use_cos", [False, True])
+def test_qkv_kernels_edge_rows(dev, C, use_cos):
+    """K16 and K17 with the edge rows of K2's test (rows alone in their mask group, a
+    row whose bias is -1e30 everywhere), masked: finite, within 1e-2 of the plain
+    versions, and second launches bit-equal."""
+    gen = torch.Generator().manual_seed(30 + C)
+    T = 64 * 4
+    x, wq, bq, groups, bias, ls = _qkv_args(gen, dev, C, T, True, use_cos, True)
+    groups, bias = _edge_rows(dev, groups, bias)
+    args = (x, wq, bq, groups, bias, ls)
+    dout = _randn(gen, dev, T, C).to(torch.bfloat16)
+    kw = dict(ws=64, num_heads=C // 32, use_cos=use_cos, sm_scale=32 ** -0.5, has_mask=True)
+    got = wa.window_attention_qkv_fwd(*args, **kw)
+    grads = wa.window_attention_qkv_bwd(*args, dout, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert _rel_l2(got, wa.window_attention_qkv_plain(*args, **kw)) < 1e-2
+    _assert_grads_close(grads, wa.window_attention_qkv_bwd_plain(*args, dout, **kw))
+    assert torch.equal(got, wa.window_attention_qkv_fwd(*args, **kw))
+    again = wa.window_attention_qkv_bwd(*args, dout, **kw)
+    assert all(g is None or torch.equal(g, a) for g, a in zip(grads, again))
+
+
+def _probe_v(dev, T, C, gen, std):
+    """x (T, C) whose channel r < 32 is one-hot on row r of each window's first 32 rows
+    (rows 32-63 zero there), its other channels random; Wqkv (C, 3C) random but for head
+    0's v columns, [I_32; 0]; so head 0's v rows are e_r for keys r < 32 and 0 beyond, and
+    K16's o[i, c] is bf16(P[i, key c])."""
+    bf = torch.bfloat16
+    x = _randn(gen, dev, T, C, std=std)
+    x.view(T // 64, 64, C)[:, :, :32] = 0
+    x.view(T // 64, 64, C)[:, :32, :32] = torch.eye(32, device=dev)
+    wq = _randn(gen, dev, C, 3 * C, std=C ** -0.5)
+    wq[:, 2 * C:2 * C + 32] = 0
+    wq[:32, 2 * C:2 * C + 32] = torch.eye(32, device=dev)
+    return x.to(bf), wq.to(bf)
+
+
+def _probe_dout(dev, T, C):
+    """dout whose head-0 columns are one-hot on each window's rows: dO[i, c] = (i == c),
+    so that K17's dv[key, c] = bf16(P[c, key]), and with x of ``_probe_v`` on one
+    window dWqkv[key, 2C + c] = dv[key, c] for key < 32."""
+    dout = torch.zeros(T, C, device=dev)
+    dout.view(T // 64, 64, C)[:, :32, :32] = torch.eye(32, device=dev)
+    return dout.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("use_cos", [False, True])
+def test_qkv_bwd_recomputes_the_forward_probabilities(dev, use_cos):
+    """K17 recomputes K16's probabilities bit for bit (one window, C 96, masked): K16's
+    o[c, key] = bf16(P[c, key]) through head 0's v = e_key, and K17's dWqkv[key, 2C + c] =
+    dv[key, c] = bf16(P[c, key]) through dO[i, c] = (i == c), for queries c and keys < 32."""
+    gen = torch.Generator().manual_seed(40 + use_cos)
+    C, T = 96, 64
+    x, wq = _probe_v(dev, T, C, gen, 1.0)
+    bq = _randn(gen, dev, 3 * C, std=0.1).to(torch.bfloat16)
+    bq[2 * C:] = 0
+    groups = torch.randint(0, 3, (1, 64), generator=gen, dtype=torch.int32).to(dev)
+    bias = _randn(gen, dev, 3, 64, 64, std=0.5)
+    ls = torch.exp(_randn(gen, dev, 3, std=0.5) + 2.3) if use_cos else None
+    kw = dict(ws=64, num_heads=3, use_cos=use_cos, sm_scale=32 ** -0.5, has_mask=True)
+    args = (x, wq, bq, groups, bias, ls)
+    o = wa.window_attention_qkv_fwd(*args, **kw)
+    _, dwq, *_ = wa.window_attention_qkv_bwd(*args, _probe_dout(dev, T, C), **kw)
+    torch.cuda.synchronize()
+    p_fwd = o[:32, :32].float()
+    p_bwd = dwq[:32, 2 * C:2 * C + 32].t()
+    assert (p_fwd > 0).sum() > 256  # the probe reads real probabilities
+    assert torch.equal(p_fwd, p_bwd)
+
+
+def test_qkv_kernels_probabilities_near_underflow(dev):
+    """K16's and K17's bf16 probabilities, read through the probes above (one window,
+    C 64, x one-hot on every row so that q, k and v are exact rows of Wqkv) on rows whose
+    biases fall from 0 to -100 across the keys: each within one bf16 ulp of bf16(e / d)
+    computed in f32, down to bf16's subnormals and at the e <= 2^-134 whose division the
+    kernels skip; K16's and K17's equal bit for bit where both give them."""
+    gen = torch.Generator().manual_seed(14)
+    C, T = 64, 64
+    bf = torch.bfloat16
+    x = torch.eye(64, device=dev).to(bf)
+    wq = _randn(gen, dev, C, 3 * C, std=1.0)
+    wq[:, 2 * C:2 * C + 32] = 0
+    wq[:32, 2 * C:2 * C + 32] = torch.eye(32, device=dev)
+    wq = wq.to(bf)
+    ramp = torch.arange(64, device=dev)
+    bias = (-100.0 / 63 * ((ramp[None, :] + ramp[:, None]) % 64)).reshape(1, 64, 64)
+    bias = bias.expand(2, 64, 64).contiguous()
+    kw = dict(ws=64, num_heads=2, use_cos=False, sm_scale=32 ** -0.5, has_mask=False)
+    args = (x, wq, None, None, bias, None)
+    o = wa.window_attention_qkv_fwd(*args, **kw)
+    _, dwq, *_ = wa.window_attention_qkv_bwd(*args, _probe_dout(dev, T, C), **kw)
+    torch.cuda.synchronize()
+    qkv = wa._qkv_rows(x, wq, None).reshape(1, 64, 3, 2, 32)
+    p = wa._softmax(wa._scores(qkv[:, :, 0], qkv[:, :, 1], None, bias, False, 32 ** -0.5))
+    want = p[0, 0].to(bf).double()  # (query, key)
+    assert ((want > 0) & (want < 2.0 ** -126)).any() and (p[0, 0] <= 2.0 ** -134).any()
+    got16 = o[:, :32].double()  # (query, key < 32)
+    got17 = dwq[:, 2 * C:2 * C + 32].t().double()  # (query < 32, key)
+    for got, w in ((got16, want[:, :32]), (got17, want[:32])):
+        assert ((got - w).abs() <= 2.0 ** -7 * w.abs() + 2.0 ** -133).all()
+    assert torch.equal(got16[:32], got17[:, :32])
+
+
+@pytest.mark.parametrize("T,C", [(262144, 96), (65536, 192), (16384, 384), (1024, 32),
+                                 (1024, 160)])
+def test_gemm_nt(dev, T, C):
+    """K17's dx product dqkv Wqkv^T (``gemm_nt``) against its plain twin at the three
+    stage shapes and at widths that leave a partial 96-column tile (32, 160): the same
+    f32 sums in another order, rounded to bf16, so relative L2 under 1e-3."""
+    gen = torch.Generator().manual_seed(50 + C)
+    a = _randn(gen, dev, T, 3 * C).to(torch.bfloat16)
+    b = _randn(gen, dev, C, 3 * C, std=C ** -0.5).to(torch.bfloat16)
+    got = wa.gemm_nt(a, b)
+    torch.cuda.synchronize()
+    assert got.shape == (T, C) and got.dtype == torch.bfloat16
+    assert _rel_l2(got, wa.gemm_nt_plain(a, b)) < 1e-3
 
 
 def test_qkv_function_backward_through_kernels(dev):

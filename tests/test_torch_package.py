@@ -88,3 +88,18 @@ def test_entry_points_default_to_the_gpu():
                                           device="cpu")
     assert next(task.model.parameters()).device.type == "cpu"
     assert task.metric_init()["confmat"].device.type == "cpu"
+
+
+@pytest.mark.parametrize("T,C,dqkv,part", [(262144, 96, 452984832, 51523584),
+                                           (65536, 192, 226492416, 25761792),
+                                           (16384, 384, 113246208, 12880896)])
+def test_chip_smoke_pins_the_qkv_backward_workspace(T, C, dqkv, part):
+    """K17's workspace bytes a launch at the three stage shapes, as chip_smoke.py logs
+    them: dqkv written once and read twice, and one partial row per run of 8 windows
+    written and read once, an eighth of one row per window."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+
+    assert chip_smoke.qkv_bwd_workspace(T, C) == (dqkv, part)
+    assert chip_smoke.workspace_bytes(("window_attention_qkv_bwd", T, C, True)) == dqkv + part
+    assert 8 * part == chip_smoke.qkv_bwd_workspace(T, C, run=1)[1]
