@@ -1,5 +1,7 @@
 """On-GPU smoke check of heal_swin_torch: builds the CUDA kernels from the checkout,
-holds each against its plain PyTorch version at the shapes of the main path, then
+holds each against its plain PyTorch version at the shapes of the main path (K4, a
+launch sequence, also step by step: its projection/LayerNorm backward alone, and
+one-hot probes that K4 and K5 recompute K1's and K2's probabilities bit for bit), then
 drives HEAL-SWIN-UNet at the paper configuration (nside 256, batch 2, bf16, random
 seeded weights) through the kernels and through the plain path: segmentation
 ``predict`` (serving) and its train step (forward, weighted CE, backward, Adam), and
@@ -67,6 +69,10 @@ WS = 64
 REL_L2_TOL = 1e-2  # kernel vs plain, one kernel call or one block, bf16 (check_close)
 LOSS_REL_TOL = 1e-3  # K6's loss vs its plain version's
 SLICE_REL_L2_TOL = 5e-2  # tail=False features after 22 blocks (see check_slice)
+# K4's projection/LayerNorm backward alone (``qkv_epi_proj_ln_bwd``) against its plain
+# version: one product and the LayerNorm's f32 sums in another order, du rounded to bf16
+# (as gemm_nt's limit in the GPU tests)
+PROJ_LN_REL_L2_TOL = 1e-3
 # K12-K15 against their plain versions at the paper stage shapes, every output and
 # gradient: about three times the largest relative L2 an H100 showed (3.1e-4, 3.2e-4,
 # 3.5e-4, 1.3e-3; PERF.md).  K14 / K15 are held on the branch (z - x, dx - dz), which
@@ -272,18 +278,32 @@ def check_kernels(gen, dev):
             timed[("window_attention_qkv_epi", T, C, masked)] = dict(
                 rel_l2=err, max_abs_err=mae, ms=ms, plain_ms=pms)
 
-            # K4, its backward, for an output gradient dz
+            # K4, its backward (a launch sequence), for an output gradient dz: with
+            # LayerNorm, timed and traced by kernel, and without
             dz = rnd(T, C).to(bf16)
             got = wa.window_attention_qkv_epi_bwd(*args, dz, **kw, impl="pallas")
             want = wa.window_attention_qkv_epi_bwd_plain(*args, dz, **kw)
             err, mae = check_grads(f"K4 C={C} mask={masked}", K4_GRADS, got, want)
+            again = wa.window_attention_qkv_epi_bwd(*args, dz, **kw, impl="pallas")
+            if not all(g is None or torch.equal(g, a) for g, a in zip(got, again)):
+                raise AssertionError(f"K4 C={C} mask={masked}: two launches differ")
+            del got, want, again
+            nargs = args[:5] + (None, None) + args[7:]
+            e0 = check_grads(f"K4 C={C} mask={masked} no LN", K4_GRADS,
+                             wa.window_attention_qkv_epi_bwd(*nargs, dz, **kw, impl="pallas"),
+                             wa.window_attention_qkv_epi_bwd_plain(*nargs, dz, **kw))
             ms = median_ms(lambda: wa.window_attention_qkv_epi_bwd(*args, dz, **kw,
                                                                    impl="pallas"))
             pms = median_ms(lambda: wa.window_attention_qkv_epi_bwd_plain(*args, dz, **kw))
+            per, _ = trace(lambda: wa.window_attention_qkv_epi_bwd(*args, dz, **kw,
+                                                                   impl="pallas"), 3)
             log(f"K4 window_attention_qkv_epi_bwd C={C} T={T} mask={masked}: rel_l2 <= "
-                f"{err:.3e} max_abs {mae:.3e} kernel {ms:.4f} ms plain {pms:.4f} ms")
+                f"{err:.3e} max_abs {mae:.3e}, two launches bit-equal; without LayerNorm "
+                f"rel_l2 <= {e0[0]:.3e}; kernel {ms:.4f} ms plain {pms:.4f} ms")
             timed[("window_attention_qkv_epi_bwd", T, C, masked)] = dict(
                 rel_l2=err, max_abs_err=mae, ms=ms, plain_ms=pms)
+            timed[("k4_sequence", T, C, masked)] = {
+                name: (dev_ms / 3, n / 3) for name, (dev_ms, n) in per.items()}
 
     # K2: the C = 768 bottleneck blocks (one unshifted, one shifted), in both flavours;
     # timed in the scaled-dot one (the flavour one PyTorch call also computes) with the
@@ -621,6 +641,146 @@ def check_qkv_kernels(gen, dev, rnd, logit_scales):
         del x, dout
         torch.cuda.empty_cache()
     return timed
+
+
+def check_proj_ln(gen, dev):
+    """K4's projection/LayerNorm backward alone (the second step of K4's launch
+    sequence, ``qkv_epi_proj_ln_bwd``) against its plain version at the three stage
+    shapes, with LayerNorm (timed) and without: du, dbp, dgamma, dbeta within
+    PROJ_LN_REL_L2_TOL, and a second launch bit-equal."""
+    from heal_swin_torch.ops import window_attention as wa
+
+    bf16 = torch.bfloat16
+    rnd, _ = seeded_draws(gen, dev)
+    names = ("du", "dbp", "dgamma", "dbeta")
+    for stage in range(3):
+        C = 96 * 2 ** stage
+        T = BATCH * 8 * NSIDE * NSIDE // 4 // 4 ** stage
+        o, dz = rnd(T, C).to(bf16), rnd(T, C).to(bf16)
+        wp, bp = rnd(C, C, std=C ** -0.5).to(bf16), rnd(C, std=0.02).to(bf16)
+        g = 1.0 + rnd(C, std=0.1)
+        res = []
+        for gamma in (g, None):
+            args = (o, wp, bp, gamma, dz)
+            got = wa.qkv_epi_proj_ln_bwd(*args, impl="pallas")
+            label = f"proj/LN backward C={C} T={T} LN={gamma is not None}"
+            res.append(check_grads(label, names, got, wa.qkv_epi_proj_ln_bwd_plain(*args),
+                                   PROJ_LN_REL_L2_TOL))
+            again = wa.qkv_epi_proj_ln_bwd(*args, impl="pallas")
+            if not all(a is None or torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{label}: two launches differ")
+        ms = median_ms(lambda: wa.qkv_epi_proj_ln_bwd(o, wp, bp, g, dz, impl="pallas"))
+        pms = median_ms(lambda: wa.qkv_epi_proj_ln_bwd_plain(o, wp, bp, g, dz))
+        log(f"K4 step 2 proj/LN backward C={C} T={T}: rel_l2 <= {res[0][0]:.3e} max_abs "
+            f"{res[0][1]:.3e} (without LayerNorm {res[1][0]:.3e}; limit "
+            f"{PROJ_LN_REL_L2_TOL}), two launches bit-equal; kernel {ms:.4f} ms plain "
+            f"{pms:.4f} ms")
+
+
+def probe_x(rnd, dev, T, C):
+    """x (T, C) and Wqkv (C, 3C), bf16, random but for a one-hot probe: channel r < 32
+    of x is 1 on row r of each window's first 32 rows and 0 elsewhere, and head 0's v
+    columns of Wqkv are [I_32; 0], so that head 0's v rows are e_key for keys < 32 and
+    0 beyond, and an attention output o[i, c < 32] is bf16(P[i, key c])."""
+    x = rnd(T, C)
+    x.view(T // WS, WS, C)[:, :, :32] = 0
+    x.view(T // WS, WS, C)[:, :32, :32] = torch.eye(32, device=dev)
+    wq = rnd(C, 3 * C, std=C ** -0.5)
+    wq[:, 2 * C:2 * C + 32] = 0
+    wq[:32, 2 * C:2 * C + 32] = torch.eye(32, device=dev)
+    return x.to(torch.bfloat16), wq.to(torch.bfloat16)
+
+
+def probe_dout(dev, T, C):
+    """An output gradient one-hot on head 0: dout[i, c] = (i == c) on each window's rows
+    i, c < 32, so that dV[key, c] = bf16(P[c, key])."""
+    dout = torch.zeros(T, C, device=dev)
+    dout.view(T // WS, WS, C)[:, :32, :32] = torch.eye(32, device=dev)
+    return dout.to(torch.bfloat16)
+
+
+def equal_bits(label, got, want, min_nonzero=0):
+    """``got`` and ``want`` equal bit for bit, and ``want`` holds at least
+    ``min_nonzero`` nonzero entries (a probe that reads real probabilities)."""
+    nz = int((want != 0).sum())
+    if nz < min_nonzero:
+        raise AssertionError(f"{label}: the probe read {nz} nonzero values")
+    if not torch.equal(got, want):
+        raise AssertionError(f"{label}: {int((got != want).sum())} of {want.numel()} differ")
+    log(f"{label}: bit-equal ({want.numel()} values, {nz} nonzero)")
+
+
+def check_probes(gen, dev):
+    """The backward kernels recompute their forward's probabilities bit for bit, read
+    through one-hot probes; any difference fails the run.  (a) K1 with Wp = I, bp = 0
+    and no LayerNorm is K16's cosine output at the three stage shapes, masked: K4's
+    sequence recomputes o with K16.  (b) One window at C 96 / 192 / 384, masked, x and
+    Wqkv of ``probe_x``, Wp = I, no LayerNorm, dz of ``probe_dout``: K1's o[i, c] =
+    bf16(P[i, key c]), and K4's dWqkv[key, 2C + c] = dv[key, c] = bf16(P[c, key]), since
+    du = dz and do = du Wp^T = dz.  (c) K5 against K2 at the C = 768 bottleneck shape,
+    masked, head 0's v rows e_key, dout of ``probe_dout``: K2's o[i, c] and K5's
+    dv[key, c], window by window, in both flavours."""
+    from heal_swin_torch.ops import window_attention as wa
+
+    bf16 = torch.bfloat16
+    rnd, logit_scales = seeded_draws(gen, dev)
+    for stage in range(3):
+        T, C, h, (x, wq, bq, _, _, _, _, bias, ls, groups) = stage_inputs(
+            rnd, logit_scales, stage, dev)
+        kw = dict(ws=WS, num_heads=h, sm_scale=DOT_SCALE, has_mask=True, impl="pallas")
+        eye = torch.eye(C, device=dev, dtype=bf16)
+        equal_bits(f"probe (a) C={C} T={T}: K1 with Wp = I against K16 cosine",
+                   wa.window_attention_qkv_epi_fwd(x, wq, bq, eye, None, None, None, groups,
+                                                   bias, ls, **kw),
+                   wa.window_attention_qkv_fwd(x, wq, bq, groups, bias, ls, use_cos=True,
+                                               **kw))
+        del x
+    for C in (96, 192, 384):
+        h = C // 32
+        x, wq = probe_x(rnd, dev, WS, C)
+        bq = rnd(3 * C, std=0.1).to(bf16)
+        bq[2 * C:] = 0
+        groups = torch.randint(0, 3, (1, WS), generator=gen, dtype=torch.int32).to(dev)
+        args = (x, wq, bq, torch.eye(C, device=dev, dtype=bf16), None, None, None, groups,
+                rnd(h, WS, WS, std=0.5), logit_scales(h))
+        kw = dict(ws=WS, num_heads=h, sm_scale=DOT_SCALE, has_mask=True, impl="pallas")
+        o = wa.window_attention_qkv_epi_fwd(*args, **kw)
+        dwq = wa.window_attention_qkv_epi_bwd(*args, probe_dout(dev, WS, C), **kw)[1]
+        equal_bits(f"probe (b) C={C}: K4's recomputed P against K1's",
+                   dwq[:32, 2 * C:2 * C + 32].t(), o[:32, :32].float(), 256)
+    T, C, h, (qkv, bias, ls, groups, _) = bottleneck_inputs(rnd, logit_scales, dev)
+    nw = T // WS
+    v = qkv.view(nw, WS, 3 * C)[:, :, 2 * C:2 * C + 32]
+    v.zero_()
+    v[:, :32] = torch.eye(32, device=dev, dtype=bf16)
+    dout = probe_dout(dev, T, C)
+    for use_cos in (True, False):
+        kw = dict(ws=WS, num_heads=h, use_cos=use_cos, sm_scale=DOT_SCALE, has_mask=True,
+                  impl="pallas")
+        args = (qkv, groups, bias, ls if use_cos else None)
+        o = wa.window_attention_fwd(*args, **kw)
+        dqkv = wa.window_attention_bwd(*args, dout, **kw)[0]
+        equal_bits(f"probe (c) C={C} T={T} {'cosine' if use_cos else 'scaled-dot'}: K5's "
+                   f"recomputed P against K2's",
+                   dqkv.view(nw, WS, 3 * C)[:, :32, 2 * C:2 * C + 32].transpose(1, 2),
+                   o.view(nw, WS, C)[:, :32, :32], 256 * nw)
+
+
+def log_k4_sequence(timed, run):
+    """K4's launch sequence by kernel over a train step: the device ms of each kernel
+    in one traced K4 call at each shape (``check_kernels``), weighted by the step's K4
+    launches at that shape (``run``: launches per kernel, per shape)."""
+    _, by_shape = run
+    total = collections.defaultdict(lambda: [0.0, 0.0])
+    for key, n in by_shape.items():
+        if key[0] == "window_attention_qkv_epi_bwd":
+            for name, (ms, cnt) in timed[("k4_sequence",) + key[1:]].items():
+                total[name][0] += n * ms
+                total[name][1] += n * cnt
+    step = sum(ms for ms, _ in total.values())
+    log(f"K4 sequence over the train step's K4 launches: {step:.4f} ms on the device")
+    for name, (ms, cnt) in sorted(total.items(), key=lambda kv: -kv[1][0]):
+        log(f"K4 sequence: {ms:9.4f} ms {cnt:6.1f} launches  {name[:110]}")
 
 
 def check_grads(name, names, got, want, tol=REL_L2_TOL):
@@ -2145,17 +2305,22 @@ def kernel_results(timed, runs, chamfer):
 PTXAS_NAMES = {"11attn_kernel": "K2 attn_kernel",
                "14qkv_epi_kernelILi1ELb1ELb1E": "K1 qkv_epi_kernel<1> (C <= 192)",
                "14qkv_epi_kernelILi2ELb1ELb1E": "K1 qkv_epi_kernel<2> (C > 192)",
-               "14qkv_epi_kernelILi1ELb0ELb1E": "K16 qkv_epi_kernel<1, no epilogue, cosine>",
+               "14qkv_epi_kernelILi1ELb0ELb1E":
+                   "K16 qkv_epi_kernel<1, no epilogue, cosine> (K4 step 1)",
                "14qkv_epi_kernelILi1ELb0ELb0E": "K16 qkv_epi_kernel<1, no epilogue, scaled-dot>",
-               "14qkv_bwd_kernelILb1E": "K17 qkv_bwd_kernel<cosine>",
-               "14qkv_bwd_kernelILb0E": "K17 qkv_bwd_kernel<scaled-dot>",
-               "14gemm_nt_kernel": "K17 gemm_nt_kernel (dx)"}
+               "14qkv_bwd_kernelILb1ELb0E": "K17 qkv_bwd_kernel<cosine> (K4 step 4)",
+               "14qkv_bwd_kernelILb0ELb0E": "K17 qkv_bwd_kernel<scaled-dot>",
+               "14qkv_bwd_kernelILb1ELb1E": "K5 qkv_bwd_kernel<cosine, load qkv>",
+               "14qkv_bwd_kernelILb0ELb1E": "K5 qkv_bwd_kernel<scaled-dot, load qkv>",
+               "18proj_ln_bwd_kernelILi1E": "K4 step 2 proj_ln_bwd_kernel<1> (C <= 192)",
+               "18proj_ln_bwd_kernelILi2E": "K4 step 2 proj_ln_bwd_kernel<2> (C > 192)",
+               "14gemm_nt_kernel": "gemm_nt_kernel (K17 dx, K4 do)"}
 
 
 def log_ptxas(build_log: str):
     """nvcc's -Xptxas -v report of the build, one line per kernel: its spills, stack,
-    registers and shared memory, under its name (K1, K2, K16, K17 by name, the others
-    mangled)."""
+    registers and shared memory, under its name (the window-attention kernels and
+    gemm_nt by name, the others mangled)."""
     name, props = None, []
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
@@ -2188,9 +2353,13 @@ def main() -> int:
     log_ptxas(_build.build_log)
 
     timed = check_kernels(torch.Generator().manual_seed(SEED), dev)
+    check_proj_ln(torch.Generator().manual_seed(SEED + 1), dev)
+    check_probes(torch.Generator().manual_seed(SEED + 2), dev)
+    torch.cuda.empty_cache()
     predict_run = drive_slice(dev, timed)
     torch.cuda.empty_cache()
     train_run = drive_train(dev, timed)
+    log_k4_sequence(timed, train_run)
     torch.cuda.empty_cache()
     depth_run = drive_train(dev, timed, depth=True)
     torch.cuda.empty_cache()

@@ -44,6 +44,8 @@ _SIGNATURES = {
     "hs_window_attention_qkv_bwd": ([_P] * 11 + [_I] * 4 + [_F, _P], _I),
     "hs_window_attention_qkv_bwd_workspace": ([_I] * 2, ctypes.c_size_t),
     "hs_gemm_nt": ([_P] * 3 + [_I] * 3 + [_P], _I),
+    "hs_proj_ln_bwd": ([_P] * 8 + [_I] * 3 + [_F, _P], _I),
+    "hs_proj_ln_bwd_workspace": ([_I] * 2, ctypes.c_size_t),
     "hs_final_head_predict": ([_P] * 6 + [_I] * 4 + [_F, _P], _I),
     "hs_final_head_predict_smem": ([_I] * 3, ctypes.c_size_t),
     "hs_final_head_loss": ([_P] * 9 + [_I] * 4 + [_F, _P], _I),

@@ -1,148 +1,20 @@
 // Window-attention building blocks shared by the forward kernels (window_attention.cu)
 // and the backward kernels (window_attention_bwd.cu), one 64-token window and one
-// 32-channel head at a time: first the shared-memory blocks of K4 and K5 (tiles in
-// shared memory, 16x16x16 bf16 WMMA products with f32 accumulation, 8 warps per
-// block), then the register-resident core of K1, K2, K16 and K17: the qkv projection
-// epilogue (qkv_head_epilogue), the probabilities (head_probs_mma) and the products
-// of the forward and backward on register fragments.
+// 32-channel head at a time: the register-resident core of K1, K2, K16, K17 and K5 (the
+// qkv projection epilogue qkv_head_epilogue, the cosine norms of q and k on their
+// fragments, the probabilities head_probs_mma, and the products of the forward and
+// backward on register fragments), K1's weight ring (WeightStream, gemm_rows), which
+// K4's projection/LayerNorm backward shares, and the launch of K16 (qkv_attention),
+// which K4's launch sequence runs first.
 #pragma once
 
 #include "common.cuh"
 
 namespace hs {
 
-// padded leading dimensions (elements); WMMA wants ldm % 8 == 0 (bf16) / % 4 == 0 (f32)
-constexpr int LD_HEAD = HD + 8;     // 64 x 32 bf16 tiles: q, k, v, q_hat, k_hat, do
-constexpr int LD_S = WS + 4;        // 64 x 64 f32 tiles: scores, probabilities, dp
-constexpr int LD_P = WS + 8;        // 64 x 64 bf16 tiles: probabilities, ds
-constexpr int LD_T = HD + 4;        // 64 x 32 f32 tiles: a head's output, dv, ds k_hat
-constexpr int LD_QKV = 3 * HD + 4;  // one head's q|k|v projection, f32
-
-// c (64 x 64 f32, ld LD_S) = a b^T over HD: a, b 64 x HD row-major bf16; 2 tiles/warp
-__device__ inline void mm_abt(const bf16* a, int lda, const bf16* b, int ldb, float* c) {
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int t = warp * 2 + j;
-    const int rt = t >> 2, ct = t & 3;
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < HD; kk += 16) {
-      FragA fa;
-      FragBt fb;
-      wmma::load_matrix_sync(fa, a + rt * 16 * lda + kk, lda);
-      wmma::load_matrix_sync(fb, b + ct * 16 * ldb + kk, ldb);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(c + rt * 16 * LD_S + ct * 16, acc, LD_S, wmma::mem_row_major);
-  }
-}
-
-// c (64 x 32 f32, ld LD_T) = op(a) b over WS: a 64 x 64 bf16 (ld LD_P), op(a) = a or
-// a^T; b 64 x 32 row-major bf16; one tile per warp
-template <bool TRANS>
-__device__ inline void mm_pb(const bf16* a, const bf16* b, int ldb, float* c) {
-  const int warp = threadIdx.x >> 5;
-  const int rt = warp >> 1, ct = warp & 1;
-  FragC acc;
-  wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-  for (int kk = 0; kk < WS; kk += 16) {
-    FragB fb;
-    wmma::load_matrix_sync(fb, b + kk * ldb + ct * 16, ldb);
-    if constexpr (TRANS) {
-      FragAt fa;  // element (m, k) of a^T at a[k * LD_P + m]
-      wmma::load_matrix_sync(fa, a + kk * LD_P + rt * 16, LD_P);
-      wmma::mma_sync(acc, fa, fb, acc);
-    } else {
-      FragA fa;
-      wmma::load_matrix_sync(fa, a + rt * 16 * LD_P + kk, LD_P);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-  }
-  wmma::store_matrix_sync(c + rt * 16 * LD_T + ct * 16, acc, LD_T, wmma::mem_row_major);
-}
-
-// p = softmax_row(s * mul + bias (-100 where group ids differ)) in f32, in place of the
-// scores, and its bf16 copy in pl.  The shift is the row max (the Pallas kernels use a
-// static bound; softmax is shift-invariant, and the row max cannot underflow a whole
-// row); the sum is floored at 1e-30 as theirs.  One warp per row, two columns a lane.
-__device__ inline void softmax_rows(float* s, bf16* pl, const int* g, bool masked,
-                                    const float* __restrict__ bias_h, float mul) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  for (int r = warp; r < WS; r += kWarps) {
-    float* srow = s + r * LD_S;
-    const float* brow = bias_h + r * WS;
-    float v0 = srow[lane] * mul + __ldg(brow + lane);
-    float v1 = srow[lane + 32] * mul + __ldg(brow + lane + 32);
-    if (masked) {
-      const int gi = g[r];
-      if (g[lane] != gi) v0 += MASK_VALUE;
-      if (g[lane + 32] != gi) v1 += MASK_VALUE;
-    }
-    const float m = warp_max(fmaxf(v0, v1));
-    const float e0 = expf(v0 - m);
-    const float e1 = expf(v1 - m);
-    const float d = fmaxf(warp_sum(e0 + e1), 1e-30f);
-    const float p0 = e0 / d, p1 = e1 / d;
-    srow[lane] = p0;
-    srow[lane + 32] = p1;
-    pl[r * LD_P + lane] = to_bf(p0);
-    pl[r * LD_P + lane + 32] = to_bf(p1);
-  }
-}
-
-// One head of window attention on shared-memory tiles: s = q k^T * mul + bias (+ mask);
-// p = softmax_row(s) (f32 in s, bf16 in pl); o = bf16(p) v, f32 in s with leading
-// dimension LD_T.  q, k, v 64 x HD bf16 (ld LD_HEAD).  Ends with a barrier.
-__device__ inline void attend_head(const bf16* q, const bf16* k, const bf16* v, float* s,
-                                   bf16* pl, const int* g, bool masked,
-                                   const float* __restrict__ bias_h, float mul) {
-  mm_abt(q, LD_HEAD, k, LD_HEAD, s);
-  __syncthreads();
-  softmax_rows(s, pl, g, masked, bias_h, mul);
-  __syncthreads();
-  mm_pb<false>(pl, v, LD_HEAD, s);
-  __syncthreads();
-}
-
-// qkvf (64 x 3HD f32, ld LD_QKV) = x (64 x C bf16, shared, ld ldx) @ this head's q, k
-// and v columns of Wqkv (C x 3C bf16, global, streamed from L2 as fragments): 4 row
-// tiles x 6 column tiles, 3 per warp.  Ends with a barrier.
-__device__ inline void project_head_qkv(const bf16* xs, int ldx, const bf16* __restrict__ wqkv,
-                                        int C, int head, float* qkvf) {
-  const int warp = threadIdx.x >> 5;
-  const int rt = warp & 3;
-  const int cbase = (warp >> 2) * 3;
-  const int C3 = 3 * C;
-  FragC acc[3];
-#pragma unroll
-  for (int j = 0; j < 3; ++j) wmma::fill_fragment(acc[j], 0.f);
-  for (int kk = 0; kk < C; kk += 16) {
-    FragA a;
-    wmma::load_matrix_sync(a, xs + rt * 16 * ldx + kk, ldx);
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const int ct = cbase + j;
-      const int gcol = (ct >> 1) * C + head * HD + (ct & 1) * 16;
-      FragB b;
-      wmma::load_matrix_sync(b, wqkv + size_t(kk) * C3 + gcol, C3);
-      wmma::mma_sync(acc[j], a, b, acc[j]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < 3; ++j)
-    wmma::store_matrix_sync(qkvf + rt * 16 * LD_QKV + (cbase + j) * 16, acc[j], LD_QKV,
-                            wmma::mem_row_major);
-  __syncthreads();
-}
-
 // ---------------------------------------------------------------------------------
-// The register-resident per-head core of K1, K2, K16 and K17 (K4 and K5 keep the
-// shared-memory blocks above).  One 64-token window and one 32-channel head on 4
-// warps, each owning 16 query rows.  Products are
+// The register-resident per-head core of K1, K2, K16, K17 and K5.  One 64-token window
+// and one 32-channel head on 4 warps, each owning 16 query rows.  Products are
 // mma.sync.m16n8k16 bf16 -> f32 with operands read by ldmatrix from shared-memory tiles
 // whose padded rows (LD_HEAD, LD_W) make every ldmatrix phase conflict-free; scores,
 // probabilities and the head output never leave registers, and nothing inside the core
@@ -154,6 +26,9 @@ __device__ inline void project_head_qkv(const bf16* xs, int ldx, const bf16* __r
 // while these kernels are latency-bound; wgmma and TMA are the step after that.
 // ---------------------------------------------------------------------------------
 
+constexpr int QKV_MAX_C = 384;  // widest C of K1, K4, K16, K17 (64 x C x tiles on chip)
+constexpr int LD_HEAD = HD + 8;  // 64 x 32 bf16 tiles: q, k, v, q_hat, k_hat, dout
+constexpr int LD_P = WS + 8;     // 64 x 64 bf16 tiles: probabilities, ds
 constexpr int kHeadNT = 3 * HD / 8;           // n-tiles (8 columns) of a head's q|k|v
 constexpr int LD_BIAS = WS + 8;  // f32 bias rows: a quad's float2 reads conflict-free
 
@@ -179,8 +54,8 @@ __device__ __forceinline__ void load_q_frags(uint32_t (&qa)[2][4], const bf16* q
 }
 
 // cosine flavour on query fragments: q_hat = bf16(q * (scale / |q|)), the clamped sum of
-// squares of each row over its quad
-__device__ __forceinline__ void cos_q_frags(uint32_t (&qa)[2][4], float scale) {
+// squares of each row over its quad; iq: 1 / |q| of rows g (half 0) and g + 8 (half 1)
+__device__ __forceinline__ void cos_q_frags(uint32_t (&qa)[2][4], float scale, float (&iq)[2]) {
 #pragma unroll
   for (int half = 0; half < 2; ++half) {  // row g (registers 0, 2), row g + 8 (1, 3)
     float2 v[4];
@@ -190,10 +65,30 @@ __device__ __forceinline__ void cos_q_frags(uint32_t (&qa)[2][4], float scale) {
       v[i] = unpack_bf2(qa[i >> 1][(i & 1) * 2 + half]);
       ss += v[i].x * v[i].x + v[i].y * v[i].y;
     }
-    const float m = rsqrtf(fmaxf(quad_sum(ss), 1e-24f)) * scale;
+    iq[half] = rsqrtf(fmaxf(quad_sum(ss), 1e-24f));
+    const float m = iq[half] * scale;
 #pragma unroll
     for (int i = 0; i < 4; ++i) qa[i >> 1][(i & 1) * 2 + half] = pack_bf2(v[i].x * m, v[i].y * m);
   }
+}
+
+// cosine flavour on the B fragments of 8 keys, as ldsm_x4 gives them from a raw k tile
+// (register i: key lane / 4, channels 8 i + 2 (lane % 4), + 1): k_hat = bf16(k / |k|),
+// the clamped sum of squares of each key over its quad.  Returns 1 / |k| of the lane's
+// key.  K2's probabilities normalize k here, inside head_probs_mma, and K5 makes its
+// k_hat tile here, so that K5's k_hat is K2's bit for bit.
+__device__ __forceinline__ float cos_k_frag(uint32_t (&kb)[4]) {
+  float2 kv[4];
+  float ss = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    kv[i] = unpack_bf2(kb[i]);
+    ss += kv[i].x * kv[i].x + kv[i].y * kv[i].y;
+  }
+  const float ik = rsqrtf(fmaxf(quad_sum(ss), 1e-24f));
+#pragma unroll
+  for (int i = 0; i < 4; ++i) kb[i] = pack_bf2(kv[i].x * ik, kv[i].y * ik);
+  return ik;
 }
 
 // p = e / d in f32, the IEEE division, ahead of p's bf16 rounding.  The division's slow
@@ -320,18 +215,7 @@ __device__ __forceinline__ void head_probs_mma(const uint32_t (&qa)[2][4], const
   for (int j = 0; j < 8; ++j) {  // keys 8j .. 8j + 7
     uint32_t kb[4];  // channels 0-7, 8-15 (k-step 0), 16-23, 24-31 (k-step 1)
     ldsm_x4(kb, k + (8 * j + (lane & 7)) * LD_HEAD + (lane >> 3) * 8);
-    if constexpr (COS_K) {
-      float2 kv[4];
-      float ss = 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        kv[i] = unpack_bf2(kb[i]);
-        ss += kv[i].x * kv[i].x + kv[i].y * kv[i].y;
-      }
-      const float ik = rsqrtf(fmaxf(quad_sum(ss), 1e-24f));
-#pragma unroll
-      for (int i = 0; i < 4; ++i) kb[i] = pack_bf2(kv[i].x * ik, kv[i].y * ik);
-    }
+    if constexpr (COS_K) cos_k_frag(kb);
     s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
     mma_bf16(s[j], qa[0], kb[0], kb[1]);
     mma_bf16(s[j], qa[1], kb[2], kb[3]);
@@ -469,5 +353,93 @@ __device__ __forceinline__ void tile_t_times_tile(const bf16* a, int m0, const b
     }
   }
 }
+
+// ---------------------------------------------------------------------------------
+// K1's weight ring, which K4's projection/LayerNorm backward shares: u = o Wp from the
+// same chunks in the same ascending 16-wide k-steps gives K1's u bit for bit.
+// ---------------------------------------------------------------------------------
+constexpr int KC = 32;                // weight rows per ring stage
+constexpr int kStages = 3;            // ring depth of each core
+constexpr int kMaxNT = kHeadNT;       // n-tiles (8 columns) of one product: q|k|v of a head
+constexpr int LD_W = kMaxNT * 8 + 8;  // ring rows: ldmatrix.trans over 8 rows conflict-free
+
+// The weight chunks one core consumes, in order: for each of its heads h (core, core +
+// 2, ...) the head's q, k and v column strips of Wqkv (C x 96), then for each of its
+// column blocks b of Wp (core, core + 2, ...; nt_p n-tiles each), each cut into nk =
+// C / KC chunks of KC rows.  Chunk s lands in ring stage s % kStages.  WRAP > 0: a block
+// that walks several windows streams its WRAP column blocks of Wp (and no heads) once
+// per window, and total counts the chunks of every window.
+template <int WRAP = 0>
+struct WeightStream {
+  const bf16* wqkv;
+  const bf16* wp;
+  bf16* ring;
+  int C, core, n_head_jobs, nt_p, nk, total;
+
+  __device__ __forceinline__ bf16* stage(int s) const {
+    return ring + (s % kStages) * (KC * LD_W);
+  }
+
+  // chunk s's cp.async copies by the core's 128 threads (none past the end); the
+  // caller commits
+  __device__ __forceinline__ void fetch(int s, int gtid) const {
+    if (s >= total) return;
+    int job = s / nk;
+    const int k0 = (s - job * nk) * KC;
+    if constexpr (WRAP > 0) job %= WRAP;
+    bf16* dst = stage(s);
+    if (job < n_head_jobs) {
+      const int h = core + 2 * job;
+      for (int idx = gtid; idx < KC * kMaxNT; idx += kCoreThreads) {
+        const int r = idx / kMaxNT, t = idx - r * kMaxNT;
+        cp_async16(dst + r * LD_W + t * 8,
+                   wqkv + size_t(k0 + r) * 3 * C + (t >> 2) * C + h * HD + (t & 3) * 8);
+      }
+    } else {
+      const int col0 = (core + 2 * (job - n_head_jobs)) * nt_p * 8;
+      for (int idx = gtid; idx < KC * nt_p; idx += kCoreThreads) {
+        const int r = idx / nt_p, t = idx - r * nt_p;
+        cp_async16(dst + r * LD_W + t * 8, wp + size_t(k0 + r) * C + col0 + t * 8);
+      }
+    }
+  }
+};
+
+// acc (this warp's rows row0..row0+15 x nt n-tiles, f32) += a (rows of a 64 x C bf16
+// tile in shared memory, ld lda) x the core's next nk weight chunks; s counts the
+// chunks consumed.  One core barrier per chunk, kStages - 1 chunks in flight.
+template <int WRAP>
+__device__ __forceinline__ void gemm_rows(float (&acc)[kMaxNT][4], const bf16* a, int lda,
+                                          int nt, const WeightStream<WRAP>& st, int& s,
+                                          int gtid, int row0) {
+  const int lane = threadIdx.x & 31;
+  const bf16* arow = a + (row0 + (lane & 15)) * lda + (lane >> 4) * 8;
+  for (int kc = 0; kc < st.nk; ++kc, ++s) {
+    cp_async_wait<kStages - 2>();
+    group_sync(1 + st.core);  // chunk s has landed; chunk s - 1's stage is free
+    st.fetch(s + kStages - 1, gtid);
+    cp_async_commit();
+    const bf16* w = st.stage(s) + lane * LD_W;
+    uint32_t a0[4], a1[4];
+    ldsm_x4(a0, arow + kc * KC);
+    ldsm_x4(a1, arow + kc * KC + 16);
+#pragma unroll
+    for (int t = 0; t < kMaxNT; ++t) {
+      if (t < nt) {
+        uint32_t b[4];
+        ldsm_x4_t(b, w + t * 8);
+        mma_bf16(acc[t], a0, b[0], b[1]);
+        mma_bf16(acc[t], a1, b[2], b[3]);
+      }
+    }
+  }
+}
+
+// K16 (qkv_epi_kernel<1, false, COS>, window_attention.cu): out (T x C bf16) = attention
+// of x Wqkv + bqkv before the output projection.  K4's launch sequence runs its cosine
+// flavour first: K1's head loop, so its o is K1's bit for bit.
+cudaError_t qkv_attention(const bf16* x, const bf16* wqkv, const bf16* bqkv, const int* groups,
+                          const float* bias, const float* lscale, bf16* out, int T, int C,
+                          bool use_cos, int has_mask, float sm_scale, cudaStream_t stream);
 
 }  // namespace hs

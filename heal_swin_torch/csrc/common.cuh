@@ -9,6 +9,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace hs {
 
 using bf16 = __nv_bfloat16;
@@ -110,6 +112,21 @@ __device__ __forceinline__ uint32_t pack_bf2(float lo, float hi) {
 
 __device__ __forceinline__ float2 unpack_bf2(uint32_t u) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
+
+// A kernel's opt-in to `bytes` of dynamic shared memory (above 48 KB), once per device
+// and process: `done` (one per kernel, a static of the launching entry) keeps a bit per
+// device.  `bytes` is the most any launch of the kernel asks for, so one setting serves
+// every shape and the host launch path makes no attribute call after the first.
+inline cudaError_t smem_opt_in(const void* kernel, size_t bytes, std::atomic<unsigned>& done) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned bit = 1u << (dev & 31);
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+  if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_acq_rel);
+  return e;
 }
 
 // --- cross-block passes (reduce.cu); deterministic: every sum in a fixed order ---

@@ -19,15 +19,16 @@
 //     through reduce_rows.  At the paper shapes it is 2*T*M*N = 2.9..14.5 GFLOP on
 //     T*(M+N)*2 bytes: above the bf16 ridge, so it is bounded by the WMMA issue rate;
 //     wgmma/TMA are later work.
-//   gemm_nt: out = A B^T over the channel axis (K17's dx = dqkv Wqkv^T), bf16 out.
-//     M is the token count, N = C and K = 3C, so the output tiles are many (M / 128 x
-//     N / 96) and K is short: no split.  A block is one 4-warp core over a 128 x 96
-//     tile; 32-column slices of A and B arrive by cp.async through a 3-stage ring (one
-//     block barrier a slice), each warp runs mma.sync m16n8k16 from ldmatrix fragments
-//     on its 32 rows x 12 n-tiles (each B fragment serves two m-tiles, which halves the
-//     shared-memory reads per product) with f32 sums in registers, and rounds them to
-//     bf16 on the way out.  2 M N K FLOPs on 2 (M K + N K + M N) bytes: at the paper shapes above
-//     the bf16 ridge, bounded by the mma.sync issue rate.
+//   gemm_nt: out = A B^T over the channel axis (K17's dx = dqkv Wqkv^T, K4's do =
+//     du Wp^T), bf16 out.  M is the token count, N = C and K = 3C or C, so the output
+//     tiles are many (M / 128 x N / 96) and K is short: no split.  A block is one 4-warp
+//     core over a 128 x 96 tile; 32-column slices of A and B arrive by cp.async through
+//     a 3-stage ring (one block barrier a slice), each warp runs mma.sync m16n8k16 from
+//     ldmatrix fragments on its 32 rows x 12 n-tiles (each B fragment serves two
+//     m-tiles, which halves the shared-memory reads per product) with f32 sums in
+//     registers, and rounds them to bf16 on the way out.  2 M N K FLOPs on 2 (M K + N K
+//     + M N) bytes: at the paper shapes above the bf16 ridge, bounded by the mma.sync
+//     issue rate.
 
 #include "common.cuh"
 
@@ -261,9 +262,8 @@ cudaError_t gemm_tn(const bf16* A, const bf16* B, float* out, int K, int M, int 
 
 cudaError_t gemm_nt(const bf16* A, const bf16* B, bf16* out, int M, int N, int K,
                     cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(gemm_nt_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       int(kGemmNtSmem));
+  static std::atomic<unsigned> done{0};
+  cudaError_t e = smem_opt_in(reinterpret_cast<const void*>(gemm_nt_kernel), kGemmNtSmem, done);
   if (e != cudaSuccess) return e;
   const dim3 grid((M + NT_BM - 1) / NT_BM, (N + NT_BN - 1) / NT_BN);
   gemm_nt_kernel<<<grid, kCoreThreads, kGemmNtSmem, stream>>>(A, B, out, M, N, K);

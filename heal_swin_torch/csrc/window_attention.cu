@@ -136,7 +136,8 @@ attn_kernel(const bf16* __restrict__ qkv, const int* __restrict__ groups,
     load_q_frags(qa, t.q, row0);
     float o[4][4];
     if (use_cos) {
-      cos_q_frags(qa, scale);
+      float iq[2];
+      cos_q_frags(qa, scale, iq);
       attend_head_mma<true>(qa, t.k, t.v, bias_s, LD_BIAS, g, row0, mul, o);
     } else {
       attend_head_mma<false>(qa, t.k, t.v, bias_s, LD_BIAS, g, row0, mul, o);
@@ -171,11 +172,6 @@ attn_kernel(const bf16* __restrict__ qkv, const int* __restrict__ groups,
 // output is staged in the x tile and written 16 bytes a store.  Shared memory: 158 KiB
 // at C = 384 (one block per SM), 110 KiB at C = 192 (two).
 // ---------------------------------------------------------------------------------
-constexpr int KC = 32;                // weight rows per ring stage
-constexpr int kStages = 3;            // ring depth of each core
-constexpr int kMaxNT = kHeadNT;       // n-tiles (8 columns) of one product: q|k|v of a head
-constexpr int LD_W = kMaxNT * 8 + 8;  // ring rows: ldmatrix.trans over 8 rows conflict-free
-
 struct EpiLayout {
   size_t o, x, ring, kv, g, stats, total;
 };
@@ -192,72 +188,6 @@ __host__ __device__ inline EpiLayout epi_layout(int C) {
   L.stats = off; off += align128(2 * WS * 2 * 4);  // [pass][row][core]
   L.total = off;
   return L;
-}
-
-// The weight chunks one core consumes, in order: for each of its heads h (core, core +
-// 2, ...) the head's q, k and v column strips of Wqkv (C x 96), then for each of its
-// column blocks b of Wp (core, core + 2, ...; nt_p n-tiles each), each cut into nk =
-// C / KC chunks of KC rows.  Chunk s lands in ring stage s % kStages.
-struct WeightStream {
-  const bf16* wqkv;
-  const bf16* wp;
-  bf16* ring;
-  int C, core, n_head_jobs, nt_p, nk, total;
-
-  __device__ __forceinline__ bf16* stage(int s) const {
-    return ring + (s % kStages) * (KC * LD_W);
-  }
-
-  // chunk s's cp.async copies by the core's 128 threads (none past the end); the
-  // caller commits
-  __device__ __forceinline__ void fetch(int s, int gtid) const {
-    if (s >= total) return;
-    const int job = s / nk, k0 = (s - job * nk) * KC;
-    bf16* dst = stage(s);
-    if (job < n_head_jobs) {
-      const int h = core + 2 * job;
-      for (int idx = gtid; idx < KC * kMaxNT; idx += kCoreThreads) {
-        const int r = idx / kMaxNT, t = idx - r * kMaxNT;
-        cp_async16(dst + r * LD_W + t * 8,
-                   wqkv + size_t(k0 + r) * 3 * C + (t >> 2) * C + h * HD + (t & 3) * 8);
-      }
-    } else {
-      const int col0 = (core + 2 * (job - n_head_jobs)) * nt_p * 8;
-      for (int idx = gtid; idx < KC * nt_p; idx += kCoreThreads) {
-        const int r = idx / nt_p, t = idx - r * nt_p;
-        cp_async16(dst + r * LD_W + t * 8, wp + size_t(k0 + r) * C + col0 + t * 8);
-      }
-    }
-  }
-};
-
-// acc (this warp's rows row0..row0+15 x nt n-tiles, f32) += a (rows of a 64 x C bf16
-// tile in shared memory, ld lda) x the core's next nk weight chunks; s counts the
-// chunks consumed.  One core barrier per chunk, kStages - 1 chunks in flight.
-__device__ __forceinline__ void gemm_rows(float (&acc)[kMaxNT][4], const bf16* a, int lda,
-                                          int nt, const WeightStream& st, int& s, int gtid,
-                                          int row0) {
-  const int lane = threadIdx.x & 31;
-  const bf16* arow = a + (row0 + (lane & 15)) * lda + (lane >> 4) * 8;
-  for (int kc = 0; kc < st.nk; ++kc, ++s) {
-    cp_async_wait<kStages - 2>();
-    group_sync(1 + st.core);  // chunk s has landed; chunk s - 1's stage is free
-    st.fetch(s + kStages - 1, gtid);
-    cp_async_commit();
-    const bf16* w = st.stage(s) + lane * LD_W;
-    uint32_t a0[4], a1[4];
-    ldsm_x4(a0, arow + kc * KC);
-    ldsm_x4(a1, arow + kc * KC + 16);
-#pragma unroll
-    for (int t = 0; t < kMaxNT; ++t) {
-      if (t < nt) {
-        uint32_t b[4];
-        ldsm_x4_t(b, w + t * 8);
-        mma_bf16(acc[t], a0, b[0], b[1]);
-        mma_bf16(acc[t], a1, b[2], b[3]);
-      }
-    }
-  }
 }
 
 template <int WPB, bool EPI, bool COS>
@@ -289,7 +219,7 @@ qkv_epi_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
   bf16* kt = reinterpret_cast<bf16*>(smem + L.kv) + core * 2 * WS * LD_HEAD;
   bf16* vt = kt + WS * LD_HEAD;
 
-  WeightStream st;
+  WeightStream<> st;
   st.wqkv = wqkv;
   st.wp = wp;
   st.ring = reinterpret_cast<bf16*>(smem + L.ring) + core * kStages * KC * LD_W;
@@ -451,6 +381,21 @@ qkv_epi_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
 }
 
 }  // namespace
+
+cudaError_t qkv_attention(const bf16* x, const bf16* wqkv, const bf16* bqkv, const int* groups,
+                          const float* bias, const float* lscale, bf16* out, int T, int C,
+                          bool use_cos, int has_mask, float sm_scale, cudaStream_t stream) {
+  static std::atomic<unsigned> done_cos{0}, done_dot{0};
+  auto kernel = use_cos ? qkv_epi_kernel<1, false, true> : qkv_epi_kernel<1, false, false>;
+  cudaError_t e = smem_opt_in(reinterpret_cast<const void*>(kernel), epi_layout(QKV_MAX_C).total,
+                              use_cos ? done_cos : done_dot);
+  if (e != cudaSuccess) return e;
+  kernel<<<T / WS, kThreads, epi_layout(C).total, stream>>>(
+      x, wqkv, bqkv, nullptr, nullptr, nullptr, nullptr, groups, bias, lscale, out, C, 0,
+      has_mask, 0.f, sm_scale);
+  return cudaGetLastError();
+}
+
 }  // namespace hs
 
 extern "C" {
@@ -499,18 +444,11 @@ int hs_window_attention_qkv(const void* x, const void* wqkv, const void* bqkv,
                             int T, int C, int use_cos, int has_mask, float sm_scale,
                             void* stream) {
   using hs::bf16;
-  auto kernel = use_cos ? hs::qkv_epi_kernel<1, false, true> : hs::qkv_epi_kernel<1, false, false>;
-  const size_t smem = hs::epi_layout(C).total;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       int(smem));
-  if (e != cudaSuccess) return int(e);
-  kernel<<<T / hs::WS, hs::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  return int(hs::qkv_attention(
       static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv),
-      static_cast<const bf16*>(bqkv), nullptr, nullptr, nullptr, nullptr,
-      static_cast<const int*>(groups), static_cast<const float*>(bias),
-      static_cast<const float*>(lscale), static_cast<bf16*>(out), C, 0, has_mask, 0.f,
-      sm_scale);
-  return int(cudaGetLastError());
+      static_cast<const bf16*>(bqkv), static_cast<const int*>(groups),
+      static_cast<const float*>(bias), static_cast<const float*>(lscale), static_cast<bf16*>(out),
+      T, C, use_cos != 0, has_mask, sm_scale, static_cast<cudaStream_t>(stream)));
 }
 
 const char* hs_error_string(int code) { return cudaGetErrorString(static_cast<cudaError_t>(code)); }

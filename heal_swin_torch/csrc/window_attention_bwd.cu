@@ -1,571 +1,104 @@
 // Window attention backward of HEAL-SWIN for Hopper (sm_90a).
 //
-// Replaces two Pallas TPU kernels of heal_swin_tpu/ops/window_attention.py:
-//   K4 hs_window_attention_qkv_epi_bwd <- _bwd_kernel_xw_epi, the backward of K1
-//      (qkv projection + cosine attention + output projection + LayerNorm): one block
-//      per 64-token window.  Phase 1 recomputes qkv = x Wqkv + b and, per head, the
-//      softmax and the attention output o; then u = o Wp + bp, the LayerNorm backward
-//      (du), and do = du Wp^T; phase 2 recomputes each head's softmax and runs the
-//      attention backward with the cosine tangent projection (dq, dk); finally
-//      dx = dqkv Wqkv^T.
-//   K5 hs_window_attention_bwd <- _bwd_kernel (_attn_bwd_body_cos_wide for cosine,
-//      _attn_bwd_body for scaled-dot), the backward of K2: one block per
-//      (window, head), dv, dp, ds and dq, dk from qkv rows and dout.
+// Replaces three Pallas TPU kernels of heal_swin_tpu/ops/window_attention.py, all on
+// one register-resident backward core (qkv_bwd_kernel, described at the kernel):
 //   K17 hs_window_attention_qkv_bwd <- _bwd_kernel_xw, the backward of K16 (x @ Wqkv
-//      + b -> attention, cosine or scaled-dot): one 4-warp block per head and run of
-//      kRun windows on the register-resident core of attention.cuh (described at the
-//      kernel below); then reduce_rows over the runs' partial rows, dWqkv = x^T dqkv
-//      (split-K gemm_tn over the tokens) and dx = dqkv Wqkv^T (gemm_nt), both in
-//      reduce.cu.  K4 without the output projection and LayerNorm: per window
-//      1152*C^2 + 40960*C FLOPs (the qkv products, then five 64x64x32 products per
-//      head: QK^T recomputed, dv, dp, dq, dk), near or above the bf16 ridge like K4.
+//      + b -> attention, cosine or scaled-dot): qkv_bwd_kernel<COS, false>, one 4-warp
+//      block per head and run of kRun windows, which recomputes the head's qkv from x;
+//      then reduce_rows over the runs' partial rows, dWqkv = x^T dqkv (split-K gemm_tn
+//      over the tokens) and dx = dqkv Wqkv^T (gemm_nt), both in reduce.cu.  Per window
+//      1152*C^2 + 40960*C FLOPs (the qkv products, then five 64x64x32 products per head:
+//      QK^T recomputed, dv, dp, dq, dk): near or above the bf16 ridge.
+//   K5 hs_window_attention_bwd <- _bwd_kernel (_attn_bwd_body_cos_wide for cosine,
+//      _attn_bwd_body for scaled-dot), the backward of K2: qkv_bwd_kernel<COS, true>,
+//      the same core with the head's q|k|v slices of the qkv rows copied in by cp.async
+//      in place of the projection, K2's probabilities recomputed through K2's own
+//      functions (load_q_frags, cos_q_frags, cos_k_frag, head_probs_mma), dq|dk|dv rows
+//      out; then reduce_rows.  40960 FLOPs per (window, head) on 16 KB in and out: bound
+//      by memory and latency, not by the tensor cores.
+//   K4 hs_window_attention_qkv_epi_bwd <- _bwd_kernel_xw_epi, the backward of K1 (x @
+//      Wqkv + b -> cosine attention -> @ Wp + bp -> optional LayerNorm): a launch
+//      sequence from one entry, on one stream: (1) o = K16 cosine on x (qkv_attention:
+//      K1's head loop, so K1's o bit for bit); (2) proj_ln_bwd_kernel: u = o Wp + bp
+//      recomputed through K1's weight ring (K1's u bit for bit), the LayerNorm backward
+//      in registers, du in bf16 and per-block partials of dbp, dgamma, dbeta for
+//      reduce_rows; (3) dWp = o^T du (gemm_tn) and do = bf16(du Wp^T) (gemm_nt); (4) K17
+//      cosine on (x, do).  1536*C^2 + 49152*C FLOPs per window in all.
 //
-// What bounds it on this card: K4 does about 3x K1's products per window (qkv and
-// output projections, QK^T and PV recomputed, PV^T, dP, two ds products, do and dx),
-// near or above the bf16 ridge like K1, plus the parameter gradients, which the TPU
-// kernel accumulates across its sequential grid: dWqkv = x^T dqkv, dWp = o^T du,
-// dbias (h x 64 x 64), dlogit_scale, dbqkv, dbp, dgamma, dbeta.
-//
-// What the design of K4 and K5 does about it (K17's is at its kernel):
-// - Parameter gradients without atomics, in a fixed order: each block writes a
-//   partial row per window (its ds for dbias, and column sums for the vectors), and
-//   reduce.cu sums the rows; dWqkv and dWp are split-K products over the token axis
-//   (reduce.cu gemm_tn) of bf16 x, o, dqkv and du that the kernel leaves in a
-//   workspace (the TPU kernel keeps them in VMEM).  Results do not change from run to
-//   run.
-// - Shared memory: the TPU kernel caches every head's f32 softmax (192 KB at
-//   C = 384) beside x, o and dqkv; here phase 2 recomputes p per head from the qkv
-//   rows phase 1 left in the workspace (the same f32 values, computed the same way),
-//   and the x tile, the f32 projection output u and the phase-2 head scratch share
-//   one region (168 KB at C = 384, 103 KB at C = 96).
-// - The softmax shift is the row max, as in K1's forward (the Pallas kernels use a
-//   static bound); the backward uses the shift its own recomputation uses.
+// What bounds them on this card, and what the designs do about it:
+// - The products are near or above the bf16 ridge at C >= 96, so what bounds them is
+//   how the tensor cores are fed: mma.sync from ldmatrix fragments, scores,
+//   probabilities, dP, dS and dQ in registers, operands staged by cp.async while the
+//   previous window runs, resident weights (K17's Wqkv strips) or K1's weight ring.
+// - The parameter gradients, which the TPU kernels accumulate across their sequential
+//   grid, become per-block partial rows summed in a fixed order by reduce_rows, and
+//   split-K products (gemm_tn): no float atomics, so results do not change from run to
+//   run.  A block walks a run of windows and writes its partials once.
+// - Each backward recomputes its forward through the forward's own functions (K1/K16's
+//   qkv_head_epilogue, K2's cos_q_frags / cos_k_frag, head_probs_mma, K1's gemm_rows),
+//   so that it differentiates the probabilities and the projection output the forward
+//   computed, bit for bit, and not a function one rounding away.
 // - bf16 rounding at the Pallas backward's points: qkv; (q/|q|)*scale and k/|k|; p
-//   before dv; ds before the q/k products; du before dWp and do; do; dqkv before dx
-//   and dW.  Products are 16x16x16 bf16 WMMA tiles with f32 accumulation, weights
-//   streamed from L2 as fragments; wgmma/TMA pipelines are later work.
+//   before dv; ds before the q/k products; du before dWp and do; do; dqkv before dx and
+//   dW.  wgmma/TMA pipelines are later work.
 
 #include "attention.cuh"
 
 namespace hs {
 namespace {
 
-constexpr int MAX_C = 384;
-constexpr int MAXJ = MAX_C / 32;    // columns per lane in a row pass
-
-// Per-head scratch of the attention backward (K5's block, K4's phase 2).
-struct Head {
-  bf16 *qr, *kr, *qs, *kl, *v, *dob;  // q, k as rounded; the score operands; v; do (K5)
-  float *s, *dp;                      // scores, then f32 p; dp = do v^T
-  float *aq, *bk;                     // dv staging, then ds k_hat; ds^T (q_hat * scale)
-  bf16* pl;                           // bf16 p, then bf16 ds
-  float *uq, *uk, *red;               // per-row inverse norms; per-warp sums
-  int* g;                             // the window's group ids
-};
-
-__host__ __device__ inline size_t head_bytes() {
-  return 6 * align128(size_t(WS) * LD_HEAD * 2) + 2 * align128(size_t(WS) * LD_S * 4) +
-         2 * align128(size_t(WS) * LD_T * 4) + align128(size_t(WS) * LD_P * 2) +
-         4 * align128(size_t(WS) * 4);
-}
-
-__device__ inline Head carve_head(unsigned char* base) {
-  Head h;
-  size_t off = 0;
-  bf16** bfs[6] = {&h.qr, &h.kr, &h.qs, &h.kl, &h.v, &h.dob};
-  for (int i = 0; i < 6; ++i) {
-    *bfs[i] = reinterpret_cast<bf16*>(base + off);
-    off += align128(size_t(WS) * LD_HEAD * 2);
-  }
-  h.s = reinterpret_cast<float*>(base + off); off += align128(size_t(WS) * LD_S * 4);
-  h.dp = reinterpret_cast<float*>(base + off); off += align128(size_t(WS) * LD_S * 4);
-  h.aq = reinterpret_cast<float*>(base + off); off += align128(size_t(WS) * LD_T * 4);
-  h.bk = reinterpret_cast<float*>(base + off); off += align128(size_t(WS) * LD_T * 4);
-  h.pl = reinterpret_cast<bf16*>(base + off); off += align128(size_t(WS) * LD_P * 2);
-  h.uq = reinterpret_cast<float*>(base + off); off += align128(size_t(WS) * 4);
-  h.uk = reinterpret_cast<float*>(base + off); off += align128(size_t(WS) * 4);
-  h.red = reinterpret_cast<float*>(base + off); off += align128(size_t(WS) * 4);
-  h.g = reinterpret_cast<int*>(base + off);
-  return h;
-}
-
-// Per row: the inverse norms uq = 1/|q|, uk = 1/|k| (rsqrt of the clamped sum of
-// squares) and the score operands qs = bf16((q uq) scale), kl = bf16(k uk) for cosine
-// attention (_cos_wide_preamble); q and k as they are for scaled-dot.
-__device__ void prepare_head(const Head& hd, bool use_cos, float scale) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  for (int r = warp; r < WS; r += kWarps) {
-    const int i = r * LD_HEAD + lane;
-    if (!use_cos) {
-      hd.qs[i] = hd.qr[i];
-      hd.kl[i] = hd.kr[i];
-      continue;
-    }
-    const float qv = bf(hd.qr[i]);
-    const float kv = bf(hd.kr[i]);
-    const float iq = rsqrtf(fmaxf(warp_sum(qv * qv), 1e-24f));
-    const float ik = rsqrtf(fmaxf(warp_sum(kv * kv), 1e-24f));
-    if (lane == 0) {
-      hd.uq[r] = iq;
-      hd.uk[r] = ik;
-    }
-    hd.qs[i] = to_bf((qv * iq) * scale);
-    hd.kl[i] = to_bf(kv * ik);
-  }
-  __syncthreads();
-}
-
-// The backward of one head of one window, after prepare_head, for do (64 x HD bf16,
-// leading dimension ldo).  Writes dq | dk | dv (bf16) into the window's dqkv rows
-// (64 x 3C) at this head's columns, ds (f32, 64 x 64) into dbias_part and this head's
-// sum_rows <ds k_hat, q_hat> into *dls_part (cosine; 0 for scaled-dot).
-__device__ void head_backward(const Head& hd, const bf16* dob, int ldo, bool use_cos,
-                              bool masked, const float* __restrict__ bias_h, float scale,
-                              float sm_scale, bf16* dqkv_rows, int C, int head,
-                              float* dbias_part, float* dls_part) {
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int C3 = 3 * C;
-
-  mm_abt(hd.qs, LD_HEAD, hd.kl, LD_HEAD, hd.s);
-  __syncthreads();
-  softmax_rows(hd.s, hd.pl, hd.g, masked, bias_h, use_cos ? 1.f : sm_scale);
-  __syncthreads();
-
-  // dv = p^T do (bf16 p), staged in aq; dp = do v^T
-  mm_pb<true>(hd.pl, dob, ldo, hd.aq);
-  mm_abt(dob, ldo, hd.v, LD_HEAD, hd.dp);
-  __syncthreads();
-
-  for (int idx = tid; idx < WS * HD; idx += kThreads) {
-    const int r = idx / HD, d = idx % HD;
-    dqkv_rows[size_t(r) * C3 + 2 * C + head * HD + d] = to_bf(hd.aq[r * LD_T + d]);
-  }
-  // ds = p (dp - sum_j dp p) in f32 -> this window's dbias part; bf16 ds over p
-  for (int r = warp; r < WS; r += kWarps) {
-    const float p0 = hd.s[r * LD_S + lane], p1 = hd.s[r * LD_S + lane + 32];
-    const float d0 = hd.dp[r * LD_S + lane], d1 = hd.dp[r * LD_S + lane + 32];
-    const float t = warp_sum(d0 * p0 + d1 * p1);
-    const float ds0 = p0 * (d0 - t), ds1 = p1 * (d1 - t);
-    dbias_part[r * WS + lane] = ds0;
-    dbias_part[r * WS + lane + 32] = ds1;
-    hd.pl[r * LD_P + lane] = to_bf(ds0);
-    hd.pl[r * LD_P + lane + 32] = to_bf(ds1);
-  }
-  __syncthreads();
-
-  // aq = ds kl, bk = ds^T qs (one tile of each per warp)
-  mm_pb<false>(hd.pl, hd.kl, LD_HEAD, hd.aq);
-  mm_pb<true>(hd.pl, hd.qs, LD_HEAD, hd.bk);
-  __syncthreads();
-
-  // dq, dk: the tangent projection of the normalization for cosine attention
-  // (dq = s uq (aq - q_hat <aq, q_hat>), dk = uk (bk - k_hat <bk, k_hat>)), the score
-  // scale for scaled-dot; one warp per row, lane = channel
-  float dls = 0.f;
-  for (int r = warp; r < WS; r += kWarps) {
-    const float a = hd.aq[r * LD_T + lane];
-    const float b = hd.bk[r * LD_T + lane];
-    float dq, dk;
-    if (use_cos) {
-      const float uq = hd.uq[r], uk = hd.uk[r];
-      const float qh = bf(hd.qr[r * LD_HEAD + lane]) * uq;
-      const float kh = bf(hd.kr[r * LD_HEAD + lane]) * uk;
-      const float rdq = warp_sum(a * qh);
-      const float rdk = warp_sum(b * kh);
-      dls += rdq;
-      dq = (a - qh * rdq) * (uq * scale);
-      dk = (b - kh * rdk) * uk;
-    } else {
-      dq = a * sm_scale;
-      dk = b * sm_scale;
-    }
-    dqkv_rows[size_t(r) * C3 + head * HD + lane] = to_bf(dq);
-    dqkv_rows[size_t(r) * C3 + C + head * HD + lane] = to_bf(dk);
-  }
-  if (lane == 0) hd.red[warp] = dls;
-  __syncthreads();
-  if (tid == 0) {
-    float s = 0.f;
-    for (int w = 0; w < kWarps; ++w) s += hd.red[w];
-    *dls_part = s;
-  }
-  __syncthreads();
-}
-
-// the partial row of one window: [dbias (H x 64 x 64) | dls (H)] (+ K4's
-// [dbqkv (3C) | dbp (C) | dgamma (C) | dbeta (C)])
+// the partial row of K5's blocks: [dbias (H x 64 x 64) | dls (H)]
 __host__ __device__ inline size_t attn_part_width(int H) { return size_t(H) * (WS * WS + 1); }
 
 // ---------------------------------------------------------------------------------
-// K5: grid (T/64 windows, C/32 heads).
-// ---------------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_kernel(const bf16* __restrict__ qkv, const int* __restrict__ groups,
-                const float* __restrict__ bias, const float* __restrict__ lscale,
-                const bf16* __restrict__ dout, bf16* __restrict__ dqkv,
-                float* __restrict__ part, int C, int use_cos, int has_mask, float sm_scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Head hd = carve_head(smem);
-  const int win = blockIdx.x;
-  const int head = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int H = C / HD;
-
-  // q, k, v slices of this head and its do: 64 rows x 4 parts x 4 16-byte chunks
-  for (int idx = tid; idx < WS * 16; idx += kThreads) {
-    const int r = idx / 16, part_i = (idx % 16) >> 2, q4 = idx & 3;
-    const size_t row = size_t(win) * WS + r;
-    const bf16* src = part_i < 3 ? qkv + row * 3 * C + part_i * C + head * HD
-                                 : dout + row * C + head * HD;
-    bf16* dst = (part_i == 0 ? hd.qr : part_i == 1 ? hd.kr : part_i == 2 ? hd.v : hd.dob) +
-                r * LD_HEAD;
-    reinterpret_cast<uint4*>(dst)[q4] = reinterpret_cast<const uint4*>(src)[q4];
-  }
-  if (has_mask && tid < WS) hd.g[tid] = groups[size_t(win) * WS + tid];
-  __syncthreads();
-
-  const float scale = use_cos ? lscale[head] : 1.f;
-  prepare_head(hd, use_cos != 0, scale);
-  float* prow = part + size_t(win) * attn_part_width(H);
-  head_backward(hd, hd.dob, LD_HEAD, use_cos != 0, has_mask != 0,
-                bias + size_t(head) * WS * WS, scale, sm_scale, dqkv + size_t(win) * WS * 3 * C,
-                C, head, prow + size_t(head) * WS * WS, prow + size_t(H) * WS * WS + head);
-}
-
-// ---------------------------------------------------------------------------------
-// K4: one block per window.  Shared memory: region A (64 x (C+8) bf16: o, then the
-// per-warp column sums, du, do) | region B (phase 1: x tile | one head's f32 qkv |
-// the head's q_hat, k_hat, v, scores, p; then u / du and the do / dx staging in f32;
-// phase 2: Head at its start) | group ids.
-// ---------------------------------------------------------------------------------
-struct EpiBwdLayout {
-  size_t b, qkvf, head1, g, total;
-};
-
-__host__ __device__ inline EpiBwdLayout epi_bwd_layout(int C) {
-  EpiBwdLayout L;
-  const size_t ldx = size_t(C) + 8;
-  const size_t a = align128(WS * ldx * 2);
-  L.b = a;
-  size_t p1 = align128(WS * ldx * 2);
-  L.qkvf = L.b + p1;
-  p1 += align128(size_t(WS) * LD_QKV * 4);
-  L.head1 = L.b + p1;
-  p1 += 3 * align128(size_t(WS) * LD_HEAD * 2) + align128(size_t(WS) * LD_S * 4) +
-        align128(size_t(WS) * LD_P * 2);
-  size_t bsz = p1 > head_bytes() ? p1 : head_bytes();
-  const size_t usz = align128(size_t(WS) * (C + 4) * 4);
-  bsz = bsz > usz ? bsz : usz;
-  L.g = L.b + bsz;
-  L.total = L.g + align128(WS * 4);
-  return L;
-}
-
-__global__ void __launch_bounds__(kThreads)
-qkv_epi_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
-                   const bf16* __restrict__ bqkv, const bf16* __restrict__ wp,
-                   const bf16* __restrict__ bp, const float* __restrict__ ln_g,
-                   const int* __restrict__ groups, const float* __restrict__ bias,
-                   const float* __restrict__ lscale, const bf16* __restrict__ dz,
-                   bf16* __restrict__ dx, bf16* qkv_s, bf16* __restrict__ o_s, bf16* dqkv_s,
-                   bf16* __restrict__ du_s, float* __restrict__ part, int C, int has_ln,
-                   int has_mask, float ln_eps) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const EpiBwdLayout L = epi_bwd_layout(C);
-  const int LDX = C + 8;
-  const int LDU = C + 4;
-  bf16* as = reinterpret_cast<bf16*>(smem);      // region A as bf16
-  float* af = reinterpret_cast<float*>(smem);    // region A as f32
-  bf16* xs = reinterpret_cast<bf16*>(smem + L.b);
-  float* bf32 = reinterpret_cast<float*>(smem + L.b);  // u, du, staging
-  float* qkvf = reinterpret_cast<float*>(smem + L.qkvf);
-  bf16* q1 = reinterpret_cast<bf16*>(smem + L.head1);
-  bf16* k1 = q1 + WS * LD_HEAD;
-  bf16* v1 = k1 + WS * LD_HEAD;
-  float* s1 = reinterpret_cast<float*>(smem + L.head1 + 3 * align128(size_t(WS) * LD_HEAD * 2));
-  bf16* p1 = reinterpret_cast<bf16*>(reinterpret_cast<unsigned char*>(s1) +
-                                     align128(size_t(WS) * LD_S * 4));
-  int* g = reinterpret_cast<int*>(smem + L.g);
-
-  const int win = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int H = C / HD;
-  const int C3 = 3 * C;
-  const size_t row0 = size_t(win) * WS;
-  const bool masked = has_mask != 0;
-  float* prow = part + size_t(win) * (attn_part_width(H) + 6 * C);
-  float* prow_vec = prow + attn_part_width(H);  // dbqkv | dbp | dgamma | dbeta
-
-  // x tile, 16-byte chunks
-  const int chunks = C / 8;
-  for (int idx = tid; idx < WS * chunks; idx += kThreads) {
-    const int r = idx / chunks, q = idx % chunks;
-    reinterpret_cast<uint4*>(xs + r * LDX)[q] =
-        reinterpret_cast<const uint4*>(x + (row0 + r) * C)[q];
-  }
-  if (masked && tid < WS) g[tid] = groups[row0 + tid];
-  __syncthreads();
-
-  // ---- phase 1: qkv (kept in the workspace), per-head softmax and o
-  for (int head = 0; head < H; ++head) {
-    project_head_qkv(xs, LDX, wqkv, C, head, qkvf);
-
-    const float scale = lscale[head];
-    {
-      const float bq = bf(bqkv[head * HD + lane]);
-      const float bk = bf(bqkv[C + head * HD + lane]);
-      const float bv = bf(bqkv[2 * C + head * HD + lane]);
-      for (int r = warp; r < WS; r += kWarps) {
-        const float* row = qkvf + r * LD_QKV;
-        const float qv = bfr(row[lane] + bq);
-        const float kv = bfr(row[HD + lane] + bk);
-        const float vv = bfr(row[2 * HD + lane] + bv);
-        bf16* grow = qkv_s + (row0 + r) * C3 + head * HD + lane;
-        grow[0] = to_bf(qv);
-        grow[C] = to_bf(kv);
-        grow[2 * C] = to_bf(vv);
-        const float iq = rsqrtf(fmaxf(warp_sum(qv * qv), 1e-24f));
-        const float ik = rsqrtf(fmaxf(warp_sum(kv * kv), 1e-24f));
-        q1[r * LD_HEAD + lane] = to_bf((qv * iq) * scale);
-        k1[r * LD_HEAD + lane] = to_bf(kv * ik);
-        v1[r * LD_HEAD + lane] = to_bf(vv);
-      }
-    }
-    __syncthreads();
-    attend_head(q1, k1, v1, s1, p1, g, masked, bias + size_t(head) * WS * WS, 1.f);
-    for (int idx = tid; idx < WS * HD; idx += kThreads) {
-      const int r = idx / HD, d = idx % HD;
-      as[r * LDX + head * HD + d] = to_bf(s1[r * LD_T + d]);
-    }
-    __syncthreads();
-  }
-  for (int idx = tid; idx < WS * chunks; idx += kThreads) {
-    const int r = idx / chunks, q = idx % chunks;
-    reinterpret_cast<uint4*>(o_s + (row0 + r) * C)[q] =
-        reinterpret_cast<const uint4*>(as + r * LDX)[q];
-  }
-
-  // ---- u = o Wp (f32) over region B (x and qkv are no longer needed)
-  const int ntiles = 4 * (C / 16);
-  for (int t = warp; t < ntiles; t += kWarps) {
-    const int rt = t & 3, ct = t >> 2;
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
-    for (int kk = 0; kk < C; kk += 16) {
-      FragA a;
-      FragB b;
-      wmma::load_matrix_sync(a, as + rt * 16 * LDX + kk, LDX);
-      wmma::load_matrix_sync(b, wp + size_t(kk) * C + ct * 16, C);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync(bf32 + rt * 16 * LDU + ct * 16, acc, LDU, wmma::mem_row_major);
-  }
-  __syncthreads();
-
-  // ---- LayerNorm backward, one warp per row: du (f32) in place of u; per-lane column
-  // sums of du (dbp), dz * xhat (dgamma) and dz (dbeta)
-  {
-    const int nj = C / 32;
-    float acc_p[MAXJ], acc_g[MAXJ], acc_b[MAXJ];
-#pragma unroll
-    for (int j = 0; j < MAXJ; ++j) acc_p[j] = acc_g[j] = acc_b[j] = 0.f;
-    for (int r = warp; r < WS; r += kWarps) {
-      float* urow = bf32 + r * LDU;
-      const bf16* dzrow = dz + (row0 + r) * C;
-      float uv[MAXJ], dzv[MAXJ];
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < MAXJ; ++j) {
-        if (j < nj) {
-          const int c = lane + 32 * j;
-          uv[j] = urow[c] + bf(bp[c]);
-          dzv[j] = bf(dzrow[c]);
-          sum += uv[j];
-        }
-      }
-      if (has_ln) {
-        const float mean = warp_sum(sum) / C;
-        float sq = 0.f;
-#pragma unroll
-        for (int j = 0; j < MAXJ; ++j)
-          if (j < nj) {
-            const float d = uv[j] - mean;
-            sq += d * d;
-          }
-        const float rstd = rsqrtf(warp_sum(sq) / C + ln_eps);
-        float s1v = 0.f, s2v = 0.f;
-#pragma unroll
-        for (int j = 0; j < MAXJ; ++j)
-          if (j < nj) {
-            const int c = lane + 32 * j;
-            const float xh = (uv[j] - mean) * rstd;
-            uv[j] = xh;
-            acc_g[j] += dzv[j] * xh;
-            acc_b[j] += dzv[j];
-            const float dgl = dzv[j] * ln_g[c];
-            s1v += dgl;
-            s2v += dgl * xh;
-          }
-        const float m1 = warp_sum(s1v) / C;
-        const float m2 = warp_sum(s2v) / C;
-#pragma unroll
-        for (int j = 0; j < MAXJ; ++j)
-          if (j < nj) {
-            const int c = lane + 32 * j;
-            const float du = rstd * (dzv[j] * ln_g[c] - m1 - uv[j] * m2);
-            urow[c] = du;
-            acc_p[j] += du;
-          }
-      } else {
-#pragma unroll
-        for (int j = 0; j < MAXJ; ++j)
-          if (j < nj) {
-            urow[lane + 32 * j] = dzv[j];
-            acc_p[j] += dzv[j];
-          }
-      }
-    }
-    // per-warp sums into region A (o is in the workspace now), then across warps
-    float* wsum = af + warp * C3;
-#pragma unroll
-    for (int j = 0; j < MAXJ; ++j)
-      if (j < nj) {
-        const int c = lane + 32 * j;
-        wsum[c] = acc_p[j];
-        wsum[C + c] = acc_g[j];
-        wsum[2 * C + c] = acc_b[j];
-      }
-  }
-  __syncthreads();
-  for (int c = tid; c < C3; c += kThreads) {
-    float s = 0.f;
-    for (int w = 0; w < kWarps; ++w) s += af[w * C3 + c];
-    prow_vec[C3 + c] = s;  // dbp | dgamma | dbeta
-  }
-  __syncthreads();
-
-  // ---- du (bf16) into region A and the workspace; do = du Wp^T (f32 over u)
-  for (int idx = tid; idx < WS * C; idx += kThreads) {
-    const int r = idx / C, c = idx % C;
-    const bf16 v = to_bf(bf32[r * LDU + c]);
-    as[r * LDX + c] = v;
-    du_s[(row0 + r) * C + c] = v;
-  }
-  __syncthreads();
-  for (int t = warp; t < ntiles; t += kWarps) {
-    const int rt = t & 3, ct = t >> 2;
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
-    for (int kk = 0; kk < C; kk += 16) {
-      FragA a;
-      FragBt b;  // element (k, n) of Wp^T at wp[n * C + k]
-      wmma::load_matrix_sync(a, as + rt * 16 * LDX + kk, LDX);
-      wmma::load_matrix_sync(b, wp + size_t(ct) * 16 * C + kk, C);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync(bf32 + rt * 16 * LDU + ct * 16, acc, LDU, wmma::mem_row_major);
-  }
-  __syncthreads();
-  for (int idx = tid; idx < WS * C; idx += kThreads) {
-    const int r = idx / C, c = idx % C;
-    as[r * LDX + c] = to_bf(bf32[r * LDU + c]);  // do (bf16)
-  }
-  __syncthreads();
-
-  // ---- phase 2: per head, the attention backward from the qkv rows of phase 1
-  Head hd = carve_head(smem + L.b);
-  hd.g = g;
-  for (int head = 0; head < H; ++head) {
-    for (int idx = tid; idx < WS * 12; idx += kThreads) {
-      const int r = idx / 12, part_i = (idx % 12) >> 2, q4 = idx & 3;
-      const bf16* src = qkv_s + (row0 + r) * C3 + part_i * C + head * HD;
-      bf16* dst = (part_i == 0 ? hd.qr : part_i == 1 ? hd.kr : hd.v) + r * LD_HEAD;
-      reinterpret_cast<uint4*>(dst)[q4] = reinterpret_cast<const uint4*>(src)[q4];
-    }
-    __syncthreads();
-    const float scale = lscale[head];
-    prepare_head(hd, true, scale);
-    head_backward(hd, as + head * HD, LDX, true, masked, bias + size_t(head) * WS * WS, scale,
-                  0.f, dqkv_s + row0 * C3, C, head, prow + size_t(head) * WS * WS,
-                  prow + size_t(H) * WS * WS + head);
-  }
-
-  // ---- dbqkv (column sums of the bf16 dqkv) and dx = dqkv Wqkv^T
-  for (int c = tid; c < C3; c += kThreads) {
-    float s = 0.f;
-    for (int r = 0; r < WS; ++r) s += bf(dqkv_s[(row0 + r) * C3 + c]);
-    prow_vec[c] = s;
-  }
-  for (int t = warp; t < ntiles; t += kWarps) {
-    const int rt = t & 3, ct = t >> 2;
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
-    for (int kk = 0; kk < C3; kk += 16) {
-      FragA a;
-      FragBt b;  // element (k, n) of Wqkv^T at wqkv[n * 3C + k]
-      wmma::load_matrix_sync(a, dqkv_s + (row0 + rt * 16) * C3 + kk, C3);
-      wmma::load_matrix_sync(b, wqkv + size_t(ct) * 16 * C3 + kk, C3);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync(bf32 + rt * 16 * LDU + ct * 16, acc, LDU, wmma::mem_row_major);
-  }
-  __syncthreads();
-  for (int idx = tid; idx < WS * C; idx += kThreads) {
-    const int r = idx / C, c = idx % C;
-    dx[(row0 + r) * C + c] = to_bf(bf32[r * LDU + c]);
-  }
-}
-
-// ---------------------------------------------------------------------------------
-// K17: grid (runs of kRun consecutive windows, heads); one core (4 warps, each owning
-// 16 rows) per block.  What bounds the old one-block-per-window design was not the
-// products but how they were fed: the weights read as WMMA fragments from L2 inside
-// the k-loop, every per-head product through f32 tiles in shared memory with about ten
-// block barriers per head, and a partial row of H (64 x 64 + 1) + 3 C floats per
-// window, written and read back (3.7 GB over a train step).  Here:
-// - The head's q|k|v column strips of Wqkv (C x 96 bf16) and its 64 x 64 bias are
-//   loaded once per block and stay in shared memory for the run.
-// - Per window, the x tile and this head's 64 x 32 slice of dout arrive by cp.async;
-//   x is free once projected, so the next window's x (and group ids) are copied while
-//   this one runs its backward, and the next dout slice once dV has read this one.
-// - Each warp projects its 16 rows (mma.sync from ldmatrix fragments, ascending
-//   16-wide k-steps, as K1 and K16 do) and runs qkv_head_epilogue and head_probs_mma:
-//   the forward's q, k, v and P, bit for bit.  dP = dO v^T, ds = p (dP - rowsum(dP p))
-//   in f32 (the row sum over a quad) and dQ = dS k (dS repacked from the
-//   accumulators, as P in the forward) stay in registers; bf16 P and dS go once to
-//   64 x 64 tiles, and after one barrier each warp takes 16 key rows for dV = P^T dO
-//   and dK = dS^T q (ldmatrix.trans).  Cosine: the tangent projection of the
-//   normalization and the logit-scale term, per-row dots as quad sums; scaled-dot:
-//   sm_scale.  bf16 rounding at the plain version's points (p before dv, ds before
-//   the q/k products, dq, dk, dv); the score operand is the forward's bf16(q (uq
-//   scale)), where the plain backward rounds (q uq) scale, an f32 ulp apart at most.
+// K17 and K5: grid (runs of kRun consecutive windows, heads); one core (4 warps, each
+// owning 16 rows) per block.  Per window:
+// - K17: the head's q|k|v column strips of Wqkv (C x 96 bf16) and its 64 x 64 bias are
+//   loaded once per block and stay in shared memory for the run; the x tile and this
+//   head's 64 x 32 slice of dout arrive by cp.async; x is free once projected, so the
+//   next window's x (and group ids) are copied while this one runs its backward, and
+//   the next dout slice once dV has read this one.  Each warp projects its 16 rows
+//   (mma.sync from ldmatrix fragments, ascending 16-wide k-steps, as K1 and K16 do) and
+//   runs qkv_head_epilogue: the forward's q, k, v, bit for bit.
+// - K5 (LOAD_QKV): the head's q, k and v slices of the window's qkv rows arrive by
+//   cp.async into one of two buffers, the next window's as soon as this one has landed;
+//   no weights, no x.  The query fragments and the cosine norms are K2's: load_q_frags
+//   and cos_q_frags, and each warp makes 16 keys of the k_hat tile with cos_k_frag on
+//   the B fragments K2's head_probs_mma<true> normalizes, so the k_hat tile holds the
+//   fragments K2 multiplies, and head_probs_mma<false> on it gives K2's P bit for bit.
+// - Then both: head_probs_mma (P), dP = dO v^T, ds = p (dP - rowsum(dP p)) in f32 (the
+//   row sum over a quad) and dQ = dS k (dS repacked from the accumulators, as P in the
+//   forward) stay in registers; bf16 P and dS go once to 64 x 64 tiles, and after one
+//   barrier each warp takes 16 key rows for dV = P^T dO and dK = dS^T q
+//   (ldmatrix.trans).  Cosine: the tangent projection of the normalization and the
+//   logit-scale term, per-row dots as quad sums; scaled-dot: sm_scale.  bf16 rounding
+//   at the plain version's points (p before dv, ds before the q/k products, dq, dk,
+//   dv); the score operand is the forward's bf16(q (uq scale)), where the plain
+//   backward rounds (q uq) scale, an f32 ulp apart at most.
 // - The f32 ds of every window accumulates in 32 registers a thread (the head's 64 x 64
-//   dbias), dls in one, and the dbqkv column sums of the rounded dq|dk|dv (read back
-//   from the staging tile that also gives the 16-byte stores of the dqkv workspace) in
+//   dbias), dls in one, and (K17) the dbqkv column sums of the rounded dq|dk|dv (read
+//   back from the staging tile that also gives the 16-byte stores of the dqkv rows) in
 //   two: the block writes its slice of the run's partial row once, at its end, so
 //   reduce_rows reads kRun times fewer rows.
 // Five core barriers per window; nothing is atomic, so results do not change from run
-// to run.  Shared memory: 201,216 B at C = 384 and 136,704 B at C = 192 (one block an
-// SM), 104,448 B at C = 96 (two).
+// to run.  Shared memory: K17 201,216 B at C = 384 and 136,704 B at C = 192 (one block
+// an SM), 104,448 B at C = 96 (two); K5 101,888 B at any C (two).
 // ---------------------------------------------------------------------------------
 constexpr int kRun = 8;             // windows one block walks
 constexpr int LD_WH = 3 * HD + 8;   // the head's q|k|v rows of Wqkv; the dq|dk|dv staging
+constexpr int kTile = WS * LD_HEAD;  // elements of a 64 x HD tile
 
 struct QkvBwdLayout {
   size_t w, x, q, k, v, dout, p, ds, st, bias, g, total;
 };
 
-__host__ __device__ inline QkvBwdLayout qkv_bwd_layout(int C) {
+__host__ __device__ inline QkvBwdLayout qkv_bwd_layout(int C, bool load_qkv) {
   QkvBwdLayout L;
-  const size_t tile = align128(size_t(WS) * LD_HEAD * 2);
+  const size_t tile = align128(size_t(kTile) * 2);
   size_t off = 0;
-  L.w = off; off += align128(size_t(C) * LD_WH * 2);
-  L.x = off; off += align128(size_t(WS) * (C + 8) * 2);
+  L.w = off; if (!load_qkv) off += align128(size_t(C) * LD_WH * 2);
+  L.x = off;  // K17: the x tile; K5: two windows' q | k | v slices
+  off += load_qkv ? 6 * tile : align128(size_t(WS) * (C + 8) * 2);
   L.q = off; off += tile;  // the score operand q_hat (cosine) or q, for dK
   L.k = off; off += tile;  // k_hat or k, for the scores and dQ
   L.v = off; off += tile;
@@ -579,23 +112,24 @@ __host__ __device__ inline QkvBwdLayout qkv_bwd_layout(int C) {
   return L;
 }
 
-// the partial row of one run: [dbias (H x 64 x 64) | dls (H) | dbqkv (3C)]
+// the partial row of one K17 run: [dbias (H x 64 x 64) | dls (H) | dbqkv (3C)]
 __host__ __device__ inline size_t qkv_part_width(int C) {
   return attn_part_width(C / HD) + 3 * size_t(C);
 }
 
 __host__ __device__ inline int qkv_runs(int T) { return (T / WS + kRun - 1) / kRun; }
 
-template <bool COS>
+template <bool COS, bool LOAD_QKV>
 __global__ void __launch_bounds__(kCoreThreads)
 qkv_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
                const bf16* __restrict__ bqkv, const int* __restrict__ groups,
                const float* __restrict__ bias, const float* __restrict__ lscale,
                const bf16* __restrict__ dout, bf16* __restrict__ dqkv,
                float* __restrict__ part, int T, int C, int has_mask, float sm_scale) {
+  // x: K17 the tokens (T x C); K5 the qkv rows (T x 3C).  wqkv, bqkv: K17 only.
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ float red[kCoreWarps];
-  const QkvBwdLayout L = qkv_bwd_layout(C);
+  const QkvBwdLayout L = qkv_bwd_layout(C, LOAD_QKV);
   const int LDX = C + 8;
   bf16* ws = reinterpret_cast<bf16*>(smem + L.w);
   bf16* xs = reinterpret_cast<bf16*>(smem + L.x);
@@ -624,13 +158,22 @@ qkv_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
   const float scale = COS ? lscale[head] : 1.f;
   const int chunks = C / 8;
 
-  // cp.async copies of window w's x tile and group ids (into buffer b), and of its dout
-  // slice; the caller commits
+  // cp.async copies of window w's x tile (K5: its q|k|v slices) and group ids (into
+  // buffer b), and of its dout slice; the caller commits
   auto stage_x = [&](int w, int b) {
     const size_t tok0 = size_t(w) * WS;
-    for (int idx = tid; idx < WS * chunks; idx += kCoreThreads) {
-      const int r = idx / chunks, c = (idx - r * chunks) * 8;
-      cp_async16(xs + r * LDX + c, x + (tok0 + r) * C + c);
+    if constexpr (LOAD_QKV) {
+      bf16* t = xs + b * 3 * kTile;
+      for (int idx = tid; idx < WS * 12; idx += kCoreThreads) {
+        const int r = idx / 12, part_i = (idx % 12) >> 2, c = (idx & 3) * 8;
+        cp_async16(t + part_i * kTile + r * LD_HEAD + c,
+                   x + (tok0 + r) * C3 + part_i * C + head * HD + c);
+      }
+    } else {
+      for (int idx = tid; idx < WS * chunks; idx += kCoreThreads) {
+        const int r = idx / chunks, c = (idx - r * chunks) * 8;
+        cp_async16(xs + r * LDX + c, x + (tok0 + r) * C + c);
+      }
     }
     if (masked && tid < WS / 4) cp_async16(gs + b * WS + tid * 4, groups + tok0 + tid * 4);
   };
@@ -642,10 +185,13 @@ qkv_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
     }
   };
 
-  // the run's resident operands: the head's q|k|v strips of Wqkv and its bias
-  for (int idx = tid; idx < C * kHeadNT; idx += kCoreThreads) {
-    const int r = idx / kHeadNT, t = idx - r * kHeadNT;
-    cp_async16(ws + r * LD_WH + t * 8, wqkv + size_t(r) * C3 + (t >> 2) * C + head * HD + (t & 3) * 8);
+  // the run's resident operands: (K17) the head's q|k|v strips of Wqkv, and its bias
+  if constexpr (!LOAD_QKV) {
+    for (int idx = tid; idx < C * kHeadNT; idx += kCoreThreads) {
+      const int r = idx / kHeadNT, t = idx - r * kHeadNT;
+      cp_async16(ws + r * LD_WH + t * 8,
+                 wqkv + size_t(r) * C3 + (t >> 2) * C + head * HD + (t & 3) * 8);
+    }
   }
   const float* bias_h = bias + size_t(head) * WS * WS;
   for (int idx = tid; idx < WS * WS / 4; idx += kCoreThreads) {
@@ -667,30 +213,74 @@ qkv_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
   for (int i = 0; i < n; ++i) {
     const size_t tok0 = size_t(w0 + i) * WS;
     cp_async_wait<0>();
-    __syncthreads();  // window i's x, group ids and dout have landed
-
-    // qkv = x Wqkv over the head's columns: 16 rows x 12 n-tiles a warp
-    float acc[kHeadNT][4];
-#pragma unroll
-    for (int t = 0; t < kHeadNT; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
-    for (int kk = 0; kk < C; kk += 16) {
-      uint32_t a[4];
-      ldsm_x4(a, arow + kk);
-#pragma unroll
-      for (int np = 0; np < kHeadNT / 2; ++np) {
-        uint32_t b[4];
-        ldsm_x4_t(b, wrow + kk * LD_WH + np * 16);
-        mma_bf16(acc[2 * np], a, b[0], b[1]);
-        mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
-      }
-    }
-    __syncthreads();  // every warp has read x: the buffer takes the next window's
-    if (i + 1 < n) stage_x(w0 + i + 1, (i + 1) & 1);
-    cp_async_commit();
+    __syncthreads();  // window i's operands, group ids and dout have landed
 
     uint32_t qa[2][4];
     float iq[2] = {1.f, 1.f}, ik[2] = {1.f, 1.f};
-    qkv_head_epilogue<COS>(acc, bqkv + head * HD, C, scale, qa, kt, vt, row0, iq, ik);
+    uint32_t qraw[4][2], kraw[4][2];  // cosine: the rounded q and k rows of this warp
+    const bf16* kop = kt;  // the key operand of the scores and dQ
+    const bf16* vop = vt;
+    if constexpr (LOAD_QKV) {
+      if (i + 1 < n) stage_x(w0 + i + 1, (i + 1) & 1);  // buffer (i + 1) & 1 is free
+      cp_async_commit();
+      const bf16* qb = xs + (i & 1) * 3 * kTile;
+      const bf16* kb = qb + kTile;
+      vop = kb + kTile;
+      load_q_frags(qa, qb, row0);
+      if constexpr (COS) {
+        cos_q_frags(qa, scale, iq);
+        // k_hat of this warp's 16 keys (key blocks 2 warp, 2 warp + 1: rows r0, r1)
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          const int j = 2 * warp + h2;
+          uint32_t kf[4];
+          ldsm_x4(kf, kb + (8 * j + (lane & 7)) * LD_HEAD + (lane >> 3) * 8);
+          ik[h2] = cos_k_frag(kf);
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            *reinterpret_cast<uint32_t*>(kt + (8 * j + (lane >> 2)) * LD_HEAD + 8 * q + c2) = kf[q];
+        }
+#pragma unroll
+        for (int nn = 0; nn < 4; ++nn) {
+          qraw[nn][0] = *reinterpret_cast<const uint32_t*>(qb + r0 * LD_HEAD + 8 * nn + c2);
+          qraw[nn][1] = *reinterpret_cast<const uint32_t*>(qb + r1 * LD_HEAD + 8 * nn + c2);
+          kraw[nn][0] = *reinterpret_cast<const uint32_t*>(kb + r0 * LD_HEAD + 8 * nn + c2);
+          kraw[nn][1] = *reinterpret_cast<const uint32_t*>(kb + r1 * LD_HEAD + 8 * nn + c2);
+        }
+      } else {
+        kop = kb;
+      }
+    } else {
+      // qkv = x Wqkv over the head's columns: 16 rows x 12 n-tiles a warp
+      float acc[kHeadNT][4];
+#pragma unroll
+      for (int t = 0; t < kHeadNT; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+      for (int kk = 0; kk < C; kk += 16) {
+        uint32_t a[4];
+        ldsm_x4(a, arow + kk);
+#pragma unroll
+        for (int np = 0; np < kHeadNT / 2; ++np) {
+          uint32_t b[4];
+          ldsm_x4_t(b, wrow + kk * LD_WH + np * 16);
+          mma_bf16(acc[2 * np], a, b[0], b[1]);
+          mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
+        }
+      }
+      __syncthreads();  // every warp has read x: the buffer takes the next window's
+      if (i + 1 < n) stage_x(w0 + i + 1, (i + 1) & 1);
+      cp_async_commit();
+
+      qkv_head_epilogue<COS>(acc, bqkv + head * HD, C, scale, qa, kt, vt, row0, iq, ik);
+      if constexpr (COS) {
+#pragma unroll
+        for (int nn = 0; nn < 4; ++nn) {
+          qraw[nn][0] = pack_bf2(acc[nn][0], acc[nn][1]);
+          qraw[nn][1] = pack_bf2(acc[nn][2], acc[nn][3]);
+          kraw[nn][0] = pack_bf2(acc[4 + nn][0], acc[4 + nn][1]);
+          kraw[nn][1] = pack_bf2(acc[4 + nn][2], acc[4 + nn][3]);
+        }
+      }
+    }
 #pragma unroll
     for (int ks = 0; ks < 2; ++ks) {  // the score operand for dK, from its A fragments
       const int c = 16 * ks + c2;
@@ -699,26 +289,15 @@ qkv_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
       *reinterpret_cast<uint32_t*>(qt + r0 * LD_HEAD + c + 8) = qa[ks][2];
       *reinterpret_cast<uint32_t*>(qt + r1 * LD_HEAD + c + 8) = qa[ks][3];
     }
-    // cosine: the rounded q and k rows of this warp, for the tangent projection
-    uint32_t qraw[4][2], kraw[4][2];
-    if constexpr (COS) {
-#pragma unroll
-      for (int nn = 0; nn < 4; ++nn) {
-        qraw[nn][0] = pack_bf2(acc[nn][0], acc[nn][1]);
-        qraw[nn][1] = pack_bf2(acc[nn][2], acc[nn][3]);
-        kraw[nn][0] = pack_bf2(acc[4 + nn][0], acc[4 + nn][1]);
-        kraw[nn][1] = pack_bf2(acc[4 + nn][2], acc[4 + nn][3]);
-      }
-    }
     __syncthreads();  // the q, k, v tiles are whole
 
     float p[8][4];
-    head_probs_mma<false>(qa, kt, bias_s, LD_BIAS, masked ? gs + (i & 1) * WS : nullptr, row0,
+    head_probs_mma<false>(qa, kop, bias_s, LD_BIAS, masked ? gs + (i & 1) * WS : nullptr, row0,
                           COS ? 1.f : sm_scale, p);
     uint32_t da[2][4];
     load_q_frags(da, dt, row0);
     float ds[8][4];
-    frags_times_tile_t(da, vt, ds);  // dP = dO v^T
+    frags_times_tile_t(da, vop, ds);  // dP = dO v^T
     float t0 = 0.f, t1 = 0.f;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -742,7 +321,7 @@ qkv_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
       *reinterpret_cast<uint32_t*>(dst + r1 * LD_P + c) = pack_bf2(ds[j][2], ds[j][3]);
     }
     float dq[4][4];
-    acc_times_tile(ds, kt, dq);  // dQ = dS k (k_hat for cosine)
+    acc_times_tile(ds, kop, dq);  // dQ = dS k (k_hat for cosine)
     __syncthreads();  // the P and dS tiles are whole
 
     float dv[4][4], dk[4][4];
@@ -803,7 +382,7 @@ qkv_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
       *reinterpret_cast<uint32_t*>(st + r0 * LD_WH + 2 * HD + c) = pack_bf2(dv[nn][0], dv[nn][1]);
       *reinterpret_cast<uint32_t*>(st + r1 * LD_WH + 2 * HD + c) = pack_bf2(dv[nn][2], dv[nn][3]);
     }
-    __syncthreads();  // the staging is whole; every warp has read this dout slice
+    __syncthreads();  // the staging is whole; every warp has read this window's operands
     if (i + 1 < n) stage_dout(w0 + i + 1);
     cp_async_commit();
     for (int idx = tid; idx < WS * kHeadNT; idx += kCoreThreads) {
@@ -811,7 +390,7 @@ qkv_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
       *reinterpret_cast<uint4*>(dqkv + (tok0 + r) * C3 + (t >> 2) * C + head * HD + (t & 3) * 8) =
           *reinterpret_cast<const uint4*>(st + r * LD_WH + t * 8);
     }
-    if (tid < 3 * HD) {
+    if (!LOAD_QKV && tid < 3 * HD) {
       const int half = tid / (3 * HD / 2), pair = tid - half * (3 * HD / 2);
 #pragma unroll 8
       for (int r = half * (WS / 2); r < (half + 1) * (WS / 2); ++r) {
@@ -823,7 +402,7 @@ qkv_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
   }
 
   // this block's slice of the run's partial row (odd widths at odd H: 4-byte stores)
-  float* prow = part + size_t(run) * qkv_part_width(C);
+  float* prow = part + size_t(run) * (LOAD_QKV ? attn_part_width(H) : qkv_part_width(C));
   float* pb = prow + size_t(head) * WS * WS;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
@@ -836,23 +415,25 @@ qkv_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
   const float dl = warp_sum((lane & 3) == 0 ? dls : 0.f);  // each row's term once
   if (lane == 0) red[warp] = dl;
   __syncthreads();  // every thread is done with the staging tile
-  float* colsum = reinterpret_cast<float*>(st);
-  if (tid < 3 * HD) *reinterpret_cast<float2*>(colsum + 2 * tid) = make_float2(cs0, cs1);
-  __syncthreads();
-  if (tid == 0) prow[size_t(H) * WS * WS + head] = red[0] + red[1] + red[2] + red[3];
-  if (tid < 3 * HD) {  // column tid of the head's q|k|v: half 0 (rows 0-31) + half 1
-    prow[attn_part_width(H) + (tid / HD) * C + head * HD + tid % HD] =
-        colsum[tid] + colsum[3 * HD + tid];
+  if constexpr (!LOAD_QKV) {
+    float* colsum = reinterpret_cast<float*>(st);
+    if (tid < 3 * HD) *reinterpret_cast<float2*>(colsum + 2 * tid) = make_float2(cs0, cs1);
+    __syncthreads();
+    if (tid < 3 * HD) {  // column tid of the head's q|k|v: half 0 (rows 0-31) + half 1
+      prow[attn_part_width(H) + (tid / HD) * C + head * HD + tid % HD] =
+          colsum[tid] + colsum[3 * HD + tid];
+    }
   }
+  if (tid == 0) prow[size_t(H) * WS * WS + head] = red[0] + red[1] + red[2] + red[3];
 }
 
 // the workspace of K17: dqkv (bf16 rows), the per-run partial rows, and the
-// reductions' scratch
+// reductions' scratch (at least min_tmp floats)
 struct QkvBwdWork {
   size_t dqkv, part, tmp, total;
 };
 
-inline QkvBwdWork qkv_bwd_work(int T, int C) {
+inline QkvBwdWork qkv_bwd_work(int T, int C, size_t min_tmp = 0) {
   QkvBwdWork w;
   const int runs = qkv_runs(T);
   const int W = int(qkv_part_width(C));
@@ -862,33 +443,367 @@ inline QkvBwdWork qkv_bwd_work(int T, int C) {
   size_t tmp = reduce_rows_tmp_floats(runs, W);
   const size_t g = gemm_tn_tmp_floats(T, C, 3 * C);
   tmp = tmp > g ? tmp : g;
+  tmp = tmp > min_tmp ? tmp : min_tmp;
   w.tmp = off; off += align128(tmp * 4);
   w.total = off;
   return w;
 }
 
-// the workspace of K4: qkv, o, dqkv, du (bf16 rows), the per-window partial rows, and
-// the reductions' scratch
+// K17 in full: the main kernel, reduce_rows into red ([dbias | dls | dbqkv]), dWqkv
+// (gemm_tn) and dx (gemm_nt).  K4's launch sequence ends with its cosine flavour.
+cudaError_t qkv_bwd(const bf16* x, const bf16* wqkv, const bf16* bqkv, const int* groups,
+                    const float* bias, const float* lscale, const bf16* dout, bf16* dx,
+                    float* dwqkv, float* red, unsigned char* work, int T, int C, bool use_cos,
+                    int has_mask, float sm_scale, cudaStream_t s) {
+  static std::atomic<unsigned> done_cos{0}, done_dot{0};
+  auto kernel = use_cos ? qkv_bwd_kernel<true, false> : qkv_bwd_kernel<false, false>;
+  cudaError_t e = smem_opt_in(reinterpret_cast<const void*>(kernel),
+                              qkv_bwd_layout(QKV_MAX_C, false).total,
+                              use_cos ? done_cos : done_dot);
+  if (e != cudaSuccess) return e;
+  const QkvBwdWork w = qkv_bwd_work(T, C);
+  bf16* dqkv_s = reinterpret_cast<bf16*>(work + w.dqkv);
+  float* part = reinterpret_cast<float*>(work + w.part);
+  float* tmp = reinterpret_cast<float*>(work + w.tmp);
+  const int runs = qkv_runs(T);
+  kernel<<<dim3(runs, C / HD), kCoreThreads, qkv_bwd_layout(C, false).total, s>>>(
+      x, wqkv, bqkv, groups, bias, lscale, dout, dqkv_s, part, T, C, has_mask, sm_scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  e = reduce_rows(part, red, runs, int(qkv_part_width(C)), tmp, s);
+  if (e != cudaSuccess) return e;
+  e = gemm_tn(x, dqkv_s, dwqkv, T, C, 3 * C, tmp, s);
+  if (e != cudaSuccess) return e;
+  return gemm_nt(dqkv_s, wqkv, dx, T, C, 3 * C, s);
+}
+
+// ---------------------------------------------------------------------------------
+// K4's projection/LayerNorm backward (step 2 of its sequence): grid (runs of windows);
+// one block of two cores (8 warps) per run, the cores splitting the columns as K1's do
+// (core 0 column blocks 0, 2, ..., core 1 blocks 1, 3, ...; WPB blocks of C / (16 WPB)
+// n-tiles each), each warp 16 rows.  Per window, the o and dz tiles arrive by cp.async;
+// u = o Wp runs through K1's weight ring (gemm_rows: the same chunks in the same
+// ascending 16-wide k-steps from zero sums), bp is added after, and the row statistics
+// are K1's (two passes, the cores' halves through a 64 x 2 buffer), so u, its mean and
+// its rstd are K1's bits.  Then in registers: xhat, the row sums of dz gamma and
+// dz gamma xhat (two more exchanges), du = rstd (dz gamma - mean(dz gamma) - xhat
+// mean(dz gamma xhat)); du goes out rounded to bf16 through the dz tile, 16 bytes a
+// store.  The column sums of the f32 du (dbp), dz xhat (dgamma) and dz (dbeta) over
+// the window's rows are shuffle sums over each warp's 8 row groups, kept per warp in
+// shared memory over the run; the block writes its partial row once.  Without
+// LayerNorm du = dz: no product, no du, and the partial row holds dbp = sum dz alone.
+// Per window 2 * 64 * C^2 FLOPs on 6 * 64 * C bytes (o, dz, du): about C / 3 FLOP per
+// byte, below the bf16 ridge at every C; the run length keeps at least ~2 blocks an
+// SM busy.  Shared memory 160,768 B at C = 384 (one block an SM), 102,400 B at C = 192,
+// 78,336 B at C = 96 (two).
+// ---------------------------------------------------------------------------------
+struct ProjLnLayout {
+  size_t o, dz, ring, stats, cols, total;
+};
+
+__host__ __device__ inline ProjLnLayout proj_ln_layout(int C) {
+  ProjLnLayout L;
+  const size_t tile = align128(size_t(WS) * (C + 8) * 2);
+  size_t off = 0;
+  L.o = off; off += tile;
+  L.dz = off; off += tile;  // dz, then du
+  L.ring = off; off += align128(size_t(2) * kStages * KC * LD_W * 2);
+  L.stats = off; off += align128(4 * WS * 2 * 4);  // [pass][row][core]
+  L.cols = off; off += align128(size_t(kWarps) * 3 * (C / 2) * 4);  // [warp][3][C / 2]
+  L.total = off;
+  return L;
+}
+
+// windows per block: up to 8, fewer where that would leave under ~2 blocks an SM
+inline int proj_ln_run(int windows) {
+  const int r = windows / 264;
+  return r < 1 ? 1 : (r > 8 ? 8 : r);
+}
+
+inline int proj_ln_blocks(int T) {
+  const int windows = T / WS;
+  const int run = proj_ln_run(windows);
+  return (windows + run - 1) / run;
+}
+
+// the sum over a warp's 8 row groups (lanes of one lane % 4)
+__device__ __forceinline__ float rows8(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 4);
+  v += __shfl_xor_sync(0xffffffffu, v, 8);
+  return v + __shfl_xor_sync(0xffffffffu, v, 16);
+}
+
+template <int WPB>
+__global__ void __launch_bounds__(kThreads, WPB == 1 ? 2 : 1)
+proj_ln_bwd_kernel(const bf16* __restrict__ o, const bf16* __restrict__ wp,
+                   const bf16* __restrict__ bp, const float* __restrict__ ln_g,
+                   const bf16* __restrict__ dz, bf16* __restrict__ du,
+                   float* __restrict__ part, int T, int C, int run, int has_ln, float ln_eps) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const ProjLnLayout L = proj_ln_layout(C);
+  const int LDX = C + 8;
+  bf16* os = reinterpret_cast<bf16*>(smem + L.o);
+  bf16* zs = reinterpret_cast<bf16*>(smem + L.dz);
+  float* stats = reinterpret_cast<float*>(smem + L.stats);
+  float* cols = reinterpret_cast<float*>(smem + L.cols);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int core = tid / kCoreThreads;
+  const int gtid = tid % kCoreThreads;
+  const int row0 = (warp & 3) * 16;
+  const int r0 = row0 + (lane >> 2), r1 = r0 + 8, c2 = (lane & 3) * 2;
+  const int w0 = blockIdx.x * run;
+  const int n = min(run, T / WS - w0);
+  const int half = C / 2;  // the columns of a core
+  const int chunks = C / 8;
+  const bool ln = has_ln != 0;
+
+  WeightStream<WPB> st;
+  st.wqkv = nullptr;
+  st.wp = wp;
+  st.ring = reinterpret_cast<bf16*>(smem + L.ring) + core * kStages * KC * LD_W;
+  st.C = C;
+  st.core = core;
+  st.nk = C / KC;
+  st.n_head_jobs = 0;
+  st.nt_p = C / (16 * WPB);
+  st.total = ln ? n * WPB * st.nk : 0;
+  const int bw = st.nt_p * 8;  // columns of a column block
+
+  for (int idx = tid; idx < kWarps * 3 * half; idx += kThreads) cols[idx] = 0.f;
+  for (int s = 0; s < kStages - 1; ++s) {
+    st.fetch(s, gtid);
+    cp_async_commit();
+  }
+  float* cw = cols + warp * 3 * half;  // this warp's column sums: dbp | dgamma | dbeta
+  int s = 0;
+
+  for (int i = 0; i < n; ++i) {
+    const size_t tok0 = size_t(w0 + i) * WS;
+    __syncthreads();  // the previous window's tiles are free
+    for (int idx = tid; idx < WS * chunks; idx += kThreads) {
+      const int r = idx / chunks, c = (idx - r * chunks) * 8;
+      if (ln) cp_async16(os + r * LDX + c, o + (tok0 + r) * C + c);
+      cp_async16(zs + r * LDX + c, dz + (tok0 + r) * C + c);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();  // the o and dz tiles have landed
+
+    float u[WPB][kMaxNT][4];
+    float rstd0 = 1.f, rstd1 = 1.f, m10 = 0.f, m11 = 0.f, m20 = 0.f, m21 = 0.f;
+    if (ln) {
+      // u = o Wp + bp and its row statistics, as K1 computes them
+#pragma unroll
+      for (int j = 0; j < WPB; ++j) {
+#pragma unroll
+        for (int t = 0; t < kMaxNT; ++t) u[j][t][0] = u[j][t][1] = u[j][t][2] = u[j][t][3] = 0.f;
+        gemm_rows(u[j], os, LDX, st.nt_p, st, s, gtid, row0);
+      }
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < WPB; ++j) {
+        const int col0 = (core + 2 * j) * bw + c2;
+#pragma unroll
+        for (int t = 0; t < kMaxNT; ++t) {
+          if (t < st.nt_p) {
+            const float2 b = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(bp + col0 + 8 * t));
+            u[j][t][0] += b.x;
+            u[j][t][1] += b.y;
+            u[j][t][2] += b.x;
+            u[j][t][3] += b.y;
+            sum0 += u[j][t][0] + u[j][t][1];
+            sum1 += u[j][t][2] + u[j][t][3];
+          }
+        }
+      }
+      const bool writer = (lane & 3) == 0;
+      sum0 = quad_sum(sum0);
+      sum1 = quad_sum(sum1);
+      if (writer) {
+        stats[r0 * 2 + core] = sum0;
+        stats[r1 * 2 + core] = sum1;
+      }
+      __syncthreads();
+      const float mean0 = (stats[r0 * 2] + stats[r0 * 2 + 1]) / C;
+      const float mean1 = (stats[r1 * 2] + stats[r1 * 2 + 1]) / C;
+      float sq0 = 0.f, sq1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < WPB; ++j) {
+#pragma unroll
+        for (int t = 0; t < kMaxNT; ++t) {
+          if (t < st.nt_p) {
+            const float d0 = u[j][t][0] - mean0, d1 = u[j][t][1] - mean0;
+            const float d2 = u[j][t][2] - mean1, d3 = u[j][t][3] - mean1;
+            sq0 += d0 * d0 + d1 * d1;
+            sq1 += d2 * d2 + d3 * d3;
+          }
+        }
+      }
+      sq0 = quad_sum(sq0);
+      sq1 = quad_sum(sq1);
+      if (writer) {
+        stats[2 * WS + r0 * 2 + core] = sq0;
+        stats[2 * WS + r1 * 2 + core] = sq1;
+      }
+      __syncthreads();
+      rstd0 = rsqrtf((stats[2 * WS + r0 * 2] + stats[2 * WS + r0 * 2 + 1]) / C + ln_eps);
+      rstd1 = rsqrtf((stats[2 * WS + r1 * 2] + stats[2 * WS + r1 * 2 + 1]) / C + ln_eps);
+
+      // xhat in place of u; the row sums of dz gamma and dz gamma xhat
+      float a0 = 0.f, a1 = 0.f, b0 = 0.f, b1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < WPB; ++j) {
+        const int col0 = (core + 2 * j) * bw + c2;
+#pragma unroll
+        for (int t = 0; t < kMaxNT; ++t) {
+          if (t < st.nt_p) {
+            const int col = col0 + 8 * t;
+            const float2 z0 = unpack_bf2(*reinterpret_cast<const uint32_t*>(zs + r0 * LDX + col));
+            const float2 z1 = unpack_bf2(*reinterpret_cast<const uint32_t*>(zs + r1 * LDX + col));
+            const float2 gm = *reinterpret_cast<const float2*>(ln_g + col);
+            u[j][t][0] = (u[j][t][0] - mean0) * rstd0;
+            u[j][t][1] = (u[j][t][1] - mean0) * rstd0;
+            u[j][t][2] = (u[j][t][2] - mean1) * rstd1;
+            u[j][t][3] = (u[j][t][3] - mean1) * rstd1;
+            const float g00 = z0.x * gm.x, g01 = z0.y * gm.y;
+            const float g10 = z1.x * gm.x, g11 = z1.y * gm.y;
+            a0 += g00 + g01;
+            a1 += g10 + g11;
+            b0 += g00 * u[j][t][0] + g01 * u[j][t][1];
+            b1 += g10 * u[j][t][2] + g11 * u[j][t][3];
+          }
+        }
+      }
+      a0 = quad_sum(a0);
+      a1 = quad_sum(a1);
+      b0 = quad_sum(b0);
+      b1 = quad_sum(b1);
+      if (writer) {
+        stats[4 * WS + r0 * 2 + core] = a0;
+        stats[4 * WS + r1 * 2 + core] = a1;
+        stats[6 * WS + r0 * 2 + core] = b0;
+        stats[6 * WS + r1 * 2 + core] = b1;
+      }
+      __syncthreads();
+      m10 = (stats[4 * WS + r0 * 2] + stats[4 * WS + r0 * 2 + 1]) / C;
+      m11 = (stats[4 * WS + r1 * 2] + stats[4 * WS + r1 * 2 + 1]) / C;
+      m20 = (stats[6 * WS + r0 * 2] + stats[6 * WS + r0 * 2 + 1]) / C;
+      m21 = (stats[6 * WS + r1 * 2] + stats[6 * WS + r1 * 2 + 1]) / C;
+    }
+
+    // du (bf16 into the dz tile, each element by the thread that read its dz), and the
+    // window's column sums of du, dz xhat and dz
+#pragma unroll
+    for (int j = 0; j < WPB; ++j) {
+      const int col0 = (core + 2 * j) * bw + c2;
+#pragma unroll
+      for (int t = 0; t < kMaxNT; ++t) {
+        if (t < st.nt_p) {
+          const int col = col0 + 8 * t;
+          const int lc = j * bw + 8 * t + c2;
+          const float2 z0 = unpack_bf2(*reinterpret_cast<const uint32_t*>(zs + r0 * LDX + col));
+          const float2 z1 = unpack_bf2(*reinterpret_cast<const uint32_t*>(zs + r1 * LDX + col));
+          float2 d0 = z0, d1 = z1;
+          if (ln) {
+            const float2 gm = *reinterpret_cast<const float2*>(ln_g + col);
+            d0.x = rstd0 * (z0.x * gm.x - m10 - u[j][t][0] * m20);
+            d0.y = rstd0 * (z0.y * gm.y - m10 - u[j][t][1] * m20);
+            d1.x = rstd1 * (z1.x * gm.x - m11 - u[j][t][2] * m21);
+            d1.y = rstd1 * (z1.y * gm.y - m11 - u[j][t][3] * m21);
+            *reinterpret_cast<uint32_t*>(zs + r0 * LDX + col) = pack_bf2(d0.x, d0.y);
+            *reinterpret_cast<uint32_t*>(zs + r1 * LDX + col) = pack_bf2(d1.x, d1.y);
+          }
+          const float px = rows8(d0.x + d1.x), py = rows8(d0.y + d1.y);
+          if (ln) {
+            const float gx = rows8(z0.x * u[j][t][0] + z1.x * u[j][t][2]);
+            const float gy = rows8(z0.y * u[j][t][1] + z1.y * u[j][t][3]);
+            const float bx = rows8(z0.x + z1.x), by = rows8(z0.y + z1.y);
+            if (lane < 4) {
+              cw[half + lc] += gx;
+              cw[half + lc + 1] += gy;
+              cw[2 * half + lc] += bx;
+              cw[2 * half + lc + 1] += by;
+            }
+          }
+          if (lane < 4) {
+            cw[lc] += px;
+            cw[lc + 1] += py;
+          }
+        }
+      }
+    }
+    if (ln) {
+      __syncthreads();  // the du tile is whole
+      for (int idx = tid; idx < WS * chunks; idx += kThreads) {
+        const int r = idx / chunks, c = (idx - r * chunks) * 8;
+        *reinterpret_cast<uint4*>(du + (tok0 + r) * C + c) =
+            *reinterpret_cast<const uint4*>(zs + r * LDX + c);
+      }
+    }
+  }
+
+  // this block's partial row [dbp | dgamma | dbeta] (dbp alone without LayerNorm): each
+  // column summed over the 4 warps of the core that holds it, in order
+  __syncthreads();
+  const int nvec = ln ? 3 : 1;
+  float* prow = part + size_t(blockIdx.x) * nvec * C;
+  for (int idx = tid; idx < nvec * C; idx += kThreads) {
+    const int k = idx / C, col = idx - k * C;
+    const int b = col / bw;
+    const float* src = cols + (b & 1) * kCoreWarps * 3 * half + k * half + (b >> 1) * bw +
+                       (col - b * bw);
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kCoreWarps; ++w) sum += src[w * 3 * half];
+    prow[idx] = sum;
+  }
+}
+
+// step 2 in full: the kernel, then reduce_rows of its partial rows into out ([dbp |
+// dgamma | dbeta], or dbp alone without LayerNorm); du is not written without it
+cudaError_t proj_ln_bwd(const bf16* o, const bf16* wp, const bf16* bp, const float* ln_g,
+                        const bf16* dz, bf16* du, float* part, float* out, float* tmp, int T,
+                        int C, int has_ln, float ln_eps, cudaStream_t s) {
+  static std::atomic<unsigned> done1{0}, done2{0};
+  const bool wide = C > 192;  // two column blocks per core, as K1
+  auto kernel = wide ? proj_ln_bwd_kernel<2> : proj_ln_bwd_kernel<1>;
+  cudaError_t e = smem_opt_in(reinterpret_cast<const void*>(kernel),
+                              proj_ln_layout(wide ? QKV_MAX_C : 192).total, wide ? done2 : done1);
+  if (e != cudaSuccess) return e;
+  const int blocks = proj_ln_blocks(T);
+  kernel<<<blocks, kThreads, proj_ln_layout(C).total, s>>>(
+      o, wp, bp, ln_g, dz, du, part, T, C, proj_ln_run(T / WS), has_ln, ln_eps);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return reduce_rows(part, out, blocks, (has_ln ? 3 : 1) * C, tmp, s);
+}
+
+inline size_t proj_ln_part_floats(int T, int C) { return size_t(proj_ln_blocks(T)) * 3 * C; }
+
+inline size_t proj_ln_tmp_floats(int T, int C) {
+  return reduce_rows_tmp_floats(proj_ln_blocks(T), 3 * C);
+}
+
+// the workspace of K4: o, du, do (bf16 rows), step 2's partial rows, and K17's
+// workspace, whose scratch also serves step 2's reduction and the dWp product
 struct EpiBwdWork {
-  size_t qkv, o, dqkv, du, part, tmp, total;
+  size_t o, du, dout, part, k17, total;
 };
 
 inline EpiBwdWork epi_bwd_work(int T, int C) {
   EpiBwdWork w;
-  const int nw = T / WS;
-  const int W = int(attn_part_width(C / HD)) + 6 * C;
   size_t off = 0;
-  w.qkv = off; off += align128(size_t(T) * 3 * C * 2);
   w.o = off; off += align128(size_t(T) * C * 2);
-  w.dqkv = off; off += align128(size_t(T) * 3 * C * 2);
   w.du = off; off += align128(size_t(T) * C * 2);
-  w.part = off; off += align128(size_t(nw) * W * 4);
-  size_t tmp = reduce_rows_tmp_floats(nw, W);
-  const size_t g1 = gemm_tn_tmp_floats(T, C, 3 * C);
-  const size_t g2 = gemm_tn_tmp_floats(T, C, C);
-  tmp = tmp > g1 ? tmp : g1;
-  tmp = tmp > g2 ? tmp : g2;
-  w.tmp = off; off += align128(tmp * 4);
+  w.dout = off; off += align128(size_t(T) * C * 2);
+  w.part = off; off += align128(proj_ln_part_floats(T, C) * 4);
+  size_t tmp = proj_ln_tmp_floats(T, C);
+  const size_t g = gemm_tn_tmp_floats(T, C, C);
+  w.k17 = off; off += qkv_bwd_work(T, C, tmp > g ? tmp : g).total;
   w.total = off;
   return w;
 }
@@ -899,9 +814,10 @@ inline EpiBwdWork epi_bwd_work(int T, int C) {
 extern "C" {
 
 size_t hs_window_attention_bwd_workspace(int T, int C) {
-  const int nw = T / hs::WS;
+  const int runs = hs::qkv_runs(T);
   const int W = int(hs::attn_part_width(C / hs::HD));
-  return hs::align128(size_t(nw) * W * 4) + hs::align128(hs::reduce_rows_tmp_floats(nw, W) * 4);
+  return hs::align128(size_t(runs) * W * 4) +
+         hs::align128(hs::reduce_rows_tmp_floats(runs, W) * 4);
 }
 
 int hs_window_attention_bwd(const void* qkv, const void* groups, const void* bias,
@@ -909,24 +825,25 @@ int hs_window_attention_bwd(const void* qkv, const void* groups, const void* bia
                             void* work, int T, int C, int use_cos, int has_mask,
                             float sm_scale, void* stream) {
   using hs::bf16;
+  static std::atomic<unsigned> done_cos{0}, done_dot{0};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = hs::head_bytes();
-  cudaError_t e = cudaFuncSetAttribute(hs::attn_bwd_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  auto kernel = use_cos ? hs::qkv_bwd_kernel<true, true> : hs::qkv_bwd_kernel<false, true>;
+  const size_t smem = hs::qkv_bwd_layout(C, true).total;  // the same at every C
+  cudaError_t e = hs::smem_opt_in(reinterpret_cast<const void*>(kernel), smem,
+                                  use_cos ? done_cos : done_dot);
   if (e != cudaSuccess) return int(e);
-  const int nw = T / hs::WS;
+  const int runs = hs::qkv_runs(T);
   const int W = int(hs::attn_part_width(C / hs::HD));
   float* part = static_cast<float*>(work);
   float* tmp = reinterpret_cast<float*>(static_cast<unsigned char*>(work) +
-                                        hs::align128(size_t(nw) * W * 4));
-  hs::attn_bwd_kernel<<<dim3(nw, C / hs::HD), hs::kThreads, smem, s>>>(
-      static_cast<const bf16*>(qkv), static_cast<const int*>(groups),
+                                        hs::align128(size_t(runs) * W * 4));
+  kernel<<<dim3(runs, C / hs::HD), hs::kCoreThreads, smem, s>>>(
+      static_cast<const bf16*>(qkv), nullptr, nullptr, static_cast<const int*>(groups),
       static_cast<const float*>(bias), static_cast<const float*>(lscale),
-      static_cast<const bf16*>(dout), static_cast<bf16*>(dqkv), part, C, use_cos, has_mask,
-      sm_scale);
+      static_cast<const bf16*>(dout), static_cast<bf16*>(dqkv), part, T, C, has_mask, sm_scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return int(e);
-  return int(hs::reduce_rows(part, static_cast<float*>(red), nw, W, tmp, s));
+  return int(hs::reduce_rows(part, static_cast<float*>(red), runs, W, tmp, s));
 }
 
 size_t hs_window_attention_qkv_bwd_workspace(int T, int C) {
@@ -939,38 +856,22 @@ int hs_window_attention_qkv_bwd(const void* x, const void* wqkv, const void* bqk
                                 int T, int C, int use_cos, int has_mask, float sm_scale,
                                 void* stream) {
   using hs::bf16;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto kernel = use_cos ? hs::qkv_bwd_kernel<true> : hs::qkv_bwd_kernel<false>;
-  const size_t smem = hs::qkv_bwd_layout(C).total;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       int(smem));
-  if (e != cudaSuccess) return int(e);
-  const hs::QkvBwdWork w = hs::qkv_bwd_work(T, C);
-  unsigned char* base = static_cast<unsigned char*>(work);
-  bf16* dqkv_s = reinterpret_cast<bf16*>(base + w.dqkv);
-  float* part = reinterpret_cast<float*>(base + w.part);
-  float* tmp = reinterpret_cast<float*>(base + w.tmp);
-  const int runs = hs::qkv_runs(T);
-  kernel<<<dim3(runs, C / hs::HD), hs::kCoreThreads, smem, s>>>(
+  return int(hs::qkv_bwd(
       static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv),
       static_cast<const bf16*>(bqkv), static_cast<const int*>(groups),
       static_cast<const float*>(bias), static_cast<const float*>(lscale),
-      static_cast<const bf16*>(dout), dqkv_s, part, T, C, has_mask, sm_scale);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return int(e);
-  e = hs::reduce_rows(part, static_cast<float*>(red), runs, int(hs::qkv_part_width(C)), tmp, s);
-  if (e != cudaSuccess) return int(e);
-  e = hs::gemm_tn(static_cast<const bf16*>(x), dqkv_s, static_cast<float*>(dwqkv), T, C,
-                  3 * C, tmp, s);
-  if (e != cudaSuccess) return int(e);
-  return int(hs::gemm_nt(dqkv_s, static_cast<const bf16*>(wqkv), static_cast<bf16*>(dx), T, C,
-                         3 * C, s));
+      static_cast<const bf16*>(dout), static_cast<bf16*>(dx), static_cast<float*>(dwqkv),
+      static_cast<float*>(red), static_cast<unsigned char*>(work), T, C, use_cos != 0,
+      has_mask, sm_scale, static_cast<cudaStream_t>(stream)));
 }
 
 size_t hs_window_attention_qkv_epi_bwd_workspace(int T, int C) {
   return hs::epi_bwd_work(T, C).total;
 }
 
+// K4: the launch sequence (1) K16 cosine -> o, (2) the projection/LayerNorm backward ->
+// du and [dbp | dgamma | dbeta] at red + qkv_part_width(C), (3) dWp = o^T du and do =
+// du Wp^T, (4) K17 cosine on (x, do) -> dx, dWqkv and [dbias | dls | dbqkv] at red
 int hs_window_attention_qkv_epi_bwd(const void* x, const void* wqkv, const void* bqkv,
                                     const void* wp, const void* bp, const void* ln_g,
                                     const void* ln_b, const void* groups, const void* bias,
@@ -980,35 +881,57 @@ int hs_window_attention_qkv_epi_bwd(const void* x, const void* wqkv, const void*
   using hs::bf16;
   (void)ln_b;  // beta does not enter the backward
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = hs::epi_bwd_layout(C).total;
-  cudaError_t e = cudaFuncSetAttribute(hs::qkv_epi_bwd_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (e != cudaSuccess) return int(e);
   const hs::EpiBwdWork w = hs::epi_bwd_work(T, C);
   unsigned char* base = static_cast<unsigned char*>(work);
-  bf16* qkv_s = reinterpret_cast<bf16*>(base + w.qkv);
   bf16* o_s = reinterpret_cast<bf16*>(base + w.o);
-  bf16* dqkv_s = reinterpret_cast<bf16*>(base + w.dqkv);
   bf16* du_s = reinterpret_cast<bf16*>(base + w.du);
+  bf16* do_s = reinterpret_cast<bf16*>(base + w.dout);
   float* part = reinterpret_cast<float*>(base + w.part);
-  float* tmp = reinterpret_cast<float*>(base + w.tmp);
-  const int nw = T / hs::WS;
-  hs::qkv_epi_bwd_kernel<<<nw, hs::kThreads, smem, s>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv),
-      static_cast<const bf16*>(bqkv), static_cast<const bf16*>(wp),
-      static_cast<const bf16*>(bp), static_cast<const float*>(ln_g),
-      static_cast<const int*>(groups), static_cast<const float*>(bias),
-      static_cast<const float*>(lscale), static_cast<const bf16*>(dz),
-      static_cast<bf16*>(dx), qkv_s, o_s, dqkv_s, du_s, part, C, has_ln, has_mask, ln_eps);
-  e = cudaGetLastError();
+  unsigned char* k17 = base + w.k17;
+  float* tmp = reinterpret_cast<float*>(k17 + hs::qkv_bwd_work(T, C).tmp);
+  float* redf = static_cast<float*>(red);
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* wq = static_cast<const bf16*>(wqkv);
+  const bf16* bq = static_cast<const bf16*>(bqkv);
+  const bf16* wpb = static_cast<const bf16*>(wp);
+  const int* g = static_cast<const int*>(groups);
+  const float* bs = static_cast<const float*>(bias);
+  const float* ls = static_cast<const float*>(lscale);
+
+  cudaError_t e = hs::qkv_attention(xb, wq, bq, g, bs, ls, o_s, T, C, true, has_mask, 1.f, s);
   if (e != cudaSuccess) return int(e);
-  const int W = int(hs::attn_part_width(C / hs::HD)) + 6 * C;
-  e = hs::reduce_rows(part, static_cast<float*>(red), nw, W, tmp, s);
+  e = hs::proj_ln_bwd(o_s, wpb, static_cast<const bf16*>(bp), static_cast<const float*>(ln_g),
+                      static_cast<const bf16*>(dz), du_s, part, redf + hs::qkv_part_width(C),
+                      tmp, T, C, has_ln, ln_eps, s);
   if (e != cudaSuccess) return int(e);
-  e = hs::gemm_tn(static_cast<const bf16*>(x), dqkv_s, static_cast<float*>(dwqkv), T, C,
-                  3 * C, tmp, s);
+  const bf16* du = has_ln ? du_s : static_cast<const bf16*>(dz);
+  e = hs::gemm_tn(o_s, du, static_cast<float*>(dwp), T, C, C, tmp, s);
   if (e != cudaSuccess) return int(e);
-  return int(hs::gemm_tn(o_s, du_s, static_cast<float*>(dwp), T, C, C, tmp, s));
+  e = hs::gemm_nt(du, wpb, do_s, T, C, C, s);
+  if (e != cudaSuccess) return int(e);
+  return int(hs::qkv_bwd(xb, wq, bq, g, bs, ls, do_s, static_cast<bf16*>(dx),
+                         static_cast<float*>(dwqkv), redf, k17, T, C, true, has_mask, 1.f, s));
+}
+
+// step 2 of K4 alone, for its check against its plain version: du (not written without
+// LayerNorm) and [dbp | dgamma | dbeta] (dbp alone) into red
+size_t hs_proj_ln_bwd_workspace(int T, int C) {
+  return hs::align128(hs::proj_ln_part_floats(T, C) * 4) +
+         hs::align128(hs::proj_ln_tmp_floats(T, C) * 4);
+}
+
+int hs_proj_ln_bwd(const void* o, const void* wp, const void* bp, const void* ln_g,
+                   const void* dz, void* du, void* red, void* work, int T, int C, int has_ln,
+                   float ln_eps, void* stream) {
+  using hs::bf16;
+  float* part = static_cast<float*>(work);
+  float* tmp = reinterpret_cast<float*>(static_cast<unsigned char*>(work) +
+                                        hs::align128(hs::proj_ln_part_floats(T, C) * 4));
+  return int(hs::proj_ln_bwd(static_cast<const bf16*>(o), static_cast<const bf16*>(wp),
+                             static_cast<const bf16*>(bp), static_cast<const float*>(ln_g),
+                             static_cast<const bf16*>(dz), static_cast<bf16*>(du), part,
+                             static_cast<float*>(red), tmp, T, C, has_ln, ln_eps,
+                             static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

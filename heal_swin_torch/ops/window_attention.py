@@ -13,8 +13,13 @@ backward are each a kernel wrapper beside its plain version:
   cosine or scaled-dot, (T, C) -> the (T, C) result before the output projection
   (Pallas ``fused_window_attention_qkv``).
 
-``gemm_nt`` is K17's dx product (dqkv Wqkv^T, ``csrc/reduce.cu``) on its own, beside its
-plain twin ``gemm_nt_plain``, so that the product can be held to it alone.
+K4 is a launch sequence from one C entry: K16's cosine kernel (o, K1's bits), the
+projection/LayerNorm backward (du and dbp, dgamma, dbeta), ``gemm_tn`` (dWp) and
+``gemm_nt`` (do), then K17's cosine kernel on (x, do).  Two of its steps can be held to
+their plain twins alone: ``gemm_nt`` (also K17's dx product dqkv Wqkv^T,
+``csrc/reduce.cu``) beside ``gemm_nt_plain``, and ``qkv_epi_proj_ln_bwd`` beside
+``qkv_epi_proj_ln_bwd_plain``.  Neither counts a launch: inside K4 and K17 they are
+those kernels' launches.
 
 Operands: ``groups`` (T/ws, ws) int32 mask group ids (attention between tokens of
 different groups gets an additive -100); ``bias`` (h, ws, ws) f32 relative-position
@@ -252,6 +257,31 @@ def gemm_nt_plain(a, b):
     return (a.float() @ b.float().t()).to(b.dtype)
 
 
+def qkv_epi_proj_ln_bwd_plain(o, wp, bp, ln_scale, dz, ln_eps=1e-5):
+    """Plain version of K4's projection/LayerNorm backward, the second step of K4's
+    launch sequence and the part of ``window_attention_qkv_epi_bwd_plain`` from the
+    projection output u to its gradient du.  o: (T, C) attention output in the compute
+    dtype; wp: (C, C); dz: (T, C), the output's gradient.  With LayerNorm (``ln_scale``
+    given) u = o @ wp + bp is recomputed in f32 and du is LayerNorm's backward (f32 row
+    statistics, as the forward takes them); without it du = dz.  Returns (du (T, C)
+    rounded to o's dtype, dbp (C,) summed from the f32 du, dgamma (C,), dbeta (C,)),
+    the last three f32; dgamma and dbeta are None without LayerNorm."""
+    dt = o.dtype
+    dzf = dz.to(dt).float()
+    if ln_scale is None:
+        return dzf.to(dt), dzf.sum(0), None, None
+    u = o.float() @ wp.to(dt).float()
+    if bp is not None:
+        u = u + bp.to(dt).float()
+    mean = u.mean(-1, keepdim=True)
+    xc = u - mean
+    rstd = torch.rsqrt((xc * xc).mean(-1, keepdim=True) + ln_eps)
+    xhat = xc * rstd
+    dgl = dzf * ln_scale.float()
+    du = rstd * (dgl - dgl.mean(-1, keepdim=True) - xhat * (dgl * xhat).mean(-1, keepdim=True))
+    return du.to(dt), du.sum(0), (dzf * xhat).sum(0), dzf.sum(0)
+
+
 def window_attention_qkv_epi_bwd_plain(x, wqkv, bqkv, wp, bp, ln_scale, ln_bias, groups,
                                        bias, logit_scale, dz, *, ws, num_heads, sm_scale,
                                        has_mask=True, ln_eps=1e-5):
@@ -274,27 +304,10 @@ def window_attention_qkv_epi_bwd_plain(x, wqkv, bqkv, wp, bp, ln_scale, ln_bias,
     _, _, _, _, qs, kl, _ = _cos_preamble(q, k, logit_scale, dt)
     p_lo = _softmax(_scores(qs, kl, groups, bias, has_mask)).to(dt).float()
     o = torch.einsum("whij,wjhd->wihd", p_lo, v).to(dt).float().reshape(T, C)
-    u = o @ wpf
-    if bp is not None:
-        u = u + bp.to(dt).float()
     # LayerNorm and projection backward
-    dzf = dz.to(dt).float()
-    dg = dbe = None
-    if ln_scale is not None:
-        mean = u.mean(-1, keepdim=True)
-        xc = u - mean
-        rstd = torch.rsqrt((xc * xc).mean(-1, keepdim=True) + ln_eps)
-        xhat = xc * rstd
-        dg = (dzf * xhat).sum(0)
-        dbe = dzf.sum(0)
-        dgl = dzf * ln_scale.float()
-        du = rstd * (dgl - dgl.mean(-1, keepdim=True)
-                     - xhat * (dgl * xhat).mean(-1, keepdim=True))
-    else:
-        du = dzf
-    du_lo = du.to(dt).float()
+    du, dbp, dg, dbe = qkv_epi_proj_ln_bwd_plain(o.to(dt), wp, bp, ln_scale, dz, ln_eps)
+    du_lo = du.float()
     dwp = o.t() @ du_lo
-    dbp = du.sum(0)
     do = (du_lo @ wpf.t()).to(dt).float().reshape(nw, ws, h, hd)
     # attention backward, then the qkv projection's
     dq, dk, dv, dbias, dls = _attention_bwd(q, k, v, do, groups, bias, logit_scale,
@@ -637,6 +650,36 @@ def gemm_nt(a, b, *, impl="auto"):
     check(_build.lib().hs_gemm_nt(a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K,
                                   stream(a)), what)
     return out
+
+
+def qkv_epi_proj_ln_bwd(o, wp, bp, ln_scale, dz, *, ln_eps=1e-5, impl="auto"):
+    """K4's projection/LayerNorm backward alone (``proj_ln_bwd_kernel`` and its
+    ``reduce_rows``, ``csrc/window_attention_bwd.cu``); operands and results as
+    ``qkv_epi_proj_ln_bwd_plain``: bf16 o and dz (T, C), T % 64 == 0, C a multiple of
+    the head dim up to 384.  Without LayerNorm du is dz itself."""
+    if not use_kernel(o, impl):
+        return qkv_epi_proj_ln_bwd_plain(o, wp, bp, ln_scale, dz, ln_eps)
+    what = "qkv_epi_proj_ln_bwd"
+    T, C = o.shape
+    _refuse("window_attention_qkv_epi", what, T, C, C // KERNEL_HD, KERNEL_WS, o.dtype)
+    if tuple(wp.shape) != (C, C) or dz.dtype != o.dtype or tuple(dz.shape) != (T, C):
+        raise ValueError(f"{what}: wp must be (C, C) and dz (T, C) bfloat16, C = {C}")
+    dt = torch.bfloat16
+    o, dz = o.contiguous(), dz.contiguous()
+    wp = wp.to(dt).contiguous()
+    bp = torch.zeros(C, dtype=dt, device=o.device) if bp is None else bp.to(dt).contiguous()
+    g = None if ln_scale is None else ln_scale.float().contiguous()
+    _check_cuda_operands(what, [t for t in (o, wp, bp, g, dz) if t is not None])
+    lib = _build.lib()
+    du = torch.empty_like(o) if g is not None else None
+    red = torch.empty(3 * C, dtype=torch.float32, device=o.device)
+    work = torch.empty(lib.hs_proj_ln_bwd_workspace(T, C), dtype=torch.uint8, device=o.device)
+    check(lib.hs_proj_ln_bwd(o.data_ptr(), wp.data_ptr(), bp.data_ptr(), _ptr(g), dz.data_ptr(),
+                             _ptr(du), red.data_ptr(), work.data_ptr(), T, C, int(g is not None),
+                             float(ln_eps), stream(o)), what)
+    if g is None:
+        return dz, red[:C], None, None
+    return du, red[:C], red[C:2 * C], red[2 * C:]
 
 
 # --------------------------------------------------------------------------- autograd

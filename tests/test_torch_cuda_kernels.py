@@ -576,6 +576,116 @@ def test_qkv_bwd_recomputes_the_forward_probabilities(dev, use_cos):
     assert torch.equal(p_fwd, p_bwd)
 
 
+@pytest.mark.parametrize("C", [96, 192, 384])
+def test_qkv_epi_with_identity_projection_is_k16_cosine(dev, C):
+    """K1 with Wp = I, bp = 0 and no LayerNorm gives K16's cosine output bit for bit
+    (8 windows, masked; one Wp column block per core at C 96 and 192, two at C 384):
+    both run one head loop, so K4's launch sequence, which recomputes o with K16,
+    starts from K1's o."""
+    gen = torch.Generator().manual_seed(60 + C)
+    x, wq, bq, groups, bias, ls = _qkv_args(gen, dev, C, 64 * 8, True, True, True)
+    eye = torch.eye(C, device=dev, dtype=torch.bfloat16)
+    kw = dict(ws=64, num_heads=C // 32, sm_scale=32 ** -0.5, has_mask=True)
+    k1 = wa.window_attention_qkv_epi_fwd(x, wq, bq, eye, None, None, None, groups, bias, ls,
+                                         **kw)
+    k16 = wa.window_attention_qkv_fwd(x, wq, bq, groups, bias, ls, use_cos=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(k1, k16)
+
+
+@pytest.mark.parametrize("C", [96, 384])
+def test_qkv_epi_bwd_recomputes_the_forward_probabilities(dev, C):
+    """K4 recomputes K1's probabilities bit for bit (one window, masked): with Wp = I,
+    bp = 0 and no LayerNorm K1's output is o, whose o[i, c] = bf16(P[i, key c]) through
+    head 0's v = e_key (``_probe_v``); with dz one-hot on head 0 (``_probe_dout``) du =
+    dz and do = du Wp^T = dz, so K4's dWqkv[key, 2C + c] = dv[key, c] = bf16(P[c, key])."""
+    gen = torch.Generator().manual_seed(70 + C)
+    T, h = 64, C // 32
+    x, wq = _probe_v(dev, T, C, gen, 1.0)
+    bq = _randn(gen, dev, 3 * C, std=0.1).to(torch.bfloat16)
+    bq[2 * C:] = 0
+    groups = torch.randint(0, 3, (1, 64), generator=gen, dtype=torch.int32).to(dev)
+    bias = _randn(gen, dev, h, 64, 64, std=0.5)
+    ls = torch.exp(_randn(gen, dev, h, std=0.5) + 2.3)
+    eye = torch.eye(C, device=dev, dtype=torch.bfloat16)
+    args = (x, wq, bq, eye, None, None, None, groups, bias, ls)
+    kw = dict(ws=64, num_heads=h, sm_scale=32 ** -0.5, has_mask=True)
+    o = wa.window_attention_qkv_epi_fwd(*args, **kw)
+    dwq = wa.window_attention_qkv_epi_bwd(*args, _probe_dout(dev, T, C), **kw)[1]
+    torch.cuda.synchronize()
+    p_fwd = o[:32, :32].float()
+    p_bwd = dwq[:32, 2 * C:2 * C + 32].t()
+    assert (p_fwd > 0).sum() > 256  # the probe reads real probabilities
+    assert torch.equal(p_fwd, p_bwd)
+
+
+@pytest.mark.parametrize("use_cos", [False, True])
+def test_attention_bwd_recomputes_the_forward_probabilities(dev, use_cos):
+    """K5 recomputes K2's probabilities bit for bit (C 768, 24 heads, 8 windows,
+    masked): with head 0's v rows e_key for keys < 32 and 0 beyond, K2's o[i, c] =
+    bf16(P[i, key c]); with dout one-hot on head 0 (``_probe_dout``), K5's dv[key, c] =
+    bf16(P[c, key]), window by window."""
+    gen = torch.Generator().manual_seed(80 + use_cos)
+    C, h, nw = 768, 24, 8
+    T = 64 * nw
+    qkv, groups, bias, ls = _attn_args(gen, dev, C, T, use_cos)
+    v = qkv.view(nw, 64, 3 * C)[:, :, 2 * C:2 * C + 32]
+    v.zero_()
+    v[:, :32] = torch.eye(32, device=dev, dtype=torch.bfloat16)
+    kw = dict(ws=64, num_heads=h, use_cos=use_cos, sm_scale=32 ** -0.5, has_mask=True)
+    o = wa.window_attention_fwd(qkv, groups, bias, ls, **kw)
+    dqkv = wa.window_attention_bwd(qkv, groups, bias, ls, _probe_dout(dev, T, C), **kw)[0]
+    torch.cuda.synchronize()
+    p_fwd = o.view(nw, 64, C)[:, :32, :32].float()
+    p_bwd = dqkv.view(nw, 64, 3 * C)[:, :32, 2 * C:2 * C + 32].transpose(1, 2).float()
+    assert (p_fwd > 0).sum() > 256 * nw
+    assert torch.equal(p_fwd, p_bwd)
+
+
+@pytest.mark.parametrize("T,C", [(262144, 96), (65536, 192), (16384, 384)])
+@pytest.mark.parametrize("has_ln", [True, False])
+def test_proj_ln_bwd_kernel(dev, T, C, has_ln):
+    """K4's projection/LayerNorm backward alone (``qkv_epi_proj_ln_bwd``) against its
+    plain version at the three stage shapes: du, dbp, dgamma, dbeta within relative L2
+    1e-3 (one product and the LayerNorm's f32 sums in another order, du rounded to
+    bf16); without LayerNorm du is dz and dbp its column sums.  A second launch gives
+    the same bits."""
+    gen = torch.Generator().manual_seed(90 + C)
+    o = _randn(gen, dev, T, C).to(torch.bfloat16)
+    wp = _randn(gen, dev, C, C, std=C ** -0.5).to(torch.bfloat16)
+    bp = _randn(gen, dev, C, std=0.02).to(torch.bfloat16)
+    g = 1 + _randn(gen, dev, C, std=0.1) if has_ln else None
+    dz = _randn(gen, dev, T, C).to(torch.bfloat16)
+    got = wa.qkv_epi_proj_ln_bwd(o, wp, bp, g, dz)
+    torch.cuda.synchronize()
+    _assert_grads_close(got, wa.qkv_epi_proj_ln_bwd_plain(o, wp, bp, g, dz), tol=1e-3)
+    again = wa.qkv_epi_proj_ln_bwd(o, wp, bp, g, dz)
+    assert all(a is None or torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("windows", [5, 21])
+def test_attention_backward_tails(dev, windows):
+    """K4 (C 96, masked, with LayerNorm) and K5 (C 768, masked, cosine) where the window
+    count is not a multiple of the runs their blocks walk: within 1e-2 of the plain
+    versions, and second launches bit-equal."""
+    gen = torch.Generator().manual_seed(100 + windows)
+    T = 64 * windows
+    args = _epi_args(gen, dev, 96, T, True, True)
+    dz = _randn(gen, dev, T, 96).to(torch.bfloat16)
+    kw = dict(ws=64, num_heads=3, sm_scale=32 ** -0.5, has_mask=True)
+    got = wa.window_attention_qkv_epi_bwd(*args, dz, **kw)
+    _assert_grads_close(got, wa.window_attention_qkv_epi_bwd_plain(*args, dz, **kw))
+    again = wa.window_attention_qkv_epi_bwd(*args, dz, **kw)
+    assert all(g is None or torch.equal(g, a) for g, a in zip(got, again))
+    qkv, groups, bias, ls = _attn_args(gen, dev, 768, T, True)
+    dout = _randn(gen, dev, T, 768).to(torch.bfloat16)
+    kw = dict(ws=64, num_heads=24, use_cos=True, sm_scale=32 ** -0.5, has_mask=True)
+    got = wa.window_attention_bwd(qkv, groups, bias, ls, dout, **kw)
+    _assert_grads_close(got, wa.window_attention_bwd_plain(qkv, groups, bias, ls, dout, **kw))
+    again = wa.window_attention_bwd(qkv, groups, bias, ls, dout, **kw)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
 def test_qkv_kernels_probabilities_near_underflow(dev):
     """K16's and K17's bf16 probabilities, read through the probes above (one window,
     C 64, x one-hot on every row so that q, k and v are exact rows of Wqkv) on rows whose

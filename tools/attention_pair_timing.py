@@ -11,7 +11,7 @@ as its ``check_kernels``: the seeded inputs (``seeded_draws``, ``stage_inputs``,
 ``bottleneck_inputs``), the library call (``sdpa_library``) and the single-call time
 (``median_ms``).  Timed, masked and unmasked: K1 and its backward K4 (cosine, with
 LayerNorm) and K16 / K17 (scaled-dot) at the three stage shapes (T 262,144 / 65,536 /
-16,384, C 96 / 192 / 384); K2 in both flavours and its backward K5 (scaled-dot) at the
+16,384, C 96 / 192 / 384); K2 and its backward K5, each in both flavours, at the
 bottleneck (T 4,096, C 768, 24 heads); and one ``scaled_dot_product_attention`` on K2's
 operands, the same code in every turn: a control for the spread between turns.
 
@@ -127,22 +127,21 @@ def turn(root: Path) -> dict:
             flavour = "cosine" if use_cos else "scaled-dot"
             times[f"K2 C={C} T={T} mask={masked} {flavour}"] = both(
                 lambda: wa.window_attention(*args, **kw))
-            if not use_cos:
-                times[f"K5 C={C} T={T} mask={masked}"] = both(
-                    lambda: wa.window_attention_bwd(*args, dout, **kw))
+            times[f"K5 C={C} T={T} mask={masked} {flavour}"] = both(
+                lambda: wa.window_attention_bwd(*args, dout, **kw))
         lib_f, _ = smoke.sdpa_library(qkv, grp if masked else None, bias, h, dout)
         times[f"SDPA C={C} T={T} mask={masked} scaled-dot"] = both(lib_f)
     torch.cuda.synchronize()
     return times
 
 
-def step_ms(times: dict, kernel: str, which: int) -> float:
+def step_ms(times: dict, kernel: str, which: int, flavour: str = "scaled-dot") -> float:
     """A kernel's ms over a train step's launches (which: 0 device, 1 single call); K2
-    in the scaled-dot flavour, the scaled-dot step's."""
+    and K5 in ``flavour`` (the scaled-dot step's, or the cosine step's)."""
     total = 0.0
     for label, ms in times.items():
-        name, shape, _, mask, *flavour = label.split()
-        if name == kernel and flavour in ([], ["scaled-dot"]):
+        name, shape, _, mask, *rest = label.split()
+        if name == kernel and rest in ([], [flavour]):
             total += STEP_LAUNCHES[(int(shape[2:]), mask == "mask=True")] * ms[which]
     return total
 
@@ -186,10 +185,12 @@ def main() -> int:
         print(f"-- {kind}")
         for label in runs[0][1]:
             print(compare(label, runs, lambda t: t[label][which]))
-        for kernel, n in (("K1", 20), ("K4", 20), ("K16", 20), ("K17", 20), ("K2", 2),
-                          ("K5", 2)):
-            print(compare(f"{kernel} over a train step's {n} launches", runs,
-                          lambda t: step_ms(t, kernel, which)))
+        for kernel, n, flavour in (("K1", 20, ""), ("K4", 20, ""), ("K16", 20, ""),
+                                   ("K17", 20, ""), ("K2", 2, "scaled-dot"),
+                                   ("K5", 2, "scaled-dot"), ("K2", 2, "cosine"),
+                                   ("K5", 2, "cosine")):
+            print(compare(f"{kernel} {flavour} over a train step's {n} launches".replace(
+                "  ", " "), runs, lambda t: step_ms(t, kernel, which, flavour or "scaled-dot")))
     return 0
 
 
