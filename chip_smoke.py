@@ -1,7 +1,8 @@
 """On-GPU smoke check of heal_swin_torch: builds the CUDA kernels from the checkout,
 holds each against its plain PyTorch version at the shapes of the main path (K4, a
 launch sequence, also step by step: its projection/LayerNorm backward alone, and
-one-hot probes that K4 and K5 recompute K1's and K2's probabilities bit for bit), then
+one-hot probes that K4 and K5 recompute K1's and K2's probabilities and K13 K12's
+hidden bit for bit), then
 drives HEAL-SWIN-UNet at the paper configuration (nside 256, batch 2, bf16, random
 seeded weights) through the kernels and through the plain path: segmentation
 ``predict`` (serving) and its train step (forward, weighted CE, backward, Adam), and
@@ -711,15 +712,18 @@ def equal_bits(label, got, want, min_nonzero=0):
 
 
 def check_probes(gen, dev):
-    """The backward kernels recompute their forward's probabilities bit for bit, read
-    through one-hot probes; any difference fails the run.  (a) K1 with Wp = I, bp = 0
+    """The backward kernels recompute their forward's probabilities (K13: K12's hidden)
+    bit for bit, read through one-hot probes; any difference fails the run.  (a) K1 with Wp = I, bp = 0
     and no LayerNorm is K16's cosine output at the three stage shapes, masked: K4's
     sequence recomputes o with K16.  (b) One window at C 96 / 192 / 384, masked, x and
     Wqkv of ``probe_x``, Wp = I, no LayerNorm, dz of ``probe_dout``: K1's o[i, c] =
     bf16(P[i, key c]), and K4's dWqkv[key, 2C + c] = dv[key, c] = bf16(P[c, key]), since
     du = dz and do = du Wp^T = dz.  (c) K5 against K2 at the C = 768 bottleneck shape,
     masked, head 0's v rows e_key, dout of ``probe_dout``: K2's o[i, c] and K5's
-    dv[key, c], window by window, in both flavours."""
+    dv[key, c], window by window, in both flavours.  (d) K13 against K12 at the four MLP
+    stage shapes (tanh; erf too at C 96): with W2 = [I; 0] and b2 = 0 K12's out is g[:,
+    :C], and for dout one-hot at (t, c) K13's dW2[:C, c] is g[t, :C], which its
+    weight-gradient kernel recomputes."""
     from heal_swin_torch.ops import window_attention as wa
 
     bf16 = torch.bfloat16
@@ -764,6 +768,26 @@ def check_probes(gen, dev):
                    f"recomputed P against K2's",
                    dqkv.view(nw, WS, 3 * C)[:, :32, 2 * C:2 * C + 32].transpose(1, 2),
                    o.view(nw, WS, C)[:, :32, :32], 256 * nw)
+    del qkv, dout, dqkv, o
+    from heal_swin_torch.ops import mlp as tm
+
+    for T, C in mlp_stages():
+        H = 4 * C
+        (x, w1, b1, *_), _, _ = mlp_inputs(rnd, dev, T, C)
+        w2 = torch.zeros(H, C, device=dev, dtype=bf16)
+        w2[:C] = torch.eye(C, device=dev, dtype=bf16)
+        b2 = torch.zeros(C, device=dev)
+        for approximate in ((True, False) if C == 96 else (True,)):
+            kw = dict(approximate=approximate, impl="pallas")
+            out = tm.mlp_fwd(x, w1, b1, w2, b2, **kw)
+            for t, c in ((0, 0), (T // 2 + 17, C // 2), (T - 1, C - 1)):
+                dout = torch.zeros(T, C, device=dev, dtype=bf16)
+                dout[t, c] = 1
+                dw2 = tm.mlp_bwd(x, w1, b1, w2, b2, dout, **kw)[3]
+                equal_bits(f"probe (d) T={T} C={C} tanh={approximate} row {t} column {c}: "
+                           f"K13's recomputed g against K12's", dw2[:C, c], out[t].float(),
+                           C // 4)
+        del x, out
 
 
 def log_k4_sequence(timed, run):
@@ -781,6 +805,47 @@ def log_k4_sequence(timed, run):
     log(f"K4 sequence over the train step's K4 launches: {step:.4f} ms on the device")
     for name, (ms, cnt) in sorted(total.items(), key=lambda kv: -kv[1][0]):
         log(f"K4 sequence: {ms:9.4f} ms {cnt:6.1f} launches  {name[:110]}")
+
+
+def k13_call_ms(per, label):
+    """One K13 call's device ms by kernel, from a trace's (ms per recorded launch,
+    recorded launches per call) by kernel name: each kernel's mean times its launches in
+    the sequence (``K13_SEQUENCE``; the profiler's records of a traced call can miss a
+    launch).  Returns kernel -> (ms a call, launches recorded a call).  Fails on a kernel
+    that is not the sequence's, or one never recorded."""
+    out = {}
+    for name, (ms, recorded) in per.items():
+        part = next((k for k in K13_SEQUENCE if k in name), None)
+        if part is None:
+            raise AssertionError(f"{label}: K13 launched {name[:80]}, not a kernel of its "
+                                 f"sequence {list(K13_SEQUENCE)}")
+        out[part] = (ms * K13_SEQUENCE[part], recorded)
+    if set(out) != set(K13_SEQUENCE):
+        raise AssertionError(f"{label}: the trace recorded only {sorted(out)}")
+    return out
+
+
+def log_mlp_bwd_sequence(timed, run):
+    """K13's launch sequence by kernel over the MLP phase: the device ms of each kernel
+    in a traced K13 call at each shape (``check_mlp_kernels``, ``k13_call_ms``), weighted
+    by the phase's K13 launches at that shape (``run``: launches per kernel, per
+    shape)."""
+    _, by_shape = run
+    for key, per in sorted((k, v) for k, v in timed.items() if k[0] == "k13_sequence"):
+        label = f"K13 sequence T={key[1]} C={key[2]} H={key[3]} tanh={key[4]}"
+        call = k13_call_ms(per, label)
+        log(f"{label}: one call {sum(ms for ms, _ in call.values()):.4f} ms on the device = "
+            + ", ".join(f"{name} {ms:.4f} ({rec:.2f} recorded a call)"
+                        for name, (ms, rec) in call.items()))
+    total = collections.defaultdict(float)
+    for key, n in by_shape.items():
+        if key[0] == "mlp_bwd":
+            for name, (ms, _) in k13_call_ms(timed[("k13_sequence",) + key[1:]], "K13").items():
+                total[name] += n * ms
+    log(f"K13 sequence over the MLP phase's K13 launches: {sum(total.values()):.4f} ms on "
+        f"the device")
+    for name, ms in sorted(total.items(), key=lambda kv: -kv[1]):
+        log(f"K13 sequence: {ms:9.4f} ms  {name} ({K13_SEQUENCE[name]} a call)")
 
 
 def check_grads(name, names, got, want, tol=REL_L2_TOL):
@@ -1776,6 +1841,11 @@ def drive_chamfer_eval(dev, timed):
 
 # ------------------------------------------------------------ the MLP family
 MLP_GRADS = ("dx", "dw1", "db1", "dw2", "db2")
+# K13's launch sequence: each kernel's launches in one call (its dx kernel, its
+# weight-gradient kernel, and reduce_rows for dW1, dW2 and db1 | db2), and the K13 calls
+# that one trace takes in
+K13_SEQUENCE = {"mlp_dx_kernel": 1, "mlp_dw_kernel": 1, "reduce_rows_kernel": 3}
+K13_TRACED = 5
 MLP_BLOCK_GRADS = MLP_GRADS + ("dgamma", "dbeta")
 DROP_KEEP = 0.9  # the DropPath keep rate of the route timings (the paper's last block)
 
@@ -1783,6 +1853,20 @@ DROP_KEEP = 0.9  # the DropPath keep rate of the route timings (the paper's last
 def mlp_stages():
     """(T, C) of the paper model's four stages: B 2, nside 256, patch 4."""
     return [(BATCH * 8 * NSIDE * NSIDE // 4 // 4 ** s, 96 * 2 ** s) for s in range(4)]
+
+
+def mlp_inputs(rnd, dev, T, C):
+    """The MLP family's seeded operands at a stage shape (T, C, H = 4C): args = (x, w1,
+    b1, w2, b2, gamma, beta), an output gradient dz (bf16) and the DropPath scale of
+    the batch's two samples, one kept, one dropped (ds, (T, 1) f32)."""
+    bf16 = torch.bfloat16
+    H = 4 * C
+    args = (rnd(T, C).to(bf16), rnd(C, H, std=C ** -0.5).to(bf16), rnd(H, std=0.1),
+            rnd(H, C, std=H ** -0.5).to(bf16), rnd(C, std=0.1), 1 + rnd(C, std=0.1),
+            rnd(C, std=0.1))
+    dz = rnd(T, C).to(bf16)
+    ds = torch.cat([torch.full((T // 2, 1), 1 / DROP_KEEP), torch.zeros(T // 2, 1)]).to(dev)
+    return args, dz, ds
 
 
 def mlp_route(args, ds, approximate, block, B=BATCH):
@@ -1841,12 +1925,14 @@ def check_mlp_kernels(gen, dev):
     DropPath scale.  Every output and gradient within MLP_REL_L2_TOL, K14 / K15 on the
     branch (z - x, dx - dz); at stage 0, K13 / K15's f32 db1 tells the two GELUs apart
     (``gelu_told_apart``; its failures are raised once every shape has been checked).
-    Each is timed (median of TIMING_RUNS CUDA-event timings) beside its plain version
-    and the port's current route (``mlp_route``).  Returns the timings keyed like the
-    wrappers' ``launches_by_shape``: (kernel, T, C, H, approximate[, has_dscale])."""
+    Two K13 launches give the same bits.  Each is timed (median of TIMING_RUNS
+    CUDA-event timings) beside its plain version and the port's current route
+    (``mlp_route``), and one K13 call at each shape is traced by kernel (its launch
+    sequence: ``log_mlp_bwd_sequence``).  Returns the timings keyed like the wrappers'
+    ``launches_by_shape``: (kernel, T, C, H, approximate[, has_dscale]), and
+    ("k13_sequence", T, C, H, approximate)."""
     from heal_swin_torch.ops import mlp as tm
 
-    bf16 = torch.bfloat16
     tol = MLP_REL_L2_TOL
     timed, gelu_failed = {}, []
 
@@ -1855,16 +1941,12 @@ def check_mlp_kernels(gen, dev):
 
     for T, C in mlp_stages():
         H = 4 * C
-        args = (rnd(T, C).to(bf16), rnd(C, H, std=C ** -0.5).to(bf16), rnd(H, std=0.1),
-                rnd(H, C, std=H ** -0.5).to(bf16), rnd(C, std=0.1), 1 + rnd(C, std=0.1),
-                rnd(C, std=0.1))
-        dz = rnd(T, C).to(bf16)
-        # the DropPath scale of the batch's two samples, one kept, one dropped
-        ds = torch.cat([torch.full((T // 2, 1), 1 / DROP_KEEP), torch.zeros(T // 2, 1)]).to(dev)
+        args, dz, ds = mlp_inputs(rnd, dev, T, C)
         x, dzf = args[0].float(), dz.float()
         log(f"K13 / K15 T={T} C={C} H={H}: workspace {workspace_bytes(('mlp_bwd', T, C, H))} "
             f"/ {workspace_bytes(('mlp_block_bwd', T, C, H))} bytes written and read back "
-            f"(from the shapes)")
+            f"(K13: its weight-gradient kernel's partial rows; K15: g, dh, du; from the "
+            f"shapes)")
         for approximate in ((True, False) if C == 96 else (True,)):
             kw = dict(approximate=approximate)
             a5 = args[:5]
@@ -1876,6 +1958,10 @@ def check_mlp_kernels(gen, dev):
                 p13 = tm.mlp_bwd_plain(*a5, dz, **kw)
                 e13 = check_grads(f"K13 T={T} C={C} tanh={approximate}", MLP_GRADS, g13, p13,
                                   tol["mlp_bwd"])
+                if not all(torch.equal(a, b) for a, b in
+                           zip(g13, tm.mlp_bwd(*a5, dz, **kw, impl="pallas"))):
+                    raise AssertionError(f"K13 T={T} C={C} tanh={approximate}: two launches "
+                                         f"differ")
                 if C == 96 and not gelu_told_apart(
                         "mlp_bwd", f"K13 T={T} C={C} tanh={approximate}", g13[2], p13[2],
                         tm.mlp_bwd_plain(*a5, dz, approximate=not approximate)[2]):
@@ -1885,14 +1971,17 @@ def check_mlp_kernels(gen, dev):
                 pms12 = median_ms(lambda: tm.mlp_plain(*a5, **kw))
                 ms13 = median_ms(lambda: tm.mlp_bwd(*a5, dz, **kw, impl="pallas"))
                 pms13 = median_ms(lambda: tm.mlp_bwd_plain(*a5, dz, **kw))
+                per, _ = trace(lambda: tm.mlp_bwd(*a5, dz, **kw, impl="pallas"), K13_TRACED)
+            timed[("k13_sequence", T, C, H, approximate)] = {
+                name: (dev_ms / n, n / K13_TRACED) for name, (dev_ms, n) in per.items()}
             route_f, route_b = mlp_route(args, None, approximate, block=False)
             rms12, rms13 = median_ms(route_f), median_ms(route_b)
             log(f"K12 mlp_fwd T={T} C={C} H={H} tanh={approximate}: rel_l2 {e12[0]:.3e} "
                 f"max_abs {e12[1]:.3e} kernel {ms12:.4f} ms plain {pms12:.4f} ms route "
                 f"{rms12:.4f} ms")
             log(f"K13 mlp_bwd T={T} C={C} H={H} tanh={approximate}: rel_l2 <= {e13[0]:.3e} "
-                f"max_abs {e13[1]:.3e} kernel {ms13:.4f} ms plain {pms13:.4f} ms route "
-                f"{rms13:.4f} ms")
+                f"max_abs {e13[1]:.3e}, two launches bit-equal; kernel {ms13:.4f} ms plain "
+                f"{pms13:.4f} ms route {rms13:.4f} ms")
             key = (T, C, H, approximate)
             timed[("mlp_fwd",) + key] = dict(rel_l2=e12[0], max_abs_err=e12[1], ms=ms12,
                                              plain_ms=pms12, route_ms=rms12)
@@ -2229,13 +2318,18 @@ def qkv_bwd_workspace(T, C, run=QKV_BWD_RUN):
 
 def workspace_bytes(key):
     """The bytes a backward kernel's design adds to what the function must move: for
-    K13/K15 g and the rounded dh (bf16, T x H), and for K15 the rounded du (T x C), each
-    written once and read once by the split-K weight products; for K17 its dqkv and
-    partial rows (``qkv_bwd_workspace``).  Logged beside the checks; ``bound_ms`` leaves
-    them out, since the function itself need not move them."""
+    K13 its weight-gradient kernel's partial rows (one set of dW1, dW2, db1 | db2 per
+    token split, f32), written once and read once by reduce_rows; for K15 g and the
+    rounded dh (bf16, T x H) and the rounded du (T x C), each written once and read once
+    by the split-K weight products; for K17 its dqkv and partial rows
+    (``qkv_bwd_workspace``).  Logged beside the checks; ``bound_ms`` leaves them out,
+    since the function itself need not move them."""
     name, T, C = key[:3]
     if name == "mlp_bwd":
-        return 8 * T * key[3]
+        from heal_swin_torch import _build
+
+        H = key[3]
+        return 2 * _build.lib().hs_mlp_bwd_splits(T, C, H) * (2 * C * H + H + C) * 4
     if name == "mlp_block_bwd":
         return 8 * T * key[3] + 4 * T * C
     if name == "window_attention_qkv_bwd":
@@ -2301,7 +2395,7 @@ def kernel_results(timed, runs, chamfer):
     return kernels
 
 
-# the register-resident window-attention kernels' mangled names in the ptxas report
+# the register-resident kernels' (and K14/K15's) mangled names in the ptxas report
 PTXAS_NAMES = {"11attn_kernel": "K2 attn_kernel",
                "14qkv_epi_kernelILi1ELb1ELb1E": "K1 qkv_epi_kernel<1> (C <= 192)",
                "14qkv_epi_kernelILi2ELb1ELb1E": "K1 qkv_epi_kernel<2> (C > 192)",
@@ -2314,12 +2408,20 @@ PTXAS_NAMES = {"11attn_kernel": "K2 attn_kernel",
                "14qkv_bwd_kernelILb0ELb1E": "K5 qkv_bwd_kernel<scaled-dot, load qkv>",
                "18proj_ln_bwd_kernelILi1E": "K4 step 2 proj_ln_bwd_kernel<1> (C <= 192)",
                "18proj_ln_bwd_kernelILi2E": "K4 step 2 proj_ln_bwd_kernel<2> (C > 192)",
-               "14gemm_nt_kernel": "gemm_nt_kernel (K17 dx, K4 do)"}
+               "14gemm_nt_kernel": "gemm_nt_kernel (K17 dx, K4 do)",
+               "14mlp_fwd_kernelILi12E": "K12 mlp_fwd_kernel<12> (C <= 96)",
+               "14mlp_fwd_kernelILi24E": "K12 mlp_fwd_kernel<24> (C > 96)",
+               "13mlp_dx_kernelILi12E": "K13 step 1 mlp_dx_kernel<12> (C <= 96)",
+               "13mlp_dx_kernelILi24E": "K13 step 1 mlp_dx_kernel<24> (C > 96)",
+               "13mlp_dw_kernelILi3E": "K13 step 2 mlp_dw_kernel<3> (C <= 96)",
+               "13mlp_dw_kernelILi6E": "K13 step 2 mlp_dw_kernel<6> (C > 96)",
+               "20mlp_block_fwd_kernel": "K14 mlp_block_fwd_kernel",
+               "20mlp_block_bwd_kernel": "K15 mlp_block_bwd_kernel"}
 
 
 def log_ptxas(build_log: str):
     """nvcc's -Xptxas -v report of the build, one line per kernel: its spills, stack,
-    registers and shared memory, under its name (the window-attention kernels and
+    registers and shared memory, under its name (the window-attention and MLP kernels and
     gemm_nt by name, the others mangled)."""
     name, props = None, []
     for line in build_log.splitlines():
@@ -2368,6 +2470,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     t_mlp = time.perf_counter()
     mlp_run = drive_mlp(dev, timed)
+    log_mlp_bwd_sequence(timed, mlp_run)
     torch.cuda.empty_cache()
     t_dot = time.perf_counter()
     drive_slice(dev, timed, cos=False)

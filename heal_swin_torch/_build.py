@@ -66,6 +66,9 @@ _SIGNATURES = {
     "hs_mlp_block_fwd": ([_P] * 9 + [_I] * 5 + [_F, _P], _I),
     "hs_mlp_bwd": ([_P] * 11 + [_I] * 4 + [_P], _I),
     "hs_mlp_bwd_workspace": ([_I] * 3, ctypes.c_size_t),
+    "hs_mlp_bwd_splits": ([_I] * 3, _I),
+    "hs_mlp_bwd_dx": ([_P] * 6 + [_I] * 4 + [_P], _I),
+    "hs_mlp_bwd_dw": ([_P] * 9 + [_I] * 4 + [_P], _I),
     "hs_mlp_block_bwd": ([_P] * 14 + [_I] * 5 + [_F, _P], _I),
     "hs_mlp_block_bwd_workspace": ([_I] * 3, ctypes.c_size_t),
     "hs_error_string": ([_I], ctypes.c_char_p),

@@ -11,37 +11,39 @@
 //       backward du; then as K13 with du for dout; dx adds the residual dz;
 //       dgamma, dbeta
 // with the Pallas kernels' rounding points: h and u summed in f32 with the biases in
-// f32; g rounded to bf16; LN statistics in f32 on the unrounded u; the output rounded
-// once after the residual add; dh rounded before dx and dW1 while db1 sums the
-// unrounded dh; du rounded before dW2 and the hidden's gradient.  Both GELUs (tanh and
+// f32; g rounded to bf16; the output summed in f32, + b2, rounded once (K14: LN
+// statistics in f32 on the unrounded u, rounded once after the residual add); dh
+// rounded before dx and dW1 while db1 sums the unrounded dh; dW2 from the bf16 g and
+// dout (K15: du rounded before dW2 and the hidden's gradient).  Both GELUs (tanh and
 // erf) in f32.
 //
-// What bounds it on this card: the forward does 4 T C H = 16 T C^2 FLOP on 4 T C bytes
-// of tokens, H = 4C FLOP per byte (384 at C = 96), above the bf16 ridge (~295): the
-// products decide, and the (T, H) hidden that the unfused route writes and reads back
-// (f32 h, bf16 g: 6 T H bytes forward, more backward) is what fusion saves.
+// What bounds it on this card: the forward does 4 T C H FLOP on 4 T C bytes of tokens,
+// H = 4C FLOP per byte (384 at C = 96), above the bf16 ridge (~295): the products
+// decide, and the (T, H) hidden that the unfused route writes and reads back is what
+// fusion saves.
 //
-// What the design does about it:
-// - One block per row block of 64 tokens (32 above C = 384) keeps its x tile in shared
-//   memory and walks the hidden in chunks of 32 columns: each step stages the W1
-//   column chunk (C x 32) and the W2 row chunk (32 x C) through shared memory (W1 and
-//   W2 are 147 KB at C = 96, 2.36 MB at C = 384, 9.4 MB at C = 768 in bf16: they do
-//   not fit whole), computes the chunk's h on the tensor cores, applies GELU, and adds
-//   g W2 into the block's (rows x C) f32 sum, which stays in WMMA accumulators in
-//   registers (at most 12 16x16 tiles a warp: the row block halves above C = 384).
-//   After the last chunk the sum goes to shared memory for the bias, the LayerNorm
-//   (K14/K15, one warp per row) and the residual.
-// - Parameter gradients without float atomics, in a fixed order (the results do not
-//   change from run to run): the backward kernels write g and the rounded dh (and in
-//   K15 the rounded du) as bf16 rows into a workspace, and dW1 = x^T dh, dW2 = g^T dout
-//   (K15: g^T du) are split-K products over the tokens (reduce.cu gemm_tn); the bias,
-//   gamma and beta gradients are one partial row per block, summed by reduce_rows.
-//   That costs 4 T H bytes written and read again (201 MB each way at T = 262144,
-//   C = 96), which the TPU kernel kept in VMEM.
-// - 16x16x16 bf16 WMMA tiles with f32 accumulation, one staging buffer and block-wide
-//   barriers: right and simple first; cp.async / TMA pipelines and wgmma are later work.
+// K12 and K13 run on the register-resident row core of mlp_core.cuh: mma.sync m16n8k16
+// from ldmatrix fragments, a warp's 16 token rows and their output sums in registers,
+// GELU and its gradient on the accumulators, g and dh repacked as A fragments, the
+// weights streamed as 32-column chunks through a cp.async ring that a block of 128 rows
+// (64 at C <= 384, 32 above) shares.  K13 is a launch sequence from one entry, on one
+// stream: the dx kernel (token-parallel), then the weight-gradient kernel (hidden slice
+// x token split, the slice's weights resident, h and dg recomputed by the core's
+// functions, dW1 and dW2 summed in registers), then reduce_rows over its partial rows.
+// Nothing of size T x H is written; no float atomics, so the results do not change
+// from run to run.
+//
+// K14 and K15 keep the first design: a block of 64 tokens (32 above C = 384) walks the
+// hidden in chunks of 32 columns staged synchronously through shared memory, 16x16x16
+// WMMA tiles into a (rows x C) f32 sum in registers, the sum through shared memory for
+// the bias, the LayerNorm (one warp per row) and the residual; K15 writes g and the
+// rounded dh and du as bf16 rows to a workspace for two split-K products over the
+// tokens (reduce.cu gemm_tn) and one partial row per block for the bias, gamma and beta
+// gradients, summed by reduce_rows.
 
-#include "common.cuh"
+#include <type_traits>
+
+#include "mlp_core.cuh"
 
 namespace hs {
 namespace {
@@ -51,34 +53,10 @@ constexpr int LDH = HC + 8;   // leading dimension of the bf16 chunk tiles (W1 c
 constexpr int LDHF = HC + 4;  // leading dimension of the f32 chunk tiles (h, dh's dg)
 constexpr int MAX_NT = 12;    // 16x16 output tiles a warp holds at most
 constexpr int MAX_C = 768;
-constexpr float kSqrt2OverPi = 0.7978845608028654f;
-constexpr float kTanhC = 0.044715f;
-constexpr float kInvSqrt2 = 0.7071067811865476f;
-constexpr float kInvSqrt2Pi = 0.3989422804014327f;
 
 // token rows per block: the (rows x C) f32 sum lives in registers, C / 16 floats a
 // thread at 64 rows, so the row block halves above C = 384
 __host__ __device__ inline int mlp_rows(int C) { return C <= 384 ? 64 : 32; }
-
-__device__ __forceinline__ float gelu(float h, bool approx) {
-  if (approx) {
-    const float u = kSqrt2OverPi * (h + kTanhC * h * h * h);
-    return 0.5f * h * (1.f + tanhf(u));
-  }
-  return 0.5f * h * (1.f + erff(h * kInvSqrt2));
-}
-
-__device__ __forceinline__ float gelu_grad(float h, bool approx) {
-  if (approx) {
-    const float u = kSqrt2OverPi * (h + kTanhC * h * h * h);
-    const float t = tanhf(u);
-    const float du = kSqrt2OverPi * (1.f + 3.f * kTanhC * h * h);
-    return 0.5f * (1.f + t) + 0.5f * h * (1.f - t * t) * du;
-  }
-  const float cdf = 0.5f * (1.f + erff(h * kInvSqrt2));
-  const float pdf = kInvSqrt2Pi * expf(-0.5f * h * h);
-  return cdf + h * pdf;
-}
 
 // Shared memory: x tile | (backward) dout or du tile | the chunk tiles (W1 chunk, W2
 // chunk, f32 h, f32 dg, bf16 g or dh), which the (rows x C) f32 sums U reuse once the
@@ -255,11 +233,10 @@ __device__ __forceinline__ void forward_sums(FragC (&acc)[MAX_NT], const Geo& g,
 }
 
 // ---------------------------------------------------------------------------------
-// K12 (kBlock false) and K14 (kBlock true): grid T / rows.
+// K14: grid T / rows.
 // ---------------------------------------------------------------------------------
-template <bool kBlock>
 __global__ void __launch_bounds__(kThreads)
-mlp_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
+mlp_block_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
                const float* __restrict__ b1, const bf16* __restrict__ w2,
                const float* __restrict__ b2, const float* __restrict__ gamma,
                const float* __restrict__ beta, const float* __restrict__ dscale,
@@ -278,46 +255,38 @@ mlp_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
   store_acc(acc, g, s.u);
   __syncthreads();
 
-  if constexpr (!kBlock) {
-    for (int idx = tid; idx < g.R * C; idx += kThreads) {
-      const int r = idx / C, c = idx % C;
-      out[(row0 + r) * C + c] = to_bf(s.u[r * g.LDU + c] + b2[c]);
+  // one warp per row: u = sums + b2, LN statistics in f32, y * dscale + x
+  for (int r = warp; r < g.R; r += kWarps) {
+    float* ur = s.u + r * g.LDU;
+    float sum = 0.f;
+    for (int c = lane; c < C; c += 32) {
+      const float v = ur[c] + b2[c];
+      ur[c] = v;
+      sum += v;
     }
-  } else {
-    // one warp per row: u = sums + b2, LN statistics in f32, y * dscale + x
-    for (int r = warp; r < g.R; r += kWarps) {
-      float* ur = s.u + r * g.LDU;
-      float sum = 0.f;
-      for (int c = lane; c < C; c += 32) {
-        const float v = ur[c] + b2[c];
-        ur[c] = v;
-        sum += v;
-      }
-      const float mean = warp_sum(sum) / C;
-      float sq = 0.f;
-      for (int c = lane; c < C; c += 32) {
-        const float d = ur[c] - mean;
-        sq += d * d;
-      }
-      const float rstd = rsqrtf(warp_sum(sq) / C + ln_eps);
-      const float dsc = dscale != nullptr ? dscale[row0 + r] : 1.f;
-      for (int c = lane; c < C; c += 32) {
-        float y = (ur[c] - mean) * rstd * gamma[c] + beta[c];
-        if (dscale != nullptr) y *= dsc;
-        out[(row0 + r) * C + c] = to_bf(bf(s.xs[r * g.LDX + c]) + y);
-      }
+    const float mean = warp_sum(sum) / C;
+    float sq = 0.f;
+    for (int c = lane; c < C; c += 32) {
+      const float d = ur[c] - mean;
+      sq += d * d;
+    }
+    const float rstd = rsqrtf(warp_sum(sq) / C + ln_eps);
+    const float dsc = dscale != nullptr ? dscale[row0 + r] : 1.f;
+    for (int c = lane; c < C; c += 32) {
+      float y = (ur[c] - mean) * rstd * gamma[c] + beta[c];
+      if (dscale != nullptr) y *= dsc;
+      out[(row0 + r) * C + c] = to_bf(bf(s.xs[r * g.LDX + c]) + y);
     }
   }
 }
 
 // ---------------------------------------------------------------------------------
-// K13 (kBlock false: go = dout) and K15 (kBlock true: go = dz): grid T / rows.  Writes
-// dx, the workspace rows G = g and DH = rounded dh (bf16, T x H), for K15 DU = rounded
-// du (T x C), and one partial row per block: db1 (H) | db2 (C) [| dgamma | dbeta].
+// K15 (go = dz): grid T / rows.  Writes dx, the workspace rows G = g and DH = rounded dh
+// (bf16, T x H), DU = rounded du (T x C), and one partial row per block: db1 (H) | db2
+// (C) | dgamma | dbeta.
 // ---------------------------------------------------------------------------------
-template <bool kBlock>
 __global__ void __launch_bounds__(kThreads)
-mlp_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
+mlp_block_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
                const float* __restrict__ b1, const bf16* __restrict__ w2,
                const float* __restrict__ b2, const float* __restrict__ gamma,
                const float* __restrict__ dscale, const bf16* __restrict__ go,
@@ -332,19 +301,10 @@ mlp_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
   const int lane = tid & 31;
   const bool ap = approx != 0;
   const size_t row0 = size_t(blockIdx.x) * g.R;
-  float* prow = part + size_t(blockIdx.x) * (H + (kBlock ? 3 : 1) * C);
+  float* prow = part + size_t(blockIdx.x) * (H + 3 * C);
 
   load_rows(x + row0 * C, s.xs, g.R, C, g.LDX);
-  if constexpr (!kBlock) {
-    // the gradient of the hidden's output is dout itself; db2 sums it in f32
-    load_rows(go + row0 * C, s.ds, g.R, C, g.LDX);
-    __syncthreads();
-    for (int c = tid; c < C; c += kThreads) {
-      float sum = 0.f;
-      for (int r = 0; r < g.R; ++r) sum += bf(s.ds[r * g.LDX + c]);
-      prow[H + c] = sum;
-    }
-  } else {
+  {
     // recompute u, then the LayerNorm backward: du (rounded) into s.ds and DU
     {
       FragC acc[MAX_NT];
@@ -461,26 +421,24 @@ mlp_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
   for (int idx = tid; idx < g.R * C; idx += kThreads) {
     const int r = idx / C, c = idx % C;
     const size_t at = (row0 + r) * C + c;
-    float v = s.u[r * g.LDU + c];
-    if constexpr (kBlock) v += bf(go[at]);
-    dx[at] = to_bf(v);
+    dx[at] = to_bf(s.u[r * g.LDU + c] + bf(go[at]));
   }
 }
 
-// The backward's workspace: G and DH (bf16, T x H), DU (K15, bf16, T x C), the
-// per-block partial rows, and the reductions' scratch.
+// K15's workspace: G and DH (bf16, T x H), DU (bf16, T x C), the per-block partial
+// rows, and the reductions' scratch.
 struct BwdWork {
   size_t g, dh, du, part, tmp, total;
 };
 
-inline BwdWork bwd_work(int T, int C, int H, bool block) {
+inline BwdWork block_bwd_work(int T, int C, int H) {
   const int nb = T / mlp_rows(C);
-  const int W = H + (block ? 3 : 1) * C;
+  const int W = H + 3 * C;
   BwdWork w;
   size_t off = 0;
   w.g = off; off += align128(size_t(T) * H * 2);
   w.dh = off; off += align128(size_t(T) * H * 2);
-  w.du = off; if (block) off += align128(size_t(T) * C * 2);
+  w.du = off; off += align128(size_t(T) * C * 2);
   w.part = off; off += align128(size_t(nb) * W * 4);
   size_t tmp = reduce_rows_tmp_floats(nb, W);
   const size_t g1 = gemm_tn_tmp_floats(T, C, H);
@@ -492,17 +450,16 @@ inline BwdWork bwd_work(int T, int C, int H, bool block) {
   return w;
 }
 
-template <bool kBlock>
-cudaError_t launch_fwd(const void* x, const void* w1, const void* b1, const void* w2,
-                       const void* b2, const void* gamma, const void* beta,
-                       const void* dscale, void* out, int T, int C, int H, int approx,
-                       float ln_eps, cudaStream_t s) {
+cudaError_t launch_block_fwd(const void* x, const void* w1, const void* b1, const void* w2,
+                             const void* b2, const void* gamma, const void* beta,
+                             const void* dscale, void* out, int T, int C, int H, int approx,
+                             float ln_eps, cudaStream_t s) {
   if (C > MAX_C) return cudaErrorInvalidValue;
   const size_t smem = layout(C, false).total;
-  cudaError_t e = cudaFuncSetAttribute(mlp_fwd_kernel<kBlock>,
+  cudaError_t e = cudaFuncSetAttribute(mlp_block_fwd_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (e != cudaSuccess) return e;
-  mlp_fwd_kernel<kBlock><<<T / mlp_rows(C), kThreads, smem, s>>>(
+  mlp_block_fwd_kernel<<<T / mlp_rows(C), kThreads, smem, s>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w1), static_cast<const float*>(b1),
       static_cast<const bf16*>(w2), static_cast<const float*>(b2),
       static_cast<const float*>(gamma), static_cast<const float*>(beta),
@@ -510,39 +467,600 @@ cudaError_t launch_fwd(const void* x, const void* w1, const void* b1, const void
   return cudaGetLastError();
 }
 
-template <bool kBlock>
-cudaError_t launch_bwd(const void* x, const void* w1, const void* b1, const void* w2,
-                       const void* b2, const void* gamma, const void* dscale, const void* go,
-                       void* dx, void* dw1, void* dw2, void* red, void* work, int T, int C,
-                       int H, int approx, float ln_eps, cudaStream_t s) {
+cudaError_t launch_block_bwd(const void* x, const void* w1, const void* b1, const void* w2,
+                             const void* b2, const void* gamma, const void* dscale,
+                             const void* go, void* dx, void* dw1, void* dw2, void* red,
+                             void* work, int T, int C, int H, int approx, float ln_eps,
+                             cudaStream_t s) {
   if (C > MAX_C) return cudaErrorInvalidValue;
   const size_t smem = layout(C, true).total;
-  cudaError_t e = cudaFuncSetAttribute(mlp_bwd_kernel<kBlock>,
+  cudaError_t e = cudaFuncSetAttribute(mlp_block_bwd_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (e != cudaSuccess) return e;
-  const BwdWork w = bwd_work(T, C, H, kBlock);
+  const BwdWork w = block_bwd_work(T, C, H);
   unsigned char* base = static_cast<unsigned char*>(work);
   bf16* G = reinterpret_cast<bf16*>(base + w.g);
   bf16* DH = reinterpret_cast<bf16*>(base + w.dh);
-  bf16* DU = kBlock ? reinterpret_cast<bf16*>(base + w.du) : nullptr;
+  bf16* DU = reinterpret_cast<bf16*>(base + w.du);
   float* part = reinterpret_cast<float*>(base + w.part);
   float* tmp = reinterpret_cast<float*>(base + w.tmp);
   const int nb = T / mlp_rows(C);
   const bf16* xb = static_cast<const bf16*>(x);
-  const bf16* gob = static_cast<const bf16*>(go);
-  mlp_bwd_kernel<kBlock><<<nb, kThreads, smem, s>>>(
+  mlp_block_bwd_kernel<<<nb, kThreads, smem, s>>>(
       xb, static_cast<const bf16*>(w1), static_cast<const float*>(b1),
       static_cast<const bf16*>(w2), static_cast<const float*>(b2),
-      static_cast<const float*>(gamma), static_cast<const float*>(dscale), gob,
-      static_cast<bf16*>(dx), G, DH, DU, part, C, H, approx, ln_eps);
+      static_cast<const float*>(gamma), static_cast<const float*>(dscale),
+      static_cast<const bf16*>(go), static_cast<bf16*>(dx), G, DH, DU, part, C, H, approx,
+      ln_eps);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  e = reduce_rows(part, static_cast<float*>(red), nb, H + (kBlock ? 3 : 1) * C, tmp, s);
+  e = reduce_rows(part, static_cast<float*>(red), nb, H + 3 * C, tmp, s);
   if (e != cudaSuccess) return e;
-  // dW1 = x^T dh (C x H); dW2 = g^T dout, or g^T du for the branch (H x C)
+  // dW1 = x^T dh (C x H); dW2 = g^T du (H x C)
   e = gemm_tn(xb, DH, static_cast<float*>(dw1), T, C, H, tmp, s);
   if (e != cudaSuccess) return e;
-  return gemm_tn(G, kBlock ? DU : gob, static_cast<float*>(dw2), T, H, C, tmp, s);
+  return gemm_tn(G, DU, static_cast<float*>(dw2), T, H, C, tmp, s);
+}
+
+// ---------------------------------------------------------------------------------
+// K12 and K13's dx kernel on the row core (mlp_core.cuh).  Block: 8 warps in row groups
+// of WPR warps (1 up to C 192, 2 up to 384, 4 above), 16 rows a group, so a warp holds
+// at most 24 n-tiles (96 floats a thread) of its group's output columns; each warp of a
+// group recomputes the group's hidden tiles.  The weights arrive as items through a
+// cp.async ring of `slots` stages that the block's warps share (one block barrier an
+// item): for each 32-column chunk j of the hidden, W1[:, 32j : 32j + 32] (C x 32, ld
+// MLP_LDC) and W2[32j : 32j + 32, :] (32 x C, ld C + 8); the dx kernel takes W2's first.
+// ---------------------------------------------------------------------------------
+constexpr size_t kMaxSmem = 232448;  // an H100 block's opt-in shared memory
+
+struct RowGeo {
+  int wpr, rows, ntw;  // warps a row group, rows a block, n-tiles a warp
+};
+
+__host__ __device__ inline RowGeo row_geo(int C) {
+  RowGeo g;
+  g.wpr = C <= 192 ? 1 : (C <= 384 ? 2 : 4);
+  g.rows = 16 * (kWarps / g.wpr);
+  g.ntw = C / g.wpr / 8;
+  return g;
+}
+
+// shared memory: x tile | (dx kernel) dout tile | the ring's stages
+struct RowLayout {
+  size_t dout, ring, slot, total;
+  int slots;
+};
+
+__host__ __device__ inline RowLayout row_layout(int C, bool dx) {
+  const RowGeo g = row_geo(C);
+  const size_t tile = align128(size_t(g.rows) * (C + 8) * 2);
+  const size_t w1c = size_t(C) * MLP_LDC * 2, w2c = size_t(MLP_HC) * (C + 8) * 2;
+  RowLayout L;
+  L.dout = tile;
+  L.ring = dx ? 2 * tile : tile;
+  L.slot = align128(w1c > w2c ? w1c : w2c);
+  // the ring's depth: up to C 96 an item is short work and the dx kernel waits on a
+  // 4-stage ring (an H100 read a third more time with 4 than with 6); above, 4 do
+  L.slots = C <= 96 ? 6 : 4;
+  while (L.slots > 2 && L.ring + L.slots * L.slot > kMaxSmem) --L.slots;
+  L.total = L.ring + L.slots * L.slot;
+  return L;
+}
+
+struct HiddenRing {
+  const bf16* w1;
+  const bf16* w2;
+  unsigned char* base;
+  size_t slot;
+  int C, H, slots, total;
+  bool w2_first;
+
+  __device__ __forceinline__ bool is_w1(int s) const { return ((s & 1) == 0) != w2_first; }
+  __device__ __forceinline__ bf16* stage(int s) const {
+    return reinterpret_cast<bf16*>(base + (s % slots) * slot);
+  }
+  // item s's cp.async copies by the block's threads (none past the end); the caller commits
+  __device__ __forceinline__ void fetch(int s) const {
+    if (s >= total) return;
+    const int j0 = (s >> 1) * MLP_HC;
+    bf16* dst = stage(s);
+    if (is_w1(s)) {
+      for (int idx = threadIdx.x; idx < C * 4; idx += kThreads) {
+        const int r = idx >> 2, q = (idx & 3) * 8;
+        cp_async16(dst + r * MLP_LDC + q, w1 + size_t(r) * H + j0 + q);
+      }
+    } else {
+      fetch_rows(dst, C + 8, w2 + size_t(j0) * C, MLP_HC, C);
+    }
+  }
+};
+
+// K12: out = bf16(sum over the hidden of bf16(GELU(x W1 + b1)) W2 + b2).  Grid T / rows.
+template <int NT>
+__global__ void __launch_bounds__(kThreads)
+mlp_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
+               const float* __restrict__ b1, const bf16* __restrict__ w2,
+               const float* __restrict__ b2, bf16* __restrict__ out, int T, int C, int H,
+               int approx) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const RowGeo geo = row_geo(C);
+  const RowLayout L = row_layout(C, false);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int base = blockIdx.x * geo.rows;
+  const int rows = min(geo.rows, T - base);
+  const int row0 = (warp / geo.wpr) * 16;
+  const int col0 = (warp % geo.wpr) * geo.ntw * 8;
+  const bool active = row0 < rows;
+  const bool ap = approx != 0;
+  const int ldx = C + 8;
+  bf16* xs = reinterpret_cast<bf16*>(smem);
+  const HiddenRing ring{w1, w2, smem + L.ring, L.slot, C, H, L.slots, 2 * (H / MLP_HC), false};
+
+  fetch_rows(xs, ldx, x + size_t(base) * C, rows, C);
+  for (int s = 0; s < L.slots - 1; ++s) {  // the x tile comes with item 0
+    ring.fetch(s);
+    cp_async_commit();
+  }
+  float acc[NT][4];
+#pragma unroll
+  for (int t = 0; t < NT; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+  uint32_t g[2][4];
+  for (int s = 0; s < ring.total; ++s) {
+    cp_async_wait_upto(L.slots - 2);
+    __syncthreads();  // item s has landed; item s - 1's stage is free
+    ring.fetch(s + L.slots - 1);
+    cp_async_commit();
+    if (!active) continue;
+    const bf16* w = ring.stage(s);
+    if ((s & 1) == 0) {
+      float h[4][4];
+      hidden_tile(h, xs, ldx, row0, w, MLP_LDC, C, b1 + (s >> 1) * MLP_HC);
+      ap ? gelu_tile<true>(h) : gelu_tile<false>(h);
+      pack_a_frags(g, h);
+    } else {
+      frags_times_rows<NT>(acc, g, w + col0, ldx, geo.ntw);
+    }
+  }
+  if (!active) return;
+  const int c2 = (lane & 3) * 2;
+  const size_t r0 = size_t(base + row0 + (lane >> 2));
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    if (t < geo.ntw) {
+      const int c = col0 + 8 * t + c2;
+      const float lo = b2[c], hi = b2[c + 1];
+      *reinterpret_cast<uint32_t*>(out + r0 * C + c) = pack_bf2(acc[t][0] + lo, acc[t][1] + hi);
+      *reinterpret_cast<uint32_t*>(out + (r0 + 8) * C + c) =
+          pack_bf2(acc[t][2] + lo, acc[t][3] + hi);
+    }
+  }
+}
+
+// K13 step 1: dx = bf16(sum over the hidden of bf16(dg GELU'(h)) W1^T), dg = dout W2^T,
+// with h as K12 computes it.  Grid T / rows; nothing else is written.
+template <int NT>
+__global__ void __launch_bounds__(kThreads)
+mlp_dx_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
+              const float* __restrict__ b1, const bf16* __restrict__ w2,
+              const bf16* __restrict__ dout, bf16* __restrict__ dx, int T, int C, int H,
+              int approx) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const RowGeo geo = row_geo(C);
+  const RowLayout L = row_layout(C, true);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int base = blockIdx.x * geo.rows;
+  const int rows = min(geo.rows, T - base);
+  const int row0 = (warp / geo.wpr) * 16;
+  const int col0 = (warp % geo.wpr) * geo.ntw * 8;
+  const bool active = row0 < rows;
+  const bool ap = approx != 0;
+  const int ldx = C + 8;
+  bf16* xs = reinterpret_cast<bf16*>(smem);
+  bf16* ds = reinterpret_cast<bf16*>(smem + L.dout);
+  const HiddenRing ring{w1, w2, smem + L.ring, L.slot, C, H, L.slots, 2 * (H / MLP_HC), true};
+
+  fetch_rows(xs, ldx, x + size_t(base) * C, rows, C);
+  fetch_rows(ds, ldx, dout + size_t(base) * C, rows, C);
+  for (int s = 0; s < L.slots - 1; ++s) {  // the x and dout tiles come with item 0
+    ring.fetch(s);
+    cp_async_commit();
+  }
+  float acc[NT][4];
+#pragma unroll
+  for (int t = 0; t < NT; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+  float dg[4][4];
+  for (int s = 0; s < ring.total; ++s) {
+    cp_async_wait_upto(L.slots - 2);
+    __syncthreads();  // item s has landed; item s - 1's stage is free
+    ring.fetch(s + L.slots - 1);
+    cp_async_commit();
+    if (!active) continue;
+    const bf16* w = ring.stage(s);
+    if ((s & 1) == 0) {
+      hidden_grad_tile(dg, ds, ldx, row0, w, ldx, C);
+    } else {
+      float h[4][4];
+      hidden_tile(h, xs, ldx, row0, w, MLP_LDC, C, b1 + (s >> 1) * MLP_HC);
+      ap ? dh_tile<true>(dg, h) : dh_tile<false>(dg, h);
+      uint32_t dh[2][4];
+      pack_a_frags(dh, dg);
+      frags_times_rows_t<NT>(acc, dh, w + col0 * MLP_LDC, MLP_LDC, geo.ntw);
+    }
+  }
+  if (!active) return;
+  const int c2 = (lane & 3) * 2;
+  const size_t r0 = size_t(base + row0 + (lane >> 2));
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    if (t < geo.ntw) {
+      const int c = col0 + 8 * t + c2;
+      *reinterpret_cast<uint32_t*>(dx + r0 * C + c) = pack_bf2(acc[t][0], acc[t][1]);
+      *reinterpret_cast<uint32_t*>(dx + (r0 + 8) * C + c) = pack_bf2(acc[t][2], acc[t][3]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------------
+// K13 step 2, the weight gradients, flash-backward style.  Grid (slices x column parts,
+// token splits), the slice fastest, so that the slices of one token range read x and
+// dout from L2.  A block keeps its slice's weights resident (W1[:, slice], C x HS, and
+// W2[slice, :], HS x C), walks its token range in steps of R rows with the x and dout
+// tiles double-buffered by cp.async, recomputes h and dg of its slice with the row
+// core's functions (so g and dh_lo are K12's and the dx kernel's bits), keeps g and
+// dh_lo as bf16 tiles, and accumulates in registers dW1[:, slice] += x^T dh_lo and
+// dW2[slice, :]^T += dout^T g (A^T by ldmatrix.trans), db1 over the unrounded dh and,
+// in slice 0, db2 over dout.  Each block writes its part of its split's partial rows;
+// reduce_rows sums the splits in a fixed order.  HS is 64 up to C 192 and 32 above;
+// above C 384 the C rows of the two products are cut in two column parts.  A step's
+// hidden block (R rows x HS) is recomputed by the warps in units of 16 rows x NTH
+// n-tiles (NTH 4 up to C 192, 1 above, so that 8 warps share it wherever R x HS allows;
+// one n-tile's sums are the same bits on any warp).  Warps tile the (C / parts) x HS
+// products WM x WN, each warp 2 n-tiles by at most MW m-tiles.
+// ---------------------------------------------------------------------------------
+struct DwGeo {
+  int hs, parts, R, wn, wm, mt, nslices;
+};
+
+__host__ __device__ inline DwGeo dw_geo(int C, int H) {
+  DwGeo g;
+  g.hs = C <= 192 ? 64 : 32;
+  g.parts = C <= 384 ? 1 : 2;
+  g.R = C <= 192 ? 64 : (C <= 384 ? 32 : 16);
+  g.wn = g.hs / 16;
+  g.wm = kWarps / g.wn;
+  g.mt = C / g.parts / 16;
+  g.nslices = (H + g.hs - 1) / g.hs;
+  return g;
+}
+
+// shared memory: W1 slice | W2 slice | 2 stages of (x tile, dout tile) | g | dh_lo |
+// db2 sums | db1 warp sums
+struct DwLayout {
+  size_t w2s, st, tile, gs, dhs, db2, red, total;
+};
+
+__host__ __device__ inline DwLayout dw_layout(int C, int H) {
+  const DwGeo g = dw_geo(C, H);
+  DwLayout L;
+  size_t off = align128(size_t(C) * (g.hs + 8) * 2);
+  L.w2s = off; off += align128(size_t(g.hs) * (C + 8) * 2);
+  L.tile = align128(size_t(g.R) * (C + 8) * 2);
+  L.st = off; off += 4 * L.tile;
+  L.gs = off; off += align128(size_t(g.R) * (g.hs + 8) * 2);
+  L.dhs = off; off += align128(size_t(g.R) * (g.hs + 8) * 2);
+  L.db2 = off; off += align128(size_t(C) * 4);
+  L.red = off; off += align128(size_t(kWarps) * MLP_HC * 4);
+  L.total = off;
+  return L;
+}
+
+template <int MW, int NTH>
+__global__ void __launch_bounds__(kThreads, 1)
+mlp_dw_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
+              const float* __restrict__ b1, const bf16* __restrict__ w2,
+              const bf16* __restrict__ dout, float* __restrict__ pw1, float* __restrict__ pw2,
+              float* __restrict__ pb, int T, int C, int H, int approx, int steps_per_split) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const DwGeo geo = dw_geo(C, H);
+  const DwLayout L = dw_layout(C, H);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const bool ap = approx != 0;
+  const int slice = blockIdx.x % geo.nslices;
+  const int part = blockIdx.x / geo.nslices;
+  const int split = blockIdx.y;
+  const int s0 = slice * geo.hs;
+  const int hcols = min(geo.hs, H - s0);
+  const int ldx = C + 8, ldw1 = geo.hs + 8, ldh = geo.hs + 8;
+  const bool sums_db2 = slice == 0 && part == 0;
+  bf16* w1s = reinterpret_cast<bf16*>(smem);
+  bf16* w2s = reinterpret_cast<bf16*>(smem + L.w2s);
+  bf16* gs = reinterpret_cast<bf16*>(smem + L.gs);
+  bf16* dhs = reinterpret_cast<bf16*>(smem + L.dhs);
+  float* db2s = reinterpret_cast<float*>(smem + L.db2);
+  float* red = reinterpret_cast<float*>(smem + L.red);
+  auto xs = [&](int i) { return reinterpret_cast<bf16*>(smem + L.st + (2 * (i & 1)) * L.tile); };
+  auto ds = [&](int i) {
+    return reinterpret_cast<bf16*>(smem + L.st + (2 * (i & 1) + 1) * L.tile);
+  };
+  const int step0 = split * steps_per_split;
+  const int nsteps = max(0, min(T / geo.R - step0, steps_per_split));
+  auto fetch = [&](int i) {  // token step i of this block's range; the caller commits
+    if (i >= nsteps) return;
+    const size_t r = size_t(step0 + i) * geo.R;
+    fetch_rows(xs(i), ldx, x + r * C, geo.R, C);
+    fetch_rows(ds(i), ldx, dout + r * C, geo.R, C);
+  };
+
+  // the slice's weights and the first token step
+  const int hq = hcols / 8;
+  for (int idx = tid; idx < C * hq; idx += kThreads) {
+    const int r = idx / hq, q = (idx - r * hq) * 8;
+    cp_async16(w1s + r * ldw1 + q, w1 + size_t(r) * H + s0 + q);
+  }
+  fetch_rows(w2s, ldx, w2 + size_t(s0) * C, hcols, C);
+  fetch(0);  // with the weights
+  cp_async_commit();
+  for (int c = tid; c < C; c += kThreads) db2s[c] = 0.f;
+
+  // this warp's part of a step's hidden block: row tile rt, the NTH n-tiles of column
+  // group cg; and its tiles of the two products
+  const int rts = geo.R / 16;
+  const int rt = warp % rts, cg = warp / rts;
+  const int gc0 = cg * 8 * NTH;  // the group's first column in the slice
+  const bool recomputes = gc0 < hcols;
+  const int wn = warp % geo.wn, wm = warp / geo.wn;
+  const int n0 = wn * 16;
+  const bool products = n0 < hcols;
+  const int mw = (geo.mt - wm + geo.wm - 1) / geo.wm;
+  const int m_first = part * geo.mt + wm;
+  float aw1[MW][2][4], aw2[MW][2][4];
+#pragma unroll
+  for (int i = 0; i < MW; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) aw1[i][j][e] = aw2[i][j][e] = 0.f;
+  float db1[NTH][2] = {};  // rows g and g + 8 summed, columns 8n + 2c, + 1
+  const int c2 = (lane & 3) * 2;
+  const int gr = lane >> 2;
+
+  for (int i = 0; i < nsteps; ++i) {
+    cp_async_wait<0>();
+    __syncthreads();  // step i has landed; step i - 1's tiles are consumed
+    fetch(i + 1);
+    cp_async_commit();
+    const bf16* xt = xs(i);
+    const bf16* dt = ds(i);
+    if (recomputes) {
+      float h[NTH][4], dg[NTH][4];
+      hidden_tile<NTH>(h, xt, ldx, rt * 16, w1s + gc0, ldw1, C, b1 + s0 + gc0);
+      hidden_grad_tile<NTH>(dg, dt, ldx, rt * 16, w2s + gc0 * ldx, ldx, C);
+      ap ? gelu_dh_tile<true>(h, dg) : gelu_dh_tile<false>(h, dg);
+      const int r0 = rt * 16 + gr;
+#pragma unroll
+      for (int n = 0; n < NTH; ++n) {
+        const int c = gc0 + 8 * n + c2;
+        db1[n][0] += dg[n][0] + dg[n][2];
+        db1[n][1] += dg[n][1] + dg[n][3];
+        *reinterpret_cast<uint32_t*>(gs + r0 * ldh + c) = pack_bf2(h[n][0], h[n][1]);
+        *reinterpret_cast<uint32_t*>(gs + (r0 + 8) * ldh + c) = pack_bf2(h[n][2], h[n][3]);
+        *reinterpret_cast<uint32_t*>(dhs + r0 * ldh + c) = pack_bf2(dg[n][0], dg[n][1]);
+        *reinterpret_cast<uint32_t*>(dhs + (r0 + 8) * ldh + c) = pack_bf2(dg[n][2], dg[n][3]);
+      }
+    }
+    if (sums_db2) {
+      for (int c = tid; c < C; c += kThreads) {
+        float sum = db2s[c];
+        for (int r = 0; r < geo.R; ++r) sum += bf(dt[r * ldx + c]);
+        db2s[c] = sum;
+      }
+    }
+    __syncthreads();  // g and dh_lo are in
+    if (products) {
+      tile_t_times_tile_cols<MW>(aw1, xt, ldx, mw, m_first, geo.wm, dhs, ldh, n0, geo.R);
+      tile_t_times_tile_cols<MW>(aw2, dt, ldx, mw, m_first, geo.wm, gs, ldh, n0, geo.R);
+    }
+  }
+
+  // this block's part of its split's partial rows: dW1 (C x H), dW2 (H x C), db1 | db2
+  if (products) {
+    float* p1 = pw1 + size_t(split) * C * H;
+    float* p2 = pw2 + size_t(split) * H * C;
+#pragma unroll
+    for (int i = 0; i < MW; ++i) {
+      if (i < mw) {
+        const int m = (m_first + geo.wm * i) * 16 + gr;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int n = s0 + n0 + 8 * j + c2;
+          p1[size_t(m) * H + n] = aw1[i][j][0];
+          p1[size_t(m) * H + n + 1] = aw1[i][j][1];
+          p1[size_t(m + 8) * H + n] = aw1[i][j][2];
+          p1[size_t(m + 8) * H + n + 1] = aw1[i][j][3];
+          p2[size_t(n) * C + m] = aw2[i][j][0];
+          p2[size_t(n + 1) * C + m] = aw2[i][j][1];
+          p2[size_t(n) * C + m + 8] = aw2[i][j][2];
+          p2[size_t(n + 1) * C + m + 8] = aw2[i][j][3];
+        }
+      }
+    }
+  }
+  if (part != 0) return;
+  float* pbrow = pb + size_t(split) * (H + C);
+  if (recomputes) {
+#pragma unroll
+    for (int n = 0; n < NTH; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float v = db1[n][e];
+        v += __shfl_xor_sync(0xffffffffu, v, 4);
+        v += __shfl_xor_sync(0xffffffffu, v, 8);
+        v += __shfl_xor_sync(0xffffffffu, v, 16);
+        if (gr == 0) red[warp * MLP_HC + 8 * n + c2 + e] = v;
+      }
+    }
+  }
+  __syncthreads();
+  if (tid < hcols) {  // column tid: its group's warps, row tiles in ascending order
+    const int w0 = (tid / (8 * NTH)) * rts;
+    float sum = 0.f;
+    for (int r = 0; r < rts; ++r) sum += red[(w0 + r) * MLP_HC + tid % (8 * NTH)];
+    pbrow[s0 + tid] = sum;
+  }
+  if (sums_db2)
+    for (int c = tid; c < C; c += kThreads) pbrow[H + c] = db2s[c];
+}
+
+// K13's workspace: the weight-gradient kernel's partial rows (per token split: dW1,
+// dW2, db1 | db2) and the reductions' scratch; no T x H tensor
+struct DwWork {
+  size_t pw2, pb, tmp, total;
+  int splits;
+};
+
+inline int sm_count() {
+  int dev = 0, n = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  return n;
+}
+
+// token splits: about one block an SM in all, at least one step of R rows a split
+inline int dw_splits(int T, int C, int H) {
+  const DwGeo g = dw_geo(C, H);
+  int s = sm_count() / (g.nslices * g.parts);
+  s = s < 1 ? 1 : s;
+  const int steps = T / g.R;
+  return s < steps ? s : steps;
+}
+
+inline DwWork dw_work(int T, int C, int H) {
+  DwWork w;
+  w.splits = dw_splits(T, C, H);
+  const size_t S = w.splits, WH = size_t(C) * H;
+  size_t off = align128(S * WH * 4);
+  w.pw2 = off; off += align128(S * WH * 4);
+  w.pb = off; off += align128(S * (H + C) * 4);
+  size_t tmp = reduce_rows_tmp_floats(w.splits, int(WH));
+  const size_t tb = reduce_rows_tmp_floats(w.splits, H + C);
+  tmp = tmp > tb ? tmp : tb;
+  w.tmp = off; off += align128(tmp * 4);
+  w.total = off;
+  return w;
+}
+
+// the most shared memory any supported C asks of a kernel: its one opt-in per device
+template <typename F>
+size_t widest(F bytes) {
+  size_t m = 0;
+  for (int C = 32; C <= MAX_C; C += 32) {
+    const size_t b = bytes(C);
+    m = b > m ? b : m;
+  }
+  return m;
+}
+
+template <int NT>
+cudaError_t launch_rows(bool dx_kernel, const bf16* x, const bf16* w1, const float* b1,
+                        const bf16* w2, const float* b2, const bf16* dout, bf16* out, int T,
+                        int C, int H, int approx, cudaStream_t s) {
+  static std::atomic<unsigned> done_fwd{0}, done_dx{0};
+  const RowLayout L = row_layout(C, dx_kernel);
+  const int grid = (T + row_geo(C).rows - 1) / row_geo(C).rows;
+  const void* k = dx_kernel ? reinterpret_cast<const void*>(mlp_dx_kernel<NT>)
+                            : reinterpret_cast<const void*>(mlp_fwd_kernel<NT>);
+  cudaError_t e = smem_opt_in(k, widest([&](int c) { return row_layout(c, dx_kernel).total; }),
+                              dx_kernel ? done_dx : done_fwd);
+  if (e != cudaSuccess) return e;
+  if (dx_kernel)
+    mlp_dx_kernel<NT><<<grid, kThreads, L.total, s>>>(x, w1, b1, w2, dout, out, T, C, H, approx);
+  else
+    mlp_fwd_kernel<NT><<<grid, kThreads, L.total, s>>>(x, w1, b1, w2, b2, out, T, C, H, approx);
+  return cudaGetLastError();
+}
+
+inline bool row_shape_ok(int T, int C, int H) {
+  return T > 0 && T % 64 == 0 && C > 0 && C % 32 == 0 && C <= MAX_C && (C <= 384 || C % 64 == 0) &&
+         H > 0 && H % MLP_HC == 0;
+}
+
+cudaError_t launch_fwd(const void* x, const void* w1, const void* b1, const void* w2,
+                       const void* b2, void* out, int T, int C, int H, int approx,
+                       cudaStream_t s) {
+  if (!row_shape_ok(T, C, H)) return cudaErrorInvalidValue;
+  auto go = [&](auto nt) {
+    return launch_rows<decltype(nt)::value>(
+        false, static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
+        static_cast<const float*>(b1), static_cast<const bf16*>(w2),
+        static_cast<const float*>(b2), nullptr, static_cast<bf16*>(out), T, C, H, approx, s);
+  };
+  return C <= 96 ? go(std::integral_constant<int, 12>{}) : go(std::integral_constant<int, 24>{});
+}
+
+cudaError_t launch_dx(const void* x, const void* w1, const void* b1, const void* w2,
+                      const void* dout, void* dx, int T, int C, int H, int approx,
+                      cudaStream_t s) {
+  if (!row_shape_ok(T, C, H)) return cudaErrorInvalidValue;
+  auto go = [&](auto nt) {
+    return launch_rows<decltype(nt)::value>(
+        true, static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
+        static_cast<const float*>(b1), static_cast<const bf16*>(w2), nullptr,
+        static_cast<const bf16*>(dout), static_cast<bf16*>(dx), T, C, H, approx, s);
+  };
+  return C <= 96 ? go(std::integral_constant<int, 12>{}) : go(std::integral_constant<int, 24>{});
+}
+
+template <int MW, int NTH>
+cudaError_t launch_dw_kernel(const bf16* x, const bf16* w1, const float* b1, const bf16* w2,
+                             const bf16* dout, float* pw1, float* pw2, float* pb, int T, int C,
+                             int H, int approx, int splits, cudaStream_t s) {
+  static std::atomic<unsigned> done{0};
+  // H only sets the slice count, not the layout
+  cudaError_t e = smem_opt_in(reinterpret_cast<const void*>(mlp_dw_kernel<MW, NTH>),
+                              widest([](int c) { return dw_layout(c, 64).total; }), done);
+  if (e != cudaSuccess) return e;
+  const DwGeo g = dw_geo(C, H);
+  const int steps = T / g.R;
+  const int per = (steps + splits - 1) / splits;
+  mlp_dw_kernel<MW, NTH><<<dim3(g.nslices * g.parts, splits), kThreads, dw_layout(C, H).total,
+                           s>>>(
+      x, w1, b1, w2, dout, pw1, pw2, pb, T, C, H, approx, per);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_dw(const void* x, const void* w1, const void* b1, const void* w2,
+                      const void* dout, void* dw1, void* dw2, void* red, void* work, int T,
+                      int C, int H, int approx, cudaStream_t s) {
+  if (!row_shape_ok(T, C, H)) return cudaErrorInvalidValue;
+  const DwWork w = dw_work(T, C, H);
+  unsigned char* base = static_cast<unsigned char*>(work);
+  float* pw1 = reinterpret_cast<float*>(base);
+  float* pw2 = reinterpret_cast<float*>(base + w.pw2);
+  float* pb = reinterpret_cast<float*>(base + w.pb);
+  float* tmp = reinterpret_cast<float*>(base + w.tmp);
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* w1b = static_cast<const bf16*>(w1);
+  const float* b1f = static_cast<const float*>(b1);
+  const bf16* w2b = static_cast<const bf16*>(w2);
+  const bf16* db = static_cast<const bf16*>(dout);
+  cudaError_t e =
+      C <= 96    ? launch_dw_kernel<3, 4>(xb, w1b, b1f, w2b, db, pw1, pw2, pb, T, C, H, approx,
+                                          w.splits, s)
+      : C <= 192 ? launch_dw_kernel<6, 4>(xb, w1b, b1f, w2b, db, pw1, pw2, pb, T, C, H, approx,
+                                          w.splits, s)
+                 : launch_dw_kernel<6, 1>(xb, w1b, b1f, w2b, db, pw1, pw2, pb, T, C, H, approx,
+                                          w.splits, s);
+  if (e != cudaSuccess) return e;
+  const int WH = C * H;
+  e = reduce_rows(pw1, static_cast<float*>(dw1), w.splits, WH, tmp, s);
+  if (e != cudaSuccess) return e;
+  e = reduce_rows(pw2, static_cast<float*>(dw2), w.splits, WH, tmp, s);
+  if (e != cudaSuccess) return e;
+  return reduce_rows(pb, static_cast<float*>(red), w.splits, H + C, tmp, s);
 }
 
 }  // namespace
@@ -552,31 +1070,53 @@ extern "C" {
 
 int hs_mlp_fwd(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
                void* out, int T, int C, int H, int approx, void* stream) {
-  return int(hs::launch_fwd<false>(x, w1, b1, w2, b2, nullptr, nullptr, nullptr, out, T, C, H,
-                                   approx, 0.f, static_cast<cudaStream_t>(stream)));
+  return int(hs::launch_fwd(x, w1, b1, w2, b2, out, T, C, H, approx,
+                            static_cast<cudaStream_t>(stream)));
 }
 
 int hs_mlp_block_fwd(const void* x, const void* w1, const void* b1, const void* w2,
                      const void* b2, const void* gamma, const void* beta, const void* dscale,
                      void* out, int T, int C, int H, int approx, int has_dp, float ln_eps,
                      void* stream) {
-  return int(hs::launch_fwd<true>(x, w1, b1, w2, b2, gamma, beta, has_dp ? dscale : nullptr,
+  return int(hs::launch_block_fwd(x, w1, b1, w2, b2, gamma, beta, has_dp ? dscale : nullptr,
                                   out, T, C, H, approx, ln_eps,
                                   static_cast<cudaStream_t>(stream)));
 }
 
-size_t hs_mlp_bwd_workspace(int T, int C, int H) { return hs::bwd_work(T, C, H, false).total; }
+size_t hs_mlp_bwd_workspace(int T, int C, int H) { return hs::dw_work(T, C, H).total; }
 
+// the token splits of K13's weight-gradient kernel (one partial row set each)
+int hs_mlp_bwd_splits(int T, int C, int H) { return hs::dw_splits(T, C, H); }
+
+// K13 step 1 alone: dx
+int hs_mlp_bwd_dx(const void* x, const void* w1, const void* b1, const void* w2,
+                  const void* dout, void* dx, int T, int C, int H, int approx, void* stream) {
+  return int(hs::launch_dx(x, w1, b1, w2, dout, dx, T, C, H, approx,
+                           static_cast<cudaStream_t>(stream)));
+}
+
+// K13 step 2 alone: dW1, dW2, db1 | db2 (red); work holds hs_mlp_bwd_workspace bytes
+int hs_mlp_bwd_dw(const void* x, const void* w1, const void* b1, const void* w2,
+                  const void* dout, void* dw1, void* dw2, void* red, void* work, int T, int C,
+                  int H, int approx, void* stream) {
+  return int(hs::launch_dw(x, w1, b1, w2, dout, dw1, dw2, red, work, T, C, H, approx,
+                           static_cast<cudaStream_t>(stream)));
+}
+
+// K13: the dx kernel, then the weight-gradient kernel and its reductions, on one stream
+// (b2 does not enter the backward)
 int hs_mlp_bwd(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
                const void* dout, void* dx, void* dw1, void* dw2, void* red, void* work, int T,
                int C, int H, int approx, void* stream) {
-  return int(hs::launch_bwd<false>(x, w1, b1, w2, b2, nullptr, nullptr, dout, dx, dw1, dw2, red,
-                                   work, T, C, H, approx, 0.f,
-                                   static_cast<cudaStream_t>(stream)));
+  (void)b2;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = hs::launch_dx(x, w1, b1, w2, dout, dx, T, C, H, approx, s);
+  if (e != cudaSuccess) return int(e);
+  return int(hs::launch_dw(x, w1, b1, w2, dout, dw1, dw2, red, work, T, C, H, approx, s));
 }
 
 size_t hs_mlp_block_bwd_workspace(int T, int C, int H) {
-  return hs::bwd_work(T, C, H, true).total;
+  return hs::block_bwd_work(T, C, H).total;
 }
 
 int hs_mlp_block_bwd(const void* x, const void* w1, const void* b1, const void* w2,
@@ -584,7 +1124,7 @@ int hs_mlp_block_bwd(const void* x, const void* w1, const void* b1, const void* 
                      const void* dz, void* dx, void* dw1, void* dw2, void* red, void* work,
                      int T, int C, int H, int approx, int has_dp, float ln_eps, void* stream) {
   (void)beta;  // beta does not enter the backward
-  return int(hs::launch_bwd<true>(x, w1, b1, w2, b2, gamma, has_dp ? dscale : nullptr, dz, dx,
+  return int(hs::launch_block_bwd(x, w1, b1, w2, b2, gamma, has_dp ? dscale : nullptr, dz, dx,
                                   dw1, dw2, red, work, T, C, H, approx, ln_eps,
                                   static_cast<cudaStream_t>(stream)));
 }

@@ -6,6 +6,9 @@ version:
 
 - K12 ``mlp_fwd`` (Pallas ``_fwd_kernel``): (T, C) -> fc1 -> GELU -> fc2 -> (T, C).
 - K13 ``mlp_bwd`` (``_bwd_kernel``): recomputes the hidden; dx, dW1, db1, dW2, db2.
+  On the card a launch sequence from one entry: the dx kernel (``mlp_bwd_dx``), then
+  the weight-gradient kernel with its reductions (``mlp_bwd_dw``), each beside its
+  plain version (``mlp_bwd_dx_plain``, ``mlp_bwd_dw_plain``).
 - K14 ``mlp_block_fwd`` (``_blk_fwd_kernel``): x + dscale * LN(fc2(GELU(fc1 x))).
 - K15 ``mlp_block_bwd`` (``_blk_bwd_kernel``): its backward, with the residual.
 
@@ -58,7 +61,7 @@ _TANH_C = 0.044715
 _INV_SQRT2 = 0.7071067811865476
 _INV_SQRT_2PI = 0.3989422804014327
 
-KERNEL_ROWS = 64  # T must be a multiple of the kernels' row block (64, or 32 above C 384)
+KERNEL_ROWS = 64  # T must be a multiple of K14/K15's row block (64; 32 above C 384)
 KERNEL_HC = 32  # the kernels stream the hidden in chunks of 32 columns
 KERNEL_MAX_C = 768  # shared memory: x (and dout / du) tiles of the row block + one chunk
 
@@ -125,17 +128,35 @@ def mlp_plain(x, w1, b1, w2, b2, *, approximate: bool):
     return (g @ w2.to(dt).float() + b2.float()).to(dt)
 
 
-def mlp_bwd_plain(x, w1, b1, w2, b2, dout, *, approximate: bool):
-    """Plain version of K13 (what ``_bwd_kernel`` computes).  Returns dx (T, C) in x's
-    dtype and dW1 (C, H), db1 (H,), dW2 (H, C), db2 (C,) as f32 sums."""
+def _hidden_grads(x, w1, b1, w2, dout, approximate):
+    """g (dt-rounded, as f32), dout in f32 and the unrounded dh = (dout W2^T) GELU'(h)."""
     dt = x.dtype
-    w1f, w2f = w1.to(dt).float(), w2.to(dt).float()
     h, g = _hidden(x, w1, b1, approximate)
     do = dout.to(dt).float()
-    dh = (do @ w2f.t()) * _gelu_grad_f32(h, approximate)
-    dh_lo = dh.to(dt).float()
-    dx = (dh_lo @ w1f.t()).to(dt)
-    return dx, x.float().t() @ dh_lo, dh.sum(0), g.t() @ do, do.sum(0)
+    return g, do, (do @ w2.to(dt).float().t()) * _gelu_grad_f32(h, approximate)
+
+
+def mlp_bwd_dx_plain(x, w1, b1, w2, dout, *, approximate: bool):
+    """Plain version of K13's dx kernel: dx = bf16(dh) W1^T, (T, C) in x's dtype."""
+    dt = x.dtype
+    _, _, dh = _hidden_grads(x, w1, b1, w2, dout, approximate)
+    return (dh.to(dt).float() @ w1.to(dt).float().t()).to(dt)
+
+
+def mlp_bwd_dw_plain(x, w1, b1, w2, dout, *, approximate: bool):
+    """Plain version of K13's weight-gradient kernel: dW1 = x^T bf16(dh) (C, H), db1 =
+    the sum of the unrounded dh (H,), dW2 = g^T dout (H, C), db2 = the sum of dout (C,),
+    all f32 sums."""
+    g, do, dh = _hidden_grads(x, w1, b1, w2, dout, approximate)
+    return x.float().t() @ dh.to(x.dtype).float(), dh.sum(0), g.t() @ do, do.sum(0)
+
+
+def mlp_bwd_plain(x, w1, b1, w2, b2, dout, *, approximate: bool):
+    """Plain version of K13 (what ``_bwd_kernel`` computes), its two steps composed.
+    Returns dx (T, C) in x's dtype and dW1 (C, H), db1 (H,), dW2 (H, C), db2 (C,) as f32
+    sums."""
+    return (mlp_bwd_dx_plain(x, w1, b1, w2, dout, approximate=approximate),
+            *mlp_bwd_dw_plain(x, w1, b1, w2, dout, approximate=approximate))
 
 
 def _ln_stats(u, ln_eps):
@@ -259,25 +280,61 @@ def mlp_fwd(x, w1, b1, w2, b2, *, approximate: bool, impl="auto"):
     return out
 
 
+def _dw_outputs(x, T, C, H):
+    """K13's weight gradients and its workspace (the weight-gradient kernel's partial
+    rows and the reductions' scratch): dw1 (C, H), dw2 (H, C), red = db1 | db2, work."""
+    f32 = dict(dtype=torch.float32, device=x.device)
+    work = torch.empty(_build.lib().hs_mlp_bwd_workspace(T, C, H), dtype=torch.uint8,
+                       device=x.device)
+    return (torch.empty((C, H), **f32), torch.empty((H, C), **f32), torch.empty(H + C, **f32),
+            work)
+
+
 def mlp_bwd(x, w1, b1, w2, b2, dout, *, approximate: bool, impl="auto"):
-    """K13 wrapper: the backward of K12; results as ``mlp_bwd_plain``."""
+    """K13 wrapper: the backward of K12, one entry that launches the dx kernel, then the
+    weight-gradient kernel and its reductions; results as ``mlp_bwd_plain``."""
     if not use_kernel(x, impl):
         return mlp_bwd_plain(x, w1, b1, w2, b2, dout, approximate=approximate)
     what = "mlp_bwd"
     T, C, H, ops = _operands(what, x, w1, b1, w2, b2)
     dout = _grad_operand(what, dout, T, C)
-    lib = _build.lib()
-    f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(ops[0])
-    dw1, dw2 = torch.empty((C, H), **f32), torch.empty((H, C), **f32)
-    red = torch.empty(H + C, **f32)  # db1 | db2
-    work = torch.empty(lib.hs_mlp_bwd_workspace(T, C, H), dtype=torch.uint8, device=x.device)
-    code = lib.hs_mlp_bwd(*_ptrs(ops + [dout, dx, dw1, dw2, red, work]), T, C, H,
-                          int(approximate), stream(x))
+    dw1, dw2, red, work = _dw_outputs(x, T, C, H)
+    code = _build.lib().hs_mlp_bwd(*_ptrs(ops + [dout, dx, dw1, dw2, red, work]), T, C, H,
+                                   int(approximate), stream(x))
     check(code, what)
     _count(what, (T, C, H, bool(approximate)))
     db1, db2 = red.split([H, C])
     return dx, dw1, db1, dw2, db2
+
+
+def mlp_bwd_dx(x, w1, b1, w2, dout, *, approximate: bool, impl="auto"):
+    """K13's dx kernel alone (the first step of its launch sequence; not counted, as
+    K13's launches count the sequence); results as ``mlp_bwd_dx_plain``."""
+    if not use_kernel(x, impl):
+        return mlp_bwd_dx_plain(x, w1, b1, w2, dout, approximate=approximate)
+    what = "mlp_bwd_dx"
+    T, C, H, ops = _operands(what, x, w1, b1, w2, torch.zeros(w2.shape[1], device=x.device))
+    dout = _grad_operand(what, dout, T, C)
+    dx = torch.empty_like(ops[0])
+    check(_build.lib().hs_mlp_bwd_dx(*_ptrs(ops[:4] + [dout, dx]), T, C, H, int(approximate),
+                                     stream(x)), what)
+    return dx
+
+
+def mlp_bwd_dw(x, w1, b1, w2, dout, *, approximate: bool, impl="auto"):
+    """K13's weight-gradient kernel and its reductions alone (the second step of its
+    launch sequence; not counted); results as ``mlp_bwd_dw_plain``."""
+    if not use_kernel(x, impl):
+        return mlp_bwd_dw_plain(x, w1, b1, w2, dout, approximate=approximate)
+    what = "mlp_bwd_dw"
+    T, C, H, ops = _operands(what, x, w1, b1, w2, torch.zeros(w2.shape[1], device=x.device))
+    dout = _grad_operand(what, dout, T, C)
+    dw1, dw2, red, work = _dw_outputs(x, T, C, H)
+    check(_build.lib().hs_mlp_bwd_dw(*_ptrs(ops[:4] + [dout, dw1, dw2, red, work]), T, C, H,
+                                     int(approximate), stream(x)), what)
+    db1, db2 = red.split([H, C])
+    return dw1, db1, dw2, db2
 
 
 def mlp_block_fwd(x, w1, b1, w2, b2, gamma, beta, dscale, *, approximate: bool,

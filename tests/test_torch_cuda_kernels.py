@@ -1078,6 +1078,71 @@ def test_mlp_functions_backward_through_kernels(dev):
         assert t.grad is not None and t.grad.dtype == t.dtype and torch.isfinite(t.grad).all()
 
 
+@pytest.mark.parametrize("C", [96, 384])
+@pytest.mark.parametrize("approximate", [True, False])
+def test_mlp_bwd_recomputes_the_forward_hidden(dev, C, approximate):
+    """K13 recomputes K12's g bit for bit: with W2 = [I; 0] and b2 = 0 K12's out is
+    g[:, :C], and for dout one-hot at (t, c) K13's dW2[:C, c] is g[t, :C] (one row group
+    over two warps at C 384).  The two must be equal."""
+    from heal_swin_torch.ops import mlp as tm
+
+    gen = torch.Generator().manual_seed(110 + C + approximate)
+    T, H = 64 * 3, 4 * C
+    x, w1, b1, _, _ = _mlp_args(gen, dev, T, C, H)[:5]
+    w2 = torch.zeros(H, C, device=dev)
+    w2[:C] = torch.eye(C, device=dev)
+    b2 = torch.zeros(C, device=dev)
+    out = tm.mlp_fwd(x, w1, b1, w2, b2, approximate=approximate)
+    for t, c in ((0, 0), (T - 1, C - 1), (100, C // 2)):
+        dout = torch.zeros(T, C, device=dev, dtype=torch.bfloat16)
+        dout[t, c] = 1
+        dw2 = tm.mlp_bwd(x, w1, b1, w2, b2, dout, approximate=approximate)[3]
+        torch.cuda.synchronize()
+        assert (out[t] != 0).sum() > C // 2  # the probe reads real activations
+        assert torch.equal(dw2[:C, c], out[t].float())
+
+
+@pytest.mark.parametrize("T,C", [(262144, 96), (65536, 192), (16384, 384), (4096, 768)])
+def test_mlp_bwd_sequence_kernels(dev, T, C):
+    """K13's two kernels alone against their plain versions at the four stage shapes
+    (tanh GELU): the dx kernel's dx and the weight-gradient kernel's dW1, db1, dW2, db2
+    within relative L2 1e-3 (the same roundings, f32 sums in another order)."""
+    from heal_swin_torch.ops import mlp as tm
+
+    gen = torch.Generator().manual_seed(120 + C)
+    H = 4 * C
+    x, w1, b1, w2, _ = _mlp_args(gen, dev, T, C, H)[:5]
+    dout = _randn(gen, dev, T, C).to(torch.bfloat16)
+    kw = dict(approximate=True)
+    dx = tm.mlp_bwd_dx(x, w1, b1, w2, dout, **kw)
+    dw = tm.mlp_bwd_dw(x, w1, b1, w2, dout, **kw)
+    torch.cuda.synchronize()
+    _assert_grads_close((dx,), (tm.mlp_bwd_dx_plain(x, w1, b1, w2, dout, **kw),), tol=1e-3)
+    _assert_grads_close(dw, tm.mlp_bwd_dw_plain(x, w1, b1, w2, dout, **kw), tol=1e-3)
+
+
+@pytest.mark.parametrize("T,C,H", [(64 * 3, 32, 96), (64 * 5, 96, 160), (64 * 3, 384, 224),
+                                   (64 * 2, 768, 96), (64 * 4, 224, 96)])
+@pytest.mark.parametrize("approximate", [True, False])
+def test_mlp_kernels_hidden_tail(dev, T, C, H, approximate):
+    """K12 and K13 where H is a multiple of 32 but not of the weight-gradient kernel's
+    64-column slice (or not 4C), and T leaves a partial row block: within 1e-3 of their
+    plain versions, a second K13 launch bit-equal."""
+    from heal_swin_torch.ops import mlp as tm
+
+    gen = torch.Generator().manual_seed(130 + C + H)
+    args = _mlp_args(gen, dev, T, C, H)[:5]
+    dout = _randn(gen, dev, T, C).to(torch.bfloat16)
+    kw = dict(approximate=approximate)
+    out = tm.mlp_fwd(*args, **kw)
+    grads = tm.mlp_bwd(*args, dout, **kw)
+    again = tm.mlp_bwd(*args, dout, **kw)
+    torch.cuda.synchronize()
+    assert _rel_l2(out, tm.mlp_plain(*args, **kw)) < 1e-3
+    _assert_grads_close(grads, tm.mlp_bwd_plain(*args, dout, **kw), tol=1e-3)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
 def test_mlp_kernels_refuse_what_they_do_not_take(dev):
     from heal_swin_torch.ops import mlp as tm
 

@@ -1,7 +1,7 @@
-"""Time the window-attention kernels of two checkouts of heal_swin_torch on one GPU,
-in turns: other, this, this, other.
+"""Time the window-attention and MLP kernels of two checkouts of heal_swin_torch on one
+GPU, in turns: other, this, this, other.
 
-    python3 tools/attention_pair_timing.py --other _checkout/parent
+    python3 tools/attention_pair_timing.py --other _checkout/parent [--family mlp]
 
 ``--other`` is an unpacked copy of another commit (``git archive`` into the
 git-ignored ``_checkout/``).  Each of the four turns is its own process: it imports
@@ -9,11 +9,17 @@ heal_swin_torch from its checkout and builds that checkout's kernels.  What it t
 comes from this checkout's chip_smoke.py, so that every turn runs the same operands
 as its ``check_kernels``: the seeded inputs (``seeded_draws``, ``stage_inputs``,
 ``bottleneck_inputs``), the library call (``sdpa_library``) and the single-call time
-(``median_ms``).  Timed, masked and unmasked: K1 and its backward K4 (cosine, with
-LayerNorm) and K16 / K17 (scaled-dot) at the three stage shapes (T 262,144 / 65,536 /
-16,384, C 96 / 192 / 384); K2 and its backward K5, each in both flavours, at the
-bottleneck (T 4,096, C 768, 24 heads); and one ``scaled_dot_product_attention`` on K2's
-operands, the same code in every turn: a control for the spread between turns.
+(``median_ms``).  The attention family (``--family attention``), masked and unmasked:
+K1 and its backward K4 (cosine, with LayerNorm) and K16 / K17 (scaled-dot) at the three
+stage shapes (T 262,144 / 65,536 / 16,384, C 96 / 192 / 384); K2 and its backward K5,
+each in both flavours, at the bottleneck (T 4,096, C 768, 24 heads); and one
+``scaled_dot_product_attention`` on K2's operands, the same code in every turn: a
+control for the spread between turns.  The MLP family (``--family mlp``), tanh GELU, on
+``check_mlp_kernels``'s operands (``mlp_inputs``) at the four stage shapes (T 262,144 /
+65,536 / 16,384 / 4,096, C 96 / 192 / 384 / 768, H 4C): K12, K13, K14 and K15 (with the
+DropPath scale), and the port's cuBLAS / ATen route for K12 / K13's function
+(``mlp_route``, forward and backward) as the control.  ``--family all`` (the default)
+times both.
 
 Each shape gets two times: the device time (``device_ms``: each call enqueued behind a
 spin kernel, so that the events bracket the device work alone) and a single call's
@@ -21,7 +27,9 @@ time (chip_smoke.py's ``median_ms``, the ``ms`` of its kernels line, which takes
 the host's launch path wherever the device finishes first).  Prints each turn's JSON
 line, then per kind of time one line per shape with the four times, and each kernel
 summed over a train step's launches (at C <= 384 2 unmasked and 2 masked at C 96 and
-C 192, 6 and 6 at C 384; K2 / K5 one of each).  Needs one CUDA GPU.
+C 192, 6 and 6 at C 384; K2 / K5 one of each) and the MLP kernels over chip_smoke.py's
+MLP phase (K12 and K13 4 launches at C 96; K14 and K15 4, 4 and 12 at C 96, 192, 384;
+the route as K12 / K13).  Needs one CUDA GPU.
 """
 
 from __future__ import annotations
@@ -41,6 +49,10 @@ HERE = Path(__file__).resolve().parents[1]
 # decoder 6/2/2; K1 and K4 cosine, K16 and K17 scaled-dot), the two at C 768 (K2, K5)
 STEP_LAUNCHES = {(96, False): 2, (96, True): 2, (192, False): 2, (192, True): 2,
                  (384, False): 6, (384, True): 6, (768, False): 1, (768, True): 1}
+# launches per C in chip_smoke.py's MLP phase: K12 / K13 on the 4 blocks at C 96, K14 /
+# K15 on the 20 at C <= 384
+MLP_LAUNCHES = {"K12": {96: 4}, "K13": {96: 4}, "K14": {96: 4, 192: 4, 384: 12},
+                "K15": {96: 4, 192: 4, 384: 12}, "route-fwd": {96: 4}, "route-bwd": {96: 4}}
 
 
 def load_smoke():
@@ -80,7 +92,7 @@ def device_ms(fn, runs, warmup=3) -> float:
     return statistics.median(times)
 
 
-def turn(root: Path) -> dict:
+def turn(root: Path, family: str) -> dict:
     """This process's turn: the times of the checkout at ``root``, keyed by shape."""
     sys.path.insert(0, str(root))
     import torch
@@ -93,11 +105,56 @@ def turn(root: Path) -> dict:
         raise RuntimeError(f"imported {wa.__file__}, not the checkout at {root}")
     _build.lib()
     dev = torch.device("cuda", 0)
-    rnd, logit_scales = smoke.seeded_draws(torch.Generator().manual_seed(smoke.SEED), dev)
 
     def both(fn):
         return [device_ms(fn, smoke.TIMING_RUNS), smoke.median_ms(fn)]
 
+    times = {}
+    if family in ("attention", "all"):
+        times.update(attention_times(smoke, dev, both))
+    if family in ("mlp", "all"):
+        times.update(mlp_times(smoke, dev, both))
+    torch.cuda.synchronize()
+    return times
+
+
+def mlp_times(smoke, dev, both) -> dict:
+    """K12-K15 and the route at the four stage shapes, tanh GELU."""
+    import torch
+
+    from heal_swin_torch.ops import mlp as tm
+
+    gen = torch.Generator().manual_seed(smoke.SEED + 7)
+
+    def rnd(*shape, std=1.0):
+        return (torch.randn(*shape, generator=gen) * std).to(dev)
+
+    times = {}
+    for T, C in smoke.mlp_stages():
+        args, dz, ds = smoke.mlp_inputs(rnd, dev, T, C)
+        a5 = args[:5]
+        kw = dict(approximate=True, impl="pallas")
+        label = f"C={C} T={T}"
+        with torch.no_grad():
+            times[f"K12 {label}"] = both(lambda: tm.mlp_fwd(*a5, **kw))
+            times[f"K13 {label}"] = both(lambda: tm.mlp_bwd(*a5, dz, **kw))
+            times[f"K14 {label}"] = both(lambda: tm.mlp_block_fwd(*args, ds, **kw))
+            times[f"K15 {label}"] = both(lambda: tm.mlp_block_bwd(*args, ds, dz, **kw))
+        route_f, route_b = smoke.mlp_route(args, None, True, block=False)
+        times[f"route-fwd {label}"] = both(route_f)
+        times[f"route-bwd {label}"] = both(route_b)
+        del args, dz, ds, route_f, route_b
+        torch.cuda.empty_cache()
+    return times
+
+
+def attention_times(smoke, dev, both) -> dict:
+    """K1, K4, K16, K17 at the three stage shapes, K2, K5 and SDPA at the bottleneck."""
+    import torch
+
+    from heal_swin_torch.ops import window_attention as wa
+
+    rnd, logit_scales = smoke.seeded_draws(torch.Generator().manual_seed(smoke.SEED), dev)
     times = {}
     for stage in range(3):
         T, C, h, (x, wq, bq, wp, bp, g, b, bias, ls, grp) = smoke.stage_inputs(
@@ -131,7 +188,6 @@ def turn(root: Path) -> dict:
                 lambda: wa.window_attention_bwd(*args, dout, **kw))
         lib_f, _ = smoke.sdpa_library(qkv, grp if masked else None, bias, h, dout)
         times[f"SDPA C={C} T={T} mask={masked} scaled-dot"] = both(lib_f)
-    torch.cuda.synchronize()
     return times
 
 
@@ -140,9 +196,21 @@ def step_ms(times: dict, kernel: str, which: int, flavour: str = "scaled-dot") -
     and K5 in ``flavour`` (the scaled-dot step's, or the cosine step's)."""
     total = 0.0
     for label, ms in times.items():
+        if len(label.split()) < 4:  # an MLP label
+            continue
         name, shape, _, mask, *rest = label.split()
         if name == kernel and rest in ([], [flavour]):
             total += STEP_LAUNCHES[(int(shape[2:]), mask == "mask=True")] * ms[which]
+    return total
+
+
+def mlp_phase_ms(times: dict, kernel: str, which: int) -> float:
+    """An MLP kernel's (or the route's) ms over chip_smoke.py's MLP phase launches."""
+    total = 0.0
+    for label, ms in times.items():
+        name, shape, *rest = label.split()
+        if name == kernel and not rest[1:]:
+            total += MLP_LAUNCHES[kernel].get(int(shape[2:]), 0) * ms[which]
     return total
 
 
@@ -156,10 +224,12 @@ def compare(label, runs, get):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", type=Path, help="the other checkout (e.g. the parent)")
+    ap.add_argument("--family", choices=("attention", "mlp", "all"), default="all",
+                    help="which kernels to time (default: all)")
     ap.add_argument("--turn", type=Path, help=argparse.SUPPRESS)
     a = ap.parse_args()
     if a.turn is not None:
-        print(json.dumps({"root": str(a.turn), "times": turn(a.turn)}), flush=True)
+        print(json.dumps({"root": str(a.turn), "times": turn(a.turn, a.family)}), flush=True)
         return 0
     import torch
 
@@ -173,7 +243,8 @@ def main() -> int:
     order = [("other", other), ("this", HERE), ("this", HERE), ("other", other)]
     runs = []
     for who, root in order:
-        out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--turn", str(root)],
+        out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--turn", str(root),
+                              "--family", a.family],
                              capture_output=True, text=True, env=dict(os.environ))
         if out.returncode != 0:
             print(out.stdout, out.stderr, sep="\n", file=sys.stderr)
@@ -185,12 +256,18 @@ def main() -> int:
         print(f"-- {kind}")
         for label in runs[0][1]:
             print(compare(label, runs, lambda t: t[label][which]))
-        for kernel, n, flavour in (("K1", 20, ""), ("K4", 20, ""), ("K16", 20, ""),
-                                   ("K17", 20, ""), ("K2", 2, "scaled-dot"),
-                                   ("K5", 2, "scaled-dot"), ("K2", 2, "cosine"),
-                                   ("K5", 2, "cosine")):
-            print(compare(f"{kernel} {flavour} over a train step's {n} launches".replace(
-                "  ", " "), runs, lambda t: step_ms(t, kernel, which, flavour or "scaled-dot")))
+        if a.family in ("attention", "all"):
+            for kernel, n, flavour in (("K1", 20, ""), ("K4", 20, ""), ("K16", 20, ""),
+                                       ("K17", 20, ""), ("K2", 2, "scaled-dot"),
+                                       ("K5", 2, "scaled-dot"), ("K2", 2, "cosine"),
+                                       ("K5", 2, "cosine")):
+                print(compare(f"{kernel} {flavour} over a train step's {n} launches".replace(
+                    "  ", " "), runs,
+                    lambda t: step_ms(t, kernel, which, flavour or "scaled-dot")))
+        if a.family in ("mlp", "all"):
+            for kernel, per_c in MLP_LAUNCHES.items():
+                print(compare(f"{kernel} over the MLP phase's {sum(per_c.values())} launches",
+                              runs, lambda t: mlp_phase_ms(t, kernel, which)))
     return 0
 
 
