@@ -1,8 +1,8 @@
 """On-GPU smoke check of heal_swin_torch: builds the CUDA kernels from the checkout,
 holds each against its plain PyTorch version at the shapes of the main path (K4, a
 launch sequence, also step by step: its projection/LayerNorm backward alone, and
-one-hot probes that K4 and K5 recompute K1's and K2's probabilities and K13 K12's
-hidden bit for bit), then
+one-hot probes that K4 and K5 recompute K1's and K2's probabilities, K13 K12's
+hidden and K15 K14's LayerNorm xhat bit for bit), then
 drives HEAL-SWIN-UNet at the paper configuration (nside 256, batch 2, bf16, random
 seeded weights) through the kernels and through the plain path: segmentation
 ``predict`` (serving) and its train step (forward, weighted CE, backward, Adam), and
@@ -712,9 +712,9 @@ def equal_bits(label, got, want, min_nonzero=0):
 
 
 def check_probes(gen, dev):
-    """The backward kernels recompute their forward's probabilities (K13: K12's hidden)
-    bit for bit, read through one-hot probes; any difference fails the run.  (a) K1 with Wp = I, bp = 0
-    and no LayerNorm is K16's cosine output at the three stage shapes, masked: K4's
+    """The backward kernels recompute their forward's probabilities (K13: K12's hidden,
+    K15: K14's xhat) bit for bit, read through one-hot probes; any difference fails the
+    run.  (a) K1 with Wp = I, bp = 0 and no LayerNorm is K16's cosine output at the three stage shapes, masked: K4's
     sequence recomputes o with K16.  (b) One window at C 96 / 192 / 384, masked, x and
     Wqkv of ``probe_x``, Wp = I, no LayerNorm, dz of ``probe_dout``: K1's o[i, c] =
     bf16(P[i, key c]), and K4's dWqkv[key, 2C + c] = dv[key, c] = bf16(P[c, key]), since
@@ -723,7 +723,10 @@ def check_probes(gen, dev):
     dv[key, c], window by window, in both flavours.  (d) K13 against K12 at the four MLP
     stage shapes (tanh; erf too at C 96): with W2 = [I; 0] and b2 = 0 K12's out is g[:,
     :C], and for dout one-hot at (t, c) K13's dW2[:C, c] is g[t, :C], which its
-    weight-gradient kernel recomputes."""
+    weight-gradient kernel recomputes.  (e) K15 against K14 at the MLP stage shapes at C
+    <= 384 (tanh; erf too at C 96): with gamma = 1, beta = 0, no dscale and dz one on
+    every column of row t, K15's dgamma is xhat[t, :], so bf16(x[t] + dgamma) is K14's
+    out[t]."""
     from heal_swin_torch.ops import window_attention as wa
 
     bf16 = torch.bfloat16
@@ -788,6 +791,22 @@ def check_probes(gen, dev):
                            f"K13's recomputed g against K12's", dw2[:C, c], out[t].float(),
                            C // 4)
         del x, out
+    for T, C in mlp_stages():
+        if C > 384:
+            continue
+        (x, w1, b1, w2, b2, *_), _, _ = mlp_inputs(rnd, dev, T, C)
+        gamma, beta = torch.ones(C, device=dev), torch.zeros(C, device=dev)
+        for approximate in ((True, False) if C == 96 else (True,)):
+            kw = dict(approximate=approximate, impl="pallas")
+            out = tm.mlp_block_fwd(x, w1, b1, w2, b2, gamma, beta, None, **kw)
+            for t in (0, T // 2 + 17, T - 1):
+                dz = torch.zeros(T, C, device=dev, dtype=bf16)
+                dz[t] = 1
+                dgamma = tm.mlp_block_bwd(x, w1, b1, w2, b2, gamma, beta, None, dz, **kw)[5]
+                equal_bits(f"probe (e) T={T} C={C} tanh={approximate} row {t}: K15's "
+                           f"recomputed xhat against K14's", (x[t].float() + dgamma).to(bf16),
+                           out[t], C // 2)
+        del x, out
 
 
 def log_k4_sequence(timed, run):
@@ -807,45 +826,50 @@ def log_k4_sequence(timed, run):
         log(f"K4 sequence: {ms:9.4f} ms {cnt:6.1f} launches  {name[:110]}")
 
 
-def k13_call_ms(per, label):
-    """One K13 call's device ms by kernel, from a trace's (ms per recorded launch,
-    recorded launches per call) by kernel name: each kernel's mean times its launches in
-    the sequence (``K13_SEQUENCE``; the profiler's records of a traced call can miss a
-    launch).  Returns kernel -> (ms a call, launches recorded a call).  Fails on a kernel
-    that is not the sequence's, or one never recorded."""
+def sequence_call_ms(kernel, per, label):
+    """One K13 or K15 call's device ms by kernel, from a trace's (ms per recorded
+    launch, recorded launches per call) by kernel name: each kernel's mean times its
+    launches in the sequence (``MLP_SEQUENCES``; the profiler's records of a traced call
+    can miss a launch).  Returns kernel -> (ms a call, launches recorded a call).  Fails
+    on a kernel that is not the sequence's, or one never recorded."""
+    name_of, seq = MLP_SEQUENCES[kernel]
     out = {}
     for name, (ms, recorded) in per.items():
-        part = next((k for k in K13_SEQUENCE if k in name), None)
+        part = next((k for k in seq if k in name), None)
         if part is None:
-            raise AssertionError(f"{label}: K13 launched {name[:80]}, not a kernel of its "
-                                 f"sequence {list(K13_SEQUENCE)}")
-        out[part] = (ms * K13_SEQUENCE[part], recorded)
-    if set(out) != set(K13_SEQUENCE):
+            raise AssertionError(f"{label}: {name_of} launched {name[:80]}, not a kernel of "
+                                 f"its sequence {list(seq)}")
+        out[part] = (ms * seq[part], recorded)
+    if set(out) != set(seq):
         raise AssertionError(f"{label}: the trace recorded only {sorted(out)}")
     return out
 
 
-def log_mlp_bwd_sequence(timed, run):
-    """K13's launch sequence by kernel over the MLP phase: the device ms of each kernel
-    in a traced K13 call at each shape (``check_mlp_kernels``, ``k13_call_ms``), weighted
-    by the phase's K13 launches at that shape (``run``: launches per kernel, per
-    shape)."""
+def log_mlp_sequences(timed, run):
+    """K13's and K15's launch sequences by kernel over the MLP phase: the device ms of
+    each kernel in a traced call at each shape (``check_mlp_kernels``,
+    ``sequence_call_ms``), weighted by the phase's launches of the kernel at that shape
+    (``run``: launches per kernel, per shape)."""
     _, by_shape = run
-    for key, per in sorted((k, v) for k, v in timed.items() if k[0] == "k13_sequence"):
-        label = f"K13 sequence T={key[1]} C={key[2]} H={key[3]} tanh={key[4]}"
-        call = k13_call_ms(per, label)
-        log(f"{label}: one call {sum(ms for ms, _ in call.values()):.4f} ms on the device = "
-            + ", ".join(f"{name} {ms:.4f} ({rec:.2f} recorded a call)"
-                        for name, (ms, rec) in call.items()))
-    total = collections.defaultdict(float)
-    for key, n in by_shape.items():
-        if key[0] == "mlp_bwd":
-            for name, (ms, _) in k13_call_ms(timed[("k13_sequence",) + key[1:]], "K13").items():
-                total[name] += n * ms
-    log(f"K13 sequence over the MLP phase's K13 launches: {sum(total.values()):.4f} ms on "
-        f"the device")
-    for name, ms in sorted(total.items(), key=lambda kv: -kv[1]):
-        log(f"K13 sequence: {ms:9.4f} ms  {name} ({K13_SEQUENCE[name]} a call)")
+    for kernel, (name_of, seq) in MLP_SEQUENCES.items():
+        for key, per in sorted((k, v) for k, v in timed.items()
+                               if k[:2] == ("sequence", kernel)):
+            label = f"{name_of} sequence " + " ".join(
+                f"{f}={v}" for f, v in zip(("T", "C", "H", "tanh", "dscale"), key[2:]))
+            call = sequence_call_ms(kernel, per, label)
+            log(f"{label}: one call {sum(ms for ms, _ in call.values()):.4f} ms on the device "
+                f"= " + ", ".join(f"{name} {ms:.4f} ({rec:.2f} recorded a call)"
+                                  for name, (ms, rec) in call.items()))
+        total = collections.defaultdict(float)
+        for key, n in by_shape.items():
+            if key[0] == kernel:
+                traced = timed[("sequence",) + key]
+                for name, (ms, _) in sequence_call_ms(kernel, traced, name_of).items():
+                    total[name] += n * ms
+        log(f"{name_of} sequence over the MLP phase's {name_of} launches: "
+            f"{sum(total.values()):.4f} ms on the device")
+        for name, ms in sorted(total.items(), key=lambda kv: -kv[1]):
+            log(f"{name_of} sequence: {ms:9.4f} ms  {name} ({seq[name]} a call)")
 
 
 def check_grads(name, names, got, want, tol=REL_L2_TOL):
@@ -1841,11 +1865,17 @@ def drive_chamfer_eval(dev, timed):
 
 # ------------------------------------------------------------ the MLP family
 MLP_GRADS = ("dx", "dw1", "db1", "dw2", "db2")
-# K13's launch sequence: each kernel's launches in one call (its dx kernel, its
-# weight-gradient kernel, and reduce_rows for dW1, dW2 and db1 | db2), and the K13 calls
-# that one trace takes in
-K13_SEQUENCE = {"mlp_dx_kernel": 1, "mlp_dw_kernel": 1, "reduce_rows_kernel": 3}
-K13_TRACED = 5
+# K13's and K15's launch sequences: each kernel's launches in one call at the stage
+# shapes (K13: its dx kernel, its weight-gradient kernel, and reduce_rows for dW1, dW2
+# and db1 | db2; K15: the row kernel with the LayerNorm backward, the dx kernel, the
+# weight-gradient kernel, the same three reductions and two passes over the row
+# kernel's partial rows), and the calls that one trace takes in
+MLP_SEQUENCES = {
+    "mlp_bwd": ("K13", {"mlp_dx_kernel": 1, "mlp_dw_kernel": 1, "reduce_rows_kernel": 3}),
+    "mlp_block_bwd": ("K15", {"mlp_fwd_kernel": 1, "mlp_dx_kernel": 1, "mlp_dw_kernel": 1,
+                              "reduce_rows_kernel": 5}),
+}
+SEQUENCE_TRACED = 5
 MLP_BLOCK_GRADS = MLP_GRADS + ("dgamma", "dbeta")
 DROP_KEEP = 0.9  # the DropPath keep rate of the route timings (the paper's last block)
 
@@ -1928,9 +1958,10 @@ def check_mlp_kernels(gen, dev):
     Two K13 launches give the same bits.  Each is timed (median of TIMING_RUNS
     CUDA-event timings) beside its plain version and the port's current route
     (``mlp_route``), and one K13 call at each shape is traced by kernel (its launch
-    sequence: ``log_mlp_bwd_sequence``).  Returns the timings keyed like the wrappers'
-    ``launches_by_shape``: (kernel, T, C, H, approximate[, has_dscale]), and
-    ("k13_sequence", T, C, H, approximate)."""
+    sequence: ``log_mlp_sequences``), and so is one K15 call at each shape and dscale.
+    Returns the timings keyed like the wrappers' ``launches_by_shape``: (kernel, T, C,
+    H, approximate[, has_dscale]), and the traces ("sequence", kernel, T, C, H,
+    approximate[, has_dscale])."""
     from heal_swin_torch.ops import mlp as tm
 
     tol = MLP_REL_L2_TOL
@@ -1945,8 +1976,8 @@ def check_mlp_kernels(gen, dev):
         x, dzf = args[0].float(), dz.float()
         log(f"K13 / K15 T={T} C={C} H={H}: workspace {workspace_bytes(('mlp_bwd', T, C, H))} "
             f"/ {workspace_bytes(('mlp_block_bwd', T, C, H))} bytes written and read back "
-            f"(K13: its weight-gradient kernel's partial rows; K15: g, dh, du; from the "
-            f"shapes)")
+            f"(K13: its weight-gradient kernel's partial rows; K15: du and the partial rows "
+            f"of its row kernel and its weight-gradient kernel; from the shapes)")
         for approximate in ((True, False) if C == 96 else (True,)):
             kw = dict(approximate=approximate)
             a5 = args[:5]
@@ -1971,9 +2002,10 @@ def check_mlp_kernels(gen, dev):
                 pms12 = median_ms(lambda: tm.mlp_plain(*a5, **kw))
                 ms13 = median_ms(lambda: tm.mlp_bwd(*a5, dz, **kw, impl="pallas"))
                 pms13 = median_ms(lambda: tm.mlp_bwd_plain(*a5, dz, **kw))
-                per, _ = trace(lambda: tm.mlp_bwd(*a5, dz, **kw, impl="pallas"), K13_TRACED)
-            timed[("k13_sequence", T, C, H, approximate)] = {
-                name: (dev_ms / n, n / K13_TRACED) for name, (dev_ms, n) in per.items()}
+                per, _ = trace(lambda: tm.mlp_bwd(*a5, dz, **kw, impl="pallas"),
+                               SEQUENCE_TRACED)
+            timed[("sequence", "mlp_bwd", T, C, H, approximate)] = {
+                name: (dev_ms / n, n / SEQUENCE_TRACED) for name, (dev_ms, n) in per.items()}
             route_f, route_b = mlp_route(args, None, approximate, block=False)
             rms12, rms13 = median_ms(route_f), median_ms(route_b)
             log(f"K12 mlp_fwd T={T} C={C} H={H} tanh={approximate}: rel_l2 {e12[0]:.3e} "
@@ -2010,6 +2042,10 @@ def check_mlp_kernels(gen, dev):
                     pms14 = median_ms(lambda: tm.mlp_block_plain(*args, d, **kw))
                     ms15 = median_ms(lambda: tm.mlp_block_bwd(*args, d, dz, **bkw))
                     pms15 = median_ms(lambda: tm.mlp_block_bwd_plain(*args, d, dz, **kw))
+                    per, _ = trace(lambda: tm.mlp_block_bwd(*args, d, dz, **bkw),
+                                   SEQUENCE_TRACED)
+                timed[("sequence", "mlp_block_bwd", T, C, H, approximate, d is not None)] = {
+                    name: (dev_ms / n, n / SEQUENCE_TRACED) for name, (dev_ms, n) in per.items()}
                 route_f, route_b = mlp_route(args, d, approximate, block=True)
                 rms14, rms15 = median_ms(route_f), median_ms(route_b)
                 log(f"K14 mlp_block_fwd T={T} C={C} H={H} tanh={approximate} dscale="
@@ -2319,9 +2355,10 @@ def qkv_bwd_workspace(T, C, run=QKV_BWD_RUN):
 def workspace_bytes(key):
     """The bytes a backward kernel's design adds to what the function must move: for
     K13 its weight-gradient kernel's partial rows (one set of dW1, dW2, db1 | db2 per
-    token split, f32), written once and read once by reduce_rows; for K15 g and the
-    rounded dh (bf16, T x H) and the rounded du (T x C), each written once and read once
-    by the split-K weight products; for K17 its dqkv and partial rows
+    token split, f32), written once and read once by reduce_rows; for K15 its workspace
+    (the rounded du, bf16 T x C, its row kernel's partial rows of db2 | dgamma | dbeta,
+    its weight-gradient kernel's as K13's, and the reductions' scratch), written once and
+    read once; for K17 its dqkv and partial rows
     (``qkv_bwd_workspace``).  Logged beside the checks; ``bound_ms`` leaves them out,
     since the function itself need not move them."""
     name, T, C = key[:3]
@@ -2331,7 +2368,9 @@ def workspace_bytes(key):
         H = key[3]
         return 2 * _build.lib().hs_mlp_bwd_splits(T, C, H) * (2 * C * H + H + C) * 4
     if name == "mlp_block_bwd":
-        return 8 * T * key[3] + 4 * T * C
+        from heal_swin_torch import _build
+
+        return 2 * _build.lib().hs_mlp_block_bwd_workspace(T, C, key[3])
     if name == "window_attention_qkv_bwd":
         return sum(qkv_bwd_workspace(T, C))
     return 0
@@ -2395,7 +2434,7 @@ def kernel_results(timed, runs, chamfer):
     return kernels
 
 
-# the register-resident kernels' (and K14/K15's) mangled names in the ptxas report
+# the register-resident kernels' mangled names in the ptxas report
 PTXAS_NAMES = {"11attn_kernel": "K2 attn_kernel",
                "14qkv_epi_kernelILi1ELb1ELb1E": "K1 qkv_epi_kernel<1> (C <= 192)",
                "14qkv_epi_kernelILi2ELb1ELb1E": "K1 qkv_epi_kernel<2> (C > 192)",
@@ -2409,14 +2448,23 @@ PTXAS_NAMES = {"11attn_kernel": "K2 attn_kernel",
                "18proj_ln_bwd_kernelILi1E": "K4 step 2 proj_ln_bwd_kernel<1> (C <= 192)",
                "18proj_ln_bwd_kernelILi2E": "K4 step 2 proj_ln_bwd_kernel<2> (C > 192)",
                "14gemm_nt_kernel": "gemm_nt_kernel (K17 dx, K4 do)",
-               "14mlp_fwd_kernelILi12E": "K12 mlp_fwd_kernel<12> (C <= 96)",
-               "14mlp_fwd_kernelILi24E": "K12 mlp_fwd_kernel<24> (C > 96)",
-               "13mlp_dx_kernelILi12E": "K13 step 1 mlp_dx_kernel<12> (C <= 96)",
-               "13mlp_dx_kernelILi24E": "K13 step 1 mlp_dx_kernel<24> (C > 96)",
-               "13mlp_dw_kernelILi3E": "K13 step 2 mlp_dw_kernel<3> (C <= 96)",
-               "13mlp_dw_kernelILi6E": "K13 step 2 mlp_dw_kernel<6> (C > 96)",
-               "20mlp_block_fwd_kernel": "K14 mlp_block_fwd_kernel",
-               "20mlp_block_bwd_kernel": "K15 mlp_block_bwd_kernel"}
+               "14mlp_fwd_kernelILi12ELNS0_3EpiE0E": "K12 mlp_fwd_kernel<12> (C <= 96)",
+               "14mlp_fwd_kernelILi24ELNS0_3EpiE0E": "K12 mlp_fwd_kernel<24> (C > 96)",
+               "14mlp_fwd_kernelILi12ELNS0_3EpiE1E":
+                   "K14 mlp_fwd_kernel<12, LayerNorm forward> (C <= 96)",
+               "14mlp_fwd_kernelILi24ELNS0_3EpiE1E":
+                   "K14 mlp_fwd_kernel<24, LayerNorm forward> (C > 96)",
+               "14mlp_fwd_kernelILi12ELNS0_3EpiE2E":
+                   "K15 step 1 mlp_fwd_kernel<12, LayerNorm backward> (C <= 96)",
+               "14mlp_fwd_kernelILi24ELNS0_3EpiE2E":
+                   "K15 step 1 mlp_fwd_kernel<24, LayerNorm backward> (C > 96)",
+               "13mlp_dx_kernelILi12ELb0E": "K13 step 1 mlp_dx_kernel<12> (C <= 96)",
+               "13mlp_dx_kernelILi24ELb0E": "K13 step 1 mlp_dx_kernel<24> (C > 96)",
+               "13mlp_dx_kernelILi12ELb1E": "K15 step 2 mlp_dx_kernel<12, residual> (C <= 96)",
+               "13mlp_dx_kernelILi24ELb1E": "K15 step 2 mlp_dx_kernel<24, residual> (C > 96)",
+               "13mlp_dw_kernelILi3ELi4E": "K13 step 2, K15 step 3 mlp_dw_kernel<3, 4> (C <= 96)",
+               "13mlp_dw_kernelILi6ELi4E": "K13 step 2, K15 step 3 mlp_dw_kernel<6, 4> (C <= 192)",
+               "13mlp_dw_kernelILi6ELi1E": "K13 step 2, K15 step 3 mlp_dw_kernel<6, 1> (C > 192)"}
 
 
 def log_ptxas(build_log: str):
@@ -2470,7 +2518,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     t_mlp = time.perf_counter()
     mlp_run = drive_mlp(dev, timed)
-    log_mlp_bwd_sequence(timed, mlp_run)
+    log_mlp_sequences(timed, mlp_run)
     torch.cuda.empty_cache()
     t_dot = time.perf_counter()
     drive_slice(dev, timed, cos=False)

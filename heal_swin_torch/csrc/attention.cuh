@@ -32,13 +32,6 @@ constexpr int LD_P = WS + 8;     // 64 x 64 bf16 tiles: probabilities, ds
 constexpr int kHeadNT = 3 * HD / 8;           // n-tiles (8 columns) of a head's q|k|v
 constexpr int LD_BIAS = WS + 8;  // f32 bias rows: a quad's float2 reads conflict-free
 
-// sum over the 4 lanes of a quad (the lanes holding one accumulator row); every lane
-// gets the same bits
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));

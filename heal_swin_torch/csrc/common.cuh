@@ -104,6 +104,25 @@ __device__ __forceinline__ void group_sync(int id) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "n"(kCoreThreads) : "memory");
 }
 
+// barrier of the `threads` threads (a multiple of 32) that name barrier ``id`` (>= 1)
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// sum over the 4 lanes of a quad (the lanes holding one accumulator row); every lane
+// gets the same bits
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// the sum over a warp's 8 row groups (lanes of one lane % 4)
+__device__ __forceinline__ float rows8(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 4);
+  v += __shfl_xor_sync(0xffffffffu, v, 8);
+  return v + __shfl_xor_sync(0xffffffffu, v, 16);
+}
+
 // (lo, hi) rounded to bf16 in one 32-bit word, lo in the low half
 __device__ __forceinline__ uint32_t pack_bf2(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);

@@ -14,32 +14,31 @@
 // f32; g rounded to bf16; the output summed in f32, + b2, rounded once (K14: LN
 // statistics in f32 on the unrounded u, rounded once after the residual add); dh
 // rounded before dx and dW1 while db1 sums the unrounded dh; dW2 from the bf16 g and
-// dout (K15: du rounded before dW2 and the hidden's gradient).  Both GELUs (tanh and
-// erf) in f32.
+// dout (K15: du rounded before dW2 and the hidden's gradient, db2 over the unrounded
+// du).  Both GELUs (tanh and erf) in f32.
 //
 // What bounds it on this card: the forward does 4 T C H FLOP on 4 T C bytes of tokens,
 // H = 4C FLOP per byte (384 at C = 96), above the bf16 ridge (~295): the products
 // decide, and the (T, H) hidden that the unfused route writes and reads back is what
 // fusion saves.
 //
-// K12 and K13 run on the register-resident row core of mlp_core.cuh: mma.sync m16n8k16
+// All four run on the register-resident row core of mlp_core.cuh: mma.sync m16n8k16
 // from ldmatrix fragments, a warp's 16 token rows and their output sums in registers,
 // GELU and its gradient on the accumulators, g and dh repacked as A fragments, the
 // weights streamed as 32-column chunks through a cp.async ring that a block of 128 rows
-// (64 at C <= 384, 32 above) shares.  K13 is a launch sequence from one entry, on one
+// (64 at C <= 384, 32 above) shares.  K14 is K12's kernel with the LayerNorm forward
+// epilogue (mlp_fwd_kernel<NT, kLnFwd>): the row statistics on the accumulators, x from
+// the block's x tile, one rounding.  K13 is a launch sequence from one entry, on one
 // stream: the dx kernel (token-parallel), then the weight-gradient kernel (hidden slice
 // x token split, the slice's weights resident, h and dg recomputed by the core's
 // functions, dW1 and dW2 summed in registers), then reduce_rows over its partial rows.
+// K15 is one too: K12's kernel with the LayerNorm backward epilogue (u and its
+// statistics recomputed, so K14's xhat; du rounded to a T x C workspace row, one
+// partial row of db2 | dgamma | dbeta per block), then K13's dx kernel on du with the
+// residual dz added before the rounding, K13's weight-gradient kernel on du (its db2
+// sum off: db2 sums the unrounded du, from the first kernel), and reduce_rows.
 // Nothing of size T x H is written; no float atomics, so the results do not change
 // from run to run.
-//
-// K14 and K15 keep the first design: a block of 64 tokens (32 above C = 384) walks the
-// hidden in chunks of 32 columns staged synchronously through shared memory, 16x16x16
-// WMMA tiles into a (rows x C) f32 sum in registers, the sum through shared memory for
-// the bias, the LayerNorm (one warp per row) and the residual; K15 writes g and the
-// rounded dh and du as bf16 rows to a workspace for two split-K products over the
-// tokens (reduce.cu gemm_tn) and one partial row per block for the bias, gamma and beta
-// gradients, summed by reduce_rows.
 
 #include <type_traits>
 
@@ -48,465 +47,13 @@
 namespace hs {
 namespace {
 
-constexpr int HC = 32;        // hidden columns per streamed chunk (one lane each)
-constexpr int LDH = HC + 8;   // leading dimension of the bf16 chunk tiles (W1 chunk, g / dh)
-constexpr int LDHF = HC + 4;  // leading dimension of the f32 chunk tiles (h, dh's dg)
-constexpr int MAX_NT = 12;    // 16x16 output tiles a warp holds at most
 constexpr int MAX_C = 768;
 
-// token rows per block: the (rows x C) f32 sum lives in registers, C / 16 floats a
-// thread at 64 rows, so the row block halves above C = 384
-__host__ __device__ inline int mlp_rows(int C) { return C <= 384 ? 64 : 32; }
-
-// Shared memory: x tile | (backward) dout or du tile | the chunk tiles (W1 chunk, W2
-// chunk, f32 h, f32 dg, bf16 g or dh), which the (rows x C) f32 sums U reuse once the
-// last chunk is in | per-warp column sums | per-row LayerNorm values.
-struct Layout {
-  size_t xs, ds, w1s, w2s, hf, dgf, gs, u, red, rows, total;
-};
-
-__host__ __device__ inline Layout layout(int C, bool bwd) {
-  const size_t R = mlp_rows(C);
-  const size_t ldx = size_t(C) + 8;
-  Layout L;
-  size_t off = 0;
-  L.xs = off; off += align128(R * ldx * 2);
-  L.ds = off; if (bwd) off += align128(R * ldx * 2);
-  const size_t base = off;
-  L.w1s = off; off += align128(size_t(C) * LDH * 2);
-  L.w2s = off; off += align128(size_t(HC) * ldx * 2);
-  L.hf = off; off += align128(R * LDHF * 4);
-  L.dgf = off; if (bwd) off += align128(R * LDHF * 4);
-  L.gs = off; off += align128(R * LDH * 2);
-  L.u = base;
-  const size_t uend = base + align128(R * (size_t(C) + 4) * 4);
-  off = off > uend ? off : uend;
-  L.red = off; off += align128(size_t(kWarps) * HC * 4);
-  L.rows = off; off += align128(5 * R * 4);
-  L.total = off;
-  return L;
-}
-
-// This block's geometry and this warp's output tiles: warp w owns row tile w % RT and
-// column tiles ct0 + wpr * i, i < nt, of the (rows x C) sums.
-struct Geo {
-  int R, RT, wpr, nt, rt, ct0, LDX, LDU;
-  __device__ explicit Geo(int C) {
-    R = mlp_rows(C);
-    RT = R / 16;
-    wpr = kWarps / RT;
-    nt = (C / 16) / wpr;
-    const int warp = threadIdx.x >> 5;
-    rt = warp % RT;
-    ct0 = warp / RT;
-    LDX = C + 8;
-    LDU = C + 4;
-  }
-};
-
-// rows x C bf16 (row stride C) -> shared memory (leading dimension ld), 16-byte chunks
-__device__ inline void load_rows(const bf16* __restrict__ src, bf16* dst, int rows, int C,
-                                 int ld) {
-  const int chunks = C / 8;
-  for (int idx = threadIdx.x; idx < rows * chunks; idx += kThreads) {
-    const int r = idx / chunks, q = idx % chunks;
-    reinterpret_cast<uint4*>(dst + r * ld)[q] =
-        reinterpret_cast<const uint4*>(src + size_t(r) * C)[q];
-  }
-}
-
-// W1[:, j0:j0+HC] -> w1s (C x HC, ld LDH); W2[j0:j0+HC, :] -> w2s (HC x C, ld ldx)
-__device__ inline void stage_chunk(const bf16* __restrict__ w1, const bf16* __restrict__ w2,
-                                   int C, int H, int j0, bf16* w1s, bf16* w2s, int ldx) {
-  for (int idx = threadIdx.x; idx < C * (HC / 8); idx += kThreads) {
-    const int c = idx / (HC / 8), q = idx % (HC / 8);
-    reinterpret_cast<uint4*>(w1s + c * LDH)[q] =
-        reinterpret_cast<const uint4*>(w1 + size_t(c) * H + j0)[q];
-  }
-  load_rows(w2 + size_t(j0) * C, w2s, HC, C, ldx);
-}
-
-// One 16x16 tile (rt, ct) of a chunk product (rows x HC, f32, ld LDHF) over K = C:
-// A (ld lda) times w1s (kBt false: row-major, ld LDH) or times w2s^T (kBt true: element
-// (k, n) at w2s[n * ldb + k]).
-template <bool kBt>
-__device__ __forceinline__ void chunk_tile(const bf16* A, int lda, const bf16* B, int ldb,
-                                           int K, float* out, int rt, int ct) {
-  FragC acc;
-  wmma::fill_fragment(acc, 0.f);
-  for (int kk = 0; kk < K; kk += 16) {
-    FragA a;
-    wmma::load_matrix_sync(a, A + rt * 16 * lda + kk, lda);
-    if constexpr (kBt) {
-      FragBt b;
-      wmma::load_matrix_sync(b, B + ct * 16 * ldb + kk, ldb);
-      wmma::mma_sync(acc, a, b, acc);
-    } else {
-      FragB b;
-      wmma::load_matrix_sync(b, B + kk * ldb + ct * 16, ldb);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-  }
-  wmma::store_matrix_sync(out + rt * 16 * LDHF + ct * 16, acc, LDHF, wmma::mem_row_major);
-}
-
-// acc += A (rows x HC bf16, ld LDH) times w2s (kBt false: HC x C row-major, ld ldb) or
-// times w1s^T (kBt true: element (k, n) at w1s[n * ldb + k]), over this warp's tiles
-template <bool kBt>
-__device__ __forceinline__ void accumulate(FragC (&acc)[MAX_NT], const Geo& g, const bf16* A,
-                                           const bf16* B, int ldb) {
-#pragma unroll
-  for (int kk = 0; kk < HC; kk += 16) {
-    FragA a;
-    wmma::load_matrix_sync(a, A + g.rt * 16 * LDH + kk, LDH);
-#pragma unroll
-    for (int i = 0; i < MAX_NT; ++i) {
-      if (i < g.nt) {
-        const int ct = g.ct0 + g.wpr * i;
-        if constexpr (kBt) {
-          FragBt b;
-          wmma::load_matrix_sync(b, B + ct * 16 * ldb + kk, ldb);
-          wmma::mma_sync(acc[i], a, b, acc[i]);
-        } else {
-          FragB b;
-          wmma::load_matrix_sync(b, B + kk * ldb + ct * 16, ldb);
-          wmma::mma_sync(acc[i], a, b, acc[i]);
-        }
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ void store_acc(const FragC (&acc)[MAX_NT], const Geo& g, float* U) {
-#pragma unroll
-  for (int i = 0; i < MAX_NT; ++i)
-    if (i < g.nt)
-      wmma::store_matrix_sync(U + g.rt * 16 * g.LDU + (g.ct0 + g.wpr * i) * 16, acc[i], g.LDU,
-                              wmma::mem_row_major);
-}
-
-struct Smem {
-  bf16 *xs, *ds, *w1s, *w2s, *gs;
-  float *hf, *dgf, *u, *red, *rows;
-};
-
-__device__ inline Smem carve(unsigned char* smem, const Layout& L) {
-  Smem s;
-  s.xs = reinterpret_cast<bf16*>(smem + L.xs);
-  s.ds = reinterpret_cast<bf16*>(smem + L.ds);
-  s.w1s = reinterpret_cast<bf16*>(smem + L.w1s);
-  s.w2s = reinterpret_cast<bf16*>(smem + L.w2s);
-  s.gs = reinterpret_cast<bf16*>(smem + L.gs);
-  s.hf = reinterpret_cast<float*>(smem + L.hf);
-  s.dgf = reinterpret_cast<float*>(smem + L.dgf);
-  s.u = reinterpret_cast<float*>(smem + L.u);
-  s.red = reinterpret_cast<float*>(smem + L.red);
-  s.rows = reinterpret_cast<float*>(smem + L.rows);
-  return s;
-}
-
-// The forward's hidden walk: the x tile in s.xs -> this warp's tiles of g W2 (without
-// b2) in acc; ends with the chunk region free for U.
-__device__ __forceinline__ void forward_sums(FragC (&acc)[MAX_NT], const Geo& g,
-                                             const Smem& s, const bf16* __restrict__ w1,
-                                             const float* __restrict__ b1,
-                                             const bf16* __restrict__ w2, int C, int H,
-                                             bool approx) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int i = 0; i < MAX_NT; ++i) wmma::fill_fragment(acc[i], 0.f);
-  for (int j0 = 0; j0 < H; j0 += HC) {
-    __syncthreads();  // the previous chunk's tiles are consumed (and the x tile is in)
-    stage_chunk(w1, w2, C, H, j0, s.w1s, s.w2s, g.LDX);
-    __syncthreads();
-    if (warp < 2 * g.RT) chunk_tile<false>(s.xs, g.LDX, s.w1s, LDH, C, s.hf, warp % g.RT,
-                                           warp / g.RT);
-    __syncthreads();
-    const float bias = b1[j0 + lane];
-    for (int r = warp; r < g.R; r += kWarps)
-      s.gs[r * LDH + lane] = to_bf(gelu(s.hf[r * LDHF + lane] + bias, approx));
-    __syncthreads();
-    accumulate<false>(acc, g, s.gs, s.w2s, g.LDX);
-  }
-  __syncthreads();
-}
-
 // ---------------------------------------------------------------------------------
-// K14: grid T / rows.
-// ---------------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
-mlp_block_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
-               const float* __restrict__ b1, const bf16* __restrict__ w2,
-               const float* __restrict__ b2, const float* __restrict__ gamma,
-               const float* __restrict__ beta, const float* __restrict__ dscale,
-               bf16* __restrict__ out, int C, int H, int approx, float ln_eps) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Geo g(C);
-  const Smem s = carve(smem, layout(C, false));
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const size_t row0 = size_t(blockIdx.x) * g.R;
-
-  load_rows(x + row0 * C, s.xs, g.R, C, g.LDX);
-  FragC acc[MAX_NT];
-  forward_sums(acc, g, s, w1, b1, w2, C, H, approx != 0);
-  store_acc(acc, g, s.u);
-  __syncthreads();
-
-  // one warp per row: u = sums + b2, LN statistics in f32, y * dscale + x
-  for (int r = warp; r < g.R; r += kWarps) {
-    float* ur = s.u + r * g.LDU;
-    float sum = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float v = ur[c] + b2[c];
-      ur[c] = v;
-      sum += v;
-    }
-    const float mean = warp_sum(sum) / C;
-    float sq = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float d = ur[c] - mean;
-      sq += d * d;
-    }
-    const float rstd = rsqrtf(warp_sum(sq) / C + ln_eps);
-    const float dsc = dscale != nullptr ? dscale[row0 + r] : 1.f;
-    for (int c = lane; c < C; c += 32) {
-      float y = (ur[c] - mean) * rstd * gamma[c] + beta[c];
-      if (dscale != nullptr) y *= dsc;
-      out[(row0 + r) * C + c] = to_bf(bf(s.xs[r * g.LDX + c]) + y);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------------
-// K15 (go = dz): grid T / rows.  Writes dx, the workspace rows G = g and DH = rounded dh
-// (bf16, T x H), DU = rounded du (T x C), and one partial row per block: db1 (H) | db2
-// (C) | dgamma | dbeta.
-// ---------------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
-mlp_block_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
-               const float* __restrict__ b1, const bf16* __restrict__ w2,
-               const float* __restrict__ b2, const float* __restrict__ gamma,
-               const float* __restrict__ dscale, const bf16* __restrict__ go,
-               bf16* __restrict__ dx, bf16* __restrict__ G, bf16* __restrict__ DH,
-               bf16* __restrict__ DU, float* __restrict__ part, int C, int H, int approx,
-               float ln_eps) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Geo g(C);
-  const Smem s = carve(smem, layout(C, true));
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const bool ap = approx != 0;
-  const size_t row0 = size_t(blockIdx.x) * g.R;
-  float* prow = part + size_t(blockIdx.x) * (H + 3 * C);
-
-  load_rows(x + row0 * C, s.xs, g.R, C, g.LDX);
-  {
-    // recompute u, then the LayerNorm backward: du (rounded) into s.ds and DU
-    {
-      FragC acc[MAX_NT];
-      forward_sums(acc, g, s, w1, b1, w2, C, H, ap);
-      store_acc(acc, g, s.u);
-    }
-    __syncthreads();
-    float* mean_r = s.rows;
-    float* rstd_r = s.rows + g.R;
-    float* m1_r = s.rows + 2 * g.R;
-    float* m2_r = s.rows + 3 * g.R;
-    float* ds_r = s.rows + 4 * g.R;
-    for (int r = warp; r < g.R; r += kWarps) {
-      const size_t row = row0 + r;
-      float* ur = s.u + r * g.LDU;
-      float sum = 0.f;
-      for (int c = lane; c < C; c += 32) {
-        const float v = ur[c] + b2[c];
-        ur[c] = v;
-        sum += v;
-      }
-      const float mean = warp_sum(sum) / C;
-      float sq = 0.f;
-      for (int c = lane; c < C; c += 32) {
-        const float d = ur[c] - mean;
-        sq += d * d;
-      }
-      const float rstd = rsqrtf(warp_sum(sq) / C + ln_eps);
-      const float dsc = dscale != nullptr ? dscale[row] : 1.f;
-      float s1 = 0.f, s2 = 0.f;
-      for (int c = lane; c < C; c += 32) {
-        const float xh = (ur[c] - mean) * rstd;
-        float dy = bf(go[row * C + c]);
-        if (dscale != nullptr) dy *= dsc;
-        const float dgl = dy * gamma[c];
-        s1 += dgl;
-        s2 += dgl * xh;
-      }
-      const float m1 = warp_sum(s1) / C;
-      const float m2 = warp_sum(s2) / C;
-      if (lane == 0) {
-        mean_r[r] = mean;
-        rstd_r[r] = rstd;
-        m1_r[r] = m1;
-        m2_r[r] = m2;
-        ds_r[r] = dsc;
-      }
-    }
-    __syncthreads();
-    // one thread per column: du, and the column sums db2 (unrounded du), dgamma, dbeta
-    for (int c = tid; c < C; c += kThreads) {
-      const float gm = gamma[c];
-      float sdu = 0.f, sg = 0.f, sb = 0.f;
-      for (int r = 0; r < g.R; ++r) {
-        const float xh = (s.u[r * g.LDU + c] - mean_r[r]) * rstd_r[r];
-        float dy = bf(go[(row0 + r) * C + c]);
-        if (dscale != nullptr) dy *= ds_r[r];
-        sg += dy * xh;
-        sb += dy;
-        const float du = rstd_r[r] * (dy * gm - m1_r[r] - xh * m2_r[r]);
-        sdu += du;
-        const bf16 dul = to_bf(du);
-        s.ds[r * g.LDX + c] = dul;
-        DU[(row0 + r) * C + c] = dul;
-      }
-      prow[H + c] = sdu;
-      prow[H + C + c] = sg;
-      prow[H + 2 * C + c] = sb;
-    }
-  }
-
-  // the hidden's backward, chunk by chunk: h = x W1 + b1 and dg = s.ds W2^T, then g
-  // and dh (lane = hidden column, one warp per row), db1, and dx += dh_lo W1^T
-  FragC acc[MAX_NT];
-#pragma unroll
-  for (int i = 0; i < MAX_NT; ++i) wmma::fill_fragment(acc[i], 0.f);
-  for (int j0 = 0; j0 < H; j0 += HC) {
-    __syncthreads();
-    stage_chunk(w1, w2, C, H, j0, s.w1s, s.w2s, g.LDX);
-    __syncthreads();
-    for (int t = warp; t < 4 * g.RT; t += kWarps) {
-      const int tt = t % (2 * g.RT);
-      if (t < 2 * g.RT)
-        chunk_tile<false>(s.xs, g.LDX, s.w1s, LDH, C, s.hf, tt % g.RT, tt / g.RT);
-      else
-        chunk_tile<true>(s.ds, g.LDX, s.w2s, g.LDX, C, s.dgf, tt % g.RT, tt / g.RT);
-    }
-    __syncthreads();
-    const float bias = b1[j0 + lane];
-    float colsum = 0.f;
-    for (int r = warp; r < g.R; r += kWarps) {
-      const size_t at = (row0 + r) * H + j0 + lane;
-      const float h = s.hf[r * LDHF + lane] + bias;
-      G[at] = to_bf(gelu(h, ap));
-      const float dh = s.dgf[r * LDHF + lane] * gelu_grad(h, ap);
-      colsum += dh;
-      const bf16 dhl = to_bf(dh);
-      s.gs[r * LDH + lane] = dhl;
-      DH[at] = dhl;
-    }
-    s.red[warp * HC + lane] = colsum;
-    __syncthreads();
-    if (warp == 0) {
-      float sum = 0.f;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) sum += s.red[w * HC + lane];
-      prow[j0 + lane] = sum;
-    }
-    accumulate<true>(acc, g, s.gs, s.w1s, LDH);
-  }
-  __syncthreads();
-  store_acc(acc, g, s.u);
-  __syncthreads();
-  for (int idx = tid; idx < g.R * C; idx += kThreads) {
-    const int r = idx / C, c = idx % C;
-    const size_t at = (row0 + r) * C + c;
-    dx[at] = to_bf(s.u[r * g.LDU + c] + bf(go[at]));
-  }
-}
-
-// K15's workspace: G and DH (bf16, T x H), DU (bf16, T x C), the per-block partial
-// rows, and the reductions' scratch.
-struct BwdWork {
-  size_t g, dh, du, part, tmp, total;
-};
-
-inline BwdWork block_bwd_work(int T, int C, int H) {
-  const int nb = T / mlp_rows(C);
-  const int W = H + 3 * C;
-  BwdWork w;
-  size_t off = 0;
-  w.g = off; off += align128(size_t(T) * H * 2);
-  w.dh = off; off += align128(size_t(T) * H * 2);
-  w.du = off; off += align128(size_t(T) * C * 2);
-  w.part = off; off += align128(size_t(nb) * W * 4);
-  size_t tmp = reduce_rows_tmp_floats(nb, W);
-  const size_t g1 = gemm_tn_tmp_floats(T, C, H);
-  const size_t g2 = gemm_tn_tmp_floats(T, H, C);
-  tmp = tmp > g1 ? tmp : g1;
-  tmp = tmp > g2 ? tmp : g2;
-  w.tmp = off; off += align128(tmp * 4);
-  w.total = off;
-  return w;
-}
-
-cudaError_t launch_block_fwd(const void* x, const void* w1, const void* b1, const void* w2,
-                             const void* b2, const void* gamma, const void* beta,
-                             const void* dscale, void* out, int T, int C, int H, int approx,
-                             float ln_eps, cudaStream_t s) {
-  if (C > MAX_C) return cudaErrorInvalidValue;
-  const size_t smem = layout(C, false).total;
-  cudaError_t e = cudaFuncSetAttribute(mlp_block_fwd_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (e != cudaSuccess) return e;
-  mlp_block_fwd_kernel<<<T / mlp_rows(C), kThreads, smem, s>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w1), static_cast<const float*>(b1),
-      static_cast<const bf16*>(w2), static_cast<const float*>(b2),
-      static_cast<const float*>(gamma), static_cast<const float*>(beta),
-      static_cast<const float*>(dscale), static_cast<bf16*>(out), C, H, approx, ln_eps);
-  return cudaGetLastError();
-}
-
-cudaError_t launch_block_bwd(const void* x, const void* w1, const void* b1, const void* w2,
-                             const void* b2, const void* gamma, const void* dscale,
-                             const void* go, void* dx, void* dw1, void* dw2, void* red,
-                             void* work, int T, int C, int H, int approx, float ln_eps,
-                             cudaStream_t s) {
-  if (C > MAX_C) return cudaErrorInvalidValue;
-  const size_t smem = layout(C, true).total;
-  cudaError_t e = cudaFuncSetAttribute(mlp_block_bwd_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (e != cudaSuccess) return e;
-  const BwdWork w = block_bwd_work(T, C, H);
-  unsigned char* base = static_cast<unsigned char*>(work);
-  bf16* G = reinterpret_cast<bf16*>(base + w.g);
-  bf16* DH = reinterpret_cast<bf16*>(base + w.dh);
-  bf16* DU = reinterpret_cast<bf16*>(base + w.du);
-  float* part = reinterpret_cast<float*>(base + w.part);
-  float* tmp = reinterpret_cast<float*>(base + w.tmp);
-  const int nb = T / mlp_rows(C);
-  const bf16* xb = static_cast<const bf16*>(x);
-  mlp_block_bwd_kernel<<<nb, kThreads, smem, s>>>(
-      xb, static_cast<const bf16*>(w1), static_cast<const float*>(b1),
-      static_cast<const bf16*>(w2), static_cast<const float*>(b2),
-      static_cast<const float*>(gamma), static_cast<const float*>(dscale),
-      static_cast<const bf16*>(go), static_cast<bf16*>(dx), G, DH, DU, part, C, H, approx,
-      ln_eps);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  e = reduce_rows(part, static_cast<float*>(red), nb, H + 3 * C, tmp, s);
-  if (e != cudaSuccess) return e;
-  // dW1 = x^T dh (C x H); dW2 = g^T du (H x C)
-  e = gemm_tn(xb, DH, static_cast<float*>(dw1), T, C, H, tmp, s);
-  if (e != cudaSuccess) return e;
-  return gemm_tn(G, DU, static_cast<float*>(dw2), T, H, C, tmp, s);
-}
-
-// ---------------------------------------------------------------------------------
-// K12 and K13's dx kernel on the row core (mlp_core.cuh).  Block: 8 warps in row groups
-// of WPR warps (1 up to C 192, 2 up to 384, 4 above), 16 rows a group, so a warp holds
-// at most 24 n-tiles (96 floats a thread) of its group's output columns; each warp of a
-// group recomputes the group's hidden tiles.  The weights arrive as items through a
+// K12, K14, K15's first step and the dx kernel on the row core (mlp_core.cuh).  Block: 8
+// warps in row groups of WPR warps (1 up to C 192, 2 up to 384, 4 above), 16 rows a
+// group, so a warp holds at most 24 n-tiles (96 floats a thread) of its group's output
+// columns; each warp of a group recomputes the group's hidden tiles.  The weights arrive as items through a
 // cp.async ring of `slots` stages that the block's warps share (one block barrier an
 // item): for each 32-column chunk j of the hidden, W1[:, 32j : 32j + 32] (C x 32, ld
 // MLP_LDC) and W2[32j : 32j + 32, :] (32 x C, ld C + 8); the dx kernel takes W2's first.
@@ -525,19 +72,26 @@ __host__ __device__ inline RowGeo row_geo(int C) {
   return g;
 }
 
-// shared memory: x tile | (dx kernel) dout tile | the ring's stages
+// the row kernel's epilogue: none (K12), the LayerNorm forward (K14) or backward (K15's
+// first step)
+enum Epi { kNoEpi, kLnFwd, kLnBwd };
+
+// shared memory: x tile | (dx kernel) dout tile | (LayerNorm epilogues) the row groups'
+// exchange areas | (backward) their column sums, 3C floats a group | the ring's stages
 struct RowLayout {
-  size_t dout, ring, slot, total;
+  size_t dout, xch, red, ring, slot, total;
   int slots;
 };
 
-__host__ __device__ inline RowLayout row_layout(int C, bool dx) {
+__host__ __device__ inline RowLayout row_layout(int C, bool dx, Epi epi = kNoEpi) {
   const RowGeo g = row_geo(C);
   const size_t tile = align128(size_t(g.rows) * (C + 8) * 2);
   const size_t w1c = size_t(C) * MLP_LDC * 2, w2c = size_t(MLP_HC) * (C + 8) * 2;
   RowLayout L;
   L.dout = tile;
-  L.ring = dx ? 2 * tile : tile;
+  L.xch = dx ? 2 * tile : tile;
+  L.red = L.xch + (epi == kNoEpi ? 0 : align128(size_t(kWarps) * LN_XCH_FLOATS * 4));
+  L.ring = L.red + (epi == kLnBwd ? align128(size_t(kWarps / g.wpr) * 3 * C * 4) : 0);
   L.slot = align128(w1c > w2c ? w1c : w2c);
   // the ring's depth: up to C 96 an item is short work and the dx kernel waits on a
   // 4-stage ring (an H100 read a third more time with 4 than with 6); above, 4 do
@@ -575,16 +129,29 @@ struct HiddenRing {
   }
 };
 
-// K12: out = bf16(sum over the hidden of bf16(GELU(x W1 + b1)) W2 + b2).  Grid T / rows.
-template <int NT>
+// the LayerNorm epilogues' operands (K14: gamma, beta, dscale; K15's first step:
+// gamma, dscale, dz and the partial rows, one row of db2 | dgamma | dbeta a block)
+struct LnArgs {
+  const float* gamma;
+  const float* beta;
+  const float* dscale;  // (T,) or null: no DropPath scale
+  const bf16* dz;
+  float* part;
+  float eps;
+};
+
+// K12: out = bf16(sum over the hidden of bf16(GELU(x W1 + b1)) W2 + b2).  K14 (EPI
+// kLnFwd): out = bf16(x + dscale (LN(u) gamma + beta)), u that sum + b2.  K15's first
+// step (kLnBwd): out = du_lo, and the block's partial row.  Grid T / rows.
+template <int NT, Epi EPI>
 __global__ void __launch_bounds__(kThreads)
 mlp_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
                const float* __restrict__ b1, const bf16* __restrict__ w2,
                const float* __restrict__ b2, bf16* __restrict__ out, int T, int C, int H,
-               int approx) {
+               int approx, LnArgs ln) {
   extern __shared__ __align__(128) unsigned char smem[];
   const RowGeo geo = row_geo(C);
-  const RowLayout L = row_layout(C, false);
+  const RowLayout L = row_layout(C, false, EPI);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int base = blockIdx.x * geo.rows;
@@ -622,29 +189,59 @@ mlp_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
       frags_times_rows<NT>(acc, g, w + col0, ldx, geo.ntw);
     }
   }
-  if (!active) return;
-  const int c2 = (lane & 3) * 2;
-  const size_t r0 = size_t(base + row0 + (lane >> 2));
+  if constexpr (EPI == kNoEpi) {
+    if (!active) return;
+    const int c2 = (lane & 3) * 2;
+    const size_t r0 = size_t(base + row0 + (lane >> 2));
 #pragma unroll
-  for (int t = 0; t < NT; ++t) {
-    if (t < geo.ntw) {
-      const int c = col0 + 8 * t + c2;
-      const float lo = b2[c], hi = b2[c + 1];
-      *reinterpret_cast<uint32_t*>(out + r0 * C + c) = pack_bf2(acc[t][0] + lo, acc[t][1] + hi);
-      *reinterpret_cast<uint32_t*>(out + (r0 + 8) * C + c) =
-          pack_bf2(acc[t][2] + lo, acc[t][3] + hi);
+    for (int t = 0; t < NT; ++t) {
+      if (t < geo.ntw) {
+        const int c = col0 + 8 * t + c2;
+        const float lo = b2[c], hi = b2[c + 1];
+        *reinterpret_cast<uint32_t*>(out + r0 * C + c) =
+            pack_bf2(acc[t][0] + lo, acc[t][1] + hi);
+        *reinterpret_cast<uint32_t*>(out + (r0 + 8) * C + c) =
+            pack_bf2(acc[t][2] + lo, acc[t][3] + hi);
+      }
+    }
+  } else {
+    // row group `group` exchanges under named barrier 1 + group (0 is __syncthreads)
+    const int group = warp / geo.wpr;
+    float* xch = reinterpret_cast<float*>(smem + L.xch) + group * geo.wpr * LN_XCH_FLOATS;
+    float* red = reinterpret_cast<float*>(smem + L.red);
+    if (active) {
+      const LnRows r = ln_rows<NT>(acc, geo.ntw, col0, b2, C, ln.eps, xch, geo.wpr, 1 + group);
+      const size_t grow0 = size_t(base + row0);
+      if constexpr (EPI == kLnFwd)
+        ln_fwd_store<NT>(acc, r, geo.ntw, col0, ln.gamma, ln.beta, ln.dscale, xs, ldx, row0,
+                         grow0, out, C);
+      else
+        ln_bwd_store<NT>(acc, r, geo.ntw, col0, ln.gamma, ln.dscale, ln.dz, grow0, out, C, xch,
+                         geo.wpr, 1 + group, red + group * 3 * C);
+    }
+    if constexpr (EPI == kLnBwd) {
+      // the block's partial row: the active groups' column sums in group order
+      __syncthreads();
+      const int groups = (rows + 15) / 16;
+      float* prow = ln.part + size_t(blockIdx.x) * 3 * C;
+      for (int j = threadIdx.x; j < 3 * C; j += kThreads) {
+        float sum = red[j];
+        for (int i = 1; i < groups; ++i) sum += red[i * 3 * C + j];
+        prow[j] = sum;
+      }
     }
   }
 }
 
 // K13 step 1: dx = bf16(sum over the hidden of bf16(dg GELU'(h)) W1^T), dg = dout W2^T,
-// with h as K12 computes it.  Grid T / rows; nothing else is written.
-template <int NT>
+// with h as K12 computes it; K15 step 2 (RES): dx = bf16(resid + that sum), resid = dz
+// in f32.  Grid T / rows; nothing else is written.
+template <int NT, bool RES>
 __global__ void __launch_bounds__(kThreads)
 mlp_dx_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
               const float* __restrict__ b1, const bf16* __restrict__ w2,
-              const bf16* __restrict__ dout, bf16* __restrict__ dx, int T, int C, int H,
-              int approx) {
+              const bf16* __restrict__ dout, const bf16* __restrict__ resid,
+              bf16* __restrict__ dx, int T, int C, int H, int approx) {
   extern __shared__ __align__(128) unsigned char smem[];
   const RowGeo geo = row_geo(C);
   const RowLayout L = row_layout(C, true);
@@ -696,6 +293,15 @@ mlp_dx_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
   for (int t = 0; t < NT; ++t) {
     if (t < geo.ntw) {
       const int c = col0 + 8 * t + c2;
+      if constexpr (RES) {
+        const float2 z0 = unpack_bf2(*reinterpret_cast<const uint32_t*>(resid + r0 * C + c));
+        const float2 z1 =
+            unpack_bf2(*reinterpret_cast<const uint32_t*>(resid + (r0 + 8) * C + c));
+        acc[t][0] += z0.x;
+        acc[t][1] += z0.y;
+        acc[t][2] += z1.x;
+        acc[t][3] += z1.y;
+      }
       *reinterpret_cast<uint32_t*>(dx + r0 * C + c) = pack_bf2(acc[t][0], acc[t][1]);
       *reinterpret_cast<uint32_t*>(dx + (r0 + 8) * C + c) = pack_bf2(acc[t][2], acc[t][3]);
     }
@@ -703,15 +309,16 @@ mlp_dx_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
 }
 
 // ---------------------------------------------------------------------------------
-// K13 step 2, the weight gradients, flash-backward style.  Grid (slices x column parts,
-// token splits), the slice fastest, so that the slices of one token range read x and
-// dout from L2.  A block keeps its slice's weights resident (W1[:, slice], C x HS, and
-// W2[slice, :], HS x C), walks its token range in steps of R rows with the x and dout
-// tiles double-buffered by cp.async, recomputes h and dg of its slice with the row
+// K13 step 2 (K15 step 3), the weight gradients, flash-backward style.  Grid (slices x
+// column parts, token splits), the slice fastest, so that the slices of one token range
+// read x and dout from L2.  A block keeps its slice's weights resident (W1[:, slice], C x
+// HS, and W2[slice, :], HS x C), walks its token range in steps of R rows with the x and
+// dout tiles double-buffered by cp.async, recomputes h and dg of its slice with the row
 // core's functions (so g and dh_lo are K12's and the dx kernel's bits), keeps g and
 // dh_lo as bf16 tiles, and accumulates in registers dW1[:, slice] += x^T dh_lo and
 // dW2[slice, :]^T += dout^T g (A^T by ldmatrix.trans), db1 over the unrounded dh and,
-// in slice 0, db2 over dout.  Each block writes its part of its split's partial rows;
+// in slice 0, db2 over dout (K13; K15 gets db2 from its first step, and slice 0 writes
+// zeros there).  Each block writes its part of its split's partial rows;
 // reduce_rows sums the splits in a fixed order.  HS is 64 up to C 192 and 32 above;
 // above C 384 the C rows of the two products are cut in two column parts.  A step's
 // hidden block (R rows x HS) is recomputed by the warps in units of 16 rows x NTH
@@ -761,7 +368,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 mlp_dw_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
               const float* __restrict__ b1, const bf16* __restrict__ w2,
               const bf16* __restrict__ dout, float* __restrict__ pw1, float* __restrict__ pw2,
-              float* __restrict__ pb, int T, int C, int H, int approx, int steps_per_split) {
+              float* __restrict__ pb, int T, int C, int H, int approx, int steps_per_split,
+              int db2) {
   extern __shared__ __align__(128) unsigned char smem[];
   const DwGeo geo = dw_geo(C, H);
   const DwLayout L = dw_layout(C, H);
@@ -775,7 +383,8 @@ mlp_dw_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
   const int s0 = slice * geo.hs;
   const int hcols = min(geo.hs, H - s0);
   const int ldx = C + 8, ldw1 = geo.hs + 8, ldh = geo.hs + 8;
-  const bool sums_db2 = slice == 0 && part == 0;
+  const bool db2_row = slice == 0 && part == 0;  // this block writes its split's db2
+  const bool sums_db2 = db2_row && db2 != 0;
   bf16* w1s = reinterpret_cast<bf16*>(smem);
   bf16* w2s = reinterpret_cast<bf16*>(smem + L.w2s);
   bf16* gs = reinterpret_cast<bf16*>(smem + L.gs);
@@ -911,7 +520,7 @@ mlp_dw_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
     for (int r = 0; r < rts; ++r) sum += red[(w0 + r) * MLP_HC + tid % (8 * NTH)];
     pbrow[s0 + tid] = sum;
   }
-  if (sums_db2)
+  if (db2_row)
     for (int c = tid; c < C; c += kThreads) pbrow[H + c] = db2s[c];
 }
 
@@ -964,60 +573,67 @@ size_t widest(F bytes) {
   return m;
 }
 
-template <int NT>
-cudaError_t launch_rows(bool dx_kernel, const bf16* x, const bf16* w1, const float* b1,
-                        const bf16* w2, const float* b2, const bf16* dout, bf16* out, int T,
-                        int C, int H, int approx, cudaStream_t s) {
-  static std::atomic<unsigned> done_fwd{0}, done_dx{0};
-  const RowLayout L = row_layout(C, dx_kernel);
-  const int grid = (T + row_geo(C).rows - 1) / row_geo(C).rows;
-  const void* k = dx_kernel ? reinterpret_cast<const void*>(mlp_dx_kernel<NT>)
-                            : reinterpret_cast<const void*>(mlp_fwd_kernel<NT>);
-  cudaError_t e = smem_opt_in(k, widest([&](int c) { return row_layout(c, dx_kernel).total; }),
-                              dx_kernel ? done_dx : done_fwd);
-  if (e != cudaSuccess) return e;
-  if (dx_kernel)
-    mlp_dx_kernel<NT><<<grid, kThreads, L.total, s>>>(x, w1, b1, w2, dout, out, T, C, H, approx);
-  else
-    mlp_fwd_kernel<NT><<<grid, kThreads, L.total, s>>>(x, w1, b1, w2, b2, out, T, C, H, approx);
-  return cudaGetLastError();
-}
+inline int row_blocks(int T, int C) { return (T + row_geo(C).rows - 1) / row_geo(C).rows; }
 
 inline bool row_shape_ok(int T, int C, int H) {
   return T > 0 && T % 64 == 0 && C > 0 && C % 32 == 0 && C <= MAX_C && (C <= 384 || C % 64 == 0) &&
          H > 0 && H % MLP_HC == 0;
 }
 
-cudaError_t launch_fwd(const void* x, const void* w1, const void* b1, const void* w2,
-                       const void* b2, void* out, int T, int C, int H, int approx,
-                       cudaStream_t s) {
-  if (!row_shape_ok(T, C, H)) return cudaErrorInvalidValue;
-  auto go = [&](auto nt) {
-    return launch_rows<decltype(nt)::value>(
-        false, static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
-        static_cast<const float*>(b1), static_cast<const bf16*>(w2),
-        static_cast<const float*>(b2), nullptr, static_cast<bf16*>(out), T, C, H, approx, s);
-  };
-  return C <= 96 ? go(std::integral_constant<int, 12>{}) : go(std::integral_constant<int, 24>{});
+// f(std::integral_constant<int, NT>) with NT the row kernels' n-tiles a warp for C
+template <typename F>
+cudaError_t with_nt(int C, F f) {
+  return C <= 96 ? f(std::integral_constant<int, 12>{}) : f(std::integral_constant<int, 24>{});
 }
 
-cudaError_t launch_dx(const void* x, const void* w1, const void* b1, const void* w2,
-                      const void* dout, void* dx, int T, int C, int H, int approx,
-                      cudaStream_t s) {
+// K12 (kNoEpi), K14 (kLnFwd) or K15's first step (kLnBwd)
+template <Epi EPI>
+cudaError_t launch_row(const void* x, const void* w1, const void* b1, const void* w2,
+                       const void* b2, void* out, int T, int C, int H, int approx,
+                       const LnArgs& ln, cudaStream_t s) {
   if (!row_shape_ok(T, C, H)) return cudaErrorInvalidValue;
-  auto go = [&](auto nt) {
-    return launch_rows<decltype(nt)::value>(
-        true, static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
-        static_cast<const float*>(b1), static_cast<const bf16*>(w2), nullptr,
-        static_cast<const bf16*>(dout), static_cast<bf16*>(dx), T, C, H, approx, s);
+  return with_nt(C, [&](auto nt) {
+    constexpr int NT = decltype(nt)::value;
+    static std::atomic<unsigned> done{0};
+    const void* k = reinterpret_cast<const void*>(mlp_fwd_kernel<NT, EPI>);
+    cudaError_t e = smem_opt_in(k, widest([](int c) { return row_layout(c, false, EPI).total; }),
+                                done);
+    if (e != cudaSuccess) return e;
+    mlp_fwd_kernel<NT, EPI><<<row_blocks(T, C), kThreads, row_layout(C, false, EPI).total, s>>>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(w1), static_cast<const float*>(b1),
+        static_cast<const bf16*>(w2), static_cast<const float*>(b2), static_cast<bf16*>(out), T,
+        C, H, approx, ln);
+    return cudaGetLastError();
+  });
+}
+
+// K13's dx kernel; with resid (K15's second step) dz is added before the rounding
+cudaError_t launch_dx(const void* x, const void* w1, const void* b1, const void* w2,
+                      const void* dout, const void* resid, void* dx, int T, int C, int H,
+                      int approx, cudaStream_t s) {
+  if (!row_shape_ok(T, C, H)) return cudaErrorInvalidValue;
+  auto go = [&](auto nt, auto res) {
+    constexpr int NT = decltype(nt)::value;
+    constexpr bool RES = decltype(res)::value;
+    static std::atomic<unsigned> done{0};
+    const void* k = reinterpret_cast<const void*>(mlp_dx_kernel<NT, RES>);
+    cudaError_t e = smem_opt_in(k, widest([](int c) { return row_layout(c, true).total; }), done);
+    if (e != cudaSuccess) return e;
+    mlp_dx_kernel<NT, RES><<<row_blocks(T, C), kThreads, row_layout(C, true).total, s>>>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(w1), static_cast<const float*>(b1),
+        static_cast<const bf16*>(w2), static_cast<const bf16*>(dout),
+        static_cast<const bf16*>(resid), static_cast<bf16*>(dx), T, C, H, approx);
+    return cudaGetLastError();
   };
-  return C <= 96 ? go(std::integral_constant<int, 12>{}) : go(std::integral_constant<int, 24>{});
+  return with_nt(C, [&](auto nt) {
+    return resid != nullptr ? go(nt, std::true_type{}) : go(nt, std::false_type{});
+  });
 }
 
 template <int MW, int NTH>
 cudaError_t launch_dw_kernel(const bf16* x, const bf16* w1, const float* b1, const bf16* w2,
                              const bf16* dout, float* pw1, float* pw2, float* pb, int T, int C,
-                             int H, int approx, int splits, cudaStream_t s) {
+                             int H, int approx, int splits, bool db2, cudaStream_t s) {
   static std::atomic<unsigned> done{0};
   // H only sets the slice count, not the layout
   cudaError_t e = smem_opt_in(reinterpret_cast<const void*>(mlp_dw_kernel<MW, NTH>),
@@ -1028,13 +644,15 @@ cudaError_t launch_dw_kernel(const bf16* x, const bf16* w1, const float* b1, con
   const int per = (steps + splits - 1) / splits;
   mlp_dw_kernel<MW, NTH><<<dim3(g.nslices * g.parts, splits), kThreads, dw_layout(C, H).total,
                            s>>>(
-      x, w1, b1, w2, dout, pw1, pw2, pb, T, C, H, approx, per);
+      x, w1, b1, w2, dout, pw1, pw2, pb, T, C, H, approx, per, int(db2));
   return cudaGetLastError();
 }
 
+// K13's weight-gradient kernel and its reductions: dW1, dW2, red = db1 | db2 (db2 zero
+// unless `db2`)
 cudaError_t launch_dw(const void* x, const void* w1, const void* b1, const void* w2,
                       const void* dout, void* dw1, void* dw2, void* red, void* work, int T,
-                      int C, int H, int approx, cudaStream_t s) {
+                      int C, int H, int approx, bool db2, cudaStream_t s) {
   if (!row_shape_ok(T, C, H)) return cudaErrorInvalidValue;
   const DwWork w = dw_work(T, C, H);
   unsigned char* base = static_cast<unsigned char*>(work);
@@ -1049,11 +667,11 @@ cudaError_t launch_dw(const void* x, const void* w1, const void* b1, const void*
   const bf16* db = static_cast<const bf16*>(dout);
   cudaError_t e =
       C <= 96    ? launch_dw_kernel<3, 4>(xb, w1b, b1f, w2b, db, pw1, pw2, pb, T, C, H, approx,
-                                          w.splits, s)
+                                          w.splits, db2, s)
       : C <= 192 ? launch_dw_kernel<6, 4>(xb, w1b, b1f, w2b, db, pw1, pw2, pb, T, C, H, approx,
-                                          w.splits, s)
+                                          w.splits, db2, s)
                  : launch_dw_kernel<6, 1>(xb, w1b, b1f, w2b, db, pw1, pw2, pb, T, C, H, approx,
-                                          w.splits, s);
+                                          w.splits, db2, s);
   if (e != cudaSuccess) return e;
   const int WH = C * H;
   e = reduce_rows(pw1, static_cast<float*>(dw1), w.splits, WH, tmp, s);
@@ -1063,6 +681,66 @@ cudaError_t launch_dw(const void* x, const void* w1, const void* b1, const void*
   return reduce_rows(pb, static_cast<float*>(red), w.splits, H + C, tmp, s);
 }
 
+// K15's workspace: du_lo (bf16, T x C), its first step's partial rows (db2 | dgamma |
+// dbeta, one a row block) and their reduction's scratch, then K13's weight-gradient
+// workspace (dw_work)
+struct BlockBwdWork {
+  size_t part, tmp, dw, total;
+};
+
+inline BlockBwdWork block_bwd_work(int T, int C, int H) {
+  const int nb = row_blocks(T, C);
+  BlockBwdWork w;
+  size_t off = align128(size_t(T) * C * 2);
+  w.part = off; off += align128(size_t(nb) * 3 * C * 4);
+  w.tmp = off; off += align128(reduce_rows_tmp_floats(nb, 3 * C) * 4);
+  w.dw = off; off += dw_work(T, C, H).total;
+  w.total = off;
+  return w;
+}
+
+// K15's first step alone: du_lo, and red = db2 | dgamma | dbeta
+cudaError_t launch_block_du(const void* x, const void* w1, const void* b1, const void* w2,
+                            const void* b2, const void* gamma, const void* dscale,
+                            const void* dz, void* du_lo, void* red, void* work, int T, int C,
+                            int H, int approx, float ln_eps, cudaStream_t s) {
+  const BlockBwdWork w = block_bwd_work(T, C, H);
+  unsigned char* base = static_cast<unsigned char*>(work);
+  float* part = reinterpret_cast<float*>(base + w.part);
+  const LnArgs ln{static_cast<const float*>(gamma), nullptr, static_cast<const float*>(dscale),
+                  static_cast<const bf16*>(dz), part, ln_eps};
+  cudaError_t e = launch_row<kLnBwd>(x, w1, b1, w2, b2, du_lo, T, C, H, approx, ln, s);
+  if (e != cudaSuccess) return e;
+  return reduce_rows(part, static_cast<float*>(red), row_blocks(T, C), 3 * C,
+                     reinterpret_cast<float*>(base + w.tmp), s);
+}
+
+// K15: the row kernel with the LayerNorm backward epilogue (du_lo, db2 | dgamma |
+// dbeta), K13's dx kernel on du_lo with the residual, K13's weight-gradient kernel on
+// du_lo with its db2 off, and the reductions; red = db1 | db2 | dgamma | dbeta
+cudaError_t launch_block_bwd(const void* x, const void* w1, const void* b1, const void* w2,
+                             const void* b2, const void* gamma, const void* dscale,
+                             const void* dz, void* dx, void* dw1, void* dw2, void* red,
+                             void* work, int T, int C, int H, int approx, float ln_eps,
+                             cudaStream_t s) {
+  const BlockBwdWork w = block_bwd_work(T, C, H);
+  unsigned char* base = static_cast<unsigned char*>(work);
+  float* r = static_cast<float*>(red);
+  // the weight-gradient reduction writes db1 | zeros first; step 1's goes over the zeros
+  cudaError_t e = launch_row<kLnBwd>(
+      x, w1, b1, w2, b2, base, T, C, H, approx,
+      LnArgs{static_cast<const float*>(gamma), nullptr, static_cast<const float*>(dscale),
+             static_cast<const bf16*>(dz), reinterpret_cast<float*>(base + w.part), ln_eps},
+      s);
+  if (e != cudaSuccess) return e;
+  e = launch_dx(x, w1, b1, w2, base, dz, dx, T, C, H, approx, s);
+  if (e != cudaSuccess) return e;
+  e = launch_dw(x, w1, b1, w2, base, dw1, dw2, red, base + w.dw, T, C, H, approx, false, s);
+  if (e != cudaSuccess) return e;
+  return reduce_rows(reinterpret_cast<float*>(base + w.part), r + H, row_blocks(T, C), 3 * C,
+                     reinterpret_cast<float*>(base + w.tmp), s);
+}
+
 }  // namespace
 }  // namespace hs
 
@@ -1070,17 +748,19 @@ extern "C" {
 
 int hs_mlp_fwd(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
                void* out, int T, int C, int H, int approx, void* stream) {
-  return int(hs::launch_fwd(x, w1, b1, w2, b2, out, T, C, H, approx,
-                            static_cast<cudaStream_t>(stream)));
+  return int(hs::launch_row<hs::kNoEpi>(x, w1, b1, w2, b2, out, T, C, H, approx, hs::LnArgs{},
+                                        static_cast<cudaStream_t>(stream)));
 }
 
 int hs_mlp_block_fwd(const void* x, const void* w1, const void* b1, const void* w2,
                      const void* b2, const void* gamma, const void* beta, const void* dscale,
                      void* out, int T, int C, int H, int approx, int has_dp, float ln_eps,
                      void* stream) {
-  return int(hs::launch_block_fwd(x, w1, b1, w2, b2, gamma, beta, has_dp ? dscale : nullptr,
-                                  out, T, C, H, approx, ln_eps,
-                                  static_cast<cudaStream_t>(stream)));
+  const hs::LnArgs ln{static_cast<const float*>(gamma), static_cast<const float*>(beta),
+                      static_cast<const float*>(has_dp ? dscale : nullptr), nullptr, nullptr,
+                      ln_eps};
+  return int(hs::launch_row<hs::kLnFwd>(x, w1, b1, w2, b2, out, T, C, H, approx, ln,
+                                        static_cast<cudaStream_t>(stream)));
 }
 
 size_t hs_mlp_bwd_workspace(int T, int C, int H) { return hs::dw_work(T, C, H).total; }
@@ -1088,10 +768,11 @@ size_t hs_mlp_bwd_workspace(int T, int C, int H) { return hs::dw_work(T, C, H).t
 // the token splits of K13's weight-gradient kernel (one partial row set each)
 int hs_mlp_bwd_splits(int T, int C, int H) { return hs::dw_splits(T, C, H); }
 
-// K13 step 1 alone: dx
+// K13 step 1 alone: dx; with resid (may be null) K15 step 2: dx + resid before the rounding
 int hs_mlp_bwd_dx(const void* x, const void* w1, const void* b1, const void* w2,
-                  const void* dout, void* dx, int T, int C, int H, int approx, void* stream) {
-  return int(hs::launch_dx(x, w1, b1, w2, dout, dx, T, C, H, approx,
+                  const void* dout, const void* resid, void* dx, int T, int C, int H, int approx,
+                  void* stream) {
+  return int(hs::launch_dx(x, w1, b1, w2, dout, resid, dx, T, C, H, approx,
                            static_cast<cudaStream_t>(stream)));
 }
 
@@ -1099,7 +780,7 @@ int hs_mlp_bwd_dx(const void* x, const void* w1, const void* b1, const void* w2,
 int hs_mlp_bwd_dw(const void* x, const void* w1, const void* b1, const void* w2,
                   const void* dout, void* dw1, void* dw2, void* red, void* work, int T, int C,
                   int H, int approx, void* stream) {
-  return int(hs::launch_dw(x, w1, b1, w2, dout, dw1, dw2, red, work, T, C, H, approx,
+  return int(hs::launch_dw(x, w1, b1, w2, dout, dw1, dw2, red, work, T, C, H, approx, true,
                            static_cast<cudaStream_t>(stream)));
 }
 
@@ -1110,13 +791,25 @@ int hs_mlp_bwd(const void* x, const void* w1, const void* b1, const void* w2, co
                int C, int H, int approx, void* stream) {
   (void)b2;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = hs::launch_dx(x, w1, b1, w2, dout, dx, T, C, H, approx, s);
+  cudaError_t e = hs::launch_dx(x, w1, b1, w2, dout, nullptr, dx, T, C, H, approx, s);
   if (e != cudaSuccess) return int(e);
-  return int(hs::launch_dw(x, w1, b1, w2, dout, dw1, dw2, red, work, T, C, H, approx, s));
+  return int(hs::launch_dw(x, w1, b1, w2, dout, dw1, dw2, red, work, T, C, H, approx, true, s));
 }
 
+// K15's workspace: du_lo, the partial rows of its steps and their reductions' scratch
 size_t hs_mlp_block_bwd_workspace(int T, int C, int H) {
   return hs::block_bwd_work(T, C, H).total;
+}
+
+// K15 step 1 alone: du_lo (T x C bf16) and red = db2 | dgamma | dbeta; work holds
+// hs_mlp_block_bwd_workspace bytes
+int hs_mlp_block_bwd_du(const void* x, const void* w1, const void* b1, const void* w2,
+                        const void* b2, const void* gamma, const void* dscale, const void* dz,
+                        void* du_lo, void* red, void* work, int T, int C, int H, int approx,
+                        int has_dp, float ln_eps, void* stream) {
+  return int(hs::launch_block_du(x, w1, b1, w2, b2, gamma, has_dp ? dscale : nullptr, dz,
+                                 du_lo, red, work, T, C, H, approx, ln_eps,
+                                 static_cast<cudaStream_t>(stream)));
 }
 
 int hs_mlp_block_bwd(const void* x, const void* w1, const void* b1, const void* w2,

@@ -1,5 +1,6 @@
-// The register-resident MLP row core of K12 (mlp_fwd_kernel) and K13's launch sequence
-// (mlp_dx_kernel, mlp_dw_kernel), csrc/mlp.cu.
+// The register-resident MLP row core of K12 and K14 (mlp_fwd_kernel), and of K13's and
+// K15's launch sequences (mlp_fwd_kernel with the LayerNorm backward epilogue,
+// mlp_dx_kernel, mlp_dw_kernel), csrc/mlp.cu.
 //
 // A warp owns 16 token rows.  The hidden is walked in tiles of 16 rows x 32 columns:
 // h = x W1[:, tile] in ascending 16-wide k-steps from zero sums, then + b1 in f32
@@ -25,32 +26,10 @@ constexpr float kTanhC = 0.044715f;
 constexpr float kInvSqrt2 = 0.7071067811865476f;
 constexpr float kInvSqrt2Pi = 0.3989422804014327f;
 
-// K14 / K15's GELU and its gradient, one element at a time
-__device__ __forceinline__ float gelu(float h, bool approx) {
-  if (approx) {
-    const float u = kSqrt2OverPi * (h + kTanhC * h * h * h);
-    return 0.5f * h * (1.f + tanhf(u));
-  }
-  return 0.5f * h * (1.f + erff(h * kInvSqrt2));
-}
-
-__device__ __forceinline__ float gelu_grad(float h, bool approx) {
-  if (approx) {
-    const float u = kSqrt2OverPi * (h + kTanhC * h * h * h);
-    const float t = tanhf(u);
-    const float du = kSqrt2OverPi * (1.f + 3.f * kTanhC * h * h);
-    return 0.5f * (1.f + t) + 0.5f * h * (1.f - t * t) * du;
-  }
-  const float cdf = 0.5f * (1.f + erff(h * kInvSqrt2));
-  const float pdf = kInvSqrt2Pi * expf(-0.5f * h * h);
-  return cdf + h * pdf;
-}
-
-// The row core's: the same arithmetic with the form (APPROX: tanh, else erf) fixed at
-// compile time, so that a tile's loop holds no branch.  GELU and its gradient share one
-// transcendental t, tanh(sqrt(2 / pi) (h + 0.044715 h^3)) or erf(h / sqrt 2); GELU(h) =
-// h (1 + t) / 2 in both forms.  A kernel that needs both computes t once and gets the
-// bits of each alone.
+// GELU and its gradient in f32, the form (APPROX: tanh, else erf) fixed at compile time,
+// so that a tile's loop holds no branch.  Both share one transcendental t,
+// tanh(sqrt(2 / pi) (h + 0.044715 h^3)) or erf(h / sqrt 2); GELU(h) = h (1 + t) / 2 in
+// both forms.  A kernel that needs both computes t once and gets the bits of each alone.
 template <bool APPROX>
 __device__ __forceinline__ float gelu_t(float h) {
   if constexpr (APPROX) return tanhf(kSqrt2OverPi * (h + kTanhC * h * h * h));
@@ -273,6 +252,228 @@ __device__ __forceinline__ void tile_t_times_tile_cols(float (&acc)[MW][2][4], c
         ldsm_x4_t(at, arow + k * lda + (m_first + m_stride * i) * 16);
         mma_bf16(acc[i][0], at, bb[0], bb[1]);
         mma_bf16(acc[i][1], at, bb[2], bb[3]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------------
+// The LayerNorm epilogues of the v2 MLP branch (K14, and K15's first step) on the row
+// core's accumulators.  After the hidden walk a warp holds u - b2 for its 16 rows and
+// its ntw n-tiles; with WPR warps in a row group each holds C / WPR columns of the
+// group's rows.  A row's sums go over its quad (quad_sum), then over the group's warps
+// in warp order through a small shared array (16 rows x WPR x 2 floats an exchange)
+// under the group's named barrier, so every warp of the group gets the same bits; no
+// block barrier, no (rows x C) tile in shared memory.  A group's exchange area holds
+// its three exchanges (mean, variance, and the backward's two row means), each used
+// once.  Both epilogues get xhat from ln_rows and ln_xhat, so K15's xhat is K14's bit
+// for bit; the statistics use explicitly rounded operations so that no contraction
+// can part the two.
+// ---------------------------------------------------------------------------------
+
+constexpr int LN_XCH_FLOATS = 3 * 16 * 2;  // a row group's exchange area, per warp of it
+
+// v[h][k] (row g + 8 h, quantity k) -> its sum over the row: the quad, then the wpr
+// warps of the row group in warp order through xch (16 x wpr x K floats), under named
+// barrier `bar`
+template <int K>
+__device__ __forceinline__ void row_sums(float (&v)[2][K], float* xch, int wpr, int bar) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int k = 0; k < K; ++k) v[h][k] = quad_sum(v[h][k]);
+  if (wpr == 1) return;
+  const int lane = threadIdx.x & 31;
+  const int w = (threadIdx.x >> 5) % wpr;
+  const int g = lane >> 2;
+  if ((lane & 3) == 0)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int k = 0; k < K; ++k) xch[((g + 8 * h) * wpr + w) * K + k] = v[h][k];
+  named_sync(bar, wpr * 32);
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const float* r = xch + (g + 8 * h) * wpr * K + k;
+      float sum = r[0];
+      for (int i = 1; i < wpr; ++i) sum = __fadd_rn(sum, r[i * K]);
+      v[h][k] = sum;
+    }
+}
+
+struct LnRows {  // this lane's two rows, g and g + 8: mean and 1 / sqrt(var + eps)
+  float mean[2], rstd[2];
+};
+
+// u = acc + b2 in place (acc: this warp's 16 rows x ntw n-tiles from column col0), then
+// the rows' statistics in two passes, var = the mean of (u - mean)^2, as the plain
+// version's _ln_stats; xch: the group's exchange area
+template <int NT>
+__device__ __forceinline__ LnRows ln_rows(float (&acc)[NT][4], int ntw, int col0,
+                                          const float* __restrict__ b2, int C, float eps,
+                                          float* xch, int wpr, int bar) {
+  const int c2 = (threadIdx.x & 3) * 2;
+  float s[2][1] = {{0.f}, {0.f}};
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    if (t < ntw) {
+      const int c = col0 + 8 * t + c2;
+      const float lo = b2[c], hi = b2[c + 1];
+      acc[t][0] = __fadd_rn(acc[t][0], lo);
+      acc[t][1] = __fadd_rn(acc[t][1], hi);
+      acc[t][2] = __fadd_rn(acc[t][2], lo);
+      acc[t][3] = __fadd_rn(acc[t][3], hi);
+      s[0][0] = __fadd_rn(s[0][0], __fadd_rn(acc[t][0], acc[t][1]));
+      s[1][0] = __fadd_rn(s[1][0], __fadd_rn(acc[t][2], acc[t][3]));
+    }
+  }
+  row_sums<1>(s, xch, wpr, bar);
+  LnRows r;
+  r.mean[0] = __fdiv_rn(s[0][0], float(C));
+  r.mean[1] = __fdiv_rn(s[1][0], float(C));
+  float q[2][1] = {{0.f}, {0.f}};
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    if (t < ntw) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float d = __fsub_rn(acc[t][e], r.mean[e >> 1]);
+        q[e >> 1][0] = __fmaf_rn(d, d, q[e >> 1][0]);
+      }
+    }
+  }
+  row_sums<1>(q, xch + 16 * wpr * 2, wpr, bar);
+  r.rstd[0] = rsqrtf(__fadd_rn(__fdiv_rn(q[0][0], float(C)), eps));
+  r.rstd[1] = rsqrtf(__fadd_rn(__fdiv_rn(q[1][0], float(C)), eps));
+  return r;
+}
+
+// xhat of u in row g + 8 h
+__device__ __forceinline__ float ln_xhat(float u, const LnRows& r, int h) {
+  return __fmul_rn(__fsub_rn(u, r.mean[h]), r.rstd[h]);
+}
+
+// K14: out = bf16(x + y), y = (xhat gamma + beta) times dscale[row] where given; x from
+// the block's x tile (xs, ld ldx; the warp's rows from lrow0), out rows from grow0
+template <int NT>
+__device__ __forceinline__ void ln_fwd_store(const float (&u)[NT][4], const LnRows& r, int ntw,
+                                             int col0, const float* __restrict__ gamma,
+                                             const float* __restrict__ beta,
+                                             const float* __restrict__ dscale, const bf16* xs,
+                                             int ldx, int lrow0, size_t grow0,
+                                             bf16* __restrict__ out, int C) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, c2 = (lane & 3) * 2;
+  float ds[2] = {1.f, 1.f};
+  if (dscale != nullptr) {
+    ds[0] = dscale[grow0 + g];
+    ds[1] = dscale[grow0 + g + 8];
+  }
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    if (t < ntw) {
+      const int c = col0 + 8 * t + c2;
+      const float g0 = gamma[c], g1 = gamma[c + 1], be0 = beta[c], be1 = beta[c + 1];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float y0 = ln_xhat(u[t][2 * h], r, h) * g0 + be0;
+        float y1 = ln_xhat(u[t][2 * h + 1], r, h) * g1 + be1;
+        if (dscale != nullptr) {
+          y0 = __fmul_rn(y0, ds[h]);
+          y1 = __fmul_rn(y1, ds[h]);
+        }
+        const float2 xv =
+            unpack_bf2(*reinterpret_cast<const uint32_t*>(xs + (lrow0 + g + 8 * h) * ldx + c));
+        *reinterpret_cast<uint32_t*>(out + (grow0 + g + 8 * h) * C + c) =
+            pack_bf2(xv.x + y0, xv.y + y1);
+      }
+    }
+  }
+}
+
+// K15 step 1, the LayerNorm backward: dy = dz dscale, dgl = dy gamma, m1 and m2 the
+// row means of dgl and dgl xhat (the group's third exchange), du = rstd (dgl - m1 -
+// xhat m2); du_lo = bf16(du) to rows from grow0; and the warp's column sums over its
+// 16 rows into red (its group's row: db2 over the unrounded du | dgamma = sum dy xhat
+// | dbeta = sum dy, 3C floats), each column by the one warp that holds it
+template <int NT>
+__device__ __forceinline__ void ln_bwd_store(const float (&u)[NT][4], const LnRows& r, int ntw,
+                                             int col0, const float* __restrict__ gamma,
+                                             const float* __restrict__ dscale,
+                                             const bf16* __restrict__ dz, size_t grow0,
+                                             bf16* __restrict__ du_lo, int C, float* xch,
+                                             int wpr, int bar, float* red) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, c2 = (lane & 3) * 2;
+  float ds[2] = {1.f, 1.f};
+  if (dscale != nullptr) {
+    ds[0] = dscale[grow0 + g];
+    ds[1] = dscale[grow0 + g + 8];
+  }
+  // dy of row g + 8 h, columns c and c + 1
+  auto dy_pair = [&](int h, int c) {
+    float2 d = unpack_bf2(*reinterpret_cast<const uint32_t*>(dz + (grow0 + g + 8 * h) * C + c));
+    if (dscale != nullptr) {
+      d.x = __fmul_rn(d.x, ds[h]);
+      d.y = __fmul_rn(d.y, ds[h]);
+    }
+    return d;
+  };
+  float m[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    if (t < ntw) {
+      const int c = col0 + 8 * t + c2;
+      const float g0 = gamma[c], g1 = gamma[c + 1];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float2 dy = dy_pair(h, c);
+        const float a0 = __fmul_rn(dy.x, g0), a1 = __fmul_rn(dy.y, g1);
+        m[h][0] = __fadd_rn(m[h][0], __fadd_rn(a0, a1));
+        m[h][1] = __fmaf_rn(a1, ln_xhat(u[t][2 * h + 1], r, h),
+                            __fmaf_rn(a0, ln_xhat(u[t][2 * h], r, h), m[h][1]));
+      }
+    }
+  }
+  row_sums<2>(m, xch + 2 * 16 * wpr * 2, wpr, bar);
+  float m1[2], m2[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    m1[h] = __fdiv_rn(m[h][0], float(C));
+    m2[h] = __fdiv_rn(m[h][1], float(C));
+  }
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    if (t < ntw) {
+      const int c = col0 + 8 * t + c2;
+      const float gm[2] = {gamma[c], gamma[c + 1]};
+      float du[2][2], dy[2][2], xh[2][2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float2 d = dy_pair(h, c);
+        dy[h][0] = d.x;
+        dy[h][1] = d.y;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          xh[h][e] = ln_xhat(u[t][2 * h + e], r, h);
+          const float dgl = __fmul_rn(dy[h][e], gm[e]);
+          du[h][e] = r.rstd[h] * (dgl - m1[h] - xh[h][e] * m2[h]);
+        }
+        *reinterpret_cast<uint32_t*>(du_lo + (grow0 + g + 8 * h) * C + c) =
+            pack_bf2(du[h][0], du[h][1]);
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float db2 = rows8(du[0][e] + du[1][e]);
+        const float dgam = rows8(dy[0][e] * xh[0][e] + dy[1][e] * xh[1][e]);
+        const float dbe = rows8(dy[0][e] + dy[1][e]);
+        if (lane < 4) {
+          red[c + e] = db2;
+          red[C + c + e] = dgam;
+          red[2 * C + c + e] = dbe;
+        }
       }
     }
   }

@@ -526,13 +526,6 @@ inline int proj_ln_blocks(int T) {
   return (windows + run - 1) / run;
 }
 
-// the sum over a warp's 8 row groups (lanes of one lane % 4)
-__device__ __forceinline__ float rows8(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 4);
-  v += __shfl_xor_sync(0xffffffffu, v, 8);
-  return v + __shfl_xor_sync(0xffffffffu, v, 16);
-}
-
 template <int WPB>
 __global__ void __launch_bounds__(kThreads, WPB == 1 ? 2 : 1)
 proj_ln_bwd_kernel(const bf16* __restrict__ o, const bf16* __restrict__ wp,

@@ -9,8 +9,14 @@ version:
   On the card a launch sequence from one entry: the dx kernel (``mlp_bwd_dx``), then
   the weight-gradient kernel with its reductions (``mlp_bwd_dw``), each beside its
   plain version (``mlp_bwd_dx_plain``, ``mlp_bwd_dw_plain``).
-- K14 ``mlp_block_fwd`` (``_blk_fwd_kernel``): x + dscale * LN(fc2(GELU(fc1 x))).
-- K15 ``mlp_block_bwd`` (``_blk_bwd_kernel``): its backward, with the residual.
+- K14 ``mlp_block_fwd`` (``_blk_fwd_kernel``): x + dscale * LN(fc2(GELU(fc1 x))),
+  K12's kernel with a LayerNorm epilogue.
+- K15 ``mlp_block_bwd`` (``_blk_bwd_kernel``): its backward, with the residual.  On the
+  card a launch sequence from one entry: K12's kernel with the LayerNorm backward
+  epilogue (``mlp_block_bwd_du``: du, rounded, and the db2, dgamma, dbeta sums), then
+  K13's dx kernel on du with the residual (``mlp_bwd_dx(..., residual=dz)``) and K13's
+  weight-gradient kernel on du, each beside its plain version (``mlp_block_du_plain``,
+  ``mlp_bwd_dx_plain``, ``mlp_bwd_dw_plain``).
 
 Entry points, on the JAX layout (weights (in, out)) and with the JAX package's
 semantics:
@@ -61,9 +67,9 @@ _TANH_C = 0.044715
 _INV_SQRT2 = 0.7071067811865476
 _INV_SQRT_2PI = 0.3989422804014327
 
-KERNEL_ROWS = 64  # T must be a multiple of K14/K15's row block (64; 32 above C 384)
+KERNEL_ROWS = 64  # T must be a multiple of the weight-gradient kernel's token steps
 KERNEL_HC = 32  # the kernels stream the hidden in chunks of 32 columns
-KERNEL_MAX_C = 768  # shared memory: x (and dout / du) tiles of the row block + one chunk
+KERNEL_MAX_C = 768  # registers: a row group's output columns over at most 4 warps
 
 # launch counters, bumped only where a kernel launches: per kernel, and per
 # (kernel, T, C, H, approximate[, has_dscale])
@@ -136,11 +142,16 @@ def _hidden_grads(x, w1, b1, w2, dout, approximate):
     return g, do, (do @ w2.to(dt).float().t()) * _gelu_grad_f32(h, approximate)
 
 
-def mlp_bwd_dx_plain(x, w1, b1, w2, dout, *, approximate: bool):
-    """Plain version of K13's dx kernel: dx = bf16(dh) W1^T, (T, C) in x's dtype."""
+def mlp_bwd_dx_plain(x, w1, b1, w2, dout, *, approximate: bool, residual=None):
+    """Plain version of K13's dx kernel: dx = bf16(dh) W1^T, (T, C) in x's dtype.  With
+    ``residual`` (K15's second step, the residual dz) it is added in f32 before the
+    rounding: dx = residual + bf16(dh) W1^T."""
     dt = x.dtype
     _, _, dh = _hidden_grads(x, w1, b1, w2, dout, approximate)
-    return (dh.to(dt).float() @ w1.to(dt).float().t()).to(dt)
+    dx = dh.to(dt).float() @ w1.to(dt).float().t()
+    if residual is not None:
+        dx = residual.to(dt).float() + dx
+    return dx.to(dt)
 
 
 def mlp_bwd_dw_plain(x, w1, b1, w2, dout, *, approximate: bool):
@@ -179,26 +190,35 @@ def mlp_block_plain(x, w1, b1, w2, b2, gamma, beta, dscale, *, approximate: bool
     return (x.float() + y).to(dt)
 
 
-def mlp_block_bwd_plain(x, w1, b1, w2, b2, gamma, beta, dscale, dz, *, approximate: bool,
-                        ln_eps: float = 1e-5):
-    """Plain version of K15 (``_blk_bwd_kernel``).  dz: (T, C), the output's gradient.
-    Returns dx (T, C) in x's dtype (the residual included) and dW1, db1, dW2, db2,
-    dgamma, dbeta as f32 sums."""
+def mlp_block_du_plain(x, w1, b1, w2, b2, gamma, dscale, dz, *, approximate: bool,
+                       ln_eps: float = 1e-5):
+    """Plain version of K15's first step: the branch recomputed and the LayerNorm
+    backward.  Returns du rounded to x's dtype (T, C) and db2 (the sum of the unrounded
+    du), dgamma = sum dy xhat and dbeta = sum dy as f32 sums, dy = dz dscale."""
     dt = x.dtype
-    w1f, w2f = w1.to(dt).float(), w2.to(dt).float()
-    h, g = _hidden(x, w1, b1, approximate)
-    xhat, rstd = _ln_stats(g @ w2f + b2.float(), ln_eps)
+    _, g = _hidden(x, w1, b1, approximate)
+    xhat, rstd = _ln_stats(g @ w2.to(dt).float() + b2.float(), ln_eps)
     dzf = dz.to(dt).float()
     dy = dzf * dscale.float() if dscale is not None else dzf
     dgl = dy * gamma.float()
     du = rstd * (dgl - dgl.mean(-1, keepdim=True)
                  - xhat * (dgl * xhat).mean(-1, keepdim=True))
-    du_lo = du.to(dt).float()
-    dh = (du_lo @ w2f.t()) * _gelu_grad_f32(h, approximate)
-    dh_lo = dh.to(dt).float()
-    dx = (dzf + dh_lo @ w1f.t()).to(dt)
-    return (dx, x.float().t() @ dh_lo, dh.sum(0), g.t() @ du_lo, du.sum(0),
-            (dy * xhat).sum(0), dy.sum(0))
+    return du.to(dt), du.sum(0), (dy * xhat).sum(0), dy.sum(0)
+
+
+def mlp_block_bwd_plain(x, w1, b1, w2, b2, gamma, beta, dscale, dz, *, approximate: bool,
+                        ln_eps: float = 1e-5):
+    """Plain version of K15 (``_blk_bwd_kernel``), its three steps composed: du
+    (``mlp_block_du_plain``), then dx with the residual dz (``mlp_bwd_dx_plain``) and
+    the weight gradients (``mlp_bwd_dw_plain``, its db2 replaced by the first step's)
+    on the rounded du.  dz: (T, C), the output's gradient.  Returns dx (T, C) in x's
+    dtype and dW1, db1, dW2, db2, dgamma, dbeta as f32 sums."""
+    kw = dict(approximate=approximate)
+    du_lo, db2, dgamma, dbeta = mlp_block_du_plain(x, w1, b1, w2, b2, gamma, dscale, dz,
+                                                   ln_eps=ln_eps, **kw)
+    dx = mlp_bwd_dx_plain(x, w1, b1, w2, du_lo, residual=dz, **kw)
+    dw1, db1, dw2, _ = mlp_bwd_dw_plain(x, w1, b1, w2, du_lo, **kw)
+    return dx, dw1, db1, dw2, db2, dgamma, dbeta
 
 
 # --------------------------------------------------------------------------- kernels
@@ -308,17 +328,20 @@ def mlp_bwd(x, w1, b1, w2, b2, dout, *, approximate: bool, impl="auto"):
     return dx, dw1, db1, dw2, db2
 
 
-def mlp_bwd_dx(x, w1, b1, w2, dout, *, approximate: bool, impl="auto"):
-    """K13's dx kernel alone (the first step of its launch sequence; not counted, as
-    K13's launches count the sequence); results as ``mlp_bwd_dx_plain``."""
+def mlp_bwd_dx(x, w1, b1, w2, dout, *, approximate: bool, residual=None, impl="auto"):
+    """K13's dx kernel alone (the first step of its launch sequence, and with
+    ``residual`` the second of K15's; not counted, as K13's and K15's launches count
+    their sequences); results as ``mlp_bwd_dx_plain``."""
     if not use_kernel(x, impl):
-        return mlp_bwd_dx_plain(x, w1, b1, w2, dout, approximate=approximate)
+        return mlp_bwd_dx_plain(x, w1, b1, w2, dout, approximate=approximate,
+                                residual=residual)
     what = "mlp_bwd_dx"
     T, C, H, ops = _operands(what, x, w1, b1, w2, torch.zeros(w2.shape[1], device=x.device))
     dout = _grad_operand(what, dout, T, C)
+    res = None if residual is None else _grad_operand(what, residual, T, C)
     dx = torch.empty_like(ops[0])
-    check(_build.lib().hs_mlp_bwd_dx(*_ptrs(ops[:4] + [dout, dx]), T, C, H, int(approximate),
-                                     stream(x)), what)
+    check(_build.lib().hs_mlp_bwd_dx(*_ptrs(ops[:4] + [dout, res, dx]), T, C, H,
+                                     int(approximate), stream(x)), what)
     return dx
 
 
@@ -354,9 +377,34 @@ def mlp_block_fwd(x, w1, b1, w2, b2, gamma, beta, dscale, *, approximate: bool,
     return out
 
 
+def mlp_block_bwd_du(x, w1, b1, w2, b2, gamma, dscale, dz, *, approximate: bool,
+                     ln_eps: float = 1e-5, impl="auto"):
+    """K15's first kernel alone, with the reduction of its partial rows (not counted, as
+    K15's launches count the sequence); results as ``mlp_block_du_plain``: du_lo (T, C)
+    and db2, dgamma, dbeta."""
+    if not use_kernel(x, impl):
+        return mlp_block_du_plain(x, w1, b1, w2, b2, gamma, dscale, dz,
+                                  approximate=approximate, ln_eps=ln_eps)
+    what = "mlp_block_bwd_du"
+    T, C, H, ops = _operands(what, x, w1, b1, w2, b2, (gamma,))
+    ds = _dscale_operand(what, dscale, T, x)
+    dz = _grad_operand(what, dz, T, C)
+    lib = _build.lib()
+    du = torch.empty_like(ops[0])
+    red = torch.empty(3 * C, dtype=torch.float32, device=x.device)  # db2 | dgamma | dbeta
+    work = torch.empty(lib.hs_mlp_block_bwd_workspace(T, C, H), dtype=torch.uint8,
+                       device=x.device)
+    check(lib.hs_mlp_block_bwd_du(*_ptrs(ops + [ds, dz, du, red, work]), T, C, H,
+                                  int(approximate), int(ds is not None), float(ln_eps),
+                                  stream(x)), what)
+    return (du, *red.split([C, C, C]))
+
+
 def mlp_block_bwd(x, w1, b1, w2, b2, gamma, beta, dscale, dz, *, approximate: bool,
                   ln_eps: float = 1e-5, impl="auto"):
-    """K15 wrapper: the backward of K14; results as ``mlp_block_bwd_plain``."""
+    """K15 wrapper: the backward of K14, one entry that launches its sequence (the row
+    kernel with the LayerNorm backward, K13's dx kernel with the residual, K13's
+    weight-gradient kernel, the reductions); results as ``mlp_block_bwd_plain``."""
     if not use_kernel(x, impl):
         return mlp_block_bwd_plain(x, w1, b1, w2, b2, gamma, beta, dscale, dz,
                                    approximate=approximate, ln_eps=ln_eps)

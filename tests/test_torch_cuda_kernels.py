@@ -1143,6 +1143,92 @@ def test_mlp_kernels_hidden_tail(dev, T, C, H, approximate):
     assert all(torch.equal(a, b) for a, b in zip(grads, again))
 
 
+MLP_BLOCK_BWD_TOL = 4e-3  # chip_smoke.py's MLP_REL_L2_TOL for K15 (dx as dx - dz)
+
+
+@pytest.mark.parametrize("C", [96, 384])
+@pytest.mark.parametrize("approximate", [True, False])
+def test_mlp_block_bwd_recomputes_the_forward_xhat(dev, C, approximate):
+    """K15 recomputes K14's xhat bit for bit: with gamma = 1, beta = 0, no dscale and dz
+    one on every column of row t and zero elsewhere, K15's dgamma is xhat[t, :], and
+    bf16(x[t] + dgamma) must equal K14's out[t] (one row group over two warps at C
+    384)."""
+    from heal_swin_torch.ops import mlp as tm
+
+    gen = torch.Generator().manual_seed(140 + C + approximate)
+    T, H = 64 * 3, 4 * C
+    x, w1, b1, w2, b2, _, _ = _mlp_args(gen, dev, T, C, H)
+    gamma, beta = torch.ones(C, device=dev), torch.zeros(C, device=dev)
+    kw = dict(approximate=approximate)
+    out = tm.mlp_block_fwd(x, w1, b1, w2, b2, gamma, beta, None, **kw)
+    for t in (0, T - 1, 100):
+        dz = torch.zeros(T, C, device=dev, dtype=torch.bfloat16)
+        dz[t] = 1
+        dgamma = tm.mlp_block_bwd(x, w1, b1, w2, b2, gamma, beta, None, dz, **kw)[5]
+        torch.cuda.synchronize()
+        assert (dgamma != 0).sum() > C // 2  # the probe reads a real row
+        assert torch.equal((x[t].float() + dgamma).to(torch.bfloat16), out[t])
+
+
+@pytest.mark.parametrize("T,C", [(262144, 96), (65536, 192), (16384, 384), (4096, 768)])
+def test_mlp_block_bwd_sequence_kernels(dev, T, C):
+    """K15's kernels alone and together against their plain versions at the four stage
+    shapes (tanh GELU, with the DropPath scale): the first step's du_lo, db2, dgamma and
+    dbeta, the dx kernel with the residual on the plain du_lo (dx - dz), and the whole
+    K15 (dx - dz and every parameter gradient), within MLP_BLOCK_BWD_TOL; a second K15
+    launch gives the same bits."""
+    from heal_swin_torch.ops import mlp as tm
+
+    gen = torch.Generator().manual_seed(150 + C)
+    H = 4 * C
+    x, w1, b1, w2, b2, gamma, beta = args = _mlp_args(gen, dev, T, C, H)
+    ds = torch.where(torch.rand(T, 1, generator=gen) < 0.3, 0.0, 1.25).to(dev)
+    dz = _randn(gen, dev, T, C).to(torch.bfloat16)
+    dzf = dz.float()
+    kw = dict(approximate=True)
+    du = tm.mlp_block_bwd_du(x, w1, b1, w2, b2, gamma, ds, dz, **kw)
+    du_p = tm.mlp_block_du_plain(x, w1, b1, w2, b2, gamma, ds, dz, **kw)
+    dx = tm.mlp_bwd_dx(x, w1, b1, w2, du_p[0], residual=dz, **kw)
+    dx_p = tm.mlp_bwd_dx_plain(x, w1, b1, w2, du_p[0], residual=dz, **kw)
+    grads = tm.mlp_block_bwd(*args, ds, dz, **kw)
+    again = tm.mlp_block_bwd(*args, ds, dz, **kw)
+    torch.cuda.synchronize()
+    _assert_grads_close(du, du_p, tol=MLP_BLOCK_BWD_TOL)
+    _assert_grads_close((dx.float() - dzf,), (dx_p.float() - dzf,), tol=MLP_BLOCK_BWD_TOL)
+    want = tm.mlp_block_bwd_plain(*args, ds, dz, **kw)
+    _assert_grads_close((grads[0].float() - dzf,) + grads[1:],
+                        (want[0].float() - dzf,) + want[1:], tol=MLP_BLOCK_BWD_TOL)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.parametrize("T,C,H", [(64 * 3, 32, 96), (64 * 5, 96, 160), (64 * 3, 384, 224),
+                                   (64 * 2, 768, 96), (64 * 4, 224, 96)])
+@pytest.mark.parametrize("approximate", [True, False])
+def test_mlp_block_kernels_hidden_tail(dev, T, C, H, approximate):
+    """K14 and K15 where H is a multiple of 32 but not of the weight-gradient kernel's
+    64-column slice (or not 4C), and T leaves a partial row block, with the DropPath
+    scale: the branch z - x and K15's dx - dz and parameter gradients within 1e-3 /
+    MLP_BLOCK_BWD_TOL of their plain versions, a second K15 launch bit-equal."""
+    from heal_swin_torch.ops import mlp as tm
+
+    gen = torch.Generator().manual_seed(160 + C + H)
+    args = _mlp_args(gen, dev, T, C, H)
+    x = args[0].float()
+    ds = torch.where(torch.rand(T, 1, generator=gen) < 0.3, 0.0, 1.25).to(dev)
+    dz = _randn(gen, dev, T, C).to(torch.bfloat16)
+    dzf = dz.float()
+    kw = dict(approximate=approximate)
+    out = tm.mlp_block_fwd(*args, ds, **kw)
+    grads = tm.mlp_block_bwd(*args, ds, dz, **kw)
+    again = tm.mlp_block_bwd(*args, ds, dz, **kw)
+    torch.cuda.synchronize()
+    assert _rel_l2(out.float() - x, tm.mlp_block_plain(*args, ds, **kw).float() - x) < 1e-3
+    want = tm.mlp_block_bwd_plain(*args, ds, dz, **kw)
+    _assert_grads_close((grads[0].float() - dzf,) + grads[1:],
+                        (want[0].float() - dzf,) + want[1:], tol=MLP_BLOCK_BWD_TOL)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
 def test_mlp_kernels_refuse_what_they_do_not_take(dev):
     from heal_swin_torch.ops import mlp as tm
 

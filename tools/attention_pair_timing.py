@@ -17,8 +17,9 @@ each in both flavours, at the bottleneck (T 4,096, C 768, 24 heads); and one
 control for the spread between turns.  The MLP family (``--family mlp``), tanh GELU, on
 ``check_mlp_kernels``'s operands (``mlp_inputs``) at the four stage shapes (T 262,144 /
 65,536 / 16,384 / 4,096, C 96 / 192 / 384 / 768, H 4C): K12, K13, K14 and K15 (with the
-DropPath scale), and the port's cuBLAS / ATen route for K12 / K13's function
-(``mlp_route``, forward and backward) as the control.  ``--family all`` (the default)
+DropPath scale), and the port's cuBLAS / ATen routes for K12 / K13's function and for
+K14 / K15's (``mlp_route``, forward and backward; the branch's with the DropPath scale)
+as the controls.  ``--family all`` (the default)
 times both.
 
 Each shape gets two times: the device time (``device_ms``: each call enqueued behind a
@@ -29,7 +30,7 @@ line, then per kind of time one line per shape with the four times, and each ker
 summed over a train step's launches (at C <= 384 2 unmasked and 2 masked at C 96 and
 C 192, 6 and 6 at C 384; K2 / K5 one of each) and the MLP kernels over chip_smoke.py's
 MLP phase (K12 and K13 4 launches at C 96; K14 and K15 4, 4 and 12 at C 96, 192, 384;
-the route as K12 / K13).  Needs one CUDA GPU.
+the routes as K12 / K13 and K14 / K15).  Needs one CUDA GPU.
 """
 
 from __future__ import annotations
@@ -51,8 +52,10 @@ STEP_LAUNCHES = {(96, False): 2, (96, True): 2, (192, False): 2, (192, True): 2,
                  (384, False): 6, (384, True): 6, (768, False): 1, (768, True): 1}
 # launches per C in chip_smoke.py's MLP phase: K12 / K13 on the 4 blocks at C 96, K14 /
 # K15 on the 20 at C <= 384
-MLP_LAUNCHES = {"K12": {96: 4}, "K13": {96: 4}, "K14": {96: 4, 192: 4, 384: 12},
-                "K15": {96: 4, 192: 4, 384: 12}, "route-fwd": {96: 4}, "route-bwd": {96: 4}}
+BLOCK_LAUNCHES = {96: 4, 192: 4, 384: 12}
+MLP_LAUNCHES = {"K12": {96: 4}, "K13": {96: 4}, "K14": BLOCK_LAUNCHES, "K15": BLOCK_LAUNCHES,
+                "route-fwd": {96: 4}, "route-bwd": {96: 4}, "route-block-fwd": BLOCK_LAUNCHES,
+                "route-block-bwd": BLOCK_LAUNCHES}
 
 
 def load_smoke():
@@ -119,7 +122,7 @@ def turn(root: Path, family: str) -> dict:
 
 
 def mlp_times(smoke, dev, both) -> dict:
-    """K12-K15 and the route at the four stage shapes, tanh GELU."""
+    """K12-K15 and the routes at the four stage shapes, tanh GELU."""
     import torch
 
     from heal_swin_torch.ops import mlp as tm
@@ -140,9 +143,10 @@ def mlp_times(smoke, dev, both) -> dict:
             times[f"K13 {label}"] = both(lambda: tm.mlp_bwd(*a5, dz, **kw))
             times[f"K14 {label}"] = both(lambda: tm.mlp_block_fwd(*args, ds, **kw))
             times[f"K15 {label}"] = both(lambda: tm.mlp_block_bwd(*args, ds, dz, **kw))
-        route_f, route_b = smoke.mlp_route(args, None, True, block=False)
-        times[f"route-fwd {label}"] = both(route_f)
-        times[f"route-bwd {label}"] = both(route_b)
+        for name, d, block in (("route", None, False), ("route-block", ds, True)):
+            route_f, route_b = smoke.mlp_route(args, d, True, block=block)
+            times[f"{name}-fwd {label}"] = both(route_f)
+            times[f"{name}-bwd {label}"] = both(route_b)
         del args, dz, ds, route_f, route_b
         torch.cuda.empty_cache()
     return times
