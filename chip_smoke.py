@@ -2,7 +2,9 @@
 holds each against its plain PyTorch version at the shapes of the main path (K4, a
 launch sequence, also step by step: its projection/LayerNorm backward alone, and
 one-hot probes that K4 and K5 recompute K1's and K2's probabilities, K13 K12's
-hidden and K15 K14's LayerNorm xhat bit for bit), then
+hidden and K15 K14's LayerNorm xhat bit for bit; K7, a launch sequence too, step by
+step, and a probe through both kernels' logits taps that it recomputes K6's logits bit
+for bit), then
 drives HEAL-SWIN-UNet at the paper configuration (nside 256, batch 2, bf16, random
 seeded weights) through the kernels and through the plain path: segmentation
 ``predict`` (serving) and its train step (forward, weighted CE, backward, Adam), and
@@ -38,7 +40,9 @@ such launches; K12-K15 add ``route_ms``, the port's composed cuBLAS / ATen route
 K16/K17 ``route_ms``, the composed PyTorch route of their scaled-dot function (bf16
 ``F.linear`` + ``scaled_dot_product_attention``, autograd backward); K2/K5 (timed in
 the scaled-dot flavour of that step, the cosine flavour beside it) add ``library_ms``,
-one ``scaled_dot_product_attention`` call (forward; backward).  For K10 / K11
+one ``scaled_dot_product_attention`` call (forward; backward); K6 / K7 add ``route_ms``,
+the composed PyTorch route (bf16 ``F.linear``, ``F.layer_norm``, ``F.linear``, weighted
+``F.cross_entropy`` and ``torch.bincount``; its autograd backward).  For K10 / K11
 ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` cover the same work: sample 0's
 HP pair (chamfer_distance) for K10 (the library call there is ``torch.cdist`` in its inexact
 matrix-multiply form, then the minima), and the folds of its pruned
@@ -353,12 +357,11 @@ def check_kernels(gen, dev):
     timed.update(check_qkv_kernels(gen, dev, rnd, logit_scales))
 
     # K3: the decoder tail, T = 262144 tokens, p = 4, F = 10
-    C, p, F = 96, 4, N_CLASSES
-    T = BATCH * 8 * NSIDE * NSIDE // p
-    x = rnd(T, C).to(bf16)
-    we, wh = rnd(C, p * C, std=0.02), rnd(C, F, std=0.02)
-    g, b = 1.0 + rnd(C, std=0.1), rnd(C, std=0.1)
-    args = (x, we, g, b, wh)
+    largs = tail_inputs(rnd, gen, dev)
+    args, (y, welem) = largs[:5], largs[5:]
+    x, we, g, b, wh = args
+    T, C = x.shape
+    p, F = TAIL_P, N_CLASSES
     got = fh.final_head_predict(*args, patch_size=p, impl="pallas")
     want = fh.final_head_predict_plain(*args, patch_size=p)
     logits = fh.final_head_logits_plain(*args, patch_size=p)
@@ -374,9 +377,6 @@ def check_kernels(gen, dev):
         near_tie_rows=near, ms=ms, plain_ms=pms)
 
     # K6 / K7: the fused CE tail and its backward, on the same tail operands
-    y = torch.randint(0, F, (T, p), generator=gen, dtype=torch.int32).to(dev)
-    welem = (0.5 + torch.rand(F, generator=gen)).to(dev)[y.long()]
-    largs = args + (y, welem)
     timed.update(check_loss_kernels("K6/K7", largs, p, fh))
 
     # K8 / K9: the fused masked depth loss and its backward, on the same x, expand and
@@ -389,6 +389,95 @@ def check_kernels(gen, dev):
                                          timing=(kind, F) == DEPTH_CASES[0]))
     check_depth_edges(args[:4] + (rnd(C, 1, std=0.1), t), p, fh)
     return timed
+
+
+TAIL_P = 4  # the expand's sub-pixels (patch size 4)
+
+
+def tail_inputs(rnd, gen, dev):
+    """The paper tail's operands (T = 262,144 tokens of batch 2 at nside 256, C 96, p 4,
+    F 10): (x, we, gamma, beta, wh, y, welem), x bf16, per-element weights of random
+    class weights."""
+    C, p, F = 96, TAIL_P, N_CLASSES
+    T = BATCH * 8 * NSIDE * NSIDE // p
+    x = rnd(T, C).to(torch.bfloat16)
+    we, wh = rnd(C, p * C, std=0.02), rnd(C, F, std=0.02)
+    g, b = 1.0 + rnd(C, std=0.1), rnd(C, std=0.1)
+    y = torch.randint(0, F, (T, p), generator=gen, dtype=torch.int32).to(dev)
+    welem = (0.5 + torch.rand(F, generator=gen)).to(dev)[y.long()]
+    return x, we, g, b, wh, y, welem
+
+
+def tail_route(largs, p):
+    """The composed PyTorch route for K6's and K7's function on their operands: bf16
+    ``F.linear`` for the expand, ``F.layer_norm`` on the bf16 sub-rows, ``F.linear`` for
+    the head, the weighted ``F.cross_entropy`` in f32 and the confusion matrix by
+    ``torch.bincount`` of the argmax.  Returns (forward, backward): forward() gives
+    (loss, confusion matrix), backward() the autograd gradients of x, We, gamma, beta and
+    Wh for a loss gradient of 1."""
+    import torch.nn.functional as tF
+
+    x, we, g, b, wh, y, welem = largs
+    T, C = x.shape
+    F = wh.shape[1]
+    bf16 = torch.bfloat16
+    leaves = [t.detach().to(bf16).contiguous().requires_grad_()
+              for t in (x, we.t(), g, b, wh.t())]
+    yl, wl = y.reshape(-1).long(), welem.reshape(-1).float()
+
+    def fwd():
+        xr, wet, gr, br, wht = leaves
+        z = tF.layer_norm(tF.linear(xr, wet).reshape(T * p, C), (C,), gr, br, 1e-5)
+        lf = tF.linear(z, wht)
+        loss = (wl * tF.cross_entropy(lf.float(), yl, reduction="none")).sum() / wl.sum()
+        return loss, torch.bincount(yl * F + lf.argmax(-1), minlength=F * F)
+
+    loss, _ = fwd()
+
+    def forward():
+        with torch.no_grad():
+            return fwd()
+
+    return forward, lambda: torch.autograd.grad(loss, leaves, retain_graph=True)
+
+
+def tail_sequence(T, C, F, p):
+    """K7's launch sequence at a shape: kernel -> launches in one call (the row kernel;
+    ``reduce_rows`` over its partial rows, two passes above 64 rows; ``gemm_tn`` and its
+    ``reduce_rows`` over its token splits, one split per 2048 tokens up to 128)."""
+    from heal_swin_torch import _build
+
+    def passes(rows):
+        return 1 if rows <= 64 else 2
+
+    grid = _build.lib().hs_final_head_loss_bwd_grid(T, C, F, p)
+    return {"tail_bwd_kernel": 1, "gemm_tn_kernel": 1,
+            "reduce_rows_kernel": passes(grid) + passes(min(-(-T // 2048), 128))}
+
+
+def check_tail_steps(name, largs, p, fh, scale):
+    """Each step of K7's launch sequence against its plain twin on the step's own input:
+    the row kernel (dx, dh, the partial rows on its grid) within REL_L2_TOL, ``gemm_tn``
+    (dWe = x^T dh) and ``reduce_rows`` within 1e-5 (f32 sums of the same bf16 and f32
+    operands in another order); and K7 is the three steps composed, bit for bit.
+    Returns the row kernel's grid."""
+    x, C, F = largs[0], largs[0].shape[1], largs[4].shape[1]
+    dx, dh, part = fh.final_head_loss_bwd_rows(*largs, scale, patch_size=p, impl="pallas")
+    grid = part.shape[0]
+    err, _ = check_grads(f"{name} row step", ("dx", "dh", "partial rows"), (dx, dh, part),
+                         fh.final_head_loss_bwd_rows_plain(*largs, scale, patch_size=p,
+                                                           grid=grid))
+    dwe = fh.final_head_loss_dwe(x, dh, impl="pallas")
+    e_dwe, _ = check_close(f"{name} dWe step", dwe, fh.final_head_loss_dwe_plain(x, dh), 1e-5)
+    red = fh.reduce_rows(part, impl="pallas")
+    e_red, _ = check_close(f"{name} reduce step", red, fh.reduce_rows_plain(part), 1e-5)
+    dwh, dg, db = red.split([C * F, C, C])
+    whole = fh.final_head_loss_bwd(*largs, scale, patch_size=p, impl="pallas")
+    if not all(torch.equal(a, b) for a, b in zip(whole, (dx, dwe, dg, db, dwh.reshape(C, F)))):
+        raise AssertionError(f"{name}: K7 is not its three steps composed")
+    log(f"{name} sequence step by step on {grid} blocks: row kernel rel_l2 <= {err:.3e}, "
+        f"gemm_tn {e_dwe:.3e}, reduce_rows {e_red:.3e}; K7 is the steps composed, bit-equal")
+    return grid
 
 
 def depth_targets(gen, T, p, dev):
@@ -726,7 +815,9 @@ def check_probes(gen, dev):
     weight-gradient kernel recomputes.  (e) K15 against K14 at the MLP stage shapes at C
     <= 384 (tanh; erf too at C 96): with gamma = 1, beta = 0, no dscale and dz one on
     every column of row t, K15's dgamma is xhat[t, :], so bf16(x[t] + dgamma) is K14's
-    out[t]."""
+    out[t].  (f) K7 against K6 at the paper tail: the rounded logits its row kernel
+    recomputes are the ones K6's cross entropy took, read through both kernels' logits
+    taps."""
     from heal_swin_torch.ops import window_attention as wa
 
     bf16 = torch.bfloat16
@@ -807,6 +898,15 @@ def check_probes(gen, dev):
                            f"recomputed xhat against K14's", (x[t].float() + dgamma).to(bf16),
                            out[t], C // 2)
         del x, out
+    from heal_swin_torch.ops import final_head as fh
+
+    largs = tail_inputs(rnd, gen, dev)
+    T, C = largs[0].shape
+    lf6 = fh.final_head_loss_sums(*largs, patch_size=TAIL_P, impl="pallas", tap_logits=True)[3]
+    lf7 = fh.final_head_loss_bwd_rows(*largs, torch.ones((), device=dev), patch_size=TAIL_P,
+                                      impl="pallas", tap_logits=True)[3]
+    equal_bits(f"probe (f) T={T} C={C} p={TAIL_P} F={N_CLASSES}: K7's recomputed logits "
+               f"against K6's", lf7, lf6, lf6.numel() // 2)
 
 
 def log_k4_sequence(timed, run):
@@ -872,6 +972,32 @@ def log_mlp_sequences(timed, run):
             log(f"{name_of} sequence: {ms:9.4f} ms  {name} ({seq[name]} a call)")
 
 
+def log_tail_sequence(timed, run):
+    """K7's launch sequence by kernel over a train step: each kernel's device ms a launch
+    in a traced K7 call at each shape (``check_loss_kernels``) times its launches in one
+    call (``tail_sequence``; the profiler's records of a traced call can miss a launch),
+    weighted by the step's K7 launches at that shape (``run``).  The wrapper's own
+    operand copies (the expand weight split into its p slices, the head and LayerNorm
+    parameters cast) count as recorded, under their ATen names."""
+    _, by_shape = run
+    total = collections.defaultdict(float)
+    for key, n in by_shape.items():
+        if key[0] != "final_head_loss_bwd":
+            continue
+        seq = tail_sequence(*key[1:], N_CLASSES, TAIL_P)
+        for name, (ms, recorded) in timed[("tail_sequence",) + key[1:]].items():
+            part = next((k for k in seq if k in name), None)
+            calls = seq[part] if part is not None else recorded
+            part = part or f"operand copy {name[:70]}"
+            total[part] += n * ms * calls
+            log(f"K7 sequence T={key[1]} C={key[2]}: {part} {ms:.4f} ms a launch, "
+                f"{recorded:.2f} recorded a call, {calls:g} counted a call")
+    log(f"K7 sequence over the train step's K7 launches: {sum(total.values()):.4f} ms on "
+        f"the device")
+    for name, ms in sorted(total.items(), key=lambda kv: -kv[1]):
+        log(f"K7 sequence: {ms:9.4f} ms  {name}")
+
+
 def check_grads(name, names, got, want, tol=REL_L2_TOL):
     """Every gradient a backward kernel returns against its plain version's (both None
     where the operand has none).  Returns the worst relative L2 and max abs error."""
@@ -930,27 +1056,41 @@ def check_loss_kernels(name, largs, p, fh, timing=True):
         got = fh.final_head_loss_bwd(*largs, scale, patch_size=p, impl="pallas")
         want = fh.final_head_loss_bwd_plain(*largs, scale, patch_size=p)
         err, mae = check_grads(name, K7_GRADS, got, want)
+        again = fh.final_head_loss_bwd(*largs, scale, patch_size=p, impl="pallas")
+        if not all(torch.equal(g, a) for g, a in zip(got, again)):
+            raise AssertionError(f"{name}: two K7 launches differ")
+        del got, want, again
     log(f"{name} final_head_loss T={T} C={C}: loss {loss:.6f} plain {wloss:.6f} (rel "
         f"{abs(loss - wloss) / abs(wloss):.2e}); confusion matrix: {moved} of {T * p} "
         f"elements in another column, all near-ties ({near} near-tie elements); "
-        f"backward rel_l2 <= {err:.3e} max_abs {mae:.3e}")
+        f"backward rel_l2 <= {err:.3e} max_abs {mae:.3e}, two launches bit-equal")
     if not timing:
         return {}
     with torch.no_grad():
+        check_tail_steps(name, largs, p, fh, scale)
         ms6 = median_ms(lambda: fh.final_head_loss_sums(*largs, patch_size=p, impl="pallas"))
         pms6 = median_ms(lambda: fh.final_head_loss_plain(*largs, patch_size=p))
         ms7 = median_ms(lambda: fh.final_head_loss_bwd(*largs, scale, patch_size=p,
                                                        impl="pallas"))
         pms7 = median_ms(lambda: fh.final_head_loss_bwd_plain(*largs, scale, patch_size=p))
-    log(f"K6 final_head_loss T={T} C={C} p={p}: kernel {ms6:.4f} ms plain {pms6:.4f} ms")
-    log(f"K7 final_head_loss_bwd T={T} C={C} p={p}: kernel {ms7:.4f} ms plain {pms7:.4f} ms")
+        per, _ = trace(lambda: fh.final_head_loss_bwd(*largs, scale, patch_size=p,
+                                                      impl="pallas"), SEQUENCE_TRACED)
+    route_f, route_b = tail_route(largs, p)
+    rms6, rms7 = median_ms(route_f), median_ms(route_b)
+    del route_f, route_b
+    log(f"K6 final_head_loss T={T} C={C} p={p}: kernel {ms6:.4f} ms plain {pms6:.4f} ms "
+        f"route {rms6:.4f} ms")
+    log(f"K7 final_head_loss_bwd T={T} C={C} p={p}: kernel {ms7:.4f} ms plain {pms7:.4f} ms "
+        f"route {rms7:.4f} ms")
     # K6's max_abs_err: |loss - plain loss|; the confusion matrix's moved elements are
     # counted on their own
     return {("final_head_loss", T, C): dict(max_abs_err=abs(loss - wloss),
                                             confmat_moved=moved, near_tie_elements=near,
-                                            ms=ms6, plain_ms=pms6),
+                                            ms=ms6, plain_ms=pms6, route_ms=rms6),
             ("final_head_loss_bwd", T, C): dict(rel_l2=err, max_abs_err=mae, ms=ms7,
-                                                plain_ms=pms7)}
+                                                plain_ms=pms7, route_ms=rms7),
+            ("tail_sequence", T, C): {name: (dev_ms / n, n / SEQUENCE_TRACED)
+                                      for name, (dev_ms, n) in per.items()}}
 
 
 def build_task(impl, dev, state=None, depth=False, cos=True):
@@ -2465,6 +2605,11 @@ PTXAS_NAMES = {"11attn_kernel": "K2 attn_kernel",
                "13mlp_dw_kernelILi3ELi4E": "K13 step 2, K15 step 3 mlp_dw_kernel<3, 4> (C <= 96)",
                "13mlp_dw_kernelILi6ELi4E": "K13 step 2, K15 step 3 mlp_dw_kernel<6, 4> (C <= 192)",
                "13mlp_dw_kernelILi6ELi1E": "K13 step 2, K15 step 3 mlp_dw_kernel<6, 1> (C > 192)"}
+# the tail row core's kernels: K6 and K7's row kernel at each C and head width
+PTXAS_NAMES.update({
+    f"{len(k)}{k}ILi{nt}ELi{nf}E": f"{'K6' if 'loss' in k else 'K7 step 1'} {k}<{nt}, {nf}> "
+                                   f"(C {8 * nt}, F <= {8 * nf})"
+    for k in ("tail_loss_kernel", "tail_bwd_kernel") for nt in (4, 8, 12, 16) for nf in (2, 4)})
 
 
 def log_ptxas(build_log: str):
@@ -2510,6 +2655,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_run = drive_train(dev, timed)
     log_k4_sequence(timed, train_run)
+    log_tail_sequence(timed, train_run)
     torch.cuda.empty_cache()
     depth_run = drive_train(dev, timed, depth=True)
     torch.cuda.empty_cache()

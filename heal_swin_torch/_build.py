@@ -48,12 +48,19 @@ _SIGNATURES = {
     "hs_proj_ln_bwd_workspace": ([_I] * 2, ctypes.c_size_t),
     "hs_final_head_predict": ([_P] * 6 + [_I] * 4 + [_F, _P], _I),
     "hs_final_head_predict_smem": ([_I] * 3, ctypes.c_size_t),
-    "hs_final_head_loss": ([_P] * 9 + [_I] * 4 + [_F, _P], _I),
+    "hs_final_head_loss": ([_P] * 10 + [_I] * 4 + [_F, _P], _I),
     "hs_final_head_loss_smem": ([_I] * 3, ctypes.c_size_t),
-    "hs_final_head_loss_workspace": ([_I] * 2, ctypes.c_size_t),
+    "hs_final_head_loss_grid": ([_I] * 4, _I),
+    "hs_final_head_loss_workspace": ([_I] * 4, ctypes.c_size_t),
     "hs_final_head_loss_bwd": ([_P] * 12 + [_I] * 4 + [_F, _P], _I),
+    "hs_final_head_loss_bwd_rows": ([_P] * 12 + [_I] * 4 + [_F, _P], _I),
     "hs_final_head_loss_bwd_smem": ([_I] * 3, ctypes.c_size_t),
+    "hs_final_head_loss_bwd_grid": ([_I] * 4, _I),
     "hs_final_head_loss_bwd_workspace": ([_I] * 4, ctypes.c_size_t),
+    "hs_reduce_rows": ([_P] * 3 + [_I] * 2 + [_P], _I),
+    "hs_reduce_rows_workspace": ([_I] * 2, ctypes.c_size_t),
+    "hs_gemm_tn": ([_P] * 4 + [_I] * 3 + [_P], _I),
+    "hs_gemm_tn_workspace": ([_I] * 3, ctypes.c_size_t),
     "hs_final_head_depth_loss": ([_P] * 9 + [_I] * 5 + [_F] * 2 + [_P], _I),
     "hs_final_head_depth_loss_smem": ([_I] * 3, ctypes.c_size_t),
     "hs_final_head_depth_loss_workspace": ([_I], ctypes.c_size_t),

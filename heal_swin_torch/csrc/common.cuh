@@ -148,6 +148,14 @@ inline cudaError_t smem_opt_in(const void* kernel, size_t bytes, std::atomic<uns
   return e;
 }
 
+// the current device's SM count (132 on an H100 SXM where it cannot be read)
+inline int sm_count() {
+  int dev = 0, n = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  return n;
+}
+
 // --- cross-block passes (reduce.cu); deterministic: every sum in a fixed order ---
 
 // out[n] = sum over r < R of in[r * N + n] (f32).  ``tmp`` holds

@@ -531,13 +531,6 @@ struct DwWork {
   int splits;
 };
 
-inline int sm_count() {
-  int dev = 0, n = 132;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  return n;
-}
-
 // token splits: about one block an SM in all, at least one step of R rows a split
 inline int dw_splits(int T, int C, int H) {
   const DwGeo g = dw_geo(C, H);

@@ -12,7 +12,9 @@
 // bf16, are one m16n8k16 A fragment (pack_a_frags), so g and dh go from one
 // product into the next without leaving registers.  Fragment layouts as in
 // attention.cuh: with g = lane / 4 and c = lane % 4 an accumulator holds rows g and
-// g + 8, columns 2c and 2c + 1 of its 16 x 8 tile.
+// g + 8, columns 2c and 2c + 1 of its 16 x 8 tile.  The segmentation tail's row core
+// (tail_core.cuh) makes its expand product and LayerNorm statistics through the same
+// functions with the bias off.
 #pragma once
 
 #include "common.cuh"
@@ -78,12 +80,20 @@ __device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const void* p) {
                : "memory");
 }
 
+// two 8 x 8 bf16 matrices; lanes 0-15 give the row addresses
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
 // h (16 x 8 NTH f32, NTH = 1, 2 or 4 n-tiles) = rows row0..row0+15 of a (bf16, ld lda)
 // times w (C x 8 NTH bf16, ld ldw: row k, column n), ascending 16-wide k-steps from zero
-// sums, then + b (the tile's b1 entries) in f32.  Each n-tile's sums depend only on its
-// own fragments, so a 32-column hidden tile cut into n-tiles over several warps has the
-// bits of the whole tile on one warp.
-template <int NTH = 4>
+// sums, then + b (the tile's b1 entries) in f32 unless BIAS is false.  Each n-tile's
+// sums depend only on its own fragments, so a 32-column hidden tile cut into n-tiles
+// over several warps has the bits of the whole tile on one warp.
+template <int NTH = 4, bool BIAS = true>
 __device__ __forceinline__ void hidden_tile(float (&h)[NTH][4], const bf16* a, int lda,
                                             int row0, const bf16* w, int ldw, int C,
                                             const float* __restrict__ b) {
@@ -109,6 +119,7 @@ __device__ __forceinline__ void hidden_tile(float (&h)[NTH][4], const bf16* a, i
       }
     }
   }
+  if constexpr (!BIAS) return;
   const int c2 = (lane & 3) * 2;
 #pragma unroll
   for (int n = 0; n < NTH; ++n) {
@@ -144,16 +155,21 @@ __device__ __forceinline__ void hidden_grad_tile(float (&d)[NTH][4], const bf16*
   }
 }
 
+// the A fragment of one 16-wide k-step from the accumulators of its two n-tiles (columns
+// 0-7 in t0, 8-15 in t1), rounded to bf16
+__device__ __forceinline__ void pack_a_frag(uint32_t (&a)[4], const float (&t0)[4],
+                                            const float (&t1)[4]) {
+  a[0] = pack_bf2(t0[0], t0[1]);
+  a[1] = pack_bf2(t0[2], t0[3]);
+  a[2] = pack_bf2(t1[0], t1[1]);
+  a[3] = pack_bf2(t1[2], t1[3]);
+}
+
 // the A fragments of two 16-wide k-steps (hidden columns 0-15, 16-31) from a 16 x 32
 // tile of accumulators, rounded to bf16
 __device__ __forceinline__ void pack_a_frags(uint32_t (&a)[2][4], const float (&t)[4][4]) {
-#pragma unroll
-  for (int ks = 0; ks < 2; ++ks) {
-    a[ks][0] = pack_bf2(t[2 * ks][0], t[2 * ks][1]);
-    a[ks][1] = pack_bf2(t[2 * ks][2], t[2 * ks][3]);
-    a[ks][2] = pack_bf2(t[2 * ks + 1][0], t[2 * ks + 1][1]);
-    a[ks][3] = pack_bf2(t[2 * ks + 1][2], t[2 * ks + 1][3]);
-  }
+  pack_a_frag(a[0], t[0], t[1]);
+  pack_a_frag(a[1], t[2], t[3]);
 }
 
 // h -> GELU(h) in place (f32)
@@ -210,21 +226,29 @@ __device__ __forceinline__ void frags_times_rows(float (&acc)[NT][4], const uint
   }
 }
 
-// acc (16 x 8 nt f32) += a (A fragments of 16 x 32) times w^T, w (8 nt x 32 bf16, ld
-// ldw: row n, column k): K13's dx += dh_lo W1 chunk^T
-template <int NT>
+// acc (16 x 8 nt f32) += a (A fragments of 16 x 16 KS, KS = 2 or 1) times w^T, w (8 nt x
+// 16 KS bf16, ld ldw: row n, column k): K13's dx += dh_lo W1 chunk^T, the tail's dz =
+// dlogits Wh^T
+template <int NT, int KS = 2>
 __device__ __forceinline__ void frags_times_rows_t(float (&acc)[NT][4],
-                                                   const uint32_t (&a)[2][4], const bf16* w,
+                                                   const uint32_t (&a)[KS][4], const bf16* w,
                                                    int ldw, int nt) {
+  static_assert(KS == 1 || KS == 2, "one or two k-steps");
   const int lane = threadIdx.x & 31;
-  const bf16* wrow = w + (lane & 7) * ldw + (lane >> 3) * 8;
+  const bf16* wrow = w + (lane & 7) * ldw + (KS == 2 ? lane >> 3 : (lane >> 3) & 1) * 8;
 #pragma unroll
   for (int t = 0; t < NT; ++t) {
     if (t < nt) {
-      uint32_t b[4];
-      ldsm_x4(b, wrow + 8 * t * ldw);
-      mma_bf16(acc[t], a[0], b[0], b[1]);
-      mma_bf16(acc[t], a[1], b[2], b[3]);
+      if constexpr (KS == 2) {
+        uint32_t b[4];
+        ldsm_x4(b, wrow + 8 * t * ldw);
+        mma_bf16(acc[t], a[0], b[0], b[1]);
+        mma_bf16(acc[t], a[1], b[2], b[3]);
+      } else {
+        uint32_t b[2];
+        ldsm_x2(b, wrow + 8 * t * ldw);
+        mma_bf16(acc[t], a[0], b[0], b[1]);
+      }
     }
   }
 }
@@ -307,10 +331,11 @@ struct LnRows {  // this lane's two rows, g and g + 8: mean and 1 / sqrt(var + e
   float mean[2], rstd[2];
 };
 
-// u = acc + b2 in place (acc: this warp's 16 rows x ntw n-tiles from column col0), then
-// the rows' statistics in two passes, var = the mean of (u - mean)^2, as the plain
-// version's _ln_stats; xch: the group's exchange area
-template <int NT>
+// u = acc + b2 in place (acc: this warp's 16 rows x ntw n-tiles from column col0; u =
+// acc where BIAS is false), then the rows' statistics in two passes, var = the mean of
+// (u - mean)^2, as the plain version's _ln_stats; xch: the group's exchange area (none
+// is read where wpr is 1)
+template <int NT, bool BIAS = true>
 __device__ __forceinline__ LnRows ln_rows(float (&acc)[NT][4], int ntw, int col0,
                                           const float* __restrict__ b2, int C, float eps,
                                           float* xch, int wpr, int bar) {
@@ -319,12 +344,14 @@ __device__ __forceinline__ LnRows ln_rows(float (&acc)[NT][4], int ntw, int col0
 #pragma unroll
   for (int t = 0; t < NT; ++t) {
     if (t < ntw) {
-      const int c = col0 + 8 * t + c2;
-      const float lo = b2[c], hi = b2[c + 1];
-      acc[t][0] = __fadd_rn(acc[t][0], lo);
-      acc[t][1] = __fadd_rn(acc[t][1], hi);
-      acc[t][2] = __fadd_rn(acc[t][2], lo);
-      acc[t][3] = __fadd_rn(acc[t][3], hi);
+      if constexpr (BIAS) {
+        const int c = col0 + 8 * t + c2;
+        const float lo = b2[c], hi = b2[c + 1];
+        acc[t][0] = __fadd_rn(acc[t][0], lo);
+        acc[t][1] = __fadd_rn(acc[t][1], hi);
+        acc[t][2] = __fadd_rn(acc[t][2], lo);
+        acc[t][3] = __fadd_rn(acc[t][3], hi);
+      }
       s[0][0] = __fadd_rn(s[0][0], __fadd_rn(acc[t][0], acc[t][1]));
       s[1][0] = __fadd_rn(s[1][0], __fadd_rn(acc[t][2], acc[t][3]));
     }
@@ -344,7 +371,7 @@ __device__ __forceinline__ LnRows ln_rows(float (&acc)[NT][4], int ntw, int col0
       }
     }
   }
-  row_sums<1>(q, xch + 16 * wpr * 2, wpr, bar);
+  row_sums<1>(q, wpr == 1 ? xch : xch + 16 * wpr * 2, wpr, bar);
   r.rstd[0] = rsqrtf(__fadd_rn(__fdiv_rn(q[0][0], float(C)), eps));
   r.rstd[1] = rsqrtf(__fadd_rn(__fdiv_rn(q[1][0], float(C)), eps));
   return r;

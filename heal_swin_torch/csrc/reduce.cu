@@ -274,6 +274,26 @@ cudaError_t gemm_nt(const bf16* A, const bf16* B, bf16* out, int M, int N, int K
 
 extern "C" {
 
+// out (N f32) = the sum over R rows of in (R x N f32) in a fixed order; work holds
+// hs_reduce_rows_workspace bytes
+size_t hs_reduce_rows_workspace(int R, int N) { return hs::reduce_rows_tmp_floats(R, N) * 4; }
+
+int hs_reduce_rows(const void* in, void* out, void* work, int R, int N, void* stream) {
+  return int(hs::reduce_rows(static_cast<const float*>(in), static_cast<float*>(out), R, N,
+                             static_cast<float*>(work), static_cast<cudaStream_t>(stream)));
+}
+
+// out (M x N f32) = A^T B over K rows: A (K x M), B (K x N) bf16; the wrapper checks the
+// shapes; work holds hs_gemm_tn_workspace bytes
+size_t hs_gemm_tn_workspace(int K, int M, int N) { return hs::gemm_tn_tmp_floats(K, M, N) * 4; }
+
+int hs_gemm_tn(const void* A, const void* B, void* out, void* work, int K, int M, int N,
+               void* stream) {
+  return int(hs::gemm_tn(static_cast<const hs::bf16*>(A), static_cast<const hs::bf16*>(B),
+                         static_cast<float*>(out), K, M, N, static_cast<float*>(work),
+                         static_cast<cudaStream_t>(stream)));
+}
+
 // out (M x N bf16) = A (M x K) B (N x K)^T; the wrapper checks the shapes
 int hs_gemm_nt(const void* A, const void* B, void* out, int M, int N, int K, void* stream) {
   return int(hs::gemm_nt(static_cast<const hs::bf16*>(A), static_cast<const hs::bf16*>(B),

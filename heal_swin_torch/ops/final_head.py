@@ -17,7 +17,14 @@ dtype -> logits z @ Wh in f32.
   (target rows, argmax columns, lowest index on ties) over every element; a row
   holding a NaN counts in no cell.  The backward scales dlogits = w * (softmax -
   onehot) by gloss / max(sum w, 1e-12), rounds it, and rounds the LayerNorm
-  backward's dh before the expand products.
+  backward's dh before the expand products.  On the card both run on persistent
+  blocks that walk 128-row tiles (block b: tiles b, b + grid, ...) and write one
+  partial row each; K7 is a launch sequence from one entry: its row kernel (dx, the
+  rounded dh of every sub-pixel, partial rows [dWh | dgamma | dbeta]), dWe = x^T dh,
+  and the reduction of the partial rows.  Each step has a plain twin here
+  (``final_head_loss_bwd_rows_plain``, ``final_head_loss_dwe_plain``,
+  ``reduce_rows_plain``; composed: ``final_head_loss_bwd_sequence_plain``), and so
+  do K6's partial rows (``final_head_loss_partials_plain``).
 - Depth loss (K8/K9): F in {1, 2} output channels (mean, logvar); targets (T, p) f32
   with a non-finite value marking background.  The loss of kind l2 / l1 / huber /
   nll takes the f32 logits (not rounded; only the emitted predictions are rounded to
@@ -44,10 +51,13 @@ from heal_swin_torch import _build
 from heal_swin_torch.ops._dispatch import check, refuse, stream, use_kernel
 
 LN_EPS = 1e-5
-KERNEL_ROWS = 64  # token rows per block
-KERNEL_MAX_F = 32  # one lane per class
+KERNEL_ROWS = 64  # token rows per block of K3, K8, K9; T a multiple of it for all five
+TAIL_TILE_ROWS = 128  # token rows of a K6 / K7 block tile: 8 warps of 16 rows
+KERNEL_MAX_F = 32  # K3, K8, K9: one lane per class; K6, K7: four head n-tiles
 KERNEL_SMEM_LIMIT = 232448  # bytes a block may opt in to on sm_90
-KERNEL_MAX_C_LOSS_BWD = 128  # K7 and K9 keep C / 32 columns of a row per lane in registers
+KERNEL_MAX_C_LOSS_BWD = 128  # K9 keeps C / 32 columns of a row per lane in registers
+# K6 and K7 hold a row's C columns in mma accumulators, one instantiation per C
+KERNEL_LOSS_CS = (32, 64, 96, 128)
 DEPTH_KINDS = ("l2", "l1", "huber", "nll")  # K8/K9's loss kinds, in their launch ids
 
 # launch counters, bumped only where a kernel launches: per kernel, and per
@@ -125,72 +135,185 @@ def _ce_rows(lf, yi):
     return e / se, onehot, nll, pred
 
 
+def _ce_slices(x, we, gamma, beta, wh, y, welem, *, patch_size):
+    """K6's cross entropy, sub-pixel by sub-pixel: yields (targets, weights, nll, argmax
+    with F for a row holding a NaN, whether the element counts in the confusion
+    matrix), each (T,), of the logits rounded to x's dtype."""
+    F = wh.shape[-1]
+    we_s = _split_we(we, x.dtype, patch_size)
+    whf = wh.to(x.dtype).float()
+    for i in range(patch_size):
+        z, _, _ = _sub_rows(x, we_s, gamma, beta, i)
+        yi = y[:, i].long()
+        _, _, nll, pred = _ce_rows((z @ whf).to(x.dtype).float(), yi)
+        yield yi, welem[:, i].float(), nll, pred, (pred < F) & (yi >= 0) & (yi < F)
+
+
 def final_head_loss_plain(x, we, gamma, beta, wh, y, welem, *, patch_size):
     """Plain version of K6.  y: (T, p) int targets; welem: (T, p) f32 per-element
     weights.  Returns (sum w*nll, sum w, confusion matrix (F, F)), all f32."""
     F = wh.shape[-1]
-    we_s = _split_we(we, x.dtype, patch_size)
-    whf = wh.to(x.dtype).float()
     num = torch.zeros((), dtype=torch.float32, device=x.device)
     den = torch.zeros((), dtype=torch.float32, device=x.device)
     cm = torch.zeros(F * F, dtype=torch.float32, device=x.device)
-    for i in range(patch_size):
-        z, _, _ = _sub_rows(x, we_s, gamma, beta, i)
-        lf = (z @ whf).to(x.dtype).float()
-        yi = y[:, i].long()
-        wi = welem[:, i].float()
-        _, _, nll, pred = _ce_rows(lf, yi)
+    for yi, wi, nll, pred, counted in _ce_slices(x, we, gamma, beta, wh, y, welem,
+                                                 patch_size=patch_size):
         num = num + (wi * nll).sum()
         den = den + wi.sum()
-        counted = (pred < F) & (yi >= 0) & (yi < F)
         cm = cm + torch.bincount((yi * F + pred)[counted], minlength=F * F).float()
     return num, den, cm.reshape(F, F)
 
 
-def _tail_bwd_plain(x, we, gamma, beta, wh, dlogits_of, *, patch_size):
-    """The backward of the tail from the dlogits of each sub-pixel: ``dlogits_of(i, z,
-    whf)`` -> (T, F) f32 dlogits of sub-pixel i from its (T, C) z and the f32 head
-    (C, F).  dWh += z^T dlogits, dz = dlogits Wh^T, LN backward, dh rounded to x's
-    dtype, dx = sum_i dh_i We_i^T, dWe_i = x^T dh_i.  Returns (dx (T, C) in x's dtype,
-    dwe (C, p*C), dgamma (C,), dbeta (C,), dwh (C, F)), the last four f32."""
-    T, C = x.shape
+def _tail_bwd_slices(x, we, gamma, beta, wh, dlogits_of, *, patch_size):
+    """The backward of the tail, sub-pixel by sub-pixel, from the dlogits of each:
+    ``dlogits_of(i, z, whf)`` -> (T, F) f32 dlogits of sub-pixel i from its (T, C) z
+    and the f32 head (C, F).  Yields (z, dlogits, dz = dlogits Wh^T, xhat, dh, We_i):
+    dh the LayerNorm backward's, rounded to x's dtype (as f32), We_i in x's dtype."""
     dt = x.dtype
     we_s = _split_we(we, dt, patch_size)
     whf = wh.to(dt).float()
     g = gamma.float()
-    dx = torch.zeros((T, C), dtype=torch.float32, device=x.device)
-    dwh = torch.zeros_like(whf)
-    dg = torch.zeros(C, dtype=torch.float32, device=x.device)
-    db = torch.zeros_like(dg)
-    dwe = []
     for i in range(patch_size):
         z, xhat, rstd = _sub_rows(x, we_s, gamma, beta, i)
         dlog = dlogits_of(i, z, whf)
-        dwh = dwh + z.t() @ dlog
         dz = dlog @ whf.t()
-        dg = dg + (dz * xhat).sum(0)
-        db = db + dz.sum(0)
         dzh = dz * g
         dh = rstd * (dzh - dzh.mean(-1, keepdim=True)
                      - xhat * (dzh * xhat).mean(-1, keepdim=True))
-        dh = dh.to(dt).float()
-        dx = dx + dh @ we_s[i].float().t()
+        yield z, dlog, dz, xhat, dh.to(dt).float(), we_s[i]
+
+
+def _tail_bwd_plain(x, we, gamma, beta, wh, dlogits_of, *, patch_size):
+    """The backward of the tail (``_tail_bwd_slices``): dWh += z^T dlogits, dgamma,
+    dbeta, dx = sum_i dh_i We_i^T, dWe_i = x^T dh_i.  Returns (dx (T, C) in x's dtype,
+    dwe (C, p*C), dgamma (C,), dbeta (C,), dwh (C, F)), the last four f32."""
+    T, C = x.shape
+    F = wh.shape[-1]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.zeros((T, C), **f32)
+    dwh = torch.zeros((C, F), **f32)
+    dg = torch.zeros(C, **f32)
+    db = torch.zeros_like(dg)
+    dwe = []
+    for z, dlog, dz, xhat, dh, we_i in _tail_bwd_slices(x, we, gamma, beta, wh, dlogits_of,
+                                                         patch_size=patch_size):
+        dwh = dwh + z.t() @ dlog
+        dg = dg + (dz * xhat).sum(0)
+        db = db + dz.sum(0)
+        dx = dx + dh @ we_i.float().t()
         dwe.append(x.float().t() @ dh)
-    return dx.to(dt), torch.cat(dwe, dim=1), dg, db, dwh
+    return dx.to(x.dtype), torch.cat(dwe, dim=1), dg, db, dwh
 
 
-def final_head_loss_bwd_plain(x, we, gamma, beta, wh, y, welem, scale, *, patch_size):
-    """Plain version of K7, the backward of K6 for loss gradient ``gloss``:
-    scale = gloss / max(sum w, 1e-12) (a 0-d f32 tensor).  Results as
-    ``_tail_bwd_plain``."""
-    dt = x.dtype
+def _ce_dlogits(y, welem, scale, dt):
+    """K7's dlogits of sub-pixel i: scale w (softmax - onehot) of the logits rounded to
+    ``dt``, itself rounded to ``dt``; a ``dlogits_of`` of ``_tail_bwd_slices``."""
 
     def dlogits_of(i, z, whf):
         lf = (z @ whf).to(dt).float()
         sm, onehot, _, _ = _ce_rows(lf, y[:, i].long())
         return ((scale * welem[:, i].float())[:, None] * (sm - onehot)).to(dt).float()
 
-    return _tail_bwd_plain(x, we, gamma, beta, wh, dlogits_of, patch_size=patch_size)
+    return dlogits_of
+
+
+def final_head_loss_bwd_plain(x, we, gamma, beta, wh, y, welem, scale, *, patch_size):
+    """Plain version of K7, the backward of K6 for loss gradient ``gloss``:
+    scale = gloss / max(sum w, 1e-12) (a 0-d f32 tensor).  Results as
+    ``_tail_bwd_plain``."""
+    return _tail_bwd_plain(x, we, gamma, beta, wh, _ce_dlogits(y, welem, scale, x.dtype),
+                           patch_size=patch_size)
+
+
+def _row_blocks(T, grid, device):
+    """The block of each token row: block b walks the 128-row tiles b, b + grid, ..."""
+    return (torch.arange(T, device=device) // TAIL_TILE_ROWS) % grid
+
+
+def _block_sums(v, grid):
+    """(T, ...) per-row terms -> (grid, ...) each block's sum over its tiles' rows."""
+    out = torch.zeros((grid,) + tuple(v.shape[1:]), dtype=v.dtype, device=v.device)
+    return out.index_add_(0, _row_blocks(v.shape[0], grid, v.device), v)
+
+
+def _block_products(a, b, grid):
+    """(grid, A, B): each block's a^T b over its tiles' rows; a (T, A), b (T, B)."""
+    pad = -a.shape[0] % TAIL_TILE_ROWS
+    at = torch.nn.functional.pad(a, (0, 0, 0, pad)).reshape(-1, TAIL_TILE_ROWS, a.shape[1])
+    bt = torch.nn.functional.pad(b, (0, 0, 0, pad)).reshape(-1, TAIL_TILE_ROWS, b.shape[1])
+    per_tile = at.transpose(1, 2) @ bt
+    out = torch.zeros((grid,) + tuple(per_tile.shape[1:]), dtype=a.dtype, device=a.device)
+    return out.index_add_(0, torch.arange(per_tile.shape[0], device=a.device) % grid, per_tile)
+
+
+def final_head_loss_partials_plain(x, we, gamma, beta, wh, y, welem, *, patch_size, grid):
+    """Plain twin of K6's partial rows on ``grid`` persistent blocks, block b walking
+    the 128-row tiles b, b + grid, ...: (grid, 2 + F*F) f32, each row [sum w*nll,
+    sum w, confusion matrix (F x F) flattened] over the block's rows; their sum over
+    the blocks is ``final_head_loss_plain``."""
+    T = x.shape[0]
+    F = wh.shape[-1]
+    num = torch.zeros(T, dtype=torch.float32, device=x.device)
+    den = torch.zeros_like(num)
+    blk = _row_blocks(T, grid, x.device)
+    cm = torch.zeros(grid * F * F, dtype=torch.float32, device=x.device)
+    for yi, wi, nll, pred, counted in _ce_slices(x, we, gamma, beta, wh, y, welem,
+                                                 patch_size=patch_size):
+        num = num + wi * nll
+        den = den + wi
+        cell = (blk * F + yi) * F + pred
+        cm = cm + torch.bincount(cell[counted], minlength=grid * F * F).float()
+    return torch.cat([_block_sums(num, grid)[:, None], _block_sums(den, grid)[:, None],
+                      cm.reshape(grid, F * F)], dim=1)
+
+
+def final_head_loss_bwd_rows_plain(x, we, gamma, beta, wh, y, welem, scale, *, patch_size,
+                                   grid):
+    """Plain twin of the first step of K7's launch sequence, its row kernel on ``grid``
+    persistent blocks (tiles as ``final_head_loss_partials_plain``): (dx (T, C) in x's
+    dtype, dh (T, p*C) in x's dtype (sub-pixel i's rounded dh in columns i*C ..), the
+    partial rows (grid, C*F + 2*C) f32, [dWh (C x F) | dgamma | dbeta] over each
+    block's rows)."""
+    T, C = x.shape
+    F = wh.shape[-1]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.zeros((T, C), **f32)
+    dwh = torch.zeros((grid, C, F), **f32)
+    dg = torch.zeros((grid, C), **f32)
+    db = torch.zeros_like(dg)
+    dhs = []
+    for z, dlog, dz, xhat, dh, we_i in _tail_bwd_slices(
+            x, we, gamma, beta, wh, _ce_dlogits(y, welem, scale, x.dtype),
+            patch_size=patch_size):
+        dwh = dwh + _block_products(z, dlog, grid)
+        dg = dg + _block_sums(dz * xhat, grid)
+        db = db + _block_sums(dz, grid)
+        dx = dx + dh @ we_i.float().t()
+        dhs.append(dh)
+    part = torch.cat([dwh.reshape(grid, C * F), dg, db], dim=1)
+    return dx.to(x.dtype), torch.cat(dhs, dim=1).to(x.dtype), part
+
+
+def final_head_loss_dwe_plain(x, dh):
+    """Plain twin of the second step: dWe = x^T dh, (C, p*C) f32 from x (T, C) and the
+    first step's dh (T, p*C)."""
+    return x.float().t() @ dh.float()
+
+
+def reduce_rows_plain(part):
+    """Plain twin of the third step: the sum of the partial rows over the blocks."""
+    return part.sum(0)
+
+
+def final_head_loss_bwd_sequence_plain(x, we, gamma, beta, wh, y, welem, scale, *,
+                                       patch_size, grid):
+    """K7's three steps' twins composed: results as ``final_head_loss_bwd_plain``."""
+    C = x.shape[1]
+    F = wh.shape[-1]
+    dx, dh, part = final_head_loss_bwd_rows_plain(x, we, gamma, beta, wh, y, welem, scale,
+                                                  patch_size=patch_size, grid=grid)
+    dwh, dg, db = reduce_rows_plain(part).split([C * F, C, C])
+    return dx, final_head_loss_dwe_plain(x, dh), dg, db, dwh.reshape(C, F)
 
 
 def _sign(d):
@@ -277,17 +400,19 @@ def final_head_depth_loss_bwd_plain(x, we, gamma, beta, wh, t, scale, *, patch_s
     return _tail_bwd_plain(x, we, gamma, beta, wh, dlogits_of, patch_size=patch_size)
 
 
-def _tail_refusal(what, T, C, F, bwd):
+def _tail_refusal(what, T, C, F, bwd, ce=False):
     """Why the tail kernels do not take T tokens of width C with F outputs (``bwd``: a
-    backward, K7/K9, too), or None where they do: C % 16, 1 <= F <= 32, T % 64, and
-    C <= 128 for a backward.  The dtype and the shared memory are checked at the call
-    (``_tail_operands``)."""
+    backward, K7/K9, too; ``ce``: K6/K7), or None where they do: C % 16, 1 <= F <= 32,
+    T % 64, C <= 128 for a backward, and C one of 32, 64, 96, 128 for K6 and K7.  The
+    dtype and the shared memory are checked at the call (``_tail_operands``)."""
     if C % 16 or not 1 <= F <= KERNEL_MAX_F:
         return f"{what}: the kernel takes C % 16 == 0 and F <= {KERNEL_MAX_F}, got C={C}, F={F}"
     if T % KERNEL_ROWS:
         return f"{what}: T={T} is not a multiple of {KERNEL_ROWS}"
-    if bwd and C > KERNEL_MAX_C_LOSS_BWD:
+    if (bwd or ce) and C > KERNEL_MAX_C_LOSS_BWD:
         return f"{what}: the kernel takes C <= {KERNEL_MAX_C_LOSS_BWD}, got C={C}"
+    if ce and C not in KERNEL_LOSS_CS:
+        return f"{what}: the kernel takes C % 32 == 0 and C <= 128, got C={C}"
     return None
 
 
@@ -297,7 +422,7 @@ def kernels_take(T, C, F, dtype, train=True) -> bool:
     from the shared memory, which they read from the kernels' library at the call;
     where False, a CUDA tensor raises under "auto" and "pallas" and needs impl="xla",
     the plain version."""
-    return dtype == torch.bfloat16 and _tail_refusal("", T, C, F, train) is None
+    return dtype == torch.bfloat16 and _tail_refusal("", T, C, F, train, train) is None
 
 
 def _tail_operands(what, x, we, gamma, beta, wh, patch_size, kernel):
@@ -310,7 +435,7 @@ def _tail_operands(what, x, we, gamma, beta, wh, patch_size, kernel):
     dt = torch.bfloat16
     if x.dtype != dt:
         refuse(f"{what}: the kernel takes bfloat16 x, got {x.dtype}")
-    msg = _tail_refusal(what, T, C, F, kernel.endswith("bwd"))
+    msg = _tail_refusal(what, T, C, F, kernel.endswith("bwd"), kernel.startswith("loss"))
     if msg is not None:
         refuse(msg)
     smem = getattr(_build.lib(), f"hs_final_head_{kernel}_smem")(C, F, p)
@@ -357,11 +482,18 @@ def final_head_predict(x, we, gamma, beta, wh, *, patch_size, impl="auto"):
     return preds
 
 
-def final_head_loss_sums(x, we, gamma, beta, wh, y, welem, *, patch_size, impl="auto"):
+def final_head_loss_sums(x, we, gamma, beta, wh, y, welem, *, patch_size, impl="auto",
+                         tap_logits=False):
     """K6 wrapper: (sum w*nll, sum w, confusion matrix); operands as
-    ``final_head_loss_plain``."""
+    ``final_head_loss_plain``.  With ``tap_logits`` a fourth result, the logits (T, p,
+    F) rounded to x's dtype that the cross entropy took (a probe's output: on the card
+    the kernel writes them beside its sums)."""
     if not use_kernel(x, impl):
-        return final_head_loss_plain(x, we, gamma, beta, wh, y, welem, patch_size=patch_size)
+        out = final_head_loss_plain(x, we, gamma, beta, wh, y, welem, patch_size=patch_size)
+        if tap_logits:
+            out += (final_head_logits_plain(x, we, gamma, beta, wh,
+                                            patch_size=patch_size).to(x.dtype),)
+        return out
     what = "final_head_loss"
     T, C, F, we_s, g, b, whb = _tail_operands(what, x, we, gamma, beta, wh, patch_size,
                                               "loss")
@@ -369,20 +501,24 @@ def final_head_loss_sums(x, we, gamma, beta, wh, y, welem, *, patch_size, impl="
     y, welem = _targets(what, y, welem, T, p, x.device)
     lib = _build.lib()
     red = torch.empty(2 + F * F, dtype=torch.float32, device=x.device)
-    work = torch.empty(lib.hs_final_head_loss_workspace(T, F), dtype=torch.uint8,
+    work = torch.empty(lib.hs_final_head_loss_workspace(T, C, F, p), dtype=torch.uint8,
                        device=x.device)
+    tap = torch.empty((T, p, F), dtype=x.dtype, device=x.device) if tap_logits else None
     code = lib.hs_final_head_loss(x.data_ptr(), we_s.data_ptr(), g.data_ptr(), b.data_ptr(),
                                   whb.data_ptr(), y.data_ptr(), welem.data_ptr(),
-                                  red.data_ptr(), work.data_ptr(), T, C, F, p, LN_EPS,
+                                  red.data_ptr(), work.data_ptr(),
+                                  None if tap is None else tap.data_ptr(), T, C, F, p, LN_EPS,
                                   stream(x))
     check(code, what)
     _count(what, T, C)
-    return red[0], red[1], red[2:].reshape(F, F)
+    out = (red[0], red[1], red[2:].reshape(F, F))
+    return out + (tap,) if tap_logits else out
 
 
 def final_head_loss_bwd(x, we, gamma, beta, wh, y, welem, scale, *, patch_size, impl="auto"):
-    """K7 wrapper: the backward of K6; operands and results as
-    ``final_head_loss_bwd_plain``."""
+    """K7 wrapper: the backward of K6, one entry that launches its sequence (the row
+    kernel, ``reduce_rows`` over its partial rows, ``gemm_tn`` for dWe); operands and
+    results as ``final_head_loss_bwd_plain``."""
     if not use_kernel(x, impl):
         return final_head_loss_bwd_plain(x, we, gamma, beta, wh, y, welem, scale,
                                          patch_size=patch_size)
@@ -407,6 +543,83 @@ def final_head_loss_bwd(x, we, gamma, beta, wh, y, welem, scale, *, patch_size, 
     _count(what, T, C)
     dwh, dg, db = red.split([C * F, C, C])
     return dx, dwe, dg, db, dwh.reshape(C, F)
+
+
+def final_head_loss_bwd_rows(x, we, gamma, beta, wh, y, welem, scale, *, patch_size,
+                             impl="auto", tap_logits=False):
+    """K7's row kernel alone, the first step of its launch sequence (not counted, as K7's
+    launches count the sequence): (dx, dh, partial rows) as
+    ``final_head_loss_bwd_rows_plain`` on the kernel's grid (one block for CPU tensors),
+    and with ``tap_logits`` the rounded logits (T, p, F) it recomputed."""
+    if not use_kernel(x, impl):
+        out = final_head_loss_bwd_rows_plain(x, we, gamma, beta, wh, y, welem, scale,
+                                             patch_size=patch_size, grid=1)
+        if tap_logits:
+            out += (final_head_logits_plain(x, we, gamma, beta, wh,
+                                            patch_size=patch_size).to(x.dtype),)
+        return out
+    what = "final_head_loss_bwd_rows"
+    T, C, F, we_s, g, b, whb = _tail_operands(what, x, we, gamma, beta, wh, patch_size,
+                                              "loss_bwd")
+    p = patch_size
+    y, welem = _targets(what, y, welem, T, p, x.device)
+    scale = scale.to(device=x.device, dtype=torch.float32).reshape(1).contiguous()
+    lib = _build.lib()
+    grid = lib.hs_final_head_loss_bwd_grid(T, C, F, p)
+    if grid < 1:
+        raise RuntimeError(f"{what}: no grid for T={T}, C={C}, F={F}, p={p}")
+    dx = torch.empty_like(x)
+    dh = torch.empty((T, p * C), dtype=x.dtype, device=x.device)
+    part = torch.empty((grid, C * F + 2 * C), dtype=torch.float32, device=x.device)
+    tap = torch.empty((T, p, F), dtype=x.dtype, device=x.device) if tap_logits else None
+    code = lib.hs_final_head_loss_bwd_rows(
+        x.data_ptr(), we_s.data_ptr(), g.data_ptr(), b.data_ptr(), whb.data_ptr(),
+        y.data_ptr(), welem.data_ptr(), scale.data_ptr(), dx.data_ptr(), dh.data_ptr(),
+        part.data_ptr(), None if tap is None else tap.data_ptr(), T, C, F, p, LN_EPS,
+        stream(x))
+    check(code, what)
+    return (dx, dh, part, tap) if tap_logits else (dx, dh, part)
+
+
+def final_head_loss_dwe(x, dh, *, impl="auto"):
+    """The second step of K7's sequence alone, ``gemm_tn``: dWe = x^T dh (C, p*C) f32;
+    operands as ``final_head_loss_dwe_plain`` (not counted)."""
+    if not use_kernel(x, impl):
+        return final_head_loss_dwe_plain(x, dh)
+    what = "final_head_loss_dwe"
+    T, C = x.shape
+    N = dh.shape[1]
+    if (x.dtype != torch.bfloat16 or dh.dtype != torch.bfloat16 or dh.shape[0] != T
+            or T % KERNEL_ROWS or C % 16 or N % 16 or not dh.is_cuda):
+        raise ValueError(f"{what}: the kernel takes bf16 x (T, C) and dh (T, N), T % 64, "
+                         f"C % 16, N % 16, on one device; got {tuple(x.shape)} "
+                         f"{tuple(dh.shape)}")
+    lib = _build.lib()
+    x, dh = x.contiguous(), dh.contiguous()
+    out = torch.empty((C, N), dtype=torch.float32, device=x.device)
+    work = torch.empty(lib.hs_gemm_tn_workspace(T, C, N), dtype=torch.uint8, device=x.device)
+    check(lib.hs_gemm_tn(x.data_ptr(), dh.data_ptr(), out.data_ptr(), work.data_ptr(), T, C,
+                         N, stream(x)), what)
+    return out
+
+
+def reduce_rows(part, *, impl="auto"):
+    """The third step of K7's sequence alone: the sum of the partial rows (R, N) f32 over
+    the rows, in a fixed order; operands as ``reduce_rows_plain`` (not counted)."""
+    if not use_kernel(part, impl):
+        return reduce_rows_plain(part)
+    if part.dtype != torch.float32 or part.dim() != 2:
+        raise ValueError(f"reduce_rows: the kernel takes (R, N) f32, got {part.dtype} "
+                         f"{tuple(part.shape)}")
+    lib = _build.lib()
+    R, N = part.shape
+    part = part.contiguous()
+    out = torch.empty(N, dtype=torch.float32, device=part.device)
+    work = torch.empty(max(lib.hs_reduce_rows_workspace(R, N), 1), dtype=torch.uint8,
+                       device=part.device)
+    check(lib.hs_reduce_rows(part.data_ptr(), out.data_ptr(), work.data_ptr(), R, N,
+                             stream(part)), "reduce_rows")
+    return out
 
 
 def _depth_refusal(what, F, kind):

@@ -349,6 +349,105 @@ def test_final_head_loss_function_backward_through_kernels(dev):
         assert t.grad is not None and t.grad.dtype == t.dtype
 
 
+@pytest.mark.parametrize("C,F,p", [(32, 10, 4), (64, 20, 4), (96, 32, 4), (128, 10, 4),
+                                   (128, 16, 2)])
+def test_final_head_loss_kernels_at_every_width(dev, C, F, p):
+    """K6 at each of its instantiations (C 32 to 128, F <= 16 and <= 32) on a T whose
+    last 128-row tile is half full, against its plain version; K7 (two launches
+    bit-equal) wherever its shared memory holds the p slices, which at C 128 takes p 2
+    (``test_tail_kernels_refuse_what_their_shared_memory_does_not_hold``)."""
+    gen = torch.Generator().manual_seed(C + F + p)
+    T = 64 * 65
+    args = _loss_args(gen, dev, T, C, F, p)
+    num, den, cm = fh.final_head_loss_sums(*args, patch_size=p)
+    torch.cuda.synchronize()
+    wnum, wden, wcm = fh.final_head_loss_plain(*args, patch_size=p)
+    assert abs(float(num / den) - float(wnum / wden)) <= 1e-3 * abs(float(wnum / wden))
+    assert float(cm.sum()) == T * p
+    assert float((cm - wcm).abs().sum()) <= 2 * int(_near_tie_rows(args, p).sum())
+    if (C, p) == (128, 4):
+        return
+    scale = torch.tensor(0.7, device=dev) / wden
+    got = fh.final_head_loss_bwd(*args, scale, patch_size=p)
+    _assert_grads_close(got, fh.final_head_loss_bwd_plain(*args, scale, patch_size=p))
+    again = fh.final_head_loss_bwd(*args, scale, patch_size=p)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
+def test_final_head_loss_kernels_at_the_paper_tail(dev):
+    """K6 and K7 at the paper tail (T 262,144, C 96, p 4, F 10) against their plain
+    versions: the loss within 1e-3 relative, the confusion matrix off only at near-ties,
+    every gradient within relative L2 1e-2."""
+    gen = torch.Generator().manual_seed(21)
+    T, C, F, p = 262144, 96, 10, 4
+    args = _loss_args(gen, dev, T, C, F, p)
+    num, den, cm = fh.final_head_loss_sums(*args, patch_size=p)
+    wnum, wden, wcm = fh.final_head_loss_plain(*args, patch_size=p)
+    assert abs(float(num / den) - float(wnum / wden)) <= 1e-3 * abs(float(wnum / wden))
+    assert float(cm.sum()) == T * p
+    assert float((cm - wcm).abs().sum()) <= 2 * int(_near_tie_rows(args, p).sum())
+    scale = torch.tensor(1.0, device=dev) / wden
+    _assert_grads_close(fh.final_head_loss_bwd(*args, scale, patch_size=p),
+                        fh.final_head_loss_bwd_plain(*args, scale, patch_size=p))
+
+
+@pytest.mark.parametrize("T,C,F", [(64 * 65, 96, 10), (64 * 33, 32, 20), (262144, 96, 10)])
+def test_final_head_loss_bwd_sequence_kernels(dev, T, C, F):
+    """Each step of K7's launch sequence against its plain twin: the row kernel (dx, dh,
+    the partial rows on its grid), ``gemm_tn`` (dWe = x^T dh) and ``reduce_rows``, each
+    on the kernel's own input; and K7 is the three steps composed, bit for bit."""
+    gen = torch.Generator().manual_seed(T + C + F)
+    p = 4
+    args = _loss_args(gen, dev, T, C, F, p)
+    scale = torch.tensor(1.3, device=dev) / args[6].sum()
+    dx, dh, part = fh.final_head_loss_bwd_rows(*args, scale, patch_size=p)
+    grid = part.shape[0]
+    assert 1 <= grid <= -(-T // fh.TAIL_TILE_ROWS)
+    _assert_grads_close((dx, dh, part), fh.final_head_loss_bwd_rows_plain(
+        *args, scale, patch_size=p, grid=grid))
+    dwe = fh.final_head_loss_dwe(args[0], dh)
+    _assert_grads_close((dwe,), (fh.final_head_loss_dwe_plain(args[0], dh),), tol=1e-5)
+    red = fh.reduce_rows(part)
+    _assert_grads_close((red,), (fh.reduce_rows_plain(part),), tol=1e-5)
+    dwh, dg, db = red.split([C * F, C, C])
+    whole = fh.final_head_loss_bwd(*args, scale, patch_size=p)
+    assert all(torch.equal(a, b) for a, b in zip(whole, (dx, dwe, dg, db, dwh.reshape(C, F))))
+
+
+@pytest.mark.parametrize("T,C,F", [(64 * 65, 32, 20), (64 * 65, 96, 10), (262144, 96, 10)])
+def test_final_head_loss_bwd_recomputes_the_forward_logits(dev, T, C, F):
+    """K7's row kernel recomputes K6's rounded logits bit for bit: both kernels' logits
+    taps, ``torch.equal``; both near the plain version's."""
+    gen = torch.Generator().manual_seed(T + C)
+    p = 4
+    args = _loss_args(gen, dev, T, C, F, p)
+    lf6 = fh.final_head_loss_sums(*args, patch_size=p, tap_logits=True)[3]
+    lf7 = fh.final_head_loss_bwd_rows(*args, torch.tensor(1.0, device=dev), patch_size=p,
+                                      tap_logits=True)[3]
+    assert lf6.shape == (T, p, F) and int((lf6 != 0).sum()) > T * p * F // 2
+    assert torch.equal(lf6, lf7)
+    assert _rel_l2(lf6, fh.final_head_logits_plain(*args[:5], patch_size=p)) < 1e-2
+
+
+def test_loss_kernels_refuse_widths_without_an_instantiation(dev):
+    """K6 and K7 hold a row in mma accumulators, one instantiation per C in 32, 64, 96,
+    128: other widths the tails took before (C % 16) raise, naming impl="xla", with no
+    launch; K3 still takes them."""
+    gen = torch.Generator().manual_seed(14)
+    one = torch.ones((), device=dev)
+    for C in (48, 80, 112):
+        args = _loss_args(gen, dev, 128, C, 10)
+        before = dict(fh.launches)
+        with pytest.raises(ValueError, match="C % 32 == 0 and C <= 128.*impl='xla'"):
+            fh.final_head_loss_sums(*args, patch_size=4)
+        with pytest.raises(ValueError, match="C % 32 == 0 and C <= 128.*impl='xla'"):
+            fh.final_head_loss_bwd(*args, one, patch_size=4)
+        assert dict(fh.launches) == before
+        fh.final_head_predict(*args[:5], patch_size=4)
+        torch.cuda.synchronize()
+        assert fh.launches["final_head_predict"] == before["final_head_predict"] + 1
+
+
 def test_kernels_refuse_what_they_do_not_take(dev):
     """On CUDA tensors the wrappers raise on operands their kernels do not take, under
     "auto" as under "pallas", naming impl="xla" as the plain route."""

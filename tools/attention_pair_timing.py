@@ -1,7 +1,7 @@
 """Time the window-attention and MLP kernels of two checkouts of heal_swin_torch on one
 GPU, in turns: other, this, this, other.
 
-    python3 tools/attention_pair_timing.py --other _checkout/parent [--family mlp]
+    python3 tools/attention_pair_timing.py --other _checkout/parent [--family mlp|tail]
 
 ``--other`` is an unpacked copy of another commit (``git archive`` into the
 git-ignored ``_checkout/``).  Each of the four turns is its own process: it imports
@@ -19,8 +19,12 @@ control for the spread between turns.  The MLP family (``--family mlp``), tanh G
 65,536 / 16,384 / 4,096, C 96 / 192 / 384 / 768, H 4C): K12, K13, K14 and K15 (with the
 DropPath scale), and the port's cuBLAS / ATen routes for K12 / K13's function and for
 K14 / K15's (``mlp_route``, forward and backward; the branch's with the DropPath scale)
-as the controls.  ``--family all`` (the default)
-times both.
+as the controls.  The tail family (``--family tail``), at the paper tail (T 262,144, C 96,
+p 4, F 10) on chip_smoke.py's ``tail_inputs``: K6 and its backward K7, K3 (predict), and
+K8 / K9 (the depth loss, l2, one channel), and the composed PyTorch route of K6 / K7's
+function (``tail_route``, forward and backward) as the control that runs the same code
+in every turn; each launches once a step.  ``--family all`` (the default) times all
+three.
 
 Each shape gets two times: the device time (``device_ms``: each call enqueued behind a
 spin kernel, so that the events bracket the device work alone) and a single call's
@@ -117,7 +121,38 @@ def turn(root: Path, family: str) -> dict:
         times.update(attention_times(smoke, dev, both))
     if family in ("mlp", "all"):
         times.update(mlp_times(smoke, dev, both))
+    if family in ("tail", "all"):
+        times.update(tail_times(smoke, dev, both))
     torch.cuda.synchronize()
+    return times
+
+
+def tail_times(smoke, dev, both) -> dict:
+    """K6, K7 and the controls K3, K8, K9 at the paper tail, and the route."""
+    import torch
+
+    from heal_swin_torch.ops import final_head as fh
+
+    rnd, _ = smoke.seeded_draws(torch.Generator().manual_seed(smoke.SEED + 9), dev)
+    gen = torch.Generator().manual_seed(smoke.SEED + 10)
+    largs = smoke.tail_inputs(rnd, gen, dev)
+    p = smoke.TAIL_P
+    T, C = largs[0].shape
+    scale = torch.ones((), device=dev) / largs[6].sum()
+    dargs = largs[:4] + (rnd(C, 1, std=0.1), smoke.depth_targets(gen, T, p, dev))
+    kw = dict(patch_size=p, impl="pallas")
+    dkw = dict(kw, loss_kind="l2")
+    label = f"C={C} T={T}"
+    times = {}
+    with torch.no_grad():
+        times[f"K3 {label}"] = both(lambda: fh.final_head_predict(*largs[:5], **kw))
+        times[f"K6 {label}"] = both(lambda: fh.final_head_loss_sums(*largs, **kw))
+        times[f"K7 {label}"] = both(lambda: fh.final_head_loss_bwd(*largs, scale, **kw))
+        times[f"K8 {label}"] = both(lambda: fh.final_head_depth_loss_sums(*dargs, **dkw))
+        times[f"K9 {label}"] = both(lambda: fh.final_head_depth_loss_bwd(*dargs, scale, **dkw))
+    route_f, route_b = smoke.tail_route(largs, p)
+    times[f"tail-route-fwd {label}"] = both(route_f)
+    times[f"tail-route-bwd {label}"] = both(route_b)
     return times
 
 
@@ -228,7 +263,7 @@ def compare(label, runs, get):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", type=Path, help="the other checkout (e.g. the parent)")
-    ap.add_argument("--family", choices=("attention", "mlp", "all"), default="all",
+    ap.add_argument("--family", choices=("attention", "mlp", "tail", "all"), default="all",
                     help="which kernels to time (default: all)")
     ap.add_argument("--turn", type=Path, help=argparse.SUPPRESS)
     a = ap.parse_args()
