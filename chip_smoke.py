@@ -2,9 +2,9 @@
 holds each against its plain PyTorch version at the shapes of the main path (K4, a
 launch sequence, also step by step: its projection/LayerNorm backward alone, and
 one-hot probes that K4 and K5 recompute K1's and K2's probabilities, K13 K12's
-hidden and K15 K14's LayerNorm xhat bit for bit; K7, a launch sequence too, step by
-step, and a probe through both kernels' logits taps that it recomputes K6's logits bit
-for bit), then
+hidden and K15 K14's LayerNorm xhat bit for bit; K7 and K9, launch sequences too, step
+by step, and probes through the kernels' logits taps that K7 recomputes K6's logits and
+K9 K8's f32 logits bit for bit), then
 drives HEAL-SWIN-UNet at the paper configuration (nside 256, batch 2, bf16, random
 seeded weights) through the kernels and through the plain path: segmentation
 ``predict`` (serving) and its train step (forward, weighted CE, backward, Adam), and
@@ -42,7 +42,8 @@ K16/K17 ``route_ms``, the composed PyTorch route of their scaled-dot function (b
 the scaled-dot flavour of that step, the cosine flavour beside it) add ``library_ms``,
 one ``scaled_dot_product_attention`` call (forward; backward); K6 / K7 add ``route_ms``,
 the composed PyTorch route (bf16 ``F.linear``, ``F.layer_norm``, ``F.linear``, weighted
-``F.cross_entropy`` and ``torch.bincount``; its autograd backward).  For K10 / K11
+``F.cross_entropy`` and ``torch.bincount``; its autograd backward), and K8 / K9 the same
+route with the masked l2 loss in place of the cross entropy (``depth_route``).  For K10 / K11
 ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` cover the same work: sample 0's
 HP pair (chamfer_distance) for K10 (the library call there is ``torch.cdist`` in its inexact
 matrix-multiply form, then the minima), and the folds of its pruned
@@ -114,6 +115,9 @@ NOISE_M = 0.1  # the noise pair: target points and the same points moved by N(0,
 BF16_PEAK = 989e12
 F32_PEAK = 67e12
 HBM_RATE = 3.35e12
+# K10/K11's rate for their 8 FADD/FMUL a point pair: none of them may fuse under the
+# bit-equality contract (csrc/chamfer.cu), and F32_PEAK counts an FMA slot as two FLOP
+CHAMFER_PEAK = F32_PEAK / 2
 DOT_SCALE = 32 ** -0.5  # the scaled-dot flavour's sm_scale: head dim 32
 
 
@@ -441,17 +445,22 @@ def tail_route(largs, p):
     return forward, lambda: torch.autograd.grad(loss, leaves, retain_graph=True)
 
 
-def tail_sequence(T, C, F, p):
-    """K7's launch sequence at a shape: kernel -> launches in one call (the row kernel;
-    ``reduce_rows`` over its partial rows, two passes above 64 rows; ``gemm_tn`` and its
-    ``reduce_rows`` over its token splits, one split per 2048 tokens up to 128)."""
+def tail_sequence(T, C, F, p, depth=False):
+    """K7's (with ``depth``: K9's) launch sequence at a shape: kernel -> launches in one
+    call (the row kernel; ``reduce_rows`` over its partial rows, two passes above 64
+    rows; ``gemm_tn`` and its ``reduce_rows`` over its token splits, one split per 2048
+    tokens up to 128)."""
     from heal_swin_torch import _build
 
     def passes(rows):
         return 1 if rows <= 64 else 2
 
-    grid = _build.lib().hs_final_head_loss_bwd_grid(T, C, F, p)
-    return {"tail_bwd_kernel": 1, "gemm_tn_kernel": 1,
+    lib = _build.lib()
+    if depth:
+        grid, row_kernel = lib.hs_final_head_depth_loss_bwd_grid(T, C, F, p), "tail_depth_bwd"
+    else:
+        grid, row_kernel = lib.hs_final_head_loss_bwd_grid(T, C, F, p), "tail_bwd"
+    return {f"{row_kernel}_kernel": 1, "gemm_tn_kernel": 1,
             "reduce_rows_kernel": passes(grid) + passes(min(-(-T // 2048), 128))}
 
 
@@ -485,6 +494,67 @@ def depth_targets(gen, T, p, dev):
     t = torch.randn(T, p, generator=gen)
     bg = torch.rand(T, p, generator=gen) < BACKGROUND
     return torch.where(bg, float("inf"), t).to(dev)
+
+
+def depth_route(dargs, p):
+    """The composed PyTorch route for K8's and K9's function with the depth train step's
+    loss (masked l2, one channel) on their operands: bf16 ``F.linear`` for the expand,
+    ``F.layer_norm`` on the bf16 sub-rows, ``F.linear`` for the head, the masked l2 loss
+    by ``torch.where`` in f32 over the count of valid targets.  Returns (forward,
+    backward): forward() gives (loss, predictions (T, p F)), backward() the autograd
+    gradients of x, We, gamma, beta and Wh for a loss gradient of 1."""
+    import torch.nn.functional as tF
+
+    x, we, g, b, wh, t = dargs
+    T, C = x.shape
+    bf16 = torch.bfloat16
+    leaves = [a.detach().to(bf16).contiguous().requires_grad_()
+              for a in (x, we.t(), g, b, wh.t())]
+    tl = t.reshape(-1).float()
+    valid = torch.isfinite(tl)
+    ts = torch.where(valid, tl, 0.0)
+    den = torch.clamp_min(valid.sum().float(), 1.0)
+
+    def fwd():
+        xr, wet, gr, br, wht = leaves
+        z = tF.layer_norm(tF.linear(xr, wet).reshape(T * p, C), (C,), gr, br, 1e-5)
+        lf = tF.linear(z, wht)
+        d = torch.where(valid, lf[:, 0].float() - ts, 0.0)
+        return (0.5 * d * d).sum() / den, lf.reshape(T, -1)
+
+    loss, _ = fwd()
+
+    def forward():
+        with torch.no_grad():
+            return fwd()
+
+    return forward, lambda: torch.autograd.grad(loss, leaves, retain_graph=True)
+
+
+def check_depth_steps(name, dargs, p, kind, fh, scale):
+    """Each step of K9's launch sequence against its plain twin on the step's own input:
+    the row kernel (dx, dh, the partial rows on its grid) within REL_L2_TOL, ``gemm_tn``
+    (dWe = x^T dh) and ``reduce_rows`` within 1e-5 (f32 sums of the same bf16 and f32
+    operands in another order); and K9 is the three steps composed, bit for bit.
+    Returns the row kernel's grid."""
+    x, C, F = dargs[0], dargs[0].shape[1], dargs[4].shape[1]
+    kw = dict(patch_size=p, loss_kind=kind, huber_delta=HUBER_DELTA)
+    dx, dh, part = fh.final_head_depth_loss_bwd_rows(*dargs, scale, **kw, impl="pallas")
+    grid = part.shape[0]
+    err, _ = check_grads(f"{name} row step", ("dx", "dh", "partial rows"), (dx, dh, part),
+                         fh.final_head_depth_loss_bwd_rows_plain(*dargs, scale, **kw,
+                                                                 grid=grid))
+    dwe = fh.final_head_loss_dwe(x, dh, impl="pallas")
+    e_dwe, _ = check_close(f"{name} dWe step", dwe, fh.final_head_loss_dwe_plain(x, dh), 1e-5)
+    red = fh.reduce_rows(part, impl="pallas")
+    e_red, _ = check_close(f"{name} reduce step", red, fh.reduce_rows_plain(part), 1e-5)
+    dwh, dg, db = red.split([C * F, C, C])
+    whole = fh.final_head_depth_loss_bwd(*dargs, scale, **kw, impl="pallas")
+    if not all(torch.equal(a, b) for a, b in zip(whole, (dx, dwe, dg, db, dwh.reshape(C, F)))):
+        raise AssertionError(f"{name}: K9 is not its three steps composed")
+    log(f"{name} K9 sequence step by step on {grid} blocks: row kernel rel_l2 <= {err:.3e}, "
+        f"gemm_tn {e_dwe:.3e}, reduce_rows {e_red:.3e}; K9 is the steps composed, bit-equal")
+    return grid
 
 
 def check_depth_kernels(name, dargs, p, kind, fh, timing=True):
@@ -521,21 +591,31 @@ def check_depth_kernels(name, dargs, p, kind, fh, timing=True):
     if not timing:
         return {}
     with torch.no_grad():
+        check_depth_steps(label, dargs, p, kind, fh, scale)
         ms8 = median_ms(lambda: fh.final_head_depth_loss_sums(*dargs, **kw, impl="pallas"))
         pms8 = median_ms(lambda: fh.final_head_depth_loss_plain(*dargs, **kw))
         ms9 = median_ms(lambda: fh.final_head_depth_loss_bwd(*dargs, scale, **kw,
                                                              impl="pallas"))
         pms9 = median_ms(lambda: fh.final_head_depth_loss_bwd_plain(*dargs, scale, **kw))
+        per, _ = trace(lambda: fh.final_head_depth_loss_bwd(*dargs, scale, **kw,
+                                                            impl="pallas"), SEQUENCE_TRACED)
+    if (kind, F) != ("l2", 1):
+        raise ValueError(f"the depth route is the l2 loss of one channel, not {kind} F={F}")
+    route_f, route_b = depth_route(dargs, p)
+    rms8, rms9 = median_ms(route_f), median_ms(route_b)
+    del route_f, route_b
     log(f"K8 final_head_depth_loss T={T} C={C} p={p} F={F} {kind}: kernel {ms8:.4f} ms "
-        f"plain {pms8:.4f} ms")
+        f"plain {pms8:.4f} ms route {rms8:.4f} ms")
     log(f"K9 final_head_depth_loss_bwd T={T} C={C} p={p} F={F} {kind}: kernel {ms9:.4f} ms "
-        f"plain {pms9:.4f} ms")
+        f"plain {pms9:.4f} ms route {rms9:.4f} ms")
     # K8's max_abs_err: over its bf16 predictions (its loss sum's relative error apart)
     return {("final_head_depth_loss", T, C, F, kind): dict(
                 rel_l2=perr, max_abs_err=pmae, loss_sum_rel_err=loss_rel, ms=ms8,
-                plain_ms=pms8),
+                plain_ms=pms8, route_ms=rms8),
             ("final_head_depth_loss_bwd", T, C, F, kind): dict(
-                rel_l2=gerr, max_abs_err=gmae, ms=ms9, plain_ms=pms9)}
+                rel_l2=gerr, max_abs_err=gmae, ms=ms9, plain_ms=pms9, route_ms=rms9),
+            ("depth_sequence", T, C, F, kind): {name: (dev_ms / n, n / SEQUENCE_TRACED)
+                                                for name, (dev_ms, n) in per.items()}}
 
 
 def check_depth_edges(dargs, p, fh):
@@ -817,7 +897,9 @@ def check_probes(gen, dev):
     every column of row t, K15's dgamma is xhat[t, :], so bf16(x[t] + dgamma) is K14's
     out[t].  (f) K7 against K6 at the paper tail: the rounded logits its row kernel
     recomputes are the ones K6's cross entropy took, read through both kernels' logits
-    taps."""
+    taps.  (g) K9 against K8 at the paper tail, l2 with one channel and nll with two: the
+    f32 logits K9's row kernel recomputes are the ones K8's loss took, through both
+    kernels' logits taps, and K8's predictions are its logits rounded to bf16."""
     from heal_swin_torch.ops import window_attention as wa
 
     bf16 = torch.bfloat16
@@ -907,6 +989,19 @@ def check_probes(gen, dev):
                                       impl="pallas", tap_logits=True)[3]
     equal_bits(f"probe (f) T={T} C={C} p={TAIL_P} F={N_CLASSES}: K7's recomputed logits "
                f"against K6's", lf7, lf6, lf6.numel() // 2)
+    del lf6, lf7
+    t = depth_targets(gen, T, TAIL_P, dev)
+    for kind, F in (("l2", 1), ("nll", 2)):
+        dargs = largs[:4] + (rnd(C, F, std=0.1), t)
+        kw = dict(patch_size=TAIL_P, loss_kind=kind, impl="pallas")
+        _, _, preds, lf8 = fh.final_head_depth_loss_sums(*dargs, **kw, tap_logits=True)
+        lf9 = fh.final_head_depth_loss_bwd_rows(*dargs, torch.ones((), device=dev), **kw,
+                                                tap_logits=True)[3]
+        label = f"probe (g) T={T} C={C} p={TAIL_P} {kind} F={F}"
+        equal_bits(f"{label}: K9's recomputed f32 logits against K8's", lf9, lf8,
+                   lf8.numel() // 2)
+        equal_bits(f"{label}: K8's predictions against its f32 logits rounded to bf16", preds,
+                   lf8.reshape(T, TAIL_P * F).to(bf16), preds.numel() // 2)
 
 
 def log_k4_sequence(timed, run):
@@ -972,30 +1067,39 @@ def log_mlp_sequences(timed, run):
             log(f"{name_of} sequence: {ms:9.4f} ms  {name} ({seq[name]} a call)")
 
 
-def log_tail_sequence(timed, run):
-    """K7's launch sequence by kernel over a train step: each kernel's device ms a launch
-    in a traced K7 call at each shape (``check_loss_kernels``) times its launches in one
-    call (``tail_sequence``; the profiler's records of a traced call can miss a launch),
-    weighted by the step's K7 launches at that shape (``run``).  The wrapper's own
-    operand copies (the expand weight split into its p slices, the head and LayerNorm
-    parameters cast) count as recorded, under their ATen names."""
+def log_tail_sequence(timed, run, depth=False):
+    """K7's (with ``depth``: K9's) launch sequence by kernel over a train step: each
+    kernel's device ms a launch in a traced call at each shape (``check_loss_kernels``,
+    ``check_depth_kernels``) times its launches in one call (``tail_sequence``; the
+    profiler's records of a traced call can miss a launch), weighted by the step's
+    launches at that shape (``run``).  The wrapper's own operand copies (the expand
+    weight split into its p slices, the head and LayerNorm parameters cast) count as
+    recorded, under their ATen names."""
     _, by_shape = run
+    kernel, label, traced = (("final_head_depth_loss_bwd", "K9", "depth_sequence") if depth
+                             else ("final_head_loss_bwd", "K7", "tail_sequence"))
     total = collections.defaultdict(float)
     for key, n in by_shape.items():
-        if key[0] != "final_head_loss_bwd":
+        if key[0] != kernel:
             continue
-        seq = tail_sequence(*key[1:], N_CLASSES, TAIL_P)
-        for name, (ms, recorded) in timed[("tail_sequence",) + key[1:]].items():
+        T, C = key[1:3]
+        seq = tail_sequence(T, C, key[3] if depth else N_CLASSES, TAIL_P, depth)
+        for name, (ms, recorded) in timed[(traced,) + key[1:]].items():
             part = next((k for k in seq if k in name), None)
             calls = seq[part] if part is not None else recorded
             part = part or f"operand copy {name[:70]}"
             total[part] += n * ms * calls
-            log(f"K7 sequence T={key[1]} C={key[2]}: {part} {ms:.4f} ms a launch, "
+            log(f"{label} sequence T={T} C={C}: {part} {ms:.4f} ms a launch, "
                 f"{recorded:.2f} recorded a call, {calls:g} counted a call")
-    log(f"K7 sequence over the train step's K7 launches: {sum(total.values()):.4f} ms on "
-        f"the device")
+    log(f"{label} sequence over the train step's {label} launches: "
+        f"{sum(total.values()):.4f} ms on the device")
     for name, ms in sorted(total.items(), key=lambda kv: -kv[1]):
-        log(f"K7 sequence: {ms:9.4f} ms  {name}")
+        log(f"{label} sequence: {ms:9.4f} ms  {name}")
+
+
+def log_depth_sequence(timed, run):
+    """K9's launch sequence by kernel over the depth train step (``log_tail_sequence``)."""
+    log_tail_sequence(timed, run, depth=True)
 
 
 def check_grads(name, names, got, want, tol=REL_L2_TOL):
@@ -1737,7 +1841,7 @@ def replay_folds(p, q, folds, dev, plain_runs=1):
                        runs=10, warmup=2)
         pmin, qmin = kp, kq
         pp = chp._point_pairs(fold, n, m)
-        b, by = bound(8.0 * pp, (pr.bp + pr.bq) * 20 + len(fold) * 8, F32_PEAK)
+        b, by = bound(8.0 * pp, (pr.bp + pr.bq) * 20 + len(fold) * 8, CHAMFER_PEAK)
         out.append(dict(tile_pairs=len(fold), point_pairs=pp, ms=ms, plain_ms=pms,
                         bound_ms=b, bound_by=by))
     rank_p = torch.from_numpy(pr.rank_p[:n].astype(np.int64)).to(dev)
@@ -1774,7 +1878,7 @@ def check_chamfer_paper(dev, brute, pruned):
         same_bits(f"K10 {brute['sample']} {brute['metric']} {k} vs its plain version",
                   got["r"][i], brute[k])
     del got
-    b, by = bound(8.0 * n * m, (n + m) * 16, F32_PEAK)
+    b, by = bound(8.0 * n * m, (n + m) * 16, CHAMFER_PEAK)
     k10 = dict(ms=median_ms(lambda: ch.chamfer_min_both(pd, qd), runs=10, warmup=2),
                plain_ms=plain_ms, bound_ms=b, bound_by=by,
                library_ms=median_ms(lambda: cdist_minima(pd, qd, exact=False), runs=1,
@@ -1840,7 +1944,7 @@ def check_chamfer_mid(dev, q_target):
     del mm
     k10 = dict(n=n, m=m, ms=median_ms(lambda: ch.chamfer_min_both(pd, qd)),
                plain_ms=median_ms(lambda: ch.chamfer_min_both_plain(pd, qd), runs=5, warmup=1),
-               bound_ms=bound(8.0 * n * m, (n + m) * 16, F32_PEAK)[0],
+               bound_ms=bound(8.0 * n * m, (n + m) * 16, CHAMFER_PEAK)[0],
                library_mm_ms=median_ms(lambda: cdist_minima(pd, qd, exact=False), runs=3,
                                        warmup=1),
                library_mm_max_abs_err=mm_err)
@@ -1943,12 +2047,18 @@ def drive_chamfer_eval(dev, timed):
                   for k in st["round_pairs"] + [st["final_pairs"]])
     expected = dict(NO_LAUNCHES, chamfer_min_both=n_brute, chamfer_fold_pairs=n_folds)
     check_launches("chamfer eval", launches, by_shape, expected, timed)
-    dev_ms = {name: sum(ms for k, (ms, _) in per.items() if f"{name}_kernel" in k)
-              for name in ("chamfer_min_both", "chamfer_fold_pairs")}
-    for name in dev_ms:
+    # the writer's device ms of each kernel: its mean over the launches the trace
+    # recorded, times the launches the wrappers counted (torch.profiler can miss a
+    # record; the counters are checked above)
+    dev_ms = {}
+    for name in ("chamfer_min_both", "chamfer_fold_pairs"):
+        traced_ms = sum(ms for k, (ms, _) in per.items() if f"{name}_kernel" in k)
         traced = sum(c for k, (_, c) in per.items() if f"{name}_kernel" in k)
-        if traced != launches[name]:
-            raise AssertionError(f"{name}: {traced} traced launches, {launches[name]} counted")
+        if launches[name] and not traced:
+            raise AssertionError(f"{name}: the trace recorded none of its {launches[name]} "
+                                 f"launches")
+        dev_ms[name] = traced_ms / traced * launches[name] if traced else 0.0
+        log(f"chamfer {name}: {traced} launches traced, {launches[name]} counted")
     busy = sum(ms for ms, _ in per.values())
     log(f"chamfer eval: {wall_ms / 1e3 / CHAMFER_BATCH:.3f} s per evaluated sample "
         f"(traced, device activity only; {wall_ms / 1e3:.3f} s for {CHAMFER_BATCH}); device "
@@ -1991,7 +2101,7 @@ def drive_chamfer_eval(dev, timed):
     mids = check_chamfer_mid(dev, q_target)
     entries = {}
     for name, at, mid in zip(("chamfer_min_both", "chamfer_fold_pairs"), paper, mids):
-        bounds = [bound(f, b, F32_PEAK)[0] for f, b in work[name]]
+        bounds = [bound(f, b, CHAMFER_PEAK)[0] for f, b in work[name]]
         entries[name] = dict(
             max_abs_err=0.0,  # every check above holds the minima bit-equal
             **at, writer_ms=dev_ms[name], writer_bound_ms=sum(bounds), mid=mid)
@@ -2605,11 +2715,13 @@ PTXAS_NAMES = {"11attn_kernel": "K2 attn_kernel",
                "13mlp_dw_kernelILi3ELi4E": "K13 step 2, K15 step 3 mlp_dw_kernel<3, 4> (C <= 96)",
                "13mlp_dw_kernelILi6ELi4E": "K13 step 2, K15 step 3 mlp_dw_kernel<6, 4> (C <= 192)",
                "13mlp_dw_kernelILi6ELi1E": "K13 step 2, K15 step 3 mlp_dw_kernel<6, 1> (C > 192)"}
-# the tail row core's kernels: K6 and K7's row kernel at each C and head width
+# the tail row core's kernels: K6, K7's row kernel, K8 and K9's row kernel at each C and
+# head width
+TAIL_KERNELS = {"tail_loss_kernel": ("K6", (2, 4)), "tail_bwd_kernel": ("K7 step 1", (2, 4)),
+                "tail_depth_kernel": ("K8", (2,)), "tail_depth_bwd_kernel": ("K9 step 1", (2,))}
 PTXAS_NAMES.update({
-    f"{len(k)}{k}ILi{nt}ELi{nf}E": f"{'K6' if 'loss' in k else 'K7 step 1'} {k}<{nt}, {nf}> "
-                                   f"(C {8 * nt}, F <= {8 * nf})"
-    for k in ("tail_loss_kernel", "tail_bwd_kernel") for nt in (4, 8, 12, 16) for nf in (2, 4)})
+    f"{len(k)}{k}ILi{nt}ELi{nf}E": f"{who} {k}<{nt}, {nf}> (C {8 * nt}, F <= {8 * nf})"
+    for k, (who, nfs) in TAIL_KERNELS.items() for nt in (4, 8, 12, 16) for nf in nfs})
 
 
 def log_ptxas(build_log: str):
@@ -2658,6 +2770,7 @@ def main() -> int:
     log_tail_sequence(timed, train_run)
     torch.cuda.empty_cache()
     depth_run = drive_train(dev, timed, depth=True)
+    log_depth_sequence(timed, depth_run)
     torch.cuda.empty_cache()
     t_chamfer = time.perf_counter()
     *chamfer_run, chamfer = drive_chamfer_eval(dev, timed)

@@ -61,11 +61,14 @@ _SIGNATURES = {
     "hs_reduce_rows_workspace": ([_I] * 2, ctypes.c_size_t),
     "hs_gemm_tn": ([_P] * 4 + [_I] * 3 + [_P], _I),
     "hs_gemm_tn_workspace": ([_I] * 3, ctypes.c_size_t),
-    "hs_final_head_depth_loss": ([_P] * 9 + [_I] * 5 + [_F] * 2 + [_P], _I),
+    "hs_final_head_depth_loss": ([_P] * 10 + [_I] * 5 + [_F] * 2 + [_P], _I),
     "hs_final_head_depth_loss_smem": ([_I] * 3, ctypes.c_size_t),
-    "hs_final_head_depth_loss_workspace": ([_I], ctypes.c_size_t),
+    "hs_final_head_depth_loss_grid": ([_I] * 4, _I),
+    "hs_final_head_depth_loss_workspace": ([_I] * 4, ctypes.c_size_t),
     "hs_final_head_depth_loss_bwd": ([_P] * 11 + [_I] * 5 + [_F] * 2 + [_P], _I),
+    "hs_final_head_depth_loss_bwd_rows": ([_P] * 11 + [_I] * 5 + [_F] * 2 + [_P], _I),
     "hs_final_head_depth_loss_bwd_smem": ([_I] * 3, ctypes.c_size_t),
+    "hs_final_head_depth_loss_bwd_grid": ([_I] * 4, _I),
     "hs_final_head_depth_loss_bwd_workspace": ([_I] * 4, ctypes.c_size_t),
     "hs_chamfer_min_both": ([_P] * 4 + [_I] * 2 + [_P], _I),
     "hs_chamfer_fold_pairs": ([_P, _I] + [_P] * 4 + [_I] * 2 + [_P], _I),

@@ -19,9 +19,10 @@
 //
 // Bound: operations, FP32 outside the tensor cores.  A pair costs 3 subtractions, 3
 // multiplications and 2 additions (8 FLOP, none of which may fuse) plus the two
-// min-folds, so at the card's issue rate the kernels can reach ~40% of 8 FLOP per
-// pair over the 67 TFLOP/s f32 peak.  Bytes are negligible: a block stages its q
-// points once and reuses each for 1024 p rows.
+// min-folds.  The 67 TFLOP/s f32 peak counts an FMA as two FLOP, so 8 unfused
+// operations take 8 issue slots a pair: the least time is 8 FLOP per pair over half
+// that peak, 33.5 T operations/s, and the min-folds come on top.  Bytes are
+// negligible: a block stages its q points once and reuses each for 1024 p rows.
 //
 // Design.  A block of 8 warps folds a rectangle of p rows against a chunk of q points
 // staged in shared memory (coordinate-major, so lanes read neighbouring words).  It

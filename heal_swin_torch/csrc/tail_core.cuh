@@ -1,5 +1,6 @@
-// The register-resident row core of the segmentation tail: K6 (tail_loss_kernel) and the
-// row kernel of K7's launch sequence (tail_bwd_kernel), csrc/final_head.cu.
+// The register-resident row core of the decoder tail: K6 (tail_loss_kernel) and the row
+// kernel of K7's launch sequence (tail_bwd_kernel), K8 (tail_depth_kernel) and the row
+// kernel of K9's launch sequence (tail_depth_bwd_kernel), csrc/final_head.cu.
 //
 // A block walks 128-row tiles of the tokens; a warp owns 16 rows of a tile.  For each of
 // the p expand slices We_i (C x C, resident in shared memory for the block's whole walk):
@@ -9,11 +10,14 @@
 // with explicitly rounded operations; xhat in place; z = bf16(xhat gamma + beta),
 // repacked 32 columns at a time as A fragments (pack_a_frags) and multiplied into the
 // head Wh (C x 8 NF bf16, zero-padded from F to 8 NF columns) by mma: the logits, 16 x 8
-// NF f32 accumulators, each row in one quad, 2 NF values a lane.  K6 and K7 make h, z
-// and the logits only through these functions on the same fragments, so K7's recomputed
-// logits are K6's bits (an mma depends only on its fragments and its accumulator).  No
-// (rows x C) tile of f32 goes through shared memory, and no loop over C runs on the CUDA
-// cores.
+// NF f32 accumulators, each row in one quad, 2 NF values a lane.  Every kernel makes h,
+// z and the logits only through these functions on the same fragments, so K7's
+// recomputed logits are K6's bits and K9's are K8's (an mma depends only on its
+// fragments and its accumulator).  No (rows x C) tile of f32 goes through shared memory,
+// and no loop over C runs on the CUDA cores.  The segmentation kernels round the logits
+// to bf16 for the cross entropy (tail_softmax); the depth kernels keep them f32 and take
+// the masked depth loss of columns 0 and 1 (mean, logvar), which sit in the quad's lane
+// with c2 = 0 (tail_depth, depth_dlogits).
 #pragma once
 
 #include <math_constants.h>
@@ -120,10 +124,13 @@ __device__ __forceinline__ CeRows tail_softmax(float (&lf)[NF][4], float (&ex)[N
   return r;
 }
 
-// the rounded logits of the warp's rows g, g + 8 to tap (T, p, F) bf16, sub-pixel i, the
-// warp's first row grow0 (a probe's output; columns >= F are not written)
-template <int NF>
-__device__ __forceinline__ void tail_tap(bf16* __restrict__ tap, const float (&lf)[NF][4],
+__device__ __forceinline__ void put(bf16* p, float v) { *p = to_bf(v); }
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+
+// the logits of the warp's rows g, g + 8 to tap (T, p, F): bf16 (rounded) or f32, sub-pixel
+// i, the warp's first row grow0 (a probe's output; columns >= F are not written)
+template <int NF, typename Out>
+__device__ __forceinline__ void tail_tap(Out* __restrict__ tap, const float (&lf)[NF][4],
                                          size_t grow0, int i, int P, int F) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, c2 = (lane & 3) * 2;
@@ -132,8 +139,117 @@ __device__ __forceinline__ void tail_tap(bf16* __restrict__ tap, const float (&l
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int col = 8 * n + c2 + (e & 1);
-      if (col < F) tap[((grow0 + g + 8 * (e >> 1)) * P + i) * F + col] = to_bf(lf[n][e]);
+      if (col < F) put(tap + ((grow0 + g + 8 * (e >> 1)) * P + i) * F + col, lf[n][e]);
     }
+}
+
+// ---------------------------------------------------------------------------------
+// The masked depth loss of K8 and K9 (heal_swin_tpu/ops/final_head.py _depth_loss_vals,
+// _depth_loss_grads) on the f32 logits, not rounded.  Kinds in the order of the
+// wrapper's DEPTH_KINDS.
+// ---------------------------------------------------------------------------------
+enum DepthKind : int { kL2 = 0, kL1 = 1, kHuber = 2, kNll = 3 };
+
+// jnp.sign: +-1, and d itself at 0 and NaN
+__device__ __forceinline__ float sign_of(float d) {
+  return d > 0.f ? 1.f : (d < 0.f ? -1.f : d);
+}
+
+// d = logit 0 - target: an invalid target is selected to 0 before the subtraction,
+// and d is 0 where the target is invalid
+__device__ __forceinline__ float depth_diff(float lf0, float t, bool valid) {
+  const float ts = valid ? t : 0.f;
+  return valid ? lf0 - ts : 0.f;
+}
+
+// the loss of one valid element
+__device__ __forceinline__ float depth_loss(const float (&lf)[2], float d, int kind,
+                                            float delta) {
+  switch (kind) {
+    case kL2:
+      return 0.5f * d * d;
+    case kL1:
+      return fabsf(d);
+    case kHuber: {
+      const float ad = fabsf(d);
+      return ad < delta ? 0.5f * ad * ad / delta : ad - 0.5f * delta;
+    }
+    default:  // kNll over (mean, logvar)
+      return 0.5f * lf[1] + (0.5f * d * d) * expf(-lf[1]);
+  }
+}
+
+// d loss / d logits of one element: (g0, g1), both 0 where invalid; g1 is 0 for every
+// kind but nll (a logvar channel before the loss switches to the NLL)
+__device__ __forceinline__ void depth_grads(const float (&lf)[2], float d, bool valid,
+                                            int kind, float delta, float (&g)[2]) {
+  g[0] = 0.f;
+  g[1] = 0.f;
+  if (!valid) return;
+  switch (kind) {
+    case kL2:
+      g[0] = d;
+      break;
+    case kL1:
+      g[0] = sign_of(d);
+      break;
+    case kHuber:
+      g[0] = fabsf(d) < delta ? d / delta : sign_of(d);
+      break;
+    default: {
+      const float e = expf(-lf[1]);
+      g[0] = d * e;
+      g[1] = 0.5f - (0.5f * d * d) * e;
+    }
+  }
+}
+
+// K8's epilogue on the logits of the warp's rows (tail_logits): the quad's lane with c2 =
+// 0, which holds columns 0 and 1 of rows g and g + 8, adds each valid target's loss to
+// num and 1 to den, and writes the logits rounded to bf16 as the predictions (T, p F)
+template <int NF>
+__device__ __forceinline__ void tail_depth(const float (&lf)[NF][4], const float* __restrict__ t,
+                                           bf16* __restrict__ preds, size_t grow0, int i,
+                                           int P, int F, int kind, float delta, float& num,
+                                           float& den) {
+  const int lane = threadIdx.x & 31;
+  if (lane & 3) return;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const size_t e = (grow0 + (lane >> 2) + 8 * h) * P + i;
+    const float l[2] = {lf[0][2 * h], lf[0][2 * h + 1]};
+    const float tv = t[e];
+    const bool valid = isfinite(tv);
+    if (valid) {
+      num += depth_loss(l, depth_diff(l[0], tv, valid), kind, delta);
+      den += 1.f;
+    }
+    preds[e * F] = to_bf(l[0]);
+    if (F > 1) preds[e * F + 1] = to_bf(l[1]);
+  }
+}
+
+// K9's dlogits of the warp's rows g (h = 0) and g + 8 (h = 1): dl[h][f] = scale * d loss /
+// d logit f, f32, 0 where the target is invalid and for f >= F; every lane of a quad gets
+// its rows' values (the logits come from the quad's lane with c2 = 0)
+template <int NF>
+__device__ __forceinline__ void depth_dlogits(float (&dl)[2][2], const float (&lf)[NF][4],
+                                              const float* __restrict__ t, float scale,
+                                              size_t grow0, int i, int P, int F, int kind,
+                                              float delta) {
+  const int lane = threadIdx.x & 31;
+  const int lead = lane & ~3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float l[2] = {__shfl_sync(0xffffffffu, lf[0][2 * h], lead),
+                        __shfl_sync(0xffffffffu, lf[0][2 * h + 1], lead)};
+    const float tv = t[(grow0 + (lane >> 2) + 8 * h) * P + i];
+    const bool valid = isfinite(tv);
+    float g[2];
+    depth_grads(l, depth_diff(l[0], tv, valid), valid, kind, delta, g);
+    dl[h][0] = __fmul_rn(scale, g[0]);
+    dl[h][1] = F > 1 ? __fmul_rn(scale, g[1]) : 0.f;
+  }
 }
 
 }  // namespace hs

@@ -8,10 +8,10 @@ writing logits to be read back: weighted CE and the step's confusion matrix for
 segmentation (K6 forward, K7 backward), the masked depth loss and the bf16
 predictions for depth (K8 forward, K9 backward).  Segmentation predict hands the
 tokens to the argmax kernel (K3); depth predict runs the unfused tail.  The depth task
-takes its fused route where ``ops.final_head.depth_kernels_take`` says the kernels take
-the tail's shapes, as the JAX task does; on the card a fused tail the kernels do not
-take (a dtype other than bf16, a segmentation tail's shapes) raises, and
-``attention_impl="xla"`` runs the plain versions.
+takes its fused route where ``ops.final_head.depth_route_takes`` admits the tail's
+shapes, as the JAX task does; on the card a fused tail the kernels do not take (a dtype
+other than bf16, a width without an instantiation) raises, and ``attention_impl="xla"``
+runs the plain versions.
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ from heal_swin_torch.data.data_spec import DataSpec, DepthDataSpec  # noqa: F401
 from heal_swin_torch.evaluation import metrics as M
 from heal_swin_torch.models.swin_hp import SwinHPTransformerConfig, SwinHPTransformerSys
 from heal_swin_torch.ops.final_head import (
-    depth_kernels_take,
+    depth_route_takes,
     final_head_depth_loss,
     final_head_loss,
     final_head_predict,
@@ -252,13 +252,13 @@ class WoodscapeDepthSwinHP:
 
     def _fused_tail_ok(self):
         """The fused route (K8/K9) runs when the config asks for it, the loss has a
-        kernel kind, and the kernels take the tail's shape."""
+        kernel kind, and the route admits the tail's shape."""
         cfg = self.model.config
         kind = self._loss_kind()[0]
         if not cfg.fused_final_head or kind is None:
             return False
         T = self.data_spec.dim_in // cfg.patch_size
-        return depth_kernels_take(T, cfg.embed_dim, self.f_out, kind)
+        return depth_route_takes(T, cfg.embed_dim, self.f_out, kind)
 
     def loss_fn(self, imgs, targets, generator: Optional[torch.Generator] = None,
                 deterministic: bool = True, sample_mask=None):

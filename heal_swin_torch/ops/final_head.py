@@ -31,7 +31,12 @@ dtype -> logits z @ Wh in f32.
   x's dtype) and selects an invalid target to 0 before the subtraction, so it never
   enters the arithmetic.  Returns loss = sum loss / max(count, 1) and the (T, p*F)
   predictions.  The backward's dlogits = (gloss / max(count, 1)) * dloss/dlogits
-  stay f32; dh is rounded before the expand products.
+  stay f32; dh is rounded before the expand products.  On the card K8 and K9 run on
+  K6's and K7's persistent blocks, and K9 is a launch sequence like K7's: its row
+  kernel, dWe = x^T dh, the reduction of the partial rows.  Twins:
+  ``final_head_depth_loss_partials_plain``, ``final_head_depth_loss_bwd_rows_plain``
+  with ``final_head_loss_dwe_plain`` and ``reduce_rows_plain`` (composed:
+  ``final_head_depth_loss_bwd_sequence_plain``).
 
 Every wrapper dispatches on ``impl`` like the attention wrappers
 (``heal_swin_torch.ops._dispatch.use_kernel``): on a CUDA tensor it runs its kernel or
@@ -51,12 +56,12 @@ from heal_swin_torch import _build
 from heal_swin_torch.ops._dispatch import check, refuse, stream, use_kernel
 
 LN_EPS = 1e-5
-KERNEL_ROWS = 64  # token rows per block of K3, K8, K9; T a multiple of it for all five
-TAIL_TILE_ROWS = 128  # token rows of a K6 / K7 block tile: 8 warps of 16 rows
-KERNEL_MAX_F = 32  # K3, K8, K9: one lane per class; K6, K7: four head n-tiles
+KERNEL_ROWS = 64  # token rows per block of K3; T a multiple of it for all five
+TAIL_TILE_ROWS = 128  # token rows of a K6-K9 block tile: 8 warps of 16 rows
+KERNEL_MAX_F = 32  # K3: one lane per class; K6, K7: four head n-tiles
 KERNEL_SMEM_LIMIT = 232448  # bytes a block may opt in to on sm_90
-KERNEL_MAX_C_LOSS_BWD = 128  # K9 keeps C / 32 columns of a row per lane in registers
-# K6 and K7 hold a row's C columns in mma accumulators, one instantiation per C
+KERNEL_MAX_C_LOSS_BWD = 128  # the row core's widest instantiation
+# K6-K9 hold a row's C columns in mma accumulators, one instantiation per C
 KERNEL_LOSS_CS = (32, 64, 96, 128)
 DEPTH_KINDS = ("l2", "l1", "huber", "nll")  # K8/K9's loss kinds, in their launch ids
 
@@ -267,13 +272,10 @@ def final_head_loss_partials_plain(x, we, gamma, beta, wh, y, welem, *, patch_si
                       cm.reshape(grid, F * F)], dim=1)
 
 
-def final_head_loss_bwd_rows_plain(x, we, gamma, beta, wh, y, welem, scale, *, patch_size,
-                                   grid):
-    """Plain twin of the first step of K7's launch sequence, its row kernel on ``grid``
-    persistent blocks (tiles as ``final_head_loss_partials_plain``): (dx (T, C) in x's
-    dtype, dh (T, p*C) in x's dtype (sub-pixel i's rounded dh in columns i*C ..), the
-    partial rows (grid, C*F + 2*C) f32, [dWh (C x F) | dgamma | dbeta] over each
-    block's rows)."""
+def _bwd_rows_plain(x, we, gamma, beta, wh, dlogits_of, *, patch_size, grid):
+    """The row step of a backward launch sequence on ``grid`` persistent blocks, from
+    the dlogits of each sub-pixel (``_tail_bwd_slices``): (dx, dh, partial rows) as
+    ``final_head_loss_bwd_rows_plain``."""
     T, C = x.shape
     F = wh.shape[-1]
     f32 = dict(dtype=torch.float32, device=x.device)
@@ -282,9 +284,8 @@ def final_head_loss_bwd_rows_plain(x, we, gamma, beta, wh, y, welem, scale, *, p
     dg = torch.zeros((grid, C), **f32)
     db = torch.zeros_like(dg)
     dhs = []
-    for z, dlog, dz, xhat, dh, we_i in _tail_bwd_slices(
-            x, we, gamma, beta, wh, _ce_dlogits(y, welem, scale, x.dtype),
-            patch_size=patch_size):
+    for z, dlog, dz, xhat, dh, we_i in _tail_bwd_slices(x, we, gamma, beta, wh, dlogits_of,
+                                                         patch_size=patch_size):
         dwh = dwh + _block_products(z, dlog, grid)
         dg = dg + _block_sums(dz * xhat, grid)
         db = db + _block_sums(dz, grid)
@@ -294,26 +295,42 @@ def final_head_loss_bwd_rows_plain(x, we, gamma, beta, wh, y, welem, scale, *, p
     return dx.to(x.dtype), torch.cat(dhs, dim=1).to(x.dtype), part
 
 
+def _bwd_steps_composed(x, wh, rows):
+    """The dWe and reduction steps on the row step's (dx, dh, partial rows): (dx, dwe,
+    dgamma, dbeta, dwh) as ``_tail_bwd_plain``."""
+    C, F = wh.shape
+    dx, dh, part = rows
+    dwh, dg, db = reduce_rows_plain(part).split([C * F, C, C])
+    return dx, final_head_loss_dwe_plain(x, dh), dg, db, dwh.reshape(C, F)
+
+
+def final_head_loss_bwd_rows_plain(x, we, gamma, beta, wh, y, welem, scale, *, patch_size,
+                                   grid):
+    """Plain twin of the first step of K7's launch sequence, its row kernel on ``grid``
+    persistent blocks (tiles as ``final_head_loss_partials_plain``): (dx (T, C) in x's
+    dtype, dh (T, p*C) in x's dtype (sub-pixel i's rounded dh in columns i*C ..), the
+    partial rows (grid, C*F + 2*C) f32, [dWh (C x F) | dgamma | dbeta] over each
+    block's rows)."""
+    return _bwd_rows_plain(x, we, gamma, beta, wh, _ce_dlogits(y, welem, scale, x.dtype),
+                           patch_size=patch_size, grid=grid)
+
+
 def final_head_loss_dwe_plain(x, dh):
-    """Plain twin of the second step: dWe = x^T dh, (C, p*C) f32 from x (T, C) and the
-    first step's dh (T, p*C)."""
+    """Plain twin of the dWe step of K7 and K9: dWe = x^T dh, (C, p*C) f32 from x (T, C)
+    and the row step's dh (T, p*C)."""
     return x.float().t() @ dh.float()
 
 
 def reduce_rows_plain(part):
-    """Plain twin of the third step: the sum of the partial rows over the blocks."""
+    """Plain twin of the reduction step: the sum of the partial rows over the blocks."""
     return part.sum(0)
 
 
 def final_head_loss_bwd_sequence_plain(x, we, gamma, beta, wh, y, welem, scale, *,
                                        patch_size, grid):
     """K7's three steps' twins composed: results as ``final_head_loss_bwd_plain``."""
-    C = x.shape[1]
-    F = wh.shape[-1]
-    dx, dh, part = final_head_loss_bwd_rows_plain(x, we, gamma, beta, wh, y, welem, scale,
-                                                  patch_size=patch_size, grid=grid)
-    dwh, dg, db = reduce_rows_plain(part).split([C * F, C, C])
-    return dx, final_head_loss_dwe_plain(x, dh), dg, db, dwh.reshape(C, F)
+    return _bwd_steps_composed(x, wh, final_head_loss_bwd_rows_plain(
+        x, we, gamma, beta, wh, y, welem, scale, patch_size=patch_size, grid=grid))
 
 
 def _sign(d):
@@ -388,30 +405,75 @@ def final_head_depth_loss_plain(x, we, gamma, beta, wh, t, *, patch_size, loss_k
     return num, den, torch.stack(preds, dim=1).reshape(x.shape[0], -1).to(x.dtype)
 
 
+def _depth_dlogits(t, scale, kind, delta):
+    """K9's dlogits of sub-pixel i: scale * dloss/dlogits of the f32 logits, f32; a
+    ``dlogits_of`` of ``_tail_bwd_slices``."""
+
+    def dlogits_of(i, z, whf):
+        return scale * _depth_loss_grads(z @ whf, t[:, i].float(), kind, delta)
+
+    return dlogits_of
+
+
 def final_head_depth_loss_bwd_plain(x, we, gamma, beta, wh, t, scale, *, patch_size,
                                     loss_kind, huber_delta=1.0):
     """Plain version of K9, the backward of K8 for loss gradient ``gloss``:
     scale = gloss / max(count, 1) (a 0-d f32 tensor); dlogits = scale * dloss/dlogits
     stay f32.  Results as ``_tail_bwd_plain``."""
-
-    def dlogits_of(i, z, whf):
-        return scale * _depth_loss_grads(z @ whf, t[:, i].float(), loss_kind, huber_delta)
-
-    return _tail_bwd_plain(x, we, gamma, beta, wh, dlogits_of, patch_size=patch_size)
+    return _tail_bwd_plain(x, we, gamma, beta, wh,
+                           _depth_dlogits(t, scale, loss_kind, huber_delta),
+                           patch_size=patch_size)
 
 
-def _tail_refusal(what, T, C, F, bwd, ce=False):
-    """Why the tail kernels do not take T tokens of width C with F outputs (``bwd``: a
-    backward, K7/K9, too; ``ce``: K6/K7), or None where they do: C % 16, 1 <= F <= 32,
-    T % 64, C <= 128 for a backward, and C one of 32, 64, 96, 128 for K6 and K7.  The
-    dtype and the shared memory are checked at the call (``_tail_operands``)."""
+def final_head_depth_loss_partials_plain(x, we, gamma, beta, wh, t, *, patch_size, loss_kind,
+                                         huber_delta=1.0, grid):
+    """Plain twin of K8's partial rows on ``grid`` persistent blocks (tiles as
+    ``final_head_loss_partials_plain``): (grid, 2) f32, each row [sum loss, count of
+    valid targets] over the block's rows; their sum over the blocks is
+    ``final_head_depth_loss_plain``'s (sum loss, count)."""
+    we_s = _split_we(we, x.dtype, patch_size)
+    whf = wh.to(x.dtype).float()
+    num = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
+    den = torch.zeros_like(num)
+    for i in range(patch_size):
+        lf = _sub_rows(x, we_s, gamma, beta, i)[0] @ whf
+        vals, valid = _depth_loss_vals(lf, t[:, i].float(), loss_kind, huber_delta)
+        num = num + vals
+        den = den + valid.float()
+    return torch.stack([_block_sums(num, grid), _block_sums(den, grid)], dim=1)
+
+
+def final_head_depth_loss_bwd_rows_plain(x, we, gamma, beta, wh, t, scale, *, patch_size,
+                                         loss_kind, huber_delta=1.0, grid):
+    """Plain twin of the first step of K9's launch sequence, its row kernel on ``grid``
+    persistent blocks: (dx, dh, partial rows [dWh (C x F) | dgamma | dbeta]) as
+    ``final_head_loss_bwd_rows_plain``, from K9's f32 dlogits."""
+    return _bwd_rows_plain(x, we, gamma, beta, wh,
+                           _depth_dlogits(t, scale, loss_kind, huber_delta),
+                           patch_size=patch_size, grid=grid)
+
+
+def final_head_depth_loss_bwd_sequence_plain(x, we, gamma, beta, wh, t, scale, *,
+                                             patch_size, loss_kind, huber_delta=1.0, grid):
+    """K9's three steps' twins composed (the row step, ``final_head_loss_dwe_plain``,
+    ``reduce_rows_plain``): results as ``final_head_depth_loss_bwd_plain``."""
+    return _bwd_steps_composed(x, wh, final_head_depth_loss_bwd_rows_plain(
+        x, we, gamma, beta, wh, t, scale, patch_size=patch_size, loss_kind=loss_kind,
+        huber_delta=huber_delta, grid=grid))
+
+
+def _tail_refusal(what, T, C, F, core):
+    """Why the tail kernels do not take T tokens of width C with F outputs (``core``:
+    K6-K9, the row core's kernels; else K3), or None where they do: C % 16, 1 <= F <=
+    32, T % 64, and for the row core C one of 32, 64, 96, 128.  The dtype and the
+    shared memory are checked at the call (``_tail_operands``)."""
     if C % 16 or not 1 <= F <= KERNEL_MAX_F:
         return f"{what}: the kernel takes C % 16 == 0 and F <= {KERNEL_MAX_F}, got C={C}, F={F}"
     if T % KERNEL_ROWS:
         return f"{what}: T={T} is not a multiple of {KERNEL_ROWS}"
-    if (bwd or ce) and C > KERNEL_MAX_C_LOSS_BWD:
+    if core and C > KERNEL_MAX_C_LOSS_BWD:
         return f"{what}: the kernel takes C <= {KERNEL_MAX_C_LOSS_BWD}, got C={C}"
-    if ce and C not in KERNEL_LOSS_CS:
+    if core and C not in KERNEL_LOSS_CS:
         return f"{what}: the kernel takes C % 32 == 0 and C <= 128, got C={C}"
     return None
 
@@ -422,7 +484,7 @@ def kernels_take(T, C, F, dtype, train=True) -> bool:
     from the shared memory, which they read from the kernels' library at the call;
     where False, a CUDA tensor raises under "auto" and "pallas" and needs impl="xla",
     the plain version."""
-    return dtype == torch.bfloat16 and _tail_refusal("", T, C, F, train, train) is None
+    return dtype == torch.bfloat16 and _tail_refusal("", T, C, F, train) is None
 
 
 def _tail_operands(what, x, we, gamma, beta, wh, patch_size, kernel):
@@ -435,7 +497,7 @@ def _tail_operands(what, x, we, gamma, beta, wh, patch_size, kernel):
     dt = torch.bfloat16
     if x.dtype != dt:
         refuse(f"{what}: the kernel takes bfloat16 x, got {x.dtype}")
-    msg = _tail_refusal(what, T, C, F, kernel.endswith("bwd"), kernel.startswith("loss"))
+    msg = _tail_refusal(what, T, C, F, kernel != "predict")
     if msg is not None:
         refuse(msg)
     smem = getattr(_build.lib(), f"hs_final_head_{kernel}_smem")(C, F, p)
@@ -582,8 +644,8 @@ def final_head_loss_bwd_rows(x, we, gamma, beta, wh, y, welem, scale, *, patch_s
 
 
 def final_head_loss_dwe(x, dh, *, impl="auto"):
-    """The second step of K7's sequence alone, ``gemm_tn``: dWe = x^T dh (C, p*C) f32;
-    operands as ``final_head_loss_dwe_plain`` (not counted)."""
+    """The dWe step of K7's and K9's sequences alone, ``gemm_tn``: dWe = x^T dh (C, p*C)
+    f32; operands as ``final_head_loss_dwe_plain`` (not counted)."""
     if not use_kernel(x, impl):
         return final_head_loss_dwe_plain(x, dh)
     what = "final_head_loss_dwe"
@@ -604,8 +666,9 @@ def final_head_loss_dwe(x, dh, *, impl="auto"):
 
 
 def reduce_rows(part, *, impl="auto"):
-    """The third step of K7's sequence alone: the sum of the partial rows (R, N) f32 over
-    the rows, in a fixed order; operands as ``reduce_rows_plain`` (not counted)."""
+    """The reduction step of K7's and K9's sequences alone: the sum of the partial rows
+    (R, N) f32 over the rows, in a fixed order; operands as ``reduce_rows_plain`` (not
+    counted)."""
     if not use_kernel(part, impl):
         return reduce_rows_plain(part)
     if part.dtype != torch.float32 or part.dim() != 2:
@@ -636,10 +699,20 @@ def _depth_refusal(what, F, kind):
 
 def depth_kernels_take(T, C, F, kind) -> bool:
     """Whether K8 and K9 take a depth tail of T tokens of width C, F output channels
-    and loss ``kind``: the depth task's gate of its fused route, on the shapes as the
-    JAX task's.  The dtype and the shared memory are checked at the call, where a tail
-    the kernels do not take raises."""
+    and loss ``kind``: C one of 32, 64, 96, 128 (one instantiation each), T % 64.  The
+    dtype and the shared memory are checked at the call, where a tail the kernels do
+    not take raises."""
     return _depth_refusal("", F, kind) is None and _tail_refusal("", T, C, F, True) is None
+
+
+def depth_route_takes(T, C, F, kind) -> bool:
+    """The depth task's gate of its fused route: the loss kinds and heads the fused
+    function computes, on tails of C % 16 == 0 up to 128 and T % 64 == 0.  Its
+    kernels take a subset of these (``depth_kernels_take``); on a CUDA tensor a tail
+    the gate admits and the kernels do not take raises, naming impl="xla", as the
+    segmentation tail does."""
+    return (_depth_refusal("", F, kind) is None and not C % 16 and C <= KERNEL_MAX_C_LOSS_BWD
+            and not T % KERNEL_ROWS)
 
 
 def _depth_operands(what, x, we, gamma, beta, wh, t, patch_size, kind, kernel):
@@ -653,12 +726,17 @@ def _depth_operands(what, x, we, gamma, beta, wh, t, patch_size, kind, kernel):
 
 
 def final_head_depth_loss_sums(x, we, gamma, beta, wh, t, *, patch_size, loss_kind,
-                               huber_delta=1.0, impl="auto"):
+                               huber_delta=1.0, impl="auto", tap_logits=False):
     """K8 wrapper: (sum loss, count of valid targets, predictions (T, p*F)); operands
-    as ``final_head_depth_loss_plain``."""
+    as ``final_head_depth_loss_plain``.  With ``tap_logits`` a fourth result, the f32
+    logits (T, p, F) the loss took (a probe's output: on the card the kernel writes
+    them beside its sums)."""
     kw = dict(patch_size=patch_size, loss_kind=loss_kind, huber_delta=huber_delta)
     if not use_kernel(x, impl):
-        return final_head_depth_loss_plain(x, we, gamma, beta, wh, t, **kw)
+        out = final_head_depth_loss_plain(x, we, gamma, beta, wh, t, **kw)
+        if tap_logits:
+            out += (final_head_logits_plain(x, we, gamma, beta, wh, patch_size=patch_size),)
+        return out
     what = "final_head_depth_loss"
     T, C, F, we_s, g, b, whb, t = _depth_operands(what, x, we, gamma, beta, wh, t,
                                                   patch_size, loss_kind, "depth_loss")
@@ -666,21 +744,25 @@ def final_head_depth_loss_sums(x, we, gamma, beta, wh, t, *, patch_size, loss_ki
     lib = _build.lib()
     red = torch.empty(2, dtype=torch.float32, device=x.device)
     preds = torch.empty((T, p * F), dtype=x.dtype, device=x.device)
-    work = torch.empty(lib.hs_final_head_depth_loss_workspace(T), dtype=torch.uint8,
+    work = torch.empty(lib.hs_final_head_depth_loss_workspace(T, C, F, p), dtype=torch.uint8,
                        device=x.device)
+    tap = torch.empty((T, p, F), dtype=torch.float32, device=x.device) if tap_logits else None
     code = lib.hs_final_head_depth_loss(
         x.data_ptr(), we_s.data_ptr(), g.data_ptr(), b.data_ptr(), whb.data_ptr(),
-        t.data_ptr(), red.data_ptr(), preds.data_ptr(), work.data_ptr(), T, C, F, p,
-        DEPTH_KINDS.index(loss_kind), LN_EPS, float(huber_delta), stream(x))
+        t.data_ptr(), red.data_ptr(), preds.data_ptr(), work.data_ptr(),
+        None if tap is None else tap.data_ptr(), T, C, F, p, DEPTH_KINDS.index(loss_kind),
+        LN_EPS, float(huber_delta), stream(x))
     check(code, what)
     _count(what, T, C, F, loss_kind)
-    return red[0], red[1], preds
+    out = (red[0], red[1], preds)
+    return out + (tap,) if tap_logits else out
 
 
 def final_head_depth_loss_bwd(x, we, gamma, beta, wh, t, scale, *, patch_size, loss_kind,
                               huber_delta=1.0, impl="auto"):
-    """K9 wrapper: the backward of K8; operands and results as
-    ``final_head_depth_loss_bwd_plain``."""
+    """K9 wrapper: the backward of K8, one entry that launches its sequence (the row
+    kernel, ``gemm_tn`` for dWe, ``reduce_rows`` over the partial rows); operands and
+    results as ``final_head_depth_loss_bwd_plain``."""
     kw = dict(patch_size=patch_size, loss_kind=loss_kind, huber_delta=huber_delta)
     if not use_kernel(x, impl):
         return final_head_depth_loss_bwd_plain(x, we, gamma, beta, wh, t, scale, **kw)
@@ -705,6 +787,41 @@ def final_head_depth_loss_bwd(x, we, gamma, beta, wh, t, scale, *, patch_size, l
     _count(what, T, C, F, loss_kind)
     dwh, dg, db = red.split([C * F, C, C])
     return dx, dwe, dg, db, dwh.reshape(C, F)
+
+
+def final_head_depth_loss_bwd_rows(x, we, gamma, beta, wh, t, scale, *, patch_size,
+                                   loss_kind, huber_delta=1.0, impl="auto", tap_logits=False):
+    """K9's row kernel alone, the first step of its launch sequence (not counted, as K9's
+    launches count the sequence): (dx, dh, partial rows) as
+    ``final_head_depth_loss_bwd_rows_plain`` on the kernel's grid (one block for CPU
+    tensors), and with ``tap_logits`` the f32 logits (T, p, F) it recomputed."""
+    kw = dict(patch_size=patch_size, loss_kind=loss_kind, huber_delta=huber_delta)
+    if not use_kernel(x, impl):
+        out = final_head_depth_loss_bwd_rows_plain(x, we, gamma, beta, wh, t, scale, **kw,
+                                                   grid=1)
+        if tap_logits:
+            out += (final_head_logits_plain(x, we, gamma, beta, wh, patch_size=patch_size),)
+        return out
+    what = "final_head_depth_loss_bwd_rows"
+    T, C, F, we_s, g, b, whb, t = _depth_operands(what, x, we, gamma, beta, wh, t,
+                                                  patch_size, loss_kind, "depth_loss_bwd")
+    p = patch_size
+    scale = scale.to(device=x.device, dtype=torch.float32).reshape(1).contiguous()
+    lib = _build.lib()
+    grid = lib.hs_final_head_depth_loss_bwd_grid(T, C, F, p)
+    if grid < 1:
+        raise RuntimeError(f"{what}: no grid for T={T}, C={C}, F={F}, p={p}")
+    dx = torch.empty_like(x)
+    dh = torch.empty((T, p * C), dtype=x.dtype, device=x.device)
+    part = torch.empty((grid, C * F + 2 * C), dtype=torch.float32, device=x.device)
+    tap = torch.empty((T, p, F), dtype=torch.float32, device=x.device) if tap_logits else None
+    code = lib.hs_final_head_depth_loss_bwd_rows(
+        x.data_ptr(), we_s.data_ptr(), g.data_ptr(), b.data_ptr(), whb.data_ptr(),
+        t.data_ptr(), scale.data_ptr(), dx.data_ptr(), dh.data_ptr(), part.data_ptr(),
+        None if tap is None else tap.data_ptr(), T, C, F, p, DEPTH_KINDS.index(loss_kind),
+        LN_EPS, float(huber_delta), stream(x))
+    check(code, what)
+    return (dx, dh, part, tap) if tap_logits else (dx, dh, part)
 
 
 def _tail_grads(ctx, operands, grads):

@@ -540,23 +540,28 @@ def test_auto_refuses_what_the_kernels_do_not_take(dev):
 
 
 def test_tail_kernels_refuse_what_their_shared_memory_does_not_hold(dev):
-    """The tail wrappers read the shared memory a block asks for from the library:
-    K7 and K9 at C 128 with four sub-pixels, and K3 at C 160, need more than a block
-    may have and raise; K3 at C 128 launches."""
+    """The tail wrappers read the shared memory a block asks for from the library: K7
+    at C 128 with four sub-pixels (its z and dlogits tiles) and K3 at C 160 need more
+    than a block may have and raise; K3 at C 128 launches, and so does K9 at C 128 with
+    four sub-pixels (no tile of its own beside the slices and the x ring), within 1e-2
+    of its plain version."""
     gen = torch.Generator().manual_seed(13)
     one = torch.ones((), device=dev)
     loss128 = _loss_args(gen, dev, 128, 128, 10)
     with pytest.raises(ValueError, match="shared memory.*impl='xla'"):
         fh.final_head_loss_bwd(*loss128, one, patch_size=4)
     with pytest.raises(ValueError, match="shared memory"):
-        fh.final_head_depth_loss_bwd(*_depth_args(gen, dev, 128, 128, 1), one, patch_size=4,
-                                     loss_kind="l2")
-    with pytest.raises(ValueError, match="shared memory"):
         fh.final_head_predict(*_loss_args(gen, dev, 128, 160, 10)[:5], patch_size=4)
-    before = fh.launches["final_head_predict"]
+    before = dict(fh.launches)
     fh.final_head_predict(*loss128[:5], patch_size=4)
+    dargs = _depth_args(gen, dev, 128, 128, 1)
+    got = fh.final_head_depth_loss_bwd(*dargs, one, patch_size=4, loss_kind="l2")
     torch.cuda.synchronize()
-    assert fh.launches["final_head_predict"] == before + 1
+    assert fh.launches["final_head_predict"] == before["final_head_predict"] + 1
+    assert (fh.launches["final_head_depth_loss_bwd"]
+            == before["final_head_depth_loss_bwd"] + 1)
+    _assert_grads_close(got, fh.final_head_depth_loss_bwd_plain(*dargs, one, patch_size=4,
+                                                                loss_kind="l2"))
 
 
 def _qkv_args(gen, dev, C, T, masked, use_cos, qkv_bias):
@@ -977,6 +982,101 @@ def test_depth_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="bfloat16"):
         fh.final_head_depth_loss_sums(args[0].float(), *args[1:], patch_size=4,
                                       loss_kind="l2", impl="pallas")
+
+
+@pytest.mark.parametrize("C", [32, 64, 96, 128])
+@pytest.mark.parametrize("kind,F,delta", [("l2", 1, 1.0), ("nll", 2, 1.0)])
+def test_final_head_depth_loss_kernels_at_every_width(dev, C, kind, F, delta):
+    """K8 and K9 at each instantiation of the tail row core (C 32 to 128, p 4) on a T
+    whose last 128-row tile is half full, against their plain versions; two K9 launches
+    bit-equal."""
+    gen = torch.Generator().manual_seed(40 + C + F)
+    T, p = 64 * 65, 4
+    args = _depth_args(gen, dev, T, C, F, p)
+    kw = dict(patch_size=p, loss_kind=kind, huber_delta=delta)
+    num, den, preds = fh.final_head_depth_loss_sums(*args, **kw)
+    torch.cuda.synchronize()
+    wnum, wden, wpreds = fh.final_head_depth_loss_plain(*args, **kw)
+    assert float(den) == float(wden)
+    assert abs(float(num) - float(wnum)) <= 1e-3 * abs(float(wnum))
+    assert _rel_l2(preds, wpreds) < 1e-2
+    scale = torch.tensor(0.7, device=dev) / wden
+    got = fh.final_head_depth_loss_bwd(*args, scale, **kw)
+    _assert_grads_close(got, fh.final_head_depth_loss_bwd_plain(*args, scale, **kw))
+    again = fh.final_head_depth_loss_bwd(*args, scale, **kw)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
+@pytest.mark.parametrize("T,C,kind,F", [(64 * 65, 96, "l2", 1), (64 * 33, 32, "nll", 2),
+                                        (64 * 65, 64, "huber", 1), (262144, 96, "l2", 1)])
+def test_final_head_depth_loss_bwd_sequence_kernels(dev, T, C, kind, F):
+    """Each step of K9's launch sequence against its plain twin: the row kernel (dx, dh,
+    the partial rows on its grid), ``gemm_tn`` (dWe = x^T dh) and ``reduce_rows``, each
+    on the kernel's own input; and K9 is the three steps composed, bit for bit."""
+    gen = torch.Generator().manual_seed(T + C + F)
+    p = 4
+    args = _depth_args(gen, dev, T, C, F, p)
+    kw = dict(patch_size=p, loss_kind=kind, huber_delta=0.5)
+    scale = torch.tensor(1.3, device=dev) / torch.isfinite(args[5]).sum()
+    dx, dh, part = fh.final_head_depth_loss_bwd_rows(*args, scale, **kw)
+    grid = part.shape[0]
+    assert 1 <= grid <= -(-T // fh.TAIL_TILE_ROWS)
+    _assert_grads_close((dx, dh, part), fh.final_head_depth_loss_bwd_rows_plain(
+        *args, scale, **kw, grid=grid))
+    dwe = fh.final_head_loss_dwe(args[0], dh)
+    _assert_grads_close((dwe,), (fh.final_head_loss_dwe_plain(args[0], dh),), tol=1e-5)
+    red = fh.reduce_rows(part)
+    _assert_grads_close((red,), (fh.reduce_rows_plain(part),), tol=1e-5)
+    dwh, dg, db = red.split([C * F, C, C])
+    whole = fh.final_head_depth_loss_bwd(*args, scale, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(whole, (dx, dwe, dg, db, dwh.reshape(C, F))))
+
+
+@pytest.mark.parametrize("T,C,kind,F", [(64 * 65, 32, "l2", 1), (64 * 65, 96, "nll", 2),
+                                        (64 * 33, 128, "l2", 2), (262144, 96, "l2", 1)])
+def test_final_head_depth_loss_bwd_recomputes_the_forward_logits(dev, T, C, kind, F):
+    """K9's row kernel recomputes K8's f32 logits bit for bit: both kernels' logits
+    taps, ``torch.equal``; K8's predictions are its tap rounded to bf16; both near the
+    plain version's logits."""
+    gen = torch.Generator().manual_seed(T + C + 3)
+    p = 4
+    args = _depth_args(gen, dev, T, C, F, p)
+    kw = dict(patch_size=p, loss_kind=kind)
+    _, _, preds, lf8 = fh.final_head_depth_loss_sums(*args, **kw, tap_logits=True)
+    lf9 = fh.final_head_depth_loss_bwd_rows(*args, torch.tensor(1.0, device=dev), **kw,
+                                            tap_logits=True)[3]
+    assert lf8.shape == (T, p, F) and lf8.dtype == torch.float32
+    assert int((lf8 != 0).sum()) > T * p * F // 2
+    assert torch.equal(lf8, lf9)
+    assert torch.equal(preds, lf8.reshape(T, p * F).to(torch.bfloat16))
+    assert _rel_l2(lf8, fh.final_head_logits_plain(*args[:5], patch_size=p)) < 1e-2
+
+
+def test_depth_kernels_refuse_widths_without_an_instantiation(dev):
+    """K8 and K9 hold a row in mma accumulators, one instantiation per C in 32, 64, 96,
+    128: the other widths of C % 16 raise under "auto", naming
+    impl="xla", with no launch, and run the plain version under "xla"; F 3 raises."""
+    gen = torch.Generator().manual_seed(15)
+    one = torch.ones((), device=dev)
+    kw = dict(patch_size=4, loss_kind="l2")
+    for C in (16, 48, 80, 112):
+        args = _depth_args(gen, dev, 128, C, 1)
+        before = dict(fh.launches)
+        with pytest.raises(ValueError, match="C % 32 == 0 and C <= 128.*impl='xla'"):
+            fh.final_head_depth_loss_sums(*args, **kw)
+        with pytest.raises(ValueError, match="C % 32 == 0 and C <= 128.*impl='xla'"):
+            fh.final_head_depth_loss_bwd(*args, one, **kw)
+        with pytest.raises(ValueError, match="C % 32 == 0 and C <= 128.*impl='xla'"):
+            fh.final_head_depth_loss_bwd_rows(*args, one, **kw)
+        got = fh.final_head_depth_loss_sums(*args, **kw, impl="xla")
+        assert dict(fh.launches) == before
+        assert all(torch.equal(a, b) for a, b in zip(got, fh.final_head_depth_loss_plain(
+            *args, **kw)))
+    three = _depth_args(gen, dev, 128, 32, 3)
+    with pytest.raises(ValueError, match="F in.*impl='xla'"):
+        fh.final_head_depth_loss_sums(*three, **kw)
+    with pytest.raises(ValueError, match="F in.*impl='xla'"):
+        fh.final_head_depth_loss_bwd(*three, one, **kw)
 
 
 def _cloud(gen, dev, n, scale=5.0):

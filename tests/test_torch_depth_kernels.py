@@ -184,16 +184,29 @@ def test_depth_loss_function_matches_autograd_of_plain(kind, F, delta):
 
 
 def test_depth_kernels_take():
-    """The shapes and kinds K8/K9 take, as the depth task's fused gate reads them."""
+    """The shapes and kinds K8/K9 take: C one of 32, 64, 96, 128 (one instantiation of
+    the tail row core each).  The depth task's fused gate (``depth_route_takes``) still
+    admits C % 16 up to 128; on the card the wrappers refuse the widths without an
+    instantiation."""
     assert fh.depth_kernels_take(262144, 96, 1, "l2")
-    assert fh.depth_kernels_take(128, 16, 2, "nll")
+    assert fh.depth_kernels_take(128, 32, 2, "nll")
+    assert fh.depth_kernels_take(128, 64, 1, "huber")
     assert fh.depth_kernels_take(128, 128, 1, "l2")
-    assert not fh.depth_kernels_take(128, 16, 1, "nll")  # nll needs a logvar channel
-    assert not fh.depth_kernels_take(128, 16, 3, "l2")
-    assert not fh.depth_kernels_take(128, 16, 1, "ce")
-    assert not fh.depth_kernels_take(96, 16, 1, "l2")  # T % 64
+    assert not fh.depth_kernels_take(128, 32, 1, "nll")  # nll needs a logvar channel
+    assert not fh.depth_kernels_take(128, 32, 3, "l2")
+    assert not fh.depth_kernels_take(128, 32, 1, "ce")
+    assert not fh.depth_kernels_take(96, 32, 1, "l2")  # T % 64
     assert not fh.depth_kernels_take(128, 8, 1, "l2")  # C % 16
-    assert not fh.depth_kernels_take(128, 144, 1, "l2")  # K9's C <= 128
+    assert not fh.depth_kernels_take(128, 144, 1, "l2")  # the row core's C <= 128
+    for C in (16, 48, 80, 112):  # C % 16, no instantiation
+        assert not fh.depth_kernels_take(128, C, 1, "l2"), C
+        assert not fh.depth_kernels_take(128, C, 2, "nll"), C
+        assert fh.depth_route_takes(128, C, 1, "l2"), C
+    assert fh.depth_route_takes(128, 96, 2, "nll")
+    assert not fh.depth_route_takes(128, 8, 1, "l2")
+    assert not fh.depth_route_takes(128, 144, 1, "l2")
+    assert not fh.depth_route_takes(96, 32, 1, "l2")
+    assert not fh.depth_route_takes(128, 32, 1, "nll")
 
 
 LOSSES = [("mse", {}), ("l1_loss", {}), ("huber_loss", {"delta": 0.7}),

@@ -21,10 +21,10 @@ DropPath scale), and the port's cuBLAS / ATen routes for K12 / K13's function an
 K14 / K15's (``mlp_route``, forward and backward; the branch's with the DropPath scale)
 as the controls.  The tail family (``--family tail``), at the paper tail (T 262,144, C 96,
 p 4, F 10) on chip_smoke.py's ``tail_inputs``: K6 and its backward K7, K3 (predict), and
-K8 / K9 (the depth loss, l2, one channel), and the composed PyTorch route of K6 / K7's
-function (``tail_route``, forward and backward) as the control that runs the same code
-in every turn; each launches once a step.  ``--family all`` (the default) times all
-three.
+K8 / K9 (the depth loss, l2, one channel), and the composed PyTorch routes of K6 / K7's
+function (``tail_route``) and of K8 / K9's (``depth_route``), forward and backward, as
+the controls that run the same code in every turn; each launches once a step.
+``--family all`` (the default) times all three.
 
 Each shape gets two times: the device time (``device_ms``: each call enqueued behind a
 spin kernel, so that the events bracket the device work alone) and a single call's
@@ -128,7 +128,7 @@ def turn(root: Path, family: str) -> dict:
 
 
 def tail_times(smoke, dev, both) -> dict:
-    """K6, K7 and the controls K3, K8, K9 at the paper tail, and the route."""
+    """K3, K6, K7, K8, K9 at the paper tail, and the two routes."""
     import torch
 
     from heal_swin_torch.ops import final_head as fh
@@ -153,6 +153,10 @@ def tail_times(smoke, dev, both) -> dict:
     route_f, route_b = smoke.tail_route(largs, p)
     times[f"tail-route-fwd {label}"] = both(route_f)
     times[f"tail-route-bwd {label}"] = both(route_b)
+    del route_f, route_b
+    route_f, route_b = smoke.depth_route(dargs, p)
+    times[f"depth-route-fwd {label}"] = both(route_f)
+    times[f"depth-route-bwd {label}"] = both(route_b)
     return times
 
 
