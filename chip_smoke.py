@@ -4,7 +4,8 @@ launch sequence, also step by step: its projection/LayerNorm backward alone, and
 one-hot probes that K4 and K5 recompute K1's and K2's probabilities, K13 K12's
 hidden and K15 K14's LayerNorm xhat bit for bit; K7 and K9, launch sequences too, step
 by step, and probes through the kernels' logits taps that K7 recomputes K6's logits and
-K9 K8's f32 logits bit for bit), then
+K9 K8's f32 logits bit for bit, and that K3's classes are the argmax of its f32 logits,
+which rounded to bf16 are K6's), then
 drives HEAL-SWIN-UNet at the paper configuration (nside 256, batch 2, bf16, random
 seeded weights) through the kernels and through the plain path: segmentation
 ``predict`` (serving) and its train step (forward, weighted CE, backward, Adam), and
@@ -40,7 +41,9 @@ such launches; K12-K15 add ``route_ms``, the port's composed cuBLAS / ATen route
 K16/K17 ``route_ms``, the composed PyTorch route of their scaled-dot function (bf16
 ``F.linear`` + ``scaled_dot_product_attention``, autograd backward); K2/K5 (timed in
 the scaled-dot flavour of that step, the cosine flavour beside it) add ``library_ms``,
-one ``scaled_dot_product_attention`` call (forward; backward); K6 / K7 add ``route_ms``,
+one ``scaled_dot_product_attention`` call (forward; backward); K3 adds ``route_ms``, the
+composed PyTorch route (bf16 ``F.linear``, ``F.layer_norm``, ``F.linear``, ``argmax``:
+``pred_route``); K6 / K7 add ``route_ms``,
 the composed PyTorch route (bf16 ``F.linear``, ``F.layer_norm``, ``F.linear``, weighted
 ``F.cross_entropy`` and ``torch.bincount``; its autograd backward), and K8 / K9 the same
 route with the masked l2 loss in place of the cross entropy (``depth_route``).  For K10 / K11
@@ -372,13 +375,15 @@ def check_kernels(gen, dev):
     mism, near, worst = preds_agree("K3", got, want, logits, logit_slack(fh, x, (we, g, b, wh)))
     ms = median_ms(lambda: fh.final_head_predict(*args, patch_size=p, impl="pallas"))
     pms = median_ms(lambda: fh.final_head_predict_plain(*args, patch_size=p))
+    rms = median_ms(pred_route(args, p))
     log(f"K3 final_head_predict T={T} C={C} p={p} F={F}: {mism} of {T * p} indices differ, "
-        f"all at near-ties ({near} near-tie rows); kernel {ms:.4f} ms plain {pms:.4f} ms")
+        f"all at near-ties ({near} near-tie rows); kernel {ms:.4f} ms plain {pms:.4f} ms "
+        f"route {rms:.4f} ms")
     # K3 emits class indices: max_abs_err is the largest |kernel - plain| index
     # difference outside near-ties; the near-tie flips are counted on their own
     timed[("final_head_predict", T, C)] = dict(
         max_abs_err=worst, index_mismatches=mism, index_mismatch_share=mism / (T * p),
-        near_tie_rows=near, ms=ms, plain_ms=pms)
+        near_tie_rows=near, ms=ms, plain_ms=pms, route_ms=rms)
 
     # K6 / K7: the fused CE tail and its backward, on the same tail operands
     timed.update(check_loss_kernels("K6/K7", largs, p, fh))
@@ -410,6 +415,25 @@ def tail_inputs(rnd, gen, dev):
     y = torch.randint(0, F, (T, p), generator=gen, dtype=torch.int32).to(dev)
     welem = (0.5 + torch.rand(F, generator=gen)).to(dev)[y.long()]
     return x, we, g, b, wh, y, welem
+
+
+def pred_route(args, p):
+    """The composed PyTorch route for K3's function on its operands (x, we, gamma, beta,
+    wh): bf16 ``F.linear`` for the expand, ``F.layer_norm`` on the bf16 sub-rows, bf16
+    ``F.linear`` for the head and ``argmax``.  Returns forward(), which gives the (T, p)
+    classes."""
+    import torch.nn.functional as tF
+
+    x, we, g, b, wh = args
+    T, C = x.shape
+    wet, gr, br, wht = (t.to(torch.bfloat16).contiguous() for t in (we.t(), g, b, wh.t()))
+
+    def forward():
+        with torch.no_grad():
+            z = tF.layer_norm(tF.linear(x, wet).reshape(T * p, C), (C,), gr, br, 1e-5)
+            return tF.linear(z, wht).argmax(-1).reshape(T, p)
+
+    return forward
 
 
 def tail_route(largs, p):
@@ -899,7 +923,9 @@ def check_probes(gen, dev):
     recomputes are the ones K6's cross entropy took, read through both kernels' logits
     taps.  (g) K9 against K8 at the paper tail, l2 with one channel and nll with two: the
     f32 logits K9's row kernel recomputes are the ones K8's loss took, through both
-    kernels' logits taps, and K8's predictions are its logits rounded to bf16."""
+    kernels' logits taps, and K8's predictions are its logits rounded to bf16.  (h) K3
+    against K6 at the paper tail: K3's classes are ``argmax_lowest`` of its own f32 logits
+    tap, and that tap rounded to bf16 is K6's logits tap."""
     from heal_swin_torch.ops import window_attention as wa
 
     bf16 = torch.bfloat16
@@ -989,7 +1015,14 @@ def check_probes(gen, dev):
                                       impl="pallas", tap_logits=True)[3]
     equal_bits(f"probe (f) T={T} C={C} p={TAIL_P} F={N_CLASSES}: K7's recomputed logits "
                f"against K6's", lf7, lf6, lf6.numel() // 2)
-    del lf6, lf7
+    preds, lf3 = fh.final_head_predict(*largs[:5], patch_size=TAIL_P, impl="pallas",
+                                       tap_logits=True)
+    label = f"probe (h) T={T} C={C} p={TAIL_P} F={N_CLASSES}"
+    equal_bits(f"{label}: K3's classes against argmax_lowest of its f32 logits", preds,
+               fh.argmax_lowest(lf3), preds.numel() // 2)
+    equal_bits(f"{label}: K3's f32 logits rounded to bf16 against K6's", lf3.to(bf16), lf6,
+               lf6.numel() // 2)
+    del lf6, lf7, lf3, preds
     t = depth_targets(gen, T, TAIL_P, dev)
     for kind, F in (("l2", 1), ("nll", 2)):
         dargs = largs[:4] + (rnd(C, F, std=0.1), t)
@@ -2715,9 +2748,10 @@ PTXAS_NAMES = {"11attn_kernel": "K2 attn_kernel",
                "13mlp_dw_kernelILi3ELi4E": "K13 step 2, K15 step 3 mlp_dw_kernel<3, 4> (C <= 96)",
                "13mlp_dw_kernelILi6ELi4E": "K13 step 2, K15 step 3 mlp_dw_kernel<6, 4> (C <= 192)",
                "13mlp_dw_kernelILi6ELi1E": "K13 step 2, K15 step 3 mlp_dw_kernel<6, 1> (C > 192)"}
-# the tail row core's kernels: K6, K7's row kernel, K8 and K9's row kernel at each C and
-# head width
-TAIL_KERNELS = {"tail_loss_kernel": ("K6", (2, 4)), "tail_bwd_kernel": ("K7 step 1", (2, 4)),
+# the tail row core's kernels: K3, K6, K7's row kernel, K8 and K9's row kernel at each C
+# and head width
+TAIL_KERNELS = {"tail_pred_kernel": ("K3", (2, 4)), "tail_loss_kernel": ("K6", (2, 4)),
+                "tail_bwd_kernel": ("K7 step 1", (2, 4)),
                 "tail_depth_kernel": ("K8", (2,)), "tail_depth_bwd_kernel": ("K9 step 1", (2,))}
 PTXAS_NAMES.update({
     f"{len(k)}{k}ILi{nt}ELi{nf}E": f"{who} {k}<{nt}, {nf}> (C {8 * nt}, F <= {8 * nf})"

@@ -46,7 +46,7 @@ _SIGNATURES = {
     "hs_gemm_nt": ([_P] * 3 + [_I] * 3 + [_P], _I),
     "hs_proj_ln_bwd": ([_P] * 8 + [_I] * 3 + [_F, _P], _I),
     "hs_proj_ln_bwd_workspace": ([_I] * 2, ctypes.c_size_t),
-    "hs_final_head_predict": ([_P] * 6 + [_I] * 4 + [_F, _P], _I),
+    "hs_final_head_predict": ([_P] * 7 + [_I] * 4 + [_F, _P], _I),
     "hs_final_head_predict_smem": ([_I] * 3, ctypes.c_size_t),
     "hs_final_head_loss": ([_P] * 10 + [_I] * 4 + [_F, _P], _I),
     "hs_final_head_loss_smem": ([_I] * 3, ctypes.c_size_t),

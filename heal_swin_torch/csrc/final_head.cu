@@ -32,11 +32,15 @@
 // little): ~400 FLOP/byte, so the expand products decide, and the (T*p, F) logits and
 // dlogits that the unfused tail writes and reads back never leave the SM.
 //
-// K6, K7, K8 and K9 run on the register-resident row core of tail_core.cuh: persistent
-// blocks (grid = min(128-row tiles, resident blocks)), each staging the p expand slices
-// and Wh once by cp.async and walking its tiles with a double-buffered cp.async ring for
-// x; a warp owns 16 rows, and h, the LayerNorm, z and the logits stay in mma.sync
-// accumulators and fragments.  K6 reduces each row's cross entropy, argmax and weight
+// All five run on the register-resident row core of tail_core.cuh: persistent blocks
+// (grid = min(128-row tiles, resident blocks)), each staging the p expand slices and Wh
+// once by cp.async and walking its tiles with a double-buffered cp.async ring for x; a
+// warp owns 16 rows, and h, the LayerNorm, z and the logits stay in mma.sync
+// accumulators and fragments, made by the same functions in every kernel (so K3's f32
+// logits rounded to bf16 are K6's, and K7's and K9's recomputed logits K6's and K8's).
+// Each kernel opts in to a block's largest shared memory once per device (tail_grid).
+// K3 takes each row's argmax over its quad (tail_argmax) and writes one int32 class a
+// sub-pixel, no partial rows.  K6 reduces each row's cross entropy, argmax and weight
 // over its quad; the confusion matrix counts in a shared int array (integer atomics are
 // order-free); one partial row [sum w*nll, sum w, F x F] a block.  K8 takes the depth
 // loss of each row on the quad's lane that holds its logits 0 and 1 (Wh zero-padded to
@@ -53,12 +57,6 @@
 // element in f32, dWh = z^T dlogits as column sums like dgamma and dbeta, no tile in
 // shared memory), then gemm_tn, then reduce_rows.
 //
-// K3 keeps its first design: one block per 64-row tile holds all p expand slices We (p,
-// C, C) bf16 and Wh in shared memory (79 KB + 4 KB at the paper widths, above the 48 KB
-// default, so the launch opts in with cudaFuncSetAttribute); the expand products run on
-// the tensor cores as 16x16x16 bf16 WMMA tiles with f32 accumulation, LN and the narrow
-// head product run one warp per row in f32.
-//
 // No atomics on floats anywhere: the sums across blocks run in a fixed order in
 // reduce.cu, and the results do not change from run to run.
 
@@ -69,159 +67,23 @@
 namespace hs {
 namespace {
 
-constexpr int ROWS = 64;  // token rows per block
-
-struct HeadLayout {
-  size_t we, wh, x, h, total;
-};
-
-__host__ __device__ inline HeadLayout head_layout(int C, int F, int P) {
-  HeadLayout L;
-  const size_t ldw = size_t(C) + 8;
-  size_t off = 0;
-  L.we = off; off += align128(size_t(P) * C * ldw * 2);
-  L.wh = off; off += align128(size_t(C) * F * 4);
-  L.x = off; off += align128(ROWS * ldw * 2);
-  L.h = off; off += align128(size_t(ROWS) * (C + 4) * 4);
-  L.total = off;
-  return L;
-}
-
-// Stage the p expand slices We (p, C, C) and this block's 64-row tile of x (bf16, rows
-// padded to C + 8) and Wh (C, F, as f32) in shared memory.
-__device__ __forceinline__ void stage_tail(const bf16* __restrict__ we,
-                                           const bf16* __restrict__ wh,
-                                           const bf16* __restrict__ x, bf16* wes, float* whs,
-                                           bf16* xs, int C, int F, int P, int tile) {
-  const int LDW = C + 8;
-  const int chunks = C / 8;  // 16-byte chunks per row
-  for (int idx = threadIdx.x; idx < P * C * chunks; idx += kThreads) {
-    const int r = idx / chunks, q = idx % chunks;
-    reinterpret_cast<uint4*>(wes + size_t(r) * LDW)[q] =
-        reinterpret_cast<const uint4*>(we + size_t(r) * C)[q];
-  }
-  for (int idx = threadIdx.x; idx < C * F; idx += kThreads) whs[idx] = bf(wh[idx]);
-  for (int idx = threadIdx.x; idx < ROWS * chunks; idx += kThreads) {
-    const int r = idx / chunks, q = idx % chunks;
-    reinterpret_cast<uint4*>(xs + r * LDW)[q] =
-        reinterpret_cast<const uint4*>(x + (size_t(tile) * ROWS + r) * C)[q];
-  }
-}
-
-// h (64 x C f32, row stride C + 4) = the x tile @ We_i, f32 accumulators on the tensor
-// cores, one 16 x 16 output tile per warp at a time
-__device__ __forceinline__ void expand_product(const bf16* xs, const bf16* wei, float* hf,
-                                               int C) {
-  const int LDW = C + 8;
-  const int LDH = C + 4;
-  const int ntiles = (ROWS / 16) * (C / 16);
-  for (int t = threadIdx.x >> 5; t < ntiles; t += kWarps) {
-    const int rt = t & 3, ct = t >> 2;
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
-    for (int kk = 0; kk < C; kk += 16) {
-      FragA a;
-      FragB b;
-      wmma::load_matrix_sync(a, xs + rt * 16 * LDW + kk, LDW);
-      wmma::load_matrix_sync(b, wei + size_t(kk) * LDW + ct * 16, LDW);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync(hf + rt * 16 * LDH + ct * 16, acc, LDH, wmma::mem_row_major);
-  }
-}
-
-// One row in place, one warp per row: h rounded to bf16 -> LN with f32 statistics ->
-// z rounded to bf16.  Every lane may read the whole row afterwards.
-__device__ __forceinline__ void ln_row(float* hrow, const float* __restrict__ gamma,
-                                       const float* __restrict__ beta, int C, float eps,
-                                       int lane) {
-  float sum = 0.f;
-  for (int c = lane; c < C; c += 32) {
-    const float v = bfr(hrow[c]);
-    hrow[c] = v;
-    sum += v;
-  }
-  const float mean = warp_sum(sum) / C;
-  float sq = 0.f;
-  for (int c = lane; c < C; c += 32) {
-    const float d = hrow[c] - mean;
-    sq += d * d;
-  }
-  const float rstd = rsqrtf(warp_sum(sq) / C + eps);
-  for (int c = lane; c < C; c += 32)
-    hrow[c] = bfr((hrow[c] - mean) * rstd * gamma[c] + beta[c]);
-  __syncwarp();
-}
-
 // ---------------------------------------------------------------------------------
-// K3: the argmax; one block per 64-row tile.
-// ---------------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
-final_head_predict_kernel(const bf16* __restrict__ x, const bf16* __restrict__ we,
-                          const float* __restrict__ gamma, const float* __restrict__ beta,
-                          const bf16* __restrict__ wh, int* __restrict__ preds, int C, int F,
-                          int P, float eps) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const HeadLayout L = head_layout(C, F, P);
-  const int LDW = C + 8;
-  const int LDH = C + 4;
-  bf16* wes = reinterpret_cast<bf16*>(smem + L.we);
-  float* whs = reinterpret_cast<float*>(smem + L.wh);
-  bf16* xs = reinterpret_cast<bf16*>(smem + L.x);
-  float* hf = reinterpret_cast<float*>(smem + L.h);
-
-  const int tile = blockIdx.x;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  stage_tail(we, wh, x, wes, whs, xs, C, F, P, tile);
-  __syncthreads();
-
-  for (int i = 0; i < P; ++i) {
-    expand_product(xs, wes + size_t(i) * C * LDW, hf, C);
-    __syncthreads();
-    for (int r = warp; r < ROWS; r += kWarps) {
-      float* hrow = hf + r * LDH;
-      ln_row(hrow, gamma, beta, C, eps, lane);
-      float logit = 0.f;
-      if (lane < F)
-        for (int c = 0; c < C; ++c) logit = fmaf(hrow[c], whs[c * F + lane], logit);
-
-      float best = __shfl_sync(0xffffffffu, logit, 0);
-      int best_idx = 0;
-      bool has_nan = isnan(best);
-      for (int j = 1; j < F; ++j) {
-        const float lj = __shfl_sync(0xffffffffu, logit, j);
-        if (isnan(lj)) {
-          has_nan = true;
-        } else if (lj > best) {
-          best = lj;
-          best_idx = j;
-        }
-      }
-      if (lane == 0)
-        preds[(size_t(tile) * ROWS + r) * P + i] = has_nan ? F - 1 : best_idx;
-      __syncwarp();
-    }
-    __syncthreads();
-  }
-}
-
-// ---------------------------------------------------------------------------------
-// K6, K8 and the row kernels of K7 and K9 on the tail row core (tail_core.cuh).
+// K3, K6, K8 and the row kernels of K7 and K9 on the tail row core (tail_core.cuh).
 // Persistent blocks of 8 warps: block b walks the 128-row tiles b, b + grid, ...; the p
 // expand slices and Wh stay resident, the x tiles come through a double-buffered
 // cp.async ring.
 // ---------------------------------------------------------------------------------
 
-// the four kernels of the tail row core
-enum TailKind : int { kCe = 0, kCeBwd = 1, kDepth = 2, kDepthBwd = 3 };
+// the five kernels of the tail row core
+enum TailKind : int { kCe = 0, kCeBwd = 1, kDepth = 2, kDepthBwd = 3, kPred = 4 };
 
 // shared memory: We's p slices (p x C x C, rows padded to C + 8) | Wh (C x 8 NF bf16,
 // zero-padded, rows padded to 8 NF + 8; NF = 2 for the depth head) | two stages of the x
 // tile (128 x C) | K6: the confusion matrix (F x F int) and the warps' loss sums; K7's
 // row kernel: the tile's z (128 x C) and dlogits (128 x 8 NF), both bf16, for dWh, and
 // the warps' dgamma | dbeta column sums (2C floats a warp); K8: the warps' loss sums;
-// K9's row kernel: the warps' dWh | dgamma | dbeta column sums (C F + 2C floats a warp)
+// K9's row kernel: the warps' dWh | dgamma | dbeta column sums (C F + 2C floats a warp);
+// K3: nothing more
 struct TailLayout {
   size_t wh, x, stage, z, dl, red, total;
   int ldwh;
@@ -245,7 +107,8 @@ __host__ __device__ inline TailLayout tail_layout(int C, int F, int P, int kind)
     case kCe: off += align128(size_t(F) * F * 4) + align128(2 * kWarps * 4); break;
     case kCeBwd: off += align128(size_t(kWarps) * 2 * C * 4); break;
     case kDepth: off += align128(2 * kWarps * 4); break;
-    default: off += align128(size_t(kWarps) * (C * F + 2 * C) * 4);
+    case kDepthBwd: off += align128(size_t(kWarps) * (C * F + 2 * C) * 4); break;
+    default: break;
   }
   L.total = off;
   return L;
@@ -320,21 +183,16 @@ tail_loss_kernel(const bf16* __restrict__ x, const bf16* __restrict__ we,
         const size_t e = (grow0 + g + 8 * h) * P + i;
         const int yi = y[e];
         float ly = 0.f;
-        int best = F;  // the lowest column at the max; none for a row holding a NaN
 #pragma unroll
         for (int n = 0; n < NF; ++n)
 #pragma unroll
           for (int k = 0; k < 2; ++k) {
             const int col = 8 * n + c2 + k;
-            const float v = lf[n][2 * h + k];
-            if (col < F) {
-              if (col == yi) ly = v;
-              if (v >= ce.mx[h] && col < best) best = col;
-            }
+            if (col < F && col == yi) ly = lf[n][2 * h + k];
           }
         ly = quad_sum(ly);
-        best = min(best, __shfl_xor_sync(0xffffffffu, best, 1));
-        best = min(best, __shfl_xor_sync(0xffffffffu, best, 2));
+        // the lowest column at the max; none (F) for a row holding a NaN
+        const int best = quad_lowest_at<NF>(lf, h, ce.mx[h], F);
         if ((lane & 3) == 0) {
           const float wi = welem[e];
           num += wi * (ce.mx[h] + logf(ce.se[h]) - ly);
@@ -622,6 +480,46 @@ tail_depth_kernel(const bf16* __restrict__ x, const bf16* __restrict__ we,
   }
 }
 
+// K3: the class index of every sub-pixel, preds (T, p) int32; tap, where not null, gets
+// the f32 logits (T, p, F) the argmax took.  K8's skeleton without its partial rows.
+template <int NT, int NF>
+__global__ void __launch_bounds__(kThreads, 1)
+tail_pred_kernel(const bf16* __restrict__ x, const bf16* __restrict__ we,
+                 const float* __restrict__ gamma, const float* __restrict__ beta,
+                 const bf16* __restrict__ wh, int* __restrict__ preds, float* __restrict__ tap,
+                 int T, int F, int P, float eps) {
+  constexpr int C = 8 * NT;
+  constexpr int ldx = C + 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const TailLayout L = tail_layout(C, F, P, kPred);
+  const int row0 = (threadIdx.x >> 5) * 16;
+  bf16* wes = reinterpret_cast<bf16*>(smem);
+  bf16* whs = reinterpret_cast<bf16*>(smem + L.wh);
+  auto xs = [&](int s) { return reinterpret_cast<bf16*>(smem + L.x + (s & 1) * L.stage); };
+  const int tiles = (T + TAIL_ROWS - 1) / TAIL_ROWS;
+
+  stage_tail_weights(wes, whs, we, wh, C, F, P, L.ldwh);
+  fetch_tail_tile(xs(0), x, blockIdx.x, tiles, T, C);
+  cp_async_commit();
+
+  int s = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++s) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile s has landed (with the weights); tile s - 1's stage is free
+    fetch_tail_tile(xs(s + 1), x, tile + gridDim.x, tiles, T, C);
+    cp_async_commit();
+    if (row0 >= min(TAIL_ROWS, T - tile * TAIL_ROWS)) continue;
+    const size_t grow0 = size_t(tile) * TAIL_ROWS + row0;
+    for (int i = 0; i < P; ++i) {
+      float xh[NT][4], lf[NF][4];
+      tail_xhat<NT>(xh, xs(s), ldx, row0, wes + size_t(i) * C * ldx, C, eps);
+      tail_logits<NT, NF>(lf, xh, gamma, beta, whs, L.ldwh, nullptr, 0);
+      if (tap != nullptr) tail_tap<NF>(tap, lf, grow0, i, P, F);
+      tail_argmax<NF>(lf, preds, grow0, i, P, F);
+    }
+  }
+}
+
 // dz of one element (row h of the lane's two, column c): dl0 Wh[c, 0] (+ dl1 Wh[c, 1]) in
 // f32, in the plain version's order
 __device__ __forceinline__ float depth_dz(const float (&dl)[2], const bf16* whrow, int F) {
@@ -790,7 +688,8 @@ cudaError_t with_c(int C, Fn f) {
   }
 }
 
-// f(NT, NF) for the cross entropy's instantiation of C and F: F <= 16 (NF 2) or <= 32 (NF 4)
+// f(NT, NF) for the class head's instantiation (K3, K6, K7) of C and F: F <= 16 (NF 2) or
+// <= 32 (NF 4)
 template <typename Fn>
 cudaError_t with_tail(int C, int F, Fn f) {
   if (F < 1 || F > 32) return cudaErrorInvalidValue;
@@ -816,8 +715,10 @@ const void* tail_kernel() {
     return reinterpret_cast<const void*>(tail_bwd_kernel<NT, NF>);
   else if constexpr (KIND == kDepth)
     return reinterpret_cast<const void*>(tail_depth_kernel<NT, NF>);
-  else
+  else if constexpr (KIND == kDepthBwd)
     return reinterpret_cast<const void*>(tail_depth_bwd_kernel<NT, NF>);
+  else
+    return reinterpret_cast<const void*>(tail_pred_kernel<NT, NF>);
 }
 
 // the kernel's grid: min(its tiles, the blocks the card holds at once at this shared
@@ -850,7 +751,8 @@ inline int grid_of(int T, int C, int F, int P, int kind) {
     return kind == kCe ? tail_grid<NT, NF, kCe>(T, F, P, &G)
                        : tail_grid<NT, NF, kCeBwd>(T, F, P, &G);
   };
-  const cudaError_t e = kind >= kDepth ? with_depth(C, F, grid) : with_tail(C, F, grid);
+  const bool depth = kind == kDepth || kind == kDepthBwd;
+  const cudaError_t e = depth ? with_depth(C, F, grid) : with_tail(C, F, grid);
   return e == cudaSuccess ? G : 0;
 }
 
@@ -858,6 +760,24 @@ inline int grid_of(int T, int C, int F, int P, int kind) {
 inline size_t tail_loss_workspace(int T, int C, int F, int P, int kind) {
   const int G = grid_of(T, C, F, P, kind), W = kind == kCe ? 2 + F * F : 2;
   return align128(size_t(G) * W * 4) + align128(reduce_rows_tmp_floats(G, W) * 4);
+}
+
+// K3: the row kernel alone; preds (T, p) int32, tap (may be null) the f32 logits
+cudaError_t launch_tail_pred(const void* x, const void* we, const void* gamma,
+                             const void* beta, const void* wh, void* preds, void* tap, int T,
+                             int C, int F, int P, float eps, cudaStream_t s) {
+  return with_tail(C, F, [&](auto nt, auto nf) {
+    constexpr int NT = decltype(nt)::value, NF = decltype(nf)::value;
+    int G = 0;
+    const cudaError_t e = tail_grid<NT, NF, kPred>(T, F, P, &G);
+    if (e != cudaSuccess) return e;
+    tail_pred_kernel<NT, NF><<<G, kThreads, tail_layout(C, F, P, kPred).total, s>>>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(we),
+        static_cast<const float*>(gamma), static_cast<const float*>(beta),
+        static_cast<const bf16*>(wh), static_cast<int*>(preds), static_cast<float*>(tap), T,
+        F, P, eps);
+    return cudaGetLastError();
+  });
 }
 
 // K6: the row kernel, then reduce_rows over its partial rows into red = [sum w*nll,
@@ -1019,24 +939,17 @@ cudaError_t launch_tail_depth_bwd(const void* x, const void* we, const void* gam
 
 extern "C" {
 
-size_t hs_final_head_predict_smem(int C, int F, int P) { return hs::head_layout(C, F, P).total; }
-
-int hs_final_head_predict(const void* x, const void* we, const void* gamma, const void* beta,
-                          const void* wh, void* preds, int T, int C, int F, int P, float eps,
-                          void* stream) {
-  using hs::bf16;
-  const size_t smem = hs::head_layout(C, F, P).total;
-  cudaError_t e = cudaFuncSetAttribute(hs::final_head_predict_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (e != cudaSuccess) return int(e);
-  hs::final_head_predict_kernel<<<T / hs::ROWS, hs::kThreads, smem,
-                                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(we),
-      static_cast<const float*>(gamma), static_cast<const float*>(beta),
-      static_cast<const bf16*>(wh), static_cast<int*>(preds), C, F, P, eps);
-  return int(cudaGetLastError());
+size_t hs_final_head_predict_smem(int C, int F, int P) {
+  return hs::tail_layout(C, F, P, hs::kPred).total;
 }
 
+// K3: preds (T, p) int32; tap (may be null) gets the f32 logits (T, p, F)
+int hs_final_head_predict(const void* x, const void* we, const void* gamma, const void* beta,
+                          const void* wh, void* preds, void* tap, int T, int C, int F, int P,
+                          float eps, void* stream) {
+  return int(hs::launch_tail_pred(x, we, gamma, beta, wh, preds, tap, T, C, F, P, eps,
+                                  static_cast<cudaStream_t>(stream)));
+}
 
 size_t hs_final_head_loss_smem(int C, int F, int P) {
   return hs::tail_layout(C, F, P, hs::kCe).total;

@@ -1,6 +1,7 @@
-// The register-resident row core of the decoder tail: K6 (tail_loss_kernel) and the row
-// kernel of K7's launch sequence (tail_bwd_kernel), K8 (tail_depth_kernel) and the row
-// kernel of K9's launch sequence (tail_depth_bwd_kernel), csrc/final_head.cu.
+// The register-resident row core of the decoder tail: K3 (tail_pred_kernel), K6
+// (tail_loss_kernel) and the row kernel of K7's launch sequence (tail_bwd_kernel), K8
+// (tail_depth_kernel) and the row kernel of K9's launch sequence (tail_depth_bwd_kernel),
+// csrc/final_head.cu.
 //
 // A block walks 128-row tiles of the tokens; a warp owns 16 rows of a tile.  For each of
 // the p expand slices We_i (C x C, resident in shared memory for the block's whole walk):
@@ -12,12 +13,13 @@
 // head Wh (C x 8 NF bf16, zero-padded from F to 8 NF columns) by mma: the logits, 16 x 8
 // NF f32 accumulators, each row in one quad, 2 NF values a lane.  Every kernel makes h,
 // z and the logits only through these functions on the same fragments, so K7's
-// recomputed logits are K6's bits and K9's are K8's (an mma depends only on its
-// fragments and its accumulator).  No (rows x C) tile of f32 goes through shared memory,
-// and no loop over C runs on the CUDA cores.  The segmentation kernels round the logits
-// to bf16 for the cross entropy (tail_softmax); the depth kernels keep them f32 and take
-// the masked depth loss of columns 0 and 1 (mean, logvar), which sit in the quad's lane
-// with c2 = 0 (tail_depth, depth_dlogits).
+// recomputed logits are K6's bits, K9's are K8's, and K3's f32 logits rounded to bf16 are
+// K6's (an mma depends only on its fragments and its accumulator).  No (rows x C) tile of
+// f32 goes through shared memory, and no loop over C runs on the CUDA cores.  The
+// segmentation loss kernels round the logits to bf16 for the cross entropy
+// (tail_softmax); K3 takes the argmax of the f32 logits, not rounded (tail_argmax); the
+// depth kernels keep them f32 and take the masked depth loss of columns 0 and 1 (mean,
+// logvar), which sit in the quad's lane with c2 = 0 (tail_depth, depth_dlogits).
 #pragma once
 
 #include <math_constants.h>
@@ -122,6 +124,55 @@ __device__ __forceinline__ CeRows tail_softmax(float (&lf)[NF][4], float (&ex)[N
   r.se[0] = quad_sum(s[0]);
   r.se[1] = quad_sum(s[1]);
   return r;
+}
+
+// the lowest column < F of the lane's row g (h = 0) or g + 8 (h = 1) whose logit is >= mx,
+// over the quad (every lane gets it); F where none is (mx NaN)
+template <int NF>
+__device__ __forceinline__ int quad_lowest_at(const float (&lf)[NF][4], int h, float mx, int F) {
+  const int c2 = (threadIdx.x & 3) * 2;
+  int best = F;
+#pragma unroll
+  for (int n = 0; n < NF; ++n)
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int col = 8 * n + c2 + k;
+      if (col < F && lf[n][2 * h + k] >= mx && col < best) best = col;
+    }
+  best = min(best, __shfl_xor_sync(0xffffffffu, best, 1));
+  return min(best, __shfl_xor_sync(0xffffffffu, best, 2));
+}
+
+// K3's epilogue on the f32 logits of the warp's rows (tail_logits, not rounded): the
+// lowest column at the row's max, and F - 1 for a row holding a NaN (argmax_lowest of
+// ops/final_head.py); columns >= F are left out, since Wh's zero padding makes their
+// logits exactly 0, which would win a row whose logits are all negative.  fmaxf drops a
+// NaN, so a flag over the quad sees it.  The quad's lane with c2 = 0 writes the class of
+// rows g and g + 8 to preds (T, p) at sub-pixel i.
+template <int NF>
+__device__ __forceinline__ void tail_argmax(const float (&lf)[NF][4], int* __restrict__ preds,
+                                            size_t grow0, int i, int P, int F) {
+  const int lane = threadIdx.x & 31;
+  const int c2 = (lane & 3) * 2;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx = -CUDART_INF_F;
+    int nan = 0;
+#pragma unroll
+    for (int n = 0; n < NF; ++n)
+#pragma unroll
+      for (int k = 0; k < 2; ++k)
+        if (8 * n + c2 + k < F) {
+          nan |= isnan(lf[n][2 * h + k]) ? 1 : 0;
+          mx = fmaxf(mx, lf[n][2 * h + k]);
+        }
+    nan |= __shfl_xor_sync(0xffffffffu, nan, 1);
+    nan |= __shfl_xor_sync(0xffffffffu, nan, 2);
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const int best = quad_lowest_at<NF>(lf, h, mx, F);
+    if ((lane & 3) == 0) preds[(grow0 + (lane >> 2) + 8 * h) * P + i] = nan ? F - 1 : best;
+  }
 }
 
 __device__ __forceinline__ void put(bf16* p, float v) { *p = to_bf(v); }

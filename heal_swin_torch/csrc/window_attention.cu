@@ -28,11 +28,11 @@
 // through a cp.async ring per core into shared memory and keep the x tile, the o tile
 // and (K1) the projection output u (registers) on chip; K2 overlaps the next pair's
 // copy with the current pair.  bf16 rounding happens at the same points as in the
-// Pallas kernels: qkv, q_hat =
-// q*scale/|q| and k_hat = k/|k|, p before PV (normalized in f32 first), o before the
-// projection, and the output.  Dynamic shared memory is above 48 KB, so each launch
-// opts in with cudaFuncSetAttribute.  wgmma and TMA pipelines are later work, once a
-// kernel runs near a third of the peak.
+// Pallas kernels: qkv, q_hat = q*scale/|q| and k_hat = k/|k|, p before PV (normalized in
+// f32 first), o before the projection, and the output.  Dynamic shared memory is above
+// 48 KB, so each kernel opts in once per device (smem_opt_in), at the most any of its
+// launches asks for.  wgmma and TMA pipelines are later work, once a kernel runs near a
+// third of the peak.
 
 #include "attention.cuh"
 
@@ -406,13 +406,17 @@ int hs_window_attention_qkv_epi(const void* x, const void* wqkv, const void* bqk
                                 const void* lscale, void* out, int T, int C, int has_ln,
                                 int has_mask, float ln_eps, void* stream) {
   using hs::bf16;
-  // two column blocks of Wp per core past C = 192 (each at most kMaxNT n-tiles)
-  auto kernel = C > 192 ? hs::qkv_epi_kernel<2, true, true> : hs::qkv_epi_kernel<1, true, true>;
-  const size_t smem = hs::epi_layout(C).total;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       int(smem));
+  static std::atomic<unsigned> done1{0}, done2{0};
+  // two column blocks of Wp per core past C = 192 (each at most kMaxNT n-tiles); each
+  // instantiation opts in once at the widest C it launches
+  const bool wide = C > 192;
+  auto kernel = wide ? hs::qkv_epi_kernel<2, true, true> : hs::qkv_epi_kernel<1, true, true>;
+  cudaError_t e = hs::smem_opt_in(reinterpret_cast<const void*>(kernel),
+                                  hs::epi_layout(wide ? hs::QKV_MAX_C : 192).total,
+                                  wide ? done2 : done1);
   if (e != cudaSuccess) return int(e);
-  kernel<<<T / hs::WS, hs::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<T / hs::WS, hs::kThreads, hs::epi_layout(C).total,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv),
       static_cast<const bf16*>(bqkv), static_cast<const bf16*>(wp),
       static_cast<const bf16*>(bp), static_cast<const float*>(ln_g),
@@ -426,13 +430,14 @@ int hs_window_attention(const void* qkv, const void* groups, const void* bias,
                         const void* lscale, void* out, int T, int C, int use_cos,
                         int has_mask, float sm_scale, void* stream) {
   using hs::bf16;
-  const size_t smem = hs::kAttnSmem;
-  cudaError_t e = cudaFuncSetAttribute(hs::attn_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  static std::atomic<unsigned> done{0};
+  const cudaError_t e =
+      hs::smem_opt_in(reinterpret_cast<const void*>(hs::attn_kernel), hs::kAttnSmem, done);
   if (e != cudaSuccess) return int(e);
   const int windows = T / hs::WS;
   const dim3 grid((windows + hs::kAttnPairs - 1) / hs::kAttnPairs, C / hs::HD);
-  hs::attn_kernel<<<grid, hs::kCoreThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  hs::attn_kernel<<<grid, hs::kCoreThreads, hs::kAttnSmem,
+                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(qkv), static_cast<const int*>(groups),
       static_cast<const float*>(bias), static_cast<const float*>(lscale),
       static_cast<bf16*>(out), T, C, use_cos, has_mask, sm_scale);

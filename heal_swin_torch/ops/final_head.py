@@ -11,7 +11,9 @@ so the tail is p independent (C, C) products per token.  Per sub-row: h = x @ We
 dtype -> logits z @ Wh in f32.
 
 - Predict (K3): the f32 logits, not rounded -> argmax with the lowest index on ties;
-  a row holding a NaN gives F - 1.  Returns (T, p) int32.
+  a row holding a NaN gives F - 1.  Returns (T, p) int32.  On the card it runs on the
+  persistent blocks of K6-K9 below, and its logits come from the same functions as
+  theirs: rounded to x's dtype they are K6's (a tap returns them).
 - Loss (K6/K7): the logits rounded to x's dtype -> log-softmax -> weighted NLL.
   Returns loss = sum w*nll / max(sum w, 1e-12) and the (F, F) f32 confusion matrix
   (target rows, argmax columns, lowest index on ties) over every element; a row
@@ -56,12 +58,12 @@ from heal_swin_torch import _build
 from heal_swin_torch.ops._dispatch import check, refuse, stream, use_kernel
 
 LN_EPS = 1e-5
-KERNEL_ROWS = 64  # token rows per block of K3; T a multiple of it for all five
-TAIL_TILE_ROWS = 128  # token rows of a K6-K9 block tile: 8 warps of 16 rows
-KERNEL_MAX_F = 32  # K3: one lane per class; K6, K7: four head n-tiles
+KERNEL_ROWS = 64  # T a multiple of it for all five (gemm_tn's token steps in K7, K9)
+TAIL_TILE_ROWS = 128  # token rows of a block tile: 8 warps of 16 rows
+KERNEL_MAX_F = 32  # the class head's widest instantiation: four head n-tiles
 KERNEL_SMEM_LIMIT = 232448  # bytes a block may opt in to on sm_90
 KERNEL_MAX_C_LOSS_BWD = 128  # the row core's widest instantiation
-# K6-K9 hold a row's C columns in mma accumulators, one instantiation per C
+# the row core holds a row's C columns in mma accumulators, one instantiation per C
 KERNEL_LOSS_CS = (32, 64, 96, 128)
 DEPTH_KINDS = ("l2", "l1", "huber", "nll")  # K8/K9's loss kinds, in their launch ids
 
@@ -462,29 +464,30 @@ def final_head_depth_loss_bwd_sequence_plain(x, we, gamma, beta, wh, t, scale, *
         huber_delta=huber_delta, grid=grid))
 
 
-def _tail_refusal(what, T, C, F, core):
-    """Why the tail kernels do not take T tokens of width C with F outputs (``core``:
-    K6-K9, the row core's kernels; else K3), or None where they do: C % 16, 1 <= F <=
-    32, T % 64, and for the row core C one of 32, 64, 96, 128.  The dtype and the
-    shared memory are checked at the call (``_tail_operands``)."""
+def _tail_refusal(what, T, C, F):
+    """Why the tail kernels (K3, K6-K9, all on the row core) do not take T tokens of
+    width C with F outputs, or None where they do: C one of 32, 64, 96, 128, 1 <= F <=
+    32, T % 64.  The dtype and the shared memory are checked at the call
+    (``_tail_operands``)."""
     if C % 16 or not 1 <= F <= KERNEL_MAX_F:
         return f"{what}: the kernel takes C % 16 == 0 and F <= {KERNEL_MAX_F}, got C={C}, F={F}"
     if T % KERNEL_ROWS:
         return f"{what}: T={T} is not a multiple of {KERNEL_ROWS}"
-    if core and C > KERNEL_MAX_C_LOSS_BWD:
+    if C > KERNEL_MAX_C_LOSS_BWD:
         return f"{what}: the kernel takes C <= {KERNEL_MAX_C_LOSS_BWD}, got C={C}"
-    if core and C not in KERNEL_LOSS_CS:
+    if C not in KERNEL_LOSS_CS:
         return f"{what}: the kernel takes C % 32 == 0 and C <= 128, got C={C}"
     return None
 
 
 def kernels_take(T, C, F, dtype, train=True) -> bool:
     """Whether the segmentation tail's kernels take T tokens of width C, F classes and
-    ``dtype``: K6 and K7 both (``train``) or K3 (predict).  The wrappers' checks apart
-    from the shared memory, which they read from the kernels' library at the call;
+    ``dtype``: K6 and K7 both (``train``) or K3 (predict), which take the same shapes
+    since K3 runs on their row core.  The wrappers' checks apart from the shared memory,
+    which they read from the kernels' library at the call (K7 at C 128 needs p <= 2);
     where False, a CUDA tensor raises under "auto" and "pallas" and needs impl="xla",
     the plain version."""
-    return dtype == torch.bfloat16 and _tail_refusal("", T, C, F, train) is None
+    return dtype == torch.bfloat16 and _tail_refusal("", T, C, F) is None
 
 
 def _tail_operands(what, x, we, gamma, beta, wh, patch_size, kernel):
@@ -497,7 +500,7 @@ def _tail_operands(what, x, we, gamma, beta, wh, patch_size, kernel):
     dt = torch.bfloat16
     if x.dtype != dt:
         refuse(f"{what}: the kernel takes bfloat16 x, got {x.dtype}")
-    msg = _tail_refusal(what, T, C, F, kernel != "predict")
+    msg = _tail_refusal(what, T, C, F)
     if msg is not None:
         refuse(msg)
     smem = getattr(_build.lib(), f"hs_final_head_{kernel}_smem")(C, F, p)
@@ -523,10 +526,14 @@ def _targets(what, y, welem, T, p, device):
     return y, welem
 
 
-def final_head_predict(x, we, gamma, beta, wh, *, patch_size, impl="auto"):
-    """K3 wrapper; operands as ``final_head_predict_plain``."""
+def final_head_predict(x, we, gamma, beta, wh, *, patch_size, impl="auto", tap_logits=False):
+    """K3 wrapper; operands and result as ``final_head_predict_plain``.  With
+    ``tap_logits`` (preds, the f32 logits (T, p, F) the argmax took): a probe's output,
+    on the card written by the kernel beside its classes."""
     if not use_kernel(x, impl):
-        return final_head_predict_plain(x, we, gamma, beta, wh, patch_size=patch_size)
+        lf = final_head_logits_plain(x, we, gamma, beta, wh, patch_size=patch_size)
+        preds = argmax_lowest(lf)
+        return (preds, lf) if tap_logits else preds
     what = "final_head_predict"
     T, C, F, we_s, g, b, whb = _tail_operands(what, x, we, gamma, beta, wh, patch_size,
                                               "predict")
@@ -536,12 +543,14 @@ def final_head_predict(x, we, gamma, beta, wh, *, patch_size, impl="auto"):
                          "torch.no_grad()")
     lib = _build.lib()
     preds = torch.empty((T, p), dtype=torch.int32, device=x.device)
+    tap = torch.empty((T, p, F), dtype=torch.float32, device=x.device) if tap_logits else None
     code = lib.hs_final_head_predict(x.data_ptr(), we_s.data_ptr(), g.data_ptr(),
-                                     b.data_ptr(), whb.data_ptr(), preds.data_ptr(), T, C, F,
-                                     p, LN_EPS, stream(x))
+                                     b.data_ptr(), whb.data_ptr(), preds.data_ptr(),
+                                     None if tap is None else tap.data_ptr(), T, C, F, p,
+                                     LN_EPS, stream(x))
     check(code, what)
     _count(what, T, C)
-    return preds
+    return (preds, tap) if tap_logits else preds
 
 
 def final_head_loss_sums(x, we, gamma, beta, wh, y, welem, *, patch_size, impl="auto",
@@ -702,7 +711,7 @@ def depth_kernels_take(T, C, F, kind) -> bool:
     and loss ``kind``: C one of 32, 64, 96, 128 (one instantiation each), T % 64.  The
     dtype and the shared memory are checked at the call, where a tail the kernels do
     not take raises."""
-    return _depth_refusal("", F, kind) is None and _tail_refusal("", T, C, F, True) is None
+    return _depth_refusal("", F, kind) is None and _tail_refusal("", T, C, F) is None
 
 
 def depth_route_takes(T, C, F, kind) -> bool:

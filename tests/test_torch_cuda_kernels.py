@@ -77,10 +77,19 @@ def test_attention_kernel(dev, use_cos):
     assert _rel_l2(got, wa.window_attention_plain(qkv, groups, bias, ls, **kw)) < 1e-2
 
 
-@pytest.mark.parametrize("C,F", [(96, 10), (32, 5)])
-def test_final_head_kernel(dev, C, F):
-    gen = torch.Generator().manual_seed(2)
-    T, p = 64 * 64, 4
+@pytest.mark.parametrize("T", [64 * 64, 64 * 3])
+@pytest.mark.parametrize("F", [5, 10, 17, 32])
+@pytest.mark.parametrize("C", [32, 64, 96, 128])
+def test_final_head_kernel(dev, C, F, T):
+    """K3 at each instantiation of the row core (C 32 to 128; F <= 16 and <= 32), on a T
+    whose last 128-row tile is full and on one whose last tile is half full: a NaN token
+    gives F - 1 on each sub-pixel, the indices equal the plain version's outside
+    near-ties, and the classes are ``argmax_lowest`` of the kernel's own f32 logits tap.
+    With gamma 0 and beta 1 every z is 1, so logit f is C * Wh[0, f] exactly: where the F
+    logits tie below zero the class is 0 (a zero-padded head column must not win), and
+    where columns 1.. tie above column 0 it is 1."""
+    gen = torch.Generator().manual_seed(2 + C + F)
+    p = 4
     x = _randn(gen, dev, T, C).to(torch.bfloat16)
     x[5] = float("nan")
     args = (x, _randn(gen, dev, C, p * C, std=0.02), 1 + _randn(gen, dev, C, std=0.1),
@@ -89,12 +98,41 @@ def test_final_head_kernel(dev, C, F):
     got = fh.final_head_predict(*args, patch_size=p)
     torch.cuda.synchronize()
     assert fh.launches_by_shape[("final_head_predict", T, C)] == n + 1
-    assert (got[5] == F - 1).all()
+    assert got.shape == (T, p) and (got[5] == F - 1).all()
     logits = fh.final_head_logits_plain(*args, patch_size=p)
     top2 = logits.topk(2, dim=-1).values
     far = (top2[..., 0] - top2[..., 1]) > 0.05  # well outside bf16 rounding of z
     want = fh.argmax_lowest(logits)
     assert torch.equal(got[far], want[far]) and far.float().mean() > 0.5
+    preds, tap = fh.final_head_predict(*args, patch_size=p, tap_logits=True)
+    assert torch.equal(preds, got) and torch.equal(fh.argmax_lowest(tap), got)
+    flat = (torch.zeros(C, device=dev), torch.ones(C, device=dev))
+    for w0, cls in ((-0.25, 0), (-0.5, 1)):
+        head = torch.full((C, F), -0.25, device=dev)
+        head[:, 0] = w0
+        preds, tap = fh.final_head_predict(x, args[1], *flat, head, patch_size=p,
+                                           tap_logits=True)
+        torch.cuda.synchronize()
+        fine = torch.ones(T, dtype=torch.bool, device=dev)
+        fine[5] = False
+        assert (tap[fine, :, 1:] == -0.25 * C).all() and (tap[fine, :, 0] == w0 * C).all()
+        assert (preds[fine] == cls).all() and (preds[5] == F - 1).all()
+
+
+@pytest.mark.parametrize("T,C,F", [(64 * 65, 32, 20), (64 * 65, 96, 10), (64 * 65, 128, 32),
+                                   (64 * 3, 64, 5)])
+def test_final_head_predict_logits_are_the_loss_kernels(dev, T, C, F):
+    """Probe (h): K3's classes are ``argmax_lowest`` of its own f32 logits tap, and that
+    tap rounded to bf16 is K6's logits tap on the same operands, ``torch.equal`` (predict
+    and the train loss make their logits through one function)."""
+    gen = torch.Generator().manual_seed(40 + T + C + F)
+    p = 4
+    args = _loss_args(gen, dev, T, C, F, p)
+    preds, lf3 = fh.final_head_predict(*args[:5], patch_size=p, tap_logits=True)
+    lf6 = fh.final_head_loss_sums(*args, patch_size=p, tap_logits=True)[3]
+    assert lf3.dtype == torch.float32 and int((lf3 != 0).sum()) > T * p * F // 2
+    assert torch.equal(preds, fh.argmax_lowest(lf3))
+    assert torch.equal(lf3.to(torch.bfloat16), lf6)
 
 
 def _attn_args(gen, dev, C, T, use_cos):
@@ -430,9 +468,9 @@ def test_final_head_loss_bwd_recomputes_the_forward_logits(dev, T, C, F):
 
 
 def test_loss_kernels_refuse_widths_without_an_instantiation(dev):
-    """K6 and K7 hold a row in mma accumulators, one instantiation per C in 32, 64, 96,
-    128: other widths the tails took before (C % 16) raise, naming impl="xla", with no
-    launch; K3 still takes them."""
+    """K6 and K7, and K3 on their row core, hold a row in mma accumulators, one
+    instantiation per C in 32, 64, 96, 128: other widths the tails took before (C % 16)
+    raise, naming impl="xla", with no launch."""
     gen = torch.Generator().manual_seed(14)
     one = torch.ones((), device=dev)
     for C in (48, 80, 112):
@@ -442,10 +480,9 @@ def test_loss_kernels_refuse_widths_without_an_instantiation(dev):
             fh.final_head_loss_sums(*args, patch_size=4)
         with pytest.raises(ValueError, match="C % 32 == 0 and C <= 128.*impl='xla'"):
             fh.final_head_loss_bwd(*args, one, patch_size=4)
+        with pytest.raises(ValueError, match="C % 32 == 0 and C <= 128.*impl='xla'"):
+            fh.final_head_predict(*args[:5], patch_size=4)
         assert dict(fh.launches) == before
-        fh.final_head_predict(*args[:5], patch_size=4)
-        torch.cuda.synchronize()
-        assert fh.launches["final_head_predict"] == before["final_head_predict"] + 1
 
 
 def test_kernels_refuse_what_they_do_not_take(dev):
@@ -541,16 +578,16 @@ def test_auto_refuses_what_the_kernels_do_not_take(dev):
 
 def test_tail_kernels_refuse_what_their_shared_memory_does_not_hold(dev):
     """The tail wrappers read the shared memory a block asks for from the library: K7
-    at C 128 with four sub-pixels (its z and dlogits tiles) and K3 at C 160 need more
-    than a block may have and raise; K3 at C 128 launches, and so does K9 at C 128 with
-    four sub-pixels (no tile of its own beside the slices and the x ring), within 1e-2
-    of its plain version."""
+    at C 128 with four sub-pixels (its z and dlogits tiles) needs more than a block may
+    have and raises; K3 at C 160 is refused by the row core's width rule, naming
+    impl="xla"; K3 at C 128 with four sub-pixels launches, and so does K9 (no tile of
+    its own beside the slices and the x ring), within 1e-2 of its plain version."""
     gen = torch.Generator().manual_seed(13)
     one = torch.ones((), device=dev)
     loss128 = _loss_args(gen, dev, 128, 128, 10)
     with pytest.raises(ValueError, match="shared memory.*impl='xla'"):
         fh.final_head_loss_bwd(*loss128, one, patch_size=4)
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="C <= 128.*impl='xla'"):
         fh.final_head_predict(*_loss_args(gen, dev, 128, 160, 10)[:5], patch_size=4)
     before = dict(fh.launches)
     fh.final_head_predict(*loss128[:5], patch_size=4)

@@ -78,3 +78,33 @@ def test_predict_wrapper_runs_plain_on_cpu(impl):
     assert fh.launches == before and fh.launches_by_shape == before_shapes
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         fh.final_head_predict(*ops, patch_size=P, impl="pallas")
+
+
+@pytest.mark.parametrize("impl", ["auto", "xla"])
+def test_predict_wrapper_taps_the_plain_logits_on_cpu(impl):
+    """With ``tap_logits`` the wrapper gives the plain indices and the plain f32 logits
+    (on the card the kernel's tap, which probe (h) holds the classes to), and
+    ``argmax_lowest`` of the tap: F - 1 for a token holding a NaN; with gamma 0 and beta
+    1 every z is 1, so logit f is C * Wh[0, f] exactly: 0 where all F tie below zero
+    (the kernel's zero-padded head columns must not win there), the lowest index where
+    columns 1.. tie above column 0."""
+    x, we, g, b, wh = [torch.from_numpy(a) for a in _operands(2)]
+    xn = x.clone()
+    xn[7] = float("nan")
+    before, before_shapes = dict(fh.launches), fh.launches_by_shape.copy()
+    preds, lf = fh.final_head_predict(xn, we, g, b, wh, patch_size=P, impl=impl,
+                                      tap_logits=True)
+    assert torch.equal(preds, fh.final_head_predict_plain(xn, we, g, b, wh, patch_size=P))
+    assert lf.dtype == torch.float32 and lf.shape == (T, P, F)
+    want = fh.final_head_logits_plain(xn, we, g, b, wh, patch_size=P)
+    assert torch.allclose(lf, want, rtol=0, atol=0, equal_nan=True) and lf[7].isnan().all()
+    assert torch.equal(fh.argmax_lowest(lf), preds) and (preds[7] == F - 1).all()
+    flat = (torch.zeros(C), torch.ones(C))
+    for w0, want in ((-0.25, 0), (-0.5, 1)):
+        head = torch.full((C, F), -0.25)
+        head[:, 0] = w0
+        preds, lf = fh.final_head_predict(x, we, *flat, head, patch_size=P, impl=impl,
+                                          tap_logits=True)
+        assert torch.equal(lf[..., 1:], torch.full((T, P, F - 1), -0.25 * C))
+        assert (lf[..., 0] == w0 * C).all() and (preds == want).all()
+    assert fh.launches == before and fh.launches_by_shape == before_shapes

@@ -176,9 +176,9 @@ def test_attention_kernels_take():
 
 
 def test_final_head_kernels_take():
-    """The dtype and shapes the segmentation tail's kernels take: bf16, C % 16,
-    F <= 32, T % 64, and C <= 128 for K7 (the train pair); the shared-memory limit is
-    read from the library at the call (``tests/test_torch_cuda_kernels.py``)."""
+    """The dtype and shapes the segmentation tail's kernels take, the train pair and K3
+    alike: bf16, C in 32, 64, 96, 128, F <= 32, T % 64; the shared-memory limit is read
+    from the library at the call (``tests/test_torch_cuda_kernels.py``)."""
     bf, f32 = torch.bfloat16, torch.float32
     assert fh.kernels_take(262144, 96, 10, bf)
     assert fh.kernels_take(262144, 96, 10, bf, train=False)
@@ -188,8 +188,9 @@ def test_final_head_kernels_take():
     assert not fh.kernels_take(262144, 8, 10, bf)  # C % 16
     assert not fh.kernels_take(1000, 96, 10, bf)  # T % 64
     assert fh.kernels_take(128, 128, 10, bf)
-    assert not fh.kernels_take(128, 144, 10, bf)  # K7's C <= 128
-    assert fh.kernels_take(128, 144, 10, bf, train=False)
+    assert fh.kernels_take(128, 128, 10, bf, train=False)
+    assert not fh.kernels_take(128, 144, 10, bf)  # the row core's C <= 128
+    assert not fh.kernels_take(128, 144, 10, bf, train=False)
 
 
 def _counters():

@@ -21,9 +21,10 @@ DropPath scale), and the port's cuBLAS / ATen routes for K12 / K13's function an
 K14 / K15's (``mlp_route``, forward and backward; the branch's with the DropPath scale)
 as the controls.  The tail family (``--family tail``), at the paper tail (T 262,144, C 96,
 p 4, F 10) on chip_smoke.py's ``tail_inputs``: K6 and its backward K7, K3 (predict), and
-K8 / K9 (the depth loss, l2, one channel), and the composed PyTorch routes of K6 / K7's
-function (``tail_route``) and of K8 / K9's (``depth_route``), forward and backward, as
-the controls that run the same code in every turn; each launches once a step.
+K8 / K9 (the depth loss, l2, one channel), and the composed PyTorch routes of K3's
+function (``pred_route``), of K6 / K7's (``tail_route``) and of K8 / K9's
+(``depth_route``), forward and backward, as the controls that run the same code in every
+turn; each launches once a step (K3 once a predict).
 ``--family all`` (the default) times all three.
 
 Each shape gets two times: the device time (``device_ms``: each call enqueued behind a
@@ -128,7 +129,7 @@ def turn(root: Path, family: str) -> dict:
 
 
 def tail_times(smoke, dev, both) -> dict:
-    """K3, K6, K7, K8, K9 at the paper tail, and the two routes."""
+    """K3, K6, K7, K8, K9 at the paper tail, and the three routes."""
     import torch
 
     from heal_swin_torch.ops import final_head as fh
@@ -150,6 +151,7 @@ def tail_times(smoke, dev, both) -> dict:
         times[f"K7 {label}"] = both(lambda: fh.final_head_loss_bwd(*largs, scale, **kw))
         times[f"K8 {label}"] = both(lambda: fh.final_head_depth_loss_sums(*dargs, **dkw))
         times[f"K9 {label}"] = both(lambda: fh.final_head_depth_loss_bwd(*dargs, scale, **dkw))
+    times[f"pred-route {label}"] = both(smoke.pred_route(largs[:5], p))
     route_f, route_b = smoke.tail_route(largs, p)
     times[f"tail-route-fwd {label}"] = both(route_f)
     times[f"tail-route-bwd {label}"] = both(route_b)
