@@ -17,9 +17,14 @@ through the brute (K10) and neighbour-pruned (K11) Chamfer folds; then the MLP f
 and backward) at every stage shape and on the paper model's own blocks; then the same
 segmentation model with scaled-dot attention (``use_cos_attn=False``, the config's
 default flavour), whose blocks at C <= 384 run the fused-qkv window attention (K16
-forward, K17 backward): its predict and train step through both paths; and last the
-kernels' refusal: small models the kernels do not take (float32, window 16) raise under
-"auto" with no launch, and run the plain versions under "xla".
+forward, K17 backward): its predict and train step through both paths; then the paper
+segmentation config's own train step (``heal_swin_torch.run_configs``: float32, dropout
+and attention dropout 0.1, DropPath 0.1, 8 classes, Adam at the paper rate; nside 256,
+batch 2): the f32 K6/K7 against their plain versions at its tail, then its train step
+through both paths on the same dropout masks (attention dropout sends every block to
+the plain XLA route, so the f32 K6/K7 are its only kernels); and last the kernels'
+refusal: small models the kernels do not take (float32 without dropout, window 16)
+raise under "auto" with no launch, and run the plain versions under "xla".
 
     python3 chip_smoke.py            # needs one CUDA GPU; exits non-zero otherwise
 
@@ -34,7 +39,10 @@ after; each kernel's ``launches`` in the results line comes from the run that us
 (the segmentation train step for K1, K4, K6, K7; segmentation predict for K3; the
 depth train step for K8, K9; the writer for K10, K11; the MLP phase for K12-K15, which
 no configuration's train step or predict launches; the scaled-dot train step for K2,
-K5, K16, K17).  For K1-K9 and K12-K15 ``ms`` / ``plain_ms`` / ``bound_ms`` are sums, over
+K5, K16, K17; the paper config's f32 train step for the f32 K6 and K7, whose
+``bound_ms`` takes the 3xTF32 rate, a third of the TF32 peak, and which add
+``device_ms``, a traced call's device time, and ``route_ms``, the composed PyTorch
+route in f32).  For K1-K9 and K12-K15 ``ms`` / ``plain_ms`` / ``bound_ms`` are sums, over
 the shapes that run launched the kernel at, of one call's median time (its plain
 version's; the least time the card could take, from the shapes) times the number of
 such launches; K12-K15 add ``route_ms``, the port's composed cuBLAS / ATen route, and
@@ -436,20 +444,20 @@ def pred_route(args, p):
     return forward
 
 
-def tail_route(largs, p):
-    """The composed PyTorch route for K6's and K7's function on their operands: bf16
-    ``F.linear`` for the expand, ``F.layer_norm`` on the bf16 sub-rows, ``F.linear`` for
-    the head, the weighted ``F.cross_entropy`` in f32 and the confusion matrix by
-    ``torch.bincount`` of the argmax.  Returns (forward, backward): forward() gives
-    (loss, confusion matrix), backward() the autograd gradients of x, We, gamma, beta and
-    Wh for a loss gradient of 1."""
+def tail_route(largs, p, dtype=torch.bfloat16):
+    """The composed PyTorch route for K6's and K7's function on their operands, in
+    ``dtype`` (bf16, or f32 for the f32 kernels): ``F.linear`` for the expand,
+    ``F.layer_norm`` on the sub-rows, ``F.linear`` for the head, the weighted
+    ``F.cross_entropy`` in f32 and the confusion matrix by ``torch.bincount`` of the
+    argmax.  Returns (forward, backward): forward() gives (loss, confusion matrix),
+    backward() the autograd gradients of x, We, gamma, beta and Wh for a loss gradient
+    of 1."""
     import torch.nn.functional as tF
 
     x, we, g, b, wh, y, welem = largs
     T, C = x.shape
     F = wh.shape[1]
-    bf16 = torch.bfloat16
-    leaves = [t.detach().to(bf16).contiguous().requires_grad_()
+    leaves = [t.detach().to(dtype).contiguous().requires_grad_()
               for t in (x, we.t(), g, b, wh.t())]
     yl, wl = y.reshape(-1).long(), welem.reshape(-1).float()
 
@@ -1280,7 +1288,8 @@ NO_LAUNCHES = {k: 0 for k in (
     "window_attention_qkv_epi_bwd", "window_attention_bwd", "final_head_loss",
     "final_head_loss_bwd", "final_head_depth_loss", "final_head_depth_loss_bwd",
     "chamfer_min_both", "chamfer_fold_pairs", "mlp_fwd", "mlp_bwd", "mlp_block_fwd",
-    "mlp_block_bwd", "window_attention_qkv", "window_attention_qkv_bwd")}
+    "mlp_block_bwd", "window_attention_qkv", "window_attention_qkv_bwd",
+    "final_head_loss_f32", "final_head_loss_bwd_f32")}
 # the window-attention launches of one pass of the paper model: cosine blocks at
 # C <= 384 run K1 (K4 backward), scaled-dot ones K16 (K17); the C = 768 ones K2 (K5)
 ATTN_LAUNCHES = {True: dict(window_attention_qkv_epi=20, window_attention=2),
@@ -2475,16 +2484,338 @@ def drive_mlp(dev, timed):
 
 
 # ------------------------------------------------------------ the kernels' refusal
+# ------------------------------------------- the paper segmentation config in float32
+PAPER_STEPS = 4  # timed train steps of each path after the counted first step
+F32_TAIL_TOL = 1e-5  # the f32 K6's sums and every f32 K7 gradient and step vs plain
+PAPER_LOSS_TOL = 1e-5  # the train step's loss, kernel path vs plain path, relative
+PAPER_GRAD_TOL = 1e-4  # every parameter gradient of the first step, relative L2
+PAPER_CLASSES = 8  # the SynWoodScape-large classes of the paper segmentation config
+# the f32 K6/K7's bound: the card's TF32 tensor-core peak (H100 SXM, dense) over three,
+# the rate of a 3xTF32 product, the f32-accurate tensor-core form
+TF32_PEAK = 494.7e12
+F32_TC_PEAK = TF32_PEAK / 3
+F32_TC_PEAK_NAME = "3xTF32: TF32 494.7 TFLOPS / 3"
+F32_KERNELS = ("final_head_loss_f32", "final_head_loss_bwd_f32")
+# the kernels of an f32 K6 / K7 call, by their names in a trace
+F32_TAIL_STEPS = {"tail_loss_f32_kernel": "K6 row kernel", "tail_bwd_f32_kernel": "K7 row kernel",
+                  "reduce_rows_kernel": "reduce_rows", "gemm_tn_f32_kernel": "gemm_tn_f32"}
+
+
+def f32_tail_work(key):
+    """(FLOP, bytes) of one call of the f32 K6 or K7 at (name, T, C) with the paper
+    head's F 8 classes, p 4: K6 the expand 2 T p C^2 and the head 2 T p C F; K7 three
+    times each (the forward recomputed; dx and dWe; dz and dWh); f32 tokens, int32
+    targets and f32 weights read once, K7's dx written once, the f32 parameters and, for
+    K7, their gradients."""
+    name, T, C = key[:3]
+    p, F = TAIL_P, PAPER_CLASSES
+    weights = (p * C * C + C * F + 2 * C) * 4
+    if name == "final_head_loss_f32":
+        return 2 * T * p * C * C + 2 * T * p * C * F, 4 * T * C + 8 * T * p + weights
+    return 6 * T * p * C * C + 6 * T * p * C * F, 8 * T * C + 8 * T * p + 2 * weights
+
+
+def paper_tail_inputs(gen, dev):
+    """The paper config's tail operands in f32 (T = 262,144 tokens of batch 2 at nside
+    256, C 96, p 4, F 8): (x, we, gamma, beta, wh, y, welem), welem the SynWoodScape
+    class weights of y."""
+    from heal_swin_torch.run_configs import SYNWOODSCAPE_LARGE_WEIGHTS
+
+    rnd, _ = seeded_draws(gen, dev)
+    C, p, F = 96, TAIL_P, PAPER_CLASSES
+    T = BATCH * 8 * NSIDE * NSIDE // p
+    x = rnd(T, C)
+    we, wh = rnd(C, p * C, std=0.1), rnd(C, F, std=0.3)
+    g, b = 1.0 + rnd(C, std=0.1), rnd(C, std=0.1)
+    y = torch.randint(0, F, (T, p), generator=gen, dtype=torch.int32).to(dev)
+    welem = torch.tensor(SYNWOODSCAPE_LARGE_WEIGHTS, device=dev)[y.long()]
+    return x, we, g, b, wh, y, welem
+
+
+def device_ms(fn, n=SEQUENCE_TRACED):
+    """One call's device time (ms) by kernel name and in all, from ``n`` traced calls."""
+    per, _ = trace(fn, n)
+    by_name = {name: ms / n for name, (ms, _) in per.items()}
+    return by_name, sum(by_name.values())
+
+
+def check_f32_loss_kernels(largs, fh):
+    """The f32 K6 and K7 against their plain versions (f32, TF32 off) at the paper tail:
+    K6's sums within F32_TAIL_TOL relative and its confusion matrix equal outside
+    near-ties (``confmat_agrees``, slack F32_TAIL_TOL of the row's largest |logit|, at
+    least F32_TAIL_TOL); every K7 gradient within relative L2 F32_TAIL_TOL, two launches
+    bit-equal; each step of K7 (row kernel, reduce_rows, gemm_tn_f32) against its plain
+    twin on its own input within F32_TAIL_TOL and K7 the steps composed bit for bit;
+    and the probe that K7's row kernel recomputes K6's f32 logits bit for bit (the
+    logits taps).  Then one call's time, its device time by kernel, its plain version's
+    and the f32 composed PyTorch route's (``tail_route`` in f32).  Returns the
+    timings keyed like the launch counters."""
+    x = largs[0]
+    T, C = x.shape
+    p, F = TAIL_P, largs[4].shape[1]
+    name = "paper tail f32"
+    with torch.no_grad():
+        num, den, cm, lf6 = fh.final_head_loss_sums(*largs, patch_size=p, impl="pallas",
+                                                     tap_logits=True)
+        wnum, wden, _ = fh.final_head_loss_plain(*largs, patch_size=p)
+        errs = [abs(float(a) - float(w)) / abs(float(w)) for a, w in ((num, wnum), (den, wden))]
+        if max(errs) > F32_TAIL_TOL:
+            raise AssertionError(f"{name}: K6 sums {float(num)}, {float(den)} vs plain "
+                                 f"{float(wnum)}, {float(wden)}")
+        lf = fh.final_head_logits_plain(x, *largs[1:5], patch_size=p)
+        slack = F32_TAIL_TOL * lf.abs().amax(-1).clamp_min(1.0)
+        near, moved = confmat_agrees(f"{name} K6", cm, lf, largs[5].reshape(T, p), slack)
+        scale = torch.ones((), device=x.device) / wden
+        got = fh.final_head_loss_bwd(*largs, scale, patch_size=p, impl="pallas")
+        want = fh.final_head_loss_bwd_plain(*largs, scale, patch_size=p)
+        err, mae = check_grads(f"{name} K7", K7_GRADS, got, want, F32_TAIL_TOL)
+        again = fh.final_head_loss_bwd(*largs, scale, patch_size=p, impl="pallas")
+        if not all(torch.equal(g, a) for g, a in zip(got, again)):
+            raise AssertionError(f"{name}: two K7 launches differ")
+        dx, dh, part, lf7 = fh.final_head_loss_bwd_rows(*largs, scale, patch_size=p,
+                                                        impl="pallas", tap_logits=True)
+        equal_bits(f"{name} probe: K7's recomputed logits vs K6's", lf7, lf6)
+        grid = part.shape[0]
+        e_rows, _ = check_grads(f"{name} K7 row step", ("dx", "dh", "partial rows"),
+                                (dx, dh, part), fh.final_head_loss_bwd_rows_plain(
+                                    *largs, scale, patch_size=p, grid=grid), F32_TAIL_TOL)
+        dwe = fh.final_head_loss_dwe(x, dh, impl="pallas")
+        e_dwe, _ = check_close(f"{name} K7 dWe step", dwe, fh.final_head_loss_dwe_plain(x, dh),
+                               F32_TAIL_TOL)
+        red = fh.reduce_rows(part, impl="pallas")
+        e_red, _ = check_close(f"{name} K7 reduce step", red, fh.reduce_rows_plain(part),
+                               F32_TAIL_TOL)
+        dwh, dg, db = red.split([C * F, C, C])
+        if not all(torch.equal(a, b) for a, b in zip(got, (dx, dwe, dg, db,
+                                                           dwh.reshape(C, F)))):
+            raise AssertionError(f"{name}: K7 is not its three steps composed")
+        del got, want, again, dx, dh, part, lf, lf6, lf7
+        log(f"{name} K6 T={T} C={C} F={F}: sums rel err {errs[0]:.3e}, {errs[1]:.3e} "
+            f"(tol {F32_TAIL_TOL}); confusion matrix: {moved} of {T * p} elements in "
+            f"another column, all near-ties ({near} near-tie elements)")
+        log(f"{name} K7: every gradient rel_l2 <= {err:.3e} max_abs {mae:.3e} (tol "
+            f"{F32_TAIL_TOL}), two launches bit-equal; on {grid} blocks row kernel rel_l2 "
+            f"<= {e_rows:.3e}, gemm_tn_f32 {e_dwe:.3e}, reduce_rows {e_red:.3e}, K7 the "
+            f"steps composed bit-equal; K7 recomputes K6's f32 logits bit for bit")
+        ms6 = median_ms(lambda: fh.final_head_loss_sums(*largs, patch_size=p, impl="pallas"))
+        pms6 = median_ms(lambda: fh.final_head_loss_plain(*largs, patch_size=p))
+        ms7 = median_ms(lambda: fh.final_head_loss_bwd(*largs, scale, patch_size=p,
+                                                       impl="pallas"))
+        pms7 = median_ms(lambda: fh.final_head_loss_bwd_plain(*largs, scale, patch_size=p))
+        by6, dev6 = device_ms(lambda: fh.final_head_loss_sums(*largs, patch_size=p,
+                                                              impl="pallas"))
+        by7, dev7 = device_ms(lambda: fh.final_head_loss_bwd(*largs, scale, patch_size=p,
+                                                             impl="pallas"))
+    route_f, route_b = tail_route(largs, p, torch.float32)
+    rms6, rms7 = median_ms(route_f), median_ms(route_b)
+    del route_f, route_b
+    for label, by in (("f32 K6", by6), ("f32 K7", by7)):
+        for kname, ms in sorted(by.items(), key=lambda kv: -kv[1]):
+            part_of = next((v for k, v in F32_TAIL_STEPS.items() if k in kname), None)
+            log(f"{label} one call on the device: {ms:9.4f} ms  "
+                f"{part_of or 'operand copy or other'}: {kname[:90]}")
+    log(f"f32 K6 final_head_loss_f32 T={T} C={C} p={p} F={F}: kernel {ms6:.4f} ms (device "
+        f"{dev6:.4f} ms) plain {pms6:.4f} ms f32 route {rms6:.4f} ms")
+    log(f"f32 K7 final_head_loss_bwd_f32 T={T} C={C} p={p} F={F}: kernel {ms7:.4f} ms "
+        f"(device {dev7:.4f} ms) plain {pms7:.4f} ms f32 route {rms7:.4f} ms")
+    loss, wloss = float(num / den), float(wnum / wden)
+    return {("final_head_loss_f32", T, C): dict(
+                max_abs_err=abs(loss - wloss), sums_rel_err=max(errs), confmat_moved=moved,
+                near_tie_elements=near, ms=ms6, device_ms=dev6, plain_ms=pms6,
+                route_ms=rms6),
+            ("final_head_loss_bwd_f32", T, C): dict(
+                rel_l2=err, max_abs_err=mae, ms=ms7, device_ms=dev7, plain_ms=pms7,
+                route_ms=rms7)}
+
+
+def paper_task(impl, dev, state=None):
+    """The paper segmentation config's task (``heal_swin_torch.run_configs``): f32 compute,
+    dropout and attention dropout 0.1, DropPath 0.1, the SynWoodScape-large class
+    weights, Adam at the paper rate, at nside 256; weights from SEED (the rel-pos tables
+    and logit scales perturbed as ``build_task``'s) or ``state``."""
+    from heal_swin_torch.models import tasks as T
+    from heal_swin_torch.models.swin_hp import DataSpec
+    from heal_swin_torch.run_configs import (PAPER_LR, SYNWOODSCAPE_LARGE_WEIGHTS,
+                                             paper_swin_hp_config)
+    from heal_swin_torch.training.optimizer import OptimizerConfig
+
+    gen = torch.Generator().manual_seed(SEED)
+    npix = 8 * NSIDE * NSIDE
+    task = T.WoodscapeSegmenterSwinHP(
+        T.WoodscapeSegmenterSwinHPConfig(
+            paper_swin_hp_config(attention_impl=impl),
+            optimizer_config=OptimizerConfig(learning_rate=PAPER_LR),
+            class_weights=list(SYNWOODSCAPE_LARGE_WEIGHTS)),
+        DataSpec(dim_in=npix, f_in=3, f_out=PAPER_CLASSES, base_pix=8), device=dev,
+        generator=gen)
+    if state is None:
+        with torch.no_grad():
+            for name, prm in task.model.named_parameters():
+                if name.endswith("relative_position_bias_table"):
+                    prm.copy_(torch.randn(prm.shape, generator=gen) * 0.5)
+                elif name.endswith("logit_scale"):
+                    prm.add_((torch.randn(prm.shape, generator=gen) * 0.5).to(prm.device))
+    else:
+        task.model.load_state_dict(state, strict=True)
+    return task
+
+
+def drive_paper_train(dev, timed):
+    """The paper segmentation config's own train step at full width and depth (nside 256,
+    batch 2, f32, dropout and attention dropout 0.1, DropPath 0.1, 8 classes, the fused
+    tail, Adam at the paper rate), through the kernels ("auto") and through the plain
+    path ("xla") on the same weights, batch and step generators.  First the f32 K6/K7
+    against their plain versions at the paper tail (``check_f32_loss_kernels``).  Then
+    step 0 of each path through ``train_step``: every dropout mask the kernel path draws
+    is kept and the plain path's are held to them (``torch.equal``, in draw order), and
+    their kept share to 0.9 within 3 standard deviations; the kernel path launches one
+    f32 K6 and one f32 K7 and no other kernel (attention dropout sends every block to
+    the plain XLA route, the MLP is plain); the two losses agree within PAPER_LOSS_TOL
+    relative and every parameter gradient within relative L2 PAPER_GRAD_TOL.  Then
+    PAPER_STEPS more steps of each path, timed (images/s, peak memory above the
+    resident), the loss falling on both, the metric state, and a trace of a kernel-path
+    step (device time by kernel, idle share).  Returns the kernels' launches in step 0
+    of the kernel path: per kernel, and per operand shape."""
+    from heal_swin_torch.models import layers
+    from heal_swin_torch.ops import final_head as fh
+    from heal_swin_torch.training.optimizer import make_optimizer
+    from heal_swin_torch.training.trainer import step_generator, train_step
+
+    label = "paper train"
+    timed.update(check_f32_loss_kernels(paper_tail_inputs(
+        torch.Generator().manual_seed(SEED + 17), dev), fh))
+    torch.cuda.empty_cache()
+    task_k = paper_task("auto", dev)
+    task_p = paper_task("xla", dev, state=task_k.model.state_dict())
+    imgs, _ = train_batch(dev)
+    targets = torch.clamp(((imgs[..., 0] + 2.5) * PAPER_CLASSES / 5).long(), 0,
+                          PAPER_CLASSES - 1).to(torch.int32)
+    opts = [make_optimizer(t.model.parameters(), t.optimizer_config) for t in (task_k, task_p)]
+    mstates = [t.metric_init() for t in (task_k, task_p)]
+
+    # step 0 of the kernel path, counted, its masks kept
+    draw, masks = layers.keep_mask, []
+
+    def keep(shape, keep_prob, generator, device):
+        m = draw(shape, keep_prob, generator, device)
+        masks.append(m)
+        return m
+
+    layers.keep_mask = keep
+    try:
+        reset_counters()
+        loss_k0, mstates[0] = train_step(task_k, opts[0], mstates[0], imgs, targets,
+                                         step_generator(SEED, 0, dev))
+        torch.cuda.synchronize()
+        launches, by_shape = read_counters()
+    finally:
+        layers.keep_mask = draw
+    check_launches(f"{label} step", launches, by_shape,
+                   dict(NO_LAUNCHES, final_head_loss_f32=1, final_head_loss_bwd_f32=1), timed)
+    grads_k = {n: q.grad.detach().clone() for n, q in task_k.model.named_parameters()}
+    kept = sum(int(m.sum()) for m in masks)
+    drawn = sum(m.numel() for m in masks)
+    share, sd = kept / drawn, (0.9 * 0.1 / drawn) ** 0.5
+    elem = [m for m in masks if m.numel() > m.shape[0]]  # the element masks, not DropPath's
+    e_share = sum(int(m.sum()) for m in elem) / sum(m.numel() for m in elem)
+    if abs(e_share - 0.9) > 3 * (0.9 * 0.1 / sum(m.numel() for m in elem)) ** 0.5:
+        raise AssertionError(f"{label}: the element masks keep {e_share}")
+
+    # step 0 of the plain path: the same masks, in the same order
+    seen = {"n": 0, "differ": 0}
+
+    def same(shape, keep_prob, generator, device):
+        m = draw(shape, keep_prob, generator, device)
+        i = seen["n"]
+        seen["n"] += 1
+        if i >= len(masks) or not torch.equal(m, masks[i]):
+            seen["differ"] += 1
+        return m
+
+    layers.keep_mask = same
+    try:
+        loss_p0, mstates[1] = train_step(task_p, opts[1], mstates[1], imgs, targets,
+                                         step_generator(SEED, 0, dev))
+    finally:
+        layers.keep_mask = draw
+    n_masks, n_attn = len(masks), sum(m.ndim == 5 for m in masks)
+    del masks, elem
+    if seen["n"] != n_masks or seen["differ"] or n_attn == 0:
+        raise AssertionError(f"{label}: the plain path drew {seen} against the kernel "
+                             f"path's {n_masks} masks ({n_attn} on attention)")
+    log(f"{label}: step 0 drew {seen['n']} masks ({n_attn} on attention probabilities), "
+        f"{drawn} entries, on both paths bit-equal in draw order; kept share {share:.6f} "
+        f"(element masks {e_share:.6f}; 0.9 within 3 sd = {3 * sd:.2e})")
+    loss_k0, loss_p0 = float(loss_k0), float(loss_p0)
+    rel = abs(loss_k0 - loss_p0) / abs(loss_p0)
+    if rel > PAPER_LOSS_TOL:
+        raise AssertionError(f"{label}: step 0 loss {loss_k0} vs plain {loss_p0}")
+    worst, worst_name = 0.0, None
+    for n, q in task_p.model.named_parameters():
+        if q.grad is None or grads_k[n] is None:
+            raise AssertionError(f"{label}: {n} has no gradient")
+        err, _ = check_close(f"{label} step 0 gradient {n}", grads_k[n], q.grad,
+                             PAPER_GRAD_TOL)
+        if err >= worst:
+            worst, worst_name = err, n
+    log(f"{label}: step 0 loss kernels {loss_k0:.7f} plain {loss_p0:.7f} (rel {rel:.2e}, "
+        f"tol {PAPER_LOSS_TOL}); all {len(grads_k)} parameter gradients rel_l2 <= "
+        f"{worst:.3e} ({worst_name}; tol {PAPER_GRAD_TOL})")
+    del grads_k
+
+    ips_k, mem_k, traj_k, mstates[0] = train_rate(task_k, opts[0], mstates[0], imgs,
+                                                  targets, 1, PAPER_STEPS)
+    ips_p, mem_p, traj_p, mstates[1] = train_rate(task_p, opts[1], mstates[1], imgs,
+                                                  targets, 1, PAPER_STEPS)
+    ips_k2, mem_k2, traj_k2, mstates[0] = train_rate(task_k, opts[0], mstates[0], imgs,
+                                                     targets, 1 + PAPER_STEPS, PAPER_STEPS)
+    resident = torch.cuda.memory_allocated() / 2 ** 30
+    for path, traj in (("kernels", [loss_k0] + traj_k + traj_k2), ("plain", [loss_p0] + traj_p)):
+        log(f"{label}: loss over {len(traj)} steps on one batch ({path}): "
+            + " ".join(f"{v:.6f}" for v in traj))
+        if not (all(math.isfinite(v) for v in traj) and traj[-1] < traj[0]):
+            raise AssertionError(f"{label} ({path}): the loss did not fall: {traj}")
+    for path, task, ms, n in (("kernels", task_k, mstates[0], 1 + 2 * PAPER_STEPS),
+                              ("plain", task_p, mstates[1], 1 + PAPER_STEPS)):
+        m = task.metric_compute(ms, "train_")
+        if float(ms["total"]) != n * targets.numel() or not all(
+                math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"{label} ({path}): metric state {float(ms['total'])}, {m}")
+        log(f"{label}: metrics over {n} steps ({path}): "
+            + " ".join(f"{k} {v:.4f}" for k, v in m.items()))
+    log(f"{label}: train step kernels {ips_k:.4f} / {ips_k2:.4f} img/s (peak {mem_k:.3f} / "
+        f"{mem_k2:.3f} GiB above the resident), plain {ips_p:.4f} img/s (peak {mem_p:.3f} "
+        f"GiB above the resident); resident {resident:.3f} GiB (both models' f32 weights, "
+        f"their Adam state and the batch)")
+
+    state = dict(step=1 + 2 * PAPER_STEPS)
+
+    def one_step():
+        train_step(task_k, opts[0], mstates[0], imgs, targets,
+                   step_generator(SEED, state["step"], dev))
+        state["step"] += 1
+
+    busy = profile(f"{label} profile", one_step, PROFILE_STEPS)
+    wall = BATCH / max(ips_k, ips_k2) * 1e3
+    log(f"{label} profile: against the untraced {wall:.3f} ms/step the device idles "
+        f"{1 - busy / wall:.4f} of the time")
+    return launches, by_shape
+
+
 GATE_NSIDE = 32  # 512 tokens an image at the second stage: one 64-token window per base pixel
 
 
 def drive_refusal(dev):
     """The kernels' refusal on the card: two small segmentation models the kernels were
-    not written for -- float32 compute (the config default) at the kernels' window 64,
-    and bf16 at window 16 with 40 classes (more than K3/K6/K7's 32 lanes).  Under
-    "auto" and "pallas" a loss and a predict raise before any launch, naming
-    attention_impl="xla"; under "xla" the same weights run a loss with its backward and
-    a predict with no launch, finite and of the expected shapes."""
+    not written for -- float32 compute (the config default) at the kernels' window 64
+    with no dropout, and bf16 at window 16 with 40 classes (more than K3/K6/K7's 32
+    lanes), both with the config's default scaled-dot attention.  Under "auto" and
+    "pallas" a loss and a predict raise before any launch, naming attention_impl="xla":
+    in the f32 model the first block's K16 (``window_attention_qkv``, bf16 only; with
+    cosine attention K1, bf16 only too) refuses both, before the predict's K3 (bf16
+    only) or the loss's f32 K6/K7 is reached; in the window-16 model K16 refuses the
+    window.  Under "xla" the same weights run a loss with its backward and a
+    predict with no launch, finite and of the expected shapes."""
     from heal_swin_torch.models import tasks as T
     from heal_swin_torch.models.swin_hp import DataSpec, SwinHPTransformerConfig
 
@@ -2566,6 +2897,10 @@ SOURCES = {
     "mlp_bwd": ("heal_swin_torch/csrc/mlp.cu", "heal_swin_tpu/ops/mlp.py:129"),
     "mlp_block_fwd": ("heal_swin_torch/csrc/mlp.cu", "heal_swin_tpu/ops/mlp.py:440"),
     "mlp_block_bwd": ("heal_swin_torch/csrc/mlp.cu", "heal_swin_tpu/ops/mlp.py:467"),
+    "final_head_loss_f32": ("heal_swin_torch/csrc/final_head_f32.cu",
+                            "heal_swin_tpu/ops/final_head.py:755"),
+    "final_head_loss_bwd_f32": ("heal_swin_torch/csrc/final_head_f32.cu",
+                                "heal_swin_tpu/ops/final_head.py:781"),
 }
 
 
@@ -2584,6 +2919,8 @@ def shape_work(key):
     and weights, f32 biases, LayerNorm parameters, DropPath scale and parameter
     gradients."""
     name, T, C = key[:3]
+    if name in F32_KERNELS:
+        return f32_tail_work(key)
     if name.startswith("mlp"):
         H = key[3]
         block = name.startswith("mlp_block")
@@ -2695,11 +3032,12 @@ def kernel_results(timed, runs, chamfer):
             kernels.append(dict(entry, **chamfer[name], shapes=shapes))
             continue
         shapes, op_ms, byte_ms = [], 0.0, 0.0
+        peak = F32_TC_PEAK if name in F32_KERNELS else BF16_PEAK
         for key, n in sorted(by_shape.items()):
             if key[0] == name:
                 flop, nbytes = shape_work(key)
-                b, by = bound(flop, nbytes, BF16_PEAK)
-                op_ms += n * flop / BF16_PEAK * 1e3
+                b, by = bound(flop, nbytes, peak)
+                op_ms += n * flop / peak * 1e3
                 byte_ms += n * nbytes / HBM_RATE * 1e3
                 shapes.append(dict(shape_fields(key), launches=n, bound_ms=b, bound_by=by,
                                    **timed[key]))
@@ -2713,6 +3051,8 @@ def kernel_results(timed, runs, chamfer):
             library_ms=total("library_ms") if "library_ms" in shapes[0] else None)
         if "route_ms" in shapes[0]:
             result["route_ms"] = total("route_ms")
+        if name in F32_KERNELS:
+            result.update(device_ms=total("device_ms"), peak=F32_TC_PEAK_NAME)
         kernels.append(dict(result, shapes=shapes))
     return kernels
 
@@ -2756,6 +3096,12 @@ TAIL_KERNELS = {"tail_pred_kernel": ("K3", (2, 4)), "tail_loss_kernel": ("K6", (
 PTXAS_NAMES.update({
     f"{len(k)}{k}ILi{nt}ELi{nf}E": f"{who} {k}<{nt}, {nf}> (C {8 * nt}, F <= {8 * nf})"
     for k, (who, nfs) in TAIL_KERNELS.items() for nt in (4, 8, 12, 16) for nf in nfs})
+# the f32 K6 and K7's row kernel at each C and head width, and K7's f32 dWe product
+PTXAS_NAMES.update({
+    f"{len(k)}{k}ILi{c}ELi{nf}E": f"{who} {k}<{c}, {nf}> (C {c}, F <= {nf})"
+    for k, who in (("tail_loss_f32_kernel", "f32 K6"), ("tail_bwd_f32_kernel", "f32 K7 step 1"))
+    for c in (32, 64, 96, 128) for nf in (8, 16)})
+PTXAS_NAMES["18gemm_tn_f32_kernel"] = "f32 K7 step 3 gemm_tn_f32_kernel"
 
 
 def log_ptxas(build_log: str):
@@ -2818,12 +3164,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     dot_run = drive_train(dev, timed, cos=False)
     torch.cuda.empty_cache()
+    t_paper = time.perf_counter()
+    paper_run = drive_paper_train(dev, timed)
+    torch.cuda.empty_cache()
     t_gate = time.perf_counter()
     drive_refusal(dev)
     t_end = time.perf_counter()
     log(f"elapsed: {t_end - t0:.1f} s since the build started, the Chamfer phase "
         f"{t_mlp - t_chamfer:.1f} s of it, the MLP phase {t_dot - t_mlp:.1f} s, the "
-        f"scaled-dot phase {t_gate - t_dot:.1f} s, the refusal phase {t_end - t_gate:.1f} s")
+        f"scaled-dot phase {t_paper - t_dot:.1f} s, the paper-config phase "
+        f"{t_gate - t_paper:.1f} s, the refusal phase {t_end - t_gate:.1f} s")
 
     blocked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "heal_swin_tpu"))
     if blocked:
@@ -2837,6 +3187,8 @@ def main() -> int:
     for name in ("window_attention", "window_attention_bwd", "window_attention_qkv",
                  "window_attention_qkv_bwd"):
         runs[name] = dot_run
+    for name in F32_KERNELS:
+        runs[name] = paper_run
     kernels = kernel_results(timed, runs, chamfer)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

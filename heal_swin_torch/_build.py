@@ -57,6 +57,17 @@ _SIGNATURES = {
     "hs_final_head_loss_bwd_smem": ([_I] * 3, ctypes.c_size_t),
     "hs_final_head_loss_bwd_grid": ([_I] * 4, _I),
     "hs_final_head_loss_bwd_workspace": ([_I] * 4, ctypes.c_size_t),
+    "hs_final_head_loss_f32": ([_P] * 10 + [_I] * 4 + [_F, _P], _I),
+    "hs_final_head_loss_f32_smem": ([_I] * 3, ctypes.c_size_t),
+    "hs_final_head_loss_f32_grid": ([_I] * 4, _I),
+    "hs_final_head_loss_f32_workspace": ([_I] * 4, ctypes.c_size_t),
+    "hs_final_head_loss_bwd_f32": ([_P] * 12 + [_I] * 4 + [_F, _P], _I),
+    "hs_final_head_loss_bwd_f32_rows": ([_P] * 12 + [_I] * 4 + [_F, _P], _I),
+    "hs_final_head_loss_bwd_f32_smem": ([_I] * 3, ctypes.c_size_t),
+    "hs_final_head_loss_bwd_f32_grid": ([_I] * 4, _I),
+    "hs_final_head_loss_bwd_f32_workspace": ([_I] * 4, ctypes.c_size_t),
+    "hs_gemm_tn_f32": ([_P] * 4 + [_I] * 3 + [_P], _I),
+    "hs_gemm_tn_f32_workspace": ([_I] * 3, ctypes.c_size_t),
     "hs_reduce_rows": ([_P] * 3 + [_I] * 2 + [_P], _I),
     "hs_reduce_rows_workspace": ([_I] * 2, ctypes.c_size_t),
     "hs_gemm_tn": ([_P] * 4 + [_I] * 3 + [_P], _I),

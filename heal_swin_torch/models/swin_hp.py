@@ -8,8 +8,10 @@ permutations with mask group ids (``heal_swin_torch.ops.shifting``, numpy only).
 
 Inputs (B, npix, f_in) channels-last; outputs (B, npix, f_out) float32, or with
 ``tail=False`` the (B, npix/p, C) tokens after ``norm_up`` in the compute dtype.  A
-training forward takes an explicit ``torch.Generator`` for the DropPath masks, handed
-down to every block.
+training forward takes an explicit ``torch.Generator`` for its dropout masks (DropPath,
+``pos_drop`` and every block's attention, proj and MLP dropout), handed down to every
+block; the masks are drawn in the order the modules run, so one generator state gives
+one forward.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from torch import nn
 from heal_swin_torch.data.data_spec import DataSpec
 from heal_swin_torch.models.layers import (
     DropPath,
+    Dropout,
     LayerNorm,
     Mlp,
     WindowAttention,
@@ -161,12 +164,13 @@ class SwinHPBlock(nn.Module):
         if not self.v2:
             x = self.norm1(x)
         x = self._shift(x, True).reshape(B, N // ws, ws, C)
-        x = self.attn(x, self.win_groups, ln=self.norm1 if self.v2 else None)
+        x = self.attn(x, self.win_groups, ln=self.norm1 if self.v2 else None,
+                      generator=generator)
         x = self._shift(x.reshape(B, N, C), False)
         x = shortcut + self.drop_path(x, generator)
         if self.v2:
-            return x + self.drop_path(self.norm2(self.mlp(x)), generator)
-        return x + self.drop_path(self.mlp(self.norm2(x)), generator)
+            return x + self.drop_path(self.norm2(self.mlp(x, generator)), generator)
+        return x + self.drop_path(self.mlp(self.norm2(x), generator), generator)
 
 
 class PatchMerging(nn.Module):
@@ -317,8 +321,10 @@ class UnetDecoder(nn.Module):
 
 class SwinHPTransformerSys(nn.Module):
     """HEAL-SWIN-UNet.  forward(x (B, npix, f_in), tail=True, generator=None) ->
-    (B, npix, f_out) f32.  In training mode DropPath (drop_path_rate > 0) draws from
-    ``generator``; element dropout in training (drop_rate > 0) is not ported yet.
+    (B, npix, f_out) f32.  In training mode every dropout mask -- DropPath
+    (drop_path_rate), ``pos_drop`` and the blocks' proj and MLP dropout (drop_rate),
+    attention dropout (attn_drop_rate) -- is drawn from ``generator``, in the order the
+    JAX model draws its own.
 
     Parameters are made on the CPU from ``generator`` (seeded 0 when not given) and
     then moved to ``device`` (the first CUDA device when None; raises without one), so
@@ -344,7 +350,7 @@ class SwinHPTransformerSys(nn.Module):
                                           cfg.patch_embed_norm_layer is not None)
             if cfg.ape:
                 self.absolute_pos_embed = nn.Parameter(torch.zeros(1, num_patches, cfg.embed_dim))
-            self.pos_drop = nn.Dropout(cfg.drop_rate)
+            self.pos_drop = Dropout(cfg.drop_rate)
             dpr = list(np.linspace(0, cfg.drop_path_rate, sum(cfg.depths)))
             self.layers = nn.ModuleList([
                 BasicLayer(cfg, data_spec.base_pix, int(cfg.embed_dim * 2 ** i),
@@ -381,12 +387,10 @@ class SwinHPTransformerSys(nn.Module):
 
     def forward(self, x, tail: bool = True, generator: Optional[torch.Generator] = None):
         cfg = self.config
-        if self.training and cfg.drop_rate > 0.0:
-            raise NotImplementedError("element dropout in training is not ported yet")
         x = self.patch_embed(x.to(cfg.compute_dtype))
         if cfg.ape:
             x = x + self.absolute_pos_embed.to(x.dtype)
-        x = self.pos_drop(x)
+        x = self.pos_drop(x, generator)
         x_downsample = []
         for layer in self.layers:
             x_downsample.append(x)

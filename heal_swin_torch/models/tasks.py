@@ -9,9 +9,10 @@ segmentation (K6 forward, K7 backward), the masked depth loss and the bf16
 predictions for depth (K8 forward, K9 backward).  Segmentation predict hands the
 tokens to the argmax kernel (K3); depth predict runs the unfused tail.  The depth task
 takes its fused route where ``ops.final_head.depth_route_takes`` admits the tail's
-shapes, as the JAX task does; on the card a fused tail the kernels do not take (a dtype
-other than bf16, a width without an instantiation) raises, and ``attention_impl="xla"``
-runs the plain versions.
+shapes, as the JAX task does.  K6 and K7 take bf16 and f32 tokens (a float32 config's
+tail runs their f32 kernels); K3, K8 and K9 take bf16 only.  On the card a fused tail
+the kernels do not take (such a dtype, a width without an instantiation) raises, naming
+the kernel, and ``attention_impl="xla"`` runs the plain versions.
 """
 
 from __future__ import annotations
@@ -102,7 +103,7 @@ class WoodscapeSegmenterSwinHP:
                 deterministic: bool = True):
         """(B, npix, f_in) images and (B, npix) int targets -> (loss, outputs).
 
-        ``deterministic=False`` runs the network in training mode, with the DropPath
+        ``deterministic=False`` runs the network in training mode, with the dropout
         masks drawn from ``generator``.  outputs are the step's (F, F) confusion matrix
         on the fused route (``fused_final_head``), the (B, npix, F) f32 logits
         otherwise; ``metric_update`` takes either."""
@@ -265,7 +266,7 @@ class WoodscapeDepthSwinHP:
         """(B, npix, f_in) images and (B, npix) network-space targets -> (loss,
         outputs): the (B, npix, F) predictions, in the compute dtype on the fused route
         and f32 on the unfused one.  ``deterministic=False`` runs the network in
-        training mode, with the DropPath masks drawn from ``generator``.
+        training mode, with the dropout masks drawn from ``generator``.
         ``sample_mask``: optional (B,) bool; a padded sample's targets become inf, the
         losses' own exclusion."""
         model = self.model

@@ -40,12 +40,20 @@ dtype -> logits z @ Wh in f32.
   with ``final_head_loss_dwe_plain`` and ``reduce_rows_plain`` (composed:
   ``final_head_depth_loss_bwd_sequence_plain``).
 
+- Float32 (K6/K7 only): x f32 runs their f32 kernels (``csrc/final_head_f32.cu``),
+  nothing rounded below f32, as the Pallas kernels compute with f32 operands: on the
+  card a block holds one expand slice and walks the sub-pixels in an outer loop, each
+  over the same 128-row tiles (block b: tiles b, b + grid, ...), a thread per row; K7 is
+  its row kernel (dx, the f32 dh, partial rows), ``reduce_rows``, then dWe = x^T dh by an
+  f32 ``gemm_tn``.  Their steps' twins are the ones above, run in f32.  K3, K8 and K9
+  take bf16 only.
+
 Every wrapper dispatches on ``impl`` like the attention wrappers
 (``heal_swin_torch.ops._dispatch.use_kernel``): on a CUDA tensor it runs its kernel or
-raises, and a tail the kernel was not written for (bf16, the shapes of
+raises, and a tail the kernel was not written for (a dtype it lacks, the shapes of
 ``kernels_take`` / ``depth_kernels_take``, the shared-memory limit) raises under "auto"
-as under "pallas", naming "xla" as the plain route; a loss's backward takes the same
-route as its forward.
+as under "pallas", naming the kernel that refuses and "xla" as the plain route; a loss's
+backward takes the same route as its forward.
 """
 
 from __future__ import annotations
@@ -61,16 +69,23 @@ LN_EPS = 1e-5
 KERNEL_ROWS = 64  # T a multiple of it for all five (gemm_tn's token steps in K7, K9)
 TAIL_TILE_ROWS = 128  # token rows of a block tile: 8 warps of 16 rows
 KERNEL_MAX_F = 32  # the class head's widest instantiation: four head n-tiles
+KERNEL_MAX_F_F32 = 16  # the f32 K6/K7's widest head: 16 columns
 KERNEL_SMEM_LIMIT = 232448  # bytes a block may opt in to on sm_90
 KERNEL_MAX_C_LOSS_BWD = 128  # the row core's widest instantiation
 # the row core holds a row's C columns in mma accumulators, one instantiation per C
 KERNEL_LOSS_CS = (32, 64, 96, 128)
 DEPTH_KINDS = ("l2", "l1", "huber", "nll")  # K8/K9's loss kinds, in their launch ids
+# the tail kernels by the library's names of their shared-memory figures; "loss" and
+# "loss_bwd" have f32 variants ("loss_f32", "loss_bwd_f32")
+KERNEL_IDS = {"predict": "K3", "loss": "K6", "loss_bwd": "K7", "depth_loss": "K8",
+              "depth_loss_bwd": "K9"}
+F32_KERNELS = ("loss", "loss_bwd")
 
 # launch counters, bumped only where a kernel launches: per kernel, and per
 # (kernel, T, C), or (kernel, T, C, F, kind) for K8/K9
 launches = {"final_head_predict": 0, "final_head_loss": 0, "final_head_loss_bwd": 0,
-            "final_head_depth_loss": 0, "final_head_depth_loss_bwd": 0}
+            "final_head_depth_loss": 0, "final_head_depth_loss_bwd": 0,
+            "final_head_loss_f32": 0, "final_head_loss_bwd_f32": 0}
 launches_by_shape: Counter = Counter()
 
 
@@ -464,13 +479,13 @@ def final_head_depth_loss_bwd_sequence_plain(x, we, gamma, beta, wh, t, scale, *
         huber_delta=huber_delta, grid=grid))
 
 
-def _tail_refusal(what, T, C, F):
-    """Why the tail kernels (K3, K6-K9, all on the row core) do not take T tokens of
-    width C with F outputs, or None where they do: C one of 32, 64, 96, 128, 1 <= F <=
-    32, T % 64.  The dtype and the shared memory are checked at the call
-    (``_tail_operands``)."""
-    if C % 16 or not 1 <= F <= KERNEL_MAX_F:
-        return f"{what}: the kernel takes C % 16 == 0 and F <= {KERNEL_MAX_F}, got C={C}, F={F}"
+def _tail_refusal(what, T, C, F, max_f=KERNEL_MAX_F):
+    """Why the tail kernels (K3, K6-K9, all on the row core, and the f32 K6/K7) do not
+    take T tokens of width C with F outputs, or None where they do: C one of 32, 64, 96,
+    128, 1 <= F <= ``max_f`` (32; 16 for the f32 kernels), T % 64.  The dtype and the
+    shared memory are checked at the call (``_tail_operands``)."""
+    if C % 16 or not 1 <= F <= max_f:
+        return f"{what}: the kernel takes C % 16 == 0 and F <= {max_f}, got C={C}, F={F}"
     if T % KERNEL_ROWS:
         return f"{what}: T={T} is not a multiple of {KERNEL_ROWS}"
     if C > KERNEL_MAX_C_LOSS_BWD:
@@ -482,30 +497,38 @@ def _tail_refusal(what, T, C, F):
 
 def kernels_take(T, C, F, dtype, train=True) -> bool:
     """Whether the segmentation tail's kernels take T tokens of width C, F classes and
-    ``dtype``: K6 and K7 both (``train``) or K3 (predict), which take the same shapes
-    since K3 runs on their row core.  The wrappers' checks apart from the shared memory,
+    ``dtype``: K6 and K7 both (``train``) or K3 (predict), which take the same shapes in
+    bf16 since K3 runs on their row core.  K6 and K7 also take f32 (their f32 kernels,
+    F <= 16); K3 takes bf16 only.  The wrappers' checks apart from the shared memory,
     which they read from the kernels' library at the call (K7 at C 128 needs p <= 2);
     where False, a CUDA tensor raises under "auto" and "pallas" and needs impl="xla",
     the plain version."""
+    if dtype == torch.float32 and train:
+        return _tail_refusal("", T, C, F, KERNEL_MAX_F_F32) is None
     return dtype == torch.bfloat16 and _tail_refusal("", T, C, F) is None
 
 
 def _tail_operands(what, x, we, gamma, beta, wh, patch_size, kernel):
     """The checked operands of the tail kernel ``kernel`` ("predict", "loss",
     "loss_bwd", "depth_loss" or "depth_loss_bwd", as the library names its
-    shared-memory figures): (T, C, F, we_s (p, C, C), gamma, beta, wh)."""
+    shared-memory figures; x f32 takes the f32 variant of "loss" and "loss_bwd"):
+    (T, C, F, we_s (p, C, C), gamma, beta, wh), the weights in x's dtype."""
     T, C = x.shape
     p = patch_size
     F = wh.shape[-1]
-    dt = torch.bfloat16
-    if x.dtype != dt:
-        refuse(f"{what}: the kernel takes bfloat16 x, got {x.dtype}")
-    msg = _tail_refusal(what, T, C, F)
+    who = f"{what} ({KERNEL_IDS[kernel]})"
+    f32 = x.dtype == torch.float32 and kernel in F32_KERNELS
+    if x.dtype != torch.bfloat16 and not f32:
+        takes = "bfloat16 or float32" if kernel in F32_KERNELS else "bfloat16"
+        refuse(f"{who}: the kernel takes {takes} x, got {x.dtype}")
+    msg = _tail_refusal(who, T, C, F, KERNEL_MAX_F_F32 if f32 else KERNEL_MAX_F)
     if msg is not None:
         refuse(msg)
-    smem = getattr(_build.lib(), f"hs_final_head_{kernel}_smem")(C, F, p)
+    name = f"{kernel}_f32" if f32 else kernel
+    smem = getattr(_build.lib(), f"hs_final_head_{name}_smem")(C, F, p)
     if smem > KERNEL_SMEM_LIMIT:
-        refuse(f"{what}: C={C}, p={p} needs {smem} bytes of shared memory")
+        refuse(f"{who}: C={C}, p={p} needs {smem} bytes of shared memory")
+    dt = x.dtype
     if (tuple(we.shape) != (C, p * C) or tuple(wh.shape) != (C, F)
             or tuple(gamma.shape) != (C,) or tuple(beta.shape) != (C,)):
         raise ValueError(f"{what}: operands must be we (C, p*C), wh (C, F), gamma/beta (C,)")
@@ -516,6 +539,11 @@ def _tail_operands(what, x, we, gamma, beta, wh, patch_size, kernel):
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError(f"{what}: x must be contiguous and 16-byte aligned")
     return (T, C, F) + ops[1:]
+
+
+def _f32(x):
+    """The suffix of the f32 kernels' entries and launch counters for tokens x."""
+    return "_f32" if x.dtype == torch.float32 else ""
 
 
 def _targets(what, y, welem, T, p, device):
@@ -556,9 +584,10 @@ def final_head_predict(x, we, gamma, beta, wh, *, patch_size, impl="auto", tap_l
 def final_head_loss_sums(x, we, gamma, beta, wh, y, welem, *, patch_size, impl="auto",
                          tap_logits=False):
     """K6 wrapper: (sum w*nll, sum w, confusion matrix); operands as
-    ``final_head_loss_plain``.  With ``tap_logits`` a fourth result, the logits (T, p,
-    F) rounded to x's dtype that the cross entropy took (a probe's output: on the card
-    the kernel writes them beside its sums)."""
+    ``final_head_loss_plain``; x bf16 or f32 (the f32 kernel, counted as
+    "final_head_loss_f32").  With ``tap_logits`` a fourth result, the logits (T, p, F)
+    rounded to x's dtype that the cross entropy took (a probe's output: on the card the
+    kernel writes them beside its sums)."""
     if not use_kernel(x, impl):
         out = final_head_loss_plain(x, we, gamma, beta, wh, y, welem, patch_size=patch_size)
         if tap_logits:
@@ -571,25 +600,26 @@ def final_head_loss_sums(x, we, gamma, beta, wh, y, welem, *, patch_size, impl="
     p = patch_size
     y, welem = _targets(what, y, welem, T, p, x.device)
     lib = _build.lib()
+    sfx = _f32(x)
     red = torch.empty(2 + F * F, dtype=torch.float32, device=x.device)
-    work = torch.empty(lib.hs_final_head_loss_workspace(T, C, F, p), dtype=torch.uint8,
-                       device=x.device)
+    work = torch.empty(getattr(lib, f"hs_final_head_loss{sfx}_workspace")(T, C, F, p),
+                       dtype=torch.uint8, device=x.device)
     tap = torch.empty((T, p, F), dtype=x.dtype, device=x.device) if tap_logits else None
-    code = lib.hs_final_head_loss(x.data_ptr(), we_s.data_ptr(), g.data_ptr(), b.data_ptr(),
-                                  whb.data_ptr(), y.data_ptr(), welem.data_ptr(),
-                                  red.data_ptr(), work.data_ptr(),
-                                  None if tap is None else tap.data_ptr(), T, C, F, p, LN_EPS,
-                                  stream(x))
-    check(code, what)
-    _count(what, T, C)
+    code = getattr(lib, f"hs_final_head_loss{sfx}")(
+        x.data_ptr(), we_s.data_ptr(), g.data_ptr(), b.data_ptr(), whb.data_ptr(),
+        y.data_ptr(), welem.data_ptr(), red.data_ptr(), work.data_ptr(),
+        None if tap is None else tap.data_ptr(), T, C, F, p, LN_EPS, stream(x))
+    check(code, what + sfx)
+    _count(what + sfx, T, C)
     out = (red[0], red[1], red[2:].reshape(F, F))
     return out + (tap,) if tap_logits else out
 
 
 def final_head_loss_bwd(x, we, gamma, beta, wh, y, welem, scale, *, patch_size, impl="auto"):
     """K7 wrapper: the backward of K6, one entry that launches its sequence (the row
-    kernel, ``reduce_rows`` over its partial rows, ``gemm_tn`` for dWe); operands and
-    results as ``final_head_loss_bwd_plain``."""
+    kernel, ``reduce_rows`` over its partial rows, ``gemm_tn`` for dWe; for f32 x the
+    f32 row kernel and ``gemm_tn_f32``, counted as "final_head_loss_bwd_f32"); operands
+    and results as ``final_head_loss_bwd_plain``."""
     if not use_kernel(x, impl):
         return final_head_loss_bwd_plain(x, we, gamma, beta, wh, y, welem, scale,
                                          patch_size=patch_size)
@@ -600,18 +630,19 @@ def final_head_loss_bwd(x, we, gamma, beta, wh, y, welem, scale, *, patch_size, 
     y, welem = _targets(what, y, welem, T, p, x.device)
     scale = scale.to(device=x.device, dtype=torch.float32).reshape(1).contiguous()
     lib = _build.lib()
+    sfx = _f32(x)
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     dwe = torch.empty((C, p * C), **f32)
     red = torch.empty(C * F + 2 * C, **f32)
-    work = torch.empty(lib.hs_final_head_loss_bwd_workspace(T, C, F, p), dtype=torch.uint8,
-                       device=x.device)
-    code = lib.hs_final_head_loss_bwd(
+    work = torch.empty(getattr(lib, f"hs_final_head_loss_bwd{sfx}_workspace")(T, C, F, p),
+                       dtype=torch.uint8, device=x.device)
+    code = getattr(lib, f"hs_final_head_loss_bwd{sfx}")(
         x.data_ptr(), we_s.data_ptr(), g.data_ptr(), b.data_ptr(), whb.data_ptr(),
         y.data_ptr(), welem.data_ptr(), scale.data_ptr(), dx.data_ptr(), dwe.data_ptr(),
         red.data_ptr(), work.data_ptr(), T, C, F, p, LN_EPS, stream(x))
-    check(code, what)
-    _count(what, T, C)
+    check(code, what + sfx)
+    _count(what + sfx, T, C)
     dwh, dg, db = red.split([C * F, C, C])
     return dx, dwe, dg, db, dwh.reshape(C, F)
 
@@ -636,14 +667,15 @@ def final_head_loss_bwd_rows(x, we, gamma, beta, wh, y, welem, scale, *, patch_s
     y, welem = _targets(what, y, welem, T, p, x.device)
     scale = scale.to(device=x.device, dtype=torch.float32).reshape(1).contiguous()
     lib = _build.lib()
-    grid = lib.hs_final_head_loss_bwd_grid(T, C, F, p)
+    sfx = _f32(x)
+    grid = getattr(lib, f"hs_final_head_loss_bwd{sfx}_grid")(T, C, F, p)
     if grid < 1:
         raise RuntimeError(f"{what}: no grid for T={T}, C={C}, F={F}, p={p}")
     dx = torch.empty_like(x)
     dh = torch.empty((T, p * C), dtype=x.dtype, device=x.device)
     part = torch.empty((grid, C * F + 2 * C), dtype=torch.float32, device=x.device)
     tap = torch.empty((T, p, F), dtype=x.dtype, device=x.device) if tap_logits else None
-    code = lib.hs_final_head_loss_bwd_rows(
+    code = getattr(lib, f"hs_final_head_loss_bwd{sfx}_rows")(
         x.data_ptr(), we_s.data_ptr(), g.data_ptr(), b.data_ptr(), whb.data_ptr(),
         y.data_ptr(), welem.data_ptr(), scale.data_ptr(), dx.data_ptr(), dh.data_ptr(),
         part.data_ptr(), None if tap is None else tap.data_ptr(), T, C, F, p, LN_EPS,
@@ -653,24 +685,27 @@ def final_head_loss_bwd_rows(x, we, gamma, beta, wh, y, welem, scale, *, patch_s
 
 
 def final_head_loss_dwe(x, dh, *, impl="auto"):
-    """The dWe step of K7's and K9's sequences alone, ``gemm_tn``: dWe = x^T dh (C, p*C)
-    f32; operands as ``final_head_loss_dwe_plain`` (not counted)."""
+    """The dWe step of K7's and K9's sequences alone, ``gemm_tn`` (``gemm_tn_f32`` for f32
+    x and dh): dWe = x^T dh (C, p*C) f32; operands as ``final_head_loss_dwe_plain`` (not
+    counted)."""
     if not use_kernel(x, impl):
         return final_head_loss_dwe_plain(x, dh)
     what = "final_head_loss_dwe"
     T, C = x.shape
     N = dh.shape[1]
-    if (x.dtype != torch.bfloat16 or dh.dtype != torch.bfloat16 or dh.shape[0] != T
-            or T % KERNEL_ROWS or C % 16 or N % 16 or not dh.is_cuda):
-        raise ValueError(f"{what}: the kernel takes bf16 x (T, C) and dh (T, N), T % 64, "
-                         f"C % 16, N % 16, on one device; got {tuple(x.shape)} "
-                         f"{tuple(dh.shape)}")
+    if (x.dtype not in (torch.bfloat16, torch.float32) or dh.dtype != x.dtype
+            or dh.shape[0] != T or T % KERNEL_ROWS or C % 16 or N % 16 or not dh.is_cuda):
+        raise ValueError(f"{what}: the kernel takes bf16 or f32 x (T, C) and dh (T, N) of "
+                         f"one dtype, T % 64, C % 16, N % 16, on one device; got "
+                         f"{tuple(x.shape)} {x.dtype} {tuple(dh.shape)} {dh.dtype}")
     lib = _build.lib()
+    sfx = _f32(x)
     x, dh = x.contiguous(), dh.contiguous()
     out = torch.empty((C, N), dtype=torch.float32, device=x.device)
-    work = torch.empty(lib.hs_gemm_tn_workspace(T, C, N), dtype=torch.uint8, device=x.device)
-    check(lib.hs_gemm_tn(x.data_ptr(), dh.data_ptr(), out.data_ptr(), work.data_ptr(), T, C,
-                         N, stream(x)), what)
+    work = torch.empty(getattr(lib, f"hs_gemm_tn{sfx}_workspace")(T, C, N), dtype=torch.uint8,
+                       device=x.device)
+    check(getattr(lib, f"hs_gemm_tn{sfx}")(x.data_ptr(), dh.data_ptr(), out.data_ptr(),
+                                           work.data_ptr(), T, C, N, stream(x)), what)
     return out
 
 

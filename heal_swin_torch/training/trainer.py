@@ -9,16 +9,17 @@ import torch
 
 
 def step_generator(seed: int, step: int, device) -> torch.Generator:
-    """The DropPath generator of training step ``step``: on ``device``, seeded from
-    the run's seed and the step index (the JAX trainer folds the step index into its
-    host key), so a step is reproducible from the seed alone."""
+    """The dropout generator of training step ``step``, the only source of its masks
+    (DropPath, element and attention dropout, drawn in the order the modules run): on
+    ``device``, seeded from the run's seed and the step index (the JAX trainer folds the
+    step index into its host key), so a step is reproducible from the seed alone."""
     return torch.Generator(device=device).manual_seed(
         (int(seed) * 1_000_003 + int(step)) % (2 ** 63))
 
 
 def train_step(task, optimizer: torch.optim.Optimizer, mstate, imgs, targets,
                generator: torch.Generator):
-    """One optimizer step of ``task`` on a batch: forward in training mode (DropPath
+    """One optimizer step of ``task`` on a batch: forward in training mode (dropout
     masks from ``generator``), loss, backward, ``optimizer.step()``, and the metric
     update.  Returns (the loss, detached, and the updated metric state)."""
     task.model.train()

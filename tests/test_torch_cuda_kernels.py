@@ -533,9 +533,11 @@ def test_kernels_refuse_what_they_do_not_take(dev):
 
 
 def test_auto_refuses_what_the_kernels_do_not_take(dev):
-    """Under "auto" a CUDA tensor that the kernels were not written for (float32, the
-    window 16) raises with no launch, naming impl="xla", which runs the plain version:
-    no launch, and bit for bit the plain version's result."""
+    """Under "auto" a CUDA tensor that the kernels were not written for (float32 where
+    the kernel has no f32 variant -- K3, K8 and the attention kernels --, the window 16)
+    raises with no launch, naming impl="xla", which runs the plain version: no launch,
+    and bit for bit the plain version's result.  (K6 and K7 take float32 since their f32
+    kernels: ``test_final_head_loss_f32_kernels``.)"""
     gen = torch.Generator().manual_seed(12)
     C, T, h = 64, 64 * 4, 2
     x = _randn(gen, dev, T, C)
@@ -544,6 +546,7 @@ def test_auto_refuses_what_the_kernels_do_not_take(dev):
     bias16 = _randn(gen, dev, h, 16, 16)
     ls = torch.exp(_randn(gen, dev, h, std=0.5) + 2.3)
     tail = _loss_args(gen, dev, T, C, 10)
+    depth_t = torch.randn(T, 4, generator=gen).to(dev)
     cases = [
         (wa.window_attention_qkv_fwd, wa.window_attention_qkv_plain,
          (x, wq, bq, None, None, None),
@@ -561,8 +564,8 @@ def test_auto_refuses_what_the_kernels_do_not_take(dev):
          dict(ws=16, num_heads=h, sm_scale=0.2)),
         (fh.final_head_predict, fh.final_head_predict_plain, (tail[0].float(),) + tail[1:5],
          dict(patch_size=4)),
-        (fh.final_head_loss_sums, fh.final_head_loss_plain, (tail[0].float(),) + tail[1:],
-         dict(patch_size=4)),
+        (fh.final_head_depth_loss_sums, fh.final_head_depth_loss_plain,
+         (tail[0].float(),) + tail[1:5] + (depth_t,), dict(patch_size=4, loss_kind="l2")),
     ]
     for fn, plain, args, kw in cases:
         before = (dict(wa.launches), dict(fh.launches))
@@ -1483,3 +1486,156 @@ def test_mlp_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="dscale"):
         tm.mlp_block_fwd(*args, torch.ones(128, 1, dtype=torch.bfloat16, device=dev),
                          approximate=True)
+
+
+# --- the f32 K6 / K7 (csrc/final_head_f32.cu): nothing rounded below f32, held to the
+# plain versions run in f32 with TF32 off: sums within 1e-5 relative, every gradient and
+# each step of K7 within relative L2 1e-5, the confusion matrix equal outside near-ties
+F32_TOL = 1e-5
+
+
+@pytest.fixture
+def no_tf32():
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = was
+
+
+def _loss_args_f32(gen, dev, T, C, F, p=4):
+    return (_randn(gen, dev, T, C),) + _loss_args(gen, dev, T, C, F, p)[1:]
+
+
+def _f32_near_ties(args, p=4):
+    """Sub-rows whose top-2 f32 logits lie within 1e-5 of the larger one's magnitude
+    (at least 1e-5): the plain and kernel sums in another order may swap them."""
+    lf = fh.final_head_logits_plain(*args[:5], patch_size=p)
+    top2 = lf.topk(2, dim=-1).values
+    return (top2[..., 0] - top2[..., 1]) <= 1e-5 * top2[..., 0].abs().clamp_min(1.0)
+
+
+def _check_f32_loss(args, p, scale):
+    num, den, cm = fh.final_head_loss_sums(*args, patch_size=p)
+    wnum, wden, wcm = fh.final_head_loss_plain(*args, patch_size=p)
+    assert abs(float(num) - float(wnum)) <= F32_TOL * abs(float(wnum))
+    assert abs(float(den) - float(wden)) <= F32_TOL * abs(float(wden))
+    T = args[0].shape[0]
+    assert float(cm.sum()) == T * p
+    assert float((cm - wcm).abs().sum()) <= 2 * int(_f32_near_ties(args, p).sum())
+    got = fh.final_head_loss_bwd(*args, scale, patch_size=p)
+    assert all(g.dtype == torch.float32 for g in got)
+    _assert_grads_close(got, fh.final_head_loss_bwd_plain(*args, scale, patch_size=p),
+                        tol=F32_TOL)
+    again = fh.final_head_loss_bwd(*args, scale, patch_size=p)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
+@pytest.mark.parametrize("C,F", [(32, 8), (64, 16), (96, 8), (96, 5), (128, 12), (128, 16)])
+def test_final_head_loss_f32_kernels(dev, no_tf32, C, F):
+    """The f32 K6 and K7 at each instantiation (C 32-128, heads of 8 and 16 columns) on a
+    T whose last 128-row tile is half full, against their plain versions; counted as
+    the f32 kernels; a NaN token counts in no cell."""
+    gen = torch.Generator().manual_seed(40 + C + F)
+    T, p = 64 * 65, 4
+    args = _loss_args_f32(gen, dev, T, C, F, p)
+    before = dict(fh.launches)
+    _check_f32_loss(args, p, torch.tensor(1.3, device=dev) / args[6].sum())
+    torch.cuda.synchronize()
+    assert fh.launches["final_head_loss_f32"] == before["final_head_loss_f32"] + 1
+    assert fh.launches["final_head_loss_bwd_f32"] == before["final_head_loss_bwd_f32"] + 2
+    assert fh.launches["final_head_loss"] == before["final_head_loss"]
+    nan_args = (args[0].clone(),) + args[1:]
+    nan_args[0][5] = float("nan")
+    _, _, cm_nan = fh.final_head_loss_sums(*nan_args, patch_size=p)
+    assert float(cm_nan.sum()) == T * p - p
+
+
+def test_final_head_loss_f32_kernels_at_the_paper_tail(dev, no_tf32):
+    """The f32 K6 and K7 at the paper config's tail: T 262,144, C 96, p 4, F 8."""
+    gen = torch.Generator().manual_seed(41)
+    args = _loss_args_f32(gen, dev, 262144, 96, 8)
+    _check_f32_loss(args, 4, torch.tensor(1.0, device=dev) / args[6].sum())
+
+
+@pytest.mark.parametrize("T,C,F", [(64 * 65, 96, 8), (64 * 33, 32, 16), (262144, 96, 8)])
+def test_final_head_loss_f32_bwd_sequence_kernels(dev, no_tf32, T, C, F):
+    """Each step of the f32 K7's launch sequence against its plain twin, run in f32: the
+    row kernel (dx, dh, the partial rows on its grid: the bf16 kernels' partition of
+    128-row tiles), ``gemm_tn_f32`` (dWe = x^T dh) and ``reduce_rows``, each on the
+    kernel's own input; and K7 is the three steps composed, bit for bit."""
+    gen = torch.Generator().manual_seed(T + C + F + 1)
+    p = 4
+    args = _loss_args_f32(gen, dev, T, C, F, p)
+    scale = torch.tensor(1.3, device=dev) / args[6].sum()
+    dx, dh, part = fh.final_head_loss_bwd_rows(*args, scale, patch_size=p)
+    assert dx.dtype == dh.dtype == torch.float32
+    grid = part.shape[0]
+    assert 1 <= grid <= -(-T // fh.TAIL_TILE_ROWS)
+    _assert_grads_close((dx, dh, part), fh.final_head_loss_bwd_rows_plain(
+        *args, scale, patch_size=p, grid=grid), tol=F32_TOL)
+    dwe = fh.final_head_loss_dwe(args[0], dh)
+    _assert_grads_close((dwe,), (fh.final_head_loss_dwe_plain(args[0], dh),), tol=F32_TOL)
+    red = fh.reduce_rows(part)
+    _assert_grads_close((red,), (fh.reduce_rows_plain(part),), tol=F32_TOL)
+    dwh, dg, db = red.split([C * F, C, C])
+    whole = fh.final_head_loss_bwd(*args, scale, patch_size=p)
+    assert all(torch.equal(a, b) for a, b in zip(whole, (dx, dwe, dg, db, dwh.reshape(C, F))))
+
+
+@pytest.mark.parametrize("T,C,F", [(64 * 65, 32, 16), (64 * 65, 96, 8), (262144, 96, 8)])
+def test_final_head_loss_f32_bwd_recomputes_the_forward_logits(dev, no_tf32, T, C, F):
+    """The f32 K7's row kernel recomputes the f32 K6's logits bit for bit (both logits
+    taps, ``torch.equal``); both within 1e-5 of the plain version's."""
+    gen = torch.Generator().manual_seed(T + C + 2)
+    p = 4
+    args = _loss_args_f32(gen, dev, T, C, F, p)
+    lf6 = fh.final_head_loss_sums(*args, patch_size=p, tap_logits=True)[3]
+    lf7 = fh.final_head_loss_bwd_rows(*args, torch.tensor(1.0, device=dev), patch_size=p,
+                                      tap_logits=True)[3]
+    assert lf6.shape == (T, p, F) and lf6.dtype == torch.float32
+    assert torch.equal(lf6, lf7)
+    assert _rel_l2(lf6, fh.final_head_logits_plain(*args[:5], patch_size=p)) < F32_TOL
+
+
+def test_final_head_loss_f32_function_backward_through_kernels(dev):
+    """``final_head_loss`` on f32 tokens: the f32 K6 forward, the f32 K7 backward, every
+    gradient f32."""
+    gen = torch.Generator().manual_seed(42)
+    args = list(_loss_args_f32(gen, dev, 64 * 16, 96, 8))
+    for i in range(5):
+        args[i] = args[i].clone().requires_grad_()
+    before = dict(fh.launches)
+    loss, cm = fh.final_head_loss(*args, patch_size=4)
+    loss.backward()
+    torch.cuda.synchronize()
+    assert fh.launches["final_head_loss_f32"] == before["final_head_loss_f32"] + 1
+    assert fh.launches["final_head_loss_bwd_f32"] == before["final_head_loss_bwd_f32"] + 1
+    assert loss.dtype == torch.float32 and float(cm.sum()) == 64 * 16 * 4
+    for t in args[:5]:
+        assert t.grad is not None and t.grad.dtype == torch.float32
+
+
+def test_f32_tails_without_a_kernel_refuse(dev):
+    """Float32 tokens on the tail kernels without an f32 variant -- K3 (predict), K8 and
+    K9 (depth loss) -- raise under "auto" and "pallas" with no launch, naming the kernel
+    and impl="xla"; the f32 K6/K7 refuse heads wider than 16 columns."""
+    gen = torch.Generator().manual_seed(43)
+    one = torch.ones((), device=dev)
+    args = _loss_args_f32(gen, dev, 128, 96, 8)
+    t = torch.randn(128, 4, generator=gen).to(dev)
+    wide = _loss_args_f32(gen, dev, 128, 96, 17)
+    before = dict(fh.launches)
+    for impl in ("auto", "pallas"):
+        with pytest.raises(ValueError, match=r"\(K3\).*bfloat16.*impl='xla'"):
+            fh.final_head_predict(*args[:5], patch_size=4, impl=impl)
+        with pytest.raises(ValueError, match=r"\(K8\).*bfloat16.*impl='xla'"):
+            fh.final_head_depth_loss_sums(*args[:4], args[4][:, :1], t, patch_size=4,
+                                          loss_kind="l2", impl=impl)
+        with pytest.raises(ValueError, match=r"\(K9\).*bfloat16.*impl='xla'"):
+            fh.final_head_depth_loss_bwd(*args[:4], args[4][:, :2], t, one, patch_size=4,
+                                         loss_kind="nll", impl=impl)
+        with pytest.raises(ValueError, match=r"\(K6\).*F <= 16.*impl='xla'"):
+            fh.final_head_loss_sums(*wide, patch_size=4, impl=impl)
+        with pytest.raises(ValueError, match=r"\(K7\).*F <= 16.*impl='xla'"):
+            fh.final_head_loss_bwd(*wide, one, patch_size=4, impl=impl)
+    assert dict(fh.launches) == before

@@ -232,15 +232,15 @@ def test_mlp_module_fused_matches_jax(approximate, dtype, monkeypatch):
 def test_mlp_gate_takes_the_plain_route(monkeypatch):
     """``mlp_impl="fused"`` takes ``fused_mlp_nd`` only where the JAX gate would:
     dropout inactive, out_features == C, and a shape the kernel takes.  Dropout active
-    (training, drop > 0), which sends the JAX module to its plain route, raises here
-    before any route (element dropout is not ported)."""
+    (training, drop > 0) sends it to the plain route, as it does the JAX module; there
+    without a generator it raises before any route."""
     calls = []
     monkeypatch.setattr(tm, "fused_mlp_nd", functools.partial(_spy, calls))
     x = torch.randn(2, 64, 32)
 
-    def routed(mod, inp=x):
+    def routed(mod, inp=x, generator=None):
         calls.clear()
-        mod(inp)
+        mod(inp, generator)
         return bool(calls)
 
     assert routed(tl.Mlp(32, 128, 32, mlp_impl="fused"))
@@ -249,7 +249,9 @@ def test_mlp_gate_takes_the_plain_route(monkeypatch):
     assert not routed(tl.Mlp(32, 128, 32, mlp_impl="fused"), torch.randn(2, 7, 32))  # T
     assert not routed(tl.Mlp(48, 192, 48, mlp_impl="fused"), torch.randn(2, 64, 48))  # C
     assert routed(tl.Mlp(32, 128, 32, drop=0.1, mlp_impl="fused").eval())  # inactive
-    with pytest.raises(NotImplementedError, match="element dropout"):
+    assert not routed(tl.Mlp(32, 128, 32, drop=0.1, mlp_impl="fused").train(),
+                      generator=torch.Generator().manual_seed(0))  # active: plain
+    with pytest.raises(ValueError, match="Dropout in training needs"):
         routed(tl.Mlp(32, 128, 32, drop=0.1, mlp_impl="fused").train())
     assert not calls
     with pytest.raises(ValueError, match="mlp_impl"):
@@ -275,13 +277,13 @@ def test_mlp_gate_refuses_a_dtype_the_kernel_does_not_take_at_the_call(monkeypat
 
 def test_element_dropout_in_training_raises():
     """``Mlp`` and ``WindowAttention``'s proj dropout, usable on their own, raise in
-    training with a rate above 0 instead of drawing from the global RNG; at eval (or
-    at rate 0) they run, and the global RNG is left as it was."""
+    training with a rate above 0 and no generator instead of drawing from the global
+    RNG; at eval (or at rate 0) they run, and the global RNG is left as it was."""
     x = torch.randn(2, 4, 16, 32)
     mlp = tl.Mlp(32, 128, 32, drop=0.1)
     attn = tl.WindowAttention(32, 2, proj_drop=0.1, use_cos_attn=True)
     for mod in (mlp, attn):
-        with pytest.raises(NotImplementedError, match="element dropout"):
+        with pytest.raises(ValueError, match="Dropout in training needs"):
             mod.train()(x)
         state = torch.get_rng_state()
         a, b = mod.eval()(x), mod(x)

@@ -28,7 +28,8 @@ def test_port_and_chip_smoke_import_without_the_jax_package():
     """Every module of the port, and chip_smoke.py, imports with jax and heal_swin_tpu
     blocked."""
     mods = _port_modules()
-    assert {"heal_swin_torch.ops.chamfer_pruned", "heal_swin_torch.ops.mlp"} <= set(mods)
+    assert {"heal_swin_torch.ops.chamfer_pruned", "heal_swin_torch.ops.mlp",
+            "heal_swin_torch.run_configs"} <= set(mods)
     assert len(mods) >= 26
     code = ("import sys\n"
             "for name in ('jax', 'flax', 'heal_swin_tpu'):\n"

@@ -177,12 +177,13 @@ def test_attention_kernels_take():
 
 def test_final_head_kernels_take():
     """The dtype and shapes the segmentation tail's kernels take, the train pair and K3
-    alike: bf16, C in 32, 64, 96, 128, F <= 32, T % 64; the shared-memory limit is read
-    from the library at the call (``tests/test_torch_cuda_kernels.py``)."""
+    alike: bf16, C in 32, 64, 96, 128, F <= 32, T % 64; the train pair also f32 (F <=
+    16), K3 not; the shared-memory limit is read from the library at the call
+    (``tests/test_torch_cuda_kernels.py``)."""
     bf, f32 = torch.bfloat16, torch.float32
     assert fh.kernels_take(262144, 96, 10, bf)
     assert fh.kernels_take(262144, 96, 10, bf, train=False)
-    assert not fh.kernels_take(262144, 96, 10, f32)
+    assert fh.kernels_take(262144, 96, 10, f32)
     assert not fh.kernels_take(262144, 96, 10, f32, train=False)
     assert not fh.kernels_take(262144, 96, 40, bf)  # F > 32
     assert not fh.kernels_take(262144, 8, 10, bf)  # C % 16
