@@ -22,9 +22,14 @@ segmentation config's own train step (``heal_swin_torch.run_configs``: float32, 
 and attention dropout 0.1, DropPath 0.1, 8 classes, Adam at the paper rate; nside 256,
 batch 2): the f32 K6/K7 against their plain versions at its tail, then its train step
 through both paths on the same dropout masks (attention dropout sends every block to
-the plain XLA route, so the f32 K6/K7 are its only kernels); and last the kernels'
-refusal: small models the kernels do not take (float32 without dropout, window 16)
-raise under "auto" with no launch, and run the plain versions under "xla".
+the plain XLA route, so the f32 K6/K7 are its only kernels); then the depth paper
+config's own train step (``paper_depth_config``: the same network in float32 with one
+output channel, the masked l2 loss on standardized depths, Adam at 0.005): the f32 K8/K9
+against their plain versions at its tail for every loss kind and head, then its train
+step through both paths on the same dropout masks (the f32 K8/K9 its only kernels); and
+last the kernels' refusal: small models the kernels do not take (float32 without
+dropout, window 16), K3 on float32 tokens and an f32 depth tail at C 48 raise under
+"auto" with no launch, and run the plain versions under "xla".
 
     python3 chip_smoke.py            # needs one CUDA GPU; exits non-zero otherwise
 
@@ -39,10 +44,10 @@ after; each kernel's ``launches`` in the results line comes from the run that us
 (the segmentation train step for K1, K4, K6, K7; segmentation predict for K3; the
 depth train step for K8, K9; the writer for K10, K11; the MLP phase for K12-K15, which
 no configuration's train step or predict launches; the scaled-dot train step for K2,
-K5, K16, K17; the paper config's f32 train step for the f32 K6 and K7, whose
-``bound_ms`` takes the 3xTF32 rate, a third of the TF32 peak, and which add
-``device_ms``, a traced call's device time, and ``route_ms``, the composed PyTorch
-route in f32).  For K1-K9 and K12-K15 ``ms`` / ``plain_ms`` / ``bound_ms`` are sums, over
+K5, K16, K17; the paper config's f32 train step for the f32 K6 and K7, and the depth
+paper config's for the f32 K8 and K9, whose ``bound_ms`` takes the 3xTF32 rate, a third
+of the TF32 peak, and which add ``device_ms``, a traced call's device time, and
+``route_ms``, the composed PyTorch route in f32).  For K1-K9 and K12-K15 ``ms`` / ``plain_ms`` / ``bound_ms`` are sums, over
 the shapes that run launched the kernel at, of one call's median time (its plain
 version's; the least time the card could take, from the shapes) times the number of
 such launches; K12-K15 add ``route_ms``, the port's composed cuBLAS / ATen route, and
@@ -521,26 +526,26 @@ def check_tail_steps(name, largs, p, fh, scale):
     return grid
 
 
-def depth_targets(gen, T, p, dev):
-    """(T, p) f32 network-space targets, BACKGROUND of them inf."""
-    t = torch.randn(T, p, generator=gen)
+def depth_targets(gen, T, p, dev, mean=0.0):
+    """(T, p) f32 network-space targets N(mean, 1), BACKGROUND of them inf."""
+    t = torch.randn(T, p, generator=gen) + mean
     bg = torch.rand(T, p, generator=gen) < BACKGROUND
     return torch.where(bg, float("inf"), t).to(dev)
 
 
-def depth_route(dargs, p):
+def depth_route(dargs, p, dtype=torch.bfloat16):
     """The composed PyTorch route for K8's and K9's function with the depth train step's
-    loss (masked l2, one channel) on their operands: bf16 ``F.linear`` for the expand,
-    ``F.layer_norm`` on the bf16 sub-rows, ``F.linear`` for the head, the masked l2 loss
-    by ``torch.where`` in f32 over the count of valid targets.  Returns (forward,
-    backward): forward() gives (loss, predictions (T, p F)), backward() the autograd
-    gradients of x, We, gamma, beta and Wh for a loss gradient of 1."""
+    loss (masked l2, one channel) on their operands, in ``dtype`` (bf16, or f32 for the
+    f32 kernels): ``F.linear`` for the expand, ``F.layer_norm`` on the sub-rows,
+    ``F.linear`` for the head, the masked l2 loss by ``torch.where`` in f32 over the
+    count of valid targets.  Returns (forward, backward): forward() gives (loss,
+    predictions (T, p F)), backward() the autograd gradients of x, We, gamma, beta and
+    Wh for a loss gradient of 1."""
     import torch.nn.functional as tF
 
     x, we, g, b, wh, t = dargs
     T, C = x.shape
-    bf16 = torch.bfloat16
-    leaves = [a.detach().to(bf16).contiguous().requires_grad_()
+    leaves = [a.detach().to(dtype).contiguous().requires_grad_()
               for a in (x, we.t(), g, b, wh.t())]
     tl = t.reshape(-1).float()
     valid = torch.isfinite(tl)
@@ -563,19 +568,20 @@ def depth_route(dargs, p):
     return forward, lambda: torch.autograd.grad(loss, leaves, retain_graph=True)
 
 
-def check_depth_steps(name, dargs, p, kind, fh, scale):
+def check_depth_steps(name, dargs, p, kind, fh, scale, tol=REL_L2_TOL):
     """Each step of K9's launch sequence against its plain twin on the step's own input:
-    the row kernel (dx, dh, the partial rows on its grid) within REL_L2_TOL, ``gemm_tn``
-    (dWe = x^T dh) and ``reduce_rows`` within 1e-5 (f32 sums of the same bf16 and f32
-    operands in another order); and K9 is the three steps composed, bit for bit.
-    Returns the row kernel's grid."""
+    the row kernel (dx, dh, the partial rows on its grid) within ``tol`` (REL_L2_TOL;
+    F32_TAIL_TOL for the f32 K9), ``gemm_tn`` (dWe = x^T dh; ``gemm_tn_f32`` for the f32
+    K9) and ``reduce_rows`` within 1e-5 (f32 sums of the same operands in another
+    order); and K9 is the three steps composed, bit for bit.  Returns the row kernel's
+    grid."""
     x, C, F = dargs[0], dargs[0].shape[1], dargs[4].shape[1]
     kw = dict(patch_size=p, loss_kind=kind, huber_delta=HUBER_DELTA)
     dx, dh, part = fh.final_head_depth_loss_bwd_rows(*dargs, scale, **kw, impl="pallas")
     grid = part.shape[0]
     err, _ = check_grads(f"{name} row step", ("dx", "dh", "partial rows"), (dx, dh, part),
                          fh.final_head_depth_loss_bwd_rows_plain(*dargs, scale, **kw,
-                                                                 grid=grid))
+                                                                 grid=grid), tol)
     dwe = fh.final_head_loss_dwe(x, dh, impl="pallas")
     e_dwe, _ = check_close(f"{name} dWe step", dwe, fh.final_head_loss_dwe_plain(x, dh), 1e-5)
     red = fh.reduce_rows(part, impl="pallas")
@@ -593,11 +599,16 @@ def check_depth_kernels(name, dargs, p, kind, fh, timing=True):
     """K8 (loss sums, predictions) and K9 (every gradient, for a loss gradient of 1)
     against their plain versions on ``dargs`` = (x, we, gamma, beta, wh, t).  The count
     of valid targets exact, the loss sum within LOSS_REL_TOL relative, the bf16
-    predictions and the gradients within REL_L2_TOL.  Returns the timings, keyed like
-    the launch counters, when ``timing``."""
+    predictions and the gradients within REL_L2_TOL; for f32 x (the f32 K8/K9) the loss
+    sum, the f32 predictions and the gradients within F32_TAIL_TOL.  Returns the
+    timings, keyed like the launch counters, when ``timing``; in f32 with each kernel's
+    device time by kernel and the f32 route."""
     x, wh = dargs[0], dargs[4]
     T, C = x.shape
     F = wh.shape[-1]
+    f32 = x.dtype == torch.float32
+    sfx = "_f32" if f32 else ""
+    loss_tol, tol = (F32_TAIL_TOL, F32_TAIL_TOL) if f32 else (LOSS_REL_TOL, REL_L2_TOL)
     kw = dict(patch_size=p, loss_kind=kind, huber_delta=HUBER_DELTA)
     label = f"{name} {kind} F={F}"
     with torch.no_grad():
@@ -606,24 +617,24 @@ def check_depth_kernels(name, dargs, p, kind, fh, timing=True):
         if float(den) != float(wden) or float(den) != float(torch.isfinite(dargs[5]).sum()):
             raise AssertionError(f"{label}: count {float(den)} vs plain {float(wden)}")
         loss_rel = abs(float(num) - float(wnum)) / abs(float(wnum))
-        if not loss_rel <= LOSS_REL_TOL:
+        if not loss_rel <= loss_tol:
             raise AssertionError(f"{label}: loss sum {float(num)} vs plain {float(wnum)}")
         if preds.dtype != x.dtype or tuple(preds.shape) != (T, p * F):
             raise AssertionError(f"{label}: predictions {tuple(preds.shape)} {preds.dtype}")
-        perr, pmae = check_close(f"{label} predictions", preds, wpreds)
+        perr, pmae = check_close(f"{label} predictions", preds, wpreds, tol)
         scale = torch.ones((), device=x.device) / torch.clamp_min(wden, 1.0)
         got = fh.final_head_depth_loss_bwd(*dargs, scale, **kw, impl="pallas")
         want = fh.final_head_depth_loss_bwd_plain(*dargs, scale, **kw)
-        gerr, gmae = check_grads(label, K7_GRADS, got, want)
+        gerr, gmae = check_grads(label, K7_GRADS, got, want, tol)
         if F == 2 and kind != "nll" and float(got[4][:, 1].abs().max()) != 0.0:
             raise AssertionError(f"{label}: the logvar channel got a gradient")
-    log(f"{label} final_head_depth_loss T={T} C={C}: loss sum {float(num):.6f} plain "
+    log(f"{label} final_head_depth_loss{sfx} T={T} C={C}: loss sum {float(num):.6f} plain "
         f"{float(wnum):.6f} (rel {loss_rel:.2e}), count {int(den)}; predictions rel_l2 "
         f"{perr:.3e} max_abs {pmae:.3e}; backward rel_l2 <= {gerr:.3e} max_abs {gmae:.3e}")
     if not timing:
         return {}
     with torch.no_grad():
-        check_depth_steps(label, dargs, p, kind, fh, scale)
+        check_depth_steps(label, dargs, p, kind, fh, scale, tol)
         ms8 = median_ms(lambda: fh.final_head_depth_loss_sums(*dargs, **kw, impl="pallas"))
         pms8 = median_ms(lambda: fh.final_head_depth_loss_plain(*dargs, **kw))
         ms9 = median_ms(lambda: fh.final_head_depth_loss_bwd(*dargs, scale, **kw,
@@ -631,23 +642,37 @@ def check_depth_kernels(name, dargs, p, kind, fh, timing=True):
         pms9 = median_ms(lambda: fh.final_head_depth_loss_bwd_plain(*dargs, scale, **kw))
         per, _ = trace(lambda: fh.final_head_depth_loss_bwd(*dargs, scale, **kw,
                                                             impl="pallas"), SEQUENCE_TRACED)
+        if f32:
+            by8, dev8 = device_ms(lambda: fh.final_head_depth_loss_sums(*dargs, **kw,
+                                                                        impl="pallas"))
     if (kind, F) != ("l2", 1):
         raise ValueError(f"the depth route is the l2 loss of one channel, not {kind} F={F}")
-    route_f, route_b = depth_route(dargs, p)
+    route_f, route_b = depth_route(dargs, p, x.dtype)
     rms8, rms9 = median_ms(route_f), median_ms(route_b)
     del route_f, route_b
-    log(f"K8 final_head_depth_loss T={T} C={C} p={p} F={F} {kind}: kernel {ms8:.4f} ms "
-        f"plain {pms8:.4f} ms route {rms8:.4f} ms")
-    log(f"K9 final_head_depth_loss_bwd T={T} C={C} p={p} F={F} {kind}: kernel {ms9:.4f} ms "
-        f"plain {pms9:.4f} ms route {rms9:.4f} ms")
-    # K8's max_abs_err: over its bf16 predictions (its loss sum's relative error apart)
-    return {("final_head_depth_loss", T, C, F, kind): dict(
-                rel_l2=perr, max_abs_err=pmae, loss_sum_rel_err=loss_rel, ms=ms8,
-                plain_ms=pms8, route_ms=rms8),
-            ("final_head_depth_loss_bwd", T, C, F, kind): dict(
-                rel_l2=gerr, max_abs_err=gmae, ms=ms9, plain_ms=pms9, route_ms=rms9),
-            ("depth_sequence", T, C, F, kind): {name: (dev_ms / n, n / SEQUENCE_TRACED)
-                                                for name, (dev_ms, n) in per.items()}}
+    who = "f32 " if f32 else ""
+    fwd = dict(rel_l2=perr, max_abs_err=pmae, loss_sum_rel_err=loss_rel, ms=ms8,
+               plain_ms=pms8, route_ms=rms8)
+    bwd = dict(rel_l2=gerr, max_abs_err=gmae, ms=ms9, plain_ms=pms9, route_ms=rms9)
+    if f32:
+        by9 = {kname: ms / SEQUENCE_TRACED for kname, (ms, _) in per.items()}
+        fwd["device_ms"], bwd["device_ms"] = dev8, sum(by9.values())
+        for k, by in (("f32 K8", by8), ("f32 K9", by9)):
+            for kname, ms in sorted(by.items(), key=lambda kv: -kv[1]):
+                part_of = next((v for n, v in F32_DEPTH_STEPS.items() if n in kname), None)
+                log(f"{k} one call on the device: {ms:9.4f} ms  "
+                    f"{part_of or 'operand copy or other'}: {kname[:90]}")
+    dms = (f" (device {fwd['device_ms']:.4f} ms)", f" (device {bwd['device_ms']:.4f} ms)"
+           ) if f32 else ("", "")
+    log(f"{who}K8 final_head_depth_loss{sfx} T={T} C={C} p={p} F={F} {kind}: kernel "
+        f"{ms8:.4f} ms{dms[0]} plain {pms8:.4f} ms {who}route {rms8:.4f} ms")
+    log(f"{who}K9 final_head_depth_loss_bwd{sfx} T={T} C={C} p={p} F={F} {kind}: kernel "
+        f"{ms9:.4f} ms{dms[1]} plain {pms9:.4f} ms {who}route {rms9:.4f} ms")
+    # K8's max_abs_err: over its predictions (its loss sum's relative error apart)
+    return {(f"final_head_depth_loss{sfx}", T, C, F, kind): fwd,
+            (f"final_head_depth_loss_bwd{sfx}", T, C, F, kind): bwd,
+            (f"depth_sequence{sfx}", T, C, F, kind): {name: (dev_ms / n, n / SEQUENCE_TRACED)
+                                                      for name, (dev_ms, n) in per.items()}}
 
 
 def check_depth_edges(dargs, p, fh):
@@ -1289,7 +1314,8 @@ NO_LAUNCHES = {k: 0 for k in (
     "final_head_loss_bwd", "final_head_depth_loss", "final_head_depth_loss_bwd",
     "chamfer_min_both", "chamfer_fold_pairs", "mlp_fwd", "mlp_bwd", "mlp_block_fwd",
     "mlp_block_bwd", "window_attention_qkv", "window_attention_qkv_bwd",
-    "final_head_loss_f32", "final_head_loss_bwd_f32")}
+    "final_head_loss_f32", "final_head_loss_bwd_f32", "final_head_depth_loss_f32",
+    "final_head_depth_loss_bwd_f32")}
 # the window-attention launches of one pass of the paper model: cosine blocks at
 # C <= 384 run K1 (K4 backward), scaled-dot ones K16 (K17); the C = 768 ones K2 (K5)
 ATTN_LAUNCHES = {True: dict(window_attention_qkv_epi=20, window_attention=2),
@@ -2495,24 +2521,31 @@ PAPER_CLASSES = 8  # the SynWoodScape-large classes of the paper segmentation co
 TF32_PEAK = 494.7e12
 F32_TC_PEAK = TF32_PEAK / 3
 F32_TC_PEAK_NAME = "3xTF32: TF32 494.7 TFLOPS / 3"
-F32_KERNELS = ("final_head_loss_f32", "final_head_loss_bwd_f32")
-# the kernels of an f32 K6 / K7 call, by their names in a trace
+F32_KERNELS = ("final_head_loss_f32", "final_head_loss_bwd_f32", "final_head_depth_loss_f32",
+               "final_head_depth_loss_bwd_f32")
+# the kernels of an f32 K6 / K7 call, and of an f32 K8 / K9 call, by their names in a trace
 F32_TAIL_STEPS = {"tail_loss_f32_kernel": "K6 row kernel", "tail_bwd_f32_kernel": "K7 row kernel",
                   "reduce_rows_kernel": "reduce_rows", "gemm_tn_f32_kernel": "gemm_tn_f32"}
+F32_DEPTH_STEPS = dict(F32_TAIL_STEPS, tail_loss_f32_kernel="K8 row kernel",
+                       tail_bwd_f32_kernel="K9 row kernel")
 
 
 def f32_tail_work(key):
     """(FLOP, bytes) of one call of the f32 K6 or K7 at (name, T, C) with the paper
-    head's F 8 classes, p 4: K6 the expand 2 T p C^2 and the head 2 T p C F; K7 three
-    times each (the forward recomputed; dx and dWe; dz and dWh); f32 tokens, int32
-    targets and f32 weights read once, K7's dx written once, the f32 parameters and, for
-    K7, their gradients."""
+    head's F 8 classes, or of the f32 K8 or K9 at (name, T, C, F, kind), p 4: K6 and K8
+    the expand 2 T p C^2 and the head 2 T p C F; K7 and K9 three times each (the forward
+    recomputed; dx and dWe; dz and dWh); f32 tokens read once, int32 targets and f32
+    weights (K6, K7) or f32 targets (K8, K9) read once, K8's f32 predictions and K7's
+    and K9's dx written once, the f32 parameters and, for K7 and K9, their gradients."""
     name, T, C = key[:3]
-    p, F = TAIL_P, PAPER_CLASSES
+    depth = "depth" in name
+    p, F = TAIL_P, key[3] if depth else PAPER_CLASSES
     weights = (p * C * C + C * F + 2 * C) * 4
-    if name == "final_head_loss_f32":
-        return 2 * T * p * C * C + 2 * T * p * C * F, 4 * T * C + 8 * T * p + weights
-    return 6 * T * p * C * C + 6 * T * p * C * F, 8 * T * C + 8 * T * p + 2 * weights
+    targets = 4 * T * p if depth else 8 * T * p
+    if "bwd" not in name:
+        preds = 4 * T * p * F if depth else 0
+        return 2 * T * p * C * C + 2 * T * p * C * F, 4 * T * C + targets + preds + weights
+    return 6 * T * p * C * C + 6 * T * p * C * F, 8 * T * C + targets + 2 * weights
 
 
 def paper_tail_inputs(gen, dev):
@@ -2628,26 +2661,35 @@ def check_f32_loss_kernels(largs, fh):
                 route_ms=rms7)}
 
 
-def paper_task(impl, dev, state=None):
+def paper_task(impl, dev, state=None, depth=False):
     """The paper segmentation config's task (``heal_swin_torch.run_configs``): f32 compute,
     dropout and attention dropout 0.1, DropPath 0.1, the SynWoodScape-large class
-    weights, Adam at the paper rate, at nside 256; weights from SEED (the rel-pos tables
-    and logit scales perturbed as ``build_task``'s) or ``state``."""
+    weights, Adam at the paper rate, at nside 256; with ``depth`` the paper depth
+    config's task (``paper_depth_config``: the same network with one output channel, the
+    masked l2 loss on standardized depths with background masked, Adam at 0.005).
+    Weights from SEED (the rel-pos tables and logit scales perturbed as
+    ``build_task``'s) or ``state``."""
     from heal_swin_torch.models import tasks as T
     from heal_swin_torch.models.swin_hp import DataSpec
     from heal_swin_torch.run_configs import (PAPER_LR, SYNWOODSCAPE_LARGE_WEIGHTS,
-                                             paper_swin_hp_config)
+                                             paper_depth_config, paper_swin_hp_config)
     from heal_swin_torch.training.optimizer import OptimizerConfig
 
     gen = torch.Generator().manual_seed(SEED)
     npix = 8 * NSIDE * NSIDE
-    task = T.WoodscapeSegmenterSwinHP(
-        T.WoodscapeSegmenterSwinHPConfig(
-            paper_swin_hp_config(attention_impl=impl),
-            optimizer_config=OptimizerConfig(learning_rate=PAPER_LR),
-            class_weights=list(SYNWOODSCAPE_LARGE_WEIGHTS)),
-        DataSpec(dim_in=npix, f_in=3, f_out=PAPER_CLASSES, base_pix=8), device=dev,
-        generator=gen)
+    if depth:
+        cfg = paper_depth_config(attention_impl=impl)
+        task = T.WoodscapeDepthSwinHP(
+            cfg.model, T.DepthDataSpec(dim_in=npix, f_in=3, f_out=1, base_pix=8), cfg.data,
+            device=dev, generator=gen)
+    else:
+        task = T.WoodscapeSegmenterSwinHP(
+            T.WoodscapeSegmenterSwinHPConfig(
+                paper_swin_hp_config(attention_impl=impl),
+                optimizer_config=OptimizerConfig(learning_rate=PAPER_LR),
+                class_weights=list(SYNWOODSCAPE_LARGE_WEIGHTS)),
+            DataSpec(dim_in=npix, f_in=3, f_out=PAPER_CLASSES, base_pix=8), device=dev,
+            generator=gen)
     if state is None:
         with torch.no_grad():
             for name, prm in task.model.named_parameters():
@@ -2665,23 +2707,13 @@ def drive_paper_train(dev, timed):
     batch 2, f32, dropout and attention dropout 0.1, DropPath 0.1, 8 classes, the fused
     tail, Adam at the paper rate), through the kernels ("auto") and through the plain
     path ("xla") on the same weights, batch and step generators.  First the f32 K6/K7
-    against their plain versions at the paper tail (``check_f32_loss_kernels``).  Then
-    step 0 of each path through ``train_step``: every dropout mask the kernel path draws
-    is kept and the plain path's are held to them (``torch.equal``, in draw order), and
-    their kept share to 0.9 within 3 standard deviations; the kernel path launches one
-    f32 K6 and one f32 K7 and no other kernel (attention dropout sends every block to
-    the plain XLA route, the MLP is plain); the two losses agree within PAPER_LOSS_TOL
-    relative and every parameter gradient within relative L2 PAPER_GRAD_TOL.  Then
-    PAPER_STEPS more steps of each path, timed (images/s, peak memory above the
-    resident), the loss falling on both, the metric state, and a trace of a kernel-path
-    step (device time by kernel, idle share).  Returns the kernels' launches in step 0
-    of the kernel path: per kernel, and per operand shape."""
-    from heal_swin_torch.models import layers
+    against their plain versions at the paper tail (``check_f32_loss_kernels``), then
+    the step (``paper_step``): the kernel path launches one f32 K6 and one f32 K7 and no
+    other kernel (attention dropout sends every block to the plain XLA route, the MLP is
+    plain).  Returns the kernels' launches in step 0 of the kernel path: per kernel, and
+    per operand shape."""
     from heal_swin_torch.ops import final_head as fh
-    from heal_swin_torch.training.optimizer import make_optimizer
-    from heal_swin_torch.training.trainer import step_generator, train_step
 
-    label = "paper train"
     timed.update(check_f32_loss_kernels(paper_tail_inputs(
         torch.Generator().manual_seed(SEED + 17), dev), fh))
     torch.cuda.empty_cache()
@@ -2690,6 +2722,110 @@ def drive_paper_train(dev, timed):
     imgs, _ = train_batch(dev)
     targets = torch.clamp(((imgs[..., 0] + 2.5) * PAPER_CLASSES / 5).long(), 0,
                           PAPER_CLASSES - 1).to(torch.int32)
+    return paper_step("paper train", task_k, task_p, imgs, targets,
+                      dict(NO_LAUNCHES, final_head_loss_f32=1, final_head_loss_bwd_f32=1),
+                      timed, ("total", targets.numel()))
+
+
+def paper_depth_tail_inputs(gen, dev):
+    """The depth paper config's tail operands in f32 (T = 262,144 tokens of batch 2 at
+    nside 256, C 96, p 4): (x, we, gamma, beta, wh, t), wh (C, 2) for the heads of one
+    channel (its first column) and of two, t the (T, p) network-space targets with
+    BACKGROUND of them inf.  The targets are N(1, 1) and the logits centred at 0, so that
+    dbeta, whose every column is a multiple of the dlogits' sum over the rows, is not a
+    sum that cancels to near 0, where a relative L2 limit of F32_TAIL_TOL would read the
+    summation order's noise (``tests/test_torch_depth_tail_sequence.py`` chose so too)."""
+    rnd, _ = seeded_draws(gen, dev)
+    C, p = 96, TAIL_P
+    T = BATCH * 8 * NSIDE * NSIDE // p
+    x = rnd(T, C)
+    we, wh = rnd(C, p * C, std=0.1), rnd(C, 2, std=0.1)
+    g, b = 1.0 + rnd(C, std=0.1), rnd(C, std=0.1)
+    return x, we, g, b, wh, depth_targets(gen, T, p, dev, mean=1.0)
+
+
+def check_f32_depth_kernels(dargs, fh):
+    """The f32 K8 and K9 against their plain versions (f32, TF32 off) at the paper depth
+    tail, for every loss kind and head of DEPTH_CASES: ``check_depth_kernels`` with its
+    f32 limits (the count exact; the loss sum, the predictions and every gradient within
+    F32_TAIL_TOL), each step of K9 against its twin (``check_depth_steps``), two K9
+    launches bit-equal, and the probes that K9's row kernel recomputes K8's f32 logits
+    bit for bit and that K8's predictions are its logits (the logits taps).  The depth
+    step's case (l2, one channel) timed: single call, device time by kernel, plain, and
+    the f32 route (``depth_route`` in f32).  Returns the timings keyed like the launch
+    counters."""
+    x = dargs[0]
+    T, p = x.shape[0], TAIL_P
+    timed = {}
+    for kind, F in DEPTH_CASES:
+        args = dargs[:4] + (dargs[4][:, :F].contiguous(), dargs[5])
+        timing = (kind, F) == ("l2", 1)
+        timed.update(check_depth_kernels("paper depth tail f32", args, p, kind, fh, timing))
+        label = f"paper depth tail f32 {kind} F={F}"
+        kw = dict(patch_size=p, loss_kind=kind, huber_delta=HUBER_DELTA, impl="pallas")
+        with torch.no_grad():
+            scale = torch.ones((), device=x.device) / torch.isfinite(args[5]).sum()
+            if not timing:
+                check_depth_steps(label, args, p, kind, fh, scale, F32_TAIL_TOL)
+            _, _, preds, lf8 = fh.final_head_depth_loss_sums(*args, **kw, tap_logits=True)
+            lf9 = fh.final_head_depth_loss_bwd_rows(*args, scale, **kw, tap_logits=True)[3]
+            equal_bits(f"{label} probe: K9's recomputed logits vs K8's", lf9, lf8,
+                       T * p * F // 2)
+            equal_bits(f"{label}: K8's predictions vs its logits tap", preds,
+                       lf8.reshape(T, p * F))
+            got = fh.final_head_depth_loss_bwd(*args, scale, **kw)
+            again = fh.final_head_depth_loss_bwd(*args, scale, **kw)
+            if not all(torch.equal(g, a) for g, a in zip(got, again)):
+                raise AssertionError(f"{label}: two K9 launches differ")
+            del preds, lf8, lf9, got, again
+        log(f"{label}: two K9 launches bit-equal")
+    return timed
+
+
+def drive_paper_depth_train(dev, timed):
+    """The depth paper config's own train step at full width and depth (nside 256, batch
+    2, f32, dropout and attention dropout 0.1, DropPath 0.1, one output channel, the
+    fused masked l2 tail on standardized depths, Adam at 0.005), through the kernels
+    ("auto") and through the plain path ("xla") on the same weights, batch and step
+    generators.  First the f32 K8/K9 against their plain versions at the paper tail
+    (``check_f32_depth_kernels``).  Then the step (``paper_step``) on ``depth_batch``'s
+    metric depths, BACKGROUND of them inf, taken into the network's space by the task's
+    ``_to_network`` (standardized, as the depth datamodule's transform): the kernel path
+    launches one f32 K8 and one f32 K9 and no other kernel.  Returns the kernels'
+    launches in step 0 of the kernel path: per kernel, and per operand shape."""
+    from heal_swin_torch.ops import final_head as fh
+
+    timed.update(check_f32_depth_kernels(paper_depth_tail_inputs(
+        torch.Generator().manual_seed(SEED + 18), dev), fh))
+    torch.cuda.empty_cache()
+    task_k = paper_task("auto", dev, depth=True)
+    task_p = paper_task("xla", dev, state=task_k.model.state_dict(), depth=True)
+    imgs, metric_depth = depth_batch(dev)
+    targets = task_k._to_network(metric_depth)
+    return paper_step("paper depth train", task_k, task_p, imgs, targets,
+                      dict(NO_LAUNCHES, final_head_depth_loss_f32=1,
+                           final_head_depth_loss_bwd_f32=1),
+                      timed, ("count", float(torch.isfinite(targets).sum())))
+
+
+def paper_step(label, task_k, task_p, imgs, targets, expected, timed, counted):
+    """A paper config's train step through the kernels (``task_k``, "auto") and through
+    the plain path (``task_p``, "xla", the same weights), on the same batch and step
+    generators.  Step 0 of each path through ``train_step``: every dropout mask the
+    kernel path draws is kept and the plain path's are held to them (``torch.equal``, in
+    draw order), and their kept share to 0.9 within 3 standard deviations; the kernel
+    path's launches are ``expected``; the two losses agree within PAPER_LOSS_TOL
+    relative and every parameter gradient within relative L2 PAPER_GRAD_TOL.  Then
+    PAPER_STEPS more steps of each path, timed (images/s, peak memory above the
+    resident), the loss falling on both, the metric state (``counted``: its count's key
+    and what a step adds to it), and a trace of a kernel-path step (device time by
+    kernel, idle share).  Returns the kernels' launches in step 0 of the kernel path:
+    per kernel, and per operand shape."""
+    from heal_swin_torch.models import layers
+    from heal_swin_torch.training.optimizer import make_optimizer
+    from heal_swin_torch.training.trainer import step_generator, train_step
+
+    dev = imgs.device
     opts = [make_optimizer(t.model.parameters(), t.optimizer_config) for t in (task_k, task_p)]
     mstates = [t.metric_init() for t in (task_k, task_p)]
 
@@ -2710,8 +2846,7 @@ def drive_paper_train(dev, timed):
         launches, by_shape = read_counters()
     finally:
         layers.keep_mask = draw
-    check_launches(f"{label} step", launches, by_shape,
-                   dict(NO_LAUNCHES, final_head_loss_f32=1, final_head_loss_bwd_f32=1), timed)
+    check_launches(f"{label} step", launches, by_shape, expected, timed)
     grads_k = {n: q.grad.detach().clone() for n, q in task_k.model.named_parameters()}
     kept = sum(int(m.sum()) for m in masks)
     drawn = sum(m.numel() for m in masks)
@@ -2775,12 +2910,12 @@ def drive_paper_train(dev, timed):
             + " ".join(f"{v:.6f}" for v in traj))
         if not (all(math.isfinite(v) for v in traj) and traj[-1] < traj[0]):
             raise AssertionError(f"{label} ({path}): the loss did not fall: {traj}")
+    key, per_step = counted
     for path, task, ms, n in (("kernels", task_k, mstates[0], 1 + 2 * PAPER_STEPS),
                               ("plain", task_p, mstates[1], 1 + PAPER_STEPS)):
         m = task.metric_compute(ms, "train_")
-        if float(ms["total"]) != n * targets.numel() or not all(
-                math.isfinite(v) for v in m.values()):
-            raise AssertionError(f"{label} ({path}): metric state {float(ms['total'])}, {m}")
+        if float(ms[key]) != n * per_step or not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"{label} ({path}): metric state {float(ms[key])}, {m}")
         log(f"{label}: metrics over {n} steps ({path}): "
             + " ".join(f"{k} {v:.4f}" for k, v in m.items()))
     log(f"{label}: train step kernels {ips_k:.4f} / {ips_k2:.4f} img/s (peak {mem_k:.3f} / "
@@ -2805,6 +2940,48 @@ def drive_paper_train(dev, timed):
 GATE_NSIDE = 32  # 512 tokens an image at the second stage: one 64-token window per base pixel
 
 
+def refuse_f32_tails(dev):
+    """The f32 tails the kernels do not take, on CUDA tensors: K3 (predict, bf16 only)
+    on f32 tokens at the paper tail's width, and the f32 K8 and K9 on a depth tail of C
+    48 (their instantiations: C 32, 64, 96, 128) raise under "auto" and "pallas" before
+    any launch, naming the kernel and impl="xla"; under "xla" they run their plain
+    versions with no launch."""
+    from heal_swin_torch.ops import final_head as fh
+
+    rnd, _ = seeded_draws(torch.Generator().manual_seed(SEED + 19), dev)
+    T, p = 64 * 8, TAIL_P
+    pred = (rnd(T, 96), rnd(96, p * 96, std=0.1), 1.0 + rnd(96, std=0.1), rnd(96, std=0.1),
+            rnd(96, PAPER_CLASSES, std=0.3))
+    d48 = (rnd(T, 48), rnd(48, p * 48, std=0.1), 1.0 + rnd(48, std=0.1), rnd(48, std=0.1),
+           rnd(48, 1, std=0.1), depth_targets(torch.Generator().manual_seed(SEED), T, p, dev))
+    one = torch.ones((), device=dev)
+    kw = dict(patch_size=p, loss_kind="l2")
+    cases = (("K3", lambda impl: fh.final_head_predict(*pred, patch_size=p, impl=impl)),
+             ("K8", lambda impl: fh.final_head_depth_loss_sums(*d48, **kw, impl=impl)),
+             ("K9", lambda impl: fh.final_head_depth_loss_bwd(*d48, one, **kw, impl=impl)))
+    reset_counters()
+    for who, call in cases:
+        for impl in ("auto", "pallas"):
+            try:
+                call(impl)
+            except ValueError as e:
+                if f"({who})" not in str(e) or "impl='xla'" not in str(e):
+                    raise
+            else:
+                raise AssertionError(f"refusal f32 {who} {impl}: no refusal")
+        out = call("xla")
+        out = out if isinstance(out, tuple) else (out,)
+        if not all(torch.isfinite(o.float()).all() for o in out):
+            raise AssertionError(f"refusal f32 {who} xla: a non-finite result")
+    torch.cuda.synchronize()
+    launches, _ = read_counters()
+    if any(launches.values()):
+        raise AssertionError(f"refusal f32 tails: kernels launched: {launches}")
+    log("refusal f32 tails: K3 on f32 tokens and the f32 K8/K9 at C 48 raised under \"auto\" "
+        "and \"pallas\" with no launch, naming the kernel and impl='xla'; \"xla\" ran their "
+        "plain versions with no launch")
+
+
 def drive_refusal(dev):
     """The kernels' refusal on the card: two small segmentation models the kernels were
     not written for -- float32 compute (the config default) at the kernels' window 64
@@ -2815,10 +2992,13 @@ def drive_refusal(dev):
     cosine attention K1, bf16 only too) refuses both, before the predict's K3 (bf16
     only) or the loss's f32 K6/K7 is reached; in the window-16 model K16 refuses the
     window.  Under "xla" the same weights run a loss with its backward and a
-    predict with no launch, finite and of the expected shapes."""
+    predict with no launch, finite and of the expected shapes.  Then the tail wrappers
+    alone (``refuse_f32_tails``): f32 tokens on K3, which has no f32 kernel, and an f32
+    depth tail at C 48, which the f32 K8/K9 have no instantiation for."""
     from heal_swin_torch.models import tasks as T
     from heal_swin_torch.models.swin_hp import DataSpec, SwinHPTransformerConfig
 
+    refuse_f32_tails(dev)
     npix = 8 * GATE_NSIDE * GATE_NSIDE
     imgs = torch.randn(BATCH, npix, 3, generator=torch.Generator().manual_seed(SEED + 9)).to(dev)
     for dtype, ws, classes in ((None, WS, N_CLASSES), ("bfloat16", 16, 40)):
@@ -2901,6 +3081,10 @@ SOURCES = {
                             "heal_swin_tpu/ops/final_head.py:755"),
     "final_head_loss_bwd_f32": ("heal_swin_torch/csrc/final_head_f32.cu",
                                 "heal_swin_tpu/ops/final_head.py:781"),
+    "final_head_depth_loss_f32": ("heal_swin_torch/csrc/final_head_f32.cu",
+                                  "heal_swin_tpu/ops/final_head.py:568"),
+    "final_head_depth_loss_bwd_f32": ("heal_swin_torch/csrc/final_head_f32.cu",
+                                      "heal_swin_tpu/ops/final_head.py:593"),
 }
 
 
@@ -3096,12 +3280,14 @@ TAIL_KERNELS = {"tail_pred_kernel": ("K3", (2, 4)), "tail_loss_kernel": ("K6", (
 PTXAS_NAMES.update({
     f"{len(k)}{k}ILi{nt}ELi{nf}E": f"{who} {k}<{nt}, {nf}> (C {8 * nt}, F <= {8 * nf})"
     for k, (who, nfs) in TAIL_KERNELS.items() for nt in (4, 8, 12, 16) for nf in nfs})
-# the f32 K6 and K7's row kernel at each C and head width, and K7's f32 dWe product
+# the f32 K6 and K7's row kernel at each C and head width, the f32 K8 and K9's at each C
+# (their head padded to 4 columns), and K7's and K9's f32 dWe product
 PTXAS_NAMES.update({
-    f"{len(k)}{k}ILi{c}ELi{nf}E": f"{who} {k}<{c}, {nf}> (C {c}, F <= {nf})"
-    for k, who in (("tail_loss_f32_kernel", "f32 K6"), ("tail_bwd_f32_kernel", "f32 K7 step 1"))
-    for c in (32, 64, 96, 128) for nf in (8, 16)})
-PTXAS_NAMES["18gemm_tn_f32_kernel"] = "f32 K7 step 3 gemm_tn_f32_kernel"
+    f"{len(k)}{k}ILi{c}ELi{nf}E": f"{who} {k}<{c}, {nf}> (C {c}, F <= {2 if nf == 4 else nf})"
+    for k, whos in (("tail_loss_f32_kernel", ("f32 K6", "f32 K8")),
+                    ("tail_bwd_f32_kernel", ("f32 K7 step 1", "f32 K9 step 1")))
+    for c in (32, 64, 96, 128) for nf, who in ((8, whos[0]), (16, whos[0]), (4, whos[1]))})
+PTXAS_NAMES["18gemm_tn_f32_kernel"] = "f32 K7 / K9 step 3 gemm_tn_f32_kernel"
 
 
 def log_ptxas(build_log: str):
@@ -3167,13 +3353,17 @@ def main() -> int:
     t_paper = time.perf_counter()
     paper_run = drive_paper_train(dev, timed)
     torch.cuda.empty_cache()
+    t_depth = time.perf_counter()
+    paper_depth_run = drive_paper_depth_train(dev, timed)
+    torch.cuda.empty_cache()
     t_gate = time.perf_counter()
     drive_refusal(dev)
     t_end = time.perf_counter()
     log(f"elapsed: {t_end - t0:.1f} s since the build started, the Chamfer phase "
         f"{t_mlp - t_chamfer:.1f} s of it, the MLP phase {t_dot - t_mlp:.1f} s, the "
         f"scaled-dot phase {t_paper - t_dot:.1f} s, the paper-config phase "
-        f"{t_gate - t_paper:.1f} s, the refusal phase {t_end - t_gate:.1f} s")
+        f"{t_depth - t_paper:.1f} s, the paper depth phase {t_gate - t_depth:.1f} s, the "
+        f"refusal phase {t_end - t_gate:.1f} s")
 
     blocked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "heal_swin_tpu"))
     if blocked:
@@ -3188,7 +3378,7 @@ def main() -> int:
                  "window_attention_qkv_bwd"):
         runs[name] = dot_run
     for name in F32_KERNELS:
-        runs[name] = paper_run
+        runs[name] = paper_depth_run if "depth" in name else paper_run
     kernels = kernel_results(timed, runs, chamfer)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -81,6 +81,15 @@ _SIGNATURES = {
     "hs_final_head_depth_loss_bwd_smem": ([_I] * 3, ctypes.c_size_t),
     "hs_final_head_depth_loss_bwd_grid": ([_I] * 4, _I),
     "hs_final_head_depth_loss_bwd_workspace": ([_I] * 4, ctypes.c_size_t),
+    "hs_final_head_depth_loss_f32": ([_P] * 10 + [_I] * 5 + [_F] * 2 + [_P], _I),
+    "hs_final_head_depth_loss_f32_smem": ([_I] * 3, ctypes.c_size_t),
+    "hs_final_head_depth_loss_f32_grid": ([_I] * 4, _I),
+    "hs_final_head_depth_loss_f32_workspace": ([_I] * 4, ctypes.c_size_t),
+    "hs_final_head_depth_loss_bwd_f32": ([_P] * 11 + [_I] * 5 + [_F] * 2 + [_P], _I),
+    "hs_final_head_depth_loss_bwd_f32_rows": ([_P] * 11 + [_I] * 5 + [_F] * 2 + [_P], _I),
+    "hs_final_head_depth_loss_bwd_f32_smem": ([_I] * 3, ctypes.c_size_t),
+    "hs_final_head_depth_loss_bwd_f32_grid": ([_I] * 4, _I),
+    "hs_final_head_depth_loss_bwd_f32_workspace": ([_I] * 4, ctypes.c_size_t),
     "hs_chamfer_min_both": ([_P] * 4 + [_I] * 2 + [_P], _I),
     "hs_chamfer_fold_pairs": ([_P, _I] + [_P] * 4 + [_I] * 2 + [_P], _I),
     "hs_mlp_fwd": ([_P] * 6 + [_I] * 4 + [_P], _I),

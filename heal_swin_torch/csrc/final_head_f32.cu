@@ -1,10 +1,13 @@
 // Decoder tail of HEAL-SWIN for Hopper (sm_90a) in float32: FinalPatchExpand_X4 ->
-// LayerNorm -> head, fused with the weighted cross entropy (segmentation training), for
-// the configs that compute in f32 (the paper run configs: dtype None).
+// LayerNorm -> head, fused with the weighted cross entropy (segmentation training) or
+// with the masked depth loss (depth training), for the configs that compute in f32 (the
+// paper run configs: dtype None).
 //
-// Replaces, in f32, two Pallas TPU kernels of heal_swin_tpu/ops/final_head.py:
-//   K6 hs_final_head_loss_f32      <- _fwd_kernel (fused_final_head, x f32)
-//   K7 hs_final_head_loss_bwd_f32  <- _bwd_kernel (its custom-VJP backward)
+// Replaces, in f32, four Pallas TPU kernels of heal_swin_tpu/ops/final_head.py:
+//   K6 hs_final_head_loss_f32            <- _fwd_kernel (fused_final_head, x f32)
+//   K7 hs_final_head_loss_bwd_f32        <- _bwd_kernel (its custom-VJP backward)
+//   K8 hs_final_head_depth_loss_f32      <- _fwd_kernel_depth (fused_final_head_depth)
+//   K9 hs_final_head_depth_loss_bwd_f32  <- _bwd_kernel_depth (its custom-VJP backward)
 // For every token row x (C) and each of its p sub-pixels, nothing rounded below f32:
 //   h_i = x We_i -> LayerNorm (f32 statistics) -> xhat, z_i = xhat gamma + beta ->
 //   logits_i = z_i Wh -> log-softmax -> sum w*nll, sum w and the (F, F) confusion matrix
@@ -13,6 +16,11 @@
 // K7: the forward recomputed; dlogits = (gloss / den) w (softmax - onehot); dWh += z^T
 //   dlogits, dz = dlogits Wh^T -> dgamma = sum dz xhat, dbeta = sum dz and the LayerNorm
 //   backward dh -> dx = sum_i dh_i We_i^T; dWe_i = x^T dh_i.
+// K8: the same logits (F <= 2: mean, logvar) -> the masked depth loss of one kind (l2 /
+//   l1 / huber / nll, depth_loss.cuh) against targets t (T, p) whose non-finite entries
+//   are background -> sum loss, the count of valid targets and the predictions (T, p F),
+//   the logits themselves.  K9: K7 with dlogits = scale * dloss/dlogits (0 at background;
+//   the logvar channel 0 but for nll).
 //
 // Design: f32 FMAs on the CUDA cores, a thread per token row.  The bf16 kernels' layout
 // (all p slices of We resident beside a double-buffered x ring, tail_core.cuh) does not
@@ -36,19 +44,26 @@
 // partial row [dWh (C x F) | dgamma | dbeta] a block: after the row pass each tile's
 // xhat and dlogits go to shared memory (xhat over the spent x tile), and thread c < C
 // sums column c over the tile's rows (z and dz recomputed there by the same
-// expressions), in registers across the block's tiles and slices; then reduce_rows over
-// the partial rows, then dWe = x^T dh by gemm_tn_f32 (split over tokens, the splits
-// through reduce_rows).  Every sum across blocks runs in a fixed order, so the results
-// do not change from run to run.
+// expressions), each tile from zero, the tiles' sums added in registers across the
+// block's tiles and slices; then reduce_rows over the partial rows, then dWe = x^T dh
+// by gemm_tn_f32 (split over tokens, the splits through reduce_rows).  Every sum across
+// blocks runs in a fixed order, so the results do not change from run to run.
+//
+// K8 and K9 are K6's and K7's row kernels with another loss (the template argument
+// Loss: CeLoss or DepthLoss): they make h, xhat, z and the logits through the same
+// functions, so K9's recomputed logits are K8's bits as K7's are K6's.  K8's partial row
+// is [sum loss, count], and it writes the predictions beside; K9 is K7's launch sequence.
 //
 // The instantiations: C in 32, 64, 96, 128 and the head padded to NF = 8 or 16 columns
-// (F <= 16: the paper's segmentation heads have 8, 10 and 12 classes).
+// for the cross entropy (F <= 16: the paper's segmentation heads have 8, 10 and 12
+// classes), NF = 4 for the depth head (F <= 2); the depth loss's kind is a launch argument.
 
 #include <math_constants.h>
 
 #include <type_traits>
 
 #include "common.cuh"
+#include "depth_loss.cuh"
 
 namespace hs {
 namespace {
@@ -57,11 +72,39 @@ constexpr int F32_ROWS = 128;  // token rows of a tile: one thread each
 constexpr int F32_THREADS = F32_ROWS;
 constexpr size_t kF32MaxSmem = 232448;  // an H100 block's opt-in shared memory
 
-enum F32Kind : int { kF32Ce = 0, kF32CeBwd = 1 };
+enum F32Kind : int { kF32Ce = 0, kF32CeBwd = 1, kF32Depth = 2, kF32DepthBwd = 3 };
+
+// the loss a row kernel takes of its logits: the weighted cross entropy of targets y
+// and element weights welem (K6, K7), or the masked depth loss of one kind against
+// targets t, a non-finite value marking background (K8, K9; preds: K8's predictions)
+struct CeLoss {
+  const int* y;
+  const float* welem;
+};
+
+struct DepthLoss {
+  const float* t;
+  float* preds;
+  int kind;
+  float delta;
+};
+
+template <class Loss>
+constexpr bool kIsDepth = std::is_same<Loss, DepthLoss>::value;
+
+// the row kernels' kinds of a loss: the forward's and the backward's
+template <class Loss>
+constexpr int kFwdKind = kIsDepth<Loss> ? kF32Depth : kF32Ce;
+template <class Loss>
+constexpr int kBwdKind = kIsDepth<Loss> ? kF32DepthBwd : kF32CeBwd;
+
+__host__ __device__ inline bool f32_is_bwd(int kind) {
+  return kind == kF32CeBwd || kind == kF32DepthBwd;
+}
 
 // shared memory: We_i (C x C) | Wh (C x NF, zero-padded) | gamma | beta | the x tile
-// (128 x (C + 1)) | K6: the confusion matrix (F x F int) and the warps' loss sums; K7: the
-// tile's dlogits (128 x NF)
+// (128 x (C + 1)) | K6: the confusion matrix (F x F int) and the warps' loss sums; K8: the
+// warps' loss sums; K7, K9: the tile's dlogits (128 x NF)
 struct F32Layout {
   size_t wh, gb, x, red, total;
 };
@@ -73,8 +116,11 @@ __host__ __device__ inline F32Layout f32_layout(int C, int NF, int F, int kind) 
   L.gb = off; off += align128(size_t(2) * C * 4);
   L.x = off; off += align128(size_t(F32_ROWS) * (C + 1) * 4);
   L.red = off;
-  off += kind == kF32Ce ? align128(size_t(F) * F * 4) + align128(2 * (F32_THREADS / 32) * 4)
-                        : align128(size_t(F32_ROWS) * NF * 4);
+  if (f32_is_bwd(kind))
+    off += align128(size_t(F32_ROWS) * NF * 4);
+  else
+    off += (kind == kF32Ce ? align128(size_t(F) * F * 4) : 0) +
+           align128(2 * (F32_THREADS / 32) * 4);
   L.total = off;
   return L;
 }
@@ -232,28 +278,59 @@ __device__ __forceinline__ void write_tap(float* __restrict__ tap, const float (
     if (f < F) t[f] = lf[f];
 }
 
-// K6: the partial row [sum w*nll, sum w, confusion matrix (F x F)] of each block; tap,
+// the depth loss of element e (row, sub-pixel) from its logits: (loss, 1) added to
+// (num, den) where its target is valid
+template <int NF>
+__device__ __forceinline__ void depth_sums(const float (&lf)[NF], const DepthLoss& loss,
+                                           size_t e, float& num, float& den) {
+  const float tv = loss.t[e];
+  const bool valid = isfinite(tv);
+  if (valid) {
+    const float l[2] = {lf[0], lf[1]};
+    num += depth_loss(l, depth_diff(l[0], tv, valid), loss.kind, loss.delta);
+    den += 1.f;
+  }
+}
+
+// K9's dlogits of element e: scale * dloss/dlogits, 0 at background and past F
+template <int NF>
+__device__ __forceinline__ void depth_dl(float (&dl)[NF], const float (&lf)[NF],
+                                         const DepthLoss& loss, size_t e, float scale, int F) {
+  const float tv = loss.t[e];
+  const bool valid = isfinite(tv);
+  const float l[2] = {lf[0], lf[1]};
+  float g[2];
+  depth_grads(l, depth_diff(l[0], tv, valid), valid, loss.kind, loss.delta, g);
+#pragma unroll
+  for (int f = 2; f < NF; ++f) dl[f] = 0.f;
+  dl[0] = __fmul_rn(scale, g[0]);
+  dl[1] = F > 1 ? __fmul_rn(scale, g[1]) : 0.f;
+}
+
+// K6 (CeLoss): the partial row [sum w*nll, sum w, confusion matrix (F x F)] of each
+// block; K8 (DepthLoss): [sum loss, count of valid targets], and the predictions.  tap,
 // where not null, gets the logits (T, p, F)
-template <int C, int NF>
+template <int C, int NF, class Loss>
 __global__ void __launch_bounds__(F32_THREADS)
 tail_loss_f32_kernel(const float* __restrict__ x, const float* __restrict__ we,
                      const float* __restrict__ gamma, const float* __restrict__ beta,
-                     const float* __restrict__ wh, const int* __restrict__ y,
-                     const float* __restrict__ welem, float* __restrict__ part,
+                     const float* __restrict__ wh, const Loss loss, float* __restrict__ part,
                      float* __restrict__ tap, int T, int F, int P, float eps) {
+  constexpr bool CE = !kIsDepth<Loss>;
   extern __shared__ __align__(128) unsigned char smem[];
-  const F32Layout L = f32_layout(C, NF, F, kF32Ce);
+  const F32Layout L = f32_layout(C, NF, F, kFwdKind<Loss>);
   float* wes = reinterpret_cast<float*>(smem);
   float* whs = reinterpret_cast<float*>(smem + L.wh);
   float* gs = reinterpret_cast<float*>(smem + L.gb);
   float* xs = reinterpret_cast<float*>(smem + L.x);
   int* cm = reinterpret_cast<int*>(smem + L.red);
-  float* wsum = reinterpret_cast<float*>(smem + L.red + align128(size_t(F) * F * 4));
+  float* wsum = reinterpret_cast<float*>(smem + L.red + (CE ? align128(size_t(F) * F * 4) : 0));
   const int tid = threadIdx.x;
   const int tiles = (T + F32_ROWS - 1) / F32_ROWS;
 
   stage_head<C, NF>(whs, gs, wh, gamma, beta, F);
-  for (int idx = tid; idx < F * F; idx += F32_THREADS) cm[idx] = 0;
+  if constexpr (CE)
+    for (int idx = tid; idx < F * F; idx += F32_THREADS) cm[idx] = 0;
   float num = 0.f, den = 0.f;
   for (int i = 0; i < P; ++i) {
     __syncthreads();  // the last slice's rows are done with wes
@@ -263,18 +340,24 @@ tail_loss_f32_kernel(const float* __restrict__ x, const float* __restrict__ we,
       const int rows = load_tile<C>(xs, x, tile, T);
       __syncthreads();
       if (tid >= rows) continue;
-      const size_t row = size_t(tile) * F32_ROWS + tid;
-      float h[C], lf[NF], ex[NF];
+      const size_t row = size_t(tile) * F32_ROWS + tid, e = row * P + i;
+      float h[C], lf[NF];
       expand_row<C>(h, xs + tid * (C + 1), wes);
       ln_xhat<C>(h, eps);
       head_row<C, NF>(lf, h, gs, whs);
       if (tap != nullptr) write_tap<NF>(tap, lf, row, i, P, F);
-      const CeRow ce = ce_row<NF>(lf, ex, F);
-      const int yi = y[row * P + i];
-      const float wi = welem[row * P + i];
-      num += wi * (ce.mx + logf(ce.se) - target_logit<NF>(lf, yi, F));
-      den += wi;
-      if (ce.best < F && yi >= 0 && yi < F) atomicAdd(cm + yi * F + ce.best, 1);  // order-free
+      if constexpr (CE) {
+        float ex[NF];
+        const CeRow ce = ce_row<NF>(lf, ex, F);
+        const int yi = loss.y[e];
+        const float wi = loss.welem[e];
+        num += wi * (ce.mx + logf(ce.se) - target_logit<NF>(lf, yi, F));
+        den += wi;
+        if (ce.best < F && yi >= 0 && yi < F) atomicAdd(cm + yi * F + ce.best, 1);  // order-free
+      } else {
+        depth_sums<NF>(lf, loss, e, num, den);
+        write_tap<NF>(loss.preds, lf, row, i, P, F);  // the predictions: the f32 logits
+      }
     }
   }
   num = warp_sum(num);
@@ -285,7 +368,7 @@ tail_loss_f32_kernel(const float* __restrict__ x, const float* __restrict__ we,
     wsum[F32_THREADS / 32 + warp] = den;
   }
   __syncthreads();
-  float* prow = part + size_t(blockIdx.x) * (2 + F * F);
+  float* prow = part + size_t(blockIdx.x) * (CE ? 2 + F * F : 2);
   if (tid == 0) {
     float n = 0.f, d = 0.f;
     for (int w = 0; w < F32_THREADS / 32; ++w) {
@@ -295,22 +378,24 @@ tail_loss_f32_kernel(const float* __restrict__ x, const float* __restrict__ we,
     prow[0] = n;
     prow[1] = d;
   }
-  for (int idx = tid; idx < F * F; idx += F32_THREADS) prow[2 + idx] = float(cm[idx]);
+  if constexpr (CE)
+    for (int idx = tid; idx < F * F; idx += F32_THREADS) prow[2 + idx] = float(cm[idx]);
 }
 
-// K7's row kernel: dx (T x C f32), dh (T x p C f32: dh_i in columns i C ..) and the
-// partial row [dWh (C x F) | dgamma (C) | dbeta (C)] of each block, for the loss gradient
-// scale = gloss / den (on the device); tap as K6's
-template <int C, int NF>
+// K7's (CeLoss) and K9's (DepthLoss) row kernel: dx (T x C f32), dh (T x p C f32: dh_i
+// in columns i C ..) and the partial row [dWh (C x F) | dgamma (C) | dbeta (C)] of each
+// block, for the loss gradient scale = gloss / den (K7) or gloss / max(count, 1) (K9), on
+// the device; tap as K6's
+template <int C, int NF, class Loss>
 __global__ void __launch_bounds__(F32_THREADS)
 tail_bwd_f32_kernel(const float* __restrict__ x, const float* __restrict__ we,
                     const float* __restrict__ gamma, const float* __restrict__ beta,
-                    const float* __restrict__ wh, const int* __restrict__ y,
-                    const float* __restrict__ welem, const float* __restrict__ scale_p,
-                    float* __restrict__ dx, float* __restrict__ dh, float* __restrict__ part,
-                    float* __restrict__ tap, int T, int F, int P, float eps) {
+                    const float* __restrict__ wh, const Loss loss,
+                    const float* __restrict__ scale_p, float* __restrict__ dx,
+                    float* __restrict__ dh, float* __restrict__ part, float* __restrict__ tap,
+                    int T, int F, int P, float eps) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const F32Layout L = f32_layout(C, NF, F, kF32CeBwd);
+  const F32Layout L = f32_layout(C, NF, F, kBwdKind<Loss>);
   float* wes = reinterpret_cast<float*>(smem);
   float* whs = reinterpret_cast<float*>(smem + L.wh);
   float* gs = reinterpret_cast<float*>(smem + L.gb);
@@ -341,7 +426,7 @@ tail_bwd_f32_kernel(const float* __restrict__ x, const float* __restrict__ we,
       const int rows = load_tile<C>(xs, x, tile, T);
       __syncthreads();
       const bool active = tid < rows;
-      const size_t row = size_t(tile) * F32_ROWS + tid;
+      const size_t row = size_t(tile) * F32_ROWS + tid, e = row * P + i;
       float h[C], dl[NF];
       float rstd = 0.f;
       if (active) {
@@ -350,12 +435,16 @@ tail_bwd_f32_kernel(const float* __restrict__ x, const float* __restrict__ we,
         rstd = ln_xhat<C>(h, eps);
         head_row<C, NF>(lf, h, gs, whs);
         if (tap != nullptr) write_tap<NF>(tap, lf, row, i, P, F);
-        const CeRow ce = ce_row<NF>(lf, dl, F);
-        const int yi = y[row * P + i];
-        const float sw = __fmul_rn(scale, welem[row * P + i]);
+        if constexpr (kIsDepth<Loss>) {
+          depth_dl<NF>(dl, lf, loss, e, scale, F);
+        } else {
+          const CeRow ce = ce_row<NF>(lf, dl, F);
+          const int yi = loss.y[e];
+          const float sw = __fmul_rn(scale, loss.welem[e]);
 #pragma unroll
-        for (int f = 0; f < NF; ++f)
-          dl[f] = f < F ? sw * (__fdiv_rn(dl[f], ce.se) - (f == yi ? 1.f : 0.f)) : 0.f;
+          for (int f = 0; f < NF; ++f)
+            dl[f] = f < F ? sw * (__fdiv_rn(dl[f], ce.se) - (f == yi ? 1.f : 0.f)) : 0.f;
+        }
       }
       __syncthreads();  // every row has read its x: the tile becomes the rows' xhat
       if (active) {
@@ -420,6 +509,13 @@ tail_bwd_f32_kernel(const float* __restrict__ x, const float* __restrict__ we,
       }
       __syncthreads();  // the tile's xhat and dlogits are in place
       if (owns_col) {
+        // the tile's column sums from zero, then added to the block's: a blocked sum, so
+        // that no running sum takes more than a tile's rows one after another (a column
+        // whose terms share a sign, as dbeta's under the l1 loss, loses ~n eps in a
+        // sequential sum of n terms)
+        float tdwh[NF], tdg = 0.f, tdb = 0.f;
+#pragma unroll
+        for (int f = 0; f < NF; ++f) tdwh[f] = 0.f;
         for (int r = 0; r < rows; ++r) {
           const float xv = xs[r * (C + 1) + tid];
           const float z = z_of(xv, gc, bc);
@@ -432,12 +528,16 @@ tail_bwd_f32_kernel(const float* __restrict__ x, const float* __restrict__ we,
 #pragma unroll
             for (int j = 0; j < 4; ++j) {
               dz = fmaf(dd[j], whc[4 * q + j], dz);
-              cdwh[4 * q + j] = fmaf(z, dd[j], cdwh[4 * q + j]);
+              tdwh[4 * q + j] = fmaf(z, dd[j], tdwh[4 * q + j]);
             }
           }
-          cdg = fmaf(dz, xv, cdg);
-          cdb += dz;
+          tdg = fmaf(dz, xv, tdg);
+          tdb += dz;
         }
+#pragma unroll
+        for (int f = 0; f < NF; ++f) cdwh[f] += tdwh[f];
+        cdg += tdg;
+        cdb += tdb;
       }
     }
   }
@@ -541,12 +641,16 @@ cudaError_t gemm_tn_f32(const float* A, const float* B, float* out, int K, int M
 // launch plumbing
 // ---------------------------------------------------------------------------------
 
-// f(C, NF) for the instantiation of C (32, 64, 96, 128) and F (<= 8: NF 8; <= 16: NF 16)
-template <typename Fn>
+// f(C, NF) for the instantiation of C (32, 64, 96, 128) and F: the cross entropy's head
+// (F <= 8: NF 8; <= 16: NF 16) or, with DEPTH, the depth head (F <= 2: NF 4)
+template <bool DEPTH, typename Fn>
 cudaError_t with_f32(int C, int F, Fn f) {
-  if (F < 1 || F > 16) return cudaErrorInvalidValue;
+  if (F < 1 || F > (DEPTH ? 2 : 16)) return cudaErrorInvalidValue;
   auto nf = [&](auto c) {
-    return F <= 8 ? f(c, std::integral_constant<int, 8>{}) : f(c, std::integral_constant<int, 16>{});
+    if constexpr (DEPTH) return f(c, std::integral_constant<int, 4>{});
+    else
+      return F <= 8 ? f(c, std::integral_constant<int, 8>{})
+                    : f(c, std::integral_constant<int, 16>{});
   };
   switch (C) {
     case 32: return nf(std::integral_constant<int, 32>{});
@@ -557,23 +661,23 @@ cudaError_t with_f32(int C, int F, Fn f) {
   }
 }
 
-inline int nf_of(int F) { return F <= 8 ? 8 : 16; }
+inline int nf_of(int F, bool depth) { return depth ? 4 : F <= 8 ? 8 : 16; }
 
-template <int C, int NF, int KIND>
+template <int C, int NF, class Loss, bool BWD>
 const void* f32_kernel() {
-  if constexpr (KIND == kF32Ce) return reinterpret_cast<const void*>(tail_loss_f32_kernel<C, NF>);
-  else return reinterpret_cast<const void*>(tail_bwd_f32_kernel<C, NF>);
+  if constexpr (BWD) return reinterpret_cast<const void*>(tail_bwd_f32_kernel<C, NF, Loss>);
+  else return reinterpret_cast<const void*>(tail_loss_f32_kernel<C, NF, Loss>);
 }
 
 // the row kernel's grid: min(its tiles, the blocks the card holds at once at its shared
 // memory), after its one opt-in to the most shared memory a block may have
-template <int C, int NF, int KIND>
+template <int C, int NF, class Loss, bool BWD>
 cudaError_t f32_grid(int T, int F, int* grid) {
   static std::atomic<unsigned> done{0};
-  const void* k = f32_kernel<C, NF, KIND>();
+  const void* k = f32_kernel<C, NF, Loss, BWD>();
   cudaError_t e = smem_opt_in(k, kF32MaxSmem, done);
   if (e != cudaSuccess) return e;
-  const size_t smem = f32_layout(C, NF, F, KIND).total;
+  const size_t smem = f32_layout(C, NF, F, BWD ? kBwdKind<Loss> : kFwdKind<Loss>).total;
   if (smem > kF32MaxSmem || T <= 0) return cudaErrorInvalidValue;
   int per = 0;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, k, F32_THREADS, smem);
@@ -584,81 +688,87 @@ cudaError_t f32_grid(int T, int F, int* grid) {
   return cudaSuccess;
 }
 
-inline int f32_grid_of(int T, int C, int F, int kind) {
+template <class Loss, bool BWD>
+int f32_grid_of(int T, int C, int F) {
   int G = 0;
-  const cudaError_t e = with_f32(C, F, [&](auto c, auto nf) {
-    constexpr int CC = decltype(c)::value, NF = decltype(nf)::value;
-    return kind == kF32Ce ? f32_grid<CC, NF, kF32Ce>(T, F, &G)
-                          : f32_grid<CC, NF, kF32CeBwd>(T, F, &G);
+  const cudaError_t e = with_f32<kIsDepth<Loss>>(C, F, [&](auto c, auto nf) {
+    return f32_grid<decltype(c)::value, decltype(nf)::value, Loss, BWD>(T, F, &G);
   });
   return e == cudaSuccess ? G : 0;
 }
 
-// K6's workspace: the partial rows (2 + F F floats each), then reduce_rows' scratch
-inline size_t f32_loss_workspace(int T, int C, int F) {
-  const int G = f32_grid_of(T, C, F, kF32Ce), W = 2 + F * F;
+// a forward's partial row: K6's [sum w*nll, sum w, confusion matrix], K8's [sum loss,
+// count]
+template <class Loss>
+inline int f32_part_width(int F) {
+  return kIsDepth<Loss> ? 2 : 2 + F * F;
+}
+
+// K6's and K8's workspace: the partial rows, then reduce_rows' scratch
+template <class Loss>
+size_t f32_loss_workspace(int T, int C, int F) {
+  const int G = f32_grid_of<Loss, false>(T, C, F), W = f32_part_width<Loss>(F);
   return align128(size_t(G) * W * 4) + align128(reduce_rows_tmp_floats(G, W) * 4);
 }
 
-// K6: the row kernel, then reduce_rows over its partial rows into red = [sum w*nll,
-// sum w, confusion matrix]
+// K6 and K8: the row kernel, then reduce_rows over its partial rows into red
+template <class Loss>
 cudaError_t launch_f32_loss(const void* x, const void* we, const void* gamma, const void* beta,
-                            const void* wh, const void* y, const void* welem, void* red,
-                            void* work, void* tap, int T, int C, int F, int P, float eps,
-                            cudaStream_t s) {
-  return with_f32(C, F, [&](auto c, auto nf) {
+                            const void* wh, const Loss& loss, void* red, void* work, void* tap,
+                            int T, int C, int F, int P, float eps, cudaStream_t s) {
+  return with_f32<kIsDepth<Loss>>(C, F, [&](auto c, auto nf) {
     constexpr int CC = decltype(c)::value, NF = decltype(nf)::value;
     int G = 0;
-    cudaError_t e = f32_grid<CC, NF, kF32Ce>(T, F, &G);
+    cudaError_t e = f32_grid<CC, NF, Loss, false>(T, F, &G);
     if (e != cudaSuccess) return e;
-    const int W = 2 + F * F;
+    const int W = f32_part_width<Loss>(F);
     float* part = static_cast<float*>(work);
     float* tmp = reinterpret_cast<float*>(static_cast<unsigned char*>(work) +
                                           align128(size_t(G) * W * 4));
-    tail_loss_f32_kernel<CC, NF><<<G, F32_THREADS, f32_layout(CC, NF, F, kF32Ce).total, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(we),
-        static_cast<const float*>(gamma), static_cast<const float*>(beta),
-        static_cast<const float*>(wh), static_cast<const int*>(y),
-        static_cast<const float*>(welem), part, static_cast<float*>(tap), T, F, P, eps);
+    tail_loss_f32_kernel<CC, NF, Loss>
+        <<<G, F32_THREADS, f32_layout(CC, NF, F, kFwdKind<Loss>).total, s>>>(
+            static_cast<const float*>(x), static_cast<const float*>(we),
+            static_cast<const float*>(gamma), static_cast<const float*>(beta),
+            static_cast<const float*>(wh), loss, part, static_cast<float*>(tap), T, F, P, eps);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
     return reduce_rows(part, static_cast<float*>(red), G, W, tmp, s);
   });
 }
 
-// K7's row kernel alone: dx, dh and its partial rows part (grid x (C F + 2C))
+// K7's and K9's row kernel alone: dx, dh and its partial rows part (grid x (C F + 2C))
+template <class Loss>
 cudaError_t launch_f32_bwd_rows(const void* x, const void* we, const void* gamma,
-                                const void* beta, const void* wh, const void* y,
-                                const void* welem, const void* scale, void* dx, void* dh,
-                                void* part, void* tap, int T, int C, int F, int P, float eps,
-                                cudaStream_t s) {
-  return with_f32(C, F, [&](auto c, auto nf) {
+                                const void* beta, const void* wh, const Loss& loss,
+                                const void* scale, void* dx, void* dh, void* part, void* tap,
+                                int T, int C, int F, int P, float eps, cudaStream_t s) {
+  return with_f32<kIsDepth<Loss>>(C, F, [&](auto c, auto nf) {
     constexpr int CC = decltype(c)::value, NF = decltype(nf)::value;
     int G = 0;
-    cudaError_t e = f32_grid<CC, NF, kF32CeBwd>(T, F, &G);
+    cudaError_t e = f32_grid<CC, NF, Loss, true>(T, F, &G);
     if (e != cudaSuccess) return e;
-    tail_bwd_f32_kernel<CC, NF>
-        <<<G, F32_THREADS, f32_layout(CC, NF, F, kF32CeBwd).total, s>>>(
+    tail_bwd_f32_kernel<CC, NF, Loss>
+        <<<G, F32_THREADS, f32_layout(CC, NF, F, kBwdKind<Loss>).total, s>>>(
             static_cast<const float*>(x), static_cast<const float*>(we),
             static_cast<const float*>(gamma), static_cast<const float*>(beta),
-            static_cast<const float*>(wh), static_cast<const int*>(y),
-            static_cast<const float*>(welem), static_cast<const float*>(scale),
+            static_cast<const float*>(wh), loss, static_cast<const float*>(scale),
             static_cast<float*>(dx), static_cast<float*>(dh), static_cast<float*>(part),
             static_cast<float*>(tap), T, F, P, eps);
     return cudaGetLastError();
   });
 }
 
-// K7's workspace: dh (T x p C f32), the row kernel's partial rows, then the scratch of
-// reduce_rows or gemm_tn_f32, whichever is larger
+// K7's and K9's workspace: dh (T x p C f32), the row kernel's partial rows, then the
+// scratch of reduce_rows or gemm_tn_f32, whichever is larger
 struct F32BwdWork {
   size_t part, tmp, total;
   int grid;
 };
 
-inline F32BwdWork f32_bwd_work(int T, int C, int F, int P) {
+template <class Loss>
+F32BwdWork f32_bwd_work(int T, int C, int F, int P) {
   F32BwdWork w;
-  w.grid = f32_grid_of(T, C, F, kF32CeBwd);
+  w.grid = f32_grid_of<Loss, true>(T, C, F);
   const int W = C * F + 2 * C;
   size_t tmp = reduce_rows_tmp_floats(w.grid, W);
   const size_t gt = gemm_tn_f32_tmp_floats(T, C, P * C);
@@ -669,25 +779,38 @@ inline F32BwdWork f32_bwd_work(int T, int C, int F, int P) {
   return w;
 }
 
-// K7: the row kernel, reduce_rows over its partial rows into red = [dWh | dgamma |
+// K7 and K9: the row kernel, reduce_rows over its partial rows into red = [dWh | dgamma |
 // dbeta], then dWe = x^T dh by gemm_tn_f32, on one stream
+template <class Loss>
 cudaError_t launch_f32_bwd(const void* x, const void* we, const void* gamma, const void* beta,
-                           const void* wh, const void* y, const void* welem, const void* scale,
-                           void* dx, void* dwe, void* red, void* work, int T, int C, int F,
-                           int P, float eps, cudaStream_t s) {
-  const F32BwdWork w = f32_bwd_work(T, C, F, P);
+                           const void* wh, const Loss& loss, const void* scale, void* dx,
+                           void* dwe, void* red, void* work, int T, int C, int F, int P,
+                           float eps, cudaStream_t s) {
+  const F32BwdWork w = f32_bwd_work<Loss>(T, C, F, P);
   if (w.grid < 1) return cudaErrorInvalidValue;
   unsigned char* base = static_cast<unsigned char*>(work);
   float* dh = reinterpret_cast<float*>(base);
   float* part = reinterpret_cast<float*>(base + w.part);
   float* tmp = reinterpret_cast<float*>(base + w.tmp);
-  cudaError_t e = launch_f32_bwd_rows(x, we, gamma, beta, wh, y, welem, scale, dx, dh, part,
+  cudaError_t e = launch_f32_bwd_rows(x, we, gamma, beta, wh, loss, scale, dx, dh, part,
                                       nullptr, T, C, F, P, eps, s);
   if (e != cudaSuccess) return e;
   e = reduce_rows(part, static_cast<float*>(red), w.grid, C * F + 2 * C, tmp, s);
   if (e != cudaSuccess) return e;
   return gemm_tn_f32(static_cast<const float*>(x), dh, static_cast<float*>(dwe), T, C, P * C,
                      tmp, s);
+}
+
+inline CeLoss ce_loss(const void* y, const void* welem) {
+  return CeLoss{static_cast<const int*>(y), static_cast<const float*>(welem)};
+}
+
+// the depth loss of kind (DepthKind) on targets t; false where the kind or F is not taken
+inline bool depth_loss_of(const void* t, void* preds, int kind, float delta, int F,
+                          DepthLoss* out) {
+  if (kind < kL2 || kind > kNll || (kind == kNll && F != 2)) return false;
+  *out = DepthLoss{static_cast<const float*>(t), static_cast<float*>(preds), kind, delta};
+  return true;
 }
 
 }  // namespace
@@ -697,32 +820,32 @@ extern "C" {
 
 size_t hs_final_head_loss_f32_smem(int C, int F, int P) {
   (void)P;
-  return hs::f32_layout(C, hs::nf_of(F), F, hs::kF32Ce).total;
+  return hs::f32_layout(C, hs::nf_of(F, false), F, hs::kF32Ce).total;
 }
 
 size_t hs_final_head_loss_bwd_f32_smem(int C, int F, int P) {
   (void)P;
-  return hs::f32_layout(C, hs::nf_of(F), F, hs::kF32CeBwd).total;
+  return hs::f32_layout(C, hs::nf_of(F, false), F, hs::kF32CeBwd).total;
 }
 
 // f32 K6's and K7's row kernels' grids (0 where they do not take the shape)
 int hs_final_head_loss_f32_grid(int T, int C, int F, int P) {
   (void)P;
-  return hs::f32_grid_of(T, C, F, hs::kF32Ce);
+  return hs::f32_grid_of<hs::CeLoss, false>(T, C, F);
 }
 
 int hs_final_head_loss_bwd_f32_grid(int T, int C, int F, int P) {
   (void)P;
-  return hs::f32_grid_of(T, C, F, hs::kF32CeBwd);
+  return hs::f32_grid_of<hs::CeLoss, true>(T, C, F);
 }
 
 size_t hs_final_head_loss_f32_workspace(int T, int C, int F, int P) {
   (void)P;
-  return hs::f32_loss_workspace(T, C, F);
+  return hs::f32_loss_workspace<hs::CeLoss>(T, C, F);
 }
 
 size_t hs_final_head_loss_bwd_f32_workspace(int T, int C, int F, int P) {
-  return hs::f32_bwd_work(T, C, F, P).total;
+  return hs::f32_bwd_work<hs::CeLoss>(T, C, F, P).total;
 }
 
 // f32 K6: red = [sum w*nll, sum w, confusion matrix]; tap (may be null) gets the f32
@@ -731,8 +854,8 @@ int hs_final_head_loss_f32(const void* x, const void* we, const void* gamma, con
                            const void* wh, const void* y, const void* welem, void* red,
                            void* work, void* tap, int T, int C, int F, int P, float eps,
                            void* stream) {
-  return int(hs::launch_f32_loss(x, we, gamma, beta, wh, y, welem, red, work, tap, T, C, F, P,
-                                 eps, static_cast<cudaStream_t>(stream)));
+  return int(hs::launch_f32_loss(x, we, gamma, beta, wh, hs::ce_loss(y, welem), red, work, tap,
+                                 T, C, F, P, eps, static_cast<cudaStream_t>(stream)));
 }
 
 // f32 K7's row kernel alone: dx (T x C), dh (T x p C) and its partial rows
@@ -743,8 +866,9 @@ int hs_final_head_loss_bwd_f32_rows(const void* x, const void* we, const void* g
                                     const void* welem, const void* scale, void* dx, void* dh,
                                     void* part, void* tap, int T, int C, int F, int P,
                                     float eps, void* stream) {
-  return int(hs::launch_f32_bwd_rows(x, we, gamma, beta, wh, y, welem, scale, dx, dh, part,
-                                     tap, T, C, F, P, eps, static_cast<cudaStream_t>(stream)));
+  return int(hs::launch_f32_bwd_rows(x, we, gamma, beta, wh, hs::ce_loss(y, welem), scale, dx,
+                                     dh, part, tap, T, C, F, P, eps,
+                                     static_cast<cudaStream_t>(stream)));
 }
 
 // f32 K7: the row kernel, reduce_rows, gemm_tn_f32; red = [dWh | dgamma | dbeta]
@@ -753,8 +877,75 @@ int hs_final_head_loss_bwd_f32(const void* x, const void* we, const void* gamma,
                                const void* welem, const void* scale, void* dx, void* dwe,
                                void* red, void* work, int T, int C, int F, int P, float eps,
                                void* stream) {
-  return int(hs::launch_f32_bwd(x, we, gamma, beta, wh, y, welem, scale, dx, dwe, red, work, T,
-                                C, F, P, eps, static_cast<cudaStream_t>(stream)));
+  return int(hs::launch_f32_bwd(x, we, gamma, beta, wh, hs::ce_loss(y, welem), scale, dx, dwe,
+                                red, work, T, C, F, P, eps, static_cast<cudaStream_t>(stream)));
+}
+
+size_t hs_final_head_depth_loss_f32_smem(int C, int F, int P) {
+  (void)P;
+  return hs::f32_layout(C, hs::nf_of(F, true), F, hs::kF32Depth).total;
+}
+
+size_t hs_final_head_depth_loss_bwd_f32_smem(int C, int F, int P) {
+  (void)P;
+  return hs::f32_layout(C, hs::nf_of(F, true), F, hs::kF32DepthBwd).total;
+}
+
+// f32 K8's and K9's row kernels' grids (0 where they do not take the shape)
+int hs_final_head_depth_loss_f32_grid(int T, int C, int F, int P) {
+  (void)P;
+  return hs::f32_grid_of<hs::DepthLoss, false>(T, C, F);
+}
+
+int hs_final_head_depth_loss_bwd_f32_grid(int T, int C, int F, int P) {
+  (void)P;
+  return hs::f32_grid_of<hs::DepthLoss, true>(T, C, F);
+}
+
+size_t hs_final_head_depth_loss_f32_workspace(int T, int C, int F, int P) {
+  (void)P;
+  return hs::f32_loss_workspace<hs::DepthLoss>(T, C, F);
+}
+
+size_t hs_final_head_depth_loss_bwd_f32_workspace(int T, int C, int F, int P) {
+  return hs::f32_bwd_work<hs::DepthLoss>(T, C, F, P).total;
+}
+
+// f32 K8: red = [sum loss, count of valid targets], preds (T, p F) f32 the logits; the
+// loss of kind (l2, l1, huber, nll: 0-3; nll needs F = 2); tap (may be null) gets the
+// logits (T, p, F) too
+int hs_final_head_depth_loss_f32(const void* x, const void* we, const void* gamma,
+                                 const void* beta, const void* wh, const void* t, void* red,
+                                 void* preds, void* work, void* tap, int T, int C, int F, int P,
+                                 int kind, float eps, float delta, void* stream) {
+  hs::DepthLoss loss;
+  if (!hs::depth_loss_of(t, preds, kind, delta, F, &loss)) return int(cudaErrorInvalidValue);
+  return int(hs::launch_f32_loss(x, we, gamma, beta, wh, loss, red, work, tap, T, C, F, P, eps,
+                                 static_cast<cudaStream_t>(stream)));
+}
+
+// f32 K9's row kernel alone: dx, dh and its partial rows as f32 K7's; tap as K8's
+int hs_final_head_depth_loss_bwd_f32_rows(const void* x, const void* we, const void* gamma,
+                                          const void* beta, const void* wh, const void* t,
+                                          const void* scale, void* dx, void* dh, void* part,
+                                          void* tap, int T, int C, int F, int P, int kind,
+                                          float eps, float delta, void* stream) {
+  hs::DepthLoss loss;
+  if (!hs::depth_loss_of(t, nullptr, kind, delta, F, &loss)) return int(cudaErrorInvalidValue);
+  return int(hs::launch_f32_bwd_rows(x, we, gamma, beta, wh, loss, scale, dx, dh, part, tap, T,
+                                     C, F, P, eps, static_cast<cudaStream_t>(stream)));
+}
+
+// f32 K9: the row kernel, reduce_rows, gemm_tn_f32; red = [dWh | dgamma | dbeta]
+int hs_final_head_depth_loss_bwd_f32(const void* x, const void* we, const void* gamma,
+                                     const void* beta, const void* wh, const void* t,
+                                     const void* scale, void* dx, void* dwe, void* red,
+                                     void* work, int T, int C, int F, int P, int kind,
+                                     float eps, float delta, void* stream) {
+  hs::DepthLoss loss;
+  if (!hs::depth_loss_of(t, nullptr, kind, delta, F, &loss)) return int(cudaErrorInvalidValue);
+  return int(hs::launch_f32_bwd(x, we, gamma, beta, wh, loss, scale, dx, dwe, red, work, T, C,
+                                F, P, eps, static_cast<cudaStream_t>(stream)));
 }
 
 // out (M x N f32) = A^T B over K rows: A (K x M), B (K x N) f32, K % 16, M % 4, N % 4;

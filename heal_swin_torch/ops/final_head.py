@@ -40,13 +40,14 @@ dtype -> logits z @ Wh in f32.
   with ``final_head_loss_dwe_plain`` and ``reduce_rows_plain`` (composed:
   ``final_head_depth_loss_bwd_sequence_plain``).
 
-- Float32 (K6/K7 only): x f32 runs their f32 kernels (``csrc/final_head_f32.cu``),
-  nothing rounded below f32, as the Pallas kernels compute with f32 operands: on the
-  card a block holds one expand slice and walks the sub-pixels in an outer loop, each
-  over the same 128-row tiles (block b: tiles b, b + grid, ...), a thread per row; K7 is
-  its row kernel (dx, the f32 dh, partial rows), ``reduce_rows``, then dWe = x^T dh by an
-  f32 ``gemm_tn``.  Their steps' twins are the ones above, run in f32.  K3, K8 and K9
-  take bf16 only.
+- Float32 (K6-K9): x f32 runs their f32 kernels (``csrc/final_head_f32.cu``), nothing
+  rounded below f32, as the Pallas kernels compute with f32 operands: on the card a
+  block holds one expand slice and walks the sub-pixels in an outer loop, each over the
+  same 128-row tiles (block b: tiles b, b + grid, ...), a thread per row; K8 and K9 are
+  K6's and K7's row kernels with the depth loss in place of the cross entropy, and K8's
+  predictions are its f32 logits.  K7 and K9 are their row kernel (dx, the f32 dh,
+  partial rows), ``reduce_rows``, then dWe = x^T dh by an f32 ``gemm_tn``.  Their steps'
+  twins are the ones above, run in f32.  K3 alone takes bf16 only.
 
 Every wrapper dispatches on ``impl`` like the attention wrappers
 (``heal_swin_torch.ops._dispatch.use_kernel``): on a CUDA tensor it runs its kernel or
@@ -75,17 +76,18 @@ KERNEL_MAX_C_LOSS_BWD = 128  # the row core's widest instantiation
 # the row core holds a row's C columns in mma accumulators, one instantiation per C
 KERNEL_LOSS_CS = (32, 64, 96, 128)
 DEPTH_KINDS = ("l2", "l1", "huber", "nll")  # K8/K9's loss kinds, in their launch ids
-# the tail kernels by the library's names of their shared-memory figures; "loss" and
-# "loss_bwd" have f32 variants ("loss_f32", "loss_bwd_f32")
+# the tail kernels by the library's names of their shared-memory figures; all but
+# "predict" have f32 variants ("loss_f32", ..., "depth_loss_bwd_f32")
 KERNEL_IDS = {"predict": "K3", "loss": "K6", "loss_bwd": "K7", "depth_loss": "K8",
               "depth_loss_bwd": "K9"}
-F32_KERNELS = ("loss", "loss_bwd")
+F32_KERNELS = ("loss", "loss_bwd", "depth_loss", "depth_loss_bwd")
 
 # launch counters, bumped only where a kernel launches: per kernel, and per
 # (kernel, T, C), or (kernel, T, C, F, kind) for K8/K9
 launches = {"final_head_predict": 0, "final_head_loss": 0, "final_head_loss_bwd": 0,
             "final_head_depth_loss": 0, "final_head_depth_loss_bwd": 0,
-            "final_head_loss_f32": 0, "final_head_loss_bwd_f32": 0}
+            "final_head_loss_f32": 0, "final_head_loss_bwd_f32": 0,
+            "final_head_depth_loss_f32": 0, "final_head_depth_loss_bwd_f32": 0}
 launches_by_shape: Counter = Counter()
 
 
@@ -480,7 +482,7 @@ def final_head_depth_loss_bwd_sequence_plain(x, we, gamma, beta, wh, t, scale, *
 
 
 def _tail_refusal(what, T, C, F, max_f=KERNEL_MAX_F):
-    """Why the tail kernels (K3, K6-K9, all on the row core, and the f32 K6/K7) do not
+    """Why the tail kernels (K3, K6-K9, all on the row core, and the f32 K6-K9) do not
     take T tokens of width C with F outputs, or None where they do: C one of 32, 64, 96,
     128, 1 <= F <= ``max_f`` (32; 16 for the f32 kernels), T % 64.  The dtype and the
     shared memory are checked at the call (``_tail_operands``)."""
@@ -511,7 +513,7 @@ def kernels_take(T, C, F, dtype, train=True) -> bool:
 def _tail_operands(what, x, we, gamma, beta, wh, patch_size, kernel):
     """The checked operands of the tail kernel ``kernel`` ("predict", "loss",
     "loss_bwd", "depth_loss" or "depth_loss_bwd", as the library names its
-    shared-memory figures; x f32 takes the f32 variant of "loss" and "loss_bwd"):
+    shared-memory figures; x f32 takes the f32 variant of every one but "predict"):
     (T, C, F, we_s (p, C, C), gamma, beta, wh), the weights in x's dtype."""
     T, C = x.shape
     p = patch_size
@@ -741,12 +743,13 @@ def _depth_refusal(what, F, kind):
     return None
 
 
-def depth_kernels_take(T, C, F, kind) -> bool:
-    """Whether K8 and K9 take a depth tail of T tokens of width C, F output channels
-    and loss ``kind``: C one of 32, 64, 96, 128 (one instantiation each), T % 64.  The
-    dtype and the shared memory are checked at the call, where a tail the kernels do
-    not take raises."""
-    return _depth_refusal("", F, kind) is None and _tail_refusal("", T, C, F) is None
+def depth_kernels_take(T, C, F, kind, dtype=torch.bfloat16) -> bool:
+    """Whether K8 and K9 take a depth tail of T tokens of width C, F output channels,
+    loss ``kind`` and ``dtype``: bf16 (the tail row core) or f32 (their f32 kernels), C
+    one of 32, 64, 96, 128 (one instantiation each), T % 64.  The shared memory is
+    checked at the call, where a tail the kernels do not take raises."""
+    return (dtype in (torch.bfloat16, torch.float32) and _depth_refusal("", F, kind) is None
+            and _tail_refusal("", T, C, F) is None)
 
 
 def depth_route_takes(T, C, F, kind) -> bool:
@@ -772,9 +775,10 @@ def _depth_operands(what, x, we, gamma, beta, wh, t, patch_size, kind, kernel):
 def final_head_depth_loss_sums(x, we, gamma, beta, wh, t, *, patch_size, loss_kind,
                                huber_delta=1.0, impl="auto", tap_logits=False):
     """K8 wrapper: (sum loss, count of valid targets, predictions (T, p*F)); operands
-    as ``final_head_depth_loss_plain``.  With ``tap_logits`` a fourth result, the f32
-    logits (T, p, F) the loss took (a probe's output: on the card the kernel writes
-    them beside its sums)."""
+    as ``final_head_depth_loss_plain``; x bf16 or f32 (the f32 kernel, counted as
+    "final_head_depth_loss_f32").  With ``tap_logits`` a fourth result, the f32 logits
+    (T, p, F) the loss took (a probe's output: on the card the kernel writes them beside
+    its sums)."""
     kw = dict(patch_size=patch_size, loss_kind=loss_kind, huber_delta=huber_delta)
     if not use_kernel(x, impl):
         out = final_head_depth_loss_plain(x, we, gamma, beta, wh, t, **kw)
@@ -786,18 +790,19 @@ def final_head_depth_loss_sums(x, we, gamma, beta, wh, t, *, patch_size, loss_ki
                                                   patch_size, loss_kind, "depth_loss")
     p = patch_size
     lib = _build.lib()
+    sfx = _f32(x)
     red = torch.empty(2, dtype=torch.float32, device=x.device)
     preds = torch.empty((T, p * F), dtype=x.dtype, device=x.device)
-    work = torch.empty(lib.hs_final_head_depth_loss_workspace(T, C, F, p), dtype=torch.uint8,
-                       device=x.device)
+    work = torch.empty(getattr(lib, f"hs_final_head_depth_loss{sfx}_workspace")(T, C, F, p),
+                       dtype=torch.uint8, device=x.device)
     tap = torch.empty((T, p, F), dtype=torch.float32, device=x.device) if tap_logits else None
-    code = lib.hs_final_head_depth_loss(
+    code = getattr(lib, f"hs_final_head_depth_loss{sfx}")(
         x.data_ptr(), we_s.data_ptr(), g.data_ptr(), b.data_ptr(), whb.data_ptr(),
         t.data_ptr(), red.data_ptr(), preds.data_ptr(), work.data_ptr(),
         None if tap is None else tap.data_ptr(), T, C, F, p, DEPTH_KINDS.index(loss_kind),
         LN_EPS, float(huber_delta), stream(x))
-    check(code, what)
-    _count(what, T, C, F, loss_kind)
+    check(code, what + sfx)
+    _count(what + sfx, T, C, F, loss_kind)
     out = (red[0], red[1], preds)
     return out + (tap,) if tap_logits else out
 
@@ -805,8 +810,10 @@ def final_head_depth_loss_sums(x, we, gamma, beta, wh, t, *, patch_size, loss_ki
 def final_head_depth_loss_bwd(x, we, gamma, beta, wh, t, scale, *, patch_size, loss_kind,
                               huber_delta=1.0, impl="auto"):
     """K9 wrapper: the backward of K8, one entry that launches its sequence (the row
-    kernel, ``gemm_tn`` for dWe, ``reduce_rows`` over the partial rows); operands and
-    results as ``final_head_depth_loss_bwd_plain``."""
+    kernel, ``gemm_tn`` for dWe, ``reduce_rows`` over the partial rows; for f32 x the f32
+    row kernel, ``reduce_rows`` and ``gemm_tn_f32``, counted as
+    "final_head_depth_loss_bwd_f32"); operands and results as
+    ``final_head_depth_loss_bwd_plain``."""
     kw = dict(patch_size=patch_size, loss_kind=loss_kind, huber_delta=huber_delta)
     if not use_kernel(x, impl):
         return final_head_depth_loss_bwd_plain(x, we, gamma, beta, wh, t, scale, **kw)
@@ -816,19 +823,20 @@ def final_head_depth_loss_bwd(x, we, gamma, beta, wh, t, scale, *, patch_size, l
     p = patch_size
     scale = scale.to(device=x.device, dtype=torch.float32).reshape(1).contiguous()
     lib = _build.lib()
+    sfx = _f32(x)
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     dwe = torch.empty((C, p * C), **f32)
     red = torch.empty(C * F + 2 * C, **f32)
-    work = torch.empty(lib.hs_final_head_depth_loss_bwd_workspace(T, C, F, p),
+    work = torch.empty(getattr(lib, f"hs_final_head_depth_loss_bwd{sfx}_workspace")(T, C, F, p),
                        dtype=torch.uint8, device=x.device)
-    code = lib.hs_final_head_depth_loss_bwd(
+    code = getattr(lib, f"hs_final_head_depth_loss_bwd{sfx}")(
         x.data_ptr(), we_s.data_ptr(), g.data_ptr(), b.data_ptr(), whb.data_ptr(),
         t.data_ptr(), scale.data_ptr(), dx.data_ptr(), dwe.data_ptr(), red.data_ptr(),
         work.data_ptr(), T, C, F, p, DEPTH_KINDS.index(loss_kind), LN_EPS,
         float(huber_delta), stream(x))
-    check(code, what)
-    _count(what, T, C, F, loss_kind)
+    check(code, what + sfx)
+    _count(what + sfx, T, C, F, loss_kind)
     dwh, dg, db = red.split([C * F, C, C])
     return dx, dwe, dg, db, dwh.reshape(C, F)
 
@@ -852,14 +860,15 @@ def final_head_depth_loss_bwd_rows(x, we, gamma, beta, wh, t, scale, *, patch_si
     p = patch_size
     scale = scale.to(device=x.device, dtype=torch.float32).reshape(1).contiguous()
     lib = _build.lib()
-    grid = lib.hs_final_head_depth_loss_bwd_grid(T, C, F, p)
+    sfx = _f32(x)
+    grid = getattr(lib, f"hs_final_head_depth_loss_bwd{sfx}_grid")(T, C, F, p)
     if grid < 1:
         raise RuntimeError(f"{what}: no grid for T={T}, C={C}, F={F}, p={p}")
     dx = torch.empty_like(x)
     dh = torch.empty((T, p * C), dtype=x.dtype, device=x.device)
     part = torch.empty((grid, C * F + 2 * C), dtype=torch.float32, device=x.device)
     tap = torch.empty((T, p, F), dtype=torch.float32, device=x.device) if tap_logits else None
-    code = lib.hs_final_head_depth_loss_bwd_rows(
+    code = getattr(lib, f"hs_final_head_depth_loss_bwd{sfx}_rows")(
         x.data_ptr(), we_s.data_ptr(), g.data_ptr(), b.data_ptr(), whb.data_ptr(),
         t.data_ptr(), scale.data_ptr(), dx.data_ptr(), dh.data_ptr(), part.data_ptr(),
         None if tap is None else tap.data_ptr(), T, C, F, p, DEPTH_KINDS.index(loss_kind),

@@ -1,16 +1,26 @@
 """The paper's run-config values for the port (the port's copy of the functions in the
-repo's ``run_configs/_common.py``, which import the JAX package and so cannot run where
-the port runs): the HEAL-SWIN paper architecture, the SynWoodScape-large class weights
-and the paper learning rate.
+repo's ``run_configs/_common.py`` and of the paper depth run config
+``run_configs/depth_estimation/depth_swin_hp_train_run_config.py``, which import the JAX
+package and so cannot run where the port runs): the HEAL-SWIN paper architecture, the
+SynWoodScape-large class weights, the paper learning rate, and the depth run's model,
+data and clipping settings.
 
 The paper configs compute in float32 (the model config's ``dtype`` None) with
 ``drop_rate = attn_drop_rate = 0.1`` and the default ``drop_path_rate`` 0.1, and train
-with Adam at ``PAPER_LR``, batch 2 per device.
+with Adam, batch 2 per device: segmentation at ``PAPER_LR``, depth at
+``PAPER_DEPTH_LR`` with the masked l2 loss on standardized depths.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
+from heal_swin_torch.data.data_config import (WoodscapeCommonConfig,
+                                              WoodscapeDepthCommonConfig,
+                                              WoodscapeHPDepthConfig)
 from heal_swin_torch.models.swin_hp import SwinHPTransformerConfig
+from heal_swin_torch.models.tasks import CommonDepthConfig, WoodscapeDepthSwinHPConfig
+from heal_swin_torch.training.optimizer import OptimizerConfig
 
 # class weights of the segmentation run configs (CE class balancing), 8 classes
 SYNWOODSCAPE_LARGE_WEIGHTS = [
@@ -34,3 +44,42 @@ def paper_swin_hp_config(**overrides) -> SwinHPTransformerConfig:
     )
     fields.update(overrides)
     return SwinHPTransformerConfig(**fields)
+
+
+PAPER_DEPTH_LR = 0.005
+
+
+class PaperDepthConfig(NamedTuple):
+    """The paper depth run: the task's model config, its data config, and the trainer's
+    gradient clipping (0: none)."""
+
+    model: WoodscapeDepthSwinHPConfig
+    data: WoodscapeHPDepthConfig
+    gradient_clip_val: float
+
+
+def paper_depth_config(**overrides) -> PaperDepthConfig:
+    """The paper depth run config: the paper architecture (``overrides`` set on it, as
+    in ``paper_swin_hp_config``), Adam at ``PAPER_DEPTH_LR`` without weight decay or
+    scheduler, the l2 loss without a logvar channel, batch 2 at nside 256 on 8 base
+    pixels, background masked, depths standardized and not transformed, no gradient
+    clipping."""
+    model = WoodscapeDepthSwinHPConfig(
+        swin_hp_transformer_config=paper_swin_hp_config(**overrides),
+        optimizer_config=OptimizerConfig(learning_rate=PAPER_DEPTH_LR, scheduler=None,
+                                         weight_decay=0.0),
+        common_depth_config=CommonDepthConfig(loss="l2", use_logvar=False,
+                                              train_uncertainty_after=-1, huber_delta=1),
+    )
+    data = WoodscapeHPDepthConfig(
+        common=WoodscapeCommonConfig(
+            train_worker=5, val_worker=5, shuffle=True, batch_size=2, val_batch_size=4,
+            pred_batch_size=4, manual_overfit_batches=0, pred_samples=10,
+            rotate_pole=False, seed=42, cam_pos=None, train_share=0.8, crop_green=False,
+            version="synwoodscape",
+        ),
+        common_depth=WoodscapeDepthCommonConfig(mask_background=True, data_transform=None,
+                                                normalize_data="standardize"),
+        pred_part="val", input_nside=256, input_base_pix=8, shuffle_train_val_split=True,
+    )
+    return PaperDepthConfig(model, data, 0)

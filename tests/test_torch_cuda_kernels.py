@@ -534,10 +534,11 @@ def test_kernels_refuse_what_they_do_not_take(dev):
 
 def test_auto_refuses_what_the_kernels_do_not_take(dev):
     """Under "auto" a CUDA tensor that the kernels were not written for (float32 where
-    the kernel has no f32 variant -- K3, K8 and the attention kernels --, the window 16)
-    raises with no launch, naming impl="xla", which runs the plain version: no launch,
-    and bit for bit the plain version's result.  (K6 and K7 take float32 since their f32
-    kernels: ``test_final_head_loss_f32_kernels``.)"""
+    the kernel has no f32 variant -- K3 and the attention kernels --, an f32 depth tail
+    at a width without an instantiation, the window 16) raises with no launch, naming
+    impl="xla", which runs the plain version: no launch, and bit for bit the plain
+    version's result.  (K6-K9 take float32 since their f32 kernels:
+    ``test_final_head_loss_f32_kernels``, ``test_final_head_depth_loss_f32_kernels``.)"""
     gen = torch.Generator().manual_seed(12)
     C, T, h = 64, 64 * 4, 2
     x = _randn(gen, dev, T, C)
@@ -546,7 +547,7 @@ def test_auto_refuses_what_the_kernels_do_not_take(dev):
     bias16 = _randn(gen, dev, h, 16, 16)
     ls = torch.exp(_randn(gen, dev, h, std=0.5) + 2.3)
     tail = _loss_args(gen, dev, T, C, 10)
-    depth_t = torch.randn(T, 4, generator=gen).to(dev)
+    depth48 = _depth_args_f32(gen, dev, T, 48, 1)
     cases = [
         (wa.window_attention_qkv_fwd, wa.window_attention_qkv_plain,
          (x, wq, bq, None, None, None),
@@ -564,8 +565,8 @@ def test_auto_refuses_what_the_kernels_do_not_take(dev):
          dict(ws=16, num_heads=h, sm_scale=0.2)),
         (fh.final_head_predict, fh.final_head_predict_plain, (tail[0].float(),) + tail[1:5],
          dict(patch_size=4)),
-        (fh.final_head_depth_loss_sums, fh.final_head_depth_loss_plain,
-         (tail[0].float(),) + tail[1:5] + (depth_t,), dict(patch_size=4, loss_kind="l2")),
+        (fh.final_head_depth_loss_sums, fh.final_head_depth_loss_plain, depth48,
+         dict(patch_size=4, loss_kind="l2")),
     ]
     for fn, plain, args, kw in cases:
         before = (dict(wa.launches), dict(fh.launches))
@@ -1019,8 +1020,8 @@ def test_depth_kernels_refuse_what_they_do_not_take(dev):
     wide = _depth_args(gen, dev, 128, 144, 1)
     with pytest.raises(ValueError, match="C <= 128"):
         fh.final_head_depth_loss_bwd(*wide, one, patch_size=4, loss_kind="l2", impl="pallas")
-    with pytest.raises(ValueError, match="bfloat16"):
-        fh.final_head_depth_loss_sums(args[0].float(), *args[1:], patch_size=4,
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        fh.final_head_depth_loss_sums(args[0].half(), *args[1:], patch_size=4,
                                       loss_kind="l2", impl="pallas")
 
 
@@ -1616,26 +1617,175 @@ def test_final_head_loss_f32_function_backward_through_kernels(dev):
 
 
 def test_f32_tails_without_a_kernel_refuse(dev):
-    """Float32 tokens on the tail kernels without an f32 variant -- K3 (predict), K8 and
-    K9 (depth loss) -- raise under "auto" and "pallas" with no launch, naming the kernel
-    and impl="xla"; the f32 K6/K7 refuse heads wider than 16 columns."""
+    """Float32 tokens on the tail kernel without an f32 variant -- K3 (predict) -- raise
+    under "auto" and "pallas" with no launch, naming the kernel and impl="xla"; so does an
+    f32 depth tail at C 48, which the f32 K8/K9 have no instantiation for; the f32 K6/K7
+    refuse heads wider than 16 columns."""
     gen = torch.Generator().manual_seed(43)
     one = torch.ones((), device=dev)
     args = _loss_args_f32(gen, dev, 128, 96, 8)
-    t = torch.randn(128, 4, generator=gen).to(dev)
+    d48 = _depth_args_f32(gen, dev, 128, 48, 2)
     wide = _loss_args_f32(gen, dev, 128, 96, 17)
     before = dict(fh.launches)
     for impl in ("auto", "pallas"):
         with pytest.raises(ValueError, match=r"\(K3\).*bfloat16.*impl='xla'"):
             fh.final_head_predict(*args[:5], patch_size=4, impl=impl)
-        with pytest.raises(ValueError, match=r"\(K8\).*bfloat16.*impl='xla'"):
-            fh.final_head_depth_loss_sums(*args[:4], args[4][:, :1], t, patch_size=4,
+        with pytest.raises(ValueError, match=r"\(K8\).*C % 32 == 0 and C <= 128.*impl='xla'"):
+            fh.final_head_depth_loss_sums(*d48[:4], d48[4][:, :1], d48[5], patch_size=4,
                                           loss_kind="l2", impl=impl)
-        with pytest.raises(ValueError, match=r"\(K9\).*bfloat16.*impl='xla'"):
-            fh.final_head_depth_loss_bwd(*args[:4], args[4][:, :2], t, one, patch_size=4,
-                                         loss_kind="nll", impl=impl)
+        with pytest.raises(ValueError, match=r"\(K9\).*C % 32 == 0 and C <= 128.*impl='xla'"):
+            fh.final_head_depth_loss_bwd(*d48, one, patch_size=4, loss_kind="nll", impl=impl)
         with pytest.raises(ValueError, match=r"\(K6\).*F <= 16.*impl='xla'"):
             fh.final_head_loss_sums(*wide, patch_size=4, impl=impl)
         with pytest.raises(ValueError, match=r"\(K7\).*F <= 16.*impl='xla'"):
             fh.final_head_loss_bwd(*wide, one, patch_size=4, impl=impl)
     assert dict(fh.launches) == before
+
+
+# --- the f32 K8 / K9 (csrc/final_head_f32.cu): K6's and K7's f32 row kernels with the
+# masked depth loss, held to the plain versions in f32 with TF32 off: the count exact,
+# the loss sum within 1e-5 relative, the f32 predictions and every gradient and step
+# within relative L2 1e-5 (F32_TOL)
+def _depth_args_f32(gen, dev, T, C, F, p=4):
+    return (_randn(gen, dev, T, C),) + _depth_args(gen, dev, T, C, F, p)[1:]
+
+
+def _check_f32_depth(args, kw, scale):
+    T, p, F = args[0].shape[0], kw["patch_size"], args[4].shape[1]
+    num, den, preds = fh.final_head_depth_loss_sums(*args, **kw)
+    wnum, wden, wpreds = fh.final_head_depth_loss_plain(*args, **kw)
+    assert float(den) == float(wden) == float(torch.isfinite(args[5]).sum())
+    assert abs(float(num) - float(wnum)) <= F32_TOL * abs(float(wnum))
+    assert preds.dtype == torch.float32 and tuple(preds.shape) == (T, p * F)
+    assert _rel_l2(preds, wpreds) <= F32_TOL
+    got = fh.final_head_depth_loss_bwd(*args, scale, **kw)
+    assert all(g.dtype == torch.float32 for g in got)
+    _assert_grads_close(got, fh.final_head_depth_loss_bwd_plain(*args, scale, **kw),
+                        tol=F32_TOL)
+    if F == 2 and kw["loss_kind"] != "nll":  # the logvar channel gets no gradient
+        assert float(got[4][:, 1].abs().max()) == 0.0
+    again = fh.final_head_depth_loss_bwd(*args, scale, **kw)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
+@pytest.mark.parametrize("C", [32, 64, 96, 128])
+@pytest.mark.parametrize("kind,F,delta", DEPTH_CASES)
+def test_final_head_depth_loss_f32_kernels(dev, no_tf32, kind, F, delta, C):
+    """The f32 K8 and K9 at each instantiation (C 32-128) for every loss kind and head,
+    on a T whose last 128-row tile is half full, against their plain versions; counted
+    as the f32 kernels, the bf16 counters untouched."""
+    gen = torch.Generator().manual_seed(60 + C + F)
+    T, p = 64 * 65, 4
+    args = _depth_args_f32(gen, dev, T, C, F, p)
+    kw = dict(patch_size=p, loss_kind=kind, huber_delta=delta)
+    before = dict(fh.launches)
+    _check_f32_depth(args, kw, torch.tensor(1.3, device=dev) / torch.isfinite(args[5]).sum())
+    torch.cuda.synchronize()
+    assert fh.launches["final_head_depth_loss_f32"] == before["final_head_depth_loss_f32"] + 1
+    assert (fh.launches["final_head_depth_loss_bwd_f32"]
+            == before["final_head_depth_loss_bwd_f32"] + 2)
+    assert fh.launches["final_head_depth_loss"] == before["final_head_depth_loss"]
+    assert fh.launches["final_head_depth_loss_bwd"] == before["final_head_depth_loss_bwd"]
+
+
+def test_final_head_depth_loss_f32_kernels_at_the_paper_tail(dev, no_tf32):
+    """The f32 K8 and K9 at the depth paper config's tail: T 262,144, C 96, p 4, l2, F 1."""
+    gen = torch.Generator().manual_seed(61)
+    args = _depth_args_f32(gen, dev, 262144, 96, 1)
+    _check_f32_depth(args, dict(patch_size=4, loss_kind="l2"),
+                     torch.tensor(1.0, device=dev) / torch.isfinite(args[5]).sum())
+
+
+def test_final_head_depth_loss_f32_kernels_without_depth(dev, no_tf32):
+    """In f32 as in bf16: an all-background tile gets exactly 0 gradients, NaN targets are
+    background (bit-equal to inf), an all-background batch gives count 0, loss sum 0 and
+    exactly 0 gradients."""
+    gen = torch.Generator().manual_seed(62)
+    T, p = 64 * 16, 4
+    args = list(_depth_args_f32(gen, dev, T, 96, 2))
+    kw = dict(patch_size=p, loss_kind="nll")
+    t = args[5].clone()
+    t[:64] = float("inf")
+    t[64::5, 2] = float("nan")
+    t_inf = torch.where(torch.isnan(t), float("inf"), t)
+    one = torch.ones((), device=dev)
+    res = [fh.final_head_depth_loss_sums(*args[:5], tt, **kw) for tt in (t, t_inf)]
+    grads = [fh.final_head_depth_loss_bwd(*args[:5], tt, one / res[0][1], **kw)
+             for tt in (t, t_inf)]
+    assert float(res[0][1]) == float(torch.isfinite(t).sum())
+    assert all(torch.equal(a, b) for a, b in zip(*res))
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+    assert float(grads[0][0][:64].abs().max()) == 0.0
+    bg = torch.full_like(t, float("inf"))
+    num, den, _ = fh.final_head_depth_loss_sums(*args[:5], bg, **kw)
+    assert float(num) == 0.0 and float(den) == 0.0
+    for g in fh.final_head_depth_loss_bwd(*args[:5], bg, one, **kw):
+        assert float(g.abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("T,C,kind,F", [(64 * 65, 96, "l2", 1), (64 * 33, 32, "nll", 2),
+                                        (64 * 65, 128, "huber", 1), (262144, 96, "l2", 1)])
+def test_final_head_depth_loss_f32_bwd_sequence_kernels(dev, no_tf32, T, C, kind, F):
+    """Each step of the f32 K9's launch sequence against its plain twin, run in f32: the
+    row kernel (dx, dh, the partial rows on its grid), ``reduce_rows`` and
+    ``gemm_tn_f32`` (dWe = x^T dh), each on the kernel's own input; and K9 is the three
+    steps composed, bit for bit."""
+    gen = torch.Generator().manual_seed(T + C + F + 5)
+    p = 4
+    args = _depth_args_f32(gen, dev, T, C, F, p)
+    kw = dict(patch_size=p, loss_kind=kind, huber_delta=0.5)
+    scale = torch.tensor(1.3, device=dev) / torch.isfinite(args[5]).sum()
+    dx, dh, part = fh.final_head_depth_loss_bwd_rows(*args, scale, **kw)
+    assert dx.dtype == dh.dtype == torch.float32
+    grid = part.shape[0]
+    assert 1 <= grid <= -(-T // fh.TAIL_TILE_ROWS)
+    _assert_grads_close((dx, dh, part), fh.final_head_depth_loss_bwd_rows_plain(
+        *args, scale, **kw, grid=grid), tol=F32_TOL)
+    dwe = fh.final_head_loss_dwe(args[0], dh)
+    _assert_grads_close((dwe,), (fh.final_head_loss_dwe_plain(args[0], dh),), tol=F32_TOL)
+    red = fh.reduce_rows(part)
+    _assert_grads_close((red,), (fh.reduce_rows_plain(part),), tol=F32_TOL)
+    dwh, dg, db = red.split([C * F, C, C])
+    whole = fh.final_head_depth_loss_bwd(*args, scale, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(whole, (dx, dwe, dg, db, dwh.reshape(C, F))))
+
+
+@pytest.mark.parametrize("T,C,kind,F", [(64 * 65, 32, "l2", 1), (64 * 65, 96, "nll", 2),
+                                        (64 * 33, 128, "l2", 2), (262144, 96, "l2", 1)])
+def test_final_head_depth_loss_f32_bwd_recomputes_the_forward_logits(dev, no_tf32, T, C,
+                                                                     kind, F):
+    """The f32 K9's row kernel recomputes the f32 K8's logits bit for bit (both logits
+    taps, ``torch.equal``); K8's predictions are its tap; both within 1e-5 of the plain
+    version's logits."""
+    gen = torch.Generator().manual_seed(T + C + 6)
+    p = 4
+    args = _depth_args_f32(gen, dev, T, C, F, p)
+    kw = dict(patch_size=p, loss_kind=kind)
+    _, _, preds, lf8 = fh.final_head_depth_loss_sums(*args, **kw, tap_logits=True)
+    lf9 = fh.final_head_depth_loss_bwd_rows(*args, torch.tensor(1.0, device=dev), **kw,
+                                            tap_logits=True)[3]
+    assert lf8.shape == (T, p, F) and lf8.dtype == torch.float32
+    assert int((lf8 != 0).sum()) > T * p * F // 2
+    assert torch.equal(lf8, lf9)
+    assert torch.equal(preds, lf8.reshape(T, p * F))
+    assert _rel_l2(lf8, fh.final_head_logits_plain(*args[:5], patch_size=p)) < F32_TOL
+
+
+def test_final_head_depth_loss_f32_function_backward_through_kernels(dev):
+    """``final_head_depth_loss`` on f32 tokens: the f32 K8 forward, the f32 K9 backward,
+    f32 predictions without a gradient, every gradient f32."""
+    gen = torch.Generator().manual_seed(63)
+    args = list(_depth_args_f32(gen, dev, 64 * 16, 96, 2))
+    for i in range(5):
+        args[i] = args[i].clone().requires_grad_()
+    before = dict(fh.launches)
+    loss, preds = fh.final_head_depth_loss(*args, patch_size=4, loss_kind="nll")
+    loss.backward()
+    torch.cuda.synchronize()
+    assert fh.launches["final_head_depth_loss_f32"] == before["final_head_depth_loss_f32"] + 1
+    assert (fh.launches["final_head_depth_loss_bwd_f32"]
+            == before["final_head_depth_loss_bwd_f32"] + 1)
+    assert preds.dtype == torch.float32 and not preds.requires_grad
+    for t in args[:5]:
+        assert t.grad is not None and t.grad.dtype == torch.float32
+        assert torch.isfinite(t.grad).all()

@@ -184,10 +184,19 @@ def test_depth_loss_function_matches_autograd_of_plain(kind, F, delta):
 
 
 def test_depth_kernels_take():
-    """The shapes and kinds K8/K9 take: C one of 32, 64, 96, 128 (one instantiation of
-    the tail row core each).  The depth task's fused gate (``depth_route_takes``) still
-    admits C % 16 up to 128; on the card the wrappers refuse the widths without an
-    instantiation."""
+    """The shapes, kinds and dtypes K8/K9 take: C one of 32, 64, 96, 128 (one
+    instantiation of the tail row core each, and of their f32 kernels), bf16 or f32.
+    The depth task's fused gate (``depth_route_takes``) still admits C % 16 up to 128; on
+    the card the wrappers refuse the widths without an instantiation."""
+    f32 = torch.float32
+    for C in (32, 64, 96, 128):  # the f32 kernels: the same shapes and kinds
+        assert fh.depth_kernels_take(262144, C, 1, "l2", f32), C
+        assert fh.depth_kernels_take(128, C, 2, "nll", f32), C
+        assert fh.depth_kernels_take(128, C, 1, "huber", f32), C
+        assert not fh.depth_kernels_take(128, C, 1, "nll", f32), C
+    assert not fh.depth_kernels_take(128, 48, 1, "l2", f32)  # no instantiation
+    assert not fh.depth_kernels_take(96, 32, 1, "l2", f32)  # T % 64
+    assert not fh.depth_kernels_take(128, 32, 1, "l2", torch.float16)
     assert fh.depth_kernels_take(262144, 96, 1, "l2")
     assert fh.depth_kernels_take(128, 32, 2, "nll")
     assert fh.depth_kernels_take(128, 64, 1, "huber")

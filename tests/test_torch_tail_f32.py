@@ -1,5 +1,6 @@
 """The decoder tail in float32 on the CPU: the operands the f32 K6/K7 take, the f32
-refusals that remain (K3, K8, K9), and the plain step twins of the f32 K7 at the paper
+refusals that remain (K3; K8 and K9 at a width without an instantiation), and the plain
+step twins of the f32 K7 at the paper
 config's head (C 96, p 4, F 8) against the JAX package's Pallas kernel in interpret mode.
 
 On the card the f32 K6/K7 (``csrc/final_head_f32.cu``) walk the bf16 kernels' partition:
@@ -77,19 +78,25 @@ def test_f32_kernels_take():
 
 def test_f32_tails_without_a_kernel_refuse_on_a_cuda_tensor(monkeypatch):
     """Where the kernels would run (``use_kernel`` forced true, as for a CUDA tensor),
-    f32 tokens on K3 (predict), K8 and K9 (depth loss) raise before any launch, naming
-    the kernel and impl="xla"; so do f32 heads of more than 16 columns on K6 and K7."""
+    f32 tokens on K3 (predict) raise before any launch, naming the kernel and
+    impl="xla"; so do an f32 depth tail at C 48 on K8 and K9 (their f32 kernels, like
+    the bf16 ones, have no instantiation of that width) and f32 heads of more than 16
+    columns on K6 and K7."""
     monkeypatch.setattr(fh, "use_kernel", lambda t, impl: impl != "xla")
     x, we, g, b, wh, y, w = (torch.from_numpy(a) for a in _operands())
-    t = torch.randn(T, P, generator=torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(0)
+    t = torch.randn(T, P, generator=gen)
+    x48, we48 = torch.randn(T, 48, generator=gen), torch.randn(48, P * 48, generator=gen)
+    g48, b48, wh48 = torch.ones(48), torch.zeros(48), torch.randn(48, 2, generator=gen)
     one = torch.ones(())
     before = dict(fh.launches)
     with pytest.raises(ValueError, match=r"\(K3\).*bfloat16.*impl='xla'"):
         fh.final_head_predict(x, we, g, b, wh, patch_size=P)
-    with pytest.raises(ValueError, match=r"\(K8\).*bfloat16.*impl='xla'"):
-        fh.final_head_depth_loss_sums(x, we, g, b, wh[:, :1], t, patch_size=P, loss_kind="l2")
-    with pytest.raises(ValueError, match=r"\(K9\).*bfloat16.*impl='xla'"):
-        fh.final_head_depth_loss_bwd(x, we, g, b, wh[:, :2], t, one, patch_size=P,
+    with pytest.raises(ValueError, match=r"\(K8\).*C % 32 == 0 and C <= 128.*impl='xla'"):
+        fh.final_head_depth_loss_sums(x48, we48, g48, b48, wh48[:, :1], t, patch_size=P,
+                                      loss_kind="l2")
+    with pytest.raises(ValueError, match=r"\(K9\).*C % 32 == 0 and C <= 128.*impl='xla'"):
+        fh.final_head_depth_loss_bwd(x48, we48, g48, b48, wh48, t, one, patch_size=P,
                                      loss_kind="nll")
     wide = torch.randn(C, 17)
     yw = torch.zeros(T, P, dtype=torch.int32)
