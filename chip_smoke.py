@@ -26,10 +26,15 @@ the plain XLA route, so the f32 K6/K7 are its only kernels); then the depth pape
 config's own train step (``paper_depth_config``: the same network in float32 with one
 output channel, the masked l2 loss on standardized depths, Adam at 0.005): the f32 K8/K9
 against their plain versions at its tail for every loss kind and head, then its train
-step through both paths on the same dropout masks (the f32 K8/K9 its only kernels); and
-last the kernels' refusal: small models the kernels do not take (float32 without
-dropout, window 16), K3 on float32 tokens and an f32 depth tail at C 48 raise under
-"auto" with no launch, and run the plain versions under "xla".
+step through both paths on the same dropout masks (the f32 K8/K9 its only kernels); then
+both paper configs' f32 forward in eval mode, where no dropout is active and every block
+runs the f32 window-attention kernels: the f32 K1 (a launch sequence), K2 and K3 against
+their plain versions at every paper shape, each config's predict and its validation
+(``training.trainer.run_validation``, 3 batches) through both paths, and the Chamfer
+writer through the predict loop (``training.trainer.predict``); and last the kernels'
+refusal: small models the kernels do not take (scaled-dot float32 without dropout,
+window 16, float32 cosine in training), and an f32 tail at C 48, raise under "auto"
+with no launch, and run the plain versions under "xla".
 
     python3 chip_smoke.py            # needs one CUDA GPU; exits non-zero otherwise
 
@@ -45,9 +50,12 @@ after; each kernel's ``launches`` in the results line comes from the run that us
 depth train step for K8, K9; the writer for K10, K11; the MLP phase for K12-K15, which
 no configuration's train step or predict launches; the scaled-dot train step for K2,
 K5, K16, K17; the paper config's f32 train step for the f32 K6 and K7, and the depth
-paper config's for the f32 K8 and K9, whose ``bound_ms`` takes the 3xTF32 rate, a third
-of the TF32 peak, and which add ``device_ms``, a traced call's device time, and
-``route_ms``, the composed PyTorch route in f32).  For K1-K9 and K12-K15 ``ms`` / ``plain_ms`` / ``bound_ms`` are sums, over
+paper config's for the f32 K8 and K9, the paper segmentation config's predict for the f32
+K1, K2 and K3, whose ``bound_ms`` takes the 3xTF32 rate, a third of the TF32 peak, and
+which add ``device_ms``, one call's device time (``spin_ms``), and, for the tails,
+``route_ms``, the composed PyTorch route in f32; the f32 K2's ``library_ms`` is one f32
+``scaled_dot_product_attention`` on its operands, in the scaled-dot flavour).  For K1-K9
+and K12-K15 ``ms`` / ``plain_ms`` / ``bound_ms`` are sums, over
 the shapes that run launched the kernel at, of one call's median time (its plain
 version's; the least time the card could take, from the shapes) times the number of
 such launches; K12-K15 add ``route_ms``, the port's composed cuBLAS / ATen route, and
@@ -178,6 +186,33 @@ def median_ms(fn, runs=TIMING_RUNS, warmup=3) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def spin_ms(fn, runs=TIMING_RUNS, warmup=3) -> float:
+    """One call's device time: the median of ``runs`` CUDA-event timings, each call
+    enqueued while a spin kernel (``torch.cuda._sleep``, four times the call's host time
+    at ~2 GHz) holds the stream, so that the events time the device's work and not the
+    host's launch path (``tools/attention_pair_timing.py``'s ``device_ms``; the
+    profiler's records of a launch sequence can be dropped)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    cycles = int(4 * max(time.perf_counter() - t0, 1e-4) * 2e9)
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
         start.record()
         fn()
         end.record()
@@ -430,16 +465,16 @@ def tail_inputs(rnd, gen, dev):
     return x, we, g, b, wh, y, welem
 
 
-def pred_route(args, p):
+def pred_route(args, p, dtype=torch.bfloat16):
     """The composed PyTorch route for K3's function on its operands (x, we, gamma, beta,
-    wh): bf16 ``F.linear`` for the expand, ``F.layer_norm`` on the bf16 sub-rows, bf16
-    ``F.linear`` for the head and ``argmax``.  Returns forward(), which gives the (T, p)
-    classes."""
+    wh), in ``dtype`` (bf16, or f32 for the f32 kernel): ``F.linear`` for the expand,
+    ``F.layer_norm`` on the sub-rows, ``F.linear`` for the head and ``argmax``.  Returns
+    forward(), which gives the (T, p) classes."""
     import torch.nn.functional as tF
 
     x, we, g, b, wh = args
     T, C = x.shape
-    wet, gr, br, wht = (t.to(torch.bfloat16).contiguous() for t in (we.t(), g, b, wh.t()))
+    wet, gr, br, wht = (t.to(dtype).contiguous() for t in (we.t(), g, b, wh.t()))
 
     def forward():
         with torch.no_grad():
@@ -645,6 +680,8 @@ def check_depth_kernels(name, dargs, p, kind, fh, timing=True):
         if f32:
             by8, dev8 = device_ms(lambda: fh.final_head_depth_loss_sums(*dargs, **kw,
                                                                         impl="pallas"))
+            dev9 = spin_ms(lambda: fh.final_head_depth_loss_bwd(*dargs, scale, **kw,
+                                                                impl="pallas"))
     if (kind, F) != ("l2", 1):
         raise ValueError(f"the depth route is the l2 loss of one channel, not {kind} F={F}")
     route_f, route_b = depth_route(dargs, p, x.dtype)
@@ -656,7 +693,7 @@ def check_depth_kernels(name, dargs, p, kind, fh, timing=True):
     bwd = dict(rel_l2=gerr, max_abs_err=gmae, ms=ms9, plain_ms=pms9, route_ms=rms9)
     if f32:
         by9 = {kname: ms / SEQUENCE_TRACED for kname, (ms, _) in per.items()}
-        fwd["device_ms"], bwd["device_ms"] = dev8, sum(by9.values())
+        fwd["device_ms"], bwd["device_ms"] = dev8, dev9
         for k, by in (("f32 K8", by8), ("f32 K9", by9)):
             for kname, ms in sorted(by.items(), key=lambda kv: -kv[1]):
                 part_of = next((v for n, v in F32_DEPTH_STEPS.items() if n in kname), None)
@@ -1315,7 +1352,8 @@ NO_LAUNCHES = {k: 0 for k in (
     "chamfer_min_both", "chamfer_fold_pairs", "mlp_fwd", "mlp_bwd", "mlp_block_fwd",
     "mlp_block_bwd", "window_attention_qkv", "window_attention_qkv_bwd",
     "final_head_loss_f32", "final_head_loss_bwd_f32", "final_head_depth_loss_f32",
-    "final_head_depth_loss_bwd_f32")}
+    "final_head_depth_loss_bwd_f32", "window_attention_qkv_epi_f32", "window_attention_f32",
+    "final_head_predict_f32")}
 # the window-attention launches of one pass of the paper model: cosine blocks at
 # C <= 384 run K1 (K4 backward), scaled-dot ones K16 (K17); the C = 768 ones K2 (K5)
 ATTN_LAUNCHES = {True: dict(window_attention_qkv_epi=20, window_attention=2),
@@ -1401,12 +1439,12 @@ def profile(label, fn, n) -> float:
     return busy / n
 
 
-def check_blocks(label, task_k, io):
+def check_blocks(label, task_k, io, tol=REL_L2_TOL):
     """Every block of the kernel path on the plain path's input to that block (``io``,
     from ``record_blocks``): its residual branch (output - input) against the plain
-    block's, held to the one-kernel tolerance.  This checks each kernel where the model
-    calls it (the operands the model builds: rel-pos bias gather, mask groups, shifts,
-    LN) without the drift 22 blocks of random weights add on end to end."""
+    block's, held to ``tol`` (the one-kernel tolerance in bf16).  This checks each kernel
+    where the model calls it (the operands the model builds: rel-pos bias gather, mask
+    groups, shifts, LN) without the drift 22 blocks of random weights add on end to end."""
     if len(io) != 22:
         raise AssertionError(f"{label}: recorded {len(io)} blocks")
     blocks_k = dict(task_k.model.named_modules())
@@ -1415,9 +1453,9 @@ def check_blocks(label, task_k, io):
         for name, (x, y_p) in io.items():
             y_k = blocks_k[name](x)
             worst = max(worst, check_close(f"{label} block {name}", y_k.float() - x.float(),
-                                           y_p.float() - x.float())[0])
+                                           y_p.float() - x.float(), tol)[0])
     log(f"{label}: each of the {len(io)} blocks on the plain path's input: residual branch "
-        f"rel_l2 <= {worst:.3e} (tol {REL_L2_TOL})")
+        f"rel_l2 <= {worst:.3e} (tol {tol})")
 
 
 def check_slice(task_k, task_p, imgs, timed, label="slice"):
@@ -1803,12 +1841,11 @@ def scene_depth(theta, phi, cam):
     return np.where(down > 0.05, ground, np.where(down < SKY, np.nan, wall))
 
 
-def chamfer_batch(dev):
-    """The writer's batch of CHAMFER_BATCH samples, one per camera, as the depth
-    datamodule delivers it: HP targets standardized with the masked depth stats
-    (background inf), metric flat targets at 1280 x 966 (1000 for sky, inf outside
-    the lens), names and calibrations; and the paper depth model's (the depth train
-    phase's seeded weights) metric-depth predictions for seeded images."""
+def chamfer_targets(n):
+    """The writer's batch of ``n`` samples, one per camera, as the depth datamodule
+    delivers it: HP targets standardized with the masked depth stats (background inf),
+    metric flat targets at 1280 x 966 (1000 for sky, inf outside the lens), names and
+    calibrations."""
     from heal_swin_torch.data import normalize_depth_data as ndd
     from heal_swin_torch.projection import fisheye
 
@@ -1816,7 +1853,7 @@ def chamfer_batch(dev):
     theta_hp, phi_hp = fisheye.hp_grid_angles(NSIDE, 8)
     u, v = fisheye.get_uv_from_hw(FLAT_H, FLAT_W, (FLAT_H, FLAT_W))
     hp_masks, masks, names, cals = [], [], [], []
-    for i in range(CHAMFER_BATCH):
+    for i in range(n):
         cal = woodscape_cal(CAMS[i % len(CAMS)], K_SCALE * (1 + 0.01 * i))
         theta, phi = fisheye.project_img_points_to_s2(u, v, cal, False,
                                                       used_size=(FLAT_H, FLAT_W))
@@ -1828,8 +1865,15 @@ def chamfer_batch(dev):
         hp_masks.append(np.where(bg, np.inf, (hp - stats.mean) / stats.std).astype(np.float32))
         names.append(f"{i:05d}_{cal['name']}")
         cals.append(cal)
-    batch = dict(hp_masks=np.stack(hp_masks), masks=np.stack(masks), names=names,
-                 cal_infos=cals)
+    return dict(hp_masks=np.stack(hp_masks), masks=np.stack(masks), names=names,
+                cal_infos=cals)
+
+
+def chamfer_batch(dev):
+    """``chamfer_targets(CHAMFER_BATCH)``, and the paper depth model's (the depth train
+    phase's seeded weights) metric-depth predictions for seeded images."""
+    batch = chamfer_targets(CHAMFER_BATCH)
+    masks, hp_masks = batch["masks"], batch["hp_masks"]
     task = build_task("auto", dev, depth=True)
     imgs = torch.randn(CHAMFER_BATCH, 8 * NSIDE * NSIDE, 3,
                        generator=torch.Generator().manual_seed(SEED + 4)).to(dev)
@@ -2522,7 +2566,8 @@ TF32_PEAK = 494.7e12
 F32_TC_PEAK = TF32_PEAK / 3
 F32_TC_PEAK_NAME = "3xTF32: TF32 494.7 TFLOPS / 3"
 F32_KERNELS = ("final_head_loss_f32", "final_head_loss_bwd_f32", "final_head_depth_loss_f32",
-               "final_head_depth_loss_bwd_f32")
+               "final_head_depth_loss_bwd_f32", "final_head_predict_f32",
+               "window_attention_qkv_epi_f32", "window_attention_f32")
 # the kernels of an f32 K6 / K7 call, and of an f32 K8 / K9 call, by their names in a trace
 F32_TAIL_STEPS = {"tail_loss_f32_kernel": "K6 row kernel", "tail_bwd_f32_kernel": "K7 row kernel",
                   "reduce_rows_kernel": "reduce_rows", "gemm_tn_f32_kernel": "gemm_tn_f32"}
@@ -2531,16 +2576,19 @@ F32_DEPTH_STEPS = dict(F32_TAIL_STEPS, tail_loss_f32_kernel="K8 row kernel",
 
 
 def f32_tail_work(key):
-    """(FLOP, bytes) of one call of the f32 K6 or K7 at (name, T, C) with the paper
-    head's F 8 classes, or of the f32 K8 or K9 at (name, T, C, F, kind), p 4: K6 and K8
-    the expand 2 T p C^2 and the head 2 T p C F; K7 and K9 three times each (the forward
-    recomputed; dx and dWe; dz and dWh); f32 tokens read once, int32 targets and f32
-    weights (K6, K7) or f32 targets (K8, K9) read once, K8's f32 predictions and K7's
-    and K9's dx written once, the f32 parameters and, for K7 and K9, their gradients."""
+    """(FLOP, bytes) of one call of the f32 K3, K6 or K7 at (name, T, C) with the paper
+    head's F 8 classes, or of the f32 K8 or K9 at (name, T, C, F, kind), p 4: K3, K6 and
+    K8 the expand 2 T p C^2 and the head 2 T p C F; K7 and K9 three times each (the
+    forward recomputed; dx and dWe; dz and dWh); f32 tokens read once, int32 targets and
+    f32 weights (K6, K7) or f32 targets (K8, K9) read once, K3's int32 classes, K8's f32
+    predictions and K7's and K9's dx written once, the f32 parameters and, for K7 and
+    K9, their gradients."""
     name, T, C = key[:3]
     depth = "depth" in name
     p, F = TAIL_P, key[3] if depth else PAPER_CLASSES
     weights = (p * C * C + C * F + 2 * C) * 4
+    if name == "final_head_predict_f32":
+        return 2 * T * p * C * C + 2 * T * p * C * F, 4 * T * C + 4 * T * p + weights
     targets = 4 * T * p if depth else 8 * T * p
     if "bwd" not in name:
         preds = 4 * T * p * F if depth else 0
@@ -2566,10 +2614,10 @@ def paper_tail_inputs(gen, dev):
 
 
 def device_ms(fn, n=SEQUENCE_TRACED):
-    """One call's device time (ms) by kernel name and in all, from ``n`` traced calls."""
+    """One call's device time (ms) by kernel name, from ``n`` traced calls (the profiler
+    can drop a launch's record, so these can read low), and in all, by ``spin_ms``."""
     per, _ = trace(fn, n)
-    by_name = {name: ms / n for name, (ms, _) in per.items()}
-    return by_name, sum(by_name.values())
+    return {name: ms / n for name, (ms, _) in per.items()}, spin_ms(fn)
 
 
 def check_f32_loss_kernels(largs, fh):
@@ -2937,21 +2985,460 @@ def paper_step(label, task_k, task_p, imgs, targets, expected, timed, counted):
     return launches, by_shape
 
 
+# ----------------------------------- the paper configs' f32 predict and validation
+EVAL_BATCHES = 3  # validation batches of each paper config
+# the f32 paths end to end, "auto" against "xla" (the features, the metric depths, the
+# validation loss and metrics), relative: the f32 K1/K2/K3 sit within ~1e-6 of their
+# plain versions (``check_f32_eval_kernels``: f32 rounding in another summation order),
+# and the random-weight network carries an input perturbation on ~10x to the features
+# (``paper_predict`` logs the plain path's own move for its input moved by 1e-6), so
+# ~1e-5 is expected; the limit leaves a factor 10.  Each block, fed the plain path's
+# input, the same: its kernel within ~1e-6, its MLP and LayerNorms plain on both paths
+PAPER_EVAL_TOL = 1e-4
+PAPER_BLOCK_TOL = 1e-4
+PAPER_EVAL_LAUNCHES = dict(window_attention_qkv_epi_f32=20, window_attention_f32=2)
+# the depth metrics of 1/p and log p: their condition number is unbounded where a
+# predicted depth nears 0 m, and the random-weight depth model predicts depths on both
+# sides of 0, so a change of 1e-6 in a depth near 0 moves them by any amount (an H100
+# read val_iRMSE 316.07 on the kernel path, 312.92 on the plain path, for depths within
+# 3e-6 of each other).  ``paper_validation`` holds them by
+# their inputs: each path's value is its metric function of its own predictions, and
+# the two paths' predictions agree within PAPER_EVAL_TOL
+ILL_CONDITIONED = ("val_iRMSE", "val_SILogE")
+
+
+def check_f32_eval_kernels(gen, dev):
+    """The f32 K1, K2 and K3 against their plain versions (f32, TF32 off) at every paper
+    shape, each within relative L2 F32_TAIL_TOL: K1 at the three stage shapes with and
+    without the mask (two launches bit-equal), K2 at the bottleneck in both flavours, K3
+    at the paper tail (T 262,144, C 96, p 4, F 8): its classes equal the plain
+    version's outside near-ties of the f32 logits, its logits tap within F32_TAIL_TOL,
+    and probe (i), its classes ``argmax_lowest`` of its own tap (``torch.equal``), its
+    tap the f32 K6's bits.  Each timed: one call (``median_ms``), its device time
+    (``spin_ms``; K1's steps by kernel from a trace), the plain version; K2 beside one f32
+    ``scaled_dot_product_attention`` (the library call, scaled-dot) and K3 beside the
+    f32 composed PyTorch route (``pred_route``).  Returns the timings keyed like the
+    launch counters."""
+    from heal_swin_torch.ops import final_head as fh
+    from heal_swin_torch.ops import window_attention as wa
+
+    f32 = torch.float32
+    timed = {}
+    rnd, logit_scales = seeded_draws(gen, dev)
+    with torch.no_grad():
+        for stage in range(3):
+            T, C, h, args = stage_inputs(rnd, logit_scales, stage, dev)
+            x, wq, bq, wp, bp, g, b, bias, ls, groups = (
+                a.float() if a.dtype == torch.bfloat16 else a for a in args)
+            for masked in (False, True):
+                a = (x, wq, bq, wp, bp, g, b, groups if masked else None, bias, ls)
+                kw = dict(ws=WS, num_heads=h, sm_scale=(C // h) ** -0.5, has_mask=masked)
+                label = f"f32 K1 C={C} mask={masked}"
+                got = wa.window_attention_qkv_epi(*a, **kw, impl="pallas")
+                err, mae = check_close(label, got, wa.window_attention_qkv_epi_plain(*a, **kw),
+                                       F32_TAIL_TOL)
+                repeat_equal(label, got, wa.window_attention_qkv_epi(*a, **kw, impl="pallas"))
+                del got
+
+                def call(a=a, kw=kw):
+                    return wa.window_attention_qkv_epi(*a, **kw, impl="pallas")
+
+                ms, dev_ms = median_ms(call), spin_ms(call)
+                per, _ = trace(call, SEQUENCE_TRACED)
+                pms = median_ms(lambda a=a, kw=kw: wa.window_attention_qkv_epi_plain(*a, **kw))
+                steps = ", ".join(  # a step's mean a traced launch (records can drop)
+                    f"{k.replace('hs::(anonymous namespace)::', '').split('(')[0]} "
+                    f"{v / c:.4f} ms x {c}" for k, (v, c) in
+                    sorted(per.items(), key=lambda kv: -kv[1][0]))
+                log(f"{label} T={T}: rel_l2 {err:.3e} max_abs {mae:.3e} (tol {F32_TAIL_TOL}), "
+                    f"two launches bit-equal; kernel {ms:.4f} ms (device {dev_ms:.4f} ms; "
+                    f"{SEQUENCE_TRACED} calls traced: {steps}) plain {pms:.4f} ms")
+                timed[("window_attention_qkv_epi_f32", T, C, masked)] = dict(
+                    rel_l2=err, max_abs_err=mae, ms=ms, device_ms=dev_ms, plain_ms=pms)
+            del x, wq, bq, wp, bp, g, b, bias, ls, groups, args
+
+        T, C, h, (qkv, bias, ls, groups, _) = bottleneck_inputs(rnd, logit_scales, dev)
+        qkv = qkv.float()
+        for masked in (False, True):
+            res = {}
+            for use_cos in (True, False):
+                a = (qkv, groups if masked else None, bias, ls if use_cos else None)
+                kw = dict(ws=WS, num_heads=h, use_cos=use_cos, sm_scale=DOT_SCALE,
+                          has_mask=masked)
+                label = f"f32 K2 C={C} mask={masked} {'cosine' if use_cos else 'scaled-dot'}"
+                got = wa.window_attention(*a, **kw, impl="pallas")
+                e2 = check_close(label, got, wa.window_attention_plain(*a, **kw), F32_TAIL_TOL)
+                repeat_equal(label, got, wa.window_attention(*a, **kw, impl="pallas"))
+
+                def call(a=a, kw=kw):
+                    return wa.window_attention(*a, **kw, impl="pallas")
+
+                res[use_cos] = dict(e=e2, ms=median_ms(call), dev=spin_ms(call),
+                                    pms=median_ms(lambda a=a, kw=kw:
+                                                  wa.window_attention_plain(*a, **kw)))
+            lib_f, _ = sdpa_library(qkv, groups if masked else None, bias, h,
+                                    torch.zeros(T, C, device=dev))
+            lms, ldev = median_ms(lib_f), spin_ms(lib_f)
+            if masked:
+                log(f"f32 K2 library call: scaled_dot_product_attention ran "
+                    f"{sdpa_kernels(lib_f)}")
+            cos, dot = res[True], res[False]
+            log(f"f32 K2 window_attention_f32 C={C} T={T} mask={masked}: cosine rel_l2 "
+                f"{cos['e'][0]:.3e} max_abs {cos['e'][1]:.3e} kernel {cos['ms']:.4f} ms (device "
+                f"{cos['dev']:.4f}) plain {cos['pms']:.4f} ms; scaled-dot rel_l2 "
+                f"{dot['e'][0]:.3e} kernel {dot['ms']:.4f} ms (device {dot['dev']:.4f}) plain "
+                f"{dot['pms']:.4f} ms; library (f32 sdpa, scaled-dot) {lms:.4f} ms (device "
+                f"{ldev:.4f}); two launches bit-equal (tol {F32_TAIL_TOL})")
+            timed[("window_attention_f32", T, C, masked)] = dict(
+                rel_l2=cos["e"][0], max_abs_err=cos["e"][1], ms=cos["ms"], device_ms=cos["dev"],
+                plain_ms=cos["pms"], library_ms=lms, library_device_ms=ldev,
+                dot_rel_l2=dot["e"][0], dot_ms=dot["ms"], dot_device_ms=dot["dev"],
+                dot_plain_ms=dot["pms"])
+        del qkv, lib_f
+
+        largs = paper_tail_inputs(gen, dev)
+        args = largs[:5]
+        x = args[0]
+        T, C = x.shape
+        p, F = TAIL_P, PAPER_CLASSES
+        preds, tap = fh.final_head_predict(*args, patch_size=p, impl="pallas", tap_logits=True)
+        lf = fh.final_head_logits_plain(*args, patch_size=p)
+        err, mae = check_close("f32 K3 logits tap", tap, lf, F32_TAIL_TOL)
+        slack = F32_TAIL_TOL * lf.abs().amax(-1).clamp_min(1.0)
+        mism, near, worst = preds_agree("f32 K3", preds, fh.argmax_lowest(lf), lf, slack)
+        equal_bits("f32 K3 probe (i): its classes vs argmax_lowest of its own logits tap",
+                   fh.argmax_lowest(tap), preds)
+        lf6 = fh.final_head_loss_sums(*largs, patch_size=p, impl="pallas", tap_logits=True)[3]
+        equal_bits("f32 K3's logits tap vs the f32 K6's", tap, lf6, T * p * F // 2)
+        repeat_equal("f32 K3", preds, fh.final_head_predict(*args, patch_size=p, impl="pallas"))
+        del tap, lf, lf6
+
+        def call():
+            return fh.final_head_predict(*args, patch_size=p, impl="pallas")
+
+        ms, dev_ms = median_ms(call), spin_ms(call)
+        k6dev = spin_ms(lambda: fh.final_head_loss_sums(*largs, patch_size=p, impl="pallas"))
+        pms = median_ms(lambda: fh.final_head_predict_plain(*args, patch_size=p))
+        route = pred_route(args, p, f32)
+        rms, rdev = median_ms(route), spin_ms(route)
+    log(f"f32 K3 final_head_predict_f32 T={T} C={C} p={p} F={F}: {mism} of {T * p} classes "
+        f"differ, all at near-ties ({near} near-tie elements); logits rel_l2 {err:.3e} "
+        f"(tol {F32_TAIL_TOL}); kernel {ms:.4f} ms (device {dev_ms:.4f} ms; the f32 K6 on "
+        f"the same operands {k6dev:.4f} ms) plain {pms:.4f} ms f32 route {rms:.4f} ms "
+        f"(device {rdev:.4f} ms)")
+    timed[("final_head_predict_f32", T, C)] = dict(
+        max_abs_err=worst, logits_rel_l2=err, index_mismatches=mism, near_tie_elements=near,
+        ms=ms, device_ms=dev_ms, plain_ms=pms, route_ms=rms, route_device_ms=rdev,
+        k6_device_ms=k6dev)
+    return timed
+
+
+def eval_batches(dev, depth, task):
+    """EVAL_BATCHES validation batches of BATCH samples: seeded images, and targets that
+    are a class per bin of the first input channel, or ``depth_batch``'s metric depths
+    (BACKGROUND of them inf) taken into the depth task's network space."""
+    out = []
+    for i in range(EVAL_BATCHES):
+        imgs = torch.randn(BATCH, 8 * NSIDE * NSIDE, 3,
+                           generator=torch.Generator().manual_seed(SEED + 40 + i)).to(dev)
+        if depth:
+            metric = 0.1 + 59.9 * torch.sigmoid(imgs[..., 0])
+            bg = torch.rand(metric.shape, generator=torch.Generator().manual_seed(SEED + 50 + i))
+            targets = task._to_network(torch.where(bg.to(dev) < BACKGROUND, float("inf"),
+                                                   metric))
+        else:
+            targets = torch.clamp(((imgs[..., 0] + 2.5) * PAPER_CLASSES / 5).long(), 0,
+                                  PAPER_CLASSES - 1).to(torch.int32)
+        out.append((imgs, targets))
+    return out
+
+
+def paper_predict(label, task_k, task_p, imgs, timed, depth):
+    """A paper config's predict through the kernels (``task_k``, "auto") and the plain
+    path (``task_p``, "xla", the same weights): one counted call (launches 20 f32 K1, 2
+    f32 K2 and, for segmentation, 1 f32 K3, no other kernel); every block of the kernel
+    path on the plain path's input within PAPER_BLOCK_TOL; the features (segmentation)
+    or metric depths within PAPER_EVAL_TOL; segmentation classes equal outside near-ties
+    (a top-2 gap under twice the row's largest logit difference between the two paths'
+    features, plus K3's own F32_TAIL_TOL), and K3 in the predict equal to the plain tail
+    on its own features outside K3's near-ties; img/s and memory above the resident
+    (``rate``), a trace (device busy, idle share).  Returns the launches."""
+    from heal_swin_torch.models.tasks import decoder_tail
+    from heal_swin_torch.ops import final_head as fh
+
+    expected = dict(NO_LAUNCHES, **PAPER_EVAL_LAUNCHES)
+    if not depth:
+        expected["final_head_predict_f32"] = 1
+    feats = {}
+    hook = (lambda name: lambda _m, _a, out: feats.update({name: out}))
+    keep = task_k.model.register_forward_hook(hook("k"))
+    reset_counters()
+    out_k = task_k.predict(None, imgs)
+    torch.cuda.synchronize()
+    launches, by_shape = read_counters()
+    keep.remove()
+    check_launches(f"{label} predict", launches, by_shape, expected, timed)
+    io = {}
+    hooks = record_blocks(task_p.model, io)
+    hooks.append(task_p.model.register_forward_hook(hook("p")))
+    out_p = task_p.predict(None, imgs)
+    for hk in hooks:
+        hk.remove()
+    check_blocks(f"{label} predict", task_k, io, PAPER_BLOCK_TOL)
+    del io
+    with torch.no_grad():  # the plain path's own sensitivity: its input moved by 1e-6
+        noise = torch.randn(imgs.shape, generator=torch.Generator().manual_seed(SEED + 2))
+        moved = imgs * (1 + 1e-6 * noise.to(imgs.device))
+        amp = (rel_l2(task_p.predict(None, moved), out_p) if depth
+               else rel_l2(task_p.model(moved, tail=False), feats["p"]))
+    if depth:
+        if tuple(out_k.shape) != (BATCH, imgs.shape[1], 1) or out_k.dtype != torch.float32:
+            raise AssertionError(f"{label}: predict gave {tuple(out_k.shape)} {out_k.dtype}")
+        err = check_close(f"{label} metric depths", out_k, out_p, PAPER_EVAL_TOL)[0]
+        log(f"{label}: metric depths in [{float(out_k.min()):.3f}, {float(out_k.max()):.3f}] m, "
+            f"kernels vs plain rel_l2 {err:.3e} (tol {PAPER_EVAL_TOL}); plain path, input "
+            f"moved by 1e-6 relative: rel_l2 {amp:.3e}")
+    else:
+        fk, fp = feats["k"], feats["p"]
+        B, N, C = fk.shape
+        err = check_close(f"{label} tail=False features", fk, fp, PAPER_EVAL_TOL)[0]
+        tail = decoder_tail(task_k.model)
+        with torch.no_grad():
+            lk = fh.final_head_logits_plain(fk.reshape(B * N, C), *tail, patch_size=TAIL_P)
+            lp = fh.final_head_logits_plain(fp.reshape(B * N, C), *tail, patch_size=TAIL_P)
+            own = F32_TAIL_TOL * lk.abs().amax(-1).clamp_min(1.0)
+            mk, nk, _ = preds_agree(f"{label} K3", out_k.reshape(B * N, TAIL_P),
+                                    fh.argmax_lowest(lk), lk, own)
+            slack = 2 * (lk - lp).abs().amax(-1) + own
+            mism, near, _ = preds_agree(f"{label} classes", out_k.reshape(B * N, TAIL_P),
+                                        out_p.reshape(B * N, TAIL_P), lp, slack)
+        log(f"{label}: features rel_l2 {err:.3e} (tol {PAPER_EVAL_TOL}; plain path, input "
+            f"moved by 1e-6 relative: {amp:.3e}); K3 in predict vs "
+            f"the plain tail on its features: {mk} of {out_k.numel()} differ ({nk} near-ties); "
+            f"classes kernels vs plain: {mism} differ, all at near-ties ({near} near-tie "
+            f"elements)")
+        del lk, lp
+    del feats
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() / 2 ** 30
+    ips_k, mem_k = rate(task_k, imgs)
+    ips_p, mem_p = rate(task_p, imgs)
+    ips_k2, _ = rate(task_k, imgs)
+    log(f"{label}: predict kernels {ips_k:.3f} / {ips_k2:.3f} img/s (peak {mem_k:.3f} GiB "
+        f"above the resident), plain {ips_p:.3f} img/s (peak {mem_p:.3f} GiB above the "
+        f"resident); resident {resident:.3f} GiB (both models' f32 weights and the input)")
+    busy = profile(f"{label} profile", lambda: task_k.predict(None, imgs), PROFILE_PREDICTS)
+    wall = BATCH / max(ips_k, ips_k2) * 1e3
+    log(f"{label} profile: against the untraced {wall:.3f} ms/predict the device idles "
+        f"{1 - busy / wall:.4f} of the time")
+    timed[f"{label} predict"] = dict(ips=max(ips_k, ips_k2), plain_ips=ips_p, busy_ms=busy,
+                                     mem_gib=mem_k)
+    return launches, by_shape
+
+
+def metrics_agree(label, got, want, skip=()):
+    """Every metric of the kernel path but ``skip`` within PAPER_EVAL_TOL of the plain
+    path's, relative to max(|plain|, 1); NaN only where both are NaN.  Returns the
+    largest difference."""
+    if set(got) != set(want):
+        raise AssertionError(f"{label}: metrics {sorted(got)} vs {sorted(want)}")
+    worst = 0.0
+    for k, w in want.items():
+        if k in skip:
+            continue
+        v = got[k]
+        if math.isnan(w) and math.isnan(v):
+            continue
+        d = abs(v - w) / max(abs(w), 1.0)
+        if not d <= PAPER_EVAL_TOL:
+            raise AssertionError(f"{label} {k}: {v} vs plain {w}")
+        worst = max(worst, d)
+    return worst
+
+
+def captured_updates(task, into):
+    """Record each (outputs, targets, sample mask) ``task.metric_update`` gets, in
+    ``into``; returns the undo."""
+    update = task.metric_update
+
+    def record(state, out, targets, sample_mask=None):
+        into.append((out.detach(), targets, sample_mask))
+        return update(state, out, targets, sample_mask=sample_mask)
+
+    task.metric_update = record
+    return lambda: delattr(task, "metric_update")
+
+
+def metric_inputs(task, captured):
+    """The metric-space depths (float64, flat) of the recorded validation outputs, and
+    the targets, inf where a sample is masked out: what ``metric_update`` compares."""
+    ps, ts = [], []
+    for out, targets, mask in captured:
+        t = task._to_metric(torch.as_tensor(targets, device=out.device))
+        t = torch.where(torch.as_tensor(mask, device=out.device).reshape(-1, 1), t,
+                        float("inf"))
+        ps.append(task._to_metric(out[..., 0]).reshape(-1).double())
+        ts.append(t.reshape(-1).double())
+    return torch.cat(ps), torch.cat(ts)
+
+
+def inverse_and_log_metrics(p, t):
+    """iRMSE and SILogE of depths ``p`` against targets ``t`` in float64, as
+    ``evaluation.metrics.depth_state_update`` / ``depth_state_compute`` define them."""
+    inv_p, inv_t = 1.0 / (0.001 * p), 1.0 / (0.001 * t)
+    ok = torch.isfinite(inv_p) & torch.isfinite(inv_t)
+    irmse = float(((inv_p - inv_t)[ok] ** 2).sum() / max(int(ok.sum()), 1)) ** 0.5
+    lv = torch.isfinite(t) & torch.isfinite(p) & (p > 0) & (t > 0)
+    d = torch.log(t[lv]) - torch.log(p[lv])
+    n = max(int(lv.sum()), 1)
+    return {"val_iRMSE": irmse, "val_SILogE": float((d * d).sum() / n - (d.sum() / n) ** 2)}
+
+
+def paper_validation(label, task_k, task_p, batches, timed, depth):
+    """``training.trainer.run_validation`` of a paper config over EVAL_BATCHES batches
+    through the kernels and the plain path: the launches of the kernel path's run
+    (per batch 20 f32 K1 and 2 f32 K2, and for depth 1 f32 K8; segmentation validation
+    passes a sample mask, so its tail is unfused and no K6 runs), ``val_loss`` and every
+    metric within PAPER_EVAL_TOL, and the steady-state samples/s.  For depth the
+    ILL_CONDITIONED metrics are held by their inputs instead: the two paths' metric
+    depths, as ``metric_update`` got them, within relative L2 PAPER_EVAL_TOL, and each
+    path's value within PAPER_EVAL_TOL of the same metric of its own depths in float64.
+    Returns the launches."""
+    from heal_swin_torch.training.trainer import run_validation
+
+    n = EVAL_BATCHES
+    expected = dict(NO_LAUNCHES, **{k: v * n for k, v in PAPER_EVAL_LAUNCHES.items()})
+    if depth:
+        expected["final_head_depth_loss_f32"] = n
+    caps = {"k": [], "p": []}
+    undo = [captured_updates(task_k, caps["k"]), captured_updates(task_p, caps["p"])]
+    try:
+        reset_counters()
+        vk = run_validation(task_k, iter(batches))
+        torch.cuda.synchronize()
+        launches, by_shape = read_counters()
+        vp = run_validation(task_p, iter(batches))
+    finally:
+        for u in undo:
+            u()
+    check_launches(f"{label} validation", launches, by_shape, expected, timed)
+    skip = ILL_CONDITIONED if depth else ()
+    worst = metrics_agree(f"{label} validation", vk.metrics, vp.metrics, skip)
+    if depth:
+        (pk, t), (pp, _) = metric_inputs(task_k, caps["k"]), metric_inputs(task_p, caps["p"])
+        both = torch.isfinite(t) & torch.isfinite(pk) & torch.isfinite(pp)
+        err = check_close(f"{label} validation metric depths", pk[both], pp[both],
+                          PAPER_EVAL_TOL)[0]
+        for path, v, p in (("kernels", vk, pk), ("plain", vp, pp)):
+            own = inverse_and_log_metrics(p, t)
+            for k in skip:
+                if not abs(v.metrics[k] - own[k]) <= PAPER_EVAL_TOL * max(abs(own[k]), 1.0):
+                    raise AssertionError(f"{label} validation {k} ({path}): {v.metrics[k]} "
+                                         f"vs {own[k]} of its own depths")
+        gap = (pk - pp).abs()[both]
+        near0 = int((pk[both].abs() < gap.max()).sum())
+        log(f"{label} validation: metric depths kernels vs plain rel_l2 {err:.3e} (tol "
+            f"{PAPER_EVAL_TOL}), in [{float(pk[both].min()):.3f}, {float(pk[both].max()):.3f}] "
+            f"m, {near0} of {int(both.sum())} within the largest difference "
+            f"({float(gap.max()):.3e} m) of 0 m; "
+            + ", ".join(f"{k} {vk.metrics[k]:.6f} vs plain {vp.metrics[k]:.6f}" for k in skip)
+            + f", each within {PAPER_EVAL_TOL} of its own depths' value in float64")
+        del caps, pk, pp, t
+    if vk.samples != n * BATCH or not math.isfinite(vk.metrics["val_loss"]):
+        raise AssertionError(f"{label} validation: {vk}")
+    rate_k = vk.steady_samples / vk.steady_time
+    rate_p = vp.steady_samples / vp.steady_time
+    log(f"{label} validation over {n} batches: every metric within {worst:.3e} of the plain "
+        f"path's (tol {PAPER_EVAL_TOL}); steady {rate_k:.3f} samples/s (plain {rate_p:.3f}); "
+        + " ".join(f"{k} {v:.6f}" for k, v in vk.metrics.items() if "class" not in k))
+    timed[f"{label} validation"] = dict(samples_per_s=rate_k, plain_samples_per_s=rate_p)
+    return launches, by_shape
+
+
+def paper_chamfer_predict(task, dev):
+    """The Chamfer writer through the predict loop (``training.trainer.predict``): the
+    depth paper config predicts 2 samples, a batch each (one batch in flight), and the
+    writer scores them; the same writer's metrics from direct calls on the predictions
+    the loop handed it must be the same bits, and those predictions a direct predict's."""
+    from heal_swin_torch.evaluation.hp_depth_pred_writers import (
+        WoodscapeHPDepthChamferDistBestWorstPredictionWriter as Writer)
+    from heal_swin_torch.training.trainer import predict
+
+    batch = chamfer_targets(2)
+    kw = dict(nside=NSIDE, base_pix=8, mask_background=True, normalize_data="standardize",
+              data_transform=None, rotate_pole=False, device=dev)
+    batches = []
+    for i in range(2):
+        b = {k: v[i:i + 1] for k, v in batch.items()}
+        b["hp_imgs"] = torch.randn(1, 8 * NSIDE * NSIDE, 3,
+                                   generator=torch.Generator().manual_seed(SEED + 60 + i)).to(dev)
+        batches.append(b)
+    logged, handed = {}, []
+    loop = Writer(**kw)
+    loop.log_metrics = lambda mets: logged.update(loop=mets)
+    write = loop.write_on_batch_end
+    loop.write_on_batch_end = lambda preds, b, i: (handed.append(preds), write(preds, b, i))
+    t0 = time.perf_counter()
+    run = predict(task, iter(batches), writer=loop)
+    t_loop = time.perf_counter() - t0
+    direct = Writer(**kw)
+    direct.log_metrics = lambda mets: logged.update(direct=mets)
+    for i, (preds, b) in enumerate(zip(handed, batches)):
+        if not np.array_equal(preds, task.predict(None, b["hp_imgs"]).cpu().numpy()):
+            raise AssertionError(f"paper chamfer: batch {i}'s predictions are not a predict's")
+        direct.write_on_batch_end(preds, b, i)
+    direct.on_predict_epoch_end()
+    mets = logged["loop"]
+    if len(mets) != 4 or mets != logged["direct"] or not all(map(math.isfinite, mets.values())):
+        raise AssertionError(f"paper chamfer: {mets} through predict, {logged['direct']} direct")
+    log(f"paper depth chamfer through predict ({run.samples} samples, {len(batches)} batches, "
+        f"{t_loop:.3f} s; host blocked on the device {run.device_time:.3f} s, writer "
+        f"{run.writer_time:.3f} s): the four metrics bit-equal to direct calls: "
+        + " ".join(f"{k} {v:.6f}" for k, v in mets.items()))
+
+
+def drive_paper_eval(dev, timed):
+    """The paper configs' f32 forward in eval mode (nside 256, batch 2, f32, full width and
+    depth; dropout inactive at eval, so every block at C <= 384 runs the f32 K1 and the
+    bottleneck the f32 K2): first ``check_f32_eval_kernels``; then for the segmentation
+    and the depth paper config, built as ``paper_task`` builds them ("auto" and "xla" on
+    the same weights), ``paper_predict`` and ``paper_validation``; last the Chamfer writer
+    through the predict loop (``paper_chamfer_predict``).  Returns the launches of the
+    segmentation predict, which runs the three new kernels."""
+    timed.update(check_f32_eval_kernels(torch.Generator().manual_seed(SEED + 20), dev))
+    torch.cuda.empty_cache()
+    runs = {}
+    for depth in (False, True):
+        label = "paper depth eval" if depth else "paper eval"
+        task_k = paper_task("auto", dev, depth=depth)
+        task_p = paper_task("xla", dev, state=task_k.model.state_dict(), depth=depth)
+        imgs = torch.randn(BATCH, 8 * NSIDE * NSIDE, 3,
+                           generator=torch.Generator().manual_seed(SEED + 30)).to(dev)
+        runs[depth] = paper_predict(label, task_k, task_p, imgs, timed, depth)
+        paper_validation(label, task_k, task_p, eval_batches(dev, depth, task_k), timed, depth)
+        if depth:
+            del task_p
+            torch.cuda.empty_cache()
+            paper_chamfer_predict(task_k, dev)
+        del task_k
+        torch.cuda.empty_cache()
+    return runs[False]
+
+
 GATE_NSIDE = 32  # 512 tokens an image at the second stage: one 64-token window per base pixel
 
 
 def refuse_f32_tails(dev):
-    """The f32 tails the kernels do not take, on CUDA tensors: K3 (predict, bf16 only)
-    on f32 tokens at the paper tail's width, and the f32 K8 and K9 on a depth tail of C
-    48 (their instantiations: C 32, 64, 96, 128) raise under "auto" and "pallas" before
-    any launch, naming the kernel and impl="xla"; under "xla" they run their plain
-    versions with no launch."""
+    """The f32 tails the kernels do not take, on CUDA tensors: the f32 K3, K8 and K9 on
+    a tail of C 48 (their instantiations: C 32, 64, 96, 128) raise under "auto" and
+    "pallas" before any launch, naming the kernel and impl="xla"; under "xla" they run
+    their plain versions with no launch."""
     from heal_swin_torch.ops import final_head as fh
 
     rnd, _ = seeded_draws(torch.Generator().manual_seed(SEED + 19), dev)
     T, p = 64 * 8, TAIL_P
-    pred = (rnd(T, 96), rnd(96, p * 96, std=0.1), 1.0 + rnd(96, std=0.1), rnd(96, std=0.1),
-            rnd(96, PAPER_CLASSES, std=0.3))
+    pred = (rnd(T, 48), rnd(48, p * 48, std=0.1), 1.0 + rnd(48, std=0.1), rnd(48, std=0.1),
+            rnd(48, PAPER_CLASSES, std=0.3))
     d48 = (rnd(T, 48), rnd(48, p * 48, std=0.1), 1.0 + rnd(48, std=0.1), rnd(48, std=0.1),
            rnd(48, 1, std=0.1), depth_targets(torch.Generator().manual_seed(SEED), T, p, dev))
     one = torch.ones((), device=dev)
@@ -2977,8 +3464,8 @@ def refuse_f32_tails(dev):
     launches, _ = read_counters()
     if any(launches.values()):
         raise AssertionError(f"refusal f32 tails: kernels launched: {launches}")
-    log("refusal f32 tails: K3 on f32 tokens and the f32 K8/K9 at C 48 raised under \"auto\" "
-        "and \"pallas\" with no launch, naming the kernel and impl='xla'; \"xla\" ran their "
+    log("refusal f32 tails: the f32 K3 and K8/K9 at C 48 raised under \"auto\" and "
+        "\"pallas\" with no launch, naming the kernel and impl='xla'; \"xla\" ran their "
         "plain versions with no launch")
 
 
@@ -2988,13 +3475,16 @@ def drive_refusal(dev):
     with no dropout, and bf16 at window 16 with 40 classes (more than K3/K6/K7's 32
     lanes), both with the config's default scaled-dot attention.  Under "auto" and
     "pallas" a loss and a predict raise before any launch, naming attention_impl="xla":
-    in the f32 model the first block's K16 (``window_attention_qkv``, bf16 only; with
-    cosine attention K1, bf16 only too) refuses both, before the predict's K3 (bf16
-    only) or the loss's f32 K6/K7 is reached; in the window-16 model K16 refuses the
-    window.  Under "xla" the same weights run a loss with its backward and a
-    predict with no launch, finite and of the expected shapes.  Then the tail wrappers
-    alone (``refuse_f32_tails``): f32 tokens on K3, which has no f32 kernel, and an f32
-    depth tail at C 48, which the f32 K8/K9 have no instantiation for."""
+    in the f32 model the first block's K16 (``window_attention_qkv``, bf16 only) refuses
+    both, before the predict's f32 K3 or the loss's f32 K6/K7 is reached; in the
+    window-16 model K16 refuses the window.  Under "xla" the same weights run a loss
+    with its backward and a predict with no launch, finite and of the expected shapes.
+    Then the same f32 model with cosine attention in training (no dropout, so every block
+    takes K1): its train-mode loss raises in the first block before any launch, naming
+    K4 (the f32 K1 is forward only; K4 takes bf16) and attention_impl="xla", which runs
+    it and its backward with no launch.  Then the tail wrappers alone
+    (``refuse_f32_tails``): an f32 tail at C 48, which the f32 K3 and K8/K9 have no
+    instantiation for."""
     from heal_swin_torch.models import tasks as T
     from heal_swin_torch.models.swin_hp import DataSpec, SwinHPTransformerConfig
 
@@ -3046,6 +3536,47 @@ def drive_refusal(dev):
             f"launch ({refusals[0]}); \"xla\" ran a loss ({loss.item():.6f}), its "
             f"backward and {preds.numel()} predictions with no launch")
 
+    label = "refusal dtype=float32 cosine, training"
+    targets = torch.clamp(((imgs[..., 0] + 2.5) * 2).long(), 0, N_CLASSES - 1)
+
+    def build_cos(impl):
+        cfg = SwinHPTransformerConfig(
+            patch_size=4, window_size=WS, shift_size=4, shift_strategy="ring_shift",
+            rel_pos_bias="flat", embed_dim=64, depths=[2, 2], num_heads=[2, 4],
+            use_cos_attn=True, use_v2_norm_placement=True, fused_final_head=True,
+            attention_impl=impl)
+        return T.WoodscapeSegmenterSwinHP(
+            T.WoodscapeSegmenterSwinHPConfig(cfg),
+            DataSpec(dim_in=npix, f_in=3, f_out=N_CLASSES, base_pix=8), device=dev,
+            generator=torch.Generator().manual_seed(SEED))
+
+    def train_loss(task):
+        return task.loss_fn(imgs, targets, deterministic=False,
+                            generator=torch.Generator(device=dev).manual_seed(SEED))[0]
+
+    reset_counters()
+    for impl in ("auto", "pallas"):
+        try:
+            train_loss(build_cos(impl))
+        except ValueError as e:
+            if "K4" not in str(e) or "attention_impl='xla'" not in str(e):
+                raise
+            msg = str(e)
+        else:
+            raise AssertionError(f"{label} {impl}: no refusal")
+    task = build_cos("xla")
+    loss = train_loss(task)
+    loss.backward()
+    torch.cuda.synchronize()
+    launches, _ = read_counters()
+    if any(launches.values()):
+        raise AssertionError(f"{label}: kernels launched: {launches}")
+    if not (torch.isfinite(loss) and all(q.grad is not None and torch.isfinite(q.grad).all()
+                                         for q in task.model.parameters())):
+        raise AssertionError(f"{label} xla: a non-finite result")
+    log(f"{label}: \"auto\" and \"pallas\" raised in the train-mode loss with no launch "
+        f"({msg}); \"xla\" ran it ({loss.item():.6f}) and its backward with no launch")
+
 
 SOURCES = {
     "window_attention_qkv_epi": ("heal_swin_torch/csrc/window_attention.cu",
@@ -3081,10 +3612,16 @@ SOURCES = {
                             "heal_swin_tpu/ops/final_head.py:755"),
     "final_head_loss_bwd_f32": ("heal_swin_torch/csrc/final_head_f32.cu",
                                 "heal_swin_tpu/ops/final_head.py:781"),
-    "final_head_depth_loss_f32": ("heal_swin_torch/csrc/final_head_f32.cu",
+    "final_head_depth_loss_f32": ("heal_swin_torch/csrc/final_head_depth_f32.cu",
                                   "heal_swin_tpu/ops/final_head.py:568"),
-    "final_head_depth_loss_bwd_f32": ("heal_swin_torch/csrc/final_head_f32.cu",
+    "final_head_depth_loss_bwd_f32": ("heal_swin_torch/csrc/final_head_depth_f32.cu",
                                       "heal_swin_tpu/ops/final_head.py:593"),
+    "window_attention_qkv_epi_f32": ("heal_swin_torch/csrc/window_attention_f32.cu",
+                                     "heal_swin_tpu/ops/window_attention.py:993"),
+    "window_attention_f32": ("heal_swin_torch/csrc/window_attention_f32.cu",
+                             "heal_swin_tpu/ops/window_attention.py:677"),
+    "final_head_predict_f32": ("heal_swin_torch/csrc/final_head_f32.cu",
+                               "heal_swin_tpu/ops/final_head.py:191"),
 }
 
 
@@ -3103,6 +3640,11 @@ def shape_work(key):
     and weights, f32 biases, LayerNorm parameters, DropPath scale and parameter
     gradients."""
     name, T, C = key[:3]
+    if name.startswith("window_attention") and name.endswith("_f32"):
+        # the f32 K1 and K2: the bf16 forms' FLOPs, twice the bytes of their tokens
+        flop, nbytes = shape_work((name[:-4],) + tuple(key[1:]))
+        tokens = (8 if name == "window_attention_f32" else 4) * T * C
+        return flop, nbytes + tokens + (8 * C * C if "epi" in name else 0)
     if name in F32_KERNELS:
         return f32_tail_work(key)
     if name.startswith("mlp"):
@@ -3288,6 +3830,13 @@ PTXAS_NAMES.update({
                     ("tail_bwd_f32_kernel", ("f32 K7 step 1", "f32 K9 step 1")))
     for c in (32, 64, 96, 128) for nf, who in ((8, whos[0]), (16, whos[0]), (4, whos[1]))})
 PTXAS_NAMES["18gemm_tn_f32_kernel"] = "f32 K7 / K9 step 3 gemm_tn_f32_kernel"
+# the f32 K3 (the f32 K6's row kernel with the argmax), and the f32 K1's and K2's kernels
+PTXAS_NAMES.update({
+    f"20tail_loss_f32_kernelILi{c}ELi{nf}ENS0_6ArgmaxE": f"f32 K3 tail_loss_f32_kernel<{c}, "
+    f"{nf}, Argmax> (C {c}, F <= {nf})" for c in (32, 64, 96, 128) for nf in (8, 16)})
+PTXAS_NAMES.update({"15attn_f32_kernel": "f32 K2 attn_f32_kernel (f32 K1 step 2)",
+                    "18gemm_nn_f32_kernel": "f32 K1 steps 1 and 3 gemm_nn_f32_kernel",
+                    "18ln_rows_f32_kernel": "f32 K1 step 4 ln_rows_f32_kernel"})
 
 
 def log_ptxas(build_log: str):
@@ -3298,7 +3847,8 @@ def log_ptxas(build_log: str):
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
-            name = next((v for k, v in PTXAS_NAMES.items() if k in name), name)
+            key = max((k for k in PTXAS_NAMES if k in name), key=len, default=None)
+            name = name if key is None else PTXAS_NAMES[key]
             props = []
         elif name and ("spill" in line or "registers" in line):
             props.append(line.split(":", 1)[-1].strip())
@@ -3356,14 +3906,18 @@ def main() -> int:
     t_depth = time.perf_counter()
     paper_depth_run = drive_paper_depth_train(dev, timed)
     torch.cuda.empty_cache()
+    t_eval = time.perf_counter()
+    paper_eval_run = drive_paper_eval(dev, timed)
+    torch.cuda.empty_cache()
     t_gate = time.perf_counter()
     drive_refusal(dev)
     t_end = time.perf_counter()
     log(f"elapsed: {t_end - t0:.1f} s since the build started, the Chamfer phase "
         f"{t_mlp - t_chamfer:.1f} s of it, the MLP phase {t_dot - t_mlp:.1f} s, the "
         f"scaled-dot phase {t_paper - t_dot:.1f} s, the paper-config phase "
-        f"{t_depth - t_paper:.1f} s, the paper depth phase {t_gate - t_depth:.1f} s, the "
-        f"refusal phase {t_end - t_gate:.1f} s")
+        f"{t_depth - t_paper:.1f} s, the paper depth phase {t_eval - t_depth:.1f} s, the "
+        f"paper eval phase {t_gate - t_eval:.1f} s, the refusal phase "
+        f"{t_end - t_gate:.1f} s")
 
     blocked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "heal_swin_tpu"))
     if blocked:
@@ -3379,6 +3933,9 @@ def main() -> int:
         runs[name] = dot_run
     for name in F32_KERNELS:
         runs[name] = paper_depth_run if "depth" in name else paper_run
+    for name in ("window_attention_qkv_epi_f32", "window_attention_f32",
+                 "final_head_predict_f32"):
+        runs[name] = paper_eval_run
     kernels = kernel_results(timed, runs, chamfer)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -41,6 +41,9 @@ _SIGNATURES = {
     "hs_window_attention_bwd": ([_P] * 8 + [_I] * 4 + [_F, _P], _I),
     "hs_window_attention_bwd_workspace": ([_I] * 2, ctypes.c_size_t),
     "hs_window_attention_qkv": ([_P] * 7 + [_I] * 4 + [_F, _P], _I),
+    "hs_window_attention_qkv_epi_f32": ([_P] * 12 + [_I] * 4 + [_F, _P], _I),
+    "hs_window_attention_qkv_epi_f32_workspace": ([_I] * 2, ctypes.c_size_t),
+    "hs_window_attention_f32": ([_P] * 5 + [_I] * 4 + [_F, _P], _I),
     "hs_window_attention_qkv_bwd": ([_P] * 11 + [_I] * 4 + [_F, _P], _I),
     "hs_window_attention_qkv_bwd_workspace": ([_I] * 2, ctypes.c_size_t),
     "hs_gemm_nt": ([_P] * 3 + [_I] * 3 + [_P], _I),
@@ -48,6 +51,8 @@ _SIGNATURES = {
     "hs_proj_ln_bwd_workspace": ([_I] * 2, ctypes.c_size_t),
     "hs_final_head_predict": ([_P] * 7 + [_I] * 4 + [_F, _P], _I),
     "hs_final_head_predict_smem": ([_I] * 3, ctypes.c_size_t),
+    "hs_final_head_predict_f32": ([_P] * 7 + [_I] * 4 + [_F, _P], _I),
+    "hs_final_head_predict_f32_smem": ([_I] * 3, ctypes.c_size_t),
     "hs_final_head_loss": ([_P] * 10 + [_I] * 4 + [_F, _P], _I),
     "hs_final_head_loss_smem": ([_I] * 3, ctypes.c_size_t),
     "hs_final_head_loss_grid": ([_I] * 4, _I),

@@ -1,6 +1,6 @@
 // The masked depth loss of K8 and K9 (heal_swin_tpu/ops/final_head.py _depth_loss_vals,
 // _depth_loss_grads) on one element's f32 logits (mean, logvar), not rounded: shared by
-// the bf16 kernels' epilogues (tail_core.cuh) and the f32 kernels' (final_head_f32.cu).
+// the bf16 kernels' epilogues (tail_core.cuh) and the f32 kernels' (tail_f32.cuh).
 // Kinds in the order of the wrapper's DEPTH_KINDS.
 #pragma once
 

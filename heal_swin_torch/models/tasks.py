@@ -9,10 +9,13 @@ segmentation (K6 forward, K7 backward), the masked depth loss and the bf16
 predictions for depth (K8 forward, K9 backward).  Segmentation predict hands the
 tokens to the argmax kernel (K3); depth predict runs the unfused tail.  The depth task
 takes its fused route where ``ops.final_head.depth_route_takes`` admits the tail's
-shapes, as the JAX task does.  K6 and K7 take bf16 and f32 tokens (a float32 config's
-tail runs their f32 kernels); K3, K8 and K9 take bf16 only.  On the card a fused tail
-the kernels do not take (such a dtype, a width without an instantiation) raises, naming
-the kernel, and ``attention_impl="xla"`` runs the plain versions.
+shapes, as the JAX task does.  A sample mask (eval padding, ``training.trainer``) sends
+the segmentation loss to the unfused tail, as the JAX task's gate does (K6's confusion
+matrix counts every element); the depth loss keeps its fused tail with the padded
+samples' targets set to inf.  K3 and K6-K9 take bf16 and f32 tokens (a float32 config's
+tail runs their f32 kernels).  On the card a fused tail the kernels do not take (a
+dtype they lack, a width without an instantiation) raises, naming the kernel, and
+``attention_impl="xla"`` runs the plain versions.
 """
 
 from __future__ import annotations
@@ -77,6 +80,9 @@ class WoodscapeSegmenterSwinHP:
     ``device`` (the first CUDA device when None; raises without one) from
     ``generator``."""
 
+    NAME = "swin_hp"
+    input_key = "hp_imgs"
+
     def __init__(self, config: WoodscapeSegmenterSwinHPConfig, data_spec: DataSpec,
                  device=None, generator: Optional[torch.Generator] = None):
         self.config = config
@@ -100,20 +106,24 @@ class WoodscapeSegmenterSwinHP:
         return next(self.model.parameters()).device
 
     def loss_fn(self, imgs, targets, generator: Optional[torch.Generator] = None,
-                deterministic: bool = True):
+                deterministic: bool = True, sample_mask=None):
         """(B, npix, f_in) images and (B, npix) int targets -> (loss, outputs).
 
         ``deterministic=False`` runs the network in training mode, with the dropout
         masks drawn from ``generator``.  outputs are the step's (F, F) confusion matrix
-        on the fused route (``fused_final_head``), the (B, npix, F) f32 logits
-        otherwise; ``metric_update`` takes either."""
+        on the fused route (``fused_final_head`` without a sample mask), the (B, npix,
+        F) logits otherwise; ``metric_update`` takes either.  ``sample_mask``: optional
+        (B,) bool excluding padded samples from the loss (and, through
+        ``metric_update``, from the metrics)."""
         model = self.model
         model.train(not deterministic)
         cfg = model.config
         device = self._device()
         imgs = torch.as_tensor(imgs, device=device)
         targets = torch.as_tensor(targets, device=device)
-        if cfg.fused_final_head:
+        if sample_mask is not None:
+            sample_mask = torch.as_tensor(sample_mask, device=device)
+        if cfg.fused_final_head and sample_mask is None:
             feats = model(imgs, tail=False, generator=generator)  # (B, N, C)
             B, N, C = feats.shape
             p = cfg.patch_size
@@ -122,7 +132,8 @@ class WoodscapeSegmenterSwinHP:
             return final_head_loss(feats.reshape(B * N, C), *decoder_tail(model), y, welem,
                                    patch_size=p, impl=cfg.attention_impl)
         logits = model(imgs, generator=generator)
-        return weighted_cross_entropy(logits, targets, self.class_weights), logits
+        return weighted_cross_entropy(logits, targets, self.class_weights,
+                                      sample_mask=sample_mask), logits
 
     @torch.no_grad()
     def predict(self, params_or_module, imgs) -> torch.Tensor:
@@ -154,6 +165,8 @@ class WoodscapeSegmenterSwinHP:
             # fused route: outputs is the step's confusion matrix
             return M.seg_state_merge_confmat(state, outputs)
         preds = torch.argmax(outputs, dim=-1)
+        if sample_mask is not None:
+            sample_mask = torch.as_tensor(sample_mask, device=preds.device)
         return M.seg_state_update(state, preds, torch.as_tensor(targets, device=preds.device),
                                   F, sample_mask)
 

@@ -44,6 +44,11 @@ def refuse(msg: str) -> None:
                      "plain version")
 
 
+def f32_suffix(t: torch.Tensor) -> str:
+    """The suffix of the f32 kernels' C entries and launch counters for operands ``t``."""
+    return "_f32" if t.dtype == torch.float32 else ""
+
+
 def stream(t: torch.Tensor) -> int:
     """The current CUDA stream of ``t``'s device, as the C entries take it."""
     return torch.cuda.current_stream(t.device).cuda_stream

@@ -40,14 +40,15 @@ dtype -> logits z @ Wh in f32.
   with ``final_head_loss_dwe_plain`` and ``reduce_rows_plain`` (composed:
   ``final_head_depth_loss_bwd_sequence_plain``).
 
-- Float32 (K6-K9): x f32 runs their f32 kernels (``csrc/final_head_f32.cu``), nothing
-  rounded below f32, as the Pallas kernels compute with f32 operands: on the card a
-  block holds one expand slice and walks the sub-pixels in an outer loop, each over the
-  same 128-row tiles (block b: tiles b, b + grid, ...), a thread per row; K8 and K9 are
-  K6's and K7's row kernels with the depth loss in place of the cross entropy, and K8's
-  predictions are its f32 logits.  K7 and K9 are their row kernel (dx, the f32 dh,
-  partial rows), ``reduce_rows``, then dWe = x^T dh by an f32 ``gemm_tn``.  Their steps'
-  twins are the ones above, run in f32.  K3 alone takes bf16 only.
+- Float32 (K3, K6-K9): x f32 runs their f32 kernels (``csrc/tail_f32.cuh``; entries in
+  ``final_head_f32.cu`` and ``final_head_depth_f32.cu``), nothing rounded below f32, as
+  the Pallas kernels compute with f32 operands: on the card a block holds one expand slice and walks the sub-pixels in an outer loop, each
+  over the same 128-row tiles (block b: tiles b, b + grid, ...), a thread per row; K8
+  and K9 are K6's and K7's row kernels with the depth loss in place of the cross
+  entropy, and K8's predictions are its f32 logits; K3 is K6's row kernel with the
+  argmax in place of the loss (its logits K6's bits).  K7 and K9 are their row kernel
+  (dx, the f32 dh, partial rows), ``reduce_rows``, then dWe = x^T dh by an f32
+  ``gemm_tn``.  Their steps' twins are the ones above, run in f32.
 
 Every wrapper dispatches on ``impl`` like the attention wrappers
 (``heal_swin_torch.ops._dispatch.use_kernel``): on a CUDA tensor it runs its kernel or
@@ -64,29 +65,29 @@ from collections import Counter
 import torch
 
 from heal_swin_torch import _build
-from heal_swin_torch.ops._dispatch import check, refuse, stream, use_kernel
+from heal_swin_torch.ops._dispatch import check, f32_suffix, refuse, stream, use_kernel
 
 LN_EPS = 1e-5
 KERNEL_ROWS = 64  # T a multiple of it for all five (gemm_tn's token steps in K7, K9)
 TAIL_TILE_ROWS = 128  # token rows of a block tile: 8 warps of 16 rows
 KERNEL_MAX_F = 32  # the class head's widest instantiation: four head n-tiles
-KERNEL_MAX_F_F32 = 16  # the f32 K6/K7's widest head: 16 columns
+KERNEL_MAX_F_F32 = 16  # the f32 K3/K6/K7's widest head: 16 columns
 KERNEL_SMEM_LIMIT = 232448  # bytes a block may opt in to on sm_90
 KERNEL_MAX_C_LOSS_BWD = 128  # the row core's widest instantiation
 # the row core holds a row's C columns in mma accumulators, one instantiation per C
 KERNEL_LOSS_CS = (32, 64, 96, 128)
 DEPTH_KINDS = ("l2", "l1", "huber", "nll")  # K8/K9's loss kinds, in their launch ids
-# the tail kernels by the library's names of their shared-memory figures; all but
-# "predict" have f32 variants ("loss_f32", ..., "depth_loss_bwd_f32")
+# the tail kernels by the library's names of their shared-memory figures; each has an
+# f32 variant ("predict_f32", "loss_f32", ..., "depth_loss_bwd_f32")
 KERNEL_IDS = {"predict": "K3", "loss": "K6", "loss_bwd": "K7", "depth_loss": "K8",
               "depth_loss_bwd": "K9"}
-F32_KERNELS = ("loss", "loss_bwd", "depth_loss", "depth_loss_bwd")
+F32_KERNELS = ("predict", "loss", "loss_bwd", "depth_loss", "depth_loss_bwd")
 
 # launch counters, bumped only where a kernel launches: per kernel, and per
 # (kernel, T, C), or (kernel, T, C, F, kind) for K8/K9
 launches = {"final_head_predict": 0, "final_head_loss": 0, "final_head_loss_bwd": 0,
             "final_head_depth_loss": 0, "final_head_depth_loss_bwd": 0,
-            "final_head_loss_f32": 0, "final_head_loss_bwd_f32": 0,
+            "final_head_predict_f32": 0, "final_head_loss_f32": 0, "final_head_loss_bwd_f32": 0,
             "final_head_depth_loss_f32": 0, "final_head_depth_loss_bwd_f32": 0}
 launches_by_shape: Counter = Counter()
 
@@ -499,13 +500,12 @@ def _tail_refusal(what, T, C, F, max_f=KERNEL_MAX_F):
 
 def kernels_take(T, C, F, dtype, train=True) -> bool:
     """Whether the segmentation tail's kernels take T tokens of width C, F classes and
-    ``dtype``: K6 and K7 both (``train``) or K3 (predict), which take the same shapes in
-    bf16 since K3 runs on their row core.  K6 and K7 also take f32 (their f32 kernels,
-    F <= 16); K3 takes bf16 only.  The wrappers' checks apart from the shared memory,
-    which they read from the kernels' library at the call (K7 at C 128 needs p <= 2);
-    where False, a CUDA tensor raises under "auto" and "pallas" and needs impl="xla",
-    the plain version."""
-    if dtype == torch.float32 and train:
+    ``dtype``: K6 and K7 both (``train``) or K3 (predict); the answer is the same either
+    way, since K3 runs on their row cores, bf16 and f32 (their f32 kernels, F <= 16).
+    The wrappers' checks apart from the shared memory, which they read from the kernels'
+    library at the call (K7 at C 128 needs p <= 2); where False, a CUDA tensor raises
+    under "auto" and "pallas" and needs impl="xla", the plain version."""
+    if dtype == torch.float32:
         return _tail_refusal("", T, C, F, KERNEL_MAX_F_F32) is None
     return dtype == torch.bfloat16 and _tail_refusal("", T, C, F) is None
 
@@ -513,7 +513,7 @@ def kernels_take(T, C, F, dtype, train=True) -> bool:
 def _tail_operands(what, x, we, gamma, beta, wh, patch_size, kernel):
     """The checked operands of the tail kernel ``kernel`` ("predict", "loss",
     "loss_bwd", "depth_loss" or "depth_loss_bwd", as the library names its
-    shared-memory figures; x f32 takes the f32 variant of every one but "predict"):
+    shared-memory figures; x f32 takes the f32 variant):
     (T, C, F, we_s (p, C, C), gamma, beta, wh), the weights in x's dtype."""
     T, C = x.shape
     p = patch_size
@@ -543,11 +543,6 @@ def _tail_operands(what, x, we, gamma, beta, wh, patch_size, kernel):
     return (T, C, F) + ops[1:]
 
 
-def _f32(x):
-    """The suffix of the f32 kernels' entries and launch counters for tokens x."""
-    return "_f32" if x.dtype == torch.float32 else ""
-
-
 def _targets(what, y, welem, T, p, device):
     if tuple(y.shape) != (T, p) or tuple(welem.shape) != (T, p):
         raise ValueError(f"{what}: y and welem must be (T, p) = {(T, p)}")
@@ -557,9 +552,10 @@ def _targets(what, y, welem, T, p, device):
 
 
 def final_head_predict(x, we, gamma, beta, wh, *, patch_size, impl="auto", tap_logits=False):
-    """K3 wrapper; operands and result as ``final_head_predict_plain``.  With
-    ``tap_logits`` (preds, the f32 logits (T, p, F) the argmax took): a probe's output,
-    on the card written by the kernel beside its classes."""
+    """K3 wrapper; operands and result as ``final_head_predict_plain``; x bf16 or f32 (the
+    f32 kernel, counted as "final_head_predict_f32").  With ``tap_logits`` (preds, the
+    f32 logits (T, p, F) the argmax took): a probe's output, on the card written by the
+    kernel beside its classes."""
     if not use_kernel(x, impl):
         lf = final_head_logits_plain(x, we, gamma, beta, wh, patch_size=patch_size)
         preds = argmax_lowest(lf)
@@ -571,15 +567,15 @@ def final_head_predict(x, we, gamma, beta, wh, *, patch_size, impl="auto", tap_l
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, we, gamma, beta, wh)):
         raise ValueError(f"{what}: the kernel has no backward; call it under "
                          "torch.no_grad()")
-    lib = _build.lib()
+    sfx = f32_suffix(x)
     preds = torch.empty((T, p), dtype=torch.int32, device=x.device)
     tap = torch.empty((T, p, F), dtype=torch.float32, device=x.device) if tap_logits else None
-    code = lib.hs_final_head_predict(x.data_ptr(), we_s.data_ptr(), g.data_ptr(),
-                                     b.data_ptr(), whb.data_ptr(), preds.data_ptr(),
-                                     None if tap is None else tap.data_ptr(), T, C, F, p,
-                                     LN_EPS, stream(x))
-    check(code, what)
-    _count(what, T, C)
+    code = getattr(_build.lib(), f"hs_final_head_predict{sfx}")(
+        x.data_ptr(), we_s.data_ptr(), g.data_ptr(), b.data_ptr(), whb.data_ptr(),
+        preds.data_ptr(), None if tap is None else tap.data_ptr(), T, C, F, p, LN_EPS,
+        stream(x))
+    check(code, what + sfx)
+    _count(what + sfx, T, C)
     return (preds, tap) if tap_logits else preds
 
 
@@ -602,7 +598,7 @@ def final_head_loss_sums(x, we, gamma, beta, wh, y, welem, *, patch_size, impl="
     p = patch_size
     y, welem = _targets(what, y, welem, T, p, x.device)
     lib = _build.lib()
-    sfx = _f32(x)
+    sfx = f32_suffix(x)
     red = torch.empty(2 + F * F, dtype=torch.float32, device=x.device)
     work = torch.empty(getattr(lib, f"hs_final_head_loss{sfx}_workspace")(T, C, F, p),
                        dtype=torch.uint8, device=x.device)
@@ -632,7 +628,7 @@ def final_head_loss_bwd(x, we, gamma, beta, wh, y, welem, scale, *, patch_size, 
     y, welem = _targets(what, y, welem, T, p, x.device)
     scale = scale.to(device=x.device, dtype=torch.float32).reshape(1).contiguous()
     lib = _build.lib()
-    sfx = _f32(x)
+    sfx = f32_suffix(x)
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     dwe = torch.empty((C, p * C), **f32)
@@ -669,7 +665,7 @@ def final_head_loss_bwd_rows(x, we, gamma, beta, wh, y, welem, scale, *, patch_s
     y, welem = _targets(what, y, welem, T, p, x.device)
     scale = scale.to(device=x.device, dtype=torch.float32).reshape(1).contiguous()
     lib = _build.lib()
-    sfx = _f32(x)
+    sfx = f32_suffix(x)
     grid = getattr(lib, f"hs_final_head_loss_bwd{sfx}_grid")(T, C, F, p)
     if grid < 1:
         raise RuntimeError(f"{what}: no grid for T={T}, C={C}, F={F}, p={p}")
@@ -701,7 +697,7 @@ def final_head_loss_dwe(x, dh, *, impl="auto"):
                          f"one dtype, T % 64, C % 16, N % 16, on one device; got "
                          f"{tuple(x.shape)} {x.dtype} {tuple(dh.shape)} {dh.dtype}")
     lib = _build.lib()
-    sfx = _f32(x)
+    sfx = f32_suffix(x)
     x, dh = x.contiguous(), dh.contiguous()
     out = torch.empty((C, N), dtype=torch.float32, device=x.device)
     work = torch.empty(getattr(lib, f"hs_gemm_tn{sfx}_workspace")(T, C, N), dtype=torch.uint8,
@@ -790,7 +786,7 @@ def final_head_depth_loss_sums(x, we, gamma, beta, wh, t, *, patch_size, loss_ki
                                                   patch_size, loss_kind, "depth_loss")
     p = patch_size
     lib = _build.lib()
-    sfx = _f32(x)
+    sfx = f32_suffix(x)
     red = torch.empty(2, dtype=torch.float32, device=x.device)
     preds = torch.empty((T, p * F), dtype=x.dtype, device=x.device)
     work = torch.empty(getattr(lib, f"hs_final_head_depth_loss{sfx}_workspace")(T, C, F, p),
@@ -823,7 +819,7 @@ def final_head_depth_loss_bwd(x, we, gamma, beta, wh, t, scale, *, patch_size, l
     p = patch_size
     scale = scale.to(device=x.device, dtype=torch.float32).reshape(1).contiguous()
     lib = _build.lib()
-    sfx = _f32(x)
+    sfx = f32_suffix(x)
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     dwe = torch.empty((C, p * C), **f32)
@@ -860,7 +856,7 @@ def final_head_depth_loss_bwd_rows(x, we, gamma, beta, wh, t, scale, *, patch_si
     p = patch_size
     scale = scale.to(device=x.device, dtype=torch.float32).reshape(1).contiguous()
     lib = _build.lib()
-    sfx = _f32(x)
+    sfx = f32_suffix(x)
     grid = getattr(lib, f"hs_final_head_depth_loss_bwd{sfx}_grid")(T, C, F, p)
     if grid < 1:
         raise RuntimeError(f"{what}: no grid for T={T}, C={C}, F={F}, p={p}")

@@ -37,15 +37,23 @@ do; do rounded; dqkv rounded before dx, dW and db.  The softmax shift is the row
 (the Pallas kernels use a static bound for cosine attention; softmax is
 shift-invariant, and forward and backward here use the same one).
 
+Float32 (K1, K2 forward): f32 operands run the f32 kernels
+(``csrc/window_attention_f32.cu``), nothing rounded below f32, as the Pallas kernels
+compute with f32 operands: K2 a thread per query row of each (window, head), K1 a launch
+sequence from one entry (the qkv product, K2's kernel, the output product, the
+LayerNorm's rows), f32 FMAs throughout.  There is no f32 backward yet (K4, K5), nor an
+f32 K16/K17: an f32 call that needs a gradient (grad enabled and an operand requiring
+it) raises on the card before any launch, naming the backward that is missing.
+
 Dispatch (``impl``): "auto" runs the kernel for a CUDA tensor and the plain version
 for a CPU tensor; "xla" runs the plain version on any device (the JAX package's name
 for its non-kernel path); "pallas" demands the kernel and raises on a CPU tensor.  On a
 CUDA tensor a wrapper runs its kernel or raises: operands the kernel was not written
-for (``kernels_take``: bf16, ws 64, head dim 32, T % 64, C <= 384 for the fused-qkv
-kernels) raise under "auto" as under "pallas", naming "xla" as the plain route, and a
-kernel that fails to build or launch raises; nothing falls back.  The backward takes
-the same route as the forward (a family's kernels take the same operands).  The
-autograd functions take the weights already cast to the compute
+for (``kernels_take``: bf16, or f32 for the K1/K2 forward; ws 64, head dim 32, T % 64,
+C <= 384 for the fused-qkv kernels) raise under "auto" as under "pallas", naming "xla"
+as the plain route, and a kernel that fails to build or launch raises; nothing falls
+back.  The backward takes the same route as the forward (a family's kernels take the
+same operands).  The autograd functions take the weights already cast to the compute
 dtype and return their gradients in that dtype, as the JAX custom VJPs do; the
 LayerNorm parameters, bias and logit scale get f32 gradients.
 """
@@ -59,7 +67,8 @@ from typing import Optional
 import torch
 
 from heal_swin_torch import _build
-from heal_swin_torch.ops._dispatch import check, input_grads, refuse, stream, use_kernel
+from heal_swin_torch.ops._dispatch import (check, f32_suffix, input_grads, refuse, stream,
+                                           use_kernel)
 
 MASK_VALUE = -100.0
 KERNEL_WS = 64  # the kernels' window size
@@ -69,11 +78,15 @@ KERNEL_MAX_C = 384  # K1/K4/K16/K17's shared-memory bound (x tile of 64 x C bf16
 FAMILY_MAX_C = {"window_attention": None, "window_attention_qkv_epi": KERNEL_MAX_C,
                 "window_attention_qkv": KERNEL_MAX_C}
 
+# the families whose forward has an f32 kernel, and the backward each lacks in f32
+F32_FORWARD = {"window_attention": "K5", "window_attention_qkv_epi": "K4"}
+
 # launch counters, bumped only where a kernel launches: per kernel, and per
-# (kernel, T, C, has_mask)
+# (kernel, T, C, has_mask); the f32 kernels count as "<kernel>_f32"
 launches = {"window_attention": 0, "window_attention_qkv_epi": 0, "window_attention_qkv": 0,
             "window_attention_bwd": 0, "window_attention_qkv_epi_bwd": 0,
-            "window_attention_qkv_bwd": 0}
+            "window_attention_qkv_bwd": 0, "window_attention_f32": 0,
+            "window_attention_qkv_epi_f32": 0}
 launches_by_shape: Counter = Counter()
 
 
@@ -321,12 +334,18 @@ def window_attention_qkv_epi_bwd_plain(x, wqkv, bqkv, wp, bp, ln_scale, ln_bias,
 # --------------------------------------------------------------------------- kernels
 
 
-def _refusal(family, what, T, C, num_heads, ws, dtype):
+def _refusal(family, what, T, C, num_heads, ws, dtype, train=True):
     """Why the kernels of ``family`` (a key of FAMILY_MAX_C) do not take tokens of
     this shape and dtype, or None where they do: the wrappers' refusal and
-    ``kernels_take``."""
+    ``kernels_take``.  ``train``: the backward kernel is needed too (K1/K2 take f32
+    for the forward only)."""
     max_c = FAMILY_MAX_C[family]
-    if dtype != torch.bfloat16:
+    if dtype == torch.float32 and family in F32_FORWARD:
+        if train:
+            return (f"{what}: float32 operands that need a gradient: the f32 kernel "
+                    f"computes the forward only, and the backward {F32_FORWARD[family]} "
+                    "takes bfloat16")
+    elif dtype != torch.bfloat16:
         return f"{what}: the kernel takes bfloat16 operands, got {dtype}"
     if ws != KERNEL_WS:
         return f"{what}: the kernel takes ws={KERNEL_WS}, got {ws}"
@@ -339,19 +358,26 @@ def _refusal(family, what, T, C, num_heads, ws, dtype):
     return None
 
 
-def kernels_take(family, T, C, num_heads, ws, dtype) -> bool:
-    """Whether the forward and backward kernels of ``family`` -- "window_attention"
-    (K2/K5), "window_attention_qkv_epi" (K1/K4) or "window_attention_qkv" (K16/K17) --
-    take T tokens of width C in ``num_heads`` heads, windows of ``ws`` and ``dtype``.
-    Exactly the wrappers' shape and dtype checks: where False, a CUDA tensor raises
-    under "auto" and "pallas" and needs impl="xla", the plain version."""
-    return _refusal(family, "", T, C, num_heads, ws, dtype) is None
+def kernels_take(family, T, C, num_heads, ws, dtype, train=True) -> bool:
+    """Whether the kernels of ``family`` -- "window_attention" (K2/K5),
+    "window_attention_qkv_epi" (K1/K4) or "window_attention_qkv" (K16/K17) -- take T
+    tokens of width C in ``num_heads`` heads, windows of ``ws`` and ``dtype``: the
+    forward and the backward (``train``) or the forward alone.  bf16 both ways; f32
+    the K1 and K2 forward only.  Exactly the wrappers' shape and dtype checks: where
+    False, a CUDA tensor raises under "auto" and "pallas" and needs impl="xla", the
+    plain version."""
+    return _refusal(family, "", T, C, num_heads, ws, dtype, train) is None
 
 
-def _refuse(family, what, T, C, num_heads, ws, dtype):
-    msg = _refusal(family, what, T, C, num_heads, ws, dtype)
+def _refuse(family, what, T, C, num_heads, ws, dtype, train=True):
+    msg = _refusal(family, what, T, C, num_heads, ws, dtype, train)
     if msg is not None:
         refuse(msg)
+
+
+def _needs_grad(tensors) -> bool:
+    """Whether autograd will want a gradient through a call on ``tensors``."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
 
 def _check_cuda_operands(what, tensors):
@@ -397,11 +423,12 @@ def _attn_shape(qkv):
     return T, C3 // 3 if C3 % 3 == 0 else -1
 
 
-def _attn_operands(what, qkv, groups, bias, logit_scale, num_heads, use_cos, has_mask, ws):
+def _attn_operands(what, qkv, groups, bias, logit_scale, num_heads, use_cos, has_mask, ws,
+                   train=True):
     """K2/K5's checked operands: (T, C, bias, groups, logit_scale or None)."""
     T, C = _attn_shape(qkv)
     h = num_heads
-    _refuse("window_attention", what, T, C, h, ws, qkv.dtype)
+    _refuse("window_attention", what, T, C, h, ws, qkv.dtype, train)
     bias_t = _bias_operand(bias, h, ws, qkv)
     groups_t = _groups_operand(groups, has_mask, T, ws)
     ls = None
@@ -412,22 +439,27 @@ def _attn_operands(what, qkv, groups, bias, logit_scale, num_heads, use_cos, has
 
 
 def window_attention_fwd(qkv, groups, bias, logit_scale, *, ws, num_heads, use_cos, sm_scale,
-                         has_mask=True, impl="auto"):
-    """K2 wrapper (no autograd): attention from qkv rows (T, 3C) -> (T, C)."""
+                         has_mask=True, impl="auto", needs_grad=None):
+    """K2 wrapper (no autograd): attention from qkv rows (T, 3C) -> (T, C); bf16 qkv, or
+    f32 (the f32 kernel, counted as "window_attention_f32") where no gradient is needed
+    (``needs_grad``; None: autograd's view of the operands)."""
     if not use_kernel(qkv, impl):
         return window_attention_plain(qkv, groups, bias, logit_scale, ws=ws,
                                       num_heads=num_heads, use_cos=use_cos,
                                       sm_scale=sm_scale, has_mask=has_mask)
     what = "window_attention"
+    if needs_grad is None:
+        needs_grad = _needs_grad((qkv, bias, logit_scale))
     T, C, bias_t, groups_t, ls = _attn_operands(what, qkv, groups, bias, logit_scale,
-                                                num_heads, use_cos, has_mask, ws)
+                                                num_heads, use_cos, has_mask, ws, needs_grad)
     _check_cuda_operands(what, [t for t in (qkv, groups_t, bias_t, ls) if t is not None])
+    sfx = f32_suffix(qkv)
     out = torch.empty((T, C), dtype=qkv.dtype, device=qkv.device)
-    code = _build.lib().hs_window_attention(
+    code = getattr(_build.lib(), f"hs_window_attention{sfx}")(
         qkv.data_ptr(), _ptr(groups_t), bias_t.data_ptr(), _ptr(ls), out.data_ptr(), T, C,
         int(use_cos), int(has_mask), float(sm_scale), stream(qkv))
-    check(code, what)
-    _count(what, T, C, has_mask)
+    check(code, what + sfx)
+    _count(what + sfx, T, C, has_mask)
     return out
 
 
@@ -464,14 +496,14 @@ def window_attention_bwd(qkv, groups, bias, logit_scale, dout, *, ws, num_heads,
 
 
 def _epi_operands(what, x, wqkv, bqkv, wp, bp, ln_scale, ln_bias, groups, bias,
-                  logit_scale, num_heads, has_mask, ws):
+                  logit_scale, num_heads, has_mask, ws, train=True):
     """K1/K4's checked operands in the kernels' dtypes."""
     T, C = x.shape
     if tuple(wp.shape) != (C, C):
         raise ValueError(f"{what}: wp must be (C, C) = {(C, C)}")
-    dt = torch.bfloat16
+    dt = x.dtype
     ops = _qkv_operands("window_attention_qkv_epi", what, x, wqkv, bqkv, groups, bias,
-                        logit_scale, num_heads, True, has_mask, ws)
+                        logit_scale, num_heads, True, has_mask, ws, train)
     ops.update(
         wp=wp.to(dt).contiguous(),
         bp=torch.zeros(C, dtype=dt, device=x.device) if bp is None else bp.to(dt).contiguous(),
@@ -481,20 +513,20 @@ def _epi_operands(what, x, wqkv, bqkv, wp, bp, ln_scale, ln_bias, groups, bias,
 
 
 def _qkv_operands(family, what, x, wqkv, bqkv, groups, bias, logit_scale, num_heads, use_cos,
-                  has_mask, ws):
+                  has_mask, ws, train=True):
     """The checked operands the kernels with the qkv projection inside (K1/K4,
-    K16/K17) share, in the kernels' dtypes: x, wq, bq, groups, bias, ls (None for
-    scaled-dot)."""
+    K16/K17) share, in the kernels' dtypes (x's: bf16, or f32 for the f32 K1): x, wq,
+    bq, groups, bias, ls (None for scaled-dot)."""
     T, C = x.shape
     h = num_heads
-    _refuse(family, what, T, C, h, ws, x.dtype)
+    _refuse(family, what, T, C, h, ws, x.dtype, train)
     if tuple(wqkv.shape) != (C, 3 * C):
         raise ValueError(f"{what}: wqkv must be (C, 3C) = {(C, 3 * C)}")
     ls = None
     if use_cos:
         _check_logit_scale(what, logit_scale, h)
         ls = logit_scale.contiguous()
-    dt = torch.bfloat16
+    dt = x.dtype
     return dict(
         x=x.contiguous(), wq=wqkv.to(dt).contiguous(),
         bq=(torch.zeros(3 * C, dtype=dt, device=x.device) if bqkv is None
@@ -505,25 +537,36 @@ def _qkv_operands(family, what, x, wqkv, bqkv, groups, bias, logit_scale, num_he
 
 def window_attention_qkv_epi_fwd(x, wqkv, bqkv, wp, bp, ln_scale, ln_bias, groups, bias,
                                  logit_scale, *, ws, num_heads, sm_scale, has_mask=True,
-                                 ln_eps=1e-5, impl="auto"):
-    """K1 wrapper (no autograd): [LN](cos_attn(x @ wqkv + bqkv) @ wp + bp), (T, C)."""
+                                 ln_eps=1e-5, impl="auto", needs_grad=None):
+    """K1 wrapper (no autograd): [LN](cos_attn(x @ wqkv + bqkv) @ wp + bp), (T, C); bf16
+    x, or f32 (the f32 launch sequence, counted as "window_attention_qkv_epi_f32") where
+    no gradient is needed (``needs_grad``; None: autograd's view of the operands)."""
     if not use_kernel(x, impl):
         return window_attention_qkv_epi_plain(
             x, wqkv, bqkv, wp, bp, ln_scale, ln_bias, groups, bias, logit_scale, ws=ws,
             num_heads=num_heads, sm_scale=sm_scale, has_mask=has_mask, ln_eps=ln_eps)
     what = "window_attention_qkv_epi"
+    if needs_grad is None:
+        needs_grad = _needs_grad((x, wqkv, bqkv, wp, bp, ln_scale, ln_bias, bias,
+                                  logit_scale))
     T, C, o = _epi_operands(what, x, wqkv, bqkv, wp, bp, ln_scale, ln_bias, groups, bias,
-                            logit_scale, num_heads, has_mask, ws)
+                            logit_scale, num_heads, has_mask, ws, needs_grad)
     x = o.pop("x")
     _check_cuda_operands(what, [x] + [t for t in o.values() if t is not None])
+    lib = _build.lib()
+    sfx = f32_suffix(x)
     out = torch.empty((T, C), dtype=x.dtype, device=x.device)
-    code = _build.lib().hs_window_attention_qkv_epi(
-        x.data_ptr(), o["wq"].data_ptr(), o["bq"].data_ptr(), o["wp"].data_ptr(),
-        o["bp"].data_ptr(), _ptr(o["g"]), _ptr(o["b"]), _ptr(o["groups"]),
-        o["bias"].data_ptr(), o["ls"].data_ptr(), out.data_ptr(), T, C,
-        int(o["g"] is not None), int(has_mask), float(ln_eps), stream(x))
-    check(code, what)
-    _count(what, T, C, has_mask)
+    args = (x.data_ptr(), o["wq"].data_ptr(), o["bq"].data_ptr(), o["wp"].data_ptr(),
+            o["bp"].data_ptr(), _ptr(o["g"]), _ptr(o["b"]), _ptr(o["groups"]),
+            o["bias"].data_ptr(), o["ls"].data_ptr(), out.data_ptr())
+    if sfx:  # the f32 launch sequence's workspace: qkv and o
+        work = torch.empty(lib.hs_window_attention_qkv_epi_f32_workspace(T, C),
+                           dtype=torch.uint8, device=x.device)
+        args += (work.data_ptr(),)
+    code = getattr(lib, f"hs_window_attention_qkv_epi{sfx}")(
+        *args, T, C, int(o["g"] is not None), int(has_mask), float(ln_eps), stream(x))
+    check(code, what + sfx)
+    _count(what + sfx, T, C, has_mask)
     return out
 
 
@@ -689,10 +732,11 @@ class _WindowAttention(torch.autograd.Function):
     """K2 forward, K5 backward (or their plain versions, by ``impl`` and device)."""
 
     @staticmethod
-    def forward(ctx, qkv, groups, bias, logit_scale, kw):
+    def forward(ctx, qkv, groups, bias, logit_scale, kw, needs_grad):
         ctx.kw = kw
         ctx.save_for_backward(qkv, groups, bias, logit_scale)
-        return window_attention_fwd(qkv, groups, bias, logit_scale, **kw)
+        return window_attention_fwd(qkv, groups, bias, logit_scale, **kw,
+                                    needs_grad=needs_grad)
 
     @staticmethod
     def backward(ctx, dout):
@@ -700,7 +744,7 @@ class _WindowAttention(torch.autograd.Function):
         dqkv, dbias, dls = window_attention_bwd(qkv, groups, bias, logit_scale,
                                                 dout.to(qkv.dtype), **ctx.kw)
         return input_grads(ctx, [(dqkv, qkv), (None, groups), (dbias, bias),
-                                 (dls, logit_scale), (None, None)])
+                                 (dls, logit_scale), (None, None), (None, None)])
 
 
 class _WindowAttentionQkvEpi(torch.autograd.Function):
@@ -708,12 +752,12 @@ class _WindowAttentionQkvEpi(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, wqkv, bqkv, wp, bp, ln_scale, ln_bias, groups, bias, logit_scale,
-                kw):
+                kw, needs_grad):
         ctx.kw = kw
         ctx.save_for_backward(x, wqkv, bqkv, wp, bp, ln_scale, ln_bias, groups, bias,
                               logit_scale)
         return window_attention_qkv_epi_fwd(x, wqkv, bqkv, wp, bp, ln_scale, ln_bias, groups,
-                                            bias, logit_scale, **kw)
+                                            bias, logit_scale, **kw, needs_grad=needs_grad)
 
     @staticmethod
     def backward(ctx, dz):
@@ -722,7 +766,8 @@ class _WindowAttentionQkvEpi(torch.autograd.Function):
         grads = window_attention_qkv_epi_bwd(*saved, dz.to(x.dtype), **ctx.kw)
         dx, dwq, dbq, dwp, dbp, dg, dbe, dbias, dls = grads
         return input_grads(ctx, list(zip(
-            (dx, dwq, dbq, dwp, dbp, dg, dbe, None, dbias, dls, None), saved + (None,))))
+            (dx, dwq, dbq, dwp, dbp, dg, dbe, None, dbias, dls, None, None),
+            saved + (None, None))))
 
 
 class _WindowAttentionQkv(torch.autograd.Function):
@@ -748,7 +793,8 @@ def window_attention(qkv, groups, bias, logit_scale, *, ws, num_heads, use_cos, 
     """Attention from qkv rows (T, 3C) -> (T, C): K2 forward, K5 backward."""
     kw = dict(ws=ws, num_heads=num_heads, use_cos=use_cos, sm_scale=sm_scale,
               has_mask=has_mask, impl=impl)
-    return _WindowAttention.apply(qkv, groups, bias, logit_scale, kw)
+    return _WindowAttention.apply(qkv, groups, bias, logit_scale, kw,
+                                  _needs_grad((qkv, bias, logit_scale)))
 
 
 def window_attention_qkv_epi(x, wqkv, bqkv, wp, bp, ln_scale, ln_bias, groups, bias,
@@ -759,8 +805,9 @@ def window_attention_qkv_epi(x, wqkv, bqkv, wp, bp, ln_scale, ln_bias, groups, b
     that dtype, as the model does."""
     kw = dict(ws=ws, num_heads=num_heads, sm_scale=sm_scale, has_mask=has_mask,
               ln_eps=ln_eps, impl=impl)
+    needs_grad = _needs_grad((x, wqkv, bqkv, wp, bp, ln_scale, ln_bias, bias, logit_scale))
     return _WindowAttentionQkvEpi.apply(x, wqkv, bqkv, wp, bp, ln_scale, ln_bias, groups,
-                                        bias, logit_scale, kw)
+                                        bias, logit_scale, kw, needs_grad)
 
 
 def window_attention_qkv(x, wqkv, bqkv, groups, bias, logit_scale, *, ws, num_heads, use_cos,

@@ -502,10 +502,10 @@ def test_kernels_refuse_what_they_do_not_take(dev):
             wa.window_attention_qkv_epi(x, w, None, torch.zeros(64, 64, device=dev), None,
                                         None, None, None, None, torch.ones(2, device=dev),
                                         ws=16, num_heads=2, sm_scale=1.0, has_mask=False, **P)
-        with pytest.raises(ValueError, match="bfloat16"):
-            wa.window_attention(torch.zeros(128, 192, device=dev), None, None,
-                                torch.ones(2, device=dev), ws=64, num_heads=2, use_cos=True,
-                                sm_scale=1.0, has_mask=False, **P)
+        with pytest.raises(ValueError, match="K5 takes bfloat16"):
+            wa.window_attention(torch.zeros(128, 192, device=dev, requires_grad=True), None,
+                                None, torch.ones(2, device=dev), ws=64, num_heads=2,
+                                use_cos=True, sm_scale=1.0, has_mask=False, **P)
         with pytest.raises(ValueError, match="C <= 384"):
             wa.window_attention_qkv_epi_bwd(xb, torch.zeros(C, 3 * C, device=dev), None,
                                             torch.zeros(C, C, device=dev), None, None, None,
@@ -528,17 +528,18 @@ def test_kernels_refuse_what_they_do_not_take(dev):
             fh.final_head_loss_bwd(*wide, torch.ones((), device=dev), patch_size=4, **P)
         with pytest.raises(ValueError, match="F <= 32"):
             fh.final_head_loss_sums(*many, patch_size=4, **P)
-        with pytest.raises(ValueError, match="bfloat16.*impl='xla'"):
-            fh.final_head_predict(many[0].float(), *few[1:5], patch_size=4, **P)
+        with pytest.raises(ValueError, match=r"\(K3\).*F <= 16.*impl='xla'"):
+            fh.final_head_predict(many[0].float(), *many[1:5], patch_size=4, **P)
 
 
 def test_auto_refuses_what_the_kernels_do_not_take(dev):
     """Under "auto" a CUDA tensor that the kernels were not written for (float32 where
-    the kernel has no f32 variant -- K3 and the attention kernels --, an f32 depth tail
-    at a width without an instantiation, the window 16) raises with no launch, naming
-    impl="xla", which runs the plain version: no launch, and bit for bit the plain
-    version's result.  (K6-K9 take float32 since their f32 kernels:
-    ``test_final_head_loss_f32_kernels``, ``test_final_head_depth_loss_f32_kernels``.)"""
+    the kernel has no f32 variant -- K16 --, or needs a gradient -- K2, whose backward
+    K5 has none --, an f32 tail at a width without an instantiation, the window 16)
+    raises with no launch, naming impl="xla", which runs the plain version: no launch,
+    and bit for bit the plain version's result.  (K3 and K6-K9 take float32 since
+    their f32 kernels, K1 and K2 for the forward alone: ``test_final_head_loss_f32_kernels``,
+    ``test_final_head_depth_loss_f32_kernels``, ``test_window_attention_f32_kernels``.)"""
     gen = torch.Generator().manual_seed(12)
     C, T, h = 64, 64 * 4, 2
     x = _randn(gen, dev, T, C)
@@ -546,7 +547,7 @@ def test_auto_refuses_what_the_kernels_do_not_take(dev):
     groups = torch.randint(0, 3, (T // 16, 16), generator=gen, dtype=torch.int32).to(dev)
     bias16 = _randn(gen, dev, h, 16, 16)
     ls = torch.exp(_randn(gen, dev, h, std=0.5) + 2.3)
-    tail = _loss_args(gen, dev, T, C, 10)
+    tail48 = _loss_args_f32(gen, dev, T, 48, 10)
     depth48 = _depth_args_f32(gen, dev, T, 48, 1)
     cases = [
         (wa.window_attention_qkv_fwd, wa.window_attention_qkv_plain,
@@ -558,13 +559,13 @@ def test_auto_refuses_what_the_kernels_do_not_take(dev):
         (wa.window_attention_qkv_bwd, wa.window_attention_qkv_bwd_plain,
          (x, wq, bq, None, None, None, x),
          dict(ws=64, num_heads=h, use_cos=False, sm_scale=0.2, has_mask=False)),
-        (wa.window_attention_fwd, wa.window_attention_plain, (x @ wq, None, None, ls),
+        (wa.window_attention_fwd, wa.window_attention_plain,
+         ((x @ wq).detach().requires_grad_(), None, None, ls),
          dict(ws=64, num_heads=h, use_cos=True, sm_scale=0.2, has_mask=False)),
         (wa.window_attention_qkv_epi_fwd, wa.window_attention_qkv_epi_plain,
          (x.bfloat16(), wq, bq, wq[:, :C], bq[:C], None, None, groups, bias16, ls),
          dict(ws=16, num_heads=h, sm_scale=0.2)),
-        (fh.final_head_predict, fh.final_head_predict_plain, (tail[0].float(),) + tail[1:5],
-         dict(patch_size=4)),
+        (fh.final_head_predict, fh.final_head_predict_plain, tail48[:5], dict(patch_size=4)),
         (fh.final_head_depth_loss_sums, fh.final_head_depth_loss_plain, depth48,
          dict(patch_size=4, loss_kind="l2")),
     ]
@@ -1617,18 +1618,18 @@ def test_final_head_loss_f32_function_backward_through_kernels(dev):
 
 
 def test_f32_tails_without_a_kernel_refuse(dev):
-    """Float32 tokens on the tail kernel without an f32 variant -- K3 (predict) -- raise
-    under "auto" and "pallas" with no launch, naming the kernel and impl="xla"; so does an
-    f32 depth tail at C 48, which the f32 K8/K9 have no instantiation for; the f32 K6/K7
-    refuse heads wider than 16 columns."""
+    """Float32 tokens at C 48 on K3 (predict) raise under "auto" and "pallas" with no
+    launch, naming the kernel and impl="xla", as does an f32 depth tail at C 48: the f32
+    K3 and K8/K9 have no instantiation of that width; the f32 K6/K7 refuse heads wider
+    than 16 columns."""
     gen = torch.Generator().manual_seed(43)
     one = torch.ones((), device=dev)
-    args = _loss_args_f32(gen, dev, 128, 96, 8)
+    args = _loss_args_f32(gen, dev, 128, 48, 8)
     d48 = _depth_args_f32(gen, dev, 128, 48, 2)
     wide = _loss_args_f32(gen, dev, 128, 96, 17)
     before = dict(fh.launches)
     for impl in ("auto", "pallas"):
-        with pytest.raises(ValueError, match=r"\(K3\).*bfloat16.*impl='xla'"):
+        with pytest.raises(ValueError, match=r"\(K3\).*C % 32 == 0 and C <= 128.*impl='xla'"):
             fh.final_head_predict(*args[:5], patch_size=4, impl=impl)
         with pytest.raises(ValueError, match=r"\(K8\).*C % 32 == 0 and C <= 128.*impl='xla'"):
             fh.final_head_depth_loss_sums(*d48[:4], d48[4][:, :1], d48[5], patch_size=4,
@@ -1642,7 +1643,7 @@ def test_f32_tails_without_a_kernel_refuse(dev):
     assert dict(fh.launches) == before
 
 
-# --- the f32 K8 / K9 (csrc/final_head_f32.cu): K6's and K7's f32 row kernels with the
+# --- the f32 K8 / K9 (csrc/tail_f32.cuh): K6's and K7's f32 row kernels with the
 # masked depth loss, held to the plain versions in f32 with TF32 off: the count exact,
 # the loss sum within 1e-5 relative, the f32 predictions and every gradient and step
 # within relative L2 1e-5 (F32_TOL)
@@ -1789,3 +1790,100 @@ def test_final_head_depth_loss_f32_function_backward_through_kernels(dev):
     for t in args[:5]:
         assert t.grad is not None and t.grad.dtype == torch.float32
         assert torch.isfinite(t.grad).all()
+
+
+# --- the f32 K1, K2 and K3 (csrc/window_attention_f32.cu, csrc/tail_f32.cuh): the
+# forward kernels of the f32 paper configs' eval and predict, held to the plain versions
+# in f32 with TF32 off, relative L2 1e-5 (F32_TOL)
+def _epi_args_f32(gen, dev, C, T, masked, has_ln):
+    return tuple(None if a is None else a.float() if a.dtype == torch.bfloat16 else a
+                 for a in _epi_args(gen, dev, C, T, masked, has_ln))
+
+
+@pytest.mark.parametrize("C", [96, 192, 384])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("has_ln", [False, True])
+def test_window_attention_f32_kernels(dev, no_tf32, C, masked, has_ln):
+    """The f32 K1 (its launch sequence: qkv product, attention, output product,
+    LayerNorm) at the paper's stage widths against its plain version in f32, under
+    no_grad, counted as "window_attention_qkv_epi_f32"; two launches bit-equal."""
+    gen = torch.Generator().manual_seed(60 + C + masked + 2 * has_ln)
+    h, T = C // 32, 64 * 21
+    args = _epi_args_f32(gen, dev, C, T, masked, has_ln)
+    kw = dict(ws=64, num_heads=h, sm_scale=32 ** -0.5, has_mask=masked)
+    key = ("window_attention_qkv_epi_f32", T, C, masked)
+    n = wa.launches_by_shape[key]
+    with torch.no_grad():
+        got = wa.window_attention_qkv_epi(*args, **kw)
+        again = wa.window_attention_qkv_epi(*args, **kw)
+    torch.cuda.synchronize()
+    assert wa.launches_by_shape[key] == n + 2 and got.dtype == torch.float32
+    assert _rel_l2(got, wa.window_attention_qkv_epi_plain(*args, **kw)) < F32_TOL
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("use_cos", [True, False])
+@pytest.mark.parametrize("masked", [False, True])
+def test_window_attention_f32_kernel(dev, no_tf32, use_cos, masked):
+    """The f32 K2 at the bottleneck's width (C 768, 24 heads), both flavours, against its
+    plain version in f32, counted as "window_attention_f32"."""
+    gen = torch.Generator().manual_seed(70 + use_cos + 2 * masked)
+    C, h, T = 768, 24, 64 * 9
+    qkv, groups, bias, ls = _attn_args(gen, dev, C, T, use_cos)
+    qkv = qkv.float()
+    kw = dict(ws=64, num_heads=h, use_cos=use_cos, sm_scale=32 ** -0.5, has_mask=masked)
+    n = wa.launches["window_attention_f32"]
+    with torch.no_grad():
+        got = wa.window_attention(qkv, groups if masked else None, bias, ls, **kw)
+    torch.cuda.synchronize()
+    assert wa.launches["window_attention_f32"] == n + 1 and got.dtype == torch.float32
+    want = wa.window_attention_plain(qkv, groups if masked else None, bias, ls, **kw)
+    assert _rel_l2(got, want) < F32_TOL
+
+
+def test_f32_attention_needing_a_gradient_raises(dev):
+    """An f32 K1 or K2 call that needs a gradient raises under "auto" and "pallas"
+    before any launch, naming its backward (K4, K5, which take bf16) and impl='xla'."""
+    gen = torch.Generator().manual_seed(75)
+    args = [a if a is None else a.clone().requires_grad_(a.dtype == torch.float32)
+            for a in _epi_args_f32(gen, dev, 96, 128, True, True)]
+    qkv, _, bias, ls = _attn_args(gen, dev, 768, 128, True)
+    qkv = qkv.float().requires_grad_()
+    before = dict(wa.launches)
+    for impl in ("auto", "pallas"):
+        with pytest.raises(ValueError, match="K4 takes bfloat16.*impl='xla'"):
+            wa.window_attention_qkv_epi(*args, ws=64, num_heads=3, sm_scale=0.2, impl=impl)
+        with pytest.raises(ValueError, match="K5 takes bfloat16.*impl='xla'"):
+            wa.window_attention(qkv, None, bias, ls, ws=64, num_heads=24, use_cos=True,
+                                sm_scale=0.2, has_mask=False, impl=impl)
+    torch.cuda.synchronize()
+    assert dict(wa.launches) == before
+
+
+@pytest.mark.parametrize("T,C,F", [(64 * 65, 32, 16), (64 * 65, 96, 8), (64 * 3, 64, 5),
+                                   (64 * 65, 128, 12), (262144, 96, 8)])
+def test_final_head_predict_f32_kernel(dev, no_tf32, T, C, F):
+    """The f32 K3 at each instantiation: its classes equal the plain version's outside
+    near-ties of the f32 logits, its logits tap within 1e-5 of the plain logits and
+    ``torch.equal`` to the f32 K6's tap on the same operands (one row kernel), a NaN
+    token gives F - 1; probe (i): its classes are ``argmax_lowest`` of its own tap,
+    ``torch.equal``.  Counted as "final_head_predict_f32"."""
+    gen = torch.Generator().manual_seed(80 + C + F)
+    p = 4
+    args = list(_loss_args_f32(gen, dev, T, C, F, p))
+    args[0][5] = float("nan")
+    n = fh.launches["final_head_predict_f32"]
+    preds, tap = fh.final_head_predict(*args[:5], patch_size=p, tap_logits=True)
+    got = fh.final_head_predict(*args[:5], patch_size=p)
+    lf6 = fh.final_head_loss_sums(*args, patch_size=p, tap_logits=True)[3]
+    torch.cuda.synchronize()
+    assert fh.launches["final_head_predict_f32"] == n + 2
+    assert torch.equal(preds, got) and (got[5] == F - 1).all()
+    assert torch.equal(fh.argmax_lowest(tap), preds)  # probe (i)
+    fine = torch.ones(T, dtype=torch.bool, device=dev)
+    fine[5] = False
+    assert torch.equal(tap[fine], lf6[fine]) and tap[5].isnan().all()
+    lf = fh.final_head_logits_plain(*args[:5], patch_size=p)
+    assert _rel_l2(tap[fine], lf[fine]) < F32_TOL
+    ok = fine[:, None] & ~_f32_near_ties(args, p)
+    assert torch.equal(got[ok], fh.argmax_lowest(lf)[ok])

@@ -1,7 +1,7 @@
 """The depth tail in float32 and the depth paper config's train step, against the JAX
 package on the CPU.
 
-On the card the f32 K8 and K9 (``csrc/final_head_f32.cu``) are the f32 K6/K7's row
+On the card the f32 K8 and K9 (``csrc/tail_f32.cuh``) are the f32 K6/K7's row
 kernels with the masked depth loss: a block holds one expand slice and walks the
 sub-pixels in an outer loop, each over the 128-row tiles b, b + grid, ... of the bf16
 kernels' partition; K8 writes one partial row [sum loss, count] a block and its f32

@@ -201,7 +201,7 @@ def test_step_wrappers_run_the_plain_versions_on_the_cpu():
 def test_loss_kernels_take():
     """K6 and K7, and K3 on their row core, take C in 32, 64, 96, 128 (one instantiation
     each); other multiples of 16 are refused.  K6 and K7 take float32 too (their f32
-    kernels, at the same widths), K3 does not."""
+    kernels, at the same widths), and so does K3 (its f32 kernel)."""
     bf = torch.bfloat16
     for C in (32, 64, 96, 128):
         assert fh.kernels_take(262144, C, 10, bf)
@@ -212,4 +212,5 @@ def test_loss_kernels_take():
     assert fh.kernels_take(128, 96, 32, bf) and not fh.kernels_take(128, 96, 33, bf)
     assert not fh.kernels_take(96, 96, 10, bf)  # T % 64
     assert fh.kernels_take(128, 96, 10, torch.float32)
-    assert not fh.kernels_take(128, 96, 10, torch.float32, train=False)
+    assert fh.kernels_take(128, 96, 10, torch.float32, train=False)
+    assert not fh.kernels_take(128, 48, 10, torch.float32, train=False)

@@ -159,7 +159,8 @@ def test_qkv_function_backward_is_the_plain_backward(use_cos):
 def test_attention_kernels_take():
     """The operands the window-attention families take, the rule their wrappers refuse
     by on the card: bf16, ws 64, head dim 32, T % 64, and C <= 384 for the fused-qkv
-    kernels (K1/K4, K16/K17)."""
+    kernels (K1/K4, K16/K17); f32 for the forward alone (``train=False``) of K1 and K2,
+    which have f32 forward kernels and no f32 backward, and never for K16/K17."""
     bf, f32 = torch.bfloat16, torch.float32
     for fam in ("window_attention", "window_attention_qkv_epi", "window_attention_qkv"):
         assert wa.kernels_take(fam, 262144, 96, 3, 64, bf)
@@ -173,18 +174,30 @@ def test_attention_kernels_take():
     assert wa.kernels_take("window_attention", 4096, 768, 24, 64, bf)
     assert not wa.kernels_take("window_attention_qkv", 4096, 768, 24, 64, bf)  # C > 384
     assert not wa.kernels_take("window_attention_qkv_epi", 4096, 768, 24, 64, bf)
+    for fam in ("window_attention", "window_attention_qkv_epi"):
+        assert wa.kernels_take(fam, 262144, 96, 3, 64, f32, train=False)
+        assert wa.kernels_take(fam, 16384, 384, 12, 64, f32, train=False)
+        assert wa.kernels_take(fam, 16384, 384, 12, 64, bf, train=False)
+        assert not wa.kernels_take(fam, 4096, 96, 3, 16, f32, train=False)  # window 16
+        assert not wa.kernels_take(fam, 262144, 96, 3, 64, torch.float16, train=False)
+    assert wa.kernels_take("window_attention", 4096, 768, 24, 64, f32, train=False)
+    assert not wa.kernels_take("window_attention_qkv_epi", 4096, 768, 24, 64, f32,
+                               train=False)
+    assert not wa.kernels_take("window_attention_qkv", 262144, 96, 3, 64, f32, train=False)
 
 
 def test_final_head_kernels_take():
     """The dtype and shapes the segmentation tail's kernels take, the train pair and K3
-    alike: bf16, C in 32, 64, 96, 128, F <= 32, T % 64; the train pair also f32 (F <=
-    16), K3 not; the shared-memory limit is read from the library at the call
+    alike: bf16, C in 32, 64, 96, 128, F <= 32, T % 64; all three also f32 (F <= 16);
+    the shared-memory limit is read from the library at the call
     (``tests/test_torch_cuda_kernels.py``)."""
     bf, f32 = torch.bfloat16, torch.float32
     assert fh.kernels_take(262144, 96, 10, bf)
     assert fh.kernels_take(262144, 96, 10, bf, train=False)
     assert fh.kernels_take(262144, 96, 10, f32)
-    assert not fh.kernels_take(262144, 96, 10, f32, train=False)
+    assert fh.kernels_take(262144, 96, 10, f32, train=False)
+    assert not fh.kernels_take(262144, 96, 17, f32, train=False)  # the f32 head's 16
+    assert not fh.kernels_take(262144, 48, 10, f32, train=False)
     assert not fh.kernels_take(262144, 96, 40, bf)  # F > 32
     assert not fh.kernels_take(262144, 8, 10, bf)  # C % 16
     assert not fh.kernels_take(1000, 96, 10, bf)  # T % 64
@@ -258,3 +271,51 @@ def test_window_attention_routes(monkeypatch, dim, heads, cos, route):
     want = torch.autograd.grad(ref, [x] + list(mod.parameters()), dz)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+
+
+def test_f32_attention_that_needs_a_gradient_refuses(monkeypatch):
+    """Where the kernels would run (``use_kernel`` forced true, as for a CUDA tensor), a
+    float32 call that needs a gradient raises before any launch, naming the backward
+    that has no f32 kernel (K4 for K1's family, K5 for K2's) and impl='xla': the
+    autograd functions, the forward wrappers with a leaf requiring a gradient, the
+    backward wrappers, and ``WindowAttention`` in training without attention dropout.
+    K16 refuses f32 with or without a gradient; K1 and K2 without one (under no_grad)
+    pass the refusal (``kernels_take(..., train=False)``)."""
+    monkeypatch.setattr(wa, "use_kernel", lambda t, impl: impl != "xla")
+    gen = torch.Generator().manual_seed(3)
+    Tk, Ck, h = 128, 64, 2
+    x = torch.randn(Tk, Ck, generator=gen, requires_grad=True)
+    wq, bq = torch.randn(Ck, 3 * Ck, generator=gen) * 0.1, torch.zeros(3 * Ck)
+    wp, bp = torch.randn(Ck, Ck, generator=gen) * 0.1, torch.zeros(Ck)
+    g, b = torch.ones(Ck), torch.zeros(Ck)
+    ls = torch.full((h,), 10.0)
+    qkv = torch.randn(Tk, 3 * Ck, generator=gen, requires_grad=True)
+    epi = (x, wq, bq, wp, bp, g, b, None, None, ls)
+    kw = dict(ws=64, num_heads=h, sm_scale=0.2, has_mask=False)
+    akw = dict(kw, use_cos=True)
+    before = dict(wa.launches)
+    k4, k5 = r"K4 takes bfloat16.*impl='xla'", r"K5 takes bfloat16.*impl='xla'"
+    for impl in ("auto", "pallas"):
+        with pytest.raises(ValueError, match=k4):
+            wa.window_attention_qkv_epi(*epi, **kw, impl=impl)
+        with pytest.raises(ValueError, match=k4):
+            wa.window_attention_qkv_epi_fwd(*epi, **kw, impl=impl)
+        with pytest.raises(ValueError, match=k4):
+            wa.window_attention_qkv_epi_bwd(*epi, x.detach(), **kw, impl=impl)
+        with pytest.raises(ValueError, match=k5):
+            wa.window_attention(qkv, None, None, ls, **akw, impl=impl)
+        with pytest.raises(ValueError, match=k5):
+            wa.window_attention_fwd(qkv, None, None, ls, **akw, impl=impl)
+        with pytest.raises(ValueError, match=k5):
+            wa.window_attention_bwd(qkv.detach(), None, None, ls, x.detach(), **akw,
+                                    impl=impl)
+        with pytest.raises(ValueError, match=r"bfloat16 operands.*impl='xla'"):
+            with torch.no_grad():
+                wa.window_attention_qkv_fwd(x, wq, bq, None, None, ls, **akw, impl=impl)
+    mod = WindowAttention(Ck, h, use_cos_attn=True).train()
+    with pytest.raises(ValueError, match=k4):
+        mod(x.detach().reshape(2, 1, 64, Ck), None, ln=LayerNorm(Ck), generator=gen)
+    assert dict(wa.launches) == before
+    for fam in wa.F32_FORWARD:
+        assert wa.kernels_take(fam, Tk, Ck, h, 64, torch.float32, train=False)
+        assert not wa.kernels_take(fam, Tk, Ck, h, 64, torch.float32)
