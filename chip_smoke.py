@@ -3834,8 +3834,8 @@ PTXAS_NAMES["18gemm_tn_f32_kernel"] = "f32 K7 / K9 step 3 gemm_tn_f32_kernel"
 PTXAS_NAMES.update({
     f"20tail_loss_f32_kernelILi{c}ELi{nf}ENS0_6ArgmaxE": f"f32 K3 tail_loss_f32_kernel<{c}, "
     f"{nf}, Argmax> (C {c}, F <= {nf})" for c in (32, 64, 96, 128) for nf in (8, 16)})
-PTXAS_NAMES.update({"15attn_f32_kernel": "f32 K2 attn_f32_kernel (f32 K1 step 2)",
-                    "18gemm_nn_f32_kernel": "f32 K1 steps 1 and 3 gemm_nn_f32_kernel",
+PTXAS_NAMES.update({"18attn_3xtf32_kernel": "f32 K2 attn_3xtf32_kernel (f32 K1 step 2)",
+                    "18gemm_3xtf32_kernel": "f32 K1 steps 1 and 3 gemm_3xtf32_kernel",
                     "18ln_rows_f32_kernel": "f32 K1 step 4 ln_rows_f32_kernel"})
 
 

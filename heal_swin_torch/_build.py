@@ -44,6 +44,7 @@ _SIGNATURES = {
     "hs_window_attention_qkv_epi_f32": ([_P] * 12 + [_I] * 4 + [_F, _P], _I),
     "hs_window_attention_qkv_epi_f32_workspace": ([_I] * 2, ctypes.c_size_t),
     "hs_window_attention_f32": ([_P] * 5 + [_I] * 4 + [_F, _P], _I),
+    "hs_gemm_nn_f32": ([_P] * 4 + [_I] * 3 + [_P], _I),
     "hs_window_attention_qkv_bwd": ([_P] * 11 + [_I] * 4 + [_F, _P], _I),
     "hs_window_attention_qkv_bwd_workspace": ([_I] * 2, ctypes.c_size_t),
     "hs_gemm_nt": ([_P] * 3 + [_I] * 3 + [_P], _I),

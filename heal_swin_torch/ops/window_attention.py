@@ -39,10 +39,11 @@ shift-invariant, and forward and backward here use the same one).
 
 Float32 (K1, K2 forward): f32 operands run the f32 kernels
 (``csrc/window_attention_f32.cu``), nothing rounded below f32, as the Pallas kernels
-compute with f32 operands: K2 a thread per query row of each (window, head), K1 a launch
-sequence from one entry (the qkv product, K2's kernel, the output product, the
-LayerNorm's rows), f32 FMAs throughout.  There is no f32 backward yet (K4, K5), nor an
-f32 K16/K17: an f32 call that needs a gradient (grad enabled and an operand requiring
+compute with f32 operands: K2 four warps per (window, head), K1 a launch sequence from
+one entry (the qkv product ``gemm_nn_f32``, K2's kernel, the output product, the
+LayerNorm's rows); every product on the tensor cores in 3xTF32 (each operand split into
+two TF32 parts, three mma.sync products summed in f32: ``ops/tf32.py`` emulates it).
+There is no f32 backward yet (K4, K5), nor an f32 K16/K17: an f32 call that needs a gradient (grad enabled and an operand requiring
 it) raises on the card before any launch, naming the backward that is missing.
 
 Dispatch (``impl``): "auto" runs the kernel for a CUDA tensor and the plain version
@@ -692,6 +693,35 @@ def gemm_nt(a, b, *, impl="auto"):
     out = torch.empty((M, N), dtype=a.dtype, device=a.device)
     check(_build.lib().hs_gemm_nt(a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K,
                                   stream(a)), what)
+    return out
+
+
+def gemm_nn_f32_plain(a, b, bias=None):
+    """Plain twin of ``gemm_nn_f32``: a (M, K) @ b (K, N) [+ bias] in f32 (TF32 off)."""
+    out = a.float() @ b.float()
+    return out if bias is None else out + bias.float()
+
+
+def gemm_nn_f32(a, b, bias=None, *, impl="auto"):
+    """a (M, K) @ b (K, N) [+ bias (N,)] -> (M, N) f32 through ``gemm_3xtf32_kernel`` of
+    ``csrc/window_attention_f32.cu`` (3xTF32 mma.sync), the product the f32 K1 runs for
+    qkv = x Wqkv + bqkv and u = o Wp + bp (inside its entry, counted as its launch); f32
+    operands, M % 64 == 0, K % 32 == 0, N % 4 == 0.  Plain twin: ``gemm_nn_f32_plain``."""
+    if not use_kernel(a, impl):
+        return gemm_nn_f32_plain(a, b, bias)
+    what = "gemm_nn_f32"
+    (M, K), (Kb, N) = a.shape, b.shape
+    if any(t is not None and t.dtype != torch.float32 for t in (a, b, bias)):
+        refuse(f"{what}: the kernel takes float32 operands")
+    if K != Kb or M % 64 or K % 32 or N % 4 or (bias is not None and bias.shape != (N,)):
+        refuse(f"{what}: the kernel takes M % 64 == 0, K % 32 == 0, N % 4 == 0 and a (N,) "
+               f"bias, got a {tuple(a.shape)}, b {tuple(b.shape)}")
+    a, b = a.contiguous(), b.contiguous()
+    bias = None if bias is None else bias.contiguous()
+    _check_cuda_operands(what, [t for t in (a, b, bias) if t is not None])
+    out = torch.empty((M, N), dtype=torch.float32, device=a.device)
+    check(_build.lib().hs_gemm_nn_f32(a.data_ptr(), b.data_ptr(), _ptr(bias), out.data_ptr(),
+                                      M, N, K, stream(a)), what)
     return out
 
 

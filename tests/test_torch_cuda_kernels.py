@@ -1841,6 +1841,53 @@ def test_window_attention_f32_kernel(dev, no_tf32, use_cos, masked):
     assert _rel_l2(got, want) < F32_TOL
 
 
+# the f32 K1's products on the paper predict, (M, N, K) = (T, 3C, C) for qkv and (T, C, C)
+# for the projection, and M = 64 (mod 128) with an N that is no multiple of the tile (96)
+GEMM_F32_SHAPES = [(262144, 288, 96), (65536, 576, 192), (16384, 1152, 384), (262144, 96, 96),
+                   (65536, 192, 192), (16384, 384, 384), (64 * 21, 100, 64), (64 * 3, 388, 32)]
+
+
+@pytest.mark.parametrize("M,N,K", GEMM_F32_SHAPES)
+@pytest.mark.parametrize("has_bias", [True, False])
+def test_gemm_nn_f32(dev, no_tf32, M, N, K, has_bias):
+    """The f32 K1's product step (``gemm_3xtf32_kernel``, 3xTF32 mma.sync) against
+    ``torch.matmul`` in f32 with TF32 off, within relative L2 1e-5; two launches
+    bit-equal."""
+    gen = torch.Generator().manual_seed(M + N + K + has_bias)
+    a, b = _randn(gen, dev, M, K), _randn(gen, dev, K, N, std=K ** -0.5)
+    bias = _randn(gen, dev, N, std=0.1) if has_bias else None
+    got = wa.gemm_nn_f32(a, b, bias)
+    again = wa.gemm_nn_f32(a, b, bias)
+    torch.cuda.synchronize()
+    want = a @ b if bias is None else a @ b + bias
+    assert got.dtype == torch.float32 and got.shape == (M, N)
+    assert _rel_l2(got, want) < F32_TOL
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("T,C", [(4096, 768), (16384, 384)])
+@pytest.mark.parametrize("use_cos", [True, False])
+@pytest.mark.parametrize("masked", [False, True])
+def test_window_attention_f32_core_at_the_clamp(dev, no_tf32, T, C, use_cos, masked):
+    """The f32 attention core (``attn_3xtf32_kernel``: f32 K2, and the f32 K1's step 2)
+    at the bottleneck and at a stage shape with every logit scale at the clamp (100),
+    both flavours, masked and unmasked, within relative L2 1e-5 of the plain version in
+    f32; two launches bit-equal."""
+    gen = torch.Generator().manual_seed(90 + C + 2 * use_cos + masked)
+    h = C // 32
+    qkv, groups, bias, _ = _attn_args(gen, dev, C, T, use_cos)
+    qkv = qkv.float()
+    ls = torch.full((h,), 100.0, device=dev) if use_cos else None
+    args = (qkv, groups if masked else None, bias, ls)
+    kw = dict(ws=64, num_heads=h, use_cos=use_cos, sm_scale=32 ** -0.5, has_mask=masked)
+    with torch.no_grad():
+        got = wa.window_attention(*args, **kw)
+        again = wa.window_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert _rel_l2(got, wa.window_attention_plain(*args, **kw)) < F32_TOL
+    assert torch.equal(got, again)
+
+
 def test_f32_attention_needing_a_gradient_raises(dev):
     """An f32 K1 or K2 call that needs a gradient raises under "auto" and "pallas"
     before any launch, naming its backward (K4, K5, which take bf16) and impl='xla'."""

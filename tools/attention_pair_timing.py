@@ -1,7 +1,7 @@
 """Time the window-attention and MLP kernels of two checkouts of heal_swin_torch on one
 GPU, in turns: other, this, this, other.
 
-    python3 tools/attention_pair_timing.py --other _checkout/parent [--family mlp|tail]
+    python3 tools/attention_pair_timing.py --other _checkout/parent [--family mlp|tail|f32]
 
 ``--other`` is an unpacked copy of another commit (``git archive`` into the
 git-ignored ``_checkout/``).  Each of the four turns is its own process: it imports
@@ -24,8 +24,16 @@ p 4, F 10) on chip_smoke.py's ``tail_inputs``: K6 and its backward K7, K3 (predi
 K8 / K9 (the depth loss, l2, one channel), and the composed PyTorch routes of K3's
 function (``pred_route``), of K6 / K7's (``tail_route``) and of K8 / K9's
 (``depth_route``), forward and backward, as the controls that run the same code in every
-turn; each launches once a step (K3 once a predict).
-``--family all`` (the default) times all three.
+turn; each launches once a step (K3 once a predict).  The f32 family (``--family f32``),
+on the f32 operands of chip_smoke.py's ``check_f32_eval_kernels`` (its seed, the bf16
+draws of ``stage_inputs`` and ``bottleneck_inputs`` taken to f32): the f32 K1 at the three
+stage shapes, masked and unmasked, the f32 K2 at the bottleneck in both flavours, masked
+and unmasked, and one f32 ``scaled_dot_product_attention`` on K2's operands as the
+control, summed over the paper predict's launches (the f32 K1 20: 4 at C 96, 4 at C 192,
+12 at C 384, half of them masked; the f32 K2 2, one masked, cosine as the paper configs);
+where the checkout exposes them, the f32 K1's steps alone (the qkv product, the masked
+cosine attention, the output product: the LayerNorm is the rest), summed the same way.
+``--family all`` (the default) times all four.
 
 Each shape gets two times: the device time (``device_ms``: each call enqueued behind a
 spin kernel, so that the events bracket the device work alone) and a single call's
@@ -124,6 +132,8 @@ def turn(root: Path, family: str) -> dict:
         times.update(mlp_times(smoke, dev, both))
     if family in ("tail", "all"):
         times.update(tail_times(smoke, dev, both))
+    if family in ("f32", "all"):
+        times.update(f32_times(smoke, dev, both))
     torch.cuda.synchronize()
     return times
 
@@ -159,6 +169,55 @@ def tail_times(smoke, dev, both) -> dict:
     route_f, route_b = smoke.depth_route(dargs, p)
     times[f"depth-route-fwd {label}"] = both(route_f)
     times[f"depth-route-bwd {label}"] = both(route_b)
+    return times
+
+
+def f32_times(smoke, dev, both) -> dict:
+    """The f32 K1 at the three stage shapes, the f32 K2 and the f32 SDPA at the
+    bottleneck, on ``check_f32_eval_kernels``' operands (drawn in its order)."""
+    import torch
+
+    from heal_swin_torch.ops import window_attention as wa
+
+    def f32(args):
+        return tuple(a.float() if a.dtype == torch.bfloat16 else a for a in args)
+
+    rnd, logit_scales = smoke.seeded_draws(torch.Generator().manual_seed(smoke.SEED + 20), dev)
+    times = {}
+    with torch.no_grad():
+        for stage in range(3):
+            T, C, h, args = smoke.stage_inputs(rnd, logit_scales, stage, dev)
+            x, wq, bq, wp, bp, g, b, bias, ls, grp = f32(args)
+            for masked in (False, True):
+                a = (x, wq, bq, wp, bp, g, b, grp if masked else None, bias, ls)
+                kw = dict(ws=smoke.WS, num_heads=h, sm_scale=(C // h) ** -0.5,
+                          has_mask=masked, impl="pallas")
+                times[f"f32-K1 C={C} T={T} mask={masked}"] = both(
+                    lambda: wa.window_attention_qkv_epi(*a, **kw))
+            if hasattr(wa, "gemm_nn_f32"):  # the sequence's steps alone, where exposed
+                qkv = wa.gemm_nn_f32(x, wq, bq)
+                akw = dict(ws=smoke.WS, num_heads=h, use_cos=True, sm_scale=1.0,
+                           has_mask=True, impl="pallas")
+                o = wa.window_attention(qkv, grp, bias, ls, **akw)
+                times[f"f32-K1-qkv C={C} T={T} step"] = both(lambda: wa.gemm_nn_f32(x, wq, bq))
+                times[f"f32-K1-attention C={C} T={T} step"] = both(
+                    lambda: wa.window_attention(qkv, grp, bias, ls, **akw))
+                times[f"f32-K1-proj C={C} T={T} step"] = both(lambda: wa.gemm_nn_f32(o, wp, bp))
+                del qkv, o
+            del x, args
+        T, C, h, (qkv, bias, ls, grp, _) = smoke.bottleneck_inputs(rnd, logit_scales, dev)
+        qkv = qkv.float()
+        for masked in (False, True):
+            for use_cos in (True, False):
+                a = (qkv, grp if masked else None, bias, ls if use_cos else None)
+                kw = dict(ws=smoke.WS, num_heads=h, use_cos=use_cos, sm_scale=smoke.DOT_SCALE,
+                          has_mask=masked, impl="pallas")
+                flavour = "cosine" if use_cos else "scaled-dot"
+                times[f"f32-K2 C={C} T={T} mask={masked} {flavour}"] = both(
+                    lambda: wa.window_attention(*a, **kw))
+            lib_f, _ = smoke.sdpa_library(qkv, grp if masked else None, bias, h,
+                                          torch.zeros(T, C, device=dev))
+            times[f"f32-SDPA C={C} T={T} mask={masked} scaled-dot"] = both(lib_f)
     return times
 
 
@@ -249,6 +308,17 @@ def step_ms(times: dict, kernel: str, which: int, flavour: str = "scaled-dot") -
     return total
 
 
+def predict_step_ms(times: dict, step: str, which: int) -> float:
+    """A step of the f32 K1 (qkv, attention, proj) over the paper predict's 20 launches
+    (4 at C 96, 4 at C 192, 12 at C 384); 0 where the checkout exposes no steps."""
+    total = 0.0
+    for label, ms in times.items():
+        name, shape, *_ = label.split()
+        if name == f"f32-K1-{step}":
+            total += {96: 4, 192: 4, 384: 12}[int(shape[2:])] * ms[which]
+    return total
+
+
 def mlp_phase_ms(times: dict, kernel: str, which: int) -> float:
     """An MLP kernel's (or the route's) ms over chip_smoke.py's MLP phase launches."""
     total = 0.0
@@ -262,6 +332,8 @@ def mlp_phase_ms(times: dict, kernel: str, which: int) -> float:
 def compare(label, runs, get):
     o = [get(t) for w, t in runs if w == "other"]
     c = [get(t) for w, t in runs if w == "this"]
+    if not all(o):  # a step the other checkout does not expose
+        return f"{label}: this {c[0]:.4f} / {c[1]:.4f} ms (other: none)"
     return (f"{label}: other {o[0]:.4f} / {o[1]:.4f} ms, this {c[0]:.4f} / {c[1]:.4f} ms, "
             f"this / other {statistics.mean(c) / statistics.mean(o):.3f}")
 
@@ -269,7 +341,8 @@ def compare(label, runs, get):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", type=Path, help="the other checkout (e.g. the parent)")
-    ap.add_argument("--family", choices=("attention", "mlp", "tail", "all"), default="all",
+    ap.add_argument("--family", choices=("attention", "mlp", "tail", "f32", "all"),
+                    default="all",
                     help="which kernels to time (default: all)")
     ap.add_argument("--turn", type=Path, help=argparse.SUPPRESS)
     a = ap.parse_args()
@@ -299,8 +372,8 @@ def main() -> int:
         runs.append((who, json.loads(line)["times"]))
     for which, kind in enumerate(("on the device", "a single call")):
         print(f"-- {kind}")
-        for label in runs[0][1]:
-            print(compare(label, runs, lambda t: t[label][which]))
+        for label in runs[1][1]:
+            print(compare(label, runs, lambda t: t[label][which] if label in t else None))
         if a.family in ("attention", "all"):
             for kernel, n, flavour in (("K1", 20, ""), ("K4", 20, ""), ("K16", 20, ""),
                                        ("K17", 20, ""), ("K2", 2, "scaled-dot"),
@@ -309,6 +382,16 @@ def main() -> int:
                 print(compare(f"{kernel} {flavour} over a train step's {n} launches".replace(
                     "  ", " "), runs,
                     lambda t: step_ms(t, kernel, which, flavour or "scaled-dot")))
+        if a.family in ("f32", "all"):
+            for kernel, n, flavour in (("f32-K1", 20, ""), ("f32-K2", 2, "cosine"),
+                                       ("f32-K2", 2, "scaled-dot"),
+                                       ("f32-SDPA", 2, "scaled-dot")):
+                print(compare(f"{kernel} {flavour} over the paper predict's {n} launches"
+                              .replace("  ", " "), runs,
+                              lambda t: step_ms(t, kernel, which, flavour or "scaled-dot")))
+            for step in ("qkv", "attention", "proj"):
+                print(compare(f"f32-K1's {step} step over the paper predict's 20 launches",
+                              runs, lambda t: predict_step_ms(t, step, which)))
         if a.family in ("mlp", "all"):
             for kernel, per_c in MLP_LAUNCHES.items():
                 print(compare(f"{kernel} over the MLP phase's {sum(per_c.values())} launches",
