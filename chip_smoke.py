@@ -603,15 +603,43 @@ def depth_route(dargs, p, dtype=torch.bfloat16):
     return forward, lambda: torch.autograd.grad(loss, leaves, retain_graph=True)
 
 
+def check_f32_bwd_steps(label, which, x, F, p, fh, rows, twin, whole):
+    """Each step of the f32 K7's or K9's launch sequence (``which``) against its plain
+    twin on the step's own input, within F32_TAIL_TOL: the tile kernel (``rows()``: dx
+    and the partial rows [dWe | dWh | dgamma | dbeta] on its grid; ``twin(grid)``) and
+    ``reduce_rows``; and the kernel (``whole()``) is the two steps composed, bit for bit.
+    Returns (the grid, the tile step's worst relative L2, the reduction's)."""
+    C = x.shape[1]
+    dx, part = rows()
+    grid = part.shape[0]
+    e_rows, _ = check_grads(f"{label} {which} tile step", ("dx", "partial rows"), (dx, part),
+                            twin(grid), F32_TAIL_TOL)
+    red = fh.reduce_rows(part, impl="pallas")
+    e_red, _ = check_close(f"{label} {which} reduce step", red, fh.reduce_rows_plain(part),
+                           F32_TAIL_TOL)
+    steps = (dx,) + fh.split_f32_bwd_row(red, C, F, p)
+    if not all(torch.equal(a, b) for a, b in zip(whole(), steps)):
+        raise AssertionError(f"{label}: {which} is not its two steps composed")
+    log(f"{label} {which} sequence step by step on {grid} blocks: tile kernel rel_l2 <= "
+        f"{e_rows:.3e}, reduce_rows {e_red:.3e}; {which} is the steps composed, bit-equal")
+    return grid, e_rows, e_red
+
+
 def check_depth_steps(name, dargs, p, kind, fh, scale, tol=REL_L2_TOL):
     """Each step of K9's launch sequence against its plain twin on the step's own input:
-    the row kernel (dx, dh, the partial rows on its grid) within ``tol`` (REL_L2_TOL;
-    F32_TAIL_TOL for the f32 K9), ``gemm_tn`` (dWe = x^T dh; ``gemm_tn_f32`` for the f32
-    K9) and ``reduce_rows`` within 1e-5 (f32 sums of the same operands in another
-    order); and K9 is the three steps composed, bit for bit.  Returns the row kernel's
-    grid."""
+    the row kernel (dx, dh, the partial rows on its grid) within ``tol`` (REL_L2_TOL),
+    ``gemm_tn`` (dWe = x^T dh) and ``reduce_rows`` within 1e-5 (f32 sums of the same
+    operands in another order); and K9 is the three steps composed, bit for bit; for the
+    f32 K9 its two steps (``check_f32_bwd_steps``).  Returns the row kernel's grid."""
     x, C, F = dargs[0], dargs[0].shape[1], dargs[4].shape[1]
     kw = dict(patch_size=p, loss_kind=kind, huber_delta=HUBER_DELTA)
+    if x.dtype == torch.float32:
+        return check_f32_bwd_steps(
+            name, "K9", x, F, p, fh,
+            lambda: fh.final_head_depth_loss_bwd_rows(*dargs, scale, **kw, impl="pallas"),
+            lambda grid: fh.final_head_depth_loss_bwd_rows_f32_plain(*dargs, scale, **kw,
+                                                                     grid=grid),
+            lambda: fh.final_head_depth_loss_bwd(*dargs, scale, **kw, impl="pallas"))[0]
     dx, dh, part = fh.final_head_depth_loss_bwd_rows(*dargs, scale, **kw, impl="pallas")
     grid = part.shape[0]
     err, _ = check_grads(f"{name} row step", ("dx", "dh", "partial rows"), (dx, dh, part),
@@ -686,6 +714,8 @@ def check_depth_kernels(name, dargs, p, kind, fh, timing=True):
         raise ValueError(f"the depth route is the l2 loss of one channel, not {kind} F={F}")
     route_f, route_b = depth_route(dargs, p, x.dtype)
     rms8, rms9 = median_ms(route_f), median_ms(route_b)
+    if f32:
+        rdev8, rdev9 = spin_ms(route_f), spin_ms(route_b)
     del route_f, route_b
     who = "f32 " if f32 else ""
     fwd = dict(rel_l2=perr, max_abs_err=pmae, loss_sum_rel_err=loss_rel, ms=ms8,
@@ -694,6 +724,7 @@ def check_depth_kernels(name, dargs, p, kind, fh, timing=True):
     if f32:
         by9 = {kname: ms / SEQUENCE_TRACED for kname, (ms, _) in per.items()}
         fwd["device_ms"], bwd["device_ms"] = dev8, dev9
+        fwd["route_device_ms"], bwd["route_device_ms"] = rdev8, rdev9
         for k, by in (("f32 K8", by8), ("f32 K9", by9)):
             for kname, ms in sorted(by.items(), key=lambda kv: -kv[1]):
                 part_of = next((v for n, v in F32_DEPTH_STEPS.items() if n in kname), None)
@@ -701,10 +732,12 @@ def check_depth_kernels(name, dargs, p, kind, fh, timing=True):
                     f"{part_of or 'operand copy or other'}: {kname[:90]}")
     dms = (f" (device {fwd['device_ms']:.4f} ms)", f" (device {bwd['device_ms']:.4f} ms)"
            ) if f32 else ("", "")
+    rdms = (f" (device {rdev8:.4f} ms)", f" (device {rdev9:.4f} ms; autograd on a saved "
+            "graph, the forward not recomputed)") if f32 else ("", "")
     log(f"{who}K8 final_head_depth_loss{sfx} T={T} C={C} p={p} F={F} {kind}: kernel "
-        f"{ms8:.4f} ms{dms[0]} plain {pms8:.4f} ms {who}route {rms8:.4f} ms")
+        f"{ms8:.4f} ms{dms[0]} plain {pms8:.4f} ms {who}route {rms8:.4f} ms{rdms[0]}")
     log(f"{who}K9 final_head_depth_loss_bwd{sfx} T={T} C={C} p={p} F={F} {kind}: kernel "
-        f"{ms9:.4f} ms{dms[1]} plain {pms9:.4f} ms {who}route {rms9:.4f} ms")
+        f"{ms9:.4f} ms{dms[1]} plain {pms9:.4f} ms {who}route {rms9:.4f} ms{rdms[1]}")
     # K8's max_abs_err: over its predictions (its loss sum's relative error apart)
     return {(f"final_head_depth_loss{sfx}", T, C, F, kind): fwd,
             (f"final_head_depth_loss_bwd{sfx}", T, C, F, kind): bwd,
@@ -2569,10 +2602,10 @@ F32_KERNELS = ("final_head_loss_f32", "final_head_loss_bwd_f32", "final_head_dep
                "final_head_depth_loss_bwd_f32", "final_head_predict_f32",
                "window_attention_qkv_epi_f32", "window_attention_f32")
 # the kernels of an f32 K6 / K7 call, and of an f32 K8 / K9 call, by their names in a trace
-F32_TAIL_STEPS = {"tail_loss_f32_kernel": "K6 row kernel", "tail_bwd_f32_kernel": "K7 row kernel",
-                  "reduce_rows_kernel": "reduce_rows", "gemm_tn_f32_kernel": "gemm_tn_f32"}
-F32_DEPTH_STEPS = dict(F32_TAIL_STEPS, tail_loss_f32_kernel="K8 row kernel",
-                       tail_bwd_f32_kernel="K9 row kernel")
+F32_TAIL_STEPS = {"tail_fwd_3xtf32_kernel": "K6 tile kernel",
+                  "tail_bwd_3xtf32_kernel": "K7 tile kernel", "reduce_rows_kernel": "reduce_rows"}
+F32_DEPTH_STEPS = dict(F32_TAIL_STEPS, tail_fwd_3xtf32_kernel="K8 tile kernel",
+                       tail_bwd_3xtf32_kernel="K9 tile kernel")
 
 
 def f32_tail_work(key):
@@ -2625,12 +2658,13 @@ def check_f32_loss_kernels(largs, fh):
     K6's sums within F32_TAIL_TOL relative and its confusion matrix equal outside
     near-ties (``confmat_agrees``, slack F32_TAIL_TOL of the row's largest |logit|, at
     least F32_TAIL_TOL); every K7 gradient within relative L2 F32_TAIL_TOL, two launches
-    bit-equal; each step of K7 (row kernel, reduce_rows, gemm_tn_f32) against its plain
-    twin on its own input within F32_TAIL_TOL and K7 the steps composed bit for bit;
-    and the probe that K7's row kernel recomputes K6's f32 logits bit for bit (the
-    logits taps).  Then one call's time, its device time by kernel, its plain version's
-    and the f32 composed PyTorch route's (``tail_route`` in f32).  Returns the
-    timings keyed like the launch counters."""
+    bit-equal; each step of K7 (tile kernel, reduce_rows) against its plain twin on its
+    own input within F32_TAIL_TOL and K7 the steps composed bit for bit
+    (``check_f32_bwd_steps``); and the probe that K7's tile kernel recomputes K6's f32
+    logits bit for bit (the logits taps).  Then one call's time, its device time by
+    kernel, its plain version's and the f32 composed PyTorch route's (``tail_route`` in
+    f32; its device time by ``spin_ms`` too).  Returns the timings keyed like the launch
+    counters."""
     x = largs[0]
     T, C = x.shape
     p, F = TAIL_P, largs[4].shape[1]
@@ -2653,31 +2687,23 @@ def check_f32_loss_kernels(largs, fh):
         again = fh.final_head_loss_bwd(*largs, scale, patch_size=p, impl="pallas")
         if not all(torch.equal(g, a) for g, a in zip(got, again)):
             raise AssertionError(f"{name}: two K7 launches differ")
-        dx, dh, part, lf7 = fh.final_head_loss_bwd_rows(*largs, scale, patch_size=p,
-                                                        impl="pallas", tap_logits=True)
+        lf7 = fh.final_head_loss_bwd_rows(*largs, scale, patch_size=p, impl="pallas",
+                                          tap_logits=True)[-1]
         equal_bits(f"{name} probe: K7's recomputed logits vs K6's", lf7, lf6)
-        grid = part.shape[0]
-        e_rows, _ = check_grads(f"{name} K7 row step", ("dx", "dh", "partial rows"),
-                                (dx, dh, part), fh.final_head_loss_bwd_rows_plain(
-                                    *largs, scale, patch_size=p, grid=grid), F32_TAIL_TOL)
-        dwe = fh.final_head_loss_dwe(x, dh, impl="pallas")
-        e_dwe, _ = check_close(f"{name} K7 dWe step", dwe, fh.final_head_loss_dwe_plain(x, dh),
-                               F32_TAIL_TOL)
-        red = fh.reduce_rows(part, impl="pallas")
-        e_red, _ = check_close(f"{name} K7 reduce step", red, fh.reduce_rows_plain(part),
-                               F32_TAIL_TOL)
-        dwh, dg, db = red.split([C * F, C, C])
-        if not all(torch.equal(a, b) for a, b in zip(got, (dx, dwe, dg, db,
-                                                           dwh.reshape(C, F)))):
-            raise AssertionError(f"{name}: K7 is not its three steps composed")
-        del got, want, again, dx, dh, part, lf, lf6, lf7
+        grid, e_rows, e_red = check_f32_bwd_steps(
+            name, "K7", x, F, p, fh,
+            lambda: fh.final_head_loss_bwd_rows(*largs, scale, patch_size=p, impl="pallas"),
+            lambda grid: fh.final_head_loss_bwd_rows_f32_plain(*largs, scale, patch_size=p,
+                                                               grid=grid),
+            lambda: fh.final_head_loss_bwd(*largs, scale, patch_size=p, impl="pallas"))
+        del got, want, again, lf, lf6, lf7
         log(f"{name} K6 T={T} C={C} F={F}: sums rel err {errs[0]:.3e}, {errs[1]:.3e} "
             f"(tol {F32_TAIL_TOL}); confusion matrix: {moved} of {T * p} elements in "
             f"another column, all near-ties ({near} near-tie elements)")
         log(f"{name} K7: every gradient rel_l2 <= {err:.3e} max_abs {mae:.3e} (tol "
-            f"{F32_TAIL_TOL}), two launches bit-equal; on {grid} blocks row kernel rel_l2 "
-            f"<= {e_rows:.3e}, gemm_tn_f32 {e_dwe:.3e}, reduce_rows {e_red:.3e}, K7 the "
-            f"steps composed bit-equal; K7 recomputes K6's f32 logits bit for bit")
+            f"{F32_TAIL_TOL}), two launches bit-equal; on {grid} blocks tile kernel rel_l2 "
+            f"<= {e_rows:.3e}, reduce_rows {e_red:.3e}, K7 the steps composed bit-equal; K7 "
+            f"recomputes K6's f32 logits bit for bit")
         ms6 = median_ms(lambda: fh.final_head_loss_sums(*largs, patch_size=p, impl="pallas"))
         pms6 = median_ms(lambda: fh.final_head_loss_plain(*largs, patch_size=p))
         ms7 = median_ms(lambda: fh.final_head_loss_bwd(*largs, scale, patch_size=p,
@@ -2689,6 +2715,7 @@ def check_f32_loss_kernels(largs, fh):
                                                              impl="pallas"))
     route_f, route_b = tail_route(largs, p, torch.float32)
     rms6, rms7 = median_ms(route_f), median_ms(route_b)
+    rdev6, rdev7 = spin_ms(route_f), spin_ms(route_b)
     del route_f, route_b
     for label, by in (("f32 K6", by6), ("f32 K7", by7)):
         for kname, ms in sorted(by.items(), key=lambda kv: -kv[1]):
@@ -2696,17 +2723,18 @@ def check_f32_loss_kernels(largs, fh):
             log(f"{label} one call on the device: {ms:9.4f} ms  "
                 f"{part_of or 'operand copy or other'}: {kname[:90]}")
     log(f"f32 K6 final_head_loss_f32 T={T} C={C} p={p} F={F}: kernel {ms6:.4f} ms (device "
-        f"{dev6:.4f} ms) plain {pms6:.4f} ms f32 route {rms6:.4f} ms")
+        f"{dev6:.4f} ms) plain {pms6:.4f} ms f32 route {rms6:.4f} ms (device {rdev6:.4f} ms)")
     log(f"f32 K7 final_head_loss_bwd_f32 T={T} C={C} p={p} F={F}: kernel {ms7:.4f} ms "
-        f"(device {dev7:.4f} ms) plain {pms7:.4f} ms f32 route {rms7:.4f} ms")
+        f"(device {dev7:.4f} ms) plain {pms7:.4f} ms f32 route {rms7:.4f} ms (device "
+        f"{rdev7:.4f} ms; autograd on a saved graph, the forward not recomputed)")
     loss, wloss = float(num / den), float(wnum / wden)
     return {("final_head_loss_f32", T, C): dict(
                 max_abs_err=abs(loss - wloss), sums_rel_err=max(errs), confmat_moved=moved,
                 near_tie_elements=near, ms=ms6, device_ms=dev6, plain_ms=pms6,
-                route_ms=rms6),
+                route_ms=rms6, route_device_ms=rdev6),
             ("final_head_loss_bwd_f32", T, C): dict(
                 rel_l2=err, max_abs_err=mae, ms=ms7, device_ms=dev7, plain_ms=pms7,
-                route_ms=rms7)}
+                route_ms=rms7, route_device_ms=rdev7)}
 
 
 def paper_task(impl, dev, state=None, depth=False):
@@ -2797,11 +2825,11 @@ def check_f32_depth_kernels(dargs, fh):
     tail, for every loss kind and head of DEPTH_CASES: ``check_depth_kernels`` with its
     f32 limits (the count exact; the loss sum, the predictions and every gradient within
     F32_TAIL_TOL), each step of K9 against its twin (``check_depth_steps``), two K9
-    launches bit-equal, and the probes that K9's row kernel recomputes K8's f32 logits
+    launches bit-equal, and the probes that K9's tile kernel recomputes K8's f32 logits
     bit for bit and that K8's predictions are its logits (the logits taps).  The depth
     step's case (l2, one channel) timed: single call, device time by kernel, plain, and
-    the f32 route (``depth_route`` in f32).  Returns the timings keyed like the launch
-    counters."""
+    the f32 route (``depth_route`` in f32; its device time by ``spin_ms`` too).  Returns
+    the timings keyed like the launch counters."""
     x = dargs[0]
     T, p = x.shape[0], TAIL_P
     timed = {}
@@ -2816,7 +2844,7 @@ def check_f32_depth_kernels(dargs, fh):
             if not timing:
                 check_depth_steps(label, args, p, kind, fh, scale, F32_TAIL_TOL)
             _, _, preds, lf8 = fh.final_head_depth_loss_sums(*args, **kw, tap_logits=True)
-            lf9 = fh.final_head_depth_loss_bwd_rows(*args, scale, **kw, tap_logits=True)[3]
+            lf9 = fh.final_head_depth_loss_bwd_rows(*args, scale, **kw, tap_logits=True)[-1]
             equal_bits(f"{label} probe: K9's recomputed logits vs K8's", lf9, lf8,
                        T * p * F // 2)
             equal_bits(f"{label}: K8's predictions vs its logits tap", preds,
@@ -3822,18 +3850,19 @@ TAIL_KERNELS = {"tail_pred_kernel": ("K3", (2, 4)), "tail_loss_kernel": ("K6", (
 PTXAS_NAMES.update({
     f"{len(k)}{k}ILi{nt}ELi{nf}E": f"{who} {k}<{nt}, {nf}> (C {8 * nt}, F <= {8 * nf})"
     for k, (who, nfs) in TAIL_KERNELS.items() for nt in (4, 8, 12, 16) for nf in nfs})
-# the f32 K6 and K7's row kernel at each C and head width, the f32 K8 and K9's at each C
-# (their head padded to 4 columns), and K7's and K9's f32 dWe product
+# the f32 tile kernels at each C and head width: K6 and K7's (and K3's, the epilogue
+# Argmax) with heads of 8 and 16 columns, K8 and K9's with the depth head (4 columns)
 PTXAS_NAMES.update({
-    f"{len(k)}{k}ILi{c}ELi{nf}E": f"{who} {k}<{c}, {nf}> (C {c}, F <= {2 if nf == 4 else nf})"
-    for k, whos in (("tail_loss_f32_kernel", ("f32 K6", "f32 K8")),
-                    ("tail_bwd_f32_kernel", ("f32 K7 step 1", "f32 K9 step 1")))
-    for c in (32, 64, 96, 128) for nf, who in ((8, whos[0]), (16, whos[0]), (4, whos[1]))})
-PTXAS_NAMES["18gemm_tn_f32_kernel"] = "f32 K7 / K9 step 3 gemm_tn_f32_kernel"
-# the f32 K3 (the f32 K6's row kernel with the argmax), and the f32 K1's and K2's kernels
-PTXAS_NAMES.update({
-    f"20tail_loss_f32_kernelILi{c}ELi{nf}ENS0_6ArgmaxE": f"f32 K3 tail_loss_f32_kernel<{c}, "
-    f"{nf}, Argmax> (C {c}, F <= {nf})" for c in (32, 64, 96, 128) for nf in (8, 16)})
+    f"22{k}ILi{c}ELi{nf}ENS0_{len(loss)}{loss}E":
+        f"{who} {k}<{c}, {nf}, {loss}> (C {c}, F <= {2 if nf == 4 else nf})"
+    for k, whos in (("tail_fwd_3xtf32_kernel", ("f32 K6", "f32 K8", "f32 K3")),
+                    ("tail_bwd_3xtf32_kernel", ("f32 K7 step 1", "f32 K9 step 1", None)))
+    for c in (32, 64, 96, 128)
+    for nf, loss, who in ((8, "CeLoss", whos[0]), (16, "CeLoss", whos[0]),
+                          (4, "DepthLoss", whos[1]), (8, "Argmax", whos[2]),
+                          (16, "Argmax", whos[2]))
+    if who is not None})
+# the f32 K1's and K2's kernels
 PTXAS_NAMES.update({"18attn_3xtf32_kernel": "f32 K2 attn_3xtf32_kernel (f32 K1 step 2)",
                     "18gemm_3xtf32_kernel": "f32 K1 steps 1 and 3 gemm_3xtf32_kernel",
                     "18ln_rows_f32_kernel": "f32 K1 step 4 ln_rows_f32_kernel"})

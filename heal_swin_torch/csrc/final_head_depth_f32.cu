@@ -15,7 +15,7 @@ size_t hs_final_head_depth_loss_bwd_f32_smem(int C, int F, int P) {
   return hs::f32_layout(C, hs::nf_of(F, true), F, hs::kF32DepthBwd).total;
 }
 
-// f32 K8's and K9's row kernels' grids (0 where they do not take the shape)
+// f32 K8's and K9's tile kernels' grids (0 where they do not take the shape)
 int hs_final_head_depth_loss_f32_grid(int T, int C, int F, int P) {
   (void)P;
   return hs::f32_grid_of<hs::DepthLoss, false>(T, C, F);
@@ -48,28 +48,28 @@ int hs_final_head_depth_loss_f32(const void* x, const void* we, const void* gamm
                                  static_cast<cudaStream_t>(stream)));
 }
 
-// f32 K9's row kernel alone: dx, dh and its partial rows as f32 K7's; tap as K8's
+// f32 K9's tile kernel alone: dx and its partial rows as f32 K7's; tap as K8's
 int hs_final_head_depth_loss_bwd_f32_rows(const void* x, const void* we, const void* gamma,
                                           const void* beta, const void* wh, const void* t,
-                                          const void* scale, void* dx, void* dh, void* part,
-                                          void* tap, int T, int C, int F, int P, int kind,
-                                          float eps, float delta, void* stream) {
+                                          const void* scale, void* dx, void* part, void* tap,
+                                          int T, int C, int F, int P, int kind, float eps,
+                                          float delta, void* stream) {
   hs::DepthLoss loss;
   if (!hs::depth_loss_of(t, nullptr, kind, delta, F, &loss)) return int(cudaErrorInvalidValue);
-  return int(hs::launch_f32_bwd_rows(x, we, gamma, beta, wh, loss, scale, dx, dh, part, tap, T,
-                                     C, F, P, eps, static_cast<cudaStream_t>(stream)));
+  return int(hs::launch_f32_bwd_rows(x, we, gamma, beta, wh, loss, scale, dx, part, tap, T, C,
+                                     F, P, eps, static_cast<cudaStream_t>(stream)));
 }
 
-// f32 K9: the row kernel, reduce_rows, gemm_tn_f32; red = [dWh | dgamma | dbeta]
+// f32 K9: the tile kernel, then reduce_rows; red = [dWe (C x p C) | dWh | dgamma | dbeta]
 int hs_final_head_depth_loss_bwd_f32(const void* x, const void* we, const void* gamma,
                                      const void* beta, const void* wh, const void* t,
-                                     const void* scale, void* dx, void* dwe, void* red,
-                                     void* work, int T, int C, int F, int P, int kind,
-                                     float eps, float delta, void* stream) {
+                                     const void* scale, void* dx, void* red, void* work, int T,
+                                     int C, int F, int P, int kind, float eps, float delta,
+                                     void* stream) {
   hs::DepthLoss loss;
   if (!hs::depth_loss_of(t, nullptr, kind, delta, F, &loss)) return int(cudaErrorInvalidValue);
-  return int(hs::launch_f32_bwd(x, we, gamma, beta, wh, loss, scale, dx, dwe, red, work, T, C,
-                                F, P, eps, static_cast<cudaStream_t>(stream)));
+  return int(hs::launch_f32_bwd(x, we, gamma, beta, wh, loss, scale, dx, red, work, T, C, F, P,
+                                eps, static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

@@ -1,9 +1,9 @@
-// Decoder tail of HEAL-SWIN for Hopper (sm_90a) in float32, the row kernels and their launch
-// plumbing, shared by final_head_f32.cu (K3, K6, K7 and gemm_tn_f32's entries) and
-// final_head_depth_f32.cu (K8, K9), which nvcc compiles side by side: FinalPatchExpand_X4 ->
-// LayerNorm -> head, fused with the argmax (segmentation predict), with the weighted
-// cross entropy (segmentation training) or with the masked depth loss (depth training),
-// for the configs that compute in f32 (the paper run configs: dtype None).
+// Decoder tail of HEAL-SWIN for Hopper (sm_90a) in float32, the tile kernels and their
+// launch plumbing, shared by final_head_f32.cu (K3, K6, K7) and final_head_depth_f32.cu
+// (K8, K9), which nvcc compiles side by side: FinalPatchExpand_X4 -> LayerNorm -> head,
+// fused with the argmax (segmentation predict), with the weighted cross entropy
+// (segmentation training) or with the masked depth loss (depth training), for the
+// configs that compute in f32 (the paper run configs: dtype None).
 //
 // Replaces, in f32, five Pallas TPU kernels of heal_swin_tpu/ops/final_head.py:
 //   K3 hs_final_head_predict_f32         <- _pred_kernel (fused_final_head_predict, x f32)
@@ -20,51 +20,75 @@
 //   dlogits, dz = dlogits Wh^T -> dgamma = sum dz xhat, dbeta = sum dz and the LayerNorm
 //   backward dh -> dx = sum_i dh_i We_i^T; dWe_i = x^T dh_i.
 // K3: the same logits -> the argmax per sub-pixel, the lowest index at the max, F - 1
-//   for a row holding a NaN (tail_argmax); optionally the f32 logits beside.
+//   for a row holding a NaN; optionally the f32 logits beside.
 // K8: the same logits (F <= 2: mean, logvar) -> the masked depth loss of one kind (l2 /
 //   l1 / huber / nll, depth_loss.cuh) against targets t (T, p) whose non-finite entries
 //   are background -> sum loss, the count of valid targets and the predictions (T, p F),
 //   the logits themselves.  K9: K7 with dlogits = scale * dloss/dlogits (0 at background;
 //   the logvar channel 0 but for nll).
 //
-// Design: f32 FMAs on the CUDA cores, a thread per token row.  The bf16 kernels' layout
-// (all p slices of We resident beside a double-buffered x ring, tail_core.cuh) does not
-// fit in f32: at C 96, p 4 the slices alone take 147,456 bytes and the ring 98,304 more,
-// over a block's 232,448.  So a block holds ONE slice (C x C f32, 36,864 bytes at C 96)
-// and walks the sub-pixels in an outer loop: for each slice i it stages We_i and walks
-// its 128-row tiles (block b: tiles b, b + grid, ..., the partition of the bf16 kernels
-// and of the plain twins), each tile loaded into shared memory (rows padded to C + 1
-// floats, so a warp's threads, one per row, read a column without bank conflicts).  A
-// thread holds its row's h (C floats) in registers, reads We_i's row k by broadcast
-// (float4), and takes the LayerNorm and the cross entropy without shuffles.  The
-// sub-pixels are independent in the forward; K7's dx sums over them, and since a block
-// walks the same tiles in every slice, the same thread owns the same row each time: it
-// writes its dx row at slice 0 and adds to it at the others (no other thread touches
-// it, no atomics).
+// What bounds them.  At the paper tail (T 262,144, C 96, p 4) the forward does 2 T p C^2
+// (+ the head) = 19.6 GFLOP on ~100 MB of f32 tokens, the backward three times the
+// products on twice the bytes: both bounded by the arithmetic, which has to be f32-exact
+// (the kernels are held to the plain f32 versions within 1e-5).  So every product runs on
+// the tensor cores in 3xTF32 (tf32.cuh), as the f32 K1 and K2 do.
 //
-// K6's row kernel keeps each thread's sum w*nll and sum w in registers and counts the
-// confusion matrix in a shared int array (integer atomics are order-free); one partial
-// row [sum w*nll, sum w, F x F] a block, then reduce_rows.  K7 is a launch sequence: its
-// row kernel writes dx, dh (T x p C f32 workspace, dh_i in columns i C ..) and one
-// partial row [dWh (C x F) | dgamma | dbeta] a block: after the row pass each tile's
-// xhat and dlogits go to shared memory (xhat over the spent x tile), and thread c < C
-// sums column c over the tile's rows (z and dz recomputed there by the same
-// expressions), each tile from zero, the tiles' sums added in registers across the
-// block's tiles and slices; then reduce_rows over the partial rows, then dWe = x^T dh
-// by gemm_tn_f32 (split over tokens, the splits through reduce_rows).  Every sum across
-// blocks runs in a fixed order, so the results do not change from run to run.
+// The tile core.  A block of 8 warps walks 128-row tiles of the tokens (block b: tiles b,
+// b + grid, ...); a warp owns 16 rows of a tile.  The bf16 kernels' layout (all p slices
+// of We resident, tail_core.cuh) does not fit in f32, so a block holds ONE slice We_i (C x
+// C f32, rows padded to C + 8 floats) and walks the sub-pixels in an outer loop, each over
+// the same tiles.  A tile of x arrives by cp.async (rows padded to C + 4 floats; rows past
+// T zero-filled).  Then, for the warp's 16 rows, one function makes everything every
+// kernel needs:
+//   tf_expand: h = x We_i, mma.sync m16n8k8 in 3xTF32, k ascending in steps of 8 from zero
+//     sums, 32 columns at a time with the small terms in their own accumulator
+//     (mma_3xtf32_apart, as the logits and dx), h in the accumulators (16 x C: C / 8
+//     n-tiles, 4 C / 8 floats a lane);
+//   tf_layernorm: the statistics over each row's quad with explicitly rounded operations,
+//     xhat in place;
+//   tf_logits: z = fmaf(xhat, gamma, beta) and logits = z Wh, the head zero-padded to NH =
+//     8 or 16 columns.  The A fragments of z come straight from the accumulators: a lane
+//     holds columns 2c and 2c + 1 of each 8-column step where an A fragment wants k = c
+//     and c + 4, so the k index of each step runs over the columns in the order (0, 2, 4,
+//     6, 1, 3, 5, 7), and Wh's rows are read in the same order (no shuffle).
+// An mma's result depends only on its fragments, so every kernel that calls these on the
+// same x and weights gets the same bits: K7's recomputed logits are K6's, K9's are K8's,
+// and K3's classes are the argmax of logits that are K6's.  The logits go to a 128 x NH
+// tile in shared memory, and the per-row epilogues of the cross entropy, the depth loss
+// and the argmax run there, a lane per row (lanes 0-15 of each warp).
 //
-// K8 and K9 are K6's and K7's row kernels with another loss (the template argument
-// Loss: CeLoss or DepthLoss): they make h, xhat, z and the logits through the same
-// functions, so K9's recomputed logits are K8's bits as K7's are K6's.  K8's partial row
-// is [sum loss, count], and it writes the predictions beside; K9 is K7's launch sequence.
-// K3 is K6's row kernel with the epilogue Argmax (its classes, no partial rows): its
-// logits are K6's bits, and its classes the argmax of them.
+// K6, K8 (tail_fwd_3xtf32_kernel<C, NF, CeLoss / DepthLoss>): the epilogue's sums in
+// registers (the confusion matrix in a shared int array: integer atomics are order-free),
+// one partial row a block [sum w*nll, sum w, F x F] or [sum loss, count], then
+// reduce_rows.  K3 (<C, NF, Argmax>): the classes, no partial rows.
+//
+// K7, K9 (tail_bwd_3xtf32_kernel): for each tile, after the forward recomputed (z kept in a
+// second tile), the epilogue writes each row's dlogits over its logits; then per warp
+//   dz = dlogits Wh^T (3xTF32, recomputed in a second pass rather than held) and the
+//     LayerNorm backward: dh in place of xhat; the column sums of dz xhat and dz over the
+//     warp's 16 rows (a reduce-scatter over the 8 row groups: each lane keeps C / 16 of
+//     them), added to the warp's running sums;
+//   dx (+)= dh We_i^T, dh's A fragments straight from the accumulators (the permuted k of
+//     tf_logits; We_i's rows read as float2), 32 columns of dx at a time; the same thread
+//     owns the same dx elements in every slice, so it writes them at slice 0 and adds at
+//     the others (no atomics);
+// and per block, over the tile's rows:
+//   dWh += z^T dlogits (each warp one or two 16 x 8 output tiles, from zero each tile);
+//   then dh over z in the second tile, and dWe_i += x^T dh (8 warps of (C / 2) x (C / 4)
+//     outputs, 4 (C / 32)^2 accumulators a lane: each tile's sum from zero, added rounded
+//     to nearest to the block's sum for slice i).
+// In both block products the k index (the rows) runs in the order (0, 2, 4, 6, 1, 3, 5,
+// 7) of each 8-row step, so that x, z and dh (rows padded to C + 4 floats) and the
+// dlogits (NH + 4) are read without bank conflicts.  One partial row a block [dWe (C x p C)
+// | dWh (C x F) | dgamma | dbeta]: dWe_i at the end of slice i, the rest at the end of
+// the walk (dgamma and dbeta: the warps' sums added in a fixed order); then reduce_rows
+// over the partial rows.  No T x p C workspace, no float atomics, and every sum across
+// lanes, warps and blocks in a fixed order, so two launches are bit-equal.
 //
 // The instantiations: C in 32, 64, 96, 128 and the head padded to NF = 8 or 16 columns
 // for the cross entropy and the argmax (F <= 16: the paper's segmentation heads have 8,
-// 10 and 12 classes), NF = 4 for the depth head (F <= 2); the depth loss's kind is a
-// launch argument.
+// 10 and 12 classes), NF = 4 for the depth head (F <= 2; 8 columns on the tensor cores);
+// the depth loss's kind is a launch argument.
 
 #pragma once
 
@@ -74,17 +98,19 @@
 
 #include "common.cuh"
 #include "depth_loss.cuh"
+#include "tf32.cuh"
 
 namespace hs {
 namespace {
 
-constexpr int F32_ROWS = 128;  // token rows of a tile: one thread each
-constexpr int F32_THREADS = F32_ROWS;
+constexpr int TF_ROWS = 128;  // token rows of a tile
+constexpr int TF_WARPS = 8;   // a warp owns 16 rows of a tile
+constexpr int TF_THREADS = TF_WARPS * 32;
 constexpr size_t kF32MaxSmem = 232448;  // an H100 block's opt-in shared memory
 
 enum F32Kind : int { kF32Ce = 0, kF32CeBwd = 1, kF32Depth = 2, kF32DepthBwd = 3, kF32Pred = 4 };
 
-// the loss a row kernel takes of its logits: the weighted cross entropy of targets y
+// the loss a tile kernel takes of its logits: the weighted cross entropy of targets y
 // and element weights welem (K6, K7), or the masked depth loss of one kind against
 // targets t, a non-finite value marking background (K8, K9; preds: K8's predictions)
 struct CeLoss {
@@ -109,7 +135,7 @@ constexpr bool kIsDepth = std::is_same<Loss, DepthLoss>::value;
 template <class Loss>
 constexpr bool kIsPred = std::is_same<Loss, Argmax>::value;
 
-// the row kernels' kinds of a loss: the forward's and the backward's
+// the tile kernels' kinds of a loss: the forward's and the backward's
 template <class Loss>
 constexpr int kFwdKind = kIsDepth<Loss> ? kF32Depth : kIsPred<Loss> ? kF32Pred : kF32Ce;
 template <class Loss>
@@ -119,130 +145,231 @@ __host__ __device__ inline bool f32_is_bwd(int kind) {
   return kind == kF32CeBwd || kind == kF32DepthBwd;
 }
 
-// shared memory: We_i (C x C) | Wh (C x NF, zero-padded) | gamma | beta | the x tile
-// (128 x (C + 1)) | K6: the confusion matrix (F x F int) and the warps' loss sums; K8: the
-// warps' loss sums; K7, K9: the tile's dlogits (128 x NF); K3: nothing
+// the head's columns on the tensor cores: NF rounded up to a whole 8-column n-tile
+__host__ __device__ constexpr int nh_of(int NF) { return NF < 8 ? 8 : NF; }
+
+// shared memory: We_i (C x (C + 8)) | Wh (C x (NH + 4), zero-padded) | gamma | beta | the x
+// tile (128 x (C + 4)) | K7, K9: the z / dh tile (128 x (C + 4)) | the logits / dlogits
+// tile (128 x (NH + 4)) | K6: the confusion matrix (F x F int) and the warps' loss sums;
+// K8: the warps' loss sums; K3, K7, K9: nothing
 struct F32Layout {
-  size_t wh, gb, x, red, total;
+  size_t wh, gb, x, zd, l, red, total;
 };
 
 __host__ __device__ inline F32Layout f32_layout(int C, int NF, int F, int kind) {
+  const int NH = nh_of(NF);
   F32Layout L;
-  size_t off = align128(size_t(C) * C * 4);
-  L.wh = off; off += align128(size_t(C) * NF * 4);
+  size_t off = align128(size_t(C) * (C + 8) * 4);
+  L.wh = off; off += align128(size_t(C) * (NH + 4) * 4);
   L.gb = off; off += align128(size_t(2) * C * 4);
-  L.x = off; off += align128(size_t(F32_ROWS) * (C + 1) * 4);
+  L.x = off; off += align128(size_t(TF_ROWS) * (C + 4) * 4);
+  L.zd = off;
+  if (f32_is_bwd(kind)) off += align128(size_t(TF_ROWS) * (C + 4) * 4);
+  L.l = off; off += align128(size_t(TF_ROWS) * (NH + 4) * 4);
   L.red = off;
-  if (f32_is_bwd(kind))
-    off += align128(size_t(F32_ROWS) * NF * 4);
-  else if (kind != kF32Pred)
-    off += (kind == kF32Ce ? align128(size_t(F) * F * 4) : 0) +
-           align128(2 * (F32_THREADS / 32) * 4);
+  if (kind == kF32Ce || kind == kF32Depth)
+    off += (kind == kF32Ce ? align128(size_t(F) * F * 4) : 0) + align128(2 * TF_WARPS * 4);
   L.total = off;
   return L;
 }
 
-// the block's resident head and LayerNorm parameters: Wh with its padding columns zeroed
+// the block's resident head and LayerNorm parameters: Wh (C x F) into C x NH (ld NH + 4)
+// with its padding columns zeroed
 template <int C, int NF>
 __device__ __forceinline__ void stage_head(float* whs, float* gs, const float* __restrict__ wh,
                                            const float* __restrict__ gamma,
                                            const float* __restrict__ beta, int F) {
-  for (int idx = threadIdx.x; idx < C * NF; idx += F32_THREADS) {
-    const int r = idx / NF, f = idx - r * NF;
-    whs[idx] = f < F ? wh[size_t(r) * F + f] : 0.f;
+  constexpr int NH = nh_of(NF), LDH = NH + 4;
+  for (int idx = threadIdx.x; idx < C * NH; idx += TF_THREADS) {
+    const int r = idx / NH, f = idx - r * NH;
+    whs[r * LDH + f] = f < F ? wh[size_t(r) * F + f] : 0.f;
   }
-  for (int c = threadIdx.x; c < C; c += F32_THREADS) {
+  for (int c = threadIdx.x; c < C; c += TF_THREADS) {
     gs[c] = gamma[c];
     gs[C + c] = beta[c];
   }
 }
 
-// We_i (C x C) into shared memory, 16 bytes at a time
+// We_i (C x C) into shared memory (ld C + 8) by cp.async; the caller commits
 template <int C>
 __device__ __forceinline__ void stage_slice(float* wes, const float* __restrict__ wei) {
-  const float4* src = reinterpret_cast<const float4*>(wei);
-  float4* dst = reinterpret_cast<float4*>(wes);
-  for (int idx = threadIdx.x; idx < C * C / 4; idx += F32_THREADS) dst[idx] = src[idx];
+  constexpr int Q = C / 4;
+  for (int idx = threadIdx.x; idx < C * Q; idx += TF_THREADS) {
+    const int r = idx / Q, q = idx - r * Q;
+    cp_async16(wes + r * (C + 8) + 4 * q, wei + size_t(r) * C + 4 * q);
+  }
 }
 
-// the rows of tile `tile` that exist into xs (ld C + 1); returns their count
+// tile `tile` of x into xs (ld C + 4) by cp.async, rows past T zero-filled; the caller
+// commits.  Returns the count of rows that exist.
 template <int C>
 __device__ __forceinline__ int load_tile(float* xs, const float* __restrict__ x, int tile,
                                          int T) {
-  const int rows = min(F32_ROWS, T - tile * F32_ROWS);
-  const float4* src = reinterpret_cast<const float4*>(x + size_t(tile) * F32_ROWS * C);
-  for (int idx = threadIdx.x; idx < rows * C / 4; idx += F32_THREADS) {
-    const float4 v = src[idx];
-    const int e = idx * 4, r = e / C, c = e - r * C;
-    float* d = xs + r * (C + 1) + c;
-    d[0] = v.x;
-    d[1] = v.y;
-    d[2] = v.z;
-    d[3] = v.w;
+  constexpr int Q = C / 4;
+  const int rows = min(TF_ROWS, T - tile * TF_ROWS);
+  const float* src = x + size_t(tile) * TF_ROWS * C;
+  for (int idx = threadIdx.x; idx < TF_ROWS * Q; idx += TF_THREADS) {
+    const int r = idx / Q, q = idx - r * Q;
+    const bool valid = r < rows;
+    cp_async16_zfill(xs + r * (C + 4) + 4 * q, src + size_t(valid ? r : 0) * C + 4 * q, valid);
   }
   return rows;
 }
 
-// h = x We_i for the thread's row xr (C floats, ld 1), We_i's rows by broadcast
+// split a's four values into the A fragment (hi, lo)
+__device__ __forceinline__ void split4(uint32_t (&ah)[4], uint32_t (&al)[4], float a0, float a1,
+                                       float a2, float a3) {
+  split_tf32(a0, ah[0], al[0]);
+  split_tf32(a1, ah[1], al[1]);
+  split_tf32(a2, ah[2], al[2]);
+  split_tf32(a3, ah[3], al[3]);
+}
+
+// h (the warp's 16 rows x C, accumulators: h[t] = (g, 8t + 2c), (g, 8t + 2c + 1), (g + 8,
+// 8t + 2c), (g + 8, 8t + 2c + 1)) = x We_i for the rows r0 .. r0 + 15 of xs, in 3xTF32, 32
+// columns at a time, k ascending in steps of 8 from zero sums, the small terms apart
+// (mma_3xtf32_apart)
 template <int C>
-__device__ __forceinline__ void expand_row(float (&h)[C], const float* xr, const float* wes) {
+__device__ __forceinline__ void tf_expand(float (&h)[C / 8][4], const float* xs,
+                                          const float* wes, int r0) {
+  constexpr int NT = C / 8, LDX = C + 4, LDW = C + 8;
+  const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
+  const float* xa = xs + (r0 + g) * LDX + c;
 #pragma unroll
-  for (int c = 0; c < C; ++c) h[c] = 0.f;
+  for (int n0 = 0; n0 < NT; n0 += 4) {
+    float hh[4][4], hl[4][4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) hh[q][e] = hl[q][e] = 0.f;
 #pragma unroll 2
-  for (int k = 0; k < C; ++k) {
-    const float xk = xr[k];
-    const float4* w = reinterpret_cast<const float4*>(wes + k * C);
+    for (int j = 0; j < NT; ++j) {
+      uint32_t ah[4], al[4];
+      split4(ah, al, xa[8 * j], xa[8 * LDX + 8 * j], xa[8 * j + 4], xa[8 * LDX + 8 * j + 4]);
+      const float* wb = wes + (8 * j + c) * LDW + 8 * n0 + g;
 #pragma unroll
-    for (int q = 0; q < C / 4; ++q) {
-      const float4 v = w[q];
-      h[4 * q] = fmaf(xk, v.x, h[4 * q]);
-      h[4 * q + 1] = fmaf(xk, v.y, h[4 * q + 1]);
-      h[4 * q + 2] = fmaf(xk, v.z, h[4 * q + 2]);
-      h[4 * q + 3] = fmaf(xk, v.w, h[4 * q + 3]);
+      for (int q = 0; q < 4; ++q) {
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(wb[8 * q], bh0, bl0);
+        split_tf32(wb[4 * LDW + 8 * q], bh1, bl1);
+        mma_3xtf32_apart(hh[q], hl[q], ah, al, bh0, bh1, bl0, bl1);
+      }
     }
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) h[n0 + q][e] = __fadd_rn(hh[q][e], hl[q][e]);
   }
 }
 
-// the row's LayerNorm: h -> xhat in place; returns rstd
+// the LayerNorm of the warp's rows g (accumulator entries 0, 1) and g + 8 (2, 3): h ->
+// xhat in place, rstd of each row; each row's sums over its quad, every lane the same bits
 template <int C>
-__device__ __forceinline__ float ln_xhat(float (&h)[C], float eps) {
-  float s = 0.f;
+__device__ __forceinline__ void tf_layernorm(float (&h)[C / 8][4], float (&rstd)[2],
+                                             float eps) {
+  constexpr int NT = C / 8;
+  float s[2] = {0.f, 0.f}, v[2] = {0.f, 0.f};
 #pragma unroll
-  for (int c = 0; c < C; ++c) s += h[c];
-  const float mean = s / C;
-  float v = 0.f;
+  for (int t = 0; t < NT; ++t)
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
-    h[c] -= mean;
-    v = fmaf(h[c], h[c], v);
-  }
-  const float rstd = rsqrtf(v / C + eps);
+    for (int e = 0; e < 4; ++e) s[e >> 1] = __fadd_rn(s[e >> 1], h[t][e]);
+  const float mean[2] = {quad_sum(s[0]) / C, quad_sum(s[1]) / C};
 #pragma unroll
-  for (int c = 0; c < C; ++c) h[c] *= rstd;
-  return rstd;
+  for (int t = 0; t < NT; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      h[t][e] = __fsub_rn(h[t][e], mean[e >> 1]);
+      v[e >> 1] = fmaf(h[t][e], h[t][e], v[e >> 1]);
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) rstd[r] = rsqrtf(quad_sum(v[r]) / C + eps);
+#pragma unroll
+  for (int t = 0; t < NT; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) h[t][e] = __fmul_rn(h[t][e], rstd[e >> 1]);
 }
 
-// z = xhat gamma + beta: the one expression of z, in the row pass and K7's column pass
+// z = xhat gamma + beta: the one expression of z
 __device__ __forceinline__ float z_of(float xhat, float g, float b) { return fmaf(xhat, g, b); }
 
-// lf = z Wh (NF columns, 0 past F since Wh is zero-padded)
+// 16 rows of accumulators (N / 8 n-tiles) into a row-major tile at p (ld ld), float2 each
+template <int NT>
+__device__ __forceinline__ void tf_store_rows(float* p, const float (&a)[NT][4], int ld) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, c2 = (lane & 3) * 2;
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    *reinterpret_cast<float2*>(p + g * ld + 8 * t + c2) = make_float2(a[t][0], a[t][1]);
+    *reinterpret_cast<float2*>(p + (g + 8) * ld + 8 * t + c2) = make_float2(a[t][2], a[t][3]);
+  }
+}
+
+// lf (the warp's 16 rows x NH) = z Wh, z = z_of(xhat, gamma, beta) from the accumulators
+// xh, Wh (C x NH, ld NH + 4) in whs, gamma | beta in gs.  The k index of each 8-column
+// step runs over the columns (0, 2, 4, 6, 1, 3, 5, 7), on z's fragments and Wh's rows
+// alike.  zout, where not null: the warp's 16 rows of z are stored there too (ld C + 4).
 template <int C, int NF>
-__device__ __forceinline__ void head_row(float (&lf)[NF], const float (&xh)[C],
-                                         const float* gs, const float* whs) {
+__device__ __forceinline__ void tf_logits(float (&lf)[nh_of(NF) / 8][4],
+                                          const float (&xh)[C / 8][4], const float* gs,
+                                          const float* whs, float* zout) {
+  constexpr int NT = C / 8, NTH = nh_of(NF) / 8, LDH = nh_of(NF) + 4, LDX = C + 4;
+  const int lane = threadIdx.x & 31, g = lane >> 2, c2 = (lane & 3) * 2;
+  float ll[NTH][4];  // the small terms apart (mma_3xtf32_apart)
 #pragma unroll
-  for (int f = 0; f < NF; ++f) lf[f] = 0.f;
+  for (int n = 0; n < NTH; ++n)
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const float z = z_of(xh[c], gs[c], gs[C + c]);
-    const float4* w = reinterpret_cast<const float4*>(whs + c * NF);
+    for (int e = 0; e < 4; ++e) lf[n][e] = ll[n][e] = 0.f;
 #pragma unroll
-    for (int q = 0; q < NF / 4; ++q) {
-      const float4 v = w[q];
-      lf[4 * q] = fmaf(z, v.x, lf[4 * q]);
-      lf[4 * q + 1] = fmaf(z, v.y, lf[4 * q + 1]);
-      lf[4 * q + 2] = fmaf(z, v.z, lf[4 * q + 2]);
-      lf[4 * q + 3] = fmaf(z, v.w, lf[4 * q + 3]);
+  for (int j = 0; j < NT; ++j) {
+    const int col = 8 * j + c2;
+    const float g0 = gs[col], g1 = gs[col + 1], b0 = gs[C + col], b1 = gs[C + col + 1];
+    const float z0 = z_of(xh[j][0], g0, b0), z1 = z_of(xh[j][1], g1, b1);
+    const float z2 = z_of(xh[j][2], g0, b0), z3 = z_of(xh[j][3], g1, b1);
+    if (zout != nullptr) {
+      *reinterpret_cast<float2*>(zout + g * LDX + col) = make_float2(z0, z1);
+      *reinterpret_cast<float2*>(zout + (g + 8) * LDX + col) = make_float2(z2, z3);
     }
+    uint32_t ah[4], al[4];  // (g, k c) = z(g, 2c), (g + 8, k c), (g, k c + 4) = z(g, 2c + 1), ..
+    split4(ah, al, z0, z2, z1, z3);
+    const float* wb = whs + col * LDH + g;
+#pragma unroll
+    for (int n = 0; n < NTH; ++n) {
+      uint32_t bh0, bl0, bh1, bl1;
+      split_tf32(wb[8 * n], bh0, bl0);
+      split_tf32(wb[LDH + 8 * n], bh1, bl1);
+      mma_3xtf32_apart(lf[n], ll[n], ah, al, bh0, bh1, bl0, bl1);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < NTH; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) lf[n][e] = __fadd_rn(lf[n][e], ll[n][e]);
+}
+
+// the forward recomputed for the warp's rows r0 ..: xhat in h, rstd, and the logits stored
+// to the warp's rows of the logits tile ls (ld NH + 4); z stored to zout where not null
+template <int C, int NF>
+__device__ __forceinline__ void tf_forward(float (&h)[C / 8][4], float (&rstd)[2],
+                                           const float* xs, const float* wes, const float* gs,
+                                           const float* whs, float* ls, float* zout, int r0,
+                                           float eps) {
+  constexpr int NH = nh_of(NF);
+  tf_expand<C>(h, xs, wes, r0);
+  tf_layernorm<C>(h, rstd, eps);
+  float lf[NH / 8][4];
+  tf_logits<C, NF>(lf, h, gs, whs, zout);
+  tf_store_rows<NH / 8>(ls + r0 * (NH + 4), lf, NH + 4);
+}
+
+// a row's NF logits from the logits tile (row start 16-byte aligned, NF % 4 == 0)
+template <int NF>
+__device__ __forceinline__ void load_row(float (&lf)[NF], const float* lr) {
+#pragma unroll
+  for (int q = 0; q < NF / 4; ++q) {
+    const float4 v = reinterpret_cast<const float4*>(lr)[q];
+    lf[4 * q] = v.x;
+    lf[4 * q + 1] = v.y;
+    lf[4 * q + 2] = v.z;
+    lf[4 * q + 3] = v.w;
   }
 }
 
@@ -348,40 +475,47 @@ __device__ __forceinline__ void depth_dl(float (&dl)[NF], const float (&lf)[NF],
 // (Argmax): the classes (T, p), no partial rows.  tap, where not null, gets the logits
 // (T, p, F)
 template <int C, int NF, class Loss>
-__global__ void __launch_bounds__(F32_THREADS)
-tail_loss_f32_kernel(const float* __restrict__ x, const float* __restrict__ we,
-                     const float* __restrict__ gamma, const float* __restrict__ beta,
-                     const float* __restrict__ wh, const Loss loss, float* __restrict__ part,
-                     float* __restrict__ tap, int T, int F, int P, float eps) {
+__global__ void __launch_bounds__(TF_THREADS, 2)
+tail_fwd_3xtf32_kernel(const float* __restrict__ x, const float* __restrict__ we,
+                       const float* __restrict__ gamma, const float* __restrict__ beta,
+                       const float* __restrict__ wh, const Loss loss, float* __restrict__ part,
+                       float* __restrict__ tap, int T, int F, int P, float eps) {
   constexpr bool CE = std::is_same<Loss, CeLoss>::value;
+  constexpr int LDL = nh_of(NF) + 4;
   extern __shared__ __align__(128) unsigned char smem[];
   const F32Layout L = f32_layout(C, NF, F, kFwdKind<Loss>);
   float* wes = reinterpret_cast<float*>(smem);
   float* whs = reinterpret_cast<float*>(smem + L.wh);
   float* gs = reinterpret_cast<float*>(smem + L.gb);
   float* xs = reinterpret_cast<float*>(smem + L.x);
+  float* ls = reinterpret_cast<float*>(smem + L.l);
   int* cm = reinterpret_cast<int*>(smem + L.red);
   float* wsum = reinterpret_cast<float*>(smem + L.red + (CE ? align128(size_t(F) * F * 4) : 0));
-  const int tid = threadIdx.x;
-  const int tiles = (T + F32_ROWS - 1) / F32_ROWS;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, r0 = warp * 16;
+  const int tiles = (T + TF_ROWS - 1) / TF_ROWS;
 
   stage_head<C, NF>(whs, gs, wh, gamma, beta, F);
   if constexpr (CE)
-    for (int idx = tid; idx < F * F; idx += F32_THREADS) cm[idx] = 0;
+    for (int idx = tid; idx < F * F; idx += TF_THREADS) cm[idx] = 0;
   float num = 0.f, den = 0.f;
   for (int i = 0; i < P; ++i) {
     __syncthreads();  // the last slice's rows are done with wes
     stage_slice<C>(wes, we + size_t(i) * C * C);
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-      __syncthreads();  // the slice has landed; the last tile's rows are done with xs
+      __syncthreads();  // the last tile's rows are done with xs
       const int rows = load_tile<C>(xs, x, tile, T);
+      cp_async_commit();
+      cp_async_wait<0>();
       __syncthreads();
-      if (tid >= rows) continue;
-      const size_t row = size_t(tile) * F32_ROWS + tid, e = row * P + i;
-      float h[C], lf[NF];
-      expand_row<C>(h, xs + tid * (C + 1), wes);
-      ln_xhat<C>(h, eps);
-      head_row<C, NF>(lf, h, gs, whs);
+      if (r0 >= rows) continue;
+      float h[C / 8][4], rstd[2];
+      tf_forward<C, NF>(h, rstd, xs, wes, gs, whs, ls, nullptr, r0, eps);
+      __syncwarp();
+      const int r = r0 + lane;
+      if (lane >= 16 || r >= rows) continue;
+      const size_t row = size_t(tile) * TF_ROWS + r, e = row * P + i;
+      float lf[NF];
+      load_row<NF>(lf, ls + r * LDL);
       if (tap != nullptr) write_tap<NF>(tap, lf, row, i, P, F);
       if constexpr (kIsPred<Loss>) {
         loss.preds[e] = argmax_row<NF>(lf, F);
@@ -402,279 +536,378 @@ tail_loss_f32_kernel(const float* __restrict__ x, const float* __restrict__ we,
   if constexpr (kIsPred<Loss>) return;
   num = warp_sum(num);
   den = warp_sum(den);
-  const int warp = tid >> 5;
-  if ((tid & 31) == 0) {
+  if (lane == 0) {
     wsum[warp] = num;
-    wsum[F32_THREADS / 32 + warp] = den;
+    wsum[TF_WARPS + warp] = den;
   }
   __syncthreads();
   float* prow = part + size_t(blockIdx.x) * (CE ? 2 + F * F : 2);
   if (tid == 0) {
     float n = 0.f, d = 0.f;
-    for (int w = 0; w < F32_THREADS / 32; ++w) {
+    for (int w = 0; w < TF_WARPS; ++w) {
       n += wsum[w];
-      d += wsum[F32_THREADS / 32 + w];
+      d += wsum[TF_WARPS + w];
     }
     prow[0] = n;
     prow[1] = d;
   }
   if constexpr (CE)
-    for (int idx = tid; idx < F * F; idx += F32_THREADS) prow[2 + idx] = float(cm[idx]);
+    for (int idx = tid; idx < F * F; idx += TF_THREADS) prow[2 + idx] = float(cm[idx]);
 }
 
-// K7's (CeLoss) and K9's (DepthLoss) row kernel: dx (T x C f32), dh (T x p C f32: dh_i
-// in columns i C ..) and the partial row [dWh (C x F) | dgamma (C) | dbeta (C)] of each
-// block, for the loss gradient scale = gloss / den (K7) or gloss / max(count, 1) (K9), on
-// the device; tap as K6's
+// one halving step of rows8_scatter: the lanes with lane bit MASK keep the upper HALF of
+// v[0 .. 2 HALF), the others the lower, each adding its partner's copy of the half it keeps
+template <int HALF, int MASK>
+__device__ __forceinline__ void halve_across(float (&v)[8]) {
+  const bool up = (threadIdx.x & MASK) != 0;
+#pragma unroll
+  for (int q = 0; q < HALF; ++q) {
+    const float send = up ? v[q] : v[HALF + q];
+    const float keep = up ? v[HALF + q] : v[q];
+    v[q] = __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, send, MASK));
+  }
+}
+
+// v (8 values a lane) summed over the lanes of each c (the 8 row groups g), scattered:
+// the lane with g returns the sum of value g.  Three halving steps (lane bits 4, 3, 2), a
+// tree in a fixed order.
+__device__ __forceinline__ float rows8_scatter(float (&v)[8]) {
+  halve_across<4, 16>(v);
+  halve_across<2, 8>(v);
+  halve_across<1, 4>(v);
+  return v[0];
+}
+
+// the LayerNorm backward of the warp's rows from their dlogits (rows of lw, ld NH + 4):
+// dz = dlogits Wh^T in 3xTF32 (n-tile by n-tile, made twice: for the row means m1 of dz
+// gamma and m2 of dz gamma xhat, then for dh), xhat -> dh in place; the columns' sums of
+// dz xhat (dgamma) and dz (dbeta) over the 16 rows added to dgb: slot s of lane (g, c)
+// holds the column of n-tile 2s + g / 4, parity (g & 1), dgamma for g & 2 == 0
+template <int C, int NF>
+__device__ __forceinline__ void tf_ln_bwd(float (&h)[C / 8][4], const float (&rstd)[2],
+                                          const float* lw, const float* whs, const float* gs,
+                                          float (&dgb)[C / 16]) {
+  constexpr int NT = C / 8, NTH = nh_of(NF) / 8, LDL = nh_of(NF) + 4, LDH = nh_of(NF) + 4;
+  const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3, c2 = 2 * c;
+  uint32_t ah[NTH][4], al[NTH][4];
+#pragma unroll
+  for (int k = 0; k < NTH; ++k) {
+    const float* a = lw + g * LDL + 8 * k + c;
+    split4(ah[k], al[k], a[0], a[8 * LDL], a[4], a[8 * LDL + 4]);
+  }
+  auto dz_tile = [&](int t, float (&d)[4]) {  // dz's n-tile t (channels 8t ..)
+    d[0] = d[1] = d[2] = d[3] = 0.f;
+    const float* wb = whs + (8 * t + g) * LDH + c;
+#pragma unroll
+    for (int k = 0; k < NTH; ++k) {
+      uint32_t bh0, bl0, bh1, bl1;
+      split_tf32(wb[8 * k], bh0, bl0);
+      split_tf32(wb[8 * k + 4], bh1, bl1);
+      mma_3xtf32(d, ah[k], al[k], bh0, bh1, bl0, bl1);
+    }
+  };
+  float m1[2] = {0.f, 0.f}, m2[2] = {0.f, 0.f};
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    float d[4];
+    dz_tile(t, d);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float dzh = __fmul_rn(d[e], gs[8 * t + c2 + (e & 1)]);
+      m1[e >> 1] = __fadd_rn(m1[e >> 1], dzh);
+      m2[e >> 1] = fmaf(dzh, h[t][e], m2[e >> 1]);
+    }
+  }
+  float a1[2], a2[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    a1[r] = quad_sum(m1[r]) / C;
+    a2[r] = quad_sum(m2[r]) / C;
+  }
+#pragma unroll
+  for (int s = 0; s < NT / 2; ++s) {
+    float v[8];  // [dgamma 2c, 2c + 1, dbeta 2c, 2c + 1] of n-tiles 2s and 2s + 1
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int t = 2 * s + u;
+      float d[4];
+      dz_tile(t, d);
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        v[4 * u + p] = __fadd_rn(__fmul_rn(d[p], h[t][p]), __fmul_rn(d[p + 2], h[t][p + 2]));
+        v[4 * u + 2 + p] = __fadd_rn(d[p], d[p + 2]);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float dzh = __fmul_rn(d[e], gs[8 * t + c2 + (e & 1)]);
+        h[t][e] = __fmul_rn(rstd[e >> 1], __fsub_rn(__fsub_rn(dzh, a1[e >> 1]),
+                                                     __fmul_rn(h[t][e], a2[e >> 1])));
+      }
+    }
+    dgb[s] = __fadd_rn(dgb[s], rows8_scatter(v));
+  }
+}
+
+// the warp's 16 rows of dx (grow0 ..; `live` of them exist) = dh We_i^T, plus dx where
+// `add`; dh's A fragments from the accumulators (k over each 8 channels in the order (0,
+// 2, 4, 6, 1, 3, 5, 7), as tf_logits), We_i's rows read as float2 in the same order; 32
+// columns of dx at a time
+template <int C>
+__device__ __forceinline__ void tf_dx(const float (&dh)[C / 8][4], const float* wes,
+                                      float* __restrict__ dx, size_t grow0, int live, bool add) {
+  constexpr int NT = C / 8, LDW = C + 8;
+  const int lane = threadIdx.x & 31, g = lane >> 2, c2 = (lane & 3) * 2;
+#pragma unroll 1
+  for (int n0 = 0; n0 < C; n0 += 32) {
+    float acc[4][4], accl[4][4];  // the small terms apart (mma_3xtf32_apart)
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[q][e] = accl[q][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      uint32_t ah[4], al[4];
+      split4(ah, al, dh[j][0], dh[j][2], dh[j][1], dh[j][3]);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float2 b =
+            *reinterpret_cast<const float2*>(wes + (n0 + 8 * q + g) * LDW + 8 * j + c2);
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(b.x, bh0, bl0);
+        split_tf32(b.y, bh1, bl1);
+        mma_3xtf32_apart(acc[q], accl[q], ah, al, bh0, bh1, bl0, bl1);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[q][e] = __fadd_rn(acc[q][e], accl[q][e]);
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      if (g + 8 * hr >= live) continue;
+      float* d = dx + (grow0 + g + 8 * hr) * C + n0 + c2;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        float2 v = make_float2(acc[q][2 * hr], acc[q][2 * hr + 1]);
+        float2* p = reinterpret_cast<float2*>(d + 8 * q);
+        if (add) {  // this lane wrote these elements at slice 0
+          const float2 o = *p;
+          v = make_float2(__fadd_rn(o.x, v.x), __fadd_rn(o.y, v.y));
+        }
+        *p = v;
+      }
+    }
+  }
+}
+
+// the k order of the block products over a tile's rows: k index c <-> row 2c, c + 4 <->
+// row 2c + 1 of each 8-row step (conflict-free reads of rows padded to C + 4 / NH + 4)
+
+// dwh (the warp's output tiles w, w + 8, .. of dWh (C x NH)) += z^T dlogits over the
+// tile's first `rows` rows (z in zd, dlogits in ls), each tile's sum from zero
+template <int C, int NF>
+__device__ __forceinline__ void tf_dwh(float (&dwh)[(C / 16 * (nh_of(NF) / 8) + 7) / 8][4],
+                                       const float* zd, const float* ls, int rows) {
+  constexpr int NTH = nh_of(NF) / 8, TILES = C / 16 * NTH, MINE = (TILES + 7) / 8;
+  constexpr int LDX = C + 4, LDL = nh_of(NF) + 4;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, c = lane & 3;
+#pragma unroll
+  for (int s = 0; s < MINE; ++s) {
+    const int id = warp + TF_WARPS * s;
+    if (id >= TILES) break;
+    const int m0 = (id / NTH) * 16, n0 = (id % NTH) * 8;
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int k0 = 0; k0 < rows; k0 += 8) {
+      const float* za = zd + (k0 + 2 * c) * LDX + m0 + g;
+      const float* lb = ls + (k0 + 2 * c) * LDL + n0 + g;
+      uint32_t ah[4], al[4], bh0, bl0, bh1, bl1;
+      split4(ah, al, za[0], za[8], za[LDX], za[LDX + 8]);
+      split_tf32(lb[0], bh0, bl0);
+      split_tf32(lb[LDL], bh1, bl1);
+      mma_3xtf32(acc, ah, al, bh0, bh1, bl0, bl1);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dwh[s][e] = __fadd_rn(dwh[s][e], acc[e]);
+  }
+}
+
+// acc (the warp's (C / 2) x (C / 4) block of dWe_i: rows (x channels) from (warp / 4) C /
+// 2, columns (dh channels) from (warp % 4) C / 4) += x^T dh over the tile's first `rows`
+// rows (x in xs, dh in zd): the tile's sum from zero, added to acc rounded to nearest (a
+// tensor-core sum carried over the block's whole walk would lose an ulp of it at each of
+// its ~750 adds, mma_3xtf32_apart)
+template <int C>
+__device__ __forceinline__ void tf_dwe(float (&acc)[C / 32][C / 32][4], const float* xs,
+                                       const float* zd, int rows) {
+  constexpr int MW = C / 32, LDX = C + 4;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, c = lane & 3;
+  const int m0 = (warp >> 2) * (C / 2), n0 = (warp & 3) * (C / 4);
+  float t[MW][MW][4];
+#pragma unroll
+  for (int mt = 0; mt < MW; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < MW; ++nt) t[mt][nt][0] = t[mt][nt][1] = t[mt][nt][2] = t[mt][nt][3] = 0.f;
+  for (int k0 = 0; k0 < rows; k0 += 8) {
+    const float* xa = xs + (k0 + 2 * c) * LDX + m0 + g;
+    const float* db = zd + (k0 + 2 * c) * LDX + n0 + g;
+    uint32_t ah[MW][4], al[MW][4];
+#pragma unroll
+    for (int mt = 0; mt < MW; ++mt)
+      split4(ah[mt], al[mt], xa[16 * mt], xa[16 * mt + 8], xa[LDX + 16 * mt],
+             xa[LDX + 16 * mt + 8]);
+#pragma unroll
+    for (int nt = 0; nt < MW; ++nt) {
+      uint32_t bh0, bl0, bh1, bl1;
+      split_tf32(db[8 * nt], bh0, bl0);
+      split_tf32(db[LDX + 8 * nt], bh1, bl1);
+#pragma unroll
+      for (int mt = 0; mt < MW; ++mt) mma_3xtf32(t[mt][nt], ah[mt], al[mt], bh0, bh1, bl0, bl1);
+    }
+  }
+#pragma unroll
+  for (int mt = 0; mt < MW; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < MW; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = __fadd_rn(acc[mt][nt][e], t[mt][nt][e]);
+}
+
+// K7's (CeLoss) and K9's (DepthLoss) tile kernel: dx (T x C f32) and the partial row [dWe
+// (C x p C) | dWh (C x F) | dgamma (C) | dbeta (C)] of each block, for the loss gradient
+// scale = gloss / den (K7) or gloss / max(count, 1) (K9), on the device; tap as K6's
 template <int C, int NF, class Loss>
-__global__ void __launch_bounds__(F32_THREADS)
-tail_bwd_f32_kernel(const float* __restrict__ x, const float* __restrict__ we,
-                    const float* __restrict__ gamma, const float* __restrict__ beta,
-                    const float* __restrict__ wh, const Loss loss,
-                    const float* __restrict__ scale_p, float* __restrict__ dx,
-                    float* __restrict__ dh, float* __restrict__ part, float* __restrict__ tap,
-                    int T, int F, int P, float eps) {
+__global__ void __launch_bounds__(TF_THREADS, 1)
+tail_bwd_3xtf32_kernel(const float* __restrict__ x, const float* __restrict__ we,
+                       const float* __restrict__ gamma, const float* __restrict__ beta,
+                       const float* __restrict__ wh, const Loss loss,
+                       const float* __restrict__ scale_p, float* __restrict__ dx,
+                       float* __restrict__ part, float* __restrict__ tap, int T, int F, int P,
+                       float eps) {
+  constexpr int NH = nh_of(NF), NTH = NH / 8, LDL = NH + 4, LDX = C + 4, MW = C / 32;
+  constexpr int WH_MINE = (C / 16 * NTH + 7) / 8;
   extern __shared__ __align__(128) unsigned char smem[];
   const F32Layout L = f32_layout(C, NF, F, kBwdKind<Loss>);
   float* wes = reinterpret_cast<float*>(smem);
   float* whs = reinterpret_cast<float*>(smem + L.wh);
   float* gs = reinterpret_cast<float*>(smem + L.gb);
   float* xs = reinterpret_cast<float*>(smem + L.x);
-  float* dls = reinterpret_cast<float*>(smem + L.red);
-  const int tid = threadIdx.x;
-  const int tiles = (T + F32_ROWS - 1) / F32_ROWS;
+  float* zd = reinterpret_cast<float*>(smem + L.zd);
+  float* ls = reinterpret_cast<float*>(smem + L.l);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, r0 = warp * 16;
+  const int g = lane >> 2, c2 = (lane & 3) * 2;
+  const int tiles = (T + TF_ROWS - 1) / TF_ROWS;
   const float scale = *scale_p;
-  const bool owns_col = tid < C;  // thread c < C sums column c of dWh, dgamma, dbeta
+  float* prow = part + size_t(blockIdx.x) * (size_t(P) * C * C + C * F + 2 * C);
 
   stage_head<C, NF>(whs, gs, wh, gamma, beta, F);
-  __syncthreads();
-  float whc[NF], cdwh[NF], cdg = 0.f, cdb = 0.f, gc = 0.f, bc = 0.f;
+  float dwh[WH_MINE][4], dgb[C / 16];
 #pragma unroll
-  for (int f = 0; f < NF; ++f) {
-    whc[f] = owns_col ? whs[tid * NF + f] : 0.f;
-    cdwh[f] = 0.f;
-  }
-  if (owns_col) {
-    gc = gs[tid];
-    bc = gs[C + tid];
-  }
+  for (int s = 0; s < WH_MINE; ++s) dwh[s][0] = dwh[s][1] = dwh[s][2] = dwh[s][3] = 0.f;
+#pragma unroll
+  for (int s = 0; s < C / 16; ++s) dgb[s] = 0.f;
   for (int i = 0; i < P; ++i) {
+    float dwe[MW][MW][4];
+#pragma unroll
+    for (int mt = 0; mt < MW; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < MW; ++nt)
+        dwe[mt][nt][0] = dwe[mt][nt][1] = dwe[mt][nt][2] = dwe[mt][nt][3] = 0.f;
     __syncthreads();  // the last slice's rows are done with wes
     stage_slice<C>(wes, we + size_t(i) * C * C);
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-      __syncthreads();  // the slice has landed; the last tile's column sums are done
+      __syncthreads();  // the last tile's products are done with xs and zd
       const int rows = load_tile<C>(xs, x, tile, T);
+      cp_async_commit();
+      cp_async_wait<0>();
       __syncthreads();
-      const bool active = tid < rows;
-      const size_t row = size_t(tile) * F32_ROWS + tid, e = row * P + i;
-      float h[C], dl[NF];
-      float rstd = 0.f;
-      if (active) {
-        float lf[NF];
-        expand_row<C>(h, xs + tid * (C + 1), wes);
-        rstd = ln_xhat<C>(h, eps);
-        head_row<C, NF>(lf, h, gs, whs);
-        if (tap != nullptr) write_tap<NF>(tap, lf, row, i, P, F);
-        if constexpr (kIsDepth<Loss>) {
-          depth_dl<NF>(dl, lf, loss, e, scale, F);
-        } else {
-          const CeRow ce = ce_row<NF>(lf, dl, F);
-          const int yi = loss.y[e];
-          const float sw = __fmul_rn(scale, loss.welem[e]);
+      const bool live = r0 < rows;
+      const size_t grow0 = size_t(tile) * TF_ROWS + r0;
+      float h[C / 8][4], rstd[2];
+      if (live) {
+        // the forward recomputed: xhat in h, z to the z tile, the logits to ls
+        tf_forward<C, NF>(h, rstd, xs, wes, gs, whs, ls, zd + r0 * LDX, r0, eps);
+        __syncwarp();
+        if (lane < 16) {  // each row's dlogits over its logits (0 past F and for no row)
+          float* lr = ls + (r0 + lane) * LDL;
+          float dl[NH];
 #pragma unroll
-          for (int f = 0; f < NF; ++f)
-            dl[f] = f < F ? sw * (__fdiv_rn(dl[f], ce.se) - (f == yi ? 1.f : 0.f)) : 0.f;
-        }
-      }
-      __syncthreads();  // every row has read its x: the tile becomes the rows' xhat
-      if (active) {
-        float* xr = xs + tid * (C + 1);
+          for (int f = 0; f < NH; ++f) dl[f] = 0.f;
+          if (r0 + lane < rows) {
+            const size_t row = grow0 + lane, e = row * P + i;
+            float lf[NF];
+            load_row<NF>(lf, lr);
+            if (tap != nullptr) write_tap<NF>(tap, lf, row, i, P, F);
+            float d[NF];
+            if constexpr (kIsDepth<Loss>) {
+              depth_dl<NF>(d, lf, loss, e, scale, F);
+            } else {
+              const CeRow ce = ce_row<NF>(lf, d, F);
+              const int yi = loss.y[e];
+              const float sw = __fmul_rn(scale, loss.welem[e]);
 #pragma unroll
-        for (int c = 0; c < C; ++c) xr[c] = h[c];
-#pragma unroll
-        for (int f = 0; f < NF; ++f) dls[tid * NF + f] = dl[f];
-
-        // the LayerNorm backward: the row means m1, m2 of dz gamma and dz gamma xhat,
-        // then dh, recomputing dz (the same bits); h becomes dh
-        float m1 = 0.f, m2 = 0.f;
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          float dz = 0.f;
-#pragma unroll
-          for (int f = 0; f < NF; ++f) dz = fmaf(dl[f], whs[c * NF + f], dz);
-          const float dzh = dz * gs[c];
-          m1 += dzh;
-          m2 = fmaf(dzh, h[c], m2);
-        }
-        m1 /= C;
-        m2 /= C;
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          float dz = 0.f;
-#pragma unroll
-          for (int f = 0; f < NF; ++f) dz = fmaf(dl[f], whs[c * NF + f], dz);
-          h[c] = rstd * (dz * gs[c] - m1 - h[c] * m2);
-        }
-        float4* dhr = reinterpret_cast<float4*>(dh + row * P * C + size_t(i) * C);
-#pragma unroll
-        for (int q = 0; q < C / 4; ++q)
-          dhr[q] = make_float4(h[4 * q], h[4 * q + 1], h[4 * q + 2], h[4 * q + 3]);
-
-        // dx += dh_i We_i^T: row k of We_i by broadcast, four columns of dx at a time
-        float4* dxr = reinterpret_cast<float4*>(dx + row * C);
-#pragma unroll 1
-        for (int k4 = 0; k4 < C / 4; ++k4) {
-          float a[4];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const float4* w = reinterpret_cast<const float4*>(wes + (4 * k4 + j) * C);
-            float s = 0.f;
-#pragma unroll
-            for (int q = 0; q < C / 4; ++q) {
-              const float4 v = w[q];
-              s = fmaf(h[4 * q], v.x, s);
-              s = fmaf(h[4 * q + 1], v.y, s);
-              s = fmaf(h[4 * q + 2], v.z, s);
-              s = fmaf(h[4 * q + 3], v.w, s);
+              for (int f = 0; f < NF; ++f)
+                d[f] = f < F ? sw * (__fdiv_rn(d[f], ce.se) - (f == yi ? 1.f : 0.f)) : 0.f;
             }
-            a[j] = s;
+#pragma unroll
+            for (int f = 0; f < NF; ++f) dl[f] = d[f];
           }
-          float4 v = make_float4(a[0], a[1], a[2], a[3]);
-          if (i > 0) {  // this thread wrote the row at slice 0
-            const float4 o = dxr[k4];
-            v = make_float4(o.x + v.x, o.y + v.y, o.z + v.z, o.w + v.w);
-          }
-          dxr[k4] = v;
+#pragma unroll
+          for (int q = 0; q < NH / 4; ++q)
+            reinterpret_cast<float4*>(lr)[q] =
+                make_float4(dl[4 * q], dl[4 * q + 1], dl[4 * q + 2], dl[4 * q + 3]);
         }
+        __syncwarp();
+        tf_ln_bwd<C, NF>(h, rstd, ls + r0 * LDL, whs, gs, dgb);
+        tf_dx<C>(h, wes, dx, grow0, rows - r0, i > 0);
       }
-      __syncthreads();  // the tile's xhat and dlogits are in place
-      if (owns_col) {
-        // the tile's column sums from zero, then added to the block's: a blocked sum, so
-        // that no running sum takes more than a tile's rows one after another (a column
-        // whose terms share a sign, as dbeta's under the l1 loss, loses ~n eps in a
-        // sequential sum of n terms)
-        float tdwh[NF], tdg = 0.f, tdb = 0.f;
+      __syncthreads();  // every row's z and dlogits are in place
+      tf_dwh<C, NF>(dwh, zd, ls, rows);
+      __syncthreads();  // z is read: the tile takes dh
+      if (live) tf_store_rows<C / 8>(zd + r0 * LDX, h, LDX);
+      __syncthreads();
+      tf_dwe<C>(dwe, xs, zd, rows);
+    }
+    // the block's dWe_i: columns i C .. of dWe (C x p C)
+    const int m0 = (warp >> 2) * (C / 2), n0 = (warp & 3) * (C / 4);
 #pragma unroll
-        for (int f = 0; f < NF; ++f) tdwh[f] = 0.f;
-        for (int r = 0; r < rows; ++r) {
-          const float xv = xs[r * (C + 1) + tid];
-          const float z = z_of(xv, gc, bc);
-          const float4* d4 = reinterpret_cast<const float4*>(dls + r * NF);
-          float dz = 0.f;
+    for (int mt = 0; mt < MW; ++mt)
 #pragma unroll
-          for (int q = 0; q < NF / 4; ++q) {
-            const float4 d = d4[q];
-            const float dd[4] = {d.x, d.y, d.z, d.w};
+      for (int nt = 0; nt < MW; ++nt)
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              dz = fmaf(dd[j], whc[4 * q + j], dz);
-              tdwh[4 * q + j] = fmaf(z, dd[j], tdwh[4 * q + j]);
-            }
-          }
-          tdg = fmaf(dz, xv, tdg);
-          tdb += dz;
+        for (int hr = 0; hr < 2; ++hr) {
+          const int m = m0 + 16 * mt + g + 8 * hr, n = i * C + n0 + 8 * nt + c2;
+          *reinterpret_cast<float2*>(prow + size_t(m) * P * C + n) =
+              make_float2(dwe[mt][nt][2 * hr], dwe[mt][nt][2 * hr + 1]);
         }
+  }
+  // dWh (C x F) after dWe
+  float* pwh = prow + size_t(P) * C * C;
 #pragma unroll
-        for (int f = 0; f < NF; ++f) cdwh[f] += tdwh[f];
-        cdg += tdg;
-        cdb += tdb;
-      }
+  for (int s = 0; s < WH_MINE; ++s) {
+    const int id = warp + TF_WARPS * s;
+    if (id >= C / 16 * NTH) break;
+    const int m0 = (id / NTH) * 16, n0 = (id % NTH) * 8;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int m = m0 + g + 8 * (e >> 1), f = n0 + c2 + (e & 1);
+      if (f < F) pwh[m * F + f] = dwh[s][e];
     }
   }
-  if (owns_col) {
-    float* prow = part + size_t(blockIdx.x) * (C * F + 2 * C);
+  // dgamma | dbeta: each warp's column sums (lane (g, c) slot s: n-tile 2s + g / 4, column
+  // parity g & 1, dbeta where g & 2), then the warps added in a fixed order
+  __syncthreads();  // the x tile is free
+  float* sc = xs;
 #pragma unroll
-    for (int f = 0; f < NF; ++f)
-      if (f < F) prow[tid * F + f] = cdwh[f];
-    prow[C * F + tid] = cdg;
-    prow[C * F + C + tid] = cdb;
+  for (int s = 0; s < C / 16; ++s) {
+    const int col = 8 * (2 * s + (g >> 2)) + c2 + (g & 1);
+    sc[warp * 2 * C + ((g >> 1) & 1) * C + col] = dgb[s];
   }
-}
-
-// ---------------------------------------------------------------------------------
-// gemm_tn_f32: out (M x N f32) = A^T B over K rows, A (K x M) and B (K x N) row-major f32
-// (dWe = x^T dh).  K (the tokens, up to 262144) splits into 2048-row chunks (<= 128
-// splits); a block is one 64 x 64 output tile of one chunk, its 256 threads 4 x 4 outputs
-// each from 16-row slices of A and B staged in shared memory; the split partials go
-// through reduce_rows.  f32 FMAs on the CUDA cores.
-// ---------------------------------------------------------------------------------
-
-constexpr int FG_T = 64;   // output tile (FG_T x FG_T)
-constexpr int FG_K = 16;   // rows of a staged slice
-constexpr int FG_THREADS = 256;
-constexpr int FG_CHUNK = 2048;
-constexpr int FG_MAX_SPLITS = 128;
-
-int gemm_f32_splits(int K) {
-  const int s = (K + FG_CHUNK - 1) / FG_CHUNK;
-  return s < FG_MAX_SPLITS ? s : FG_MAX_SPLITS;
-}
-
-// grid (ceil(M / 64), ceil(N / 64), splits): part[z] (M x N) = A[k0:k1]^T B[k0:k1]
-__global__ void __launch_bounds__(FG_THREADS)
-gemm_tn_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
-                   float* __restrict__ part, int K, int M, int N, int chunk) {
-  __shared__ __align__(16) float As[FG_K * FG_T];
-  __shared__ __align__(16) float Bs[FG_K * FG_T];
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4, tx = tid & 15;  // output rows m0 + 4 ty .., columns n0 + 4 tx ..
-  const int m0 = blockIdx.x * FG_T, n0 = blockIdx.y * FG_T;
-  const int k0 = blockIdx.z * chunk, k1 = min(K, k0 + chunk);
-  // each thread stages one float4 of A and of B per slice (16 rows x 16 float4s); M and N
-  // are multiples of 4, so a float4 is wholly inside or wholly outside
-  const int lr = tid >> 4, lc = (tid & 15) * 4;
-  float acc[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
-  for (int k = k0; k < k1; k += FG_K) {
-    float4 va = make_float4(0.f, 0.f, 0.f, 0.f), vb = va;
-    if (m0 + lc < M) va = *reinterpret_cast<const float4*>(A + size_t(k + lr) * M + m0 + lc);
-    if (n0 + lc < N) vb = *reinterpret_cast<const float4*>(B + size_t(k + lr) * N + n0 + lc);
-    *reinterpret_cast<float4*>(As + lr * FG_T + lc) = va;
-    *reinterpret_cast<float4*>(Bs + lr * FG_T + lc) = vb;
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < FG_K; ++kk) {
-      const float4 a4 = *reinterpret_cast<const float4*>(As + kk * FG_T + 4 * ty);
-      const float4 b4 = *reinterpret_cast<const float4*>(Bs + kk * FG_T + 4 * tx);
-      const float av[4] = {a4.x, a4.y, a4.z, a4.w}, bv[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(av[a], bv[b], acc[a][b]);
-    }
-    __syncthreads();
+  __syncthreads();
+  if (tid < 2 * C) {
+    float s = 0.f;
+    for (int w = 0; w < TF_WARPS; ++w) s = __fadd_rn(s, sc[w * 2 * C + tid]);
+    prow[size_t(P) * C * C + C * F + tid] = s;
   }
-  float* out = part + size_t(blockIdx.z) * M * N;
-  const int n = n0 + 4 * tx;
-  if (n >= N) return;
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int m = m0 + 4 * ty + a;
-    if (m < M)
-      *reinterpret_cast<float4*>(out + size_t(m) * N + n) =
-          make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]);
-  }
-}
-
-size_t gemm_tn_f32_tmp_floats(int K, int M, int N) {
-  const int S = gemm_f32_splits(K);
-  return size_t(S) * M * N + reduce_rows_tmp_floats(S, M * N);
-}
-
-cudaError_t gemm_tn_f32(const float* A, const float* B, float* out, int K, int M, int N,
-                        float* tmp, cudaStream_t stream) {
-  if (K % FG_K || M % 4 || N % 4 || K <= 0) return cudaErrorInvalidValue;
-  const int S = gemm_f32_splits(K);
-  int chunk = (K + S - 1) / S;
-  chunk = (chunk + FG_K - 1) / FG_K * FG_K;  // an empty last split writes zeros
-  const dim3 grid((M + FG_T - 1) / FG_T, (N + FG_T - 1) / FG_T, S);
-  gemm_tn_f32_kernel<<<grid, FG_THREADS, 0, stream>>>(A, B, tmp, K, M, N, chunk);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  return reduce_rows(tmp, out, S, M * N, tmp + size_t(S) * M * N, stream);
 }
 
 // ---------------------------------------------------------------------------------
@@ -705,11 +938,11 @@ inline int nf_of(int F, bool depth) { return depth ? 4 : F <= 8 ? 8 : 16; }
 
 template <int C, int NF, class Loss, bool BWD>
 const void* f32_kernel() {
-  if constexpr (BWD) return reinterpret_cast<const void*>(tail_bwd_f32_kernel<C, NF, Loss>);
-  else return reinterpret_cast<const void*>(tail_loss_f32_kernel<C, NF, Loss>);
+  if constexpr (BWD) return reinterpret_cast<const void*>(tail_bwd_3xtf32_kernel<C, NF, Loss>);
+  else return reinterpret_cast<const void*>(tail_fwd_3xtf32_kernel<C, NF, Loss>);
 }
 
-// the row kernel's grid: min(its tiles, the blocks the card holds at once at its shared
+// the tile kernel's grid: min(its tiles, the blocks the card holds at once at its shared
 // memory), after its one opt-in to the most shared memory a block may have
 template <int C, int NF, class Loss, bool BWD>
 cudaError_t f32_grid(int T, int F, int* grid) {
@@ -720,10 +953,10 @@ cudaError_t f32_grid(int T, int F, int* grid) {
   const size_t smem = f32_layout(C, NF, F, BWD ? kBwdKind<Loss> : kFwdKind<Loss>).total;
   if (smem > kF32MaxSmem || T <= 0) return cudaErrorInvalidValue;
   int per = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, k, F32_THREADS, smem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, k, TF_THREADS, smem);
   if (e != cudaSuccess) return e;
   if (per < 1) return cudaErrorInvalidConfiguration;
-  const int tiles = (T + F32_ROWS - 1) / F32_ROWS, resident = per * sm_count();
+  const int tiles = (T + TF_ROWS - 1) / TF_ROWS, resident = per * sm_count();
   *grid = tiles < resident ? tiles : resident;
   return cudaSuccess;
 }
@@ -751,7 +984,7 @@ size_t f32_loss_workspace(int T, int C, int F) {
   return align128(size_t(G) * W * 4) + align128(reduce_rows_tmp_floats(G, W) * 4);
 }
 
-// K6 and K8: the row kernel, then reduce_rows over its partial rows into red
+// K6 and K8: the tile kernel, then reduce_rows over its partial rows into red
 template <class Loss>
 cudaError_t launch_f32_loss(const void* x, const void* we, const void* gamma, const void* beta,
                             const void* wh, const Loss& loss, void* red, void* work, void* tap,
@@ -765,8 +998,8 @@ cudaError_t launch_f32_loss(const void* x, const void* we, const void* gamma, co
     float* part = static_cast<float*>(work);
     float* tmp = reinterpret_cast<float*>(static_cast<unsigned char*>(work) +
                                           align128(size_t(G) * W * 4));
-    tail_loss_f32_kernel<CC, NF, Loss>
-        <<<G, F32_THREADS, f32_layout(CC, NF, F, kFwdKind<Loss>).total, s>>>(
+    tail_fwd_3xtf32_kernel<CC, NF, Loss>
+        <<<G, TF_THREADS, f32_layout(CC, NF, F, kFwdKind<Loss>).total, s>>>(
             static_cast<const float*>(x), static_cast<const float*>(we),
             static_cast<const float*>(gamma), static_cast<const float*>(beta),
             static_cast<const float*>(wh), loss, part, static_cast<float*>(tap), T, F, P, eps);
@@ -776,7 +1009,7 @@ cudaError_t launch_f32_loss(const void* x, const void* we, const void* gamma, co
   });
 }
 
-// K3: the row kernel with the Argmax epilogue, the classes (T, p) into preds
+// K3: the tile kernel with the Argmax epilogue, the classes (T, p) into preds
 inline cudaError_t launch_f32_pred(const void* x, const void* we, const void* gamma,
                                    const void* beta, const void* wh, void* preds, void* tap,
                                    int T, int C, int F, int P, float eps, cudaStream_t s) {
@@ -786,7 +1019,7 @@ inline cudaError_t launch_f32_pred(const void* x, const void* we, const void* ga
     cudaError_t e = f32_grid<CC, NF, Argmax, false>(T, F, &G);
     if (e != cudaSuccess) return e;
     const size_t smem = f32_layout(CC, NF, F, kF32Pred).total;
-    tail_loss_f32_kernel<CC, NF, Argmax><<<G, F32_THREADS, smem, s>>>(
+    tail_fwd_3xtf32_kernel<CC, NF, Argmax><<<G, TF_THREADS, smem, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(we),
         static_cast<const float*>(gamma), static_cast<const float*>(beta),
         static_cast<const float*>(wh), Argmax{static_cast<int*>(preds)}, nullptr,
@@ -795,32 +1028,34 @@ inline cudaError_t launch_f32_pred(const void* x, const void* we, const void* ga
   });
 }
 
-// K7's and K9's row kernel alone: dx, dh and its partial rows part (grid x (C F + 2C))
+// the width of K7's and K9's partial rows: [dWe (C x p C) | dWh (C x F) | dgamma | dbeta]
+inline int f32_bwd_width(int C, int F, int P) { return P * C * C + C * F + 2 * C; }
+
+// K7's and K9's tile kernel alone: dx and its partial rows part (grid x f32_bwd_width)
 template <class Loss>
 cudaError_t launch_f32_bwd_rows(const void* x, const void* we, const void* gamma,
                                 const void* beta, const void* wh, const Loss& loss,
-                                const void* scale, void* dx, void* dh, void* part, void* tap,
-                                int T, int C, int F, int P, float eps, cudaStream_t s) {
+                                const void* scale, void* dx, void* part, void* tap, int T,
+                                int C, int F, int P, float eps, cudaStream_t s) {
   return with_f32<kIsDepth<Loss>>(C, F, [&](auto c, auto nf) {
     constexpr int CC = decltype(c)::value, NF = decltype(nf)::value;
     int G = 0;
     cudaError_t e = f32_grid<CC, NF, Loss, true>(T, F, &G);
     if (e != cudaSuccess) return e;
-    tail_bwd_f32_kernel<CC, NF, Loss>
-        <<<G, F32_THREADS, f32_layout(CC, NF, F, kBwdKind<Loss>).total, s>>>(
+    tail_bwd_3xtf32_kernel<CC, NF, Loss>
+        <<<G, TF_THREADS, f32_layout(CC, NF, F, kBwdKind<Loss>).total, s>>>(
             static_cast<const float*>(x), static_cast<const float*>(we),
             static_cast<const float*>(gamma), static_cast<const float*>(beta),
             static_cast<const float*>(wh), loss, static_cast<const float*>(scale),
-            static_cast<float*>(dx), static_cast<float*>(dh), static_cast<float*>(part),
-            static_cast<float*>(tap), T, F, P, eps);
+            static_cast<float*>(dx), static_cast<float*>(part), static_cast<float*>(tap), T,
+            F, P, eps);
     return cudaGetLastError();
   });
 }
 
-// K7's and K9's workspace: dh (T x p C f32), the row kernel's partial rows, then the
-// scratch of reduce_rows or gemm_tn_f32, whichever is larger
+// K7's and K9's workspace: the tile kernel's partial rows, then reduce_rows' scratch
 struct F32BwdWork {
-  size_t part, tmp, total;
+  size_t tmp, total;
   int grid;
 };
 
@@ -828,36 +1063,28 @@ template <class Loss>
 F32BwdWork f32_bwd_work(int T, int C, int F, int P) {
   F32BwdWork w;
   w.grid = f32_grid_of<Loss, true>(T, C, F);
-  const int W = C * F + 2 * C;
-  size_t tmp = reduce_rows_tmp_floats(w.grid, W);
-  const size_t gt = gemm_tn_f32_tmp_floats(T, C, P * C);
-  tmp = tmp > gt ? tmp : gt;
-  w.part = align128(size_t(T) * P * C * 4);
-  w.tmp = w.part + align128(size_t(w.grid) * W * 4);
-  w.total = w.tmp + align128(tmp * 4);
+  const int W = f32_bwd_width(C, F, P);
+  w.tmp = align128(size_t(w.grid) * W * 4);
+  w.total = w.tmp + align128(reduce_rows_tmp_floats(w.grid, W) * 4);
   return w;
 }
 
-// K7 and K9: the row kernel, reduce_rows over its partial rows into red = [dWh | dgamma |
-// dbeta], then dWe = x^T dh by gemm_tn_f32, on one stream
+// K7 and K9: the tile kernel, then reduce_rows over its partial rows into red = [dWe |
+// dWh | dgamma | dbeta], on one stream
 template <class Loss>
 cudaError_t launch_f32_bwd(const void* x, const void* we, const void* gamma, const void* beta,
                            const void* wh, const Loss& loss, const void* scale, void* dx,
-                           void* dwe, void* red, void* work, int T, int C, int F, int P,
-                           float eps, cudaStream_t s) {
+                           void* red, void* work, int T, int C, int F, int P, float eps,
+                           cudaStream_t s) {
   const F32BwdWork w = f32_bwd_work<Loss>(T, C, F, P);
   if (w.grid < 1) return cudaErrorInvalidValue;
   unsigned char* base = static_cast<unsigned char*>(work);
-  float* dh = reinterpret_cast<float*>(base);
-  float* part = reinterpret_cast<float*>(base + w.part);
-  float* tmp = reinterpret_cast<float*>(base + w.tmp);
-  cudaError_t e = launch_f32_bwd_rows(x, we, gamma, beta, wh, loss, scale, dx, dh, part,
-                                      nullptr, T, C, F, P, eps, s);
+  float* part = reinterpret_cast<float*>(base);
+  cudaError_t e = launch_f32_bwd_rows(x, we, gamma, beta, wh, loss, scale, dx, part, nullptr,
+                                      T, C, F, P, eps, s);
   if (e != cudaSuccess) return e;
-  e = reduce_rows(part, static_cast<float*>(red), w.grid, C * F + 2 * C, tmp, s);
-  if (e != cudaSuccess) return e;
-  return gemm_tn_f32(static_cast<const float*>(x), dh, static_cast<float*>(dwe), T, C, P * C,
-                     tmp, s);
+  return reduce_rows(part, static_cast<float*>(red), w.grid, f32_bwd_width(C, F, P),
+                     reinterpret_cast<float*>(base + w.tmp), s);
 }
 
 inline CeLoss ce_loss(const void* y, const void* welem) {

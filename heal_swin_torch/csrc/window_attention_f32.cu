@@ -73,47 +73,10 @@
 #include <math_constants.h>
 
 #include "common.cuh"
+#include "tf32.cuh"
 
 namespace hs {
 namespace {
-
-// ---------------------------------------------------------------------------------
-// 3xTF32 on mma.sync m16n8k8 (PTX ISA fragment layouts, g = lane / 4, c = lane % 4):
-// A (16 x 8, row) a0 (g, c), a1 (g + 8, c), a2 (g, c + 4), a3 (g + 8, c + 4); B (8 x 8,
-// col) b0 (k c, n g), b1 (k c + 4, n g); C (16 x 8) c0 (g, 2c), c1 (g, 2c + 1), c2
-// (g + 8, 2c), c3 (g + 8, 2c + 1).
-// ---------------------------------------------------------------------------------
-
-// x rounded to TF32 as cvt.rna.tf32.f32 rounds a finite x (to nearest, ties away from
-// zero): half of the 13 dropped bits' range added to the magnitude, then the 13 bits
-// cleared.  Two integer operations where nvcc lowers cvt.rna.tf32.f32 to a longer
-// compare-and-select sequence on sm_90a; the kernels split every operand they load.
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// hi = tf32(x) and lo = x - hi (exact), which the tensor core reads as tf32, its low 13
-// bits dropped: hi + lo is x within ~2^-21 |x|.  A NaN or inf x gives a NaN lo, so
-// that the products carry it (hi alone may round a NaN's bits to zero).
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_rna(x);
-  lo = __float_as_uint(__fsub_rn(x, __uint_as_float(hi)));
-}
-
-// d (16 x 8 f32) += a (16 x 8 tf32) b (8 x 8 tf32)
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 16 bytes global -> shared, zero-filled where !valid (nothing read then)
-__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
 
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));

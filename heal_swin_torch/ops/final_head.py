@@ -42,13 +42,17 @@ dtype -> logits z @ Wh in f32.
 
 - Float32 (K3, K6-K9): x f32 runs their f32 kernels (``csrc/tail_f32.cuh``; entries in
   ``final_head_f32.cu`` and ``final_head_depth_f32.cu``), nothing rounded below f32, as
-  the Pallas kernels compute with f32 operands: on the card a block holds one expand slice and walks the sub-pixels in an outer loop, each
-  over the same 128-row tiles (block b: tiles b, b + grid, ...), a thread per row; K8
-  and K9 are K6's and K7's row kernels with the depth loss in place of the cross
-  entropy, and K8's predictions are its f32 logits; K3 is K6's row kernel with the
-  argmax in place of the loss (its logits K6's bits).  K7 and K9 are their row kernel
-  (dx, the f32 dh, partial rows), ``reduce_rows``, then dWe = x^T dh by an f32
-  ``gemm_tn``.  Their steps' twins are the ones above, run in f32.
+  the Pallas kernels compute with f32 operands, every product on the tensor cores in
+  3xTF32.  On the card a block of 8 warps holds one expand slice and walks the
+  sub-pixels in an outer loop, each over the same 128-row tiles (block b: tiles b, b +
+  grid, ...), a warp 16 rows; K3, K6 and K8 are one tile kernel with the argmax, the
+  cross entropy or the depth loss on its logits (K8's predictions are its f32 logits).
+  K7 and K9 are their tile kernel (dx and one partial row a block: dWe = x^T dh over the
+  block's rows, dWh, dgamma, dbeta; dh never leaves the chip) and ``reduce_rows``.  Their
+  twins: ``final_head_loss_bwd_rows_f32_plain`` and
+  ``final_head_depth_loss_bwd_rows_f32_plain`` with ``reduce_rows_plain`` (composed:
+  ``final_head_loss_bwd_sequence_f32_plain``,
+  ``final_head_depth_loss_bwd_sequence_f32_plain``).
 
 Every wrapper dispatches on ``impl`` like the attention wrappers
 (``heal_swin_torch.ops._dispatch.use_kernel``): on a CUDA tensor it runs its kernel or
@@ -326,8 +330,8 @@ def _bwd_steps_composed(x, wh, rows):
 
 def final_head_loss_bwd_rows_plain(x, we, gamma, beta, wh, y, welem, scale, *, patch_size,
                                    grid):
-    """Plain twin of the first step of K7's launch sequence, its row kernel on ``grid``
-    persistent blocks (tiles as ``final_head_loss_partials_plain``): (dx (T, C) in x's
+    """Plain twin of the first step of the bf16 K7's launch sequence, its row kernel on
+    ``grid`` persistent blocks (tiles as ``final_head_loss_partials_plain``): (dx (T, C) in x's
     dtype, dh (T, p*C) in x's dtype (sub-pixel i's rounded dh in columns i*C ..), the
     partial rows (grid, C*F + 2*C) f32, [dWh (C x F) | dgamma | dbeta] over each
     block's rows)."""
@@ -336,8 +340,8 @@ def final_head_loss_bwd_rows_plain(x, we, gamma, beta, wh, y, welem, scale, *, p
 
 
 def final_head_loss_dwe_plain(x, dh):
-    """Plain twin of the dWe step of K7 and K9: dWe = x^T dh, (C, p*C) f32 from x (T, C)
-    and the row step's dh (T, p*C)."""
+    """Plain twin of the dWe step of the bf16 K7 and K9: dWe = x^T dh, (C, p*C) f32 from
+    x (T, C) and the row step's dh (T, p*C)."""
     return x.float().t() @ dh.float()
 
 
@@ -350,6 +354,62 @@ def final_head_loss_bwd_sequence_plain(x, we, gamma, beta, wh, y, welem, scale, 
                                        patch_size, grid):
     """K7's three steps' twins composed: results as ``final_head_loss_bwd_plain``."""
     return _bwd_steps_composed(x, wh, final_head_loss_bwd_rows_plain(
+        x, we, gamma, beta, wh, y, welem, scale, patch_size=patch_size, grid=grid))
+
+
+def _bwd_rows_f32_plain(x, we, gamma, beta, wh, dlogits_of, *, patch_size, grid):
+    """The f32 tile step of a backward on ``grid`` persistent blocks, from the dlogits of
+    each sub-pixel (``_tail_bwd_slices``, in f32): (dx, partial rows) as
+    ``final_head_loss_bwd_rows_f32_plain``."""
+    T, C = x.shape
+    F = wh.shape[-1]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.zeros((T, C), **f32)
+    dwh = torch.zeros((grid, C, F), **f32)
+    dg = torch.zeros((grid, C), **f32)
+    db = torch.zeros_like(dg)
+    dwe = []
+    for z, dlog, dz, xhat, dh, we_i in _tail_bwd_slices(x, we, gamma, beta, wh, dlogits_of,
+                                                         patch_size=patch_size):
+        dwh = dwh + _block_products(z, dlog, grid)
+        dg = dg + _block_sums(dz * xhat, grid)
+        db = db + _block_sums(dz, grid)
+        dx = dx + dh @ we_i.float().t()
+        dwe.append(_block_products(x.float(), dh, grid))
+    return dx, torch.cat([torch.cat(dwe, dim=2).reshape(grid, -1), dwh.reshape(grid, C * F),
+                          dg, db], dim=1)
+
+
+def split_f32_bwd_row(red, C, F, patch_size):
+    """The f32 K7's and K9's reduced partial row [dWe (C x p*C) | dWh (C x F) | dgamma |
+    dbeta] -> (dwe, dgamma, dbeta, dwh) as ``_tail_bwd_plain``."""
+    dwe, dwh, dg, db = red.split([patch_size * C * C, C * F, C, C])
+    return dwe.reshape(C, patch_size * C), dg, db, dwh.reshape(C, F)
+
+
+def _bwd_f32_steps_composed(wh, patch_size, rows):
+    """The reduction step on the f32 tile step's (dx, partial rows): (dx, dwe, dgamma,
+    dbeta, dwh) as ``_tail_bwd_plain``."""
+    C, F = wh.shape
+    dx, part = rows
+    return (dx,) + split_f32_bwd_row(reduce_rows_plain(part), C, F, patch_size)
+
+
+def final_head_loss_bwd_rows_f32_plain(x, we, gamma, beta, wh, y, welem, scale, *,
+                                       patch_size, grid):
+    """Plain twin of the f32 K7's tile kernel on ``grid`` persistent blocks (tiles as
+    ``final_head_loss_partials_plain``), x f32: (dx (T, C) f32, the partial rows (grid,
+    p*C*C + C*F + 2*C) f32, [dWe (C x p*C) | dWh (C x F) | dgamma | dbeta] over each
+    block's rows; dWe's columns i*C .. are x^T dh of sub-pixel i)."""
+    return _bwd_rows_f32_plain(x, we, gamma, beta, wh, _ce_dlogits(y, welem, scale, x.dtype),
+                               patch_size=patch_size, grid=grid)
+
+
+def final_head_loss_bwd_sequence_f32_plain(x, we, gamma, beta, wh, y, welem, scale, *,
+                                           patch_size, grid):
+    """The f32 K7's two steps' twins composed (the tile step, ``reduce_rows_plain``):
+    results as ``final_head_loss_bwd_plain``."""
+    return _bwd_f32_steps_composed(wh, patch_size, final_head_loss_bwd_rows_f32_plain(
         x, we, gamma, beta, wh, y, welem, scale, patch_size=patch_size, grid=grid))
 
 
@@ -465,8 +525,8 @@ def final_head_depth_loss_partials_plain(x, we, gamma, beta, wh, t, *, patch_siz
 
 def final_head_depth_loss_bwd_rows_plain(x, we, gamma, beta, wh, t, scale, *, patch_size,
                                          loss_kind, huber_delta=1.0, grid):
-    """Plain twin of the first step of K9's launch sequence, its row kernel on ``grid``
-    persistent blocks: (dx, dh, partial rows [dWh (C x F) | dgamma | dbeta]) as
+    """Plain twin of the first step of the bf16 K9's launch sequence, its row kernel on
+    ``grid`` persistent blocks: (dx, dh, partial rows [dWh (C x F) | dgamma | dbeta]) as
     ``final_head_loss_bwd_rows_plain``, from K9's f32 dlogits."""
     return _bwd_rows_plain(x, we, gamma, beta, wh,
                            _depth_dlogits(t, scale, loss_kind, huber_delta),
@@ -478,6 +538,26 @@ def final_head_depth_loss_bwd_sequence_plain(x, we, gamma, beta, wh, t, scale, *
     """K9's three steps' twins composed (the row step, ``final_head_loss_dwe_plain``,
     ``reduce_rows_plain``): results as ``final_head_depth_loss_bwd_plain``."""
     return _bwd_steps_composed(x, wh, final_head_depth_loss_bwd_rows_plain(
+        x, we, gamma, beta, wh, t, scale, patch_size=patch_size, loss_kind=loss_kind,
+        huber_delta=huber_delta, grid=grid))
+
+
+def final_head_depth_loss_bwd_rows_f32_plain(x, we, gamma, beta, wh, t, scale, *,
+                                             patch_size, loss_kind, huber_delta=1.0, grid):
+    """Plain twin of the f32 K9's tile kernel on ``grid`` persistent blocks: (dx, partial
+    rows [dWe | dWh | dgamma | dbeta]) as ``final_head_loss_bwd_rows_f32_plain``, from
+    K9's f32 dlogits."""
+    return _bwd_rows_f32_plain(x, we, gamma, beta, wh,
+                               _depth_dlogits(t, scale, loss_kind, huber_delta),
+                               patch_size=patch_size, grid=grid)
+
+
+def final_head_depth_loss_bwd_sequence_f32_plain(x, we, gamma, beta, wh, t, scale, *,
+                                                 patch_size, loss_kind, huber_delta=1.0,
+                                                 grid):
+    """The f32 K9's two steps' twins composed: results as
+    ``final_head_depth_loss_bwd_plain``."""
+    return _bwd_f32_steps_composed(wh, patch_size, final_head_depth_loss_bwd_rows_f32_plain(
         x, we, gamma, beta, wh, t, scale, patch_size=patch_size, loss_kind=loss_kind,
         huber_delta=huber_delta, grid=grid))
 
@@ -613,11 +693,50 @@ def final_head_loss_sums(x, we, gamma, beta, wh, y, welem, *, patch_size, impl="
     return out + (tap,) if tap_logits else out
 
 
+def _bwd_outputs(x, lib, name, T, C, F, p):
+    """A backward entry's outputs: dx, and the f32 reduced row [dWe | dWh | dgamma |
+    dbeta] (f32 x) or dwe (C, p*C) and [dWh | dgamma | dbeta] (bf16 x), and its workspace;
+    the tensors in the C entry's order."""
+    f32 = dict(dtype=torch.float32, device=x.device)
+    work = torch.empty(getattr(lib, f"hs_{name}_workspace")(T, C, F, p), dtype=torch.uint8,
+                       device=x.device)
+    if x.dtype == torch.float32:
+        return (torch.empty_like(x), torch.empty(p * C * C + C * F + 2 * C, **f32), work)
+    return (torch.empty_like(x), torch.empty((C, p * C), **f32),
+            torch.empty(C * F + 2 * C, **f32), work)
+
+
+def _bwd_results(x, outs, C, F, p):
+    """(dx, dwe, dgamma, dbeta, dwh) from ``_bwd_outputs``' tensors after the launch."""
+    if x.dtype == torch.float32:
+        return (outs[0],) + split_f32_bwd_row(outs[1], C, F, p)
+    dx, dwe, red, _ = outs
+    dwh, dg, db = red.split([C * F, C, C])
+    return dx, dwe, dg, db, dwh.reshape(C, F)
+
+
+def _rows_outputs(x, lib, name, T, C, F, p, tap_logits, tap_dtype):
+    """A backward's first step's outputs: dx, (bf16 x) the rounded dh (T, p*C), and the
+    partial rows on the kernel's grid, (f32 x) [dWe | dWh | dgamma | dbeta] a block,
+    (bf16 x) [dWh | dgamma | dbeta]; then the logits tap or None."""
+    grid = getattr(lib, f"hs_{name}_grid")(T, C, F, p)
+    if grid < 1:
+        raise RuntimeError(f"{name}: no grid for T={T}, C={C}, F={F}, p={p}")
+    tap = (torch.empty((T, p, F), dtype=tap_dtype, device=x.device) if tap_logits else None)
+    if x.dtype == torch.float32:
+        part = torch.empty((grid, p * C * C + C * F + 2 * C), dtype=torch.float32,
+                           device=x.device)
+        return (torch.empty_like(x), part), tap
+    dh = torch.empty((T, p * C), dtype=x.dtype, device=x.device)
+    part = torch.empty((grid, C * F + 2 * C), dtype=torch.float32, device=x.device)
+    return (torch.empty_like(x), dh, part), tap
+
+
 def final_head_loss_bwd(x, we, gamma, beta, wh, y, welem, scale, *, patch_size, impl="auto"):
-    """K7 wrapper: the backward of K6, one entry that launches its sequence (the row
-    kernel, ``reduce_rows`` over its partial rows, ``gemm_tn`` for dWe; for f32 x the
-    f32 row kernel and ``gemm_tn_f32``, counted as "final_head_loss_bwd_f32"); operands
-    and results as ``final_head_loss_bwd_plain``."""
+    """K7 wrapper: the backward of K6, one entry that launches its sequence (bf16 x: the
+    row kernel, ``reduce_rows`` over its partial rows, ``gemm_tn`` for dWe; f32 x: the
+    f32 tile kernel, dWe among its partial rows, and ``reduce_rows``, counted as
+    "final_head_loss_bwd_f32"); operands and results as ``final_head_loss_bwd_plain``."""
     if not use_kernel(x, impl):
         return final_head_loss_bwd_plain(x, we, gamma, beta, wh, y, welem, scale,
                                          patch_size=patch_size)
@@ -629,31 +748,27 @@ def final_head_loss_bwd(x, we, gamma, beta, wh, y, welem, scale, *, patch_size, 
     scale = scale.to(device=x.device, dtype=torch.float32).reshape(1).contiguous()
     lib = _build.lib()
     sfx = f32_suffix(x)
-    f32 = dict(dtype=torch.float32, device=x.device)
-    dx = torch.empty_like(x)
-    dwe = torch.empty((C, p * C), **f32)
-    red = torch.empty(C * F + 2 * C, **f32)
-    work = torch.empty(getattr(lib, f"hs_final_head_loss_bwd{sfx}_workspace")(T, C, F, p),
-                       dtype=torch.uint8, device=x.device)
+    outs = _bwd_outputs(x, lib, f"final_head_loss_bwd{sfx}", T, C, F, p)
     code = getattr(lib, f"hs_final_head_loss_bwd{sfx}")(
         x.data_ptr(), we_s.data_ptr(), g.data_ptr(), b.data_ptr(), whb.data_ptr(),
-        y.data_ptr(), welem.data_ptr(), scale.data_ptr(), dx.data_ptr(), dwe.data_ptr(),
-        red.data_ptr(), work.data_ptr(), T, C, F, p, LN_EPS, stream(x))
+        y.data_ptr(), welem.data_ptr(), scale.data_ptr(), *(o.data_ptr() for o in outs),
+        T, C, F, p, LN_EPS, stream(x))
     check(code, what + sfx)
     _count(what + sfx, T, C)
-    dwh, dg, db = red.split([C * F, C, C])
-    return dx, dwe, dg, db, dwh.reshape(C, F)
+    return _bwd_results(x, outs, C, F, p)
 
 
 def final_head_loss_bwd_rows(x, we, gamma, beta, wh, y, welem, scale, *, patch_size,
                              impl="auto", tap_logits=False):
-    """K7's row kernel alone, the first step of its launch sequence (not counted, as K7's
-    launches count the sequence): (dx, dh, partial rows) as
-    ``final_head_loss_bwd_rows_plain`` on the kernel's grid (one block for CPU tensors),
-    and with ``tap_logits`` the rounded logits (T, p, F) it recomputed."""
+    """K7's first step alone (not counted, as K7's launches count the sequence), on the
+    kernel's grid (one block for CPU tensors): for bf16 x its row kernel, (dx, dh,
+    partial rows) as ``final_head_loss_bwd_rows_plain``; for f32 x its tile kernel, (dx,
+    partial rows) as ``final_head_loss_bwd_rows_f32_plain``; with ``tap_logits`` the
+    logits (T, p, F) in x's dtype it recomputed."""
     if not use_kernel(x, impl):
-        out = final_head_loss_bwd_rows_plain(x, we, gamma, beta, wh, y, welem, scale,
-                                             patch_size=patch_size, grid=1)
+        twin = (final_head_loss_bwd_rows_f32_plain if x.dtype == torch.float32
+                else final_head_loss_bwd_rows_plain)
+        out = twin(x, we, gamma, beta, wh, y, welem, scale, patch_size=patch_size, grid=1)
         if tap_logits:
             out += (final_head_logits_plain(x, we, gamma, beta, wh,
                                             patch_size=patch_size).to(x.dtype),)
@@ -666,44 +781,36 @@ def final_head_loss_bwd_rows(x, we, gamma, beta, wh, y, welem, scale, *, patch_s
     scale = scale.to(device=x.device, dtype=torch.float32).reshape(1).contiguous()
     lib = _build.lib()
     sfx = f32_suffix(x)
-    grid = getattr(lib, f"hs_final_head_loss_bwd{sfx}_grid")(T, C, F, p)
-    if grid < 1:
-        raise RuntimeError(f"{what}: no grid for T={T}, C={C}, F={F}, p={p}")
-    dx = torch.empty_like(x)
-    dh = torch.empty((T, p * C), dtype=x.dtype, device=x.device)
-    part = torch.empty((grid, C * F + 2 * C), dtype=torch.float32, device=x.device)
-    tap = torch.empty((T, p, F), dtype=x.dtype, device=x.device) if tap_logits else None
+    outs, tap = _rows_outputs(x, lib, f"final_head_loss_bwd{sfx}", T, C, F, p, tap_logits,
+                              x.dtype)
     code = getattr(lib, f"hs_final_head_loss_bwd{sfx}_rows")(
         x.data_ptr(), we_s.data_ptr(), g.data_ptr(), b.data_ptr(), whb.data_ptr(),
-        y.data_ptr(), welem.data_ptr(), scale.data_ptr(), dx.data_ptr(), dh.data_ptr(),
-        part.data_ptr(), None if tap is None else tap.data_ptr(), T, C, F, p, LN_EPS,
-        stream(x))
+        y.data_ptr(), welem.data_ptr(), scale.data_ptr(), *(o.data_ptr() for o in outs),
+        None if tap is None else tap.data_ptr(), T, C, F, p, LN_EPS, stream(x))
     check(code, what)
-    return (dx, dh, part, tap) if tap_logits else (dx, dh, part)
+    return outs + (tap,) if tap_logits else outs
 
 
 def final_head_loss_dwe(x, dh, *, impl="auto"):
-    """The dWe step of K7's and K9's sequences alone, ``gemm_tn`` (``gemm_tn_f32`` for f32
-    x and dh): dWe = x^T dh (C, p*C) f32; operands as ``final_head_loss_dwe_plain`` (not
-    counted)."""
+    """The dWe step of the bf16 K7's and K9's sequences alone, ``gemm_tn``: dWe = x^T dh
+    (C, p*C) f32; operands as ``final_head_loss_dwe_plain`` (not counted).  The f32
+    kernels have no such step: their tile kernel forms dWe on the chip."""
     if not use_kernel(x, impl):
         return final_head_loss_dwe_plain(x, dh)
     what = "final_head_loss_dwe"
     T, C = x.shape
     N = dh.shape[1]
-    if (x.dtype not in (torch.bfloat16, torch.float32) or dh.dtype != x.dtype
-            or dh.shape[0] != T or T % KERNEL_ROWS or C % 16 or N % 16 or not dh.is_cuda):
-        raise ValueError(f"{what}: the kernel takes bf16 or f32 x (T, C) and dh (T, N) of "
-                         f"one dtype, T % 64, C % 16, N % 16, on one device; got "
-                         f"{tuple(x.shape)} {x.dtype} {tuple(dh.shape)} {dh.dtype}")
+    if (x.dtype != torch.bfloat16 or dh.dtype != x.dtype or dh.shape[0] != T
+            or T % KERNEL_ROWS or C % 16 or N % 16 or not dh.is_cuda):
+        raise ValueError(f"{what}: the kernel takes bf16 x (T, C) and dh (T, N), T % 64, "
+                         f"C % 16, N % 16, on one device; got {tuple(x.shape)} {x.dtype} "
+                         f"{tuple(dh.shape)} {dh.dtype}")
     lib = _build.lib()
-    sfx = f32_suffix(x)
     x, dh = x.contiguous(), dh.contiguous()
     out = torch.empty((C, N), dtype=torch.float32, device=x.device)
-    work = torch.empty(getattr(lib, f"hs_gemm_tn{sfx}_workspace")(T, C, N), dtype=torch.uint8,
-                       device=x.device)
-    check(getattr(lib, f"hs_gemm_tn{sfx}")(x.data_ptr(), dh.data_ptr(), out.data_ptr(),
-                                           work.data_ptr(), T, C, N, stream(x)), what)
+    work = torch.empty(lib.hs_gemm_tn_workspace(T, C, N), dtype=torch.uint8, device=x.device)
+    check(lib.hs_gemm_tn(x.data_ptr(), dh.data_ptr(), out.data_ptr(), work.data_ptr(), T, C,
+                         N, stream(x)), what)
     return out
 
 
@@ -805,9 +912,9 @@ def final_head_depth_loss_sums(x, we, gamma, beta, wh, t, *, patch_size, loss_ki
 
 def final_head_depth_loss_bwd(x, we, gamma, beta, wh, t, scale, *, patch_size, loss_kind,
                               huber_delta=1.0, impl="auto"):
-    """K9 wrapper: the backward of K8, one entry that launches its sequence (the row
-    kernel, ``gemm_tn`` for dWe, ``reduce_rows`` over the partial rows; for f32 x the f32
-    row kernel, ``reduce_rows`` and ``gemm_tn_f32``, counted as
+    """K9 wrapper: the backward of K8, one entry that launches its sequence (bf16 x: the
+    row kernel, ``gemm_tn`` for dWe, ``reduce_rows`` over the partial rows; f32 x: the
+    f32 tile kernel, dWe among its partial rows, and ``reduce_rows``, counted as
     "final_head_depth_loss_bwd_f32"); operands and results as
     ``final_head_depth_loss_bwd_plain``."""
     kw = dict(patch_size=patch_size, loss_kind=loss_kind, huber_delta=huber_delta)
@@ -820,33 +927,28 @@ def final_head_depth_loss_bwd(x, we, gamma, beta, wh, t, scale, *, patch_size, l
     scale = scale.to(device=x.device, dtype=torch.float32).reshape(1).contiguous()
     lib = _build.lib()
     sfx = f32_suffix(x)
-    f32 = dict(dtype=torch.float32, device=x.device)
-    dx = torch.empty_like(x)
-    dwe = torch.empty((C, p * C), **f32)
-    red = torch.empty(C * F + 2 * C, **f32)
-    work = torch.empty(getattr(lib, f"hs_final_head_depth_loss_bwd{sfx}_workspace")(T, C, F, p),
-                       dtype=torch.uint8, device=x.device)
+    outs = _bwd_outputs(x, lib, f"final_head_depth_loss_bwd{sfx}", T, C, F, p)
     code = getattr(lib, f"hs_final_head_depth_loss_bwd{sfx}")(
         x.data_ptr(), we_s.data_ptr(), g.data_ptr(), b.data_ptr(), whb.data_ptr(),
-        t.data_ptr(), scale.data_ptr(), dx.data_ptr(), dwe.data_ptr(), red.data_ptr(),
-        work.data_ptr(), T, C, F, p, DEPTH_KINDS.index(loss_kind), LN_EPS,
-        float(huber_delta), stream(x))
+        t.data_ptr(), scale.data_ptr(), *(o.data_ptr() for o in outs), T, C, F, p,
+        DEPTH_KINDS.index(loss_kind), LN_EPS, float(huber_delta), stream(x))
     check(code, what + sfx)
     _count(what + sfx, T, C, F, loss_kind)
-    dwh, dg, db = red.split([C * F, C, C])
-    return dx, dwe, dg, db, dwh.reshape(C, F)
+    return _bwd_results(x, outs, C, F, p)
 
 
 def final_head_depth_loss_bwd_rows(x, we, gamma, beta, wh, t, scale, *, patch_size,
                                    loss_kind, huber_delta=1.0, impl="auto", tap_logits=False):
-    """K9's row kernel alone, the first step of its launch sequence (not counted, as K9's
-    launches count the sequence): (dx, dh, partial rows) as
-    ``final_head_depth_loss_bwd_rows_plain`` on the kernel's grid (one block for CPU
-    tensors), and with ``tap_logits`` the f32 logits (T, p, F) it recomputed."""
+    """K9's first step alone (not counted, as K9's launches count the sequence), on the
+    kernel's grid (one block for CPU tensors): for bf16 x its row kernel, (dx, dh,
+    partial rows) as ``final_head_depth_loss_bwd_rows_plain``; for f32 x its tile kernel,
+    (dx, partial rows) as ``final_head_depth_loss_bwd_rows_f32_plain``; with
+    ``tap_logits`` the f32 logits (T, p, F) it recomputed."""
     kw = dict(patch_size=patch_size, loss_kind=loss_kind, huber_delta=huber_delta)
     if not use_kernel(x, impl):
-        out = final_head_depth_loss_bwd_rows_plain(x, we, gamma, beta, wh, t, scale, **kw,
-                                                   grid=1)
+        twin = (final_head_depth_loss_bwd_rows_f32_plain if x.dtype == torch.float32
+                else final_head_depth_loss_bwd_rows_plain)
+        out = twin(x, we, gamma, beta, wh, t, scale, **kw, grid=1)
         if tap_logits:
             out += (final_head_logits_plain(x, we, gamma, beta, wh, patch_size=patch_size),)
         return out
@@ -857,20 +959,15 @@ def final_head_depth_loss_bwd_rows(x, we, gamma, beta, wh, t, scale, *, patch_si
     scale = scale.to(device=x.device, dtype=torch.float32).reshape(1).contiguous()
     lib = _build.lib()
     sfx = f32_suffix(x)
-    grid = getattr(lib, f"hs_final_head_depth_loss_bwd{sfx}_grid")(T, C, F, p)
-    if grid < 1:
-        raise RuntimeError(f"{what}: no grid for T={T}, C={C}, F={F}, p={p}")
-    dx = torch.empty_like(x)
-    dh = torch.empty((T, p * C), dtype=x.dtype, device=x.device)
-    part = torch.empty((grid, C * F + 2 * C), dtype=torch.float32, device=x.device)
-    tap = torch.empty((T, p, F), dtype=torch.float32, device=x.device) if tap_logits else None
+    outs, tap = _rows_outputs(x, lib, f"final_head_depth_loss_bwd{sfx}", T, C, F, p,
+                              tap_logits, torch.float32)
     code = getattr(lib, f"hs_final_head_depth_loss_bwd{sfx}_rows")(
         x.data_ptr(), we_s.data_ptr(), g.data_ptr(), b.data_ptr(), whb.data_ptr(),
-        t.data_ptr(), scale.data_ptr(), dx.data_ptr(), dh.data_ptr(), part.data_ptr(),
+        t.data_ptr(), scale.data_ptr(), *(o.data_ptr() for o in outs),
         None if tap is None else tap.data_ptr(), T, C, F, p, DEPTH_KINDS.index(loss_kind),
         LN_EPS, float(huber_delta), stream(x))
     check(code, what)
-    return (dx, dh, part, tap) if tap_logits else (dx, dh, part)
+    return outs + (tap,) if tap_logits else outs
 
 
 def _tail_grads(ctx, operands, grads):

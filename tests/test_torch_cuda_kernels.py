@@ -1086,7 +1086,7 @@ def test_final_head_depth_loss_bwd_recomputes_the_forward_logits(dev, T, C, kind
     kw = dict(patch_size=p, loss_kind=kind)
     _, _, preds, lf8 = fh.final_head_depth_loss_sums(*args, **kw, tap_logits=True)
     lf9 = fh.final_head_depth_loss_bwd_rows(*args, torch.tensor(1.0, device=dev), **kw,
-                                            tap_logits=True)[3]
+                                            tap_logits=True)[-1]
     assert lf8.shape == (T, p, F) and lf8.dtype == torch.float32
     assert int((lf8 != 0).sum()) > T * p * F // 2
     assert torch.equal(lf8, lf9)
@@ -1562,26 +1562,47 @@ def test_final_head_loss_f32_kernels_at_the_paper_tail(dev, no_tf32):
 @pytest.mark.parametrize("T,C,F", [(64 * 65, 96, 8), (64 * 33, 32, 16), (262144, 96, 8)])
 def test_final_head_loss_f32_bwd_sequence_kernels(dev, no_tf32, T, C, F):
     """Each step of the f32 K7's launch sequence against its plain twin, run in f32: the
-    row kernel (dx, dh, the partial rows on its grid: the bf16 kernels' partition of
-    128-row tiles), ``gemm_tn_f32`` (dWe = x^T dh) and ``reduce_rows``, each on the
-    kernel's own input; and K7 is the three steps composed, bit for bit."""
+    tile kernel (dx and the partial rows [dWe | dWh | dgamma | dbeta] on its grid: the
+    bf16 kernels' partition of 128-row tiles) and ``reduce_rows``, each on the kernel's
+    own input; and K7 is the two steps composed, bit for bit."""
     gen = torch.Generator().manual_seed(T + C + F + 1)
     p = 4
     args = _loss_args_f32(gen, dev, T, C, F, p)
     scale = torch.tensor(1.3, device=dev) / args[6].sum()
-    dx, dh, part = fh.final_head_loss_bwd_rows(*args, scale, patch_size=p)
-    assert dx.dtype == dh.dtype == torch.float32
+    dx, part = fh.final_head_loss_bwd_rows(*args, scale, patch_size=p)
+    assert dx.dtype == part.dtype == torch.float32
     grid = part.shape[0]
     assert 1 <= grid <= -(-T // fh.TAIL_TILE_ROWS)
-    _assert_grads_close((dx, dh, part), fh.final_head_loss_bwd_rows_plain(
+    assert part.shape[1] == p * C * C + C * F + 2 * C
+    _assert_grads_close((dx, part), fh.final_head_loss_bwd_rows_f32_plain(
         *args, scale, patch_size=p, grid=grid), tol=F32_TOL)
-    dwe = fh.final_head_loss_dwe(args[0], dh)
-    _assert_grads_close((dwe,), (fh.final_head_loss_dwe_plain(args[0], dh),), tol=F32_TOL)
     red = fh.reduce_rows(part)
     _assert_grads_close((red,), (fh.reduce_rows_plain(part),), tol=F32_TOL)
-    dwh, dg, db = red.split([C * F, C, C])
     whole = fh.final_head_loss_bwd(*args, scale, patch_size=p)
-    assert all(torch.equal(a, b) for a, b in zip(whole, (dx, dwe, dg, db, dwh.reshape(C, F))))
+    assert all(torch.equal(a, b)
+               for a, b in zip(whole, (dx,) + fh.split_f32_bwd_row(red, C, F, p)))
+
+
+@pytest.mark.parametrize("C,F", [(32, 8), (96, 8), (128, 16)])
+def test_final_head_loss_f32_bwd_tile_step_blocks(dev, no_tf32, C, F):
+    """The f32 K7's tile kernel on a grid of one block per tile (T 64 * 9: four full tiles
+    and a half one): each block's partial row is its own tile's [x^T dh | z^T dlogits |
+    dgamma | dbeta] (the twin on the same grid), two launches bit-equal; the f32 dWe has
+    no step of its own: ``final_head_loss_dwe`` takes bf16 only."""
+    gen = torch.Generator().manual_seed(70 + C + F)
+    T, p = 64 * 9, 4
+    args = _loss_args_f32(gen, dev, T, C, F, p)
+    scale = torch.tensor(0.7, device=dev) / args[6].sum()
+    dx, part = fh.final_head_loss_bwd_rows(*args, scale, patch_size=p)
+    assert part.shape[0] == -(-T // fh.TAIL_TILE_ROWS)
+    twin = fh.final_head_loss_bwd_rows_f32_plain(*args, scale, patch_size=p,
+                                                 grid=part.shape[0])
+    for b in range(part.shape[0]):
+        assert _rel_l2(part[b], twin[1][b]) <= F32_TOL, b
+    again = fh.final_head_loss_bwd_rows(*args, scale, patch_size=p)
+    assert torch.equal(dx, again[0]) and torch.equal(part, again[1])
+    with pytest.raises(ValueError, match="bf16"):
+        fh.final_head_loss_dwe(args[0], torch.zeros(T, p * C, device=dev))
 
 
 @pytest.mark.parametrize("T,C,F", [(64 * 65, 32, 16), (64 * 65, 96, 8), (262144, 96, 8)])
@@ -1593,7 +1614,7 @@ def test_final_head_loss_f32_bwd_recomputes_the_forward_logits(dev, no_tf32, T, 
     args = _loss_args_f32(gen, dev, T, C, F, p)
     lf6 = fh.final_head_loss_sums(*args, patch_size=p, tap_logits=True)[3]
     lf7 = fh.final_head_loss_bwd_rows(*args, torch.tensor(1.0, device=dev), patch_size=p,
-                                      tap_logits=True)[3]
+                                      tap_logits=True)[-1]
     assert lf6.shape == (T, p, F) and lf6.dtype == torch.float32
     assert torch.equal(lf6, lf7)
     assert _rel_l2(lf6, fh.final_head_logits_plain(*args[:5], patch_size=p)) < F32_TOL
@@ -1728,27 +1749,40 @@ def test_final_head_depth_loss_f32_kernels_without_depth(dev, no_tf32):
                                         (64 * 65, 128, "huber", 1), (262144, 96, "l2", 1)])
 def test_final_head_depth_loss_f32_bwd_sequence_kernels(dev, no_tf32, T, C, kind, F):
     """Each step of the f32 K9's launch sequence against its plain twin, run in f32: the
-    row kernel (dx, dh, the partial rows on its grid), ``reduce_rows`` and
-    ``gemm_tn_f32`` (dWe = x^T dh), each on the kernel's own input; and K9 is the three
-    steps composed, bit for bit."""
+    tile kernel (dx and the partial rows [dWe | dWh | dgamma | dbeta] on its grid) and
+    ``reduce_rows``, each on the kernel's own input; and K9 is the two steps composed,
+    bit for bit."""
     gen = torch.Generator().manual_seed(T + C + F + 5)
     p = 4
     args = _depth_args_f32(gen, dev, T, C, F, p)
     kw = dict(patch_size=p, loss_kind=kind, huber_delta=0.5)
     scale = torch.tensor(1.3, device=dev) / torch.isfinite(args[5]).sum()
-    dx, dh, part = fh.final_head_depth_loss_bwd_rows(*args, scale, **kw)
-    assert dx.dtype == dh.dtype == torch.float32
+    dx, part = fh.final_head_depth_loss_bwd_rows(*args, scale, **kw)
+    assert dx.dtype == part.dtype == torch.float32
     grid = part.shape[0]
     assert 1 <= grid <= -(-T // fh.TAIL_TILE_ROWS)
-    _assert_grads_close((dx, dh, part), fh.final_head_depth_loss_bwd_rows_plain(
+    _assert_grads_close((dx, part), fh.final_head_depth_loss_bwd_rows_f32_plain(
         *args, scale, **kw, grid=grid), tol=F32_TOL)
-    dwe = fh.final_head_loss_dwe(args[0], dh)
-    _assert_grads_close((dwe,), (fh.final_head_loss_dwe_plain(args[0], dh),), tol=F32_TOL)
     red = fh.reduce_rows(part)
     _assert_grads_close((red,), (fh.reduce_rows_plain(part),), tol=F32_TOL)
-    dwh, dg, db = red.split([C * F, C, C])
     whole = fh.final_head_depth_loss_bwd(*args, scale, **kw)
-    assert all(torch.equal(a, b) for a, b in zip(whole, (dx, dwe, dg, db, dwh.reshape(C, F))))
+    assert all(torch.equal(a, b)
+               for a, b in zip(whole, (dx,) + fh.split_f32_bwd_row(red, C, F, p)))
+
+
+def test_final_head_depth_loss_f32_l1_dbeta_at_the_paper_tail(dev, no_tf32):
+    """The l1 loss at the paper tail with targets N(1, 1) above logits near 0: dlogits
+    share their sign on most rows, so dbeta is a sum whose terms share a sign; the f32
+    K9's sums over 16-row blocks keep it, and every gradient, within 1e-5."""
+    gen = torch.Generator().manual_seed(64)
+    args = list(_depth_args_f32(gen, dev, 262144, 96, 1))
+    args[4] = args[4] / 3  # logits of std ~1 against targets N(1, 1)
+    args[5] = torch.where(torch.isfinite(args[5]), args[5] + 1.0, args[5])
+    kw = dict(patch_size=4, loss_kind="l1")
+    scale = torch.tensor(1.0, device=dev) / torch.isfinite(args[5]).sum()
+    got = fh.final_head_depth_loss_bwd(*args, scale, **kw)
+    _assert_grads_close(got, fh.final_head_depth_loss_bwd_plain(*args, scale, **kw),
+                        tol=F32_TOL)
 
 
 @pytest.mark.parametrize("T,C,kind,F", [(64 * 65, 32, "l2", 1), (64 * 65, 96, "nll", 2),
@@ -1764,7 +1798,7 @@ def test_final_head_depth_loss_f32_bwd_recomputes_the_forward_logits(dev, no_tf3
     kw = dict(patch_size=p, loss_kind=kind)
     _, _, preds, lf8 = fh.final_head_depth_loss_sums(*args, **kw, tap_logits=True)
     lf9 = fh.final_head_depth_loss_bwd_rows(*args, torch.tensor(1.0, device=dev), **kw,
-                                            tap_logits=True)[3]
+                                            tap_logits=True)[-1]
     assert lf8.shape == (T, p, F) and lf8.dtype == torch.float32
     assert int((lf8 != 0).sum()) > T * p * F // 2
     assert torch.equal(lf8, lf9)

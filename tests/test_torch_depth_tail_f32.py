@@ -1,17 +1,18 @@
 """The depth tail in float32 and the depth paper config's train step, against the JAX
 package on the CPU.
 
-On the card the f32 K8 and K9 (``csrc/tail_f32.cuh``) are the f32 K6/K7's row
+On the card the f32 K8 and K9 (``csrc/tail_f32.cuh``) are the f32 K6/K7's tile
 kernels with the masked depth loss: a block holds one expand slice and walks the
 sub-pixels in an outer loop, each over the 128-row tiles b, b + grid, ... of the bf16
 kernels' partition; K8 writes one partial row [sum loss, count] a block and its f32
-logits as the predictions; K9 is its row kernel (dx, the f32 dh, partial rows [dWh |
-dgamma | dbeta]), ``reduce_rows`` and ``gemm_tn_f32``.  Their twins run here in f32:
+logits as the predictions; K9 is its tile kernel (dx and one partial row a block, [dWe |
+dWh | dgamma | dbeta] over the block's rows) and ``reduce_rows``.  Their twins run here
+in f32:
 
 - At the paper head (C 96, p 4) for every loss kind and head (l2, l1, huber with delta
   0.5 and l2 with one channel; nll and l2 with a logvar channel), on grids of 1, 2 and 5
   blocks over T 320 (two full tiles and a half one): K8's partial rows summed and K9's
-  three steps composed against ``fused_final_head_depth(interpret=True)`` and its
+  two steps composed against ``fused_final_head_depth(interpret=True)`` and its
   ``jax.vjp`` on the same numpy inputs.  Limits: the loss within 1e-5 relative, the count
   equal, the predictions within 2e-5 (absolute and relative), every gradient, normalized
   by its largest entry, within 5e-6 (as ``test_torch_depth_tail_sequence.py``).  The f32
@@ -113,8 +114,9 @@ CASES = [pytest.param(kind, F, delta, grid, id=f"{kind}-F{F}-grid{grid}")
 
 @pytest.mark.parametrize("kind,F,delta,grid", CASES)
 def test_f32_depth_twins_at_the_paper_head_match_pallas(kind, F, delta, grid):
-    """K8's partial rows and K9's steps, the twins of the f32 kernels' walk, in f32 at the
-    paper head, against the Pallas kernel in interpret mode and its VJP."""
+    """K8's partial rows and K9's two steps (the tile kernel's dx and partial rows,
+    ``reduce_rows``), the twins of the f32 kernels' walk, in f32 at the paper head, against
+    the Pallas kernel in interpret mode and its VJP."""
     ops = _ops(F)
     kw = _kw(kind, delta)
     loss_j, preds_j, grads_j = _pallas(F, kind, delta)
@@ -127,9 +129,10 @@ def test_f32_depth_twins_at_the_paper_head_match_pallas(kind, F, delta, grid):
     assert preds.dtype == torch.float32
     np.testing.assert_allclose(preds.numpy(), preds_j, **PRED_TOL)
     scale = torch.tensor(GLOSS) / torch.clamp_min(den, 1.0)
-    dx, dh, bpart = fh.final_head_depth_loss_bwd_rows_plain(*ops, scale, **kw, grid=grid)
-    assert dx.dtype == dh.dtype == torch.float32 and bpart.shape == (grid, C * F + 2 * C)
-    got = fh.final_head_depth_loss_bwd_sequence_plain(*ops, scale, **kw, grid=grid)
+    dx, bpart = fh.final_head_depth_loss_bwd_rows_f32_plain(*ops, scale, **kw, grid=grid)
+    assert dx.dtype == torch.float32 and bpart.shape == (grid, P * C * C + C * F + 2 * C)
+    got = fh.final_head_depth_loss_bwd_sequence_f32_plain(*ops, scale, **kw, grid=grid)
+    assert torch.equal(got[0], dx)
     for name, a, want in zip(GRAD_NAMES, got, grads_j):
         _close(a, want, name)
     whole = fh.final_head_depth_loss_bwd_plain(*ops, scale, **kw)
@@ -153,8 +156,10 @@ def test_f32_depth_predictions_are_the_logits(kind, F, delta):
     want = fh.final_head_depth_loss_plain(*ops, **kw)
     assert all(torch.equal(a, b) for a, b in zip((num, den, preds), want))
     scale = torch.tensor(GLOSS) / torch.clamp_min(den, 1.0)
-    dx, dh, part, lf9 = fh.final_head_depth_loss_bwd_rows(*ops, scale, **kw, tap_logits=True)
-    assert dx.dtype == dh.dtype == torch.float32 and torch.equal(lf9, logits)
+    dx, part, lf9 = fh.final_head_depth_loss_bwd_rows(*ops, scale, **kw, tap_logits=True)
+    assert dx.dtype == torch.float32 and torch.equal(lf9, logits)
+    want_rows = fh.final_head_depth_loss_bwd_rows_f32_plain(*ops, scale, **kw, grid=1)
+    assert all(torch.equal(a, b) for a, b in zip((dx, part), want_rows))
     grads = fh.final_head_depth_loss_bwd(*ops, scale, **kw)
     assert all(g.dtype == torch.float32 for g in grads)
     assert all(torch.equal(a, b) for a, b in zip(

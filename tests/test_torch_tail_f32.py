@@ -1,17 +1,17 @@
 """The decoder tail in float32 on the CPU: the operands the f32 K3/K6/K7 take, the f32
 refusals that remain (widths without an instantiation, heads over 16 columns), and the plain
-step twins of the f32 K7 at the paper
-config's head (C 96, p 4, F 8) against the JAX package's Pallas kernel in interpret mode.
+step twins of the f32 K6 and K7 at the paper config's head (C 96, p 4, F 8) against the JAX
+package's Pallas kernel in interpret mode.
 
 On the card the f32 K6/K7 (``csrc/final_head_f32.cu``) walk the bf16 kernels' partition:
 block b takes the 128-row tiles b, b + grid, ... (in every sub-pixel, the sub-pixels in
-an outer loop), so their partial rows are ``final_head_loss_partials_plain`` and
-``final_head_loss_bwd_rows_plain`` on the same grid, run in f32.  Here those twins, at
-grids of 1, 2 and 5 blocks (T 320: two full tiles and a half one) and composed with
-``final_head_loss_dwe_plain`` and ``reduce_rows_plain``, are held to
-``fused_final_head(interpret=True)`` and its ``jax.vjp`` on the same numpy inputs: the
-loss within 1e-5 relative, the confusion matrix equal, every gradient, normalized by its
-largest entry, within 5e-6 (the limits of ``test_torch_tail_sequence.py``).
+an outer loop), so K6's partial rows are ``final_head_loss_partials_plain`` and K7's tile
+kernel (dx and one partial row a block, [dWe | dWh | dgamma | dbeta] over the block's rows)
+is ``final_head_loss_bwd_rows_f32_plain`` on the same grid.  Here those twins, at grids of
+1, 2 and 5 blocks (T 320: two full tiles and a half one), summed by ``reduce_rows_plain``,
+are held to ``fused_final_head(interpret=True)`` and its ``jax.vjp`` on the same numpy
+inputs: the loss within 1e-5 relative, the confusion matrix equal, every gradient,
+normalized by its largest entry, within 5e-6 (the limits of ``test_torch_tail_sequence.py``).
 """
 
 import functools
@@ -114,8 +114,9 @@ def test_f32_tails_without_a_kernel_refuse_on_a_cuda_tensor(monkeypatch):
 
 @pytest.mark.parametrize("grid", GRIDS)
 def test_f32_twins_at_the_paper_head_match_pallas(grid):
-    """K6's partial rows and K7's steps, the twins of the f32 kernels' walk, in f32 at C
-    96, F 8, against the Pallas kernel in interpret mode and its VJP."""
+    """K6's partial rows and K7's two steps (the tile kernel's dx and partial rows,
+    ``reduce_rows``), the twins of the f32 kernels' walk, in f32 at C 96, F 8, against the
+    Pallas kernel in interpret mode and its VJP."""
     x, we, g, b, wh, y, w = (torch.from_numpy(a) for a in _operands())
     loss_j, cm_j, grads_j = _pallas()
     part = fh.final_head_loss_partials_plain(x, we, g, b, wh, y, w, patch_size=P, grid=grid)
@@ -124,11 +125,13 @@ def test_f32_twins_at_the_paper_head_match_pallas(grid):
     np.testing.assert_allclose(float(red[0] / red[1]), loss_j, rtol=LOSS_RTOL)
     np.testing.assert_array_equal(red[2:].reshape(F, F).numpy(), cm_j)
     scale = torch.tensor(SCALE) / red[1]
-    dx, dh, bpart = fh.final_head_loss_bwd_rows_plain(x, we, g, b, wh, y, w, scale,
+    dx, bpart = fh.final_head_loss_bwd_rows_f32_plain(x, we, g, b, wh, y, w, scale,
                                                       patch_size=P, grid=grid)
-    assert dx.dtype == dh.dtype == torch.float32 and bpart.shape == (grid, C * F + 2 * C)
-    got = fh.final_head_loss_bwd_sequence_plain(x, we, g, b, wh, y, w, scale, patch_size=P,
-                                                grid=grid)
+    assert dx.dtype == torch.float32
+    assert bpart.shape == (grid, P * C * C + C * F + 2 * C)
+    got = fh.final_head_loss_bwd_sequence_f32_plain(x, we, g, b, wh, y, w, scale,
+                                                    patch_size=P, grid=grid)
+    assert torch.equal(got[0], dx)
     for name, a, want in zip(("dx", "dwe", "dgamma", "dbeta", "dwh"), got, grads_j):
         _close(a, want, name)
     whole = fh.final_head_loss_bwd_plain(x, we, g, b, wh, y, w, scale, patch_size=P)

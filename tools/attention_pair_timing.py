@@ -1,7 +1,8 @@
 """Time the window-attention and MLP kernels of two checkouts of heal_swin_torch on one
 GPU, in turns: other, this, this, other.
 
-    python3 tools/attention_pair_timing.py --other _checkout/parent [--family mlp|tail|f32]
+    python3 tools/attention_pair_timing.py --other _checkout/parent \
+        [--family mlp|tail|f32|tail_f32]
 
 ``--other`` is an unpacked copy of another commit (``git archive`` into the
 git-ignored ``_checkout/``).  Each of the four turns is its own process: it imports
@@ -33,7 +34,15 @@ control, summed over the paper predict's launches (the f32 K1 20: 4 at C 96, 4 a
 12 at C 384, half of them masked; the f32 K2 2, one masked, cosine as the paper configs);
 where the checkout exposes them, the f32 K1's steps alone (the qkv product, the masked
 cosine attention, the output product: the LayerNorm is the rest), summed the same way.
-``--family all`` (the default) times all four.
+The f32 tail family (``--family tail_f32``), at the paper configs' f32 tails (T 262,144, C
+96, p 4) on chip_smoke.py's ``paper_tail_inputs`` (F 8) and ``paper_depth_tail_inputs``
+(l2, one channel), with their seeds: the f32 K3, K6 and K7, K8 and K9, and the f32 composed
+PyTorch routes of K3's, K6 / K7's and K8 / K9's functions as the controls (their
+backwards are autograd on a saved graph: the forward is not run again, as K7 and K9 run
+it); each launches once a step (K3 once a predict).  Beside the times, each turn prints
+each f32 kernel's device ms by kernel name (chip_smoke.py's ``trace``, 5 calls; the
+profiler can drop a record) and the ptxas report (registers, spills) of the f32 tail
+kernels its build compiled.  ``--family all`` (the default) times the first four.
 
 Each shape gets two times: the device time (``device_ms``: each call enqueued behind a
 spin kernel, so that the events bracket the device work alone) and a single call's
@@ -134,7 +143,65 @@ def turn(root: Path, family: str) -> dict:
         times.update(tail_times(smoke, dev, both))
     if family in ("f32", "all"):
         times.update(f32_times(smoke, dev, both))
+    if family == "tail_f32":
+        times.update(tail_f32_times(smoke, dev, both))
     torch.cuda.synchronize()
+    return times
+
+
+# the f32 tail's kernels by name: the tile kernels, and an older checkout's row kernels
+# and dWe product
+F32_TAIL_KERNELS = ("tail_fwd_3xtf32", "tail_bwd_3xtf32", "tail_loss_f32", "tail_bwd_f32",
+                    "gemm_tn_f32")
+
+
+def tail_f32_times(smoke, dev, both) -> dict:
+    """The f32 K3, K6-K9 and the f32 routes at the paper configs' tails; for each kernel
+    also its device ms by kernel name (labels "split ..."), and the build's ptxas lines of
+    the f32 tail kernels (label "ptxas", one string each)."""
+    import torch
+
+    from heal_swin_torch import _build
+    from heal_swin_torch.ops import final_head as fh
+
+    largs = smoke.paper_tail_inputs(torch.Generator().manual_seed(smoke.SEED + 17), dev)
+    dargs = smoke.paper_depth_tail_inputs(torch.Generator().manual_seed(smoke.SEED + 18), dev)
+    dargs = dargs[:4] + (dargs[4][:, :1].contiguous(), dargs[5])
+    p = smoke.TAIL_P
+    T, C = largs[0].shape
+    scale = torch.ones((), device=dev) / largs[6].sum()
+    dscale = torch.ones((), device=dev) / torch.isfinite(dargs[5]).sum()
+    kw = dict(patch_size=p, impl="pallas")
+    dkw = dict(kw, loss_kind="l2")
+    label = f"C={C} T={T}"
+    calls = {"f32-K3": lambda: fh.final_head_predict(*largs[:5], **kw),
+             "f32-K6": lambda: fh.final_head_loss_sums(*largs, **kw),
+             "f32-K7": lambda: fh.final_head_loss_bwd(*largs, scale, **kw),
+             "f32-K8": lambda: fh.final_head_depth_loss_sums(*dargs, **dkw),
+             "f32-K9": lambda: fh.final_head_depth_loss_bwd(*dargs, dscale, **dkw)}
+    times = {}
+    with torch.no_grad():
+        for name, fn in calls.items():
+            times[f"{name} {label}"] = both(fn)
+            per, _ = smoke.trace(fn, smoke.SEQUENCE_TRACED)
+            for kname, (ms, _) in per.items():
+                times[f"split {name} {kname[:70]}"] = [ms / smoke.SEQUENCE_TRACED] * 2
+    times[f"f32-pred-route {label}"] = both(smoke.pred_route(largs[:5], p, torch.float32))
+    route_f, route_b = smoke.tail_route(largs, p, torch.float32)
+    times[f"f32-tail-route-fwd {label}"] = both(route_f)
+    times[f"f32-tail-route-bwd {label}"] = both(route_b)
+    del route_f, route_b
+    route_f, route_b = smoke.depth_route(dargs, p, torch.float32)
+    times[f"f32-depth-route-fwd {label}"] = both(route_f)
+    times[f"f32-depth-route-bwd {label}"] = both(route_b)
+    name, ptxas = None, []
+    for line in _build.build_log.splitlines():
+        if "Compiling entry function" in line:
+            name = next((k for k in F32_TAIL_KERNELS if k in line), None) and line.split("'")[1]
+        elif name and ("spill" in line or "registers" in line):
+            i = name.find("tail_") if "tail_" in name else name.find("gemm_")
+            ptxas.append(f"{name[i:i + 48]}: {line.split(':', 1)[-1].strip()}")
+    times["ptxas"] = ptxas
     return times
 
 
@@ -341,7 +408,7 @@ def compare(label, runs, get):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", type=Path, help="the other checkout (e.g. the parent)")
-    ap.add_argument("--family", choices=("attention", "mlp", "tail", "f32", "all"),
+    ap.add_argument("--family", choices=("attention", "mlp", "tail", "f32", "tail_f32", "all"),
                     default="all",
                     help="which kernels to time (default: all)")
     ap.add_argument("--turn", type=Path, help=argparse.SUPPRESS)
@@ -370,10 +437,18 @@ def main() -> int:
         line = out.stdout.strip().splitlines()[-1]
         print(f"{who}: {line}", flush=True)
         runs.append((who, json.loads(line)["times"]))
+    for who, t in runs:  # the f32 tail's split by kernel and ptxas report, turn by turn
+        for label, v in t.items():
+            if label == "ptxas":
+                for line in v:
+                    print(f"{who} ptxas {line}")
+            elif label.startswith("split "):
+                print(f"{who} {label}: {v[0]:.4f} ms a call on the device")
     for which, kind in enumerate(("on the device", "a single call")):
         print(f"-- {kind}")
         for label in runs[1][1]:
-            print(compare(label, runs, lambda t: t[label][which] if label in t else None))
+            if label != "ptxas" and not label.startswith("split "):
+                print(compare(label, runs, lambda t: t[label][which] if label in t else None))
         if a.family in ("attention", "all"):
             for kernel, n, flavour in (("K1", 20, ""), ("K4", 20, ""), ("K16", 20, ""),
                                        ("K17", 20, ""), ("K2", 2, "scaled-dot"),
