@@ -31,7 +31,10 @@ both paper configs' f32 forward in eval mode, where no dropout is active and eve
 runs the f32 window-attention kernels: the f32 K1 (a launch sequence), K2 and K3 against
 their plain versions at every paper shape, each config's predict and its validation
 (``training.trainer.run_validation``, 3 batches) through both paths, and the Chamfer
-writer through the predict loop (``training.trainer.predict``); and last the kernels'
+writer through the predict loop (``training.trainer.predict``); then ``Trainer.fit`` of
+both paper configs on the port's synthetic HEALPix datamodule (``drive_fit``: two
+uninterrupted 2-epoch runs, and a 1-epoch run resumed from its checkpoint and held to
+them, with their launches, tracked metrics and checkpoint files); and last the kernels'
 refusal: small models the kernels do not take (scaled-dot float32 without dropout,
 window 16, float32 cosine in training), and an f32 tail at C 48, raise under "auto"
 with no launch, and run the plain versions under "xla".
@@ -2994,6 +2997,7 @@ def paper_step(label, task_k, task_p, imgs, targets, expected, timed, counted):
             raise AssertionError(f"{label} ({path}): metric state {float(ms[key])}, {m}")
         log(f"{label}: metrics over {n} steps ({path}): "
             + " ".join(f"{k} {v:.4f}" for k, v in m.items()))
+    timed[f"{label} img/s"] = (ips_k, ips_k2)
     log(f"{label}: train step kernels {ips_k:.4f} / {ips_k2:.4f} img/s (peak {mem_k:.3f} / "
         f"{mem_k2:.3f} GiB above the resident), plain {ips_p:.4f} img/s (peak {mem_p:.3f} "
         f"GiB above the resident); resident {resident:.3f} GiB (both models' f32 weights, "
@@ -3451,6 +3455,253 @@ def drive_paper_eval(dev, timed):
         del task_k
         torch.cuda.empty_cache()
     return runs[False]
+
+
+# --------------------------------------------------- the trainer's fit loop on the card
+FIT_TRAIN = 8  # synthetic train samples: 4 steps an epoch at batch BATCH
+FIT_VAL = 4  # synthetic validation samples: 2 batches of BATCH
+FIT_FLOOR = 1e-6  # the least limit of resume against uninterrupted, relative L2
+# the metrics of tests/test_train_e2e.py:57-62 that fit logs (its evaluate_* metric is
+# the run entry's), the step loss and the memory statistics
+FIT_METRICS = (
+    "train_loss", "train_acc", "train_acc_ignored", "train_iou_global",
+    "train_iou_global_ignored", "val_loss", "val_acc", "val_iou_global",
+    "val_iou_global_ignored", "val_iou_global_class_0_background",
+    "train_time_per_sample in ms", "lr-Adam", "train_loss_step", "epoch",
+    "device0 memory.used in MB", "device0 memory.peak in MB", "device0 memory.limit in MB")
+
+
+def fit_datamodule(depth):
+    """The port's synthetic HEALPix datamodule at nside NSIDE on 8 base pixels: FIT_TRAIN
+    train and FIT_VAL validation samples, batch BATCH for both; segmentation has the
+    fixture's 4 classes, depth the depth paper config's data settings (standardized,
+    background masked)."""
+    import dataclasses
+
+    from heal_swin_torch.data.data import get_data_module
+    from heal_swin_torch.data.data_config import WoodscapeCommonConfig, WoodscapeHPConfig
+    from heal_swin_torch.run_configs import paper_depth_config
+
+    common = WoodscapeCommonConfig(version="synthetic", batch_size=BATCH,
+                                   val_batch_size=BATCH, pred_batch_size=BATCH,
+                                   synthetic_train_samples=FIT_TRAIN,
+                                   synthetic_val_samples=FIT_VAL)
+    if depth:
+        data = dataclasses.replace(paper_depth_config().data, common=common,
+                                   input_nside=NSIDE)
+    else:
+        data = WoodscapeHPConfig(common=common, input_nside=NSIDE, input_base_pix=8)
+    return get_data_module(data)
+
+
+def fit_run(label, root, dm, spec, dev, depth=False, **pl):
+    """One ``Trainer.fit`` of a paper config (f32, dropout, attention dropout and DropPath
+    0.1; segmentation unweighted over the fixture's 4 classes at the paper rate, depth
+    as ``paper_depth_config``) on ``dm`` into its own FileStore run and checkpoint dir
+    under ``root``, seed SEED, sanity validation of 1 batch, every step's loss logged;
+    ``pl``: PLConfig fields on top.  The launch counters are set to 0 just before the
+    fit and read just after.  Returns a dict of the trainer, fit result, task, run,
+    checkpoint dir, launches (per kernel, per shape) and seconds."""
+    from heal_swin_torch.models import tasks as T
+    from heal_swin_torch.run_configs import PAPER_LR, paper_depth_config, paper_swin_hp_config
+    from heal_swin_torch.tracking.mlflow_store import MlflowFileStore
+    from heal_swin_torch.training.optimizer import OptimizerConfig
+    from heal_swin_torch.training.train_config import PLConfig, TrainConfig
+    from heal_swin_torch.training.trainer import Trainer
+
+    if depth:
+        cfg = paper_depth_config()
+        task = T.WoodscapeDepthSwinHP(cfg.model, spec, cfg.data, device=dev)
+        tc = TrainConfig(seed=SEED, ckpt_metric="val_loss", ckpt_mode="min",
+                         mlflow_expmt="chip_smoke_fit")
+    else:
+        task = T.WoodscapeSegmenterSwinHP(
+            T.WoodscapeSegmenterSwinHPConfig(
+                paper_swin_hp_config(), optimizer_config=OptimizerConfig(learning_rate=PAPER_LR)),
+            spec, device=dev)
+        tc = TrainConfig(seed=SEED, ckpt_metric="val_iou_global_ignored", ckpt_mode="max",
+                         mlflow_expmt="chip_smoke_fit")
+    run = MlflowFileStore(root / "mlruns").create_run(label)
+    ckpt_dir = root / label
+    trainer = Trainer(PLConfig(**dict(dict(num_sanity_val_steps=1, log_every_n_steps=1), **pl)),
+                      tc, run=run, ckpt_dir=ckpt_dir, device=dev)
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    result = trainer.fit(task, dm)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counters()
+    run.set_status("FINISHED")
+    return dict(trainer=trainer, result=result, task=task, run=run, ckpt_dir=ckpt_dir,
+                launches=launches, seconds=seconds)
+
+
+def fit_state(ckpt_path):
+    """(name -> tensor) of a checkpoint's parameters and Adam moments, on the host."""
+    from heal_swin_torch.training.checkpoint import load_checkpoint
+
+    model, opt, _ = load_checkpoint(ckpt_path)
+    out = {f"param {k}": v for k, v in model.items()}
+    for i, st in opt["state"].items():
+        out[f"adam {i} exp_avg"] = st["exp_avg"]
+        out[f"adam {i} exp_avg_sq"] = st["exp_avg_sq"]
+        out[f"adam {i} step"] = st["step"].reshape(1)
+    return out
+
+
+def fit_losses(run, first_step):
+    """The logged step losses from global step ``first_step`` on, as a tensor."""
+    return torch.tensor([v for _, v, s in run.get_metric_history("train_loss_step")
+                         if s >= first_step], dtype=torch.float64)
+
+
+def fit_compare(a, b):
+    """Per tensor of ``a`` (name -> tensor): (relative L2 to ``b``'s, bit-equal)."""
+    if set(a) != set(b):
+        raise AssertionError(f"fit states differ in their tensors: {sorted(set(a) ^ set(b))[:4]}")
+    return {k: (rel_l2(a[k].double(), b[k].double()), torch.equal(a[k], b[k])) for k in a}
+
+
+def check_fit_launches(label, fit, steps, val_batches, timed, depth=False):
+    """A fit's launches: per train step the f32 tail's forward and backward (K6/K7, or
+    K8/K9) and no attention kernel (attention dropout sends every block to the plain
+    route); per validation batch the f32 K1 20 times and K2 twice, and for depth the f32
+    K8 once (segmentation validation passes a sample mask, so its tail is unfused and
+    runs no K6)."""
+    tail = "final_head_depth_loss" if depth else "final_head_loss"
+    expected = dict(NO_LAUNCHES, **{k: v * val_batches for k, v in PAPER_EVAL_LAUNCHES.items()})
+    expected[f"{tail}_f32"] = steps + (val_batches if depth else 0)
+    expected[f"{tail}_bwd_f32"] = steps
+    check_launches(label, *fit["launches"], expected, timed)
+
+
+def check_fit_files(label, fit, names, metric):
+    """The fit's FileStore run holds every metric of ``names``, each value finite, and
+    its checkpoint dir last.ckpt, best.ckpt and an epoch file of ``metric``."""
+    run = fit["run"]
+    for name in names:
+        hist = run.get_metric_history(name)
+        if not hist or not all(math.isfinite(v) for _, v, _ in hist):
+            raise AssertionError(f"{label}: metric {name!r} missing or not finite: {hist}")
+    files = sorted(p.name for p in fit["ckpt_dir"].iterdir())
+    epochs = [f for f in files if f.startswith("epoch=") and f"_{metric}=" in f]
+    if "last.ckpt" not in files or "best.ckpt" not in files or not epochs:
+        raise AssertionError(f"{label}: checkpoint files {files}")
+    return files
+
+
+def drive_fit(dev, timed):
+    """The trainer's fit loop on the card: ``Trainer.fit`` of the paper segmentation config
+    (f32, full width and depth, dropout, attention dropout and DropPath 0.1, nside NSIDE,
+    batch BATCH) on the port's synthetic HEALPix datamodule (FIT_TRAIN train samples, 4
+    steps an epoch; FIT_VAL validation samples, 2 batches), with sanity validation (1
+    batch), validation each epoch, checkpoints on ``val_iou_global_ignored`` and the
+    memory statistics logged, into a FileStore and checkpoint dirs under a temporary
+    directory that the phase deletes.  Run A: 2 epochs; run A': the same again (their
+    difference is the card's run-to-run floor); run B: 1 epoch, then a new Trainer
+    resumes from its last.ckpt for epoch 2.  Checks: B's final parameters, Adam state
+    and epoch-2 step losses within max(2 x A/A' largest relative L2, FIT_FLOOR) of A's,
+    bit-equal wherever A and A' are; A's launches (``check_fit_launches``); A's
+    metrics and checkpoint files (``check_fit_files``).  Then the depth paper config
+    fits 1 epoch: its launches and its metrics under the JAX trainer's names.  Logs the
+    fit's steady train img/s beside ``paper_step``'s, the seconds the step loop waited
+    on a checkpoint flush, and a checkpoint's bytes."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_fit_"))
+    try:
+        dm, spec = fit_datamodule(False)
+        log(f"fit: synthetic datamodule, {len(dm.train_ds)} train / {len(dm.val_ds)} "
+            f"validation samples of {spec.dim_in} pixels, {spec.f_out} classes "
+            f"(unweighted CE), batch {BATCH}")
+        fits = {}
+        for label, pl in (("A", dict(max_epochs=2)), ("A'", dict(max_epochs=2)),
+                          ("B", dict(max_epochs=1))):
+            fits[label] = fit_run(label, root, dm, spec, dev, **pl)
+        last = fits["B"]["ckpt_dir"] / "last.ckpt"
+        fits["B2"] = fit_run("B2", root, dm, spec, dev, max_epochs=2,
+                             resume_from_checkpoint=str(last))
+        a = fits["A"]
+        steps, per_epoch = a["result"].global_step, a["result"].global_step // 2
+        if (steps, fits["B"]["result"].global_step, fits["B2"]["result"].global_step) != (
+                2 * per_epoch, per_epoch, steps) or per_epoch != FIT_TRAIN // BATCH:
+            raise AssertionError(f"fit: steps {[f['result'] for f in fits.values()]}")
+        check_fit_launches("fit A", a, steps, 1 + 2 * (FIT_VAL // BATCH), timed)
+        check_fit_launches("fit B2 (resumed)", fits["B2"], per_epoch, 1 + FIT_VAL // BATCH,
+                           timed)
+        files = check_fit_files("fit A", a, FIT_METRICS, "val_iou_global_ignored")
+
+        states = {k: fit_state(f["ckpt_dir"] / "last.ckpt") for k, f in fits.items()
+                  if k != "B"}
+        for k in states:
+            states[k]["epoch-2 step losses"] = fit_losses(fits[k]["run"], per_epoch + 1)
+        floor = fit_compare(states["A"], states["A'"])
+        worst_aa = max(e for e, _ in floor.values())
+        tol = max(2 * worst_aa, FIT_FLOOR)
+        resumed = fit_compare(states["B2"], states["A"])
+        for k, (err, same) in resumed.items():
+            if (floor[k][1] and not same) or err > tol:
+                raise AssertionError(f"fit: resumed {k} rel_l2 {err:.3e} (bit-equal {same}) "
+                                     f"against A; A vs A' {floor[k][0]:.3e} (bit-equal "
+                                     f"{floor[k][1]}), limit {tol:.3e}")
+        worst_b = max(resumed.items(), key=lambda kv: kv[1][0])
+        log(f"fit: A vs A' over {len(floor)} tensors (parameters, Adam moments and steps, "
+            f"epoch-2 step losses): largest rel_l2 {worst_aa:.3e} "
+            f"({max(floor.items(), key=lambda kv: kv[1][0])[0]}), "
+            f"{sum(s for _, s in floor.values())} bit-equal; resumed B vs A: largest rel_l2 "
+            f"{worst_b[1][0]:.3e} ({worst_b[0]}), {sum(s for _, s in resumed.values())} "
+            f"bit-equal, limit {tol:.3e}, bit-equal wherever A and A' are")
+        log("fit: step losses A " + " ".join(f"{v:.6f}" for v in fit_losses(a["run"], 1).tolist())
+            + "; resumed B epoch 2 " + " ".join(
+                f"{v:.6f}" for v in states["B2"]["epoch-2 step losses"].tolist()))
+        ckpt_bytes = (a["ckpt_dir"] / "last.ckpt").stat().st_size
+        paper = timed.get("paper train img/s", (float("nan"),) * 2)
+        for k, f in fits.items():
+            tr = f["trainer"]
+            rate_fit = tr.last_train_steady_samples / tr.last_train_steady_time
+            stamps = [t for t, _, _ in f["run"].get_metric_history("train_loss_step")]
+            log(f"fit {k}: {f['result'].epochs_run} epochs, {f['result'].global_step} steps "
+                f"in {f['seconds']:.3f} s; last epoch's steady train {rate_fit:.4f} img/s "
+                f"(after its first step; paper_step's bare train_step {paper[0]:.4f} / "
+                f"{paper[1]:.4f}); the train loop waited {tr.ckpt_manager.save_wait_seconds:.4f}"
+                f" s on a checkpoint save in flight, the fit's end "
+                f"{tr.ckpt_manager.flush_seconds - tr.ckpt_manager.save_wait_seconds:.4f} s; "
+                f"the saves took {tr.ckpt_manager.save_seconds:.4f} s in the background; "
+                "train_time_per_sample "
+                + " ".join(f"{v:.3f}" for _, v, _ in
+                           f["run"].get_metric_history("train_time_per_sample in ms"))
+                + " ms; val_iou_global_ignored " + " ".join(
+                    f"{v:.4f}" for _, v, _ in f["run"].get_metric_history("val_iou_global_ignored"))
+                + "; ms between the logged step losses " + " ".join(
+                    str(b - a) for a, b in zip(stamps[:-1], stamps[1:])))
+            timed[f"fit {k}"] = dict(steady_img_s=rate_fit, seconds=f["seconds"],
+                                     loop_wait_s=tr.ckpt_manager.save_wait_seconds)
+        log(f"fit: a checkpoint is {ckpt_bytes} bytes ({ckpt_bytes / 2 ** 30:.4f} GiB: "
+            f"parameters and two Adam moments in f32); A's checkpoint dir {files}")
+        del fits, states, a
+        torch.cuda.empty_cache()
+
+        dm, spec = fit_datamodule(True)
+        d = fit_run("depth", root, dm, spec, dev, depth=True, max_epochs=1)
+        check_fit_launches("fit depth", d, FIT_TRAIN // BATCH, 1 + FIT_VAL // BATCH, timed,
+                           depth=True)
+        names = (["train_loss", "train_loss_step", "val_loss", "epoch", "lr-Adam"]
+                 + list(d["task"].metric_compute(d["task"].metric_init(), "train_"))
+                 + list(d["task"].metric_compute(d["task"].metric_init(), "val_")))
+        check_fit_files("fit depth", d, names, "val_loss")
+        tr = d["trainer"]
+        log(f"fit depth: 1 epoch, {d['result'].global_step} steps in {d['seconds']:.3f} s, "
+            f"steady train {tr.last_train_steady_samples / tr.last_train_steady_time:.4f} "
+            f"img/s (paper_step's {timed.get('paper depth train img/s', (float('nan'),))[0]:.4f}); "
+            + " ".join(f"{k} {v:.6f}" for k, v in d["result"].last_metrics.items()
+                       if k.startswith("val_")))
+        del d
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 GATE_NSIDE = 32  # 512 tokens an image at the second stage: one 64-token window per base pixel
@@ -3938,6 +4189,9 @@ def main() -> int:
     t_eval = time.perf_counter()
     paper_eval_run = drive_paper_eval(dev, timed)
     torch.cuda.empty_cache()
+    t_fit = time.perf_counter()
+    drive_fit(dev, timed)
+    torch.cuda.empty_cache()
     t_gate = time.perf_counter()
     drive_refusal(dev)
     t_end = time.perf_counter()
@@ -3945,8 +4199,8 @@ def main() -> int:
         f"{t_mlp - t_chamfer:.1f} s of it, the MLP phase {t_dot - t_mlp:.1f} s, the "
         f"scaled-dot phase {t_paper - t_dot:.1f} s, the paper-config phase "
         f"{t_depth - t_paper:.1f} s, the paper depth phase {t_eval - t_depth:.1f} s, the "
-        f"paper eval phase {t_gate - t_eval:.1f} s, the refusal phase "
-        f"{t_end - t_gate:.1f} s")
+        f"paper eval phase {t_fit - t_eval:.1f} s, the fit phase {t_gate - t_fit:.1f} s, "
+        f"the refusal phase {t_end - t_gate:.1f} s")
 
     blocked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "heal_swin_tpu"))
     if blocked:

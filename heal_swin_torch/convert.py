@@ -7,6 +7,9 @@ flax ``layer0/block1/attn/qkv/kernel`` (in, out) becomes
 ``layers.0.blocks.1.attn.qkv.weight`` (out, in); LayerNorm ``ln/scale`` becomes
 ``.weight``; the patch embedding and the output head keep their Conv1d shapes
 (embed, f_in, p) and (f_out, embed, 1).
+
+``adam_state_from_optax(opt_state, model, optimizer)`` carries the JAX trainer's Adam
+state across the same way, so that a JAX run's checkpoint goes on in the port.
 """
 
 from __future__ import annotations
@@ -84,5 +87,61 @@ def state_dict_from_flax(params: Mapping) -> "OrderedDict[str, torch.Tensor]":
         key, arr = _torch_key(path, value, patch_size)
         if key in sd:
             raise KeyError(f"two flax leaves map to {key!r}")
-        sd[key] = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32))
+        sd[key] = torch.from_numpy(np.array(arr, dtype=np.float32, order="C"))
     return sd
+
+
+def _as_tree(x):
+    """An optax state (NamedTuples, tuples, dicts; or flax's state-dict form of them,
+    nested dicts with the tuples' items under "0", "1", ...) as nested dicts."""
+    if hasattr(x, "_asdict"):
+        return {k: _as_tree(v) for k, v in x._asdict().items()}
+    if isinstance(x, Mapping):
+        return {str(k): _as_tree(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return {str(i): _as_tree(v) for i, v in enumerate(x)}
+    return x
+
+
+def _find(tree, has):
+    """The first node of ``tree`` (depth first) holding every key in ``has``."""
+    if not isinstance(tree, Mapping):
+        return None
+    if all(k in tree for k in has):
+        return tree
+    for v in tree.values():
+        hit = _find(v, has)
+        if hit is not None:
+            return hit
+    return None
+
+
+def adam_state_from_optax(opt_state, model: torch.nn.Module,
+                          optimizer: torch.optim.Optimizer) -> dict:
+    """The ``state_dict`` of the port's Adam / AdamW ``optimizer`` (made over
+    ``model.parameters()``) for the JAX trainer's optax state: ``inject_hyperparams``
+    around a chain holding ``scale_by_adam``'s ``ScaleByAdamState`` (count, mu, nu),
+    as optax objects or in flax's state-dict form, leaves as numpy arrays (of an
+    ``optax.MultiSteps`` state its inner Adam state, without the accumulated gradients;
+    pass a ``MultiSteps``' ``inner`` optimizer).  ``mu`` and ``nu`` take the
+    parameters' key and transpose rules (``state_dict_from_flax``), each parameter's
+    ``step`` is the count, and every param group's learning rate the injected one."""
+    tree = _as_tree(opt_state)
+    adam = _find(tree, ("count", "mu", "nu"))
+    hyper = _find(tree, ("hyperparams",))
+    if adam is None or hyper is None:
+        raise KeyError("no inject_hyperparams / ScaleByAdamState in the optax state")
+    mu, nu = state_dict_from_flax(adam["mu"]), state_dict_from_flax(adam["nu"])
+    step = float(np.asarray(adam["count"]))
+    index = {id(p): i for i, p in
+             enumerate(p for g in optimizer.param_groups for p in g["params"])}
+    state = {}
+    for name, prm in model.named_parameters():
+        state[index[id(prm)]] = {
+            "step": torch.tensor(step, dtype=torch.float32),
+            "exp_avg": mu[name].to(prm.device, prm.dtype),
+            "exp_avg_sq": nu[name].to(prm.device, prm.dtype),
+        }
+    lr = float(np.asarray(hyper["hyperparams"]["learning_rate"]))
+    sd = optimizer.state_dict()
+    return {"state": state, "param_groups": [dict(g, lr=lr) for g in sd["param_groups"]]}

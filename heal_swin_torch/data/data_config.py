@@ -42,6 +42,18 @@ class WoodscapeCommonConfig(DataCommonConfig):
 
 
 @dataclass
+class WoodscapeHPConfig:
+    common: WoodscapeCommonConfig = field(default_factory=WoodscapeCommonConfig)
+    pred_part: Literal["train", "val"] = "val"
+    input_nside: int = 256
+    input_base_pix: int = 8
+    shuffle_train_val_split: bool = True
+    # the JAX package's option to project the flat inputs on the device in its train
+    # loop; the port reads it nowhere yet
+    project_on_device: bool = False
+
+
+@dataclass
 class WoodscapeDepthCommonConfig:
     mask_background: bool = False
     data_transform: Optional[Literal["log", "inv", "None"]] = "None"
@@ -56,6 +68,5 @@ class WoodscapeHPDepthConfig:
     input_nside: int = 256
     input_base_pix: int = 8
     shuffle_train_val_split: bool = True
-    # the JAX package's option to project the flat inputs on the device in its train
-    # loop; the port has no datamodule yet and reads it nowhere
+    # as WoodscapeHPConfig.project_on_device
     project_on_device: bool = False

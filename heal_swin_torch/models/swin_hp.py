@@ -368,10 +368,16 @@ class SwinHPTransformerSys(nn.Module):
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
         """The JAX package's init: trunc-normal(0.02) weights, zero biases, LN ones and
-        zeros, logit scale ln 10, zero rel-pos tables."""
+        zeros, logit scale ln 10, zero rel-pos tables.  The draws are made on the CPU
+        from ``generator`` (a CPU generator) and copied in, so that a seed gives the
+        same weights wherever the network lives."""
+
+        def draw(w):
+            w.copy_(trunc_normal_(torch.empty(w.shape, dtype=w.dtype), generator))
+
         for m in self.modules():
             if isinstance(m, (nn.Linear, nn.Conv1d)):
-                trunc_normal_(m.weight, generator)
+                draw(m.weight)
                 if m.bias is not None:
                     m.bias.zero_()
             elif isinstance(m, nn.LayerNorm):
@@ -383,7 +389,7 @@ class SwinHPTransformerSys(nn.Module):
                 if m.relative_position_bias_table is not None:
                     m.relative_position_bias_table.zero_()
         if self.config.ape:
-            trunc_normal_(self.absolute_pos_embed, generator)
+            draw(self.absolute_pos_embed)
 
     def forward(self, x, tail: bool = True, generator: Optional[torch.Generator] = None):
         cfg = self.config

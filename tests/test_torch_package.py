@@ -25,18 +25,25 @@ def _port_modules():
 
 
 def test_port_and_chip_smoke_import_without_the_jax_package():
-    """Every module of the port, and chip_smoke.py, imports with jax and heal_swin_tpu
-    blocked."""
+    """Every module of the port, and chip_smoke.py, imports with jax, flax, optax, dill,
+    msgpack and heal_swin_tpu blocked."""
     mods = _port_modules()
     assert {"heal_swin_torch.ops.chamfer_pruned", "heal_swin_torch.ops.mlp",
-            "heal_swin_torch.run_configs"} <= set(mods)
-    assert len(mods) >= 26
+            "heal_swin_torch.run_configs", "heal_swin_torch.training.trainer",
+            "heal_swin_torch.training.checkpoint", "heal_swin_torch.training.train_config",
+            "heal_swin_torch.tracking", "heal_swin_torch.tracking.mlflow_store",
+            "heal_swin_torch.tracking.client", "heal_swin_torch.tracking.server",
+            "heal_swin_torch.data.loading", "heal_swin_torch.data.synthetic",
+            "heal_swin_torch.data.data", "heal_swin_torch.utils.serialize",
+            "heal_swin_torch.utils.utils"} <= set(mods)
+    assert len(mods) >= 38
+    blocked = ("jax", "flax", "heal_swin_tpu", "optax", "dill", "msgpack")
     code = ("import sys\n"
-            "for name in ('jax', 'flax', 'heal_swin_tpu'):\n"
+            f"for name in {blocked!r}:\n"
             "    sys.modules[name] = None\n"
             f"import importlib\nfor m in {mods + ['chip_smoke']!r}:\n"
             "    importlib.import_module(m)\n"
-            "assert not any(k.split('.')[0] in ('jax', 'heal_swin_tpu') and v is not None\n"
+            f"assert not any(k.split('.')[0] in {blocked!r} and v is not None\n"
             "               for k, v in sys.modules.items())\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -58,8 +65,8 @@ def test_ring_shift_matches_jax_at_paper_size(tokens):
 
 def test_entry_points_default_to_the_gpu():
     """With no device given, the tasks, the model, the metric states, the Chamfer
-    entry points and the Chamfer writer take the first CUDA device, and raise where
-    there is none."""
+    entry points, the Chamfer writer and the Trainer take the first CUDA device, and
+    raise where there is none."""
     if torch.cuda.is_available():
         pytest.skip("checks the machine without a CUDA device")
     from heal_swin_torch.data.data_spec import DataSpec, DepthDataSpec
@@ -67,6 +74,8 @@ def test_entry_points_default_to_the_gpu():
     from heal_swin_torch.evaluation import metrics as M
     from heal_swin_torch.models import swin_hp, tasks
     from heal_swin_torch.ops import chamfer, chamfer_pruned
+    from heal_swin_torch.training.train_config import PLConfig
+    from heal_swin_torch.training.trainer import Trainer
 
     cfg = swin_hp.SwinHPTransformerConfig(embed_dim=8, depths=[2, 1], num_heads=[2, 2],
                                           window_size=16, shift_size=8)
@@ -82,6 +91,7 @@ def test_entry_points_default_to_the_gpu():
         lambda: chamfer.chamfer_distance(pts, pts),
         lambda: chamfer_pruned.chamfer_distance_pruned(pts, pts),
         W.WoodscapeHPDepthChamferDistBestWorstPredictionWriter,
+        lambda: Trainer(PLConfig()),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
@@ -89,6 +99,7 @@ def test_entry_points_default_to_the_gpu():
                                           device="cpu")
     assert next(task.model.parameters()).device.type == "cpu"
     assert task.metric_init()["confmat"].device.type == "cpu"
+    assert Trainer(PLConfig(), device="cpu").device == torch.device("cpu")
 
 
 @pytest.mark.parametrize("T,C,dqkv,part", [(262144, 96, 452984832, 51523584),
