@@ -34,12 +34,20 @@ their plain versions at every paper shape, each config's predict and its validat
 writer through the predict loop (``training.trainer.predict``); then ``Trainer.fit`` of
 both paper configs on the port's synthetic HEALPix datamodule (``drive_fit``: two
 uninterrupted 2-epoch runs, and a 1-epoch run resumed from its checkpoint and held to
-them, with their launches, tracked metrics and checkpoint files); and last the kernels'
-refusal: small models the kernels do not take (scaled-dot float32 without dropout,
+them, with their launches, tracked metrics and checkpoint files); then the real input
+path and the run entry (``drive_run_entry``: generated 966 x 1280 WoodScape and
+SynWoodScape fixtures, the on-device fisheye -> HEALPix projection held to the host npz
+pipeline, ``Trainer.lr_find``, and ``python3 -m heal_swin_torch.cli train`` / ``resume``
+of the port's bf16 convergence config and ``train`` of its f32 depth config, each in a
+child process whose launches are counted); and last the kernels' refusal: small models the kernels do not take (scaled-dot float32 without dropout,
 window 16, float32 cosine in training), and an f32 tail at C 48, raise under "auto"
 with no launch, and run the plain versions under "xla".
 
     python3 chip_smoke.py            # needs one CUDA GPU; exits non-zero otherwise
+
+(``python3 chip_smoke.py --entry-child COUNTS -- <cli arguments>`` is the run-entry
+phase's child: ``python3 -m heal_swin_torch.cli <cli arguments>``, then its launch
+counters written to COUNTS.)
 
 Prints its findings line by line, a JSON line of per-kernel results, and ends with
 {"ok": true, "device": {...}}.  Any failed check raises, so the exit code is non-zero.
@@ -86,6 +94,7 @@ from __future__ import annotations
 import collections
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -454,11 +463,11 @@ def check_kernels(gen, dev):
 TAIL_P = 4  # the expand's sub-pixels (patch size 4)
 
 
-def tail_inputs(rnd, gen, dev):
+def tail_inputs(rnd, gen, dev, F=N_CLASSES):
     """The paper tail's operands (T = 262,144 tokens of batch 2 at nside 256, C 96, p 4,
-    F 10): (x, we, gamma, beta, wh, y, welem), x bf16, per-element weights of random
-    class weights."""
-    C, p, F = 96, TAIL_P, N_CLASSES
+    F classes, 10 by default): (x, we, gamma, beta, wh, y, welem), x bf16, per-element
+    weights of random class weights."""
+    C, p = 96, TAIL_P
     T = BATCH * 8 * NSIDE * NSIDE // p
     x = rnd(T, C).to(torch.bfloat16)
     we, wh = rnd(C, p * C, std=0.02), rnd(C, F, std=0.02)
@@ -3704,6 +3713,425 @@ def drive_fit(dev, timed):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ------------------------------------- the real input path and the run entry on the card
+RUN_N_PER_CAM = 4  # fixture images per camera: 16 an image set, 13 train (6 steps) / 4 val
+RUN_EPOCHS = 5  # segmentation epochs: one validation (check_val_every_n_epoch 5)
+RUN_DEPTH_EPOCHS = 4  # depth epochs: one validation (check_val_every_n_epoch 4)
+RUN_TIMEOUT = 420  # seconds for one entry subprocess
+LR_FIND_STEPS = 20
+FIXTURE_H, FIXTURE_W = 966, 1280  # the fixtures' image size, WoodScape's
+ENTRY_ARGS = []  # extra arguments of every entry run (a rehearsal passes --device cpu)
+PROJ_REL_TOL = 1e-6  # the wide gather against the narrow one, f32, before the floor
+DECODE_IMAGES = 4  # fixture images decoded for the host decode time
+CONFIGS = "heal_swin_torch/configs"
+# the bf16 paper model's launches a train step / a validation batch (its loss passes a
+# sample mask, so the tail is unfused: no K6)
+SEG_STEP_LAUNCHES = dict(ATTN_LAUNCHES[True], **ATTN_BWD_LAUNCHES[True], final_head_loss=1,
+                         final_head_loss_bwd=1)
+# the depth paper config's: attention dropout sends training to the plain route
+DEPTH_STEP_LAUNCHES = dict(final_head_depth_loss_f32=1, final_head_depth_loss_bwd_f32=1)
+DEPTH_VAL_LAUNCHES = dict(PAPER_EVAL_LAUNCHES, final_head_depth_loss_f32=1)
+# the port's convergence config with eval_after_train replaced by False (the port has no
+# evaluate entry yet): the run entry's only cut besides SMOKE_N_PER_CAM / SMOKE_EPOCHS
+ENTRY_CONFIG = """import dataclasses
+
+from heal_swin_torch.utils.utils import get_config_from_config_path
+
+BASE = {base!r}
+
+
+def get_train_run_config():
+    rc = get_config_from_config_path(BASE, "get_train_run_config")
+    return dataclasses.replace(rc, train=dataclasses.replace(rc.train, eval_after_train=False))
+
+
+def get_resume_run_config():
+    rc = get_config_from_config_path(BASE, "get_resume_run_config")
+    return dataclasses.replace(rc, train_run_config=get_train_run_config())
+
+
+def get_pl_config():
+    return get_config_from_config_path(BASE, "get_pl_config")
+"""
+
+
+def entry_child(counts_path, argv):
+    """``python3 chip_smoke.py --entry-child COUNTS -- <cli arguments>``: runs
+    ``python3 -m heal_swin_torch.cli <cli arguments>`` in this process, then writes the
+    kernels' launch counters (per kernel, per shape) and the fit's steady train samples
+    and seconds (``Trainer.last_train_steady_*``: its last epoch after the epoch's first
+    step) to COUNTS and exits with the entry's code."""
+    import runpy
+
+    from heal_swin_torch.training.trainer import Trainer
+
+    steady = {}
+    fit = Trainer.fit
+
+    def fit_and_keep(self, *args, **kwargs):
+        try:
+            return fit(self, *args, **kwargs)
+        finally:
+            steady.update(samples=getattr(self, "last_train_steady_samples", 0),
+                          seconds=getattr(self, "last_train_steady_time", 0.0))
+
+    Trainer.fit = fit_and_keep
+    sys.argv = ["heal_swin_torch.cli"] + argv
+    code = 0
+    try:
+        runpy.run_module("heal_swin_torch.cli", run_name="__main__", alter_sys=True)
+    except SystemExit as e:
+        code = e.code if isinstance(e.code, int) else 1
+    except BaseException:
+        import traceback
+
+        traceback.print_exc()
+        code = 1
+    launches, by_shape = read_counters()
+    with open(counts_path, "w") as f:
+        json.dump({"launches": launches, "by_shape": [[list(k), v] for k, v in by_shape.items()],
+                   "steady": steady}, f)
+    return code
+
+
+def run_entry(label, root, argv, env):
+    """One run of the port's entry (``python3 -m heal_swin_torch.cli`` + ``argv``) in a
+    subprocess with ``env`` on top of this one's: checks its exit code and its ``This run
+    has id`` line; returns (run id, seconds, launches, launches by shape, the fit's steady
+    img/s)."""
+    import re
+
+    counts = root / f"{label}_counts.json"
+    cmd = [sys.executable, __file__, "--entry-child", str(counts), "--"] + argv + ENTRY_ARGS
+    log(f"{label}: python3 -m heal_swin_torch.cli {' '.join(argv)} (env {env})")
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=dict(os.environ, **env), capture_output=True, text=True,
+                          timeout=RUN_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    (root / f"{label}.log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise AssertionError(f"{label}: exit code {proc.returncode}\n{proc.stdout[-3000:]}"
+                             f"\n{proc.stderr[-6000:]}")
+    ids = re.findall(r"This run has id (\w+)", proc.stdout)
+    if len(ids) != 1:
+        raise AssertionError(f"{label}: run id lines {ids}\n{proc.stdout[-3000:]}")
+    got = json.loads(counts.read_text())
+    by_shape = collections.Counter({tuple(k): v for k, v in got["by_shape"]})
+    steady = got["steady"]["samples"] / max(got["steady"]["seconds"], 1e-9)
+    log(f"{label}: run {ids[0]}, exit code 0 in {seconds:.3f} s; the fit's last epoch after "
+        f"its first step {steady:.4f} img/s")
+    return ids[0], seconds, got["launches"], by_shape, steady
+
+
+def entry_run(store, run_id, label, metrics, ckpt_metric, epoch_files=(1, 3)):
+    """A finished entry run in ``store``: status FINISHED, every metric of ``metrics``
+    logged and finite, and its checkpoints last.ckpt and between ``epoch_files`` top-k
+    files of ``ckpt_metric``, and best.ckpt where there is one.  Returns the run."""
+    run = store.get_run(run_id)
+    if run.status != "FINISHED":
+        raise AssertionError(f"{label}: run {run_id} status {run.status}")
+    for name in metrics:
+        hist = run.get_metric_history(name)
+        if not hist or not all(math.isfinite(v) for _, v, _ in hist):
+            raise AssertionError(f"{label}: metric {name!r} missing or not finite: {hist}")
+    files = sorted(p.name for p in (run.artifact_dir / "checkpoints").iterdir())
+    epochs = [f for f in files if f.startswith("epoch=") and f"_{ckpt_metric}=" in f]
+    if ("last.ckpt" not in files or ("best.ckpt" in files) != bool(epochs)
+            or not epoch_files[0] <= len(epochs) <= epoch_files[1]):
+        raise AssertionError(f"{label}: checkpoint files {files}")
+    log(f"{label}: status FINISHED, checkpoints {files}")
+    return run
+
+
+def expect_launches(per_step, steps, per_val=None, val_batches=0):
+    expected = dict(NO_LAUNCHES)
+    for k, v in per_step.items():
+        expected[k] += v * steps
+    for k, v in (per_val or {}).items():
+        expected[k] += v * val_batches
+    return expected
+
+
+def first_val_batch(dm, dev):
+    """The datamodule's first validation batch, host and device copies."""
+    imgs, targets = next(iter(dm.val_dataloader()))
+    return (imgs, targets), (torch.as_tensor(imgs).to(dev),
+                             tuple(torch.as_tensor(t).to(dev) for t in targets))
+
+
+def host_decode_ms(root):
+    """Host decode ms per image: the fixture's RGB images and masks through
+    ``utils.image``, and one image re-encoded with every row Paeth-filtered (the
+    wavefront path; the fixture's writer uses filter None)."""
+    from heal_swin_torch.utils import image as I
+    from heal_swin_torch.utils import png
+
+    imgs = sorted((root / "woodscape" / "rgb_images" / "rgb_images").glob("*.png"))
+    masks = root / "woodscape" / "semantic_annotations" / "semantic_annotations" / "gtLabels"
+    t = time.perf_counter()
+    for p in imgs[:DECODE_IMAGES]:
+        rgb = I.read_image(p)
+    img_ms = (time.perf_counter() - t) * 1e3 / DECODE_IMAGES
+    t = time.perf_counter()
+    for p in imgs[:DECODE_IMAGES]:
+        I.read_mask(masks / p.name)
+    mask_ms = (time.perf_counter() - t) * 1e3 / DECODE_IMAGES
+    paeth = png.encode(rgb.transpose(1, 2, 0), filter_type=4)
+    t = time.perf_counter()
+    back = png.decode(paeth).samples
+    paeth_ms = (time.perf_counter() - t) * 1e3
+    if not np.array_equal(back, rgb.transpose(1, 2, 0)):
+        raise AssertionError("decode of the Paeth-filtered image differs")
+    log(f"run entry: host decode of a {rgb.shape[1]}x{rgb.shape[2]} image: RGB {img_ms:.3f} ms, "
+        f"mask {mask_ms:.3f} ms (filter None, the fixture's), RGB with every row Paeth "
+        f"{paeth_ms:.3f} ms (the wavefront)")
+    return dict(decode_rgb_ms=img_ms, decode_mask_ms=mask_ms, decode_paeth_ms=paeth_ms)
+
+
+def check_projection(dm, dev, depth):
+    """One validation batch projected on the card by the datamodule's
+    ``device_batch_transform``, against the host npz pipeline for the same samples
+    (segmentation: images at most 1 off and more than 99% equal, masks equal; depth: the
+    depth maps equal, inf where the host's are), and the wide gather against the narrow
+    plain version within PROJ_REL_TOL before the floor.  Returns the device ms of the
+    projection per batch, wide and narrow, and the device batch after the transform."""
+    from heal_swin_torch.data.depth_estimation.hp_depth_datamodule import (
+        WoodscapeHPDepthImagesDataset)
+    from heal_swin_torch.data.segmentation.hp_datamodule import WoodscapeHPSemanticImagesDataset
+
+    c = dm.common
+    kind = "depth" if depth else "segmentation"
+    (imgs_h, _), (imgs, targets) = first_val_batch(dm, dev)
+    with torch.no_grad():
+        hp_imgs, hp_targets = dm.device_batch_transform(imgs, targets)
+        proj, cal_ids = dm._projector, targets[1]
+        wide = proj.project_images(imgs.float(), cal_ids)
+        narrow = proj.project_images_narrow(imgs.float(), cal_ids)
+    err = rel_l2(wide, narrow)
+    if not err <= PROJ_REL_TOL:
+        raise AssertionError(f"{kind} projection: wide vs narrow rel_l2 {err:.3e}")
+    kw = dict(nside=dm.nside, base_pix=dm.base_pix, cam_pos=c.cam_pos, train_share=c.train_share,
+              rotate_pole=c.rotate_pole, part="val", woodscape_version=dm.woodscape_version)
+    if depth:
+        host_ds = WoodscapeHPDepthImagesDataset(
+            mask_background=dm.mask_background, data_transform=dm.data_transform,
+            normalize_data=dm.normalize_data, **kw)
+    else:
+        host_ds = WoodscapeHPSemanticImagesDataset(crop_green=c.crop_green,
+                                                   s2_bkgd_class=c.s2_bkgd_class, **kw)
+    names = [dm.val_dataset.names[i] for i in range(imgs.shape[0])]
+    got_i, got_t = hp_imgs.cpu(), hp_targets.cpu()
+    for i, name in enumerate(names):
+        hi, ht = host_ds.get_item_by_name(name) if depth else host_ds.load_raw(
+            host_ds.names.index(name))
+        hi = torch.as_tensor(hi if depth else hi.T).float()
+        ht = torch.as_tensor(ht)
+        if depth:
+            img_err = rel_l2(got_i[i], hi)
+            if not (torch.equal(torch.isinf(got_t[i]), torch.isinf(ht))
+                    and torch.equal(got_t[i][torch.isfinite(ht)], ht[torch.isfinite(ht)])):
+                raise AssertionError(f"depth projection {name}: depth maps differ from the npz")
+            log(f"depth projection {name}: depth map equal to the npz pipeline's "
+                f"({int(torch.isinf(ht).sum())} inf of {ht.numel()}), image rel_l2 "
+                f"{img_err:.3e} (the npz keeps f32 images)")
+        else:
+            diff = (got_i[i] - hi).abs()
+            share = float((diff == 0).float().mean())
+            if float(diff.max()) > 1 or share <= 0.99 or not torch.equal(got_t[i].long(),
+                                                                          ht.long()):
+                raise AssertionError(f"segmentation projection {name}: max diff "
+                                     f"{float(diff.max())}, {share:.6f} equal, masks equal "
+                                     f"{torch.equal(got_t[i].long(), ht.long())}")
+            log(f"segmentation projection {name}: images max diff {float(diff.max()):.0f}, "
+                f"{share * 100:.4f}% equal to the npz pipeline's; masks equal")
+    wide_ms = median_ms(lambda: proj.project_images(imgs.float(), cal_ids))
+    narrow_ms = median_ms(lambda: proj.project_images_narrow(imgs.float(), cal_ids))
+    transform_ms = median_ms(lambda: dm.device_batch_transform(imgs, targets))
+    B, H, W, C = imgs.shape
+    patch_bytes = B * ((H + 1) * (W + 1) - W - 2) * 4 * C * 4
+    log(f"{kind} projection of a batch of {B} {H}x{W} images to {wide.shape[1]} pixels: wide "
+        f"{wide_ms:.4f} ms, narrow (plain) {narrow_ms:.4f} ms, the whole device transform "
+        f"{transform_ms:.4f} ms (one call, CUDA events, median of {TIMING_RUNS}); wide vs "
+        f"narrow rel_l2 {err:.3e}; the wide form's patch tensor {patch_bytes / 1e6:.1f} MB")
+    return dict(wide_ms=wide_ms, narrow_ms=narrow_ms, transform_ms=transform_ms,
+                wide_vs_narrow=err), imgs_h, (hp_imgs, hp_targets)
+
+
+def bare_step_rate(task, batch, n=5):
+    """The bare ``train_step`` rate of ``task`` on a projected batch already on the card
+    (after 2 warm-up steps): images/s."""
+    from heal_swin_torch.training.optimizer import make_optimizer
+
+    opt = make_optimizer(task.model.parameters(), task.optimizer_config)
+    imgs, targets = batch
+    _, _, _, mstate = train_rate(task, opt, task.metric_init(), imgs, targets, 0, 2)
+    rate_, mem, losses, _ = train_rate(task, opt, mstate, imgs, targets, 2, n)
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"bare train_step losses {losses}")
+    return rate_, mem
+
+
+def drive_run_entry(dev, timed):
+    """The real input path and the run entry on the card.  Into a temporary
+    HEAL_SWIN_DATA_ROOT: the port's generator writes both 966x1280 fixtures (WoodScape,
+    and SynWoodScape with depth maps), RUN_N_PER_CAM images a camera; the host decode is
+    timed (``host_decode_ms``); one validation batch of each port config's datamodule is
+    projected on the card and held to the host npz pipeline and the wide gather to the
+    narrow one (``check_projection``).  Then ``python3 -m heal_swin_torch.cli train`` runs
+    the port's convergence config (bf16 paper model, nside 256, base_pix 8,
+    ``project_on_device``) for RUN_EPOCHS epochs with ``eval_after_train`` replaced by
+    False (ENTRY_CONFIG), in a subprocess: exit code, run id line, status FINISHED,
+    checkpoints, a finite train_loss falling from the first epoch to the last, finite
+    validation metrics, and every launch of the run (SEG_STEP_LAUNCHES a step, K1 20 and
+    K2 2 a validation batch, nothing else); its fit rate (the last epoch's
+    ``train_time_per_sample``) beside the bare ``train_step`` on a projected batch on the
+    card.  ``cli resume`` continues the run from its last.ckpt for one more epoch.  The
+    depth config trains RUN_DEPTH_EPOCHS epochs through the entry (f32 K8 / K9 a step; f32
+    K1 20, K2 2, K8 1 a validation batch).  Last ``Trainer.lr_find`` runs LR_FIND_STEPS
+    steps of the convergence config."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from heal_swin_torch.data.data import get_data_module
+    from heal_swin_torch.data.synthetic_woodscape import generate
+    from heal_swin_torch.ops import final_head as fh
+    from heal_swin_torch.tracking.mlflow_store import MlflowFileStore
+    from heal_swin_torch.train import build_task
+    from heal_swin_torch.training.checkpoint import load_checkpoint
+    from heal_swin_torch.training.trainer import Trainer
+    from heal_swin_torch.utils.utils import get_config_from_config_path
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_entry_"))
+    env = dict(HEAL_SWIN_DATA_ROOT=str(root), HEAL_SWIN_MLRUNS=str(root / "mlruns"),
+               SMOKE_N_PER_CAM=str(RUN_N_PER_CAM), SMOKE_EPOCHS=str(RUN_EPOCHS))
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    seg_cfg, depth_cfg = (str(Path(__file__).resolve().parent / CONFIGS / f) for f in (
+        "smoke_convergence_run_config.py", "smoke_depth_run_config.py"))
+    try:
+        t = time.perf_counter()
+        for version, depth in (("woodscape", False), ("synwoodscape", True)):
+            generate(root, version=version, n_per_cam=RUN_N_PER_CAM, W=FIXTURE_W, H=FIXTURE_H,
+                     seed=0, with_depth=depth)
+        gen_s = time.perf_counter() - t
+        log(f"run entry: both {FIXTURE_H}x{FIXTURE_W} fixtures, {4 * RUN_N_PER_CAM} images each, written in "
+            f"{gen_s:.3f} s")
+        decode = host_decode_ms(root)
+
+        # the projection on the card, against the host npz pipeline
+        rc = get_config_from_config_path(seg_cfg, "get_train_run_config")
+        t = time.perf_counter()
+        dm, spec = get_data_module(rc.data)
+        log(f"run entry: segmentation datamodule (the host npz projection of all "
+            f"{4 * RUN_N_PER_CAM} images at nside {dm.nside} included) in "
+            f"{time.perf_counter() - t:.3f} s; {len(dm.train_dataset)} train / "
+            f"{len(dm.val_dataset)} validation samples, {spec.f_out} classes")
+        seg_proj, _, seg_batch = check_projection(dm, dev, depth=False)
+        drc = get_config_from_config_path(depth_cfg, "get_train_run_config")
+        ddm, _ = get_data_module(drc.data)
+        depth_proj, _, _ = check_projection(ddm, dev, depth=True)
+        n_train, n_val = len(dm.train_dataset), len(dm.val_dataset)
+        steps = n_train // rc.data.common.batch_size
+        pl = get_config_from_config_path(seg_cfg, "get_pl_config")
+        val_batches = min(pl.limit_val_batches, n_val // rc.data.common.val_batch_size)
+
+        # K6 / K7 at the fixture's classes, against their plain versions
+        rnd, _ = seeded_draws(torch.Generator().manual_seed(SEED + 7), dev)
+        check_loss_kernels(f"run entry F={spec.f_out}",
+                           tail_inputs(rnd, torch.Generator().manual_seed(SEED + 8), dev,
+                                       F=spec.f_out), TAIL_P, fh, timing=False)
+
+        # the bare bf16 train_step on a projected batch on the card, and lr_find
+        task = build_task(rc.model, spec, rc.data, device=dev)
+        bare, bare_mem = bare_step_rate(task, seg_batch)
+        trainer = Trainer(pl, rc.train, device=dev)
+        t = time.perf_counter()
+        sugg, lrs, losses = trainer.lr_find(task, dm, num_training=LR_FIND_STEPS)
+        lr_s = time.perf_counter() - t
+        if (len(lrs) < 5 or not all(math.isfinite(v) for v in lrs + losses)
+                or sugg is None or not min(lrs) <= sugg <= max(lrs)):
+            raise AssertionError(f"lr_find: suggestion {sugg}, rates {lrs}, losses {losses}")
+        log(f"lr_find: {len(lrs)} steps in {lr_s:.3f} s, suggested lr {sugg:.4e}; smoothed "
+            "losses " + " ".join(f"{v:.4f}" for v in losses))
+        del task, trainer, seg_batch
+        torch.cuda.empty_cache()
+
+        # segmentation through the entry, then its resume
+        store = MlflowFileStore(root / "mlruns")
+        wrapper = root / "entry_convergence_config.py"
+        wrapper.write_text(ENTRY_CONFIG.format(base=seg_cfg))
+        run_id, seg_s, launches, by_shape, fit_steady = run_entry(
+            "entry train", root, ["train", "--config_path", str(wrapper)], {})
+        check_launches("entry train", launches, by_shape,
+                       expect_launches(SEG_STEP_LAUNCHES, RUN_EPOCHS * steps,
+                                       ATTN_LAUNCHES[True], val_batches), timed)
+        val_names = ("val_loss", "val_acc", "val_iou_global", "val_iou_global_ignored")
+        run = entry_run(store, run_id, "entry train",
+                        ("train_loss", "train_acc", "train_iou_global", "epoch") + val_names,
+                        "val_iou_global_ignored")
+        tl = [v for _, v, _ in run.get_metric_history("train_loss")]
+        if len(tl) != RUN_EPOCHS or not tl[-1] < tl[0]:
+            raise AssertionError(f"entry train: train_loss by epoch {tl}")
+        tps = [v for _, v, _ in run.get_metric_history("train_time_per_sample in ms")]
+        fit_rate = 1e3 / tps[-1]
+        log(f"entry train: {RUN_EPOCHS} epochs of {steps} steps; train_loss by epoch "
+            + " ".join(f"{v:.6f}" for v in tl) + "; "
+            + " ".join(f"{k} {run.get_metric_history(k)[-1][1]:.6f}" for k in val_names)
+            + f"; fit {fit_rate:.4f} img/s in its last epoch (train_time_per_sample "
+            + " ".join(f"{v:.3f}" for v in tps) + f" ms), {fit_steady:.4f} after the epoch's "
+            f"first step, against the bare train_step's {bare:.4f} img/s ({bare_mem:.3f} GiB "
+            "above the resident)")
+
+        resume_id, resume_s, launches, by_shape, _ = run_entry(
+            "entry resume", root, ["resume", "--config_path", str(wrapper)],
+            dict(RUN_ID=run_id, SMOKE_EPOCHS=str(RUN_EPOCHS + 1)))
+        check_launches("entry resume", launches, by_shape,
+                       expect_launches(SEG_STEP_LAUNCHES, steps), timed)
+        resumed = entry_run(store, resume_id, "entry resume", ("train_loss", "epoch"),
+                            "val_iou_global_ignored", epoch_files=(0, 0))
+        epochs = [v for _, v, _ in resumed.get_metric_history("epoch")]
+        _, _, meta = load_checkpoint(resumed.artifact_dir / "checkpoints" / "last.ckpt")
+        if (epochs != [RUN_EPOCHS] or meta["epoch"] != RUN_EPOCHS
+                or meta["global_step"] != (RUN_EPOCHS + 1) * steps):
+            raise AssertionError(f"entry resume: epochs {epochs}, last.ckpt {meta}")
+        log(f"entry resume: run {resume_id} continued {run_id} from its last.ckpt: epoch "
+            f"{RUN_EPOCHS} only, to global step {meta['global_step']}, train_loss "
+            f"{resumed.get_metric_history('train_loss')[-1][1]:.6f}")
+
+        # depth through the entry
+        depth_id, depth_s, launches, by_shape, depth_steady = run_entry(
+            "entry depth", root, ["train", "--config_path", depth_cfg],
+            dict(SMOKE_EPOCHS=str(RUN_DEPTH_EPOCHS)))
+        dsteps = len(ddm.train_dataset) // drc.data.common.batch_size
+        dval = min(pl.limit_val_batches, len(ddm.val_dataset) // drc.data.common.val_batch_size)
+        check_launches("entry depth", launches, by_shape,
+                       expect_launches(DEPTH_STEP_LAUNCHES, RUN_DEPTH_EPOCHS * dsteps,
+                                       DEPTH_VAL_LAUNCHES, dval), timed)
+        drun = entry_run(store, depth_id, "entry depth",
+                         ("train_loss", "val_loss", "val_mse", "epoch"), "val_mse")
+        dtps = [v for _, v, _ in drun.get_metric_history("train_time_per_sample in ms")]
+        log(f"entry depth: {RUN_DEPTH_EPOCHS} epochs of {dsteps} steps; train_loss by epoch "
+            + " ".join(f"{v:.6f}" for _, v, _ in drun.get_metric_history("train_loss"))
+            + f"; val_mse {drun.get_metric_history('val_mse')[-1][1]:.6f}; fit "
+            f"{1e3 / dtps[-1]:.4f} img/s in its last epoch, {depth_steady:.4f} after its first "
+            "step")
+        timed["run entry"] = dict(decode, seg_projection=seg_proj, depth_projection=depth_proj,
+                                  fit_img_s=fit_rate, fit_steady_img_s=fit_steady,
+                                  bare_img_s=bare, depth_fit_steady_img_s=depth_steady,
+                                  train_s=seg_s,
+                                  resume_s=resume_s, depth_s=depth_s, lr_find_s=lr_s,
+                                  fixtures_s=gen_s)
+        log("run entry: " + json.dumps(timed["run entry"]))
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(root, ignore_errors=True)
+
+
 GATE_NSIDE = 32  # 512 tokens an image at the second stage: one 64-token window per base pixel
 
 
@@ -4192,6 +4620,9 @@ def main() -> int:
     t_fit = time.perf_counter()
     drive_fit(dev, timed)
     torch.cuda.empty_cache()
+    t_entry = time.perf_counter()
+    drive_run_entry(dev, timed)
+    torch.cuda.empty_cache()
     t_gate = time.perf_counter()
     drive_refusal(dev)
     t_end = time.perf_counter()
@@ -4199,7 +4630,8 @@ def main() -> int:
         f"{t_mlp - t_chamfer:.1f} s of it, the MLP phase {t_dot - t_mlp:.1f} s, the "
         f"scaled-dot phase {t_paper - t_dot:.1f} s, the paper-config phase "
         f"{t_depth - t_paper:.1f} s, the paper depth phase {t_eval - t_depth:.1f} s, the "
-        f"paper eval phase {t_fit - t_eval:.1f} s, the fit phase {t_gate - t_fit:.1f} s, "
+        f"paper eval phase {t_fit - t_eval:.1f} s, the fit phase {t_entry - t_fit:.1f} s, "
+        f"the run-entry phase {t_gate - t_entry:.1f} s, "
         f"the refusal phase {t_end - t_gate:.1f} s")
 
     blocked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "heal_swin_tpu"))
@@ -4228,4 +4660,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--entry-child"]:
+        sys.exit(entry_child(sys.argv[2], sys.argv[4:]))
     sys.exit(main())

@@ -1,9 +1,9 @@
 """Data dispatch: data config -> (datamodule, data spec) (the port's counterpart of
 ``heal_swin_tpu/data/data.py``).
 
-The port has the synthetic HEALPix datamodules (``version="synthetic"``); the real
-WoodScape / SynWoodScape datamodules and the flat configs raise until the port's data
-path has them.
+``version="synthetic"`` routes to the in-memory synthetic HEALPix datamodules; the
+woodscape versions route to the real WoodScape / SynWoodScape HEALPix datamodules.  The
+flat configs raise until the port has its flat SWIN-UNet.
 """
 
 from __future__ import annotations
@@ -30,22 +30,47 @@ def create_depth_dataspec_from_data_module(dm, base_pix, data_config) -> DepthDa
                                                              dc.mask_background))
 
 
-def get_data_module(data_config):
-    """(datamodule, data spec) of a ``WoodscapeHPConfig`` or ``WoodscapeHPDepthConfig``
-    with ``common.version == "synthetic"``."""
-    from heal_swin_torch.data import synthetic
+def get_hp_data_module(config):
+    if config.common.version == "synthetic":
+        from heal_swin_torch.data.synthetic import SyntheticHPSegDataModule
 
+        dm = SyntheticHPSegDataModule(config)
+    else:
+        from heal_swin_torch.data.segmentation.hp_datamodule import (
+            WoodscapeHPSegmentationDataModule,
+        )
+
+        dm = WoodscapeHPSegmentationDataModule(config)
+    return dm, create_dataspec_from_data_module(dm, base_pix=config.input_base_pix)
+
+
+def get_depth_hp_data_module(config):
+    if config.common.version == "synthetic":
+        from heal_swin_torch.data.synthetic import SyntheticHPDepthDataModule
+
+        dm = SyntheticHPDepthDataModule(config)
+    else:
+        from heal_swin_torch.data.depth_estimation.hp_depth_datamodule import (
+            WoodscapeHPDepthDataModule,
+        )
+
+        dm = WoodscapeHPDepthDataModule(config)
+    return dm, create_depth_dataspec_from_data_module(dm, config.input_base_pix, config)
+
+
+_DISPATCH = {
+    "WoodscapeHPConfig": get_hp_data_module,
+    "WoodscapeHPDepthConfig": get_depth_hp_data_module,
+}
+
+
+def get_data_module(data_config):
+    """(datamodule, data spec) of a data config, dispatched on its class name
+    (reference data.py:76-83)."""
     name = type(data_config).__name__
-    if name not in ("WoodscapeHPConfig", "WoodscapeHPDepthConfig"):
+    if name in ("WoodscapeFlatConfig", "WoodscapeDepthFlatConfig"):
         raise NotImplementedError(f"data config {name}: the port's flat datamodules come "
                                   "with its flat SWIN-UNet (ROADMAP queue 1 item 5)")
-    if data_config.common.version != "synthetic":
-        raise NotImplementedError(
-            f"data version {data_config.common.version!r}: the port's WoodScape datamodules "
-            "come with its data path (ROADMAP queue 1 item 3b); version='synthetic' runs")
-    bp = data_config.input_base_pix
-    if name == "WoodscapeHPConfig":
-        dm = synthetic.SyntheticHPSegDataModule(data_config)
-        return dm, create_dataspec_from_data_module(dm, base_pix=bp)
-    dm = synthetic.SyntheticHPDepthDataModule(data_config)
-    return dm, create_depth_dataspec_from_data_module(dm, bp, data_config)
+    if name not in _DISPATCH:
+        raise ValueError(f"unknown data config class: {name}")
+    return _DISPATCH[name](data_config)

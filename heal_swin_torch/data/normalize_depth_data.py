@@ -116,11 +116,21 @@ def reverse_mask_transform_fcn(transform_type: Optional[str]):
     return {"log": exp_mask, "inv": inverse_mask, "None": _id, None: _id}[transform_type]
 
 
+def _divisor(data, value):
+    """``value`` as a 0-d tensor of ``data``'s dtype on its device when ``data`` is a
+    tensor: the division by it is then IEEE division on a GPU too (a Python scalar
+    divisor there becomes a product with its reciprocal, an ulp off the host's
+    quotient)."""
+    if isinstance(data, torch.Tensor):
+        return torch.tensor(value, dtype=data.dtype, device=data.device)
+    return value
+
+
 def normalize_data(data, data_stats: DataStats, norm_type: Optional[str] = None):
     if norm_type == "standardize":
-        return (data - data_stats.mean) / data_stats.std
+        return (data - data_stats.mean) / _divisor(data, data_stats.std)
     if norm_type == "min-max":
-        return (data - data_stats.min) / (data_stats.max - data_stats.min)
+        return (data - data_stats.min) / _divisor(data, data_stats.max - data_stats.min)
     return data
 
 

@@ -12,7 +12,12 @@ trainer's names), ``validate`` and ``predict``.
   so a resumed run draws the masks the uninterrupted run draws.
 - The host batches reach the device through pinned buffers copied ``non_blocking`` on
   a side stream by a background thread, ``depth`` batches ahead
-  (``_device_prefetch``).
+  (``_device_prefetch``).  A datamodule's ``device_batch_transform`` (the uint8 wire
+  format's cast, or the fisheye->HEALPix projection) then runs on each device batch of
+  ``fit``, ``lr_find`` and validation, before the step.  The network is built from the
+  data spec, whose input size is the datamodule's ``get_img_dims`` (the projected
+  HEALPix pixels with ``project_on_device``), so nothing is derived from a transformed
+  batch.
 - The loss is fetched to the host only every ``log_every_n_steps`` steps (or every step
   with ``terminate_on_nan``) and at the epoch's end; the epoch loss accumulates on the
   device.
@@ -340,6 +345,80 @@ class Trainer:
                 "experiment": self.tc.mlflow_expmt, "global_step": self.global_step,
                 "scheduler": scheduler.state_dict() if scheduler else None}
 
+    # --------------------------------------------------------------- lr find
+    def lr_find(self, task, datamodule, min_lr=1e-8, max_lr=1.0, num_training=100,
+                early_stop_threshold=4.0):
+        """Exponential learning-rate range test (``heal_swin_tpu/training/trainer.py``
+        ``Trainer.lr_find``; the reference's Lightning ``auto_lr_find``): from the seeded
+        initial weights, sweep the rate from ``min_lr`` to ``max_lr`` over
+        ``num_training`` steps, recording the exponentially smoothed loss; stop when it
+        diverges (> ``early_stop_threshold`` x the best after 10 steps) or turns
+        non-finite; suggest the rate at the steepest descent of the smoothed curve.
+        Step i's dropout masks come from ``step_generator(seed, i)``.
+
+        Returns ``(suggested rate or None, rates, smoothed losses)``.  The network's
+        weights are restored afterwards."""
+        self._check_device(task)
+        model, dev = task.model, self.device
+        seed = self.tc.seed if self.tc.seed is not None else 0
+        loader = datamodule.train_dataloader()
+        loader.drop_last = True
+        avail = loader.indices if loader.indices is not None else np.arange(len(loader.dataset))
+        if len(avail) < loader.batch_size:
+            loader.indices = np.resize(avail, loader.batch_size)
+        transform = getattr(datamodule, "device_batch_transform", None)
+
+        saved = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        model.reset_parameters(torch.Generator().manual_seed(seed))
+        opt = make_optimizer(model.parameters(), task.optimizer_config,
+                             gradient_clip_val=self.pl.gradient_clip_val)
+
+        def batches():
+            epoch = 0
+            while True:
+                loader.set_epoch(epoch)
+                epoch += 1
+                for b in loader:
+                    yield (b,)
+
+        lrs, losses = [], []
+        smoothed, best = None, math.inf
+        beta = 0.98
+        try:
+            for i, ((imgs, targets),) in enumerate(self._device_prefetch(batches())):
+                if i >= num_training:
+                    break
+                if transform is not None:
+                    imgs, targets = transform(imgs, targets)
+                lr = min_lr * (max_lr / min_lr) ** (i / max(num_training - 1, 1))
+                set_learning_rate(opt, lr)
+                model.train()
+                opt.zero_grad(set_to_none=True)
+                loss, _ = task.loss_fn(imgs, targets, generator=step_generator(seed, i, dev),
+                                       deterministic=False)
+                loss.backward()
+                opt.step()
+                loss_val = float(loss.detach())
+                if not math.isfinite(loss_val):
+                    break
+                smoothed = loss_val if smoothed is None else beta * smoothed + (1 - beta) * loss_val
+                debiased = smoothed / (1 - beta ** (i + 1))
+                lrs.append(lr)
+                losses.append(debiased)
+                best = min(best, debiased)
+                if debiased > early_stop_threshold * best and i + 1 > 10:
+                    break  # diverged
+        finally:
+            model.load_state_dict(saved)
+
+        if len(lrs) < 5:
+            return None, lrs, losses
+        # steepest descent of the smoothed curve, skipping the unstable edges
+        grads = np.gradient(np.asarray(losses))
+        lo, hi = max(1, len(lrs) // 10), len(lrs) - max(1, len(lrs) // 20)
+        idx = lo + int(np.argmin(grads[lo:hi]))
+        return float(lrs[idx]), lrs, losses
+
     # ------------------------------------------------------------------- fit
     def fit(self, task, datamodule, resume_state: Optional[dict] = None) -> FitResult:
         """Train ``task`` on ``datamodule``'s train loader, validating on its val
@@ -362,6 +441,8 @@ class Trainer:
                  else np.arange(len(train_loader.dataset)))
         if len(avail) < train_loader.batch_size:
             train_loader.indices = np.resize(avail, train_loader.batch_size)
+
+        transform = getattr(datamodule, "device_batch_transform", None)
 
         # weights, optimizer, scheduler
         model.reset_parameters(torch.Generator().manual_seed(seed))
@@ -440,6 +521,8 @@ class Trainer:
                     yield (imgs, targets), imgs.shape[0]
 
             for (imgs, targets), bsz in self._device_prefetch(staged_train_batches()):
+                if transform is not None:
+                    imgs, targets = transform(imgs, targets)
                 loss, mstate = train_step(task, opt, mstate, imgs, targets,
                                           step_generator(seed, self.global_step, dev))
                 loss_acc += loss
@@ -549,7 +632,8 @@ class Trainer:
         n = _limit(len(loader), self.pl.limit_val_batches)
         if max_batches is not None:
             n = min(n, max_batches)
-        staged = ((imgs, targets) for ((imgs, targets),) in self._device_prefetch(
+        transform = getattr(datamodule, "device_batch_transform", None) or (lambda *b: b)
+        staged = (transform(imgs, targets) for ((imgs, targets),) in self._device_prefetch(
             (b,) for b in itertools.islice(iter(loader), n)))
         v = run_validation(task, staged, metrics_prefix=metrics_prefix,
                            with_per_class=with_per_class)

@@ -162,9 +162,13 @@ def test_synthetic_datamodules_match_the_jax_package(depth, common):
         assert np.isinf(tdm.train_ds.samples[0][1]).any()  # the masked background
 
 
-def test_real_datasets_and_flat_configs_raise():
-    with pytest.raises(NotImplementedError, match="queue 1 item 3b"):
+def test_real_datasets_and_flat_configs_raise(tmp_path, monkeypatch):
+    # the real datamodules exist now: without the dataset on disk they raise, naming it
+    monkeypatch.setenv("HEAL_SWIN_DATA_ROOT", str(tmp_path))
+    with pytest.raises(FileNotFoundError, match="Could not find directory"):
         tdata.get_data_module(tdc.WoodscapeHPConfig())
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+        tdata.get_data_module(type("WoodscapeFlatConfig", (), {})())
     with pytest.raises(NotImplementedError, match="prediction writer"):
         tdata.get_data_module(tdc.WoodscapeHPConfig(common=tdc.WoodscapeCommonConfig(
             version="synthetic", synthetic_train_samples=1, synthetic_val_samples=1)),

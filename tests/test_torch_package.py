@@ -26,7 +26,7 @@ def _port_modules():
 
 def test_port_and_chip_smoke_import_without_the_jax_package():
     """Every module of the port, and chip_smoke.py, imports with jax, flax, optax, dill,
-    msgpack and heal_swin_tpu blocked."""
+    msgpack, heal_swin_tpu, PIL and cv2 blocked."""
     mods = _port_modules()
     assert {"heal_swin_torch.ops.chamfer_pruned", "heal_swin_torch.ops.mlp",
             "heal_swin_torch.run_configs", "heal_swin_torch.training.trainer",
@@ -35,9 +35,21 @@ def test_port_and_chip_smoke_import_without_the_jax_package():
             "heal_swin_torch.tracking.client", "heal_swin_torch.tracking.server",
             "heal_swin_torch.data.loading", "heal_swin_torch.data.synthetic",
             "heal_swin_torch.data.data", "heal_swin_torch.utils.serialize",
-            "heal_swin_torch.utils.utils"} <= set(mods)
+            "heal_swin_torch.utils.utils", "heal_swin_torch.utils.png",
+            "heal_swin_torch.utils.image", "heal_swin_torch.data.synthetic_woodscape",
+            "heal_swin_torch.data.woodscape_dataset",
+            "heal_swin_torch.data.segmentation.flat_datasets",
+            "heal_swin_torch.data.segmentation.project_on_s2",
+            "heal_swin_torch.data.segmentation.hp_datamodule",
+            "heal_swin_torch.data.depth_estimation.flat_depth_datasets",
+            "heal_swin_torch.data.depth_estimation.project_depth_on_s2",
+            "heal_swin_torch.data.depth_estimation.hp_depth_datamodule",
+            "heal_swin_torch.projection.tables", "heal_swin_torch.projection.device",
+            "heal_swin_torch.train", "heal_swin_torch.resume", "heal_swin_torch.cli",
+            "heal_swin_torch.configs.smoke_convergence_run_config",
+            "heal_swin_torch.configs.smoke_depth_run_config"} <= set(mods)
     assert len(mods) >= 38
-    blocked = ("jax", "flax", "heal_swin_tpu", "optax", "dill", "msgpack")
+    blocked = ("jax", "flax", "heal_swin_tpu", "optax", "dill", "msgpack", "PIL", "cv2")
     code = ("import sys\n"
             f"for name in {blocked!r}:\n"
             "    sys.modules[name] = None\n"
