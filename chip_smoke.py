@@ -38,15 +38,22 @@ them, with their launches, tracked metrics and checkpoint files); then the real 
 path and the run entry (``drive_run_entry``: generated 966 x 1280 WoodScape and
 SynWoodScape fixtures, the on-device fisheye -> HEALPix projection held to the host npz
 pipeline, ``Trainer.lr_find``, and ``python3 -m heal_swin_torch.cli train`` / ``resume``
-of the port's bf16 convergence config and ``train`` of its f32 depth config, each in a
-child process whose launches are counted); and last the kernels' refusal: small models the kernels do not take (scaled-dot float32 without dropout,
+of the port's bf16 convergence config, with its ``eval_after_train``, and ``train`` of its
+f32 depth config, each in a child process whose launches are counted); then the
+evaluation entry (``drive_evaluate``: ``python3 -m heal_swin_torch.cli evaluate`` of both
+runs in child processes, the paper's back-projected HP-masked IoU with and without the
+masked IoU, and the depth Chamfer evaluation; the depth Chamfer writer again in this
+process, each of its pairs held to the other route and K10 / K11 to their plain versions;
+the headline writer's metrics again in this process through the kernels and through the
+plain route); and last the kernels'
+refusal: small models the kernels do not take (scaled-dot float32 without dropout,
 window 16, float32 cosine in training), and an f32 tail at C 48, raise under "auto"
 with no launch, and run the plain versions under "xla".
 
     python3 chip_smoke.py            # needs one CUDA GPU; exits non-zero otherwise
 
-(``python3 chip_smoke.py --entry-child COUNTS -- <cli arguments>`` is the run-entry
-phase's child: ``python3 -m heal_swin_torch.cli <cli arguments>``, then its launch
+(``python3 chip_smoke.py --entry-child COUNTS -- <cli arguments>`` is the run-entry and
+evaluation phases' child: ``python3 -m heal_swin_torch.cli <cli arguments>``, then its launch
 counters written to COUNTS.)
 
 Prints its findings line by line, a JSON line of per-kernel results, and ends with
@@ -92,6 +99,7 @@ give the device time by kernel and the device's idle share.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import math
 import os
@@ -2015,7 +2023,34 @@ def fold_sums(folds):
                     f["bound_ms"] for f in folds if f["bound_by"] == by)))
 
 
-def check_chamfer_paper(dev, brute, pruned):
+def check_other_route(stats, dev, timed):
+    """Every pair a Chamfer writer evaluated (its ``on_pair`` records, ``stats``) again
+    on the other route: per-point minima bit-equal and the same value.  Each of the
+    pairs' launch shapes (K10's (n, m), K11's tile pairs of each fold) is thereby
+    checked, and entered in ``timed``."""
+    from heal_swin_torch.ops import chamfer as ch
+    from heal_swin_torch.ops import chamfer_pruned as chp
+
+    for st in stats:
+        other = {}
+        v = ch.chamfer_distance(st["p"], st["q"], route="brute" if st["route"] == "pruned"
+                                else "pruned", device=dev, stats=other)
+        for k in ("d_pq", "d_qp"):
+            same_bits(f"{st['sample']} {st['metric']} {k}: {st['route']} vs {other['route']}",
+                      st[k], other[k])
+        if v != st["value"]:
+            raise AssertionError(f"{st['metric']}: {st['value']} vs {v} on the other route")
+        note = dict(checked=f"per point bit-equal to the {other['route']} route")
+        if st["route"] == "brute":
+            timed[("chamfer_min_both", st["n"], st["m"])] = note
+        else:
+            for k in st["round_pairs"] + [st["final_pairs"]]:
+                if k:
+                    timed[("chamfer_fold_pairs", k)] = note
+    chp.clear()
+
+
+def check_chamfer_paper(dev, brute, pruned, label="chamfer paper pairs"):
     """K10 and K11 against their plain versions at the writer's own shapes, on the
     card: ``brute`` and ``pruned`` are two of the writer's pairs (its ``on_pair``
     records).  K10's plain version on the brute pair, and K11's fold by fold over the
@@ -2053,7 +2088,7 @@ def check_chamfer_paper(dev, brute, pruned):
     k11 = dict(fold_sums(folds), library_ms=None, folds=folds,
                timed_on=f"{pruned['sample']} {pruned['metric']} pair, {len(p)} x {len(q)}")
     torch.cuda.empty_cache()
-    log(f"chamfer paper pairs on the card: K10 = plain on {k10['timed_on']} (K10 "
+    log(f"{label} on the card: K10 = plain on {k10['timed_on']} (K10 "
         f"{k10['ms']:.4f} ms, bound {k10['bound_ms']:.4f} ms, plain {k10['plain_ms']:.4f} ms, "
         f"torch.cdist matrix-multiply form + minima {k10['library_ms']:.4f} ms); K11 = plain "
         f"fold by fold on {k11['timed_on']} (K11 {k11['ms']:.4f} ms, bound "
@@ -2142,7 +2177,6 @@ def drive_chamfer_eval(dev, timed):
     all its launches (``writer_ms``) and its bound."""
     from heal_swin_torch.evaluation.hp_depth_pred_writers import (
         WoodscapeHPDepthChamferDistBestWorstPredictionWriter as Writer)
-    from heal_swin_torch.ops import chamfer as ch
     from heal_swin_torch.ops import chamfer_pruned as chp
 
     preds, batch = chamfer_batch(dev)
@@ -2178,23 +2212,7 @@ def drive_chamfer_eval(dev, timed):
 
     # every pair on the other route: per-point minima bit-equal (K11 against K10 at
     # the paper's pair sizes); each of the run's launch shapes is thereby checked
-    for st in stats:
-        other = {}
-        v = ch.chamfer_distance(st["p"], st["q"], route="brute" if st["route"] == "pruned"
-                                else "pruned", device=dev, stats=other)
-        for k in ("d_pq", "d_qp"):
-            same_bits(f"{st['sample']} {st['metric']} {k}: {st['route']} vs {other['route']}",
-                      st[k], other[k])
-        if v != st["value"]:
-            raise AssertionError(f"{st['metric']}: {st['value']} vs {v} on the other route")
-        note = dict(checked=f"per point bit-equal to the {other['route']} route")
-        if st["route"] == "brute":
-            timed[("chamfer_min_both", st["n"], st["m"])] = note
-        else:
-            for k in st["round_pairs"] + [st["final_pairs"]]:
-                if k:
-                    timed[("chamfer_fold_pairs", k)] = note
-    chp.clear()
+    check_other_route(stats, dev, timed)
     s0 = next(st for st in stats if st["metric"] == "chamfer_distance_full_res_hp_masked")
     log(f"chamfer: every pair's minima bit-equal on the other route; K11 = K10 at the "
         f"paper pair {s0['sample']} full_res_hp_masked ({s0['n']} x {s0['m']})")
@@ -3717,6 +3735,7 @@ def drive_fit(dev, timed):
 RUN_N_PER_CAM = 4  # fixture images per camera: 16 an image set, 13 train (6 steps) / 4 val
 RUN_EPOCHS = 5  # segmentation epochs: one validation (check_val_every_n_epoch 5)
 RUN_DEPTH_EPOCHS = 4  # depth epochs: one validation (check_val_every_n_epoch 4)
+RUN_DEPTH_PREDICT_BATCHES = 1  # the depth evaluation's (its wrapper config): ~7 s a sample
 RUN_TIMEOUT = 420  # seconds for one entry subprocess
 LR_FIND_STEPS = 20
 FIXTURE_H, FIXTURE_W = 966, 1280  # the fixtures' image size, WoodScape's
@@ -3731,30 +3750,6 @@ SEG_STEP_LAUNCHES = dict(ATTN_LAUNCHES[True], **ATTN_BWD_LAUNCHES[True], final_h
 # the depth paper config's: attention dropout sends training to the plain route
 DEPTH_STEP_LAUNCHES = dict(final_head_depth_loss_f32=1, final_head_depth_loss_bwd_f32=1)
 DEPTH_VAL_LAUNCHES = dict(PAPER_EVAL_LAUNCHES, final_head_depth_loss_f32=1)
-# the port's convergence config with eval_after_train replaced by False (the port has no
-# evaluate entry yet): the run entry's only cut besides SMOKE_N_PER_CAM / SMOKE_EPOCHS
-ENTRY_CONFIG = """import dataclasses
-
-from heal_swin_torch.utils.utils import get_config_from_config_path
-
-BASE = {base!r}
-
-
-def get_train_run_config():
-    rc = get_config_from_config_path(BASE, "get_train_run_config")
-    return dataclasses.replace(rc, train=dataclasses.replace(rc.train, eval_after_train=False))
-
-
-def get_resume_run_config():
-    rc = get_config_from_config_path(BASE, "get_resume_run_config")
-    return dataclasses.replace(rc, train_run_config=get_train_run_config())
-
-
-def get_pl_config():
-    return get_config_from_config_path(BASE, "get_pl_config")
-"""
-
-
 def entry_child(counts_path, argv):
     """``python3 chip_smoke.py --entry-child COUNTS -- <cli arguments>``: runs
     ``python3 -m heal_swin_torch.cli <cli arguments>`` in this process, then writes the
@@ -3794,33 +3789,41 @@ def entry_child(counts_path, argv):
     return code
 
 
-def run_entry(label, root, argv, env):
+def run_entry(label, root, argv, env, evaluates=False):
     """One run of the port's entry (``python3 -m heal_swin_torch.cli`` + ``argv``) in a
-    subprocess with ``env`` on top of this one's: checks its exit code and its ``This run
-    has id`` line; returns (run id, seconds, launches, launches by shape, the fit's steady
-    img/s)."""
+    subprocess with ``env`` on top of this one's: checks its exit code, its ``This run
+    has id`` line (a train or resume; none for ``evaluate``) and, where it ``evaluates``,
+    its ``Evaluation finished.`` line; returns (run id or None, seconds, launches,
+    launches by shape, the fit's steady img/s or None)."""
     import re
 
-    counts = root / f"{label}_counts.json"
+    counts = root / f"{label.replace(' ', '_')}_counts.json"
     cmd = [sys.executable, __file__, "--entry-child", str(counts), "--"] + argv + ENTRY_ARGS
     log(f"{label}: python3 -m heal_swin_torch.cli {' '.join(argv)} (env {env})")
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, env=dict(os.environ, **env), capture_output=True, text=True,
                           timeout=RUN_TIMEOUT)
     seconds = time.perf_counter() - t0
-    (root / f"{label}.log").write_text(proc.stdout + proc.stderr)
+    (root / f"{label.replace(' ', '_')}.log").write_text(proc.stdout + proc.stderr)
     if proc.returncode != 0:
         raise AssertionError(f"{label}: exit code {proc.returncode}\n{proc.stdout[-3000:]}"
                              f"\n{proc.stderr[-6000:]}")
     ids = re.findall(r"This run has id (\w+)", proc.stdout)
-    if len(ids) != 1:
+    if len(ids) != (argv[0] != "evaluate"):
         raise AssertionError(f"{label}: run id lines {ids}\n{proc.stdout[-3000:]}")
+    finished = proc.stdout.count("Evaluation finished.")
+    if finished != evaluates:
+        raise AssertionError(f"{label}: {finished} 'Evaluation finished.' lines\n"
+                             f"{proc.stdout[-3000:]}")
     got = json.loads(counts.read_text())
     by_shape = collections.Counter({tuple(k): v for k, v in got["by_shape"]})
-    steady = got["steady"]["samples"] / max(got["steady"]["seconds"], 1e-9)
-    log(f"{label}: run {ids[0]}, exit code 0 in {seconds:.3f} s; the fit's last epoch after "
-        f"its first step {steady:.4f} img/s")
-    return ids[0], seconds, got["launches"], by_shape, steady
+    steady = None
+    if got["steady"]:
+        steady = got["steady"]["samples"] / max(got["steady"]["seconds"], 1e-9)
+    log(f"{label}: {'run ' + ids[0] + ', ' if ids else ''}exit code 0 in {seconds:.3f} s"
+        + (f"; the fit's last epoch after its first step {steady:.4f} img/s"
+           if steady is not None else ""))
+    return (ids[0] if ids else None), seconds, got["launches"], by_shape, steady
 
 
 def entry_run(store, run_id, label, metrics, ckpt_metric, epoch_files=(1, 3)):
@@ -3971,28 +3974,171 @@ def bare_step_rate(task, batch, n=5):
     return rate_, mem
 
 
-def drive_run_entry(dev, timed):
-    """The real input path and the run entry on the card.  Into a temporary
-    HEAL_SWIN_DATA_ROOT: the port's generator writes both 966x1280 fixtures (WoodScape,
-    and SynWoodScape with depth maps), RUN_N_PER_CAM images a camera; the host decode is
-    timed (``host_decode_ms``); one validation batch of each port config's datamodule is
-    projected on the card and held to the host npz pipeline and the wide gather to the
-    narrow one (``check_projection``).  Then ``python3 -m heal_swin_torch.cli train`` runs
-    the port's convergence config (bf16 paper model, nside 256, base_pix 8,
-    ``project_on_device``) for RUN_EPOCHS epochs with ``eval_after_train`` replaced by
-    False (ENTRY_CONFIG), in a subprocess: exit code, run id line, status FINISHED,
-    checkpoints, a finite train_loss falling from the first epoch to the last, finite
-    validation metrics, and every launch of the run (SEG_STEP_LAUNCHES a step, K1 20 and
-    K2 2 a validation batch, nothing else); its fit rate (the last epoch's
-    ``train_time_per_sample``) beside the bare ``train_step`` on a projected batch on the
-    card.  ``cli resume`` continues the run from its last.ckpt for one more epoch.  The
-    depth config trains RUN_DEPTH_EPOCHS epochs through the entry (f32 K8 / K9 a step; f32
-    K1 20, K2 2, K8 1 a validation batch).  Last ``Trainer.lr_find`` runs LR_FIND_STEPS
-    steps of the convergence config."""
+def config_paths():
+    """The port's two smoke configs in this checkout: (segmentation, depth)."""
+    from pathlib import Path
+
+    return tuple(str(Path(__file__).resolve().parent / CONFIGS / f) for f in (
+        "smoke_convergence_run_config.py", "smoke_depth_run_config.py"))
+
+
+@contextlib.contextmanager
+def entry_world():
+    """A temporary HEAL_SWIN_DATA_ROOT (the tracking store beneath it) with the smoke
+    configs' fixture size and epochs in the environment, for the run-entry and evaluation
+    phases; the environment restored and the directory deleted after."""
     import shutil
     import tempfile
     from pathlib import Path
 
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_entry_"))
+    env = dict(HEAL_SWIN_DATA_ROOT=str(root), HEAL_SWIN_MLRUNS=str(root / "mlruns"),
+               SMOKE_N_PER_CAM=str(RUN_N_PER_CAM), SMOKE_EPOCHS=str(RUN_EPOCHS))
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield root
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(root, ignore_errors=True)
+
+
+EVAL_WRAPPER = """import dataclasses
+
+from heal_swin_torch.utils.utils import get_config_from_config_path
+
+BASE = {base!r}
+
+
+def get_eval_run_config():
+    return dataclasses.replace(get_config_from_config_path(BASE, "get_eval_run_config"),
+                               **{eval_changes!r})
+
+
+def get_pl_config():
+    return dataclasses.replace(get_config_from_config_path(BASE, "get_pl_config"),
+                               **{pl_changes!r})
+"""
+
+
+def eval_wrapper(root, name, base, eval_changes=None, pl_changes=None):
+    """A config file ``root / name`` whose ``get_eval_run_config`` and ``get_pl_config``
+    are the config ``base``'s with ``eval_changes`` and ``pl_changes``: an evaluation of
+    a shipped smoke config with other settings, the shipped file left as it is."""
+    path = root / name
+    path.write_text(EVAL_WRAPPER.format(base=base, eval_changes=eval_changes or {},
+                                        pl_changes=pl_changes or {}))
+    return str(path)
+
+
+def add_launches(expected, *more):
+    out = dict(expected)
+    for extra in more:
+        for k, v in extra.items():
+            out[k] += v
+    return out
+
+
+def eval_launches(val_batches, pred_batches, masked_batches=0, depth=False):
+    """The launches of an evaluation of the bf16 segmentation model (or, with ``depth``,
+    of the f32 depth paper model): validation K1 20 and K2 2 a batch (its loss passes a
+    sample mask, so the tail is unfused: no K6; depth: f32 K1 20, K2 2, K8 1); predict K1
+    20, K2 2 and K3 1 a batch (depth: f32 K1 20, K2 2; its tail is plain); the masked IoU
+    as predict, over every validation batch.  The Chamfer writer's K10 / K11 are counted
+    apart (their number follows the clouds)."""
+    if depth:
+        return add_launches(NO_LAUNCHES, *[DEPTH_VAL_LAUNCHES] * val_batches,
+                            *[PAPER_EVAL_LAUNCHES] * pred_batches)
+    pred = dict(ATTN_LAUNCHES[True], final_head_predict=1)
+    return add_launches(NO_LAUNCHES, *[ATTN_LAUNCHES[True]] * val_batches,
+                        *[pred] * (pred_batches + masked_batches))
+
+
+EVAL_PREFIX = "evaluate_best_"
+EVAL_OUTPUT_RES = 0.5  # EvaluateConfig.output_resolution: the base writer's overlays
+EVAL_CLOCKS = tuple(EVAL_PREFIX + k for k in (
+    "val_samples_per_sec", "predict_samples_per_sec", "predict_device_blocked_sec",
+    "predict_writer_host_sec"))
+EVAL_VAL_RATES = tuple(EVAL_PREFIX + "val_" + k for k in (
+    "acc", "acc_ignored", "iou_global", "iou_global_ignored"))
+HEADLINE_PLAIN_PIXELS = 1e-4  # share of back-projected pixels kernel and plain may differ on
+HEADLINE_PLAIN_TOL = 1e-3  # each headline writer metric, kernel route against plain
+CHAMFER_CHILD_REL_TOL = 1e-6  # each Chamfer metric, this process's rerun against the child's
+
+
+def eval_metrics(label, run, rates, others=()):
+    """The last logged value of each metric of ``rates`` (finite, in [0, 1]) and of
+    ``others`` (finite) in ``run``."""
+    values = {}
+    for name in tuple(rates) + tuple(others):
+        hist = run.get_metric_history(name)
+        if not hist:
+            raise AssertionError(f"{label}: metric {name!r} not logged")
+        v = hist[-1][1]
+        if not math.isfinite(v) or (name in rates and not 0 <= v <= 1):
+            raise AssertionError(f"{label}: metric {name!r} = {v}")
+        values[name] = v
+    return values
+
+
+def eval_numbers(values, n_pred):
+    """The evaluation's rates and seconds from its logged clocks."""
+    c = [values.get(k, float("nan")) for k in EVAL_CLOCKS]
+    return dict(val_samples_s=c[0], predict_write_samples_s=c[1], predict_device_blocked_s=c[2],
+                writer_host_s=c[3], writer_host_s_per_sample=c[3] / n_pred)
+
+
+def check_eval_after_train(label, run, n_pred):
+    """The in-process evaluation after a fit (``eval_after_train``, a default
+    ``EvaluateConfig``): the ``evaluate_best_`` validation metrics and clocks logged and
+    finite, and the base writer's overlay grids, one a predicted sample, decoding
+    through the port's PNG codec to RGB [ground truth | prediction] pairs at
+    EVAL_OUTPUT_RES of the image.  Returns its numbers."""
+    from heal_swin_torch.utils import png
+
+    values = eval_metrics(label, run, EVAL_VAL_RATES, (EVAL_PREFIX + "val_loss",) + EVAL_CLOCKS)
+    files = sorted(run.artifact_dir.glob(EVAL_PREFIX + "val_*_iou=*.png"))
+    h, w = int(FIXTURE_H * EVAL_OUTPUT_RES), int(FIXTURE_W * EVAL_OUTPUT_RES)
+    if len(files) != n_pred:
+        raise AssertionError(f"{label}: {len(files)} overlays for {n_pred} predicted samples")
+    for f in files:
+        img = png.read(f)
+        if img.color_type != 2 or img.samples.shape != (h, 2 * w, 3):
+            raise AssertionError(f"{label}: overlay {f.name}: colour type {img.color_type}, "
+                                 f"shape {img.samples.shape}")
+    numbers = eval_numbers(values, n_pred)
+    log(f"{label}: eval_after_train logged " + " ".join(
+        f"{k} {v:.6f}" for k, v in values.items()) + f"; {len(files)} overlays of "
+        f"{h}x{2 * w} decode, e.g. {files[0].name}")
+    return numbers
+
+
+def drive_run_entry(dev, timed, root):
+    """The real input path and the run entry on the card.  Into ``root``, the
+    HEAL_SWIN_DATA_ROOT of ``entry_world``: the port's generator writes both 966x1280
+    fixtures (WoodScape, and SynWoodScape with depth maps), RUN_N_PER_CAM images a
+    camera; the host decode is
+    timed (``host_decode_ms``); one validation batch of each port config's datamodule is
+    projected on the card and held to the host npz pipeline and the wide gather to the
+    narrow one (``check_projection``).  Then ``python3 -m heal_swin_torch.cli train`` runs
+    the port's convergence config (bf16 paper model, nside 256, base_pix 8,
+    ``project_on_device``) for RUN_EPOCHS epochs as it stands, ``eval_after_train``
+    included, in a subprocess: exit code, run id line, status FINISHED, checkpoints, a
+    finite train_loss falling from the first epoch to the last, finite validation
+    metrics, and every launch of the run (SEG_STEP_LAUNCHES a step, K1 20 and K2 2 a
+    validation batch, and the evaluation's: ``eval_launches``, nothing else); its fit
+    rate (the last epoch's ``train_time_per_sample``) beside the bare ``train_step`` on a
+    projected batch on the card; the evaluation's ``evaluate_best_*`` metrics and the base
+    writer's overlays (``check_eval_after_train``).  ``cli resume`` continues the run from
+    its last.ckpt for one more epoch, and evaluates it.  The depth config trains
+    RUN_DEPTH_EPOCHS epochs through the entry (f32 K8 / K9 a step; f32 K1 20, K2 2, K8 1 a
+    validation batch).  Last ``Trainer.lr_find`` runs LR_FIND_STEPS steps of the
+    convergence config.  Returns the run ids and the evaluation's batch counts, for
+    ``drive_evaluate``."""
     from heal_swin_torch.data.data import get_data_module
     from heal_swin_torch.data.synthetic_woodscape import generate
     from heal_swin_torch.ops import final_head as fh
@@ -4002,134 +4148,399 @@ def drive_run_entry(dev, timed):
     from heal_swin_torch.training.trainer import Trainer
     from heal_swin_torch.utils.utils import get_config_from_config_path
 
-    root = Path(tempfile.mkdtemp(prefix="chip_smoke_entry_"))
-    env = dict(HEAL_SWIN_DATA_ROOT=str(root), HEAL_SWIN_MLRUNS=str(root / "mlruns"),
-               SMOKE_N_PER_CAM=str(RUN_N_PER_CAM), SMOKE_EPOCHS=str(RUN_EPOCHS))
-    saved_env = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
-    seg_cfg, depth_cfg = (str(Path(__file__).resolve().parent / CONFIGS / f) for f in (
-        "smoke_convergence_run_config.py", "smoke_depth_run_config.py"))
-    try:
-        t = time.perf_counter()
-        for version, depth in (("woodscape", False), ("synwoodscape", True)):
-            generate(root, version=version, n_per_cam=RUN_N_PER_CAM, W=FIXTURE_W, H=FIXTURE_H,
-                     seed=0, with_depth=depth)
-        gen_s = time.perf_counter() - t
-        log(f"run entry: both {FIXTURE_H}x{FIXTURE_W} fixtures, {4 * RUN_N_PER_CAM} images each, written in "
-            f"{gen_s:.3f} s")
-        decode = host_decode_ms(root)
+    seg_cfg, depth_cfg = config_paths()
+    t = time.perf_counter()
+    for version, depth in (("woodscape", False), ("synwoodscape", True)):
+        generate(root, version=version, n_per_cam=RUN_N_PER_CAM, W=FIXTURE_W, H=FIXTURE_H,
+                 seed=0, with_depth=depth)
+    gen_s = time.perf_counter() - t
+    log(f"run entry: both {FIXTURE_H}x{FIXTURE_W} fixtures, {4 * RUN_N_PER_CAM} images each, written in "
+        f"{gen_s:.3f} s")
+    decode = host_decode_ms(root)
 
-        # the projection on the card, against the host npz pipeline
-        rc = get_config_from_config_path(seg_cfg, "get_train_run_config")
-        t = time.perf_counter()
-        dm, spec = get_data_module(rc.data)
-        log(f"run entry: segmentation datamodule (the host npz projection of all "
-            f"{4 * RUN_N_PER_CAM} images at nside {dm.nside} included) in "
-            f"{time.perf_counter() - t:.3f} s; {len(dm.train_dataset)} train / "
-            f"{len(dm.val_dataset)} validation samples, {spec.f_out} classes")
-        seg_proj, _, seg_batch = check_projection(dm, dev, depth=False)
-        drc = get_config_from_config_path(depth_cfg, "get_train_run_config")
-        ddm, _ = get_data_module(drc.data)
-        depth_proj, _, _ = check_projection(ddm, dev, depth=True)
-        n_train, n_val = len(dm.train_dataset), len(dm.val_dataset)
-        steps = n_train // rc.data.common.batch_size
-        pl = get_config_from_config_path(seg_cfg, "get_pl_config")
-        val_batches = min(pl.limit_val_batches, n_val // rc.data.common.val_batch_size)
+    # the projection on the card, against the host npz pipeline
+    rc = get_config_from_config_path(seg_cfg, "get_train_run_config")
+    t = time.perf_counter()
+    dm, spec = get_data_module(rc.data)
+    log(f"run entry: segmentation datamodule (the host npz projection of all "
+        f"{4 * RUN_N_PER_CAM} images at nside {dm.nside} included) in "
+        f"{time.perf_counter() - t:.3f} s; {len(dm.train_dataset)} train / "
+        f"{len(dm.val_dataset)} validation samples, {spec.f_out} classes")
+    seg_proj, _, seg_batch = check_projection(dm, dev, depth=False)
+    drc = get_config_from_config_path(depth_cfg, "get_train_run_config")
+    ddm, _ = get_data_module(drc.data)
+    depth_proj, _, _ = check_projection(ddm, dev, depth=True)
+    n_train, n_val = len(dm.train_dataset), len(dm.val_dataset)
+    steps = n_train // rc.data.common.batch_size
+    pl = get_config_from_config_path(seg_cfg, "get_pl_config")
+    val_batches = min(pl.limit_val_batches, n_val // rc.data.common.val_batch_size)
+    c = rc.data.common
+    pred_batches = min(pl.limit_predict_batches, -(-len(dm.pred_dataset) // c.pred_batch_size))
+    n_pred = min(len(dm.pred_dataset), pred_batches * c.pred_batch_size)
+    batches = dict(val_batches=val_batches, pred_batches=pred_batches, n_pred=n_pred,
+                   all_pred_batches=-(-len(dm.pred_dataset) // c.pred_batch_size),
+                   all_n_pred=len(dm.pred_dataset), pred_batch_size=c.pred_batch_size,
+                   val_batch_size=c.val_batch_size,
+                   masked_batches=-(-n_val // c.val_batch_size))
+    evaluation = eval_launches(val_batches, pred_batches)
 
-        # K6 / K7 at the fixture's classes, against their plain versions
-        rnd, _ = seeded_draws(torch.Generator().manual_seed(SEED + 7), dev)
-        check_loss_kernels(f"run entry F={spec.f_out}",
-                           tail_inputs(rnd, torch.Generator().manual_seed(SEED + 8), dev,
-                                       F=spec.f_out), TAIL_P, fh, timing=False)
+    # K6 / K7 at the fixture's classes, against their plain versions
+    rnd, _ = seeded_draws(torch.Generator().manual_seed(SEED + 7), dev)
+    check_loss_kernels(f"run entry F={spec.f_out}",
+                       tail_inputs(rnd, torch.Generator().manual_seed(SEED + 8), dev,
+                                   F=spec.f_out), TAIL_P, fh, timing=False)
 
-        # the bare bf16 train_step on a projected batch on the card, and lr_find
-        task = build_task(rc.model, spec, rc.data, device=dev)
-        bare, bare_mem = bare_step_rate(task, seg_batch)
-        trainer = Trainer(pl, rc.train, device=dev)
-        t = time.perf_counter()
-        sugg, lrs, losses = trainer.lr_find(task, dm, num_training=LR_FIND_STEPS)
-        lr_s = time.perf_counter() - t
-        if (len(lrs) < 5 or not all(math.isfinite(v) for v in lrs + losses)
-                or sugg is None or not min(lrs) <= sugg <= max(lrs)):
-            raise AssertionError(f"lr_find: suggestion {sugg}, rates {lrs}, losses {losses}")
-        log(f"lr_find: {len(lrs)} steps in {lr_s:.3f} s, suggested lr {sugg:.4e}; smoothed "
-            "losses " + " ".join(f"{v:.4f}" for v in losses))
-        del task, trainer, seg_batch
+    # the bare bf16 train_step on a projected batch on the card, and lr_find
+    task = build_task(rc.model, spec, rc.data, device=dev)
+    bare, bare_mem = bare_step_rate(task, seg_batch)
+    trainer = Trainer(pl, rc.train, device=dev)
+    t = time.perf_counter()
+    sugg, lrs, losses = trainer.lr_find(task, dm, num_training=LR_FIND_STEPS)
+    lr_s = time.perf_counter() - t
+    if (len(lrs) < 5 or not all(math.isfinite(v) for v in lrs + losses)
+            or sugg is None or not min(lrs) <= sugg <= max(lrs)):
+        raise AssertionError(f"lr_find: suggestion {sugg}, rates {lrs}, losses {losses}")
+    log(f"lr_find: {len(lrs)} steps in {lr_s:.3f} s, suggested lr {sugg:.4e}; smoothed "
+        "losses " + " ".join(f"{v:.4f}" for v in losses))
+    del task, trainer, seg_batch
+    torch.cuda.empty_cache()
+
+    # segmentation through the entry, then its resume
+    store = MlflowFileStore(root / "mlruns")
+    run_id, seg_s, launches, by_shape, fit_steady = run_entry(
+        "entry train", root, ["train", "--config_path", seg_cfg], {}, evaluates=True)
+    check_launches("entry train", launches, by_shape,
+                   add_launches(expect_launches(SEG_STEP_LAUNCHES, RUN_EPOCHS * steps,
+                                                ATTN_LAUNCHES[True], val_batches),
+                                evaluation), timed)
+    val_names = ("val_loss", "val_acc", "val_iou_global", "val_iou_global_ignored")
+    run = entry_run(store, run_id, "entry train",
+                    ("train_loss", "train_acc", "train_iou_global", "epoch") + val_names,
+                    "val_iou_global_ignored")
+    tl = [v for _, v, _ in run.get_metric_history("train_loss")]
+    if len(tl) != RUN_EPOCHS or not tl[-1] < tl[0]:
+        raise AssertionError(f"entry train: train_loss by epoch {tl}")
+    tps = [v for _, v, _ in run.get_metric_history("train_time_per_sample in ms")]
+    fit_rate = 1e3 / tps[-1]
+    log(f"entry train: {RUN_EPOCHS} epochs of {steps} steps; train_loss by epoch "
+        + " ".join(f"{v:.6f}" for v in tl) + "; "
+        + " ".join(f"{k} {run.get_metric_history(k)[-1][1]:.6f}" for k in val_names)
+        + f"; fit {fit_rate:.4f} img/s in its last epoch (train_time_per_sample "
+        + " ".join(f"{v:.3f}" for v in tps) + f" ms), {fit_steady:.4f} after the epoch's "
+        f"first step, against the bare train_step's {bare:.4f} img/s ({bare_mem:.3f} GiB "
+        "above the resident)")
+
+    seg_eval = check_eval_after_train("entry train", run, n_pred)
+
+    resume_id, resume_s, launches, by_shape, _ = run_entry(
+        "entry resume", root, ["resume", "--config_path", seg_cfg],
+        dict(RUN_ID=run_id, SMOKE_EPOCHS=str(RUN_EPOCHS + 1)), evaluates=True)
+    check_launches("entry resume", launches, by_shape,
+                   add_launches(expect_launches(SEG_STEP_LAUNCHES, steps), evaluation),
+                   timed)
+    resumed = entry_run(store, resume_id, "entry resume", ("train_loss", "epoch"),
+                        "val_iou_global_ignored", epoch_files=(0, 0))
+    epochs = [v for _, v, _ in resumed.get_metric_history("epoch")]
+    _, _, meta = load_checkpoint(resumed.artifact_dir / "checkpoints" / "last.ckpt")
+    if (epochs != [RUN_EPOCHS] or meta["epoch"] != RUN_EPOCHS
+            or meta["global_step"] != (RUN_EPOCHS + 1) * steps):
+        raise AssertionError(f"entry resume: epochs {epochs}, last.ckpt {meta}")
+    log(f"entry resume: run {resume_id} continued {run_id} from its last.ckpt: epoch "
+        f"{RUN_EPOCHS} only, to global step {meta['global_step']}, train_loss "
+        f"{resumed.get_metric_history('train_loss')[-1][1]:.6f}")
+    check_eval_after_train("entry resume", resumed, n_pred)
+
+    # depth through the entry
+    depth_id, depth_s, launches, by_shape, depth_steady = run_entry(
+        "entry depth", root, ["train", "--config_path", depth_cfg],
+        dict(SMOKE_EPOCHS=str(RUN_DEPTH_EPOCHS)))
+    dsteps = len(ddm.train_dataset) // drc.data.common.batch_size
+    dval = min(pl.limit_val_batches, len(ddm.val_dataset) // drc.data.common.val_batch_size)
+    dc = drc.data.common
+    dpred = min(RUN_DEPTH_PREDICT_BATCHES, -(-len(ddm.pred_dataset) // dc.pred_batch_size))
+    batches.update(depth_val_batches=dval, depth_pred_batches=dpred,
+                   depth_n_pred=min(len(ddm.pred_dataset), dpred * dc.pred_batch_size))
+    check_launches("entry depth", launches, by_shape,
+                   expect_launches(DEPTH_STEP_LAUNCHES, RUN_DEPTH_EPOCHS * dsteps,
+                                   DEPTH_VAL_LAUNCHES, dval), timed)
+    drun = entry_run(store, depth_id, "entry depth",
+                     ("train_loss", "val_loss", "val_mse", "epoch"), "val_mse")
+    dtps = [v for _, v, _ in drun.get_metric_history("train_time_per_sample in ms")]
+    log(f"entry depth: {RUN_DEPTH_EPOCHS} epochs of {dsteps} steps; train_loss by epoch "
+        + " ".join(f"{v:.6f}" for _, v, _ in drun.get_metric_history("train_loss"))
+        + f"; val_mse {drun.get_metric_history('val_mse')[-1][1]:.6f}; fit "
+        f"{1e3 / dtps[-1]:.4f} img/s in its last epoch, {depth_steady:.4f} after its first "
+        "step")
+    timed["run entry"] = dict(decode, seg_projection=seg_proj, depth_projection=depth_proj,
+                              fit_img_s=fit_rate, fit_steady_img_s=fit_steady,
+                              bare_img_s=bare, depth_fit_steady_img_s=depth_steady,
+                              train_s=seg_s,
+                              resume_s=resume_s, depth_s=depth_s, lr_find_s=lr_s,
+                              fixtures_s=gen_s, eval_after_train=seg_eval)
+    log("run entry: " + json.dumps(timed["run entry"]))
+    return dict(batches, seg=run_id, depth=depth_id)
+
+
+CHAMFER_KERNELS = ("chamfer_min_both", "chamfer_fold_pairs")
+
+
+class MetricsRecorder:
+    """A tracking run that keeps what a writer logs."""
+
+    def __init__(self):
+        self.metrics = {}
+
+    def log_metrics(self, metrics):
+        self.metrics.update(metrics)
+
+
+def headline_predict(label, dm, task, ec, pl, dev, out_dir):
+    """The headline writer (``back_projected_hp_masked_iou``, ``ec``'s settings) through
+    ``Trainer.predict`` of ``task`` on the card, with the counters set to 0 just before
+    and read just after: (metrics, back-projected flat predictions, launches, seconds to
+    build the writer, the predict's Trainer)."""
+    from heal_swin_torch.training.trainer import Trainer
+
+    t = time.perf_counter()
+    rec = MetricsRecorder()
+    writer = dm.get_pred_writer(ec.pred_writer, output_dir=out_dir,
+                                output_resolution=ec.output_resolution, proj_res=ec.proj_res,
+                                prefix=EVAL_PREFIX, top_k=ec.top_k, run=rec)
+    build_s = time.perf_counter() - t
+    flats = []
+    inner = writer.proj_pred_writer.write_on_batch_end
+
+    def keep(preds, batch, i):
+        flat, masks = inner(preds, batch, i)
+        flats.append(flat)
+        return flat, masks
+
+    writer.proj_pred_writer.write_on_batch_end = keep
+    trainer = Trainer(pl, device=dev)
+    reset_counters()
+    trainer.predict(task, dm, writer=writer)
+    torch.cuda.synchronize()
+    launches, by_shape = read_counters()
+    log(f"{label}: writer built in {build_s:.3f} s, predict+write "
+        f"{trainer.last_predict_samples} samples, device-blocked "
+        f"{trainer.predict_device_time:.3f} s, writer host {trainer.predict_writer_time:.3f} s; "
+        + " ".join(f"{k} {v:.6f}" for k, v in rec.metrics.items()))
+    return rec.metrics, np.concatenate(flats), (launches, by_shape), build_s, trainer
+
+
+def eval_inputs(cfg, run_id, dev):
+    """What ``evaluate`` reads for run ``run_id`` from the evaluation config file ``cfg``:
+    (its EvaluateConfig, its PLConfig, the run's model config, the datamodule and data
+    spec, the checkpoint's state_dict on ``dev``)."""
+    from unittest import mock
+
+    from heal_swin_torch.data.data import get_data_module
+    from heal_swin_torch.training.checkpoint import load_checkpoint
+    from heal_swin_torch.utils import serialize, utils
+
+    with mock.patch.dict(os.environ, RUN_ID=run_id):
+        ec = utils.get_config_from_config_path(cfg, "get_eval_run_config")
+    pl = utils.get_config_from_config_path(cfg, "get_pl_config")
+    ckpt, artifacts, _ = utils.check_and_get_ckpt_paths(run_id, ec.epoch, ec.epoch_number)
+    dm, spec = get_data_module(ec.data_config)
+    return (ec, pl, serialize.load(artifacts / "model_config"), dm, spec,
+            load_checkpoint(ckpt, map_location=dev)[0])
+
+
+def check_headline_plain(dev, timed, root, run_id, cfg, logged):
+    """The headline writer's metrics again in this process from the run's best checkpoint
+    (the evaluation config ``cfg``'s settings), through the kernels ("auto": K1, K2 and K3
+    counted) and through the plain route (``attention_impl="xla"``: the plain window
+    attention and tail, no launch): the back-projected flat predictions differ on at most
+    HEADLINE_PLAIN_PIXELS of the pixels (K3's near-ties), every metric within
+    HEADLINE_PLAIN_TOL of the plain route's and of what the evaluate child logged
+    (``logged``).  Returns the numbers."""
+    import dataclasses
+
+    from heal_swin_torch.train import build_task
+
+    ec, pl, mc, dm, spec, state = eval_inputs(cfg, run_id, dev)
+    out_dir = root / "headline_plain"
+    out_dir.mkdir()
+    results = {}
+    for impl in ("auto", "xla"):
+        inner = dataclasses.replace(mc.swin_hp_transformer_config, attention_impl=impl)
+        task = build_task(dataclasses.replace(mc, swin_hp_transformer_config=inner), spec,
+                          ec.data_config, device=dev)
+        task.model.load_state_dict(state)
+        results[impl] = headline_predict(f"headline writer {impl}", dm, task, ec, pl, dev,
+                                         out_dir)
+        del task
         torch.cuda.empty_cache()
+    (got, flat_k, (launches, by_shape), build_s, tr), (want, flat_p, (plain_l, _), _, _) = (
+        results["auto"], results["xla"])
+    n_pred = flat_k.shape[0]
+    expected = eval_launches(0, -(-n_pred // ec.data_config.common.pred_batch_size))
+    check_launches("headline writer auto", launches, by_shape, expected, timed)
+    if any(plain_l.values()):
+        raise AssertionError(f"headline writer xla: launches {plain_l}")
+    differ = float((flat_k != flat_p).mean())
+    if set(got) != set(want) or not set(got) <= set(logged):
+        raise AssertionError(f"headline writer: metric names {sorted(got)}, plain "
+                             f"{sorted(want)}, the child's {sorted(logged)}")
+    worst = max(abs(got[k] - want[k]) for k in got)
+    child = max(abs(got[k] - logged[k]) for k in got)
+    if differ > HEADLINE_PLAIN_PIXELS or worst > HEADLINE_PLAIN_TOL or child > HEADLINE_PLAIN_TOL:
+        raise AssertionError(f"headline writer: kernel vs plain {differ:.3e} of the pixels "
+                             f"differ, metrics {worst:.3e} apart (the child's {child:.3e})")
+    log(f"headline writer: kernel route vs plain route on {n_pred} back-projected "
+        f"{flat_k.shape[1]}x{flat_k.shape[2]} predictions: {differ:.3e} of the pixels differ "
+        f"(limit {HEADLINE_PLAIN_PIXELS}), metrics at most {worst:.3e} apart (limit "
+        f"{HEADLINE_PLAIN_TOL}), {child:.3e} from the evaluate child's; the first writer "
+        f"built in {build_s:.3f} s (its HP footprints and nearest-pixel table)")
+    return dict(pixels_differ=differ, metric_diff=worst, child_diff=child,
+                writer_build_s=build_s, writer_host_s_per_sample=tr.predict_writer_time / n_pred,
+                device_blocked_s=tr.predict_device_time, predicted=n_pred)
 
-        # segmentation through the entry, then its resume
-        store = MlflowFileStore(root / "mlruns")
-        wrapper = root / "entry_convergence_config.py"
-        wrapper.write_text(ENTRY_CONFIG.format(base=seg_cfg))
-        run_id, seg_s, launches, by_shape, fit_steady = run_entry(
-            "entry train", root, ["train", "--config_path", str(wrapper)], {})
-        check_launches("entry train", launches, by_shape,
-                       expect_launches(SEG_STEP_LAUNCHES, RUN_EPOCHS * steps,
-                                       ATTN_LAUNCHES[True], val_batches), timed)
-        val_names = ("val_loss", "val_acc", "val_iou_global", "val_iou_global_ignored")
-        run = entry_run(store, run_id, "entry train",
-                        ("train_loss", "train_acc", "train_iou_global", "epoch") + val_names,
-                        "val_iou_global_ignored")
-        tl = [v for _, v, _ in run.get_metric_history("train_loss")]
-        if len(tl) != RUN_EPOCHS or not tl[-1] < tl[0]:
-            raise AssertionError(f"entry train: train_loss by epoch {tl}")
-        tps = [v for _, v, _ in run.get_metric_history("train_time_per_sample in ms")]
-        fit_rate = 1e3 / tps[-1]
-        log(f"entry train: {RUN_EPOCHS} epochs of {steps} steps; train_loss by epoch "
-            + " ".join(f"{v:.6f}" for v in tl) + "; "
-            + " ".join(f"{k} {run.get_metric_history(k)[-1][1]:.6f}" for k in val_names)
-            + f"; fit {fit_rate:.4f} img/s in its last epoch (train_time_per_sample "
-            + " ".join(f"{v:.3f}" for v in tps) + f" ms), {fit_steady:.4f} after the epoch's "
-            f"first step, against the bare train_step's {bare:.4f} img/s ({bare_mem:.3f} GiB "
-            "above the resident)")
 
-        resume_id, resume_s, launches, by_shape, _ = run_entry(
-            "entry resume", root, ["resume", "--config_path", str(wrapper)],
-            dict(RUN_ID=run_id, SMOKE_EPOCHS=str(RUN_EPOCHS + 1)))
-        check_launches("entry resume", launches, by_shape,
-                       expect_launches(SEG_STEP_LAUNCHES, steps), timed)
-        resumed = entry_run(store, resume_id, "entry resume", ("train_loss", "epoch"),
-                            "val_iou_global_ignored", epoch_files=(0, 0))
-        epochs = [v for _, v, _ in resumed.get_metric_history("epoch")]
-        _, _, meta = load_checkpoint(resumed.artifact_dir / "checkpoints" / "last.ckpt")
-        if (epochs != [RUN_EPOCHS] or meta["epoch"] != RUN_EPOCHS
-                or meta["global_step"] != (RUN_EPOCHS + 1) * steps):
-            raise AssertionError(f"entry resume: epochs {epochs}, last.ckpt {meta}")
-        log(f"entry resume: run {resume_id} continued {run_id} from its last.ckpt: epoch "
-            f"{RUN_EPOCHS} only, to global step {meta['global_step']}, train_loss "
-            f"{resumed.get_metric_history('train_loss')[-1][1]:.6f}")
+def check_depth_chamfer(dev, timed, root, run_id, cfg, logged, child_by_shape):
+    """The depth evaluation's Chamfer writer again in this process from the run's best
+    checkpoint (the evaluation config ``cfg``'s settings), through ``Trainer.predict``
+    with the counters set to 0 just before and read just after and the writer's
+    ``on_pair`` records kept, as ``drive_chamfer_eval`` holds the writer at the paper
+    sizes: every pair bit-equal on the other route (``check_other_route``: each launched
+    K10 / K11 shape checked and entered in ``timed``), and K10's plain version on the
+    first brute pair and K11's fold by fold on the first pruned pair bit-equal to the
+    writer's minima (``check_chamfer_paper``).  The Chamfer launches by shape must equal
+    the evaluate child's (``child_by_shape``), and each Chamfer metric must be within
+    CHAMFER_CHILD_REL_TOL of what the child logged (``logged``).  Returns the Chamfer
+    launches per kernel and the numbers."""
+    from heal_swin_torch.train import build_task
+    from heal_swin_torch.training.trainer import Trainer
 
-        # depth through the entry
-        depth_id, depth_s, launches, by_shape, depth_steady = run_entry(
-            "entry depth", root, ["train", "--config_path", depth_cfg],
-            dict(SMOKE_EPOCHS=str(RUN_DEPTH_EPOCHS)))
-        dsteps = len(ddm.train_dataset) // drc.data.common.batch_size
-        dval = min(pl.limit_val_batches, len(ddm.val_dataset) // drc.data.common.val_batch_size)
-        check_launches("entry depth", launches, by_shape,
-                       expect_launches(DEPTH_STEP_LAUNCHES, RUN_DEPTH_EPOCHS * dsteps,
-                                       DEPTH_VAL_LAUNCHES, dval), timed)
-        drun = entry_run(store, depth_id, "entry depth",
-                         ("train_loss", "val_loss", "val_mse", "epoch"), "val_mse")
-        dtps = [v for _, v, _ in drun.get_metric_history("train_time_per_sample in ms")]
-        log(f"entry depth: {RUN_DEPTH_EPOCHS} epochs of {dsteps} steps; train_loss by epoch "
-            + " ".join(f"{v:.6f}" for _, v, _ in drun.get_metric_history("train_loss"))
-            + f"; val_mse {drun.get_metric_history('val_mse')[-1][1]:.6f}; fit "
-            f"{1e3 / dtps[-1]:.4f} img/s in its last epoch, {depth_steady:.4f} after its first "
-            "step")
-        timed["run entry"] = dict(decode, seg_projection=seg_proj, depth_projection=depth_proj,
-                                  fit_img_s=fit_rate, fit_steady_img_s=fit_steady,
-                                  bare_img_s=bare, depth_fit_steady_img_s=depth_steady,
-                                  train_s=seg_s,
-                                  resume_s=resume_s, depth_s=depth_s, lr_find_s=lr_s,
-                                  fixtures_s=gen_s)
-        log("run entry: " + json.dumps(timed["run entry"]))
-    finally:
-        for k, v in saved_env.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
-        shutil.rmtree(root, ignore_errors=True)
+    ec, pl, mc, dm, spec, state = eval_inputs(cfg, run_id, dev)
+    task = build_task(mc, spec, ec.data_config, device=dev)
+    task.model.load_state_dict(state)
+    del state
+    rec, stats = MetricsRecorder(), []
+    out_dir = root / "chamfer_parent"
+    out_dir.mkdir()
+    writer = dm.get_pred_writer(ec.pred_writer, output_dir=out_dir,
+                                output_resolution=ec.output_resolution, proj_res=ec.proj_res,
+                                prefix=EVAL_PREFIX, top_k=ec.top_k,
+                                ranking_metric=ec.ranking_metric, sort_dir=ec.sort_dir,
+                                run=rec, device=dev, on_pair=stats.append)
+    t = time.perf_counter()
+    reset_counters()
+    Trainer(pl, device=dev).predict(task, dm, writer=writer)
+    torch.cuda.synchronize()
+    _, by_shape = read_counters()
+    write_s = time.perf_counter() - t
+    del task
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    check_other_route(stats, dev, timed)
+    brute, pruned = (next((st for st in stats if st["route"] == r), None)
+                     for r in ("brute", "pruned"))
+    if brute is None or pruned is None:
+        raise AssertionError("evaluate depth: the writer's pairs took the routes "
+                             f"{[st['route'] for st in stats]}: one of each is needed")
+    k10, k11 = check_chamfer_paper(dev, brute, pruned, label="evaluate depth Chamfer pairs")
+    check_s = time.perf_counter() - t
+    mine = {k: v for k, v in by_shape.items() if k[0] in CHAMFER_KERNELS}
+    child = {k: v for k, v in child_by_shape.items() if k[0] in CHAMFER_KERNELS}
+    if mine != child:
+        raise AssertionError(f"evaluate depth: Chamfer launches by shape {mine} here, "
+                             f"{child} in the evaluate child")
+    if set(rec.metrics) - set(logged) or len(rec.metrics) != 4:
+        raise AssertionError(f"evaluate depth: metrics {sorted(rec.metrics)} here, the "
+                             f"child's {sorted(logged)}")
+    apart = max(abs(v - logged[k]) / abs(logged[k]) for k, v in rec.metrics.items())
+    if not apart <= CHAMFER_CHILD_REL_TOL:
+        raise AssertionError(f"evaluate depth: Chamfer metrics {rec.metrics} here, the "
+                             f"child's {logged}: {apart:.3e} apart")
+    launches = {k: sum(v for s, v in mine.items() if s[0] == k) for k in CHAMFER_KERNELS}
+    log(f"evaluate depth: the Chamfer writer again here from the best checkpoint: "
+        f"{len(stats)} pairs in {write_s:.3f} s with its predict, each bit-equal on the "
+        f"other route, the first brute and the first pruned pair held to K10's / K11's "
+        f"plain versions, in {check_s:.3f} s; launches by shape equal to the child's ({launches}); metrics "
+        f"{apart:.3e} apart from the child's (limit {CHAMFER_CHILD_REL_TOL})")
+    return launches, dict(pairs=len(stats), write_s=write_s, check_s=check_s,
+                          metric_rel_diff=apart, k10_ms=k10["ms"], k10_plain_ms=k10["plain_ms"],
+                          k10_on=k10["timed_on"], k11_ms=k11["ms"],
+                          k11_plain_ms=k11["plain_ms"], k11_on=k11["timed_on"])
+
+
+def drive_evaluate(dev, timed, root, entry):
+    """The evaluation entry on the card: ``python3 -m heal_swin_torch.cli evaluate`` of the
+    run-entry phase's runs (``entry``), each in a child process whose launches are counted:
+    the convergence config's headline evaluation as it ships (validation, then predict
+    through the ``back_projected_hp_masked_iou`` writer at proj_res 966), the same with the
+    masked IoU and every predict sample (``eval_wrapper``), and the depth config's Chamfer
+    evaluation with RUN_DEPTH_PREDICT_BATCHES predict batches (``eval_wrapper``).  Each:
+    exit code 0 and "Evaluation finished.", every launch (``eval_launches``; depth: with
+    the Chamfer launches that ``check_depth_chamfer`` checked, shape by shape), and the
+    metrics it logs into the run, finite and the rates in [0, 1].  Then
+    ``check_headline_plain``.  Logs the evaluation's rates, the samples each rests on, and
+    the phase's wall time."""
+    from heal_swin_torch.tracking.mlflow_store import MlflowFileStore
+
+    t_phase = time.perf_counter()
+    seg_cfg, depth_cfg = config_paths()
+    masked_cfg = eval_wrapper(root, "eval_masked_config.py", seg_cfg,
+                              dict(log_masked_iou=True), dict(limit_predict_batches=1.0))
+    depth_eval_cfg = eval_wrapper(root, "eval_depth_config.py", depth_cfg,
+                                  pl_changes=dict(limit_predict_batches=RUN_DEPTH_PREDICT_BATCHES))
+    store = MlflowFileStore(root / "mlruns")
+    head = (EVAL_PREFIX + "val_back_projected_hp_masked_iou",) + tuple(
+        f"{EVAL_PREFIX}val_{k}_back_projected" for k in ("acc", "acc_ignored", "iou",
+                                                          "iou_ignored"))
+    masked = (EVAL_PREFIX + "val_masked_iou", EVAL_PREFIX + "val_masked_iou_ignored")
+    numbers = {}
+    # the samples each rate rests on: the steady window leaves out the first batch
+    val_steady = (entry["val_batches"] - 1) * entry["val_batch_size"]
+    for label, cfg, extra, pred_batches, n_pred in (
+            ("evaluate", seg_cfg, (), entry["pred_batches"], entry["n_pred"]),
+            ("evaluate masked", masked_cfg, masked, entry["all_pred_batches"],
+             entry["all_n_pred"])):
+        _, seconds, launches, by_shape, _ = run_entry(
+            label, root, ["evaluate", "--config_path", cfg], dict(RUN_ID=entry["seg"]),
+            evaluates=True)
+        check_launches(label, launches, by_shape, eval_launches(
+            entry["val_batches"], pred_batches, entry["masked_batches"] if extra else 0), timed)
+        values = eval_metrics(label, store.get_run(entry["seg"]), head + EVAL_VAL_RATES + extra,
+                              (EVAL_PREFIX + "val_loss",) + EVAL_CLOCKS)
+        numbers[label] = dict(eval_numbers(values, n_pred), seconds=seconds, predicted=n_pred,
+                              val_steady_samples=val_steady,
+                              predict_steady_samples=n_pred - entry["pred_batch_size"])
+        log(f"{label}: " + " ".join(f"{k} {v:.6f}" for k, v in values.items())
+            + f"; the validate rate over its {val_steady} steady samples, predict+write over "
+            f"{n_pred - entry['pred_batch_size']} of {n_pred}")
+    headline = {k: values[k] for k in head}
+
+    _, seconds, launches, by_shape, _ = run_entry(
+        "evaluate depth", root, ["evaluate", "--config_path", depth_eval_cfg],
+        dict(RUN_ID=entry["depth"]), evaluates=True)
+    # one predict batch leaves no steady state after the first: no predict rate logged
+    clocks = EVAL_CLOCKS if entry["depth_pred_batches"] > 1 else tuple(
+        k for k in EVAL_CLOCKS if not k.endswith("predict_samples_per_sec"))
+    chamfer_names = tuple(EVAL_PREFIX + k for k in (
+        "chamfer_distance", "chamfer_distance_full_res", "chamfer_distance_full_res_hp_masked",
+        "chamfer_distance_small_res_hp_masked"))
+    values = eval_metrics("evaluate depth", store.get_run(entry["depth"]), (),
+                          chamfer_names + tuple(EVAL_PREFIX + k for k in ("val_mse", "val_loss"))
+                          + clocks)
+    chamfer, checked = check_depth_chamfer(dev, timed, root, entry["depth"], depth_eval_cfg,
+                                           {k: values[k] for k in chamfer_names}, by_shape)
+    check_launches("evaluate depth", launches, by_shape,
+                   add_launches(eval_launches(entry["depth_val_batches"],
+                                              entry["depth_pred_batches"], depth=True), chamfer),
+                   timed)
+    numbers["evaluate depth"] = dict(eval_numbers(values, entry["depth_n_pred"]),
+                                     seconds=seconds, chamfer_check=checked, **chamfer)
+    log("evaluate depth: " + " ".join(f"{k} {v:.6f}" for k, v in values.items()))
+
+    numbers["headline plain"] = check_headline_plain(dev, timed, root, entry["seg"], masked_cfg,
+                                                     headline)
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    timed["evaluate"] = numbers
+    log(f"evaluate: {nvidia_smi()}; " + json.dumps(numbers))
 
 
 GATE_NSIDE = 32  # 512 tokens an image at the second stage: one 64-token window per base pixel
@@ -4621,7 +5032,11 @@ def main() -> int:
     drive_fit(dev, timed)
     torch.cuda.empty_cache()
     t_entry = time.perf_counter()
-    drive_run_entry(dev, timed)
+    with entry_world() as root:
+        entry = drive_run_entry(dev, timed, root)
+        torch.cuda.empty_cache()
+        t_evaluate = time.perf_counter()
+        drive_evaluate(dev, timed, root, entry)
     torch.cuda.empty_cache()
     t_gate = time.perf_counter()
     drive_refusal(dev)
@@ -4631,7 +5046,8 @@ def main() -> int:
         f"scaled-dot phase {t_paper - t_dot:.1f} s, the paper-config phase "
         f"{t_depth - t_paper:.1f} s, the paper depth phase {t_eval - t_depth:.1f} s, the "
         f"paper eval phase {t_fit - t_eval:.1f} s, the fit phase {t_entry - t_fit:.1f} s, "
-        f"the run-entry phase {t_gate - t_entry:.1f} s, "
+        f"the run-entry phase {t_evaluate - t_entry:.1f} s, the evaluation phase "
+        f"{t_gate - t_evaluate:.1f} s, "
         f"the refusal phase {t_end - t_gate:.1f} s")
 
     blocked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "heal_swin_tpu"))

@@ -3,8 +3,8 @@
 The module layout mirrors ``heal_swin_tpu``: ``ops/`` holds the token operations, the
 HEALPix geometry and the hand-written CUDA kernels (with their plain PyTorch
 versions), ``models/`` the HEAL-SWIN-UNet and its segmentation and depth tasks,
-``evaluation/`` the metrics and the Chamfer prediction writer, ``projection/`` and
-``utils/`` the fisheye camera model and depth point clouds, ``convert.py`` the
+``evaluation/`` the metrics and the prediction writers, ``projection/`` and ``utils/``
+the fisheye camera model, back-projection, overlays and depth point clouds, ``convert.py`` the
 JAX-params-to-state_dict map.  The port imports torch and never jax, and nothing of
 the JAX package: the numpy host code it needs from there (HEALPix geometry, shift
 specs, data specs and configs, the camera model) is its own copy.  Its entry points

@@ -1,10 +1,10 @@
 """The port's launcher: ``python3 -m heal_swin_torch.cli <subcommand>`` (the counterpart
 of ``heal_swin_tpu/cli.py`` and reference ``run.py``).
 
-Subcommands: ``train`` and ``resume`` (``--config_path``; ``--device``, default the first
-CUDA device), and ``start-mlflow-server``.  The JAX launcher's ``evaluate`` waits for the
-port's evaluation (ROADMAP queue 1 item 4) and ``bench`` for its benchmark entry;
-``test-repo`` and ``format-code`` drive the repository, not the port.
+Subcommands: ``train``, ``resume`` and ``evaluate`` (``--config_path``; ``--device``,
+default the first CUDA device), and ``start-mlflow-server``.  The JAX launcher's
+``bench`` waits for the port's benchmark entry; ``test-repo`` and ``format-code`` drive
+the repository, not the port.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ def main(argv=None):
 
     parser = argparse.ArgumentParser(description="heal-swin-torch launcher")
     sub = parser.add_subparsers(dest="cmd", required=True)
-    for name in ("train", "resume"):
+    for name in ("train", "resume", "evaluate"):
         p = add_device_arg(sub.add_parser(name))
         p.add_argument("--config_path", required=True)
     p = sub.add_parser("start-mlflow-server")
@@ -42,6 +42,11 @@ def main(argv=None):
             args.config_path, "get_resume_run_config")
         pl_config = utils.get_config_from_config_path(args.config_path, "get_pl_config")
         resume.main(args.config_path, pl_config, resume_config, device=args.device)
+    elif args.cmd == "evaluate":
+        from heal_swin_torch import evaluate
+
+        evaluate.main(["--config_path", args.config_path]
+                      + (["--device", args.device] if args.device else []))
     elif args.cmd == "start-mlflow-server":
         # reference run.py:69-120: the filesystem backend delegates to the mlflow
         # binary; the builtin one runs the lockfile-guarded tracking server, which

@@ -8,11 +8,12 @@ fisheye->HEALPix projection) with the fused decoder tail.
 
     python3 -m heal_swin_torch.cli train --config_path heal_swin_torch/configs/smoke_convergence_run_config.py
     RUN_ID=<id> SMOKE_EPOCHS=<more> python3 -m heal_swin_torch.cli resume --config_path <this file>
+    RUN_ID=<id> python3 -m heal_swin_torch.cli evaluate --config_path <this file>
 
 Data lands under HEAL_SWIN_DATA_ROOT (default: heal_swin_smoke_data in the temporary
 directory), the tracking FileStore under HEAL_SWIN_MLRUNS (default: mlruns there).
-``eval_after_train`` is True, as in the JAX config: the port's entry raises on it until
-its evaluate entry exists (ROADMAP queue 1 item 4), so a run sets it to False.
+``eval_after_train`` is True, as in the JAX config: the fit is followed by validation
+and the base writer's overlays at ``proj_res`` 966 in the same run (``evaluate_best_*``).
 """
 
 import os
@@ -93,6 +94,27 @@ def get_resume_run_config():
 
     return ResumeConfig(path=os.environ["RUN_ID"], epoch="last",
                         train_run_config=get_train_run_config())
+
+
+def get_eval_run_config():
+    """Headline-metric evaluation of run RUN_ID: validate plus the back-projection writer
+    at proj_res 966 (the paper's ``back_projected_hp_masked_iou`` pipeline), logging the
+    evaluation's throughput."""
+    from heal_swin_torch.evaluation.evaluate_config import EvaluateConfig
+    from heal_swin_torch.training.train_config import TrainConfig
+
+    _ensure_fixture()
+    cfg = get_train_run_config()
+    return EvaluateConfig(
+        path=os.environ["RUN_ID"],
+        epoch="best",
+        pred_writer="back_projected_hp_masked_iou",
+        validate=True,
+        predict=True,
+        top_k=1,
+        train_config=TrainConfig(mlflow_expmt="tpu_smoke"),
+        data_config=cfg.data,
+    )
 
 
 def get_pl_config():

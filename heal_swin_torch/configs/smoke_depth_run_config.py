@@ -5,6 +5,7 @@ trained on an auto-generated full-resolution (966x1280) synthetic SynWoodScape f
 with depth maps, through the on-device projection input path.
 
     python3 -m heal_swin_torch.cli train --config_path heal_swin_torch/configs/smoke_depth_run_config.py
+    RUN_ID=<id> python3 -m heal_swin_torch.cli evaluate --config_path <this file>
 
 Data lands under HEAL_SWIN_DATA_ROOT (default: heal_swin_smoke_depth in the temporary
 directory), the tracking FileStore under HEAL_SWIN_MLRUNS (default: mlruns there).
@@ -85,6 +86,26 @@ def get_train_run_config():
                 loss="l2", use_logvar=False, train_uncertainty_after=-1, huber_delta=1
             ),
         ),
+    )
+
+
+def get_eval_run_config():
+    """The Chamfer evaluation of run RUN_ID: validate plus the Chamfer writer."""
+    from heal_swin_torch.evaluation.evaluate_config import EvaluateConfig
+    from heal_swin_torch.training.train_config import TrainConfig
+
+    _ensure_fixture()
+    return EvaluateConfig(
+        path=os.environ["RUN_ID"],
+        epoch="best",
+        pred_writer="chamfer_distance",
+        validate=True,
+        predict=True,
+        top_k=1,
+        ranking_metric="mse",
+        sort_dir="asc",
+        train_config=TrainConfig(mlflow_expmt="tpu_smoke_depth"),
+        data_config=_data_config(),
     )
 
 

@@ -8,7 +8,7 @@ addition to the reference's woodscape variants, and ``synthetic_*`` knobs size i
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Literal, Optional, Union
+from typing import List, Literal, Optional, Union
 
 
 @dataclass
@@ -42,14 +42,28 @@ class WoodscapeCommonConfig(DataCommonConfig):
 
 
 @dataclass
+class WoodscapeFlatConfig:
+    """The flat data config, the default of ``EvaluateConfig.data_config``; the flat
+    datamodules come with the flat SWIN-UNet (ROADMAP queue 1 item 5)."""
+
+    common: WoodscapeCommonConfig = field(default_factory=WoodscapeCommonConfig)
+    pred_part: Literal["train", "val"] = "val"
+    input_width: int = 768
+    input_height: int = 640
+    padding: List[int] = field(default_factory=lambda: [0, 0, 0, 0])
+    shuffle_train_val_split: bool = True
+    nside: int = 256  # HP dataset used for projected predictions
+    base_pix: int = 8
+
+
+@dataclass
 class WoodscapeHPConfig:
     common: WoodscapeCommonConfig = field(default_factory=WoodscapeCommonConfig)
     pred_part: Literal["train", "val"] = "val"
     input_nside: int = 256
     input_base_pix: int = 8
     shuffle_train_val_split: bool = True
-    # the JAX package's option to project the flat inputs on the device in its train
-    # loop; the port reads it nowhere yet
+    # project the flat inputs on the device (the datamodule's device_batch_transform)
     project_on_device: bool = False
 
 

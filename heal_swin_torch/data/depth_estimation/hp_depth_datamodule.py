@@ -1,8 +1,8 @@
 """HEALPix depth datasets + datamodule
 (reference heal_swin/data/depth_estimation/hp_depth_datasets.py).  The port's copy of
 ``heal_swin_tpu/data/depth_estimation/hp_depth_datamodule.py``: its device batch
-transform is torch ops on the batch's device, and ``get_pred_writer`` has the Chamfer
-writer the port has and raises for the rest (ROADMAP queue 1 item 4)."""
+transform is torch ops on the batch's device, and ``get_pred_writer`` has the writers
+that draw nothing and raises for the rest (ROADMAP queue 1 item 8)."""
 
 from __future__ import annotations
 
@@ -319,15 +319,26 @@ class WoodscapeHPDepthDataModule:
         return int(cal["intrinsic"]["height"]), int(cal["intrinsic"]["width"])
 
     def get_pred_writer(self, pred_writer_name, **kwargs):
-        """The Chamfer writer the port has (``chamfer_distance``); the other writers
-        raise, naming the slice that brings them."""
+        """The writers that draw nothing (``val_on_back_projected``,
+        ``chamfer_distance``), with the JAX datamodule's defaults; the base and best/worst
+        writers (and None, the base writer) draw with matplotlib and raise, naming the
+        item that brings them."""
         from heal_swin_torch.evaluation import hp_depth_pred_writers
 
-        if pred_writer_name != "chamfer_distance":
+        writers = {
+            "val_on_back_projected":
+                hp_depth_pred_writers.WoodscapeHPDepthValOnBackProjectedPredictionWriter,
+            "chamfer_distance":
+                hp_depth_pred_writers.WoodscapeHPDepthChamferDistBestWorstPredictionWriter,
+        }
+        if pred_writer_name in (None, "base_writer", "best_worst_preds"):
             raise NotImplementedError(
-                f"prediction writer {pred_writer_name!r}: the port has the Chamfer writer "
-                "('chamfer_distance'); the others come with its evaluation (ROADMAP queue "
-                "1 item 4)")
+                f"prediction writer {pred_writer_name!r}: the depth writers that draw wait "
+                "for a way to draw without matplotlib (ROADMAP queue 1 item 8); the port "
+                f"has {list(writers)}")
+        assert pred_writer_name in writers, (
+            f"prediction writer {pred_writer_name} unknown, implemented: {list(writers)}"
+        )
         kwargs.setdefault("rotate_pole", self.rotate_pole)
         kwargs.setdefault("f_out", self.get_classes())
         kwargs.setdefault("nside", self.nside)
@@ -338,5 +349,4 @@ class WoodscapeHPDepthDataModule:
         kwargs.setdefault("mask_background", self.mask_background)
         kwargs.setdefault("normalize_data", self.normalize_data)
         kwargs.setdefault("img_dims", self.get_original_img_dims())
-        return hp_depth_pred_writers.WoodscapeHPDepthChamferDistBestWorstPredictionWriter(
-            **kwargs)
+        return writers[pred_writer_name](**kwargs)

@@ -6,8 +6,9 @@ the derived dataset dir is missing, reference :53-71).  Model-facing arrays are
 channels-last ((npix, 3) float32); the on-disk format stays reference-compatible
 ((3, npix) uint8).  The port's copy of ``heal_swin_tpu/data/segmentation/hp_datamodule.py``:
 its device batch transforms are torch ops on the batch's device
-(``projection/device.py``), and ``get_pred_writer`` raises until the port has the
-segmentation writers (ROADMAP queue 1 item 4)."""
+(``projection/device.py``), and ``get_pred_writer`` serves the four HEALPix writers of
+``evaluation/hp_pred_writers.py``; the predict dataset reads the npz projection in
+either mode."""
 
 from __future__ import annotations
 
@@ -397,6 +398,26 @@ class WoodscapeHPSegmentationDataModule:
         return int(cal["intrinsic"]["height"]), int(cal["intrinsic"]["width"])
 
     def get_pred_writer(self, pred_writer_name, **kwargs):
-        raise NotImplementedError(
-            f"prediction writer {pred_writer_name!r}: the port's segmentation writers come "
-            "with its segmentation evaluation (ROADMAP queue 1 item 4)")
+        from heal_swin_torch.evaluation import hp_pred_writers
+
+        writers = {
+            None: hp_pred_writers.WoodscapeHPBasePredictionWriter,
+            "base_writer": hp_pred_writers.WoodscapeHPBasePredictionWriter,
+            "val_on_back_projected": hp_pred_writers.WoodscapeHPValOnBackProjectedPredictionWriter,
+            "best_worst_preds": hp_pred_writers.WoodscapeHPBestWorstPredictionWriter,
+            "back_projected_hp_masked_iou":
+                hp_pred_writers.WoodscapeHPBackProjectedHPMaskedIoUPredictionWriter,
+        }
+        assert pred_writer_name in writers, (
+            f"prediction writer {pred_writer_name} unknown, implemented: {list(writers)}"
+        )
+        kwargs.setdefault("rotate_pole", self.rotate_pole)
+        kwargs.setdefault("f_out", self.get_classes())
+        kwargs.setdefault("nside", self.nside)
+        kwargs.setdefault("base_pix", self.base_pix)
+        kwargs.setdefault("part", self.pred_part)
+        kwargs.setdefault("s2_bkgd_class", self.s2_bkgd_class)
+        kwargs.setdefault("pred_dataset", self.pred_dataset)
+        kwargs.setdefault("img_dims", self.get_original_img_dims())
+        kwargs.setdefault("woodscape_version", self.woodscape_version)
+        return writers[pred_writer_name](**kwargs)

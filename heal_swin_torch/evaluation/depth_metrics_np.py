@@ -1,10 +1,13 @@
-"""The Chamfer depth metric on point clouds (the port's counterpart of
-``build_chamfer_clouds`` and ``ChamferDistance`` in
+"""Depth metrics of the evaluation writers (the port's counterpart of
+``DepthMSE``, ``DepthRelSE``, ``DepthRelAE``, ``DepthiRMSE``,
+``ScaleInvariantLogError``, ``build_chamfer_clouds`` and ``ChamferDistance`` in
 ``heal_swin_tpu/evaluation/depth_metrics_np.py``; reference
-``heal_swin/evaluation/custom_metrics.py:471-577``).
+``heal_swin/evaluation/custom_metrics.py``).
 
-Building the clouds is host numpy; the distance runs on the device through
-``ops/chamfer.py`` (K10 or K11)."""
+The accumulators take preds (N, C, ...) (channel 0 the mean depth) and targets (N, ...)
+and leave out non-finite pairs (reference get_non_inf_non_nan_idxs, :12-22); they are
+host numpy.  Building the Chamfer clouds is host numpy; the distance runs on the
+device through ``ops/chamfer.py`` (K10 or K11)."""
 
 from __future__ import annotations
 
@@ -12,6 +15,119 @@ import numpy as np
 
 from heal_swin_torch.ops.chamfer import chamfer_distance
 from heal_swin_torch.utils import depth_utils
+
+
+def _valid(a, b):
+    return np.isfinite(a) & np.isfinite(b)
+
+
+class DepthMSE:
+    """reference custom_metrics.py:62-99."""
+
+    def __init__(self):
+        self.sum_se = 0.0
+        self.n = 0.0
+
+    def update(self, preds, target):
+        means = np.asarray(preds)[:, 0, ...].squeeze()
+        target = np.asarray(target).squeeze()
+        assert means.shape == target.shape
+        idxs = _valid(means, target)
+        self.sum_se += float(np.sum((means[idxs] - target[idxs]) ** 2))
+        self.n += float(idxs.sum())
+        return self.sum_se / max(self.n, 1)
+
+    __call__ = update
+
+    def compute(self):
+        return self.sum_se / max(self.n, 1)
+
+    def reset(self):
+        self.sum_se = 0.0
+        self.n = 0.0
+
+
+class DepthRelSE:
+    """MSE relative to the dataset-mean predictor (reference :102-134)."""
+
+    def __init__(self, total_mean):
+        self.total_mean = total_mean
+        self.sum_pred = 0.0
+        self.sum_mean = 0.0
+
+    def update(self, preds, target):
+        means = np.asarray(preds)[:, 0, ...]
+        target = np.asarray(target)
+        idxs = _valid(means, np.broadcast_to(target, means.shape))
+        t = np.broadcast_to(target, means.shape)[idxs]
+        self.sum_pred += float(np.sum((means[idxs] - t) ** 2))
+        self.sum_mean += float(np.sum((self.total_mean - t) ** 2))
+
+    def compute(self):
+        return self.sum_pred / max(self.sum_mean, 1e-12)
+
+
+class DepthRelAE:
+    """reference :137-167."""
+
+    def __init__(self, total_mean):
+        self.total_mean = total_mean
+        self.sum_pred = 0.0
+        self.sum_mean = 0.0
+
+    def update(self, preds, target):
+        means = np.asarray(preds)[:, 0, ...]
+        target = np.asarray(target)
+        idxs = _valid(means, np.broadcast_to(target, means.shape))
+        t = np.broadcast_to(target, means.shape)[idxs]
+        self.sum_pred += float(np.sum(np.abs(means[idxs] - t)))
+        self.sum_mean += float(np.sum(np.abs(self.total_mean - t)))
+
+    def compute(self):
+        return self.sum_pred / max(self.sum_mean, 1e-12)
+
+
+class DepthiRMSE:
+    """Inverse-depth RMSE in 1/km (reference :170-205)."""
+
+    def __init__(self):
+        self.sum_inv_se = 0.0
+        self.n = 0.0
+
+    def update(self, preds, target):
+        means = np.asarray(preds, dtype=np.float64)[:, 0, ...]
+        target = np.asarray(target, dtype=np.float64)
+        with np.errstate(divide="ignore"):
+            inv_p = 1.0 / (0.001 * means)
+            inv_t = 1.0 / (0.001 * np.broadcast_to(target, means.shape))
+        idxs = _valid(inv_p, inv_t)
+        self.sum_inv_se += float(np.sum((inv_p[idxs] - inv_t[idxs]) ** 2))
+        self.n += float(idxs.sum())
+
+    def compute(self):
+        return float(np.sqrt(self.sum_inv_se / max(self.n, 1)))
+
+
+class ScaleInvariantLogError:
+    """KITTI SILog without sqrt (reference :429-468)."""
+
+    def __init__(self):
+        self.sum_d = 0.0
+        self.sum_d2 = 0.0
+        self.n = 0.0
+
+    def update(self, preds, target):
+        p = np.asarray(preds, dtype=np.float64)[:, 0, ...]
+        t = np.broadcast_to(np.asarray(target, dtype=np.float64), p.shape)
+        idxs = _valid(p, t) & (p > 0) & (t > 0)
+        d = np.log(t[idxs]) - np.log(p[idxs])
+        self.sum_d += float(d.sum())
+        self.sum_d2 += float((d**2).sum())
+        self.n += float(d.size)
+
+    def compute(self):
+        n = max(self.n, 1)
+        return self.sum_d2 / n - (self.sum_d / n) ** 2
 
 
 def build_chamfer_clouds(preds, target, cal_info, nside=256, base_pix=8, hp_data=False,

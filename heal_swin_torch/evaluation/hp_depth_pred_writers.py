@@ -1,10 +1,17 @@
-"""The HEALPix depth Chamfer evaluation writer (counterpart of
+"""The HEALPix depth evaluation writers that draw nothing (counterparts of
+``WoodscapeHPDepthValOnBackProjectedPredictionWriter`` and
 ``WoodscapeHPDepthChamferDistBestWorstPredictionWriter`` in
 ``heal_swin_tpu/evaluation/hp_depth_pred_writers.py``; reference
-``heal_swin/evaluation/hp_depth_pred_writers.py:734-1225``).
+``heal_swin/evaluation/hp_depth_pred_writers.py:378-547, 734-1225``).  The base and
+best/worst writers and the Chamfer writer's plots draw with matplotlib and wait for a
+way to draw without it (ROADMAP queue 1 item 8).
+
+``WoodscapeHPDepthValOnBackProjectedPredictionWriter`` back-projects the predicted
+depths to the flat image and scores them against the original depth maps (host numpy):
+{mse,SILogE,iRMSE,RelAE,RelSE}_back_projected[_res_*].
 
 Predictions arrive channels-last (B, npix, C) with channel 0 in metric depths, as
-``WoodscapeDepthSwinHP.predict`` returns them.  The writer scores every sample on four
+``WoodscapeDepthSwinHP.predict`` returns them.  The Chamfer writer scores every sample on four
 point-cloud variants and logs their means under the reference's names:
 chamfer_distance (HP prediction vs HP target), chamfer_distance_full_res (vs the
 full-resolution flat target), chamfer_distance_full_res_hp_masked (vs that target cut
@@ -25,9 +32,11 @@ import torch
 
 from heal_swin_torch.data import normalize_depth_data as ndd
 from heal_swin_torch.evaluation import depth_metrics_np as dm
+from heal_swin_torch.evaluation.flat_pred_writers import _norm_prefix, _WriterBase
 from heal_swin_torch.ops import chamfer as chamfer_ops
 from heal_swin_torch.ops import chamfer_pruned
 from heal_swin_torch.ops._dispatch import default_device
+from heal_swin_torch.projection import fisheye
 from heal_swin_torch.utils import depth_utils
 from heal_swin_torch.utils import image as I
 
@@ -35,30 +44,6 @@ SMALL_RES = (629, 834)  # reference hp_depth_pred_writers.py:806-810
 BACKGROUND = (float("nan"), float("inf"), 1000)  # depth values that mark background
 METRICS = ("chamfer_distance", "chamfer_distance_full_res",
            "chamfer_distance_full_res_hp_masked", "chamfer_distance_small_res_hp_masked")
-
-
-def _norm_prefix(prefix):
-    if prefix != "" and not prefix.endswith("_"):
-        return prefix + "_"
-    return prefix
-
-
-class _WriterBase:
-    """The writer protocol: ``write_on_batch_end(preds, batch, batch_idx)`` per batch
-    and ``on_predict_epoch_end()``; metrics go to the tracking ``run`` when given,
-    else to stdout."""
-
-    def __init__(self, run=None, **_ignore):
-        self.run = run
-
-    def log_metrics(self, metrics):
-        if self.run is not None:
-            self.run.log_metrics(metrics)
-        else:
-            print("writer metrics:", {k: round(v, 4) for k, v in metrics.items()})
-
-    def on_predict_epoch_end(self):
-        pass
 
 
 def _cf(preds):
@@ -77,6 +62,80 @@ def _resize_float(x, size, mode="nearest"):
     if mode == "nearest":
         return I.resize_nearest(x, tuple(size))
     return I.resize_bilinear(x, tuple(size))
+
+
+class _DepthMetricDict:
+    def __init__(self, data_transform, mask_background):
+        stats = ndd.get_depth_data_stats(data_transform, mask_background)
+        self.metrics = {
+            "mse": dm.DepthMSE(),
+            "SILogE": dm.ScaleInvariantLogError(),
+            "iRMSE": dm.DepthiRMSE(),
+            "RelAE": dm.DepthRelAE(total_mean=stats.mean),
+            "RelSE": dm.DepthRelSE(total_mean=stats.mean),
+        }
+
+    def update(self, preds, target):
+        for metric in self.metrics.values():
+            metric.update(preds, target)
+
+    def computed(self, pref, suff):
+        return {f"{pref}_{k}_{suff}": float(v.compute()) for k, v in self.metrics.items()}
+
+
+class WoodscapeHPDepthValOnBackProjectedPredictionWriter(_WriterBase):
+    """Back-project predicted depths, score vs original depth maps (reference :378-547)."""
+
+    def __init__(self, output_dir=None, img_dims=None, rotate_pole=False, prefix="",
+                 nside=256, base_pix=8, part="val", proj_res=1, data_transform=None,
+                 mask_background=False, normalize_data=None, interpolation_mode="nearest",
+                 run=None, **_ignore):
+        super().__init__(run=run)
+        self.rotate_pole = rotate_pole
+        self.nside = nside
+        self.base_pix = base_pix
+        self.part = part
+        self.proj_res = tuple(proj_res) if isinstance(proj_res, list) else proj_res
+        self.org_size = None
+        self.interpolation_mode = interpolation_mode
+        self.metric_dict = _DepthMetricDict(data_transform, mask_background)
+        self.prefix = _norm_prefix(prefix)
+
+    def write_on_batch_end(self, preds, batch, batch_idx):
+        preds_cf = _cf(preds)  # metric depths on channel 0
+        masks = np.asarray(batch["masks"], dtype=np.float64)  # raw metric depth maps
+        cal_infos = batch["cal_infos"]
+        if self.org_size is None:
+            cal = cal_infos[0]["intrinsic"]
+            self.org_size = (int(cal["height"]), int(cal["width"]))
+
+        flat_preds = []
+        for hp_pred, mask, cal_info in zip(preds_cf, masks, cal_infos):
+            pred_mean = fisheye.project_hp_depth_back(
+                hp_pred[0], cal_info, self.proj_res, self.rotate_pole, self.nside,
+                self.base_pix, s2_bkgd_class=float("nan"),
+            )  # (1, h, w)
+            flat_preds.append(pred_mean[0])
+            if isinstance(self.proj_res, (int, float)):
+                out = int(self.proj_res * min(mask.shape))
+            else:
+                out = self.proj_res
+            mask_r = _resize_float(mask[None], out, self.interpolation_mode)[0]
+            pred_r = _resize_float(pred_mean, out, self.interpolation_mode)
+            self.metric_dict.update(pred_r[None], mask_r[None])
+        return np.stack(flat_preds), masks
+
+    def get_res_suff(self):
+        if isinstance(self.proj_res, int) and self.proj_res != min(self.org_size):
+            return f"_res_{self.proj_res}"
+        if isinstance(self.proj_res, tuple):
+            return f"_res_{self.proj_res[0]}_{self.proj_res[1]}"
+        return ""
+
+    def on_predict_epoch_end(self):
+        pref = f"{self.prefix}{self.part}"
+        suff = "back_projected" + self.get_res_suff()
+        self.log_metrics(self.metric_dict.computed(pref, suff))
 
 
 def _rank_top_bottom(metric_values, names, sort_dir, top_k):

@@ -1,5 +1,5 @@
 """Fisheye camera model <-> sphere <-> HEALPix geometry, numpy (the port's copy of the
-parts of ``heal_swin_tpu/projection/fisheye.py`` the depth evaluation uses).
+parts of ``heal_swin_tpu/projection/fisheye.py`` the evaluation writers use).
 
 The reference's ``heal_swin/data/segmentation/project_on_s2.py`` quartic model:
 
@@ -13,9 +13,9 @@ The reference's ``heal_swin/data/segmentation/project_on_s2.py`` quartic model:
   extrinsic quaternion (reference :109-136).
 
 Image conventions as the reference: origin upper-left, u along width, v along
-height, images (C, H, W).  Both projections keep small lru caches keyed by their
-inputs' bytes, and the HP grid's angles are cached: the writers project the same
-grids sample after sample.
+height, images (C, H, W).  Both projections and the nearest-HEALPix-pixel table of
+the back-projection keep small lru caches keyed by their inputs' bytes, and the HP
+grid's angles are cached: the writers project the same grids sample after sample.
 """
 
 from __future__ import annotations
@@ -56,6 +56,15 @@ def sample_bilinear(signal, rx, ry):
     fx1 = (ix1 - rx) * s00 + (rx - ix0) * s10
     fx2 = (ix1 - rx) * s01 + (rx - ix0) * s11
     return (iy1 - ry) * fx1 + (ry - iy0) * fx2
+
+
+def sample_mask(mask, u, v, s2_bkgd_class):
+    """Nearest sampling with background fill; u indexes rows (v-coords), as in the
+    reference's call convention sample_mask(mask, v, u, ...) (reference :76-80)."""
+    bounds = (0, mask.shape[0], 0, mask.shape[1])
+    u_int = np.around(u, 0).astype(int)
+    v_int = np.around(v, 0).astype(int)
+    return sample_within_bounds(mask, u_int, v_int, bounds, s2_bkgd_class).astype(np.uint8)
 
 
 _EXT_REF = {"FV": [1, 0, 0], "RV": [-1, 0, 0], "MVL": [0, 1, 0], "MVR": [0, -1, 0]}
@@ -218,6 +227,51 @@ def get_uv_from_hw(height, width, output_resolution):
     u_range = np.linspace(0, width - 1, width_res)
     v_range = np.linspace(0, height - 1, height_res)
     return np.meshgrid(u_range, v_range, indexing="xy")
+
+
+@functools.lru_cache(maxsize=23)
+def _hp_nearest_pix_idcs_cached(theta_b, phi_b, shape, nside):
+    theta = np.frombuffer(theta_b).reshape(shape)
+    phi = np.frombuffer(phi_b).reshape(shape)
+    pix, wgt = hpx.get_interp_weights(nside, theta, phi, nest=True)
+    max_w = np.argmax(wgt, axis=0)
+    return np.take_along_axis(pix, max_w[None], axis=0)[0]
+
+
+def hp_nearest_pix_idcs(theta, phi, nside):
+    """Nearest HEALPix pixel per sample point: max-weight neighbor of the 4-point
+    bilinear interpolation (reference :83-106)."""
+    theta = np.ascontiguousarray(theta, dtype=np.float64)
+    phi = np.ascontiguousarray(phi, dtype=np.float64)
+    return _hp_nearest_pix_idcs_cached(theta.tobytes(), phi.tobytes(), theta.shape, nside)
+
+
+def project_hp_img_back(hp_img, cal_info, output_resolution, rotate_pole, base_pix):
+    """HP image (C, npix_used) -> flat image; unused sphere filled with 255 (ref :302-316)."""
+    width = cal_info["intrinsic"]["width"]
+    height = cal_info["intrinsic"]["height"]
+    u, v = get_uv_from_hw(height, width, output_resolution)
+    theta, phi = project_img_points_to_s2(u, v, cal_info, rotate_pole)
+
+    full = np.full((hp_img.shape[0], hp_img.shape[1] * 12 // base_pix), 255.0)
+    full[:, : hp_img.shape[1]] = hp_img
+    # every channel at once: the interpolation weights are found once, not per channel
+    return hpx.get_interp_val(full, theta, phi, nest=True)
+
+
+def project_hp_mask_back(
+    hp_mask, cal_info, output_resolution, rotate_pole, nside, base_pix, s2_bkgd_class
+):
+    """HP mask (npix_used,) -> flat mask via nearest HP pixel (reference :319-341)."""
+    width = cal_info["intrinsic"]["width"]
+    height = cal_info["intrinsic"]["height"]
+    u, v = get_uv_from_hw(height, width, output_resolution)
+    theta, phi = project_img_points_to_s2(u, v, cal_info, rotate_pole)
+
+    full = np.full((hp_mask.shape[0] * 12 // base_pix,), s2_bkgd_class)
+    full[: hp_mask.shape[0]] = hp_mask
+    nearest = hp_nearest_pix_idcs(theta, phi, nside)
+    return full[nearest].astype(np.uint8)
 
 
 def project_hp_depth_back(

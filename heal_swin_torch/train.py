@@ -9,9 +9,10 @@ prints ``This run has id <id>`` (the string the reference's tests parse).
 
 Differences from the JAX entry: one process on one device (``device``: the first CUDA
 device when None; more than one process or device raises, ROADMAP queue 1 item 6), so
-there is no exit barrier; ``eval_after_train`` raises before any work, since the port has
-no evaluate entry yet (ROADMAP queue 1 item 4); ``model_flops`` is not logged (the FLOP
-counter is queue 1 item 7).
+there is no exit barrier; ``model_flops`` is not logged (the FLOP counter is queue 1 item
+7).  With ``eval_after_train`` the fit is followed by the JAX entry's in-process
+evaluation (``evaluate.evaluate`` with a default ``EvaluateConfig``: validation and the
+base writer at ``proj_res`` 966), its metrics in the same run under ``evaluate_best_``.
 """
 
 from __future__ import annotations
@@ -136,10 +137,6 @@ def train_model(run_config: SingleModelTrainRun, pl_config: PLConfig, config_pat
     run_config = apply_precision(run_config, pl_config)
     train_config = run_config.train
     _check_single_process(pl_config)
-    if train_config.eval_after_train and not pl_config.fast_dev_run:
-        raise NotImplementedError(
-            "eval_after_train=True: the port's evaluate entry is still to be ported "
-            "(ROADMAP queue 1 item 4); set TrainConfig.eval_after_train=False")
 
     if train_config.seed is not None:
         np.random.seed(train_config.seed)
@@ -186,6 +183,16 @@ def train_model(run_config: SingleModelTrainRun, pl_config: PLConfig, config_pat
 
         result = trainer.fit(task, dm)
         run.log_params(param_counts(task.model))
+
+        if train_config.eval_after_train and not pl_config.fast_dev_run:
+            # the full evaluation with a default EvaluateConfig, like the reference
+            # (train.py:250-269); metrics land in this run with the evaluate_best_ prefix
+            from heal_swin_torch.evaluate import evaluate
+            from heal_swin_torch.evaluation.evaluate_config import EvaluateConfig
+
+            eval_config = EvaluateConfig(path=run.run_id, epoch="best",
+                                         data_config=run_config.data, train_config=train_config)
+            evaluate(eval_config, pl_config, device=device)
         run.set_status("FINISHED")
         return run.run_id, result
     except BaseException:

@@ -626,17 +626,23 @@ class Trainer:
                          best_ckpt_path=best_path, last_metrics=best_metrics)
 
     # ------------------------------------------------------------- validation
+    def device_val_batches(self, datamodule, max_batches=None):
+        """The datamodule's validation batches on the trainer's device: staged by
+        ``_device_prefetch``, then put through the datamodule's ``device_batch_transform``
+        where it has one.  At most ``max_batches`` batches (every batch when None)."""
+        loader = datamodule.val_dataloader()
+        n = len(loader) if max_batches is None else min(len(loader), max_batches)
+        transform = getattr(datamodule, "device_batch_transform", None) or (lambda *b: b)
+        return (transform(imgs, targets) for ((imgs, targets),) in self._device_prefetch(
+            (b,) for b in itertools.islice(iter(loader), n)))
+
     def _run_validation(self, task, datamodule, max_batches=None, log=True,
                         metrics_prefix="val_", with_per_class=True):
-        loader = datamodule.val_dataloader()
-        n = _limit(len(loader), self.pl.limit_val_batches)
+        n = _limit(len(datamodule.val_dataloader()), self.pl.limit_val_batches)
         if max_batches is not None:
             n = min(n, max_batches)
-        transform = getattr(datamodule, "device_batch_transform", None) or (lambda *b: b)
-        staged = (transform(imgs, targets) for ((imgs, targets),) in self._device_prefetch(
-            (b,) for b in itertools.islice(iter(loader), n)))
-        v = run_validation(task, staged, metrics_prefix=metrics_prefix,
-                           with_per_class=with_per_class)
+        v = run_validation(task, self.device_val_batches(datamodule, n),
+                           metrics_prefix=metrics_prefix, with_per_class=with_per_class)
         self.last_eval_samples = v.samples
         self.last_eval_steady_samples = v.steady_samples
         self.last_eval_steady_time = v.steady_time

@@ -9,7 +9,8 @@ a 96 x 80 fixture (3 images a camera, 12 in all) at nside 8:
   its own npz files): every item of the train, validation and predict datasets, the
   first batches of the train (two epochs), validation and predict loaders, the overfit
   indices, the image size and classes are equal;
-- ``get_pred_writer``: the depth datamodule's Chamfer writer, the others raising;
+- ``get_pred_writer``: the segmentation datamodule's four HEALPix writers, the depth
+  datamodule's two that draw nothing, the drawing ones raising;
 - the forward and backward projection tables equal ``heal_swin_tpu/projection/tables.py``'s
   field by field.
 """
@@ -140,20 +141,42 @@ def test_datamodules_match_jax(roots, depth, project_on_device, overfit):
 
 @pytest.mark.parametrize("depth", [False, True])
 def test_prediction_writers(roots, depth):
-    """The depth datamodule gives the port's Chamfer writer (with the JAX datamodule's
-    settings); every other writer raises, naming the slice that brings it."""
-    from heal_swin_torch.evaluation.hp_depth_pred_writers import (
-        WoodscapeHPDepthChamferDistBestWorstPredictionWriter as Chamfer)
+    """The segmentation datamodule serves the four HEALPix writers of the JAX registry
+    with the JAX datamodule's settings; the depth one its two writers that draw nothing
+    (the Chamfer writer with the JAX settings), and the drawing ones raise, naming the
+    item that brings them."""
+    from heal_swin_torch.evaluation import hp_depth_pred_writers as TD
+    from heal_swin_torch.evaluation import hp_pred_writers as TS
 
     with data_root(roots[1]):
         tdm, _ = tdata.get_data_module(_configs(tdc, depth, True, 0))
-        with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-            tdm.get_pred_writer("base_writer")
         if depth:
+            for name in (None, "base_writer", "best_worst_preds"):
+                with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+                    tdm.get_pred_writer(name)
             w = tdm.get_pred_writer("chamfer_distance", device="cpu")
-            assert isinstance(w, Chamfer)
+            assert isinstance(w, TD.WoodscapeHPDepthChamferDistBestWorstPredictionWriter)
             assert (w.nside, w.base_pix, w.mask_background, w.normalize_data) == (
                 NSIDE, 8, True, "standardize")
+            w = tdm.get_pred_writer("val_on_back_projected")
+            assert isinstance(w, TD.WoodscapeHPDepthValOnBackProjectedPredictionWriter)
+            assert (w.nside, w.base_pix, w.part) == (NSIDE, 8, "val")
+            return
+        kinds = {None: TS.WoodscapeHPBasePredictionWriter,
+                 "base_writer": TS.WoodscapeHPBasePredictionWriter,
+                 "val_on_back_projected": TS.WoodscapeHPValOnBackProjectedPredictionWriter,
+                 "best_worst_preds": TS.WoodscapeHPBestWorstPredictionWriter,
+                 "back_projected_hp_masked_iou":
+                     TS.WoodscapeHPBackProjectedHPMaskedIoUPredictionWriter}
+        for name, cls in kinds.items():
+            w = tdm.get_pred_writer(name, output_dir=".")
+            assert type(w) is cls
+            inner = getattr(w, "proj_pred_writer", w)  # the headline writer's back-projection
+            assert (inner.nside, inner.base_pix, inner.rotate_pole, inner.part) == (
+                NSIDE, 8, False, "val")
+        assert w.f_out == inner.f_out == tdm.get_classes()
+        with pytest.raises(AssertionError, match="unknown"):
+            tdm.get_pred_writer("chamfer_distance")
 
 
 @pytest.mark.parametrize("rotate_pole", [False, True])

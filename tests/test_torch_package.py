@@ -26,7 +26,7 @@ def _port_modules():
 
 def test_port_and_chip_smoke_import_without_the_jax_package():
     """Every module of the port, and chip_smoke.py, imports with jax, flax, optax, dill,
-    msgpack, heal_swin_tpu, PIL and cv2 blocked."""
+    msgpack, heal_swin_tpu, PIL, cv2 and matplotlib blocked."""
     mods = _port_modules()
     assert {"heal_swin_torch.ops.chamfer_pruned", "heal_swin_torch.ops.mlp",
             "heal_swin_torch.run_configs", "heal_swin_torch.training.trainer",
@@ -47,9 +47,16 @@ def test_port_and_chip_smoke_import_without_the_jax_package():
             "heal_swin_torch.projection.tables", "heal_swin_torch.projection.device",
             "heal_swin_torch.train", "heal_swin_torch.resume", "heal_swin_torch.cli",
             "heal_swin_torch.configs.smoke_convergence_run_config",
-            "heal_swin_torch.configs.smoke_depth_run_config"} <= set(mods)
-    assert len(mods) >= 38
-    blocked = ("jax", "flax", "heal_swin_tpu", "optax", "dill", "msgpack", "PIL", "cv2")
+            "heal_swin_torch.configs.smoke_depth_run_config",
+            "heal_swin_torch.evaluation.seg_metrics_np",
+            "heal_swin_torch.evaluation.flat_pred_writers",
+            "heal_swin_torch.evaluation.hp_pred_writers",
+            "heal_swin_torch.evaluation.evaluate_config",
+            "heal_swin_torch.data.segmentation.generate_metadata",
+            "heal_swin_torch.utils.overlay", "heal_swin_torch.evaluate"} <= set(mods)
+    assert len(mods) >= 45
+    blocked = ("jax", "flax", "heal_swin_tpu", "optax", "dill", "msgpack", "PIL", "cv2",
+               "matplotlib")
     code = ("import sys\n"
             f"for name in {blocked!r}:\n"
             "    sys.modules[name] = None\n"

@@ -15,8 +15,8 @@ and the drop rates at 0 (the frameworks' dropout draws differ).
   subprocess.
 - ``lr_find`` against the JAX one from the same weights: the same learning rates
   (``LR_TOL``), the smoothed losses within ``LOSS_TOL`` relative, the same suggestion.
-- ``eval_after_train=True`` raises before any file is written; ``auto_lr_find`` logs its
-  suggestion and fits at it.
+- ``eval_after_train=True`` evaluates the run after the fit; more than one GPU raises
+  before any file is written; ``auto_lr_find`` logs its suggestion and fits at it.
 """
 
 import dataclasses
@@ -259,22 +259,32 @@ def test_cli_train_and_resume(world, paths):
     assert store.get_run(ids[1]).status == "FINISHED"
 
 
-def test_eval_after_train_raises_before_any_work(world, paths):
-    root, cfg, _, _, _ = world
-    empty = paths / "data"
-    empty.mkdir()
+def test_eval_after_train_raises_before_any_work(world, paths, capsys, monkeypatch):
+    """``eval_after_train=True`` evaluates the fitted run in the same process (validation
+    and the base writer's overlays, ``evaluate_best_*``); more than one GPU raises before
+    any file is written."""
+    root, cfg, _, tpath, _ = world
+    monkeypatch.setenv("ENTRY_TEST_WEIGHTS", str(tpath))
     rc = get_config_from_config_path(cfg, "get_train_run_config")
     rc = dataclasses.replace(rc, train=dataclasses.replace(rc.train, eval_after_train=True))
+    run_id, _ = ttrain.train_model(rc, ttc.PLConfig(**dict(PL, max_epochs=1)), config_path=cfg,
+                                   device="cpu")
+    assert "Evaluation finished." in capsys.readouterr().out
+    run = TStore(paths / "mlruns").get_run(run_id)
+    assert run.status == "FINISHED"
+    for name in ("evaluate_best_val_loss", "evaluate_best_val_iou_global",
+                 "evaluate_best_val_acc"):
+        assert run.get_metric_history(name), name
+    assert len(list(run.artifact_dir.glob("evaluate_best_val_*_iou=*.png"))) == 4
+    empty = paths / "data"
+    empty.mkdir()
+    before = set(paths.rglob("*"))
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("HEAL_SWIN_DATA_ROOT", str(empty))
-        with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-            ttrain.train_model(rc, ttc.PLConfig(**PL), config_path=cfg, device="cpu")
-    assert list(paths.rglob("*")) == [empty]
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        ttrain.train_model(dataclasses.replace(rc, train=dataclasses.replace(
-            rc.train, eval_after_train=False)), ttc.PLConfig(**dict(PL, gpus=2)),
-            device="cpu")
-    assert list(paths.rglob("*")) == [empty]
+        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+            ttrain.train_model(rc, ttc.PLConfig(**dict(PL, gpus=2)), config_path=cfg,
+                               device="cpu")
+    assert set(paths.rglob("*")) == before
 
 
 def test_auto_lr_find_fits_at_the_suggestion(world, paths, monkeypatch):
