@@ -1,9 +1,8 @@
 """Data dispatch: data config -> (datamodule, data spec) (the port's counterpart of
 ``heal_swin_tpu/data/data.py``).
 
-``version="synthetic"`` routes to the in-memory synthetic HEALPix datamodules; the
-woodscape versions route to the real WoodScape / SynWoodScape HEALPix datamodules.  The
-flat configs raise until the port has its flat SWIN-UNet.
+``version="synthetic"`` routes to the in-memory synthetic datamodules; the woodscape
+versions route to the real WoodScape / SynWoodScape datamodules, HEALPix or flat.
 """
 
 from __future__ import annotations
@@ -44,6 +43,20 @@ def get_hp_data_module(config):
     return dm, create_dataspec_from_data_module(dm, base_pix=config.input_base_pix)
 
 
+def get_flat_data_module(config):
+    if config.common.version == "synthetic":
+        from heal_swin_torch.data.synthetic import SyntheticFlatSegDataModule
+
+        dm = SyntheticFlatSegDataModule(config)
+    else:
+        from heal_swin_torch.data.segmentation.flat_datamodule import (
+            WoodscapeFlatSegmentationDataModule,
+        )
+
+        dm = WoodscapeFlatSegmentationDataModule(config)
+    return dm, create_dataspec_from_data_module(dm)
+
+
 def get_depth_hp_data_module(config):
     if config.common.version == "synthetic":
         from heal_swin_torch.data.synthetic import SyntheticHPDepthDataModule
@@ -58,9 +71,25 @@ def get_depth_hp_data_module(config):
     return dm, create_depth_dataspec_from_data_module(dm, config.input_base_pix, config)
 
 
+def get_depth_flat_data_module(config):
+    if config.common.version == "synthetic":
+        from heal_swin_torch.data.synthetic import SyntheticFlatDepthDataModule
+
+        dm = SyntheticFlatDepthDataModule(config)
+    else:
+        from heal_swin_torch.data.depth_estimation.flat_depth_datamodule import (
+            WoodscapeFlatDepthDataModule,
+        )
+
+        dm = WoodscapeFlatDepthDataModule(config)
+    return dm, create_depth_dataspec_from_data_module(dm, config.base_pix, config)
+
+
 _DISPATCH = {
     "WoodscapeHPConfig": get_hp_data_module,
+    "WoodscapeFlatConfig": get_flat_data_module,
     "WoodscapeHPDepthConfig": get_depth_hp_data_module,
+    "WoodscapeDepthFlatConfig": get_depth_flat_data_module,
 }
 
 
@@ -68,9 +97,6 @@ def get_data_module(data_config):
     """(datamodule, data spec) of a data config, dispatched on its class name
     (reference data.py:76-83)."""
     name = type(data_config).__name__
-    if name in ("WoodscapeFlatConfig", "WoodscapeDepthFlatConfig"):
-        raise NotImplementedError(f"data config {name}: the port's flat datamodules come "
-                                  "with its flat SWIN-UNet (ROADMAP queue 1 item 5)")
     if name not in _DISPATCH:
         raise ValueError(f"unknown data config class: {name}")
     return _DISPATCH[name](data_config)

@@ -43,9 +43,6 @@ class WoodscapeCommonConfig(DataCommonConfig):
 
 @dataclass
 class WoodscapeFlatConfig:
-    """The flat data config, the default of ``EvaluateConfig.data_config``; the flat
-    datamodules come with the flat SWIN-UNet (ROADMAP queue 1 item 5)."""
-
     common: WoodscapeCommonConfig = field(default_factory=WoodscapeCommonConfig)
     pred_part: Literal["train", "val"] = "val"
     input_width: int = 768
@@ -72,6 +69,19 @@ class WoodscapeDepthCommonConfig:
     mask_background: bool = False
     data_transform: Optional[Literal["log", "inv", "None"]] = "None"
     normalize_data: Optional[Literal["standardize", "min-max", "None"]] = "None"
+
+
+@dataclass
+class WoodscapeDepthFlatConfig:
+    common: WoodscapeCommonConfig = field(default_factory=WoodscapeCommonConfig)
+    common_depth: WoodscapeDepthCommonConfig = field(default_factory=WoodscapeDepthCommonConfig)
+    pred_part: Literal["train", "val"] = "val"
+    input_width: int = 768
+    input_height: int = 640
+    padding: List[int] = field(default_factory=lambda: [0, 0, 0, 0])
+    shuffle_train_val_split: bool = True
+    nside: int = 256
+    base_pix: int = 8
 
 
 @dataclass

@@ -4,9 +4,8 @@ heal_swin/data/segmentation/flat_datasets.py), torchvision-free.
 Images load as (C, H, W) uint8; masks as (H, W) uint8; calibrations as JSON dicts.
 ``size`` resizes images bilinearly and masks nearest (reference :103); ``crop_green``
 center-crops to (960, 1280); ``padding`` is torchvision Pad([l, t, r, b]).  The port's
-copy of the classes of ``heal_swin_tpu/data/segmentation/flat_datasets.py`` that the
-HEALPix path and ``project_on_s2`` use; the flat datamodule comes with the flat
-SWIN-UNet (ROADMAP queue 1 item 5)."""
+copy of ``heal_swin_tpu/data/segmentation/flat_datasets.py``: the flat datamodule, the
+HEALPix path and ``project_on_s2`` use it."""
 
 from __future__ import annotations
 

@@ -1,11 +1,10 @@
-"""Deterministic synthetic HEALPix datasets (the port's copy of the HP half of
+"""Deterministic synthetic datasets (the port's copy of
 ``heal_swin_tpu/data/synthetic.py``): small, fully deterministic, learnable data made
-in memory when a data config's ``version`` is "synthetic".  Class masks are smooth
-functions of the pixel's direction, images are class-coloured with noise, depths are
-smooth functions with the background at the reference's conventions (0 -> inf
-markers).  The same config gives the same arrays as the JAX package's datamodules.
-
-The flat datamodules wait for the port's flat SWIN-UNet.
+in memory when a data config's ``version`` is "synthetic", HEALPix or flat,
+segmentation or depth.  Class masks are smooth functions of the pixel's direction (HP)
+or position (flat), images are class-coloured with noise, depths are smooth functions
+with the background at the reference's conventions (0 -> inf markers).  The same config
+gives the same arrays as the JAX package's datamodules.
 """
 
 from __future__ import annotations
@@ -78,6 +77,32 @@ class _SyntheticSegPredictDatasetHP(_SyntheticSegDatasetHP):
         }
 
 
+class _SyntheticSegDatasetFlat:
+    def __init__(self, H, W, n_samples, seed):
+        yy, xx = np.meshgrid(np.linspace(0, 1, H), np.linspace(0, 1, W), indexing="ij")
+        base_mask = _class_pattern(yy * 2.2, xx * 2 * np.pi)
+        self.samples = []
+        for i in range(n_samples):
+            rng = np.random.RandomState(seed + 1000 + i)
+            mask = np.roll(base_mask, int(rng.randint(0, H)), axis=0)
+            img = _image_from_mask(mask, rng)
+            self.samples.append((img, mask, f"synthetic_{i:05d}"))
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, i):
+        img, mask, _ = self.samples[i]
+        return img.astype(np.float32), mask.astype(np.int32)
+
+
+class _SyntheticSegPredictDatasetFlat(_SyntheticSegDatasetFlat):
+    def __getitem__(self, i):
+        img, mask, name = self.samples[i]
+        return {"s2_imgs": img.astype(np.float32), "s2_masks": mask.astype(np.int32),
+                "names": name}
+
+
 class _SyntheticDepthDatasetHP:
     def __init__(self, nside, base_pix, n_samples, seed, dc):
         self.npix = base_pix * nside * nside
@@ -111,6 +136,37 @@ class _SyntheticDepthPredictDatasetHP(_SyntheticDepthDatasetHP):
     def __getitem__(self, i):
         img, t, name = self.samples[i]
         return {"hp_imgs": img.astype(np.float32), "hp_masks": t, "names": name}
+
+
+class _SyntheticDepthDatasetFlat:
+    def __init__(self, H, W, n_samples, seed, dc):
+        yy, xx = np.meshgrid(np.linspace(0, 1, H), np.linspace(0, 1, W), indexing="ij")
+        theta, phi = yy * 2.2, xx * 2 * np.pi
+        base_mask = _class_pattern(theta, phi)
+        stats = ndd.get_depth_data_stats(dc.data_transform, dc.mask_background)
+        self.samples = []
+        for i in range(n_samples):
+            rng = np.random.RandomState(seed + 2000 + i)
+            mask = np.roll(base_mask, int(rng.randint(0, H)), axis=0)
+            img = _image_from_mask(mask, rng)
+            depth = _depth_from_angles(theta, phi, mask)
+            t = np.asarray(
+                ndd.transform_and_normalize(depth, dc.normalize_data, stats, dc.data_transform)
+            ).astype(np.float32)
+            self.samples.append((img, t, f"synthetic_{i:05d}"))
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, i):
+        img, t, _ = self.samples[i]
+        return img.astype(np.float32), t
+
+
+class _SyntheticDepthPredictDatasetFlat(_SyntheticDepthDatasetFlat):
+    def __getitem__(self, i):
+        img, t, name = self.samples[i]
+        return {"s2_imgs": img.astype(np.float32), "s2_masks": t, "names": name}
 
 
 class _SyntheticDataModuleBase:
@@ -168,9 +224,9 @@ class _SyntheticDataModuleBase:
         return self.base_pix * self.nside ** 2
 
     def get_pred_writer(self, writer_name, **kwargs):
-        raise NotImplementedError(
-            f"prediction writer {writer_name!r}: the synthetic datamodules' writers come "
-            "with the port's segmentation evaluation (ROADMAP queue 1 item 4)")
+        from heal_swin_torch.evaluation import writers
+
+        return writers.get_synthetic_writer(writer_name, self, **kwargs)
 
 
 class SyntheticHPSegDataModule(_SyntheticDataModuleBase):
@@ -188,6 +244,24 @@ class SyntheticHPSegDataModule(_SyntheticDataModuleBase):
         self.nside, self.base_pix = nside, bp
 
 
+class SyntheticFlatSegDataModule(_SyntheticDataModuleBase):
+    def __init__(self, config):
+        c = config.common
+        H, W = config.input_height, config.input_width
+        seed = c.seed or 42
+        super().__init__(
+            config,
+            _SyntheticSegDatasetFlat(H, W, c.synthetic_train_samples, seed),
+            _SyntheticSegDatasetFlat(H, W, c.synthetic_val_samples, seed + 10_000),
+            _SyntheticSegPredictDatasetFlat(H, W, min(c.synthetic_val_samples, 4),
+                                            seed + 10_000),
+        )
+        self.H, self.W = H, W
+
+    def get_img_dims(self):
+        return (self.H, self.W)
+
+
 class SyntheticHPDepthDataModule(_SyntheticDataModuleBase):
     def __init__(self, config):
         c = config.common
@@ -202,6 +276,28 @@ class SyntheticHPDepthDataModule(_SyntheticDataModuleBase):
                                             seed + 10_000, dc),
         )
         self.nside, self.base_pix = nside, bp
+
+    def get_classes(self):
+        return 1
+
+
+class SyntheticFlatDepthDataModule(_SyntheticDataModuleBase):
+    def __init__(self, config):
+        c = config.common
+        dc = config.common_depth
+        H, W = config.input_height, config.input_width
+        seed = c.seed or 42
+        super().__init__(
+            config,
+            _SyntheticDepthDatasetFlat(H, W, c.synthetic_train_samples, seed, dc),
+            _SyntheticDepthDatasetFlat(H, W, c.synthetic_val_samples, seed + 10_000, dc),
+            _SyntheticDepthPredictDatasetFlat(H, W, min(c.synthetic_val_samples, 4),
+                                              seed + 10_000, dc),
+        )
+        self.H, self.W = H, W
+
+    def get_img_dims(self):
+        return (self.H, self.W)
 
     def get_classes(self):
         return 1

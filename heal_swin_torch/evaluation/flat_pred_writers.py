@@ -1,10 +1,10 @@
-"""The flat segmentation writers' base that the HEALPix headline writer inherits (the
-port's copy of ``_norm_prefix``, ``_resize_nearest_torch``, ``_WriterBase``,
-``WoodscapeFlatPerCalPredictionWriter``, ``HPMaskedIoU`` and
-``WoodscapeFlatHPMaskedIoUPredictionWriter`` in
+"""Flat segmentation prediction writers (the port's copy of
 ``heal_swin_tpu/evaluation/flat_pred_writers.py``; reference
-``heal_swin/evaluation/flat_pred_writers.py``).  The writers that are only flat come
-with the flat SWIN-UNet (ROADMAP queue 1 item 5).
+``heal_swin/evaluation/flat_pred_writers.py``): the base writer's overlay grids, the
+best/worst writer, the paper's headline flat metric ``hp_masked_iou`` (whose per-
+calibration plumbing the HEALPix headline writer inherits) and ``val_on_hp_projected``,
+the flat predictions scored on the HEALPix grid against the HP masks.  The grids go
+through ``utils/overlay.py`` and ``utils/image.resize_bilinear``.
 
 Writer protocol (driven by ``Trainer.predict``): ``write_on_batch_end(preds, batch,
 batch_idx)`` + ``on_predict_epoch_end()``; metrics are logged to the tracking run passed
@@ -16,6 +16,7 @@ from __future__ import annotations
 import os
 import pickle
 import re
+from functools import partial
 from string import Template
 
 import numpy as np
@@ -23,6 +24,7 @@ import numpy as np
 from heal_swin_torch.evaluation import seg_metrics_np as m
 from heal_swin_torch.projection import fisheye
 from heal_swin_torch.utils import image as I
+from heal_swin_torch.utils import overlay as ov
 from heal_swin_torch.utils.utils import get_datasets_path
 
 
@@ -65,6 +67,123 @@ class _WriterBase:
 
     def on_predict_epoch_end(self):
         pass
+
+
+class WoodscapeFlatBasePredictionWriter(_WriterBase):
+    """Per-sample overlay grids with IoU in filename (reference :20-87)."""
+
+    def __init__(self, output_dir=None, output_resolution=1.0, prefix="", f_out=10,
+                 part="val", woodscape_version=None, run=None, **kwargs):
+        super().__init__(run=run)
+        self.output_dir = output_dir
+        self.resolution = output_resolution
+        self.part = part
+        self.f_out = f_out
+        self.woodscape_version = woodscape_version
+        self.prefix = _norm_prefix(prefix)
+
+    def write_on_batch_end(self, preds, batch, batch_idx):
+        for transf_img, transf_mask, pred, img, mask, name in zip(
+            batch["s2_imgs"], batch["s2_masks"], preds, batch["imgs"], batch["masks"],
+            batch["names"],
+        ):
+            transf_img_cf = np.asarray(transf_img).transpose(2, 0, 1)  # channels-first
+            pred_overlay = ov.get_overlay(self.woodscape_version, pred, transf_img_cf, 1)
+            gt_overlay = ov.get_overlay(self.woodscape_version, mask, img, 1)
+            out_size = tuple(int(d * self.resolution) for d in gt_overlay.shape[-2:])
+            gt_overlay = I.resize_bilinear(gt_overlay, out_size)
+            pred_overlay_r = I.resize_bilinear(pred_overlay, out_size)
+            img_r = I.resize_bilinear(np.asarray(img), out_size)
+            diff = (
+                I.resize_bilinear(pred[None].astype(np.uint8), out_size)
+                == I.resize_bilinear(np.asarray(mask)[None].astype(np.uint8), out_size)
+            )
+            diff = (255 * diff.astype(np.uint8)).repeat(3, axis=0)
+            iou = m.iou_functional(pred, transf_mask, self.f_out)
+            path = os.path.join(
+                self.output_dir, f"{self.prefix}{self.part}_{name}_best_ckpt_iou={iou:.4f}.png"
+            )
+            ov.save_image_grid([img_r, diff, gt_overlay, pred_overlay_r], path, nrow=2)
+
+
+class WoodscapeFlatBestWorstPredictionWriter(_WriterBase):
+    """Rank samples by a metric, re-predict and save top/bottom-k (reference :90-202)."""
+
+    def __init__(self, output_dir=None, output_resolution=1.0, f_out=10, prefix="",
+                 part="val", top_k=5, ranking_metric="iou_ignored", sort_dir="asc",
+                 pred_dataset=None, woodscape_version=None, run=None, input_key="s2_imgs",
+                 target_key="s2_masks", **kwargs):
+        super().__init__(run=run)
+        self.output_dir = output_dir
+        self.resolution = output_resolution
+        self.part = part
+        self.top_k = top_k
+        self.pred_dataset = pred_dataset
+        self.woodscape_version = woodscape_version
+        self.input_key = input_key
+        self.target_key = target_key
+        metrics = {
+            "acc": m.accuracy_functional,
+            "iou": partial(self._iou, num_classes=f_out),
+            "acc_ignored": partial(m.accuracy_functional, ignore_index=0),
+            "iou_ignored": partial(self._iou, num_classes=f_out, ignore=True),
+        }
+        assert ranking_metric in metrics
+        self.ranking_metric = metrics[ranking_metric]
+        self.metric_name = ranking_metric
+        assert sort_dir in ["asc", "desc"]
+        self.sort_dir = sort_dir
+        self.metric_values = []
+        self.names = []
+        self.prefix = _norm_prefix(prefix)
+
+    @staticmethod
+    def _iou(preds, targets, num_classes, ignore=False):
+        ious = m.iou_functional(preds, targets, num_classes, absent_score=np.nan,
+                                reduction="none")
+        if ignore:
+            ious = ious[1:]
+        return m.nanmean(ious)
+
+    def write_on_batch_end(self, preds, batch, batch_idx):
+        for pred, target, name in zip(preds, batch[self.target_key], batch["names"]):
+            self.metric_values.append(self.ranking_metric(pred, target))
+            self.names.append(name)
+
+    def _save_sample(self, sample, pred, metric_value, top_bottom, idx, name):
+        transf_img_cf = np.asarray(sample["s2_imgs"]).transpose(2, 0, 1)
+        pred_overlay = ov.get_overlay(self.woodscape_version, pred, transf_img_cf, 0.7)
+        gt_overlay = ov.get_overlay(
+            self.woodscape_version, sample["masks"], sample["imgs"], 0.7
+        )
+        fname = (
+            f"{self.prefix}{self.part}_{top_bottom}_{idx + 1}_{name}"
+            f"_{self.metric_name}={metric_value:.4f}.png"
+        )
+        ov.save_image_grid([gt_overlay, pred_overlay], os.path.join(self.output_dir, fname))
+
+    def on_predict_epoch_end(self):
+        values = np.array(self.metric_values)
+        names = np.array(self.names)
+        order = np.argsort(values)
+        if self.sort_dir == "desc":
+            order = order[::-1]
+        pred_names = {"top": names[order[-self.top_k:]][::-1], "bottom": names[order[: self.top_k]]}
+        lookup = {s: i for i, s in enumerate(names)}
+        for top_bottom, group in pred_names.items():
+            for idx, name in enumerate(group):
+                # find the sample in the predict dataset by name
+                sample = None
+                for si in range(len(self.pred_dataset)):
+                    s = self.pred_dataset[si]
+                    if s["names"] == name:
+                        sample = s
+                        break
+                if sample is None or self._predict_fn is None:
+                    continue
+                pred = self._predict_fn(np.asarray(sample[self.input_key])[None])[0]
+                metric_value = self.ranking_metric(pred, sample[self.target_key])
+                self._save_sample(sample, pred, metric_value, top_bottom, idx, name)
 
 
 class WoodscapeFlatPerCalPredictionWriter(_WriterBase):
@@ -160,3 +279,62 @@ class WoodscapeFlatHPMaskedIoUPredictionWriter(WoodscapeFlatPerCalPredictionWrit
                 confmat += metric.iou.confmat
         ious = m.iou_from_confmat(confmat)
         self.log_metrics({f"{self.prefix}{self.part}_{self.METRIC_NAME}": float(np.mean(ious))})
+
+
+class WoodscapeFlatValOnHPProjectedPredictionWriter(_WriterBase):
+    """Project flat predictions onto the HP grid and score against hp_masks
+    (reference :321-421) -> metrics *_acc/iou[_ignored]_projected_to_hp."""
+
+    def __init__(self, output_dir=None, part="", prefix="", rotate_pole=False, f_out=10,
+                 nside=256, base_pix=8, s2_bkgd_class=0, orig_size=None,
+                 padding=(0, 0, 0, 0), run=None, **_ignore):
+        super().__init__(run=run)
+        self.rotate_pole = rotate_pole
+        self.f_out = f_out
+        self.nside = nside
+        self.base_pix = base_pix
+        self.s2_bkgd_class = s2_bkgd_class
+        self.part = part
+        self.orig_size = orig_size
+        self.padding = padding
+        self.acc = m.Accuracy()
+        self.acc_ignored = m.Accuracy(ignore_index=0)
+        self.iou = m.IoU(num_classes=f_out, reduction="none")
+        self.prefix = _norm_prefix(prefix)
+        self.theta, self.phi = fisheye.hp_grid_angles(nside, base_pix)
+
+    def _undo_transforms(self, pred):
+        left, top, right, bottom = self.padding
+        if any(self.padding):
+            H, W = pred.shape[-2:]
+            pred = pred[..., top : H - bottom or None, left : W - right or None]
+        if self.orig_size is not None:
+            pred = I.resize_nearest(pred, tuple(self.orig_size))
+        return pred
+
+    def write_on_batch_end(self, preds, batch, batch_idx):
+        hp_preds = []
+        for idx, (flat_pred, cal_info) in enumerate(zip(preds, batch["cal_infos"])):
+            flat_pred = self._undo_transforms(np.asarray(flat_pred))
+            u, v = fisheye.project_s2_points_to_img(
+                self.theta, self.phi, cal_info, self.rotate_pole
+            )
+            pred = fisheye.sample_mask(flat_pred, v, u, s2_bkgd_class=self.s2_bkgd_class)
+            hp_preds.append(pred)
+            mask = np.asarray(batch["hp_masks"][idx])
+            self.acc.update(pred, mask)
+            self.acc_ignored.update(pred, mask)
+            self.iou.update(pred, mask)
+        return np.stack(hp_preds), batch["hp_masks"]
+
+    def on_predict_epoch_end(self):
+        pref = f"{self.prefix}{self.part}"
+        ious = self.iou.compute()
+        self.log_metrics(
+            {
+                f"{pref}_acc_projected_to_hp": self.acc.compute(),
+                f"{pref}_acc_ignored_projected_to_hp": self.acc_ignored.compute(),
+                f"{pref}_iou_projected_to_hp": float(np.mean(ious)),
+                f"{pref}_iou_ignored_projected_to_hp": float(np.mean(ious[1:])),
+            }
+        )

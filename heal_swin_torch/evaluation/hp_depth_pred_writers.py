@@ -246,10 +246,14 @@ class WoodscapeHPDepthChamferDistBestWorstPredictionWriter(_WriterBase):
         prepared = chamfer_ops.prepare_pair(p, q, self.chamfer_route)
         return p, q, prepared, time.perf_counter() - t0
 
+    target_key = "hp_masks"  # the batch's network-space target of the prediction's grid
+    channels_first = staticmethod(_cf)
+
     def write_on_batch_end(self, preds, batch, batch_idx):
-        preds_cf = _cf(preds)
+        preds_cf = self.channels_first(preds)
         for hp_pred, hp_mask, name, cal_info, full_res_mask in zip(
-            preds_cf, batch["hp_masks"], batch["names"], batch["cal_infos"], batch["masks"]
+            preds_cf, batch[self.target_key], batch["names"], batch["cal_infos"],
+            batch["masks"]
         ):
             tasks = self.variants(hp_pred, hp_mask, cal_info, full_res_mask)
             # the ranking value reuses the cumulative chamfer_distance update

@@ -33,6 +33,39 @@ def trunc_normal_(w: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     return nn.init.trunc_normal_(w, std=TRUNC_STD, a=-2.0, b=2.0, generator=generator)
 
 
+def reset_parameters(model: nn.Module, generator: torch.Generator,
+                     ape: Optional[torch.Tensor] = None) -> None:
+    """The JAX package's init of a SWIN-UNet: trunc-normal(0.02) weights (linear and
+    convolution), zero biases, LN ones and zeros, logit scale ln 10, relative-position
+    tables zeros or trunc-normal (``WindowAttention.rel_pos_init_zero``), and ``ape``
+    trunc-normal.  The draws are made on the CPU from ``generator`` (a CPU generator),
+    in module order, and copied in, so that a seed gives the same weights wherever the
+    network lives."""
+
+    def draw(w):
+        w.copy_(trunc_normal_(torch.empty(w.shape, dtype=w.dtype), generator))
+
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)):
+                draw(m.weight)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.LayerNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+            elif isinstance(m, WindowAttention):
+                if m.use_cos_attn:
+                    m.logit_scale.fill_(float(np.log(10.0)))
+                if m.relative_position_bias_table is not None:
+                    if m.rel_pos_init_zero:
+                        m.relative_position_bias_table.zero_()
+                    else:
+                        draw(m.relative_position_bias_table)
+        if ape is not None:
+            draw(ape)
+
+
 def linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
     """``layer`` applied in x's dtype (f32 parameters cast at use)."""
     b = None if layer.bias is None else layer.bias.to(x.dtype)
@@ -185,14 +218,16 @@ class WindowAttention(nn.Module):
       one matmul, the attention runs as K2 (backward K5), and proj, proj dropout and
       LN stay plain torch.
 
-    Dropout masks come from ``generator`` (``Dropout``).
+    Dropout masks come from ``generator`` (``Dropout``).  ``rel_pos_init_zero``: the
+    relative-position table's init, zeros (the HP model) or trunc-normal (the flat
+    model); the models' ``reset_parameters`` reads it.
     """
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
                  qk_scale: Optional[float] = None, attn_drop: float = 0.0,
                  proj_drop: float = 0.0, use_cos_attn: bool = False,
                  rel_pos_index: Optional[np.ndarray] = None, rel_pos_table_size: int = 0,
-                 attention_impl: str = "auto"):
+                 rel_pos_init_zero: bool = True, attention_impl: str = "auto"):
         super().__init__()
         if dim % num_heads:
             raise ValueError(f"dim {dim} not divisible by num_heads {num_heads}")
@@ -201,6 +236,7 @@ class WindowAttention(nn.Module):
         self.attn_drop = float(attn_drop)
         self.use_cos_attn = use_cos_attn
         self.attention_impl = attention_impl
+        self.rel_pos_init_zero = rel_pos_init_zero
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
         self.proj_drop = float(proj_drop)

@@ -31,7 +31,7 @@ from heal_swin_torch.models.layers import (
     Mlp,
     WindowAttention,
     linear,
-    trunc_normal_,
+    reset_parameters,
 )
 from heal_swin_torch.ops._dispatch import default_device
 from heal_swin_torch.ops.permute import permute_tokens
@@ -365,31 +365,9 @@ class SwinHPTransformerSys(nn.Module):
                               else torch.Generator().manual_seed(0))
         self.to(device)
 
-    @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """The JAX package's init: trunc-normal(0.02) weights, zero biases, LN ones and
-        zeros, logit scale ln 10, zero rel-pos tables.  The draws are made on the CPU
-        from ``generator`` (a CPU generator) and copied in, so that a seed gives the
-        same weights wherever the network lives."""
-
-        def draw(w):
-            w.copy_(trunc_normal_(torch.empty(w.shape, dtype=w.dtype), generator))
-
-        for m in self.modules():
-            if isinstance(m, (nn.Linear, nn.Conv1d)):
-                draw(m.weight)
-                if m.bias is not None:
-                    m.bias.zero_()
-            elif isinstance(m, nn.LayerNorm):
-                m.weight.fill_(1.0)
-                m.bias.zero_()
-            elif isinstance(m, WindowAttention):
-                if m.use_cos_attn:
-                    m.logit_scale.fill_(float(np.log(10.0)))
-                if m.relative_position_bias_table is not None:
-                    m.relative_position_bias_table.zero_()
-        if self.config.ape:
-            draw(self.absolute_pos_embed)
+        """The JAX package's init (``layers.reset_parameters``; zero rel-pos tables)."""
+        reset_parameters(self, generator, self.absolute_pos_embed if self.config.ape else None)
 
     def forward(self, x, tail: bool = True, generator: Optional[torch.Generator] = None):
         cfg = self.config

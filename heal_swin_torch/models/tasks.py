@@ -1,6 +1,7 @@
-"""Task modules (counterpart of ``heal_swin_tpu/models/tasks.py``): the HEALPix
-segmentation and depth tasks, each with ``loss_fn`` for training, ``predict`` for
-serving and its metrics.
+"""Task modules (counterpart of ``heal_swin_tpu/models/tasks.py``): the HEALPix and the
+flat SWIN-UNet's segmentation and depth tasks, each with ``loss_fn`` for training,
+``predict`` for serving and its metrics, and the JAX package's registry of them
+(``MODELS``, ``MODEL_FROM_CONFIG_NAME``, ...).
 
 With ``fused_final_head`` the decoder tail runs fused: training hands the tokens after
 ``norm_up`` to the expand -> LN -> head -> loss kernels, which return the loss without
@@ -15,7 +16,9 @@ matrix counts every element); the depth loss keeps its fused tail with the padde
 samples' targets set to inf.  K3 and K6-K9 take bf16 and f32 tokens (a float32 config's
 tail runs their f32 kernels).  On the card a fused tail the kernels do not take (a
 dtype they lack, a width without an instantiation) raises, naming the kernel, and
-``attention_impl="xla"`` runs the plain versions.
+``attention_impl="xla"`` runs the plain versions.  The flat segmentation task runs the
+same tail kernels with p = p1 * p2 on targets rearranged into their row layout; the flat
+depth task's tail is always unfused, as the JAX task's gate leaves it.
 """
 
 from __future__ import annotations
@@ -31,10 +34,12 @@ from torch import nn
 from heal_swin_torch.data import normalize_depth_data as ndd
 from heal_swin_torch.data.data_config import (  # noqa: F401 (re-exported for callers)
     WoodscapeDepthCommonConfig,
+    WoodscapeDepthFlatConfig,
     WoodscapeHPDepthConfig,
 )
 from heal_swin_torch.data.data_spec import DataSpec, DepthDataSpec  # noqa: F401
 from heal_swin_torch.evaluation import metrics as M
+from heal_swin_torch.models.swin_flat import SwinTransformerConfig, SwinTransformerSys
 from heal_swin_torch.models.swin_hp import SwinHPTransformerConfig, SwinHPTransformerSys
 from heal_swin_torch.ops.final_head import (
     depth_route_takes,
@@ -47,12 +52,22 @@ from heal_swin_torch.training.losses import weighted_cross_entropy
 from heal_swin_torch.training.optimizer import OptimizerConfig
 
 
-def decoder_tail(model: SwinHPTransformerSys):
+def decoder_tail(model):
     """The fused decoder tail's operands in the JAX layout: expand weight (C, p*C), its
-    LayerNorm's weight and bias, head weight (C, F)."""
+    LayerNorm's weight and bias, head weight (C, F).  The HP model keeps its tail in
+    ``decoder``; the flat model at its top level (``up``, ``output``)."""
+    if isinstance(model, SwinTransformerSys):
+        return (model.up.expand.weight.t(), model.up.norm.weight, model.up.norm.bias,
+                model.head_weight().t())
     dec = model.decoder
     return (dec.up.expand.weight.t(), dec.up.norm.weight, dec.up.norm.bias,
             dec.output.weight[:, :, 0].t())
+
+
+def tail_patch(model) -> int:
+    """The sub-pixels of a token in the decoder tail: p (HP), p1 * p2 (flat)."""
+    p = model.config.patch_size
+    return p[0] * p[1] if isinstance(p, tuple) else p
 
 
 def resolve_model(model: SwinHPTransformerSys, params_or_module) -> SwinHPTransformerSys:
@@ -80,6 +95,7 @@ class WoodscapeSegmenterSwinHP:
     ``device`` (the first CUDA device when None; raises without one) from
     ``generator``."""
 
+    CONFIG_CLASS = WoodscapeSegmenterSwinHPConfig
     NAME = "swin_hp"
     input_key = "hp_imgs"
 
@@ -97,13 +113,29 @@ class WoodscapeSegmenterSwinHP:
                 raise ValueError(f"{len(config.class_weights)} class weights for "
                                  f"{data_spec.f_out} classes")
             weights = list(config.class_weights)
-        self.model = SwinHPTransformerSys(config.swin_hp_transformer_config, data_spec,
-                                          device=device, generator=generator)
+        self.model = self._build_model(config, data_spec, device, generator)
         self.class_weights = torch.tensor(weights, dtype=torch.float32,
                                           device=self._device())
 
+    @staticmethod
+    def _build_model(config, data_spec, device, generator):
+        return SwinHPTransformerSys(config.swin_hp_transformer_config, data_spec,
+                                    device=device, generator=generator)
+
     def _device(self):
         return next(self.model.parameters()).device
+
+    @staticmethod
+    def _kernel_targets(model, targets):
+        """Per-pixel targets (B, npix) -> the tail kernels' (B*T, p) rows: the p pixels
+        of token n are the p column slices of its expand output."""
+        p = tail_patch(model)
+        return targets.reshape(-1, p)
+
+    @staticmethod
+    def _pred_from_kernel(model, preds, B):
+        """The tail kernel's (B*T, p) classes -> the unfused predict shape (B, npix)."""
+        return preds.reshape(B, -1)
 
     def loss_fn(self, imgs, targets, generator: Optional[torch.Generator] = None,
                 deterministic: bool = True, sample_mask=None):
@@ -126,11 +158,10 @@ class WoodscapeSegmenterSwinHP:
         if cfg.fused_final_head and sample_mask is None:
             feats = model(imgs, tail=False, generator=generator)  # (B, N, C)
             B, N, C = feats.shape
-            p = cfg.patch_size
-            y = targets.reshape(B * N, p).to(torch.int32)  # the p pixels of each token
+            y = self._kernel_targets(model, targets).to(torch.int32)
             welem = self.class_weights[y.long()]
             return final_head_loss(feats.reshape(B * N, C), *decoder_tail(model), y, welem,
-                                   patch_size=p, impl=cfg.attention_impl)
+                                   patch_size=tail_patch(model), impl=cfg.attention_impl)
         logits = model(imgs, generator=generator)
         return weighted_cross_entropy(logits, targets, self.class_weights,
                                       sample_mask=sample_mask), logits
@@ -151,8 +182,8 @@ class WoodscapeSegmenterSwinHP:
         feats = model(imgs, tail=False)  # (B, N, C) after norm_up, compute dtype
         B, N, C = feats.shape
         preds = final_head_predict(feats.reshape(B * N, C), *decoder_tail(model),
-                                   patch_size=cfg.patch_size, impl=cfg.attention_impl)
-        return preds.reshape(B, -1)
+                                   patch_size=tail_patch(model), impl=cfg.attention_impl)
+        return self._pred_from_kernel(model, preds, B)
 
     # --- metrics protocol ---
     def metric_init(self):
@@ -203,6 +234,7 @@ class WoodscapeDepthSwinHP:
     normalization, background masking), as ``WoodscapeHPDepthConfig``; without one the
     network's space is metric depth."""
 
+    CONFIG_CLASS = WoodscapeDepthSwinHPConfig
     NAME = "depth_swin_hp"
     input_key = "hp_imgs"
 
@@ -214,9 +246,8 @@ class WoodscapeDepthSwinHP:
         self.optimizer_config = config.optimizer_config
         self.cd = config.common_depth_config
         self.f_out = 2 if self.cd.use_logvar else 1
-        self.model = SwinHPTransformerSys(config.swin_hp_transformer_config,
-                                          data_spec.replace(f_out=self.f_out),
-                                          device=device, generator=generator)
+        self.model = self._build_model(config, data_spec.replace(f_out=self.f_out), device,
+                                       generator)
         self.loss_impl = L.get_depth_loss(self.cd)
         self._epoch = 0
         self.dc = data_config.common_depth if data_config is not None else None
@@ -233,6 +264,11 @@ class WoodscapeDepthSwinHP:
         self.metric_stats = ndd.get_depth_data_stats(None, mb)
         self.num_classes = None
         self.class_names = None
+
+    @staticmethod
+    def _build_model(config, data_spec, device, generator):
+        return SwinHPTransformerSys(config.swin_hp_transformer_config, data_spec,
+                                    device=device, generator=generator)
 
     def _device(self):
         return next(self.model.parameters()).device
@@ -345,3 +381,91 @@ class WoodscapeDepthSwinHP:
 
     def metric_compute(self, state, prefix, with_per_class=False):
         return M.depth_state_compute(state, prefix)
+
+
+# ---------------------------------------------------------------------------
+# The flat SWIN-UNet baseline (the JAX package's WoodscapeSegmenterSwin and
+# WoodscapeDepthSwin)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class WoodscapeSegmenterSwinConfig:
+    swin_transformer_config: SwinTransformerConfig = field(default_factory=SwinTransformerConfig)
+    optimizer_config: OptimizerConfig = field(default_factory=OptimizerConfig)
+    class_weights: Optional[List[float]] = None
+
+
+class WoodscapeSegmenterSwin(WoodscapeSegmenterSwinHP):
+    """The flat SWIN-UNet's semantic segmentation: (B, H, W, 3) images, (B, H, W)
+    targets and classes.  The fused tail is the HP task's with p = p1 * p2: the flat
+    tail is FinalPatchExpand2D -> LN -> head, the same (C, p1*p2*C) + (C,) + (C, F)
+    math, and its depth-to-space only reorders pixels, which commutes with the
+    per-element CE and confusion matrix; the targets are rearranged into the kernels'
+    row layout instead, and the kernels' classes back (K6/K7 train, K3 predict).  The
+    flat model is data-parallel only (no sequence sharding)."""
+
+    CONFIG_CLASS = WoodscapeSegmenterSwinConfig
+    NAME = "swin"
+    input_key = "s2_imgs"
+
+    @staticmethod
+    def _build_model(config, data_spec, device, generator):
+        return SwinTransformerSys(config.swin_transformer_config, data_spec, device=device,
+                                  generator=generator)
+
+    @staticmethod
+    def _kernel_targets(model, targets):
+        """(B, H, W) -> (B*Hp*Wp, p1*p2): token (h, w)'s sub-pixel (d1, d2) is column
+        slice d1*p2 + d2 of its expand output."""
+        p1, p2 = model.config.patch_size
+        B, H, W = targets.shape
+        t = targets.reshape(B, H // p1, p1, W // p2, p2).permute(0, 1, 3, 2, 4)
+        return t.reshape(-1, p1 * p2)
+
+    @staticmethod
+    def _pred_from_kernel(model, preds, B):
+        """(B*Hp*Wp, p1*p2) -> (B, H, W)."""
+        p1, p2 = model.config.patch_size
+        H, W = model.data_spec.dim_in
+        return preds.reshape(B, H // p1, W // p2, p1, p2).permute(0, 1, 3, 2, 4).reshape(B, H, W)
+
+
+@dataclass
+class WoodscapeDepthSwinConfig:
+    swin_transformer_config: SwinTransformerConfig = field(default_factory=SwinTransformerConfig)
+    optimizer_config: OptimizerConfig = field(default_factory=OptimizerConfig)
+    common_depth_config: CommonDepthConfig = field(default_factory=CommonDepthConfig)
+
+
+class WoodscapeDepthSwin(WoodscapeDepthSwinHP):
+    """The flat SWIN-UNet's depth estimation: (B, H, W, 3) images, (B, H, W) targets,
+    (B, H, W, F) predictions.  Its tail is always the unfused one: the JAX task's fused
+    gate reads only ``swin_hp_transformer_config`` (``heal_swin_tpu/models/tasks.py``
+    ``_DepthBase._fused_tail_ok``), so the flat depth step never runs K8/K9."""
+
+    CONFIG_CLASS = WoodscapeDepthSwinConfig
+    NAME = "depth_swin"
+    input_key = "s2_imgs"
+
+    @staticmethod
+    def _build_model(config, data_spec, device, generator):
+        return SwinTransformerSys(config.swin_transformer_config, data_spec, device=device,
+                                  generator=generator)
+
+    def _fused_tail_ok(self):
+        return False
+
+
+# the JAX package's registry (``heal_swin_tpu/models/tasks.py``, reference
+# models_lightning.py:12-34)
+MODEL_CLASSES = [
+    WoodscapeSegmenterSwin,
+    WoodscapeSegmenterSwinHP,
+    WoodscapeDepthSwin,
+    WoodscapeDepthSwinHP,
+]
+MODELS = {m.NAME: m for m in MODEL_CLASSES}
+MODEL_NAME_FROM_CONFIG_NAME = {m.CONFIG_CLASS.__name__: m.__name__ for m in MODEL_CLASSES}
+MODEL_FROM_CONFIG_NAME = {m.CONFIG_CLASS.__name__: m for m in MODEL_CLASSES}
+MODEL_FROM_NAME = {m.__name__: m for m in MODEL_CLASSES}

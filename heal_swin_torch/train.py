@@ -69,24 +69,34 @@ def save_config(artifacts_dir: Path, run_config, pl_config, task, data_spec, con
 
 def build_task(model_config, data_spec, data_config, device=None):
     """The task of a model config (the JAX package's ``MODEL_FROM_CONFIG_NAME``) on
-    ``device``."""
-    name = type(model_config).__name__
-    if name == "WoodscapeSegmenterSwinHPConfig":
-        return tasks.WoodscapeSegmenterSwinHP(model_config, data_spec, device=device)
-    if name == "WoodscapeDepthSwinHPConfig":
-        return tasks.WoodscapeDepthSwinHP(model_config, data_spec, data_config, device=device)
-    raise NotImplementedError(f"model config {name}: the port's flat SWIN-UNet tasks are "
-                              "still to be ported (ROADMAP queue 1 item 5)")
+    ``device``; the depth tasks also take the data config."""
+    task_cls = tasks.MODEL_FROM_CONFIG_NAME[type(model_config).__name__]
+    if issubclass(task_cls, tasks.WoodscapeDepthSwinHP):
+        return task_cls(model_config, data_spec, data_config, device=device)
+    return task_cls(model_config, data_spec, device=device)
 
 
-def _flax_module_name(key: str) -> str:
+def _flax_module_name(key: str, flat: bool = False) -> str:
     """The JAX model's top-level module name of a state_dict key (the inverse of
-    ``convert._module_path`` at the top level)."""
+    ``convert``'s key maps at the top level): the HP model nests its blocks
+    (``layer0``, ``decoder``), the flat model names every block and stage part at the
+    top (``layer0_block1``, ``downsample0``, ``upsample1``, ``patch_embed_proj``)."""
     parts = key.split(".")
-    if parts[0] == "layers":
-        return f"layer{parts[1]}"
-    if parts[0] == "layers_up":
-        return "expand0" if parts[1] == "0" else f"layer_up{parts[1]}"
+    if flat:
+        if parts[0] == "patch_embed":
+            return f"patch_embed_{parts[1]}"
+        if parts[0] in ("layers", "layers_up"):
+            stage = "layer" if parts[0] == "layers" else "layer_up"
+            if parts[0] == "layers_up" and parts[1] == "0":
+                return "expand0"
+            if parts[2] == "blocks":
+                return f"{stage}{parts[1]}_block{parts[3]}"
+            return f"{parts[2]}{parts[1]}"  # downsample{i} / upsample{k}
+    else:
+        if parts[0] == "layers":
+            return f"layer{parts[1]}"
+        if parts[0] == "layers_up":
+            return "expand0" if parts[1] == "0" else f"layer_up{parts[1]}"
     if parts[0] == "concat_back_dim":
         return f"concat_back_dim{parts[1]}"
     return parts[0]
@@ -95,9 +105,12 @@ def _flax_module_name(key: str) -> str:
 def param_counts(model) -> dict:
     """``total_params`` and ``total_params.<module>`` per top-level module, under the
     JAX model's module names (reference logging_callbacks.py:47-59)."""
+    from heal_swin_torch.models.swin_flat import SwinTransformerSys
+
+    flat = isinstance(model, SwinTransformerSys)
     out = {"total_params": sum(p.numel() for p in model.parameters())}
     for key, p in model.named_parameters():
-        name = f"total_params.{_flax_module_name(key)}"
+        name = f"total_params.{_flax_module_name(key, flat)}"
         out[name] = out.get(name, 0) + p.numel()
     return out
 

@@ -33,20 +33,57 @@ def get_overlay(woodscape_version, mask, img, mask_opacity=0.4) -> np.ndarray:
     return overlay_from_seg_info(mask, img, get_seg_info(woodscape_version), mask_opacity)
 
 
+_PRECISION_BITS = 22  # PIL's fixed-point coefficient bits for 8-bit images (32 - 8 - 2)
+
+
+def _pil_bilinear_pass(x: np.ndarray, n_out: int, axis: int) -> np.ndarray:
+    """One pass of PIL's 8-bit BILINEAR resample (``ImagingResample``) along ``axis`` of
+    a uint8 array: the triangle filter over a support widened by the downscale, its
+    weights normalized per output pixel and rounded to 22-bit fixed point, each output
+    rounded and clipped to 0..255."""
+    n_in = x.shape[axis]
+    scale = n_in / n_out
+    filterscale = max(scale, 1.0)
+    support = filterscale
+    out_shape = list(x.shape)
+    out_shape[axis] = n_out
+    out = np.empty(out_shape, dtype=np.uint8)
+    xm = np.moveaxis(x, axis, 0).astype(np.int64)
+    om = np.moveaxis(out, axis, 0)
+    for i in range(n_out):
+        center = (i + 0.5) * scale
+        lo = max(int(center - support + 0.5), 0)
+        hi = min(int(center + support + 0.5), n_in)
+        t = np.abs((np.arange(lo, hi) - center + 0.5) / filterscale)
+        k = np.where(t < 1.0, 1.0 - t, 0.0)
+        k = k / k.sum() if k.sum() != 0.0 else k
+        kk = np.trunc(k * (1 << _PRECISION_BITS) + np.where(k < 0, -0.5, 0.5)).astype(np.int64)
+        acc = (1 << (_PRECISION_BITS - 1)) + np.tensordot(kk, xm[lo:hi], axes=(0, 0))
+        om[i] = np.clip(acc >> _PRECISION_BITS, 0, 255)
+    return out
+
+
+def resize_bilinear_pil(img: np.ndarray, size) -> np.ndarray:
+    """A (3, H, W) uint8 image resized to ``size`` (h, w) as PIL's ``Image.resize(..,
+    BILINEAR)`` does it: horizontal pass first, then vertical, each in 8-bit fixed point,
+    so the result is PIL's bit for bit."""
+    h, w = size
+    x = np.asarray(img, dtype=np.uint8)
+    if x.shape[-1] != w:
+        x = _pil_bilinear_pass(x, w, axis=2)
+    if x.shape[-2] != h:
+        x = _pil_bilinear_pass(x, h, axis=1)
+    return x
+
+
 def save_image_grid(images, path, nrow=2):
-    """Save a list of (3, H, W) uint8 images of one size as an RGB grid PNG, ``nrow``
-    images a row (the JAX package's PIL grid, torchvision save_image's layout).  Images
-    of differing sizes raise: the HEALPix writers hand over images of one size, and the
-    flat writers that resize here come with the flat SWIN-UNet (ROADMAP queue 1 item
-    5)."""
+    """Save a list of (3, H, W) uint8 images as an RGB grid PNG, ``nrow`` images a row
+    (the JAX package's PIL grid, torchvision save_image's layout): each image of another
+    size is first resized to the first image's as PIL's bilinear resize does it
+    (``resize_bilinear_pil``)."""
     imgs = [np.asarray(im, dtype=np.uint8) for im in images]
     H, W = imgs[0].shape[-2:]
-    sizes = {im.shape[-2:] for im in imgs}
-    if sizes != {(H, W)}:
-        raise NotImplementedError(
-            f"image grid of sizes {sorted(sizes)}: the port's grid takes images of one "
-            "size; resizing in the grid comes with the flat writers (ROADMAP queue 1 "
-            "item 5)")
+    imgs = [im if im.shape[-2:] == (H, W) else resize_bilinear_pil(im, (H, W)) for im in imgs]
     ncol = nrow
     nrows = -(-len(imgs) // ncol)
     grid = np.zeros((nrows * H, ncol * W, 3), dtype=np.uint8)

@@ -313,8 +313,11 @@ def test_overlay_and_grid_match_jax(world, paths):
     jov.save_image_grid([got, s["imgs"], got], paths / "jax.png", nrow=2)
     np.testing.assert_array_equal(png.read(paths / "port.png").samples,
                                   np.asarray(Image.open(paths / "jax.png")))
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        tov.save_image_grid([got, got[:, :-1]], paths / "odd.png")
+    # an image of another size is resized to the first's, as PIL's grid does it
+    tov.save_image_grid([got, got[:, :-1]], paths / "port_odd.png")
+    jov.save_image_grid([got, got[:, :-1]], paths / "jax_odd.png")
+    np.testing.assert_array_equal(png.read(paths / "port_odd.png").samples,
+                                  np.asarray(Image.open(paths / "jax_odd.png")))
 
 
 def test_cal_distribution_pickles_cross_load(world, paths):

@@ -167,9 +167,11 @@ def test_real_datasets_and_flat_configs_raise(tmp_path, monkeypatch):
     monkeypatch.setenv("HEAL_SWIN_DATA_ROOT", str(tmp_path))
     with pytest.raises(FileNotFoundError, match="Could not find directory"):
         tdata.get_data_module(tdc.WoodscapeHPConfig())
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        tdata.get_data_module(type("WoodscapeFlatConfig", (), {})())
-    with pytest.raises(NotImplementedError, match="prediction writer"):
+    # so do the flat ones, and the synthetic datamodules' writer registry names its writers
+    for cfg in (tdc.WoodscapeFlatConfig(), tdc.WoodscapeDepthFlatConfig()):
+        with pytest.raises(FileNotFoundError, match="Could not find directory"):
+            tdata.get_data_module(cfg)
+    with pytest.raises(ValueError, match="unknown writer for synthetic data"):
         tdata.get_data_module(tdc.WoodscapeHPConfig(common=tdc.WoodscapeCommonConfig(
             version="synthetic", synthetic_train_samples=1, synthetic_val_samples=1)),
         )[0].get_pred_writer("iou")

@@ -53,8 +53,14 @@ def test_port_and_chip_smoke_import_without_the_jax_package():
             "heal_swin_torch.evaluation.hp_pred_writers",
             "heal_swin_torch.evaluation.evaluate_config",
             "heal_swin_torch.data.segmentation.generate_metadata",
-            "heal_swin_torch.utils.overlay", "heal_swin_torch.evaluate"} <= set(mods)
-    assert len(mods) >= 45
+            "heal_swin_torch.utils.overlay", "heal_swin_torch.evaluate",
+            "heal_swin_torch.models.swin_flat", "heal_swin_torch.evaluation.writers",
+            "heal_swin_torch.evaluation.flat_depth_pred_writers",
+            "heal_swin_torch.data.segmentation.flat_datamodule",
+            "heal_swin_torch.data.depth_estimation.flat_depth_datamodule",
+            "heal_swin_torch.configs.swin_synwoodscape_large_train_run_config",
+            "heal_swin_torch.configs.depth_swin_train_run_config"} <= set(mods)
+    assert len(mods) >= 52
     blocked = ("jax", "flax", "heal_swin_tpu", "optax", "dill", "msgpack", "PIL", "cv2",
                "matplotlib")
     code = ("import sys\n"
