@@ -31,7 +31,13 @@ both paper configs' f32 forward in eval mode, where no dropout is active and eve
 runs the f32 window-attention kernels: the f32 K1 (a launch sequence), K2 and K3 against
 their plain versions at every paper shape, each config's predict and its validation
 (``training.trainer.run_validation``, 3 batches) through both paths, and the Chamfer
-writer through the predict loop (``training.trainer.predict``); then ``Trainer.fit`` of
+writer through the predict loop (``training.trainer.predict``); then f32 training with
+attention dropout off (``drive_f32_attention_train``): the f32 K16, K17, K4 and K5 against
+their plain versions at every stage shape (cosine and scaled-dot, masked and unmasked, on
+HEALPix and flat operands), then the paper segmentation config's train step with
+attention dropout 0 through both paths, (a) with proj dropout 0.1 (the blocks at C <= 384
+on f32 K16 / K17) and (b) with dropout 0 too (f32 K1 / K4), the bottleneck on f32 K2 /
+K5 in both; then ``Trainer.fit`` of
 both paper configs on the port's synthetic HEALPix datamodule (``drive_fit``: two
 uninterrupted 2-epoch runs, and a 1-epoch run resumed from its checkpoint and held to
 them, with their launches, tracked metrics and checkpoint files); then the real input
@@ -46,9 +52,10 @@ masked IoU, and the depth Chamfer evaluation; the depth Chamfer writer again in 
 process, each of its pairs held to the other route and K10 / K11 to their plain versions;
 the headline writer's metrics again in this process through the kernels and through the
 plain route); and last the kernels'
-refusal: small models the kernels do not take (scaled-dot float32 without dropout,
-window 16, float32 cosine in training), and an f32 tail at C 48, raise under "auto"
-with no launch, and run the plain versions under "xla".
+refusal: small f32 models at window 64 (scaled-dot, and cosine in training) run through the
+f32 kernels, held to "xla"; what the kernels do not take (a bf16 window-16 model with 40
+classes, an f32 tail at C 48, the fused MLP on f32 tokens) raises under "auto" with no
+launch, and runs the plain versions under "xla".
 
 The flat SWIN-UNet baseline (the JAX package's ``swin_flat.py``: bench.py's ``swin`` and
 ``depth_swin`` cells in bf16, and the paper flat configs in f32; 640 x 768 images, patch
@@ -85,7 +92,8 @@ depth train step for K8, K9; the writer for K10, K11; the MLP phase for K12-K15,
 no configuration's train step or predict launches; the scaled-dot train step for K2,
 K5, K16, K17; the paper config's f32 train step for the f32 K6 and K7, and the depth
 paper config's for the f32 K8 and K9, the paper segmentation config's predict for the f32
-K1, K2 and K3, whose ``bound_ms`` takes the 3xTF32 rate, a third of the TF32 peak, and
+K1, K2 and K3, and the f32 attention training step of variant (a) for the f32 K16, K17 and
+K5, of (b) for the f32 K4, whose ``bound_ms`` takes the 3xTF32 rate, a third of the TF32 peak, and
 which add ``device_ms``, one call's device time (``spin_ms``), and, for the tails,
 ``route_ms``, the composed PyTorch route in f32; the f32 K2's ``library_ms`` is one f32
 ``scaled_dot_product_attention`` on its operands, in the scaled-dot flavour).  For K1-K9
@@ -1488,7 +1496,8 @@ NO_LAUNCHES = {k: 0 for k in (
     "mlp_block_bwd", "window_attention_qkv", "window_attention_qkv_bwd",
     "final_head_loss_f32", "final_head_loss_bwd_f32", "final_head_depth_loss_f32",
     "final_head_depth_loss_bwd_f32", "window_attention_qkv_epi_f32", "window_attention_f32",
-    "final_head_predict_f32")}
+    "final_head_predict_f32", "window_attention_qkv_f32", "window_attention_bwd_f32",
+    "window_attention_qkv_bwd_f32", "window_attention_qkv_epi_bwd_f32")}
 # the window-attention launches of one pass of the paper model: cosine blocks at
 # C <= 384 run K1 (K4 backward), scaled-dot ones K16 (K17); the C = 768 ones K2 (K5)
 ATTN_LAUNCHES = {True: dict(window_attention_qkv_epi=20, window_attention=2),
@@ -2754,7 +2763,15 @@ F32_TC_PEAK = TF32_PEAK / 3
 F32_TC_PEAK_NAME = "3xTF32: TF32 494.7 TFLOPS / 3"
 F32_KERNELS = ("final_head_loss_f32", "final_head_loss_bwd_f32", "final_head_depth_loss_f32",
                "final_head_depth_loss_bwd_f32", "final_head_predict_f32",
-               "window_attention_qkv_epi_f32", "window_attention_f32")
+               "window_attention_qkv_epi_f32", "window_attention_f32",
+               "window_attention_qkv_f32", "window_attention_qkv_bwd_f32",
+               "window_attention_qkv_epi_bwd_f32", "window_attention_bwd_f32")
+# the f32 window-attention kernels' bytes over their bf16 forms', (per T C, per C^2): the
+# tokens and weights at 4 bytes, the f32 weight gradients as they are
+F32_ATTN_EXTRA = {"window_attention_f32": (8, 0), "window_attention_qkv_epi_f32": (4, 8),
+                  "window_attention_qkv_f32": (4, 6), "window_attention_bwd_f32": (14, 0),
+                  "window_attention_qkv_bwd_f32": (6, 6),
+                  "window_attention_qkv_epi_bwd_f32": (6, 8)}
 # the kernels of an f32 K6 / K7 call, and of an f32 K8 / K9 call, by their names in a trace
 F32_TAIL_STEPS = {"tail_fwd_3xtf32_kernel": "K6 tile kernel",
                   "tail_bwd_3xtf32_kernel": "K7 tile kernel", "reduce_rows_kernel": "reduce_rows"}
@@ -2891,7 +2908,7 @@ def check_f32_loss_kernels(largs, fh):
                 route_ms=rms7, route_device_ms=rdev7)}
 
 
-def paper_task(impl, dev, state=None, depth=False, flat=False):
+def paper_task(impl, dev, state=None, depth=False, flat=False, overrides=None):
     """The paper segmentation config's task (``heal_swin_torch.run_configs``): f32 compute,
     dropout and attention dropout 0.1, DropPath 0.1, the SynWoodScape-large class
     weights, Adam at the paper rate, at nside 256; with ``depth`` the paper depth
@@ -2901,7 +2918,8 @@ def paper_task(impl, dev, state=None, depth=False, flat=False):
     ``build_task``'s) or ``state``.  With ``flat`` the paper flat configs' tasks
     (``run_configs.flat_seg_train_run``, ``depth_swin_train_run``: the copies of
     ``swin_synwoodscape_large_train_run_config.py`` and ``depth_swin_train_run_config.py``)
-    at 640 x 768."""
+    at 640 x 768.  ``overrides``: fields set on the HEALPix segmentation config
+    (``paper_swin_hp_config``)."""
     from heal_swin_torch.models import tasks as T
     from heal_swin_torch.models.swin_hp import DataSpec
     from heal_swin_torch.run_configs import (PAPER_LR, SYNWOODSCAPE_LARGE_WEIGHTS,
@@ -2927,7 +2945,7 @@ def paper_task(impl, dev, state=None, depth=False, flat=False):
     else:
         task = T.WoodscapeSegmenterSwinHP(
             T.WoodscapeSegmenterSwinHPConfig(
-                paper_swin_hp_config(attention_impl=impl),
+                paper_swin_hp_config(attention_impl=impl, **(overrides or {})),
                 optimizer_config=OptimizerConfig(learning_rate=PAPER_LR),
                 class_weights=list(SYNWOODSCAPE_LARGE_WEIGHTS)),
             DataSpec(dim_in=npix, f_in=3, f_out=PAPER_CLASSES, base_pix=8), device=dev,
@@ -3050,12 +3068,14 @@ def drive_paper_depth_train(dev, timed):
                       timed, ("count", float(torch.isfinite(targets).sum())))
 
 
-def paper_step(label, task_k, task_p, imgs, targets, expected, timed, counted):
+def paper_step(label, task_k, task_p, imgs, targets, expected, timed, counted,
+               attn_dropout=True):
     """A paper config's train step through the kernels (``task_k``, "auto") and through
     the plain path (``task_p``, "xla", the same weights), on the same batch and step
     generators.  Step 0 of each path through ``train_step``: every dropout mask the
     kernel path draws is kept and the plain path's are held to them (``torch.equal``, in
-    draw order), and their kept share to 0.9 within 3 standard deviations; the kernel
+    draw order; masks on the attention probabilities where ``attn_dropout``, none
+    where not), and their kept share to 0.9 within 3 standard deviations; the kernel
     path's launches are ``expected``; the two losses agree within PAPER_LOSS_TOL
     relative and every parameter gradient within relative L2 PAPER_GRAD_TOL.  Then
     PAPER_STEPS more steps of each path, timed (images/s, peak memory above the
@@ -3094,9 +3114,11 @@ def paper_step(label, task_k, task_p, imgs, targets, expected, timed, counted):
     drawn = sum(m.numel() for m in masks)
     share, sd = kept / drawn, (0.9 * 0.1 / drawn) ** 0.5
     elem = [m for m in masks if m.numel() > m.shape[0]]  # the element masks, not DropPath's
-    e_share = sum(int(m.sum()) for m in elem) / sum(m.numel() for m in elem)
-    if abs(e_share - 0.9) > 3 * (0.9 * 0.1 / sum(m.numel() for m in elem)) ** 0.5:
-        raise AssertionError(f"{label}: the element masks keep {e_share}")
+    e_share = None
+    if elem:
+        e_share = sum(int(m.sum()) for m in elem) / sum(m.numel() for m in elem)
+        if abs(e_share - 0.9) > 3 * (0.9 * 0.1 / sum(m.numel() for m in elem)) ** 0.5:
+            raise AssertionError(f"{label}: the element masks keep {e_share}")
 
     # step 0 of the plain path: the same masks, in the same order
     seen = {"n": 0, "differ": 0}
@@ -3117,12 +3139,13 @@ def paper_step(label, task_k, task_p, imgs, targets, expected, timed, counted):
         layers.keep_mask = draw
     n_masks, n_attn = len(masks), sum(m.ndim == 5 for m in masks)
     del masks, elem
-    if seen["n"] != n_masks or seen["differ"] or n_attn == 0:
+    if seen["n"] != n_masks or seen["differ"] or (n_attn > 0) != attn_dropout:
         raise AssertionError(f"{label}: the plain path drew {seen} against the kernel "
                              f"path's {n_masks} masks ({n_attn} on attention)")
     log(f"{label}: step 0 drew {seen['n']} masks ({n_attn} on attention probabilities), "
         f"{drawn} entries, on both paths bit-equal in draw order; kept share {share:.6f} "
-        f"(element masks {e_share:.6f}; 0.9 within 3 sd = {3 * sd:.2e})")
+        f"(element masks {'none' if e_share is None else f'{e_share:.6f}'}; 0.9 within "
+        f"3 sd = {3 * sd:.2e})")
     loss_k0, loss_p0 = float(loss_k0), float(loss_p0)
     rel = abs(loss_k0 - loss_p0) / abs(loss_p0)
     if rel > PAPER_LOSS_TOL:
@@ -3620,6 +3643,192 @@ def drive_paper_eval(dev, timed):
         del task_k
         torch.cuda.empty_cache()
     return runs[False]
+
+
+# -------------------------- f32 window-attention training: the paper step, attention dropout off
+# the paper segmentation config's train step with attention dropout off (the JAX config
+# default), where every block runs the f32 window-attention kernels both ways: (a) proj
+# dropout 0.1 active, so the blocks at C <= 384 take K16/K17; (b) dropout 0 as well, so
+# they take K1/K4; the bottleneck K2/K5 in both.  DropPath 0.1 stays in both.
+F32_TRAIN_VARIANTS = {"a": dict(attn_drop_rate=0.0),
+                      "b": dict(attn_drop_rate=0.0, drop_rate=0.0)}
+F32_TRAIN_LAUNCHES = {
+    "a": dict(window_attention_qkv_f32=20, window_attention_qkv_bwd_f32=20,
+              window_attention_f32=2, window_attention_bwd_f32=2, final_head_loss_f32=1,
+              final_head_loss_bwd_f32=1),
+    "b": dict(window_attention_qkv_epi_f32=20, window_attention_qkv_epi_bwd_f32=20,
+              window_attention_f32=2, window_attention_bwd_f32=2, final_head_loss_f32=1,
+              final_head_loss_bwd_f32=1)}
+F32_PLAIN_RUNS = 5  # timed calls of an f32 backward's plain version (each 0.1-0.5 s)
+
+
+def f32_train_timing(label, call, plain, route=None):
+    """One f32 kernel's timings: one call (``median_ms``), its device time (``spin_ms``),
+    the plain version (median of F32_PLAIN_RUNS), and a PyTorch route or library call
+    (``route``: (field, fn)) where one computes the same function."""
+    res = dict(ms=median_ms(call), device_ms=spin_ms(call),
+               plain_ms=median_ms(plain, runs=F32_PLAIN_RUNS, warmup=1))
+    if route is not None:
+        field, fn = route
+        res[field] = median_ms(fn)
+        res[field.replace("_ms", "_device_ms")] = spin_ms(fn)
+    log(f"{label}: kernel {res['ms']:.4f} ms (device {res['device_ms']:.4f}) plain "
+        f"{res['plain_ms']:.4f} ms" + ("" if route is None else
+                                       f" {route[0][:-3]} {res[route[0]]:.4f} ms (device "
+                                       f"{res[route[0].replace('_ms', '_device_ms')]:.4f})"))
+    return res
+
+
+def check_f32_train_kernels(gen, dev, flat=False):
+    """The f32 K16, K17, K4 and K5 against their plain versions (f32, TF32 off) at every
+    stage shape of the f32 train step, each output within relative L2 F32_TAIL_TOL and
+    two launches bit-equal: K16 / K17 at the three stage shapes (T 262,144 / 65,536 /
+    16,384, C 96 / 192 / 384), cosine and scaled-dot, masked and unmasked; K4 there with
+    and without LayerNorm; K5 at the bottleneck (T 4,096, C 768) in both flavours.  With
+    ``flat`` the same on the flat model's shapes, 9-region groups and 2-D rel-pos bias
+    (checked, not timed).  Timed at the flavours the step runs (``f32_train_timing``):
+    K16 / K17 cosine beside the f32 composed route of their scaled-dot function
+    (``sdpa_route``, f32), K4 with LayerNorm (no PyTorch call computes it), K5 cosine
+    beside one f32 ``scaled_dot_product_attention`` backward (``sdpa_library``, scaled-dot).
+    Returns the timings keyed like the launch counters."""
+    from heal_swin_torch.ops import window_attention as wa
+
+    timed = {}
+    rnd, logit_scales = seeded_draws(gen, dev)
+    where = "flat " if flat else ""
+    for stage in range(3):
+        T, C, h, args = stage_inputs(rnd, logit_scales, stage, dev, flat)
+        x, wq, bq, wp, bp, g, b, bias, ls, groups = (
+            a.float() if a.dtype == torch.bfloat16 else a for a in args)
+        dz = rnd(T, C)
+        for masked in (False, True):
+            gr = groups if masked else None
+            for use_cos in (True, False):
+                a = (x, wq, bq, gr, bias, ls if use_cos else None)
+                kw = dict(ws=WS, num_heads=h, use_cos=use_cos, sm_scale=DOT_SCALE,
+                          has_mask=masked)
+                label = (f"{where}C={C} T={T} mask={masked} "
+                         f"{'cosine' if use_cos else 'scaled-dot'}")
+                got = wa.window_attention_qkv_fwd(*a, **kw, impl="pallas")
+                e16 = check_close(f"f32 K16 {label}", got,
+                                  wa.window_attention_qkv_plain(*a, **kw), F32_TAIL_TOL)
+                repeat_equal(f"f32 K16 {label}", got,
+                             wa.window_attention_qkv_fwd(*a, **kw, impl="pallas"))
+                got = wa.window_attention_qkv_bwd(*a, dz, **kw, impl="pallas")
+                e17 = check_grads(f"f32 K17 {label}", K17_GRADS, got,
+                                  wa.window_attention_qkv_bwd_plain(*a, dz, **kw), F32_TAIL_TOL)
+                again = wa.window_attention_qkv_bwd(*a, dz, **kw, impl="pallas")
+                if not all(u is None or torch.equal(u, v) for u, v in zip(got, again)):
+                    raise AssertionError(f"f32 K17 {label}: two launches differ")
+                del got, again
+                log(f"f32 K16 {label}: rel_l2 {e16[0]:.3e} max_abs {e16[1]:.3e}; f32 K17 "
+                    f"rel_l2 <= {e17[0]:.3e} max_abs {e17[1]:.3e} (tol {F32_TAIL_TOL}); two "
+                    f"launches of each bit-equal")
+                if flat or not use_cos:
+                    continue
+                route_f, route_b = sdpa_route(x, wq, bq, gr, bias, h)
+                key = (T, C, masked)
+                timed[("window_attention_qkv_f32",) + key] = dict(
+                    rel_l2=e16[0], max_abs_err=e16[1], **f32_train_timing(
+                        f"f32 K16 {label}", lambda: wa.window_attention_qkv_fwd(
+                            *a, **kw, impl="pallas"),
+                        lambda: wa.window_attention_qkv_plain(*a, **kw), ("route_ms", route_f)))
+                timed[("window_attention_qkv_bwd_f32",) + key] = dict(
+                    rel_l2=e17[0], max_abs_err=e17[1], **f32_train_timing(
+                        f"f32 K17 {label}", lambda: wa.window_attention_qkv_bwd(
+                            *a, dz, **kw, impl="pallas"),
+                        lambda: wa.window_attention_qkv_bwd_plain(*a, dz, **kw),
+                        ("route_ms", route_b)))
+                del route_f, route_b
+            for has_ln in (True, False):
+                a = (x, wq, bq, wp, bp, g if has_ln else None, b if has_ln else None, gr,
+                     bias, ls)
+                kw = dict(ws=WS, num_heads=h, sm_scale=1.0, has_mask=masked)
+                label = f"{where}C={C} T={T} mask={masked} LayerNorm={has_ln}"
+                got = wa.window_attention_qkv_epi_bwd(*a, dz, **kw, impl="pallas")
+                e4 = check_grads(f"f32 K4 {label}", K4_GRADS, got,
+                                 wa.window_attention_qkv_epi_bwd_plain(*a, dz, **kw),
+                                 F32_TAIL_TOL)
+                again = wa.window_attention_qkv_epi_bwd(*a, dz, **kw, impl="pallas")
+                if not all(u is None or torch.equal(u, v) for u, v in zip(got, again)):
+                    raise AssertionError(f"f32 K4 {label}: two launches differ")
+                del got, again
+                log(f"f32 K4 {label}: rel_l2 <= {e4[0]:.3e} max_abs {e4[1]:.3e} (tol "
+                    f"{F32_TAIL_TOL}); two launches bit-equal")
+                if flat or not has_ln:
+                    continue
+
+                def call(a=a, kw=kw):
+                    return wa.window_attention_qkv_epi_bwd(*a, dz, **kw, impl="pallas")
+
+                per, _ = trace(call, SEQUENCE_TRACED)
+                log(f"f32 K4 {label}: {SEQUENCE_TRACED} calls traced, a step's mean a launch: "
+                    + ", ".join(f"{k.replace('hs::(anonymous namespace)::', '').split('(')[0]} "
+                                f"{v / c:.4f} ms x {c / SEQUENCE_TRACED:.0f}"
+                                for k, (v, c) in sorted(per.items(), key=lambda kv: -kv[1][0])))
+                timed[("window_attention_qkv_epi_bwd_f32", T, C, masked)] = dict(
+                    rel_l2=e4[0], max_abs_err=e4[1], **f32_train_timing(
+                        f"f32 K4 {label}", call,
+                        lambda a=a, kw=kw: wa.window_attention_qkv_epi_bwd_plain(*a, dz, **kw)))
+        del x, wq, bq, wp, bp, g, b, bias, ls, groups, args, dz
+        torch.cuda.empty_cache()
+
+    T, C, h, (qkv, bias, ls, groups, dout) = bottleneck_inputs(rnd, logit_scales, dev, flat)
+    qkv, dout = qkv.float(), dout.float()
+    for masked in (False, True):
+        gr = groups if masked else None
+        for use_cos in (True, False):
+            a = (qkv, gr, bias, ls if use_cos else None)
+            kw = dict(ws=WS, num_heads=h, use_cos=use_cos, sm_scale=DOT_SCALE, has_mask=masked)
+            label = f"{where}C={C} T={T} mask={masked} {'cosine' if use_cos else 'scaled-dot'}"
+            got = wa.window_attention_bwd(*a, dout, **kw, impl="pallas")
+            e5 = check_grads(f"f32 K5 {label}", K5_GRADS, got,
+                             wa.window_attention_bwd_plain(*a, dout, **kw), F32_TAIL_TOL)
+            again = wa.window_attention_bwd(*a, dout, **kw, impl="pallas")
+            if not all(u is None or torch.equal(u, v) for u, v in zip(got, again)):
+                raise AssertionError(f"f32 K5 {label}: two launches differ")
+            del got, again
+            log(f"f32 K5 {label}: rel_l2 <= {e5[0]:.3e} max_abs {e5[1]:.3e} (tol "
+                f"{F32_TAIL_TOL}); two launches bit-equal")
+            if flat or not use_cos:
+                continue
+            _, lib_b = sdpa_library(qkv, gr, bias, h, dout)
+            timed[("window_attention_bwd_f32", T, C, masked)] = dict(
+                rel_l2=e5[0], max_abs_err=e5[1], **f32_train_timing(
+                    f"f32 K5 {label}", lambda: wa.window_attention_bwd(*a, dout, **kw,
+                                                                      impl="pallas"),
+                    lambda: wa.window_attention_bwd_plain(*a, dout, **kw),
+                    ("library_ms", lib_b)))
+            del lib_b
+    del qkv, dout
+    torch.cuda.empty_cache()
+    return timed
+
+
+def drive_f32_attention_train(dev, timed):
+    """The paper segmentation config's f32 train step at full width and depth with
+    attention dropout off, through the f32 window-attention kernels both ways: first
+    ``check_f32_train_kernels`` on HEALPix and on flat operands, then for each of
+    F32_TRAIN_VARIANTS the step (``paper_step``: "auto" against "xla" on the same
+    weights, batch and step generators; equal masks, loss 1e-5, every gradient 1e-4,
+    the exact launches F32_TRAIN_LAUNCHES, rate, memory, profile).  Returns the
+    variants' step-0 launches, per kernel and per shape."""
+    timed.update(check_f32_train_kernels(torch.Generator().manual_seed(SEED + 40), dev))
+    check_f32_train_kernels(torch.Generator().manual_seed(SEED + 41), dev, flat=True)
+    imgs, _ = train_batch(dev)
+    targets = torch.clamp(((imgs[..., 0] + 2.5) * PAPER_CLASSES / 5).long(), 0,
+                          PAPER_CLASSES - 1).to(torch.int32)
+    runs = {}
+    for variant, over in F32_TRAIN_VARIANTS.items():
+        task_k = paper_task("auto", dev, overrides=over)
+        task_p = paper_task("xla", dev, state=task_k.model.state_dict(), overrides=over)
+        runs[variant] = paper_step(
+            f"f32 attention train ({variant})", task_k, task_p, imgs, targets,
+            dict(NO_LAUNCHES, **F32_TRAIN_LAUNCHES[variant]), timed,
+            ("total", targets.numel()), attn_dropout=False)
+        del task_k, task_p
+        torch.cuda.empty_cache()
+    return runs
 
 
 # --------------------------------------------------- the trainer's fit loop on the card
@@ -5118,113 +5327,160 @@ def refuse_f32_tails(dev):
         "plain versions with no launch")
 
 
-def drive_refusal(dev):
-    """The kernels' refusal on the card: two small segmentation models the kernels were
-    not written for -- float32 compute (the config default) at the kernels' window 64
-    with no dropout, and bf16 at window 16 with 40 classes (more than K3/K6/K7's 32
-    lanes), both with the config's default scaled-dot attention.  Under "auto" and
-    "pallas" a loss and a predict raise before any launch, naming attention_impl="xla":
-    in the f32 model the first block's K16 (``window_attention_qkv``, bf16 only) refuses
-    both, before the predict's f32 K3 or the loss's f32 K6/K7 is reached; in the
-    window-16 model K16 refuses the window.  Under "xla" the same weights run a loss
-    with its backward and a predict with no launch, finite and of the expected shapes.
-    Then the same f32 model with cosine attention in training (no dropout, so every block
-    takes K1): its train-mode loss raises in the first block before any launch, naming
-    K4 (the f32 K1 is forward only; K4 takes bf16) and attention_impl="xla", which runs
-    it and its backward with no launch.  Then the tail wrappers alone
-    (``refuse_f32_tails``): an f32 tail at C 48, which the f32 K3 and K8/K9 have no
-    instantiation for."""
+def refusal_model(dev, impl, dtype=None, ws=WS, classes=N_CLASSES, cos=False):
+    """The refusal phase's small segmentation model at nside GATE_NSIDE: patch 4, embed 64,
+    depths [2, 2], heads [2, 4], ring_shift, v2 norm placement, no dropout (DropPath 0.1,
+    the config default), the fused tail; seeded weights."""
     from heal_swin_torch.models import tasks as T
     from heal_swin_torch.models.swin_hp import DataSpec, SwinHPTransformerConfig
 
-    refuse_f32_tails(dev)
+    cfg = SwinHPTransformerConfig(
+        patch_size=4, window_size=ws, shift_size=4 if ws == WS else 8,
+        shift_strategy="ring_shift", rel_pos_bias="flat", embed_dim=64, depths=[2, 2],
+        num_heads=[2, 4], use_cos_attn=cos, use_v2_norm_placement=True, dtype=dtype,
+        gelu_approx=True, fused_final_head=True, attention_impl=impl)
+    return T.WoodscapeSegmenterSwinHP(
+        T.WoodscapeSegmenterSwinHPConfig(cfg),
+        DataSpec(dim_in=8 * GATE_NSIDE * GATE_NSIDE, f_in=3, f_out=classes, base_pix=8),
+        device=dev, generator=torch.Generator().manual_seed(SEED))
+
+
+def f32_small_model_through_kernels(dev, imgs, cos):
+    """An f32 small model (``refusal_model``, ws 64) that the f32 window-attention kernels
+    take: scaled-dot attention (the config default) and, with ``cos``, cosine attention.
+    Its train-mode loss and backward and its predict run under "auto" and under "xla" on
+    the same weights and generators: the loss within PAPER_LOSS_TOL, every gradient within
+    PAPER_GRAD_TOL, the predictions equal on all but HEADLINE_PLAIN_PIXELS of the pixels,
+    all finite; "auto" launches, per pass, one f32 K16 (scaled-dot, backward K17) or K1
+    (cosine, backward K4) for every attention block (all at C <= 384) and the f32 tail
+    (K6 / K7 in the step, K3 in predict), "xla" nothing."""
+    from heal_swin_torch.models.layers import WindowAttention
+
+    label = f"refusal phase: f32 {'cosine' if cos else 'scaled-dot'} ws=64 model"
+    targets = torch.clamp(((imgs[..., 0] + 2.5) * 2).long(), 0, N_CLASSES - 1)
+    out = {}
+    for impl in ("auto", "xla"):
+        task = refusal_model(dev, impl, cos=cos)
+        n_blocks = sum(isinstance(m, WindowAttention) for m in task.model.modules())
+        reset_counters()
+        loss = task.loss_fn(imgs, targets, deterministic=False,
+                            generator=torch.Generator(device=dev).manual_seed(SEED))[0]
+        loss.backward()
+        torch.cuda.synchronize()
+        step, _ = read_counters()
+        reset_counters()
+        with torch.no_grad():
+            preds = task.predict(None, imgs)
+        torch.cuda.synchronize()
+        pred, _ = read_counters()
+        grads = {n: q.grad for n, q in task.model.named_parameters()}
+        if not (torch.isfinite(loss) and all(g is not None and torch.isfinite(g).all()
+                                             for g in grads.values())):
+            raise AssertionError(f"{label} {impl}: a non-finite loss or gradient")
+        out[impl] = (float(loss.detach()), grads, preds)
+        fwd, bwd = (("window_attention_qkv_epi_f32", "window_attention_qkv_epi_bwd_f32") if cos
+                    else ("window_attention_qkv_f32", "window_attention_qkv_bwd_f32"))
+        want_step = dict(NO_LAUNCHES) if impl == "xla" else dict(
+            NO_LAUNCHES, **{fwd: n_blocks, bwd: n_blocks, "final_head_loss_f32": 1,
+                            "final_head_loss_bwd_f32": 1})
+        want_pred = dict(NO_LAUNCHES) if impl == "xla" else dict(
+            NO_LAUNCHES, **{fwd: n_blocks, "final_head_predict_f32": 1})
+        if step != want_step or pred != want_pred:
+            raise AssertionError(f"{label} {impl}: launches {step} / {pred}, expected "
+                                 f"{want_step} / {want_pred}")
+        del task
+    (lk, gk, pk), (lp, gp, pp) = out["auto"], out["xla"]
+    rel = abs(lk - lp) / abs(lp)
+    if rel > PAPER_LOSS_TOL:
+        raise AssertionError(f"{label}: loss {lk} vs plain {lp}")
+    worst = max(check_close(f"{label} gradient {n}", gk[n], gp[n], PAPER_GRAD_TOL)[0]
+                for n in gp)
+    differ = int((pk != pp).sum())
+    if differ > HEADLINE_PLAIN_PIXELS * pp.numel():
+        raise AssertionError(f"{label}: {differ} of {pp.numel()} predictions differ")
+    log(f"{label}: \"auto\" ran its loss, backward and predict through the f32 kernels "
+        f"({n_blocks} attention blocks a pass), \"xla\" with no launch; loss {lk:.7f} vs "
+        f"{lp:.7f} (rel {rel:.2e}, tol {PAPER_LOSS_TOL}), {len(gp)} gradients rel_l2 <= "
+        f"{worst:.3e} (tol {PAPER_GRAD_TOL}), {differ} of {pp.numel()} predictions differ")
+
+
+def refuse_f32_fused_mlp(dev):
+    """``Mlp(mlp_impl="fused")`` on f32 tokens: K12-K15 take bf16, so the call raises on
+    the card before any launch, naming bfloat16 (its autograd function checks the
+    operands of its backward, K13, as it is called)."""
+    from heal_swin_torch.models.layers import Mlp
+
+    gen = torch.Generator().manual_seed(SEED + 23)
+    mlp = Mlp(64, 256, 64, mlp_impl="fused").to(dev)
+    x = torch.randn(2, 128, 64, generator=gen).to(dev).requires_grad_()
+    reset_counters()
+    try:
+        mlp(x).sum().backward()
+    except (ValueError, RuntimeError) as e:
+        if "bfloat16" not in str(e):
+            raise
+        msg = str(e)
+    else:
+        raise AssertionError("refusal f32 fused MLP: no refusal")
+    torch.cuda.synchronize()
+    launches, _ = read_counters()
+    if any(launches.values()):
+        raise AssertionError(f"refusal f32 fused MLP: kernels launched: {launches}")
+    log(f"refusal f32 fused MLP: the call raised with no launch ({msg.splitlines()[0]})")
+
+
+def drive_refusal(dev):
+    """The kernels' refusal on the card, and the f32 models they now take.  First the
+    f32 small models (``refusal_model`` at window 64, no dropout) that the f32 window-
+    attention kernels run both ways: scaled-dot (the config default) and cosine in
+    training, held to "xla" (``f32_small_model_through_kernels``).  Then what the kernels
+    still refuse: a bf16 window-16 model with 40 classes (more than K3/K6/K7's 32 lanes),
+    whose first block's K16 refuses the window under "auto" and "pallas" in a loss and a
+    predict before any launch, naming attention_impl="xla", which runs a loss with its
+    backward and a predict with no launch, finite and of the expected shapes; the tail
+    wrappers alone (``refuse_f32_tails``: an f32 tail at C 48, which the f32 K3 and K8/K9
+    have no instantiation for); and the fused MLP on f32 tokens
+    (``refuse_f32_fused_mlp``)."""
     npix = 8 * GATE_NSIDE * GATE_NSIDE
     imgs = torch.randn(BATCH, npix, 3, generator=torch.Generator().manual_seed(SEED + 9)).to(dev)
-    for dtype, ws, classes in ((None, WS, N_CLASSES), ("bfloat16", 16, 40)):
-        label = f"refusal dtype={dtype or 'float32'} ws={ws} classes={classes}"
+    for cos in (False, True):
+        f32_small_model_through_kernels(dev, imgs, cos)
+        torch.cuda.empty_cache()
 
-        def build(impl):
-            cfg = SwinHPTransformerConfig(
-                patch_size=4, window_size=ws, shift_size=4 if ws == WS else 8,
-                shift_strategy="ring_shift", rel_pos_bias="flat", embed_dim=64, depths=[2, 2],
-                num_heads=[2, 4], use_v2_norm_placement=True, dtype=dtype, gelu_approx=True,
-                fused_final_head=True, attention_impl=impl)
-            return T.WoodscapeSegmenterSwinHP(
-                T.WoodscapeSegmenterSwinHPConfig(cfg),
-                DataSpec(dim_in=npix, f_in=3, f_out=classes, base_pix=8), device=dev,
-                generator=torch.Generator().manual_seed(SEED))
-
-        targets = torch.clamp(((imgs[..., 0] + 2.5) * classes / 5).long(), 0, classes - 1)
-        refusals = []
-        reset_counters()
-        for impl in ("auto", "pallas"):
-            task = build(impl)
-            for call in (lambda: task.loss_fn(imgs, targets), lambda: task.predict(None, imgs)):
-                try:
-                    call()
-                except ValueError as e:
-                    if "impl='xla'" not in str(e):
-                        raise
-                    refusals.append(str(e))
-                else:
-                    raise AssertionError(f"{label} {impl}: no refusal")
-        task = build("xla")
-        loss, cm = task.loss_fn(imgs, targets)
-        loss.backward()
-        preds = task.predict(None, imgs)
-        torch.cuda.synchronize()
-        launches, _ = read_counters()
-        if any(launches.values()):
-            raise AssertionError(f"{label}: kernels launched: {launches}")
-        grads = [q.grad for q in task.model.parameters()]
-        if not (torch.isfinite(loss) and tuple(cm.shape) == (classes, classes)
-                and tuple(preds.shape) == (BATCH, npix)
-                and all(g is not None and torch.isfinite(g).all() for g in grads)):
-            raise AssertionError(f"{label} xla: a non-finite or misshapen result")
-        log(f"{label}: \"auto\" and \"pallas\" raised in a loss and a predict with no "
-            f"launch ({refusals[0]}); \"xla\" ran a loss ({loss.item():.6f}), its "
-            f"backward and {preds.numel()} predictions with no launch")
-
-    label = "refusal dtype=float32 cosine, training"
-    targets = torch.clamp(((imgs[..., 0] + 2.5) * 2).long(), 0, N_CLASSES - 1)
-
-    def build_cos(impl):
-        cfg = SwinHPTransformerConfig(
-            patch_size=4, window_size=WS, shift_size=4, shift_strategy="ring_shift",
-            rel_pos_bias="flat", embed_dim=64, depths=[2, 2], num_heads=[2, 4],
-            use_cos_attn=True, use_v2_norm_placement=True, fused_final_head=True,
-            attention_impl=impl)
-        return T.WoodscapeSegmenterSwinHP(
-            T.WoodscapeSegmenterSwinHPConfig(cfg),
-            DataSpec(dim_in=npix, f_in=3, f_out=N_CLASSES, base_pix=8), device=dev,
-            generator=torch.Generator().manual_seed(SEED))
-
-    def train_loss(task):
-        return task.loss_fn(imgs, targets, deterministic=False,
-                            generator=torch.Generator(device=dev).manual_seed(SEED))[0]
-
+    label = "refusal dtype=bfloat16 ws=16 classes=40"
+    classes = 40
+    targets = torch.clamp(((imgs[..., 0] + 2.5) * classes / 5).long(), 0, classes - 1)
+    refusals = []
     reset_counters()
     for impl in ("auto", "pallas"):
-        try:
-            train_loss(build_cos(impl))
-        except ValueError as e:
-            if "K4" not in str(e) or "attention_impl='xla'" not in str(e):
-                raise
-            msg = str(e)
-        else:
-            raise AssertionError(f"{label} {impl}: no refusal")
-    task = build_cos("xla")
-    loss = train_loss(task)
+        task = refusal_model(dev, impl, "bfloat16", 16, classes)
+        for call in (lambda: task.loss_fn(imgs, targets), lambda: task.predict(None, imgs)):
+            try:
+                call()
+            except ValueError as e:
+                if "impl='xla'" not in str(e):
+                    raise
+                refusals.append(str(e))
+            else:
+                raise AssertionError(f"{label} {impl}: no refusal")
+    task = refusal_model(dev, "xla", "bfloat16", 16, classes)
+    loss, cm = task.loss_fn(imgs, targets)
     loss.backward()
+    preds = task.predict(None, imgs)
     torch.cuda.synchronize()
     launches, _ = read_counters()
     if any(launches.values()):
         raise AssertionError(f"{label}: kernels launched: {launches}")
-    if not (torch.isfinite(loss) and all(q.grad is not None and torch.isfinite(q.grad).all()
-                                         for q in task.model.parameters())):
-        raise AssertionError(f"{label} xla: a non-finite result")
-    log(f"{label}: \"auto\" and \"pallas\" raised in the train-mode loss with no launch "
-        f"({msg}); \"xla\" ran it ({loss.item():.6f}) and its backward with no launch")
+    grads = [q.grad for q in task.model.parameters()]
+    if not (torch.isfinite(loss) and tuple(cm.shape) == (classes, classes)
+            and tuple(preds.shape) == (BATCH, npix)
+            and all(g is not None and torch.isfinite(g).all() for g in grads)):
+        raise AssertionError(f"{label} xla: a non-finite or misshapen result")
+    log(f"{label}: \"auto\" and \"pallas\" raised in a loss and a predict with no "
+        f"launch ({refusals[0]}); \"xla\" ran a loss ({loss.item():.6f}), its "
+        f"backward and {preds.numel()} predictions with no launch")
+    refuse_f32_tails(dev)
+    refuse_f32_fused_mlp(dev)
 
 
 SOURCES = {
@@ -5271,6 +5527,14 @@ SOURCES = {
                              "heal_swin_tpu/ops/window_attention.py:677"),
     "final_head_predict_f32": ("heal_swin_torch/csrc/final_head_f32.cu",
                                "heal_swin_tpu/ops/final_head.py:191"),
+    "window_attention_qkv_f32": ("heal_swin_torch/csrc/window_attention_f32.cu",
+                                 "heal_swin_tpu/ops/window_attention.py:548"),
+    "window_attention_qkv_bwd_f32": ("heal_swin_torch/csrc/window_attention_bwd_f32.cu",
+                                     "heal_swin_tpu/ops/window_attention.py:585"),
+    "window_attention_qkv_epi_bwd_f32": ("heal_swin_torch/csrc/window_attention_bwd_f32.cu",
+                                         "heal_swin_tpu/ops/window_attention.py:1027"),
+    "window_attention_bwd_f32": ("heal_swin_torch/csrc/window_attention_bwd_f32.cu",
+                                 "heal_swin_tpu/ops/window_attention.py:719"),
 }
 
 
@@ -5289,11 +5553,12 @@ def shape_work(key):
     and weights, f32 biases, LayerNorm parameters, DropPath scale and parameter
     gradients."""
     name, T, C = key[:3]
-    if name.startswith("window_attention") and name.endswith("_f32"):
-        # the f32 K1 and K2: the bf16 forms' FLOPs, twice the bytes of their tokens
+    if name in F32_ATTN_EXTRA:
+        # the f32 window attention: the bf16 forms' FLOPs, their tokens and weights at
+        # 4 bytes (F32_ATTN_EXTRA)
         flop, nbytes = shape_work((name[:-4],) + tuple(key[1:]))
-        tokens = (8 if name == "window_attention_f32" else 4) * T * C
-        return flop, nbytes + tokens + (8 * C * C if "epi" in name else 0)
+        tokens, weights = F32_ATTN_EXTRA[name]
+        return flop, nbytes + tokens * T * C + weights * C * C
     if name in F32_KERNELS:
         return f32_tail_work(key)
     if name.startswith("mlp"):
@@ -5487,9 +5752,17 @@ PTXAS_NAMES.update({
                           (16, "Argmax", whos[2]))
     if who is not None})
 # the f32 K1's and K2's kernels
-PTXAS_NAMES.update({"18attn_3xtf32_kernel": "f32 K2 attn_3xtf32_kernel (f32 K1 step 2)",
-                    "18gemm_3xtf32_kernel": "f32 K1 steps 1 and 3 gemm_3xtf32_kernel",
-                    "18ln_rows_f32_kernel": "f32 K1 step 4 ln_rows_f32_kernel"})
+PTXAS_NAMES.update({"18attn_3xtf32_kernel": "f32 K2 attn_3xtf32_kernel (f32 K1/K16 step 2)",
+                    "18gemm_3xtf32_kernelILb0ELb0E":
+                        "f32 K1 steps 1 and 3, K16 step 1 gemm_3xtf32_kernel<NN>",
+                    "18gemm_3xtf32_kernelILb0ELb1E": "f32 K4/K17 dx, do gemm_3xtf32_kernel<NT>",
+                    "18gemm_3xtf32_kernelILb1ELb0E":
+                        "f32 K4/K17 dWp, dWqkv gemm_3xtf32_kernel<TN> (split-K)",
+                    "18ln_rows_f32_kernel": "f32 K1 step 4 ln_rows_f32_kernel",
+                    "22attn_bwd_3xtf32_kernelILb1E": "f32 K5/K17 core attn_bwd_3xtf32_kernel<cosine>",
+                    "22attn_bwd_3xtf32_kernelILb0E":
+                        "f32 K5/K17 core attn_bwd_3xtf32_kernel<scaled-dot>",
+                    "22ln_bwd_rows_f32_kernel": "f32 K4 step 2 ln_bwd_rows_f32_kernel"})
 
 
 def log_ptxas(build_log: str):
@@ -5565,6 +5838,9 @@ def main() -> int:
     t_eval = time.perf_counter()
     paper_eval_run = drive_paper_eval(dev, timed)
     torch.cuda.empty_cache()
+    t_f32_train = time.perf_counter()
+    f32_train_runs = drive_f32_attention_train(dev, timed)
+    torch.cuda.empty_cache()
     t_fit = time.perf_counter()
     drive_fit(dev, timed)
     torch.cuda.empty_cache()
@@ -5589,7 +5865,8 @@ def main() -> int:
         f"scaled-dot phase {t_flat - t_dot:.1f} s, the flat bf16 phase "
         f"{t_paper - t_flat:.1f} s, the paper-config phase "
         f"{t_depth - t_paper:.1f} s, the paper depth phase {t_eval - t_depth:.1f} s, the "
-        f"paper eval phase {t_fit - t_eval:.1f} s, the fit phase {t_flat_paper - t_fit:.1f} s, "
+        f"paper eval phase {t_f32_train - t_eval:.1f} s, the f32 attention training phase "
+        f"{t_fit - t_f32_train:.1f} s, the fit phase {t_flat_paper - t_fit:.1f} s, "
         f"the flat paper phase {t_entry - t_flat_paper:.1f} s, "
         f"the run-entry phase {t_evaluate - t_entry:.1f} s, the evaluation phase "
         f"{t_flat_entry - t_evaluate:.1f} s, the flat entry phase "
@@ -5613,6 +5890,10 @@ def main() -> int:
     for name in ("window_attention_qkv_epi_f32", "window_attention_f32",
                  "final_head_predict_f32"):
         runs[name] = paper_eval_run
+    for name in ("window_attention_qkv_f32", "window_attention_qkv_bwd_f32",
+                 "window_attention_bwd_f32"):
+        runs[name] = f32_train_runs["a"]
+    runs["window_attention_qkv_epi_bwd_f32"] = f32_train_runs["b"]
     flat_runs = {name: flat_train_run for name in (
         "window_attention_qkv_epi", "window_attention", "window_attention_qkv_epi_bwd",
         "window_attention_bwd", "final_head_loss", "final_head_loss_bwd")}

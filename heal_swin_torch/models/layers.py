@@ -216,7 +216,8 @@ class WindowAttention(nn.Module):
       proj dropout active, runs the qkv projection and the attention as K16 (backward
       K17) with proj, proj dropout and LN plain torch after it; above C = 384 qkv is
       one matmul, the attention runs as K2 (backward K5), and proj, proj dropout and
-      LN stay plain torch.
+      LN stay plain torch.  Each of those kernels has a bf16 and an f32 form, forward
+      and backward, so a bf16 or an f32 model trains and predicts through them alike.
 
     Dropout masks come from ``generator`` (``Dropout``).  ``rel_pos_init_zero``: the
     relative-position table's init, zeros (the HP model) or trunc-normal (the flat

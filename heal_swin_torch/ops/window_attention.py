@@ -37,21 +37,24 @@ do; do rounded; dqkv rounded before dx, dW and db.  The softmax shift is the row
 (the Pallas kernels use a static bound for cosine attention; softmax is
 shift-invariant, and forward and backward here use the same one).
 
-Float32 (K1, K2 forward): f32 operands run the f32 kernels
-(``csrc/window_attention_f32.cu``), nothing rounded below f32, as the Pallas kernels
-compute with f32 operands: K2 four warps per (window, head), K1 a launch sequence from
-one entry (the qkv product ``gemm_nn_f32``, K2's kernel, the output product, the
-LayerNorm's rows); every product on the tensor cores in 3xTF32 (each operand split into
-two TF32 parts, three mma.sync products summed in f32: ``ops/tf32.py`` emulates it).
-There is no f32 backward yet (K4, K5), nor an f32 K16/K17: an f32 call that needs a gradient (grad enabled and an operand requiring
-it) raises on the card before any launch, naming the backward that is missing.
+Float32: f32 operands run the f32 kernels, nothing rounded below f32, as the Pallas
+kernels compute with f32 operands.  Forwards (``csrc/window_attention_f32.cu``): K2 four
+warps per (window, head); K16 the qkv product ``gemm_nn_f32`` then K2's kernel; K1 those
+two, the output product and the LayerNorm's rows.  Backwards
+(``csrc/window_attention_bwd_f32.cu``): K5 one 4-warp block per run of windows of a head
+that recomputes the forward's P through K2's own functions, then ``reduce_rows`` of its
+partial rows; K17 K16's qkv product, K5's core, the column sums, the TN product (dWqkv,
+split over the tokens, ``reduce_rows``) and the NT product (dx, ``gemm_nt``); K4 K16, the
+projection/LayerNorm backward (``qkv_epi_proj_ln_bwd``), dWp (TN) and do (NT), then K17
+on K16's qkv.  Every product on the tensor cores in 3xTF32 (each operand split into two
+TF32 parts, three mma.sync products summed in f32: ``ops/tf32.py`` emulates it).
 
 Dispatch (``impl``): "auto" runs the kernel for a CUDA tensor and the plain version
 for a CPU tensor; "xla" runs the plain version on any device (the JAX package's name
 for its non-kernel path); "pallas" demands the kernel and raises on a CPU tensor.  On a
 CUDA tensor a wrapper runs its kernel or raises: operands the kernel was not written
-for (``kernels_take``: bf16, or f32 for the K1/K2 forward; ws 64, head dim 32, T % 64,
-C <= 384 for the fused-qkv kernels) raise under "auto" as under "pallas", naming "xla"
+for (``kernels_take``: bf16 or f32; ws 64, head dim 32, T % 64, C <= 384 for the
+fused-qkv kernels) raise under "auto" as under "pallas", naming "xla"
 as the plain route, and a kernel that fails to build or launch raises; nothing falls
 back.  The backward takes the same route as the forward (a family's kernels take the
 same operands).  The autograd functions take the weights already cast to the compute
@@ -79,15 +82,14 @@ KERNEL_MAX_C = 384  # K1/K4/K16/K17's shared-memory bound (x tile of 64 x C bf16
 FAMILY_MAX_C = {"window_attention": None, "window_attention_qkv_epi": KERNEL_MAX_C,
                 "window_attention_qkv": KERNEL_MAX_C}
 
-# the families whose forward has an f32 kernel, and the backward each lacks in f32
-F32_FORWARD = {"window_attention": "K5", "window_attention_qkv_epi": "K4"}
-
 # launch counters, bumped only where a kernel launches: per kernel, and per
 # (kernel, T, C, has_mask); the f32 kernels count as "<kernel>_f32"
 launches = {"window_attention": 0, "window_attention_qkv_epi": 0, "window_attention_qkv": 0,
             "window_attention_bwd": 0, "window_attention_qkv_epi_bwd": 0,
             "window_attention_qkv_bwd": 0, "window_attention_f32": 0,
-            "window_attention_qkv_epi_f32": 0}
+            "window_attention_qkv_epi_f32": 0, "window_attention_qkv_f32": 0,
+            "window_attention_bwd_f32": 0, "window_attention_qkv_bwd_f32": 0,
+            "window_attention_qkv_epi_bwd_f32": 0}
 launches_by_shape: Counter = Counter()
 
 
@@ -335,19 +337,13 @@ def window_attention_qkv_epi_bwd_plain(x, wqkv, bqkv, wp, bp, ln_scale, ln_bias,
 # --------------------------------------------------------------------------- kernels
 
 
-def _refusal(family, what, T, C, num_heads, ws, dtype, train=True):
+def _refusal(family, what, T, C, num_heads, ws, dtype):
     """Why the kernels of ``family`` (a key of FAMILY_MAX_C) do not take tokens of
     this shape and dtype, or None where they do: the wrappers' refusal and
-    ``kernels_take``.  ``train``: the backward kernel is needed too (K1/K2 take f32
-    for the forward only)."""
+    ``kernels_take``.  A family's forward and backward take the same operands."""
     max_c = FAMILY_MAX_C[family]
-    if dtype == torch.float32 and family in F32_FORWARD:
-        if train:
-            return (f"{what}: float32 operands that need a gradient: the f32 kernel "
-                    f"computes the forward only, and the backward {F32_FORWARD[family]} "
-                    "takes bfloat16")
-    elif dtype != torch.bfloat16:
-        return f"{what}: the kernel takes bfloat16 operands, got {dtype}"
+    if dtype not in (torch.bfloat16, torch.float32):
+        return f"{what}: the kernel takes bfloat16 or float32 operands, got {dtype}"
     if ws != KERNEL_WS:
         return f"{what}: the kernel takes ws={KERNEL_WS}, got {ws}"
     if T % ws:
@@ -359,26 +355,20 @@ def _refusal(family, what, T, C, num_heads, ws, dtype, train=True):
     return None
 
 
-def kernels_take(family, T, C, num_heads, ws, dtype, train=True) -> bool:
+def kernels_take(family, T, C, num_heads, ws, dtype) -> bool:
     """Whether the kernels of ``family`` -- "window_attention" (K2/K5),
     "window_attention_qkv_epi" (K1/K4) or "window_attention_qkv" (K16/K17) -- take T
-    tokens of width C in ``num_heads`` heads, windows of ``ws`` and ``dtype``: the
-    forward and the backward (``train``) or the forward alone.  bf16 both ways; f32
-    the K1 and K2 forward only.  Exactly the wrappers' shape and dtype checks: where
-    False, a CUDA tensor raises under "auto" and "pallas" and needs impl="xla", the
-    plain version."""
-    return _refusal(family, "", T, C, num_heads, ws, dtype, train) is None
+    tokens of width C in ``num_heads`` heads, windows of ``ws`` and ``dtype``, forward
+    and backward alike: bf16 or f32.  Exactly the wrappers' shape and dtype checks:
+    where False, a CUDA tensor raises under "auto" and "pallas" and needs impl="xla",
+    the plain version."""
+    return _refusal(family, "", T, C, num_heads, ws, dtype) is None
 
 
-def _refuse(family, what, T, C, num_heads, ws, dtype, train=True):
-    msg = _refusal(family, what, T, C, num_heads, ws, dtype, train)
+def _refuse(family, what, T, C, num_heads, ws, dtype):
+    msg = _refusal(family, what, T, C, num_heads, ws, dtype)
     if msg is not None:
         refuse(msg)
-
-
-def _needs_grad(tensors) -> bool:
-    """Whether autograd will want a gradient through a call on ``tensors``."""
-    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
 
 def _check_cuda_operands(what, tensors):
@@ -424,12 +414,11 @@ def _attn_shape(qkv):
     return T, C3 // 3 if C3 % 3 == 0 else -1
 
 
-def _attn_operands(what, qkv, groups, bias, logit_scale, num_heads, use_cos, has_mask, ws,
-                   train=True):
+def _attn_operands(what, qkv, groups, bias, logit_scale, num_heads, use_cos, has_mask, ws):
     """K2/K5's checked operands: (T, C, bias, groups, logit_scale or None)."""
     T, C = _attn_shape(qkv)
     h = num_heads
-    _refuse("window_attention", what, T, C, h, ws, qkv.dtype, train)
+    _refuse("window_attention", what, T, C, h, ws, qkv.dtype)
     bias_t = _bias_operand(bias, h, ws, qkv)
     groups_t = _groups_operand(groups, has_mask, T, ws)
     ls = None
@@ -440,19 +429,16 @@ def _attn_operands(what, qkv, groups, bias, logit_scale, num_heads, use_cos, has
 
 
 def window_attention_fwd(qkv, groups, bias, logit_scale, *, ws, num_heads, use_cos, sm_scale,
-                         has_mask=True, impl="auto", needs_grad=None):
+                         has_mask=True, impl="auto"):
     """K2 wrapper (no autograd): attention from qkv rows (T, 3C) -> (T, C); bf16 qkv, or
-    f32 (the f32 kernel, counted as "window_attention_f32") where no gradient is needed
-    (``needs_grad``; None: autograd's view of the operands)."""
+    f32 (the f32 kernel, counted as "window_attention_f32")."""
     if not use_kernel(qkv, impl):
         return window_attention_plain(qkv, groups, bias, logit_scale, ws=ws,
                                       num_heads=num_heads, use_cos=use_cos,
                                       sm_scale=sm_scale, has_mask=has_mask)
     what = "window_attention"
-    if needs_grad is None:
-        needs_grad = _needs_grad((qkv, bias, logit_scale))
     T, C, bias_t, groups_t, ls = _attn_operands(what, qkv, groups, bias, logit_scale,
-                                                num_heads, use_cos, has_mask, ws, needs_grad)
+                                                num_heads, use_cos, has_mask, ws)
     _check_cuda_operands(what, [t for t in (qkv, groups_t, bias_t, ls) if t is not None])
     sfx = f32_suffix(qkv)
     out = torch.empty((T, C), dtype=qkv.dtype, device=qkv.device)
@@ -467,7 +453,7 @@ def window_attention_fwd(qkv, groups, bias, logit_scale, *, ws, num_heads, use_c
 def window_attention_bwd(qkv, groups, bias, logit_scale, dout, *, ws, num_heads, use_cos,
                          sm_scale, has_mask=True, impl="auto"):
     """K5 wrapper: the backward of K2; operands and results as
-    ``window_attention_bwd_plain``."""
+    ``window_attention_bwd_plain``; bf16, or f32 (counted as "window_attention_bwd_f32")."""
     if not use_kernel(qkv, impl):
         return window_attention_bwd_plain(qkv, groups, bias, logit_scale, dout, ws=ws,
                                           num_heads=num_heads, use_cos=use_cos,
@@ -476,35 +462,36 @@ def window_attention_bwd(qkv, groups, bias, logit_scale, dout, *, ws, num_heads,
     T, C, bias_t, groups_t, ls = _attn_operands(what, qkv, groups, bias, logit_scale,
                                                 num_heads, use_cos, has_mask, ws)
     h = num_heads
-    if dout.dtype != torch.bfloat16 or tuple(dout.shape) != (T, C):
-        raise ValueError(f"{what}: dout must be (T, C) = {(T, C)} bfloat16")
+    if dout.dtype != qkv.dtype or tuple(dout.shape) != (T, C):
+        raise ValueError(f"{what}: dout must be (T, C) = {(T, C)} {qkv.dtype}")
     dout = dout.contiguous()
     _check_cuda_operands(what, [t for t in (qkv, groups_t, bias_t, ls, dout) if t is not None])
     lib = _build.lib()
+    sfx = f32_suffix(qkv)
     dqkv = torch.empty_like(qkv)
     red = torch.empty(h * (KERNEL_WS * KERNEL_WS + 1), dtype=torch.float32, device=qkv.device)
-    work = torch.empty(lib.hs_window_attention_bwd_workspace(T, C), dtype=torch.uint8,
-                       device=qkv.device)
-    code = lib.hs_window_attention_bwd(
+    work = torch.empty(getattr(lib, f"hs_window_attention_bwd{sfx}_workspace")(T, C),
+                       dtype=torch.uint8, device=qkv.device)
+    code = getattr(lib, f"hs_window_attention_bwd{sfx}")(
         qkv.data_ptr(), _ptr(groups_t), bias_t.data_ptr(), _ptr(ls), dout.data_ptr(),
         dqkv.data_ptr(), red.data_ptr(), work.data_ptr(), T, C, int(use_cos), int(has_mask),
         float(sm_scale), stream(qkv))
-    check(code, what)
-    _count(what, T, C, has_mask)
+    check(code, what + sfx)
+    _count(what + sfx, T, C, has_mask)
     nb = h * KERNEL_WS * KERNEL_WS
     return (dqkv, red[:nb].reshape(h, KERNEL_WS, KERNEL_WS),
             red[nb:] if use_cos else None)
 
 
 def _epi_operands(what, x, wqkv, bqkv, wp, bp, ln_scale, ln_bias, groups, bias,
-                  logit_scale, num_heads, has_mask, ws, train=True):
+                  logit_scale, num_heads, has_mask, ws):
     """K1/K4's checked operands in the kernels' dtypes."""
     T, C = x.shape
     if tuple(wp.shape) != (C, C):
         raise ValueError(f"{what}: wp must be (C, C) = {(C, C)}")
     dt = x.dtype
     ops = _qkv_operands("window_attention_qkv_epi", what, x, wqkv, bqkv, groups, bias,
-                        logit_scale, num_heads, True, has_mask, ws, train)
+                        logit_scale, num_heads, True, has_mask, ws)
     ops.update(
         wp=wp.to(dt).contiguous(),
         bp=torch.zeros(C, dtype=dt, device=x.device) if bp is None else bp.to(dt).contiguous(),
@@ -514,13 +501,13 @@ def _epi_operands(what, x, wqkv, bqkv, wp, bp, ln_scale, ln_bias, groups, bias,
 
 
 def _qkv_operands(family, what, x, wqkv, bqkv, groups, bias, logit_scale, num_heads, use_cos,
-                  has_mask, ws, train=True):
+                  has_mask, ws):
     """The checked operands the kernels with the qkv projection inside (K1/K4,
-    K16/K17) share, in the kernels' dtypes (x's: bf16, or f32 for the f32 K1): x, wq,
-    bq, groups, bias, ls (None for scaled-dot)."""
+    K16/K17) share, in the kernels' dtypes (x's: bf16 or f32): x, wq, bq, groups, bias,
+    ls (None for scaled-dot)."""
     T, C = x.shape
     h = num_heads
-    _refuse(family, what, T, C, h, ws, x.dtype, train)
+    _refuse(family, what, T, C, h, ws, x.dtype)
     if tuple(wqkv.shape) != (C, 3 * C):
         raise ValueError(f"{what}: wqkv must be (C, 3C) = {(C, 3 * C)}")
     ls = None
@@ -538,20 +525,16 @@ def _qkv_operands(family, what, x, wqkv, bqkv, groups, bias, logit_scale, num_he
 
 def window_attention_qkv_epi_fwd(x, wqkv, bqkv, wp, bp, ln_scale, ln_bias, groups, bias,
                                  logit_scale, *, ws, num_heads, sm_scale, has_mask=True,
-                                 ln_eps=1e-5, impl="auto", needs_grad=None):
+                                 ln_eps=1e-5, impl="auto"):
     """K1 wrapper (no autograd): [LN](cos_attn(x @ wqkv + bqkv) @ wp + bp), (T, C); bf16
-    x, or f32 (the f32 launch sequence, counted as "window_attention_qkv_epi_f32") where
-    no gradient is needed (``needs_grad``; None: autograd's view of the operands)."""
+    x, or f32 (the f32 launch sequence, counted as "window_attention_qkv_epi_f32")."""
     if not use_kernel(x, impl):
         return window_attention_qkv_epi_plain(
             x, wqkv, bqkv, wp, bp, ln_scale, ln_bias, groups, bias, logit_scale, ws=ws,
             num_heads=num_heads, sm_scale=sm_scale, has_mask=has_mask, ln_eps=ln_eps)
     what = "window_attention_qkv_epi"
-    if needs_grad is None:
-        needs_grad = _needs_grad((x, wqkv, bqkv, wp, bp, ln_scale, ln_bias, bias,
-                                  logit_scale))
     T, C, o = _epi_operands(what, x, wqkv, bqkv, wp, bp, ln_scale, ln_bias, groups, bias,
-                            logit_scale, num_heads, has_mask, ws, needs_grad)
+                            logit_scale, num_heads, has_mask, ws)
     x = o.pop("x")
     _check_cuda_operands(what, [x] + [t for t in o.values() if t is not None])
     lib = _build.lib()
@@ -575,7 +558,8 @@ def window_attention_qkv_epi_bwd(x, wqkv, bqkv, wp, bp, ln_scale, ln_bias, group
                                  logit_scale, dz, *, ws, num_heads, sm_scale, has_mask=True,
                                  ln_eps=1e-5, impl="auto"):
     """K4 wrapper: the backward of K1; operands and results as
-    ``window_attention_qkv_epi_bwd_plain``."""
+    ``window_attention_qkv_epi_bwd_plain``; bf16, or f32 (counted as
+    "window_attention_qkv_epi_bwd_f32")."""
     if not use_kernel(x, impl):
         return window_attention_qkv_epi_bwd_plain(
             x, wqkv, bqkv, wp, bp, ln_scale, ln_bias, groups, bias, logit_scale, dz, ws=ws,
@@ -585,28 +569,29 @@ def window_attention_qkv_epi_bwd(x, wqkv, bqkv, wp, bp, ln_scale, ln_bias, group
                             logit_scale, num_heads, has_mask, ws)
     x = o.pop("x")
     if dz.dtype != x.dtype or tuple(dz.shape) != (T, C):
-        raise ValueError(f"{what}: dz must be (T, C) = {(T, C)} bfloat16")
+        raise ValueError(f"{what}: dz must be (T, C) = {(T, C)} {x.dtype}")
     dz = dz.contiguous()
     _check_cuda_operands(what, [x, dz] + [t for t in o.values() if t is not None])
     h = num_heads
     lib = _build.lib()
+    sfx = f32_suffix(x)
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     dwq = torch.empty((C, 3 * C), **f32)
     dwp = torch.empty((C, C), **f32)
     nb = h * KERNEL_WS * KERNEL_WS
     red = torch.empty(nb + h + 6 * C, **f32)
-    work = torch.empty(lib.hs_window_attention_qkv_epi_bwd_workspace(T, C), dtype=torch.uint8,
-                       device=x.device)
+    work = torch.empty(getattr(lib, f"hs_window_attention_qkv_epi_bwd{sfx}_workspace")(T, C),
+                       dtype=torch.uint8, device=x.device)
     has_ln = o["g"] is not None
-    code = lib.hs_window_attention_qkv_epi_bwd(
+    code = getattr(lib, f"hs_window_attention_qkv_epi_bwd{sfx}")(
         x.data_ptr(), o["wq"].data_ptr(), o["bq"].data_ptr(), o["wp"].data_ptr(),
         o["bp"].data_ptr(), _ptr(o["g"]), _ptr(o["b"]), _ptr(o["groups"]),
         o["bias"].data_ptr(), o["ls"].data_ptr(), dz.data_ptr(), dx.data_ptr(),
         dwq.data_ptr(), dwp.data_ptr(), red.data_ptr(), work.data_ptr(), T, C, int(has_ln),
         int(has_mask), float(ln_eps), stream(x))
-    check(code, what)
-    _count(what, T, C, has_mask)
+    check(code, what + sfx)
+    _count(what + sfx, T, C, has_mask)
     dbias = red[:nb].reshape(h, KERNEL_WS, KERNEL_WS)
     dls = red[nb:nb + h]
     dbq, dbp, dg, dbe = red[nb + h:].split([3 * C, C, C, C])
@@ -617,7 +602,8 @@ def window_attention_qkv_epi_bwd(x, wqkv, bqkv, wp, bp, ln_scale, ln_bias, group
 def window_attention_qkv_fwd(x, wqkv, bqkv, groups, bias, logit_scale, *, ws, num_heads,
                              use_cos, sm_scale, has_mask=True, impl="auto"):
     """K16 wrapper (no autograd): attn(x @ wqkv + bqkv), (T, C) -> (T, C), before the
-    output projection."""
+    output projection; bf16, or f32 (the f32 launch sequence, counted as
+    "window_attention_qkv_f32")."""
     kw = dict(ws=ws, num_heads=num_heads, use_cos=use_cos, sm_scale=sm_scale,
               has_mask=has_mask)
     if not use_kernel(x, impl):
@@ -627,20 +613,27 @@ def window_attention_qkv_fwd(x, wqkv, bqkv, groups, bias, logit_scale, *, ws, nu
     o = _qkv_operands(what, what, x, wqkv, bqkv, groups, bias, logit_scale, num_heads,
                       use_cos, has_mask, ws)
     _check_cuda_operands(what, [t for t in o.values() if t is not None])
+    lib = _build.lib()
+    sfx = f32_suffix(x)
     out = torch.empty((T, C), dtype=x.dtype, device=x.device)
-    code = _build.lib().hs_window_attention_qkv(
-        o["x"].data_ptr(), o["wq"].data_ptr(), o["bq"].data_ptr(), _ptr(o["groups"]),
-        o["bias"].data_ptr(), _ptr(o["ls"]), out.data_ptr(), T, C, int(use_cos),
-        int(has_mask), float(sm_scale), stream(x))
-    check(code, what)
-    _count(what, T, C, has_mask)
+    args = (o["x"].data_ptr(), o["wq"].data_ptr(), o["bq"].data_ptr(), _ptr(o["groups"]),
+            o["bias"].data_ptr(), _ptr(o["ls"]), out.data_ptr())
+    if sfx:  # the f32 launch sequence's workspace: qkv
+        work = torch.empty(lib.hs_window_attention_qkv_f32_workspace(T, C), dtype=torch.uint8,
+                           device=x.device)
+        args += (work.data_ptr(),)
+    code = getattr(lib, f"hs_window_attention_qkv{sfx}")(
+        *args, T, C, int(use_cos), int(has_mask), float(sm_scale), stream(x))
+    check(code, what + sfx)
+    _count(what + sfx, T, C, has_mask)
     return out
 
 
 def window_attention_qkv_bwd(x, wqkv, bqkv, groups, bias, logit_scale, dout, *, ws,
                              num_heads, use_cos, sm_scale, has_mask=True, impl="auto"):
     """K17 wrapper: the backward of K16; operands and results as
-    ``window_attention_qkv_bwd_plain``."""
+    ``window_attention_qkv_bwd_plain``; bf16, or f32 (counted as
+    "window_attention_qkv_bwd_f32")."""
     kw = dict(ws=ws, num_heads=num_heads, use_cos=use_cos, sm_scale=sm_scale,
               has_mask=has_mask)
     if not use_kernel(x, impl):
@@ -651,48 +644,52 @@ def window_attention_qkv_bwd(x, wqkv, bqkv, groups, bias, logit_scale, dout, *, 
     o = _qkv_operands("window_attention_qkv", what, x, wqkv, bqkv, groups, bias, logit_scale,
                       num_heads, use_cos, has_mask, ws)
     if dout.dtype != x.dtype or tuple(dout.shape) != (T, C):
-        raise ValueError(f"{what}: dout must be (T, C) = {(T, C)} bfloat16")
+        raise ValueError(f"{what}: dout must be (T, C) = {(T, C)} {x.dtype}")
     dout = dout.contiguous()
     _check_cuda_operands(what, [dout] + [t for t in o.values() if t is not None])
     h = num_heads
     lib = _build.lib()
+    sfx = f32_suffix(x)
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     dwq = torch.empty((C, 3 * C), **f32)
     nb = h * KERNEL_WS * KERNEL_WS
     red = torch.empty(nb + h + 3 * C, **f32)
-    work = torch.empty(lib.hs_window_attention_qkv_bwd_workspace(T, C), dtype=torch.uint8,
-                       device=x.device)
-    code = lib.hs_window_attention_qkv_bwd(
+    work = torch.empty(getattr(lib, f"hs_window_attention_qkv_bwd{sfx}_workspace")(T, C),
+                       dtype=torch.uint8, device=x.device)
+    code = getattr(lib, f"hs_window_attention_qkv_bwd{sfx}")(
         o["x"].data_ptr(), o["wq"].data_ptr(), o["bq"].data_ptr(), _ptr(o["groups"]),
         o["bias"].data_ptr(), _ptr(o["ls"]), dout.data_ptr(), dx.data_ptr(), dwq.data_ptr(),
         red.data_ptr(), work.data_ptr(), T, C, int(use_cos), int(has_mask), float(sm_scale),
         stream(x))
-    check(code, what)
-    _count(what, T, C, has_mask)
+    check(code, what + sfx)
+    _count(what + sfx, T, C, has_mask)
     return (dx, dwq, red[nb + h:], red[:nb].reshape(h, KERNEL_WS, KERNEL_WS),
             red[nb:nb + h] if use_cos else None)
 
 
 def gemm_nt(a, b, *, impl="auto"):
-    """a (M, K) @ b (N, K)^T -> (M, N) bf16 through ``gemm_nt`` of ``csrc/reduce.cu``, the
-    product K17 runs for dx = dqkv Wqkv^T (inside K17's entry, counted as K17's
-    launch); bf16 operands, M % 64 == 0, K % 32 == 0, N % 8 == 0.  Plain twin:
-    ``gemm_nt_plain``."""
+    """a (M, K) @ b (N, K)^T -> (M, N) through ``gemm_nt`` of ``csrc/reduce.cu`` (bf16) or
+    the NT ``gemm_3xtf32_kernel`` of ``csrc/attention_f32.cuh`` (f32, 3xTF32), the
+    product K17 runs for dx = dqkv Wqkv^T and K4 for do = du Wp^T (inside their entries,
+    counted as their launches); bf16 or f32 operands of one dtype, M % 64 == 0, K % 32
+    == 0, N % 8 == 0.  Plain twin: ``gemm_nt_plain``."""
     if not use_kernel(a, impl):
         return gemm_nt_plain(a, b)
     what = "gemm_nt"
     (M, K), (N, Kb) = a.shape, b.shape
-    if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
-        refuse(f"{what}: the kernel takes bfloat16 operands, got {a.dtype}, {b.dtype}")
+    if a.dtype not in (torch.bfloat16, torch.float32) or b.dtype != a.dtype:
+        refuse(f"{what}: the kernel takes bfloat16 or float32 operands of one dtype, got "
+               f"{a.dtype}, {b.dtype}")
     if K != Kb or M % 64 or K % 32 or N % 8:
         refuse(f"{what}: the kernel takes M % 64 == 0, K % 32 == 0 and N % 8 == 0, got "
                f"a {tuple(a.shape)}, b {tuple(b.shape)}")
     a, b = a.contiguous(), b.contiguous()
     _check_cuda_operands(what, [a, b])
+    sfx = f32_suffix(a)
     out = torch.empty((M, N), dtype=a.dtype, device=a.device)
-    check(_build.lib().hs_gemm_nt(a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K,
-                                  stream(a)), what)
+    check(getattr(_build.lib(), f"hs_gemm_nt{sfx}")(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                                    M, N, K, stream(a)), what + sfx)
     return out
 
 
@@ -726,30 +723,35 @@ def gemm_nn_f32(a, b, bias=None, *, impl="auto"):
 
 
 def qkv_epi_proj_ln_bwd(o, wp, bp, ln_scale, dz, *, ln_eps=1e-5, impl="auto"):
-    """K4's projection/LayerNorm backward alone (``proj_ln_bwd_kernel`` and its
-    ``reduce_rows``, ``csrc/window_attention_bwd.cu``); operands and results as
-    ``qkv_epi_proj_ln_bwd_plain``: bf16 o and dz (T, C), T % 64 == 0, C a multiple of
-    the head dim up to 384.  Without LayerNorm du is dz itself."""
+    """K4's projection/LayerNorm backward alone (bf16: ``proj_ln_bwd_kernel`` and its
+    ``reduce_rows``, ``csrc/window_attention_bwd.cu``; f32: the output product
+    ``gemm_nn_f32``, ``ln_bwd_rows_f32_kernel`` and ``reduce_rows``,
+    ``csrc/window_attention_bwd_f32.cu``); operands and results as
+    ``qkv_epi_proj_ln_bwd_plain``: bf16 or f32 o and dz (T, C), T % 64 == 0, C a multiple
+    of the head dim up to 384.  Without LayerNorm du is dz itself."""
     if not use_kernel(o, impl):
         return qkv_epi_proj_ln_bwd_plain(o, wp, bp, ln_scale, dz, ln_eps)
     what = "qkv_epi_proj_ln_bwd"
     T, C = o.shape
     _refuse("window_attention_qkv_epi", what, T, C, C // KERNEL_HD, KERNEL_WS, o.dtype)
     if tuple(wp.shape) != (C, C) or dz.dtype != o.dtype or tuple(dz.shape) != (T, C):
-        raise ValueError(f"{what}: wp must be (C, C) and dz (T, C) bfloat16, C = {C}")
-    dt = torch.bfloat16
+        raise ValueError(f"{what}: wp must be (C, C) and dz (T, C) {o.dtype}, C = {C}")
+    dt = o.dtype
     o, dz = o.contiguous(), dz.contiguous()
     wp = wp.to(dt).contiguous()
     bp = torch.zeros(C, dtype=dt, device=o.device) if bp is None else bp.to(dt).contiguous()
     g = None if ln_scale is None else ln_scale.float().contiguous()
     _check_cuda_operands(what, [t for t in (o, wp, bp, g, dz) if t is not None])
     lib = _build.lib()
+    sfx = f32_suffix(o)
     du = torch.empty_like(o) if g is not None else None
     red = torch.empty(3 * C, dtype=torch.float32, device=o.device)
-    work = torch.empty(lib.hs_proj_ln_bwd_workspace(T, C), dtype=torch.uint8, device=o.device)
-    check(lib.hs_proj_ln_bwd(o.data_ptr(), wp.data_ptr(), bp.data_ptr(), _ptr(g), dz.data_ptr(),
-                             _ptr(du), red.data_ptr(), work.data_ptr(), T, C, int(g is not None),
-                             float(ln_eps), stream(o)), what)
+    work = torch.empty(getattr(lib, f"hs_proj_ln_bwd{sfx}_workspace")(T, C), dtype=torch.uint8,
+                       device=o.device)
+    check(getattr(lib, f"hs_proj_ln_bwd{sfx}")(
+        o.data_ptr(), wp.data_ptr(), bp.data_ptr(), _ptr(g), dz.data_ptr(), _ptr(du),
+        red.data_ptr(), work.data_ptr(), T, C, int(g is not None), float(ln_eps), stream(o)),
+        what + sfx)
     if g is None:
         return dz, red[:C], None, None
     return du, red[:C], red[C:2 * C], red[2 * C:]
@@ -762,11 +764,10 @@ class _WindowAttention(torch.autograd.Function):
     """K2 forward, K5 backward (or their plain versions, by ``impl`` and device)."""
 
     @staticmethod
-    def forward(ctx, qkv, groups, bias, logit_scale, kw, needs_grad):
+    def forward(ctx, qkv, groups, bias, logit_scale, kw):
         ctx.kw = kw
         ctx.save_for_backward(qkv, groups, bias, logit_scale)
-        return window_attention_fwd(qkv, groups, bias, logit_scale, **kw,
-                                    needs_grad=needs_grad)
+        return window_attention_fwd(qkv, groups, bias, logit_scale, **kw)
 
     @staticmethod
     def backward(ctx, dout):
@@ -774,20 +775,19 @@ class _WindowAttention(torch.autograd.Function):
         dqkv, dbias, dls = window_attention_bwd(qkv, groups, bias, logit_scale,
                                                 dout.to(qkv.dtype), **ctx.kw)
         return input_grads(ctx, [(dqkv, qkv), (None, groups), (dbias, bias),
-                                 (dls, logit_scale), (None, None), (None, None)])
+                                 (dls, logit_scale), (None, None)])
 
 
 class _WindowAttentionQkvEpi(torch.autograd.Function):
     """K1 forward, K4 backward (or their plain versions, by ``impl`` and device)."""
 
     @staticmethod
-    def forward(ctx, x, wqkv, bqkv, wp, bp, ln_scale, ln_bias, groups, bias, logit_scale,
-                kw, needs_grad):
+    def forward(ctx, x, wqkv, bqkv, wp, bp, ln_scale, ln_bias, groups, bias, logit_scale, kw):
         ctx.kw = kw
         ctx.save_for_backward(x, wqkv, bqkv, wp, bp, ln_scale, ln_bias, groups, bias,
                               logit_scale)
         return window_attention_qkv_epi_fwd(x, wqkv, bqkv, wp, bp, ln_scale, ln_bias, groups,
-                                            bias, logit_scale, **kw, needs_grad=needs_grad)
+                                            bias, logit_scale, **kw)
 
     @staticmethod
     def backward(ctx, dz):
@@ -796,8 +796,8 @@ class _WindowAttentionQkvEpi(torch.autograd.Function):
         grads = window_attention_qkv_epi_bwd(*saved, dz.to(x.dtype), **ctx.kw)
         dx, dwq, dbq, dwp, dbp, dg, dbe, dbias, dls = grads
         return input_grads(ctx, list(zip(
-            (dx, dwq, dbq, dwp, dbp, dg, dbe, None, dbias, dls, None, None),
-            saved + (None, None))))
+            (dx, dwq, dbq, dwp, dbp, dg, dbe, None, dbias, dls, None),
+            saved + (None,))))
 
 
 class _WindowAttentionQkv(torch.autograd.Function):
@@ -823,8 +823,7 @@ def window_attention(qkv, groups, bias, logit_scale, *, ws, num_heads, use_cos, 
     """Attention from qkv rows (T, 3C) -> (T, C): K2 forward, K5 backward."""
     kw = dict(ws=ws, num_heads=num_heads, use_cos=use_cos, sm_scale=sm_scale,
               has_mask=has_mask, impl=impl)
-    return _WindowAttention.apply(qkv, groups, bias, logit_scale, kw,
-                                  _needs_grad((qkv, bias, logit_scale)))
+    return _WindowAttention.apply(qkv, groups, bias, logit_scale, kw)
 
 
 def window_attention_qkv_epi(x, wqkv, bqkv, wp, bp, ln_scale, ln_bias, groups, bias,
@@ -835,9 +834,8 @@ def window_attention_qkv_epi(x, wqkv, bqkv, wp, bp, ln_scale, ln_bias, groups, b
     that dtype, as the model does."""
     kw = dict(ws=ws, num_heads=num_heads, sm_scale=sm_scale, has_mask=has_mask,
               ln_eps=ln_eps, impl=impl)
-    needs_grad = _needs_grad((x, wqkv, bqkv, wp, bp, ln_scale, ln_bias, bias, logit_scale))
     return _WindowAttentionQkvEpi.apply(x, wqkv, bqkv, wp, bp, ln_scale, ln_bias, groups,
-                                        bias, logit_scale, kw, needs_grad)
+                                        bias, logit_scale, kw)
 
 
 def window_attention_qkv(x, wqkv, bqkv, groups, bias, logit_scale, *, ws, num_heads, use_cos,

@@ -502,8 +502,9 @@ def test_kernels_refuse_what_they_do_not_take(dev):
             wa.window_attention_qkv_epi(x, w, None, torch.zeros(64, 64, device=dev), None,
                                         None, None, None, None, torch.ones(2, device=dev),
                                         ws=16, num_heads=2, sm_scale=1.0, has_mask=False, **P)
-        with pytest.raises(ValueError, match="K5 takes bfloat16"):
-            wa.window_attention(torch.zeros(128, 192, device=dev, requires_grad=True), None,
+        with pytest.raises(ValueError, match="bfloat16 or float32"):
+            wa.window_attention(torch.zeros(128, 192, dtype=torch.float16, device=dev,
+                                            requires_grad=True), None,
                                 None, torch.ones(2, device=dev), ws=64, num_heads=2,
                                 use_cos=True, sm_scale=1.0, has_mask=False, **P)
         with pytest.raises(ValueError, match="C <= 384"):
@@ -533,13 +534,13 @@ def test_kernels_refuse_what_they_do_not_take(dev):
 
 
 def test_auto_refuses_what_the_kernels_do_not_take(dev):
-    """Under "auto" a CUDA tensor that the kernels were not written for (float32 where
-    the kernel has no f32 variant -- K16 --, or needs a gradient -- K2, whose backward
-    K5 has none --, an f32 tail at a width without an instantiation, the window 16)
-    raises with no launch, naming impl="xla", which runs the plain version: no launch,
-    and bit for bit the plain version's result.  (K3 and K6-K9 take float32 since
-    their f32 kernels, K1 and K2 for the forward alone: ``test_final_head_loss_f32_kernels``,
-    ``test_final_head_depth_loss_f32_kernels``, ``test_window_attention_f32_kernels``.)"""
+    """Under "auto" a CUDA tensor that the kernels were not written for (float16 window
+    attention, an f32 tail at a width without an instantiation, the window 16) raises
+    with no launch, naming impl="xla", which runs the plain version: no launch, and bit
+    for bit the plain version's result.  (K3 and K6-K9 take float32 since their f32
+    kernels, the window-attention families both ways since theirs:
+    ``test_final_head_loss_f32_kernels``, ``test_final_head_depth_loss_f32_kernels``,
+    ``test_window_attention_f32_kernels``, ``test_window_attention_f32_train_kernels``.)"""
     gen = torch.Generator().manual_seed(12)
     C, T, h = 64, 64 * 4, 2
     x = _randn(gen, dev, T, C)
@@ -551,16 +552,16 @@ def test_auto_refuses_what_the_kernels_do_not_take(dev):
     depth48 = _depth_args_f32(gen, dev, T, 48, 1)
     cases = [
         (wa.window_attention_qkv_fwd, wa.window_attention_qkv_plain,
-         (x, wq, bq, None, None, None),
+         (x.half(), wq, bq, None, None, None),
          dict(ws=64, num_heads=h, use_cos=False, sm_scale=0.2, has_mask=False)),
         (wa.window_attention_qkv_fwd, wa.window_attention_qkv_plain,
          (x.bfloat16(), wq, bq, groups, bias16, ls),
          dict(ws=16, num_heads=h, use_cos=True, sm_scale=0.2)),
         (wa.window_attention_qkv_bwd, wa.window_attention_qkv_bwd_plain,
-         (x, wq, bq, None, None, None, x),
+         (x.half(), wq, bq, None, None, None, x.half()),
          dict(ws=64, num_heads=h, use_cos=False, sm_scale=0.2, has_mask=False)),
         (wa.window_attention_fwd, wa.window_attention_plain,
-         ((x @ wq).detach().requires_grad_(), None, None, ls),
+         ((x @ wq).half().detach().requires_grad_(), None, None, ls),
          dict(ws=64, num_heads=h, use_cos=True, sm_scale=0.2, has_mask=False)),
         (wa.window_attention_qkv_epi_fwd, wa.window_attention_qkv_epi_plain,
          (x.bfloat16(), wq, bq, wq[:, :C], bq[:C], None, None, groups, bias16, ls),
@@ -1922,21 +1923,109 @@ def test_window_attention_f32_core_at_the_clamp(dev, no_tf32, T, C, use_cos, mas
     assert torch.equal(got, again)
 
 
-def test_f32_attention_needing_a_gradient_raises(dev):
-    """An f32 K1 or K2 call that needs a gradient raises under "auto" and "pallas"
-    before any launch, naming its backward (K4, K5, which take bf16) and impl='xla'."""
+def test_f32_attention_needing_a_gradient_raises(dev, no_tf32):
+    """An f32 K1 or K2 call that needs a gradient no longer raises: under "auto" and
+    "pallas" it runs the f32 forward kernel and, through autograd, the f32 backward
+    kernel (K4, K5), each counted once, the gradients within F32_TOL of autograd through
+    the plain forward."""
     gen = torch.Generator().manual_seed(75)
     args = [a if a is None else a.clone().requires_grad_(a.dtype == torch.float32)
             for a in _epi_args_f32(gen, dev, 96, 128, True, True)]
     qkv, _, bias, ls = _attn_args(gen, dev, 768, 128, True)
     qkv = qkv.float().requires_grad_()
+    cases = ((wa.window_attention_qkv_epi, wa.window_attention_qkv_epi_plain, args,
+              dict(ws=64, num_heads=3, sm_scale=0.2), "window_attention_qkv_epi"),
+             (wa.window_attention, wa.window_attention_plain, [qkv, None, bias, ls],
+              dict(ws=64, num_heads=24, use_cos=True, sm_scale=0.2, has_mask=False),
+              "window_attention"))
+    for fn, plain, a, kw, name in cases:
+        leaves = [t for t in a if t is not None and t.requires_grad]
+        for impl in ("auto", "pallas"):
+            before = dict(wa.launches)
+            got = torch.autograd.grad(fn(*a, **kw, impl=impl).sum(), leaves)
+            torch.cuda.synchronize()
+            assert wa.launches[name + "_f32"] == before[name + "_f32"] + 1
+            assert wa.launches[name + "_bwd_f32"] == before[name + "_bwd_f32"] + 1
+            want = torch.autograd.grad(plain(*a, **kw).sum(), leaves)
+            for g, w in zip(got, want):
+                assert _rel_l2(g, w) < F32_TOL
+
+
+@pytest.mark.parametrize("C,T", [(64, 64 * 5), (96, 64 * 21), (384, 64 * 9)])
+@pytest.mark.parametrize("use_cos", [True, False])
+@pytest.mark.parametrize("masked", [False, True])
+def test_window_attention_f32_train_kernels(dev, no_tf32, C, T, use_cos, masked):
+    """The f32 K16 and K17 (counted as "window_attention_qkv_f32" / "..._bwd_f32"), the
+    f32 K4 with and without LayerNorm (cosine) and the f32 K5 against their plain
+    versions in f32 with TF32 off, every output within F32_TOL; two launches of each
+    bit-equal; K5 also at C 768."""
+    gen = torch.Generator().manual_seed(70 + C + 2 * use_cos + masked)
+    h = C // 32
+    epi = _epi_args_f32(gen, dev, C, T, masked, True)
+    x, wq, bq, wp, bp, g, b, groups, bias, ls = epi
+    dz = _randn(gen, dev, T, C)
+    kw = dict(ws=64, num_heads=h, use_cos=use_cos, sm_scale=32 ** -0.5, has_mask=masked)
+    a = (x, wq, bq, groups, bias, ls if use_cos else None)
+    n = dict(wa.launches)
+    got = wa.window_attention_qkv_fwd(*a, **kw)
+    assert torch.equal(got, wa.window_attention_qkv_fwd(*a, **kw))
+    assert _rel_l2(got, wa.window_attention_qkv_plain(*a, **kw)) < F32_TOL
+    grads = wa.window_attention_qkv_bwd(*a, dz, **kw)
+    again = wa.window_attention_qkv_bwd(*a, dz, **kw)
+    want = wa.window_attention_qkv_bwd_plain(*a, dz, **kw)
+    torch.cuda.synchronize()
+    assert wa.launches["window_attention_qkv_f32"] == n["window_attention_qkv_f32"] + 2
+    assert wa.launches["window_attention_qkv_bwd_f32"] == n["window_attention_qkv_bwd_f32"] + 2
+    for u, v, w in zip(grads, again, want):
+        assert (u is None) == (w is None)
+        if w is not None:
+            assert torch.equal(u, v) and _rel_l2(u, w) < F32_TOL
+    if use_cos:
+        for ln in (True, False):
+            e = epi if ln else epi[:5] + (None, None) + epi[7:]
+            ekw = dict(ws=64, num_heads=h, sm_scale=1.0, has_mask=masked)
+            grads = wa.window_attention_qkv_epi_bwd(*e, dz, **ekw)
+            want = wa.window_attention_qkv_epi_bwd_plain(*e, dz, **ekw)
+            assert all(torch.equal(u, v) for u, v in
+                       zip(grads, wa.window_attention_qkv_epi_bwd(*e, dz, **ekw))
+                       if u is not None)
+            for u, w in zip(grads, want):
+                assert (u is None) == (w is None)
+                if w is not None:
+                    assert _rel_l2(u, w) < F32_TOL
+    for Cq in (C, 768):
+        qkv, _, qbias, qls = _attn_args(gen, dev, Cq, T, use_cos)
+        qkv, dout = qkv.float(), _randn(gen, dev, T, Cq)
+        qa = (qkv, groups, qbias, qls)
+        qkw = dict(kw, num_heads=Cq // 32)
+        grads = wa.window_attention_bwd(*qa, dout, **qkw)
+        for u, v, w in zip(grads, wa.window_attention_bwd(*qa, dout, **qkw),
+                           wa.window_attention_bwd_plain(*qa, dout, **qkw)):
+            assert (u is None) == (w is None)
+            if w is not None:
+                assert torch.equal(u, v) and _rel_l2(u, w) < F32_TOL
+
+
+@pytest.mark.parametrize("C", [64, 96, 384])
+@pytest.mark.parametrize("has_ln", [True, False])
+def test_f32_epi_bwd_steps(dev, no_tf32, C, has_ln):
+    """Two steps of the f32 K4 alone against their plain twins: the projection/LayerNorm
+    backward (``qkv_epi_proj_ln_bwd``, f32) and the NT product (``gemm_nt``, f32), within
+    F32_TOL; neither counts a launch."""
+    gen = torch.Generator().manual_seed(95 + C + has_ln)
+    T = 64 * 7
+    o, dz = _randn(gen, dev, T, C), _randn(gen, dev, T, C)
+    wp, bp = _randn(gen, dev, C, C, std=C ** -0.5), _randn(gen, dev, C, std=0.02)
+    g = 1.0 + _randn(gen, dev, C, std=0.1) if has_ln else None
     before = dict(wa.launches)
-    for impl in ("auto", "pallas"):
-        with pytest.raises(ValueError, match="K4 takes bfloat16.*impl='xla'"):
-            wa.window_attention_qkv_epi(*args, ws=64, num_heads=3, sm_scale=0.2, impl=impl)
-        with pytest.raises(ValueError, match="K5 takes bfloat16.*impl='xla'"):
-            wa.window_attention(qkv, None, bias, ls, ws=64, num_heads=24, use_cos=True,
-                                sm_scale=0.2, has_mask=False, impl=impl)
+    got = wa.qkv_epi_proj_ln_bwd(o, wp, bp, g, dz)
+    want = wa.qkv_epi_proj_ln_bwd_plain(o, wp, bp, g, dz)
+    for u, w in zip(got, want):
+        assert (u is None) == (w is None)
+        if w is not None:
+            assert _rel_l2(u, w) < F32_TOL
+    a, bt = _randn(gen, dev, T, 3 * C), _randn(gen, dev, C, 3 * C)
+    assert _rel_l2(wa.gemm_nt(a, bt), wa.gemm_nt_plain(a, bt)) < F32_TOL
     torch.cuda.synchronize()
     assert dict(wa.launches) == before
 

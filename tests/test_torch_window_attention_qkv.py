@@ -158,32 +158,23 @@ def test_qkv_function_backward_is_the_plain_backward(use_cos):
 
 def test_attention_kernels_take():
     """The operands the window-attention families take, the rule their wrappers refuse
-    by on the card: bf16, ws 64, head dim 32, T % 64, and C <= 384 for the fused-qkv
-    kernels (K1/K4, K16/K17); f32 for the forward alone (``train=False``) of K1 and K2,
-    which have f32 forward kernels and no f32 backward, and never for K16/K17."""
+    by on the card, forward and backward alike: bf16 or f32, ws 64, head dim 32, T % 64,
+    and C <= 384 for the fused-qkv kernels (K1/K4, K16/K17); f16 is refused."""
     bf, f32 = torch.bfloat16, torch.float32
     for fam in ("window_attention", "window_attention_qkv_epi", "window_attention_qkv"):
-        assert wa.kernels_take(fam, 262144, 96, 3, 64, bf)
-        assert wa.kernels_take(fam, 16384, 384, 12, 64, bf)
-        assert not wa.kernels_take(fam, 262144, 96, 3, 64, f32)  # the default dtype
-        assert not wa.kernels_take(fam, 4096, 96, 3, 16, bf)  # window 16
-        assert not wa.kernels_take(fam, 4096, 96, 3, 4, bf)  # the default window 4
-        assert not wa.kernels_take(fam, 96, 96, 3, 48, bf)  # ws = N, a short stage
-        assert not wa.kernels_take(fam, 4096, 32, 2, 64, bf)  # head dim 16
-        assert not wa.kernels_take(fam, 4000, 96, 3, 64, bf)  # T % 64
-    assert wa.kernels_take("window_attention", 4096, 768, 24, 64, bf)
-    assert not wa.kernels_take("window_attention_qkv", 4096, 768, 24, 64, bf)  # C > 384
-    assert not wa.kernels_take("window_attention_qkv_epi", 4096, 768, 24, 64, bf)
-    for fam in ("window_attention", "window_attention_qkv_epi"):
-        assert wa.kernels_take(fam, 262144, 96, 3, 64, f32, train=False)
-        assert wa.kernels_take(fam, 16384, 384, 12, 64, f32, train=False)
-        assert wa.kernels_take(fam, 16384, 384, 12, 64, bf, train=False)
-        assert not wa.kernels_take(fam, 4096, 96, 3, 16, f32, train=False)  # window 16
-        assert not wa.kernels_take(fam, 262144, 96, 3, 64, torch.float16, train=False)
-    assert wa.kernels_take("window_attention", 4096, 768, 24, 64, f32, train=False)
-    assert not wa.kernels_take("window_attention_qkv_epi", 4096, 768, 24, 64, f32,
-                               train=False)
-    assert not wa.kernels_take("window_attention_qkv", 262144, 96, 3, 64, f32, train=False)
+        for dt in (bf, f32):
+            assert wa.kernels_take(fam, 262144, 96, 3, 64, dt)
+            assert wa.kernels_take(fam, 16384, 384, 12, 64, dt)
+            assert not wa.kernels_take(fam, 4096, 96, 3, 16, dt)  # window 16
+            assert not wa.kernels_take(fam, 4096, 96, 3, 4, dt)  # the default window 4
+            assert not wa.kernels_take(fam, 96, 96, 3, 48, dt)  # ws = N, a short stage
+            assert not wa.kernels_take(fam, 4096, 32, 2, 64, dt)  # head dim 16
+            assert not wa.kernels_take(fam, 4000, 96, 3, 64, dt)  # T % 64
+        assert not wa.kernels_take(fam, 262144, 96, 3, 64, torch.float16)
+    for dt in (bf, f32):
+        assert wa.kernels_take("window_attention", 4096, 768, 24, 64, dt)
+        assert not wa.kernels_take("window_attention_qkv", 4096, 768, 24, 64, dt)  # C > 384
+        assert not wa.kernels_take("window_attention_qkv_epi", 4096, 768, 24, 64, dt)
 
 
 def test_final_head_kernels_take():
@@ -275,12 +266,11 @@ def test_window_attention_routes(monkeypatch, dim, heads, cos, route):
 
 def test_f32_attention_that_needs_a_gradient_refuses(monkeypatch):
     """Where the kernels would run (``use_kernel`` forced true, as for a CUDA tensor), a
-    float32 call that needs a gradient raises before any launch, naming the backward
-    that has no f32 kernel (K4 for K1's family, K5 for K2's) and impl='xla': the
-    autograd functions, the forward wrappers with a leaf requiring a gradient, the
-    backward wrappers, and ``WindowAttention`` in training without attention dropout.
-    K16 refuses f32 with or without a gradient; K1 and K2 without one (under no_grad)
-    pass the refusal (``kernels_take(..., train=False)``)."""
+    float32 call that needs a gradient is taken like a bf16 one: the autograd functions,
+    the forward and backward wrappers of all three families and ``WindowAttention`` in
+    training without attention dropout pass the refusal and reach the launch, where CPU
+    operands raise ("must be a CUDA tensor") before any launch.  What the kernels still
+    refuse raises naming impl='xla': f16 operands, and f32 at window 16."""
     monkeypatch.setattr(wa, "use_kernel", lambda t, impl: impl != "xla")
     gen = torch.Generator().manual_seed(3)
     Tk, Ck, h = 128, 64, 2
@@ -294,28 +284,43 @@ def test_f32_attention_that_needs_a_gradient_refuses(monkeypatch):
     kw = dict(ws=64, num_heads=h, sm_scale=0.2, has_mask=False)
     akw = dict(kw, use_cos=True)
     before = dict(wa.launches)
-    k4, k5 = r"K4 takes bfloat16.*impl='xla'", r"K5 takes bfloat16.*impl='xla'"
+    cuda = "must be a CUDA tensor"
+    refused = r"bfloat16 or float32 operands.*impl='xla'"
     for impl in ("auto", "pallas"):
-        with pytest.raises(ValueError, match=k4):
+        for dkw in (akw, dict(kw, use_cos=False)):
+            with pytest.raises(ValueError, match=cuda):
+                wa.window_attention_qkv(x, wq, bq, None, None, ls, **dkw, impl=impl)
+            with pytest.raises(ValueError, match=cuda):
+                wa.window_attention_qkv_bwd(x, wq, bq, None, None, ls, x.detach(), **dkw,
+                                            impl=impl)
+            with pytest.raises(ValueError, match=cuda):
+                wa.window_attention(qkv, None, None, ls, **dkw, impl=impl)
+            with pytest.raises(ValueError, match=cuda):
+                wa.window_attention_bwd(qkv.detach(), None, None, ls, x.detach(), **dkw,
+                                        impl=impl)
+        with pytest.raises(ValueError, match=cuda):
             wa.window_attention_qkv_epi(*epi, **kw, impl=impl)
-        with pytest.raises(ValueError, match=k4):
+        with pytest.raises(ValueError, match=cuda):
             wa.window_attention_qkv_epi_fwd(*epi, **kw, impl=impl)
-        with pytest.raises(ValueError, match=k4):
+        with pytest.raises(ValueError, match=cuda):
             wa.window_attention_qkv_epi_bwd(*epi, x.detach(), **kw, impl=impl)
-        with pytest.raises(ValueError, match=k5):
-            wa.window_attention(qkv, None, None, ls, **akw, impl=impl)
-        with pytest.raises(ValueError, match=k5):
-            wa.window_attention_fwd(qkv, None, None, ls, **akw, impl=impl)
-        with pytest.raises(ValueError, match=k5):
-            wa.window_attention_bwd(qkv.detach(), None, None, ls, x.detach(), **akw,
-                                    impl=impl)
-        with pytest.raises(ValueError, match=r"bfloat16 operands.*impl='xla'"):
-            with torch.no_grad():
-                wa.window_attention_qkv_fwd(x, wq, bq, None, None, ls, **akw, impl=impl)
+        with pytest.raises(ValueError, match=cuda):
+            wa.qkv_epi_proj_ln_bwd(x.detach(), wp, bp, g, x.detach(), impl=impl)
+        with pytest.raises(ValueError, match=cuda):
+            wa.gemm_nt(qkv.detach(), wq, impl=impl)
+        with pytest.raises(ValueError, match=refused):
+            wa.window_attention_qkv_epi(*(a.half() if isinstance(a, torch.Tensor) and
+                                          a.dtype == torch.float32 and a.ndim == 2 else a
+                                          for a in epi), **kw, impl=impl)
+        with pytest.raises(ValueError, match=refused):
+            wa.window_attention(qkv.half(), None, None, ls, **akw, impl=impl)
+        with pytest.raises(ValueError, match=r"ws=64.*impl='xla'"):
+            wa.window_attention_qkv(x, wq, bq, None, None, ls, **dict(akw, ws=16), impl=impl)
     mod = WindowAttention(Ck, h, use_cos_attn=True).train()
-    with pytest.raises(ValueError, match=k4):
+    with pytest.raises(ValueError, match=cuda):
         mod(x.detach().reshape(2, 1, 64, Ck), None, ln=LayerNorm(Ck), generator=gen)
     assert dict(wa.launches) == before
-    for fam in wa.F32_FORWARD:
-        assert wa.kernels_take(fam, Tk, Ck, h, 64, torch.float32, train=False)
-        assert not wa.kernels_take(fam, Tk, Ck, h, 64, torch.float32)
+    for fam in ("window_attention", "window_attention_qkv_epi", "window_attention_qkv"):
+        assert wa.kernels_take(fam, Tk, Ck, h, 64, torch.float32)
+        assert not wa.kernels_take(fam, Tk, Ck, h, 64, torch.float16)
+
