@@ -1497,7 +1497,8 @@ NO_LAUNCHES = {k: 0 for k in (
     "final_head_loss_f32", "final_head_loss_bwd_f32", "final_head_depth_loss_f32",
     "final_head_depth_loss_bwd_f32", "window_attention_qkv_epi_f32", "window_attention_f32",
     "final_head_predict_f32", "window_attention_qkv_f32", "window_attention_bwd_f32",
-    "window_attention_qkv_bwd_f32", "window_attention_qkv_epi_bwd_f32")}
+    "window_attention_qkv_bwd_f32", "window_attention_qkv_epi_bwd_f32", "mlp_fwd_f32",
+    "mlp_bwd_f32", "mlp_block_fwd_f32", "mlp_block_bwd_f32")}
 # the window-attention launches of one pass of the paper model: cosine blocks at
 # C <= 384 run K1 (K4 backward), scaled-dot ones K16 (K17); the C = 768 ones K2 (K5)
 ATTN_LAUNCHES = {True: dict(window_attention_qkv_epi=20, window_attention=2),
@@ -2665,11 +2666,9 @@ def block_dscale(blk, state, B, N, dev):
     return scale.expand(B, N, 1).reshape(B * N, 1).contiguous()
 
 
-def drive_mlp(dev, timed):
-    """The MLP family at the paper model's widths, on its own blocks.  K12-K15 are held
-    to their plain versions at every stage shape first (``check_mlp_kernels``).  Then
-    the segmentation model at paper scale runs one training forward, keeping each
-    block's MLP-branch input and DropPath draw (``record_mlp_inputs``), and, counted:
+def check_mlp_blocks(label, rec, dev, timed, tol=REL_L2_TOL, sfx=""):
+    """The MLP family on the paper model's own blocks (``rec``: ``record_mlp_inputs``),
+    counted, in the blocks' dtype (``sfx`` "_f32": the f32 kernels):
     - for each of the 20 blocks at C <= 384, ``fused_mlp_block`` on the block's fc1,
       fc2, norm2 and draw (K14 forward, K15 backward) against its own plain branch
       x + drop_path(norm2(mlp(x))): the output and every gradient, for a seeded
@@ -2677,15 +2676,10 @@ def drive_mlp(dev, timed):
     - for the 4 blocks at C = 96, the block's ``Mlp`` with ``mlp_impl="fused"`` (K13
       backward) against ``"xla"`` on the same weights and input (output and every
       gradient), and ``fused_mlp`` with ``fwd_impl="pallas"`` (K12) against it.
-    Expected launches K12 4 / K13 4 / K14 20 / K15 20.  Returns (launches, per shape)."""
+    Each within relative L2 ``tol``; expected launches K12 4 / K13 4 / K14 20 / K15 20.
+    Returns (launches, per shape)."""
     from heal_swin_torch.ops import mlp as tm
 
-    timed.update(check_mlp_kernels(torch.Generator().manual_seed(SEED + 7), dev))
-    t0 = time.perf_counter()
-    task = build_task("auto", dev)
-    rec = record_mlp_inputs(task.model, dev)
-    log(f"mlp: built the paper model and recorded its 22 blocks' MLP inputs in "
-        f"{time.perf_counter() - t0:.1f} s")
     gen = torch.Generator().manual_seed(SEED + 8)
     reset_counters()
     worst_blk, worst_mlp, n_blk, n_mlp, n_dp = 0.0, 0.0, 0, 0, 0
@@ -2712,10 +2706,10 @@ def drive_mlp(dev, timed):
             g.set_state(r["states"][1])
         zp = xp + blk.drop_path(blk.norm2(blk.mlp(xp)), g)
         gp = torch.autograd.grad(zp, [xp] + params, dz)
-        worst_blk = max(worst_blk, check_close(f"mlp block {name} output", zk.detach(),
-                                               zp.detach().reshape(B * N, C))[0])
+        worst_blk = max(worst_blk, check_close(f"{label} block {name} output", zk.detach(),
+                                               zp.detach().reshape(B * N, C), tol)[0])
         for n, a, b in zip(("dx",) + MLP_BLOCK_GRADS[1:], gk, gp):
-            worst_blk = max(worst_blk, check_close(f"mlp block {name} {n}", a, b)[0])
+            worst_blk = max(worst_blk, check_close(f"{label} block {name} {n}", a, b, tol)[0])
         if C != 96:
             continue
         # the block's Mlp through the module's fused gate, and K12 on the same input
@@ -2732,21 +2726,40 @@ def drive_mlp(dev, timed):
                                      params[2].t(), params[3], approximate=blk.mlp.gelu_approx,
                                      fwd_impl="pallas").reshape(B, N, C))
         if not torch.equal(outs[0], outs[1]):
-            raise AssertionError(f"mlp {name}: the fused gate's forward is not the plain one")
-        worst_mlp = max(worst_mlp, check_close(f"mlp {name} K12 output", outs[2], outs[1])[0])
+            raise AssertionError(f"{label} {name}: the fused gate's forward is not the plain "
+                                 f"one")
+        worst_mlp = max(worst_mlp, check_close(f"{label} {name} K12 output", outs[2], outs[1],
+                                               tol)[0])
         for n, a, b in zip(MLP_GRADS, *grads):
-            worst_mlp = max(worst_mlp, check_close(f"mlp {name} fused {n}", a, b)[0])
+            worst_mlp = max(worst_mlp, check_close(f"{label} {name} fused {n}", a, b, tol)[0])
     torch.cuda.synchronize()
     launches, by_shape = read_counters()
-    expected = dict(NO_LAUNCHES, mlp_fwd=4, mlp_bwd=4, mlp_block_fwd=20, mlp_block_bwd=20)
-    check_launches("mlp", launches, by_shape, expected, timed)
-    log(f"mlp: {n_blk} blocks at C <= 384 ({n_dp} with a DropPath draw): fused_mlp_block "
+    expected = dict(NO_LAUNCHES, **{f"mlp_fwd{sfx}": 4, f"mlp_bwd{sfx}": 4,
+                                    f"mlp_block_fwd{sfx}": 20, f"mlp_block_bwd{sfx}": 20})
+    check_launches(label, launches, by_shape, expected, timed)
+    log(f"{label}: {n_blk} blocks at C <= 384 ({n_dp} with a DropPath draw): fused_mlp_block "
         f"vs the block's own branch x + drop_path(norm2(mlp(x))), output and every gradient "
         f"rel_l2 <= {worst_blk:.3e}; {n_mlp} blocks at C = 96: Mlp(mlp_impl='fused') = "
         f"'xla' forward bit for bit, gradients and fused_mlp(fwd_impl='pallas') rel_l2 <= "
-        f"{worst_mlp:.3e} (tol {REL_L2_TOL})")
-    del rec, task
+        f"{worst_mlp:.3e} (tol {tol})")
     return launches, by_shape
+
+
+def drive_mlp(dev, timed):
+    """The MLP family at the paper model's widths, on its own blocks.  K12-K15 are held
+    to their plain versions at every stage shape first (``check_mlp_kernels``).  Then
+    the segmentation model at paper scale (bf16) runs one training forward, keeping
+    each block's MLP-branch input and DropPath draw (``record_mlp_inputs``), and the
+    family runs on its blocks (``check_mlp_blocks``).  Returns (launches, per shape)."""
+    timed.update(check_mlp_kernels(torch.Generator().manual_seed(SEED + 7), dev))
+    t0 = time.perf_counter()
+    task = build_task("auto", dev)
+    rec = record_mlp_inputs(task.model, dev)
+    log(f"mlp: built the paper model and recorded its 22 blocks' MLP inputs in "
+        f"{time.perf_counter() - t0:.1f} s")
+    run = check_mlp_blocks("mlp", rec, dev, timed)
+    del rec, task
+    return run
 
 
 # ------------------------------------------------------------ the kernels' refusal
@@ -2765,7 +2778,8 @@ F32_KERNELS = ("final_head_loss_f32", "final_head_loss_bwd_f32", "final_head_dep
                "final_head_depth_loss_bwd_f32", "final_head_predict_f32",
                "window_attention_qkv_epi_f32", "window_attention_f32",
                "window_attention_qkv_f32", "window_attention_qkv_bwd_f32",
-               "window_attention_qkv_epi_bwd_f32", "window_attention_bwd_f32")
+               "window_attention_qkv_epi_bwd_f32", "window_attention_bwd_f32", "mlp_fwd_f32",
+               "mlp_bwd_f32", "mlp_block_fwd_f32", "mlp_block_bwd_f32")
 # the f32 window-attention kernels' bytes over their bf16 forms', (per T C, per C^2): the
 # tokens and weights at 4 bytes, the f32 weight gradients as they are
 F32_ATTN_EXTRA = {"window_attention_f32": (8, 0), "window_attention_qkv_epi_f32": (4, 8),
@@ -3649,9 +3663,12 @@ def drive_paper_eval(dev, timed):
 # the paper segmentation config's train step with attention dropout off (the JAX config
 # default), where every block runs the f32 window-attention kernels both ways: (a) proj
 # dropout 0.1 active, so the blocks at C <= 384 take K16/K17; (b) dropout 0 as well, so
-# they take K1/K4; the bottleneck K2/K5 in both.  DropPath 0.1 stays in both.
+# they take K1/K4; the bottleneck K2/K5 in both.  DropPath 0.1 stays in both.  (c), the
+# f32 MLP phase's (``drive_f32_mlp``): (b) with mlp_impl="fused" set on every block's
+# Mlp, so that each block's MLP backward runs the f32 K13.
 F32_TRAIN_VARIANTS = {"a": dict(attn_drop_rate=0.0),
-                      "b": dict(attn_drop_rate=0.0, drop_rate=0.0)}
+                      "b": dict(attn_drop_rate=0.0, drop_rate=0.0),
+                      "c": dict(attn_drop_rate=0.0, drop_rate=0.0)}
 F32_TRAIN_LAUNCHES = {
     "a": dict(window_attention_qkv_f32=20, window_attention_qkv_bwd_f32=20,
               window_attention_f32=2, window_attention_bwd_f32=2, final_head_loss_f32=1,
@@ -3659,6 +3676,7 @@ F32_TRAIN_LAUNCHES = {
     "b": dict(window_attention_qkv_epi_f32=20, window_attention_qkv_epi_bwd_f32=20,
               window_attention_f32=2, window_attention_bwd_f32=2, final_head_loss_f32=1,
               final_head_loss_bwd_f32=1)}
+F32_TRAIN_LAUNCHES["c"] = dict(F32_TRAIN_LAUNCHES["b"], mlp_bwd_f32=22)
 F32_PLAIN_RUNS = 5  # timed calls of an f32 backward's plain version (each 0.1-0.5 s)
 
 
@@ -3677,6 +3695,16 @@ def f32_train_timing(label, call, plain, route=None):
                                        f" {route[0][:-3]} {res[route[0]]:.4f} ms (device "
                                        f"{res[route[0].replace('_ms', '_device_ms')]:.4f})"))
     return res
+
+
+def log_f32_sequence(label, call):
+    """One launch sequence's kernels, traced over SEQUENCE_TRACED calls: each kernel's
+    device ms and launches a call."""
+    per, _ = trace(call, SEQUENCE_TRACED)
+    log(f"{label}: {SEQUENCE_TRACED} calls traced, a call: "
+        + ", ".join(f"{k.replace('hs::(anonymous namespace)::', '').split('(')[0]} "
+                    f"{v / SEQUENCE_TRACED:.4f} ms x {c / SEQUENCE_TRACED:.0f}"
+                    for k, (v, c) in sorted(per.items(), key=lambda kv: -kv[1][0])))
 
 
 def check_f32_train_kernels(gen, dev, flat=False):
@@ -3761,11 +3789,7 @@ def check_f32_train_kernels(gen, dev, flat=False):
                 def call(a=a, kw=kw):
                     return wa.window_attention_qkv_epi_bwd(*a, dz, **kw, impl="pallas")
 
-                per, _ = trace(call, SEQUENCE_TRACED)
-                log(f"f32 K4 {label}: {SEQUENCE_TRACED} calls traced, a step's mean a launch: "
-                    + ", ".join(f"{k.replace('hs::(anonymous namespace)::', '').split('(')[0]} "
-                                f"{v / c:.4f} ms x {c / SEQUENCE_TRACED:.0f}"
-                                for k, (v, c) in sorted(per.items(), key=lambda kv: -kv[1][0])))
+                log_f32_sequence(f"f32 K4 {label}", call)
                 timed[("window_attention_qkv_epi_bwd_f32", T, C, masked)] = dict(
                     rel_l2=e4[0], max_abs_err=e4[1], **f32_train_timing(
                         f"f32 K4 {label}", call,
@@ -3811,15 +3835,16 @@ def drive_f32_attention_train(dev, timed):
     ``check_f32_train_kernels`` on HEALPix and on flat operands, then for each of
     F32_TRAIN_VARIANTS the step (``paper_step``: "auto" against "xla" on the same
     weights, batch and step generators; equal masks, loss 1e-5, every gradient 1e-4,
-    the exact launches F32_TRAIN_LAUNCHES, rate, memory, profile).  Returns the
-    variants' step-0 launches, per kernel and per shape."""
+    the exact launches F32_TRAIN_LAUNCHES, rate, memory, profile) for variants (a) and
+    (b).  Returns the variants' step-0 launches, per kernel and per shape."""
     timed.update(check_f32_train_kernels(torch.Generator().manual_seed(SEED + 40), dev))
     check_f32_train_kernels(torch.Generator().manual_seed(SEED + 41), dev, flat=True)
     imgs, _ = train_batch(dev)
     targets = torch.clamp(((imgs[..., 0] + 2.5) * PAPER_CLASSES / 5).long(), 0,
                           PAPER_CLASSES - 1).to(torch.int32)
     runs = {}
-    for variant, over in F32_TRAIN_VARIANTS.items():
+    for variant in ("a", "b"):
+        over = F32_TRAIN_VARIANTS[variant]
         task_k = paper_task("auto", dev, overrides=over)
         task_p = paper_task("xla", dev, state=task_k.model.state_dict(), overrides=over)
         runs[variant] = paper_step(
@@ -3829,6 +3854,212 @@ def drive_f32_attention_train(dev, timed):
         del task_k, task_p
         torch.cuda.empty_cache()
     return runs
+
+
+# ------------------------------------------------ the MLP kernels in float32 (f32 K12-K15)
+F32_MLP_KERNELS = ("mlp_fwd_f32", "mlp_bwd_f32", "mlp_block_fwd_f32", "mlp_block_bwd_f32")
+
+
+def f32_mlp_inputs(rnd, dev, T, C, B):
+    """The f32 MLP family's seeded operands at a stage shape (T, C, H = 4C) of batch B:
+    args = (x, w1, b1, w2, b2, gamma, beta) and the output gradient dz, all f32 (not
+    bf16 values: their TF32 split would leave no low part), and the DropPath scale of
+    the batch's draw (ds, (T, 1)): of two samples one kept, one dropped; a batch of 1
+    kept."""
+    H = 4 * C
+    args = (rnd(T, C), rnd(C, H, std=C ** -0.5), rnd(H, std=0.1), rnd(H, C, std=H ** -0.5),
+            rnd(C, std=0.1), 1 + rnd(C, std=0.1), rnd(C, std=0.1))
+    ds = torch.full((T, 1), 1 / DROP_KEEP)
+    if B == 2:
+        ds[T // 2:] = 0.0
+    return args, rnd(T, C), ds.to(dev)
+
+
+def check_f32_mlp_kernels(gen, dev):
+    """The f32 K12-K15 against their plain versions (f32, TF32 off) at every stage shape
+    of the paper model at batch 2 and at a ragged batch of 1 (T 262,144 / 65,536 /
+    16,384 / 4,096 and their halves, C 96 / 192 / 384 / 768, H = 4C), both GELUs, K14 /
+    K15 with no DropPath scale and with the batch's draw: every output and gradient
+    within relative L2 F32_TAIL_TOL (K14 / K15 on the branch, z - x and dx - dz), two
+    launches of each bit-equal.  At the batch-2 shapes, with the paper config's exact
+    GELU, each is timed (``f32_train_timing``: one call, its device ms by ``spin_ms``,
+    the plain version, and the f32 route of the same function, ``mlp_route``: F.linear ->
+    GELU -> F.linear [-> LayerNorm, DropPath, residual] with autograd, TF32 off), its
+    workspace logged, and K13's and K15's launch sequences traced by kernel.  Returns
+    the timings keyed like the launch counters."""
+    from heal_swin_torch import _build
+    from heal_swin_torch.ops import mlp as tm
+
+    tol, lib, timed = F32_TAIL_TOL, _build.lib(), {}
+
+    def rnd(*shape, std=1.0):
+        return (torch.randn(*shape, generator=gen) * std).to(dev)
+
+    for B in (BATCH, 1):
+        for T2, C in mlp_stages():
+            T, H = T2 * B // BATCH, 4 * C
+            args, dz, ds = f32_mlp_inputs(rnd, dev, T, C, B)
+            x, a5 = args[0], args[:5]
+            errs = {}
+            for approximate in (True, False):
+                kw = dict(approximate=approximate)
+                pk = dict(kw, impl="pallas")
+                label = f"T={T} C={C} batch {B} tanh={approximate}"
+                with torch.no_grad():
+                    got = tm.mlp_fwd(*a5, **pk)
+                    e12 = check_close(f"f32 K12 {label}", got, tm.mlp_plain(*a5, **kw), tol)
+                    repeat_equal(f"f32 K12 {label}", got, tm.mlp_fwd(*a5, **pk))
+                    got = tm.mlp_bwd(*a5, dz, **pk)
+                    e13 = check_grads(f"f32 K13 {label}", MLP_GRADS, got,
+                                      tm.mlp_bwd_plain(*a5, dz, **kw), tol)
+                    if not all(torch.equal(u, v) for u, v in
+                               zip(got, tm.mlp_bwd(*a5, dz, **pk))):
+                        raise AssertionError(f"f32 K13 {label}: two launches differ")
+                    errs[("mlp_fwd_f32", approximate)] = e12
+                    errs[("mlp_bwd_f32", approximate)] = e13
+                    for d in (None, ds):
+                        dl = f"{label} dscale={d is not None}"
+                        got = tm.mlp_block_fwd(*args, d, **pk)
+                        e14 = check_close(f"f32 K14 {dl} branch z - x", got - x,
+                                          tm.mlp_block_plain(*args, d, **kw) - x, tol)
+                        repeat_equal(f"f32 K14 {dl}", got, tm.mlp_block_fwd(*args, d, **pk))
+                        got = tm.mlp_block_bwd(*args, d, dz, **pk)
+                        want = tm.mlp_block_bwd_plain(*args, d, dz, **kw)
+                        e15 = check_grads(f"f32 K15 {dl}", ("dx - dz",) + MLP_BLOCK_GRADS[1:],
+                                          (got[0] - dz,) + got[1:], (want[0] - dz,) + want[1:],
+                                          tol)
+                        if not all(torch.equal(u, v) for u, v in
+                                   zip(got, tm.mlp_block_bwd(*args, d, dz, **pk))):
+                            raise AssertionError(f"f32 K15 {dl}: two launches differ")
+                        errs[("mlp_block_fwd_f32", approximate, d is not None)] = e14
+                        errs[("mlp_block_bwd_f32", approximate, d is not None)] = e15
+                    del got, want
+                log(f"f32 K12-K15 {label}: rel_l2 K12 {e12[0]:.3e}, K13 <= {e13[0]:.3e}, "
+                    + ", ".join(f"{k[0][:-4]} dscale={k[2]} <= {v[0]:.3e}"
+                                for k, v in errs.items() if len(k) == 3 and k[1] == approximate)
+                    + f" (tol {tol}); two launches of each bit-equal")
+            if B == BATCH:
+                log(f"f32 K12-K15 T={T} C={C} H={H}: workspace K12 / K14 "
+                    f"{lib.hs_mlp_fwd_f32_workspace(T, C, H)} bytes (g), K13 "
+                    f"{lib.hs_mlp_bwd_f32_workspace(T, C, H)} (h / dh, g, scratch), K15 "
+                    f"{lib.hs_mlp_block_bwd_f32_workspace(T, C, H)} (and u / du, partial rows)")
+                kw = dict(approximate=False)
+                pk = dict(kw, impl="pallas")
+                key = (T, C, H, False)
+                route_f, route_b = mlp_route(args, None, False, block=False)
+                label = f"T={T} C={C} tanh=False"
+                for name, call, plain, route in (
+                        ("mlp_fwd_f32", lambda: tm.mlp_fwd(*a5, **pk),
+                         lambda: tm.mlp_plain(*a5, **kw), route_f),
+                        ("mlp_bwd_f32", lambda: tm.mlp_bwd(*a5, dz, **pk),
+                         lambda: tm.mlp_bwd_plain(*a5, dz, **kw), route_b)):
+                    e = errs[(name, False)]
+                    timed[(name,) + key] = dict(
+                        rel_l2=e[0], max_abs_err=e[1],
+                        **f32_train_timing(f"f32 {name} {label}", call, plain,
+                                           ("route_ms", route)))
+                log_f32_sequence(f"f32 K13 sequence {label}", lambda: tm.mlp_bwd(*a5, dz, **pk))
+                del route_f, route_b
+                for d in (None, ds):
+                    route_f, route_b = mlp_route(args, d, False, block=True)
+                    dl = f"{label} dscale={d is not None}"
+                    for name, call, plain, route in (
+                            ("mlp_block_fwd_f32", lambda: tm.mlp_block_fwd(*args, d, **pk),
+                             lambda: tm.mlp_block_plain(*args, d, **kw), route_f),
+                            ("mlp_block_bwd_f32", lambda: tm.mlp_block_bwd(*args, d, dz, **pk),
+                             lambda: tm.mlp_block_bwd_plain(*args, d, dz, **kw), route_b)):
+                        e = errs[(name, False, d is not None)]
+                        timed[(name,) + key + (d is not None,)] = dict(
+                            rel_l2=e[0], max_abs_err=e[1],
+                            **f32_train_timing(f"f32 {name} {dl}", call, plain,
+                                               ("route_ms", route)))
+                    log_f32_sequence(f"f32 K15 sequence {dl}",
+                                     lambda: tm.mlp_block_bwd(*args, d, dz, **pk))
+                    del route_f, route_b
+            del args, dz, ds, x, a5
+            torch.cuda.empty_cache()
+    return timed
+
+
+def refuse_f16_fused_mlp(dev):
+    """A float16 operand: each of the MLP wrappers (K12-K15) and ``Mlp(mlp_impl="fused")``
+    raise on the card before any launch, naming what the kernels take, "bfloat16 or
+    float32" (the module's autograd function checks the operands of its backward, K13,
+    as it is called)."""
+    from heal_swin_torch.models.layers import Mlp
+    from heal_swin_torch.ops import mlp as tm
+
+    gen = torch.Generator().manual_seed(SEED + 23)
+    f16 = torch.float16
+    mlp = Mlp(64, 256, 64, mlp_impl="fused").to(dev, f16)
+    x = torch.randn(2, 128, 64, generator=gen).to(dev, f16).requires_grad_()
+    x2 = x.detach().reshape(256, 64)
+    w1, w2 = mlp.fc1.weight.t(), mlp.fc2.weight.t()
+    b1, b2 = mlp.fc1.bias.float(), mlp.fc2.bias.float()
+    g, b = torch.ones(64, device=dev), torch.zeros(64, device=dev)
+    kw = dict(approximate=True)
+    calls = {"Mlp(mlp_impl='fused')": lambda: mlp(x).sum().backward(),
+             "mlp_fwd": lambda: tm.mlp_fwd(x2, w1, b1, w2, b2, **kw),
+             "mlp_bwd": lambda: tm.mlp_bwd(x2, w1, b1, w2, b2, x2, **kw),
+             "mlp_block_fwd": lambda: tm.mlp_block_fwd(x2, w1, b1, w2, b2, g, b, None, **kw),
+             "mlp_block_bwd": lambda: tm.mlp_block_bwd(x2, w1, b1, w2, b2, g, b, None, x2,
+                                                       **kw)}
+    reset_counters()
+    msgs = []
+    for what, call in calls.items():
+        try:
+            call()
+        except ValueError as e:
+            if "bfloat16 or float32" not in str(e):
+                raise
+            msgs.append(str(e).splitlines()[0])
+        else:
+            raise AssertionError(f"refusal f16 fused MLP {what}: no refusal")
+    torch.cuda.synchronize()
+    launches, _ = read_counters()
+    if any(launches.values()):
+        raise AssertionError(f"refusal f16 fused MLP: kernels launched: {launches}")
+    log(f"refusal f16 fused MLP: {', '.join(calls)} each raised with no launch ({msgs[0]})")
+
+
+def drive_f32_mlp(dev, timed):
+    """The MLP family in float32, the paper configs' precision.  First the f32 K12-K15
+    against their plain versions (``check_f32_mlp_kernels``).  Then the paper
+    segmentation config with dropout and attention dropout 0 (F32_TRAIN_VARIANTS "c")
+    at full width and depth runs one training forward, keeping each block's MLP-branch
+    input and DropPath draw, and the family runs on its f32 blocks
+    (``check_mlp_blocks``, relative L2 F32_TAIL_TOL: f32 K12 4, K13 4, K14 20, K15 20).
+    Then variant (c)'s train step (``paper_step``): mlp_impl="fused" on every block's
+    Mlp of the kernel path, "auto" against "xla" on the same weights, batch and step
+    generators; launches F32_TRAIN_LAUNCHES["c"], (b)'s and the f32 K13 on all 22
+    blocks.  Returns the block run's and the step's launches, per kernel and per
+    shape."""
+    from heal_swin_torch.models.swin_hp import SwinHPBlock
+
+    timed.update(check_f32_mlp_kernels(torch.Generator().manual_seed(SEED + 50), dev))
+    torch.cuda.empty_cache()
+    over = F32_TRAIN_VARIANTS["c"]
+    t0 = time.perf_counter()
+    task_k = paper_task("auto", dev, overrides=over)
+    rec = record_mlp_inputs(task_k.model, dev)
+    log(f"f32 mlp: built the paper f32 model and recorded its 22 blocks' MLP inputs in "
+        f"{time.perf_counter() - t0:.1f} s")
+    blocks_run = check_mlp_blocks("f32 mlp", rec, dev, timed, F32_TAIL_TOL, "_f32")
+    del rec
+    torch.cuda.empty_cache()
+    fused = [m for m in task_k.model.modules() if isinstance(m, SwinHPBlock)]
+    for blk in fused:
+        blk.mlp.mlp_impl = "fused"
+    task_p = paper_task("xla", dev, state=task_k.model.state_dict(), overrides=over)
+    imgs, _ = train_batch(dev)
+    targets = torch.clamp(((imgs[..., 0] + 2.5) * PAPER_CLASSES / 5).long(), 0,
+                          PAPER_CLASSES - 1).to(torch.int32)
+    log(f"f32 mlp: variant (c), mlp_impl='fused' on the {len(fused)} blocks of the kernel path")
+    step_run = paper_step("f32 fused-MLP train (c)", task_k, task_p, imgs, targets,
+                          dict(NO_LAUNCHES, **F32_TRAIN_LAUNCHES["c"]), timed,
+                          ("total", targets.numel()), attn_dropout=False)
+    del task_k, task_p
+    return blocks_run, step_run
 
 
 # --------------------------------------------------- the trainer's fit loop on the card
@@ -5404,31 +5635,6 @@ def f32_small_model_through_kernels(dev, imgs, cos):
         f"{worst:.3e} (tol {PAPER_GRAD_TOL}), {differ} of {pp.numel()} predictions differ")
 
 
-def refuse_f32_fused_mlp(dev):
-    """``Mlp(mlp_impl="fused")`` on f32 tokens: K12-K15 take bf16, so the call raises on
-    the card before any launch, naming bfloat16 (its autograd function checks the
-    operands of its backward, K13, as it is called)."""
-    from heal_swin_torch.models.layers import Mlp
-
-    gen = torch.Generator().manual_seed(SEED + 23)
-    mlp = Mlp(64, 256, 64, mlp_impl="fused").to(dev)
-    x = torch.randn(2, 128, 64, generator=gen).to(dev).requires_grad_()
-    reset_counters()
-    try:
-        mlp(x).sum().backward()
-    except (ValueError, RuntimeError) as e:
-        if "bfloat16" not in str(e):
-            raise
-        msg = str(e)
-    else:
-        raise AssertionError("refusal f32 fused MLP: no refusal")
-    torch.cuda.synchronize()
-    launches, _ = read_counters()
-    if any(launches.values()):
-        raise AssertionError(f"refusal f32 fused MLP: kernels launched: {launches}")
-    log(f"refusal f32 fused MLP: the call raised with no launch ({msg.splitlines()[0]})")
-
-
 def drive_refusal(dev):
     """The kernels' refusal on the card, and the f32 models they now take.  First the
     f32 small models (``refusal_model`` at window 64, no dropout) that the f32 window-
@@ -5439,8 +5645,8 @@ def drive_refusal(dev):
     predict before any launch, naming attention_impl="xla", which runs a loss with its
     backward and a predict with no launch, finite and of the expected shapes; the tail
     wrappers alone (``refuse_f32_tails``: an f32 tail at C 48, which the f32 K3 and K8/K9
-    have no instantiation for); and the fused MLP on f32 tokens
-    (``refuse_f32_fused_mlp``)."""
+    have no instantiation for); and the MLP kernels on f16 tokens
+    (``refuse_f16_fused_mlp``)."""
     npix = 8 * GATE_NSIDE * GATE_NSIDE
     imgs = torch.randn(BATCH, npix, 3, generator=torch.Generator().manual_seed(SEED + 9)).to(dev)
     for cos in (False, True):
@@ -5480,7 +5686,7 @@ def drive_refusal(dev):
         f"launch ({refusals[0]}); \"xla\" ran a loss ({loss.item():.6f}), its "
         f"backward and {preds.numel()} predictions with no launch")
     refuse_f32_tails(dev)
-    refuse_f32_fused_mlp(dev)
+    refuse_f16_fused_mlp(dev)
 
 
 SOURCES = {
@@ -5513,6 +5719,10 @@ SOURCES = {
     "mlp_bwd": ("heal_swin_torch/csrc/mlp.cu", "heal_swin_tpu/ops/mlp.py:129"),
     "mlp_block_fwd": ("heal_swin_torch/csrc/mlp.cu", "heal_swin_tpu/ops/mlp.py:440"),
     "mlp_block_bwd": ("heal_swin_torch/csrc/mlp.cu", "heal_swin_tpu/ops/mlp.py:467"),
+    "mlp_fwd_f32": ("heal_swin_torch/csrc/mlp_f32.cu", "heal_swin_tpu/ops/mlp.py:169"),
+    "mlp_bwd_f32": ("heal_swin_torch/csrc/mlp_f32.cu", "heal_swin_tpu/ops/mlp.py:129"),
+    "mlp_block_fwd_f32": ("heal_swin_torch/csrc/mlp_f32.cu", "heal_swin_tpu/ops/mlp.py:440"),
+    "mlp_block_bwd_f32": ("heal_swin_torch/csrc/mlp_f32.cu", "heal_swin_tpu/ops/mlp.py:467"),
     "final_head_loss_f32": ("heal_swin_torch/csrc/final_head_f32.cu",
                             "heal_swin_tpu/ops/final_head.py:755"),
     "final_head_loss_bwd_f32": ("heal_swin_torch/csrc/final_head_f32.cu",
@@ -5550,9 +5760,19 @@ def shape_work(key):
     2 T p C F forward; three times the expand and twice the head backward.  The MLP
     (T, C, H = 4C): two products of 2 T C H forward, five backward (the hidden
     recomputed, dg, dx, dW1, dW2), six for the branch (u recomputed too); bf16 tokens
-    and weights, f32 biases, LayerNorm parameters, DropPath scale and parameter
-    gradients."""
+    and weights (f32 for the "_f32" kernels), f32 biases, LayerNorm parameters,
+    DropPath scale and parameter gradients."""
     name, T, C = key[:3]
+    if name.startswith("mlp"):
+        H = key[3]
+        block = name.startswith("mlp_block")
+        tb = 4 if name.endswith("_f32") else 2  # bytes of a token and a weight
+        vecs = 4 * (H + C) + (8 * C if block else 0)  # biases [, gamma, beta]
+        ds = 4 * T if block and key[5] else 0
+        if "fwd" in name:
+            return 4 * T * C * H, 2 * tb * T * C + 2 * tb * C * H + vecs + ds
+        return ((12 if block else 10) * T * C * H,
+                3 * tb * T * C + (2 * tb + 8) * C * H + 2 * vecs + ds)
     if name in F32_ATTN_EXTRA:
         # the f32 window attention: the bf16 forms' FLOPs, their tokens and weights at
         # 4 bytes (F32_ATTN_EXTRA)
@@ -5561,14 +5781,6 @@ def shape_work(key):
         return flop, nbytes + tokens * T * C + weights * C * C
     if name in F32_KERNELS:
         return f32_tail_work(key)
-    if name.startswith("mlp"):
-        H = key[3]
-        block = name.startswith("mlp_block")
-        vecs = 4 * (H + C) + (8 * C if block else 0)  # biases [, gamma, beta]
-        ds = 4 * T if block and key[5] else 0
-        if name.endswith("fwd"):
-            return 4 * T * C * H, 4 * T * C + 4 * C * H + vecs + ds
-        return (12 if block else 10) * T * C * H, 6 * T * C + 12 * C * H + 2 * vecs + ds
     W, h, p = T // WS, C // 32, 4
     bias, groups = h * WS * WS * 4, T * 4
     if name == "window_attention_qkv_epi":  # x -> out; weights, LN, bias, groups
@@ -5763,6 +5975,26 @@ PTXAS_NAMES.update({"18attn_3xtf32_kernel": "f32 K2 attn_3xtf32_kernel (f32 K1/K
                     "22attn_bwd_3xtf32_kernelILb0E":
                         "f32 K5/K17 core attn_bwd_3xtf32_kernel<scaled-dot>",
                     "22ln_bwd_rows_f32_kernel": "f32 K4 step 2 ln_bwd_rows_f32_kernel"})
+# the f32 K12-K15's kernels (csrc/mlp_f32.cu's translation unit)
+MLP_F32_PTXAS_NAMES = {
+    "18gemm_3xtf32_kernelILb0ELb0ENS0_7EpiBiasE":
+        "f32 K12 / K14 step 2, K15 step 2 gemm_3xtf32_kernel<NN> (g W2 + b2)",
+    "18gemm_3xtf32_kernelILb0ELb1ENS0_7EpiBiasE": "f32 K13 step 3 gemm_3xtf32_kernel<NT> (dx)",
+    "18gemm_3xtf32_kernelILb1ELb0ENS0_7EpiBiasE":
+        "f32 K13 / K15 dW1, dW2 gemm_3xtf32_kernel<TN> (split-K)",
+    "18gemm_3xtf32_kernelILb0ELb0ENS0_7EpiGeluILb1E":
+        "f32 K12-K15 step 1 gemm_3xtf32_kernel<NN, EpiGelu<tanh>>",
+    "18gemm_3xtf32_kernelILb0ELb0ENS0_7EpiGeluILb0E":
+        "f32 K12-K15 step 1 gemm_3xtf32_kernel<NN, EpiGelu<erf>>",
+    "18gemm_3xtf32_kernelILb0ELb1ENS0_8EpiDGeluILb1E":
+        "f32 K13 / K15 dh gemm_3xtf32_kernel<NT, EpiDGelu<tanh>>",
+    "18gemm_3xtf32_kernelILb0ELb1ENS0_8EpiDGeluILb0E":
+        "f32 K13 / K15 dh gemm_3xtf32_kernel<NT, EpiDGelu<erf>>",
+    "18gemm_3xtf32_kernelILb0ELb1ENS0_11EpiResidualE":
+        "f32 K15 dx gemm_3xtf32_kernel<NT, EpiResidual>"}
+MLP_F32_PTXAS_NAMES.update({
+    f"21mlp_ln_{d}_f32_kernelILi{p}E": f"f32 K{k} mlp_ln_{d}_f32_kernel<{p}> (C <= {32 * p})"
+    for d, k in (("fwd", "14 step 3"), ("bwd", "15 step 3")) for p in (3, 6, 12, 24)})
 
 
 def log_ptxas(build_log: str):
@@ -5773,8 +6005,9 @@ def log_ptxas(build_log: str):
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
-            key = max((k for k in PTXAS_NAMES if k in name), key=len, default=None)
-            name = name if key is None else PTXAS_NAMES[key]
+            names = MLP_F32_PTXAS_NAMES if "_mlp_f32_cu_" in name else PTXAS_NAMES
+            key = max((k for k in names if k in name), key=len, default=None)
+            name = name if key is None else names[key]
             props = []
         elif name and ("spill" in line or "registers" in line):
             props.append(line.split(":", 1)[-1].strip())
@@ -5841,6 +6074,9 @@ def main() -> int:
     t_f32_train = time.perf_counter()
     f32_train_runs = drive_f32_attention_train(dev, timed)
     torch.cuda.empty_cache()
+    t_f32_mlp = time.perf_counter()
+    f32_mlp_blocks_run, f32_mlp_step_run = drive_f32_mlp(dev, timed)
+    torch.cuda.empty_cache()
     t_fit = time.perf_counter()
     drive_fit(dev, timed)
     torch.cuda.empty_cache()
@@ -5866,7 +6102,8 @@ def main() -> int:
         f"{t_paper - t_flat:.1f} s, the paper-config phase "
         f"{t_depth - t_paper:.1f} s, the paper depth phase {t_eval - t_depth:.1f} s, the "
         f"paper eval phase {t_f32_train - t_eval:.1f} s, the f32 attention training phase "
-        f"{t_fit - t_f32_train:.1f} s, the fit phase {t_flat_paper - t_fit:.1f} s, "
+        f"{t_f32_mlp - t_f32_train:.1f} s, the f32 MLP phase {t_fit - t_f32_mlp:.1f} s, "
+        f"the fit phase {t_flat_paper - t_fit:.1f} s, "
         f"the flat paper phase {t_entry - t_flat_paper:.1f} s, "
         f"the run-entry phase {t_evaluate - t_entry:.1f} s, the evaluation phase "
         f"{t_flat_entry - t_evaluate:.1f} s, the flat entry phase "
@@ -5894,6 +6131,9 @@ def main() -> int:
                  "window_attention_bwd_f32"):
         runs[name] = f32_train_runs["a"]
     runs["window_attention_qkv_epi_bwd_f32"] = f32_train_runs["b"]
+    for name in F32_MLP_KERNELS:
+        runs[name] = f32_mlp_blocks_run
+    runs["mlp_bwd_f32"] = f32_mlp_step_run
     flat_runs = {name: flat_train_run for name in (
         "window_attention_qkv_epi", "window_attention", "window_attention_qkv_epi_bwd",
         "window_attention_bwd", "final_head_loss", "final_head_loss_bwd")}

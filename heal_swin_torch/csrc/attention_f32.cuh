@@ -283,7 +283,18 @@ inline cudaError_t attention_f32(const float* qkv, const int* groups, const floa
 // cp.async and not stored; K % 32 == 0.  blockIdx.z takes the k range [z kchunk,
 // (z + 1) kchunk) and writes out + z M N (kchunk % 32 == 0; an empty range writes
 // zeros): the split-K partials of the TN product.  The bias is added after the sum.
+// The store is the epilogue Epi's: EpiBias (out = sum + bias) here, and the MLP's
+// (mlp_f32.cu), which read or write ``aux``, an M x N matrix laid out as out.
 // ---------------------------------------------------------------------------------
+struct EpiBias {
+  // out[i], out[i + 1] = a0 + b.x, a1 + b.y
+  __device__ __forceinline__ static void store(float* out, float* aux, size_t i, float a0,
+                                               float a1, float2 b) {
+    (void)aux;
+    *reinterpret_cast<float2*>(out + i) = make_float2(__fadd_rn(a0, b.x), __fadd_rn(a1, b.y));
+  }
+};
+
 constexpr int GM_BM = 128, GM_BN = 96, GM_BK = 32, GM_STAGES = 3, GM_THREADS = 256;
 constexpr int GM_MT = 2, GM_NT = 6;  // a warp's 32 x 48: 2 x 6 mma tiles (4 x 2 warps)
 
@@ -297,10 +308,10 @@ struct GemmTile {
   static constexpr size_t SMEM = size_t(GM_STAGES) * STAGE * sizeof(float);
 };
 
-template <bool AT, bool BT>
+template <bool AT, bool BT, class Epi = EpiBias>
 __global__ void __launch_bounds__(GM_THREADS, 2)
 gemm_3xtf32_kernel(const float* __restrict__ A, const float* __restrict__ B,
-                   const float* __restrict__ bias, float* __restrict__ out, int M, int N,
+                   const float* __restrict__ bias, float* out, float* aux, int M, int N,
                    int K, int kchunk) {
   using L = GemmTile<AT, BT>;
   extern __shared__ __align__(16) float smem[];
@@ -426,42 +437,44 @@ gemm_3xtf32_kernel(const float* __restrict__ A, const float* __restrict__ B,
 #pragma unroll
     for (int mt = 0; mt < GM_MT; ++mt) {
       const int m = m0 + wm + mt * 16 + g;
-      if (m < M)
-        *reinterpret_cast<float2*>(out + size_t(m) * N + n) =
-            make_float2(__fadd_rn(acc[mt][nt][0], bb.x), __fadd_rn(acc[mt][nt][1], bb.y));
+      if (m < M) Epi::store(out, aux, size_t(m) * N + n, acc[mt][nt][0], acc[mt][nt][1], bb);
       if (m + 8 < M)
-        *reinterpret_cast<float2*>(out + size_t(m + 8) * N + n) =
-            make_float2(__fadd_rn(acc[mt][nt][2], bb.x), __fadd_rn(acc[mt][nt][3], bb.y));
+        Epi::store(out, aux, size_t(m + 8) * N + n, acc[mt][nt][2], acc[mt][nt][3], bb);
     }
   }
 }
 
-template <bool AT, bool BT>
+template <bool AT, bool BT, class Epi = EpiBias>
 inline cudaError_t gemm_f32_launch(const float* A, const float* B, const float* bias,
                                    float* out, int M, int N, int K, int splits, int kchunk,
-                                   cudaStream_t s) {
+                                   cudaStream_t s, float* aux = nullptr) {
   static std::atomic<unsigned> done{0};
   const size_t smem = GemmTile<AT, BT>::SMEM;
   const cudaError_t e =
-      smem_opt_in(reinterpret_cast<const void*>(gemm_3xtf32_kernel<AT, BT>), smem, done);
+      smem_opt_in(reinterpret_cast<const void*>(gemm_3xtf32_kernel<AT, BT, Epi>), smem, done);
   if (e != cudaSuccess) return e;
   const dim3 grid((N + GM_BN - 1) / GM_BN, (M + GM_BM - 1) / GM_BM, splits);
-  gemm_3xtf32_kernel<AT, BT><<<grid, GM_THREADS, smem, s>>>(A, B, bias, out, M, N, K, kchunk);
+  gemm_3xtf32_kernel<AT, BT, Epi><<<grid, GM_THREADS, smem, s>>>(A, B, bias, out, aux, M, N, K,
+                                                                 kchunk);
   return cudaGetLastError();
 }
 
-// out (M x N) = A (M x K) B (K x N) [+ bias]; M % 64 == 0, K % 32 == 0, N % 4 == 0
+// out (M x N) = A (M x K) B (K x N) [+ bias], stored by Epi; M % 64 == 0, K % 32 == 0,
+// N % 4 == 0
+template <class Epi = EpiBias>
 inline cudaError_t gemm_nn_f32(const float* A, const float* B, const float* bias, float* out,
-                               int M, int N, int K, cudaStream_t s) {
+                               int M, int N, int K, cudaStream_t s, float* aux = nullptr) {
   if (M % 64 || K % GM_BK || N % 4 || M <= 0 || N <= 0 || K <= 0) return cudaErrorInvalidValue;
-  return gemm_f32_launch<false, false>(A, B, bias, out, M, N, K, 1, K, s);
+  return gemm_f32_launch<false, false, Epi>(A, B, bias, out, M, N, K, 1, K, s, aux);
 }
 
-// out (M x N) = A (M x K) B^T, B (N x K); M % 64 == 0, K % 32 == 0, N % 4 == 0
+// out (M x N) = A (M x K) B^T, B (N x K), stored by Epi; M % 64 == 0, K % 32 == 0,
+// N % 4 == 0
+template <class Epi = EpiBias>
 inline cudaError_t gemm_nt_f32(const float* A, const float* B, float* out, int M, int N, int K,
-                               cudaStream_t s) {
+                               cudaStream_t s, float* aux = nullptr) {
   if (M % 64 || K % GM_BK || N % 4 || M <= 0 || N <= 0 || K <= 0) return cudaErrorInvalidValue;
-  return gemm_f32_launch<false, true>(A, B, nullptr, out, M, N, K, 1, K, s);
+  return gemm_f32_launch<false, true, Epi>(A, B, nullptr, out, M, N, K, 1, K, s, aux);
 }
 
 constexpr int GEMM_TN_CHUNK = 2048;  // tokens of a split, at most 128 splits
@@ -492,23 +505,24 @@ inline cudaError_t gemm_tn_f32(const float* A, const float* B, float* out, int K
 }
 
 // ---------------------------------------------------------------------------------
-// A row of C (C % 32 == 0, C <= 32 kLnMaxPer = 384) held by a warp, lane l holding
-// columns l + 32 i in v[i]: its mean, then the mean of the squared deviations from the
-// held values; v is left centred, and rstd returned (the plain version's _ln_f32
-// statistics, each step one rounding)
+// A row of C (C % 32 == 0, C <= 32 P: 384 for the attention's kLnMaxPer, 768 for the
+// MLP's) held by a warp, lane l holding columns l + 32 i in v[i] (i < per = C / 32): its
+// mean, then the mean of the squared deviations from the held values; v is left
+// centred, and rstd returned (the plain version's _ln_f32 statistics, each step one
+// rounding)
 // ---------------------------------------------------------------------------------
 constexpr int kLnMaxPer = 12;  // C <= 384
 
-__device__ __forceinline__ float ln_row_center(float (&v)[kLnMaxPer], int per, int C,
-                                               float eps) {
+template <int P>
+__device__ __forceinline__ float ln_row_center(float (&v)[P], int per, int C, float eps) {
   float s = 0.f;
 #pragma unroll
-  for (int i = 0; i < kLnMaxPer; ++i)
+  for (int i = 0; i < P; ++i)
     if (i < per) s += v[i];
   const float mean = __fdiv_rn(warp_sum(s), float(C));
   float sq = 0.f;
 #pragma unroll
-  for (int i = 0; i < kLnMaxPer; ++i)
+  for (int i = 0; i < P; ++i)
     if (i < per) {
       v[i] = __fsub_rn(v[i], mean);
       sq = fmaf(v[i], v[i], sq);

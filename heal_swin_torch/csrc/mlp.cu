@@ -15,7 +15,9 @@
 // statistics in f32 on the unrounded u, rounded once after the residual add); dh
 // rounded before dx and dW1 while db1 sums the unrounded dh; dW2 from the bf16 g and
 // dout (K15: du rounded before dW2 and the hidden's gradient, db2 over the unrounded
-// du).  Both GELUs (tanh and erf) in f32.
+// du).  Both GELUs (tanh and erf) in f32.  These are the bfloat16 forms: for f32 x the
+// same Python entries launch the float32 forms of mlp_f32.cu (3xTF32 launch sequences,
+// nothing rounded below f32).
 //
 // What bounds it on this card: the forward does 4 T C H FLOP on 4 T C bytes of tokens,
 // H = 4C FLOP per byte (384 at C = 96), above the bf16 ridge (~295): the products

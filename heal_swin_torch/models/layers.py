@@ -161,8 +161,8 @@ class Mlp(nn.Module):
     ``mlp_impl`` (the JAX module's field): "xla", the plain dense route; "fused",
     ``ops.mlp.fused_mlp_nd`` (the same forward, backward K13) where ``out_features``
     equals the input width and ``ops.mlp.supported`` takes the shape, else the plain
-    route.  K13 takes bfloat16 only, so a CUDA input of another dtype that passes the
-    gate raises at the call.  Element dropout in training (``drop`` > 0) follows the
+    route.  K13 takes bfloat16 (and float32, through its f32 kernel), so a CUDA input
+    of another dtype that passes the gate raises at the call.  Element dropout in training (``drop`` > 0) follows the
     GELU and fc2, as the JAX module's, its masks from ``generator``; active, it sends
     ``mlp_impl="fused"`` to the plain route, as it does the JAX module."""
 

@@ -18,6 +18,15 @@ version:
   weight-gradient kernel on du, each beside its plain version (``mlp_block_du_plain``,
   ``mlp_bwd_dx_plain``, ``mlp_bwd_dw_plain``).
 
+Each takes bfloat16 or float32 x.  For f32 x the same entries launch the f32 kernels
+(``csrc/mlp_f32.cu``, launches counted as "mlp_fwd_f32" ... "mlp_block_bwd_f32"): launch
+sequences of 3xTF32 tensor-core products with nothing rounded below f32, whose own steps
+have wrappers and plain twins of their own: the hidden h, g = GELU(h) (``mlp_hidden``,
+``mlp_hidden_plain``), the GELU-gradient product dh = (dout W2^T) GELU'(h) (``mlp_dh``,
+``mlp_dh_plain``), K14's LayerNorm with the DropPath scale and the residual
+(``mlp_block_ln``, ``mlp_block_ln_plain``) and K15's LayerNorm backward
+(``mlp_block_ln_bwd``, ``mlp_block_ln_bwd_plain``).
+
 Entry points, on the JAX layout (weights (in, out)) and with the JAX package's
 semantics:
 
@@ -37,9 +46,10 @@ semantics:
 
 ``fused_mlp`` and ``fused_mlp_nd`` share one autograd function.  Where its backward
 will launch K13, its forward checks first that K13 takes x, so a CUDA tensor the
-kernel refuses (float32, say) raises at the call, not in the backward.
+kernel refuses (float16, say) raises at the call, not in the backward.
 
-Rounding follows the Pallas kernels: h = x W1 summed in f32, + b1 in f32; g = GELU(h)
+Rounding follows the Pallas kernels (for f32 x every rounding to x's dtype is the
+identity): h = x W1 summed in f32, + b1 in f32; g = GELU(h)
 in f32 (tanh or erf), rounded to x's dtype; o / u = g W2 summed in f32, + b2; the
 branch's LayerNorm statistics in f32 on the unrounded u, y * dscale, + x in f32,
 rounded once.  Backward: dh rounded before dx and dW1 while db1 sums the unrounded
@@ -49,7 +59,7 @@ gradient, and dx adds the residual dz in f32.
 Dispatch (``impl``) as in ``ops/window_attention.py``: "auto" runs the kernel for a
 CUDA tensor and the plain version for a CPU tensor, "xla" the plain version, "pallas"
 demands the kernel.  A CUDA tensor the kernel does not take raises (the kernels take
-bfloat16 x, and ``supported`` says which shapes); nothing falls back.
+bfloat16 or float32 x, and ``supported`` says which shapes); nothing falls back.
 """
 
 from __future__ import annotations
@@ -60,7 +70,7 @@ import torch
 import torch.nn.functional as F
 
 from heal_swin_torch import _build
-from heal_swin_torch.ops._dispatch import check, input_grads, stream, use_kernel
+from heal_swin_torch.ops._dispatch import check, f32_suffix, input_grads, stream, use_kernel
 
 _SQRT_2_OVER_PI = 0.7978845608028654
 _TANH_C = 0.044715
@@ -71,9 +81,10 @@ KERNEL_ROWS = 64  # T must be a multiple of the weight-gradient kernel's token s
 KERNEL_HC = 32  # the kernels stream the hidden in chunks of 32 columns
 KERNEL_MAX_C = 768  # registers: a row group's output columns over at most 4 warps
 
-# launch counters, bumped only where a kernel launches: per kernel, and per
-# (kernel, T, C, H, approximate[, has_dscale])
-launches = {"mlp_fwd": 0, "mlp_bwd": 0, "mlp_block_fwd": 0, "mlp_block_bwd": 0}
+# launch counters, bumped only where a kernel launches: per kernel (the f32 kernels'
+# with the suffix "_f32"), and per (kernel, T, C, H, approximate[, has_dscale])
+launches = {k + sfx: 0 for sfx in ("", "_f32")
+            for k in ("mlp_fwd", "mlp_bwd", "mlp_block_fwd", "mlp_block_bwd")}
 launches_by_shape: Counter = Counter()
 
 
@@ -118,9 +129,10 @@ block_supported = supported  # K14/K15 take the same shapes as K12/K13 (the JAX 
 # --------------------------------------------------------------------- plain versions
 
 
-def _hidden(x, w1, b1, approximate):
-    """h = x W1 + b1 (f32 sums of dt-rounded operands) and g = GELU(h) rounded to dt,
-    both as f32."""
+def mlp_hidden_plain(x, w1, b1, *, approximate: bool):
+    """h = x W1 + b1 (f32 sums of dt-rounded operands) and g = GELU(h) rounded to x's
+    dtype dt, both as f32 (T, H).  For f32 x the twin of the f32 kernels' first step
+    (``mlp_hidden``)."""
     dt = x.dtype
     h = x.float() @ w1.to(dt).float() + b1.float()
     return h, _gelu_f32(h, approximate).to(dt).float()
@@ -130,16 +142,22 @@ def mlp_plain(x, w1, b1, w2, b2, *, approximate: bool):
     """Plain version of K12 (``reference_mlp``).  x: (T, C); w1: (C, H); b1: (H,);
     w2: (H, C); b2: (C,).  Returns (T, C) in x's dtype."""
     dt = x.dtype
-    _, g = _hidden(x, w1, b1, approximate)
+    _, g = mlp_hidden_plain(x, w1, b1, approximate=approximate)
     return (g @ w2.to(dt).float() + b2.float()).to(dt)
+
+
+def mlp_dh_plain(h, w2, dout, *, approximate: bool):
+    """dh = (dout W2^T) GELU'(h), f32 sums, unrounded (T, H): the twin of the f32 K13's
+    and K15's GELU-gradient product (``mlp_dh``).  h (T, H), w2 (H, C), dout (T, C)."""
+    return (dout.float() @ w2.float().t()) * _gelu_grad_f32(h.float(), approximate)
 
 
 def _hidden_grads(x, w1, b1, w2, dout, approximate):
     """g (dt-rounded, as f32), dout in f32 and the unrounded dh = (dout W2^T) GELU'(h)."""
     dt = x.dtype
-    h, g = _hidden(x, w1, b1, approximate)
+    h, g = mlp_hidden_plain(x, w1, b1, approximate=approximate)
     do = dout.to(dt).float()
-    return g, do, (do @ w2.to(dt).float().t()) * _gelu_grad_f32(h, approximate)
+    return g, do, mlp_dh_plain(h, w2.to(dt), do, approximate=approximate)
 
 
 def mlp_bwd_dx_plain(x, w1, b1, w2, dout, *, approximate: bool, residual=None):
@@ -177,17 +195,37 @@ def _ln_stats(u, ln_eps):
     return xc * rstd, rstd
 
 
+def mlp_block_ln_plain(u, x, gamma, beta, dscale, *, ln_eps: float = 1e-5):
+    """x + dscale * LN(u) in f32, the LayerNorm statistics in f32 on u (T, C): the twin
+    of the f32 K14's last step (``mlp_block_ln``).  dscale: (T, 1) f32 or None."""
+    xhat, _ = _ln_stats(u.float(), ln_eps)
+    y = xhat * gamma.float() + beta.float()
+    if dscale is not None:
+        y = y * dscale.float()
+    return x.float() + y
+
+
 def mlp_block_plain(x, w1, b1, w2, b2, gamma, beta, dscale, *, approximate: bool,
                     ln_eps: float = 1e-5):
     """Plain version of K14 (``reference_mlp_block``): x + dscale * LN(mlp(x)), with
     LN in f32 on the unrounded u.  dscale: (T, 1) f32 or None.  (T, C) in x's dtype."""
     dt = x.dtype
-    _, g = _hidden(x, w1, b1, approximate)
-    xhat, _ = _ln_stats(g @ w2.to(dt).float() + b2.float(), ln_eps)
-    y = xhat * gamma.float() + beta.float()
-    if dscale is not None:
-        y = y * dscale.float()
-    return (x.float() + y).to(dt)
+    _, g = mlp_hidden_plain(x, w1, b1, approximate=approximate)
+    return mlp_block_ln_plain(g @ w2.to(dt).float() + b2.float(), x, gamma, beta, dscale,
+                              ln_eps=ln_eps).to(dt)
+
+
+def mlp_block_ln_bwd_plain(u, dz, gamma, dscale, *, ln_eps: float = 1e-5):
+    """The LayerNorm backward of the branch at u (T, C), f32: du (unrounded) and db2 =
+    sum du, dgamma = sum dy xhat, dbeta = sum dy, dy = dz dscale.  The twin of the f32
+    K15's LayerNorm step (``mlp_block_ln_bwd``)."""
+    xhat, rstd = _ln_stats(u.float(), ln_eps)
+    dzf = dz.float()
+    dy = dzf * dscale.float() if dscale is not None else dzf
+    dgl = dy * gamma.float()
+    du = rstd * (dgl - dgl.mean(-1, keepdim=True)
+                 - xhat * (dgl * xhat).mean(-1, keepdim=True))
+    return du, du.sum(0), (dy * xhat).sum(0), dy.sum(0)
 
 
 def mlp_block_du_plain(x, w1, b1, w2, b2, gamma, dscale, dz, *, approximate: bool,
@@ -196,14 +234,10 @@ def mlp_block_du_plain(x, w1, b1, w2, b2, gamma, dscale, dz, *, approximate: boo
     backward.  Returns du rounded to x's dtype (T, C) and db2 (the sum of the unrounded
     du), dgamma = sum dy xhat and dbeta = sum dy as f32 sums, dy = dz dscale."""
     dt = x.dtype
-    _, g = _hidden(x, w1, b1, approximate)
-    xhat, rstd = _ln_stats(g @ w2.to(dt).float() + b2.float(), ln_eps)
-    dzf = dz.to(dt).float()
-    dy = dzf * dscale.float() if dscale is not None else dzf
-    dgl = dy * gamma.float()
-    du = rstd * (dgl - dgl.mean(-1, keepdim=True)
-                 - xhat * (dgl * xhat).mean(-1, keepdim=True))
-    return du.to(dt), du.sum(0), (dy * xhat).sum(0), dy.sum(0)
+    _, g = mlp_hidden_plain(x, w1, b1, approximate=approximate)
+    du, db2, dgamma, dbeta = mlp_block_ln_bwd_plain(g @ w2.to(dt).float() + b2.float(),
+                                                    dz.to(dt), gamma, dscale, ln_eps=ln_eps)
+    return du.to(dt), db2, dgamma, dbeta
 
 
 def mlp_block_bwd_plain(x, w1, b1, w2, b2, gamma, beta, dscale, dz, *, approximate: bool,
@@ -222,13 +256,19 @@ def mlp_block_bwd_plain(x, w1, b1, w2, b2, gamma, beta, dscale, dz, *, approxima
 
 
 # --------------------------------------------------------------------------- kernels
+_TAKES = (torch.bfloat16, torch.float32)
 
 
-def _check_takes(what, x, H):
-    """Raise unless the kernels take x at hidden width H: (T, C) bfloat16, with
+def _dtype_names(dtypes):
+    return " or ".join(str(d).replace("torch.", "") for d in dtypes)
+
+
+def _check_takes(what, x, H, dtypes=_TAKES):
+    """Raise unless the kernels take x at hidden width H: (T, C) of one of ``dtypes``
+    (K12-K15: bfloat16 or float32; the bf16 sequences' own steps: bfloat16), with
     ``supported(T, C, H)``."""
-    if x.dtype != torch.bfloat16 or x.dim() != 2:
-        raise ValueError(f"{what}: the kernel takes a (T, C) bfloat16 x, not "
+    if x.dtype not in dtypes or x.dim() != 2:
+        raise ValueError(f"{what}: the kernel takes a (T, C) {_dtype_names(dtypes)} x, not "
                          f"{tuple(x.shape)} {x.dtype}")
     T, C = x.shape
     if not supported(T, C, H):
@@ -238,27 +278,33 @@ def _check_takes(what, x, H):
                          f"{KERNEL_HC})")
 
 
-def _operands(what, x, w1, b1, w2, b2, extra=()):
-    """The kernels' checked operands: x and the weights in bf16, the biases (and the
-    f32 ``extra`` vectors: gamma, beta) in f32, all contiguous on x's device."""
+def _operands(what, x, w1, b1, w2, b2, extra=(), dtypes=_TAKES):
+    """The kernels' checked operands: x and the weights in x's dtype (bf16 or f32; an
+    f32 x keeps f32 weights), the biases (and the f32 ``extra`` vectors: gamma, beta) in
+    f32, all contiguous on x's device."""
     H = w1.shape[1]
-    _check_takes(what, x, H)
+    _check_takes(what, x, H, dtypes)
     T, C = x.shape
     if tuple(w1.shape) != (C, H) or tuple(w2.shape) != (H, C) or b1.numel() != H \
             or b2.numel() != C or any(t.numel() != C for t in extra):
         raise ValueError(f"{what}: weights must be w1 (C, H), b1 (H,), w2 (H, C), b2 (C,)")
-    bf = torch.bfloat16
-    ops = [x.contiguous(), w1.to(bf).contiguous(), b1.float().contiguous(),
-           w2.to(bf).contiguous(), b2.float().contiguous()]
+    dt = x.dtype
+    ops = [x.contiguous(), w1.to(dt).contiguous(), b1.float().contiguous(),
+           w2.to(dt).contiguous(), b2.float().contiguous()]
     ops += [t.float().contiguous() for t in extra]
-    if not all(t.is_cuda and t.device == x.device for t in ops):
-        raise ValueError(f"{what}: every operand must be a CUDA tensor on x's device")
+    _on_card(what, ops, x)
     _check_aligned(what, ops[0], ops[1], ops[3])
     return T, C, H, ops
 
 
+def _on_card(what, ops, x):
+    """Raise unless every operand is a CUDA tensor on x's device."""
+    if not all(t.is_cuda and t.device == x.device for t in ops):
+        raise ValueError(f"{what}: every operand must be a CUDA tensor on x's device")
+
+
 def _check_aligned(what, *tiles):
-    """The kernels load bf16 rows 16 bytes at a time."""
+    """The kernels load rows 16 bytes at a time."""
     if any(t.data_ptr() % 16 for t in tiles):
         raise ValueError(f"{what}: x, the weights and the output gradient must be 16-byte "
                          f"aligned")
@@ -269,14 +315,15 @@ def _dscale_operand(what, dscale, T, x):
         return None
     if dscale.dtype != torch.float32 or dscale.numel() != T:
         raise ValueError(f"{what}: dscale must be (T, 1) = {(T, 1)} float32")
-    if not dscale.is_cuda or dscale.device != x.device:
-        raise ValueError(f"{what}: dscale must be a CUDA tensor on x's device")
+    _on_card(what, [dscale], x)
     return dscale.contiguous()
 
 
-def _grad_operand(what, g, T, C):
-    if g.dtype != torch.bfloat16 or tuple(g.shape) != (T, C):
-        raise ValueError(f"{what}: the output gradient must be (T, C) = {(T, C)} bfloat16")
+def _grad_operand(what, g, T, C, dtype):
+    """An output gradient (or residual) of x's shape (T, C) and dtype ``dtype``."""
+    if g.dtype != dtype or tuple(g.shape) != (T, C):
+        raise ValueError(f"{what}: the output gradient must be (T, C) = {(T, C)} "
+                         f"{_dtype_names((dtype,))}")
     g = g.contiguous()
     _check_aligned(what, g)
     return g
@@ -286,59 +333,77 @@ def _ptrs(ts):
     return [None if t is None else t.data_ptr() for t in ts]
 
 
+def _work(nbytes, x):
+    return torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+
+
 def mlp_fwd(x, w1, b1, w2, b2, *, approximate: bool, impl="auto"):
-    """K12 wrapper (no autograd): fc2(GELU(fc1 x)), (T, C) -> (T, C)."""
+    """K12 wrapper (no autograd): fc2(GELU(fc1 x)), (T, C) -> (T, C); bf16 x runs K12,
+    f32 x the f32 K12 (its workspace: g, T x H f32)."""
     if not use_kernel(x, impl):
         return mlp_plain(x, w1, b1, w2, b2, approximate=approximate)
     what = "mlp_fwd"
     T, C, H, ops = _operands(what, x, w1, b1, w2, b2)
+    sfx = f32_suffix(x)
+    lib = _build.lib()
     out = torch.empty_like(ops[0])
-    code = _build.lib().hs_mlp_fwd(*_ptrs(ops), out.data_ptr(), T, C, H, int(approximate),
-                                   stream(x))
-    check(code, what)
-    _count(what, (T, C, H, bool(approximate)))
+    if sfx:
+        work = _work(lib.hs_mlp_fwd_f32_workspace(T, C, H), x)
+        code = lib.hs_mlp_fwd_f32(*_ptrs(ops + [out, work]), T, C, H, int(approximate),
+                                  stream(x))
+    else:
+        code = lib.hs_mlp_fwd(*_ptrs(ops), out.data_ptr(), T, C, H, int(approximate),
+                              stream(x))
+    check(code, what + sfx)
+    _count(what + sfx, (T, C, H, bool(approximate)))
     return out
 
 
-def _dw_outputs(x, T, C, H):
-    """K13's weight gradients and its workspace (the weight-gradient kernel's partial
-    rows and the reductions' scratch): dw1 (C, H), dw2 (H, C), red = db1 | db2, work."""
+def _dw_outputs(x, T, C, H, workspace):
+    """K13's weight gradients and its workspace (``workspace(T, C, H)`` bytes: the bf16
+    weight-gradient kernel's partial rows and the reductions' scratch, or the f32
+    sequence's hidden and scratch): dw1 (C, H), dw2 (H, C), red = db1 | db2, work."""
     f32 = dict(dtype=torch.float32, device=x.device)
-    work = torch.empty(_build.lib().hs_mlp_bwd_workspace(T, C, H), dtype=torch.uint8,
-                       device=x.device)
     return (torch.empty((C, H), **f32), torch.empty((H, C), **f32), torch.empty(H + C, **f32),
-            work)
+            _work(workspace(T, C, H), x))
 
 
 def mlp_bwd(x, w1, b1, w2, b2, dout, *, approximate: bool, impl="auto"):
-    """K13 wrapper: the backward of K12, one entry that launches the dx kernel, then the
-    weight-gradient kernel and its reductions; results as ``mlp_bwd_plain``."""
+    """K13 wrapper: the backward of K12, one entry that launches its sequence (bf16: the
+    dx kernel, then the weight-gradient kernel and its reductions; f32: the 3xTF32
+    products and reductions of ``csrc/mlp_f32.cu``); results as ``mlp_bwd_plain``."""
     if not use_kernel(x, impl):
         return mlp_bwd_plain(x, w1, b1, w2, b2, dout, approximate=approximate)
     what = "mlp_bwd"
     T, C, H, ops = _operands(what, x, w1, b1, w2, b2)
-    dout = _grad_operand(what, dout, T, C)
+    sfx = f32_suffix(x)
+    dout = _grad_operand(what, dout, T, C, x.dtype)
+    lib = _build.lib()
     dx = torch.empty_like(ops[0])
-    dw1, dw2, red, work = _dw_outputs(x, T, C, H)
-    code = _build.lib().hs_mlp_bwd(*_ptrs(ops + [dout, dx, dw1, dw2, red, work]), T, C, H,
-                                   int(approximate), stream(x))
-    check(code, what)
-    _count(what, (T, C, H, bool(approximate)))
+    dw1, dw2, red, work = _dw_outputs(x, T, C, H, getattr(lib, f"hs_mlp_bwd{sfx}_workspace"))
+    code = getattr(lib, f"hs_mlp_bwd{sfx}")(*_ptrs(ops + [dout, dx, dw1, dw2, red, work]),
+                                            T, C, H, int(approximate), stream(x))
+    check(code, what + sfx)
+    _count(what + sfx, (T, C, H, bool(approximate)))
     db1, db2 = red.split([H, C])
     return dx, dw1, db1, dw2, db2
 
 
+_BF16 = (torch.bfloat16,)
+
+
 def mlp_bwd_dx(x, w1, b1, w2, dout, *, approximate: bool, residual=None, impl="auto"):
-    """K13's dx kernel alone (the first step of its launch sequence, and with
+    """The bf16 K13's dx kernel alone (the first step of its launch sequence, and with
     ``residual`` the second of K15's; not counted, as K13's and K15's launches count
     their sequences); results as ``mlp_bwd_dx_plain``."""
     if not use_kernel(x, impl):
         return mlp_bwd_dx_plain(x, w1, b1, w2, dout, approximate=approximate,
                                 residual=residual)
     what = "mlp_bwd_dx"
-    T, C, H, ops = _operands(what, x, w1, b1, w2, torch.zeros(w2.shape[1], device=x.device))
-    dout = _grad_operand(what, dout, T, C)
-    res = None if residual is None else _grad_operand(what, residual, T, C)
+    T, C, H, ops = _operands(what, x, w1, b1, w2, torch.zeros(w2.shape[1], device=x.device),
+                             dtypes=_BF16)
+    dout = _grad_operand(what, dout, T, C, x.dtype)
+    res = None if residual is None else _grad_operand(what, residual, T, C, x.dtype)
     dx = torch.empty_like(ops[0])
     check(_build.lib().hs_mlp_bwd_dx(*_ptrs(ops[:4] + [dout, res, dx]), T, C, H,
                                      int(approximate), stream(x)), what)
@@ -346,14 +411,15 @@ def mlp_bwd_dx(x, w1, b1, w2, dout, *, approximate: bool, residual=None, impl="a
 
 
 def mlp_bwd_dw(x, w1, b1, w2, dout, *, approximate: bool, impl="auto"):
-    """K13's weight-gradient kernel and its reductions alone (the second step of its
-    launch sequence; not counted); results as ``mlp_bwd_dw_plain``."""
+    """The bf16 K13's weight-gradient kernel and its reductions alone (the second step
+    of its launch sequence; not counted); results as ``mlp_bwd_dw_plain``."""
     if not use_kernel(x, impl):
         return mlp_bwd_dw_plain(x, w1, b1, w2, dout, approximate=approximate)
     what = "mlp_bwd_dw"
-    T, C, H, ops = _operands(what, x, w1, b1, w2, torch.zeros(w2.shape[1], device=x.device))
-    dout = _grad_operand(what, dout, T, C)
-    dw1, dw2, red, work = _dw_outputs(x, T, C, H)
+    T, C, H, ops = _operands(what, x, w1, b1, w2, torch.zeros(w2.shape[1], device=x.device),
+                             dtypes=_BF16)
+    dout = _grad_operand(what, dout, T, C, x.dtype)
+    dw1, dw2, red, work = _dw_outputs(x, T, C, H, _build.lib().hs_mlp_bwd_workspace)
     check(_build.lib().hs_mlp_bwd_dw(*_ptrs(ops[:4] + [dout, dw1, dw2, red, work]), T, C, H,
                                      int(approximate), stream(x)), what)
     db1, db2 = red.split([H, C])
@@ -362,38 +428,46 @@ def mlp_bwd_dw(x, w1, b1, w2, dout, *, approximate: bool, impl="auto"):
 
 def mlp_block_fwd(x, w1, b1, w2, b2, gamma, beta, dscale, *, approximate: bool,
                   ln_eps: float = 1e-5, impl="auto"):
-    """K14 wrapper (no autograd): x + dscale * LN(mlp(x)), (T, C) -> (T, C)."""
+    """K14 wrapper (no autograd): x + dscale * LN(mlp(x)), (T, C) -> (T, C); f32 x runs
+    the f32 K14."""
     if not use_kernel(x, impl):
         return mlp_block_plain(x, w1, b1, w2, b2, gamma, beta, dscale,
                                approximate=approximate, ln_eps=ln_eps)
     what = "mlp_block_fwd"
     T, C, H, ops = _operands(what, x, w1, b1, w2, b2, (gamma, beta))
     ds = _dscale_operand(what, dscale, T, x)
+    sfx = f32_suffix(x)
+    lib = _build.lib()
     out = torch.empty_like(ops[0])
-    code = _build.lib().hs_mlp_block_fwd(*_ptrs(ops + [ds, out]), T, C, H, int(approximate),
-                                         int(ds is not None), float(ln_eps), stream(x))
-    check(code, what)
-    _count(what, (T, C, H, bool(approximate), ds is not None))
+    if sfx:
+        work = _work(lib.hs_mlp_fwd_f32_workspace(T, C, H), x)
+        code = lib.hs_mlp_block_fwd_f32(*_ptrs(ops + [ds, out, work]), T, C, H,
+                                        int(approximate), int(ds is not None), float(ln_eps),
+                                        stream(x))
+    else:
+        code = lib.hs_mlp_block_fwd(*_ptrs(ops + [ds, out]), T, C, H, int(approximate),
+                                    int(ds is not None), float(ln_eps), stream(x))
+    check(code, what + sfx)
+    _count(what + sfx, (T, C, H, bool(approximate), ds is not None))
     return out
 
 
 def mlp_block_bwd_du(x, w1, b1, w2, b2, gamma, dscale, dz, *, approximate: bool,
                      ln_eps: float = 1e-5, impl="auto"):
-    """K15's first kernel alone, with the reduction of its partial rows (not counted, as
-    K15's launches count the sequence); results as ``mlp_block_du_plain``: du_lo (T, C)
-    and db2, dgamma, dbeta."""
+    """The bf16 K15's first kernel alone, with the reduction of its partial rows (not
+    counted, as K15's launches count the sequence); results as ``mlp_block_du_plain``:
+    du_lo (T, C) and db2, dgamma, dbeta."""
     if not use_kernel(x, impl):
         return mlp_block_du_plain(x, w1, b1, w2, b2, gamma, dscale, dz,
                                   approximate=approximate, ln_eps=ln_eps)
     what = "mlp_block_bwd_du"
-    T, C, H, ops = _operands(what, x, w1, b1, w2, b2, (gamma,))
+    T, C, H, ops = _operands(what, x, w1, b1, w2, b2, (gamma,), dtypes=_BF16)
     ds = _dscale_operand(what, dscale, T, x)
-    dz = _grad_operand(what, dz, T, C)
+    dz = _grad_operand(what, dz, T, C, x.dtype)
     lib = _build.lib()
     du = torch.empty_like(ops[0])
     red = torch.empty(3 * C, dtype=torch.float32, device=x.device)  # db2 | dgamma | dbeta
-    work = torch.empty(lib.hs_mlp_block_bwd_workspace(T, C, H), dtype=torch.uint8,
-                       device=x.device)
+    work = _work(lib.hs_mlp_block_bwd_workspace(T, C, H), x)
     check(lib.hs_mlp_block_bwd_du(*_ptrs(ops + [ds, dz, du, red, work]), T, C, H,
                                   int(approximate), int(ds is not None), float(ln_eps),
                                   stream(x)), what)
@@ -402,30 +476,120 @@ def mlp_block_bwd_du(x, w1, b1, w2, b2, gamma, dscale, dz, *, approximate: bool,
 
 def mlp_block_bwd(x, w1, b1, w2, b2, gamma, beta, dscale, dz, *, approximate: bool,
                   ln_eps: float = 1e-5, impl="auto"):
-    """K15 wrapper: the backward of K14, one entry that launches its sequence (the row
-    kernel with the LayerNorm backward, K13's dx kernel with the residual, K13's
-    weight-gradient kernel, the reductions); results as ``mlp_block_bwd_plain``."""
+    """K15 wrapper: the backward of K14, one entry that launches its sequence (bf16: the
+    row kernel with the LayerNorm backward, K13's dx kernel with the residual, K13's
+    weight-gradient kernel, the reductions; f32: ``csrc/mlp_f32.cu``'s); results as
+    ``mlp_block_bwd_plain``."""
     if not use_kernel(x, impl):
         return mlp_block_bwd_plain(x, w1, b1, w2, b2, gamma, beta, dscale, dz,
                                    approximate=approximate, ln_eps=ln_eps)
     what = "mlp_block_bwd"
     T, C, H, ops = _operands(what, x, w1, b1, w2, b2, (gamma, beta))
     ds = _dscale_operand(what, dscale, T, x)
-    dz = _grad_operand(what, dz, T, C)
+    sfx = f32_suffix(x)
+    dz = _grad_operand(what, dz, T, C, x.dtype)
     lib = _build.lib()
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(ops[0])
     dw1, dw2 = torch.empty((C, H), **f32), torch.empty((H, C), **f32)
     red = torch.empty(H + 3 * C, **f32)  # db1 | db2 | dgamma | dbeta
-    work = torch.empty(lib.hs_mlp_block_bwd_workspace(T, C, H), dtype=torch.uint8,
-                       device=x.device)
-    code = lib.hs_mlp_block_bwd(*_ptrs(ops + [ds, dz, dx, dw1, dw2, red, work]), T, C, H,
-                                int(approximate), int(ds is not None), float(ln_eps),
-                                stream(x))
-    check(code, what)
-    _count(what, (T, C, H, bool(approximate), ds is not None))
+    work = _work(getattr(lib, f"hs_mlp_block_bwd{sfx}_workspace")(T, C, H), x)
+    code = getattr(lib, f"hs_mlp_block_bwd{sfx}")(
+        *_ptrs(ops + [ds, dz, dx, dw1, dw2, red, work]), T, C, H, int(approximate),
+        int(ds is not None), float(ln_eps), stream(x))
+    check(code, what + sfx)
+    _count(what + sfx, (T, C, H, bool(approximate), ds is not None))
     db1, db2, dg, dbe = red.split([H, C, C, C])
     return dx, dw1, db1, dw2, db2, dg, dbe
+
+
+# ------------------------------------------- the f32 sequences' own steps (not counted)
+_F32 = (torch.float32,)
+
+
+def _f32_rows(what, t, T, C):
+    """An f32 (T, C) operand of a step, contiguous, on the card and 16-byte aligned."""
+    if t.dtype != torch.float32 or tuple(t.shape) != (T, C) or not t.is_cuda:
+        raise ValueError(f"{what}: expected a (T, C) = {(T, C)} float32 CUDA tensor, not "
+                         f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    t = t.contiguous()
+    _check_aligned(what, t)
+    return t
+
+
+def mlp_hidden(x, w1, b1, *, approximate: bool, impl="auto"):
+    """The f32 sequences' first step alone: h = x W1 + b1 and g = GELU(h), (T, H) f32
+    each; results as ``mlp_hidden_plain``."""
+    if not use_kernel(x, impl):
+        return mlp_hidden_plain(x, w1, b1, approximate=approximate)
+    what = "mlp_hidden"
+    H = w1.shape[1]
+    _check_takes(what, x, H, _F32)
+    T, C = x.shape
+    x, w1 = _f32_rows(what, x, T, C), _f32_rows(what, w1, C, H)
+    b1 = b1.float().contiguous()
+    _on_card(what, [b1], x)
+    h, g = (torch.empty((T, H), dtype=torch.float32, device=x.device) for _ in range(2))
+    check(_build.lib().hs_mlp_hidden_f32(*_ptrs([x, w1, b1, h, g]), T, C, H, int(approximate),
+                                         stream(x)), what)
+    return h, g
+
+
+def mlp_dh(h, w2, dout, *, approximate: bool, impl="auto"):
+    """The f32 K13's and K15's GELU-gradient product alone: dh = (dout W2^T) GELU'(h),
+    (T, H) f32; results as ``mlp_dh_plain``."""
+    if not use_kernel(dout, impl):
+        return mlp_dh_plain(h, w2, dout, approximate=approximate)
+    what = "mlp_dh"
+    H = w2.shape[0]
+    _check_takes(what, dout, H, _F32)
+    T, C = dout.shape
+    dout = _f32_rows(what, dout, T, C)
+    h = _f32_rows(what, h, T, H)
+    w2 = _f32_rows(what, w2, H, C)
+    dh = torch.empty_like(h)
+    check(_build.lib().hs_mlp_dh_f32(*_ptrs([dout, w2, h, dh]), T, C, H, int(approximate),
+                                     stream(dout)), what)
+    return dh
+
+
+def mlp_block_ln(u, x, gamma, beta, dscale, *, ln_eps: float = 1e-5, impl="auto"):
+    """The f32 K14's LayerNorm step alone: x + dscale * LN(u), (T, C) f32; results as
+    ``mlp_block_ln_plain``."""
+    if not use_kernel(x, impl):
+        return mlp_block_ln_plain(u, x, gamma, beta, dscale, ln_eps=ln_eps)
+    what = "mlp_block_ln"
+    _check_takes(what, x, KERNEL_HC, _F32)
+    T, C = x.shape
+    u, x = _f32_rows(what, u, T, C), _f32_rows(what, x, T, C)
+    gamma, beta = gamma.float().contiguous(), beta.float().contiguous()
+    _on_card(what, [gamma, beta], x)
+    ds = _dscale_operand(what, dscale, T, x)
+    out = torch.empty_like(x)
+    check(_build.lib().hs_mlp_block_ln_f32(*_ptrs([u, x, gamma, beta, ds, out]), T, C,
+                                           float(ln_eps), stream(x)), what)
+    return out
+
+
+def mlp_block_ln_bwd(u, dz, gamma, dscale, *, ln_eps: float = 1e-5, impl="auto"):
+    """The f32 K15's LayerNorm backward step alone, with the reduction of its partial
+    rows: du (T, C) f32, db2, dgamma, dbeta; results as ``mlp_block_ln_bwd_plain``."""
+    if not use_kernel(dz, impl):
+        return mlp_block_ln_bwd_plain(u, dz, gamma, dscale, ln_eps=ln_eps)
+    what = "mlp_block_ln_bwd"
+    _check_takes(what, dz, KERNEL_HC, _F32)
+    T, C = dz.shape
+    u, dz = _f32_rows(what, u, T, C), _f32_rows(what, dz, T, C)
+    gamma = gamma.float().contiguous()
+    _on_card(what, [gamma], dz)
+    ds = _dscale_operand(what, dscale, T, dz)
+    lib = _build.lib()
+    du = torch.empty_like(u)
+    red = torch.empty(3 * C, dtype=torch.float32, device=dz.device)
+    work = _work(lib.hs_mlp_block_ln_bwd_f32_workspace(T, C), dz)
+    check(lib.hs_mlp_block_ln_bwd_f32(*_ptrs([u, dz, gamma, ds, du, red, work]), T, C,
+                                      float(ln_eps), stream(dz)), what)
+    return (du, *red.split([C, C, C]))
 
 
 # --------------------------------------------------------------------------- autograd

@@ -1315,7 +1315,8 @@ def test_mlp_functions_backward_through_kernels(dev):
     tm.fused_mlp_block(x, w1, b1, w2, b2, g, b, approximate=True).float().sum().backward()
     torch.cuda.synchronize()
     assert {k: tm.launches[k] - before[k] for k in before} == dict(
-        mlp_fwd=1, mlp_bwd=3, mlp_block_fwd=1, mlp_block_bwd=1)
+        mlp_fwd=1, mlp_bwd=3, mlp_block_fwd=1, mlp_block_bwd=1, mlp_fwd_f32=0, mlp_bwd_f32=0,
+        mlp_block_fwd_f32=0, mlp_block_bwd_f32=0)
     for t in (x, w1, b1, w2, b2, g, b):
         assert t.grad is not None and t.grad.dtype == t.dtype and torch.isfinite(t.grad).all()
 
@@ -1484,11 +1485,143 @@ def test_mlp_kernels_refuse_what_they_do_not_take(dev):
     odd = _mlp_args(gen, dev, 128, 48, 192)
     with pytest.raises(ValueError, match="does not take"):
         tm.mlp_block_fwd(*odd, None, approximate=True)  # C not a multiple of 32
-    with pytest.raises(ValueError, match="bfloat16"):
+    with pytest.raises(ValueError, match="bfloat16 or float32"):  # float16: neither form
+        tm.mlp_bwd(args[0].half(), *args[1:5], args[0].half(), approximate=True)
+    with pytest.raises(ValueError, match="float32"):  # an f32 x wants an f32 gradient
         tm.mlp_bwd(args[0].float(), *args[1:5], args[0], approximate=True)
     with pytest.raises(ValueError, match="dscale"):
         tm.mlp_block_fwd(*args, torch.ones(128, 1, dtype=torch.bfloat16, device=dev),
                          approximate=True)
+
+
+# --- the f32 K12-K15 (csrc/mlp_f32.cu): nothing rounded below f32, every product in
+# 3xTF32, held to the plain versions run in f32 with TF32 off within relative L2 1e-5
+MLP_F32_TOL = 1e-5
+
+
+def _mlp_args_f32(gen, dev, T, C, H):
+    """The f32 K12-K15's operands, all f32 (not bf16 values, whose TF32 split has no low
+    part): x, w1, b1, w2, b2, gamma, beta."""
+    return (_randn(gen, dev, T, C),) + _mlp_args(gen, dev, T, C, H)[1:]
+
+
+@pytest.mark.parametrize("T,C", [(64 * 4, 32), (64 * 8, 96), (64 * 4, 192), (64 * 4, 384),
+                                 (64 * 2, 768), (262144, 96)])
+@pytest.mark.parametrize("approximate", [True, False])
+def test_mlp_f32_kernels(dev, no_tf32, T, C, approximate):
+    """The f32 K12 and K13 against their plain versions (relative L2 1e-5 for the output
+    and every gradient), each launch counted under its f32 key; a second K13 launch
+    gives the same bits."""
+    from heal_swin_torch.ops import mlp as tm
+
+    gen = torch.Generator().manual_seed(300 + C + approximate)
+    H = 4 * C
+    args = _mlp_args_f32(gen, dev, T, C, H)[:5]
+    dout = _randn(gen, dev, T, C)
+    key = (T, C, H, approximate)
+    before = dict(tm.launches)
+    out = tm.mlp_fwd(*args, approximate=approximate)
+    grads = tm.mlp_bwd(*args, dout, approximate=approximate)
+    again = tm.mlp_bwd(*args, dout, approximate=approximate)
+    torch.cuda.synchronize()
+    assert {k: tm.launches[k] - before[k] for k in before if tm.launches[k] != before[k]} == \
+        dict(mlp_fwd_f32=1, mlp_bwd_f32=2)
+    assert tm.launches_by_shape[("mlp_bwd_f32",) + key] >= 2
+    assert out.dtype == torch.float32
+    assert _rel_l2(out, tm.mlp_plain(*args, approximate=approximate)) < MLP_F32_TOL
+    _assert_grads_close(grads, tm.mlp_bwd_plain(*args, dout, approximate=approximate),
+                        tol=MLP_F32_TOL)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.parametrize("T,C", [(64 * 4, 32), (64 * 8, 96), (64 * 4, 384), (64 * 2, 768),
+                                 (262144, 96)])
+@pytest.mark.parametrize("has_dp", [False, True])
+def test_mlp_block_f32_kernels(dev, no_tf32, T, C, has_dp):
+    """The f32 K14 and K15 against their plain versions, on the branch (z - x, dx - dz)
+    and every other gradient within relative L2 1e-5, with and without the DropPath
+    scale (whole dropped rows get exactly the residual back)."""
+    from heal_swin_torch.ops import mlp as tm
+
+    gen = torch.Generator().manual_seed(400 + C + 1000 * has_dp)
+    H = 4 * C
+    args = _mlp_args_f32(gen, dev, T, C, H)
+    x = args[0]
+    ds = None
+    if has_dp:
+        ds = torch.where(torch.rand(T, 1, generator=gen) < 0.3, 0.0, 1.25).to(dev)
+    dz = _randn(gen, dev, T, C)
+    for approximate in (True, False):
+        key = (T, C, H, approximate, has_dp)
+        before = [tm.launches_by_shape[(k,) + key]
+                  for k in ("mlp_block_fwd_f32", "mlp_block_bwd_f32")]
+        out = tm.mlp_block_fwd(*args, ds, approximate=approximate)
+        grads = tm.mlp_block_bwd(*args, ds, dz, approximate=approximate)
+        torch.cuda.synchronize()
+        assert [tm.launches_by_shape[(k,) + key]
+                for k in ("mlp_block_fwd_f32", "mlp_block_bwd_f32")] == [b + 1 for b in before]
+        want = tm.mlp_block_plain(*args, ds, approximate=approximate)
+        assert _rel_l2(out - x, want - x) < MLP_F32_TOL
+        want = tm.mlp_block_bwd_plain(*args, ds, dz, approximate=approximate)
+        _assert_grads_close((grads[0] - dz,) + grads[1:], (want[0] - dz,) + want[1:],
+                            tol=MLP_F32_TOL)
+        if has_dp:
+            dropped = (ds == 0).reshape(-1)
+            assert torch.equal(out[dropped], x[dropped])
+            assert torch.equal(grads[0][dropped], dz[dropped])
+
+
+@pytest.mark.parametrize("T,C", [(64 * 8, 96), (64 * 4, 384), (64 * 2, 768)])
+@pytest.mark.parametrize("approximate", [True, False])
+def test_mlp_f32_sequence_steps(dev, no_tf32, T, C, approximate):
+    """Each new step of the f32 sequences alone against its plain twin, f32 with TF32
+    off, within relative L2 1e-5: the hidden h and g = GELU(h) (``mlp_hidden``), the
+    GELU-gradient product (``mlp_dh``), K14's LayerNorm with the DropPath scale and the
+    residual (``mlp_block_ln``) and K15's LayerNorm backward with its sums
+    (``mlp_block_ln_bwd``); none of them counts a launch."""
+    from heal_swin_torch.ops import mlp as tm
+
+    gen = torch.Generator().manual_seed(500 + C + approximate)
+    H = 4 * C
+    x, w1, b1, w2, b2, g, b = _mlp_args_f32(gen, dev, T, C, H)
+    dz = _randn(gen, dev, T, C)
+    ds = torch.where(torch.rand(T, 1, generator=gen) < 0.3, 0.0, 1.25).to(dev)
+    kw = dict(approximate=approximate)
+    before = dict(tm.launches)
+    _assert_grads_close(tm.mlp_hidden(x, w1, b1, **kw), tm.mlp_hidden_plain(x, w1, b1, **kw),
+                        tol=MLP_F32_TOL)
+    h, gg = tm.mlp_hidden_plain(x, w1, b1, **kw)
+    _assert_grads_close((tm.mlp_dh(h, w2, dz, **kw),), (tm.mlp_dh_plain(h, w2, dz, **kw),),
+                        tol=MLP_F32_TOL)
+    u = gg @ w2 + b2
+    for d in (None, ds):
+        _assert_grads_close((tm.mlp_block_ln(u, x, g, b, d),),
+                            (tm.mlp_block_ln_plain(u, x, g, b, d),), tol=MLP_F32_TOL)
+        _assert_grads_close(tm.mlp_block_ln_bwd(u, dz, g, d),
+                            tm.mlp_block_ln_bwd_plain(u, dz, g, d), tol=MLP_F32_TOL)
+    torch.cuda.synchronize()
+    assert tm.launches == before
+
+
+def test_mlp_f32_functions_backward_through_kernels(dev):
+    """``fused_mlp`` (both forwards), ``fused_mlp_nd`` and ``fused_mlp_block`` on f32
+    operands launch the f32 kernels forward and backward and return f32 gradients."""
+    from heal_swin_torch.ops import mlp as tm
+
+    gen = torch.Generator().manual_seed(23)
+    x, w1, b1, w2, b2, g, b = (a.clone().requires_grad_()
+                               for a in _mlp_args_f32(gen, dev, 64 * 4, 96, 384))
+    before = dict(tm.launches)
+    tm.fused_mlp(x, w1, b1, w2, b2, approximate=True, fwd_impl="pallas").sum().backward()
+    tm.fused_mlp(x, w1, b1, w2, b2, approximate=True).sum().backward()
+    tm.fused_mlp_nd(x.reshape(4, 64, 96), w1, b1, w2, b2, approximate=False).sum().backward()
+    tm.fused_mlp_block(x, w1, b1, w2, b2, g, b, approximate=True).sum().backward()
+    torch.cuda.synchronize()
+    assert {k: tm.launches[k] - before[k] for k in before if tm.launches[k] != before[k]} == \
+        dict(mlp_fwd_f32=1, mlp_bwd_f32=3, mlp_block_fwd_f32=1, mlp_block_bwd_f32=1)
+    for t in (x, w1, b1, w2, b2, g, b):
+        assert t.grad is not None and t.grad.dtype == torch.float32
+        assert torch.isfinite(t.grad).all()
 
 
 # --- the f32 K6 / K7 (csrc/final_head_f32.cu): nothing rounded below f32, held to the

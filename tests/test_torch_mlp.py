@@ -260,19 +260,21 @@ def test_mlp_gate_takes_the_plain_route(monkeypatch):
 
 def test_mlp_gate_refuses_a_dtype_the_kernel_does_not_take_at_the_call(monkeypatch):
     """Where K13 would run (a CUDA tensor: ``use_kernel`` forced true here), the fused
-    gate's forward raises for a float32 input, before any backward; a bfloat16 input
-    of the same shape passes the forward, and a shape the gate refuses takes the
-    plain route as before."""
+    gate's forward raises for a float16 input, before any backward, naming what K13
+    takes ("bfloat16 or float32"); float32 and bfloat16 inputs of the same shape pass
+    the forward (K13 has both forms), and a shape the gate refuses takes the plain
+    route as before."""
     monkeypatch.setattr(tm, "use_kernel", lambda t, impl: impl != "xla")
     mod = tl.Mlp(32, 128, 32, mlp_impl="fused")
-    with pytest.raises(ValueError, match="bfloat16"):
-        mod(torch.randn(2, 64, 32))
-    out = mod.to(torch.bfloat16)(torch.randn(2, 64, 32, dtype=torch.bfloat16))
-    assert out.shape == (2, 64, 32) and out.dtype == torch.bfloat16
-    mod.float()(torch.randn(2, 7, 32))  # T 14: the plain route, nothing to refuse
-    with pytest.raises(ValueError, match="bfloat16"):
-        tm.fused_mlp(torch.randn(64, 32), torch.randn(32, 128), torch.zeros(128),
-                     torch.randn(128, 32), torch.zeros(32), approximate=True)
+    for dt in (torch.float32, torch.bfloat16):
+        out = mod.to(dt)(torch.randn(2, 64, 32, dtype=dt))
+        assert out.shape == (2, 64, 32) and out.dtype == dt
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        mod.half()(torch.randn(2, 64, 32, dtype=torch.float16))
+    mod.half()(torch.randn(2, 7, 32, dtype=torch.float16))  # T 14: the plain route
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        tm.fused_mlp(torch.randn(64, 32, dtype=torch.float16), torch.randn(32, 128),
+                     torch.zeros(128), torch.randn(128, 32), torch.zeros(32), approximate=True)
 
 
 def test_element_dropout_in_training_raises():
