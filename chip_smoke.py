@@ -750,7 +750,7 @@ def check_depth_kernels(name, dargs, p, kind, fh, timing=True):
     predictions and the gradients within REL_L2_TOL; for f32 x (the f32 K8/K9) the loss
     sum, the f32 predictions and the gradients within F32_TAIL_TOL.  Returns the
     timings, keyed like the launch counters, when ``timing``; in f32 with each kernel's
-    device time by kernel and the f32 route."""
+    device time by kernel and the f32 route; else the errors."""
     x, wh = dargs[0], dargs[4]
     T, C = x.shape
     F = wh.shape[-1]
@@ -779,8 +779,9 @@ def check_depth_kernels(name, dargs, p, kind, fh, timing=True):
     log(f"{label} final_head_depth_loss{sfx} T={T} C={C}: loss sum {float(num):.6f} plain "
         f"{float(wnum):.6f} (rel {loss_rel:.2e}), count {int(den)}; predictions rel_l2 "
         f"{perr:.3e} max_abs {pmae:.3e}; backward rel_l2 <= {gerr:.3e} max_abs {gmae:.3e}")
-    if not timing:
-        return {}
+    if not timing:  # the errors alone
+        return dict(loss_sum_rel_err=loss_rel, pred_rel_l2=perr, pred_max_abs=pmae,
+                    grad_rel_l2=gerr, grad_max_abs=gmae)
     with torch.no_grad():
         check_depth_steps(label, dargs, p, kind, fh, scale, tol)
         ms8 = median_ms(lambda: fh.final_head_depth_loss_sums(*dargs, **kw, impl="pallas"))
@@ -1360,37 +1361,68 @@ def confmat_agrees(name, cm, lf, y, slack):
 
 
 def check_loss_kernels(name, largs, p, fh, timing=True):
-    """K6 (loss, confusion matrix) and K7 (every gradient, for a loss gradient of 1)
-    against their plain versions on the operands ``largs`` = (x, we, gamma, beta, wh,
-    y, welem).  K6's loss within LOSS_REL_TOL relative; its confusion matrix checked
-    with ``confmat_agrees`` at K3's slack (every z element one bf16 step off) plus two
-    bf16 steps of the larger logit (the logits' own rounding).  Returns the timings,
-    keyed like the launch counters, when ``timing``."""
+    """K3 (classes), K6 (loss, confusion matrix) and K7 (every gradient, for a loss
+    gradient of 1 over the weights) against their plain versions on the operands
+    ``largs`` = (x, we, gamma, beta, wh, y, welem), bf16 or f32 x, on whichever route
+    takes the shape.  bf16: K3's classes equal outside near-ties at ``logit_slack``
+    (every z element one bf16 step off); K6's loss within LOSS_REL_TOL relative; its
+    confusion matrix checked with ``confmat_agrees`` at that slack plus two bf16 steps
+    of the larger logit (the logits' own rounding); every K7 gradient within REL_L2_TOL.
+    f32: a slack of F32_TAIL_TOL of the row's largest |logit| (at least F32_TAIL_TOL)
+    for K3 and the confusion matrix, K6's two sums and every K7 gradient within
+    F32_TAIL_TOL.  Two K7 launches bit-equal, and the launch counters show K3 once, K6
+    once and K7 twice.  Returns the errors, or with ``timing`` (bf16) the timings, keyed
+    like the launch counters."""
     x, tail = largs[0], largs[1:5]
     T, C = x.shape
+    f32 = x.dtype == torch.float32
+    sfx = "_f32" if f32 else ""
+    tol = F32_TAIL_TOL if f32 else REL_L2_TOL
+    kw = dict(patch_size=p)
+    before = dict(fh.launches)
     with torch.no_grad():
-        num, den, cm = fh.final_head_loss_sums(*largs, patch_size=p, impl="pallas")
-        wnum, wden, wcm = fh.final_head_loss_plain(*largs, patch_size=p)
+        lf = fh.final_head_logits_plain(x, *tail, **kw)
+        slack = (F32_TAIL_TOL * lf.abs().amax(-1).clamp_min(1.0) if f32
+                 else logit_slack(fh, x, tail))
+        preds = fh.final_head_predict(*largs[:5], **kw, impl="pallas")
+        m3, n3, _ = preds_agree(f"{name} K3", preds, fh.argmax_lowest(lf), lf, slack)
+        num, den, cm = fh.final_head_loss_sums(*largs, **kw, impl="pallas")
+        wnum, wden, _ = fh.final_head_loss_plain(*largs, **kw)
         loss, wloss = float(num / den), float(wnum / wden)
-        if not abs(loss - wloss) <= LOSS_REL_TOL * abs(wloss):
-            raise AssertionError(f"{name}: loss {loss} vs plain {wloss}")
-        lf = fh.final_head_logits_plain(x, *tail, patch_size=p).to(torch.bfloat16).float()
-        slack = logit_slack(fh, x, tail) + 2 * 2.0 ** -7 * lf.abs().amax(-1)
-        near, moved = confmat_agrees(name, cm, lf, largs[5].reshape(T, p), slack)
+        loss_rel = abs(loss - wloss) / abs(wloss)
+        sums_rel = max(abs(float(a) - float(w)) / abs(float(w))
+                       for a, w in ((num, wnum), (den, wden)))
+        if not (sums_rel <= F32_TAIL_TOL if f32 else loss_rel <= LOSS_REL_TOL):
+            raise AssertionError(f"{name} K6: sums {float(num)}, {float(den)} vs plain "
+                                 f"{float(wnum)}, {float(wden)}")
+        if not f32:
+            lf = lf.to(torch.bfloat16).float()
+            slack = slack + 2 * 2.0 ** -7 * lf.abs().amax(-1)
+        near, moved = confmat_agrees(f"{name} K6", cm, lf, largs[5].reshape(T, p), slack)
         scale = torch.ones((), device=x.device) / wden
-        got = fh.final_head_loss_bwd(*largs, scale, patch_size=p, impl="pallas")
-        want = fh.final_head_loss_bwd_plain(*largs, scale, patch_size=p)
-        err, mae = check_grads(name, K7_GRADS, got, want)
-        again = fh.final_head_loss_bwd(*largs, scale, patch_size=p, impl="pallas")
+        got = fh.final_head_loss_bwd(*largs, scale, **kw, impl="pallas")
+        want = fh.final_head_loss_bwd_plain(*largs, scale, **kw)
+        err, mae = check_grads(f"{name} K7", K7_GRADS, got, want, tol)
+        again = fh.final_head_loss_bwd(*largs, scale, **kw, impl="pallas")
         if not all(torch.equal(g, a) for g, a in zip(got, again)):
             raise AssertionError(f"{name}: two K7 launches differ")
-        del got, want, again
-    log(f"{name} final_head_loss T={T} C={C}: loss {loss:.6f} plain {wloss:.6f} (rel "
-        f"{abs(loss - wloss) / abs(wloss):.2e}); confusion matrix: {moved} of {T * p} "
-        f"elements in another column, all near-ties ({near} near-tie elements); "
-        f"backward rel_l2 <= {err:.3e} max_abs {mae:.3e}, two launches bit-equal")
+        del lf, got, want, again
+    counted = {k: fh.launches[k + sfx] - before[k + sfx] for k in (
+        "final_head_predict", "final_head_loss", "final_head_loss_bwd")}
+    if counted != dict(final_head_predict=1, final_head_loss=1, final_head_loss_bwd=2):
+        raise AssertionError(f"{name}: launches counted {counted}")
+    log(f"{name} final_head_loss{sfx} T={T} C={C} F={tail[3].shape[1]} p={p}: K3 {m3} of "
+        f"{T * p} classes differ, all at near-ties ({n3}); loss {loss:.6f} plain "
+        f"{wloss:.6f} (rel {loss_rel:.2e}, sums rel {sums_rel:.2e}); confusion matrix: "
+        f"{moved} of {T * p} elements in another column, all near-ties ({near} near-tie "
+        f"elements); backward rel_l2 <= {err:.3e} max_abs {mae:.3e} (tol {tol}), two "
+        "launches bit-equal; counted K3 1, K6 1, K7 2")
     if not timing:
-        return {}
+        return dict(classes_differ=m3, near_ties=n3, loss=loss, plain_loss=wloss,
+                    loss_rel_err=loss_rel, sums_rel_err=sums_rel, confmat_moved=moved,
+                    near_tie_elements=near, rel_l2=err, max_abs_err=mae, scale=scale)
+    if f32:
+        raise ValueError(f"{name}: the f32 tail is timed by check_f32_loss_kernels")
     with torch.no_grad():
         check_tail_steps(name, largs, p, fh, scale)
         ms6 = median_ms(lambda: fh.final_head_loss_sums(*largs, patch_size=p, impl="pallas"))
@@ -1418,13 +1450,16 @@ def check_loss_kernels(name, largs, p, fh, timing=True):
                                       for name, (dev_ms, n) in per.items()}}
 
 
-def build_task(impl, dev, state=None, depth=False, cos=True, flat=False):
+def build_task(impl, dev, state=None, depth=False, cos=True, flat=False, embed=96,
+               heads=(3, 6, 12, 24)):
     """The paper model's segmentation task, or with ``depth`` its depth task (one
     output channel, the masked l2 loss, the paper depth run's data config: no
     transform, standardized, background masked); with ``cos`` False its blocks run
     scaled-dot attention instead of cosine (the JAX package's ablation ``no_cos``,
     ``benchmarks/ablate.py``); with ``flat`` the flat SWIN-UNet of bench.py's ``swin`` /
-    ``depth_swin`` cells (640 x 768, patch 2, window 8 x 8, shift 2, bf16, tanh GELU)."""
+    ``depth_swin`` cells (640 x 768, patch 2, window 8 x 8, shift 2, bf16, tanh GELU).
+    ``embed``, ``heads``: the HEALPix model's width and heads (the paper's 96, [3, 6, 12,
+    24] by default)."""
     from heal_swin_torch.models import tasks as T
     from heal_swin_torch.models.swin_hp import DataSpec, SwinHPTransformerConfig
 
@@ -1451,7 +1486,7 @@ def build_task(impl, dev, state=None, depth=False, cos=True, flat=False):
     # the paper model (heal_swin_tpu bench.py / __graft_entry__.py)
     cfg = SwinHPTransformerConfig(
         patch_size=4, window_size=WS, shift_size=4, shift_strategy="ring_shift",
-        rel_pos_bias="flat", embed_dim=96, depths=[2, 2, 6, 2], num_heads=[3, 6, 12, 24],
+        rel_pos_bias="flat", embed_dim=embed, depths=[2, 2, 6, 2], num_heads=list(heads),
         use_cos_attn=cos, use_v2_norm_placement=True, dtype="bfloat16", gelu_approx=True,
         fused_final_head=True, attention_impl=impl)
     npix = 8 * NSIDE * NSIDE
@@ -2839,11 +2874,10 @@ def device_ms(fn, n=SEQUENCE_TRACED):
 
 
 def check_f32_loss_kernels(largs, fh):
-    """The f32 K6 and K7 against their plain versions (f32, TF32 off) at the paper tail:
-    K6's sums within F32_TAIL_TOL relative and its confusion matrix equal outside
-    near-ties (``confmat_agrees``, slack F32_TAIL_TOL of the row's largest |logit|, at
-    least F32_TAIL_TOL); every K7 gradient within relative L2 F32_TAIL_TOL, two launches
-    bit-equal; each step of K7 (tile kernel, reduce_rows) against its plain twin on its
+    """The f32 K3, K6 and K7 against their plain versions (f32, TF32 off) at the paper
+    tail (``check_loss_kernels``: K6's sums and every K7 gradient within F32_TAIL_TOL,
+    the classes and the confusion matrix equal outside near-ties, two K7 launches
+    bit-equal); each step of K7 (tile kernel, reduce_rows) against its plain twin on its
     own input within F32_TAIL_TOL and K7 the steps composed bit for bit
     (``check_f32_bwd_steps``); and the probe that K7's tile kernel recomputes K6's f32
     logits bit for bit (the logits taps).  Then one call's time, its device time by
@@ -2854,24 +2888,10 @@ def check_f32_loss_kernels(largs, fh):
     T, C = x.shape
     p, F = TAIL_P, largs[4].shape[1]
     name = "paper tail f32"
+    e = check_loss_kernels(name, largs, p, fh, timing=False)
+    scale, err, mae = e["scale"], e["rel_l2"], e["max_abs_err"]
     with torch.no_grad():
-        num, den, cm, lf6 = fh.final_head_loss_sums(*largs, patch_size=p, impl="pallas",
-                                                     tap_logits=True)
-        wnum, wden, _ = fh.final_head_loss_plain(*largs, patch_size=p)
-        errs = [abs(float(a) - float(w)) / abs(float(w)) for a, w in ((num, wnum), (den, wden))]
-        if max(errs) > F32_TAIL_TOL:
-            raise AssertionError(f"{name}: K6 sums {float(num)}, {float(den)} vs plain "
-                                 f"{float(wnum)}, {float(wden)}")
-        lf = fh.final_head_logits_plain(x, *largs[1:5], patch_size=p)
-        slack = F32_TAIL_TOL * lf.abs().amax(-1).clamp_min(1.0)
-        near, moved = confmat_agrees(f"{name} K6", cm, lf, largs[5].reshape(T, p), slack)
-        scale = torch.ones((), device=x.device) / wden
-        got = fh.final_head_loss_bwd(*largs, scale, patch_size=p, impl="pallas")
-        want = fh.final_head_loss_bwd_plain(*largs, scale, patch_size=p)
-        err, mae = check_grads(f"{name} K7", K7_GRADS, got, want, F32_TAIL_TOL)
-        again = fh.final_head_loss_bwd(*largs, scale, patch_size=p, impl="pallas")
-        if not all(torch.equal(g, a) for g, a in zip(got, again)):
-            raise AssertionError(f"{name}: two K7 launches differ")
+        lf6 = fh.final_head_loss_sums(*largs, patch_size=p, impl="pallas", tap_logits=True)[3]
         lf7 = fh.final_head_loss_bwd_rows(*largs, scale, patch_size=p, impl="pallas",
                                           tap_logits=True)[-1]
         equal_bits(f"{name} probe: K7's recomputed logits vs K6's", lf7, lf6)
@@ -2881,14 +2901,10 @@ def check_f32_loss_kernels(largs, fh):
             lambda grid: fh.final_head_loss_bwd_rows_f32_plain(*largs, scale, patch_size=p,
                                                                grid=grid),
             lambda: fh.final_head_loss_bwd(*largs, scale, patch_size=p, impl="pallas"))
-        del got, want, again, lf, lf6, lf7
-        log(f"{name} K6 T={T} C={C} F={F}: sums rel err {errs[0]:.3e}, {errs[1]:.3e} "
-            f"(tol {F32_TAIL_TOL}); confusion matrix: {moved} of {T * p} elements in "
-            f"another column, all near-ties ({near} near-tie elements)")
-        log(f"{name} K7: every gradient rel_l2 <= {err:.3e} max_abs {mae:.3e} (tol "
-            f"{F32_TAIL_TOL}), two launches bit-equal; on {grid} blocks tile kernel rel_l2 "
-            f"<= {e_rows:.3e}, reduce_rows {e_red:.3e}, K7 the steps composed bit-equal; K7 "
-            f"recomputes K6's f32 logits bit for bit")
+        del lf6, lf7
+        log(f"{name} K7 on {grid} blocks: tile kernel rel_l2 <= {e_rows:.3e}, reduce_rows "
+            f"{e_red:.3e}, K7 the steps composed bit-equal; K7 recomputes K6's f32 logits "
+            "bit for bit")
         ms6 = median_ms(lambda: fh.final_head_loss_sums(*largs, patch_size=p, impl="pallas"))
         pms6 = median_ms(lambda: fh.final_head_loss_plain(*largs, patch_size=p))
         ms7 = median_ms(lambda: fh.final_head_loss_bwd(*largs, scale, patch_size=p,
@@ -2912,17 +2928,18 @@ def check_f32_loss_kernels(largs, fh):
     log(f"f32 K7 final_head_loss_bwd_f32 T={T} C={C} p={p} F={F}: kernel {ms7:.4f} ms "
         f"(device {dev7:.4f} ms) plain {pms7:.4f} ms f32 route {rms7:.4f} ms (device "
         f"{rdev7:.4f} ms; autograd on a saved graph, the forward not recomputed)")
-    loss, wloss = float(num / den), float(wnum / wden)
     return {("final_head_loss_f32", T, C): dict(
-                max_abs_err=abs(loss - wloss), sums_rel_err=max(errs), confmat_moved=moved,
-                near_tie_elements=near, ms=ms6, device_ms=dev6, plain_ms=pms6,
+                max_abs_err=abs(e["loss"] - e["plain_loss"]), sums_rel_err=e["sums_rel_err"],
+                confmat_moved=e["confmat_moved"], near_tie_elements=e["near_tie_elements"],
+                ms=ms6, device_ms=dev6, plain_ms=pms6,
                 route_ms=rms6, route_device_ms=rdev6),
             ("final_head_loss_bwd_f32", T, C): dict(
                 rel_l2=err, max_abs_err=mae, ms=ms7, device_ms=dev7, plain_ms=pms7,
                 route_ms=rms7, route_device_ms=rdev7)}
 
 
-def paper_task(impl, dev, state=None, depth=False, flat=False, overrides=None):
+def paper_task(impl, dev, state=None, depth=False, flat=False, overrides=None,
+               classes=PAPER_CLASSES, class_weights=None):
     """The paper segmentation config's task (``heal_swin_torch.run_configs``): f32 compute,
     dropout and attention dropout 0.1, DropPath 0.1, the SynWoodScape-large class
     weights, Adam at the paper rate, at nside 256; with ``depth`` the paper depth
@@ -2933,7 +2950,8 @@ def paper_task(impl, dev, state=None, depth=False, flat=False, overrides=None):
     (``run_configs.flat_seg_train_run``, ``depth_swin_train_run``: the copies of
     ``swin_synwoodscape_large_train_run_config.py`` and ``depth_swin_train_run_config.py``)
     at 640 x 768.  ``overrides``: fields set on the HEALPix segmentation config
-    (``paper_swin_hp_config``)."""
+    (``paper_swin_hp_config``); ``classes`` and ``class_weights``: its head and loss
+    weights (the SynWoodScape-large 8 and their weights by default)."""
     from heal_swin_torch.models import tasks as T
     from heal_swin_torch.models.swin_hp import DataSpec
     from heal_swin_torch.run_configs import (PAPER_LR, SYNWOODSCAPE_LARGE_WEIGHTS,
@@ -2961,8 +2979,8 @@ def paper_task(impl, dev, state=None, depth=False, flat=False, overrides=None):
             T.WoodscapeSegmenterSwinHPConfig(
                 paper_swin_hp_config(attention_impl=impl, **(overrides or {})),
                 optimizer_config=OptimizerConfig(learning_rate=PAPER_LR),
-                class_weights=list(SYNWOODSCAPE_LARGE_WEIGHTS)),
-            DataSpec(dim_in=npix, f_in=3, f_out=PAPER_CLASSES, base_pix=8), device=dev,
+                class_weights=list(class_weights or SYNWOODSCAPE_LARGE_WEIGHTS)),
+            DataSpec(dim_in=npix, f_in=3, f_out=classes, base_pix=8), device=dev,
             generator=gen)
     if state is None:
         with torch.no_grad():
@@ -3083,7 +3101,7 @@ def drive_paper_depth_train(dev, timed):
 
 
 def paper_step(label, task_k, task_p, imgs, targets, expected, timed, counted,
-               attn_dropout=True):
+               attn_dropout=True, steps=PAPER_STEPS):
     """A paper config's train step through the kernels (``task_k``, "auto") and through
     the plain path (``task_p``, "xla", the same weights), on the same batch and step
     generators.  Step 0 of each path through ``train_step``: every dropout mask the
@@ -3092,7 +3110,7 @@ def paper_step(label, task_k, task_p, imgs, targets, expected, timed, counted,
     where not), and their kept share to 0.9 within 3 standard deviations; the kernel
     path's launches are ``expected``; the two losses agree within PAPER_LOSS_TOL
     relative and every parameter gradient within relative L2 PAPER_GRAD_TOL.  Then
-    PAPER_STEPS more steps of each path, timed (images/s, peak memory above the
+    ``steps`` (PAPER_STEPS) more steps of each path, timed (images/s, peak memory above the
     resident), the loss falling on both, the metric state (``counted``: its count's key
     and what a step adds to it), and a trace of a kernel-path step (device time by
     kernel, idle share).  Returns the kernels' launches in step 0 of the kernel path:
@@ -3178,11 +3196,11 @@ def paper_step(label, task_k, task_p, imgs, targets, expected, timed, counted,
     del grads_k
 
     ips_k, mem_k, traj_k, mstates[0] = train_rate(task_k, opts[0], mstates[0], imgs,
-                                                  targets, 1, PAPER_STEPS)
+                                                  targets, 1, steps)
     ips_p, mem_p, traj_p, mstates[1] = train_rate(task_p, opts[1], mstates[1], imgs,
-                                                  targets, 1, PAPER_STEPS)
+                                                  targets, 1, steps)
     ips_k2, mem_k2, traj_k2, mstates[0] = train_rate(task_k, opts[0], mstates[0], imgs,
-                                                     targets, 1 + PAPER_STEPS, PAPER_STEPS)
+                                                     targets, 1 + steps, steps)
     resident = torch.cuda.memory_allocated() / 2 ** 30
     for path, traj in (("kernels", [loss_k0] + traj_k + traj_k2), ("plain", [loss_p0] + traj_p)):
         log(f"{label}: loss over {len(traj)} steps on one batch ({path}): "
@@ -3190,8 +3208,8 @@ def paper_step(label, task_k, task_p, imgs, targets, expected, timed, counted,
         if not (all(math.isfinite(v) for v in traj) and traj[-1] < traj[0]):
             raise AssertionError(f"{label} ({path}): the loss did not fall: {traj}")
     key, per_step = counted
-    for path, task, ms, n in (("kernels", task_k, mstates[0], 1 + 2 * PAPER_STEPS),
-                              ("plain", task_p, mstates[1], 1 + PAPER_STEPS)):
+    for path, task, ms, n in (("kernels", task_k, mstates[0], 1 + 2 * steps),
+                              ("plain", task_p, mstates[1], 1 + steps)):
         m = task.metric_compute(ms, "train_")
         if float(ms[key]) != n * per_step or not all(math.isfinite(v) for v in m.values()):
             raise AssertionError(f"{label} ({path}): metric state {float(ms[key])}, {m}")
@@ -3203,7 +3221,7 @@ def paper_step(label, task_k, task_p, imgs, targets, expected, timed, counted,
         f"GiB above the resident); resident {resident:.3f} GiB (both models' f32 weights, "
         f"their Adam state and the batch)")
 
-    state = dict(step=1 + 2 * PAPER_STEPS)
+    state = dict(step=1 + 2 * steps)
 
     def one_step():
         train_step(task_k, opts[0], mstates[0], imgs, targets,
@@ -5514,27 +5532,382 @@ def drive_flat_entry(dev, timed, root):
     return chamfer_run, chamfer
 
 
+# ------------------------------------------------ the decoder tail at every width
+WIDTH_T = 8192  # tokens of a width check: 64 tiles of 128 rows
+# (C, F, p) of the width checks: corners of the Pallas tails' domain (C % 16 == 8 at 8, 40
+# and 136, Swin-L's C 192, heads of 3, 25, 33 and 128 classes, patches of 1, 4 and 16; C
+# 192 with 128 classes is the wide route's largest shared memory) and the row cores' paper
+# widths C 96 and 128
+WIDTH_CASES = ((8, 3, 1), (40, 25, 4), (136, 128, 4), (192, 33, 16), (192, 128, 4),
+               (96, 10, 4), (128, 10, 4))
+# (C, kind, F, p) of the depth width checks: every kind and head at C 40 and 136, a patch
+# of 16, and the paper widths
+WIDTH_DEPTH_CASES = tuple((C, kind, F, 4) for C in (40, 136) for kind, F in DEPTH_CASES) + (
+    (40, "l2", 1, 16), (192, "nll", 2, 16), (96, "l2", 1, 4), (128, "nll", 2, 4))
+WIDTH_RUNS = 5  # timed calls of a width check's kernel and of its plain version
+SYN_CLASSES = 25  # SynWoodScape's own classes (synwoodscape_merge_classes.py merges them to 8)
+WIDE_EMBED, WIDE_HEADS = 128, (4, 8, 16, 32)  # Swin-B's width and heads
+WIDE_STEPS = 2  # timed steps of the embed-128 model's kernel path after its counted one
+TAIL_NAMES = {"predict": "final_head_predict", "loss": "final_head_loss",
+              "loss_bwd": "final_head_loss_bwd", "depth_loss": "final_head_depth_loss",
+              "depth_loss_bwd": "final_head_depth_loss_bwd"}
+
+
+def check_wide_smem(fh):
+    """The wide route's row kernel fits a block's shared memory at every shape the
+    wrappers admit: the library's figure (``hs_final_head_wide_smem``) for each of the
+    five kernels at every C % 8 up to 192 and every F up to 128 (depth: 1 and 2) is at
+    most KERNEL_SMEM_LIMIT.  Returns the largest figure per kernel."""
+    from heal_swin_torch import _build
+
+    lib = _build.lib()
+    worst = {}
+    for kernel, kind in fh.WIDE_KINDS.items():
+        fs = (1, 2) if kernel.startswith("depth") else range(1, fh.KERNEL_MAX_F + 1)
+        worst[kernel] = max(lib.hs_final_head_wide_smem(C, F, kind)
+                            for C in range(8, fh.KERNEL_MAX_C + 1, 8) for F in fs)
+    if max(worst.values()) > fh.KERNEL_SMEM_LIMIT:
+        raise AssertionError(f"wide route: shared memory above the limit: {worst}")
+    log(f"wide route: the most shared memory a row kernel asks for over the domain, by "
+        f"kernel: {worst} (limit {fh.KERNEL_SMEM_LIMIT})")
+    return worst
+
+
+def tail_work(kernel, T, C, F, p, f32):
+    """(FLOP, bytes) of one call of a tail kernel ("predict", "loss", "loss_bwd",
+    "depth_loss", "depth_loss_bwd") at T tokens, width C, F outputs, patch p, counted as
+    ``shape_work`` and ``f32_tail_work`` count the paper tails: the expand 2 T p C^2 and
+    the head 2 T p C F forward, three times the expand and (f32: three, bf16: two) times
+    the head backward; tokens read once (bf16 or f32), int32 targets and f32 weights or
+    f32 depth targets read once, the classes, predictions and dx written once, the f32
+    parameters and, backward, their gradients."""
+    tb = 4 if f32 else 2
+    weights = (p * C * C + C * F + 2 * C) * 4
+    fwd = 2 * T * p * C * C + 2 * T * p * C * F
+    if kernel == "predict":
+        return fwd, tb * T * C + 4 * T * p + weights
+    if kernel == "loss":
+        return fwd, tb * T * C + 8 * T * p + weights
+    if kernel == "depth_loss":
+        return fwd, tb * T * C + 4 * T * p + tb * T * p * F + weights
+    targets = 8 * T * p if kernel == "loss_bwd" else 4 * T * p
+    return (6 * T * p * C * C + (6 if f32 else 4) * T * p * C * F,
+            2 * tb * T * C + targets + 2 * weights)
+
+
+def tail_bound(kernel, T, C, F, p, f32):
+    """(bound ms, bound_by) of one call (``tail_work``) at the card's bf16 peak or, f32,
+    its 3xTF32 rate."""
+    flop, nbytes = tail_work(kernel, T, C, F, p, f32)
+    return bound(flop, nbytes, F32_TC_PEAK if f32 else BF16_PEAK)
+
+
+def width_inputs(gen, dev, T, C, F, p, dtype):
+    """Operands (x, we, gamma, beta, wh, y, welem) of a width check: x N(0, 1) in
+    ``dtype``, We N(0, 1 / C) (the expand keeps the tokens' scale), Wh N(0, 0.3^2),
+    targets uniform over the F classes, seeded positive class weights per element."""
+    rnd, _ = seeded_draws(gen, dev)
+    x = rnd(T, C).to(dtype)
+    we, wh = rnd(C, p * C, std=C ** -0.5), rnd(C, F, std=0.3)
+    g, b = 1.0 + rnd(C, std=0.1), rnd(C, std=0.1)
+    y = torch.randint(0, F, (T, p), generator=gen, dtype=torch.int32).to(dev)
+    welem = (0.5 + torch.rand(F, generator=gen)).to(dev)[y.long()]
+    return x, we, g, b, wh, y, welem
+
+
+def tail_route_name(fh, kernel, C, F, p, f32):
+    return "row core" if fh.row_core_takes(kernel, C, F, p, f32) else "wide"
+
+
+def check_width_tail(label, largs, p, fh):
+    """K3, K6 and K7 against their plain versions on ``largs`` (bf16 or f32, on whichever
+    route takes the shape: ``check_loss_kernels`` without its timing), then one call of
+    each and of its plain version (median of WIDTH_RUNS).  Returns per kernel (name, T,
+    C, F, p): the route, errors, ms, plain ms, bound."""
+    x, wh = largs[0], largs[4]
+    T, C = x.shape
+    F = wh.shape[1]
+    f32 = x.dtype == torch.float32
+    sfx = "_f32" if f32 else ""
+    e = check_loss_kernels(label, largs, p, fh, timing=False)
+    kw = dict(patch_size=p)
+    scale = e["scale"]
+    calls = {
+        "predict": (lambda: fh.final_head_predict(*largs[:5], **kw, impl="pallas"),
+                    lambda: fh.final_head_predict_plain(*largs[:5], **kw),
+                    dict(max_abs_err=0, differ=e["classes_differ"], near_ties=e["near_ties"])),
+        "loss": (lambda: fh.final_head_loss_sums(*largs, **kw, impl="pallas"),
+                 lambda: fh.final_head_loss_plain(*largs, **kw),
+                 dict(max_abs_err=abs(e["loss"] - e["plain_loss"]),
+                      loss_rel_err=e["loss_rel_err"], confmat_moved=e["confmat_moved"],
+                      near_tie_elements=e["near_tie_elements"])),
+        "loss_bwd": (lambda: fh.final_head_loss_bwd(*largs, scale, **kw, impl="pallas"),
+                     lambda: fh.final_head_loss_bwd_plain(*largs, scale, **kw),
+                     dict(max_abs_err=e["max_abs_err"], rel_l2=e["rel_l2"]))}
+    out = {}
+    with torch.no_grad():
+        for kernel, (fn, plain, errs) in calls.items():
+            b, by = tail_bound(kernel, T, C, F, p, f32)
+            out[(TAIL_NAMES[kernel] + sfx, T, C, F, p)] = dict(
+                errs, route=tail_route_name(fh, kernel, C, F, p, f32),
+                ms=median_ms(fn, WIDTH_RUNS, 1), plain_ms=median_ms(plain, WIDTH_RUNS, 1),
+                bound_ms=b, bound_by=by)
+    log(f"{label} routes: " + str({k[0]: v["route"] for k, v in out.items()}))
+    return out
+
+
+def check_width_depth(label, dargs, p, kind, fh):
+    """K8 and K9 against their plain versions on ``dargs`` (``check_depth_kernels``
+    without its timing: the count exact, the loss sum, the predictions and every
+    gradient within its dtype's limits; the launch counters show one launch of each),
+    then one call of each and of its plain version
+    (median of WIDTH_RUNS).  Returns per kernel (name, T, C, F, p, kind): the route,
+    errors, ms, plain ms, bound."""
+    x, wh = dargs[0], dargs[4]
+    T, C = x.shape
+    F = wh.shape[1]
+    f32 = x.dtype == torch.float32
+    sfx = "_f32" if f32 else ""
+    before = dict(fh.launches)
+    errs = check_depth_kernels(label, dargs, p, kind, fh, timing=False)
+    counted = {k: fh.launches[k + sfx] - before[k + sfx] for k in (
+        "final_head_depth_loss", "final_head_depth_loss_bwd")}
+    if counted != dict(final_head_depth_loss=1, final_head_depth_loss_bwd=1):
+        raise AssertionError(f"{label}: launches counted {counted}")
+    kw = dict(patch_size=p, loss_kind=kind, huber_delta=HUBER_DELTA)
+    scale = torch.ones((), device=x.device) / torch.isfinite(dargs[5]).sum().clamp_min(1)
+    out = {}
+    with torch.no_grad():
+        for kernel, fn, plain, e in (
+                ("depth_loss", lambda: fh.final_head_depth_loss_sums(*dargs, **kw, impl="pallas"),
+                 lambda: fh.final_head_depth_loss_plain(*dargs, **kw),
+                 dict(max_abs_err=errs["pred_max_abs"], rel_l2=errs["pred_rel_l2"],
+                      loss_sum_rel_err=errs["loss_sum_rel_err"])),
+                ("depth_loss_bwd",
+                 lambda: fh.final_head_depth_loss_bwd(*dargs, scale, **kw, impl="pallas"),
+                 lambda: fh.final_head_depth_loss_bwd_plain(*dargs, scale, **kw),
+                 dict(max_abs_err=errs["grad_max_abs"], rel_l2=errs["grad_rel_l2"]))):
+            b, by = tail_bound(kernel, T, C, F, p, f32)
+            out[(TAIL_NAMES[kernel] + sfx, T, C, F, p, kind)] = dict(
+                e, route=tail_route_name(fh, kernel, C, F, p, f32),
+                ms=median_ms(fn, WIDTH_RUNS, 1), plain_ms=median_ms(plain, WIDTH_RUNS, 1),
+                bound_ms=b, bound_by=by)
+    return out
+
+
+def time_width_path(label, largs, p, fh, kernels):
+    """One call of each of ``kernels`` ("predict", "loss", "loss_bwd") at a path's tail
+    (``largs``): ms (median of TIMING_RUNS), device ms (``device_ms``: ``spin_ms``, and by
+    kernel from a trace, logged), the plain version's ms, the composed PyTorch route's in
+    the tokens' dtype (``pred_route``, ``tail_route``; its backward autograd on a saved
+    graph), its device ms, and the bound.  Returns them per kernel name."""
+    x = largs[0]
+    T, C = x.shape
+    F = largs[4].shape[1]
+    f32 = x.dtype == torch.float32
+    sfx = "_f32" if f32 else ""
+    kw = dict(patch_size=p)
+    with torch.no_grad():
+        wnum, wden, _ = fh.final_head_loss_plain(*largs, **kw)
+    scale = torch.ones((), device=x.device) / wden
+    route_f, route_b = tail_route(largs, p, x.dtype)
+    routes = {"predict": pred_route(largs[:5], p, x.dtype), "loss": route_f,
+              "loss_bwd": route_b}
+    calls = {"predict": (lambda: fh.final_head_predict(*largs[:5], **kw, impl="pallas"),
+                         lambda: fh.final_head_predict_plain(*largs[:5], **kw)),
+             "loss": (lambda: fh.final_head_loss_sums(*largs, **kw, impl="pallas"),
+                      lambda: fh.final_head_loss_plain(*largs, **kw)),
+             "loss_bwd": (lambda: fh.final_head_loss_bwd(*largs, scale, **kw, impl="pallas"),
+                          lambda: fh.final_head_loss_bwd_plain(*largs, scale, **kw))}
+    out = {}
+    for kernel in kernels:
+        fn, plain = calls[kernel]
+        with torch.no_grad():
+            ms, pms = median_ms(fn), median_ms(plain)
+            by, dev_ms = device_ms(fn)
+        rms, rdev = median_ms(routes[kernel]), spin_ms(routes[kernel])
+        b, bound_by = tail_bound(kernel, T, C, F, p, f32)
+        name = TAIL_NAMES[kernel] + sfx
+        out[name] = dict(T=T, C=C, F=F, p=p, route=tail_route_name(fh, kernel, C, F, p, f32),
+                         ms=ms, device_ms=dev_ms, plain_ms=pms, route_ms=rms,
+                         route_device_ms=rdev, bound_ms=b, bound_by=bound_by)
+        log(f"{label} {name} T={T} C={C} F={F} p={p} ({out[name]['route']}): kernel "
+            f"{ms:.4f} ms (device {dev_ms:.4f} ms) plain {pms:.4f} ms route {rms:.4f} ms "
+            f"(device {rdev:.4f} ms), bound {b:.4f} ms ({bound_by})")
+        for kname, kms in sorted(by.items(), key=lambda kv: -kv[1]):
+            log(f"{label} {name} one call on the device: {kms:9.4f} ms  {kname[:100]}")
+    del routes, route_f, route_b
+    return out
+
+
+def drive_wide_train(dev, timed):
+    """Path (b): a bf16 HEAL-SWIN at Swin-B's width (embed 128, heads [4, 8, 16, 32], the
+    paper's depths, window 64, cosine attention, WoodScape's 10 classes; K1/K4 at the
+    stages of C <= 384, K2/K5 at C 512 and 1024) through the kernels and the plain path
+    on the same weights: every block on the plain path's input and upstream gradient
+    (``check_train_blocks``), the fused tail on the kernel path's own features
+    (``check_loss_kernels``: K6 on the row core, K7 at C 128, p 4 on the wide route), one
+    counted train step of each path (one K6 and one K7 at (T, 128), the attention kernels
+    22 forward and 22 backward, nothing else), then WIDE_STEPS timed steps of the kernel
+    path, the loss falling.  Returns (the step's launches per kernel and per shape, the
+    tail's timings)."""
+    from heal_swin_torch.models.tasks import decoder_tail
+    from heal_swin_torch.ops import final_head as fh
+    from heal_swin_torch.training.optimizer import OptimizerConfig, make_optimizer
+    from heal_swin_torch.training.trainer import step_generator, train_step
+
+    label = f"embed-{WIDE_EMBED} train"
+    task_k = build_task("auto", dev, embed=WIDE_EMBED, heads=WIDE_HEADS)
+    task_p = build_task("xla", dev, state=task_k.model.state_dict(), embed=WIDE_EMBED,
+                        heads=WIDE_HEADS)
+    imgs, targets = train_batch(dev)
+    loss0_p, feats = check_train_blocks(label, task_k, task_p, imgs, targets, dev)
+    y = task_k._kernel_targets(task_k.model, targets)
+    tail = (feats,) + decoder_tail(task_k.model) + (y, task_k.class_weights[y.long()])
+    check_loss_kernels(f"{label} tail", tail, 4, fh, timing=False)
+    times = time_width_path(label, tuple(t.detach() for t in tail), 4, fh, ("loss", "loss_bwd"))
+    del feats, tail
+    opt_cfg = OptimizerConfig(learning_rate=LEARNING_RATE)
+    opts = [make_optimizer(t.model.parameters(), opt_cfg) for t in (task_k, task_p)]
+    mstates = [t.metric_init() for t in (task_k, task_p)]
+    reset_counters()
+    loss_k0, mstates[0] = train_step(task_k, opts[0], mstates[0], imgs, targets,
+                                     step_generator(SEED, 0, dev))
+    torch.cuda.synchronize()
+    launches, by_shape = read_counters()
+    log(f"{label} step: kernel launches: {launches}")
+    log(f"{label} step: by shape: {dict(sorted(by_shape.items(), key=str))}")
+    T = imgs.shape[0] * imgs.shape[1] // TAIL_P
+    fwd = launches["window_attention_qkv_epi"] + launches["window_attention"]
+    bwd = launches["window_attention_qkv_epi_bwd"] + launches["window_attention_bwd"]
+    rest = {k: v for k, v in launches.items() if v and k not in (
+        "window_attention_qkv_epi", "window_attention", "window_attention_qkv_epi_bwd",
+        "window_attention_bwd", "final_head_loss", "final_head_loss_bwd")}
+    if (fwd, bwd) != (22, 22) or rest or by_shape[("final_head_loss", T, WIDE_EMBED)] != 1 \
+            or by_shape[("final_head_loss_bwd", T, WIDE_EMBED)] != 1 \
+            or launches["final_head_loss"] != 1 or launches["final_head_loss_bwd"] != 1:
+        raise AssertionError(f"{label}: launches {launches}")
+    loss_p0, _ = train_step(task_p, opts[1], mstates[1], imgs, targets,
+                            step_generator(SEED, 0, dev))
+    loss_k0, loss_p0 = float(loss_k0), float(loss_p0)
+    ips, mem, traj, _ = train_rate(task_k, opts[0], mstates[0], imgs, targets, 1, WIDE_STEPS)
+    traj = [loss_k0] + traj
+    log(f"{label}: first step's loss kernels {loss_k0:.6f} plain {loss_p0:.6f} (rel "
+        f"{abs(loss_k0 - loss_p0) / abs(loss_p0):.2e}); plain path before any step "
+        f"{loss0_p:.6f}; loss over {len(traj)} steps (kernels): "
+        + " ".join(f"{v:.6f}" for v in traj) + f"; {ips:.3f} img/s, peak {mem:.3f} GiB above "
+        "the resident")
+    if not (all(math.isfinite(v) for v in traj) and traj[-1] < traj[0]):
+        raise AssertionError(f"{label}: the loss did not fall: {traj}")
+    timed[f"{label} step"] = dict(ips=ips, mem_gib=mem)
+    return (launches, by_shape), times
+
+
+def drive_tail_widths(dev, timed):
+    """The decoder tail at every width the Pallas tails take.  First each of the ten
+    kernels (K3, K6-K9, bf16 and f32) against its plain version on the card at the width
+    checks' shapes (``WIDTH_CASES``, ``WIDTH_DEPTH_CASES``, T = WIDTH_T, each on the route
+    that takes it), one call of each timed beside its plain version.  Then the two paths:
+    (a) the paper f32 HEAL-SWIN (``paper_swin_hp_config``, its dropouts) on SynWoodScape's
+    own 25 classes with seeded positive class weights: its tail timed (``time_width_path``),
+    two train steps through ``paper_step`` against the plain path (equal masks, loss 1e-5,
+    gradients 1e-4, one f32 K6 and one f32 K7 at (T, 96) on the wide route, nothing else)
+    and one ``paper_predict`` (the f32 K3, classes outside near-ties); (b)
+    ``drive_wide_train``.  Returns (the grid's results by kernel, path (a)'s step
+    launches, its predict's, path (b)'s step launches, the paths' tail timings)."""
+    from heal_swin_torch.ops import final_head as fh
+
+    check_wide_smem(fh)
+    gen = torch.Generator().manual_seed(SEED + 28)
+    grid = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        who = "f32" if dtype == torch.float32 else "bf16"
+        for C, F, p in WIDTH_CASES:
+            largs = width_inputs(gen, dev, WIDTH_T, C, F, p, dtype)
+            grid.update(check_width_tail(f"widths {who}", largs, p, fh))
+        for C, kind, F, p in WIDTH_DEPTH_CASES:
+            x, we, g, b, wh, _, _ = width_inputs(gen, dev, WIDTH_T, C, F, p, dtype)
+            dargs = (x, we, g, b, wh, depth_targets(gen, WIDTH_T, p, dev, mean=1.0))
+            grid.update(check_width_depth(f"widths {who} depth", dargs, p, kind, fh))
+        torch.cuda.empty_cache()
+    by_kernel = collections.defaultdict(list)
+    for key, r in sorted(grid.items(), key=str):
+        fields = dict(zip(("T", "C", "F", "p", "kind"), key[1:]))
+        by_kernel[key[0]].append(dict(fields, **r))
+    log("tail widths checks: " + json.dumps(by_kernel))
+
+    # (a) the paper f32 config on SynWoodScape's 25 classes
+    times = time_width_path("(a) f32 25 classes tail", width_inputs(
+        torch.Generator().manual_seed(SEED + 29), dev, BATCH * 8 * NSIDE * NSIDE // TAIL_P, 96,
+        SYN_CLASSES, TAIL_P, torch.float32), TAIL_P, fh, ("predict", "loss", "loss_bwd"))
+    torch.cuda.empty_cache()
+    weights = (0.5 + torch.rand(SYN_CLASSES, generator=torch.Generator().manual_seed(SEED + 30)))
+    kw = dict(classes=SYN_CLASSES, class_weights=weights.tolist())
+    task_k = paper_task("auto", dev, **kw)
+    task_p = paper_task("xla", dev, state=task_k.model.state_dict(), **kw)
+    imgs, _ = train_batch(dev)
+    targets = torch.clamp(((imgs[..., 0] + 2.5) * SYN_CLASSES / 5).long(), 0,
+                          SYN_CLASSES - 1).to(torch.int32)
+    run_a = paper_step("(a) paper train 25 classes", task_k, task_p, imgs, targets,
+                       dict(NO_LAUNCHES, final_head_loss_f32=1, final_head_loss_bwd_f32=1),
+                       timed, ("total", targets.numel()), steps=1)
+    task_p.model.load_state_dict(task_k.model.state_dict())
+    for t in (task_k, task_p):
+        t.model.zero_grad(set_to_none=True)
+    pred_a = paper_predict("(a) paper 25 classes", task_k, task_p, imgs, timed, False)
+    del task_k, task_p
+    torch.cuda.empty_cache()
+    # (b) the bf16 model at embed 128
+    run_b, times_b = drive_wide_train(dev, timed)
+    times.update(times_b)
+    torch.cuda.empty_cache()
+    return by_kernel, run_a, pred_a, run_b, times
+
+
+def width_results(by_kernel, run_a, pred_a, run_b, times):
+    """The results line's rows of the new tail shapes on the paths: "widths <kernel>" for
+    the f32 K3, K6 and K7 at path (a)'s tail and the bf16 K6 and K7 at path (b)'s, each
+    with its launches in that path's counted step or predict, one call's times there
+    (``time_width_path``), and the largest error of its width checks (``by_kernel``)."""
+    rows = []
+    for name, run in (("final_head_predict_f32", pred_a), ("final_head_loss_f32", run_a),
+                      ("final_head_loss_bwd_f32", run_a), ("final_head_loss", run_b),
+                      ("final_head_loss_bwd", run_b)):
+        launches, _ = run
+        t = times[name]
+        src = ("heal_swin_torch/csrc/final_head_wide.cu" if t["route"] == "wide"
+               else SOURCES[name][0])
+        rows.append(dict(
+            name=f"widths {name}", route="cuda", source=src, replaces=SOURCES[name][1],
+            launches=launches[name], max_abs_err=max(r["max_abs_err"] for r in by_kernel[name]),
+            ms=t["ms"] * launches[name], plain_ms=t["plain_ms"] * launches[name],
+            bound_ms=t["bound_ms"] * launches[name], bound_by=t["bound_by"], library_ms=None,
+            route_ms=t["route_ms"] * launches[name], device_ms=t["device_ms"] * launches[name],
+            shape=dict(T=t["T"], C=t["C"], F=t["F"], p=t["p"], route=t["route"])))
+    return rows
+
+
 GATE_NSIDE = 32  # 512 tokens an image at the second stage: one 64-token window per base pixel
 
 
 def refuse_f32_tails(dev):
     """The f32 tails the kernels do not take, on CUDA tensors: the f32 K3, K8 and K9 on
-    a tail of C 48 (their instantiations: C 32, 64, 96, 128) raise under "auto" and
-    "pallas" before any launch, naming the kernel and impl="xla"; under "xla" they run
-    their plain versions with no launch."""
+    a tail of C 200 (the kernels take C % 8 up to 192; the JAX gate has no bound on C)
+    raise under "auto" and "pallas" before any launch, naming the kernel and impl="xla";
+    under "xla" they run their plain versions with no launch."""
     from heal_swin_torch.ops import final_head as fh
 
     rnd, _ = seeded_draws(torch.Generator().manual_seed(SEED + 19), dev)
-    T, p = 64 * 8, TAIL_P
-    pred = (rnd(T, 48), rnd(48, p * 48, std=0.1), 1.0 + rnd(48, std=0.1), rnd(48, std=0.1),
-            rnd(48, PAPER_CLASSES, std=0.3))
-    d48 = (rnd(T, 48), rnd(48, p * 48, std=0.1), 1.0 + rnd(48, std=0.1), rnd(48, std=0.1),
-           rnd(48, 1, std=0.1), depth_targets(torch.Generator().manual_seed(SEED), T, p, dev))
+    T, p, C = 64 * 8, TAIL_P, 200
+    pred = (rnd(T, C), rnd(C, p * C, std=0.1), 1.0 + rnd(C, std=0.1), rnd(C, std=0.1),
+            rnd(C, PAPER_CLASSES, std=0.3))
+    wide = (rnd(T, C), rnd(C, p * C, std=0.1), 1.0 + rnd(C, std=0.1), rnd(C, std=0.1),
+            rnd(C, 1, std=0.1), depth_targets(torch.Generator().manual_seed(SEED), T, p, dev))
     one = torch.ones((), device=dev)
     kw = dict(patch_size=p, loss_kind="l2")
     cases = (("K3", lambda impl: fh.final_head_predict(*pred, patch_size=p, impl=impl)),
-             ("K8", lambda impl: fh.final_head_depth_loss_sums(*d48, **kw, impl=impl)),
-             ("K9", lambda impl: fh.final_head_depth_loss_bwd(*d48, one, **kw, impl=impl)))
+             ("K8", lambda impl: fh.final_head_depth_loss_sums(*wide, **kw, impl=impl)),
+             ("K9", lambda impl: fh.final_head_depth_loss_bwd(*wide, one, **kw, impl=impl)))
     reset_counters()
     for who, call in cases:
         for impl in ("auto", "pallas"):
@@ -5553,7 +5926,7 @@ def refuse_f32_tails(dev):
     launches, _ = read_counters()
     if any(launches.values()):
         raise AssertionError(f"refusal f32 tails: kernels launched: {launches}")
-    log("refusal f32 tails: the f32 K3 and K8/K9 at C 48 raised under \"auto\" and "
+    log("refusal f32 tails: the f32 K3 and K8/K9 at C 200 raised under \"auto\" and "
         "\"pallas\" with no launch, naming the kernel and impl='xla'; \"xla\" ran their "
         "plain versions with no launch")
 
@@ -5640,12 +6013,12 @@ def drive_refusal(dev):
     f32 small models (``refusal_model`` at window 64, no dropout) that the f32 window-
     attention kernels run both ways: scaled-dot (the config default) and cosine in
     training, held to "xla" (``f32_small_model_through_kernels``).  Then what the kernels
-    still refuse: a bf16 window-16 model with 40 classes (more than K3/K6/K7's 32 lanes),
-    whose first block's K16 refuses the window under "auto" and "pallas" in a loss and a
-    predict before any launch, naming attention_impl="xla", which runs a loss with its
-    backward and a predict with no launch, finite and of the expected shapes; the tail
-    wrappers alone (``refuse_f32_tails``: an f32 tail at C 48, which the f32 K3 and K8/K9
-    have no instantiation for); and the MLP kernels on f16 tokens
+    still refuse: a bf16 window-16 model with 40 classes (a head the tail kernels take
+    since their wide route), whose first block's K16 refuses the window under "auto" and
+    "pallas" in a loss and a predict before any launch, naming attention_impl="xla",
+    which runs a loss with its backward and a predict with no launch, finite and of the
+    expected shapes; the tail wrappers alone (``refuse_f32_tails``: an f32 tail at C 200,
+    above the kernels' 192); and the MLP kernels on f16 tokens
     (``refuse_f16_fused_mlp``)."""
     npix = 8 * GATE_NSIDE * GATE_NSIDE
     imgs = torch.randn(BATCH, npix, 3, generator=torch.Generator().manual_seed(SEED + 9)).to(dev)
@@ -6077,6 +6450,9 @@ def main() -> int:
     t_f32_mlp = time.perf_counter()
     f32_mlp_blocks_run, f32_mlp_step_run = drive_f32_mlp(dev, timed)
     torch.cuda.empty_cache()
+    t_widths = time.perf_counter()
+    widths = drive_tail_widths(dev, timed)
+    torch.cuda.empty_cache()
     t_fit = time.perf_counter()
     drive_fit(dev, timed)
     torch.cuda.empty_cache()
@@ -6102,7 +6478,8 @@ def main() -> int:
         f"{t_paper - t_flat:.1f} s, the paper-config phase "
         f"{t_depth - t_paper:.1f} s, the paper depth phase {t_eval - t_depth:.1f} s, the "
         f"paper eval phase {t_f32_train - t_eval:.1f} s, the f32 attention training phase "
-        f"{t_f32_mlp - t_f32_train:.1f} s, the f32 MLP phase {t_fit - t_f32_mlp:.1f} s, "
+        f"{t_f32_mlp - t_f32_train:.1f} s, the f32 MLP phase {t_widths - t_f32_mlp:.1f} s, "
+        f"the tail widths phase {t_fit - t_widths:.1f} s, "
         f"the fit phase {t_flat_paper - t_fit:.1f} s, "
         f"the flat paper phase {t_entry - t_flat_paper:.1f} s, "
         f"the run-entry phase {t_evaluate - t_entry:.1f} s, the evaluation phase "
@@ -6144,6 +6521,10 @@ def main() -> int:
         flat_runs[name] = flat_paper_predict_run
     flat_runs["chamfer_min_both"] = flat_runs["chamfer_fold_pairs"] = flat_chamfer_run
     kernels = kernel_results(timed, runs, chamfer, flat_runs, flat_chamfer)
+    for row in kernels:  # the ten tail kernels' width checks beside their paper rows
+        if row["name"] in widths[0]:
+            row["widths"] = widths[0][row["name"]]
+    kernels += width_results(*widths)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

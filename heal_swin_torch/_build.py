@@ -83,6 +83,9 @@ _SIGNATURES = {
     "hs_final_head_loss_bwd_f32_smem": ([_I] * 3, ctypes.c_size_t),
     "hs_final_head_loss_bwd_f32_grid": ([_I] * 4, _I),
     "hs_final_head_loss_bwd_f32_workspace": ([_I] * 4, ctypes.c_size_t),
+    "hs_final_head_wide": ([_I] * 2 + [_P] * 17 + [_I] * 5 + [_F] * 2 + [_P], _I),
+    "hs_final_head_wide_workspace": ([_I] * 6, ctypes.c_size_t),
+    "hs_final_head_wide_smem": ([_I] * 3, ctypes.c_size_t),
     "hs_reduce_rows": ([_P] * 3 + [_I] * 2 + [_P], _I),
     "hs_reduce_rows_workspace": ([_I] * 2, ctypes.c_size_t),
     "hs_gemm_tn": ([_P] * 4 + [_I] * 3 + [_P], _I),

@@ -308,7 +308,7 @@ struct GemmTile {
   static constexpr size_t SMEM = size_t(GM_STAGES) * STAGE * sizeof(float);
 };
 
-template <bool AT, bool BT, class Epi = EpiBias>
+template <bool AT, bool BT, class Epi = EpiBias, bool KTAIL = false>
 __global__ void __launch_bounds__(GM_THREADS, 2)
 gemm_3xtf32_kernel(const float* __restrict__ A, const float* __restrict__ B,
                    const float* __restrict__ bias, float* out, float* aux, int M, int N,
@@ -331,12 +331,12 @@ gemm_3xtf32_kernel(const float* __restrict__ A, const float* __restrict__ B,
       const int i = tid + j * GM_THREADS;
       if constexpr (AT) {  // k row r (32), m chunk ch (32)
         const int r = i >> 5, ch = i & 31;
-        const bool ok = m0 + ch * 4 < M;
+        const bool ok = m0 + ch * 4 < M && (!KTAIL || k0 + r < kend);
         cp_async16_zfill(As + r * L::LDA + ch * 4,
                          ok ? A + size_t(k0 + r) * M + m0 + ch * 4 : A, ok);
       } else {  // m row r (128), k chunk ch (8)
         const int r = i >> 3, ch = i & 7;
-        const bool ok = m0 + r < M;
+        const bool ok = m0 + r < M && (!KTAIL || k0 + ch * 4 < kend);
         cp_async16_zfill(As + r * L::LDA + ch * 4,
                          ok ? A + size_t(m0 + r) * K + k0 + ch * 4 : A, ok);
       }
@@ -346,12 +346,12 @@ gemm_3xtf32_kernel(const float* __restrict__ A, const float* __restrict__ B,
       const int i = tid + j * GM_THREADS;
       if constexpr (BT) {  // n row r (96), k chunk ch (8)
         const int r = i >> 3, ch = i & 7;
-        const bool ok = n0 + r < N;
+        const bool ok = n0 + r < N && (!KTAIL || k0 + ch * 4 < kend);
         cp_async16_zfill(Bs + r * L::LDB + ch * 4,
                          ok ? B + size_t(n0 + r) * K + k0 + ch * 4 : B, ok);
       } else {  // k row r (32), n chunk ch (24)
         const int r = i / 24, ch = i % 24;
-        const bool ok = n0 + ch * 4 < N;
+        const bool ok = n0 + ch * 4 < N && (!KTAIL || k0 + r < kend);
         cp_async16_zfill(Bs + r * L::LDB + ch * 4,
                          ok ? B + size_t(k0 + r) * N + n0 + ch * 4 : B, ok);
       }
@@ -364,7 +364,8 @@ gemm_3xtf32_kernel(const float* __restrict__ A, const float* __restrict__ B,
 #pragma unroll
     for (int b = 0; b < GM_NT; ++b) acc[a][b][0] = acc[a][b][1] = acc[a][b][2] = acc[a][b][3] = 0.f;
 
-  const int KT = kend > kbeg ? (kend - kbeg) / GM_BK : 0;
+  // KTAIL: a last slice of fewer than 32 k, its missing k zero-filled (K % 4 == 0)
+  const int KT = kend > kbeg ? (kend - kbeg + (KTAIL ? GM_BK - 1 : 0)) / GM_BK : 0;
 #pragma unroll
   for (int s = 0; s < GM_STAGES - 1; ++s) {
     if (s < KT) load(s, kbeg + s * GM_BK);
@@ -444,18 +445,18 @@ gemm_3xtf32_kernel(const float* __restrict__ A, const float* __restrict__ B,
   }
 }
 
-template <bool AT, bool BT, class Epi = EpiBias>
+template <bool AT, bool BT, class Epi = EpiBias, bool KTAIL = false>
 inline cudaError_t gemm_f32_launch(const float* A, const float* B, const float* bias,
                                    float* out, int M, int N, int K, int splits, int kchunk,
                                    cudaStream_t s, float* aux = nullptr) {
   static std::atomic<unsigned> done{0};
   const size_t smem = GemmTile<AT, BT>::SMEM;
-  const cudaError_t e =
-      smem_opt_in(reinterpret_cast<const void*>(gemm_3xtf32_kernel<AT, BT, Epi>), smem, done);
+  const cudaError_t e = smem_opt_in(
+      reinterpret_cast<const void*>(gemm_3xtf32_kernel<AT, BT, Epi, KTAIL>), smem, done);
   if (e != cudaSuccess) return e;
   const dim3 grid((N + GM_BN - 1) / GM_BN, (M + GM_BM - 1) / GM_BM, splits);
-  gemm_3xtf32_kernel<AT, BT, Epi><<<grid, GM_THREADS, smem, s>>>(A, B, bias, out, aux, M, N, K,
-                                                                 kchunk);
+  gemm_3xtf32_kernel<AT, BT, Epi, KTAIL><<<grid, GM_THREADS, smem, s>>>(A, B, bias, out, aux, M,
+                                                                        N, K, kchunk);
   return cudaGetLastError();
 }
 
@@ -475,6 +476,20 @@ inline cudaError_t gemm_nt_f32(const float* A, const float* B, float* out, int M
                                cudaStream_t s, float* aux = nullptr) {
   if (M % 64 || K % GM_BK || N % 4 || M <= 0 || N <= 0 || K <= 0) return cudaErrorInvalidValue;
   return gemm_f32_launch<false, true, Epi>(A, B, nullptr, out, M, N, K, 1, K, s, aux);
+}
+
+// gemm_nn_f32 and gemm_nt_f32 for any K % 4 == 0 (the decoder tail's wide route: K = C
+// or p C, C % 8 == 0): the last 32-k slice zero-filled past K
+inline cudaError_t gemm_nn_f32_any_k(const float* A, const float* B, float* out, int M, int N,
+                                     int K, cudaStream_t s) {
+  if (M % 64 || K % 4 || N % 4 || M <= 0 || N <= 0 || K <= 0) return cudaErrorInvalidValue;
+  return gemm_f32_launch<false, false, EpiBias, true>(A, B, nullptr, out, M, N, K, 1, K, s);
+}
+
+inline cudaError_t gemm_nt_f32_any_k(const float* A, const float* B, float* out, int M, int N,
+                                     int K, cudaStream_t s) {
+  if (M % 64 || K % 4 || N % 4 || M <= 0 || N <= 0 || K <= 0) return cudaErrorInvalidValue;
+  return gemm_f32_launch<false, true, EpiBias, true>(A, B, nullptr, out, M, N, K, 1, K, s);
 }
 
 constexpr int GEMM_TN_CHUNK = 2048;  // tokens of a split, at most 128 splits

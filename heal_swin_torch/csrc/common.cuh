@@ -163,7 +163,7 @@ cudaError_t reduce_rows(const float* in, float* out, int R, int N, float* tmp,
                         cudaStream_t stream);
 
 // out (M x N, row-major f32) = A^T B over K rows: A (K x M) and B (K x N) row-major
-// bf16, K % 64 == 0, M % 16 == 0, N % 16 == 0; split over K, then reduce_rows.
+// bf16, K % 64 == 0, M % 8 == 0, N % 8 == 0; split over K, then reduce_rows.
 // ``tmp`` holds gemm_tn_tmp_floats(K, M, N) floats.
 size_t gemm_tn_tmp_floats(int K, int M, int N);
 cudaError_t gemm_tn(const bf16* A, const bf16* B, float* out, int K, int M, int N,
@@ -173,5 +173,9 @@ cudaError_t gemm_tn(const bf16* A, const bf16* B, float* out, int K, int M, int 
 // f32 sums; M % 64 == 0, N % 8 == 0, K % 32 == 0, rows 16-byte aligned.
 cudaError_t gemm_nt(const bf16* A, const bf16* B, bf16* out, int M, int N, int K,
                     cudaStream_t stream);
+
+// the same for any K % 8 == 0 (and N % 8 == 0), the last 32-column slice zero-filled
+cudaError_t gemm_nt_any_k(const bf16* A, const bf16* B, bf16* out, int M, int N, int K,
+                          cudaStream_t stream);
 
 }  // namespace hs

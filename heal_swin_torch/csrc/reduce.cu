@@ -78,6 +78,7 @@ gemm_tn_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
                float* __restrict__ part, int K, int M, int N, int chunk) {
   __shared__ __align__(128) bf16 As[GK * LDG];
   __shared__ __align__(128) bf16 Bs[GK * LDG];
+  __shared__ __align__(128) float edge[kWarps][256];  // a partial output tile's staging
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int m0 = blockIdx.x * GT;
@@ -90,7 +91,7 @@ gemm_tn_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
   wmma::fill_fragment(acc[0], 0.f);
   wmma::fill_fragment(acc[1], 0.f);
   // each thread stages one 16-byte chunk of A and of B per step (32 rows x 8 chunks);
-  // M and N are multiples of 16, so a chunk is wholly inside or wholly outside
+  // M and N are multiples of 8, so a chunk is wholly inside or wholly outside
   const int lr = tid >> 3;
   const int lc = (tid & 7) * 8;
   for (int k = k0; k < k1; k += GK) {
@@ -119,8 +120,18 @@ gemm_tn_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
   for (int j = 0; j < 2; ++j) {
     const int m = m0 + rt * 16;
     const int n = n0 + (ct0 + j) * 16;
-    if (m < M && n < N)
+    if (m + 16 <= M && n + 16 <= N) {
       wmma::store_matrix_sync(out + size_t(m) * N + n, acc[j], N, wmma::mem_row_major);
+    } else if (m < M && n < N) {  // M or N % 16 == 8: the tile's rows / columns that exist
+      wmma::store_matrix_sync(edge[warp], acc[j], 16, wmma::mem_row_major);
+      __syncwarp();
+      const int lane = tid & 31;
+      for (int e = lane; e < 256; e += 32) {
+        const int r = e >> 4, c = e & 15;
+        if (m + r < M && n + c < N) out[size_t(m + r) * N + n + c] = edge[warp][e];
+      }
+      __syncwarp();
+    }
   }
 }
 
@@ -133,7 +144,10 @@ constexpr int NT_STAGES = 3;
 constexpr size_t kGemmNtSmem = size_t(NT_STAGES) * (NT_BM + NT_BN) * NT_LD * 2;
 
 // grid (ceil(M / 128), ceil(N / 96)): out[m0:m0+128, n0:n0+96] = A[m0:m0+128] B[n0:n0+96]^T;
-// M % 64 == 0, so a block has 128 rows or, at the end, 64 (warps 2-3 then only copy)
+// M % 64 == 0, so a block has 128 rows or, at the end, 64 (warps 2-3 then only copy).
+// KTAIL: K % 8 == 0 only, the last 32-column slice zero-filled past K (the decoder tail's
+// wide route, K = C or p C)
+template <bool KTAIL>
 __global__ void __launch_bounds__(kCoreThreads)
 gemm_nt_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, bf16* __restrict__ out,
                int M, int N, int K) {
@@ -148,7 +162,7 @@ gemm_nt_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, bf16* __r
   const int rows_a = min(NT_BM, M - m0);
   const int rows_b = min(NT_BN, N - n0);  // B rows (output columns) of this block
   const int nt = rows_b / 8;
-  const int nk = K / NT_BK;
+  const int nk = KTAIL ? (K + NT_BK - 1) / NT_BK : K / NT_BK;
   const bool active = row0 < rows_a;
 
   auto stage = [&](int k) {  // slice k into its ring stage; the caller commits
@@ -158,11 +172,13 @@ gemm_nt_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, bf16* __r
     const int k0 = k * NT_BK;
     for (int idx = tid; idx < rows_a * 4; idx += kCoreThreads) {
       const int r = idx >> 2, c = (idx & 3) * 8;
-      cp_async16(as + r * NT_LD + c, A + size_t(m0 + r) * K + k0 + c);
+      if (!KTAIL || k0 + c < K) cp_async16(as + r * NT_LD + c, A + size_t(m0 + r) * K + k0 + c);
+      else *reinterpret_cast<uint4*>(as + r * NT_LD + c) = make_uint4(0, 0, 0, 0);
     }
     for (int idx = tid; idx < rows_b * 4; idx += kCoreThreads) {
       const int r = idx >> 2, c = (idx & 3) * 8;
-      cp_async16(bs + r * NT_LD + c, B + size_t(n0 + r) * K + k0 + c);
+      if (!KTAIL || k0 + c < K) cp_async16(bs + r * NT_LD + c, B + size_t(n0 + r) * K + k0 + c);
+      else *reinterpret_cast<uint4*>(bs + r * NT_LD + c) = make_uint4(0, 0, 0, 0);
     }
   };
 
@@ -260,14 +276,27 @@ cudaError_t gemm_tn(const bf16* A, const bf16* B, float* out, int K, int M, int 
   return reduce_rows(tmp, out, S, M * N, tmp + size_t(S) * M * N, stream);
 }
 
-cudaError_t gemm_nt(const bf16* A, const bf16* B, bf16* out, int M, int N, int K,
-                    cudaStream_t stream) {
+template <bool KTAIL>
+cudaError_t gemm_nt_launch(const bf16* A, const bf16* B, bf16* out, int M, int N, int K,
+                           cudaStream_t stream) {
   static std::atomic<unsigned> done{0};
-  cudaError_t e = smem_opt_in(reinterpret_cast<const void*>(gemm_nt_kernel), kGemmNtSmem, done);
+  cudaError_t e =
+      smem_opt_in(reinterpret_cast<const void*>(gemm_nt_kernel<KTAIL>), kGemmNtSmem, done);
   if (e != cudaSuccess) return e;
   const dim3 grid((M + NT_BM - 1) / NT_BM, (N + NT_BN - 1) / NT_BN);
-  gemm_nt_kernel<<<grid, kCoreThreads, kGemmNtSmem, stream>>>(A, B, out, M, N, K);
+  gemm_nt_kernel<KTAIL><<<grid, kCoreThreads, kGemmNtSmem, stream>>>(A, B, out, M, N, K);
   return cudaGetLastError();
+}
+
+cudaError_t gemm_nt(const bf16* A, const bf16* B, bf16* out, int M, int N, int K,
+                    cudaStream_t stream) {
+  return gemm_nt_launch<false>(A, B, out, M, N, K, stream);
+}
+
+cudaError_t gemm_nt_any_k(const bf16* A, const bf16* B, bf16* out, int M, int N, int K,
+                          cudaStream_t stream) {
+  if (M % 64 || N % 8 || K % 8 || M <= 0 || N <= 0 || K <= 0) return cudaErrorInvalidValue;
+  return gemm_nt_launch<true>(A, B, out, M, N, K, stream);
 }
 
 }  // namespace hs

@@ -8,15 +8,17 @@ With ``fused_final_head`` the decoder tail runs fused: training hands the tokens
 writing logits to be read back: weighted CE and the step's confusion matrix for
 segmentation (K6 forward, K7 backward), the masked depth loss and the bf16
 predictions for depth (K8 forward, K9 backward).  Segmentation predict hands the
-tokens to the argmax kernel (K3); depth predict runs the unfused tail.  The depth task
-takes its fused route where ``ops.final_head.depth_route_takes`` admits the tail's
-shapes, as the JAX task does.  A sample mask (eval padding, ``training.trainer``) sends
-the segmentation loss to the unfused tail, as the JAX task's gate does (K6's confusion
-matrix counts every element); the depth loss keeps its fused tail with the padded
-samples' targets set to inf.  K3 and K6-K9 take bf16 and f32 tokens (a float32 config's
-tail runs their f32 kernels).  On the card a fused tail the kernels do not take (a
-dtype they lack, a width without an instantiation) raises, naming the kernel, and
-``attention_impl="xla"`` runs the plain versions.  The flat segmentation task runs the
+tokens to the argmax kernel (K3); depth predict runs the unfused tail.  Each task takes
+its fused route exactly where the JAX task's gate does: ``ops.final_head.supported``
+(segmentation, loss and predict) and ``supported_depth`` (depth) on the
+tokens of one sample, the model's embed width, the classes or output channels, the
+patch and the compute dtype; elsewhere the unfused tail runs, as the JAX model runs
+it.  A sample mask (eval padding, ``training.trainer``) sends the segmentation loss to
+the unfused tail, as the JAX task's gate does (K6's confusion matrix counts every
+element); the depth loss keeps its fused tail with the padded samples' targets set to
+inf.  K3 and K6-K9 take bf16 and f32 tokens at every width the gates admit up to C
+192 (``ops.final_head.kernels_take``); on the card a fused tail above it raises,
+naming the kernel, and ``attention_impl="xla"`` runs the plain versions.  The flat segmentation task runs the
 same tail kernels with p = p1 * p2 on targets rearranged into their row layout; the flat
 depth task's tail is always unfused, as the JAX task's gate leaves it.
 """
@@ -42,10 +44,11 @@ from heal_swin_torch.evaluation import metrics as M
 from heal_swin_torch.models.swin_flat import SwinTransformerConfig, SwinTransformerSys
 from heal_swin_torch.models.swin_hp import SwinHPTransformerConfig, SwinHPTransformerSys
 from heal_swin_torch.ops.final_head import (
-    depth_route_takes,
     final_head_depth_loss,
     final_head_loss,
     final_head_predict,
+    supported,
+    supported_depth,
 )
 from heal_swin_torch.training import losses as L
 from heal_swin_torch.training.losses import weighted_cross_entropy
@@ -137,6 +140,20 @@ class WoodscapeSegmenterSwinHP:
         """The tail kernel's (B*T, p) classes -> the unfused predict shape (B, npix)."""
         return preds.reshape(B, -1)
 
+    def _fused_geometry(self, model):
+        """(tokens of one sample, sub-pixels of a token) of the decoder tail."""
+        p = model.config.patch_size
+        return self.data_spec.dim_in // p, p
+
+    def _fused_tail_ok(self, model, sample_mask=None):
+        """The JAX task's gate of the fused tail (loss and predict): the config flag on,
+        no sample mask, and ``supported`` on one sample's tokens."""
+        cfg = model.config
+        if not cfg.fused_final_head or sample_mask is not None:
+            return False
+        T, p = self._fused_geometry(model)
+        return supported(T, cfg.embed_dim, self.num_classes, p, cfg.compute_dtype)
+
     def loss_fn(self, imgs, targets, generator: Optional[torch.Generator] = None,
                 deterministic: bool = True, sample_mask=None):
         """(B, npix, f_in) images and (B, npix) int targets -> (loss, outputs).
@@ -155,7 +172,7 @@ class WoodscapeSegmenterSwinHP:
         targets = torch.as_tensor(targets, device=device)
         if sample_mask is not None:
             sample_mask = torch.as_tensor(sample_mask, device=device)
-        if cfg.fused_final_head and sample_mask is None:
+        if self._fused_tail_ok(model, sample_mask):
             feats = model(imgs, tail=False, generator=generator)  # (B, N, C)
             B, N, C = feats.shape
             y = self._kernel_targets(model, targets).to(torch.int32)
@@ -177,7 +194,7 @@ class WoodscapeSegmenterSwinHP:
         cfg = model.config
         device = next(model.parameters()).device
         imgs = torch.as_tensor(imgs, device=device)
-        if not cfg.fused_final_head:
+        if not self._fused_tail_ok(model):
             return torch.argmax(model(imgs), dim=-1).to(torch.int32)
         feats = model(imgs, tail=False)  # (B, N, C) after norm_up, compute dtype
         B, N, C = feats.shape
@@ -301,14 +318,14 @@ class WoodscapeDepthSwinHP:
         return None, 1.0
 
     def _fused_tail_ok(self):
-        """The fused route (K8/K9) runs when the config asks for it, the loss has a
-        kernel kind, and the route admits the tail's shape."""
+        """The fused route (K8/K9) runs where the JAX task's does: the config asks for
+        it, the loss has a kernel kind, and ``supported_depth`` admits one sample's
+        tail."""
         cfg = self.model.config
-        kind = self._loss_kind()[0]
-        if not cfg.fused_final_head or kind is None:
+        if not cfg.fused_final_head or self._loss_kind()[0] is None:
             return False
         T = self.data_spec.dim_in // cfg.patch_size
-        return depth_route_takes(T, cfg.embed_dim, self.f_out, kind)
+        return supported_depth(T, cfg.embed_dim, self.f_out, cfg.patch_size, cfg.compute_dtype)
 
     def loss_fn(self, imgs, targets, generator: Optional[torch.Generator] = None,
                 deterministic: bool = True, sample_mask=None):
@@ -422,6 +439,11 @@ class WoodscapeSegmenterSwin(WoodscapeSegmenterSwinHP):
         B, H, W = targets.shape
         t = targets.reshape(B, H // p1, p1, W // p2, p2).permute(0, 1, 3, 2, 4)
         return t.reshape(-1, p1 * p2)
+
+    def _fused_geometry(self, model):
+        p1, p2 = model.config.patch_size
+        H, W = self.data_spec.dim_in
+        return (H // p1) * (W // p2), p1 * p2
 
     @staticmethod
     def _pred_from_kernel(model, preds, B):

@@ -54,17 +54,31 @@ dtype -> logits z @ Wh in f32.
   ``final_head_loss_bwd_sequence_f32_plain``,
   ``final_head_depth_loss_bwd_sequence_f32_plain``).
 
+- The wide route (``csrc/final_head_wide.cu``): every tail the row cores above do not
+  take (C other than 32, 64, 96, 128; heads over 32 classes in bf16, over 16 in f32; p
+  slices that do not fit a block's shared memory, as the bf16 K7 at C 128, p 4) runs
+  its kernel as a launch sequence from the same entry: the expand H = x We by the
+  hand-written GEMMs (bf16 ``gemm_nt``, f32 ``gemm_3xtf32_kernel``), one row kernel over
+  the T p sub-rows of H (a warp a sub-row: LayerNorm, head, the kernel's epilogue; the
+  backward's dh over H), then the backward's dx, dWe (and K7's dWh) products and
+  ``reduce_rows``.  Together both routes take the Pallas tails' domain up to C 192:
+  C % 8 == 0, 1 <= F <= 128 (F in {1, 2} for depth), any p, T % 64.  The same counters
+  count both routes.
+
 Every wrapper dispatches on ``impl`` like the attention wrappers
 (``heal_swin_torch.ops._dispatch.use_kernel``): on a CUDA tensor it runs its kernel or
 raises, and a tail the kernel was not written for (a dtype it lacks, the shapes of
-``kernels_take`` / ``depth_kernels_take``, the shared-memory limit) raises under "auto"
-as under "pallas", naming the kernel that refuses and "xla" as the plain route; a loss's
-backward takes the same route as its forward.
+``kernels_take`` / ``depth_kernels_take``: C above 192) raises under "auto" as under
+"pallas", naming the kernel that refuses and "xla" as the plain route; a loss's backward
+takes the same route as its forward.  ``supported`` and ``supported_depth`` are the JAX
+tasks' gates of the fused tail (copies of ``heal_swin_tpu/ops/final_head.py``'s), which
+the port's tasks ask as the JAX tasks do.
 """
 
 from __future__ import annotations
 
 from collections import Counter
+from types import SimpleNamespace
 
 import torch
 
@@ -74,18 +88,20 @@ from heal_swin_torch.ops._dispatch import check, f32_suffix, refuse, stream, use
 LN_EPS = 1e-5
 KERNEL_ROWS = 64  # T a multiple of it for all five (gemm_tn's token steps in K7, K9)
 TAIL_TILE_ROWS = 128  # token rows of a block tile: 8 warps of 16 rows
-KERNEL_MAX_F = 32  # the class head's widest instantiation: four head n-tiles
-KERNEL_MAX_F_F32 = 16  # the f32 K3/K6/K7's widest head: 16 columns
+KERNEL_MAX_C = 192  # the widest tail either route takes (Swin-L's embed width)
+KERNEL_MAX_F = 128  # the widest class head (the Pallas tails' F <= 128)
 KERNEL_SMEM_LIMIT = 232448  # bytes a block may opt in to on sm_90
-KERNEL_MAX_C_LOSS_BWD = 128  # the row core's widest instantiation
-# the row core holds a row's C columns in mma accumulators, one instantiation per C
-KERNEL_LOSS_CS = (32, 64, 96, 128)
+# the row cores hold a row's C columns in mma accumulators, one instantiation per C, and
+# heads of up to 32 (bf16) or 16 (f32) columns; other tails take the wide route
+ROW_CORE_CS = (32, 64, 96, 128)
+ROW_CORE_MAX_F = 32
+ROW_CORE_MAX_F_F32 = 16
+WIDE_KINDS = {"predict": 0, "loss": 1, "loss_bwd": 2, "depth_loss": 3, "depth_loss_bwd": 4}
 DEPTH_KINDS = ("l2", "l1", "huber", "nll")  # K8/K9's loss kinds, in their launch ids
 # the tail kernels by the library's names of their shared-memory figures; each has an
 # f32 variant ("predict_f32", "loss_f32", ..., "depth_loss_bwd_f32")
 KERNEL_IDS = {"predict": "K3", "loss": "K6", "loss_bwd": "K7", "depth_loss": "K8",
               "depth_loss_bwd": "K9"}
-F32_KERNELS = ("predict", "loss", "loss_bwd", "depth_loss", "depth_loss_bwd")
 
 # launch counters, bumped only where a kernel launches: per kernel, and per
 # (kernel, T, C), or (kernel, T, C, F, kind) for K8/K9
@@ -562,65 +578,127 @@ def final_head_depth_loss_bwd_sequence_f32_plain(x, we, gamma, beta, wh, t, scal
         huber_delta=huber_delta, grid=grid))
 
 
-def _tail_refusal(what, T, C, F, max_f=KERNEL_MAX_F):
-    """Why the tail kernels (K3, K6-K9, all on the row core, and the f32 K6-K9) do not
-    take T tokens of width C with F outputs, or None where they do: C one of 32, 64, 96,
-    128, 1 <= F <= ``max_f`` (32; 16 for the f32 kernels), T % 64.  The dtype and the
-    shared memory are checked at the call (``_tail_operands``)."""
-    if C % 16 or not 1 <= F <= max_f:
-        return f"{what}: the kernel takes C % 16 == 0 and F <= {max_f}, got C={C}, F={F}"
+def _tail_refusal(what, T, C, F):
+    """Why the tail kernels (K3, K6-K9 on either route, bf16 and f32) do not take T
+    tokens of width C with F outputs, or None where they do: C % 8 == 0, 8 <= C <= 192,
+    1 <= F <= 128, T % 64.  The dtype is checked at the call (``_tail_operands``)."""
+    if C % 8 or not 8 <= C <= KERNEL_MAX_C or not 1 <= F <= KERNEL_MAX_F:
+        return (f"{what}: the kernel takes C % 8 == 0, 8 <= C <= {KERNEL_MAX_C} and "
+                f"1 <= F <= {KERNEL_MAX_F}, got C={C}, F={F}")
     if T % KERNEL_ROWS:
         return f"{what}: T={T} is not a multiple of {KERNEL_ROWS}"
-    if C > KERNEL_MAX_C_LOSS_BWD:
-        return f"{what}: the kernel takes C <= {KERNEL_MAX_C_LOSS_BWD}, got C={C}"
-    if C not in KERNEL_LOSS_CS:
-        return f"{what}: the kernel takes C % 32 == 0 and C <= 128, got C={C}"
     return None
 
 
 def kernels_take(T, C, F, dtype, train=True) -> bool:
     """Whether the segmentation tail's kernels take T tokens of width C, F classes and
     ``dtype``: K6 and K7 both (``train``) or K3 (predict); the answer is the same either
-    way, since K3 runs on their row cores, bf16 and f32 (their f32 kernels, F <= 16).
-    The wrappers' checks apart from the shared memory, which they read from the kernels'
-    library at the call (K7 at C 128 needs p <= 2); where False, a CUDA tensor raises
-    under "auto" and "pallas" and needs impl="xla", the plain version."""
-    if dtype == torch.float32:
-        return _tail_refusal("", T, C, F, KERNEL_MAX_F_F32) is None
-    return dtype == torch.bfloat16 and _tail_refusal("", T, C, F) is None
+    way, bf16 and f32, on one route or the other (``row_core_takes``).  Where False, a
+    CUDA tensor raises under "auto" and "pallas" and needs impl="xla", the plain
+    version."""
+    return dtype in (torch.bfloat16, torch.float32) and _tail_refusal("", T, C, F) is None
+
+
+def _rblk_ok(T):
+    """The JAX tails' ``pick_rblk(T, C, p) is not None``: a row block of 512, 256 or 128
+    divides T."""
+    return T % 128 == 0
+
+
+def supported(T, C, F, p, dtype) -> bool:
+    """The JAX segmentation task's gate of its fused tail (``heal_swin_tpu/ops/
+    final_head.py`` ``supported``): bf16 or f32, C % 8 == 0, F <= 128, T % 128 == 0 (T
+    the tokens of one sample).  Where it is False the task runs the unfused tail, as the
+    JAX task does."""
+    return (dtype in (torch.bfloat16, torch.float32) and C % 8 == 0 and F <= 128
+            and _rblk_ok(T))
+
+
+def supported_depth(T, C, F, p, dtype) -> bool:
+    """The JAX depth task's gate (``supported_depth``): bf16 or f32, C % 8 == 0, F in
+    {1, 2}, T % 128 == 0 (the task asks for a loss kind of the kernels first, as the JAX
+    task does).  Where it admits a tail the kernels do not take (C above 192), a CUDA
+    tensor raises, naming impl="xla"."""
+    return (dtype in (torch.bfloat16, torch.float32) and C % 8 == 0 and F in (1, 2)
+            and _rblk_ok(T))
+
+
+def row_core_takes(kernel, C, F, patch_size, f32) -> bool:
+    """Whether ``kernel`` ("predict", "loss", ..., as the library names its shared-memory
+    figures) runs on the row cores (bf16: ``csrc/final_head.cu``; f32: ``csrc/
+    tail_f32.cuh``) at width C, F outputs and ``patch_size``: C one of 32, 64, 96, 128,
+    F up to 32 (f32: 16) and a block's shared memory enough (the bf16 core keeps all p
+    expand slices); else the wide route runs it (``csrc/final_head_wide.cu``)."""
+    if C not in ROW_CORE_CS or F > (ROW_CORE_MAX_F_F32 if f32 else ROW_CORE_MAX_F):
+        return False
+    name = f"{kernel}_f32" if f32 else kernel
+    smem = getattr(_build.lib(), f"hs_final_head_{name}_smem")(C, F, patch_size)
+    return smem <= KERNEL_SMEM_LIMIT
 
 
 def _tail_operands(what, x, we, gamma, beta, wh, patch_size, kernel):
     """The checked operands of the tail kernel ``kernel`` ("predict", "loss",
     "loss_bwd", "depth_loss" or "depth_loss_bwd", as the library names its
-    shared-memory figures; x f32 takes the f32 variant):
-    (T, C, F, we_s (p, C, C), gamma, beta, wh), the weights in x's dtype."""
+    shared-memory figures; x f32 takes the f32 variant), as attributes: T, C, F, p; the
+    route (``row_core``); we_s (p, C, C) for the row cores, we (C, p*C) and, bf16, we^T
+    (p*C, C) for the wide route, in x's dtype; g, b (gamma, beta) f32; wh (C, F) in x's
+    dtype.  A wide-route tail whose row kernel would ask for more shared memory than a
+    block may have refuses (no shape of the domain does: K6 at C 192, F 128 asks for the
+    most, 213,888 B)."""
     T, C = x.shape
     p = patch_size
     F = wh.shape[-1]
     who = f"{what} ({KERNEL_IDS[kernel]})"
-    f32 = x.dtype == torch.float32 and kernel in F32_KERNELS
-    if x.dtype != torch.bfloat16 and not f32:
-        takes = "bfloat16 or float32" if kernel in F32_KERNELS else "bfloat16"
-        refuse(f"{who}: the kernel takes {takes} x, got {x.dtype}")
-    msg = _tail_refusal(who, T, C, F, KERNEL_MAX_F_F32 if f32 else KERNEL_MAX_F)
+    f32 = x.dtype == torch.float32
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        refuse(f"{who}: the kernel takes bfloat16 or float32 x, got {x.dtype}")
+    msg = _tail_refusal(who, T, C, F)
     if msg is not None:
         refuse(msg)
-    name = f"{kernel}_f32" if f32 else kernel
-    smem = getattr(_build.lib(), f"hs_final_head_{name}_smem")(C, F, p)
-    if smem > KERNEL_SMEM_LIMIT:
-        refuse(f"{who}: C={C}, p={p} needs {smem} bytes of shared memory")
     dt = x.dtype
     if (tuple(we.shape) != (C, p * C) or tuple(wh.shape) != (C, F)
             or tuple(gamma.shape) != (C,) or tuple(beta.shape) != (C,)):
         raise ValueError(f"{what}: operands must be we (C, p*C), wh (C, F), gamma/beta (C,)")
-    ops = (x, _split_we(we, dt, p).contiguous(), gamma.float().contiguous(),
-           beta.float().contiguous(), wh.to(dt).contiguous())
-    if not all(t.is_cuda and t.device == x.device for t in ops):
+    row_core = row_core_takes(kernel, C, F, p, f32)
+    if not row_core:
+        smem = _build.lib().hs_final_head_wide_smem(C, F, WIDE_KINDS[kernel])
+        if smem > KERNEL_SMEM_LIMIT:
+            refuse(f"{who}: C={C}, F={F} needs {smem} B of shared memory on the wide "
+                   f"route, above the {KERNEL_SMEM_LIMIT} a block may have")
+    wes = ((_split_we(we, dt, p).contiguous(),) if row_core else
+           (we.to(dt).contiguous(), None if f32 else we.to(dt).t().contiguous()))
+    ops = (x,) + wes + (gamma.float().contiguous(), beta.float().contiguous(),
+                        wh.to(dt).contiguous())
+    if not all(t is None or (t.is_cuda and t.device == x.device) for t in ops):
         raise ValueError(f"{what}: every operand must be on {x.device}")
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError(f"{what}: x must be contiguous and 16-byte aligned")
-    return (T, C, F) + ops[1:]
+    g, b, whb = ops[-3:]
+    if row_core:
+        return SimpleNamespace(T=T, C=C, F=F, p=p, row_core=True, we_s=wes[0], g=g, b=b,
+                               wh=whb)
+    return SimpleNamespace(T=T, C=C, F=F, p=p, row_core=False, we=wes[0], weT=wes[1], g=g,
+                           b=b, wh=whb)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _wide(what, kernel, x, o, *, y=None, welem=None, t=None, scale=None, preds=None,
+          dpred=None, red=None, tap=None, dx=None, dwe=None, loss_kind=0, delta=1.0):
+    """Launch ``kernel``'s wide-route sequence (``hs_final_head_wide``) on the checked
+    operands ``o`` and the given outputs."""
+    lib = _build.lib()
+    kind, f32 = WIDE_KINDS[kernel], int(x.dtype == torch.float32)
+    work = torch.empty(lib.hs_final_head_wide_workspace(o.T, o.C, o.F, o.p, kind, f32),
+                       dtype=torch.uint8, device=x.device)
+    code = lib.hs_final_head_wide(
+        kind, f32, x.data_ptr(), o.we.data_ptr(), _ptr(o.weT), o.g.data_ptr(), o.b.data_ptr(),
+        o.wh.data_ptr(), _ptr(y), _ptr(welem), _ptr(t), _ptr(scale), _ptr(preds), _ptr(dpred),
+        red, _ptr(tap), _ptr(dx), dwe, work.data_ptr(), o.T, o.C, o.F, o.p, loss_kind, LN_EPS,
+        float(delta), stream(x))
+    check(code, what + f32_suffix(x))
 
 
 def _targets(what, y, welem, T, p, device):
@@ -641,20 +719,21 @@ def final_head_predict(x, we, gamma, beta, wh, *, patch_size, impl="auto", tap_l
         preds = argmax_lowest(lf)
         return (preds, lf) if tap_logits else preds
     what = "final_head_predict"
-    T, C, F, we_s, g, b, whb = _tail_operands(what, x, we, gamma, beta, wh, patch_size,
-                                              "predict")
-    p = patch_size
+    o = _tail_operands(what, x, we, gamma, beta, wh, patch_size, "predict")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, we, gamma, beta, wh)):
         raise ValueError(f"{what}: the kernel has no backward; call it under "
                          "torch.no_grad()")
     sfx = f32_suffix(x)
+    T, C, F, p = o.T, o.C, o.F, o.p
     preds = torch.empty((T, p), dtype=torch.int32, device=x.device)
     tap = torch.empty((T, p, F), dtype=torch.float32, device=x.device) if tap_logits else None
-    code = getattr(_build.lib(), f"hs_final_head_predict{sfx}")(
-        x.data_ptr(), we_s.data_ptr(), g.data_ptr(), b.data_ptr(), whb.data_ptr(),
-        preds.data_ptr(), None if tap is None else tap.data_ptr(), T, C, F, p, LN_EPS,
-        stream(x))
-    check(code, what + sfx)
+    if o.row_core:
+        code = getattr(_build.lib(), f"hs_final_head_predict{sfx}")(
+            x.data_ptr(), o.we_s.data_ptr(), o.g.data_ptr(), o.b.data_ptr(), o.wh.data_ptr(),
+            preds.data_ptr(), _ptr(tap), T, C, F, p, LN_EPS, stream(x))
+        check(code, what + sfx)
+    else:
+        _wide(what, "predict", x, o, preds=preds, tap=tap)
     _count(what + sfx, T, C)
     return (preds, tap) if tap_logits else preds
 
@@ -673,52 +752,80 @@ def final_head_loss_sums(x, we, gamma, beta, wh, y, welem, *, patch_size, impl="
                                             patch_size=patch_size).to(x.dtype),)
         return out
     what = "final_head_loss"
-    T, C, F, we_s, g, b, whb = _tail_operands(what, x, we, gamma, beta, wh, patch_size,
-                                              "loss")
-    p = patch_size
+    o = _tail_operands(what, x, we, gamma, beta, wh, patch_size, "loss")
+    T, C, F, p = o.T, o.C, o.F, o.p
     y, welem = _targets(what, y, welem, T, p, x.device)
     lib = _build.lib()
     sfx = f32_suffix(x)
     red = torch.empty(2 + F * F, dtype=torch.float32, device=x.device)
-    work = torch.empty(getattr(lib, f"hs_final_head_loss{sfx}_workspace")(T, C, F, p),
-                       dtype=torch.uint8, device=x.device)
     tap = torch.empty((T, p, F), dtype=x.dtype, device=x.device) if tap_logits else None
-    code = getattr(lib, f"hs_final_head_loss{sfx}")(
-        x.data_ptr(), we_s.data_ptr(), g.data_ptr(), b.data_ptr(), whb.data_ptr(),
-        y.data_ptr(), welem.data_ptr(), red.data_ptr(), work.data_ptr(),
-        None if tap is None else tap.data_ptr(), T, C, F, p, LN_EPS, stream(x))
-    check(code, what + sfx)
+    if o.row_core:
+        work = torch.empty(getattr(lib, f"hs_final_head_loss{sfx}_workspace")(T, C, F, p),
+                           dtype=torch.uint8, device=x.device)
+        code = getattr(lib, f"hs_final_head_loss{sfx}")(
+            x.data_ptr(), o.we_s.data_ptr(), o.g.data_ptr(), o.b.data_ptr(), o.wh.data_ptr(),
+            y.data_ptr(), welem.data_ptr(), red.data_ptr(), work.data_ptr(), _ptr(tap), T, C,
+            F, p, LN_EPS, stream(x))
+        check(code, what + sfx)
+    else:
+        _wide(what, "loss", x, o, y=y, welem=welem, red=red.data_ptr(), tap=tap)
     _count(what + sfx, T, C)
     out = (red[0], red[1], red[2:].reshape(F, F))
     return out + (tap,) if tap_logits else out
 
 
-def _bwd_outputs(x, lib, name, T, C, F, p):
-    """A backward entry's outputs: dx, and the f32 reduced row [dWe | dWh | dgamma |
-    dbeta] (f32 x) or dwe (C, p*C) and [dWh | dgamma | dbeta] (bf16 x), and its workspace;
-    the tensors in the C entry's order."""
+def _bwd_outputs(x, T, C, F, p):
+    """A backward's outputs: dx, and the f32 reduced row [dWe | dWh | dgamma | dbeta] (f32
+    x) or dwe (C, p*C) and [dWh | dgamma | dbeta] (bf16 x)."""
     f32 = dict(dtype=torch.float32, device=x.device)
-    work = torch.empty(getattr(lib, f"hs_{name}_workspace")(T, C, F, p), dtype=torch.uint8,
-                       device=x.device)
     if x.dtype == torch.float32:
-        return (torch.empty_like(x), torch.empty(p * C * C + C * F + 2 * C, **f32), work)
+        return (torch.empty_like(x), torch.empty(p * C * C + C * F + 2 * C, **f32))
     return (torch.empty_like(x), torch.empty((C, p * C), **f32),
-            torch.empty(C * F + 2 * C, **f32), work)
+            torch.empty(C * F + 2 * C, **f32))
+
+
+def _bwd_launch(what, kernel, x, o, targets, scale, name, tail_args, loss_kind=0, delta=1.0):
+    """Launch a backward (K7, K9) on its route: the row cores' entry ``hs_{name}`` with
+    ``targets`` (y and welem, or t, by name, in the entry's order) and ``tail_args`` (the
+    launch arguments after p), or the wide route; returns ``_bwd_outputs``' tensors."""
+    T, C, F, p = o.T, o.C, o.F, o.p
+    outs = _bwd_outputs(x, T, C, F, p)
+    if o.row_core:
+        lib = _build.lib()
+        work = torch.empty(getattr(lib, f"hs_{name}_workspace")(T, C, F, p), dtype=torch.uint8,
+                           device=x.device)
+        code = getattr(lib, f"hs_{name}")(
+            x.data_ptr(), o.we_s.data_ptr(), o.g.data_ptr(), o.b.data_ptr(), o.wh.data_ptr(),
+            *(t.data_ptr() for t in targets.values()), scale.data_ptr(),
+            *(t.data_ptr() for t in outs + (work,)), T, C, F, p, *tail_args, stream(x))
+        check(code, what + f32_suffix(x))
+        return outs
+    if x.dtype == torch.float32:  # dWe heads the reduced row
+        dwe, red = outs[1].data_ptr(), outs[1].data_ptr() + 4 * p * C * C
+    else:
+        dwe, red = outs[1].data_ptr(), outs[2].data_ptr()
+    _wide(what, kernel, x, o, scale=scale, dx=outs[0], dwe=dwe, red=red, loss_kind=loss_kind,
+          delta=delta, **targets)
+    return outs
 
 
 def _bwd_results(x, outs, C, F, p):
     """(dx, dwe, dgamma, dbeta, dwh) from ``_bwd_outputs``' tensors after the launch."""
     if x.dtype == torch.float32:
         return (outs[0],) + split_f32_bwd_row(outs[1], C, F, p)
-    dx, dwe, red, _ = outs
+    dx, dwe, red = outs
     dwh, dg, db = red.split([C * F, C, C])
     return dx, dwe, dg, db, dwh.reshape(C, F)
 
 
-def _rows_outputs(x, lib, name, T, C, F, p, tap_logits, tap_dtype):
-    """A backward's first step's outputs: dx, (bf16 x) the rounded dh (T, p*C), and the
-    partial rows on the kernel's grid, (f32 x) [dWe | dWh | dgamma | dbeta] a block,
-    (bf16 x) [dWh | dgamma | dbeta]; then the logits tap or None."""
+def _rows_outputs(x, lib, name, o, tap_logits, tap_dtype):
+    """A backward's first step's outputs on the row cores: dx, (bf16 x) the rounded dh
+    (T, p*C), and the partial rows on the kernel's grid, (f32 x) [dWe | dWh | dgamma |
+    dbeta] a block, (bf16 x) [dWh | dgamma | dbeta]; then the logits tap or None."""
+    T, C, F, p = o.T, o.C, o.F, o.p
+    if not o.row_core:
+        raise ValueError(f"{name}: C={C}, F={F}, p={p} runs on the wide route, whose steps "
+                         "have no entry of their own")
     grid = getattr(lib, f"hs_{name}_grid")(T, C, F, p)
     if grid < 1:
         raise RuntimeError(f"{name}: no grid for T={T}, C={C}, F={F}, p={p}")
@@ -736,35 +843,29 @@ def final_head_loss_bwd(x, we, gamma, beta, wh, y, welem, scale, *, patch_size, 
     """K7 wrapper: the backward of K6, one entry that launches its sequence (bf16 x: the
     row kernel, ``reduce_rows`` over its partial rows, ``gemm_tn`` for dWe; f32 x: the
     f32 tile kernel, dWe among its partial rows, and ``reduce_rows``, counted as
-    "final_head_loss_bwd_f32"); operands and results as ``final_head_loss_bwd_plain``."""
+    "final_head_loss_bwd_f32"; or the wide route's); operands and results as
+    ``final_head_loss_bwd_plain``."""
     if not use_kernel(x, impl):
         return final_head_loss_bwd_plain(x, we, gamma, beta, wh, y, welem, scale,
                                          patch_size=patch_size)
     what = "final_head_loss_bwd"
-    T, C, F, we_s, g, b, whb = _tail_operands(what, x, we, gamma, beta, wh, patch_size,
-                                              "loss_bwd")
-    p = patch_size
-    y, welem = _targets(what, y, welem, T, p, x.device)
+    o = _tail_operands(what, x, we, gamma, beta, wh, patch_size, "loss_bwd")
+    y, welem = _targets(what, y, welem, o.T, o.p, x.device)
     scale = scale.to(device=x.device, dtype=torch.float32).reshape(1).contiguous()
-    lib = _build.lib()
     sfx = f32_suffix(x)
-    outs = _bwd_outputs(x, lib, f"final_head_loss_bwd{sfx}", T, C, F, p)
-    code = getattr(lib, f"hs_final_head_loss_bwd{sfx}")(
-        x.data_ptr(), we_s.data_ptr(), g.data_ptr(), b.data_ptr(), whb.data_ptr(),
-        y.data_ptr(), welem.data_ptr(), scale.data_ptr(), *(o.data_ptr() for o in outs),
-        T, C, F, p, LN_EPS, stream(x))
-    check(code, what + sfx)
-    _count(what + sfx, T, C)
-    return _bwd_results(x, outs, C, F, p)
+    outs = _bwd_launch(what, "loss_bwd", x, o, dict(y=y, welem=welem), scale,
+                       f"final_head_loss_bwd{sfx}", (LN_EPS,))
+    _count(what + sfx, o.T, o.C)
+    return _bwd_results(x, outs, o.C, o.F, o.p)
 
 
 def final_head_loss_bwd_rows(x, we, gamma, beta, wh, y, welem, scale, *, patch_size,
                              impl="auto", tap_logits=False):
-    """K7's first step alone (not counted, as K7's launches count the sequence), on the
-    kernel's grid (one block for CPU tensors): for bf16 x its row kernel, (dx, dh,
-    partial rows) as ``final_head_loss_bwd_rows_plain``; for f32 x its tile kernel, (dx,
-    partial rows) as ``final_head_loss_bwd_rows_f32_plain``; with ``tap_logits`` the
-    logits (T, p, F) in x's dtype it recomputed."""
+    """K7's first step alone on the row cores (not counted, as K7's launches count the
+    sequence), on the kernel's grid (one block for CPU tensors): for bf16 x its row
+    kernel, (dx, dh, partial rows) as ``final_head_loss_bwd_rows_plain``; for f32 x its
+    tile kernel, (dx, partial rows) as ``final_head_loss_bwd_rows_f32_plain``; with
+    ``tap_logits`` the logits (T, p, F) in x's dtype it recomputed."""
     if not use_kernel(x, impl):
         twin = (final_head_loss_bwd_rows_f32_plain if x.dtype == torch.float32
                 else final_head_loss_bwd_rows_plain)
@@ -774,19 +875,16 @@ def final_head_loss_bwd_rows(x, we, gamma, beta, wh, y, welem, scale, *, patch_s
                                             patch_size=patch_size).to(x.dtype),)
         return out
     what = "final_head_loss_bwd_rows"
-    T, C, F, we_s, g, b, whb = _tail_operands(what, x, we, gamma, beta, wh, patch_size,
-                                              "loss_bwd")
-    p = patch_size
-    y, welem = _targets(what, y, welem, T, p, x.device)
+    o = _tail_operands(what, x, we, gamma, beta, wh, patch_size, "loss_bwd")
+    y, welem = _targets(what, y, welem, o.T, o.p, x.device)
     scale = scale.to(device=x.device, dtype=torch.float32).reshape(1).contiguous()
     lib = _build.lib()
     sfx = f32_suffix(x)
-    outs, tap = _rows_outputs(x, lib, f"final_head_loss_bwd{sfx}", T, C, F, p, tap_logits,
-                              x.dtype)
+    outs, tap = _rows_outputs(x, lib, f"final_head_loss_bwd{sfx}", o, tap_logits, x.dtype)
     code = getattr(lib, f"hs_final_head_loss_bwd{sfx}_rows")(
-        x.data_ptr(), we_s.data_ptr(), g.data_ptr(), b.data_ptr(), whb.data_ptr(),
-        y.data_ptr(), welem.data_ptr(), scale.data_ptr(), *(o.data_ptr() for o in outs),
-        None if tap is None else tap.data_ptr(), T, C, F, p, LN_EPS, stream(x))
+        x.data_ptr(), o.we_s.data_ptr(), o.g.data_ptr(), o.b.data_ptr(), o.wh.data_ptr(),
+        y.data_ptr(), welem.data_ptr(), scale.data_ptr(), *(t.data_ptr() for t in outs),
+        _ptr(tap), o.T, o.C, o.F, o.p, LN_EPS, stream(x))
     check(code, what)
     return outs + (tap,) if tap_logits else outs
 
@@ -801,9 +899,9 @@ def final_head_loss_dwe(x, dh, *, impl="auto"):
     T, C = x.shape
     N = dh.shape[1]
     if (x.dtype != torch.bfloat16 or dh.dtype != x.dtype or dh.shape[0] != T
-            or T % KERNEL_ROWS or C % 16 or N % 16 or not dh.is_cuda):
+            or T % KERNEL_ROWS or C % 8 or N % 8 or not dh.is_cuda):
         raise ValueError(f"{what}: the kernel takes bf16 x (T, C) and dh (T, N), T % 64, "
-                         f"C % 16, N % 16, on one device; got {tuple(x.shape)} {x.dtype} "
+                         f"C % 8, N % 8, on one device; got {tuple(x.shape)} {x.dtype} "
                          f"{tuple(dh.shape)} {dh.dtype}")
     lib = _build.lib()
     x, dh = x.contiguous(), dh.contiguous()
@@ -848,31 +946,20 @@ def _depth_refusal(what, F, kind):
 
 def depth_kernels_take(T, C, F, kind, dtype=torch.bfloat16) -> bool:
     """Whether K8 and K9 take a depth tail of T tokens of width C, F output channels,
-    loss ``kind`` and ``dtype``: bf16 (the tail row core) or f32 (their f32 kernels), C
-    one of 32, 64, 96, 128 (one instantiation each), T % 64.  The shared memory is
-    checked at the call, where a tail the kernels do not take raises."""
+    loss ``kind`` and ``dtype``: bf16 or f32, C % 8 == 0 up to 192 (on the row cores at
+    C 32, 64, 96, 128 where the slices fit, else the wide route), T % 64."""
     return (dtype in (torch.bfloat16, torch.float32) and _depth_refusal("", F, kind) is None
             and _tail_refusal("", T, C, F) is None)
-
-
-def depth_route_takes(T, C, F, kind) -> bool:
-    """The depth task's gate of its fused route: the loss kinds and heads the fused
-    function computes, on tails of C % 16 == 0 up to 128 and T % 64 == 0.  Its
-    kernels take a subset of these (``depth_kernels_take``); on a CUDA tensor a tail
-    the gate admits and the kernels do not take raises, naming impl="xla", as the
-    segmentation tail does."""
-    return (_depth_refusal("", F, kind) is None and not C % 16 and C <= KERNEL_MAX_C_LOSS_BWD
-            and not T % KERNEL_ROWS)
 
 
 def _depth_operands(what, x, we, gamma, beta, wh, t, patch_size, kind, kernel):
     msg = _depth_refusal(what, wh.shape[-1], kind)
     if msg is not None:
         refuse(msg)
-    ops = _tail_operands(what, x, we, gamma, beta, wh, patch_size, kernel)
-    if tuple(t.shape) != (ops[0], patch_size):
-        raise ValueError(f"{what}: t must be (T, p) = {(ops[0], patch_size)}")
-    return ops + (t.to(device=x.device, dtype=torch.float32).contiguous(),)
+    o = _tail_operands(what, x, we, gamma, beta, wh, patch_size, kernel)
+    if tuple(t.shape) != (o.T, patch_size):
+        raise ValueError(f"{what}: t must be (T, p) = {(o.T, patch_size)}")
+    return o, t.to(device=x.device, dtype=torch.float32).contiguous()
 
 
 def final_head_depth_loss_sums(x, we, gamma, beta, wh, t, *, patch_size, loss_kind,
@@ -889,22 +976,26 @@ def final_head_depth_loss_sums(x, we, gamma, beta, wh, t, *, patch_size, loss_ki
             out += (final_head_logits_plain(x, we, gamma, beta, wh, patch_size=patch_size),)
         return out
     what = "final_head_depth_loss"
-    T, C, F, we_s, g, b, whb, t = _depth_operands(what, x, we, gamma, beta, wh, t,
-                                                  patch_size, loss_kind, "depth_loss")
-    p = patch_size
+    o, t = _depth_operands(what, x, we, gamma, beta, wh, t, patch_size, loss_kind,
+                           "depth_loss")
+    T, C, F, p = o.T, o.C, o.F, o.p
     lib = _build.lib()
     sfx = f32_suffix(x)
+    kind = DEPTH_KINDS.index(loss_kind)
     red = torch.empty(2, dtype=torch.float32, device=x.device)
     preds = torch.empty((T, p * F), dtype=x.dtype, device=x.device)
-    work = torch.empty(getattr(lib, f"hs_final_head_depth_loss{sfx}_workspace")(T, C, F, p),
-                       dtype=torch.uint8, device=x.device)
     tap = torch.empty((T, p, F), dtype=torch.float32, device=x.device) if tap_logits else None
-    code = getattr(lib, f"hs_final_head_depth_loss{sfx}")(
-        x.data_ptr(), we_s.data_ptr(), g.data_ptr(), b.data_ptr(), whb.data_ptr(),
-        t.data_ptr(), red.data_ptr(), preds.data_ptr(), work.data_ptr(),
-        None if tap is None else tap.data_ptr(), T, C, F, p, DEPTH_KINDS.index(loss_kind),
-        LN_EPS, float(huber_delta), stream(x))
-    check(code, what + sfx)
+    if o.row_core:
+        work = torch.empty(getattr(lib, f"hs_final_head_depth_loss{sfx}_workspace")(T, C, F, p),
+                           dtype=torch.uint8, device=x.device)
+        code = getattr(lib, f"hs_final_head_depth_loss{sfx}")(
+            x.data_ptr(), o.we_s.data_ptr(), o.g.data_ptr(), o.b.data_ptr(), o.wh.data_ptr(),
+            t.data_ptr(), red.data_ptr(), preds.data_ptr(), work.data_ptr(), _ptr(tap), T, C,
+            F, p, kind, LN_EPS, float(huber_delta), stream(x))
+        check(code, what + sfx)
+    else:
+        _wide(what, "depth_loss", x, o, t=t, dpred=preds, red=red.data_ptr(), tap=tap,
+              loss_kind=kind, delta=huber_delta)
     _count(what + sfx, T, C, F, loss_kind)
     out = (red[0], red[1], preds)
     return out + (tap,) if tap_logits else out
@@ -915,35 +1006,31 @@ def final_head_depth_loss_bwd(x, we, gamma, beta, wh, t, scale, *, patch_size, l
     """K9 wrapper: the backward of K8, one entry that launches its sequence (bf16 x: the
     row kernel, ``gemm_tn`` for dWe, ``reduce_rows`` over the partial rows; f32 x: the
     f32 tile kernel, dWe among its partial rows, and ``reduce_rows``, counted as
-    "final_head_depth_loss_bwd_f32"); operands and results as
+    "final_head_depth_loss_bwd_f32"; or the wide route's); operands and results as
     ``final_head_depth_loss_bwd_plain``."""
     kw = dict(patch_size=patch_size, loss_kind=loss_kind, huber_delta=huber_delta)
     if not use_kernel(x, impl):
         return final_head_depth_loss_bwd_plain(x, we, gamma, beta, wh, t, scale, **kw)
     what = "final_head_depth_loss_bwd"
-    T, C, F, we_s, g, b, whb, t = _depth_operands(what, x, we, gamma, beta, wh, t,
-                                                  patch_size, loss_kind, "depth_loss_bwd")
-    p = patch_size
+    o, t = _depth_operands(what, x, we, gamma, beta, wh, t, patch_size, loss_kind,
+                           "depth_loss_bwd")
     scale = scale.to(device=x.device, dtype=torch.float32).reshape(1).contiguous()
-    lib = _build.lib()
     sfx = f32_suffix(x)
-    outs = _bwd_outputs(x, lib, f"final_head_depth_loss_bwd{sfx}", T, C, F, p)
-    code = getattr(lib, f"hs_final_head_depth_loss_bwd{sfx}")(
-        x.data_ptr(), we_s.data_ptr(), g.data_ptr(), b.data_ptr(), whb.data_ptr(),
-        t.data_ptr(), scale.data_ptr(), *(o.data_ptr() for o in outs), T, C, F, p,
-        DEPTH_KINDS.index(loss_kind), LN_EPS, float(huber_delta), stream(x))
-    check(code, what + sfx)
-    _count(what + sfx, T, C, F, loss_kind)
-    return _bwd_results(x, outs, C, F, p)
+    kind = DEPTH_KINDS.index(loss_kind)
+    outs = _bwd_launch(what, "depth_loss_bwd", x, o, dict(t=t), scale,
+                       f"final_head_depth_loss_bwd{sfx}", (kind, LN_EPS, float(huber_delta)),
+                       loss_kind=kind, delta=huber_delta)
+    _count(what + sfx, o.T, o.C, o.F, loss_kind)
+    return _bwd_results(x, outs, o.C, o.F, o.p)
 
 
 def final_head_depth_loss_bwd_rows(x, we, gamma, beta, wh, t, scale, *, patch_size,
                                    loss_kind, huber_delta=1.0, impl="auto", tap_logits=False):
-    """K9's first step alone (not counted, as K9's launches count the sequence), on the
-    kernel's grid (one block for CPU tensors): for bf16 x its row kernel, (dx, dh,
-    partial rows) as ``final_head_depth_loss_bwd_rows_plain``; for f32 x its tile kernel,
-    (dx, partial rows) as ``final_head_depth_loss_bwd_rows_f32_plain``; with
-    ``tap_logits`` the f32 logits (T, p, F) it recomputed."""
+    """K9's first step alone on the row cores (not counted, as K9's launches count the
+    sequence), on the kernel's grid (one block for CPU tensors): for bf16 x its row
+    kernel, (dx, dh, partial rows) as ``final_head_depth_loss_bwd_rows_plain``; for f32 x
+    its tile kernel, (dx, partial rows) as ``final_head_depth_loss_bwd_rows_f32_plain``;
+    with ``tap_logits`` the f32 logits (T, p, F) it recomputed."""
     kw = dict(patch_size=patch_size, loss_kind=loss_kind, huber_delta=huber_delta)
     if not use_kernel(x, impl):
         twin = (final_head_depth_loss_bwd_rows_f32_plain if x.dtype == torch.float32
@@ -953,19 +1040,17 @@ def final_head_depth_loss_bwd_rows(x, we, gamma, beta, wh, t, scale, *, patch_si
             out += (final_head_logits_plain(x, we, gamma, beta, wh, patch_size=patch_size),)
         return out
     what = "final_head_depth_loss_bwd_rows"
-    T, C, F, we_s, g, b, whb, t = _depth_operands(what, x, we, gamma, beta, wh, t,
-                                                  patch_size, loss_kind, "depth_loss_bwd")
-    p = patch_size
+    o, t = _depth_operands(what, x, we, gamma, beta, wh, t, patch_size, loss_kind,
+                           "depth_loss_bwd")
     scale = scale.to(device=x.device, dtype=torch.float32).reshape(1).contiguous()
     lib = _build.lib()
     sfx = f32_suffix(x)
-    outs, tap = _rows_outputs(x, lib, f"final_head_depth_loss_bwd{sfx}", T, C, F, p,
-                              tap_logits, torch.float32)
+    outs, tap = _rows_outputs(x, lib, f"final_head_depth_loss_bwd{sfx}", o, tap_logits,
+                              torch.float32)
     code = getattr(lib, f"hs_final_head_depth_loss_bwd{sfx}_rows")(
-        x.data_ptr(), we_s.data_ptr(), g.data_ptr(), b.data_ptr(), whb.data_ptr(),
-        t.data_ptr(), scale.data_ptr(), *(o.data_ptr() for o in outs),
-        None if tap is None else tap.data_ptr(), T, C, F, p, DEPTH_KINDS.index(loss_kind),
-        LN_EPS, float(huber_delta), stream(x))
+        x.data_ptr(), o.we_s.data_ptr(), o.g.data_ptr(), o.b.data_ptr(), o.wh.data_ptr(),
+        t.data_ptr(), scale.data_ptr(), *(t_.data_ptr() for t_ in outs), _ptr(tap), o.T, o.C,
+        o.F, o.p, DEPTH_KINDS.index(loss_kind), LN_EPS, float(huber_delta), stream(x))
     check(code, what)
     return outs + (tap,) if tap_logits else outs
 

@@ -15,6 +15,7 @@ near-tie rows.
 import pytest
 import torch
 
+from heal_swin_torch import _build
 from heal_swin_torch.ops import final_head as fh
 from heal_swin_torch.ops import window_attention as wa
 
@@ -341,6 +342,25 @@ def _near_tie_rows(args, p=4):
     return (top2[..., 0] - top2[..., 1]) <= 2 * 2.0 ** -7 * top2[..., 0].abs()
 
 
+def _assert_preds_close(got, args, p=4):
+    """K3's classes equal the plain argmax except at sub-rows whose top-2 f32 logits are
+    closer than the rounding may move them: f32 tokens 1e-5 of the larger (at least
+    1e-5); bf16 tokens two bf16 steps of sum_c |z_c| |Wh_cf| (each z may round to a
+    neighbouring bf16 value)."""
+    x, we, g, b, wh = args[:5]
+    lf = fh.final_head_logits_plain(x, we, g, b, wh, patch_size=p)
+    top2 = lf.topk(2, dim=-1).values
+    if x.dtype == torch.float32:
+        slack = 1e-5 * top2[..., 0].abs().clamp_min(1.0)
+    else:
+        eye = torch.eye(x.shape[1], device=x.device)
+        z = fh.final_head_logits_plain(x, we, g, b, eye, patch_size=p)
+        slack = 2 * 2.0 ** -7 * (z.abs() @ wh.to(x.dtype).float().abs()).amax(-1)
+    near = (top2[..., 0] - top2[..., 1]) < slack
+    assert got.shape == lf.shape[:2]
+    assert int(((got.long() != fh.argmax_lowest(lf).long()) & ~near).sum()) == 0
+
+
 @pytest.mark.parametrize("C,F", [(96, 10), (32, 5)])
 def test_final_head_loss_kernels(dev, C, F):
     """K6 (loss, confusion matrix) and K7 (every gradient) against their plain
@@ -388,12 +408,14 @@ def test_final_head_loss_function_backward_through_kernels(dev):
 
 
 @pytest.mark.parametrize("C,F,p", [(32, 10, 4), (64, 20, 4), (96, 32, 4), (128, 10, 4),
-                                   (128, 16, 2)])
+                                   (128, 16, 2), (8, 3, 1), (40, 25, 4), (136, 128, 4),
+                                   (192, 33, 16), (192, 128, 4)])
 def test_final_head_loss_kernels_at_every_width(dev, C, F, p):
-    """K6 at each of its instantiations (C 32 to 128, F <= 16 and <= 32) on a T whose
-    last 128-row tile is half full, against its plain version; K7 (two launches
-    bit-equal) wherever its shared memory holds the p slices, which at C 128 takes p 2
-    (``test_tail_kernels_refuse_what_their_shared_memory_does_not_hold``)."""
+    """K6 and K7 (two launches bit-equal) on a T whose last 128-row tile is half full,
+    against their plain versions: on the row core at its instantiations (C 32 to 128, F
+    <= 16 and <= 32) where a block holds the p slices, on the wide route at the other
+    widths, heads and patches (K7 at C 128, p 4 among them, and K6 at the domain's widest
+    corner, C 192 with 128 classes)."""
     gen = torch.Generator().manual_seed(C + F + p)
     T = 64 * 65
     args = _loss_args(gen, dev, T, C, F, p)
@@ -403,8 +425,6 @@ def test_final_head_loss_kernels_at_every_width(dev, C, F, p):
     assert abs(float(num / den) - float(wnum / wden)) <= 1e-3 * abs(float(wnum / wden))
     assert float(cm.sum()) == T * p
     assert float((cm - wcm).abs().sum()) <= 2 * int(_near_tie_rows(args, p).sum())
-    if (C, p) == (128, 4):
-        return
     scale = torch.tensor(0.7, device=dev) / wden
     got = fh.final_head_loss_bwd(*args, scale, patch_size=p)
     _assert_grads_close(got, fh.final_head_loss_bwd_plain(*args, scale, patch_size=p))
@@ -468,21 +488,34 @@ def test_final_head_loss_bwd_recomputes_the_forward_logits(dev, T, C, F):
 
 
 def test_loss_kernels_refuse_widths_without_an_instantiation(dev):
-    """K6 and K7, and K3 on their row core, hold a row in mma accumulators, one
-    instantiation per C in 32, 64, 96, 128: other widths the tails took before (C % 16)
-    raise, naming impl="xla", with no launch."""
+    """K6 and K7, and K3, hold a row in mma accumulators on their row core, one
+    instantiation per C in 32, 64, 96, 128; the other widths of C % 8 run on the wide
+    route (one launch each, near their plain versions), and above C 192 they raise,
+    naming impl="xla", with no launch."""
     gen = torch.Generator().manual_seed(14)
     one = torch.ones((), device=dev)
     for C in (48, 80, 112):
         args = _loss_args(gen, dev, 128, C, 10)
         before = dict(fh.launches)
-        with pytest.raises(ValueError, match="C % 32 == 0 and C <= 128.*impl='xla'"):
-            fh.final_head_loss_sums(*args, patch_size=4)
-        with pytest.raises(ValueError, match="C % 32 == 0 and C <= 128.*impl='xla'"):
-            fh.final_head_loss_bwd(*args, one, patch_size=4)
-        with pytest.raises(ValueError, match="C % 32 == 0 and C <= 128.*impl='xla'"):
-            fh.final_head_predict(*args[:5], patch_size=4)
-        assert dict(fh.launches) == before
+        num, den, _ = fh.final_head_loss_sums(*args, patch_size=4)
+        got = fh.final_head_loss_bwd(*args, one, patch_size=4)
+        preds = fh.final_head_predict(*args[:5], patch_size=4)
+        torch.cuda.synchronize()
+        for k in ("final_head_loss", "final_head_loss_bwd", "final_head_predict"):
+            assert fh.launches[k] == before[k] + 1, (C, k)
+        wnum, wden, _ = fh.final_head_loss_plain(*args, patch_size=4)
+        assert abs(float(num / den) - float(wnum / wden)) <= 1e-3 * abs(float(wnum / wden))
+        _assert_grads_close(got, fh.final_head_loss_bwd_plain(*args, one, patch_size=4))
+        _assert_preds_close(preds, args)
+    args = _loss_args(gen, dev, 128, 200, 10)
+    before = dict(fh.launches)
+    with pytest.raises(ValueError, match="C <= 192.*impl='xla'"):
+        fh.final_head_loss_sums(*args, patch_size=4)
+    with pytest.raises(ValueError, match="C <= 192.*impl='xla'"):
+        fh.final_head_loss_bwd(*args, one, patch_size=4)
+    with pytest.raises(ValueError, match="C <= 192.*impl='xla'"):
+        fh.final_head_predict(*args[:5], patch_size=4)
+    assert dict(fh.launches) == before
 
 
 def test_kernels_refuse_what_they_do_not_take(dev):
@@ -493,8 +526,8 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     C = 448
     xb = torch.zeros(128, C, dtype=torch.bfloat16, device=dev)
     gen = torch.Generator().manual_seed(7)
-    wide = _loss_args(gen, dev, 128, 160, 10)
-    many = _loss_args(gen, dev, 128, 32, 40)
+    wide = _loss_args(gen, dev, 128, 200, 10)
+    many = _loss_args(gen, dev, 128, 32, 129)
     few = _loss_args(gen, dev, 128, 32, 5)
     for impl in ("auto", "pallas"):
         P = dict(impl=impl)
@@ -525,17 +558,17 @@ def test_kernels_refuse_what_they_do_not_take(dev):
                                     None, None, torch.ones(2, device=dev),
                                     torch.zeros(128, 64, device=dev), ws=64, num_heads=2,
                                     use_cos=True, sm_scale=1.0, has_mask=False, **P)
-        with pytest.raises(ValueError, match="C <= 128"):
+        with pytest.raises(ValueError, match="C <= 192"):
             fh.final_head_loss_bwd(*wide, torch.ones((), device=dev), patch_size=4, **P)
-        with pytest.raises(ValueError, match="F <= 32"):
+        with pytest.raises(ValueError, match="F <= 128"):
             fh.final_head_loss_sums(*many, patch_size=4, **P)
-        with pytest.raises(ValueError, match=r"\(K3\).*F <= 16.*impl='xla'"):
+        with pytest.raises(ValueError, match=r"\(K3\).*F <= 128.*impl='xla'"):
             fh.final_head_predict(many[0].float(), *many[1:5], patch_size=4, **P)
 
 
 def test_auto_refuses_what_the_kernels_do_not_take(dev):
     """Under "auto" a CUDA tensor that the kernels were not written for (float16 window
-    attention, an f32 tail at a width without an instantiation, the window 16) raises
+    attention, an f32 tail above C 192, the window 16) raises
     with no launch, naming impl="xla", which runs the plain version: no launch, and bit
     for bit the plain version's result.  (K3 and K6-K9 take float32 since their f32
     kernels, the window-attention families both ways since theirs:
@@ -548,8 +581,8 @@ def test_auto_refuses_what_the_kernels_do_not_take(dev):
     groups = torch.randint(0, 3, (T // 16, 16), generator=gen, dtype=torch.int32).to(dev)
     bias16 = _randn(gen, dev, h, 16, 16)
     ls = torch.exp(_randn(gen, dev, h, std=0.5) + 2.3)
-    tail48 = _loss_args_f32(gen, dev, T, 48, 10)
-    depth48 = _depth_args_f32(gen, dev, T, 48, 1)
+    tail200 = _loss_args_f32(gen, dev, T, 200, 10)
+    depth200 = _depth_args_f32(gen, dev, T, 200, 1)
     cases = [
         (wa.window_attention_qkv_fwd, wa.window_attention_qkv_plain,
          (x.half(), wq, bq, None, None, None),
@@ -566,8 +599,8 @@ def test_auto_refuses_what_the_kernels_do_not_take(dev):
         (wa.window_attention_qkv_epi_fwd, wa.window_attention_qkv_epi_plain,
          (x.bfloat16(), wq, bq, wq[:, :C], bq[:C], None, None, groups, bias16, ls),
          dict(ws=16, num_heads=h, sm_scale=0.2)),
-        (fh.final_head_predict, fh.final_head_predict_plain, tail48[:5], dict(patch_size=4)),
-        (fh.final_head_depth_loss_sums, fh.final_head_depth_loss_plain, depth48,
+        (fh.final_head_predict, fh.final_head_predict_plain, tail200[:5], dict(patch_size=4)),
+        (fh.final_head_depth_loss_sums, fh.final_head_depth_loss_plain, depth200,
          dict(patch_size=4, loss_kind="l2")),
     ]
     for fn, plain, args, kw in cases:
@@ -584,27 +617,50 @@ def test_auto_refuses_what_the_kernels_do_not_take(dev):
 
 def test_tail_kernels_refuse_what_their_shared_memory_does_not_hold(dev):
     """The tail wrappers read the shared memory a block asks for from the library: K7
-    at C 128 with four sub-pixels (its z and dlogits tiles) needs more than a block may
-    have and raises; K3 at C 160 is refused by the row core's width rule, naming
-    impl="xla"; K3 at C 128 with four sub-pixels launches, and so does K9 (no tile of
-    its own beside the slices and the x ring), within 1e-2 of its plain version."""
+    at C 128 with four sub-pixels (its z and dlogits tiles beside the p slices) needs
+    more than a block may have on the row core, so it takes the wide route
+    (``row_core_takes`` false), as K3 at C 160 does (no row-core instantiation); K3 at C
+    128 with four sub-pixels runs on the row core, and so does K9 (no tile of its own
+    beside the slices and the x ring); each launches once, within 1e-2 of its plain
+    version (K3's classes equal outside near-ties)."""
     gen = torch.Generator().manual_seed(13)
     one = torch.ones((), device=dev)
     loss128 = _loss_args(gen, dev, 128, 128, 10)
-    with pytest.raises(ValueError, match="shared memory.*impl='xla'"):
-        fh.final_head_loss_bwd(*loss128, one, patch_size=4)
-    with pytest.raises(ValueError, match="C <= 128.*impl='xla'"):
-        fh.final_head_predict(*_loss_args(gen, dev, 128, 160, 10)[:5], patch_size=4)
+    assert not fh.row_core_takes("loss_bwd", 128, 10, 4, False)
+    assert fh.row_core_takes("predict", 128, 10, 4, False)
+    assert fh.row_core_takes("depth_loss_bwd", 128, 1, 4, False)
+    assert not fh.row_core_takes("predict", 160, 10, 4, False)
     before = dict(fh.launches)
-    fh.final_head_predict(*loss128[:5], patch_size=4)
+    got7 = fh.final_head_loss_bwd(*loss128, one, patch_size=4)
+    wide = _loss_args(gen, dev, 128, 160, 10)
+    preds160 = fh.final_head_predict(*wide[:5], patch_size=4)
+    preds128 = fh.final_head_predict(*loss128[:5], patch_size=4)
     dargs = _depth_args(gen, dev, 128, 128, 1)
     got = fh.final_head_depth_loss_bwd(*dargs, one, patch_size=4, loss_kind="l2")
     torch.cuda.synchronize()
-    assert fh.launches["final_head_predict"] == before["final_head_predict"] + 1
+    assert fh.launches["final_head_loss_bwd"] == before["final_head_loss_bwd"] + 1
+    assert fh.launches["final_head_predict"] == before["final_head_predict"] + 2
     assert (fh.launches["final_head_depth_loss_bwd"]
             == before["final_head_depth_loss_bwd"] + 1)
+    _assert_grads_close(got7, fh.final_head_loss_bwd_plain(*loss128, one, patch_size=4))
     _assert_grads_close(got, fh.final_head_depth_loss_bwd_plain(*dargs, one, patch_size=4,
                                                                 loss_kind="l2"))
+    _assert_preds_close(preds160, wide)
+    _assert_preds_close(preds128, loss128)
+
+
+def test_wide_route_shared_memory_holds_the_domain(dev):
+    """The wide route's row kernel fits a block's shared memory at every shape of the
+    domain the wrappers admit (C % 8 up to 192; F up to 128, depth F 1 and 2), as the
+    library reports it; K6 at C 192, F 128 is the largest."""
+    lib = _build.lib()
+    worst = {}
+    for kernel, kind in fh.WIDE_KINDS.items():
+        fs = (1, 2) if kernel.startswith("depth") else range(1, fh.KERNEL_MAX_F + 1)
+        worst[kernel] = max(lib.hs_final_head_wide_smem(C, F, kind)
+                            for C in range(8, fh.KERNEL_MAX_C + 1, 8) for F in fs)
+    assert max(worst.values()) <= fh.KERNEL_SMEM_LIMIT, worst
+    assert worst["loss"] == max(worst.values()) == lib.hs_final_head_wide_smem(192, 128, 1)
 
 
 def _qkv_args(gen, dev, C, T, masked, use_cos, qkv_bias):
@@ -1016,23 +1072,23 @@ def test_depth_kernels_refuse_what_they_do_not_take(dev):
     ragged = _depth_args(gen, dev, 96, 32, 1)
     with pytest.raises(ValueError, match="multiple of 64"):
         fh.final_head_depth_loss_sums(*ragged, patch_size=4, loss_kind="l2", impl="pallas")
-    narrow = _depth_args(gen, dev, 128, 40, 1)
-    with pytest.raises(ValueError, match="C % 16"):
+    narrow = _depth_args(gen, dev, 128, 44, 1)
+    with pytest.raises(ValueError, match="C % 8"):
         fh.final_head_depth_loss_sums(*narrow, patch_size=4, loss_kind="l2", impl="pallas")
-    wide = _depth_args(gen, dev, 128, 144, 1)
-    with pytest.raises(ValueError, match="C <= 128"):
+    wide = _depth_args(gen, dev, 128, 200, 1)
+    with pytest.raises(ValueError, match="C <= 192"):
         fh.final_head_depth_loss_bwd(*wide, one, patch_size=4, loss_kind="l2", impl="pallas")
     with pytest.raises(ValueError, match="bfloat16 or float32"):
         fh.final_head_depth_loss_sums(args[0].half(), *args[1:], patch_size=4,
                                       loss_kind="l2", impl="pallas")
 
 
-@pytest.mark.parametrize("C", [32, 64, 96, 128])
+@pytest.mark.parametrize("C", [32, 64, 96, 128, 8, 40, 136, 192])
 @pytest.mark.parametrize("kind,F,delta", [("l2", 1, 1.0), ("nll", 2, 1.0)])
 def test_final_head_depth_loss_kernels_at_every_width(dev, C, kind, F, delta):
-    """K8 and K9 at each instantiation of the tail row core (C 32 to 128, p 4) on a T
-    whose last 128-row tile is half full, against their plain versions; two K9 launches
-    bit-equal."""
+    """K8 and K9 at each instantiation of the tail row core (C 32 to 128, p 4) and on
+    the wide route (C 8, 40, 136, 192) on a T whose last 128-row tile is half full,
+    against their plain versions; two K9 launches bit-equal."""
     gen = torch.Generator().manual_seed(40 + C + F)
     T, p = 64 * 65, 4
     args = _depth_args(gen, dev, T, C, F, p)
@@ -1096,25 +1152,39 @@ def test_final_head_depth_loss_bwd_recomputes_the_forward_logits(dev, T, C, kind
 
 
 def test_depth_kernels_refuse_widths_without_an_instantiation(dev):
-    """K8 and K9 hold a row in mma accumulators, one instantiation per C in 32, 64, 96,
-    128: the other widths of C % 16 raise under "auto", naming
-    impl="xla", with no launch, and run the plain version under "xla"; F 3 raises."""
+    """K8 and K9 hold a row in mma accumulators on the row core, one instantiation per
+    C in 32, 64, 96, 128; the other widths of C % 8 run on the wide route, whose steps
+    have no entry alone (``final_head_depth_loss_bwd_rows`` raises there), and above C
+    192 they raise under "auto", naming impl="xla", with no launch, and run the plain
+    version under "xla"; F 3 raises.  Each wide launch is held to its plain version."""
     gen = torch.Generator().manual_seed(15)
     one = torch.ones((), device=dev)
     kw = dict(patch_size=4, loss_kind="l2")
     for C in (16, 48, 80, 112):
         args = _depth_args(gen, dev, 128, C, 1)
         before = dict(fh.launches)
-        with pytest.raises(ValueError, match="C % 32 == 0 and C <= 128.*impl='xla'"):
-            fh.final_head_depth_loss_sums(*args, **kw)
-        with pytest.raises(ValueError, match="C % 32 == 0 and C <= 128.*impl='xla'"):
-            fh.final_head_depth_loss_bwd(*args, one, **kw)
-        with pytest.raises(ValueError, match="C % 32 == 0 and C <= 128.*impl='xla'"):
+        num, den, _ = fh.final_head_depth_loss_sums(*args, **kw)
+        got = fh.final_head_depth_loss_bwd(*args, one, **kw)
+        torch.cuda.synchronize()
+        assert fh.launches["final_head_depth_loss"] == before["final_head_depth_loss"] + 1
+        assert (fh.launches["final_head_depth_loss_bwd"]
+                == before["final_head_depth_loss_bwd"] + 1)
+        _assert_grads_close(got, fh.final_head_depth_loss_bwd_plain(*args, one, **kw))
+        with pytest.raises(ValueError, match="wide route"):
             fh.final_head_depth_loss_bwd_rows(*args, one, **kw)
-        got = fh.final_head_depth_loss_sums(*args, **kw, impl="xla")
-        assert dict(fh.launches) == before
-        assert all(torch.equal(a, b) for a, b in zip(got, fh.final_head_depth_loss_plain(
-            *args, **kw)))
+        wnum, wden, _ = fh.final_head_depth_loss_plain(*args, **kw)
+        assert float(den) == float(wden)
+        assert abs(float(num) - float(wnum)) <= 1e-3 * abs(float(wnum))
+    args = _depth_args(gen, dev, 128, 200, 1)
+    before = dict(fh.launches)
+    with pytest.raises(ValueError, match="C <= 192.*impl='xla'"):
+        fh.final_head_depth_loss_sums(*args, **kw)
+    with pytest.raises(ValueError, match="C <= 192.*impl='xla'"):
+        fh.final_head_depth_loss_bwd(*args, one, **kw)
+    got = fh.final_head_depth_loss_sums(*args, **kw, impl="xla")
+    assert dict(fh.launches) == before
+    assert all(torch.equal(a, b) for a, b in zip(got, fh.final_head_depth_loss_plain(
+        *args, **kw)))
     three = _depth_args(gen, dev, 128, 32, 3)
     with pytest.raises(ValueError, match="F in.*impl='xla'"):
         fh.final_head_depth_loss_sums(*three, **kw)
@@ -1772,30 +1842,41 @@ def test_final_head_loss_f32_function_backward_through_kernels(dev):
         assert t.grad is not None and t.grad.dtype == torch.float32
 
 
-def test_f32_tails_without_a_kernel_refuse(dev):
-    """Float32 tokens at C 48 on K3 (predict) raise under "auto" and "pallas" with no
-    launch, naming the kernel and impl="xla", as does an f32 depth tail at C 48: the f32
-    K3 and K8/K9 have no instantiation of that width; the f32 K6/K7 refuse heads wider
-    than 16 columns."""
+def test_f32_tails_without_a_kernel_refuse(dev, no_tf32):
+    """Float32 tokens at C 200 (above the kernels' 192) on K3 (predict) raise under "auto"
+    and "pallas" with no launch, naming the kernel and impl="xla", as does an f32 depth
+    tail at C 200 on K8 and K9, and heads wider than 128 classes on K6 and K7; at C 48 and
+    at 17 classes, which the f32 row cores have no instantiation for, the f32 kernels run
+    on the wide route (K3 once, K6 once, K7 twice), each held to its plain version
+    (``_check_f32_loss``; K3's classes outside near-ties)."""
     gen = torch.Generator().manual_seed(43)
     one = torch.ones((), device=dev)
-    args = _loss_args_f32(gen, dev, 128, 48, 8)
-    d48 = _depth_args_f32(gen, dev, 128, 48, 2)
-    wide = _loss_args_f32(gen, dev, 128, 96, 17)
+    args = _loss_args_f32(gen, dev, 128, 200, 8)
+    d200 = _depth_args_f32(gen, dev, 128, 200, 2)
+    wide = _loss_args_f32(gen, dev, 128, 96, 129)
     before = dict(fh.launches)
     for impl in ("auto", "pallas"):
-        with pytest.raises(ValueError, match=r"\(K3\).*C % 32 == 0 and C <= 128.*impl='xla'"):
+        with pytest.raises(ValueError, match=r"\(K3\).*C <= 192.*impl='xla'"):
             fh.final_head_predict(*args[:5], patch_size=4, impl=impl)
-        with pytest.raises(ValueError, match=r"\(K8\).*C % 32 == 0 and C <= 128.*impl='xla'"):
-            fh.final_head_depth_loss_sums(*d48[:4], d48[4][:, :1], d48[5], patch_size=4,
+        with pytest.raises(ValueError, match=r"\(K8\).*C <= 192.*impl='xla'"):
+            fh.final_head_depth_loss_sums(*d200[:4], d200[4][:, :1], d200[5], patch_size=4,
                                           loss_kind="l2", impl=impl)
-        with pytest.raises(ValueError, match=r"\(K9\).*C % 32 == 0 and C <= 128.*impl='xla'"):
-            fh.final_head_depth_loss_bwd(*d48, one, patch_size=4, loss_kind="nll", impl=impl)
-        with pytest.raises(ValueError, match=r"\(K6\).*F <= 16.*impl='xla'"):
+        with pytest.raises(ValueError, match=r"\(K9\).*C <= 192.*impl='xla'"):
+            fh.final_head_depth_loss_bwd(*d200, one, patch_size=4, loss_kind="nll", impl=impl)
+        with pytest.raises(ValueError, match=r"\(K6\).*F <= 128.*impl='xla'"):
             fh.final_head_loss_sums(*wide, patch_size=4, impl=impl)
-        with pytest.raises(ValueError, match=r"\(K7\).*F <= 16.*impl='xla'"):
+        with pytest.raises(ValueError, match=r"\(K7\).*F <= 128.*impl='xla'"):
             fh.final_head_loss_bwd(*wide, one, patch_size=4, impl=impl)
     assert dict(fh.launches) == before
+    c48 = _loss_args_f32(gen, dev, 128, 48, 8)
+    f17 = _loss_args_f32(gen, dev, 128, 96, 17)
+    preds = fh.final_head_predict(*c48[:5], patch_size=4)
+    _check_f32_loss(f17, 4, one / f17[6].sum())
+    torch.cuda.synchronize()
+    for k, n in (("final_head_predict_f32", 1), ("final_head_loss_f32", 1),
+                 ("final_head_loss_bwd_f32", 2)):
+        assert fh.launches[k] == before[k] + n, k
+    _assert_preds_close(preds, c48)
 
 
 # --- the f32 K8 / K9 (csrc/tail_f32.cuh): K6's and K7's f32 row kernels with the

@@ -184,38 +184,35 @@ def test_depth_loss_function_matches_autograd_of_plain(kind, F, delta):
 
 
 def test_depth_kernels_take():
-    """The shapes, kinds and dtypes K8/K9 take: C one of 32, 64, 96, 128 (one
-    instantiation of the tail row core each, and of their f32 kernels), bf16 or f32.
-    The depth task's fused gate (``depth_route_takes``) still admits C % 16 up to 128; on
-    the card the wrappers refuse the widths without an instantiation."""
-    f32 = torch.float32
-    for C in (32, 64, 96, 128):  # the f32 kernels: the same shapes and kinds
-        assert fh.depth_kernels_take(262144, C, 1, "l2", f32), C
-        assert fh.depth_kernels_take(128, C, 2, "nll", f32), C
-        assert fh.depth_kernels_take(128, C, 1, "huber", f32), C
-        assert not fh.depth_kernels_take(128, C, 1, "nll", f32), C
-    assert not fh.depth_kernels_take(128, 48, 1, "l2", f32)  # no instantiation
+    """The shapes, kinds and dtypes K8/K9 take: C % 8 == 0 up to 192 (on the tail row cores
+    at C 32, 64, 96, 128 where the slices fit, the wide route elsewhere), bf16 or f32, F 1
+    or 2 (nll needs 2), T % 64.  The depth task's fused gate (``supported_depth``) is
+    the JAX task's: C % 8 == 0, F in {1, 2}, T % 128 == 0, bf16 or
+    f32, with no bound on C, so on the card a tail above C 192 raises."""
+    f32, bf = torch.float32, torch.bfloat16
+    for C in (8, 16, 40, 48, 96, 136, 192):
+        for dt in (f32, bf):
+            assert fh.depth_kernels_take(262144, C, 1, "l2", dt), C
+            assert fh.depth_kernels_take(128, C, 2, "nll", dt), C
+            assert fh.depth_kernels_take(128, C, 1, "huber", dt), C
+            assert not fh.depth_kernels_take(128, C, 1, "nll", dt), C
+    assert not fh.depth_kernels_take(128, 200, 1, "l2", f32)  # above C 192
     assert not fh.depth_kernels_take(96, 32, 1, "l2", f32)  # T % 64
     assert not fh.depth_kernels_take(128, 32, 1, "l2", torch.float16)
     assert fh.depth_kernels_take(262144, 96, 1, "l2")
-    assert fh.depth_kernels_take(128, 32, 2, "nll")
-    assert fh.depth_kernels_take(128, 64, 1, "huber")
     assert fh.depth_kernels_take(128, 128, 1, "l2")
     assert not fh.depth_kernels_take(128, 32, 1, "nll")  # nll needs a logvar channel
     assert not fh.depth_kernels_take(128, 32, 3, "l2")
     assert not fh.depth_kernels_take(128, 32, 1, "ce")
     assert not fh.depth_kernels_take(96, 32, 1, "l2")  # T % 64
-    assert not fh.depth_kernels_take(128, 8, 1, "l2")  # C % 16
-    assert not fh.depth_kernels_take(128, 144, 1, "l2")  # the row core's C <= 128
-    for C in (16, 48, 80, 112):  # C % 16, no instantiation
-        assert not fh.depth_kernels_take(128, C, 1, "l2"), C
-        assert not fh.depth_kernels_take(128, C, 2, "nll"), C
-        assert fh.depth_route_takes(128, C, 1, "l2"), C
-    assert fh.depth_route_takes(128, 96, 2, "nll")
-    assert not fh.depth_route_takes(128, 8, 1, "l2")
-    assert not fh.depth_route_takes(128, 144, 1, "l2")
-    assert not fh.depth_route_takes(96, 32, 1, "l2")
-    assert not fh.depth_route_takes(128, 32, 1, "nll")
+    assert not fh.depth_kernels_take(128, 44, 1, "l2")  # C % 8
+    for C in (8, 16, 48, 80, 112, 200, 384):  # C % 8, no bound on C
+        assert fh.supported_depth(128, C, 1, 4, bf), C
+        assert fh.supported_depth(128, C, 2, 4, f32), C
+    assert not fh.supported_depth(128, 44, 1, 4, bf)
+    assert not fh.supported_depth(64, 32, 1, 4, bf)  # T % 128
+    assert not fh.supported_depth(128, 32, 3, 4, bf)
+    assert not fh.supported_depth(128, 32, 1, 4, torch.float16)
 
 
 LOSSES = [("mse", {}), ("l1_loss", {}), ("huber_loss", {"delta": 0.7}),

@@ -1,7 +1,7 @@
 """The port's HEAL-SWIN-UNet depth task against the JAX package on the CPU, in float32,
 at the NSIDE 8 model of ``test_torch_swin_hp.py`` widened to embed 16 (the fused
-depth tail's kernels take C % 16 == 0, so the port's fused gate opens there as the
-JAX package's does).  The data config is the paper depth run's: no transform,
+depth tail's gate, ``supported_depth``, opens there in the port as in the JAX
+package).  The data config is the paper depth run's: no transform,
 ``standardize``, background masked.
 
 - ``loss_fn`` and every parameter gradient against ``jax.value_and_grad`` of the JAX

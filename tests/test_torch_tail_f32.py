@@ -1,5 +1,5 @@
 """The decoder tail in float32 on the CPU: the operands the f32 K3/K6/K7 take, the f32
-refusals that remain (widths without an instantiation, heads over 16 columns), and the plain
+refusals that remain (widths above C 192, heads over 128 classes), and the plain
 step twins of the f32 K6 and K7 at the paper config's head (C 96, p 4, F 8) against the JAX
 package's Pallas kernel in interpret mode.
 
@@ -62,52 +62,51 @@ def _close(got, want, name):
 
 
 def test_f32_kernels_take():
-    """K6 and K7, and K3 (predict, ``train=False``), take f32 tokens at C 32, 64, 96, 128
-    and heads up to 16 columns; the bf16 rule is unchanged."""
+    """K6 and K7, and K3 (predict, ``train=False``), take f32 tokens at every width of
+    the Pallas tails up to C 192 (C % 8, heads of 1 to 128 classes, T % 64): on the row
+    cores at C 32, 64, 96, 128 and heads up to 16 columns, on the wide route elsewhere.
+    The bf16 rule is the same."""
     f32, bf = torch.float32, torch.bfloat16
-    for c in (32, 64, 96, 128):
-        assert fh.kernels_take(262144, c, 8, f32), c
-        assert fh.kernels_take(262144, c, 16, f32), c
-        assert fh.kernels_take(262144, c, 8, f32, train=False), c  # K3
-        assert fh.kernels_take(262144, c, 16, f32, train=False), c
-    assert not fh.kernels_take(262144, 96, 17, f32, train=False)
-    assert not fh.kernels_take(262144, 48, 8, f32, train=False)
-    assert not fh.kernels_take(262144, 96, 17, f32)  # the f32 head's 16 columns
-    assert fh.kernels_take(262144, 96, 17, bf) and fh.kernels_take(262144, 96, 32, bf)
-    assert not fh.kernels_take(262144, 48, 8, f32)  # no instantiation
+    for c in (8, 32, 40, 48, 64, 96, 128, 136, 192):
+        for f in (1, 8, 16, 17, 25, 128):
+            assert fh.kernels_take(262144, c, f, f32), (c, f)
+            assert fh.kernels_take(262144, c, f, f32, train=False), (c, f)  # K3
+            assert fh.kernels_take(262144, c, f, bf), (c, f)
+    assert not fh.kernels_take(262144, 96, 129, f32, train=False)  # the Pallas F <= 128
+    assert not fh.kernels_take(262144, 200, 8, f32)  # above C 192
+    assert not fh.kernels_take(262144, 44, 8, f32)  # C % 8
     assert not fh.kernels_take(96, 96, 8, f32)  # T % 64
     assert not fh.kernels_take(262144, 96, 8, torch.float16)
 
 
 def test_f32_tails_without_a_kernel_refuse_on_a_cuda_tensor(monkeypatch):
     """Where the kernels would run (``use_kernel`` forced true, as for a CUDA tensor),
-    f32 tokens at C 48 on K3 (predict) raise before any launch, naming the kernel and
-    impl="xla", as do an f32 depth tail at C 48 on K8 and K9 (their f32 kernels, like
-    the bf16 ones, have no instantiation of that width) and f32 heads of more than 16
-    columns on K3, K6 and K7."""
+    f32 tokens at C 200 (above the kernels' 192) on K3 (predict) raise before any launch,
+    naming the kernel and impl="xla", as do an f32 depth tail at C 200 on K8 and K9 and
+    f32 heads of more than 128 classes on K3, K6 and K7."""
     monkeypatch.setattr(fh, "use_kernel", lambda t, impl: impl != "xla")
     x, we, g, b, wh, y, w = (torch.from_numpy(a) for a in _operands())
     gen = torch.Generator().manual_seed(0)
     t = torch.randn(T, P, generator=gen)
-    x48, we48 = torch.randn(T, 48, generator=gen), torch.randn(48, P * 48, generator=gen)
-    g48, b48, wh48 = torch.ones(48), torch.zeros(48), torch.randn(48, 2, generator=gen)
+    x200, we200 = torch.randn(T, 200, generator=gen), torch.randn(200, P * 200, generator=gen)
+    g200, b200, wh200 = torch.ones(200), torch.zeros(200), torch.randn(200, 2, generator=gen)
     one = torch.ones(())
     before = dict(fh.launches)
-    with pytest.raises(ValueError, match=r"\(K3\).*C % 32 == 0 and C <= 128.*impl='xla'"):
-        fh.final_head_predict(x48, we48, g48, b48, wh48, patch_size=P)
-    with pytest.raises(ValueError, match=r"\(K8\).*C % 32 == 0 and C <= 128.*impl='xla'"):
-        fh.final_head_depth_loss_sums(x48, we48, g48, b48, wh48[:, :1], t, patch_size=P,
+    with pytest.raises(ValueError, match=r"\(K3\).*8 <= C <= 192.*impl='xla'"):
+        fh.final_head_predict(x200, we200, g200, b200, wh200, patch_size=P)
+    with pytest.raises(ValueError, match=r"\(K8\).*8 <= C <= 192.*impl='xla'"):
+        fh.final_head_depth_loss_sums(x200, we200, g200, b200, wh200[:, :1], t, patch_size=P,
                                       loss_kind="l2")
-    with pytest.raises(ValueError, match=r"\(K9\).*C % 32 == 0 and C <= 128.*impl='xla'"):
-        fh.final_head_depth_loss_bwd(x48, we48, g48, b48, wh48, t, one, patch_size=P,
+    with pytest.raises(ValueError, match=r"\(K9\).*8 <= C <= 192.*impl='xla'"):
+        fh.final_head_depth_loss_bwd(x200, we200, g200, b200, wh200, t, one, patch_size=P,
                                      loss_kind="nll")
-    wide = torch.randn(C, 17)
+    wide = torch.randn(C, 129)
     yw = torch.zeros(T, P, dtype=torch.int32)
-    with pytest.raises(ValueError, match=r"\(K6\).*F <= 16.*impl='xla'"):
+    with pytest.raises(ValueError, match=r"\(K6\).*1 <= F <= 128.*impl='xla'"):
         fh.final_head_loss_sums(x, we, g, b, wide, yw, w, patch_size=P)
-    with pytest.raises(ValueError, match=r"\(K7\).*F <= 16.*impl='xla'"):
+    with pytest.raises(ValueError, match=r"\(K7\).*1 <= F <= 128.*impl='xla'"):
         fh.final_head_loss_bwd(x, we, g, b, wide, yw, w, one, patch_size=P)
-    with pytest.raises(ValueError, match=r"\(K3\).*F <= 16.*impl='xla'"):
+    with pytest.raises(ValueError, match=r"\(K3\).*1 <= F <= 128.*impl='xla'"):
         fh.final_head_predict(x, we, g, b, wide, patch_size=P)
     assert dict(fh.launches) == before
 

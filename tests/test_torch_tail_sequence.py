@@ -199,18 +199,20 @@ def test_step_wrappers_run_the_plain_versions_on_the_cpu():
 
 
 def test_loss_kernels_take():
-    """K6 and K7, and K3 on their row core, take C in 32, 64, 96, 128 (one instantiation
-    each); other multiples of 16 are refused.  K6 and K7 take float32 too (their f32
-    kernels, at the same widths), and so does K3 (its f32 kernel)."""
+    """K6 and K7, and K3, take every C % 8 == 0 from 8 to 192 and heads of 1 to 128
+    classes, in bf16 and float32: on the row cores at C 32, 64, 96, 128 (one
+    instantiation each; heads up to 32 columns, 16 in f32), on the wide route at the other
+    widths and heads."""
     bf = torch.bfloat16
     for C in (32, 64, 96, 128):
         assert fh.kernels_take(262144, C, 10, bf)
         assert fh.kernels_take(262144, C, 10, bf, train=False), C
-    for C in (16, 48, 80, 112, 144, 160):
-        assert not fh.kernels_take(262144, C, 10, bf), C
-        assert not fh.kernels_take(262144, C, 10, bf, train=False), C
-    assert fh.kernels_take(128, 96, 32, bf) and not fh.kernels_take(128, 96, 33, bf)
+    for C in (8, 16, 40, 48, 80, 112, 136, 144, 160, 192):
+        assert fh.kernels_take(262144, C, 10, bf), C
+        assert fh.kernels_take(262144, C, 10, bf, train=False), C
+    assert fh.kernels_take(128, 96, 128, bf) and not fh.kernels_take(128, 96, 129, bf)
     assert not fh.kernels_take(96, 96, 10, bf)  # T % 64
+    assert not fh.kernels_take(128, 200, 10, bf)  # above C 192
     assert fh.kernels_take(128, 96, 10, torch.float32)
     assert fh.kernels_take(128, 96, 10, torch.float32, train=False)
-    assert not fh.kernels_take(128, 48, 10, torch.float32, train=False)
+    assert fh.kernels_take(128, 48, 10, torch.float32, train=False)

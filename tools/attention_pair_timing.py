@@ -2,7 +2,7 @@
 GPU, in turns: other, this, this, other.
 
     python3 tools/attention_pair_timing.py --other _checkout/parent \
-        [--family mlp|tail|f32|tail_f32]
+        [--family mlp|tail|f32|tail_f32|tails]
 
 ``--other`` is an unpacked copy of another commit (``git archive`` into the
 git-ignored ``_checkout/``).  Each of the four turns is its own process: it imports
@@ -42,7 +42,8 @@ backwards are autograd on a saved graph: the forward is not run again, as K7 and
 it); each launches once a step (K3 once a predict).  Beside the times, each turn prints
 each f32 kernel's device ms by kernel name (chip_smoke.py's ``trace``, 5 calls; the
 profiler can drop a record) and the ptxas report (registers, spills) of the f32 tail
-kernels its build compiled.  ``--family all`` (the default) times the first four.
+kernels its build compiled.  ``--family tails`` times the tail family and the f32 tail
+family in the same turns.  ``--family all`` (the default) times the first four.
 
 Each shape gets two times: the device time (``device_ms``: each call enqueued behind a
 spin kernel, so that the events bracket the device work alone) and a single call's
@@ -143,7 +144,9 @@ def turn(root: Path, family: str) -> dict:
         times.update(tail_times(smoke, dev, both))
     if family in ("f32", "all"):
         times.update(f32_times(smoke, dev, both))
-    if family == "tail_f32":
+    if family == "tails":
+        times.update(tail_times(smoke, dev, both))
+    if family in ("tail_f32", "tails"):
         times.update(tail_f32_times(smoke, dev, both))
     torch.cuda.synchronize()
     return times
@@ -408,7 +411,8 @@ def compare(label, runs, get):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", type=Path, help="the other checkout (e.g. the parent)")
-    ap.add_argument("--family", choices=("attention", "mlp", "tail", "f32", "tail_f32", "all"),
+    ap.add_argument("--family", choices=("attention", "mlp", "tail", "f32", "tail_f32", "tails",
+                                         "all"),
                     default="all",
                     help="which kernels to time (default: all)")
     ap.add_argument("--turn", type=Path, help=argparse.SUPPRESS)
