@@ -1565,6 +1565,16 @@ def reset_counters():
         for k in mod.launches:
             mod.launches[k] = 0
         mod.launches_by_shape.clear()
+    from heal_swin_torch.ops import final_head as fh
+
+    fh.launches_by_route.clear()
+
+
+def read_routes():
+    """The tail kernels' launches by route: {(kernel, "row core" | "wide"): count}."""
+    from heal_swin_torch.ops import final_head as fh
+
+    return {k: v for k, v in fh.launches_by_route.items() if v}
 
 
 def record_blocks(model, io):
@@ -1604,6 +1614,19 @@ def trace(fn, n=1):
         if e.device_type == DeviceType.CUDA:
             per[e.name][0] += e.time_range.elapsed_us() / 1e3
             per[e.name][1] += 1
+    return per, wall_ms
+
+
+def trace_sequence(fn, kernel):
+    """``trace`` of SEQUENCE_TRACED calls of ``fn``, a K13 or K15 call (``kernel``, a key
+    of MLP_SEQUENCES), traced again, up to SEQUENCE_TRACES times, where a kernel of its
+    sequence left no record (the profiler can drop a launch's records):
+    ``sequence_call_ms`` still fails on a kernel the last trace did not record."""
+    seq = MLP_SEQUENCES[kernel][1]
+    for _ in range(SEQUENCE_TRACES):
+        per, wall_ms = trace(fn, SEQUENCE_TRACED)
+        if all(any(part in name for name in per) for part in seq):
+            break
     return per, wall_ms
 
 
@@ -2470,6 +2493,7 @@ MLP_SEQUENCES = {
                               "reduce_rows_kernel": 5}),
 }
 SEQUENCE_TRACED = 5
+SEQUENCE_TRACES = 3  # traces of a sequence at most, until each of its kernels is recorded
 MLP_BLOCK_GRADS = MLP_GRADS + ("dgamma", "dbeta")
 DROP_KEEP = 0.9  # the DropPath keep rate of the route timings (the paper's last block)
 
@@ -2596,8 +2620,8 @@ def check_mlp_kernels(gen, dev):
                 pms12 = median_ms(lambda: tm.mlp_plain(*a5, **kw))
                 ms13 = median_ms(lambda: tm.mlp_bwd(*a5, dz, **kw, impl="pallas"))
                 pms13 = median_ms(lambda: tm.mlp_bwd_plain(*a5, dz, **kw))
-                per, _ = trace(lambda: tm.mlp_bwd(*a5, dz, **kw, impl="pallas"),
-                               SEQUENCE_TRACED)
+                per, _ = trace_sequence(lambda: tm.mlp_bwd(*a5, dz, **kw, impl="pallas"),
+                                        "mlp_bwd")
             timed[("sequence", "mlp_bwd", T, C, H, approximate)] = {
                 name: (dev_ms / n, n / SEQUENCE_TRACED) for name, (dev_ms, n) in per.items()}
             route_f, route_b = mlp_route(args, None, approximate, block=False)
@@ -2636,8 +2660,8 @@ def check_mlp_kernels(gen, dev):
                     pms14 = median_ms(lambda: tm.mlp_block_plain(*args, d, **kw))
                     ms15 = median_ms(lambda: tm.mlp_block_bwd(*args, d, dz, **bkw))
                     pms15 = median_ms(lambda: tm.mlp_block_bwd_plain(*args, d, dz, **kw))
-                    per, _ = trace(lambda: tm.mlp_block_bwd(*args, d, dz, **bkw),
-                                   SEQUENCE_TRACED)
+                    per, _ = trace_sequence(lambda: tm.mlp_block_bwd(*args, d, dz, **bkw),
+                                            "mlp_block_bwd")
                 timed[("sequence", "mlp_block_bwd", T, C, H, approximate, d is not None)] = {
                     name: (dev_ms / n, n / SEQUENCE_TRACED) for name, (dev_ms, n) in per.items()}
                 route_f, route_b = mlp_route(args, d, approximate, block=True)
@@ -3101,7 +3125,7 @@ def drive_paper_depth_train(dev, timed):
 
 
 def paper_step(label, task_k, task_p, imgs, targets, expected, timed, counted,
-               attn_dropout=True, steps=PAPER_STEPS):
+               attn_dropout=True, steps=PAPER_STEPS, routes=None):
     """A paper config's train step through the kernels (``task_k``, "auto") and through
     the plain path (``task_p``, "xla", the same weights), on the same batch and step
     generators.  Step 0 of each path through ``train_step``: every dropout mask the
@@ -3114,7 +3138,8 @@ def paper_step(label, task_k, task_p, imgs, targets, expected, timed, counted,
     resident), the loss falling on both, the metric state (``counted``: its count's key
     and what a step adds to it), and a trace of a kernel-path step (device time by
     kernel, idle share).  Returns the kernels' launches in step 0 of the kernel path:
-    per kernel, and per operand shape."""
+    per kernel, and per operand shape; ``routes``, where given, gets the tail kernels'
+    launches of step 0 by route (``read_routes``)."""
     from heal_swin_torch.models import layers
     from heal_swin_torch.training.optimizer import make_optimizer
     from heal_swin_torch.training.trainer import step_generator, train_step
@@ -3138,6 +3163,8 @@ def paper_step(label, task_k, task_p, imgs, targets, expected, timed, counted,
                                          step_generator(SEED, 0, dev))
         torch.cuda.synchronize()
         launches, by_shape = read_counters()
+        if routes is not None:
+            routes.update(read_routes())
     finally:
         layers.keep_mask = draw
     check_launches(f"{label} step", launches, by_shape, expected, timed)
@@ -5536,10 +5563,13 @@ def drive_flat_entry(dev, timed, root):
 WIDTH_T = 8192  # tokens of a width check: 64 tiles of 128 rows
 # (C, F, p) of the width checks: corners of the Pallas tails' domain (C % 16 == 8 at 8, 40
 # and 136, Swin-L's C 192, heads of 3, 25, 33 and 128 classes, patches of 1, 4 and 16; C
-# 192 with 128 classes is the wide route's largest shared memory) and the row cores' paper
-# widths C 96 and 128
+# 192 with 128 classes is the wide route's largest shared memory), the row cores' paper
+# widths C 96 and 128, and the row cores' chunked heads and streamed slices: 25 and 33
+# classes at C 96 (f32 chunks of 16, bf16 chunks of 32), 64 at C 64, 128 at C 32 with 16
+# slices
 WIDTH_CASES = ((8, 3, 1), (40, 25, 4), (136, 128, 4), (192, 33, 16), (192, 128, 4),
-               (96, 10, 4), (128, 10, 4))
+               (96, 10, 4), (128, 10, 4), (96, 25, 4), (96, 33, 4), (64, 64, 1),
+               (32, 128, 16))
 # (C, kind, F, p) of the depth width checks: every kind and head at C 40 and 136, a patch
 # of 16, and the paper widths
 WIDTH_DEPTH_CASES = tuple((C, kind, F, 4) for C in (40, 136) for kind, F in DEPTH_CASES) + (
@@ -5571,6 +5601,27 @@ def check_wide_smem(fh):
     log(f"wide route: the most shared memory a row kernel asks for over the domain, by "
         f"kernel: {worst} (limit {fh.KERNEL_SMEM_LIMIT})")
     return worst
+
+
+def log_row_core_domain(fh):
+    """The row cores' domain as ``row_core_takes`` reads it from the library: for K3, K6 and
+    K7 in each dtype, each C of the row cores and the patches 1, 4 and 16, the largest head
+    on the row core (every smaller one is too).  Returns it by (kernel, dtype)."""
+    domain = {}
+    for f32 in (False, True):
+        for kernel in ("predict", "loss", "loss_bwd"):
+            rows = {}
+            for C in fh.ROW_CORE_CS:
+                for p in (1, 4, 16):
+                    took = [F for F in range(1, fh.KERNEL_MAX_F + 1)
+                            if fh.row_core_takes(kernel, C, F, p, f32)]
+                    if took != list(range(1, len(took) + 1)):
+                        raise AssertionError(f"row core {kernel} C {C} p {p}: heads {took}")
+                    rows[f"C{C} p{p}"] = len(took)
+            domain[(TAIL_NAMES[kernel], "f32" if f32 else "bf16")] = rows
+    log("row cores: the largest head at each width and patch: "
+        + json.dumps({f"{k[0]} {k[1]}": v for k, v in domain.items()}))
+    return domain
 
 
 def tail_work(kernel, T, C, F, p, f32):
@@ -5616,7 +5667,7 @@ def width_inputs(gen, dev, T, C, F, p, dtype):
 
 
 def tail_route_name(fh, kernel, C, F, p, f32):
-    return "row core" if fh.row_core_takes(kernel, C, F, p, f32) else "wide"
+    return fh.ROUTES[0] if fh.row_core_takes(kernel, C, F, p, f32) else fh.ROUTES[1]
 
 
 def check_width_tail(label, largs, p, fh):
@@ -5746,11 +5797,11 @@ def drive_wide_train(dev, timed):
     stages of C <= 384, K2/K5 at C 512 and 1024) through the kernels and the plain path
     on the same weights: every block on the plain path's input and upstream gradient
     (``check_train_blocks``), the fused tail on the kernel path's own features
-    (``check_loss_kernels``: K6 on the row core, K7 at C 128, p 4 on the wide route), one
-    counted train step of each path (one K6 and one K7 at (T, 128), the attention kernels
-    22 forward and 22 backward, nothing else), then WIDE_STEPS timed steps of the kernel
-    path, the loss falling.  Returns (the step's launches per kernel and per shape, the
-    tail's timings)."""
+    (``check_loss_kernels``: K6 on the row core, K7 at C 128, p 4 on the row core with its
+    slices streamed), one counted train step of each path (one K6 and one K7 at (T, 128),
+    both on the row core, the attention kernels 22 forward and 22 backward, nothing else),
+    then WIDE_STEPS timed steps of the kernel path, the loss falling.  Returns (the step's
+    launches per kernel and per shape, the tail's timings)."""
     from heal_swin_torch.models.tasks import decoder_tail
     from heal_swin_torch.ops import final_head as fh
     from heal_swin_torch.training.optimizer import OptimizerConfig, make_optimizer
@@ -5775,8 +5826,12 @@ def drive_wide_train(dev, timed):
                                      step_generator(SEED, 0, dev))
     torch.cuda.synchronize()
     launches, by_shape = read_counters()
+    routes = read_routes()
     log(f"{label} step: kernel launches: {launches}")
     log(f"{label} step: by shape: {dict(sorted(by_shape.items(), key=str))}")
+    log(f"{label} step: tail launches by route: {routes}")
+    if routes != {("final_head_loss", "row core"): 1, ("final_head_loss_bwd", "row core"): 1}:
+        raise AssertionError(f"{label}: the tail ran on {routes}, not K6 and K7 on the row core")
     T = imgs.shape[0] * imgs.shape[1] // TAIL_P
     fwd = launches["window_attention_qkv_epi"] + launches["window_attention"]
     bwd = launches["window_attention_qkv_epi_bwd"] + launches["window_attention_bwd"]
@@ -5804,20 +5859,23 @@ def drive_wide_train(dev, timed):
 
 
 def drive_tail_widths(dev, timed):
-    """The decoder tail at every width the Pallas tails take.  First each of the ten
+    """The decoder tail at every width the Pallas tails take.  First the row cores' domain
+    (``log_row_core_domain``), then each of the ten
     kernels (K3, K6-K9, bf16 and f32) against its plain version on the card at the width
     checks' shapes (``WIDTH_CASES``, ``WIDTH_DEPTH_CASES``, T = WIDTH_T, each on the route
     that takes it), one call of each timed beside its plain version.  Then the two paths:
     (a) the paper f32 HEAL-SWIN (``paper_swin_hp_config``, its dropouts) on SynWoodScape's
     own 25 classes with seeded positive class weights: its tail timed (``time_width_path``),
-    two train steps through ``paper_step`` against the plain path (equal masks, loss 1e-5,
-    gradients 1e-4, one f32 K6 and one f32 K7 at (T, 96) on the wide route, nothing else)
-    and one ``paper_predict`` (the f32 K3, classes outside near-ties); (b)
+    held to its plain version (``check_loss_kernels``), two train steps through
+    ``paper_step`` against the plain path (equal masks, loss 1e-5, gradients 1e-4, one f32
+    K6 and one f32 K7 at (T, 96), both on the row core with the head in chunks, nothing
+    else) and one ``paper_predict`` (the f32 K3, classes outside near-ties); (b)
     ``drive_wide_train``.  Returns (the grid's results by kernel, path (a)'s step
     launches, its predict's, path (b)'s step launches, the paths' tail timings)."""
     from heal_swin_torch.ops import final_head as fh
 
     check_wide_smem(fh)
+    log_row_core_domain(fh)
     gen = torch.Generator().manual_seed(SEED + 28)
     grid = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -5837,9 +5895,13 @@ def drive_tail_widths(dev, timed):
     log("tail widths checks: " + json.dumps(by_kernel))
 
     # (a) the paper f32 config on SynWoodScape's 25 classes
-    times = time_width_path("(a) f32 25 classes tail", width_inputs(
-        torch.Generator().manual_seed(SEED + 29), dev, BATCH * 8 * NSIDE * NSIDE // TAIL_P, 96,
-        SYN_CLASSES, TAIL_P, torch.float32), TAIL_P, fh, ("predict", "loss", "loss_bwd"))
+    largs = width_inputs(torch.Generator().manual_seed(SEED + 29), dev,
+                         BATCH * 8 * NSIDE * NSIDE // TAIL_P, 96, SYN_CLASSES, TAIL_P,
+                         torch.float32)
+    check_loss_kernels("(a) f32 25 classes tail", largs, TAIL_P, fh, timing=False)
+    times = time_width_path("(a) f32 25 classes tail", largs, TAIL_P, fh,
+                            ("predict", "loss", "loss_bwd"))
+    del largs
     torch.cuda.empty_cache()
     weights = (0.5 + torch.rand(SYN_CLASSES, generator=torch.Generator().manual_seed(SEED + 30)))
     kw = dict(classes=SYN_CLASSES, class_weights=weights.tolist())
@@ -5848,9 +5910,15 @@ def drive_tail_widths(dev, timed):
     imgs, _ = train_batch(dev)
     targets = torch.clamp(((imgs[..., 0] + 2.5) * SYN_CLASSES / 5).long(), 0,
                           SYN_CLASSES - 1).to(torch.int32)
+    routes_a = {}
     run_a = paper_step("(a) paper train 25 classes", task_k, task_p, imgs, targets,
                        dict(NO_LAUNCHES, final_head_loss_f32=1, final_head_loss_bwd_f32=1),
-                       timed, ("total", targets.numel()), steps=1)
+                       timed, ("total", targets.numel()), steps=1, routes=routes_a)
+    log(f"(a) paper train 25 classes step: tail launches by route: {routes_a}")
+    if routes_a != {("final_head_loss_f32", "row core"): 1,
+                    ("final_head_loss_bwd_f32", "row core"): 1}:
+        raise AssertionError(f"(a): the tail ran on {routes_a}, not the f32 K6 and K7 on the "
+                             "row core")
     task_p.model.load_state_dict(task_k.model.state_dict())
     for t in (task_k, task_p):
         t.model.zero_grad(set_to_none=True)
@@ -5876,7 +5944,8 @@ def width_results(by_kernel, run_a, pred_a, run_b, times):
         launches, _ = run
         t = times[name]
         src = ("heal_swin_torch/csrc/final_head_wide.cu" if t["route"] == "wide"
-               else SOURCES[name][0])
+               else "heal_swin_torch/csrc/final_head_f32_chunked.cu"
+               if name.endswith("_f32") and t["F"] > 16 else SOURCES[name][0])
         rows.append(dict(
             name=f"widths {name}", route="cuda", source=src, replaces=SOURCES[name][1],
             launches=launches[name], max_abs_err=max(r["max_abs_err"] for r in by_kernel[name]),

@@ -38,6 +38,12 @@
 // warp owns 16 rows, and h, the LayerNorm, z and the logits stay in mma.sync
 // accumulators and fragments, made by the same functions in every kernel (so K3's f32
 // logits rounded to bf16 are K6's, and K7's and K9's recomputed logits K6's and K8's).
+// Where the p slices do not fit beside K3's, K6's or K7's tiles (K7 at C 128, p 4; C 96 and
+// 128 at p 16), they stream through a ring of two stages instead (SliceRing): slice i + 1's
+// copy is issued before slice i's products, one block barrier a slice.  Heads above 32
+// classes (up to 128) run in chunks of 32 (NF 0): K6 keeps each row's running max, sum and
+// argmax over the chunks, K7 walks them twice (statistics, then each chunk's dlogits into
+// the tile, dz read back from it by ldmatrix), K3 keeps a running argmax.
 // Each kernel opts in to a block's largest shared memory once per device (tail_grid).
 // K3 takes each row's argmax over its quad (tail_argmax) and writes one int32 class a
 // sub-pixel, no partial rows.  K6 reduces each row's cross entropy, argmax and weight
@@ -77,30 +83,42 @@ namespace {
 // the five kernels of the tail row core
 enum TailKind : int { kCe = 0, kCeBwd = 1, kDepth = 2, kDepthBwd = 3, kPred = 4 };
 
-// shared memory: We's p slices (p x C x C, rows padded to C + 8) | Wh (C x 8 NF bf16,
-// zero-padded, rows padded to 8 NF + 8; NF = 2 for the depth head) | two stages of the x
-// tile (128 x C) | K6: the confusion matrix (F x F int) and the warps' loss sums; K7's
-// row kernel: the tile's z (128 x C) and dlogits (128 x 8 NF), both bf16, for dWh, and
-// the warps' dgamma | dbeta column sums (2C floats a warp); K8: the warps' loss sums;
-// K9's row kernel: the warps' dWh | dgamma | dbeta column sums (C F + 2C floats a warp);
-// K3: nothing more
+constexpr size_t kTailMaxSmem = 232448;  // an H100 block's opt-in shared memory
+constexpr int kTailMaxF = 128;           // the widest class head (the Pallas tails' F)
+
+// shared memory: We's slices (p x C x C, rows padded to C + 8; where all p do not fit, K3,
+// K6 and K7 hold two stages and stream them, SliceRing) | Wh (C x FP bf16, zero-padded, FP
+// = 16 for F <= 16 (NF 2 and the depth head), else F rounded up to a whole chunk of 32,
+// rows padded to FP + 8) | two stages of the x tile (128 x C) | K6: the confusion matrix
+// (F x F int) and the warps' loss sums; K7's row kernel: the tile's z (128 x C) and
+// dlogits (128 x FP), both bf16, for dWh, heads above 32 classes the block's dWh sums (C
+// x FP f32), and the warps' dgamma | dbeta column sums (2C floats a warp); K8: the warps'
+// loss sums; K9's row kernel: the warps' dWh | dgamma | dbeta column sums (C F + 2C
+// floats a warp); K3: nothing more
 struct TailLayout {
-  size_t wh, x, stage, z, dl, red, total;
-  int ldwh;
+  size_t wh, x, stage, z, dl, dwh, red, total;
+  int ldwh, fp;
+  bool stream;  // the slices pass through two stages (SliceRing)
 };
 
-__host__ __device__ inline TailLayout tail_layout(int C, int F, int P, int kind) {
+__host__ __device__ inline TailLayout tail_layout_with(int C, int F, int P, int kind,
+                                                       bool stream) {
   TailLayout L;
-  L.ldwh = (F <= 16 ? 16 : 32) + 8;
+  L.fp = F <= 16 ? 16 : (F + 31) / 32 * 32;
+  L.ldwh = L.fp + 8;
+  L.stream = stream;
   const size_t ldx = size_t(C) + 8;
-  size_t off = align128(size_t(P) * C * ldx * 2);
+  size_t off = align128(size_t(stream ? 2 : P) * C * ldx * 2);
   L.wh = off; off += align128(size_t(C) * L.ldwh * 2);
   L.stage = align128(TAIL_ROWS * ldx * 2);
   L.x = off; off += 2 * L.stage;
-  L.z = L.dl = 0;
+  L.z = L.dl = L.dwh = 0;
   if (kind == kCeBwd) {
     L.z = off; off += L.stage;
     L.dl = off; off += align128(size_t(TAIL_ROWS) * L.ldwh * 2);
+    if (F > 32) {
+      L.dwh = off; off += align128(size_t(C) * L.fp * 4);
+    }
   }
   L.red = off;
   switch (kind) {
@@ -114,6 +132,24 @@ __host__ __device__ inline TailLayout tail_layout(int C, int F, int P, int kind)
   return L;
 }
 
+// the resident layout, or, for K3, K6 and K7 where the p slices do not fit beside the
+// tiles, the streamed one
+__host__ __device__ inline TailLayout tail_layout(int C, int F, int P, int kind) {
+  const TailLayout L = tail_layout_with(C, F, P, kind, false);
+  if (L.total > kTailMaxSmem && P > 2 && (kind == kCe || kind == kCeBwd || kind == kPred))
+    return tail_layout_with(C, F, P, kind, true);
+  return L;
+}
+
+// Wh (C x F) into C x FP (ld ldwh) with its padding columns zeroed
+__device__ __forceinline__ void stage_tail_head(bf16* whs, const bf16* __restrict__ wh, int C,
+                                                int F, int ldwh) {
+  for (int idx = threadIdx.x; idx < C * ldwh; idx += kThreads) {
+    const int r = idx / ldwh, f = idx - r * ldwh;
+    whs[idx] = f < F ? wh[size_t(r) * F + f] : to_bf(0.f);
+  }
+}
+
 // the block's resident operands: We's slices by cp.async (the caller commits them with
 // its first x tile), Wh with its padding columns zeroed
 __device__ __forceinline__ void stage_tail_weights(bf16* wes, bf16* whs,
@@ -121,11 +157,42 @@ __device__ __forceinline__ void stage_tail_weights(bf16* wes, bf16* whs,
                                                    const bf16* __restrict__ wh, int C, int F,
                                                    int P, int ldwh) {
   fetch_rows(wes, C + 8, we, P * C, C);
-  for (int idx = threadIdx.x; idx < C * ldwh; idx += kThreads) {
-    const int r = idx / ldwh, f = idx - r * ldwh;
-    whs[idx] = f < F ? wh[size_t(r) * F + f] : to_bf(0.f);
-  }
+  stage_tail_head(whs, wh, C, F, ldwh);
 }
+
+// The expand slices of K3, K6 and K7: resident (all p in shared memory for the block's
+// whole walk) or, where they do not fit beside the tiles (tail_layout), streamed through a
+// ring of two stages, slice i of the block's s-th tile in stage (s p + i) % 2; the copy of
+// the next slice starts before the current slice's products, so it overlaps them.
+struct SliceRing {
+  bf16* base;
+  const bf16* we;  // (p, C, C)
+  int C, P;
+  bool stream;
+
+  __device__ size_t size() const { return size_t(C) * (C + 8); }
+
+  // the first slices by cp.async: all p, or slice 0; the caller commits them
+  __device__ void stage() const { fetch_rows(base, C + 8, we, (stream ? 1 : P) * C, C); }
+
+  // slice i of the block's s-th tile, ready to read.  Streamed, every warp of the block
+  // calls it: for i > 0 it waits for the slice's copy (for i = 0 the tile's wait did) and
+  // for every warp to be done with the other stage, then starts the copy of the next
+  // slice (i + 1, or slice 0 of the block's next tile where `more`) into that stage.
+  __device__ const bf16* next(int s, int i, bool more) const {
+    if (!stream) return base + size_t(i) * size();
+    if (i > 0) {
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+    const int q = s * P + i;
+    if (i + 1 < P || more)
+      fetch_rows(base + size_t((q + 1) & 1) * size(), C + 8,
+                 we + size_t(i + 1 < P ? i + 1 : 0) * C * C, C, C);
+    cp_async_commit();
+    return base + size_t(q & 1) * size();
+  }
+};
 
 // x tile `tile` (its rows that exist) into a ring stage by cp.async; none past the last
 __device__ __forceinline__ void fetch_tail_tile(bf16* xs, const bf16* __restrict__ x, int tile,
@@ -136,7 +203,8 @@ __device__ __forceinline__ void fetch_tail_tile(bf16* xs, const bf16* __restrict
 }
 
 // K6: the partial row [sum w*nll, sum w, confusion matrix (F x F)] of each block; tap,
-// where not null, gets the rounded logits (T, p, F)
+// where not null, gets the rounded logits (T, p, F).  NF 0: the head in chunks of 32
+// (tail_chunk_stats)
 template <int NT, int NF>
 __global__ void __launch_bounds__(kThreads, 1)
 tail_loss_kernel(const bf16* __restrict__ x, const bf16* __restrict__ we,
@@ -151,57 +219,92 @@ tail_loss_kernel(const bf16* __restrict__ x, const bf16* __restrict__ we,
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, c2 = (lane & 3) * 2;
   const int row0 = warp * 16;
-  bf16* wes = reinterpret_cast<bf16*>(smem);
+  const SliceRing ring{reinterpret_cast<bf16*>(smem), we, C, P, L.stream};
   bf16* whs = reinterpret_cast<bf16*>(smem + L.wh);
   int* cm = reinterpret_cast<int*>(smem + L.red);
   float* wsum = reinterpret_cast<float*>(smem + L.red + align128(size_t(F) * F * 4));
   auto xs = [&](int s) { return reinterpret_cast<bf16*>(smem + L.x + (s & 1) * L.stage); };
   const int tiles = (T + TAIL_ROWS - 1) / TAIL_ROWS;
 
-  stage_tail_weights(wes, whs, we, wh, C, F, P, L.ldwh);
+  ring.stage();
+  stage_tail_head(whs, wh, C, F, L.ldwh);
   fetch_tail_tile(xs(0), x, blockIdx.x, tiles, T, C);
   cp_async_commit();
   for (int idx = tid; idx < F * F; idx += kThreads) cm[idx] = 0;
 
   float num = 0.f, den = 0.f;  // the sums of this lane's rows (lanes with c = 0)
-  int s = 0;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++s) {
-    cp_async_wait<0>();
-    __syncthreads();  // tile s has landed (with the weights); tile s - 1's stage is free
-    fetch_tail_tile(xs(s + 1), x, tile + gridDim.x, tiles, T, C);
-    cp_async_commit();
-    if (row0 >= min(TAIL_ROWS, T - tile * TAIL_ROWS)) continue;
-    const size_t grow0 = size_t(tile) * TAIL_ROWS + row0;
-    for (int i = 0; i < P; ++i) {
-      float xh[NT][4], lf[NF][4], ex[NF][4];
-      tail_xhat<NT>(xh, xs(s), ldx, row0, wes + size_t(i) * C * ldx, C, eps);
-      tail_logits<NT, NF>(lf, xh, gamma, beta, whs, L.ldwh, nullptr, 0);
-      const CeRows ce = tail_softmax<NF>(lf, ex, F);
-      if (tap != nullptr) tail_tap<NF>(tap, lf, grow0, i, P, F);
+  // the tile walk, compiled apart for the resident slices and the streamed ones (a single
+  // walk with the ring's run-time choice runs the paper shape's resident K6 ~4% slower)
+  auto walk = [&](auto streamed) {
+    constexpr bool ST = decltype(streamed)::value;
+    int s = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++s) {
+      cp_async_wait<0>();
+      __syncthreads();  // tile s has landed (with the weights); tile s - 1's stage is free
+      fetch_tail_tile(xs(s + 1), x, tile + gridDim.x, tiles, T, C);
+      cp_async_commit();
+      const bool active = row0 < min(TAIL_ROWS, T - tile * TAIL_ROWS);
+      if (!ST && !active) continue;
+      const size_t grow0 = size_t(tile) * TAIL_ROWS + row0;
+      for (int i = 0; i < P; ++i) {
+        const bf16* wei = ST ? ring.next(s, i, tile + gridDim.x < tiles)
+                             : ring.base + size_t(i) * C * ldx;
+        if (ST && !active) continue;
+        float xh[NT][4];
+        tail_xhat<NT>(xh, xs(s), ldx, row0, wei, C, eps);
+        if constexpr (NF == 0) {
+          int yi[2];
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const size_t e = (grow0 + g + 8 * h) * P + i;
-        const int yi = y[e];
-        float ly = 0.f;
+          for (int h = 0; h < 2; ++h) yi[h] = y[(grow0 + g + 8 * h) * P + i];
+          const CeStats st = tail_chunk_stats<NT>(xh, gamma, beta, whs, L.ldwh, F,
+                                                  L.fp / TAIL_CHUNK, yi, nullptr, 0, tap, grow0,
+                                                  i, P);
+          if ((lane & 3) == 0) {
 #pragma unroll
-        for (int n = 0; n < NF; ++n)
-#pragma unroll
-          for (int k = 0; k < 2; ++k) {
-            const int col = 8 * n + c2 + k;
-            if (col < F && col == yi) ly = lf[n][2 * h + k];
+            for (int h = 0; h < 2; ++h) {
+              const float wi = welem[(grow0 + g + 8 * h) * P + i];
+              num += wi * (st.mx[h] + logf(st.se[h]) - st.ly[h]);
+              den += wi;
+              if (st.best[h] < F && yi[h] >= 0 && yi[h] < F)
+                atomicAdd(cm + yi[h] * F + st.best[h], 1);  // order-free
+            }
           }
-        ly = quad_sum(ly);
-        // the lowest column at the max; none (F) for a row holding a NaN
-        const int best = quad_lowest_at<NF>(lf, h, ce.mx[h], F);
-        if ((lane & 3) == 0) {
-          const float wi = welem[e];
-          num += wi * (ce.mx[h] + logf(ce.se[h]) - ly);
-          den += wi;
-          if (best < F && yi >= 0 && yi < F) atomicAdd(cm + yi * F + best, 1);  // order-free
+        } else {
+          float lf[NF][4], ex[NF][4];
+          tail_logits<NT, NF>(lf, xh, gamma, beta, whs, L.ldwh, nullptr, 0);
+          const CeRows ce = tail_softmax<NF>(lf, ex, F);
+          if (tap != nullptr) tail_tap<NF>(tap, lf, grow0, i, P, F);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const size_t e = (grow0 + g + 8 * h) * P + i;
+            const int yi = y[e];
+            float ly = 0.f;
+#pragma unroll
+            for (int n = 0; n < NF; ++n)
+#pragma unroll
+              for (int k = 0; k < 2; ++k) {
+                const int col = 8 * n + c2 + k;
+                if (col < F && col == yi) ly = lf[n][2 * h + k];
+              }
+            ly = quad_sum(ly);
+            // the lowest column at the max; none (F) for a row holding a NaN
+            const int best = quad_lowest_at<NF>(lf, h, ce.mx[h], F);
+            if ((lane & 3) == 0) {
+              const float wi = welem[e];
+              num += wi * (ce.mx[h] + logf(ce.se[h]) - ly);
+              den += wi;
+              if (best < F && yi >= 0 && yi < F)
+                atomicAdd(cm + yi * F + best, 1);  // order-free
+            }
+          }
         }
       }
     }
-  }
+  };
+  if (L.stream)
+    walk(std::true_type{});
+  else
+    walk(std::false_type{});
   num = warp_sum(num);
   den = warp_sum(den);
   if (lane == 0) {
@@ -224,7 +327,10 @@ tail_loss_kernel(const bf16* __restrict__ x, const bf16* __restrict__ we,
 
 // K7's row kernel: dx (T x C bf16), dh (T x p C bf16: dh_i in columns i C ..) and the
 // partial row [dWh (C x F) | dgamma (C) | dbeta (C)] of each block, for the loss
-// gradient scale = gloss / den (on the device); tap as K6's
+// gradient scale = gloss / den (on the device); tap as K6's.  NF 0: the head in chunks of
+// 32, walked twice a slice: the row statistics (tail_chunk_stats, K6's), then each chunk's
+// logits remade for its dlogits into the tile (tail_chunk_dlogits); dz = dlogits Wh^T
+// reads the dlogits' A fragments from the tile, and dWh sums in shared memory.
 template <int NT, int NF>
 __global__ void __launch_bounds__(kThreads, 1)
 tail_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ we,
@@ -235,17 +341,20 @@ tail_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ we,
                 bf16* __restrict__ tap, int T, int F, int P, float eps) {
   constexpr int C = 8 * NT;
   constexpr int ldx = C + 8;
-  constexpr int KS = NF / 2;  // 16-wide k-steps of a dlogits row
+  constexpr bool CH = NF == 0;
+  constexpr int KS = CH ? 2 : NF / 2;  // 16-wide k-steps of a dlogits row (of a chunk)
   extern __shared__ __align__(128) unsigned char smem[];
   const TailLayout L = tail_layout(C, F, P, kCeBwd);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, c2 = (lane & 3) * 2;
   const int row0 = warp * 16;
   const int ldwh = L.ldwh;
-  bf16* wes = reinterpret_cast<bf16*>(smem);
+  const int nch = L.fp / TAIL_CHUNK;
+  const SliceRing ring{reinterpret_cast<bf16*>(smem), we, C, P, L.stream};
   bf16* whs = reinterpret_cast<bf16*>(smem + L.wh);
   bf16* zs = reinterpret_cast<bf16*>(smem + L.z);
   bf16* dls = reinterpret_cast<bf16*>(smem + L.dl);
+  float* dwhs = reinterpret_cast<float*>(smem + L.dwh);  // NF 0: the block's dWh (C x FP)
   float* red = reinterpret_cast<float*>(smem + L.red);
   float* wred = red + warp * 2 * C;  // this warp's dgamma | dbeta column sums
   auto xs = [&](int s) { return reinterpret_cast<bf16*>(smem + L.x + (s & 1) * L.stage); };
@@ -253,14 +362,17 @@ tail_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ we,
   const float scale = *scale_p;
   const bool dwh_rows = warp < C / 16;  // this warp sums rows 16 warp .. of dWh
 
-  stage_tail_weights(wes, whs, we, wh, C, F, P, ldwh);
+  ring.stage();
+  stage_tail_head(whs, wh, C, F, ldwh);
   fetch_tail_tile(xs(0), x, blockIdx.x, tiles, T, C);
   cp_async_commit();
   for (int idx = tid; idx < kWarps * 2 * C; idx += kThreads) red[idx] = 0.f;
+  if constexpr (CH)
+    for (int idx = tid; idx < C * L.fp; idx += kThreads) dwhs[idx] = 0.f;
 
-  float dwh[KS][1][2][4];
+  float dwh[CH ? 1 : KS][1][2][4];
 #pragma unroll
-  for (int k = 0; k < KS; ++k)
+  for (int k = 0; k < (CH ? 1 : KS); ++k)
 #pragma unroll
     for (int j = 0; j < 2; ++j)
 #pragma unroll
@@ -278,19 +390,12 @@ tail_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ we,
 #pragma unroll
     for (int t = 0; t < NT; ++t) dxa[t][0] = dxa[t][1] = dxa[t][2] = dxa[t][3] = 0.f;
     for (int i = 0; i < P; ++i) {
-      const bf16* wei = wes + size_t(i) * C * ldx;
+      const bf16* wei = ring.next(s, i, tile + gridDim.x < tiles);
       float xh[NT][4];
       LnRows r;
       if (active) r = tail_xhat<NT>(xh, xs(s), ldx, row0, wei, C, eps);
       __syncthreads();  // the last slice's dWh product has read zs and dls
       if (active) {
-        float lf[NF][4], ex[NF][4];
-        tail_logits<NT, NF>(lf, xh, gamma, beta, whs, ldwh, zs + row0 * ldx, ldx);
-        const CeRows ce = tail_softmax<NF>(lf, ex, F);
-        if (tap != nullptr) tail_tap<NF>(tap, lf, grow0, i, P, F);
-
-        // dlogits = bf16(scale w (softmax - onehot)), 0 at columns >= F
-        float dl[NF][4];
         int yi[2];
         float sw[2];
 #pragma unroll
@@ -299,23 +404,56 @@ tail_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ we,
           yi[h] = y[e];
           sw[h] = __fmul_rn(scale, welem[e]);
         }
+        uint32_t da[KS][4];  // the dlogits' A fragments (NF 2, 4: held in registers)
+        if constexpr (CH) {
+          const CeStats st = tail_chunk_stats<NT>(xh, gamma, beta, whs, ldwh, F, nch, yi,
+                                                  zs + row0 * ldx, ldx, tap, grow0, i, P);
+          for (int ch = 0; ch < nch; ++ch)
+            tail_chunk_dlogits<NT>(xh, gamma, beta, whs, ldwh, F, ch, st, yi, sw, dls, row0);
+          __syncwarp();  // the warp's dlogits rows are in the tile
+        } else {
+          float lf[NF][4], ex[NF][4];
+          tail_logits<NT, NF>(lf, xh, gamma, beta, whs, ldwh, zs + row0 * ldx, ldx);
+          const CeRows ce = tail_softmax<NF>(lf, ex, F);
+          if (tap != nullptr) tail_tap<NF>(tap, lf, grow0, i, P, F);
+
+          // dlogits = bf16(scale w (softmax - onehot)), 0 at columns >= F
+          float dl[NF][4];
 #pragma unroll
-        for (int n = 0; n < NF; ++n) {
+          for (int n = 0; n < NF; ++n) {
 #pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            const int col = 8 * n + c2 + (k & 1), h = k >> 1;
-            dl[n][k] = col < F ? bfr(sw[h] * (__fdiv_rn(ex[n][k], ce.se[h]) -
-                                               (col == yi[h] ? 1.f : 0.f)))
-                               : 0.f;
+            for (int k = 0; k < 4; ++k) {
+              const int col = 8 * n + c2 + (k & 1), h = k >> 1;
+              dl[n][k] = col < F ? bfr(sw[h] * (__fdiv_rn(ex[n][k], ce.se[h]) -
+                                                 (col == yi[h] ? 1.f : 0.f)))
+                                 : 0.f;
+            }
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              *reinterpret_cast<uint32_t*>(dls + (row0 + g + 8 * h) * ldwh + 8 * n + c2) =
+                  pack_bf2(dl[n][2 * h], dl[n][2 * h + 1]);
           }
 #pragma unroll
-          for (int h = 0; h < 2; ++h)
-            *reinterpret_cast<uint32_t*>(dls + (row0 + g + 8 * h) * ldwh + 8 * n + c2) =
-                pack_bf2(dl[n][2 * h], dl[n][2 * h + 1]);
+          for (int k = 0; k < KS; ++k) pack_a_frag(da[k], dl[2 * k], dl[2 * k + 1]);
         }
-        uint32_t da[KS][4];
+
+        // dz (columns 32 j ..) = dlogits Wh^T: from the registers, or chunk by chunk from
+        // the dlogits tile (ldmatrix), k ascending either way
+        auto dz_of = [&](float (&dz)[4][4], int j) {
 #pragma unroll
-        for (int k = 0; k < KS; ++k) pack_a_frag(da[k], dl[2 * k], dl[2 * k + 1]);
+          for (int t = 0; t < 4; ++t) dz[t][0] = dz[t][1] = dz[t][2] = dz[t][3] = 0.f;
+          if constexpr (CH) {
+            const bf16* dlrow = dls + (row0 + (lane & 15)) * ldwh + (lane >> 4) * 8;
+            for (int ch = 0; ch < nch; ++ch) {
+              uint32_t dc[2][4];
+              ldsm_x4(dc[0], dlrow + TAIL_CHUNK * ch);
+              ldsm_x4(dc[1], dlrow + TAIL_CHUNK * ch + 16);
+              frags_times_rows_t<4, 2>(dz, dc, whs + 32 * j * ldwh + TAIL_CHUNK * ch, ldwh, 4);
+            }
+          } else {
+            frags_times_rows_t<4, KS>(dz, da, whs + 32 * j * ldwh, ldwh, 4);
+          }
+        };
 
         // dz = dlogits Wh^T, 32 columns at a time, twice: first the LayerNorm backward's
         // row means m1, m2 of dz gamma and dz gamma xhat and the column sums dgamma =
@@ -323,8 +461,8 @@ tail_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ we,
         float m[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
 #pragma unroll
         for (int j = 0; j < NT / 4; ++j) {
-          float dz[4][4] = {};
-          frags_times_rows_t<4, KS>(dz, da, whs + 32 * j * ldwh, ldwh, 4);
+          float dz[4][4];
+          dz_of(dz, j);
 #pragma unroll
           for (int t = 0; t < 4; ++t) {
             const int c = 32 * j + 8 * t + c2, n = 4 * j + t;
@@ -358,8 +496,8 @@ tail_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ we,
         bf16* dhrow = dh + grow0 * P * C + size_t(i) * C;
 #pragma unroll
         for (int j = 0; j < NT / 4; ++j) {
-          float dz[4][4] = {};
-          frags_times_rows_t<4, KS>(dz, da, whs + 32 * j * ldwh, ldwh, 4);
+          float dz[4][4];
+          dz_of(dz, j);
 #pragma unroll
           for (int t = 0; t < 4; ++t) {
             const int c = 32 * j + 8 * t + c2;
@@ -381,10 +519,28 @@ tail_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ we,
         }
       }
       __syncthreads();  // the tile's z and dlogits are in
-      if (dwh_rows)
+      if constexpr (CH) {
+        // dWh += z^T dlogits: 16 x 16 output tiles over the warps, each tile's sum from
+        // zero added to the block's sums in shared memory by the one lane that owns them
+        const int kt = L.fp / 16;
+        for (int id = warp; id < (C / 16) * kt; id += kWarps) {
+          const int mt = id / kt, kg = id - mt * kt;
+          float acc[1][2][4] = {};
+          tile_t_times_tile_cols<1>(acc, zs, ldx, 1, mt, kWarps, dls, ldwh, 16 * kg, rows);
+#pragma unroll
+          for (int jn = 0; jn < 2; ++jn)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              float* d = dwhs + (16 * mt + g + 8 * (e >> 1)) * L.fp + 16 * kg + 8 * jn + c2 +
+                         (e & 1);
+              *d = __fadd_rn(*d, acc[0][jn][e]);
+            }
+        }
+      } else if (dwh_rows) {
 #pragma unroll
         for (int k = 0; k < KS; ++k)
           tile_t_times_tile_cols<1>(dwh[k], zs, ldx, 1, warp, kWarps, dls, ldwh, 16 * k, rows);
+      }
     }
     if (active) {
 #pragma unroll
@@ -398,11 +554,16 @@ tail_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ we,
     }
   }
 
-  // the block's partial row: dWh from the warps' accumulators, dgamma | dbeta summed over
-  // the warps in warp order
+  // the block's partial row: dWh from the warps' accumulators (or the block's sums),
+  // dgamma | dbeta summed over the warps in warp order
   __syncthreads();
   float* prow = part + size_t(blockIdx.x) * (C * F + 2 * C);
-  if (dwh_rows) {
+  if constexpr (CH) {
+    for (int idx = tid; idx < C * F; idx += kThreads) {
+      const int row = idx / F, col = idx - row * F;
+      prow[idx] = dwhs[row * L.fp + col];
+    }
+  } else if (dwh_rows) {
 #pragma unroll
     for (int k = 0; k < KS; ++k)
 #pragma unroll
@@ -481,7 +642,8 @@ tail_depth_kernel(const bf16* __restrict__ x, const bf16* __restrict__ we,
 }
 
 // K3: the class index of every sub-pixel, preds (T, p) int32; tap, where not null, gets
-// the f32 logits (T, p, F) the argmax took.  K8's skeleton without its partial rows.
+// the f32 logits (T, p, F) the argmax took.  K8's skeleton without its partial rows, on
+// K6's slice ring; NF 0: the head in chunks of 32 (tail_chunk_argmax).
 template <int NT, int NF>
 __global__ void __launch_bounds__(kThreads, 1)
 tail_pred_kernel(const bf16* __restrict__ x, const bf16* __restrict__ we,
@@ -493,12 +655,13 @@ tail_pred_kernel(const bf16* __restrict__ x, const bf16* __restrict__ we,
   extern __shared__ __align__(128) unsigned char smem[];
   const TailLayout L = tail_layout(C, F, P, kPred);
   const int row0 = (threadIdx.x >> 5) * 16;
-  bf16* wes = reinterpret_cast<bf16*>(smem);
+  const SliceRing ring{reinterpret_cast<bf16*>(smem), we, C, P, L.stream};
   bf16* whs = reinterpret_cast<bf16*>(smem + L.wh);
   auto xs = [&](int s) { return reinterpret_cast<bf16*>(smem + L.x + (s & 1) * L.stage); };
   const int tiles = (T + TAIL_ROWS - 1) / TAIL_ROWS;
 
-  stage_tail_weights(wes, whs, we, wh, C, F, P, L.ldwh);
+  ring.stage();
+  stage_tail_head(whs, wh, C, F, L.ldwh);
   fetch_tail_tile(xs(0), x, blockIdx.x, tiles, T, C);
   cp_async_commit();
 
@@ -508,14 +671,23 @@ tail_pred_kernel(const bf16* __restrict__ x, const bf16* __restrict__ we,
     __syncthreads();  // tile s has landed (with the weights); tile s - 1's stage is free
     fetch_tail_tile(xs(s + 1), x, tile + gridDim.x, tiles, T, C);
     cp_async_commit();
-    if (row0 >= min(TAIL_ROWS, T - tile * TAIL_ROWS)) continue;
+    const bool active = row0 < min(TAIL_ROWS, T - tile * TAIL_ROWS);
+    if (!active && !L.stream) continue;
     const size_t grow0 = size_t(tile) * TAIL_ROWS + row0;
     for (int i = 0; i < P; ++i) {
-      float xh[NT][4], lf[NF][4];
-      tail_xhat<NT>(xh, xs(s), ldx, row0, wes + size_t(i) * C * ldx, C, eps);
-      tail_logits<NT, NF>(lf, xh, gamma, beta, whs, L.ldwh, nullptr, 0);
-      if (tap != nullptr) tail_tap<NF>(tap, lf, grow0, i, P, F);
-      tail_argmax<NF>(lf, preds, grow0, i, P, F);
+      const bf16* wei = ring.next(s, i, tile + gridDim.x < tiles);
+      if (!active) continue;
+      float xh[NT][4];
+      tail_xhat<NT>(xh, xs(s), ldx, row0, wei, C, eps);
+      if constexpr (NF == 0) {
+        tail_chunk_argmax<NT>(xh, gamma, beta, whs, L.ldwh, F, L.fp / TAIL_CHUNK, preds, tap,
+                              grow0, i, P);
+      } else {
+        float lf[NF][4];
+        tail_logits<NT, NF>(lf, xh, gamma, beta, whs, L.ldwh, nullptr, 0);
+        if (tap != nullptr) tail_tap<NF>(tap, lf, grow0, i, P, F);
+        tail_argmax<NF>(lf, preds, grow0, i, P, F);
+      }
     }
   }
 }
@@ -688,14 +860,15 @@ cudaError_t with_c(int C, Fn f) {
   }
 }
 
-// f(NT, NF) for the class head's instantiation (K3, K6, K7) of C and F: F <= 16 (NF 2) or
-// <= 32 (NF 4)
+// f(NT, NF) for the class head's instantiation (K3, K6, K7) of C and F: F <= 16 (NF 2),
+// <= 32 (NF 4), or up to 128 in chunks of 32 (NF 0)
 template <typename Fn>
 cudaError_t with_tail(int C, int F, Fn f) {
-  if (F < 1 || F > 32) return cudaErrorInvalidValue;
+  if (F < 1 || F > kTailMaxF) return cudaErrorInvalidValue;
   return with_c(C, [&](auto nt) {
-    return F <= 16 ? f(nt, std::integral_constant<int, 2>{})
-                   : f(nt, std::integral_constant<int, 4>{});
+    if (F <= 16) return f(nt, std::integral_constant<int, 2>{});
+    if (F <= 32) return f(nt, std::integral_constant<int, 4>{});
+    return f(nt, std::integral_constant<int, 0>{});
   });
 }
 
@@ -705,8 +878,6 @@ cudaError_t with_depth(int C, int F, Fn f) {
   if (F < 1 || F > 2) return cudaErrorInvalidValue;
   return with_c(C, [&](auto nt) { return f(nt, std::integral_constant<int, 2>{}); });
 }
-
-constexpr size_t kTailMaxSmem = 232448;  // an H100 block's opt-in shared memory
 
 template <int NT, int NF, int KIND>
 const void* tail_kernel() {

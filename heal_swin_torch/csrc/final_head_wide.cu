@@ -11,11 +11,11 @@
 // (rounded to x's dtype), logits = z Wh in f32; the cross entropy on the logits rounded
 // to x's dtype, the argmax and the depth loss on the f32 logits.
 //
-// Why another route.  The row cores hold a row's C columns and the head in mma
-// accumulators, one instantiation per C, and keep the expand slices resident in shared
-// memory: the bf16 core all p of them (K7 at C 128, p 4 needs 264 KB), the f32 core one
-// (153.6 KB at C 192 beside a 100 KB x tile).  Here nothing grows with p, and C and F are
-// launch arguments: every kernel is a launch sequence of
+// Why another route.  The row cores hold a row's C columns in mma accumulators, one
+// instantiation per C in 32, 64, 96, 128, and their tiles in shared memory grow with C, the
+// head and (K8, K9 in bf16) p: a head of 128 classes at C 128 does not fit K7's tiles, and
+// the f32 core's one slice is 153.6 KB at C 192 beside a 100 KB x tile.  Here nothing grows
+// with p, and C and F are launch arguments: every kernel is a launch sequence of
 //   1. the expand H = x We (T x p C, x's dtype) by the hand-written GEMMs of reduce.cu
 //      (bf16: gemm_nt on We^T, rounded to bf16 on the way out) and attention_f32.cuh (f32:
 //      gemm_3xtf32_kernel NN, 3xTF32 mma.sync), their last k slice zero-filled past C;

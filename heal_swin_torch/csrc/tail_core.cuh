@@ -20,6 +20,14 @@
 // (tail_softmax); K3 takes the argmax of the f32 logits, not rounded (tail_argmax); the
 // depth kernels keep them f32 and take the masked depth loss of columns 0 and 1 (mean,
 // logvar), which sit in the quad's lane with c2 = 0 (tail_depth, depth_dlogits).
+//
+// Heads above 32 classes run in chunks of 32 (NF 4): chunk ch is tail_logits on Wh's
+// columns 32 ch .. 32 ch + 31, so a chunk's logits depend on the same fragments in every
+// kernel (a column's sum does not depend on its neighbours).  The cross entropy walks the
+// chunks once with a running max, a sum of exp(logit - max) rescaled where the max grows,
+// the lowest column at the max and the target's logit (tail_chunk_stats), then merges the
+// quad's lanes; K3 takes the running argmax of the f32 logits (tail_chunk_argmax); K7
+// remakes each chunk's logits for its dlogits (tail_chunk_dlogits).
 #pragma once
 
 #include <math_constants.h>
@@ -180,19 +188,188 @@ __device__ __forceinline__ void put(bf16* p, float v) { *p = to_bf(v); }
 __device__ __forceinline__ void put(float* p, float v) { *p = v; }
 
 // the logits of the warp's rows g, g + 8 to tap (T, p, F): bf16 (rounded) or f32, sub-pixel
-// i, the warp's first row grow0 (a probe's output; columns >= F are not written)
+// i, the warp's first row grow0, lf's first column col0 (a probe's output; columns >= F
+// are not written)
 template <int NF, typename Out>
 __device__ __forceinline__ void tail_tap(Out* __restrict__ tap, const float (&lf)[NF][4],
-                                         size_t grow0, int i, int P, int F) {
+                                         size_t grow0, int i, int P, int F, int col0 = 0) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, c2 = (lane & 3) * 2;
 #pragma unroll
   for (int n = 0; n < NF; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int col = 8 * n + c2 + (e & 1);
+      const int col = col0 + 8 * n + c2 + (e & 1);
       if (col < F) put(tap + ((grow0 + g + 8 * (e >> 1)) * P + i) * F + col, lf[n][e]);
     }
+}
+
+// ---------------------------------------------------------------------------------
+// The head in chunks of 32 classes (F > 32; Wh zero-padded to a whole chunk)
+// ---------------------------------------------------------------------------------
+
+constexpr int TAIL_CHUNK = 32;  // classes of a head chunk: NF 4
+
+struct CeStats {  // rows g (0) and g + 8 (1), the same in every lane of the quad
+  float mx[2], se[2];  // the max rounded logit (NaN where one is NaN), sum of exp(l - max)
+  float ly[2];         // the target's rounded logit (0 for a target outside 0 .. F - 1)
+  int best[2];         // the lowest column at the max; F for a row holding a NaN
+};
+
+// chunk ch's logits of the warp's rows (tail_logits on Wh's columns 32 ch ..); zs as
+// tail_logits' (z is written where not null)
+template <int NT>
+__device__ __forceinline__ void chunk_logits(float (&lf)[4][4], const float (&xh)[NT][4],
+                                             const float* __restrict__ gamma,
+                                             const float* __restrict__ beta, const bf16* whs,
+                                             int ldwh, int ch, bf16* zs, int ldz) {
+  tail_logits<NT, 4>(lf, xh, gamma, beta, whs + TAIL_CHUNK * ch, ldwh, zs, ldz);
+}
+
+// the cross entropy's statistics of the warp's rows over the head's nch chunks: each
+// chunk's logits rounded to bf16 (-inf past F), then per lane a running max, the lowest
+// column at it and a sum of exp(logit - max) rescaled by exp(old - new) where the max
+// grows; the target's logit where the lane holds it; then the quad's lanes merged.  z is
+// written to zs with chunk 0 where zs is not null; tap (may be null) gets the rounded
+// logits as tail_tap's.
+template <int NT, typename Tap>
+__device__ __forceinline__ CeStats tail_chunk_stats(const float (&xh)[NT][4],
+                                                    const float* __restrict__ gamma,
+                                                    const float* __restrict__ beta,
+                                                    const bf16* whs, int ldwh, int F, int nch,
+                                                    const int (&yi)[2], bf16* zs, int ldz,
+                                                    Tap* __restrict__ tap, size_t grow0, int i,
+                                                    int P) {
+  const int c2 = (threadIdx.x & 3) * 2;
+  float mx[2] = {-CUDART_INF_F, -CUDART_INF_F}, se[2] = {0.f, 0.f}, ly[2] = {0.f, 0.f};
+  int best[2] = {F, F}, nan[2] = {0, 0};
+  for (int ch = 0; ch < nch; ++ch) {
+    float lf[4][4];
+    chunk_logits<NT>(lf, xh, gamma, beta, whs, ldwh, ch, ch == 0 ? zs : nullptr, ldz);
+    float m[2] = {mx[0], mx[1]};
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {  // columns in ascending order within the lane
+        const int col = TAIL_CHUNK * ch + 8 * n + c2 + (e & 1), h = e >> 1;
+        const float v = col < F ? bfr(lf[n][e]) : -CUDART_INF_F;
+        lf[n][e] = v;
+        if (col < F) {
+          nan[h] |= isnan(v) ? 1 : 0;
+          if (best[h] == F ? v >= m[h] : v > m[h]) best[h] = col;  // a NaN compares false
+          m[h] = fmaxf(m[h], v);
+          if (col == yi[h]) ly[h] = v;
+        }
+      }
+    if (tap != nullptr) tail_tap<4>(tap, lf, grow0, i, P, F, TAIL_CHUNK * ch);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float s = mx[h] == m[h] ? se[h] : __fmul_rn(se[h], expf(mx[h] - m[h]));
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const float v = lf[n][2 * h + k];
+          if (v != -CUDART_INF_F) s = __fadd_rn(s, expf(v - m[h]));
+        }
+      mx[h] = m[h];
+      se[h] = s;
+    }
+  }
+  CeStats r;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    int nn = nan[h];
+    nn |= __shfl_xor_sync(0xffffffffu, nn, 1);
+    nn |= __shfl_xor_sync(0xffffffffu, nn, 2);
+    float M = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, 2));
+    r.se[h] = quad_sum(mx[h] == M ? se[h] : __fmul_rn(se[h], expf(mx[h] - M)));
+    int b = mx[h] == M ? best[h] : F;
+    b = min(b, __shfl_xor_sync(0xffffffffu, b, 1));
+    b = min(b, __shfl_xor_sync(0xffffffffu, b, 2));
+    r.ly[h] = quad_sum(ly[h]);  // one lane holds the target's logit, or none
+    r.mx[h] = nn ? CUDART_NAN_F : M;
+    r.best[h] = nn ? F : b;
+  }
+  return r;
+}
+
+// K7's dlogits of chunk ch, remade from the same logits: dl = bf16(sw (exp(l - max) / se -
+// onehot)), 0 past F, into the warp's rows of the dlogits tile dls (ld ldwh, from row0)
+template <int NT>
+__device__ __forceinline__ void tail_chunk_dlogits(const float (&xh)[NT][4],
+                                                   const float* __restrict__ gamma,
+                                                   const float* __restrict__ beta,
+                                                   const bf16* whs, int ldwh, int F, int ch,
+                                                   const CeStats& st, const int (&yi)[2],
+                                                   const float (&sw)[2], bf16* dls, int row0) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, c2 = (lane & 3) * 2;
+  float lf[4][4];
+  chunk_logits<NT>(lf, xh, gamma, beta, whs, ldwh, ch, nullptr, 0);
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    float dl[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = TAIL_CHUNK * ch + 8 * n + c2 + (e & 1), h = e >> 1;
+      dl[e] = col < F ? bfr(sw[h] * (__fdiv_rn(expf(bfr(lf[n][e]) - st.mx[h]), st.se[h]) -
+                                     (col == yi[h] ? 1.f : 0.f)))
+                      : 0.f;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<uint32_t*>(dls + (row0 + g + 8 * h) * ldwh + TAIL_CHUNK * ch + 8 * n +
+                                   c2) = pack_bf2(dl[2 * h], dl[2 * h + 1]);
+  }
+}
+
+// K3's class of the warp's rows over the head's nch chunks: the f32 logits (not rounded),
+// per lane a running max and the lowest column at it, then the quad merged; F - 1 for a
+// row holding a NaN (tail_argmax's rule).  The quad's lane with c2 = 0 writes the classes;
+// tap (may be null) gets the f32 logits.
+template <int NT>
+__device__ __forceinline__ void tail_chunk_argmax(const float (&xh)[NT][4],
+                                                  const float* __restrict__ gamma,
+                                                  const float* __restrict__ beta,
+                                                  const bf16* whs, int ldwh, int F, int nch,
+                                                  int* __restrict__ preds,
+                                                  float* __restrict__ tap, size_t grow0, int i,
+                                                  int P) {
+  const int lane = threadIdx.x & 31;
+  const int c2 = (lane & 3) * 2;
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  int best[2] = {F, F}, nan[2] = {0, 0};
+  for (int ch = 0; ch < nch; ++ch) {
+    float lf[4][4];
+    chunk_logits<NT>(lf, xh, gamma, beta, whs, ldwh, ch, nullptr, 0);
+    if (tap != nullptr) tail_tap<4>(tap, lf, grow0, i, P, F, TAIL_CHUNK * ch);
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = TAIL_CHUNK * ch + 8 * n + c2 + (e & 1), h = e >> 1;
+        const float v = lf[n][e];
+        if (col < F) {
+          nan[h] |= isnan(v) ? 1 : 0;
+          if (best[h] == F ? v >= m[h] : v > m[h]) best[h] = col;
+          m[h] = fmaxf(m[h], v);
+        }
+      }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    int nn = nan[h];
+    nn |= __shfl_xor_sync(0xffffffffu, nn, 1);
+    nn |= __shfl_xor_sync(0xffffffffu, nn, 2);
+    float M = fmaxf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 1));
+    M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, 2));
+    int b = m[h] == M ? best[h] : F;
+    b = min(b, __shfl_xor_sync(0xffffffffu, b, 1));
+    b = min(b, __shfl_xor_sync(0xffffffffu, b, 2));
+    if ((lane & 3) == 0) preds[(grow0 + (lane >> 2) + 8 * h) * P + i] = nn ? F - 1 : b;
+  }
 }
 
 // K8's epilogue on the logits of the warp's rows (tail_logits): the quad's lane with c2 =

@@ -89,6 +89,16 @@
 // for the cross entropy and the argmax (F <= 16: the paper's segmentation heads have 8,
 // 10 and 12 classes), NF = 4 for the depth head (F <= 2; 8 columns on the tensor cores);
 // the depth loss's kind is a launch argument.
+//
+// Heads above 16 classes (NF 0, up to 128 where shared memory holds them: F32Layout) run
+// in chunks of 16 columns: the logits tile is F rounded up to 16 (NH) wide, each chunk's
+// logits made by tf_logits<C, 16> on Wh's columns 16 ch .. (a column's sum does not depend
+// on its neighbours, so every kernel gets the same bits); the per-row epilogues walk the
+// row in the tile, two lanes a row (pair_max, pair_sum); the backward forms dz = dlogits
+// Wh^T for all of a row's C columns at once, k outer, each dlogits fragment read from the
+// tile once, and sums dWh in shared memory (C x NH f32, each element by one lane, each
+// tile's sum from zero added rounded to nearest).
+// They compile in their own unit (final_head_f32_chunked.cu), beside the fixed heads'.
 
 #pragma once
 
@@ -148,16 +158,25 @@ __host__ __device__ inline bool f32_is_bwd(int kind) {
 // the head's columns on the tensor cores: NF rounded up to a whole 8-column n-tile
 __host__ __device__ constexpr int nh_of(int NF) { return NF < 8 ? 8 : NF; }
 
+constexpr int F32_CHUNK = 16;  // columns of a head chunk (NF 0)
+constexpr int kF32MaxF = 128;  // the widest class head (the Pallas tails' F)
+
+// the logits tile's columns: nh_of(NF), or F rounded up to whole chunks for NF 0
+__host__ __device__ inline int head_cols(int NF, int F) {
+  return NF == 0 ? (F + F32_CHUNK - 1) / F32_CHUNK * F32_CHUNK : nh_of(NF);
+}
+
 // shared memory: We_i (C x (C + 8)) | Wh (C x (NH + 4), zero-padded) | gamma | beta | the x
 // tile (128 x (C + 4)) | K7, K9: the z / dh tile (128 x (C + 4)) | the logits / dlogits
-// tile (128 x (NH + 4)) | K6: the confusion matrix (F x F int) and the warps' loss sums;
-// K8: the warps' loss sums; K3, K7, K9: nothing
+// tile (128 x (NH + 4)) | K7 with NF 0: the block's dWh sums (C x NH) | K6: the confusion
+// matrix (F x F int) and the warps' loss sums; K8: the warps' loss sums; K3, K7, K9:
+// nothing
 struct F32Layout {
-  size_t wh, gb, x, zd, l, red, total;
+  size_t wh, gb, x, zd, l, dwh, red, total;
 };
 
 __host__ __device__ inline F32Layout f32_layout(int C, int NF, int F, int kind) {
-  const int NH = nh_of(NF);
+  const int NH = head_cols(NF, F);
   F32Layout L;
   size_t off = align128(size_t(C) * (C + 8) * 4);
   L.wh = off; off += align128(size_t(C) * (NH + 4) * 4);
@@ -166,6 +185,8 @@ __host__ __device__ inline F32Layout f32_layout(int C, int NF, int F, int kind) 
   L.zd = off;
   if (f32_is_bwd(kind)) off += align128(size_t(TF_ROWS) * (C + 4) * 4);
   L.l = off; off += align128(size_t(TF_ROWS) * (NH + 4) * 4);
+  L.dwh = off;
+  if (NF == 0 && f32_is_bwd(kind)) off += align128(size_t(C) * NH * 4);
   L.red = off;
   if (kind == kF32Ce || kind == kF32Depth)
     off += (kind == kF32Ce ? align128(size_t(F) * F * 4) : 0) + align128(2 * TF_WARPS * 4);
@@ -175,11 +196,11 @@ __host__ __device__ inline F32Layout f32_layout(int C, int NF, int F, int kind) 
 
 // the block's resident head and LayerNorm parameters: Wh (C x F) into C x NH (ld NH + 4)
 // with its padding columns zeroed
-template <int C, int NF>
+template <int C>
 __device__ __forceinline__ void stage_head(float* whs, float* gs, const float* __restrict__ wh,
                                            const float* __restrict__ gamma,
-                                           const float* __restrict__ beta, int F) {
-  constexpr int NH = nh_of(NF), LDH = NH + 4;
+                                           const float* __restrict__ beta, int F, int NH) {
+  const int LDH = NH + 4;
   for (int idx = threadIdx.x; idx < C * NH; idx += TF_THREADS) {
     const int r = idx / NH, f = idx - r * NH;
     whs[r * LDH + f] = f < F ? wh[size_t(r) * F + f] : 0.f;
@@ -303,15 +324,16 @@ __device__ __forceinline__ void tf_store_rows(float* p, const float (&a)[NT][4],
   }
 }
 
-// lf (the warp's 16 rows x NH) = z Wh, z = z_of(xhat, gamma, beta) from the accumulators
-// xh, Wh (C x NH, ld NH + 4) in whs, gamma | beta in gs.  The k index of each 8-column
-// step runs over the columns (0, 2, 4, 6, 1, 3, 5, 7), on z's fragments and Wh's rows
-// alike.  zout, where not null: the warp's 16 rows of z are stored there too (ld C + 4).
+// lf (the warp's 16 rows x nh_of(NF)) = z Wh, z = z_of(xhat, gamma, beta) from the
+// accumulators xh, Wh's first nh_of(NF) columns at whs (ld LDH), gamma | beta in gs.  The
+// k index of each 8-column step runs over the columns (0, 2, 4, 6, 1, 3, 5, 7), on z's
+// fragments and Wh's rows alike.  zout, where not null: the warp's 16 rows of z are
+// stored there too (ld C + 4).
 template <int C, int NF>
 __device__ __forceinline__ void tf_logits(float (&lf)[nh_of(NF) / 8][4],
                                           const float (&xh)[C / 8][4], const float* gs,
-                                          const float* whs, float* zout) {
-  constexpr int NT = C / 8, NTH = nh_of(NF) / 8, LDH = nh_of(NF) + 4, LDX = C + 4;
+                                          const float* whs, float* zout, int LDH) {
+  constexpr int NT = C / 8, NTH = nh_of(NF) / 8, LDX = C + 4;
   const int lane = threadIdx.x & 31, g = lane >> 2, c2 = (lane & 3) * 2;
   float ll[NTH][4];  // the small terms apart (mma_3xtf32_apart)
 #pragma unroll
@@ -346,18 +368,28 @@ __device__ __forceinline__ void tf_logits(float (&lf)[nh_of(NF) / 8][4],
 }
 
 // the forward recomputed for the warp's rows r0 ..: xhat in h, rstd, and the logits stored
-// to the warp's rows of the logits tile ls (ld NH + 4); z stored to zout where not null
+// to the warp's rows of the logits tile ls (ld NH + 4; NF 0: NH = nh columns, made chunk by
+// chunk); z stored to zout where not null
 template <int C, int NF>
 __device__ __forceinline__ void tf_forward(float (&h)[C / 8][4], float (&rstd)[2],
                                            const float* xs, const float* wes, const float* gs,
                                            const float* whs, float* ls, float* zout, int r0,
-                                           float eps) {
-  constexpr int NH = nh_of(NF);
+                                           float eps, int nh) {
   tf_expand<C>(h, xs, wes, r0);
   tf_layernorm<C>(h, rstd, eps);
-  float lf[NH / 8][4];
-  tf_logits<C, NF>(lf, h, gs, whs, zout);
-  tf_store_rows<NH / 8>(ls + r0 * (NH + 4), lf, NH + 4);
+  if constexpr (NF == 0) {
+    const int ld = nh + 4;
+    for (int ch = 0; ch < nh / F32_CHUNK; ++ch) {
+      float lf[F32_CHUNK / 8][4];
+      tf_logits<C, F32_CHUNK>(lf, h, gs, whs + F32_CHUNK * ch, ch == 0 ? zout : nullptr, ld);
+      tf_store_rows<F32_CHUNK / 8>(ls + r0 * ld + F32_CHUNK * ch, lf, ld);
+    }
+  } else {
+    constexpr int NH = nh_of(NF);
+    float lf[NH / 8][4];
+    tf_logits<C, NF>(lf, h, gs, whs, zout, NH + 4);
+    tf_store_rows<NH / 8>(ls + r0 * (NH + 4), lf, NH + 4);
+  }
 }
 
 // a row's NF logits from the logits tile (row start 16-byte aligned, NF % 4 == 0)
@@ -432,6 +464,66 @@ __device__ __forceinline__ float target_logit(const float (&lf)[NF], int yi, int
   return ly;
 }
 
+// The per-row epilogues of the heads in chunks (NF 0) on the logits tile: a row's NH
+// columns are walked by two lanes, l and l + 16 of the warp (row r0 + l % 16), each over
+// its half (lo: columns 0 .. NH / 2 - 1) four at a time, and the pair merged by a shuffle;
+// every lane of the warp calls them.  pair_max: the max over the row's F logits (NaN where
+// one is NaN) and the lowest column at it (F for a row holding a NaN); pair_sum: the sum
+// of exp(logit - max), each half in column order, then the two halves added.
+struct PairMax {
+  float mx;
+  int best;
+  bool nan;
+};
+
+__device__ __forceinline__ PairMax pair_max(const float* lr, int F, int NH) {
+  const int half = NH / 2, f0 = (threadIdx.x & 16) ? half : 0;
+  PairMax r{-CUDART_INF_F, F, false};
+  for (int q = 0; q < half; q += 4) {
+    const float4 v4 = *reinterpret_cast<const float4*>(lr + f0 + q);
+    const float v[4] = {v4.x, v4.y, v4.z, v4.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int f = f0 + q + e;
+      if (f < F) {
+        r.nan |= isnan(v[e]);
+        if (r.best == F ? v[e] >= r.mx : v[e] > r.mx) r.best = f;  // a NaN compares false
+        r.mx = fmaxf(r.mx, v[e]);
+      }
+    }
+  }
+  const float om = __shfl_xor_sync(0xffffffffu, r.mx, 16);
+  const int ob = __shfl_xor_sync(0xffffffffu, r.best, 16);
+  r.nan |= __shfl_xor_sync(0xffffffffu, int(r.nan), 16) != 0;
+  const float M = fmaxf(r.mx, om);
+  r.best = min(r.mx == M ? r.best : F, om == M ? ob : F);
+  r.mx = r.nan ? CUDART_NAN_F : M;
+  if (r.nan) r.best = F;
+  return r;
+}
+
+__device__ __forceinline__ float pair_sum(const float* lr, int F, int NH, float mx) {
+  const int half = NH / 2, f0 = (threadIdx.x & 16) ? half : 0;
+  float se = 0.f;
+  for (int q = 0; q < half; q += 4) {
+    const float4 v4 = *reinterpret_cast<const float4*>(lr + f0 + q);
+    const float v[4] = {v4.x, v4.y, v4.z, v4.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (f0 + q + e < F) se = __fadd_rn(se, expf(v[e] - mx));
+  }
+  const float other = __shfl_xor_sync(0xffffffffu, se, 16);
+  return (threadIdx.x & 16) ? __fadd_rn(other, se) : __fadd_rn(se, other);
+}
+
+// the pair's half of the row to tap (T, p, F) (columns < F)
+__device__ __forceinline__ void pair_tap(float* __restrict__ tap, const float* lr, size_t row,
+                                         int i, int P, int F, int NH) {
+  const int half = NH / 2, f0 = (threadIdx.x & 16) ? half : 0;
+  float* t = tap + (row * P + i) * F;
+  for (int f = f0; f < min(f0 + half, F); ++f) t[f] = lr[f];
+}
+
 template <int NF>
 __device__ __forceinline__ void write_tap(float* __restrict__ tap, const float (&lf)[NF],
                                           size_t row, int i, int P, int F) {
@@ -473,7 +565,8 @@ __device__ __forceinline__ void depth_dl(float (&dl)[NF], const float (&lf)[NF],
 // K6 (CeLoss): the partial row [sum w*nll, sum w, confusion matrix (F x F)] of each
 // block; K8 (DepthLoss): [sum loss, count of valid targets], and the predictions; K3
 // (Argmax): the classes (T, p), no partial rows.  tap, where not null, gets the logits
-// (T, p, F)
+// (T, p, F).  NF 0 (K3, K6): the head in chunks of 16, the epilogue on the tile's row, a
+// lane pair a row.
 template <int C, int NF, class Loss>
 __global__ void __launch_bounds__(TF_THREADS, 2)
 tail_fwd_3xtf32_kernel(const float* __restrict__ x, const float* __restrict__ we,
@@ -481,7 +574,8 @@ tail_fwd_3xtf32_kernel(const float* __restrict__ x, const float* __restrict__ we
                        const float* __restrict__ wh, const Loss loss, float* __restrict__ part,
                        float* __restrict__ tap, int T, int F, int P, float eps) {
   constexpr bool CE = std::is_same<Loss, CeLoss>::value;
-  constexpr int LDL = nh_of(NF) + 4;
+  static_assert(NF > 0 || !kIsDepth<Loss>, "the depth head is not chunked");
+  const int NH = head_cols(NF, F), LDL = NH + 4;
   extern __shared__ __align__(128) unsigned char smem[];
   const F32Layout L = f32_layout(C, NF, F, kFwdKind<Loss>);
   float* wes = reinterpret_cast<float*>(smem);
@@ -494,7 +588,7 @@ tail_fwd_3xtf32_kernel(const float* __restrict__ x, const float* __restrict__ we
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, r0 = warp * 16;
   const int tiles = (T + TF_ROWS - 1) / TF_ROWS;
 
-  stage_head<C, NF>(whs, gs, wh, gamma, beta, F);
+  stage_head<C>(whs, gs, wh, gamma, beta, F, NH);
   if constexpr (CE)
     for (int idx = tid; idx < F * F; idx += TF_THREADS) cm[idx] = 0;
   float num = 0.f, den = 0.f;
@@ -509,27 +603,48 @@ tail_fwd_3xtf32_kernel(const float* __restrict__ x, const float* __restrict__ we
       __syncthreads();
       if (r0 >= rows) continue;
       float h[C / 8][4], rstd[2];
-      tf_forward<C, NF>(h, rstd, xs, wes, gs, whs, ls, nullptr, r0, eps);
+      tf_forward<C, NF>(h, rstd, xs, wes, gs, whs, ls, nullptr, r0, eps, NH);
       __syncwarp();
-      const int r = r0 + lane;
-      if (lane >= 16 || r >= rows) continue;
-      const size_t row = size_t(tile) * TF_ROWS + r, e = row * P + i;
-      float lf[NF];
-      load_row<NF>(lf, ls + r * LDL);
-      if (tap != nullptr) write_tap<NF>(tap, lf, row, i, P, F);
-      if constexpr (kIsPred<Loss>) {
-        loss.preds[e] = argmax_row<NF>(lf, F);
-      } else if constexpr (CE) {
-        float ex[NF];
-        const CeRow ce = ce_row<NF>(lf, ex, F);
-        const int yi = loss.y[e];
-        const float wi = loss.welem[e];
-        num += wi * (ce.mx + logf(ce.se) - target_logit<NF>(lf, yi, F));
-        den += wi;
-        if (ce.best < F && yi >= 0 && yi < F) atomicAdd(cm + yi * F + ce.best, 1);  // order-free
+      if constexpr (NF == 0) {  // a row a lane pair (pair_max, pair_sum)
+        const int r = r0 + (lane & 15);
+        const bool valid = r < rows;
+        const size_t row = size_t(tile) * TF_ROWS + r, e = row * P + i;
+        const float* lr = ls + r * LDL;
+        if (valid && tap != nullptr) pair_tap(tap, lr, row, i, P, F, NH);
+        const PairMax pm = pair_max(lr, F, NH);
+        if constexpr (kIsPred<Loss>) {
+          if (valid && lane < 16) loss.preds[e] = pm.nan ? F - 1 : pm.best;
+        } else {
+          const float se = pair_sum(lr, F, NH, pm.mx);
+          if (valid && lane < 16) {
+            const int yi = loss.y[e];
+            const float wi = loss.welem[e];
+            num += wi * (pm.mx + logf(se) - (yi >= 0 && yi < F ? lr[yi] : 0.f));
+            den += wi;
+            if (pm.best < F && yi >= 0 && yi < F) atomicAdd(cm + yi * F + pm.best, 1);
+          }
+        }
       } else {
-        depth_sums<NF>(lf, loss, e, num, den);
-        write_tap<NF>(loss.preds, lf, row, i, P, F);  // the predictions: the f32 logits
+        const int r = r0 + lane;
+        if (lane >= 16 || r >= rows) continue;
+        const size_t row = size_t(tile) * TF_ROWS + r, e = row * P + i;
+        float lf[NF];
+        load_row<NF>(lf, ls + r * LDL);
+        if (tap != nullptr) write_tap<NF>(tap, lf, row, i, P, F);
+        if constexpr (kIsPred<Loss>) {
+          loss.preds[e] = argmax_row<NF>(lf, F);
+        } else if constexpr (CE) {
+          float ex[NF];
+          const CeRow ce = ce_row<NF>(lf, ex, F);
+          const int yi = loss.y[e];
+          const float wi = loss.welem[e];
+          num += wi * (ce.mx + logf(ce.se) - target_logit<NF>(lf, yi, F));
+          den += wi;
+          if (ce.best < F && yi >= 0 && yi < F) atomicAdd(cm + yi * F + ce.best, 1);  // order-free
+        } else {
+          depth_sums<NF>(lf, loss, e, num, den);
+          write_tap<NF>(loss.preds, lf, row, i, P, F);  // the predictions: the f32 logits
+        }
       }
     }
   }
@@ -583,27 +698,56 @@ __device__ __forceinline__ float rows8_scatter(float (&v)[8]) {
 // gamma and m2 of dz gamma xhat, then for dh), xhat -> dh in place; the columns' sums of
 // dz xhat (dgamma) and dz (dbeta) over the 16 rows added to dgb: slot s of lane (g, c)
 // holds the column of n-tile 2s + g / 4, parity (g & 1), dgamma for g & 2 == 0
+// NF 0: NH = nh columns (ld nh + 4), dz of all n-tiles made once (k outer) and held
 template <int C, int NF>
 __device__ __forceinline__ void tf_ln_bwd(float (&h)[C / 8][4], const float (&rstd)[2],
                                           const float* lw, const float* whs, const float* gs,
-                                          float (&dgb)[C / 16]) {
-  constexpr int NT = C / 8, NTH = nh_of(NF) / 8, LDL = nh_of(NF) + 4, LDH = nh_of(NF) + 4;
+                                          float (&dgb)[C / 16], int nh) {
+  constexpr int NT = C / 8, NTH = nh_of(NF) / 8;
+  const int LDL = NF == 0 ? nh + 4 : nh_of(NF) + 4, LDH = LDL;
   const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3, c2 = 2 * c;
   uint32_t ah[NTH][4], al[NTH][4];
-#pragma unroll
-  for (int k = 0; k < NTH; ++k) {
-    const float* a = lw + g * LDL + 8 * k + c;
-    split4(ah[k], al[k], a[0], a[8 * LDL], a[4], a[8 * LDL + 4]);
-  }
-  auto dz_tile = [&](int t, float (&d)[4]) {  // dz's n-tile t (channels 8t ..)
-    d[0] = d[1] = d[2] = d[3] = 0.f;
-    const float* wb = whs + (8 * t + g) * LDH + c;
+  if constexpr (NF > 0) {
 #pragma unroll
     for (int k = 0; k < NTH; ++k) {
-      uint32_t bh0, bl0, bh1, bl1;
-      split_tf32(wb[8 * k], bh0, bl0);
-      split_tf32(wb[8 * k + 4], bh1, bl1);
-      mma_3xtf32(d, ah[k], al[k], bh0, bh1, bl0, bl1);
+      const float* a = lw + g * LDL + 8 * k + c;
+      split4(ah[k], al[k], a[0], a[8 * LDL], a[4], a[8 * LDL + 4]);
+    }
+  }
+  // NF 0: dz of every n-tile at once, k outer (each dlogits fragment read and split once),
+  // held for both passes; the same sums, k ascending, as one n-tile at a time
+  float dzs[NF == 0 ? NT : 1][4];
+  if constexpr (NF == 0) {
+#pragma unroll
+    for (int t = 0; t < NT; ++t) dzs[t][0] = dzs[t][1] = dzs[t][2] = dzs[t][3] = 0.f;
+    for (int k = 0; k < nh / 8; ++k) {
+      const float* a = lw + g * LDL + 8 * k + c;
+      uint32_t xh[4], xl[4];
+      split4(xh, xl, a[0], a[8 * LDL], a[4], a[8 * LDL + 4]);
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        const float* wb = whs + (8 * t + g) * LDH + c + 8 * k;
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(wb[0], bh0, bl0);
+        split_tf32(wb[4], bh1, bl1);
+        mma_3xtf32(dzs[t], xh, xl, bh0, bh1, bl0, bl1);
+      }
+    }
+  }
+  auto dz_tile = [&](int t, float (&d)[4]) {  // dz's n-tile t (channels 8t ..)
+    if constexpr (NF == 0) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) d[e] = dzs[t][e];
+    } else {
+      d[0] = d[1] = d[2] = d[3] = 0.f;
+      const float* wb = whs + (8 * t + g) * LDH + c;
+#pragma unroll
+      for (int k = 0; k < NTH; ++k) {
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(wb[8 * k], bh0, bl0);
+        split_tf32(wb[8 * k + 4], bh1, bl1);
+        mma_3xtf32(d, ah[k], al[k], bh0, bh1, bl0, bl1);
+      }
     }
   };
   float m1[2] = {0.f, 0.f}, m2[2] = {0.f, 0.f};
@@ -731,6 +875,35 @@ __device__ __forceinline__ void tf_dwh(float (&dwh)[(C / 16 * (nh_of(NF) / 8) + 
   }
 }
 
+// NF 0: dWh (C x nh, in shared memory at dwhs) += z^T dlogits over the tile's first `rows`
+// rows, the 16 x 8 output tiles over the warps, each tile's sum from zero added rounded to
+// nearest by the one lane that owns each element
+template <int C>
+__device__ __forceinline__ void tf_dwh_n(float* dwhs, const float* zd, const float* ls, int nh,
+                                         int rows) {
+  constexpr int LDX = C + 4;
+  const int LDL = nh + 4, nth = nh / 8;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, c = lane & 3;
+  for (int id = warp; id < C / 16 * nth; id += TF_WARPS) {
+    const int m0 = (id / nth) * 16, n0 = (id % nth) * 8;
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int k0 = 0; k0 < rows; k0 += 8) {
+      const float* za = zd + (k0 + 2 * c) * LDX + m0 + g;
+      const float* lb = ls + (k0 + 2 * c) * LDL + n0 + g;
+      uint32_t ah[4], al[4], bh0, bl0, bh1, bl1;
+      split4(ah, al, za[0], za[8], za[LDX], za[LDX + 8]);
+      split_tf32(lb[0], bh0, bl0);
+      split_tf32(lb[LDL], bh1, bl1);
+      mma_3xtf32(acc, ah, al, bh0, bh1, bl0, bl1);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float* d = dwhs + (m0 + g + 8 * (e >> 1)) * nh + n0 + 2 * c + (e & 1);
+      *d = __fadd_rn(*d, acc[e]);
+    }
+  }
+}
+
 // acc (the warp's (C / 2) x (C / 4) block of dWe_i: rows (x channels) from (warp / 4) C /
 // 2, columns (dh channels) from (warp % 4) C / 4) += x^T dh over the tile's first `rows`
 // rows (x in xs, dh in zd): the tile's sum from zero, added to acc rounded to nearest (a
@@ -774,7 +947,9 @@ __device__ __forceinline__ void tf_dwe(float (&acc)[C / 32][C / 32][4], const fl
 
 // K7's (CeLoss) and K9's (DepthLoss) tile kernel: dx (T x C f32) and the partial row [dWe
 // (C x p C) | dWh (C x F) | dgamma (C) | dbeta (C)] of each block, for the loss gradient
-// scale = gloss / den (K7) or gloss / max(count, 1) (K9), on the device; tap as K6's
+// scale = gloss / den (K7) or gloss / max(count, 1) (K9), on the device; tap as K6's.
+// NF 0 (K7): the head in chunks of 16, the dlogits made on the tile's row (pair_max and
+// pair_sum, K6's), dz from the tile (tf_ln_bwd), dWh summed in shared memory (tf_dwh_n).
 template <int C, int NF, class Loss>
 __global__ void __launch_bounds__(TF_THREADS, 1)
 tail_bwd_3xtf32_kernel(const float* __restrict__ x, const float* __restrict__ we,
@@ -783,10 +958,13 @@ tail_bwd_3xtf32_kernel(const float* __restrict__ x, const float* __restrict__ we
                        const float* __restrict__ scale_p, float* __restrict__ dx,
                        float* __restrict__ part, float* __restrict__ tap, int T, int F, int P,
                        float eps) {
-  constexpr int NH = nh_of(NF), NTH = NH / 8, LDL = NH + 4, LDX = C + 4, MW = C / 32;
-  constexpr int WH_MINE = (C / 16 * NTH + 7) / 8;
+  static_assert(NF > 0 || !kIsDepth<Loss>, "the depth head is not chunked");
+  constexpr int NTH = nh_of(NF) / 8, LDX = C + 4, MW = C / 32;
+  constexpr int WH_MINE = NF == 0 ? 1 : (C / 16 * NTH + 7) / 8;
+  const int NH = head_cols(NF, F), LDL = NH + 4;
   extern __shared__ __align__(128) unsigned char smem[];
   const F32Layout L = f32_layout(C, NF, F, kBwdKind<Loss>);
+  float* dwhs = reinterpret_cast<float*>(smem + L.dwh);  // NF 0: the block's dWh (C x NH)
   float* wes = reinterpret_cast<float*>(smem);
   float* whs = reinterpret_cast<float*>(smem + L.wh);
   float* gs = reinterpret_cast<float*>(smem + L.gb);
@@ -799,7 +977,9 @@ tail_bwd_3xtf32_kernel(const float* __restrict__ x, const float* __restrict__ we
   const float scale = *scale_p;
   float* prow = part + size_t(blockIdx.x) * (size_t(P) * C * C + C * F + 2 * C);
 
-  stage_head<C, NF>(whs, gs, wh, gamma, beta, F);
+  stage_head<C>(whs, gs, wh, gamma, beta, F, NH);
+  if constexpr (NF == 0)
+    for (int idx = tid; idx < C * NH; idx += TF_THREADS) dwhs[idx] = 0.f;
   float dwh[WH_MINE][4], dgb[C / 16];
 #pragma unroll
   for (int s = 0; s < WH_MINE; ++s) dwh[s][0] = dwh[s][1] = dwh[s][2] = dwh[s][3] = 0.f;
@@ -825,43 +1005,71 @@ tail_bwd_3xtf32_kernel(const float* __restrict__ x, const float* __restrict__ we
       float h[C / 8][4], rstd[2];
       if (live) {
         // the forward recomputed: xhat in h, z to the z tile, the logits to ls
-        tf_forward<C, NF>(h, rstd, xs, wes, gs, whs, ls, zd + r0 * LDX, r0, eps);
+        tf_forward<C, NF>(h, rstd, xs, wes, gs, whs, ls, zd + r0 * LDX, r0, eps, NH);
         __syncwarp();
-        if (lane < 16) {  // each row's dlogits over its logits (0 past F and for no row)
-          float* lr = ls + (r0 + lane) * LDL;
-          float dl[NH];
+        if constexpr (NF == 0) {  // each row's dlogits over its logits, a row a lane pair
+          const int rr = lane & 15;
+          float* lr = ls + (r0 + rr) * LDL;
+          const bool valid = r0 + rr < rows;
+          const size_t row = grow0 + rr, e = row * P + i;
+          if (valid && tap != nullptr) pair_tap(tap, lr, row, i, P, F, NH);
+          const PairMax pm = pair_max(lr, F, NH);
+          const float se = pair_sum(lr, F, NH, pm.mx);
+          const int yi = valid ? loss.y[e] : -1;
+          const float sw = valid ? __fmul_rn(scale, loss.welem[e]) : 0.f;
+          const int half = NH / 2, f0 = (lane & 16) ? half : 0;
+          for (int q = 0; q < half; q += 4) {  // 0 past F and for no row
+            float4* p4 = reinterpret_cast<float4*>(lr + f0 + q);
+            const float4 v4 = *p4;
+            float v[4] = {v4.x, v4.y, v4.z, v4.w};
 #pragma unroll
-          for (int f = 0; f < NH; ++f) dl[f] = 0.f;
-          if (r0 + lane < rows) {
-            const size_t row = grow0 + lane, e = row * P + i;
-            float lf[NF];
-            load_row<NF>(lf, lr);
-            if (tap != nullptr) write_tap<NF>(tap, lf, row, i, P, F);
-            float d[NF];
-            if constexpr (kIsDepth<Loss>) {
-              depth_dl<NF>(d, lf, loss, e, scale, F);
-            } else {
-              const CeRow ce = ce_row<NF>(lf, d, F);
-              const int yi = loss.y[e];
-              const float sw = __fmul_rn(scale, loss.welem[e]);
+            for (int k = 0; k < 4; ++k) {
+              const int f = f0 + q + k;
+              v[k] = valid && f < F ? sw * (__fdiv_rn(expf(v[k] - pm.mx), se) -
+                                            (f == yi ? 1.f : 0.f))
+                                    : 0.f;
+            }
+            *p4 = make_float4(v[0], v[1], v[2], v[3]);
+          }
+        } else {
+          if (lane < 16) {  // each row's dlogits over its logits (0 past F and for no row)
+            constexpr int NHF = nh_of(NF);
+            float* lr = ls + (r0 + lane) * LDL;
+            float dl[NHF];
 #pragma unroll
-              for (int f = 0; f < NF; ++f)
-                d[f] = f < F ? sw * (__fdiv_rn(d[f], ce.se) - (f == yi ? 1.f : 0.f)) : 0.f;
+            for (int f = 0; f < NHF; ++f) dl[f] = 0.f;
+            if (r0 + lane < rows) {
+              const size_t row = grow0 + lane, e = row * P + i;
+              float lf[NF];
+              load_row<NF>(lf, lr);
+              if (tap != nullptr) write_tap<NF>(tap, lf, row, i, P, F);
+              float d[NF];
+              if constexpr (kIsDepth<Loss>) {
+                depth_dl<NF>(d, lf, loss, e, scale, F);
+              } else {
+                const CeRow ce = ce_row<NF>(lf, d, F);
+                const int yi = loss.y[e];
+                const float sw = __fmul_rn(scale, loss.welem[e]);
+#pragma unroll
+                for (int f = 0; f < NF; ++f)
+                  d[f] = f < F ? sw * (__fdiv_rn(d[f], ce.se) - (f == yi ? 1.f : 0.f)) : 0.f;
+              }
+#pragma unroll
+              for (int f = 0; f < NF; ++f) dl[f] = d[f];
             }
 #pragma unroll
-            for (int f = 0; f < NF; ++f) dl[f] = d[f];
+            for (int q = 0; q < NHF / 4; ++q)
+              reinterpret_cast<float4*>(lr)[q] =
+                  make_float4(dl[4 * q], dl[4 * q + 1], dl[4 * q + 2], dl[4 * q + 3]);
           }
-#pragma unroll
-          for (int q = 0; q < NH / 4; ++q)
-            reinterpret_cast<float4*>(lr)[q] =
-                make_float4(dl[4 * q], dl[4 * q + 1], dl[4 * q + 2], dl[4 * q + 3]);
         }
         __syncwarp();
-        tf_ln_bwd<C, NF>(h, rstd, ls + r0 * LDL, whs, gs, dgb);
+        tf_ln_bwd<C, NF>(h, rstd, ls + r0 * LDL, whs, gs, dgb, NH);
         tf_dx<C>(h, wes, dx, grow0, rows - r0, i > 0);
       }
       __syncthreads();  // every row's z and dlogits are in place
-      tf_dwh<C, NF>(dwh, zd, ls, rows);
+      if constexpr (NF == 0) tf_dwh_n<C>(dwhs, zd, ls, NH, rows);
+      else tf_dwh<C, NF>(dwh, zd, ls, rows);
       __syncthreads();  // z is read: the tile takes dh
       if (live) tf_store_rows<C / 8>(zd + r0 * LDX, h, LDX);
       __syncthreads();
@@ -882,15 +1090,23 @@ tail_bwd_3xtf32_kernel(const float* __restrict__ x, const float* __restrict__ we
   }
   // dWh (C x F) after dWe
   float* pwh = prow + size_t(P) * C * C;
+  if constexpr (NF == 0) {
+    __syncthreads();  // the last tile's dWh sums are in
+    for (int idx = tid; idx < C * F; idx += TF_THREADS) {
+      const int m = idx / F, f = idx - m * F;
+      pwh[idx] = dwhs[m * NH + f];
+    }
+  } else {
 #pragma unroll
-  for (int s = 0; s < WH_MINE; ++s) {
-    const int id = warp + TF_WARPS * s;
-    if (id >= C / 16 * NTH) break;
-    const int m0 = (id / NTH) * 16, n0 = (id % NTH) * 8;
+    for (int s = 0; s < WH_MINE; ++s) {
+      const int id = warp + TF_WARPS * s;
+      if (id >= C / 16 * NTH) break;
+      const int m0 = (id / NTH) * 16, n0 = (id % NTH) * 8;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int m = m0 + g + 8 * (e >> 1), f = n0 + c2 + (e & 1);
-      if (f < F) pwh[m * F + f] = dwh[s][e];
+      for (int e = 0; e < 4; ++e) {
+        const int m = m0 + g + 8 * (e >> 1), f = n0 + c2 + (e & 1);
+        if (f < F) pwh[m * F + f] = dwh[s][e];
+      }
     }
   }
   // dgamma | dbeta: each warp's column sums (lane (g, c) slot s: n-tile 2s + g / 4, column
@@ -915,12 +1131,16 @@ tail_bwd_3xtf32_kernel(const float* __restrict__ x, const float* __restrict__ we
 // ---------------------------------------------------------------------------------
 
 // f(C, NF) for the instantiation of C (32, 64, 96, 128) and F: the cross entropy's head
-// (F <= 8: NF 8; <= 16: NF 16) or, with DEPTH, the depth head (F <= 2: NF 4)
-template <bool DEPTH, typename Fn>
+// (F <= 8: NF 8; <= 16: NF 16) or, with DEPTH, the depth head (F <= 2: NF 4); with CH the
+// cross entropy's heads in chunks (16 < F <= 128: NF 0), which a unit of their own
+// compiles (final_head_f32_chunked.cu)
+template <bool DEPTH, bool CH = false, typename Fn>
 cudaError_t with_f32(int C, int F, Fn f) {
-  if (F < 1 || F > (DEPTH ? 2 : 16)) return cudaErrorInvalidValue;
+  static_assert(!(DEPTH && CH), "the depth head is not chunked");
+  if (CH ? F <= 16 || F > kF32MaxF : F < 1 || F > (DEPTH ? 2 : 16)) return cudaErrorInvalidValue;
   auto nf = [&](auto c) {
     if constexpr (DEPTH) return f(c, std::integral_constant<int, 4>{});
+    else if constexpr (CH) return f(c, std::integral_constant<int, 0>{});
     else
       return F <= 8 ? f(c, std::integral_constant<int, 8>{})
                     : f(c, std::integral_constant<int, 16>{});
@@ -934,7 +1154,7 @@ cudaError_t with_f32(int C, int F, Fn f) {
   }
 }
 
-inline int nf_of(int F, bool depth) { return depth ? 4 : F <= 8 ? 8 : 16; }
+inline int nf_of(int F, bool depth) { return depth ? 4 : F <= 8 ? 8 : F <= 16 ? 16 : 0; }
 
 template <int C, int NF, class Loss, bool BWD>
 const void* f32_kernel() {
@@ -961,10 +1181,10 @@ cudaError_t f32_grid(int T, int F, int* grid) {
   return cudaSuccess;
 }
 
-template <class Loss, bool BWD>
+template <class Loss, bool BWD, bool CH = false>
 int f32_grid_of(int T, int C, int F) {
   int G = 0;
-  const cudaError_t e = with_f32<kIsDepth<Loss>>(C, F, [&](auto c, auto nf) {
+  const cudaError_t e = with_f32<kIsDepth<Loss>, CH>(C, F, [&](auto c, auto nf) {
     return f32_grid<decltype(c)::value, decltype(nf)::value, Loss, BWD>(T, F, &G);
   });
   return e == cudaSuccess ? G : 0;
@@ -978,18 +1198,18 @@ inline int f32_part_width(int F) {
 }
 
 // K6's and K8's workspace: the partial rows, then reduce_rows' scratch
-template <class Loss>
+template <class Loss, bool CH = false>
 size_t f32_loss_workspace(int T, int C, int F) {
-  const int G = f32_grid_of<Loss, false>(T, C, F), W = f32_part_width<Loss>(F);
+  const int G = f32_grid_of<Loss, false, CH>(T, C, F), W = f32_part_width<Loss>(F);
   return align128(size_t(G) * W * 4) + align128(reduce_rows_tmp_floats(G, W) * 4);
 }
 
 // K6 and K8: the tile kernel, then reduce_rows over its partial rows into red
-template <class Loss>
+template <class Loss, bool CH = false>
 cudaError_t launch_f32_loss(const void* x, const void* we, const void* gamma, const void* beta,
                             const void* wh, const Loss& loss, void* red, void* work, void* tap,
                             int T, int C, int F, int P, float eps, cudaStream_t s) {
-  return with_f32<kIsDepth<Loss>>(C, F, [&](auto c, auto nf) {
+  return with_f32<kIsDepth<Loss>, CH>(C, F, [&](auto c, auto nf) {
     constexpr int CC = decltype(c)::value, NF = decltype(nf)::value;
     int G = 0;
     cudaError_t e = f32_grid<CC, NF, Loss, false>(T, F, &G);
@@ -1010,10 +1230,11 @@ cudaError_t launch_f32_loss(const void* x, const void* we, const void* gamma, co
 }
 
 // K3: the tile kernel with the Argmax epilogue, the classes (T, p) into preds
-inline cudaError_t launch_f32_pred(const void* x, const void* we, const void* gamma,
-                                   const void* beta, const void* wh, void* preds, void* tap,
-                                   int T, int C, int F, int P, float eps, cudaStream_t s) {
-  return with_f32<false>(C, F, [&](auto c, auto nf) {
+template <bool CH = false>
+cudaError_t launch_f32_pred(const void* x, const void* we, const void* gamma, const void* beta,
+                            const void* wh, void* preds, void* tap, int T, int C, int F, int P,
+                            float eps, cudaStream_t s) {
+  return with_f32<false, CH>(C, F, [&](auto c, auto nf) {
     constexpr int CC = decltype(c)::value, NF = decltype(nf)::value;
     int G = 0;
     cudaError_t e = f32_grid<CC, NF, Argmax, false>(T, F, &G);
@@ -1032,12 +1253,12 @@ inline cudaError_t launch_f32_pred(const void* x, const void* we, const void* ga
 inline int f32_bwd_width(int C, int F, int P) { return P * C * C + C * F + 2 * C; }
 
 // K7's and K9's tile kernel alone: dx and its partial rows part (grid x f32_bwd_width)
-template <class Loss>
+template <class Loss, bool CH = false>
 cudaError_t launch_f32_bwd_rows(const void* x, const void* we, const void* gamma,
                                 const void* beta, const void* wh, const Loss& loss,
                                 const void* scale, void* dx, void* part, void* tap, int T,
                                 int C, int F, int P, float eps, cudaStream_t s) {
-  return with_f32<kIsDepth<Loss>>(C, F, [&](auto c, auto nf) {
+  return with_f32<kIsDepth<Loss>, CH>(C, F, [&](auto c, auto nf) {
     constexpr int CC = decltype(c)::value, NF = decltype(nf)::value;
     int G = 0;
     cudaError_t e = f32_grid<CC, NF, Loss, true>(T, F, &G);
@@ -1059,10 +1280,10 @@ struct F32BwdWork {
   int grid;
 };
 
-template <class Loss>
+template <class Loss, bool CH = false>
 F32BwdWork f32_bwd_work(int T, int C, int F, int P) {
   F32BwdWork w;
-  w.grid = f32_grid_of<Loss, true>(T, C, F);
+  w.grid = f32_grid_of<Loss, true, CH>(T, C, F);
   const int W = f32_bwd_width(C, F, P);
   w.tmp = align128(size_t(w.grid) * W * 4);
   w.total = w.tmp + align128(reduce_rows_tmp_floats(w.grid, W) * 4);
@@ -1071,17 +1292,17 @@ F32BwdWork f32_bwd_work(int T, int C, int F, int P) {
 
 // K7 and K9: the tile kernel, then reduce_rows over its partial rows into red = [dWe |
 // dWh | dgamma | dbeta], on one stream
-template <class Loss>
+template <class Loss, bool CH = false>
 cudaError_t launch_f32_bwd(const void* x, const void* we, const void* gamma, const void* beta,
                            const void* wh, const Loss& loss, const void* scale, void* dx,
                            void* red, void* work, int T, int C, int F, int P, float eps,
                            cudaStream_t s) {
-  const F32BwdWork w = f32_bwd_work<Loss>(T, C, F, P);
+  const F32BwdWork w = f32_bwd_work<Loss, CH>(T, C, F, P);
   if (w.grid < 1) return cudaErrorInvalidValue;
   unsigned char* base = static_cast<unsigned char*>(work);
   float* part = reinterpret_cast<float*>(base);
-  cudaError_t e = launch_f32_bwd_rows(x, we, gamma, beta, wh, loss, scale, dx, part, nullptr,
-                                      T, C, F, P, eps, s);
+  cudaError_t e = launch_f32_bwd_rows<Loss, CH>(x, we, gamma, beta, wh, loss, scale, dx, part,
+                                                nullptr, T, C, F, P, eps, s);
   if (e != cudaSuccess) return e;
   return reduce_rows(part, static_cast<float*>(red), w.grid, f32_bwd_width(C, F, P),
                      reinterpret_cast<float*>(base + w.tmp), s);

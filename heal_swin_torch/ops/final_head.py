@@ -54,16 +54,24 @@ dtype -> logits z @ Wh in f32.
   ``final_head_loss_bwd_sequence_f32_plain``,
   ``final_head_depth_loss_bwd_sequence_f32_plain``).
 
+- Wide heads and many slices on the row cores: heads above 32 classes (bf16) or 16
+  (f32) run in chunks of 32 (bf16, NF 4 on mma.sync m16n8k16) or 16 (f32, 3xTF32)
+  classes: the forward keeps each row's running max, sum of exp(logit - max), lowest
+  column at the max and target logit over the chunks; the backward walks the chunks
+  twice (the statistics, then each chunk's logits remade for its dlogits), so its
+  logits are the forward's bits.  Where the bf16 core's p expand slices do not fit
+  beside its tiles (K3, K6, K7), they pass through a ring of two stages in shared
+  memory, the next slice's copy overlapping the current slice's products.
 - The wide route (``csrc/final_head_wide.cu``): every tail the row cores above do not
-  take (C other than 32, 64, 96, 128; heads over 32 classes in bf16, over 16 in f32; p
-  slices that do not fit a block's shared memory, as the bf16 K7 at C 128, p 4) runs
+  take (C other than 32, 64, 96, 128; K8 and K9 whose slices do not fit; heads whose
+  tiles do not fit a block's shared memory, ``row_core_takes``) runs
   its kernel as a launch sequence from the same entry: the expand H = x We by the
   hand-written GEMMs (bf16 ``gemm_nt``, f32 ``gemm_3xtf32_kernel``), one row kernel over
   the T p sub-rows of H (a warp a sub-row: LayerNorm, head, the kernel's epilogue; the
   backward's dh over H), then the backward's dx, dWe (and K7's dWh) products and
   ``reduce_rows``.  Together both routes take the Pallas tails' domain up to C 192:
   C % 8 == 0, 1 <= F <= 128 (F in {1, 2} for depth), any p, T % 64.  The same counters
-  count both routes.
+  count both routes, and ``launches_by_route`` counts each launch by its route.
 
 Every wrapper dispatches on ``impl`` like the attention wrappers
 (``heal_swin_torch.ops._dispatch.use_kernel``): on a CUDA tensor it runs its kernel or
@@ -91,11 +99,11 @@ TAIL_TILE_ROWS = 128  # token rows of a block tile: 8 warps of 16 rows
 KERNEL_MAX_C = 192  # the widest tail either route takes (Swin-L's embed width)
 KERNEL_MAX_F = 128  # the widest class head (the Pallas tails' F <= 128)
 KERNEL_SMEM_LIMIT = 232448  # bytes a block may opt in to on sm_90
-# the row cores hold a row's C columns in mma accumulators, one instantiation per C, and
-# heads of up to 32 (bf16) or 16 (f32) columns; other tails take the wide route
+# the row cores hold a row's C columns in mma accumulators, one instantiation per C;
+# their heads go up to 128 classes (in chunks above 32 bf16 / 16 f32) where a block's
+# shared memory holds the tiles; other tails take the wide route
 ROW_CORE_CS = (32, 64, 96, 128)
-ROW_CORE_MAX_F = 32
-ROW_CORE_MAX_F_F32 = 16
+ROUTES = ("row core", "wide")
 WIDE_KINDS = {"predict": 0, "loss": 1, "loss_bwd": 2, "depth_loss": 3, "depth_loss_bwd": 4}
 DEPTH_KINDS = ("l2", "l1", "huber", "nll")  # K8/K9's loss kinds, in their launch ids
 # the tail kernels by the library's names of their shared-memory figures; each has an
@@ -103,18 +111,20 @@ DEPTH_KINDS = ("l2", "l1", "huber", "nll")  # K8/K9's loss kinds, in their launc
 KERNEL_IDS = {"predict": "K3", "loss": "K6", "loss_bwd": "K7", "depth_loss": "K8",
               "depth_loss_bwd": "K9"}
 
-# launch counters, bumped only where a kernel launches: per kernel, and per
-# (kernel, T, C), or (kernel, T, C, F, kind) for K8/K9
+# launch counters, bumped only where a kernel launches: per kernel, per (kernel, T, C),
+# or (kernel, T, C, F, kind) for K8/K9, and per (kernel, route), route one of ROUTES
 launches = {"final_head_predict": 0, "final_head_loss": 0, "final_head_loss_bwd": 0,
             "final_head_depth_loss": 0, "final_head_depth_loss_bwd": 0,
             "final_head_predict_f32": 0, "final_head_loss_f32": 0, "final_head_loss_bwd_f32": 0,
             "final_head_depth_loss_f32": 0, "final_head_depth_loss_bwd_f32": 0}
 launches_by_shape: Counter = Counter()
+launches_by_route: Counter = Counter()
 
 
-def _count(what, *shape):
+def _count(what, row_core, *shape):
     launches[what] += 1
     launches_by_shape[(what,) + shape] += 1
+    launches_by_route[(what, ROUTES[0] if row_core else ROUTES[1])] += 1
 
 
 def argmax_lowest(lf: torch.Tensor) -> torch.Tensor:
@@ -626,10 +636,11 @@ def supported_depth(T, C, F, p, dtype) -> bool:
 def row_core_takes(kernel, C, F, patch_size, f32) -> bool:
     """Whether ``kernel`` ("predict", "loss", ..., as the library names its shared-memory
     figures) runs on the row cores (bf16: ``csrc/final_head.cu``; f32: ``csrc/
-    tail_f32.cuh``) at width C, F outputs and ``patch_size``: C one of 32, 64, 96, 128,
-    F up to 32 (f32: 16) and a block's shared memory enough (the bf16 core keeps all p
-    expand slices); else the wide route runs it (``csrc/final_head_wide.cu``)."""
-    if C not in ROW_CORE_CS or F > (ROW_CORE_MAX_F_F32 if f32 else ROW_CORE_MAX_F):
+    tail_f32.cuh``) at width C, F outputs and ``patch_size``: C one of 32, 64, 96, 128, F
+    up to 128 and the library's shared-memory figure of the kernel at that shape (its
+    chunked head's tiles, the bf16 slices resident or streamed) within a block's; else
+    the wide route runs it (``csrc/final_head_wide.cu``).  Decided before any launch."""
+    if C not in ROW_CORE_CS or not 1 <= F <= KERNEL_MAX_F:
         return False
     name = f"{kernel}_f32" if f32 else kernel
     smem = getattr(_build.lib(), f"hs_final_head_{name}_smem")(C, F, patch_size)
@@ -734,7 +745,7 @@ def final_head_predict(x, we, gamma, beta, wh, *, patch_size, impl="auto", tap_l
         check(code, what + sfx)
     else:
         _wide(what, "predict", x, o, preds=preds, tap=tap)
-    _count(what + sfx, T, C)
+    _count(what + sfx, o.row_core, T, C)
     return (preds, tap) if tap_logits else preds
 
 
@@ -769,7 +780,7 @@ def final_head_loss_sums(x, we, gamma, beta, wh, y, welem, *, patch_size, impl="
         check(code, what + sfx)
     else:
         _wide(what, "loss", x, o, y=y, welem=welem, red=red.data_ptr(), tap=tap)
-    _count(what + sfx, T, C)
+    _count(what + sfx, o.row_core, T, C)
     out = (red[0], red[1], red[2:].reshape(F, F))
     return out + (tap,) if tap_logits else out
 
@@ -855,7 +866,7 @@ def final_head_loss_bwd(x, we, gamma, beta, wh, y, welem, scale, *, patch_size, 
     sfx = f32_suffix(x)
     outs = _bwd_launch(what, "loss_bwd", x, o, dict(y=y, welem=welem), scale,
                        f"final_head_loss_bwd{sfx}", (LN_EPS,))
-    _count(what + sfx, o.T, o.C)
+    _count(what + sfx, o.row_core, o.T, o.C)
     return _bwd_results(x, outs, o.C, o.F, o.p)
 
 
@@ -996,7 +1007,7 @@ def final_head_depth_loss_sums(x, we, gamma, beta, wh, t, *, patch_size, loss_ki
     else:
         _wide(what, "depth_loss", x, o, t=t, dpred=preds, red=red.data_ptr(), tap=tap,
               loss_kind=kind, delta=huber_delta)
-    _count(what + sfx, T, C, F, loss_kind)
+    _count(what + sfx, o.row_core, T, C, F, loss_kind)
     out = (red[0], red[1], preds)
     return out + (tap,) if tap_logits else out
 
@@ -1020,7 +1031,7 @@ def final_head_depth_loss_bwd(x, we, gamma, beta, wh, t, scale, *, patch_size, l
     outs = _bwd_launch(what, "depth_loss_bwd", x, o, dict(t=t), scale,
                        f"final_head_depth_loss_bwd{sfx}", (kind, LN_EPS, float(huber_delta)),
                        loss_kind=kind, delta=huber_delta)
-    _count(what + sfx, o.T, o.C, o.F, loss_kind)
+    _count(what + sfx, o.row_core, o.T, o.C, o.F, loss_kind)
     return _bwd_results(x, outs, o.C, o.F, o.p)
 
 

@@ -79,10 +79,11 @@ def test_attention_kernel(dev, use_cos):
 
 
 @pytest.mark.parametrize("T", [64 * 64, 64 * 3])
-@pytest.mark.parametrize("F", [5, 10, 17, 32])
+@pytest.mark.parametrize("F", [5, 10, 17, 32, 33, 128])
 @pytest.mark.parametrize("C", [32, 64, 96, 128])
 def test_final_head_kernel(dev, C, F, T):
-    """K3 at each instantiation of the row core (C 32 to 128; F <= 16 and <= 32), on a T
+    """K3 at each instantiation of the row core (C 32 to 128; F <= 16, <= 32 and above 32
+    in chunks, C 128 with 128 classes streaming its slices), on a T
     whose last 128-row tile is full and on one whose last tile is half full: a NaN token
     gives F - 1 on each sub-pixel, the indices equal the plain version's outside
     near-ties, and the classes are ``argmax_lowest`` of the kernel's own f32 logits tap.
@@ -121,7 +122,7 @@ def test_final_head_kernel(dev, C, F, T):
 
 
 @pytest.mark.parametrize("T,C,F", [(64 * 65, 32, 20), (64 * 65, 96, 10), (64 * 65, 128, 32),
-                                   (64 * 3, 64, 5)])
+                                   (64 * 3, 64, 5), (64 * 65, 96, 33), (64 * 65, 64, 128)])
 def test_final_head_predict_logits_are_the_loss_kernels(dev, T, C, F):
     """Probe (h): K3's classes are ``argmax_lowest`` of its own f32 logits tap, and that
     tap rounded to bf16 is K6's logits tap on the same operands, ``torch.equal`` (predict
@@ -412,10 +413,11 @@ def test_final_head_loss_function_backward_through_kernels(dev):
                                    (192, 33, 16), (192, 128, 4)])
 def test_final_head_loss_kernels_at_every_width(dev, C, F, p):
     """K6 and K7 (two launches bit-equal) on a T whose last 128-row tile is half full,
-    against their plain versions: on the row core at its instantiations (C 32 to 128, F
-    <= 16 and <= 32) where a block holds the p slices, on the wide route at the other
-    widths, heads and patches (K7 at C 128, p 4 among them, and K6 at the domain's widest
-    corner, C 192 with 128 classes)."""
+    against their plain versions: on the row core at its instantiations (C 32 to 128;
+    heads of up to 32 classes in one piece, wider ones in chunks; the slices resident or,
+    as K7's at C 128, p 4, streamed) where a block's shared memory holds the kernel, on
+    the wide route at the other widths (and K6 at the domain's widest corner, C 192 with
+    128 classes)."""
     gen = torch.Generator().manual_seed(C + F + p)
     T = 64 * 65
     args = _loss_args(gen, dev, T, C, F, p)
@@ -449,7 +451,8 @@ def test_final_head_loss_kernels_at_the_paper_tail(dev):
                         fh.final_head_loss_bwd_plain(*args, scale, patch_size=p))
 
 
-@pytest.mark.parametrize("T,C,F", [(64 * 65, 96, 10), (64 * 33, 32, 20), (262144, 96, 10)])
+@pytest.mark.parametrize("T,C,F", [(64 * 65, 96, 10), (64 * 33, 32, 20), (262144, 96, 10),
+                                   (64 * 65, 96, 33), (64 * 65, 128, 10)])
 def test_final_head_loss_bwd_sequence_kernels(dev, T, C, F):
     """Each step of K7's launch sequence against its plain twin: the row kernel (dx, dh,
     the partial rows on its grid), ``gemm_tn`` (dWe = x^T dh) and ``reduce_rows``, each
@@ -472,10 +475,13 @@ def test_final_head_loss_bwd_sequence_kernels(dev, T, C, F):
     assert all(torch.equal(a, b) for a, b in zip(whole, (dx, dwe, dg, db, dwh.reshape(C, F))))
 
 
-@pytest.mark.parametrize("T,C,F", [(64 * 65, 32, 20), (64 * 65, 96, 10), (262144, 96, 10)])
+@pytest.mark.parametrize("T,C,F", [(64 * 65, 32, 20), (64 * 65, 96, 10), (262144, 96, 10),
+                                   (64 * 65, 96, 33), (64 * 65, 128, 10), (64 * 65, 64, 128)])
 def test_final_head_loss_bwd_recomputes_the_forward_logits(dev, T, C, F):
     """K7's row kernel recomputes K6's rounded logits bit for bit: both kernels' logits
-    taps, ``torch.equal``; both near the plain version's."""
+    taps, ``torch.equal``; both near the plain version's.  Heads above 32 classes: K7's
+    second walk over the chunks remakes the first's logits (its tap is the first walk's);
+    C 128 with four sub-pixels: K7's slices streamed, K6's resident."""
     gen = torch.Generator().manual_seed(T + C)
     p = 4
     args = _loss_args(gen, dev, T, C, F, p)
@@ -617,20 +623,24 @@ def test_auto_refuses_what_the_kernels_do_not_take(dev):
 
 def test_tail_kernels_refuse_what_their_shared_memory_does_not_hold(dev):
     """The tail wrappers read the shared memory a block asks for from the library: K7
-    at C 128 with four sub-pixels (its z and dlogits tiles beside the p slices) needs
-    more than a block may have on the row core, so it takes the wide route
-    (``row_core_takes`` false), as K3 at C 160 does (no row-core instantiation); K3 at C
-    128 with four sub-pixels runs on the row core, and so does K9 (no tile of its own
-    beside the slices and the x ring); each launches once, within 1e-2 of its plain
-    version (K3's classes equal outside near-ties)."""
+    at C 128 with four sub-pixels and 128 classes (its z and dlogits tiles and its dWh
+    sums beside the streamed slices) needs more than a block may have on the row core,
+    so it takes the wide route (``row_core_takes`` false), as K3 at C 160 does (no
+    row-core instantiation); K7 at C 128 with four sub-pixels and 10 classes runs on the
+    row core (its slices streamed), and so do K3 there and K9 (no tile of its own beside
+    the slices and the x ring); each launches once on the route named, within 1e-2 of its
+    plain version (K3's classes equal outside near-ties)."""
     gen = torch.Generator().manual_seed(13)
     one = torch.ones((), device=dev)
-    loss128 = _loss_args(gen, dev, 128, 128, 10)
-    assert not fh.row_core_takes("loss_bwd", 128, 10, 4, False)
+    loss128 = _loss_args(gen, dev, 128, 128, 128)
+    assert not fh.row_core_takes("loss_bwd", 128, 128, 4, False)
+    assert fh.row_core_takes("loss_bwd", 128, 10, 4, False)
     assert fh.row_core_takes("predict", 128, 10, 4, False)
+    assert fh.row_core_takes("predict", 128, 128, 4, False)
     assert fh.row_core_takes("depth_loss_bwd", 128, 1, 4, False)
     assert not fh.row_core_takes("predict", 160, 10, 4, False)
     before = dict(fh.launches)
+    routes = dict(fh.launches_by_route)
     got7 = fh.final_head_loss_bwd(*loss128, one, patch_size=4)
     wide = _loss_args(gen, dev, 128, 160, 10)
     preds160 = fh.final_head_predict(*wide[:5], patch_size=4)
@@ -642,6 +652,11 @@ def test_tail_kernels_refuse_what_their_shared_memory_does_not_hold(dev):
     assert fh.launches["final_head_predict"] == before["final_head_predict"] + 2
     assert (fh.launches["final_head_depth_loss_bwd"]
             == before["final_head_depth_loss_bwd"] + 1)
+    moved = {k: v - routes.get(k, 0) for k, v in fh.launches_by_route.items()
+             if v != routes.get(k, 0)}
+    assert moved == {("final_head_loss_bwd", "wide"): 1, ("final_head_predict", "wide"): 1,
+                     ("final_head_predict", "row core"): 1,
+                     ("final_head_depth_loss_bwd", "row core"): 1}, moved
     _assert_grads_close(got7, fh.final_head_loss_bwd_plain(*loss128, one, patch_size=4))
     _assert_grads_close(got, fh.final_head_depth_loss_bwd_plain(*dargs, one, patch_size=4,
                                                                 loss_kind="l2"))
@@ -661,6 +676,100 @@ def test_wide_route_shared_memory_holds_the_domain(dev):
                             for C in range(8, fh.KERNEL_MAX_C + 1, 8) for F in fs)
     assert max(worst.values()) <= fh.KERNEL_SMEM_LIMIT, worst
     assert worst["loss"] == max(worst.values()) == lib.hs_final_head_wide_smem(192, 128, 1)
+
+
+# the row cores' widths, heads and patches: every (C, F, p) runs on the route
+# ``row_core_takes`` names, held to the plain versions
+ROW_CORE_FS = (1, 8, 10, 16, 17, 25, 32, 33, 64, 128)
+ROW_CORE_PS = (1, 4, 16)
+K6_LOSS_RTOL = 1e-5  # the loss, kernel against plain, relative
+# every K7 gradient, relative L2.  bf16: 3.4e-4, the bf16 K7's largest in the tail width
+# checks (the roundings of dlogits and dh; over this grid ``tools/tail_widths.py --grid``
+# reads at most 3.15e-4, dx).  f32: 5e-6, about twice the f32 K7's largest reading (the
+# heads in chunks of 16: 2.455e-6 at C 32, 128 classes, p 16 in ``chip_smoke.py``'s width
+# checks, 1.95e-6 over this grid; the heads in one piece 8.6e-7: sums over the T p
+# sub-rows in another order than the plain products'), far below one TF32 pass's ~1e-3
+K7_REL_L2 = {"bf16": 3.4e-4, "f32": 5e-6}
+
+
+def _route_moves(before):
+    return {k: v - before.get(k, 0) for k, v in fh.launches_by_route.items()
+            if v != before.get(k, 0)}
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("p", ROW_CORE_PS)
+@pytest.mark.parametrize("F", ROW_CORE_FS)
+@pytest.mark.parametrize("C", fh.ROW_CORE_CS)
+def test_tail_kernels_at_the_row_core_widths(dev, no_tf32, C, F, p, dtype):
+    """K3, K6 and K7 at C 32-128, heads of 1 to 128 classes (the chunk edges 16/17,
+    32/33 among them) and patches of 1, 4 and 16, bf16 and f32, on a T whose last 128-row
+    tile is half full, each launched once on the route ``row_core_takes`` names (the
+    route counter shows it): K3's classes equal the plain argmax outside near-ties; K6's
+    loss within K6_LOSS_RTOL relative, its confusion matrix off only at near-tie
+    elements; every K7 gradient within K7_REL_L2, two K7 launches bit-equal (one class:
+    the classes 0, the loss and every gradient exactly 0)."""
+    f32 = dtype == "f32"
+    gen = torch.Generator().manual_seed(1000 + 7 * C + 3 * F + p + f32)
+    T = 64 * 65
+    args = (_loss_args_f32 if f32 else _loss_args)(gen, dev, T, C, F, p)
+    sfx = "_f32" if f32 else ""
+    want_routes = {}
+    for kernel, name in (("predict", "final_head_predict"), ("loss", "final_head_loss"),
+                         ("loss_bwd", "final_head_loss_bwd")):
+        route = fh.ROUTES[0] if fh.row_core_takes(kernel, C, F, p, f32) else fh.ROUTES[1]
+        want_routes[(name + sfx, route)] = 1
+    before = dict(fh.launches_by_route)
+    preds = fh.final_head_predict(*args[:5], patch_size=p)
+    num, den, cm = fh.final_head_loss_sums(*args, patch_size=p)
+    wnum, wden, wcm = fh.final_head_loss_plain(*args, patch_size=p)
+    scale = torch.tensor(0.9, device=dev) / wden
+    got = fh.final_head_loss_bwd(*args, scale, patch_size=p)
+    torch.cuda.synchronize()
+    assert _route_moves(before) == want_routes
+    assert abs(float(num / den) - float(wnum / wden)) <= K6_LOSS_RTOL * abs(float(wnum / wden))
+    assert float(cm.sum()) == T * p
+    if F == 1:  # one class: every class 0, no loss, no gradient
+        assert int(preds.count_nonzero()) == 0 and torch.equal(cm, wcm)
+        assert all(int(g.count_nonzero()) == 0 for g in got)
+    else:
+        _assert_preds_close(preds, args, p)
+        near = _f32_near_ties(args, p) if f32 else _near_tie_rows(args, p)
+        assert float((cm - wcm).abs().sum()) <= 2 * int(near.sum())
+        _assert_grads_close(got, fh.final_head_loss_bwd_plain(*args, scale, patch_size=p),
+                            tol=K7_REL_L2[dtype])
+    again = fh.final_head_loss_bwd(*args, scale, patch_size=p)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
+def test_row_core_domain(dev):
+    """The row cores' domain at every (C, F, p) the wrappers may send them (C 32-128, F
+    1-128, p 1, 4 and 16, bf16 and f32): where ``row_core_takes`` takes K6 or K7, the
+    CUDA runtime's occupancy of the kernel itself at the library's shared-memory figure
+    gives the launch a grid (a block fits an SM); where it refuses, the library refuses
+    the launch on its own (grid 0, as the launch returns an error).  K3 is taken wherever
+    K6 is (its tiles are K6's without the confusion matrix).  The paths' tails (f32 C 96,
+    F 25, p 4; bf16 C 128, F 10, p 4) and the heads of 8, 10, 12, 25 and 33 classes at C
+    96, p 4 run on the row cores in both dtypes."""
+    lib = _build.lib()
+    T = 64 * 65
+    for f32 in (False, True):
+        sfx = "_f32" if f32 else ""
+        for C in fh.ROW_CORE_CS:
+            for p in ROW_CORE_PS:
+                for F in range(1, fh.KERNEL_MAX_F + 1):
+                    for kernel in ("loss", "loss_bwd"):
+                        grid = getattr(lib, f"hs_final_head_{kernel}{sfx}_grid")(T, C, F, p)
+                        takes = fh.row_core_takes(kernel, C, F, p, f32)
+                        assert (grid >= 1) == takes, (kernel, f32, C, F, p, grid)
+                    if fh.row_core_takes("loss", C, F, p, f32):
+                        assert fh.row_core_takes("predict", C, F, p, f32), (f32, C, F, p)
+    for kernel in ("predict", "loss", "loss_bwd"):
+        assert fh.row_core_takes(kernel, 96, 25, 4, True)
+        assert fh.row_core_takes(kernel, 128, 10, 4, False)
+        for F in (8, 10, 12, 25, 33):
+            for f32 in (False, True):
+                assert fh.row_core_takes(kernel, 96, F, 4, f32), (kernel, F, f32)
 
 
 def _qkv_args(gen, dev, C, T, masked, use_cos, qkv_bias):
@@ -1763,7 +1872,8 @@ def test_final_head_loss_f32_kernels_at_the_paper_tail(dev, no_tf32):
     _check_f32_loss(args, 4, torch.tensor(1.0, device=dev) / args[6].sum())
 
 
-@pytest.mark.parametrize("T,C,F", [(64 * 65, 96, 8), (64 * 33, 32, 16), (262144, 96, 8)])
+@pytest.mark.parametrize("T,C,F", [(64 * 65, 96, 8), (64 * 33, 32, 16), (262144, 96, 8),
+                                   (64 * 65, 96, 25)])
 def test_final_head_loss_f32_bwd_sequence_kernels(dev, no_tf32, T, C, F):
     """Each step of the f32 K7's launch sequence against its plain twin, run in f32: the
     tile kernel (dx and the partial rows [dWe | dWh | dgamma | dbeta] on its grid: the
@@ -1809,7 +1919,8 @@ def test_final_head_loss_f32_bwd_tile_step_blocks(dev, no_tf32, C, F):
         fh.final_head_loss_dwe(args[0], torch.zeros(T, p * C, device=dev))
 
 
-@pytest.mark.parametrize("T,C,F", [(64 * 65, 32, 16), (64 * 65, 96, 8), (262144, 96, 8)])
+@pytest.mark.parametrize("T,C,F", [(64 * 65, 32, 16), (64 * 65, 96, 8), (262144, 96, 8),
+                                   (64 * 65, 96, 25), (64 * 65, 64, 128)])
 def test_final_head_loss_f32_bwd_recomputes_the_forward_logits(dev, no_tf32, T, C, F):
     """The f32 K7's row kernel recomputes the f32 K6's logits bit for bit (both logits
     taps, ``torch.equal``); both within 1e-5 of the plain version's."""
@@ -2245,7 +2356,8 @@ def test_f32_epi_bwd_steps(dev, no_tf32, C, has_ln):
 
 
 @pytest.mark.parametrize("T,C,F", [(64 * 65, 32, 16), (64 * 65, 96, 8), (64 * 3, 64, 5),
-                                   (64 * 65, 128, 12), (262144, 96, 8)])
+                                   (64 * 65, 128, 12), (262144, 96, 8), (64 * 65, 96, 25),
+                                   (64 * 65, 96, 33), (64 * 65, 64, 128)])
 def test_final_head_predict_f32_kernel(dev, no_tf32, T, C, F):
     """The f32 K3 at each instantiation: its classes equal the plain version's outside
     near-ties of the f32 logits, its logits tap within 1e-5 of the plain logits and

@@ -6,10 +6,13 @@ HEAL-SWIN segmentation task at 25 classes and embed 40 against the JAX task thro
 fused Pallas tail.
 
 On the card these shapes run on the wide route (``csrc/final_head_wide.cu``: the expand by
-the hand-written GEMMs, one row kernel over the T p sub-rows, the backward's products),
-whose plain versions are the ones held here.  Cases: (C, F, p) in (8, 3, 1), (40, 25, 4),
-(136, 128, 4), (192, 33, 16) for K3, K6 and K7; the depth heads F 1 and 2 at C 40 and 136
-for every loss kind; T 256; f32 and bf16.  Limits as the existing tail tests state them:
+the hand-written GEMMs, one row kernel over the T p sub-rows, the backward's products) or,
+at C 32-128, on the row cores with the head in chunks and the slices streamed; the plain
+versions held here are those of both.  Cases: (C, F, p) in (8, 3, 1), (40, 25, 4), (136,
+128, 4), (192, 33, 16), (192, 128, 4), the paths' (128, 10, 4) and (96, 25, 4), and the
+chunk edges (96, 32, 4), (96, 33, 4), (64, 64, 1), (32, 128, 16) for K3, K6 and K7; the
+depth heads F 1 and 2 at C 40 and 136 for every loss kind; T 256; f32 and bf16.  Limits
+as the existing tail tests state them:
 
 - float32: the loss rtol 1e-5, the confusion matrix equal, every gradient normalized by
   its largest entry within 5e-6 (``test_torch_tail_f32.py``); the depth loss rtol 1e-6
@@ -47,7 +50,11 @@ LOSS_RTOL = 1e-5
 BF16_REL_L2 = 2e-3
 BF16_LOSS_RTOL = 3e-5
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
-SEG_CASES = [(8, 3, 1), (40, 25, 4), (136, 128, 4), (192, 33, 16), (192, 128, 4)]
+# corners of the Pallas tails' domain, the two paths' tails (C 128, F 10, p 4 and C 96, F
+# 25, p 4), and the row cores' chunk edges (32 and 33 classes at C 96; 64 at C 64, p 1;
+# 128 at C 32, p 16)
+SEG_CASES = [(8, 3, 1), (40, 25, 4), (136, 128, 4), (192, 33, 16), (192, 128, 4),
+             (128, 10, 4), (96, 25, 4), (96, 32, 4), (96, 33, 4), (64, 64, 1), (32, 128, 16)]
 DEPTH_KINDS = [("l2", 1, 1.0), ("l1", 1, 1.0), ("huber", 1, 0.7), ("nll", 2, 1.0),
                ("l2", 2, 1.0)]
 GRAD_NAMES = ["dx", "dwe", "dgamma", "dbeta", "dwh"]

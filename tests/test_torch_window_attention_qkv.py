@@ -180,16 +180,17 @@ def test_attention_kernels_take():
 def test_final_head_kernels_take():
     """The dtype and shapes the segmentation tail's kernels take, the train pair and K3
     alike: bf16 and f32, every C % 8 == 0 from 8 to 192, F from 1 to 128, T % 64 (on the
-    row cores at C 32, 64, 96, 128 with F <= 32 bf16 / 16 f32 where the slices fit, on the
-    wide route elsewhere; ``tests/test_torch_cuda_kernels.py``)."""
+    row cores at C 32, 64, 96, 128 where a block's shared memory holds the kernel, heads
+    above 32 bf16 / 16 f32 in chunks, on the wide route elsewhere;
+    ``tests/test_torch_cuda_kernels.py``)."""
     bf, f32 = torch.bfloat16, torch.float32
     assert fh.kernels_take(262144, 96, 10, bf)
     assert fh.kernels_take(262144, 96, 10, bf, train=False)
     assert fh.kernels_take(262144, 96, 10, f32)
     assert fh.kernels_take(262144, 96, 10, f32, train=False)
-    assert fh.kernels_take(262144, 96, 17, f32, train=False)  # past the f32 row core's 16
+    assert fh.kernels_take(262144, 96, 17, f32, train=False)  # the f32 head in chunks
     assert fh.kernels_take(262144, 48, 10, f32, train=False)
-    assert fh.kernels_take(262144, 96, 40, bf)  # past the bf16 row core's 32
+    assert fh.kernels_take(262144, 96, 40, bf)  # the bf16 head in chunks
     assert fh.kernels_take(262144, 8, 10, bf)  # C % 16 == 8
     assert not fh.kernels_take(262144, 96, 129, bf)  # F > 128
     assert not fh.kernels_take(262144, 12, 10, bf)  # C % 8

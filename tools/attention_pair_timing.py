@@ -2,7 +2,7 @@
 GPU, in turns: other, this, this, other.
 
     python3 tools/attention_pair_timing.py --other _checkout/parent \
-        [--family mlp|tail|f32|tail_f32|tails]
+        [--family mlp|tail|f32|tail_f32|tails|paths]
 
 ``--other`` is an unpacked copy of another commit (``git archive`` into the
 git-ignored ``_checkout/``).  Each of the four turns is its own process: it imports
@@ -43,7 +43,12 @@ it); each launches once a step (K3 once a predict).  Beside the times, each turn
 each f32 kernel's device ms by kernel name (chip_smoke.py's ``trace``, 5 calls; the
 profiler can drop a record) and the ptxas report (registers, spills) of the f32 tail
 kernels its build compiled.  ``--family tails`` times the tail family and the f32 tail
-family in the same turns.  ``--family all`` (the default) times the first four.
+family in the same turns.  ``--family paths`` times K3, K6 and K7 at the tails that the
+row cores' chunked heads and streamed slices serve (T 262,144, p 4, ``width_inputs``
+operands): bf16 at C 128, F 10 (K7's slices streamed), f32 at C 96, F 25 (the heads in
+chunks of 16), and bf16 at C 96, F 25 and 32 (one chunk of 32), on whichever route and
+head each checkout takes them.  ``--family all`` (the
+default) times the first four.
 
 Each shape gets two times: the device time (``device_ms``: each call enqueued behind a
 spin kernel, so that the events bracket the device work alone) and a single call's
@@ -148,6 +153,8 @@ def turn(root: Path, family: str) -> dict:
         times.update(tail_times(smoke, dev, both))
     if family in ("tail_f32", "tails"):
         times.update(tail_f32_times(smoke, dev, both))
+    if family == "paths":
+        times.update(path_times(smoke, dev, both))
     torch.cuda.synchronize()
     return times
 
@@ -239,6 +246,33 @@ def tail_times(smoke, dev, both) -> dict:
     route_f, route_b = smoke.depth_route(dargs, p)
     times[f"depth-route-fwd {label}"] = both(route_f)
     times[f"depth-route-bwd {label}"] = both(route_b)
+    return times
+
+
+# the paths' tails and the bf16 heads of one chunk: (dtype, C, F), T 262,144, p 4
+PATH_TAILS = (("bf16", 128, 10), ("f32", 96, 25), ("bf16", 96, 25), ("bf16", 96, 32))
+
+
+def path_times(smoke, dev, both) -> dict:
+    """K3, K6 and K7 at the paths' tails (PATH_TAILS), on seeded ``width_inputs``."""
+    import torch
+
+    from heal_swin_torch.ops import final_head as fh
+
+    T, p = 262144, 4
+    times = {}
+    for dt, C, F in PATH_TAILS:
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        gen = torch.Generator().manual_seed(smoke.SEED + C + F)
+        largs = smoke.width_inputs(gen, dev, T, C, F, p, dtype)
+        scale = torch.ones((), device=dev) / largs[6].sum()
+        kw = dict(patch_size=p, impl="pallas")
+        label = f"{dt} C={C} F={F} T={T}"
+        with torch.no_grad():
+            times[f"K3 {label}"] = both(lambda: fh.final_head_predict(*largs[:5], **kw))
+            times[f"K6 {label}"] = both(lambda: fh.final_head_loss_sums(*largs, **kw))
+            times[f"K7 {label}"] = both(lambda: fh.final_head_loss_bwd(*largs, scale, **kw))
+        del largs
     return times
 
 
@@ -412,7 +446,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", type=Path, help="the other checkout (e.g. the parent)")
     ap.add_argument("--family", choices=("attention", "mlp", "tail", "f32", "tail_f32", "tails",
-                                         "all"),
+                                         "paths", "all"),
                     default="all",
                     help="which kernels to time (default: all)")
     ap.add_argument("--turn", type=Path, help=argparse.SUPPRESS)
