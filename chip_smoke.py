@@ -3920,18 +3920,53 @@ def f32_mlp_inputs(rnd, dev, T, C, B):
     return args, rnd(T, C), ds.to(dev)
 
 
+def check_core_products(tm, rnd, T, C, tol):
+    """The f32 K13's and K15's products alone on their wgmma core (``gemm_wg_f32``) at a
+    stage shape against torch f32 (TF32 off): x W1 (NN, T x H over C), dout W2^T (NT, T x
+    H over C), dh W1^T (NT, T x C over H), g^T dout (TN, H x C over T, split over the
+    tokens); and the f32 K13's dual product (``mlp_dual``: g, dh, db1, db2) against
+    ``mlp_dual_plain``.  Each within relative L2 ``tol``; the largest error returned."""
+    H = 4 * C
+    worst = 0.0
+    with torch.no_grad():
+        for layout, M, N, K in (("nn", T, H, C), ("nt", T, H, C), ("nt", T, C, H),
+                                ("tn", H, C, T)):
+            a = rnd(K, M) if layout == "tn" else rnd(M, K)
+            b = rnd(N, K) if layout == "nt" else rnd(K, N)
+            e = check_close(f"f32 wgmma core {layout} M={M} N={N} K={K}",
+                            tm.gemm_wg_f32(a, b, layout, impl="pallas"),
+                            tm.gemm_wg_f32_plain(a, b, layout), tol)
+            worst = max(worst, e[0])
+            del a, b
+        x, w1, b1, w2, dout = (rnd(T, C), rnd(C, H, std=C ** -0.5), rnd(H, std=0.1),
+                               rnd(H, C, std=H ** -0.5), rnd(T, C))
+        for approximate in (True, False):
+            e = check_grads(f"f32 K13 dual product T={T} C={C} tanh={approximate}",
+                            ("g", "dh", "db1", "db2"),
+                            tm.mlp_dual(x, w1, b1, w2, dout, approximate=approximate,
+                                        impl="pallas"),
+                            tm.mlp_dual_plain(x, w1, b1, w2, dout, approximate=approximate),
+                            tol)
+            worst = max(worst, e[0])
+    log(f"f32 wgmma core T={T} C={C}: NN, NT, NT, TN products and the dual product rel_l2 "
+        f"<= {worst:.3e} (tol {tol})")
+    return worst
+
+
 def check_f32_mlp_kernels(gen, dev):
     """The f32 K12-K15 against their plain versions (f32, TF32 off) at every stage shape
     of the paper model at batch 2 and at a ragged batch of 1 (T 262,144 / 65,536 /
     16,384 / 4,096 and their halves, C 96 / 192 / 384 / 768, H = 4C), both GELUs, K14 /
     K15 with no DropPath scale and with the batch's draw: every output and gradient
     within relative L2 F32_TAIL_TOL (K14 / K15 on the branch, z - x and dx - dz), two
-    launches of each bit-equal.  At the batch-2 shapes, with the paper config's exact
-    GELU, each is timed (``f32_train_timing``: one call, its device ms by ``spin_ms``,
-    the plain version, and the f32 route of the same function, ``mlp_route``: F.linear ->
-    GELU -> F.linear [-> LayerNorm, DropPath, residual] with autograd, TF32 off), its
-    workspace logged, and K13's and K15's launch sequences traced by kernel.  Returns
-    the timings keyed like the launch counters."""
+    launches of each bit-equal; at the batch-2 shapes the wgmma core's products alone and
+    the dual product too (``check_core_products``).  At the batch-2 shapes, with the paper
+    config's exact GELU, each is timed (``f32_train_timing``: one call, its device ms by
+    ``spin_ms``, the plain version, and the f32 route of the same function,
+    ``mlp_route``: F.linear -> GELU -> F.linear [-> LayerNorm, DropPath, residual] with
+    autograd, TF32 off) and its workspace logged; K13's and K15's launch sequences are
+    traced by kernel at every stage shape of both batches.  Returns the timings keyed
+    like the launch counters."""
     from heal_swin_torch import _build
     from heal_swin_torch.ops import mlp as tm
 
@@ -3943,6 +3978,9 @@ def check_f32_mlp_kernels(gen, dev):
     for B in (BATCH, 1):
         for T2, C in mlp_stages():
             T, H = T2 * B // BATCH, 4 * C
+            if B == BATCH:
+                check_core_products(tm, rnd, T, C, tol)
+                torch.cuda.empty_cache()
             args, dz, ds = f32_mlp_inputs(rnd, dev, T, C, B)
             x, a5 = args[0], args[:5]
             errs = {}
@@ -3983,11 +4021,18 @@ def check_f32_mlp_kernels(gen, dev):
                     + ", ".join(f"{k[0][:-4]} dscale={k[2]} <= {v[0]:.3e}"
                                 for k, v in errs.items() if len(k) == 3 and k[1] == approximate)
                     + f" (tol {tol}); two launches of each bit-equal")
+            if B != BATCH:
+                pk = dict(approximate=False, impl="pallas")
+                log_f32_sequence(f"f32 K13 sequence T={T} C={C} batch 1 tanh=False",
+                                 lambda: tm.mlp_bwd(*a5, dz, **pk))
+                log_f32_sequence(f"f32 K15 sequence T={T} C={C} batch 1 tanh=False "
+                                 f"dscale=True", lambda: tm.mlp_block_bwd(*args, ds, dz, **pk))
             if B == BATCH:
                 log(f"f32 K12-K15 T={T} C={C} H={H}: workspace K12 / K14 "
                     f"{lib.hs_mlp_fwd_f32_workspace(T, C, H)} bytes (g), K13 "
-                    f"{lib.hs_mlp_bwd_f32_workspace(T, C, H)} (h / dh, g, scratch), K15 "
-                    f"{lib.hs_mlp_block_bwd_f32_workspace(T, C, H)} (and u / du, partial rows)")
+                    f"{lib.hs_mlp_bwd_f32_workspace(T, C, H)} (g, dh, partial rows, scratch), "
+                    f"K15 {lib.hs_mlp_block_bwd_f32_workspace(T, C, H)} (g, GELU'(h) / dh, "
+                    f"u / du, partial rows, scratch)")
                 kw = dict(approximate=False)
                 pk = dict(kw, impl="pallas")
                 key = (T, C, H, False)
@@ -6417,26 +6462,41 @@ PTXAS_NAMES.update({"18attn_3xtf32_kernel": "f32 K2 attn_3xtf32_kernel (f32 K1/K
                     "22attn_bwd_3xtf32_kernelILb0E":
                         "f32 K5/K17 core attn_bwd_3xtf32_kernel<scaled-dot>",
                     "22ln_bwd_rows_f32_kernel": "f32 K4 step 2 ln_bwd_rows_f32_kernel"})
-# the f32 K12-K15's kernels (csrc/mlp_f32.cu's translation unit)
+# the f32 K12-K15's kernels (csrc/mlp_f32.cu's translation unit): K12 / K14 on the
+# mma.sync core; K13 / K15 on the wgmma core (csrc/gemm_3xtf32_wgmma.cuh); the header's
+# other mma.sync products are compiled there too and launched by no MLP kernel
 MLP_F32_PTXAS_NAMES = {
     "18gemm_3xtf32_kernelILb0ELb0ENS0_7EpiBiasE":
-        "f32 K12 / K14 step 2, K15 step 2 gemm_3xtf32_kernel<NN> (g W2 + b2)",
-    "18gemm_3xtf32_kernelILb0ELb1ENS0_7EpiBiasE": "f32 K13 step 3 gemm_3xtf32_kernel<NT> (dx)",
+        "f32 K12 / K14 step 2 gemm_3xtf32_kernel<NN> (g W2 + b2)",
+    "18gemm_3xtf32_kernelILb0ELb1ENS0_7EpiBiasE":
+        "gemm_3xtf32_kernel<NT> (attention_f32.cuh's; no MLP launch)",
     "18gemm_3xtf32_kernelILb1ELb0ENS0_7EpiBiasE":
-        "f32 K13 / K15 dW1, dW2 gemm_3xtf32_kernel<TN> (split-K)",
+        "gemm_3xtf32_kernel<TN> (attention_f32.cuh's; no MLP launch)",
     "18gemm_3xtf32_kernelILb0ELb0ENS0_7EpiGeluILb1E":
-        "f32 K12-K15 step 1 gemm_3xtf32_kernel<NN, EpiGelu<tanh>>",
+        "f32 K12 / K14 step 1 gemm_3xtf32_kernel<NN, EpiGelu<tanh>>",
     "18gemm_3xtf32_kernelILb0ELb0ENS0_7EpiGeluILb0E":
-        "f32 K12-K15 step 1 gemm_3xtf32_kernel<NN, EpiGelu<erf>>",
-    "18gemm_3xtf32_kernelILb0ELb1ENS0_8EpiDGeluILb1E":
-        "f32 K13 / K15 dh gemm_3xtf32_kernel<NT, EpiDGelu<tanh>>",
-    "18gemm_3xtf32_kernelILb0ELb1ENS0_8EpiDGeluILb0E":
-        "f32 K13 / K15 dh gemm_3xtf32_kernel<NT, EpiDGelu<erf>>",
-    "18gemm_3xtf32_kernelILb0ELb1ENS0_11EpiResidualE":
-        "f32 K15 dx gemm_3xtf32_kernel<NT, EpiResidual>"}
+        "f32 K12 / K14 step 1 gemm_3xtf32_kernel<NN, EpiGelu<erf>>"}
 MLP_F32_PTXAS_NAMES.update({
     f"21mlp_ln_{d}_f32_kernelILi{p}E": f"f32 K{k} mlp_ln_{d}_f32_kernel<{p}> (C <= {32 * p})"
     for d, k in (("fwd", "14 step 3"), ("bwd", "15 step 3")) for p in (3, 6, 12, 24)})
+WG_KERNEL = "21gemm_3xtf32_wg_kernelI"
+MLP_F32_PTXAS_NAMES.update({
+    WG_KERNEL + "Lb1ELb0ELb1ELb1ENS0_9WgEpiDualILb1E":
+        "f32 K13 step 1 gemm_3xtf32_wg_kernel<dual, WgEpiDual<tanh>>",
+    WG_KERNEL + "Lb1ELb0ELb1ELb1ENS0_9WgEpiDualILb0E":
+        "f32 K13 step 1 gemm_3xtf32_wg_kernel<dual, WgEpiDual<erf>>",
+    WG_KERNEL + "Lb1ELb1ELb1ELb0ENS0_10WgEpiStoreILb0E": "f32 K13 dx gemm_3xtf32_wg_kernel<NT>",
+    WG_KERNEL + "Lb1ELb1ELb1ELb0ENS0_10WgEpiStoreILb1E":
+        "f32 K15 dx gemm_3xtf32_wg_kernel<NT, residual>",
+    WG_KERNEL + "Lb0ELb0ELb0ELb0ENS0_12WgEpiPartialE":
+        "f32 K13 / K15 dW2, dW1 gemm_3xtf32_wg_kernel<TN pair, split-K>",
+    WG_KERNEL + "Lb1ELb0ELb0ELb0ENS0_9WgEpiGeluILb1E":
+        "f32 K15 step 1 gemm_3xtf32_wg_kernel<NN, WgEpiGelu<tanh>> (g, GELU'(h))",
+    WG_KERNEL + "Lb1ELb0ELb0ELb0ENS0_9WgEpiGeluILb0E":
+        "f32 K15 step 1 gemm_3xtf32_wg_kernel<NN, WgEpiGelu<erf>> (g, GELU'(h))",
+    WG_KERNEL + "Lb1ELb0ELb0ELb0ENS0_10WgEpiStoreILb0E":
+        "f32 K15 step 2 gemm_3xtf32_wg_kernel<NN> (u = g W2 + b2)",
+    WG_KERNEL + "Lb1ELb1ELb1ELb0ENS0_7WgEpiDhE": "f32 K15 dh gemm_3xtf32_wg_kernel<NT, WgEpiDh>"})
 
 
 def log_ptxas(build_log: str):

@@ -123,12 +123,15 @@ _SIGNATURES = {
     "hs_mlp_fwd_f32": ([_P] * 7 + [_I] * 4 + [_P], _I),
     "hs_mlp_fwd_f32_workspace": ([_I] * 3, ctypes.c_size_t),
     "hs_mlp_block_fwd_f32": ([_P] * 10 + [_I] * 5 + [_F, _P], _I),
-    "hs_mlp_bwd_f32": ([_P] * 11 + [_I] * 4 + [_P], _I),
+    "hs_mlp_bwd_f32": ([_P] * 10 + [_I] * 4 + [_P], _I),
     "hs_mlp_bwd_f32_workspace": ([_I] * 3, ctypes.c_size_t),
-    "hs_mlp_block_bwd_f32": ([_P] * 14 + [_I] * 5 + [_F, _P], _I),
+    "hs_mlp_block_bwd_f32": ([_P] * 13 + [_I] * 5 + [_F, _P], _I),
     "hs_mlp_block_bwd_f32_workspace": ([_I] * 3, ctypes.c_size_t),
-    "hs_mlp_hidden_f32": ([_P] * 5 + [_I] * 4 + [_P], _I),
-    "hs_mlp_dh_f32": ([_P] * 4 + [_I] * 4 + [_P], _I),
+    "hs_mlp_hidden_f32": ([_P] * 4 + [_I] * 4 + [_P], _I),
+    "hs_mlp_dual_f32": ([_P] * 9 + [_I] * 4 + [_P], _I),
+    "hs_mlp_dual_f32_workspace": ([_I] * 3, ctypes.c_size_t),
+    "hs_gemm_wg_f32": ([_P] * 4 + [_I] * 4 + [_P], _I),
+    "hs_gemm_wg_f32_workspace": ([_I] * 4, ctypes.c_size_t),
     "hs_mlp_block_ln_f32": ([_P] * 6 + [_I] * 2 + [_F, _P], _I),
     "hs_mlp_block_ln_bwd_f32": ([_P] * 7 + [_I] * 2 + [_F, _P], _I),
     "hs_mlp_block_ln_bwd_f32_workspace": ([_I] * 2, ctypes.c_size_t),

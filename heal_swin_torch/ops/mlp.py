@@ -20,12 +20,15 @@ version:
 
 Each takes bfloat16 or float32 x.  For f32 x the same entries launch the f32 kernels
 (``csrc/mlp_f32.cu``, launches counted as "mlp_fwd_f32" ... "mlp_block_bwd_f32"): launch
-sequences of 3xTF32 tensor-core products with nothing rounded below f32, whose own steps
-have wrappers and plain twins of their own: the hidden h, g = GELU(h) (``mlp_hidden``,
-``mlp_hidden_plain``), the GELU-gradient product dh = (dout W2^T) GELU'(h) (``mlp_dh``,
-``mlp_dh_plain``), K14's LayerNorm with the DropPath scale and the residual
-(``mlp_block_ln``, ``mlp_block_ln_plain``) and K15's LayerNorm backward
-(``mlp_block_ln_bwd``, ``mlp_block_ln_bwd_plain``).
+sequences of 3xTF32 tensor-core products with nothing rounded below f32 (K12 and K14 on
+the mma.sync core, K13 and K15 on the wgmma core of ``csrc/gemm_3xtf32_wgmma.cuh``), whose
+own steps have wrappers and plain twins of their own: K12's and K14's first step g =
+GELU(x W1 + b1) (``mlp_hidden``, ``mlp_hidden_plain``), K13's dual product (g and dh =
+(dout W2^T) GELU'(h), db1 and db2 from x and dout in one pass: ``mlp_dual``,
+``mlp_dual_plain``, which takes dh from ``mlp_dh_plain``), the wgmma core's NN, NT and TN
+products alone (``gemm_wg_f32``, ``gemm_wg_f32_plain``), K14's LayerNorm with the
+DropPath scale and the residual (``mlp_block_ln``, ``mlp_block_ln_plain``) and K15's
+LayerNorm backward (``mlp_block_ln_bwd``, ``mlp_block_ln_bwd_plain``).
 
 Entry points, on the JAX layout (weights (in, out)) and with the JAX package's
 semantics:
@@ -70,7 +73,8 @@ import torch
 import torch.nn.functional as F
 
 from heal_swin_torch import _build
-from heal_swin_torch.ops._dispatch import check, f32_suffix, input_grads, stream, use_kernel
+from heal_swin_torch.ops._dispatch import (check, f32_suffix, input_grads, refuse, stream,
+                                           use_kernel)
 
 _SQRT_2_OVER_PI = 0.7978845608028654
 _TANH_C = 0.044715
@@ -131,8 +135,8 @@ block_supported = supported  # K14/K15 take the same shapes as K12/K13 (the JAX 
 
 def mlp_hidden_plain(x, w1, b1, *, approximate: bool):
     """h = x W1 + b1 (f32 sums of dt-rounded operands) and g = GELU(h) rounded to x's
-    dtype dt, both as f32 (T, H).  For f32 x the twin of the f32 kernels' first step
-    (``mlp_hidden``)."""
+    dtype dt, both as f32 (T, H).  For f32 x its g is the twin of the f32 K12's and K14's
+    first step (``mlp_hidden``)."""
     dt = x.dtype
     h = x.float() @ w1.to(dt).float() + b1.float()
     return h, _gelu_f32(h, approximate).to(dt).float()
@@ -147,9 +151,35 @@ def mlp_plain(x, w1, b1, w2, b2, *, approximate: bool):
 
 
 def mlp_dh_plain(h, w2, dout, *, approximate: bool):
-    """dh = (dout W2^T) GELU'(h), f32 sums, unrounded (T, H): the twin of the f32 K13's
-    and K15's GELU-gradient product (``mlp_dh``).  h (T, H), w2 (H, C), dout (T, C)."""
+    """dh = (dout W2^T) GELU'(h), f32 sums, unrounded (T, H): the GELU-gradient product
+    of the plain backwards and of ``mlp_dual_plain``.  h (T, H), w2 (H, C), dout (T, C)."""
     return (dout.float() @ w2.float().t()) * _gelu_grad_f32(h.float(), approximate)
+
+
+def mlp_dual_plain(x, w1, b1, w2, dout, *, approximate: bool):
+    """The f32 K13's dual product in plain steps: g = GELU(h) and dh = (dout W2^T)
+    GELU'(h) with h = x W1 + b1 (T, H), and db1 = the sum of dh, db2 = the sum of dout,
+    all f32: the twin of ``mlp_dual``.  x, dout (T, C); w1 (C, H); w2 (H, C)."""
+    h, g = mlp_hidden_plain(x, w1, b1, approximate=approximate)
+    do = dout.float()
+    dh = mlp_dh_plain(h, w2, do, approximate=approximate)
+    return g, dh, dh.sum(0), do.sum(0)
+
+
+GEMM_LAYOUTS = ("nn", "nt", "tn")
+
+
+def gemm_wg_f32_plain(a, b, layout: str):
+    """The wgmma core's product in f32 (TF32 off): "nn" a (M, K) @ b (K, N); "nt" a @ b^T,
+    b (N, K); "tn" a^T @ b, a (K, M), b (K, N).  The twin of ``gemm_wg_f32``."""
+    a, b = a.float(), b.float()
+    if layout == "nn":
+        return a @ b
+    if layout == "nt":
+        return a @ b.t()
+    if layout == "tn":
+        return a.t() @ b
+    raise ValueError(f"unknown layout {layout!r}: expected one of {GEMM_LAYOUTS}")
 
 
 def _hidden_grads(x, w1, b1, w2, dout, approximate):
@@ -264,18 +294,17 @@ def _dtype_names(dtypes):
 
 
 def _check_takes(what, x, H, dtypes=_TAKES):
-    """Raise unless the kernels take x at hidden width H: (T, C) of one of ``dtypes``
-    (K12-K15: bfloat16 or float32; the bf16 sequences' own steps: bfloat16), with
-    ``supported(T, C, H)``."""
+    """Refuse (``_dispatch.refuse``) unless the kernels take x at hidden width H: (T, C)
+    of one of ``dtypes`` (K12-K15: bfloat16 or float32; the bf16 sequences' own steps:
+    bfloat16), with ``supported(T, C, H)``."""
     if x.dtype not in dtypes or x.dim() != 2:
-        raise ValueError(f"{what}: the kernel takes a (T, C) {_dtype_names(dtypes)} x, not "
-                         f"{tuple(x.shape)} {x.dtype}")
+        refuse(f"{what}: the kernel takes a (T, C) {_dtype_names(dtypes)} x, not "
+               f"{tuple(x.shape)} {x.dtype}")
     T, C = x.shape
     if not supported(T, C, H):
-        raise ValueError(f"{what}: the kernel does not take T={T}, C={C}, H={H} (T a "
-                         f"multiple of {KERNEL_ROWS}, C a multiple of 32 up to "
-                         f"{KERNEL_MAX_C} and of 64 above 384, H a multiple of "
-                         f"{KERNEL_HC})")
+        refuse(f"{what}: the kernel does not take T={T}, C={C}, H={H} (T a multiple of "
+               f"{KERNEL_ROWS}, C a multiple of 32 up to {KERNEL_MAX_C} and of 64 above 384, "
+               f"H a multiple of {KERNEL_HC})")
 
 
 def _operands(what, x, w1, b1, w2, b2, extra=(), dtypes=_TAKES):
@@ -368,6 +397,13 @@ def _dw_outputs(x, T, C, H, workspace):
             _work(workspace(T, C, H), x))
 
 
+def _dw_f32(x, C, H):
+    """The f32 K13's and K15's weight gradients in one buffer, as their TN pair's
+    reduction writes them: dw = [dW2 (H, C) | dW1 (C, H)] and the two views."""
+    dw = torch.empty(2 * C * H, dtype=torch.float32, device=x.device)
+    return dw, dw[:C * H].view(H, C), dw[C * H:].view(C, H)
+
+
 def mlp_bwd(x, w1, b1, w2, b2, dout, *, approximate: bool, impl="auto"):
     """K13 wrapper: the backward of K12, one entry that launches its sequence (bf16: the
     dx kernel, then the weight-gradient kernel and its reductions; f32: the 3xTF32
@@ -380,9 +416,16 @@ def mlp_bwd(x, w1, b1, w2, b2, dout, *, approximate: bool, impl="auto"):
     dout = _grad_operand(what, dout, T, C, x.dtype)
     lib = _build.lib()
     dx = torch.empty_like(ops[0])
-    dw1, dw2, red, work = _dw_outputs(x, T, C, H, getattr(lib, f"hs_mlp_bwd{sfx}_workspace"))
-    code = getattr(lib, f"hs_mlp_bwd{sfx}")(*_ptrs(ops + [dout, dx, dw1, dw2, red, work]),
-                                            T, C, H, int(approximate), stream(x))
+    if sfx:
+        dw, dw2, dw1 = _dw_f32(x, C, H)
+        red = torch.empty(H + C, dtype=torch.float32, device=x.device)
+        work = _work(lib.hs_mlp_bwd_f32_workspace(T, C, H), x)
+        code = lib.hs_mlp_bwd_f32(*_ptrs(ops + [dout, dx, dw, red, work]), T, C, H,
+                                  int(approximate), stream(x))
+    else:
+        dw1, dw2, red, work = _dw_outputs(x, T, C, H, lib.hs_mlp_bwd_workspace)
+        code = lib.hs_mlp_bwd(*_ptrs(ops + [dout, dx, dw1, dw2, red, work]), T, C, H,
+                              int(approximate), stream(x))
     check(code, what + sfx)
     _count(what + sfx, (T, C, H, bool(approximate)))
     db1, db2 = red.split([H, C])
@@ -491,11 +534,16 @@ def mlp_block_bwd(x, w1, b1, w2, b2, gamma, beta, dscale, dz, *, approximate: bo
     lib = _build.lib()
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(ops[0])
-    dw1, dw2 = torch.empty((C, H), **f32), torch.empty((H, C), **f32)
     red = torch.empty(H + 3 * C, **f32)  # db1 | db2 | dgamma | dbeta
     work = _work(getattr(lib, f"hs_mlp_block_bwd{sfx}_workspace")(T, C, H), x)
+    if sfx:
+        dw, dw2, dw1 = _dw_f32(x, C, H)
+        grads = [dw]
+    else:
+        dw1, dw2 = torch.empty((C, H), **f32), torch.empty((H, C), **f32)
+        grads = [dw1, dw2]
     code = getattr(lib, f"hs_mlp_block_bwd{sfx}")(
-        *_ptrs(ops + [ds, dz, dx, dw1, dw2, red, work]), T, C, H, int(approximate),
+        *_ptrs(ops + [ds, dz, dx] + grads + [red, work]), T, C, H, int(approximate),
         int(ds is not None), float(ln_eps), stream(x))
     check(code, what + sfx)
     _count(what + sfx, (T, C, H, bool(approximate), ds is not None))
@@ -518,10 +566,10 @@ def _f32_rows(what, t, T, C):
 
 
 def mlp_hidden(x, w1, b1, *, approximate: bool, impl="auto"):
-    """The f32 sequences' first step alone: h = x W1 + b1 and g = GELU(h), (T, H) f32
-    each; results as ``mlp_hidden_plain``."""
+    """The f32 K12's and K14's first step alone: g = GELU(x W1 + b1), (T, H) f32; the
+    result as the g of ``mlp_hidden_plain``."""
     if not use_kernel(x, impl):
-        return mlp_hidden_plain(x, w1, b1, approximate=approximate)
+        return mlp_hidden_plain(x, w1, b1, approximate=approximate)[1]
     what = "mlp_hidden"
     H = w1.shape[1]
     _check_takes(what, x, H, _F32)
@@ -529,28 +577,58 @@ def mlp_hidden(x, w1, b1, *, approximate: bool, impl="auto"):
     x, w1 = _f32_rows(what, x, T, C), _f32_rows(what, w1, C, H)
     b1 = b1.float().contiguous()
     _on_card(what, [b1], x)
-    h, g = (torch.empty((T, H), dtype=torch.float32, device=x.device) for _ in range(2))
-    check(_build.lib().hs_mlp_hidden_f32(*_ptrs([x, w1, b1, h, g]), T, C, H, int(approximate),
+    g = torch.empty((T, H), dtype=torch.float32, device=x.device)
+    check(_build.lib().hs_mlp_hidden_f32(*_ptrs([x, w1, b1, g]), T, C, H, int(approximate),
                                          stream(x)), what)
-    return h, g
+    return g
 
 
-def mlp_dh(h, w2, dout, *, approximate: bool, impl="auto"):
-    """The f32 K13's and K15's GELU-gradient product alone: dh = (dout W2^T) GELU'(h),
-    (T, H) f32; results as ``mlp_dh_plain``."""
-    if not use_kernel(dout, impl):
-        return mlp_dh_plain(h, w2, dout, approximate=approximate)
-    what = "mlp_dh"
-    H = w2.shape[0]
-    _check_takes(what, dout, H, _F32)
-    T, C = dout.shape
+def mlp_dual(x, w1, b1, w2, dout, *, approximate: bool, impl="auto"):
+    """The f32 K13's dual product alone, with the reduction of its partial rows: g, dh
+    (T, H) f32 and db1 (H,), db2 (C,); results as ``mlp_dual_plain``."""
+    if not use_kernel(x, impl):
+        return mlp_dual_plain(x, w1, b1, w2, dout, approximate=approximate)
+    what = "mlp_dual"
+    H = w1.shape[1]
+    _check_takes(what, x, H, _F32)
+    T, C = x.shape
+    x, w1, w2 = _f32_rows(what, x, T, C), _f32_rows(what, w1, C, H), _f32_rows(what, w2, H, C)
     dout = _f32_rows(what, dout, T, C)
-    h = _f32_rows(what, h, T, H)
-    w2 = _f32_rows(what, w2, H, C)
-    dh = torch.empty_like(h)
-    check(_build.lib().hs_mlp_dh_f32(*_ptrs([dout, w2, h, dh]), T, C, H, int(approximate),
-                                     stream(dout)), what)
-    return dh
+    b1 = b1.float().contiguous()
+    _on_card(what, [b1], x)
+    lib = _build.lib()
+    g, dh = (torch.empty((T, H), dtype=torch.float32, device=x.device) for _ in range(2))
+    red = torch.empty(H + C, dtype=torch.float32, device=x.device)
+    work = _work(lib.hs_mlp_dual_f32_workspace(T, C, H), x)
+    check(lib.hs_mlp_dual_f32(*_ptrs([x, w1, b1, w2, dout, g, dh, red, work]), T, C, H,
+                              int(approximate), stream(x)), what)
+    db1, db2 = red.split([H, C])
+    return g, dh, db1, db2
+
+
+def gemm_wg_f32(a, b, layout: str, *, impl="auto"):
+    """The wgmma core's product alone (``gemm_wg_f32_plain``'s layouts), f32 3xTF32: M, N
+    multiples of 4, K of 32; 16-byte aligned rows.  Results as ``gemm_wg_f32_plain``."""
+    if not use_kernel(a, impl):
+        return gemm_wg_f32_plain(a, b, layout)
+    what = "gemm_wg_f32"
+    if layout not in GEMM_LAYOUTS:
+        raise ValueError(f"unknown layout {layout!r}: expected one of {GEMM_LAYOUTS}")
+    if a.dim() != 2 or b.dim() != 2:
+        raise ValueError(f"{what}: two matrices, not {tuple(a.shape)} and {tuple(b.shape)}")
+    (M, K), (K2, N) = (a.shape[::-1] if layout == "tn" else a.shape,
+                       b.shape[::-1] if layout == "nt" else b.shape)
+    if K != K2 or M % 4 or N % 4 or K % 32:
+        raise ValueError(f"{what}: {layout} takes M, N multiples of 4 and K of 32 that "
+                         f"agree, not {tuple(a.shape)} and {tuple(b.shape)}")
+    a, b = _f32_rows(what, a, *a.shape), _f32_rows(what, b, *b.shape)
+    _on_card(what, [b], a)
+    lib = _build.lib()
+    code = GEMM_LAYOUTS.index(layout)
+    out = torch.empty((M, N), dtype=torch.float32, device=a.device)
+    work = _work(lib.hs_gemm_wg_f32_workspace(M, N, K, code), a)
+    check(lib.hs_gemm_wg_f32(*_ptrs([a, b, out, work]), M, N, K, code, stream(a)), what)
+    return out
 
 
 def mlp_block_ln(u, x, gamma, beta, dscale, *, ln_eps: float = 1e-5, impl="auto"):

@@ -1754,10 +1754,11 @@ def test_mlp_block_f32_kernels(dev, no_tf32, T, C, has_dp):
 @pytest.mark.parametrize("approximate", [True, False])
 def test_mlp_f32_sequence_steps(dev, no_tf32, T, C, approximate):
     """Each new step of the f32 sequences alone against its plain twin, f32 with TF32
-    off, within relative L2 1e-5: the hidden h and g = GELU(h) (``mlp_hidden``), the
-    GELU-gradient product (``mlp_dh``), K14's LayerNorm with the DropPath scale and the
-    residual (``mlp_block_ln``) and K15's LayerNorm backward with its sums
-    (``mlp_block_ln_bwd``); none of them counts a launch."""
+    off, within relative L2 1e-5: K12's and K14's g = GELU(x W1 + b1) (``mlp_hidden``),
+    K14's LayerNorm with the DropPath scale and the residual (``mlp_block_ln``) and K15's
+    LayerNorm backward with its sums (``mlp_block_ln_bwd``); none of them counts a launch.
+    K13's and K15's GELU-gradient products are held in ``test_mlp_dual_f32`` and
+    ``test_mlp_f32_backwards_at_stage_shapes``."""
     from heal_swin_torch.ops import mlp as tm
 
     gen = torch.Generator().manual_seed(500 + C + approximate)
@@ -1767,11 +1768,8 @@ def test_mlp_f32_sequence_steps(dev, no_tf32, T, C, approximate):
     ds = torch.where(torch.rand(T, 1, generator=gen) < 0.3, 0.0, 1.25).to(dev)
     kw = dict(approximate=approximate)
     before = dict(tm.launches)
-    _assert_grads_close(tm.mlp_hidden(x, w1, b1, **kw), tm.mlp_hidden_plain(x, w1, b1, **kw),
-                        tol=MLP_F32_TOL)
-    h, gg = tm.mlp_hidden_plain(x, w1, b1, **kw)
-    _assert_grads_close((tm.mlp_dh(h, w2, dz, **kw),), (tm.mlp_dh_plain(h, w2, dz, **kw),),
-                        tol=MLP_F32_TOL)
+    gg = tm.mlp_hidden_plain(x, w1, b1, **kw)[1]
+    _assert_grads_close((tm.mlp_hidden(x, w1, b1, **kw),), (gg,), tol=MLP_F32_TOL)
     u = gg @ w2 + b2
     for d in (None, ds):
         _assert_grads_close((tm.mlp_block_ln(u, x, g, b, d),),
@@ -1780,6 +1778,154 @@ def test_mlp_f32_sequence_steps(dev, no_tf32, T, C, approximate):
                             tm.mlp_block_ln_bwd_plain(u, dz, g, d), tol=MLP_F32_TOL)
     torch.cuda.synchronize()
     assert tm.launches == before
+
+
+# --- the wgmma 3xTF32 core (csrc/gemm_3xtf32_wgmma.cuh) under the f32 K13 and K15: its
+# products alone in NN, NT and TN against torch f32 with TF32 off at the stage shapes of
+# the paper model (T 262,144 / 65,536 / 16,384 / 4,096, C 96 / 192 / 384 / 768, H 4C),
+# the halves of a batch of 1 and ragged edges (M not a multiple of the 128-row tile, N
+# not of the 96-column one, one split of the TN product shorter); the dual product
+# against its plain twin; K13 and K15 at the stage shapes, both GELUs, with and without
+# the DropPath draw, two launches bit-equal.  Relative L2 1e-5 throughout.
+STAGES_F32 = [(262144, 96), (65536, 192), (16384, 384), (4096, 768)]
+
+
+def _layout_operands(gen, dev, layout, M, N, K):
+    a = _randn(gen, dev, K, M) if layout == "tn" else _randn(gen, dev, M, K)
+    b = _randn(gen, dev, N, K) if layout == "nt" else _randn(gen, dev, K, N)
+    return a, b
+
+
+def _stage_products(T, C):
+    """The f32 K13's products at a stage shape as (layout, M, N, K): x W1 and dout W2^T
+    (NN and NT, T x H over C), dh W1^T (NT, T x C over H), g^T dout (TN, H x C over T)."""
+    H = 4 * C
+    return [("nn", T, H, C), ("nt", T, H, C), ("nt", T, C, H), ("tn", H, C, T)]
+
+
+@pytest.mark.parametrize("batch", [2, 1])
+@pytest.mark.parametrize("T,C", STAGES_F32)
+def test_gemm_wg_f32_stage_products(dev, no_tf32, T, C, batch):
+    """The wgmma core's NN, NT and TN products at a stage shape (batch 2, or the half a
+    batch of 1 gives) against torch f32, within relative L2 1e-5; a second launch gives
+    the same bits."""
+    from heal_swin_torch.ops import mlp as tm
+
+    gen = torch.Generator().manual_seed(700 + C + batch)
+    for layout, M, N, K in _stage_products(T * batch // 2, C):
+        a, b = _layout_operands(gen, dev, layout, M, N, K)
+        got = tm.gemm_wg_f32(a, b, layout)
+        torch.cuda.synchronize()
+        err = _rel_l2(got, tm.gemm_wg_f32_plain(a, b, layout))
+        assert err < MLP_F32_TOL, (layout, M, N, K, err)
+        assert torch.equal(got, tm.gemm_wg_f32(a, b, layout)), (layout, M, N, K)
+        del a, b, got
+
+
+@pytest.mark.parametrize("layout", ["nn", "nt", "tn"])
+@pytest.mark.parametrize("M,N,K", [(64, 32, 32), (192, 100, 64), (320, 388, 96),
+                                   (4, 96, 2080), (1000, 8, 4096 + 32)])
+def test_gemm_wg_f32_ragged_edges(dev, no_tf32, layout, M, N, K):
+    """Ragged tiles: M past the 128-row tile, N past the 96-column tile (zero-filled,
+    not stored), a K past the TN split's 2,048 tokens (one split shorter)."""
+    from heal_swin_torch.ops import mlp as tm
+
+    gen = torch.Generator().manual_seed(M + N + K)
+    a, b = _layout_operands(gen, dev, layout, M, N, K)
+    got = tm.gemm_wg_f32(a, b, layout)
+    torch.cuda.synchronize()
+    assert got.shape == (M, N)
+    assert _rel_l2(got, tm.gemm_wg_f32_plain(a, b, layout)) < MLP_F32_TOL
+
+
+@pytest.mark.parametrize("T,C", [(64 * 3, 32), (64 * 8, 96), (64 * 4, 192), (64 * 5, 384),
+                                 (64 * 2, 768), (262144, 96)])
+@pytest.mark.parametrize("approximate", [True, False])
+def test_mlp_dual_f32(dev, no_tf32, T, C, approximate):
+    """The f32 K13's dual product (g, dh = (dout W2^T) GELU'(x W1 + b1), db1, db2 in one
+    pass) against ``mlp_hidden_plain`` + ``mlp_dh_plain`` (``mlp_dual_plain``), each within
+    relative L2 1e-5; counted nowhere."""
+    from heal_swin_torch.ops import mlp as tm
+
+    gen = torch.Generator().manual_seed(800 + C + approximate)
+    H = 4 * C
+    x, w1, b1, w2 = _mlp_args_f32(gen, dev, T, C, H)[:4]
+    dout = _randn(gen, dev, T, C)
+    before = dict(tm.launches)
+    got = tm.mlp_dual(x, w1, b1, w2, dout, approximate=approximate)
+    torch.cuda.synchronize()
+    assert tm.launches == before
+    h, g = tm.mlp_hidden_plain(x, w1, b1, approximate=approximate)
+    dh = tm.mlp_dh_plain(h, w2, dout, approximate=approximate)
+    _assert_grads_close(got, (g, dh, dh.sum(0), dout.sum(0)), tol=MLP_F32_TOL)
+    assert all(torch.equal(u, v) for u, v in
+               zip(got, tm.mlp_dual(x, w1, b1, w2, dout, approximate=approximate)))
+
+
+@pytest.mark.parametrize("batch", [2, 1])
+@pytest.mark.parametrize("T,C", STAGES_F32)
+@pytest.mark.parametrize("approximate", [True, False])
+def test_mlp_f32_backwards_at_stage_shapes(dev, no_tf32, T, C, batch, approximate):
+    """The f32 K13 and K15 (no DropPath scale and the batch's draw: of two samples one
+    kept, one dropped) at a stage shape of batch 2 or 1 against their plain versions,
+    every gradient within relative L2 1e-5 (K15's dx on the branch, dx - dz); two
+    launches of each bit-equal."""
+    from heal_swin_torch.ops import mlp as tm
+
+    gen = torch.Generator().manual_seed(900 + C + batch + 10 * approximate)
+    T, H = T * batch // 2, 4 * C
+    args = _mlp_args_f32(gen, dev, T, C, H)
+    dz = _randn(gen, dev, T, C)
+    kw = dict(approximate=approximate)
+    got = tm.mlp_bwd(*args[:5], dz, **kw)
+    _assert_grads_close(got, tm.mlp_bwd_plain(*args[:5], dz, **kw), tol=MLP_F32_TOL)
+    assert all(torch.equal(u, v) for u, v in zip(got, tm.mlp_bwd(*args[:5], dz, **kw)))
+    del got
+    ds = torch.full((T, 1), 1.25, device=dev)
+    if batch == 2:
+        ds[T // 2:] = 0.0
+    for d in (None, ds):
+        got = tm.mlp_block_bwd(*args, d, dz, **kw)
+        want = tm.mlp_block_bwd_plain(*args, d, dz, **kw)
+        _assert_grads_close((got[0] - dz,) + got[1:], (want[0] - dz,) + want[1:],
+                            tol=MLP_F32_TOL)
+        assert all(torch.equal(u, v) for u, v in
+                   zip(got, tm.mlp_block_bwd(*args, d, dz, **kw)))
+        del got, want
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("C", [32, 64])
+def test_mlp_f32_column_sums_over_many_tiles(dev, no_tf32, C):
+    """db1 from the wgmma core's column-sum epilogues where a tile takes one or two slices
+    of 32 k and a block walks several tiles (T 65,536: 1,024 or 1,536 tiles, more than
+    the card's SMs), so that one consumer warpgroup can reach the next tile's epilogue
+    while the other still sums this one's: the dual product (``mlp_dual``), the f32 K13
+    and K15 (dscale none and the draw) against their plain versions within relative L2
+    1e-5, and a second launch bit-equal."""
+    from heal_swin_torch.ops import mlp as tm
+
+    gen = torch.Generator().manual_seed(950 + C)
+    T, H = 65536, 4 * C
+    args = _mlp_args_f32(gen, dev, T, C, H)
+    dz = _randn(gen, dev, T, C)
+    kw = dict(approximate=False)
+    got = tm.mlp_dual(*args[:4], dz, **kw)
+    _assert_grads_close(got, tm.mlp_dual_plain(*args[:4], dz, **kw), tol=MLP_F32_TOL)
+    assert all(torch.equal(u, v) for u, v in zip(got, tm.mlp_dual(*args[:4], dz, **kw)))
+    got = tm.mlp_bwd(*args[:5], dz, **kw)
+    _assert_grads_close(got, tm.mlp_bwd_plain(*args[:5], dz, **kw), tol=MLP_F32_TOL)
+    assert all(torch.equal(u, v) for u, v in zip(got, tm.mlp_bwd(*args[:5], dz, **kw)))
+    ds = torch.full((T, 1), 1.25, device=dev)
+    ds[T // 2:] = 0.0
+    for d in (None, ds):
+        got = tm.mlp_block_bwd(*args, d, dz, **kw)
+        want = tm.mlp_block_bwd_plain(*args, d, dz, **kw)
+        _assert_grads_close((got[0] - dz,) + got[1:], (want[0] - dz,) + want[1:],
+                            tol=MLP_F32_TOL)
+        assert all(torch.equal(u, v) for u, v in
+                   zip(got, tm.mlp_block_bwd(*args, d, dz, **kw)))
+    torch.cuda.synchronize()
 
 
 def test_mlp_f32_functions_backward_through_kernels(dev):

@@ -1,15 +1,18 @@
 """The float32 forms of K12-K15 (``csrc/mlp_f32.cu``) and their plain steps, on the CPU.
 
 On the card an f32 x sends the MLP wrappers to the f32 kernels: launch sequences of
-3xTF32 products whose new steps have plain twins (``mlp_hidden_plain``, ``mlp_dh_plain``,
-``mlp_block_ln_plain``, ``mlp_block_ln_bwd_plain``).  Here, on the same numpy inputs:
+3xTF32 products whose new steps have plain twins (``mlp_hidden_plain``, ``mlp_dh_plain``
+under ``mlp_dual_plain``, ``mlp_block_ln_plain``, ``mlp_block_ln_bwd_plain``).  Here, on the same numpy inputs:
 
 - (a) the f32 operand path: with ``use_kernel`` forced and the library stubbed, f32
   operands reach the f32 entry with x, the weights and the gradients kept in f32 (bf16
   ones the bf16 entry), counted under the "_f32" keys; float16 and float64 raise,
-  naming "bfloat16 or float32", before any launch.
-- (b) each new plain step against the Pallas kernels of ``heal_swin_tpu/ops/mlp.py`` in
-  interpret mode at float32 (``fused_mlp(..., interpret=True)``, ``fused_mlp_block(...,
+  naming "bfloat16 or float32", before any launch.  The f32 K13 and K15 hand their
+  entries one weight-gradient buffer [dW2 | dW1] and return views of it; the dual
+  product's and the wgmma core's own entries (``mlp_dual``, ``gemm_wg_f32``) get their
+  workspace and f32 operands, and refuse what they do not take before a launch.
+- (b) each new plain step (the dual product's twin ``mlp_dual_plain`` among them)
+  against the Pallas kernels of ``heal_swin_tpu/ops/mlp.py`` in interpret mode at float32 (``fused_mlp(..., interpret=True)``, ``fused_mlp_block(...,
   interpret=True)`` and their ``jax.vjp``), through the outputs it feeds: outputs within
   1e-5, gradients within 2e-4, normalized by the largest entry for the branch's (the
   tolerances of ``tests/test_torch_mlp.py``: the same f32 math in another order).
@@ -178,23 +181,96 @@ def test_f32_gradient_must_match_x(stubbed):
     assert [n for n in lib.called if not n.endswith("_workspace")] == []
 
 
+@pytest.mark.parametrize("what", ["mlp_bwd", "mlp_block_bwd"])
+def test_f32_backwards_hand_one_weight_gradient_buffer(stubbed, what):
+    """The f32 K13 and K15 entries get one buffer of 2 C H floats for the weight
+    gradients (their TN pair's reduction writes [dW2 (H, C) | dW1 (C, H)]) and a [db1 |
+    db2 ...] row, and the wrapper returns views of them in its own order."""
+    lib, handed = stubbed
+    T, C, H = 128, 32, 128
+    out = _entry_args(torch.float32)[what]()
+    ops = handed[-1]
+    dw, red = (ops[7], ops[8]) if what == "mlp_bwd" else (ops[10], ops[11])
+    assert dw.numel() == 2 * C * H and red.numel() == H + (1 if what == "mlp_bwd" else 3) * C
+    dw1, db1, dw2 = out[1], out[2], out[3]
+    assert tuple(dw1.shape) == (C, H) and tuple(dw2.shape) == (H, C)
+    assert dw2.data_ptr() == dw.data_ptr()
+    assert dw1.data_ptr() == dw.data_ptr() + 4 * C * H
+    assert db1.data_ptr() == red.data_ptr()
+
+
+@pytest.fixture
+def stubbed_rows(stubbed, monkeypatch):
+    """``stubbed`` with the step wrappers' operand check taking CPU tensors."""
+    def rows(what, t, T, C):
+        if t.dtype != torch.float32 or tuple(t.shape) != (T, C):
+            raise ValueError(f"{what}: expected a (T, C) = {(T, C)} float32 tensor")
+        return t.contiguous()
+
+    monkeypatch.setattr(tm, "_f32_rows", rows)
+    return stubbed
+
+
+def test_dual_step_reaches_its_entry(stubbed_rows):
+    """``mlp_dual`` hands x, W1, b1, W2 and dout in f32 to "hs_mlp_dual_f32" with its
+    workspace, and counts no launch; float64 or a bf16 dout raise before the entry."""
+    lib, handed = stubbed_rows
+    t = {k: torch.from_numpy(v) for k, v in _operands(128, 32, 128, 3).items()}
+    before = dict(tm.launches)
+    g, dh, db1, db2 = tm.mlp_dual(t["x"], t["w1"], t["b1"], t["w2"], t["dz"], approximate=False)
+    assert lib.called == ["hs_mlp_dual_f32_workspace", "hs_mlp_dual_f32"]
+    assert [o.dtype for o in handed[-1][:5]] == [torch.float32] * 5
+    assert tuple(g.shape) == tuple(dh.shape) == (128, 128) and db1.numel() == 128
+    assert db2.numel() == 32 and tm.launches == before
+    for bad in (lambda: tm.mlp_dual(t["x"].double(), t["w1"], t["b1"], t["w2"], t["dz"],
+                                    approximate=False),
+                lambda: tm.mlp_dual(t["x"], t["w1"], t["b1"], t["w2"], t["dz"].bfloat16(),
+                                    approximate=False)):
+        with pytest.raises(ValueError, match="float32"):
+            bad()
+    assert lib.called == ["hs_mlp_dual_f32_workspace", "hs_mlp_dual_f32"]
+
+
+@pytest.mark.parametrize("layout", ["nn", "nt", "tn"])
+def test_core_product_reaches_its_entry(stubbed_rows, layout):
+    """``gemm_wg_f32`` hands both operands and an (M, N) output to "hs_gemm_wg_f32" with
+    its layout's code (0 NN, 1 NT, 2 TN) after its workspace; shapes it does not take (K
+    not a multiple of 32, M or N not of 4, disagreeing K) raise before the entry."""
+    lib, handed = stubbed_rows
+    M, N, K = 64, 96, 160
+    a = torch.zeros((K, M) if layout == "tn" else (M, K))
+    b = torch.zeros((N, K) if layout == "nt" else (K, N))
+    out = tm.gemm_wg_f32(a, b, layout)
+    assert lib.called == ["hs_gemm_wg_f32_workspace", "hs_gemm_wg_f32"]
+    assert tuple(out.shape) == (M, N) and handed[-1][2] is out
+    bad_k = torch.zeros((K + 8, M) if layout == "tn" else (M, K + 8))
+    bad_n = torch.zeros((N + 2, K) if layout == "nt" else (K, N + 2))
+    for x, y in ((bad_k, b), (a, bad_n)):
+        with pytest.raises(ValueError, match="gemm_wg_f32"):
+            tm.gemm_wg_f32(x, y, layout)
+    assert lib.called == ["hs_gemm_wg_f32_workspace", "hs_gemm_wg_f32"]
+
+
 def test_step_wrappers_run_their_plain_twins_on_the_cpu():
     """On CPU tensors the f32 sequences' step wrappers are their plain twins, count no
     launch, and demand the kernel with impl="pallas"."""
     ops = {k: torch.from_numpy(v) for k, v in _operands(128, 32, 128, 2).items()}
     x, w1, b1, w2, b2, g, b, dz, ds = (ops[k] for k in BLOCK + ("dz", "ds"))
-    h, gg = tm.mlp_hidden_plain(x, w1, b1, approximate=True)
+    gg = tm.mlp_hidden_plain(x, w1, b1, approximate=True)[1]
     u = gg @ w2 + b2
     before = dict(tm.launches)
     pairs = (
-        (lambda **k: tm.mlp_hidden(x, w1, b1, approximate=True, **k),
-         tm.mlp_hidden_plain(x, w1, b1, approximate=True)),
-        (lambda **k: (tm.mlp_dh(h, w2, dz, approximate=True, **k),),
-         (tm.mlp_dh_plain(h, w2, dz, approximate=True),)),
+        (lambda **k: (tm.mlp_hidden(x, w1, b1, approximate=True, **k),), (gg,)),
         (lambda **k: (tm.mlp_block_ln(u, x, g, b, ds, **k),),
          (tm.mlp_block_ln_plain(u, x, g, b, ds),)),
         (lambda **k: tm.mlp_block_ln_bwd(u, dz, g, ds, **k),
          tm.mlp_block_ln_bwd_plain(u, dz, g, ds)))
+    pairs += (
+        (lambda **k: tm.mlp_dual(x, w1, b1, w2, dz, approximate=True, **k),
+         tm.mlp_dual_plain(x, w1, b1, w2, dz, approximate=True)),
+        (lambda **k: (tm.gemm_wg_f32(x, w1, "nn", **k),), (x @ w1,)),
+        (lambda **k: (tm.gemm_wg_f32(dz, w2, "nt", **k),), (dz @ w2.t(),)),
+        (lambda **k: (tm.gemm_wg_f32(x, dz, "tn", **k),), (x.t() @ dz,)))
     for call, want in pairs:
         assert all(torch.equal(a, w) for a, w in zip(call(), want))
         with pytest.raises(ValueError, match="pallas"):
@@ -252,6 +328,25 @@ def test_dh_plain_feeds_the_pallas_backward(T, C, H, approximate):
     got = (dh @ w1.t(), x.t() @ dh, dh.sum(0), g.t() @ dout, dout.sum(0))
     for name, a, w in zip(("dx", "dW1", "db1", "dW2", "db2"), got, want):
         _close(a, w, name, tol=F32_GRAD_TOL)
+
+
+@pytest.mark.parametrize("approximate", [True, False])
+@pytest.mark.parametrize("T,C,H", SHAPES)
+def test_dual_plain_feeds_the_pallas_backward(T, C, H, approximate):
+    """The f32 K13's dual product in one plain step: g, dh, db1 and db2 of
+    ``mlp_dual_plain`` give, through the sequence's other steps (dh W1^T, x^T dh, g^T
+    dout), the Pallas backward's dx, dW1, db1, dW2 and db2; g is GELU(x W1 + b1)."""
+    ops = _operands(T, C, H, seed=T + C + H + 2)
+    j, t = _jt(ops, MLP)
+    _, want = _pallas_mlp_vjp(j, ops["dz"], approximate)
+    x, w1, b1, w2, _ = t
+    dout = torch.from_numpy(ops["dz"])
+    g, dh, db1, db2 = tm.mlp_dual_plain(x, w1, b1, w2, dout, approximate=approximate)
+    assert g.dtype == dh.dtype == torch.float32 and tuple(dh.shape) == (T, H)
+    got = (dh @ w1.t(), x.t() @ dh, db1, g.t() @ dout, db2)
+    for name, a, w in zip(("dx", "dW1", "db1", "dW2", "db2"), got, want):
+        _close(a, w, name, tol=F32_GRAD_TOL)
+    _close(g, jax.nn.gelu(jnp.dot(j[0], j[1]) + j[2], approximate=approximate), "g")
 
 
 @pytest.mark.parametrize("has_dp", [False, True])

@@ -2,7 +2,7 @@
 GPU, in turns: other, this, this, other.
 
     python3 tools/attention_pair_timing.py --other _checkout/parent \
-        [--family mlp|tail|f32|tail_f32|tails|paths]
+        [--family mlp|tail|f32|tail_f32|tails|paths|mlp_f32]
 
 ``--other`` is an unpacked copy of another commit (``git archive`` into the
 git-ignored ``_checkout/``).  Each of the four turns is its own process: it imports
@@ -47,8 +47,14 @@ family in the same turns.  ``--family paths`` times K3, K6 and K7 at the tails t
 row cores' chunked heads and streamed slices serve (T 262,144, p 4, ``width_inputs``
 operands): bf16 at C 128, F 10 (K7's slices streamed), f32 at C 96, F 25 (the heads in
 chunks of 16), and bf16 at C 96, F 25 and 32 (one chunk of 32), on whichever route and
-head each checkout takes them.  ``--family all`` (the
-default) times the first four.
+head each checkout takes them.  ``--family mlp_f32`` times the f32 K13 (exact GELU, the
+paper configs') and the f32 K15 (with the DropPath draw) on chip_smoke.py's
+``f32_mlp_inputs`` at the stage shapes of batch 2 (K13 at the four, K15 at the three the
+MLP phase runs it at), each beside the f32 ``mlp_route`` of its function (autograd
+backward, TF32 off) as the control, with each kernel's device ms by kernel name and the
+ptxas lines of the f32 MLP kernels the turn built; it sums them over step (c)'s 22 K13
+launches (4 at C 96, 4 at C 192, 12 at C 384, 2 at C 768) and the MLP phase's 20 K15
+launches (4, 4 and 12).  ``--family all`` (the default) times the first four.
 
 Each shape gets two times: the device time (``device_ms``: each call enqueued behind a
 spin kernel, so that the events bracket the device work alone) and a single call's
@@ -84,6 +90,11 @@ BLOCK_LAUNCHES = {96: 4, 192: 4, 384: 12}
 MLP_LAUNCHES = {"K12": {96: 4}, "K13": {96: 4}, "K14": BLOCK_LAUNCHES, "K15": BLOCK_LAUNCHES,
                 "route-fwd": {96: 4}, "route-bwd": {96: 4}, "route-block-fwd": BLOCK_LAUNCHES,
                 "route-block-bwd": BLOCK_LAUNCHES}
+# the f32 K13 over step (c)'s 22 blocks (C 96, 192, 384, 768: 4, 4, 12, 2), the f32 K15 over
+# the f32 MLP phase's 20 (C <= 384); the routes as their kernels
+STEP_C_LAUNCHES = {96: 4, 192: 4, 384: 12, 768: 2}
+F32_MLP_LAUNCHES = {"f32-K13": STEP_C_LAUNCHES, "f32-K15": BLOCK_LAUNCHES,
+                    "f32-route-bwd": STEP_C_LAUNCHES, "f32-route-block-bwd": BLOCK_LAUNCHES}
 
 
 def load_smoke():
@@ -155,6 +166,8 @@ def turn(root: Path, family: str) -> dict:
         times.update(tail_f32_times(smoke, dev, both))
     if family == "paths":
         times.update(path_times(smoke, dev, both))
+    if family == "mlp_f32":
+        times.update(mlp_f32_times(smoke, dev, both))
     torch.cuda.synchronize()
     return times
 
@@ -204,14 +217,66 @@ def tail_f32_times(smoke, dev, both) -> dict:
     route_f, route_b = smoke.depth_route(dargs, p, torch.float32)
     times[f"f32-depth-route-fwd {label}"] = both(route_f)
     times[f"f32-depth-route-bwd {label}"] = both(route_b)
-    name, ptxas = None, []
-    for line in _build.build_log.splitlines():
+    times["ptxas"] = ptxas_lines(_build.build_log, lambda n: any(k in n for k in F32_TAIL_KERNELS),
+                                 ("tail_", "gemm_"))
+    return times
+
+
+def ptxas_lines(build_log: str, wanted, starts) -> list:
+    """The ptxas report's spill and register lines of the kernels whose mangled name
+    ``wanted`` takes, each under its name from the first of ``starts`` it holds."""
+    name, lines = None, []
+    for line in build_log.splitlines():
         if "Compiling entry function" in line:
-            name = next((k for k in F32_TAIL_KERNELS if k in line), None) and line.split("'")[1]
+            name = line.split("'")[1] if wanted(line) else None
         elif name and ("spill" in line or "registers" in line):
-            i = name.find("tail_") if "tail_" in name else name.find("gemm_")
-            ptxas.append(f"{name[i:i + 48]}: {line.split(':', 1)[-1].strip()}")
-    times["ptxas"] = ptxas
+            i = next((name.find(k) for k in starts if k in name), 0)
+            lines.append(f"{name[i:i + 64]}: {line.split(':', 1)[-1].strip()}")
+    return lines
+
+
+def mlp_f32_times(smoke, dev, both) -> dict:
+    """The f32 K13 (exact GELU) at the four stage shapes of batch 2, the f32 K15 (exact
+    GELU, the batch's DropPath draw) at the three of the MLP phase, and the f32 routes of
+    their functions; each kernel's device ms by kernel name (labels "split ..."), and the
+    ptxas lines of the f32 MLP kernels (label "ptxas")."""
+    import torch
+
+    from heal_swin_torch import _build
+    from heal_swin_torch.ops import mlp as tm
+
+    gen = torch.Generator().manual_seed(smoke.SEED + 51)
+
+    def rnd(*shape, std=1.0):
+        return (torch.randn(*shape, generator=gen) * std).to(dev)
+
+    times = {}
+    for T, C in smoke.mlp_stages():
+        args, dz, ds = smoke.f32_mlp_inputs(rnd, dev, T, C, smoke.BATCH)
+        a5, label = args[:5], f"C={C} T={T}"
+        kw = dict(approximate=False, impl="pallas")
+        calls = {"f32-K13": lambda: tm.mlp_bwd(*a5, dz, **kw)}
+        if C in BLOCK_LAUNCHES:
+            calls["f32-K15"] = lambda: tm.mlp_block_bwd(*args, ds, dz, **kw)
+        with torch.no_grad():
+            for name, fn in calls.items():
+                times[f"{name} {label}"] = both(fn)
+                per, _ = smoke.trace(fn, smoke.SEQUENCE_TRACED)
+                for kname, (ms, n) in per.items():
+                    short = kname.replace("hs::(anonymous namespace)::", "")[:60]
+                    times[f"split {name} {label} {short} x{n / smoke.SEQUENCE_TRACED:.0f}"] = \
+                        [ms / smoke.SEQUENCE_TRACED] * 2
+        _, route_b = smoke.mlp_route(args, None, False, block=False)
+        times[f"f32-route-bwd {label}"] = both(route_b)
+        del route_b
+        if C in BLOCK_LAUNCHES:
+            _, route_b = smoke.mlp_route(args, ds, False, block=True)
+            times[f"f32-route-block-bwd {label}"] = both(route_b)
+            del route_b
+        del args, dz, ds
+        torch.cuda.empty_cache()
+    times["ptxas"] = ptxas_lines(_build.build_log, lambda n: "_mlp_f32_cu_" in n,
+                                 ("gemm_", "mlp_ln_"))
     return times
 
 
@@ -423,13 +488,14 @@ def predict_step_ms(times: dict, step: str, which: int) -> float:
     return total
 
 
-def mlp_phase_ms(times: dict, kernel: str, which: int) -> float:
-    """An MLP kernel's (or the route's) ms over chip_smoke.py's MLP phase launches."""
+def mlp_phase_ms(times: dict, kernel: str, which: int, launches=MLP_LAUNCHES) -> float:
+    """An MLP kernel's (or the route's) ms over chip_smoke.py's MLP phase launches (or
+    over ``launches``: kernel -> launches per C)."""
     total = 0.0
     for label, ms in times.items():
-        name, shape, *rest = label.split()
-        if name == kernel and not rest[1:]:
-            total += MLP_LAUNCHES[kernel].get(int(shape[2:]), 0) * ms[which]
+        name, *shape_rest = label.split()
+        if name == kernel and len(shape_rest) == 2:
+            total += launches[kernel].get(int(shape_rest[0][2:]), 0) * ms[which]
     return total
 
 
@@ -446,7 +512,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", type=Path, help="the other checkout (e.g. the parent)")
     ap.add_argument("--family", choices=("attention", "mlp", "tail", "f32", "tail_f32", "tails",
-                                         "paths", "all"),
+                                         "paths", "mlp_f32", "all"),
                     default="all",
                     help="which kernels to time (default: all)")
     ap.add_argument("--turn", type=Path, help=argparse.SUPPRESS)
@@ -509,6 +575,11 @@ def main() -> int:
             for kernel, per_c in MLP_LAUNCHES.items():
                 print(compare(f"{kernel} over the MLP phase's {sum(per_c.values())} launches",
                               runs, lambda t: mlp_phase_ms(t, kernel, which)))
+        if a.family == "mlp_f32":
+            for kernel, per_c in F32_MLP_LAUNCHES.items():
+                where = "step (c)'s" if per_c is STEP_C_LAUNCHES else "the MLP phase's"
+                print(compare(f"{kernel} over {where} {sum(per_c.values())} launches", runs,
+                              lambda t: mlp_phase_ms(t, kernel, which, F32_MLP_LAUNCHES)))
     return 0
 
 
