@@ -127,6 +127,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -3752,94 +3753,229 @@ def log_f32_sequence(label, call):
                     for k, (v, c) in sorted(per.items(), key=lambda kv: -kv[1][0])))
 
 
+def short_kernel_name(name: str) -> str:
+    """A profiler kernel name without its namespace, return type and arguments."""
+    return name.replace("hs::(anonymous namespace)::", "").replace("void ", "").split("(")[0]
+
+
+# the f32 K4's and K17's kernels by route: the mma.sync product runs only the recomputed
+# qkv and u (NN); the backwards' own products (dWp, do, dWqkv, dx) are the wgmma core's NT
+# and TN instantiations
+F32_BWD_MMA_SYNC = "gemm_3xtf32_kernel<false, false, EpiBias, false>"
+F32_BWD_WG = ("gemm_3xtf32_wg_kernel<true, true, true, false, WgEpiStore<false> >",
+              "gemm_3xtf32_wg_kernel<false, false, false, false, WgEpiPartial>")
+# the kernels of a cosine f32 K17 call, and those K4 adds (K16's attention, the LayerNorm
+# backward)
+F32_K17_KERNELS = (F32_BWD_MMA_SYNC,) + F32_BWD_WG + ("attn_bwd_3xtf32_kernel<true>",
+                                                    "reduce_rows_kernel")
+F32_K4_KERNELS = F32_K17_KERNELS + ("attn_3xtf32_kernel", "ln_bwd_rows_f32_kernel")
+
+
+def per_call_by_kernel(per, calls=SEQUENCE_TRACED):
+    """A trace of ``calls`` calls of one launch sequence (``trace``'s device ms and launches
+    by kernel name) as kernel -> (device ms, launches) a call, by ``short_kernel_name``: each
+    kernel's mean over its recorded launches times its launches a call, its records over
+    ``calls`` rounded up (the profiler can drop a launch's records; every call launches the
+    same kernels).  Also whether every kernel's records came whole (a multiple of ``calls``)."""
+    rec = collections.defaultdict(lambda: [0.0, 0])
+    for k, (ms, n) in per.items():
+        short = short_kernel_name(k)
+        rec[short][0] += ms
+        rec[short][1] += n
+    out = {k: (ms / n * math.ceil(n / calls), math.ceil(n / calls)) for k, (ms, n) in rec.items()}
+    return out, all(n % calls == 0 for _, n in rec.values())
+
+
+def trace_f32_bwd(label, call, kernels):
+    """SEQUENCE_TRACED calls of an f32 K4 or K17 call traced by kernel (again, up to
+    SEQUENCE_TRACES times, until each of its ``kernels`` is recorded and every record came
+    whole: the profiler can drop a launch's records), logged, and its route checked: every
+    mma.sync product an NN (the recomputed qkv and u), the NT and TN products the wgmma
+    core's.  Returns ``per_call_by_kernel`` of the trace."""
+    for _ in range(SEQUENCE_TRACES):
+        call_ms, whole = per_call_by_kernel(trace(call, SEQUENCE_TRACED)[0])
+        missing = [k for k in kernels if k not in call_ms]
+        if whole and not missing:
+            break
+    log(f"{label}: {SEQUENCE_TRACED} calls traced, a call: " + ", ".join(
+        f"{k} {ms:.4f} ms x {n}" for k, (ms, n) in sorted(call_ms.items(),
+                                                          key=lambda kv: -kv[1][0]))
+        + ("" if whole else " (some records dropped in every trace)"))
+    stray = [k for k in call_ms if "gemm_3xtf32_kernel" in k and k != F32_BWD_MMA_SYNC]
+    if stray or any(w in missing for w in F32_BWD_WG):
+        raise AssertionError(f"{label}: mma.sync products other than the recomputes {stray}, "
+                             f"kernels not recorded {missing}")
+    return call_ms
+
+
+def log_f32_bwd_sequences(timed, runs):
+    """The f32 K4's launch sequence by kernel over step (b)'s f32 K4 launches and the f32
+    K17's over step (a)'s: each kernel's device ms and launches in one traced call at each
+    shape (``check_f32_train_kernels``, ``trace_f32_bwd``), weighted by the step's launches
+    at that shape (``runs``: variant -> launches per kernel, per shape)."""
+    for kernel, variant, name in (("window_attention_qkv_epi_bwd_f32", "b", "f32 K4"),
+                                  ("window_attention_qkv_bwd_f32", "a", "f32 K17")):
+        total = collections.defaultdict(lambda: [0.0, 0.0])
+        for key, n in runs[variant][1].items():
+            if key[0] == kernel:
+                for k, (ms, cnt) in timed[("f32_sequence",) + key].items():
+                    total[k][0] += n * ms
+                    total[k][1] += n * cnt
+        log(f"{name} sequence over step ({variant})'s {name} launches: "
+            f"{sum(ms for ms, _ in total.values()):.4f} ms on the device")
+        for k, (ms, cnt) in sorted(total.items(), key=lambda kv: -kv[1][0]):
+            log(f"{name} sequence: {ms:9.4f} ms {cnt:6.1f} launches  {k}")
+
+
+def f32_bwd_steps(x, wq, bq, wp, bp, g, groups, bias, ls, dz, *, num_heads, use_cos,
+                  sm_scale, has_mask, epi, ws=WS, impl="pallas"):
+    """The f32 K4 (``epi``: cosine, sm_scale 1) or the f32 K17 as the composition of its
+    steps' own wrappers, in its outputs' order: qkv by the forwards' product
+    (``gemm_nn_f32``: the f32 K1's and K16's step 1); for K4 o by the f32 K2 (K16's step
+    2), du and [dbp | dgamma | dbeta] by ``qkv_epi_proj_ln_bwd`` (u by the f32 K1's step
+    3, then the LayerNorm backward), dWp = o^T du and do = du Wp^T by the wgmma core
+    (``gemm_wg_f32``); then the f32 K5 (dqkv, dbias, dls), dx = dqkv Wqkv^T and dWqkv =
+    x^T dqkv by the wgmma core, dbqkv by ``reduce_rows``.  On the card the kernels must be
+    these steps bit for bit; on the CPU each step is its plain version."""
+    from heal_swin_torch.ops import final_head as fh
+    from heal_swin_torch.ops import mlp as tm
+    from heal_swin_torch.ops import window_attention as wa
+
+    akw = dict(ws=ws, num_heads=num_heads, use_cos=use_cos, sm_scale=sm_scale,
+               has_mask=has_mask, impl=impl)
+    qkv = wa.gemm_nn_f32(x, wq, bq, impl=impl)
+    out = ()
+    if epi:
+        o = wa.window_attention_fwd(qkv, groups, bias, ls, **akw)
+        du, dbp, dg, dbe = wa.qkv_epi_proj_ln_bwd(o, wp, bp, g, dz, impl=impl)
+        out = (tm.gemm_wg_f32(o, du, "tn", impl=impl), dbp, dg, dbe)
+        dz = tm.gemm_wg_f32(du, wp, "nt", impl=impl)
+    dqkv, dbias, dls = wa.window_attention_bwd(qkv, groups, bias, ls, dz, **akw)
+    return (tm.gemm_wg_f32(dqkv, wq, "nt", impl=impl), tm.gemm_wg_f32(x, dqkv, "tn", impl=impl),
+            fh.reduce_rows(dqkv, impl=impl)) + out + (dbias, dls)
+
+
+def same_outputs(label, got, want):
+    """Two launches' (or a kernel's and its steps') outputs equal bit for bit, None where
+    the other is None."""
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} outputs against {len(want)}")
+    for i, (u, v) in enumerate(zip(got, want)):
+        if (u is None) != (v is None) or (u is not None and not torch.equal(u, v)):
+            raise AssertionError(f"{label}: output {i} differs")
+
+
 def check_f32_train_kernels(gen, dev, flat=False):
     """The f32 K16, K17, K4 and K5 against their plain versions (f32, TF32 off) at every
     stage shape of the f32 train step, each output within relative L2 F32_TAIL_TOL and
     two launches bit-equal: K16 / K17 at the three stage shapes (T 262,144 / 65,536 /
-    16,384, C 96 / 192 / 384), cosine and scaled-dot, masked and unmasked; K4 there with
-    and without LayerNorm; K5 at the bottleneck (T 4,096, C 768) in both flavours.  With
-    ``flat`` the same on the flat model's shapes, 9-region groups and 2-D rel-pos bias
-    (checked, not timed).  Timed at the flavours the step runs (``f32_train_timing``):
-    K16 / K17 cosine beside the f32 composed route of their scaled-dot function
-    (``sdpa_route``, f32), K4 with LayerNorm (no PyTorch call computes it), K5 cosine
-    beside one f32 ``scaled_dot_product_attention`` backward (``sdpa_library``, scaled-dot).
-    Returns the timings keyed like the launch counters."""
+    16,384, C 96 / 192 / 384) and at their halves (a ragged batch of 1), cosine and
+    scaled-dot, masked and unmasked; K4 there with and without LayerNorm; K5 at the
+    bottleneck (T 4,096, C 768) in both flavours.  K17 and K4 are also their steps
+    composed bit for bit (``f32_bwd_steps``: the recomputed qkv and u are the forwards'
+    products' bits, dWp, do, dWqkv and dx the wgmma core's).  With ``flat`` the same on the
+    flat model's shapes of batch 2, 9-region groups and 2-D rel-pos bias (checked, not
+    timed).  Timed at the flavours the step runs (``f32_train_timing``), at batch 2: K16 /
+    K17 cosine beside the f32 composed route of their scaled-dot function (``sdpa_route``,
+    f32), K4 with LayerNorm (no PyTorch call computes it), K5 cosine beside one f32
+    ``scaled_dot_product_attention`` backward (``sdpa_library``, scaled-dot); K4 with
+    LayerNorm and K17 cosine traced by kernel (``trace_f32_bwd``, keyed ("f32_sequence",
+    kernel, T, C, masked)).  Returns the timings keyed like the launch counters."""
     from heal_swin_torch.ops import window_attention as wa
 
     timed = {}
     rnd, logit_scales = seeded_draws(gen, dev)
     where = "flat " if flat else ""
     for stage in range(3):
-        T, C, h, args = stage_inputs(rnd, logit_scales, stage, dev, flat)
-        x, wq, bq, wp, bp, g, b, bias, ls, groups = (
+        T2, C, h, args = stage_inputs(rnd, logit_scales, stage, dev, flat)
+        x2, wq, bq, wp, bp, g, b, bias, ls, groups2 = (
             a.float() if a.dtype == torch.bfloat16 else a for a in args)
-        dz = rnd(T, C)
-        for masked in (False, True):
-            gr = groups if masked else None
-            for use_cos in (True, False):
-                a = (x, wq, bq, gr, bias, ls if use_cos else None)
-                kw = dict(ws=WS, num_heads=h, use_cos=use_cos, sm_scale=DOT_SCALE,
-                          has_mask=masked)
-                label = (f"{where}C={C} T={T} mask={masked} "
-                         f"{'cosine' if use_cos else 'scaled-dot'}")
-                got = wa.window_attention_qkv_fwd(*a, **kw, impl="pallas")
-                e16 = check_close(f"f32 K16 {label}", got,
-                                  wa.window_attention_qkv_plain(*a, **kw), F32_TAIL_TOL)
-                repeat_equal(f"f32 K16 {label}", got,
-                             wa.window_attention_qkv_fwd(*a, **kw, impl="pallas"))
-                got = wa.window_attention_qkv_bwd(*a, dz, **kw, impl="pallas")
-                e17 = check_grads(f"f32 K17 {label}", K17_GRADS, got,
-                                  wa.window_attention_qkv_bwd_plain(*a, dz, **kw), F32_TAIL_TOL)
-                again = wa.window_attention_qkv_bwd(*a, dz, **kw, impl="pallas")
-                if not all(u is None or torch.equal(u, v) for u, v in zip(got, again)):
-                    raise AssertionError(f"f32 K17 {label}: two launches differ")
-                del got, again
-                log(f"f32 K16 {label}: rel_l2 {e16[0]:.3e} max_abs {e16[1]:.3e}; f32 K17 "
-                    f"rel_l2 <= {e17[0]:.3e} max_abs {e17[1]:.3e} (tol {F32_TAIL_TOL}); two "
-                    f"launches of each bit-equal")
-                if flat or not use_cos:
-                    continue
-                route_f, route_b = sdpa_route(x, wq, bq, gr, bias, h)
-                key = (T, C, masked)
-                timed[("window_attention_qkv_f32",) + key] = dict(
-                    rel_l2=e16[0], max_abs_err=e16[1], **f32_train_timing(
-                        f"f32 K16 {label}", lambda: wa.window_attention_qkv_fwd(
-                            *a, **kw, impl="pallas"),
-                        lambda: wa.window_attention_qkv_plain(*a, **kw), ("route_ms", route_f)))
-                timed[("window_attention_qkv_bwd_f32",) + key] = dict(
-                    rel_l2=e17[0], max_abs_err=e17[1], **f32_train_timing(
-                        f"f32 K17 {label}", lambda: wa.window_attention_qkv_bwd(
-                            *a, dz, **kw, impl="pallas"),
-                        lambda: wa.window_attention_qkv_bwd_plain(*a, dz, **kw),
-                        ("route_ms", route_b)))
-                del route_f, route_b
-            for has_ln in (True, False):
-                a = (x, wq, bq, wp, bp, g if has_ln else None, b if has_ln else None, gr,
-                     bias, ls)
-                kw = dict(ws=WS, num_heads=h, sm_scale=1.0, has_mask=masked)
-                label = f"{where}C={C} T={T} mask={masked} LayerNorm={has_ln}"
-                got = wa.window_attention_qkv_epi_bwd(*a, dz, **kw, impl="pallas")
-                e4 = check_grads(f"f32 K4 {label}", K4_GRADS, got,
-                                 wa.window_attention_qkv_epi_bwd_plain(*a, dz, **kw),
-                                 F32_TAIL_TOL)
-                again = wa.window_attention_qkv_epi_bwd(*a, dz, **kw, impl="pallas")
-                if not all(u is None or torch.equal(u, v) for u, v in zip(got, again)):
-                    raise AssertionError(f"f32 K4 {label}: two launches differ")
-                del got, again
-                log(f"f32 K4 {label}: rel_l2 <= {e4[0]:.3e} max_abs {e4[1]:.3e} (tol "
-                    f"{F32_TAIL_TOL}); two launches bit-equal")
-                if flat or not has_ln:
-                    continue
+        dz2 = rnd(T2, C)
+        for batch in (BATCH,) if flat else (BATCH, 1):
+            T = T2 * batch // BATCH
+            x, dz, groups = x2[:T], dz2[:T], groups2[:T // WS]
+            timing = not flat and batch == BATCH
+            for masked in (False, True):
+                gr = groups if masked else None
+                for use_cos in (True, False):
+                    a = (x, wq, bq, gr, bias, ls if use_cos else None)
+                    kw = dict(ws=WS, num_heads=h, use_cos=use_cos, sm_scale=DOT_SCALE,
+                              has_mask=masked)
+                    label = (f"{where}C={C} T={T} mask={masked} "
+                             f"{'cosine' if use_cos else 'scaled-dot'}")
+                    got = wa.window_attention_qkv_fwd(*a, **kw, impl="pallas")
+                    e16 = check_close(f"f32 K16 {label}", got,
+                                      wa.window_attention_qkv_plain(*a, **kw), F32_TAIL_TOL)
+                    repeat_equal(f"f32 K16 {label}", got,
+                                 wa.window_attention_qkv_fwd(*a, **kw, impl="pallas"))
+                    got = wa.window_attention_qkv_bwd(*a, dz, **kw, impl="pallas")
+                    e17 = check_grads(f"f32 K17 {label}", K17_GRADS, got,
+                                      wa.window_attention_qkv_bwd_plain(*a, dz, **kw),
+                                      F32_TAIL_TOL)
+                    same_outputs(f"f32 K17 {label}: two launches", got,
+                                 wa.window_attention_qkv_bwd(*a, dz, **kw, impl="pallas"))
+                    same_outputs(f"f32 K17 {label}: the kernel against its steps", got,
+                                 f32_bwd_steps(x, wq, bq, None, None, None, gr, bias, a[5], dz,
+                                               epi=False, **kw))
+                    del got
+                    log(f"f32 K16 {label}: rel_l2 {e16[0]:.3e} max_abs {e16[1]:.3e}; f32 K17 "
+                        f"rel_l2 <= {e17[0]:.3e} max_abs {e17[1]:.3e} (tol {F32_TAIL_TOL}); two "
+                        f"launches of each bit-equal; K17 its steps composed, bit-equal")
+                    if not timing or not use_cos:
+                        continue
+                    route_f, route_b = sdpa_route(x, wq, bq, gr, bias, h)
+                    key = (T, C, masked)
 
-                def call(a=a, kw=kw):
-                    return wa.window_attention_qkv_epi_bwd(*a, dz, **kw, impl="pallas")
+                    def call17(a=a, kw=kw):
+                        return wa.window_attention_qkv_bwd(*a, dz, **kw, impl="pallas")
 
-                log_f32_sequence(f"f32 K4 {label}", call)
-                timed[("window_attention_qkv_epi_bwd_f32", T, C, masked)] = dict(
-                    rel_l2=e4[0], max_abs_err=e4[1], **f32_train_timing(
-                        f"f32 K4 {label}", call,
-                        lambda a=a, kw=kw: wa.window_attention_qkv_epi_bwd_plain(*a, dz, **kw)))
-        del x, wq, bq, wp, bp, g, b, bias, ls, groups, args, dz
+                    timed[("f32_sequence", "window_attention_qkv_bwd_f32") + key] = \
+                        trace_f32_bwd(f"f32 K17 {label}", call17, F32_K17_KERNELS)
+                    timed[("window_attention_qkv_f32",) + key] = dict(
+                        rel_l2=e16[0], max_abs_err=e16[1], **f32_train_timing(
+                            f"f32 K16 {label}", lambda: wa.window_attention_qkv_fwd(
+                                *a, **kw, impl="pallas"),
+                            lambda: wa.window_attention_qkv_plain(*a, **kw),
+                            ("route_ms", route_f)))
+                    timed[("window_attention_qkv_bwd_f32",) + key] = dict(
+                        rel_l2=e17[0], max_abs_err=e17[1], **f32_train_timing(
+                            f"f32 K17 {label}", call17,
+                            lambda: wa.window_attention_qkv_bwd_plain(*a, dz, **kw),
+                            ("route_ms", route_b)))
+                    del route_f, route_b
+                for has_ln in (True, False):
+                    a = (x, wq, bq, wp, bp, g if has_ln else None, b if has_ln else None, gr,
+                         bias, ls)
+                    kw = dict(ws=WS, num_heads=h, sm_scale=1.0, has_mask=masked)
+                    label = f"{where}C={C} T={T} mask={masked} LayerNorm={has_ln}"
+                    got = wa.window_attention_qkv_epi_bwd(*a, dz, **kw, impl="pallas")
+                    e4 = check_grads(f"f32 K4 {label}", K4_GRADS, got,
+                                     wa.window_attention_qkv_epi_bwd_plain(*a, dz, **kw),
+                                     F32_TAIL_TOL)
+                    same_outputs(f"f32 K4 {label}: two launches", got,
+                                 wa.window_attention_qkv_epi_bwd(*a, dz, **kw, impl="pallas"))
+                    same_outputs(f"f32 K4 {label}: the kernel against its steps", got,
+                                 f32_bwd_steps(*a[:6], gr, bias, ls, dz, num_heads=h,
+                                               use_cos=True, sm_scale=1.0, has_mask=masked,
+                                               epi=True))
+                    del got
+                    log(f"f32 K4 {label}: rel_l2 <= {e4[0]:.3e} max_abs {e4[1]:.3e} (tol "
+                        f"{F32_TAIL_TOL}); two launches bit-equal; its steps composed, "
+                        f"bit-equal")
+                    if not timing or not has_ln:
+                        continue
+
+                    def call(a=a, kw=kw):
+                        return wa.window_attention_qkv_epi_bwd(*a, dz, **kw, impl="pallas")
+
+                    timed[("f32_sequence", "window_attention_qkv_epi_bwd_f32", T, C, masked)] = \
+                        trace_f32_bwd(f"f32 K4 {label}", call, F32_K4_KERNELS)
+                    timed[("window_attention_qkv_epi_bwd_f32", T, C, masked)] = dict(
+                        rel_l2=e4[0], max_abs_err=e4[1], **f32_train_timing(
+                            f"f32 K4 {label}", call,
+                            lambda a=a, kw=kw: wa.window_attention_qkv_epi_bwd_plain(
+                                *a, dz, **kw)))
+        del x2, x, wq, bq, wp, bp, g, b, bias, ls, groups2, groups, args, dz2, dz
         torch.cuda.empty_cache()
 
     T, C, h, (qkv, bias, ls, groups, dout) = bottleneck_inputs(rnd, logit_scales, dev, flat)
@@ -3853,10 +3989,9 @@ def check_f32_train_kernels(gen, dev, flat=False):
             got = wa.window_attention_bwd(*a, dout, **kw, impl="pallas")
             e5 = check_grads(f"f32 K5 {label}", K5_GRADS, got,
                              wa.window_attention_bwd_plain(*a, dout, **kw), F32_TAIL_TOL)
-            again = wa.window_attention_bwd(*a, dout, **kw, impl="pallas")
-            if not all(u is None or torch.equal(u, v) for u, v in zip(got, again)):
-                raise AssertionError(f"f32 K5 {label}: two launches differ")
-            del got, again
+            same_outputs(f"f32 K5 {label}: two launches", got,
+                         wa.window_attention_bwd(*a, dout, **kw, impl="pallas"))
+            del got
             log(f"f32 K5 {label}: rel_l2 <= {e5[0]:.3e} max_abs {e5[1]:.3e} (tol "
                 f"{F32_TAIL_TOL}); two launches bit-equal")
             if flat or not use_cos:
@@ -3881,7 +4016,9 @@ def drive_f32_attention_train(dev, timed):
     F32_TRAIN_VARIANTS the step (``paper_step``: "auto" against "xla" on the same
     weights, batch and step generators; equal masks, loss 1e-5, every gradient 1e-4,
     the exact launches F32_TRAIN_LAUNCHES, rate, memory, profile) for variants (a) and
-    (b).  Returns the variants' step-0 launches, per kernel and per shape."""
+    (b), and the f32 K17's and K4's device ms by kernel over their steps' launches
+    (``log_f32_bwd_sequences``).  Returns the variants' step-0 launches, per kernel and per
+    shape."""
     timed.update(check_f32_train_kernels(torch.Generator().manual_seed(SEED + 40), dev))
     check_f32_train_kernels(torch.Generator().manual_seed(SEED + 41), dev, flat=True)
     imgs, _ = train_batch(dev)
@@ -3898,6 +4035,7 @@ def drive_f32_attention_train(dev, timed):
             ("total", targets.numel()), attn_dropout=False)
         del task_k, task_p
         torch.cuda.empty_cache()
+    log_f32_bwd_sequences(timed, runs)
     return runs
 
 
@@ -6453,10 +6591,12 @@ PTXAS_NAMES.update({
 # the f32 K1's and K2's kernels
 PTXAS_NAMES.update({"18attn_3xtf32_kernel": "f32 K2 attn_3xtf32_kernel (f32 K1/K16 step 2)",
                     "18gemm_3xtf32_kernelILb0ELb0E":
-                        "f32 K1 steps 1 and 3, K16 step 1 gemm_3xtf32_kernel<NN>",
-                    "18gemm_3xtf32_kernelILb0ELb1E": "f32 K4/K17 dx, do gemm_3xtf32_kernel<NT>",
+                        "f32 K1 steps 1 and 3, K16 step 1, the K4 / K17 recomputes "
+                        "gemm_3xtf32_kernel<NN>",
+                    "18gemm_3xtf32_kernelILb0ELb1E":
+                        "gemm_3xtf32_kernel<NT> (the f32 wide tail's dx)",
                     "18gemm_3xtf32_kernelILb1ELb0E":
-                        "f32 K4/K17 dWp, dWqkv gemm_3xtf32_kernel<TN> (split-K)",
+                        "gemm_3xtf32_kernel<TN> (split-K; the f32 wide tail's dWe, dWh)",
                     "18ln_rows_f32_kernel": "f32 K1 step 4 ln_rows_f32_kernel",
                     "22attn_bwd_3xtf32_kernelILb1E": "f32 K5/K17 core attn_bwd_3xtf32_kernel<cosine>",
                     "22attn_bwd_3xtf32_kernelILb0E":
@@ -6497,13 +6637,20 @@ MLP_F32_PTXAS_NAMES.update({
     WG_KERNEL + "Lb1ELb0ELb0ELb0ENS0_10WgEpiStoreILb0E":
         "f32 K15 step 2 gemm_3xtf32_wg_kernel<NN> (u = g W2 + b2)",
     WG_KERNEL + "Lb1ELb1ELb1ELb0ENS0_7WgEpiDhE": "f32 K15 dh gemm_3xtf32_wg_kernel<NT, WgEpiDh>"})
+# the f32 K4's and K17's own products on the wgmma core (csrc/window_attention_bwd_f32.cu)
+PTXAS_NAMES.update({
+    WG_KERNEL + "Lb1ELb1ELb1ELb0ENS0_10WgEpiStoreILb0E":
+        "f32 K4 / K17 dx, do gemm_3xtf32_wg_kernel<NT>",
+    WG_KERNEL + "Lb0ELb0ELb0ELb0ENS0_12WgEpiPartialE":
+        "f32 K4 / K17 dWp, dWqkv gemm_3xtf32_wg_kernel<TN, split-K>"})
 
 
 def log_ptxas(build_log: str):
     """nvcc's -Xptxas -v report of the build, one line per kernel: its spills, stack,
     registers and shared memory, under its name (the window-attention and MLP kernels and
-    gemm_nt by name, the others mangled)."""
-    name, props = None, []
+    gemm_nt by name, the others mangled).  Fails where an instantiation of the wgmma core
+    (gemm_3xtf32_wg_kernel) spills."""
+    name, props, spilled = None, [], []
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
@@ -6515,7 +6662,12 @@ def log_ptxas(build_log: str):
             props.append(line.split(":", 1)[-1].strip())
             if "registers" in line:
                 log(f"ptxas {name}: " + "; ".join(props))
+                if "gemm_3xtf32_wg_kernel" in name and any(
+                        re.search(r"\b[1-9][0-9]* bytes spill", p) for p in props):
+                    spilled.append(name)
                 name = None
+    if spilled:
+        raise AssertionError(f"the wgmma core spills in {spilled}")
 
 
 def main() -> int:

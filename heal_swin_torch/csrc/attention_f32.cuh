@@ -8,9 +8,10 @@
 //   16 query rows; see window_attention_f32.cu), and tile_t_x_rows, the transposed
 //   product the backward adds (dV = P^T dO, dK = dS^T Q).
 // - gemm_3xtf32_kernel<AT, BT>: the 3xTF32 product in three layouts: NN (qkv = x Wqkv +
-//   b, u = o Wp + bp), NT (dx = dqkv Wqkv^T, do = du Wp^T) and TN, split over K into
-//   per-split partial matrices summed in a fixed order by reduce_rows (dWqkv = x^T dqkv,
-//   dWp = o^T du: K is the token count, up to 262,144, where M and N are <= 1,152).
+//   b, u = o Wp + bp: the forwards' products, which the backwards recompute), NT and TN
+//   (the decoder tail's wide route, final_head_wide.cu), TN split over K into per-split
+//   partial matrices summed in a fixed order by reduce_rows.  The backwards' own
+//   products (dWqkv, dWp, dx, do) run on the wgmma core (gemm_3xtf32_wgmma.cuh).
 // - ln_row_center: the two-pass LayerNorm statistics of a row held by a warp.
 // Every product is 3xTF32 on mma.sync m16n8k8 (tf32.cuh); no float atomics.
 #pragma once
@@ -469,17 +470,9 @@ inline cudaError_t gemm_nn_f32(const float* A, const float* B, const float* bias
   return gemm_f32_launch<false, false, Epi>(A, B, bias, out, M, N, K, 1, K, s, aux);
 }
 
-// out (M x N) = A (M x K) B^T, B (N x K), stored by Epi; M % 64 == 0, K % 32 == 0,
-// N % 4 == 0
-template <class Epi = EpiBias>
-inline cudaError_t gemm_nt_f32(const float* A, const float* B, float* out, int M, int N, int K,
-                               cudaStream_t s, float* aux = nullptr) {
-  if (M % 64 || K % GM_BK || N % 4 || M <= 0 || N <= 0 || K <= 0) return cudaErrorInvalidValue;
-  return gemm_f32_launch<false, true, Epi>(A, B, nullptr, out, M, N, K, 1, K, s, aux);
-}
-
-// gemm_nn_f32 and gemm_nt_f32 for any K % 4 == 0 (the decoder tail's wide route: K = C
-// or p C, C % 8 == 0): the last 32-k slice zero-filled past K
+// gemm_nn_f32, and out (M x N) = A (M x K) B^T with B (N x K), for any K % 4 == 0 (the
+// decoder tail's wide route: K = C or p C, C % 8 == 0): the last 32-k slice zero-filled
+// past K
 inline cudaError_t gemm_nn_f32_any_k(const float* A, const float* B, float* out, int M, int N,
                                      int K, cudaStream_t s) {
   if (M % 64 || K % 4 || N % 4 || M <= 0 || N <= 0 || K <= 0) return cudaErrorInvalidValue;

@@ -9,8 +9,8 @@
 //   K17 hs_window_attention_qkv_bwd_f32 <- _bwd_kernel_xw (fused_window_attention_qkv's
 //      VJP, x f32): qkv = x Wqkv + b recomputed by the f32 K16's step 1
 //      (gemm_3xtf32_kernel, K16's qkv bit for bit), the core, then dbias | dls and dbqkv
-//      (column sums of dqkv) through reduce_rows, dWqkv = x^T dqkv (the TN product,
-//      split over the tokens) and dx = dqkv Wqkv^T (the NT product).
+//      (column sums of dqkv) through reduce_rows, dWqkv = x^T dqkv (the wgmma core's TN
+//      product, split over the tokens, reduce_rows) and dx = dqkv Wqkv^T (its NT product).
 //   K4 hs_window_attention_qkv_epi_bwd_f32 <- _bwd_kernel_xw_epi (the VJP of
 //      fused_window_attention_qkv_epi, x f32): a launch sequence from one entry, on one
 //      stream: (1) the f32 K16, cosine: qkv and o, K1's bit for bit; (2) the projection /
@@ -18,8 +18,13 @@
 //      bit for bit), then ln_bwd_rows_f32_kernel: the LayerNorm backward a warp a row on
 //      the statistics of K1's ln_rows_f32 (ln_row_center), du and partial rows of dbp,
 //      dgamma, dbeta for reduce_rows (without LayerNorm du = dz and dbp = reduce_rows of
-//      dz); (3) dWp = o^T du (TN) and do = du Wp^T (NT); (4) the f32 K17 on (x, do),
-//      from step 1's qkv (the bits its own step 1 would compute).
+//      dz); (3) dWp = o^T du (TN) and do = du Wp^T (NT), on the wgmma core; (4) the f32
+//      K17 on (x, do), from step 1's qkv (the bits its own step 1 would compute).
+//
+// The products a backward alone computes (dWp, do, dWqkv, dx) run on the wgmma 3xTF32
+// core of gemm_3xtf32_wgmma.cuh (gemm_3xtf32_wg_kernel: TMA, B split once a slice by a
+// producer warpgroup); the recomputed qkv and u stay on the forward's own mma.sync
+// product (gemm_nn_f32), so that they are the forward's bits.
 //
 // attn_bwd_3xtf32_kernel: grid (runs of kRunF windows, heads), one 4-warp block a run of
 // one head, each warp 16 query rows and, for dK and dV, 16 keys.  Per window: the head's
@@ -46,11 +51,10 @@
 // dx) and K4 1536 C^2 + 49152 C in all: above the ridge at C >= 96, bounded by the
 // arithmetic.  In f32 the operands do not fit a block as the bf16 kernels' do (a 64 x C
 // f32 tile at C 384 is 98,304 bytes), so every product is its own launch and the
-// sequences move qkv, dqkv, o, u and do through device memory: those round trips, and
-// mma.sync's rate where wgmma wants K-major tf32 operands (Wqkv, Wp, V are row-major),
-// are what a later change works on.
+// sequences move qkv, dqkv, o, u and do through device memory.
 
 #include "attention_f32.cuh"
+#include "gemm_3xtf32_wgmma.cuh"
 
 namespace hs {
 namespace {
@@ -359,7 +363,8 @@ cudaError_t proj_ln_bwd_f32(const float* o, const float* wp, const float* bp, co
 }
 
 // the workspace of the f32 K17: qkv and dqkv (T x 3C), the core's partial rows, and the
-// reductions' and the TN product's scratch (at least min_tmp floats)
+// reductions' and the TN product's scratch (its split-K partial rows and their
+// reduction's; at least min_tmp floats)
 struct QkvBwdF32Work {
   size_t qkv, dqkv, part, tmp, total;
 };
@@ -369,7 +374,7 @@ inline QkvBwdF32Work qkv_bwd_f32_work(int T, int C, size_t min_tmp = 0) {
   const int runs = bwd_runs(T);
   const size_t W = attn_part_width_f32(C / HD);
   const size_t cand[4] = {reduce_rows_tmp_floats(runs, int(W)),
-                          reduce_rows_tmp_floats(T, 3 * C), gemm_tn_f32_tmp_floats(T, C, 3 * C),
+                          reduce_rows_tmp_floats(T, 3 * C), wg_tn_tmp_floats(T, C, 3 * C, 1),
                           min_tmp};
   size_t tmp = 0;
   for (size_t t : cand) tmp = t > tmp ? t : tmp;
@@ -403,14 +408,14 @@ cudaError_t qkv_bwd_f32(const float* x, const float* wqkv, const float* bqkv, co
   if (e != cudaSuccess) return e;
   e = reduce_rows(dqkv, red + attn_part_width_f32(C / HD), T, 3 * C, tmp, s);
   if (e != cudaSuccess) return e;
-  e = gemm_tn_f32(x, dqkv, dwqkv, T, C, 3 * C, tmp, s);
+  e = wg_tn(x, dqkv, nullptr, nullptr, dwqkv, T, C, 3 * C, 1, tmp, s);
   if (e != cudaSuccess) return e;
-  return gemm_nt_f32(dqkv, wqkv, dx, T, C, 3 * C, s);
+  return wg_nt<WgEpiStore<false>>(dqkv, wqkv, dx, nullptr, T, C, 3 * C, s);
 }
 
 // the workspace of the f32 K4: o, du (u first), do (T x C), step 2's partial rows, and
 // the f32 K17's workspace, whose qkv is step 1's and whose scratch also serves step 2's
-// reductions and the dWp product
+// reductions and the dWp product (the K17 scratch's offset does not depend on its size)
 struct EpiBwdF32Work {
   size_t o, du, dout, part, k17, total;
 };
@@ -423,13 +428,19 @@ inline EpiBwdF32Work epi_bwd_f32_work(int T, int C) {
   w.du = off; off += tile;
   w.dout = off; off += tile;
   w.part = off; off += align128(proj_ln_part_floats_f32(T, C) * 4);
-  const size_t a = proj_ln_tmp_floats_f32(T, C), b = gemm_tn_f32_tmp_floats(T, C, C);
+  const size_t a = proj_ln_tmp_floats_f32(T, C), b = wg_tn_tmp_floats(T, C, C, 1);
   w.k17 = off; off += qkv_bwd_f32_work(T, C, a > b ? a : b).total;
   w.total = off;
   return w;
 }
 
-inline bool takes(int T, int C) { return T > 0 && T % WS == 0 && C > 0 && C % HD == 0; }
+// the token counts and widths the backwards take: whole windows and heads, and the wgmma
+// core's products at them (dWqkv and dWp over K = T, dx over K = 3C, do over K = C; with
+// T % 64 and C % 32 they always hold)
+inline bool takes(int T, int C) {
+  return T > 0 && T % WS == 0 && C > 0 && C % HD == 0 && wg_takes(C, 3 * C, T) &&
+         wg_takes(T, C, 3 * C) && wg_takes(T, C, C);
+}
 
 }  // namespace
 }  // namespace hs
@@ -527,9 +538,9 @@ int hs_window_attention_qkv_epi_bwd_f32(const void* x, const void* wqkv, const v
                           T, C, has_ln, ln_eps, s);
   if (e != cudaSuccess) return int(e);
   const float* dun = has_ln ? du : dzf;
-  e = hs::gemm_tn_f32(o, dun, static_cast<float*>(dwp), T, C, C, tmp, s);
+  e = hs::wg_tn(o, dun, nullptr, nullptr, static_cast<float*>(dwp), T, C, C, 1, tmp, s);
   if (e != cudaSuccess) return int(e);
-  e = hs::gemm_nt_f32(dun, wpf, dout, T, C, C, s);
+  e = hs::wg_nt<hs::WgEpiStore<false>>(dun, wpf, dout, nullptr, T, C, C, s);
   if (e != cudaSuccess) return int(e);
   return int(hs::qkv_bwd_f32(xf, wq, nullptr, g, bs, ls, dout, static_cast<float*>(dx),
                              static_cast<float*>(dwqkv), redf, base + w.k17, T, C, true,
@@ -556,12 +567,12 @@ int hs_proj_ln_bwd_f32(const void* o, const void* wp, const void* bp, const void
       static_cast<cudaStream_t>(stream)));
 }
 
-// the f32 K17's and K4's NT product alone: out (M x N) = A (M x K) B (N x K)^T, f32, in
-// 3xTF32; M % 64, K % 32, N % 4 == 0
+// the f32 K17's and K4's NT product alone (the wgmma core's): out (M x N) = A (M x K)
+// B (N x K)^T, f32, in 3xTF32; M % 4, K % 32, N % 4 == 0
 int hs_gemm_nt_f32(const void* a, const void* b, void* out, int M, int N, int K, void* stream) {
-  return int(hs::gemm_nt_f32(static_cast<const float*>(a), static_cast<const float*>(b),
-                             static_cast<float*>(out), M, N, K,
-                             static_cast<cudaStream_t>(stream)));
+  return int(hs::wg_nt<hs::WgEpiStore<false>>(
+      static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(out),
+      nullptr, M, N, K, static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

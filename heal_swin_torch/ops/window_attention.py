@@ -47,7 +47,9 @@ partial rows; K17 K16's qkv product, K5's core, the column sums, the TN product 
 split over the tokens, ``reduce_rows``) and the NT product (dx, ``gemm_nt``); K4 K16, the
 projection/LayerNorm backward (``qkv_epi_proj_ln_bwd``), dWp (TN) and do (NT), then K17
 on K16's qkv.  Every product on the tensor cores in 3xTF32 (each operand split into two
-TF32 parts, three mma.sync products summed in f32: ``ops/tf32.py`` emulates it).
+TF32 parts, three products summed in f32: ``ops/tf32.py`` emulates it): the forwards' and
+the recomputed qkv and u on mma.sync, the backwards' own TN and NT products (dWqkv, dx,
+dWp, do) on the wgmma core of ``csrc/gemm_3xtf32_wgmma.cuh``.
 
 Dispatch (``impl``): "auto" runs the kernel for a CUDA tensor and the plain version
 for a CPU tensor; "xla" runs the plain version on any device (the JAX package's name
@@ -670,7 +672,7 @@ def window_attention_qkv_bwd(x, wqkv, bqkv, groups, bias, logit_scale, dout, *, 
 
 def gemm_nt(a, b, *, impl="auto"):
     """a (M, K) @ b (N, K)^T -> (M, N) through ``gemm_nt`` of ``csrc/reduce.cu`` (bf16) or
-    the NT ``gemm_3xtf32_kernel`` of ``csrc/attention_f32.cuh`` (f32, 3xTF32), the
+    the NT ``gemm_3xtf32_wg_kernel`` of ``csrc/gemm_3xtf32_wgmma.cuh`` (f32, 3xTF32), the
     product K17 runs for dx = dqkv Wqkv^T and K4 for do = du Wp^T (inside their entries,
     counted as their launches); bf16 or f32 operands of one dtype, M % 64 == 0, K % 32
     == 0, N % 8 == 0.  Plain twin: ``gemm_nt_plain``."""

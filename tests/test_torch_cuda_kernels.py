@@ -2501,6 +2501,113 @@ def test_f32_epi_bwd_steps(dev, no_tf32, C, has_ln):
     assert dict(wa.launches) == before
 
 
+def _qkv_bwd_args_f32(gen, dev, T, C):
+    """The f32 K4's and K17's operands at (T, C), f32 draws (their TF32 split has a low
+    part): x, Wqkv, bqkv, Wp, bp, gamma, beta, 3 mask groups, the rel-pos bias, logit
+    scales near their init (where dlogit_scale meets 1e-5 relative L2:
+    ``tests/test_torch_attention_f32_train.py``), and dz."""
+    h = C // 32
+    return (_randn(gen, dev, T, C), _randn(gen, dev, C, 3 * C, std=C ** -0.5),
+            _randn(gen, dev, 3 * C, std=0.02), _randn(gen, dev, C, C, std=C ** -0.5),
+            _randn(gen, dev, C, std=0.02), 1 + _randn(gen, dev, C, std=0.1),
+            _randn(gen, dev, C, std=0.1),
+            torch.randint(0, 3, (T // 64, 64), generator=gen, dtype=torch.int32).to(dev),
+            _randn(gen, dev, h, 64, 64, std=0.5), torch.exp(_randn(gen, dev, h, std=0.5) + 2.3),
+            _randn(gen, dev, T, C))
+
+
+def _same_outputs(got, want):
+    assert len(got) == len(want)
+    for u, v in zip(got, want):
+        assert (u is None) == (v is None)
+        assert u is None or torch.equal(u, v)
+
+
+def _held_f32(got, want):
+    assert len(got) == len(want)
+    for u, w in zip(got, want):
+        assert (u is None) == (w is None)
+        if w is not None:
+            assert _rel_l2(u, w) < F32_TOL
+
+
+@pytest.mark.parametrize("batch", [2, 1])
+@pytest.mark.parametrize("T,C", STAGES_F32[:3])
+def test_f32_qkv_bwd_kernels_at_the_stage_shapes(dev, no_tf32, T, C, batch):
+    """The f32 K17 (cosine and scaled-dot) and the f32 K4 (with and without LayerNorm),
+    masked and unmasked, at a stage shape of batch 2 or its half (a ragged batch of 1):
+    every output within F32_TOL of the plain version, two launches bit-equal, and each
+    kernel its steps composed bit for bit (``chip_smoke.f32_bwd_steps``): qkv recomputed
+    by the forwards' own product (``gemm_nn_f32``), K4's u by the f32 K1's (inside
+    ``qkv_epi_proj_ln_bwd``), and dWp, do, dWqkv and dx the wgmma core's products
+    (``gemm_wg_f32``)."""
+    import chip_smoke
+
+    gen = torch.Generator().manual_seed(300 + C + batch)
+    T = T * batch // 2
+    h = C // 32
+    x, wq, bq, wp, bp, g, b, groups, bias, ls, dz = _qkv_bwd_args_f32(gen, dev, T, C)
+    for masked in (False, True):
+        gr = groups if masked else None
+        for use_cos in (True, False):
+            a = (x, wq, bq, gr, bias, ls if use_cos else None)
+            kw = dict(ws=64, num_heads=h, use_cos=use_cos, sm_scale=32 ** -0.5,
+                      has_mask=masked)
+            got = wa.window_attention_qkv_bwd(*a, dz, **kw)
+            _held_f32(got, wa.window_attention_qkv_bwd_plain(*a, dz, **kw))
+            _same_outputs(got, wa.window_attention_qkv_bwd(*a, dz, **kw))
+            _same_outputs(got, chip_smoke.f32_bwd_steps(x, wq, bq, None, None, None, gr, bias,
+                                                        a[5], dz, epi=False, **kw))
+        for has_ln in (True, False):
+            e = (x, wq, bq, wp, bp, g if has_ln else None, b if has_ln else None, gr, bias, ls)
+            kw = dict(ws=64, num_heads=h, sm_scale=1.0, has_mask=masked)
+            got = wa.window_attention_qkv_epi_bwd(*e, dz, **kw)
+            _held_f32(got, wa.window_attention_qkv_epi_bwd_plain(*e, dz, **kw))
+            _same_outputs(got, wa.window_attention_qkv_epi_bwd(*e, dz, **kw))
+            _same_outputs(got, chip_smoke.f32_bwd_steps(*e[:6], gr, bias, ls, dz, num_heads=h,
+                                                        use_cos=True, sm_scale=1.0,
+                                                        has_mask=masked, epi=True))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("T,C", [(64 * 5, 96), (262144, 96), (65536, 192), (16384, 384)])
+def test_f32_epi_bwd_recomputes_the_forward_u(dev, no_tf32, T, C):
+    """The f32 K4 recomputes the f32 K1's u bit for bit (and so its qkv and o): with gamma
+    = 1 and beta = 0, and dz one on every column of row t and zero elsewhere, K4's dgamma
+    is the LayerNorm's xhat[t, :] (each column a sum of zeros and one product by 1), and
+    the f32 K1's output row t is xhat[t] * 1 + 0."""
+    gen = torch.Generator().manual_seed(330 + C)
+    x, wq, bq, wp, bp, _, _, groups, bias, ls, _ = _qkv_bwd_args_f32(gen, dev, T, C)
+    args = (x, wq, bq, wp, bp, torch.ones(C, device=dev), torch.zeros(C, device=dev), groups,
+            bias, ls)
+    kw = dict(ws=64, num_heads=C // 32, sm_scale=1.0, has_mask=True)
+    out = wa.window_attention_qkv_epi_fwd(*args, **kw)
+    for t in (0, T // 2 + 77, T - 1):
+        dz = torch.zeros(T, C, device=dev)
+        dz[t] = 1.0
+        dgamma = wa.window_attention_qkv_epi_bwd(*args, dz, **kw)[5]
+        torch.cuda.synchronize()
+        assert (out[t] != 0).sum() > C // 2  # the probe reads a real row
+        assert torch.equal(dgamma, out[t]), t
+
+
+@pytest.mark.parametrize("T,C", [(32, 96), (64 * 3, 192), (16384, 384), (262144, 96)])
+def test_gemm_wg_f32_tn_at_the_qkv_widths(dev, no_tf32, T, C):
+    """The wgmma core's TN product as the f32 K17's dWqkv = x^T dqkv (M = C, N = 3C over
+    K = T tokens): one split at K 32, many at the stage shapes (44 at T 262,144, C 96 on
+    an H100's 132 SMs), reduced in a fixed order; within MLP_F32_TOL of torch f32, two
+    launches bit-equal."""
+    from heal_swin_torch.ops import mlp as tm
+
+    gen = torch.Generator().manual_seed(340 + C + T % 1000)
+    x, dqkv = _randn(gen, dev, T, C), _randn(gen, dev, T, 3 * C)
+    got = tm.gemm_wg_f32(x, dqkv, "tn")
+    torch.cuda.synchronize()
+    assert got.shape == (C, 3 * C)
+    assert _rel_l2(got, tm.gemm_wg_f32_plain(x, dqkv, "tn")) < MLP_F32_TOL
+    assert torch.equal(got, tm.gemm_wg_f32(x, dqkv, "tn"))
+
+
 @pytest.mark.parametrize("T,C,F", [(64 * 65, 32, 16), (64 * 65, 96, 8), (64 * 3, 64, 5),
                                    (64 * 65, 128, 12), (262144, 96, 8), (64 * 65, 96, 25),
                                    (64 * 65, 96, 33), (64 * 65, 64, 128)])

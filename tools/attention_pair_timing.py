@@ -2,7 +2,7 @@
 GPU, in turns: other, this, this, other.
 
     python3 tools/attention_pair_timing.py --other _checkout/parent \
-        [--family mlp|tail|f32|tail_f32|tails|paths|mlp_f32]
+        [--family mlp|tail|f32|tail_f32|tails|paths|mlp_f32|attn_f32_bwd]
 
 ``--other`` is an unpacked copy of another commit (``git archive`` into the
 git-ignored ``_checkout/``).  Each of the four turns is its own process: it imports
@@ -54,7 +54,16 @@ MLP phase runs it at), each beside the f32 ``mlp_route`` of its function (autogr
 backward, TF32 off) as the control, with each kernel's device ms by kernel name and the
 ptxas lines of the f32 MLP kernels the turn built; it sums them over step (c)'s 22 K13
 launches (4 at C 96, 4 at C 192, 12 at C 384, 2 at C 768) and the MLP phase's 20 K15
-launches (4, 4 and 12).  ``--family all`` (the default) times the first four.
+launches (4, 4 and 12).  ``--family attn_f32_bwd`` times the f32 K4 (cosine, with
+LayerNorm) and the f32 K17 (cosine) at the three stage shapes of batch 2, masked and
+unmasked, on chip_smoke.py's ``check_f32_train_kernels`` operands, each summed over its
+step's 20 launches (the f32 K4 over step (b)'s, the f32 K17 over step (a)'s: 2 and 2 at C
+96 and C 192, 6 and 6 at C 384), with the f32 K5 (cosine, the bottleneck, one launch of
+each mask a step) and the f32 K1 (with LayerNorm) and K16 (cosine) at the stage shapes as
+the controls that run the same code in both checkouts; each turn
+prints K4's and K17's device ms by kernel over those launches (one traced call a shape,
+chip_smoke.py's ``trace``) and the ptxas lines of the f32 backward's kernels its build
+compiled.  ``--family all`` (the default) times the first four.
 
 Each shape gets two times: the device time (``device_ms``: each call enqueued behind a
 spin kernel, so that the events bracket the device work alone) and a single call's
@@ -168,6 +177,8 @@ def turn(root: Path, family: str) -> dict:
         times.update(path_times(smoke, dev, both))
     if family == "mlp_f32":
         times.update(mlp_f32_times(smoke, dev, both))
+    if family == "attn_f32_bwd":
+        times.update(attn_f32_bwd_times(smoke, dev, both))
     torch.cuda.synchronize()
     return times
 
@@ -278,6 +289,76 @@ def mlp_f32_times(smoke, dev, both) -> dict:
     times["ptxas"] = ptxas_lines(_build.build_log, lambda n: "_mlp_f32_cu_" in n,
                                  ("gemm_", "mlp_ln_"))
     return times
+
+
+def attn_f32_bwd_times(smoke, dev, both) -> dict:
+    """The f32 K4 (cosine, with LayerNorm) and the f32 K17 (cosine) at the three stage
+    shapes of batch 2, masked and unmasked, on ``check_f32_train_kernels``' operands (its
+    seed and draws: the bf16 draws of ``stage_inputs`` taken to f32), and the f32 K5
+    (cosine) at the bottleneck, masked and unmasked, and the f32 K1 (with LayerNorm) and
+    K16 (cosine) at the stage shapes, as the controls: the same code in both checkouts.  Each call of K4 and K17 traced by kernel (label "by kernel": for each
+    call's label, kernel -> [device ms, launches] a call, ``per_call_by_kernel``); the ptxas
+    lines of the f32 backward's kernels (label "ptxas")."""
+    import torch
+
+    from heal_swin_torch import _build
+    from heal_swin_torch.ops import window_attention as wa
+
+    rnd, logit_scales = smoke.seeded_draws(torch.Generator().manual_seed(smoke.SEED + 40), dev)
+    times, by_kernel = {}, {}
+    with torch.no_grad():
+        for stage in range(3):
+            T, C, h, args = smoke.stage_inputs(rnd, logit_scales, stage, dev)
+            x, wq, bq, wp, bp, g, b, bias, ls, groups = (
+                a.float() if a.dtype == torch.bfloat16 else a for a in args)
+            dz = rnd(T, C)
+            for masked in (False, True):
+                gr = groups if masked else None
+                kw = dict(ws=smoke.WS, num_heads=h, has_mask=masked, impl="pallas")
+                label = f"C={C} T={T} mask={masked}"
+                calls = {
+                    "f32-K4": lambda: wa.window_attention_qkv_epi_bwd(
+                        x, wq, bq, wp, bp, g, b, gr, bias, ls, dz, sm_scale=1.0, **kw),
+                    "f32-K17": lambda: wa.window_attention_qkv_bwd(
+                        x, wq, bq, gr, bias, ls, dz, use_cos=True, sm_scale=smoke.DOT_SCALE,
+                        **kw)}
+                for name, fn in calls.items():
+                    times[f"{name} {label}"] = both(fn)
+                    by_kernel[f"{name} {label}"] = smoke.per_call_by_kernel(
+                        smoke.trace(fn, smoke.SEQUENCE_TRACED)[0])[0]
+                times[f"f32-K1 {label}"] = both(lambda: wa.window_attention_qkv_epi_fwd(
+                    x, wq, bq, wp, bp, g, b, gr, bias, ls, sm_scale=1.0, **kw))
+                times[f"f32-K16 {label}"] = both(lambda: wa.window_attention_qkv_fwd(
+                    x, wq, bq, gr, bias, ls, use_cos=True, sm_scale=smoke.DOT_SCALE, **kw))
+            del x, dz, args
+            torch.cuda.empty_cache()
+        T, C, h, (qkv, bias, ls, groups, dout) = smoke.bottleneck_inputs(rnd, logit_scales, dev)
+        qkv, dout = qkv.float(), dout.float()
+        for masked in (False, True):
+            kw = dict(ws=smoke.WS, num_heads=h, use_cos=True, sm_scale=smoke.DOT_SCALE,
+                      has_mask=masked, impl="pallas")
+            a = (qkv, groups if masked else None, bias, ls)
+            times[f"f32-K5 C={C} T={T} mask={masked} cosine"] = both(
+                lambda: wa.window_attention_bwd(*a, dout, **kw))
+    times["by kernel"] = by_kernel
+    times["ptxas"] = ptxas_lines(_build.build_log, lambda n: "_window_attention_bwd_f32_cu_" in n,
+                                 ("gemm_", "attn_", "ln_"))
+    return times
+
+
+def attn_f32_bwd_breakdown(t: dict, kernel: str) -> dict:
+    """A turn's f32 K4 or K17 device ms and launches by kernel, summed over a train
+    step's launches (STEP_LAUNCHES: step (b)'s f32 K4, step (a)'s f32 K17)."""
+    total = {}
+    for label, per in t["by kernel"].items():
+        name, shape, _, mask = label.split()
+        if name != kernel:
+            continue
+        n = STEP_LAUNCHES[(int(shape[2:]), mask == "mask=True")]
+        for short, (ms, cnt) in per.items():
+            ms0, cnt0 = total.get(short, (0.0, 0.0))
+            total[short] = (ms0 + n * ms, cnt0 + n * cnt)
+    return total
 
 
 def tail_times(smoke, dev, both) -> dict:
@@ -512,7 +593,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", type=Path, help="the other checkout (e.g. the parent)")
     ap.add_argument("--family", choices=("attention", "mlp", "tail", "f32", "tail_f32", "tails",
-                                         "paths", "mlp_f32", "all"),
+                                         "paths", "mlp_f32", "attn_f32_bwd", "all"),
                     default="all",
                     help="which kernels to time (default: all)")
     ap.add_argument("--turn", type=Path, help=argparse.SUPPRESS)
@@ -548,10 +629,18 @@ def main() -> int:
                     print(f"{who} ptxas {line}")
             elif label.startswith("split "):
                 print(f"{who} {label}: {v[0]:.4f} ms a call on the device")
+    if a.family == "attn_f32_bwd":  # the f32 K4's and K17's sequences by kernel, turn by turn
+        for who, t in runs:
+            for kernel, step in (("f32-K4", "(b)"), ("f32-K17", "(a)")):
+                total = attn_f32_bwd_breakdown(t, kernel)
+                print(f"{who} {kernel} over step {step}'s 20 launches by kernel: "
+                      f"{sum(ms for ms, _ in total.values()):.4f} ms on the device")
+                for short, (ms, cnt) in sorted(total.items(), key=lambda kv: -kv[1][0]):
+                    print(f"{who} {kernel} {ms:9.4f} ms {cnt:6.1f} launches  {short}")
     for which, kind in enumerate(("on the device", "a single call")):
         print(f"-- {kind}")
         for label in runs[1][1]:
-            if label != "ptxas" and not label.startswith("split "):
+            if label not in ("ptxas", "by kernel") and not label.startswith("split "):
                 print(compare(label, runs, lambda t: t[label][which] if label in t else None))
         if a.family in ("attention", "all"):
             for kernel, n, flavour in (("K1", 20, ""), ("K4", 20, ""), ("K16", 20, ""),
@@ -575,6 +664,14 @@ def main() -> int:
             for kernel, per_c in MLP_LAUNCHES.items():
                 print(compare(f"{kernel} over the MLP phase's {sum(per_c.values())} launches",
                               runs, lambda t: mlp_phase_ms(t, kernel, which)))
+        if a.family == "attn_f32_bwd":
+            for kernel, n, step, flavour in (("f32-K4", 20, "step (b)'s", ""),
+                                             ("f32-K17", 20, "step (a)'s", ""),
+                                             ("f32-K5", 2, "a step's", "cosine"),
+                                             ("f32-K1", 20, "step (b)'s", ""),
+                                             ("f32-K16", 20, "step (a)'s", "")):
+                print(compare(f"{kernel} over {step} {n} launches", runs,
+                              lambda t: step_ms(t, kernel, which, flavour or "scaled-dot")))
         if a.family == "mlp_f32":
             for kernel, per_c in F32_MLP_LAUNCHES.items():
                 where = "step (c)'s" if per_c is STEP_C_LAUNCHES else "the MLP phase's"
